@@ -1,0 +1,183 @@
+"""Paged-attention decode: the hand-written CUDA kernel's wrapper, its
+plain PyTorch version, and the pricing helpers the scheduler imports.
+
+One query token per decode slot attends to that slot's whole KV history,
+which lives in physical pages shared across slots (serve/kv_cache.py).
+q (B, KV, G, hd); k/v pools (P, page, KV, hd); block_tables (B, n_blocks)
+int32 logical block -> physical page; pos (B,) int32 last written
+position.  Dead table entries point at trash page 0 and the
+``k_pos <= pos`` mask removes them exactly.
+
+* :func:`paged_attention_reference` gathers the pages to (B, S, KV, hd)
+  and attends — the JAX package's jnp reference, op for op.
+* :func:`paged_attention` launches ``csrc/paged_attention.cu`` (the port
+  of the Pallas ``_paged_decode_kernel``) on CUDA tensors and refuses
+  anything else; ``kernels/ops.py`` routes CPU tensors to the reference.
+
+The kernel keeps ``p @ v`` in float32, as the Pallas kernel does, while
+the reference casts the probabilities to the value dtype before the PV
+product; in bf16 the two therefore differ by bf16 rounding of ``p``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build
+
+NEG_INF = -1e30
+
+# head dims and (rounded-up) query-group counts the kernel is instantiated
+# for; csrc/paged_attention.cu dispatches on the same sets
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_MAX_GROUPS = 8
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_attention_reference(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float, soft_cap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """GQA paged decode, gather-and-attend.  Returns (B, KV, G, hd)."""
+    _reject_scales(k_scale, v_scale)
+    B = q.shape[0]
+    KV, hd = k_pool.shape[2], k_pool.shape[3]
+    page_size = k_pool.shape[1]
+    S = block_tables.shape[1] * page_size
+    bt = block_tables.long()
+    k = k_pool[bt].reshape(B, S, KV, hd)
+    v = v_pool[bt].reshape(B, S, KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", q, k).float() * scale
+    if soft_cap > 0:
+        s = torch.tanh(s / soft_cap) * soft_cap
+    k_pos = torch.arange(S, device=q.device)
+    m = pos.long()[:, None] >= k_pos[None, :]                   # (B, S)
+    s = torch.where(m[:, None, None, :], s, NEG_INF)
+    p_attn = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgs,bskh->bkgh", p_attn, v).to(q.dtype)
+
+
+def _reject_scales(k_scale, v_scale) -> None:
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized KV pools (scale pools) are not ported yet: "
+            "ROADMAP queue 1 item 5")
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
+           shape: tuple, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_attention(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float, soft_cap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the CUDA decode kernel on the current stream (no sync).
+
+    Same contract as :func:`paged_attention_reference`.  Takes CUDA
+    tensors only: bf16 or f32 q / pools, head_dim in
+    ``KERNEL_HEAD_DIMS``, at most ``KERNEL_MAX_GROUPS`` query heads per KV
+    head, int32 block tables and positions.  ``launches`` counts the
+    kernel launches this wrapper made."""
+    _reject_scales(k_scale, v_scale)
+    if not q.is_cuda:
+        raise ValueError(
+            "paged_attention launches a CUDA kernel and takes CUDA tensors "
+            f"only (q is on {q.device}); kernels.ops dispatches CPU tensors "
+            "to paged_attention_reference")
+    B, KV, G, hd = q.shape
+    P, page_size = k_pool.shape[0], k_pool.shape[1]
+    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype} not in {list(_DTYPE_CODES)}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {KERNEL_HEAD_DIMS}")
+    if not 1 <= G <= KERNEL_MAX_GROUPS:
+        raise ValueError(f"{G} query heads per KV head; the kernel takes "
+                         f"1..{KERNEL_MAX_GROUPS}")
+    dev = q.device
+    _check("q", q, q.dtype, (B, KV, G, hd), dev)
+    _check("k_pool", k_pool, q.dtype, (P, page_size, KV, hd), dev)
+    _check("v_pool", v_pool, q.dtype, (P, page_size, KV, hd), dev)
+    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
+    _check("pos", pos, torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    lib = build.library("paged_attention", C_SIGNATURES)
+    err = lib.paged_attention_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        B, KV, G, hd, page_size, n_blocks, float(scale), float(soft_cap),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+# the C interface of csrc/paged_attention.cu, bound by kernels/build.py
+C_SIGNATURES = {
+    "paged_attention_decode": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
+# --------------------------------------------------------------------------
+# Pricing helpers (the scheduler's per-token VMEM ledger)
+#
+# Derived from the Pallas kernel's grid (B, KV, n_blocks) and scratch;
+# kept verbatim so the port's ledger equals the reference's.  The H100
+# spec leaves the on-chip level unpriced (core/roofline/hardware.py).
+# --------------------------------------------------------------------------
+
+def live_blocks(context_len: int, page_size: int, n_q: int = 1) -> int:
+    """Pages holding live KV for a slot whose LAST query sits at position
+    ``context_len + n_q - 2`` (decode: n_q=1 -> lines 0..L-1)."""
+    lines = max(1, int(context_len) + int(n_q) - 1)
+    return -(-lines // int(page_size))
+
+
+def paged_decode_vmem_bytes(
+    *, context_len: int, page_size: int, n_heads: int, kv_heads: int,
+    head_dim: int, isize: int, n_q: int = 1, pipeline: str = "off",
+    kv_isize: int = 0, scale_isize: int = 0,
+) -> float:
+    """On-chip bytes one slot moves in the GQA paged decode (``n_q == 1``)
+    or verify (``n_q == T``) walk: streamed K/V slabs, query re-reads per
+    block step (once per program with ``pipeline="double"``), float32
+    softmax carries read and written per block step, the output flush and
+    the appended lines."""
+    g = n_heads // kv_heads
+    rows = g * n_q
+    nb = live_blocks(context_len, page_size, n_q)
+    q_steps = nb if pipeline == "off" else 1
+    kv_line = head_dim * (kv_isize or isize) + scale_isize
+    stream = kv_heads * nb * 2 * page_size * kv_line
+    q_reread = kv_heads * q_steps * rows * head_dim * isize
+    carries = kv_heads * nb * 2 * rows * (head_dim + 2) * 4
+    out = kv_heads * rows * head_dim * isize
+    appended = n_q * 2 * kv_heads * kv_line
+    return float(stream + q_reread + carries + out + appended)

@@ -1,0 +1,84 @@
+"""Where a decode step's time goes on the card: a torch.profiler window
+over steady-state engine steps.
+
+    python -m repro_torch.launch.profile_decode [--steps 8]
+
+Builds full-width qwen3-0.6b (random weights, seeded), fills all slots
+with decoding requests, then profiles ``--steps`` engine steps that only
+decode.  Prints the window's wall time, the summed device time of every
+kernel in it (the device busy share is their ratio), and the kernels with
+the most device time, beside the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..configs import get_config
+from ..device import resolve_device
+from ..models import init_params
+from ..obs.clock import now
+from ..serve import Engine, EngineConfig, GenerateConfig
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cfg = get_config(args.arch)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    engine = Engine(cfg, params, EngineConfig(
+        num_slots=args.slots, max_len=args.prompt_len + 64, device=dev))
+    rng = np.random.default_rng(0)
+    gen = GenerateConfig(max_new_tokens=args.steps + 16)
+    for _ in range(args.slots):
+        engine.submit(rng.integers(0, cfg.vocab_size, args.prompt_len), gen)
+    for _ in range(4):                       # admit, prefill, warm decode
+        engine.step()
+    if len(engine._sched.decode_requests()) != args.slots:
+        raise RuntimeError("slots did not fill before the profiled window")
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = now()
+        for _ in range(args.steps):
+            engine.step()
+        torch.cuda.synchronize(dev)
+        wall = now() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    print(card)
+    print(f"[profile] {args.arch}, {args.slots} slots decoding, context "
+          f"~{args.prompt_len}: {args.steps} steps in {wall * 1e3:.3f} ms "
+          f"({wall / args.steps * 1e3:.3f} ms/step); {len(kernels)} kernel "
+          f"launches ({len(kernels) / args.steps:.0f}/step); device busy "
+          f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.1%} of the "
+          f"window")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
+            :args.top]:
+        print(f"[profile] {t / 1e3:9.3f} ms {t / busy_us:6.1%} "
+              f"{n / args.steps:6.1f}/step  {name[:90]}")
+
+
+if __name__ == "__main__":
+    main()

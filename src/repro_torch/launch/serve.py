@@ -1,0 +1,73 @@
+"""Serving launcher: continuous-batching generation with the paged engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --batch 6 --prompt-len 64 --new-tokens 32 --slots 4
+
+Runs on the card by default (``--device cuda``); ``--device cpu`` runs
+the plain PyTorch path (use ``--smoke`` there).  Weights are random, from
+a generator seeded ``--seed``.  Prints tokens/s and the per-request
+decode roofline ledger line.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from ..configs import ALL_ARCHS, get_config, smoke
+from ..device import resolve_device, synchronize
+from ..models import init_params
+from ..obs.clock import now
+from ..serve import Engine, EngineConfig, GenerateConfig
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ALL_ARCHS), default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=0,
+                    help="decode slots (0 = one per request)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke(cfg)
+    dev = resolve_device(args.device)
+    gen_ = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen_, dev)
+    slots = args.slots or args.batch
+    engine = Engine(cfg, params, EngineConfig(
+        num_slots=slots, page_size=args.page_size,
+        max_len=args.prompt_len + args.new_tokens,
+        prefill_chunk=args.prefill_chunk, device=dev))
+    rng = np.random.default_rng(args.seed)
+    gen = GenerateConfig(max_new_tokens=args.new_tokens)
+    reqs = [engine.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
+                          gen) for _ in range(args.batch)]
+    t0 = now()
+    engine.run()
+    synchronize(dev)
+    dt = now() - t0
+    n_tok = sum(len(r.generated) for r in reqs)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[serve] {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = "
+          f"{n_tok / dt:.1f} tok/s over {slots} slots on {where}")
+    for r in reqs:
+        t = engine.roofline_terms(r)
+        print(f"  req {r.request_id}: {len(r.generated)} tok, "
+              f"ttft {r.ttft * 1e3:.1f} ms, AI={t.arithmetic_intensity:.2f} "
+              f"FLOP/B, {t.bound_class()}, mean batch "
+              f"{r.ledger.mean_batch:.2f}")
+
+
+if __name__ == "__main__":
+    main()

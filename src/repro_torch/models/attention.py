@@ -1,0 +1,193 @@
+"""GQA self-attention (+qk-norm, RoPE) over full sequences and paged KV
+caches.  MLA and cross-attention are not ported yet (ROADMAP queue 1
+items 6 and 9).
+
+The attention core is plain PyTorch ops, as the reference's is plain jnp
+outside any kernel; only paged decode goes through a hand-written kernel
+(kernels/ops.py ``paged_attention``).  KV heads stay un-repeated: the
+query-group dim G rides along so GQA never materializes repeated K/V.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..kernels import ops as kernel_ops
+from ..kernels import quantize as kvq
+from .common import ModelConfig
+from .layers import apply_rope, rms_head_norm, rope_cos_sin
+from .params import ParamDef
+
+NEG_INF = -1e30
+
+Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.dtype
+    defs = {
+        "wq": ParamDef((D, H, hd), dt, fan_in_axes=(0,)),
+        "wk": ParamDef((D, KV, hd), dt, fan_in_axes=(0,)),
+        "wv": ParamDef((D, KV, hd), dt, fan_in_axes=(0,)),
+        "wo": ParamDef((H, hd, D), dt, fan_in_axes=(0, 1)),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), "float32", init="ones")
+        defs["k_norm"] = ParamDef((hd,), "float32", init="ones")
+    return defs
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor) -> Rope:
+    """RoPE cos/sin for ``positions`` (..., S), or None without RoPE.
+    Every layer sees the same positions, so a forward pass computes them
+    once and hands them to each layer (the reference recomputes them per
+    layer, with the same values)."""
+    if cfg.pos_emb != "rope":
+        return None
+    return rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) @ (D, N, hd) -> (B, S, N, hd)."""
+    B, S, _ = x.shape
+    return (x @ w.reshape(w.shape[0], -1)).view(B, S, *w.shape[1:])
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) @ (H, hd, D) -> (B, S, D)."""
+    B, S = o.shape[:2]
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, rope: Rope):
+    """Self-attention q, k, v (B, S, heads, hd) with qk-norm and RoPE."""
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+    return q, k, v
+
+
+def _attn_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
+               soft_cap: float = 0.0) -> torch.Tensor:
+    """q (B,Sq,KV,G,hd)  k,v (B,Sk,KV,hd)  ->  (B,Sq,KV,G,hd)."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+    if soft_cap > 0:
+        s = torch.tanh(s / soft_cap) * soft_cap
+    if causal:
+        m = q_pos[:, :, None] >= k_pos[:, None, :]              # (B, Sq, Sk)
+        s = torch.where(m[:, None, None, :, :], s, NEG_INF)
+    p_attn = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", p_attn, v)
+
+
+def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
+                        positions: torch.Tensor, rope: Rope
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal full-sequence self-attention.  x (B, S, D), positions (B, S),
+    ``rope`` = rope_tables(cfg, positions).  Returns (out (B, S, D),
+    {"k", "v"} (B, S, KV, hd)) — the K/V lines a prefill collects."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    q, k, v = _project_qkv(p, x, cfg, rope)
+    q = q.reshape(B, S, KV, G, hd)
+    scale = 1.0 / (hd ** 0.5)
+    chunk = cfg.attn_chunk
+    if S > 2 * chunk and S % chunk == 0:
+        # query chunks bound the score matrix to (B, KV, G, chunk, S)
+        o = torch.cat([
+            _attn_core(q[:, i:i + chunk], k, v, positions[:, i:i + chunk],
+                       positions, causal=True, scale=scale,
+                       soft_cap=cfg.attn_logit_soft_cap)
+            for i in range(0, S, chunk)], dim=1)
+    else:
+        o = _attn_core(q, k, v, positions, positions, causal=True,
+                       scale=scale, soft_cap=cfg.attn_logit_soft_cap)
+    return _out_proj(o, p["wo"]), {"k": k, "v": v}
+
+
+# --------------------------------------------------------------------------
+# Paged KV cache
+# --------------------------------------------------------------------------
+
+def paged_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int
+                    ) -> Dict[str, ParamDef]:
+    """Physical page pool for the GQA KV cache: (num_pages, page_size, KV,
+    hd).  Pages carry no batch dim — a per-slot block table maps logical
+    block -> physical page, shared across layers."""
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    store = kvq.store_dtype(cfg.kv_dtype, cfg.dtype)
+    shape = (num_pages, page_size, KV, hd)
+    return {"k": ParamDef(shape, store, init="zeros"),
+            "v": ParamDef(shape, store, init="zeros")}
+
+
+def _commit_kv(pool: Dict[str, torch.Tensor], name: str, blk: torch.Tensor,
+               off: torch.Tensor, new: torch.Tensor) -> None:
+    """Write new K or V lines into the page pool IN PLACE (``index_put_``;
+    the reference returns an updated pool instead).  ``new`` (..., KV, hd)
+    indexed by ``blk``/``off`` of matching leading shape.  Idle lanes all
+    write trash page 0, line 0; which of them lands there is irrelevant."""
+    pool[name].index_put_((blk.long(), off.long()),
+                          new.to(pool[name].dtype))
+
+
+def decode_attention_paged(
+    p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
+    block_tables: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
+    page_size: int, rope: Rope,
+) -> torch.Tensor:
+    """One-token decode for every slot against a paged pool (updated in
+    place).  x (B,1,D); pool k/v (P, page, KV, hd); block_tables
+    (B, n_blocks) int32; pos (B,) int32 per-slot write position; ``rope``
+    = rope_tables(cfg, pos[:, None]).  Inactive slots map to the trash
+    page and are discarded by the caller."""
+    B, _, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    q, k_new, v_new = _project_qkv(p, x, cfg, rope)
+    blk = torch.gather(block_tables, 1,
+                       (pos[:, None] // page_size).long())[:, 0]
+    off = pos % page_size
+    _commit_kv(pool, "k", blk, off, k_new[:, 0])
+    _commit_kv(pool, "v", blk, off, v_new[:, 0])
+    o = kernel_ops.paged_attention(
+        q.reshape(B, KV, G, hd).contiguous(), pool["k"], pool["v"],
+        block_tables, pos, scale=1.0 / (hd ** 0.5),
+        soft_cap=cfg.attn_logit_soft_cap).reshape(B, 1, H, hd)
+    return _out_proj(o.to(x.dtype), p["wo"])
+
+
+def prefill_attention_paged(
+    p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
+    block_table: torch.Tensor, offset: int, cfg: ModelConfig, *,
+    page_size: int, rope: Rope,
+) -> torch.Tensor:
+    """Chunked prefill for ONE request: x (1,T,D) at positions
+    offset..offset+T-1 (``rope`` for those), attending to everything this
+    slot has cached (earlier chunks + causal self).  block_table
+    (n_blocks,).  The pool is updated in place."""
+    B, T, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    idx = offset + torch.arange(T, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, rope)
+    blk, off = block_table[idx.long() // page_size], idx % page_size
+    _commit_kv(pool, "k", blk, off, k_new[0])
+    _commit_kv(pool, "v", blk, off, v_new[0])
+    S = block_table.shape[0] * page_size
+    bt = block_table.long()
+    k = pool["k"][bt].reshape(1, S, KV, hd)
+    v = pool["v"][bt].reshape(1, S, KV, hd)
+    k_pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    o = _attn_core(q.reshape(B, T, KV, G, hd), k, v, idx[None, :], k_pos,
+                   causal=True, scale=1.0 / (hd ** 0.5),
+                   soft_cap=cfg.attn_logit_soft_cap).reshape(B, T, H, hd)
+    return _out_proj(o, p["wo"])

@@ -1,0 +1,169 @@
+"""Shared layers: norms, activations, MLPs, embeddings, RoPE.
+
+Each layer is a (param defs, apply) pair over plain tensors and parameter
+dicts, mirroring the JAX package's ``models/layers.py`` op for op: norms
+compute in float32 and cast back, RoPE is half-split (NeoX) with cos/sin
+cast to the activation dtype before the multiply.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .common import ModelConfig
+from .params import ParamDef, torch_dtype
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def norm_defs(cfg: ModelConfig, dim: Optional[int] = None
+              ) -> Dict[str, ParamDef]:
+    d = dim or cfg.d_model
+    defs = {"scale": ParamDef((d,), "float32", init="ones")}
+    if cfg.norm == "layer":
+        defs["bias"] = ParamDef((d,), "float32", init="zeros")
+    return defs
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layer":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"] + p["bias"]
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float
+                  ) -> torch.Tensor:
+    """qk-norm: RMS over the head_dim of (..., head_dim)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Activations
+# --------------------------------------------------------------------------
+
+def activate(h: torch.Tensor, g: Optional[torch.Tensor], act: str
+             ) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; torch's to erf
+    if act == "silu_glu":
+        return F.silu(g) * h
+    if act == "gelu_glu":
+        return F.gelu(g, approximate="tanh") * h
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if act == "relu2":
+        r = F.relu(h)
+        return r * r
+    if act == "silu":
+        return F.silu(h)
+    raise ValueError(act)
+
+
+def is_glu(act: str) -> bool:
+    return act.endswith("_glu")
+
+
+# --------------------------------------------------------------------------
+# Dense FFN
+# --------------------------------------------------------------------------
+
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
+             ) -> Dict[str, ParamDef]:
+    D = cfg.d_model
+    F_ = d_ff or cfg.d_ff
+    dt = cfg.dtype
+    defs = {
+        "w_up": ParamDef((D, F_), dt),
+        "w_down": ParamDef((F_, D), dt, fan_in_axes=(0,)),
+    }
+    if is_glu(cfg.act):
+        defs["w_gate"] = ParamDef((D, F_), dt)
+    return defs
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = x @ p["w_up"]
+    g = x @ p["w_gate"] if "w_gate" in p else None
+    return activate(h, g, cfg.act) @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# Embeddings / logits
+# --------------------------------------------------------------------------
+
+def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    V, D = cfg.vocab_size, cfg.d_model
+    defs = {"tok": ParamDef((V, D), "float32", init="embed", scale=0.02)}
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((D, V), cfg.dtype)
+    if cfg.pos_emb == "learned":
+        defs["pos"] = ParamDef((min(cfg.max_seq_len, 65536), D), "float32",
+                               init="embed", scale=0.02)
+    return defs
+
+
+def tied_head(p, cfg: ModelConfig) -> torch.Tensor:
+    """The tied logits weight ``tok`` cast to the model dtype, (V, D).
+    :func:`repro_torch.models.model.prepare_params` caches it once per
+    weight load (``tok_cast``): eager torch would otherwise rebuild the
+    cast copy — 311 MB for qwen3-0.6b in bf16 — on every decode step."""
+    if "tok_cast" in p:
+        return p["tok_cast"]
+    return p["tok"].to(torch_dtype(cfg.dtype))
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = p["tok"][tokens].to(torch_dtype(cfg.dtype))
+    if cfg.pos_emb == "learned":
+        if positions is None:
+            raise ValueError("learned position embeddings need positions")
+        x = x + p["pos"][positions].to(x.dtype)
+    return x
+
+
+def logits_from_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = tied_head(p, cfg).T if cfg.tie_embeddings else p["head"]
+    return x @ w
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float,
+                 dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin (..., dim//2)."""
+    half = dim // 2
+    # log(theta) rounded to float32, as the reference computes it; a host
+    # scalar, so no host-to-device copy (which would wait on the stream)
+    log_theta = float(np.log(np.float32(theta)))
+    freqs = torch.exp(-log_theta * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (..., S, H, hd); cos/sin (..., S, hd//2) broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)

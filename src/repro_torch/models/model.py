@@ -1,0 +1,90 @@
+"""Model facade: defs, init, prefill, paged decode — the surface the
+serve engine uses (the reference's ``models/model.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Union
+
+import torch
+
+from ..device import resolve_device
+from . import transformer as tfm
+from .common import ModelConfig
+from .params import instantiate, torch_dtype, tree_count
+
+
+def model_param_defs(cfg: ModelConfig):
+    return tfm.model_defs(cfg)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: Union[str, torch.device] = "cuda"):
+    """Random weights drawn from ``generator`` (a fresh one seeded 0 on
+    ``device`` when None), placed on ``device``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        return prepare_params(instantiate(model_param_defs(cfg), generator,
+                                          dev), cfg)
+
+
+def prepare_params(params, cfg: ModelConfig):
+    """Attach the model-dtype copy of a tied embedding (``tok_cast``) that
+    the logits read, built once here instead of once per step.  Returns a
+    new top-level dict; the numerics are those of casting per call."""
+    if not cfg.tie_embeddings or "tok_cast" in params["embed"]:
+        return params
+    embed = dict(params["embed"])
+    embed["tok_cast"] = embed["tok"].to(torch_dtype(cfg.dtype))
+    return {**params, "embed": embed}
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Full-context forward collecting decode state.  Returns
+    (last_logits (B, V), states) — states stacked (reps, B, S, KV, hd) per
+    segment, ready for the paged scatter."""
+    logits, states = tfm.forward_full(params, cfg, tokens,
+                                      collect_state=True)
+    return logits[:, -1, :], states
+
+
+def prefill_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
+                   true_len: int):
+    """Whole-prompt prefill over a length-bucketed (zero-padded) buffer.
+    tokens (B, S_padded) with the real prompt in the first ``true_len``
+    positions; causal masking keeps the prefix rows equal to an unpadded
+    prefill.  Returns (last_logits (B, V) at position true_len-1,
+    states)."""
+    logits, states = tfm.forward_full(params, cfg, tokens,
+                                      collect_state=True)
+    return logits[:, true_len - 1, :], states
+
+
+def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,
+                     page_size: int):
+    """Paged decode-cache defs (see serve/kv_cache.py for the allocator)."""
+    return tfm.paged_cache_defs(cfg, num_slots, num_pages, page_size)
+
+
+def decode_step_paged(params, cfg: ModelConfig, pools: List[Any],
+                      block_tables: torch.Tensor, token: torch.Tensor,
+                      pos: torch.Tensor, *, page_size: int) -> torch.Tensor:
+    """One decode token per slot against the paged cache (pools updated
+    in place).  token (B,1); pos (B,) int32; block_tables (B, n_blocks)
+    int32.  Returns logits (B, V)."""
+    return tfm.decode_one_paged(params, cfg, pools, block_tables, token, pos,
+                                page_size=page_size)
+
+
+def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
+                        block_table: torch.Tensor, tokens: torch.Tensor,
+                        offset: int, *, page_size: int) -> torch.Tensor:
+    """Prefill one chunk of one request into its pages (chunked prefill).
+    Returns last-token logits (1, V)."""
+    return tfm.prefill_chunk_paged(params, cfg, pools, block_table, tokens,
+                                   offset, page_size=page_size)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return tree_count(model_param_defs(cfg))

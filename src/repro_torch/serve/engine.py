@@ -1,0 +1,414 @@
+"""Continuous-batching serve engine over a paged KV cache.
+
+A fixed bank of decode slots, one decode step whose shapes do not depend
+on which slots are live, chunked prefill interleaved with running
+decodes, and a per-request roofline ledger (scheduler.py).  On CUDA the
+decode step's paged attention is the hand-written kernel
+(kernels/paged_attention.py); sampling runs on the device right after the
+logits, so only the (B,) chosen token ids cross to the host.  Whole-prompt
+prefill is length-bucketed to the next power of two.
+
+The static whole-batch engine, speculative decoding, tensor parallelism
+and telemetry are not ported yet (ROADMAP queue 1 items 9, 7, 11, 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..core.roofline.hardware import H100_SXM, ChipSpec
+from ..device import resolve_device, synchronize
+from ..models import (decode_step_paged, prefill, prefill_chunk_paged,
+                      prefill_padded, prepare_params)
+from ..models.common import ModelConfig, model_flops
+from ..models.transformer import check_supported
+from ..obs.clock import now
+from . import sampling
+from .kv_cache import PagedKVCache
+from .scheduler import (Request, RequestState, RooflineLedger, Scheduler,
+                        decode_token_bytes, decode_token_flops,
+                        decode_token_vmem_bytes, kv_line_bytes,
+                        params_bytes_active)
+
+
+@dataclasses.dataclass
+class GenerateConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0          # 0 = greedy
+    top_k: int = 0                    # 0 = no top-k filter
+    top_p: float = 0.0                # nucleus mass (0 or >= 1 = off)
+    stop_token: Optional[int] = None
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    num_slots: int = 4                # packed decode batch width
+    page_size: int = 16               # tokens per physical KV page
+    max_len: int = 256                # per-request context ceiling
+    prefill_chunk: int = 0            # 0 = whole prompt in one chunk
+    num_pages: Optional[int] = None   # None = fully backed pool
+    chip: ChipSpec = H100_SXM         # roofline ledger target hardware
+    prefill_bucket: int = 8           # min whole-prompt bucket (0 = off)
+    prefix_cache: bool = False        # content-hash prefix sharing + CoW
+    watermark: float = 0.0            # admission slack, fraction of pool
+    preempt_mode: str = "swap"        # "swap" | "recompute" on pool-dry
+    device: Union[str, torch.device] = "cuda"   # "cpu" only when asked
+
+
+def _bucket_len(n: int, floor: int) -> int:
+    """Next power of two >= n (but >= floor)."""
+    return max(floor, 1 << max(n - 1, 0).bit_length())
+
+
+class Engine:
+    """Continuous-batching serve engine with a paged KV cache.
+
+        eng = Engine(cfg, params, EngineConfig(num_slots=8, max_len=512))
+        eng.submit(prompt_ids, GenerateConfig(max_new_tokens=64))
+        done = eng.run()          # -> List[Request] with roofline ledgers
+    """
+
+    def __init__(self, cfg: ModelConfig, params,
+                 ecfg: Optional[EngineConfig] = None):
+        check_supported(cfg)
+        self.ecfg = ecfg or EngineConfig()
+        self.device = resolve_device(self.ecfg.device)
+        tok = params["embed"]["tok"]
+        if tok.device.type != self.device.type:
+            raise ValueError(f"params live on {tok.device}, the engine on "
+                             f"{self.device}; init_params(device=...) must "
+                             "match EngineConfig.device")
+        self.cfg = cfg
+        self.params = prepare_params(params, cfg)
+        self._kv: Optional[PagedKVCache] = None
+        self._sched: Optional[Scheduler] = None
+        self.decode_steps = 0
+
+    # -- wiring ------------------------------------------------------------
+
+    def reset(self, num_slots: Optional[int] = None,
+              max_len: Optional[int] = None) -> None:
+        """(Re)build the paged cache and scheduler.  Drops any in-flight
+        requests; call only when idle."""
+        if num_slots is not None or max_len is not None:
+            self.ecfg = dataclasses.replace(
+                self.ecfg, num_slots=num_slots or self.ecfg.num_slots,
+                max_len=max_len or self.ecfg.max_len)
+        e = self.ecfg
+        self._kv = PagedKVCache(self.cfg, e.num_slots, e.page_size,
+                                e.max_len, self.device,
+                                num_pages=e.num_pages,
+                                prefix_cache=e.prefix_cache,
+                                eager_freeze=e.prefill_chunk <= 0)
+        self._sched = Scheduler(self.cfg, self._kv,
+                                prefill_chunk=e.prefill_chunk,
+                                watermark=e.watermark,
+                                preempt_mode=e.preempt_mode)
+        n = e.num_slots
+        self._next_token = np.zeros((n,), np.int32)
+        self._pos = np.zeros((n,), np.int32)
+        # per-slot sampling state, read by the decode step's sampler
+        self._seeds = np.zeros((n,), np.int64)
+        self._steps = np.zeros((n,), np.int32)
+        self._temps = np.zeros((n,), np.float32)
+        self._top_ks = np.zeros((n,), np.int32)
+        self._top_ps = np.zeros((n,), np.float32)
+        self.decode_steps = 0
+
+    def _ensure(self, budget: int) -> None:
+        if self._kv is None:
+            self.reset(max_len=max(budget, self.ecfg.max_len))
+        elif budget > self._kv.max_len:
+            if self._sched.has_work():
+                raise ValueError(
+                    f"request budget {budget} exceeds engine max_len "
+                    f"{self._kv.max_len} with requests in flight; drain "
+                    "first or raise EngineConfig.max_len")
+            self.reset(max_len=max(budget, self.ecfg.max_len))
+
+    # -- request API -------------------------------------------------------
+
+    def submit(self, prompt, gen: GenerateConfig,
+               seed: Optional[int] = None) -> Request:
+        """Queue one request.  ``seed`` names its sampling stream; without
+        one the request decodes greedily whatever its temperature."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self._ensure(prompt.shape[0] + gen.max_new_tokens)
+        req = Request(prompt=prompt, max_new_tokens=gen.max_new_tokens,
+                      temperature=gen.temperature, top_k=gen.top_k,
+                      top_p=gen.top_p, stop_token=gen.stop_token, seed=seed,
+                      submit_time=now())
+        return self._sched.submit(req)
+
+    @torch.no_grad()
+    def step(self) -> List[Request]:
+        """One scheduler iteration: admit (resuming preempted requests
+        first), prefill one chunk per admitted request, one packed decode
+        step.  Returns the requests finished here."""
+        sched = self._sched
+        n_done = len(sched.finished)
+        admitted = sched.admit()
+        for req in admitted:
+            self._init_sampling_row(req)
+            if req.state is RequestState.RUNNING:
+                self._restore_decode_row(req)        # swap-resume
+        work = sched.prefill_work()
+        for req, start, end in work:
+            self._run_prefill(req, start, end)
+        running = sched.decode_requests()
+        if running:
+            self._run_decode(running)
+        elif (not admitted and not work
+                and (sched.waiting or sched.preempted)):
+            head = (sched.preempted + list(sched.waiting))[0]
+            raise RuntimeError(
+                f"request {head.request_id} (budget {head.budget}) cannot "
+                f"be admitted: engine max_len {self._kv.max_len}, "
+                f"{self._kv.available_page_count} obtainable pages "
+                f"(watermark {sched.watermark_pages}), "
+                f"{len(sched.preempted)} preempted waiting to resume")
+        return sched.finished[n_done:]
+
+    def run(self) -> List[Request]:
+        """Drain all queued work; returns requests finished by this call."""
+        if self._sched is None:
+            return []
+        n0 = len(self._sched.finished)
+        while self._sched.has_work():
+            self.step()
+        return self._sched.finished[n0:]
+
+    def roofline_terms(self, req: Request):
+        """The request's decode RooflineTerms on ``EngineConfig.chip``."""
+        return req.ledger.terms(self.cfg, self.ecfg.chip)
+
+    @property
+    def phases(self):
+        """Per-phase traffic + synchronized wall time (prefill / decode /
+        swap)."""
+        return self._sched.phases if self._sched is not None else {}
+
+    def aggregate_ledger(self) -> RooflineLedger:
+        """One ledger summing every request this scheduler has seen."""
+        agg = RooflineLedger()
+        if self._sched is None:
+            return agg
+        s = self._sched
+        for req in (list(s.finished) + list(s.active.values())
+                    + list(s.preempted) + list(s.waiting)):
+            for f in dataclasses.fields(RooflineLedger):
+                setattr(agg, f.name,
+                        getattr(agg, f.name) + getattr(req.ledger, f.name))
+        return agg
+
+    # -- internals ---------------------------------------------------------
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _run_prefill(self, req: Request, start: int, end: int) -> None:
+        kv, cfg = self._kv, self.cfg
+        fill = req.fill_tokens
+        fill_len = len(fill)
+        # chunk writes can hit a prefix-shared page (copy-on-write needs a
+        # fresh page): back the span first, preempting if the pool is dry
+        if not self._grow_spans([req], lambda r: (start, end)):
+            return                          # req itself was preempted
+        whole = start == 0 and end == fill_len
+        t0 = now()
+        if whole and self.ecfg.prefill_bucket > 0:
+            # pad to the next power of two: causal masking keeps the
+            # prefix rows equal to an unpadded run
+            pl_ = _bucket_len(fill_len, self.ecfg.prefill_bucket)
+            toks = np.zeros((1, pl_), np.int64)
+            toks[0, :fill_len] = fill
+            last_logits, states = prefill_padded(
+                self.params, cfg, self._tensor(toks), fill_len)
+            kv.write_prefill_states(req.slot, states, fill_len)
+        elif whole:
+            last_logits, states = prefill(
+                self.params, cfg, self._tensor(fill[None, :].astype(np.int64)))
+            kv.write_prefill_states(req.slot, states, fill_len)
+        else:
+            btr = self._tensor(kv.block_tables[req.slot])
+            toks = self._tensor(fill[None, start:end].astype(np.int64))
+            last_logits = prefill_chunk_paged(
+                self.params, cfg, kv.pools, btr, toks, start,
+                page_size=self.ecfg.page_size)
+            if kv.prefix_cache:
+                # every full page this chunk finalized holds canonical
+                # prompt content now, so it is shareable right away
+                kv.freeze_committed(req.slot, fill, end)
+        synchronize(self.device)
+        t1 = now()
+        self._sched.phases["prefill"].add(
+            flops=(model_flops(cfg, end, 1, "prefill")
+                   - model_flops(cfg, start, 1, "prefill")),
+            hbm=params_bytes_active(cfg) + end * kv_line_bytes(cfg),
+            wall_s=t1 - t0, steps=1, tokens=end - start)
+        req.prefill_pos = end
+        if end == fill_len:
+            if not req.token_times:
+                req.prefill_end_time = t1
+            req.ledger.prefill_flops += model_flops(cfg, fill_len, 1,
+                                                    "prefill")
+            if req.prefill_skip:
+                req.ledger.prefill_flops -= model_flops(
+                    cfg, req.prefill_skip, 1, "prefill")
+            if req.max_new_tokens <= 0:
+                self._sched.finish(req, "length")
+                return
+            tok = self._sample_first(last_logits, req)
+            self._commit_token(req, tok, first=True)
+
+    def _grow_spans(self, reqs: List[Request], span) -> List[Request]:
+        """Back every request's write span ``span(req) -> (start, end)``
+        before a device step: on-demand page growth plus copy-on-write.
+        When the pool runs dry the newest-admitted RUNNING request is
+        preempted and the growth retried; preempted requests drop out of
+        the returned list."""
+        for req in sorted(reqs, key=lambda r: r.admit_seq):
+            s, e = span(req)
+            while (req.state is not RequestState.PREEMPTED
+                   and not self._kv.ensure_writable(req.slot, s, e)):
+                victim = self._sched.preempt_victim()
+                if victim is None:
+                    raise RuntimeError(
+                        f"block pool exhausted: request {req.request_id} "
+                        f"cannot grow to token {e} with "
+                        f"{self._kv.available_page_count} obtainable pages "
+                        "and no running victim to preempt; raise "
+                        "EngineConfig.num_pages or lower num_slots")
+                self._sched.preempt(victim)
+        return [r for r in reqs if r.state is not RequestState.PREEMPTED]
+
+    def _restore_decode_row(self, req: Request) -> None:
+        """Re-point the packed decode rows at a swap-resumed request."""
+        self._next_token[req.slot] = req.generated[-1]
+        self._pos[req.slot] = req.context_len - 1
+        self._steps[req.slot] = len(req.generated)
+
+    def _decode_sample(self, bt: torch.Tensor, token: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+        """The decode step and the sampler over its logits, all on the
+        device; returns (B,) token ids (still on the device)."""
+        logits = decode_step_paged(self.params, self.cfg, self._kv.pools,
+                                   bt, token, pos,
+                                   page_size=self.ecfg.page_size)
+        return sampling.sample_tokens(logits, self._seeds, self._steps,
+                                      self._temps, self._top_ks,
+                                      self._top_ps)
+
+    def _run_decode(self, running: List[Request]) -> None:
+        kv = self._kv
+        # the step writes each request's newest KV line at context_len - 1
+        running = self._grow_spans(
+            running, lambda r: (r.context_len - 1, r.context_len))
+        if not running:
+            return
+        slots = [r.slot for r in running]
+        active = np.zeros((self.ecfg.num_slots,), bool)
+        active[slots] = True
+        token = np.where(active, self._next_token, 0).astype(np.int64)
+        pos = np.where(active, self._pos, 0).astype(np.int32)
+        bt = kv.block_tables_for(slots)
+        token_d, pos_d = self._tensor(token[:, None]), self._tensor(pos)
+        t0 = now()
+        next_tok = self._decode_sample(bt, token_d, pos_d)
+        tok_np = next_tok.cpu().numpy()       # the only device->host copy
+        t1 = now()
+        self.decode_steps += 1
+        n_active = len(running)
+        ph = self._sched.phases["decode"]
+        ps = self.ecfg.page_size
+        for req in running:
+            vmem = decode_token_vmem_bytes(self.cfg, req.context_len,
+                                           n_active, ps)
+            req.ledger.add_decode_token(self.cfg, req.context_len, n_active,
+                                        vmem_bytes=vmem)
+            ph.add(flops=decode_token_flops(self.cfg, req.context_len),
+                   vmem=vmem,
+                   hbm=decode_token_bytes(self.cfg, req.context_len,
+                                          n_active),
+                   steps=0, tokens=1)
+            self._commit_token(req, int(tok_np[req.slot]), t=t1)
+        ph.add(wall_s=t1 - t0, steps=1, tokens=0)
+
+    def _commit_token(self, req: Request, tok: int, first: bool = False,
+                      t: Optional[float] = None) -> None:
+        req.generated.append(tok)
+        req.token_times.append(now() if t is None else t)
+        if first:
+            req.state = RequestState.RUNNING
+        if self._kv.prefix_cache:
+            # pages whose every position is now final become shareable
+            self._kv.freeze_committed(req.slot, req.tokens,
+                                      req.context_len - 1)
+        if req.stop_token is not None and tok == req.stop_token:
+            self._sched.finish(req, "stop")
+        elif len(req.generated) >= req.max_new_tokens:
+            self._sched.finish(req, "length")
+        else:
+            self._next_token[req.slot] = tok
+            self._pos[req.slot] = req.context_len - 1
+            self._steps[req.slot] = len(req.generated)
+
+    def _init_sampling_row(self, req: Request) -> None:
+        """Per-slot sampling state; a request without a seed samples
+        greedily whatever its temperature."""
+        slot = req.slot
+        self._seeds[slot] = 0 if req.seed is None else req.seed
+        self._temps[slot] = req.temperature if req.seed is not None else 0.0
+        self._top_ks[slot] = req.top_k
+        self._top_ps[slot] = req.top_p
+        self._steps[slot] = 0
+
+    def _sample_first(self, last_logits: torch.Tensor, req: Request) -> int:
+        """The prefill's first token, through the same sampler (B=1)."""
+        s = req.slot
+        tok = sampling.sample_tokens(
+            last_logits.reshape(1, -1), self._seeds[s:s + 1],
+            np.asarray([len(req.generated)], np.int32),
+            self._temps[s:s + 1], self._top_ks[s:s + 1],
+            self._top_ps[s:s + 1])
+        return int(tok[0])
+
+    # -- batch API ---------------------------------------------------------
+
+    def generate(self, prompts, gen: GenerateConfig,
+                 seed: Optional[int] = None) -> Dict[str, Any]:
+        """prompts (B, S) int -> {"tokens" (B, S+new), "finished" (B,)}
+        numpy arrays, through the continuous path with one slot per row
+        (row ``b`` samples with seed ``seed + b`` when a seed is given)."""
+        if self._sched is not None and self._sched.has_work():
+            raise ValueError(
+                "generate() rebuilds the scheduler and would drop requests "
+                "already in flight; drain with run() first")
+        prompts_np = np.asarray(prompts, np.int32)
+        B, S = prompts_np.shape
+        prev_ecfg = self.ecfg
+        self.reset(num_slots=B, max_len=S + gen.max_new_tokens)
+        try:
+            for b in range(B):
+                self.submit(prompts_np[b], gen,
+                            seed=None if seed is None else seed + b)
+            done = sorted(self.run(), key=lambda r: r.request_id)
+        finally:
+            self.ecfg = prev_ecfg
+            self._kv = None
+            self._sched = None
+        n_gen = max(len(r.generated) for r in done)
+        out = np.zeros((B, S + n_gen), np.int32)
+        finished = np.zeros((B,), bool)
+        for r in done:
+            row = np.asarray(r.tokens)
+            # rows that stopped early repeat their last token
+            out[r.request_id] = np.concatenate(
+                [row, np.full((S + n_gen - row.shape[0],), row[-1],
+                              np.int32)])
+            finished[r.request_id] = r.finish_reason == "stop"
+        return {"tokens": out, "finished": finished}

@@ -1,0 +1,389 @@
+"""Paged KV cache: device page pools viewed through a block-pool manager.
+
+Every attention cache leaf is a batchless page pool ``(reps, num_pages,
+page_size, KV, hd)`` on the engine's device, all layers addressed through
+one per-slot block table.  Physical page 0 is the trash page idle slots
+write to, so the decode step's shapes never depend on which slots are
+live.  Page accounting lives in :class:`BlockPool` (ref-counted pages,
+content-hash prefix index); this class owns the tensors, maps slots to
+pages and performs the device copies the pool's decisions require:
+on-demand growth, copy-on-write, freezing into the prefix index, and
+swap-out / swap-in through pinned host memory in one copy each way.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import synchronize
+from ..models.common import ModelConfig
+from ..models import transformer as tfm
+from ..models.params import instantiate, tree_leaves, tree_map
+from .block_pool import BlockPool, chain_hash, token_chain_hashes
+
+
+@dataclasses.dataclass
+class _SlotMeta:
+    """Host bookkeeping for one allocated slot."""
+    n_blocks: int                    # leading table entries backed by pages
+    budget: int                      # admission token ceiling for this slot
+    cached_tokens: int = 0           # prefix-cache tokens skipped at alloc
+    frozen_blocks: int = 0           # leading blocks registered in the index
+    hash_chain: List[int] = dataclasses.field(default_factory=list)
+    # blocks [exempt_lo, exempt_hi) are this slot's OWN eagerly-frozen
+    # prompt pages: its prefill writes their canonical content, which is
+    # exempt from copy-on-write
+    exempt_lo: int = 0
+    exempt_hi: int = 0
+
+
+@dataclasses.dataclass
+class SwapSnapshot:
+    """A preempted slot's pages, parked in host memory.  ``data`` mirrors
+    the pool tree with each leaf's pages ``(reps, n_blocks, page, ...)``
+    as views into one pinned host buffer."""
+    n_blocks: int
+    budget: int
+    frozen_blocks: int
+    hash_chain: List[int]
+    cached_tokens: int
+    data: List[Any]
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(x.numel() * x.element_size()
+                       for x in tree_leaves(self.data)))
+
+
+class PagedKVCache:
+    """Page pools for every cache leaf of the model, viewed through a
+    ref-counted :class:`BlockPool`."""
+
+    def __init__(self, cfg: ModelConfig, num_slots: int, page_size: int,
+                 max_len: int, device: torch.device,
+                 num_pages: Optional[int] = None,
+                 prefix_cache: bool = False, eager_freeze: bool = True):
+        tfm.check_supported(cfg)
+        self.cfg = cfg
+        self.device = device
+        self.num_slots = num_slots
+        self.page_size = page_size
+        self.prefix_cache = prefix_cache
+        # alloc-time registration of a request's own full prompt pages;
+        # only sound when a prompt prefills whole within its admission step
+        self.eager_freeze = eager_freeze
+        self.blocks_per_slot = max(1, math.ceil(max_len / page_size))
+        self.max_len = self.blocks_per_slot * page_size
+        if num_pages is None:
+            num_pages = 1 + num_slots * self.blocks_per_slot
+        self.num_pages = num_pages
+        self.pool = BlockPool(num_pages, page_size)
+        defs = tfm.paged_cache_defs(cfg, num_slots, num_pages, page_size)
+        self.pools = instantiate(defs, None, device)
+        self.block_tables = np.zeros((num_slots, self.blocks_per_slot),
+                                     np.int32)
+        self._free_slots: List[int] = list(range(num_slots - 1, -1, -1))
+        self._meta: Dict[int, _SlotMeta] = {}
+
+    # -- allocator ---------------------------------------------------------
+
+    def pages_needed(self, n_tokens: int) -> int:
+        return max(1, math.ceil(n_tokens / self.page_size))
+
+    @property
+    def available_page_count(self) -> int:
+        """Pages obtainable right now: free + evictable cached."""
+        return self.pool.available_page_count
+
+    @property
+    def free_slot_count(self) -> int:
+        return len(self._free_slots)
+
+    def prefix_match_pages(self, tokens: np.ndarray) -> int:
+        """How many of ``tokens``'s full pages are in the prefix index (no
+        references taken)."""
+        if not self.prefix_cache:
+            return 0
+        m = 0
+        for h in token_chain_hashes(np.asarray(tokens), self.page_size):
+            if self.pool.peek(h) is None:
+                break
+            m += 1
+        return m
+
+    def pages_needed_for(self, tokens: np.ndarray) -> int:
+        return self.pages_needed(len(tokens)) - self.prefix_match_pages(
+            tokens)
+
+    def can_admit_tokens(self, tokens: np.ndarray,
+                         reserve_pages: int = 0) -> bool:
+        """Whether a slot and the context's pages (after prefix-cache
+        dedup) plus ``reserve_pages`` are obtainable now."""
+        return (len(tokens) <= self.max_len
+                and bool(self._free_slots)
+                and self.pages_needed_for(tokens) + reserve_pages
+                <= self.available_page_count)
+
+    def alloc(self, n_tokens: int, budget: Optional[int] = None,
+              tokens: Optional[np.ndarray] = None) -> Optional[int]:
+        """Reserve a slot plus pages backing an ``n_tokens`` context now
+        (growth up to ``budget`` tokens is on demand).  ``tokens`` enables
+        prefix-cache aliasing of matching leading full pages.  Returns the
+        slot, or None when slots or pages are exhausted."""
+        budget = n_tokens if budget is None else budget
+        if max(n_tokens, budget) > self.max_len:
+            raise ValueError(f"request needs {max(n_tokens, budget)} tokens "
+                             f"> max_len {self.max_len}")
+        n_pages = self.pages_needed(n_tokens)
+        if not self._free_slots:
+            return None
+        # at least one trailing token is always recomputed (the engine
+        # needs its logits): a fully aligned match leaves the final page
+        # aliased-but-about-to-be-written, the copy-on-write case
+        matched: List[int] = []
+        hashes: List[int] = []
+        if self.prefix_cache and tokens is not None and n_tokens > 1:
+            for h in token_chain_hashes(np.asarray(tokens)[:n_tokens],
+                                        self.page_size):
+                page = self.pool.lookup(h)
+                if page is None:
+                    break
+                matched.append(page)
+                hashes.append(h)
+        fresh: List[int] = []
+        for _ in range(n_pages - len(matched)):
+            page = self.pool.acquire()
+            if page is None:
+                for p in fresh + matched:
+                    self.pool.release(p)
+                return None
+            fresh.append(page)
+        slot = self._free_slots.pop()
+        row = np.zeros((self.blocks_per_slot,), np.int32)
+        row[:n_pages] = matched + fresh
+        self.block_tables[slot] = row
+        cached = min(len(matched) * self.page_size, n_tokens - 1) \
+            if matched else 0
+        self._meta[slot] = _SlotMeta(
+            n_blocks=n_pages, budget=budget, cached_tokens=cached,
+            frozen_blocks=len(matched), hash_chain=hashes)
+        if self.prefix_cache and self.eager_freeze and tokens is not None:
+            meta = self._meta[slot]
+            meta.exempt_lo = len(matched)
+            self.freeze_committed(slot, np.asarray(tokens)[:n_tokens],
+                                  n_tokens)
+            meta.exempt_hi = meta.frozen_blocks
+        return slot
+
+    def prefix_cached_tokens(self, slot: int) -> int:
+        return self._meta[slot].cached_tokens
+
+    def slot_pages(self, slot: int) -> int:
+        return self._meta[slot].n_blocks
+
+    def ensure_writable(self, slot: int, start: int, end: int) -> bool:
+        """Make positions ``[start, end)`` writable by this slot: acquire
+        pages as the write frontier crosses page boundaries and copy any
+        shared or frozen page in the span first.  Returns False when the
+        pool is dry (the caller preempts)."""
+        meta = self._meta[slot]
+        end = min(end, meta.budget)
+        if start >= end:
+            return True
+        row = self.block_tables[slot]
+        for b in range(start // self.page_size,
+                       (end - 1) // self.page_size + 1):
+            if b >= meta.n_blocks:
+                if b != meta.n_blocks:
+                    raise RuntimeError(f"write frontier skipped block "
+                                       f"{meta.n_blocks} -> {b}")
+                page = self.pool.acquire()
+                if page is None:
+                    return False
+                row[b] = page
+                meta.n_blocks += 1
+            elif (self.pool.cow_needed(int(row[b]))
+                  and not meta.exempt_lo <= b < meta.exempt_hi):
+                src = int(row[b])
+                dst = self.pool.acquire()
+                if dst is None:
+                    return False
+                self._copy_page(src, dst)
+                self.pool.note_cow()
+                self.pool.release(src)
+                row[b] = dst
+                meta.frozen_blocks = min(meta.frozen_blocks, b)
+                del meta.hash_chain[b:]
+        return True
+
+    def freeze_committed(self, slot: int, tokens: np.ndarray,
+                         final_len: int) -> None:
+        """Register every full page whose positions ``< final_len`` are
+        final under its chain hash.  No-op unless ``prefix_cache``."""
+        if not self.prefix_cache:
+            return
+        meta = self._meta[slot]
+        row = self.block_tables[slot]
+        n_final = min(final_len // self.page_size, meta.n_blocks)
+        tokens = np.asarray(tokens)
+        for b in range(meta.frozen_blocks, n_final):
+            parent = meta.hash_chain[b - 1] if b else None
+            h = chain_hash(parent, tokens[b * self.page_size:
+                                          (b + 1) * self.page_size])
+            meta.hash_chain.append(h)
+            self.pool.freeze(int(row[b]), h)
+            meta.frozen_blocks = b + 1
+
+    def free(self, slot: int) -> None:
+        """Release every page the slot references and recycle the slot;
+        freeing a slot that is not allocated raises."""
+        meta = self._meta.pop(slot, None)
+        if meta is None:
+            raise ValueError(f"double free: slot {slot} is not allocated")
+        row = self.block_tables[slot]
+        for b in range(meta.n_blocks):
+            self.pool.release(int(row[b]))
+        self._free_slots.append(slot)
+        self.block_tables[slot] = 0
+
+    def table_refs(self) -> Dict[int, int]:
+        """Per-page reference counts implied by the block tables."""
+        refs: Dict[int, int] = {}
+        for slot, meta in self._meta.items():
+            for b in range(meta.n_blocks):
+                p = int(self.block_tables[slot][b])
+                refs[p] = refs.get(p, 0) + 1
+        return refs
+
+    # -- preemption / swap -------------------------------------------------
+
+    def swap_out(self, slot: int) -> SwapSnapshot:
+        """Copy the slot's pages to host memory and free them.  Every
+        leaf's gathered pages are packed into one byte buffer on the
+        device, so the swap crosses to the host as ONE copy (into pinned
+        memory on CUDA); the snapshot's leaves are views of it."""
+        meta = self._meta[slot]
+        phys = torch.as_tensor(self.block_tables[slot][: meta.n_blocks],
+                               dtype=torch.long, device=self.device)
+        dev = tree_map(lambda t: t[:, phys].contiguous(), self.pools)
+        snap = SwapSnapshot(
+            n_blocks=meta.n_blocks, budget=meta.budget,
+            frozen_blocks=meta.frozen_blocks,
+            hash_chain=list(meta.hash_chain),
+            cached_tokens=meta.cached_tokens, data=self._pack_to_host(dev))
+        self.free(slot)
+        return snap
+
+    def swap_in_pages_needed(self, snap: SwapSnapshot) -> int:
+        hits = sum(1 for h in snap.hash_chain[: snap.frozen_blocks]
+                   if self.pool.peek(h) is not None)
+        return snap.n_blocks - hits
+
+    def swap_in(self, snap: SwapSnapshot) -> Optional[int]:
+        """Restore a swapped-out slot: frozen-prefix pages still in the
+        index are aliased, the rest re-acquired and copied back from the
+        host.  Returns the slot, or None if slots/pages are exhausted."""
+        if not self._free_slots:
+            return None
+        pages: List[int] = []
+        restore: List[int] = []
+        frozen = 0
+        for b in range(snap.n_blocks):
+            page = None
+            if b < snap.frozen_blocks:
+                page = self.pool.lookup(snap.hash_chain[b])
+            if page is None:
+                page = self.pool.acquire()
+                if page is None:
+                    for p in pages:
+                        self.pool.release(p)
+                    return None
+                restore.append(b)
+            elif frozen == b:
+                frozen = b + 1
+            pages.append(page)
+        slot = self._free_slots.pop()
+        row = np.zeros((self.blocks_per_slot,), np.int32)
+        row[: snap.n_blocks] = pages
+        self.block_tables[slot] = row
+        self._meta[slot] = _SlotMeta(
+            n_blocks=snap.n_blocks, budget=snap.budget,
+            cached_tokens=snap.cached_tokens, frozen_blocks=frozen,
+            hash_chain=list(snap.hash_chain[:frozen]))
+        if restore:
+            dst = torch.as_tensor(np.asarray(pages, np.int64)[restore],
+                                  device=self.device)
+            src = torch.as_tensor(restore, dtype=torch.long)
+
+            def put(pool, host):
+                pool[:, dst] = host[:, src].to(self.device, pool.dtype)
+
+            tree_map(put, self.pools, snap.data)
+        return slot
+
+    def _pack_to_host(self, dev: List[Any]) -> List[Any]:
+        """One device->host copy for a whole tree of device tensors."""
+        leaves = tree_leaves(dev)
+        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in leaves])
+        host = torch.empty(flat.numel(), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        host.copy_(flat)                               # the one copy
+        it = iter(leaves)
+        offsets = [0]
+
+        def unpack(_):
+            t = next(it)
+            n = t.numel() * t.element_size()
+            off = offsets[0]
+            offsets[0] += n
+            return host[off:off + n].view(t.dtype).reshape(t.shape)
+
+        self.pool.stats.swap_dmas += 1
+        self.pool.stats.swap_transfers_saved += max(len(leaves) - 1, 0)
+        return tree_map(unpack, dev)
+
+    def synchronize(self) -> None:
+        synchronize(self.device)
+
+    # -- device page ops ---------------------------------------------------
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Device-side page copy across every pool leaf (copy-on-write)."""
+        def f(pool):
+            pool[:, dst] = pool[:, src]
+        tree_map(f, self.pools)
+
+    # -- views -------------------------------------------------------------
+
+    def block_tables_for(self, slots: Optional[List[int]] = None
+                         ) -> torch.Tensor:
+        """Device block tables (int32); rows not in ``slots`` point at the
+        trash page so idle lanes cannot clobber live pages."""
+        if slots is None:
+            bt = self.block_tables
+        else:
+            bt = np.zeros_like(self.block_tables)
+            bt[slots] = self.block_tables[slots]
+        return torch.as_tensor(bt, device=self.device)
+
+    def write_prefill_states(self, slot: int, states: List[Any],
+                             prompt_len: int, start: int = 0) -> None:
+        """Scatter whole-prompt prefill states (per segment, stacked
+        (reps, 1, S, KV, hd); S may exceed ``prompt_len`` when padded) into
+        this slot's pages; positions below ``start`` (a prefix-cache hit)
+        are skipped."""
+        idx = np.arange(start, prompt_len)
+        phys = torch.as_tensor(self.block_tables[slot][idx // self.page_size],
+                               dtype=torch.long, device=self.device)
+        off = torch.as_tensor(idx % self.page_size, dtype=torch.long,
+                              device=self.device)
+
+        def f(pool, state):
+            pool[:, phys, off] = state[:, 0, start:prompt_len].to(pool.dtype)
+
+        tree_map(f, self.pools, states)

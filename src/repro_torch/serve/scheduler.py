@@ -1,0 +1,400 @@
+"""Continuous-batching scheduler with a per-request decode roofline ledger.
+
+Requests move WAITING -> PREFILL -> RUNNING -> FINISHED, with a
+PREEMPTED detour when the block pool runs dry.  Each engine step:
+
+1. *admit*: resume preempted requests first (swap-in or recompute
+   re-prefill), then admit waiting requests into free slots while the pool
+   can back the PROMPT plus a free-page watermark; slots then grow one
+   page at a time as decode crosses page boundaries.
+2. *prefill*: every PREFILL request advances one chunk of at most
+   ``prefill_chunk`` tokens (0 = the whole prompt), starting past any
+   prefix the pool's content-hash index already holds.
+3. *decode*: one step over the packed slot batch produces the next token
+   for every RUNNING request; when a slot cannot grow, the newest-admitted
+   running request is preempted (pages swapped to host memory, or dropped
+   for recompute) and re-queued ahead of all waiting work.
+
+Decode roofline ledger: one generated token at context length ``L`` does
+``W(L) = 2 * N_active + 4 * H * hd * L * n_attn_blocks`` FLOPs and moves
+``Q(L) = params_bytes / B_active + (L + 1) * kv_line_bytes`` HBM bytes;
+each request accumulates W and Q and folds them into RooflineTerms.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+import functools
+import math
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..core.roofline.hardware import H100_SXM, ChipSpec, chip_scope
+from ..core.roofline.model import PhaseTraffic, RooflineTerms, make_terms
+from ..kernels import quantize as kvq
+from ..kernels.paged_attention import paged_decode_vmem_bytes
+from ..models.common import ModelConfig, model_flops, param_counts
+from ..models.params import torch_dtype
+from ..obs.clock import now
+from .kv_cache import PagedKVCache
+
+
+# --------------------------------------------------------------------------
+# Analytic per-token decode cost model
+# --------------------------------------------------------------------------
+
+def _dtype_bytes(dtype: str) -> int:
+    return torch_dtype(dtype).itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def kv_line_bytes(cfg: ModelConfig) -> int:
+    """Bytes of growing cache per token summed over all layers: the KV
+    line read once per context token per decode step (quantized pools add
+    a float32 scale per kv head, k and v each)."""
+    isize = kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
+    s = 4 if kvq.is_quantized(cfg.kv_dtype) else 0
+    total = 0
+    for unit, reps in cfg.segments():
+        for b in unit:
+            if b.mixer == "attn":
+                total += 2 * cfg.n_kv_heads * (cfg.hd * isize + s) * reps
+            elif b.mixer == "mla":
+                total += ((cfg.kv_lora_rank + cfg.rope_head_dim) * isize
+                          + 2 * s) * reps
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def params_bytes_active(cfg: ModelConfig) -> float:
+    """Weight bytes touched per decode step (active params only)."""
+    return param_counts(cfg)["active"] * _dtype_bytes(cfg.dtype)
+
+
+def decode_token_flops(cfg: ModelConfig, context_len: int) -> float:
+    """W for one generated token at context length ``context_len``."""
+    return model_flops(cfg, context_len, 1, "decode")
+
+
+def decode_token_bytes(cfg: ModelConfig, context_len: int,
+                       active_batch: int) -> float:
+    """Q for one generated token: amortized weight read + this request's
+    KV line reads and its one write.  (The attention archs of this slice
+    carry no recurrent state, the reference's third term.)"""
+    weights = params_bytes_active(cfg) / max(active_batch, 1)
+    return weights + (context_len + 1) * kv_line_bytes(cfg)
+
+
+def decode_token_vmem_bytes(cfg: ModelConfig, context_len: int,
+                            active_batch: int, page_size: int) -> float:
+    """On-chip bytes for one generated token: the amortized weight read
+    passes through once, and the paged-attention walks add their streamed
+    and resident traffic (kernels/paged_attention.py pricing)."""
+    isize = _dtype_bytes(cfg.dtype)
+    kv_isize = kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
+    scale_isize = 4 if kvq.is_quantized(cfg.kv_dtype) else 0
+    attn = 0.0
+    for unit, reps in cfg.segments():
+        for b in unit:
+            if b.mixer == "attn":
+                attn += reps * paged_decode_vmem_bytes(
+                    context_len=context_len, page_size=page_size,
+                    n_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.hd, isize=isize, kv_isize=kv_isize,
+                    scale_isize=scale_isize)
+    return params_bytes_active(cfg) / max(active_batch, 1) + attn
+
+
+# --------------------------------------------------------------------------
+# Requests + ledger
+# --------------------------------------------------------------------------
+
+class RequestState(enum.Enum):
+    WAITING = "waiting"
+    PREFILL = "prefill"
+    RUNNING = "running"
+    PREEMPTED = "preempted"
+    FINISHED = "finished"
+
+
+@dataclasses.dataclass
+class RooflineLedger:
+    """Per-request W/Q accounting, folded into RooflineTerms at the end.
+
+    ``preemptions`` counts evictions under pool pressure, ``swap_bytes``
+    the host<->device swap traffic, ``prefix_cached_tokens`` the prompt
+    tokens admission found already in the prefix index, ``pages_peak``
+    the most physical pages the request held."""
+    prefill_flops: float = 0.0
+    decode_flops: float = 0.0
+    decode_bytes: float = 0.0
+    decode_vmem_bytes: float = 0.0   # on-chip traffic (stream + resident)
+    decode_tokens: int = 0
+    decode_batch_sum: int = 0        # sum of co-resident batch sizes
+    preemptions: int = 0
+    swap_bytes: float = 0.0
+    prefix_cached_tokens: int = 0
+    pages_peak: int = 0
+
+    def add_decode_token(self, cfg: ModelConfig, context_len: int,
+                         active_batch: int, vmem_bytes: float = 0.0) -> None:
+        self.decode_flops += decode_token_flops(cfg, context_len)
+        self.decode_bytes += decode_token_bytes(cfg, context_len,
+                                                active_batch)
+        self.decode_vmem_bytes += vmem_bytes
+        self.decode_tokens += 1
+        self.decode_batch_sum += active_batch
+
+    @property
+    def mean_batch(self) -> float:
+        return self.decode_batch_sum / max(self.decode_tokens, 1)
+
+    @property
+    def arithmetic_intensity(self) -> float:
+        return self.decode_flops / max(self.decode_bytes, 1.0)
+
+    def terms(self, cfg: ModelConfig, chip: ChipSpec = H100_SXM
+              ) -> RooflineTerms:
+        """RooflineTerms for this request's decode stream on one chip."""
+        return make_terms(
+            scope=chip_scope(chip), dtype=cfg.dtype,
+            flops_dev=self.decode_flops, hbm_bytes_dev=self.decode_bytes,
+            vmem_bytes_dev=self.decode_vmem_bytes,
+            host_bytes_dev=self.swap_bytes)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray                       # (S,) int32
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0                       # nucleus mass (0 / >=1 = off)
+    stop_token: Optional[int] = None
+    seed: Optional[int] = None               # sampling stream; None = greedy
+    request_id: int = 0
+
+    state: RequestState = RequestState.WAITING
+    slot: int = -1
+    prefill_pos: int = 0                     # fill tokens already prefilled
+    generated: List[int] = dataclasses.field(default_factory=list)
+    finish_reason: str = ""
+    ledger: RooflineLedger = dataclasses.field(default_factory=RooflineLedger)
+    admit_seq: int = -1                      # admission order (victim pick)
+    prefill_skip: int = 0                    # fill tokens prefix-cache hit
+    # recompute-on-resume re-prefills prefill_src (the context at
+    # preemption); swap-on-resume restores swap_snapshot instead
+    prefill_src: Optional[np.ndarray] = None
+    swap_snapshot: Optional[Any] = None
+    # wall-clock stamps (obs.clock.now): submit, first slot placement,
+    # end of the last prefill chunk, one per committed token
+    submit_time: float = 0.0
+    prefill_start_time: float = 0.0
+    prefill_end_time: float = 0.0
+    token_times: List[float] = dataclasses.field(default_factory=list)
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+    @property
+    def fill_tokens(self) -> np.ndarray:
+        """Tokens the prefill phase must feed: the prompt, or after a
+        recompute preemption the whole context at preemption."""
+        return self.prompt if self.prefill_src is None else self.prefill_src
+
+    @property
+    def ttft(self) -> float:
+        """Time to first token (s); NaN before the first commit."""
+        if not self.token_times:
+            return float("nan")
+        return self.token_times[0] - self.submit_time
+
+    @property
+    def context_len(self) -> int:
+        return self.prompt_len + len(self.generated)
+
+    @property
+    def budget(self) -> int:
+        return self.prompt_len + self.max_new_tokens
+
+    @property
+    def tokens(self) -> np.ndarray:
+        return np.concatenate(
+            [self.prompt, np.asarray(self.generated, np.int32)])
+
+
+class Scheduler:
+    """Admission + queue bookkeeping over a :class:`PagedKVCache`.
+
+    ``watermark`` is the fraction of the pool admission must leave
+    obtainable after backing a new prompt; ``preempt_mode`` is what
+    :meth:`preempt` does with a victim's pages: ``"swap"`` parks them in
+    host memory, ``"recompute"`` drops them and re-prefills on resume."""
+
+    def __init__(self, cfg: ModelConfig, kv: PagedKVCache,
+                 prefill_chunk: int = 0, watermark: float = 0.0,
+                 preempt_mode: str = "swap"):
+        if preempt_mode not in ("swap", "recompute"):
+            raise ValueError(f"unknown preempt_mode {preempt_mode!r}")
+        self.cfg = cfg
+        self.kv = kv
+        self.prefill_chunk = prefill_chunk
+        self.watermark = watermark
+        self.preempt_mode = preempt_mode
+        self.waiting: Deque[Request] = collections.deque()
+        self.preempted: List[Request] = []            # resume-priority queue
+        self.active: Dict[int, Request] = {}          # slot -> request
+        self.finished: List[Request] = []
+        self.preempt_count = 0
+        self._next_id = 0
+        self._admit_seq = 0
+        # per-phase traffic + synchronized wall time (prefill/decode/swap)
+        self.phases: Dict[str, PhaseTraffic] = collections.defaultdict(
+            PhaseTraffic)
+
+    @property
+    def watermark_pages(self) -> int:
+        return int(math.ceil(self.watermark * (self.kv.num_pages - 1)))
+
+    def submit(self, req: Request) -> Request:
+        req.request_id = self._next_id
+        self._next_id += 1
+        req.state = RequestState.WAITING
+        self.waiting.append(req)
+        return req
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.preempted or self.active)
+
+    # -- phases ------------------------------------------------------------
+
+    def _place(self, req: Request, slot: int, prefilling: bool) -> None:
+        req.slot = slot
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        self.active[slot] = req
+        if prefilling:
+            req.state = RequestState.PREFILL
+            req.prefill_pos = self.kv.prefix_cached_tokens(slot)
+            req.prefill_skip = req.prefill_pos
+            req.ledger.prefix_cached_tokens = max(
+                req.ledger.prefix_cached_tokens, req.prefill_pos)
+        else:
+            req.state = RequestState.RUNNING
+        if req.prefill_start_time == 0.0:
+            req.prefill_start_time = now()
+        req.ledger.pages_peak = max(req.ledger.pages_peak,
+                                    self.kv.slot_pages(slot))
+
+    def _resume(self, req: Request) -> bool:
+        """Bring one preempted request back; False if it does not fit."""
+        if req.swap_snapshot is not None:
+            snap = req.swap_snapshot
+            if (not self.kv.free_slot_count
+                    or self.kv.swap_in_pages_needed(snap)
+                    > self.kv.available_page_count):
+                return False
+            t0 = now()
+            slot = self.kv.swap_in(snap)
+            if slot is None:
+                return False
+            self.kv.synchronize()
+            self.phases["swap"].add(host=float(snap.nbytes),
+                                    wall_s=now() - t0)
+            req.ledger.swap_bytes += snap.nbytes
+            req.swap_snapshot = None
+            self._place(req, slot, prefilling=False)
+            return True
+        fill = req.fill_tokens
+        if not self.kv.can_admit_tokens(fill, self.watermark_pages):
+            return False
+        slot = self.kv.alloc(len(fill), budget=req.budget, tokens=fill)
+        if slot is None:
+            return False
+        self._place(req, slot, prefilling=True)
+        return True
+
+    def admit(self) -> List[Request]:
+        """Resume preempted requests first (FIFO by arrival), then admit
+        waiting requests while a slot, the prompt's pages and the
+        watermark are obtainable."""
+        admitted = []
+        self.preempted.sort(key=lambda r: r.request_id)
+        while self.preempted and self._resume(self.preempted[0]):
+            admitted.append(self.preempted.pop(0))
+        if self.preempted:
+            return admitted                 # do not admit past the queue
+        while self.waiting:
+            req = self.waiting[0]
+            fill = req.fill_tokens
+            if not self.kv.can_admit_tokens(fill, self.watermark_pages):
+                break
+            slot = self.kv.alloc(len(fill), budget=req.budget, tokens=fill)
+            if slot is None:
+                break
+            self.waiting.popleft()
+            self._place(req, slot, prefilling=True)
+            admitted.append(req)
+        return admitted
+
+    def preempt(self, req: Request) -> None:
+        """Evict a running request under pool pressure: swap its pages to
+        host memory, or (recompute mode, or mid-prefill) drop them after
+        snapshotting its committed context for re-prefill."""
+        if req.state not in (RequestState.PREFILL, RequestState.RUNNING):
+            raise ValueError(f"cannot preempt a {req.state.value} request")
+        del self.active[req.slot]
+        if self.preempt_mode == "swap" and req.state is RequestState.RUNNING:
+            t0 = now()
+            snap = self.kv.swap_out(req.slot)
+            self.phases["swap"].add(host=float(snap.nbytes),
+                                    wall_s=now() - t0)
+            req.swap_snapshot = snap
+            req.ledger.swap_bytes += snap.nbytes
+        else:
+            req.prefill_src = req.tokens
+            self.kv.free(req.slot)
+        req.slot = -1
+        req.state = RequestState.PREEMPTED
+        req.ledger.preemptions += 1
+        self.preempt_count += 1
+        self.preempted.append(req)
+
+    def preempt_victim(self) -> Optional[Request]:
+        """Newest-admitted running request (least sunk decode work)."""
+        cands = [r for r in self.active.values()
+                 if r.state is RequestState.RUNNING]
+        if not cands:
+            return None
+        return max(cands, key=lambda r: r.admit_seq)
+
+    def prefill_work(self) -> List[Tuple[Request, int, int]]:
+        """(request, start, end) chunks to prefill this step."""
+        out = []
+        for req in self.active.values():
+            if req.state is not RequestState.PREFILL:
+                continue
+            fill_len = len(req.fill_tokens)
+            start = req.prefill_pos
+            end = fill_len if self.prefill_chunk <= 0 else min(
+                fill_len, start + self.prefill_chunk)
+            out.append((req, start, end))
+        return out
+
+    def decode_requests(self) -> List[Request]:
+        return [r for r in self.active.values()
+                if r.state is RequestState.RUNNING]
+
+    def finish(self, req: Request, reason: str) -> None:
+        req.state = RequestState.FINISHED
+        req.finish_reason = reason
+        req.ledger.pages_peak = max(req.ledger.pages_peak,
+                                    self.kv.slot_pages(req.slot))
+        self.kv.free(req.slot)
+        del self.active[req.slot]
+        req.slot = -1
+        self.finished.append(req)

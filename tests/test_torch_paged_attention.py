@@ -1,0 +1,100 @@
+"""The port's plain paged-attention decode against the JAX package's jnp
+reference and its Pallas kernel (interpret mode, ``pipeline="off"``), on
+the same numpy inputs; plus the device dispatch and the pricing helpers.
+
+Tolerance: the repo's kernel tolerance, rtol=2e-5 / atol=2e-6 at float32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import paged_attention as jpa
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as tpa
+
+TOL = dict(rtol=2e-5, atol=2e-6)
+
+
+def _inputs(seed, B, KV, G, hd, page, nb, trash=False, q_scale=1.0):
+    rng = np.random.RandomState(seed)
+    P = 1 + B * nb
+    q = rng.standard_normal((B, KV, G, hd)).astype(np.float32) * q_scale
+    kp = rng.standard_normal((P, page, KV, hd)).astype(np.float32)
+    vp = rng.standard_normal((P, page, KV, hd)).astype(np.float32)
+    bt = np.zeros((B, nb), np.int32)
+    pos = np.zeros((B,), np.int32)
+    if not trash:
+        free = list(range(1, P))
+        for b in range(B):
+            live = rng.randint(1, nb + 1)
+            for j in range(live):
+                bt[b, j] = free.pop()
+            pos[b] = rng.randint(0, live * page)
+    return q, kp, vp, bt, pos
+
+
+def _three_ways(args, **kw):
+    ja = [jnp.asarray(a) for a in args]
+    want_jnp = np.asarray(jpa.paged_attention_reference(*ja, **kw))
+    want_pallas = np.asarray(jpa.paged_attention(*ja, **kw, interpret=True,
+                                                 pipeline="off"))
+    got = ops.paged_attention(*[torch.from_numpy(a) for a in args], **kw)
+    return got.numpy(), want_jnp, want_pallas
+
+
+@pytest.mark.parametrize("B,KV,G,hd,page,nb", [
+    (3, 2, 2, 16, 4, 5),      # GQA, odd block count
+    (2, 4, 1, 32, 8, 3),      # MHA (G=1)
+    (4, 1, 8, 64, 16, 2),     # single KV head
+])
+def test_reference_matches_jax_reference_and_pallas(B, KV, G, hd, page, nb):
+    args = _inputs(B * 7 + nb, B, KV, G, hd, page, nb)
+    got, want_jnp, want_pallas = _three_ways(args, scale=hd ** -0.5)
+    np.testing.assert_allclose(got, want_jnp, **TOL)
+    np.testing.assert_allclose(got, want_pallas, **TOL)
+
+
+def test_reference_soft_cap_matches():
+    args = _inputs(11, 2, 2, 2, 16, 4, 3, q_scale=4.0)
+    got, want_jnp, want_pallas = _three_ways(args, scale=0.25, soft_cap=30.0)
+    np.testing.assert_allclose(got, want_jnp, **TOL)
+    np.testing.assert_allclose(got, want_pallas, **TOL)
+
+
+def test_reference_idle_trash_lanes_finite_and_equal():
+    args = _inputs(5, 2, 2, 2, 16, 4, 3, trash=True)
+    got, want_jnp, want_pallas = _three_ways(args, scale=0.25)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want_jnp, **TOL)
+    np.testing.assert_allclose(got, want_pallas, **TOL)
+
+
+def test_cpu_tensors_dispatch_to_plain_version_and_kernel_refuses_them():
+    args = [torch.from_numpy(a) for a in _inputs(3, 2, 2, 2, 16, 4, 3)]
+    assert ops.resolve("paged_attention", torch.device("cpu")) is \
+        tpa.paged_attention_reference
+    assert ops.resolve("paged_attention", torch.device("cuda")) is \
+        tpa.paged_attention
+    n = tpa.paged_attention.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tpa.paged_attention(*args, scale=0.25)
+    ops.paged_attention(*args, scale=0.25)
+    assert tpa.paged_attention.launches == n     # the plain version ran
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tpa.paged_attention_reference(*args, scale=0.25,
+                                      k_scale=torch.ones(1))
+
+
+@pytest.mark.parametrize("ctx,page,n_q,pipeline", [
+    (1, 16, 1, "off"), (17, 16, 1, "off"), (256, 16, 1, "off"),
+    (100, 8, 5, "off"), (100, 8, 5, "double"), (33, 4, 1, "double")])
+def test_pricing_helpers_equal_reference(ctx, page, n_q, pipeline):
+    assert tpa.live_blocks(ctx, page, n_q) == jpa.live_blocks(ctx, page, n_q)
+    kw = dict(context_len=ctx, page_size=page, n_heads=16, kv_heads=8,
+              head_dim=128, isize=2, n_q=n_q, pipeline=pipeline)
+    assert tpa.paged_decode_vmem_bytes(**kw) == \
+        jpa.paged_decode_vmem_bytes(**kw)
+    assert tpa.paged_decode_vmem_bytes(**kw, kv_isize=1, scale_isize=4) == \
+        jpa.paged_decode_vmem_bytes(**kw, kv_isize=1, scale_isize=4)
