@@ -7,15 +7,18 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together) and print the build time;
-3. kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes and at its edge cases, with the tolerance
+3. kernel phases: each kernel (GQA ``paged_attention``, MLA
+   ``mla_paged_attention``) against its plain PyTorch version on the card
+   at its main path's shapes and at its edge cases, with the tolerance
    stated; times (CUDA events) of the kernel, the plain version and one
    PyTorch library call computing the same function, beside the bound;
-4. engine phase: the continuous-batching engine serves requests on
-   full-width qwen3-0.6b (random weights from a generator seeded 0); every
-   request must finish, the kernel's launch count must equal decode steps
-   x layers, and one decode step's logits must match the same step run
-   with the plain attention;
+4. engine phases, one per path: the continuous-batching engine serves
+   requests on full-width qwen3-0.6b (GQA) and on full-width
+   deepseek-v2-236b cut to 4 layers (MLA + MoE), random weights from a
+   generator seeded 0; every request must finish, the path's kernel
+   launch count (zeroed just before the run, read just after) must equal
+   decode steps x layers, and one decode step's logits must match the
+   same step run with the plain attention;
 5. one JSON line listing every ported kernel, then the device line last.
 
 Nothing here imports JAX or the JAX package.
@@ -23,6 +26,7 @@ Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -57,6 +61,23 @@ TOL_F32_PLAIN = {"float32": dict(atol=2e-5, rtol=2e-5),
 # decode logits (std ~0.6): the kernel's and the plain attention's bf16
 # roundings feed 28 layers of bf16 activations
 LOGITS_ATOL = 0.1
+
+# MLA path: deepseek-v2-236b at full width, cut to 4 layers (1 dense-FFN
+# prologue + 3 MoE); decode attention (H 128, r 512, dr 64) over 4 slots,
+# page 16, max_len 256 -> 16 blocks per slot; the kernel phase's live
+# lines per slot (679 in all, every last page partly filled)
+DS_LAYERS, DS_MAX_LEN, DS_NEW_TOKENS = 4, 256, 16
+MLA_H, MLA_R, MLA_DR = 128, 512, 64
+MLA_BLOCKS = DS_MAX_LEN // PAGE
+MLA_LENS = (97, 163, 190, 229)
+# queries at std 0.5, the scale of the model's absorbed q_lat at init
+MLA_Q_STD = 0.5
+# deepseek decode logits: the kernel keeps the scores and p in float32
+# where the plain version rounds them to bf16 (~2^-9 relative); 4 layers
+# of bf16 activations and top-6 routing over 160 experts amplify such
+# rounding to a few hundredths of a logit (max |logit| ~2 at init), while
+# attention that misses one cache line moves the logits by several tenths
+DS_LOGITS_ATOL = 0.2
 
 HBM_BW = 3.35e12                              # H100 SXM data sheet, B/s
 PEAK = {"float32": 67e12, "bfloat16": 989e12}  # FLOP/s, data sheet
@@ -220,10 +241,144 @@ def kernel_phase(torch, np, pa):
                 library_ms=library_ms)
 
 
-def decode_logits_check(torch, np, engine, ops, pa):
+def mla_case(torch, np, rng, dtype, kind: str):
+    """Inputs of one MLA kernel case.  ``ragged``: the main path's shapes
+    and MLA_LENS; ``edges``: pos 0, a partly filled last page, one exact
+    page and a full table; ``trash``: every slot idle (all entries trash
+    page 0, pos 0); ``small``: smoke widths (H 4, r 32, dr 8, page 8)."""
+    B, H, r, dr, page, nb = SLOTS, MLA_H, MLA_R, MLA_DR, PAGE, MLA_BLOCKS
+    lens = {"ragged": MLA_LENS, "edges": (1, 37, 16, DS_MAX_LEN),
+            "trash": None, "small": (1, 9, 20)}[kind]
+    if kind == "small":
+        B, H, r, dr, page, nb = 3, 4, 32, 8, 8, 4
+    P = 1 + B * nb
+    g = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape, dtype="float32"))
+    q_lat, q_rope = g(B, H, r) * MLA_Q_STD, g(B, H, dr) * MLA_Q_STD
+    c, kr = g(P, page, r), g(P, page, dr)
+    bt = torch.zeros((B, nb), dtype=torch.int32)
+    pos = torch.zeros((B,), dtype=torch.int32)
+    if lens is not None:
+        pages = list(rng.permutation(np.arange(1, P)))
+        for b, n in enumerate(lens):
+            live = -(-n // page)
+            bt[b, :live] = torch.tensor([int(pages.pop())
+                                         for _ in range(live)])
+            pos[b] = n - 1
+    dev = "cuda"
+    return dict(args=(q_lat.to(dev, dtype), q_rope.to(dev, dtype),
+                      c.to(dev, dtype), kr.to(dev, dtype), bt.to(dev),
+                      pos.to(dev)),
+                scale=(128 + 64) ** -0.5, page=page)
+
+
+def mla_bound(c):
+    """(bytes ms, operations ms): live latent + rope lines, q_lat, q_rope,
+    out, the live table entries and positions each moved once over HBM
+    bandwidth; H * (2 (r + dr) + 2 r) FLOPs per live line at the dtype's
+    peak."""
+    q_lat, q_rope, cp, rp, bt, pos = c["args"]
+    B, H, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    isize = q_lat.element_size()
+    lines = int((pos.long() + 1).sum())
+    pages = int((pos.long() // c["page"] + 1).sum())
+    nbytes = (lines * (r + dr) * isize + q_rope.numel() * isize
+              + 2 * q_lat.numel() * isize + pages * 4 + B * 4)
+    flops = lines * H * (2 * (r + dr) + 2 * r)
+    dt = "bfloat16" if isize == 2 else "float32"
+    return nbytes / HBM_BW * 1e3, flops / PEAK[dt] * 1e3
+
+
+def mla_kernel_phase(torch, np, pa):
+    """mla_paged_attention (CUDA) vs mla_paged_attention_reference."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(2)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for kind in ("ragged", "edges", "trash", "small"):
+            c = mla_case(torch, np, rng, dtype, kind)
+            args, kw = c["args"], dict(scale=c["scale"])
+            out = pa.mla_paged_attention(*args, **kw)
+            ref = pa.mla_paged_attention_reference(*args, **kw)
+            ref32 = pa.mla_paged_attention_reference(
+                *(a.float() for a in args[:4]), *args[4:], **kw)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()):
+                fail(f"mla_paged_attention {name}/{kind}: non-finite output")
+            err = float((out.float() - ref.float()).abs().max())
+            err32 = float((out.float() - ref32).abs().max())
+            tol, tol32 = TOL[name], TOL_F32_PLAIN[name]
+            ok = (bool(torch.allclose(out.float(), ref.float(), **tol))
+                  and bool(torch.allclose(out.float(), ref32, **tol32)))
+            print(f"[kernel] mla_paged_attention {name:8s} {kind:6s} "
+                  f"max_abs_err={err:.3e} (atol=rtol={tol['atol']}); vs "
+                  f"plain in f32 {err32:.3e} (atol=rtol={tol32['atol']}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"mla_paged_attention {name}/{kind} disagrees with its "
+                     f"plain version: max abs err {err}")
+            errs[(name, kind)] = err
+    # times at the main path's shapes and type: bf16, MLA_LENS; 64 copies
+    # of the queries and pools (~110 MB) rotate so every call reads cold
+    # HBM
+    c = mla_case(torch, np, rng, torch.bfloat16, "ragged")
+    q_lat, q_rope, cp, rp, bt, pos = c["args"]
+    copies = [(q_lat.clone(), q_rope.clone(), cp.clone(), rp.clone(), bt,
+               pos) for _ in range(64)]
+    kw = dict(scale=c["scale"])
+    n = pa.mla_paged_attention.launches
+    kernel_ms = device_ms(lambda *a: pa.mla_paged_attention(*a, **kw),
+                          copies)
+    plain_ms = device_ms(
+        lambda *a: pa.mla_paged_attention_reference(*a, **kw), copies)
+    B, S = SLOTS, MLA_BLOCKS * PAGE
+    k_pos = torch.arange(S, device="cuda")
+    mask = (k_pos[None, :] <= pos.long()[:, None])[:, None, None, :]
+
+    def library(ql, qr, cpool, rpool, bt, pos):
+        # gather the latent lines, then torch's fused attention with
+        # k = [c | k_rope] and v = c, shared by every head
+        cc = cpool[bt.long()].reshape(B, 1, S, MLA_R)
+        kk = torch.cat([cc, rpool[bt.long()].reshape(B, 1, S, MLA_DR)], -1)
+        qq = torch.cat([ql, qr], -1)[:, :, None, :]
+        return F.scaled_dot_product_attention(
+            qq, kk.expand(B, MLA_H, S, MLA_R + MLA_DR),
+            cc.expand(B, MLA_H, S, MLA_R), attn_mask=mask,
+            scale=c["scale"])[:, :, 0]
+
+    lib_err = float((library(*copies[0]).float()
+                     - pa.mla_paged_attention_reference(
+                         *copies[0], **kw).float()).abs().max())
+    if lib_err > TOL["bfloat16"]["atol"]:
+        fail(f"MLA library yardstick disagrees with the plain version: "
+             f"{lib_err}")
+    library_ms = device_ms(library, copies)
+    pa.mla_paged_attention.launches = n    # comparison launches do not count
+    bytes_ms, ops_ms = mla_bound(c)
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"[kernel] mla_paged_attention bf16 B={SLOTS} H={MLA_H} "
+          f"r={MLA_R} dr={MLA_DR} page={PAGE} lines={sum(MLA_LENS)}: "
+          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(gather + SDPA) {library_ms:.4f} ms (max abs diff vs plain "
+          f"{lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by}; bytes "
+          f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms at bf16 peak)")
+    return dict(name="mla_paged_attention", route="cuda",
+                source="src/repro_torch/csrc/mla_paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention.py:445",
+                max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def decode_logits_check(torch, np, engine, ops, op, counter):
     """One decode step of the engine's current batch, run on copies of its
-    pools twice: through the kernel, and with the plain attention swapped
-    into the registry.  Returns the max abs logits difference."""
+    pools twice: through the kernel, and with the plain version of
+    ``op`` swapped into the registry.  Returns the max abs logits
+    difference and the max abs logit.  ``counter`` is the kernel wrapper,
+    whose launches here are not counted."""
     from repro_torch.models import decode_step_paged
     kv = engine._kv
     running = engine._sched.decode_requests()
@@ -245,19 +400,17 @@ def decode_logits_check(torch, np, engine, ops, pa):
         return decode_step_paged(engine.params, engine.cfg, pools, bt, tok,
                                  pos, page_size=PAGE).float()
 
-    n = pa.paged_attention.launches
+    n = counter.launches
     with torch.no_grad():
         got = run()
-        saved = ops.registered_kernels()["paged_attention"]
-        ops.register_kernel("paged_attention",
-                            cuda=pa.paged_attention_reference,
-                            reference=pa.paged_attention_reference)
+        saved = ops.registered_kernels()[op]
+        ops.register_kernel(op, cuda=saved["cpu"], reference=saved["cpu"])
         try:
             want = run()
         finally:
-            ops.register_kernel("paged_attention", cuda=saved["cuda"],
+            ops.register_kernel(op, cuda=saved["cuda"],
                                 reference=saved["cpu"])
-    pa.paged_attention.launches = n
+    counter.launches = n
     rows = torch.as_tensor(slots, device="cuda")
     got, want = got[rows], want[rows]
     if not bool(torch.isfinite(got).all()):
@@ -265,29 +418,43 @@ def decode_logits_check(torch, np, engine, ops, pa):
     return float((got - want).abs().max()), float(want.abs().max())
 
 
-def engine_phase(torch, np, card):
-    from repro_torch.configs import get_config
+def engine_phase(torch, np, card, cfg, *, max_len: int, new_tokens: int,
+                 op: str, counter, logits_atol: float) -> int:
+    """The continuous-batching engine on ``cfg`` (random weights from a
+    generator seeded 0) serves PROMPT_LENS; every request must finish,
+    the path's kernel ``op`` (wrapper ``counter``) must launch once per
+    layer and decode step in that run, and one decode step of a second
+    batch must match the same step with the plain attention.  Returns
+    the launch count of the measured run."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, param_count
     from repro_torch.obs.clock import now
     from repro_torch.serve import Engine, EngineConfig, GenerateConfig
+    from repro_torch.serve.scheduler import params_bytes_active
 
-    cfg = get_config("qwen3-0.6b")
-    if (cfg.n_layers, cfg.d_model, cfg.n_kv_heads, cfg.hd) != (
-            N_LAYERS, 1024, KV, HD):
-        fail(f"unexpected qwen3-0.6b config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = now()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     torch.cuda.synchronize()
-    print(f"[engine] qwen3-0.6b full width ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}) random "
-          f"weights in {now() - t0:.1f} s")
-    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+    # an MoE decode step multiplies every routed expert's weights (the
+    # (E, C, D) dispatch buffer), not only the active ones the ledger prices
+    expert_bytes = sum(
+        t.numel() * t.element_size()
+        for seg in params["segments"] for blk in seg.values()
+        if "ffn" in blk and blk["ffn"]["w_up"].dim() == 4
+        for k, t in blk["ffn"].items() if k in ("w_up", "w_gate", "w_down"))
+    print(f"[engine] {cfg.name} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}): "
+          f"{param_count(cfg) / 1e9:.2f} B params, random weights in "
+          f"{now() - t0:.1f} s; routed-expert weights multiplied per decode "
+          f"step {expert_bytes / 1e9:.2f} GB, ledger's active weights "
+          f"{params_bytes_active(cfg) / 1e9:.2f} GB")
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=max_len,
                         prefill_chunk=PREFILL_CHUNK, device="cuda")
     rng = np.random.default_rng(1)
-    gen = GenerateConfig(max_new_tokens=NEW_TOKENS)
+    gen = GenerateConfig(max_new_tokens=new_tokens)
 
     # warm-up engine (cuBLAS handles, allocator): not counted, not timed
     warm = Engine(cfg, params, ecfg)
@@ -298,13 +465,13 @@ def engine_phase(torch, np, card):
     engine = Engine(cfg, params, ecfg)
     reqs = [engine.submit(rng.integers(0, cfg.vocab_size, n), gen)
             for n in PROMPT_LENS]
-    pa.paged_attention.launches = 0          # counts start here
+    counter.launches = 0                     # counts start here
     torch.cuda.synchronize()
     t0 = now()
     engine.run()
     torch.cuda.synchronize()
     wall = now() - t0
-    launches = pa.paged_attention.launches   # counts read here
+    launches = counter.launches              # counts read here
     steps = engine.decode_steps
     dec = engine.phases["decode"]
     dec_ms = dec.wall_s / max(dec.steps, 1) * 1e3
@@ -319,37 +486,40 @@ def engine_phase(torch, np, card):
     while engine._sched.has_work():
         if logits_err is None and len(engine._sched.decode_requests()) == 3:
             logits_err, scale = decode_logits_check(torch, np, engine, ops,
-                                                    pa)
+                                                    op, counter)
         engine.step()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for r in reqs:
-        if r.finish_reason != "length" or len(r.generated) != NEW_TOKENS:
-            fail(f"request {r.request_id} ended {r.finish_reason!r} with "
-                 f"{len(r.generated)} tokens")
+        if r.finish_reason != "length" or len(r.generated) != new_tokens:
+            fail(f"{cfg.name} request {r.request_id} ended "
+                 f"{r.finish_reason!r} with {len(r.generated)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.generated):
-            fail(f"request {r.request_id}: token ids outside the vocab")
-    if launches != steps * N_LAYERS:
-        fail(f"paged_attention launched {launches} times for "
-             f"{steps} decode steps x {N_LAYERS} layers")
+            fail(f"{cfg.name} request {r.request_id}: token ids outside "
+                 "the vocab")
+    if launches != steps * cfg.n_layers:
+        fail(f"{op} launched {launches} times for {steps} decode steps x "
+             f"{cfg.n_layers} layers")
     if logits_err is None or any(len(r.generated) != 8 for r in more):
-        fail("the logits-check batch did not run as planned")
-    if logits_err > LOGITS_ATOL:
-        fail(f"engine decode logits differ from the plain-attention step "
-             f"by {logits_err} > {LOGITS_ATOL}")
+        fail(f"the {cfg.name} logits-check batch did not run as planned")
+    if logits_err > logits_atol:
+        fail(f"{cfg.name} decode logits differ from the plain-attention "
+             f"step by {logits_err} > {logits_atol}")
     n_tok = sum(len(r.generated) for r in reqs)
     ttft = [r.ttft for r in reqs]
-    print(f"[engine] {len(reqs)} requests (prompts {list(PROMPT_LENS)}, "
-          f"{NEW_TOKENS} new tokens, {SLOTS} slots, prefill chunk "
-          f"{PREFILL_CHUNK}) all finished; {steps} decode "
-          f"steps, paged_attention launches {launches} = steps x "
-          f"{N_LAYERS}")
-    print(f"[engine] decode logits vs plain attention: max abs diff "
-          f"{logits_err:.4e} (atol {LOGITS_ATOL}; max |logit| {scale:.3f})")
-    print(f"[engine] {card}: {n_tok / wall:.2f} tok/s over {wall:.3f} s; "
-          f"mean decode step {dec_ms:.3f} ms; "
+    print(f"[engine] {cfg.name}: {len(reqs)} requests (prompts "
+          f"{list(PROMPT_LENS)}, {new_tokens} new tokens, {SLOTS} slots, "
+          f"prefill chunk {PREFILL_CHUNK}) all finished; {steps} decode "
+          f"steps, {op} launches {launches} = steps x {cfg.n_layers}")
+    print(f"[engine] {cfg.name} decode logits vs plain attention: max abs "
+          f"diff {logits_err:.4e} (atol {logits_atol}; max |logit| "
+          f"{scale:.3f})")
+    print(f"[engine] {cfg.name} {card}: {n_tok / wall:.2f} tok/s over "
+          f"{wall:.3f} s; mean decode step {dec_ms:.3f} ms; "
           f"TTFT mean {np.mean(ttft) * 1e3:.2f} ms, max "
           f"{np.max(ttft) * 1e3:.2f} ms; ledger arithmetic intensity "
-          f"{agg.arithmetic_intensity:.3f} FLOP/B")
+          f"{agg.arithmetic_intensity:.3f} FLOP/B; peak memory "
+          f"{peak_gb:.2f} GB")
     return launches
 
 
@@ -361,6 +531,7 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a repo checkout")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
 
@@ -379,10 +550,28 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
+    qwen = get_config("qwen3-0.6b")
+    if (qwen.n_layers, qwen.d_model, qwen.n_kv_heads, qwen.hd) != (
+            N_LAYERS, 1024, KV, HD):
+        fail(f"unexpected qwen3-0.6b config {qwen}")
+    deepseek = dataclasses.replace(get_config("deepseek-v2-236b"),
+                                   n_layers=DS_LAYERS)
+    if (deepseek.d_model, deepseek.n_heads, deepseek.kv_lora_rank,
+            deepseek.rope_head_dim, deepseek.n_experts) != (
+            5120, MLA_H, MLA_R, MLA_DR, 160):
+        fail(f"unexpected deepseek-v2-236b config {deepseek}")
+
     entry = kernel_phase(torch, np, pa)
-    launches = engine_phase(torch, np, card)
-    entry["launches"] = launches
-    print(json.dumps({"kernels": [entry]}))
+    mla_entry = mla_kernel_phase(torch, np, pa)
+    entry["launches"] = engine_phase(
+        torch, np, card, qwen, max_len=MAX_LEN, new_tokens=NEW_TOKENS,
+        op="paged_attention", counter=pa.paged_attention,
+        logits_atol=LOGITS_ATOL)
+    mla_entry["launches"] = engine_phase(
+        torch, np, card, deepseek, max_len=DS_MAX_LEN,
+        new_tokens=DS_NEW_TOKENS, op="mla_paged_attention",
+        counter=pa.mla_paged_attention, logits_atol=DS_LOGITS_ATOL)
+    print(json.dumps({"kernels": [entry, mla_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

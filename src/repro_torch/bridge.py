@@ -33,8 +33,9 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def to_torch(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:
-    """numpy (or array-like) tree -> torch tree on ``device``."""
+def to_torch(tree: Any, *, device: Union[str, torch.device]) -> Any:
+    """numpy (or array-like) tree -> torch tree on ``device`` (required:
+    the port picks no device for its caller)."""
     dev = torch.device(device)
     return tree_map(lambda a: _to_tensor(a, dev), tree)
 

@@ -48,3 +48,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *, scale,
     int32; pos (B,) int32.  Returns (B, KV, G, hd)."""
     return resolve("paged_attention", q.device)(
         q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap)
+
+
+register_kernel("mla_paged_attention", cuda=_paged.mla_paged_attention,
+                reference=_paged.mla_paged_attention_reference)
+
+
+def mla_paged_attention(q_lat, q_rope, c_pool, r_pool, block_tables, pos, *,
+                        scale):
+    """MLA paged decode in the latent space (see
+    kernels/paged_attention.py): q_lat (B, H, r); q_rope (B, H, dr); pools
+    (P, page, r) / (P, page, dr); block_tables (B, n_blocks) int32; pos
+    (B,) int32.  Returns o_lat (B, H, r)."""
+    return resolve("mla_paged_attention", q_lat.device)(
+        q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)

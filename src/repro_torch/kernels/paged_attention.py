@@ -1,22 +1,31 @@
-"""Paged-attention decode: the hand-written CUDA kernel's wrapper, its
-plain PyTorch version, and the pricing helpers the scheduler imports.
+"""Paged-attention decode: the hand-written CUDA kernels' wrappers, their
+plain PyTorch versions, and the pricing helpers the scheduler imports.
 
-One query token per decode slot attends to that slot's whole KV history,
-which lives in physical pages shared across slots (serve/kv_cache.py).
-q (B, KV, G, hd); k/v pools (P, page, KV, hd); block_tables (B, n_blocks)
-int32 logical block -> physical page; pos (B,) int32 last written
-position.  Dead table entries point at trash page 0 and the
-``k_pos <= pos`` mask removes them exactly.
+One query token per decode slot attends to that slot's whole cache
+history, which lives in physical pages shared across slots
+(serve/kv_cache.py).  block_tables (B, n_blocks) int32 map logical block
+-> physical page; pos (B,) int32 is the last written position.  Dead
+table entries point at trash page 0 and the ``k_pos <= pos`` mask
+removes them exactly.
 
-* :func:`paged_attention_reference` gathers the pages to (B, S, KV, hd)
-  and attends — the JAX package's jnp reference, op for op.
-* :func:`paged_attention` launches ``csrc/paged_attention.cu`` (the port
-  of the Pallas ``_paged_decode_kernel``) on CUDA tensors and refuses
-  anything else; ``kernels/ops.py`` routes CPU tensors to the reference.
+* GQA: q (B, KV, G, hd); k/v pools (P, page, KV, hd).
+  :func:`paged_attention_reference` gathers the pages and attends — the
+  JAX package's jnp reference, op for op; :func:`paged_attention`
+  launches ``csrc/paged_attention.cu`` (the port of the Pallas
+  ``_paged_decode_kernel``).
+* MLA, in the absorbed latent space: q_lat (B, H, r), q_rope (B, H, dr);
+  latent / rope pools (P, page, r) / (P, page, dr); output o_lat
+  (B, H, r).  :func:`mla_paged_attention_reference` is the jnp reference
+  op for op; :func:`mla_paged_attention` launches
+  ``csrc/mla_paged_attention.cu`` (the port of the Pallas
+  ``_mla_paged_decode_kernel``).
 
-The kernel keeps ``p @ v`` in float32, as the Pallas kernel does, while
-the reference casts the probabilities to the value dtype before the PV
-product; in bf16 the two therefore differ by bf16 rounding of ``p``.
+The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
+tensors to the plain versions.  The kernels keep the scores and ``p``
+in float32, as the Pallas kernels do, while the references round the
+scores to the input dtype and cast the probabilities to the value dtype
+before the PV product; in bf16 the two therefore differ by bf16
+rounding.
 """
 
 from __future__ import annotations
@@ -61,6 +70,31 @@ def paged_attention_reference(
     s = torch.where(m[:, None, None, :], s, NEG_INF)
     p_attn = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bkgs,bskh->bkgh", p_attn, v).to(q.dtype)
+
+
+def mla_paged_attention_reference(
+    q_lat: torch.Tensor, q_rope: torch.Tensor, c_pool: torch.Tensor,
+    r_pool: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float,
+    c_scale: Optional[torch.Tensor] = None,
+    r_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """MLA paged decode in the latent space, gather-and-attend.  Returns
+    o_lat (B, H, r); the caller folds ``wv_b`` / ``wo`` back out."""
+    _reject_scales(c_scale, r_scale)
+    B = q_lat.shape[0]
+    S = block_tables.shape[1] * c_pool.shape[1]
+    bt = block_tables.long()
+    c_kv = c_pool[bt].reshape(B, S, -1)
+    k_rope = r_pool[bt].reshape(B, S, -1)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
+         + torch.einsum("bhk,bsk->bhs", q_rope, k_rope))
+    s = s.float() * scale
+    valid = (torch.arange(S, device=q_lat.device)[None, :]
+             <= pos.long()[:, None])
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(c_kv.dtype)
+    return torch.einsum("bhs,bsr->bhr", w, c_kv).to(q_lat.dtype)
 
 
 def _reject_scales(k_scale, v_scale) -> None:
@@ -145,6 +179,81 @@ C_SIGNATURES = {
 }
 
 
+# latent ranks, rope dims and page sizes the MLA kernel is instantiated
+# for, and its heads-per-block tile; csrc/mla_paged_attention.cu
+# dispatches on the same sets
+MLA_LATENT_DIMS = (32, 64, 128, 256, 512)
+MLA_ROPE_DIMS = (8, 16, 32, 64)
+MLA_PAGE_SIZES = (8, 16, 32)
+MLA_HEADS_PER_BLOCK = 8
+
+
+def mla_paged_attention(
+    q_lat: torch.Tensor, q_rope: torch.Tensor, c_pool: torch.Tensor,
+    r_pool: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float,
+    c_scale: Optional[torch.Tensor] = None,
+    r_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the CUDA MLA decode kernel on the current stream (no sync).
+
+    Same contract as :func:`mla_paged_attention_reference`.  Takes CUDA
+    tensors only: bf16 or f32 queries and pools, latent rank in
+    ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size in
+    ``MLA_PAGE_SIZES``, any head count (the last head block is masked),
+    int32 block tables and positions.  ``launches`` counts the kernel
+    launches this wrapper made."""
+    _reject_scales(c_scale, r_scale)
+    if not q_lat.is_cuda:
+        raise ValueError(
+            "mla_paged_attention launches a CUDA kernel and takes CUDA "
+            f"tensors only (q_lat is on {q_lat.device}); kernels.ops "
+            "dispatches CPU tensors to mla_paged_attention_reference")
+    B, H, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    P, page_size = c_pool.shape[0], c_pool.shape[1]
+    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if q_lat.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q_lat dtype {q_lat.dtype} not in "
+                         f"{list(_DTYPE_CODES)}")
+    if r not in MLA_LATENT_DIMS:
+        raise ValueError(f"latent rank {r} not in {MLA_LATENT_DIMS}")
+    if dr not in MLA_ROPE_DIMS:
+        raise ValueError(f"rope dim {dr} not in {MLA_ROPE_DIMS}")
+    if page_size not in MLA_PAGE_SIZES:
+        raise ValueError(f"page size {page_size} not in {MLA_PAGE_SIZES}")
+    dev = q_lat.device
+    _check("q_lat", q_lat, q_lat.dtype, (B, H, r), dev)
+    _check("q_rope", q_rope, q_lat.dtype, (B, H, dr), dev)
+    _check("c_pool", c_pool, q_lat.dtype, (P, page_size, r), dev)
+    _check("r_pool", r_pool, q_lat.dtype, (P, page_size, dr), dev)
+    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
+    _check("pos", pos, torch.int32, (B,), dev)
+    out = torch.empty_like(q_lat)
+    lib = build.library("mla_paged_attention", MLA_C_SIGNATURES)
+    err = lib.mla_paged_attention_decode(
+        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+        r_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, H, r, dr, page_size, n_blocks, float(scale),
+        _DTYPE_CODES[q_lat.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mla_paged_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    mla_paged_attention.launches += 1
+    return out
+
+
+mla_paged_attention.launches = 0
+
+# the C interface of csrc/mla_paged_attention.cu
+MLA_C_SIGNATURES = {
+    "mla_paged_attention_decode": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
 # --------------------------------------------------------------------------
 # Pricing helpers (the scheduler's per-token VMEM ledger)
 #
@@ -180,4 +289,26 @@ def paged_decode_vmem_bytes(
     carries = kv_heads * nb * 2 * rows * (head_dim + 2) * 4
     out = kv_heads * rows * head_dim * isize
     appended = n_q * 2 * kv_heads * kv_line
+    return float(stream + q_reread + carries + out + appended)
+
+
+def mla_paged_decode_vmem_bytes(
+    *, context_len: int, page_size: int, n_heads: int, lora_rank: int,
+    rope_dim: int, isize: int, n_q: int = 1, pipeline: str = "off",
+    kv_isize: int = 0, scale_isize: int = 0,
+) -> float:
+    """On-chip bytes one slot moves in the MLA paged decode / verify walk:
+    streamed latent + rope lines, query re-reads per block step (once per
+    program with ``pipeline="double"``), float32 softmax carries read and
+    written per block step, the output flush and the appended lines."""
+    rows = n_heads * n_q
+    nb = live_blocks(context_len, page_size, n_q)
+    q_steps = nb if pipeline == "off" else 1
+    line = (lora_rank + rope_dim) * isize
+    kv_line = (lora_rank + rope_dim) * (kv_isize or isize) + 2 * scale_isize
+    stream = nb * page_size * kv_line
+    q_reread = q_steps * rows * line
+    carries = nb * 2 * rows * (lora_rank + 2) * 4
+    out = rows * lora_rank * isize
+    appended = n_q * kv_line
     return float(stream + q_reread + carries + out + appended)

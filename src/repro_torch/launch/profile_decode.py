@@ -2,10 +2,13 @@
 over steady-state engine steps.
 
     python -m repro_torch.launch.profile_decode [--steps 8]
+    python -m repro_torch.launch.profile_decode --arch deepseek-v2-236b \
+        --layers 4
 
-Builds full-width qwen3-0.6b (random weights, seeded), fills all slots
-with decoding requests, then profiles ``--steps`` engine steps that only
-decode.  Prints the window's wall time, the summed device time of every
+Builds a full-width model (qwen3-0.6b by default; ``--layers`` cuts
+depth only) with random weights, seeded, fills all slots with decoding
+requests, then profiles ``--steps`` engine steps that only decode.
+Prints the window's wall time, the summed device time of every
 kernel in it (the device busy share is their ratio), and the kernels with
 the most device time, beside the card's name and power limit.
 """
@@ -13,6 +16,7 @@ the most device time, beside the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 
 import numpy as np
@@ -29,6 +33,8 @@ from ..serve import Engine, EngineConfig, GenerateConfig
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0 = all)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--steps", type=int, default=8)
@@ -41,6 +47,8 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     engine = Engine(cfg, params, EngineConfig(
         num_slots=args.slots, max_len=args.prompt_len + 64, device=dev))

@@ -2,16 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 6 --prompt-len 64 --new-tokens 32 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --layers 4 --batch 6 --slots 4 \\
+        --prefill-chunk 64
 
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
-the plain PyTorch path (use ``--smoke`` there).  Weights are random, from
-a generator seeded ``--seed``.  Prints tokens/s and the per-request
-decode roofline ledger line.
+the plain PyTorch path (use ``--smoke`` there).  ``--layers`` cuts depth
+only (a dense-FFN prologue stays).  Weights are random, from a generator
+seeded ``--seed``.  Prints tokens/s and the per-request decode roofline
+ledger line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,6 +32,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ALL_ARCHS), default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0 = all)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -41,6 +48,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
     gen_ = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen_, dev)

@@ -1,6 +1,6 @@
 """GQA self-attention (+qk-norm, RoPE) over full sequences and paged KV
-caches.  MLA and cross-attention are not ported yet (ROADMAP queue 1
-items 6 and 9).
+caches.  MLA lives in ``mla.py``; cross-attention is not ported yet
+(ROADMAP queue 1 item 9).
 
 The attention core is plain PyTorch ops, as the reference's is plain jnp
 outside any kernel; only paged decode goes through a hand-written kernel

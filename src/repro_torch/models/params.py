@@ -17,6 +17,11 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 
+# elements drawn per generator call (a multiple of 16: the CPU generator
+# then yields the same stream as one whole-leaf draw)
+DRAW_CHUNK = 1 << 24
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
@@ -47,9 +52,20 @@ class ParamDef:
             std = self.scale * 0.02
         else:  # lecun
             std = self.scale / math.sqrt(max(fan_in, 1))
-        x = torch.randn(self.shape, generator=generator,
-                        device=generator.device, dtype=torch.float32)
-        return (x * std).to(device=device, dtype=dt)
+        n = math.prod(self.shape)
+        if n <= DRAW_CHUNK:
+            x = torch.randn(self.shape, generator=generator,
+                            device=generator.device, dtype=torch.float32)
+            return (x * std).to(device=device, dtype=dt)
+        # a large leaf is drawn DRAW_CHUNK elements at a time into its
+        # final dtype, so the float32 transient stays one chunk (a whole
+        # (reps, 160, 5120, 1536) expert leaf would be 15 GB of float32)
+        out = torch.empty(self.shape, dtype=dt, device=device).view(-1)
+        for i in range(0, n, DRAW_CHUNK):
+            x = torch.randn(min(DRAW_CHUNK, n - i), generator=generator,
+                            device=generator.device, dtype=torch.float32)
+            out[i:i + x.numel()] = (x * std).to(device=device, dtype=dt)
+        return out.view(self.shape)
 
 
 def torch_dtype(name: str) -> torch.dtype:

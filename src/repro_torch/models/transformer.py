@@ -6,9 +6,10 @@ per ``cfg.segments()`` piece, every leaf stacked ``(reps, ...)`` — so a
 weight tree crosses from the JAX package leaf for leaf; layer ``i`` of a
 segment is the ``[i]`` view of each stacked leaf.
 
-This slice covers decoder-only archs built of GQA attention blocks with a
-dense (or no) FFN; every other block kind raises NotImplementedError
-naming its ROADMAP item.
+This covers decoder-only archs built of GQA attention or MLA blocks with a
+dense, MoE or no FFN; every other block kind raises NotImplementedError
+naming its ROADMAP item.  RoPE tables are computed once per forward for
+each mixer kind present (:func:`rope_tables`) and handed to every layer.
 """
 
 from __future__ import annotations
@@ -18,13 +19,15 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from . import attention as attn
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .common import BlockDef, ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
                      logits_from_hidden, mlp_defs, norm_defs)
 from .params import stack_defs, tree_map
 
 # ROADMAP queue 1 item that ports each block kind still missing
-_TODO = {"mla": 6, "moe": 6, "mamba": 8, "mlstm": 8, "slstm": 8,
+_TODO = {"mamba": 8, "mlstm": 8, "slstm": 8,
          "cross_attn": 9, "attn+cross": 9}
 
 
@@ -58,11 +61,17 @@ def _layer(tree: Any, i: int) -> Any:
 # --------------------------------------------------------------------------
 
 def block_defs(cfg: ModelConfig, b: BlockDef) -> Dict[str, Any]:
-    defs: Dict[str, Any] = {"norm1": norm_defs(cfg),
-                            "mixer": attn.attn_defs(cfg)}
+    defs: Dict[str, Any] = {"norm1": norm_defs(cfg)}
+    if b.mixer == "attn":
+        defs["mixer"] = attn.attn_defs(cfg)
+    else:
+        defs["mixer"] = mla_mod.mla_defs(cfg)
     if b.ffn == "dense":
         defs["norm2"] = norm_defs(cfg)
         defs["ffn"] = mlp_defs(cfg)
+    elif b.ffn == "moe":
+        defs["norm2"] = norm_defs(cfg)
+        defs["ffn"] = moe_mod.moe_defs(cfg)
     return defs
 
 
@@ -78,17 +87,33 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int) -> List[Dict[str, Any]]:
-    """Per-segment page pools (reps, num_pages, page_size, KV, hd).
-    ``num_slots`` sizes recurrent state rows, which this slice has none
-    of; it stays for the reference's signature."""
+    """Per-segment page pools: (reps, num_pages, page_size, KV, hd) K/V
+    for GQA blocks, (reps, num_pages, page_size, r | dr) latent and rope
+    lines for MLA blocks.  ``num_slots`` sizes recurrent state rows,
+    which no ported block has; it stays for the reference's signature."""
     check_supported(cfg)
     segs = []
     for unit, reps in cfg.segments():
-        unit_caches = {f"b{i}": attn.paged_pool_defs(cfg, num_pages,
-                                                     page_size)
-                       for i in range(len(unit))}
+        unit_caches = {
+            f"b{i}": (attn.paged_pool_defs(cfg, num_pages, page_size)
+                      if b.mixer == "attn" else
+                      mla_mod.mla_paged_pool_defs(cfg, num_pages, page_size))
+            for i, b in enumerate(unit)}
         segs.append(stack_defs(unit_caches, reps))
     return segs
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor
+                ) -> Dict[str, attn.Rope]:
+    """RoPE cos/sin per mixer kind in the model (GQA at ``hd``, MLA at
+    ``rope_head_dim``), computed once per forward for ``positions``."""
+    kinds = {b.mixer for unit, _ in cfg.segments() for b in unit}
+    ropes: Dict[str, attn.Rope] = {}
+    if "attn" in kinds:
+        ropes["attn"] = attn.rope_tables(cfg, positions)
+    if "mla" in kinds:
+        ropes["mla"] = mla_mod.rope_tables(cfg, positions)
+    return ropes
 
 
 # --------------------------------------------------------------------------
@@ -97,20 +122,31 @@ def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,
 
 def _ffn_tail(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
-    """Shared norm2 -> FFN -> residual tail."""
+    """Shared norm2 -> FFN -> residual tail (the MoE aux loss, a training
+    term, is dropped)."""
     if b.ffn == "none":
         return x
     h = apply_norm(p["norm2"], x, cfg)
-    return x + cfg.residual_scale * apply_mlp(p["ffn"], h, cfg)
+    if b.ffn == "dense":
+        o = apply_mlp(p["ffn"], h, cfg)
+    else:
+        o, _ = moe_mod.moe_ffn(p["ffn"], h, cfg)
+    return x + cfg.residual_scale * o
 
 
 def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor, rope: attn.Rope
+                     positions: torch.Tensor, ropes: Dict[str, attn.Rope]
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (x, {"k", "v"}) — the block's K/V lines for the cache."""
+    """Returns (x, state) — the block's cache lines: {"k", "v"} for GQA,
+    {"c_kv", "k_rope"} for MLA."""
     h = apply_norm(p["norm1"], x, cfg)
-    o, state = attn.multihead_attention(p["mixer"], h, cfg,
-                                        positions=positions, rope=rope)
+    if b.mixer == "attn":
+        o, state = attn.multihead_attention(p["mixer"], h, cfg,
+                                            positions=positions,
+                                            rope=ropes["attn"])
+    else:
+        o, state = mla_mod.mla_attention(p["mixer"], h, cfg, positions,
+                                         rope=ropes["mla"])
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg), state
 
@@ -118,11 +154,18 @@ def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
 def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
                        pool: Dict[str, torch.Tensor], pos: torch.Tensor,
                        cfg: ModelConfig, block_tables: torch.Tensor,
-                       page_size: int, rope: attn.Rope) -> torch.Tensor:
+                       page_size: int, ropes: Dict[str, attn.Rope]
+                       ) -> torch.Tensor:
     """One-token paged decode through a block (pool updated in place)."""
     h = apply_norm(p["norm1"], x, cfg)
-    o = attn.decode_attention_paged(p["mixer"], h, pool, block_tables, pos,
-                                    cfg, page_size=page_size, rope=rope)
+    if b.mixer == "attn":
+        o = attn.decode_attention_paged(p["mixer"], h, pool, block_tables,
+                                        pos, cfg, page_size=page_size,
+                                        rope=ropes["attn"])
+    else:
+        o = mla_mod.mla_decode_paged(p["mixer"], h, pool, block_tables, pos,
+                                     cfg, page_size=page_size,
+                                     rope=ropes["mla"])
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg)
 
@@ -130,14 +173,19 @@ def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
 def apply_block_prefill_chunk(p, b: BlockDef, x: torch.Tensor,
                               pool: Dict[str, torch.Tensor], offset: int,
                               block_table: torch.Tensor, cfg: ModelConfig,
-                              page_size: int, rope: attn.Rope
+                              page_size: int, ropes: Dict[str, attn.Rope]
                               ) -> torch.Tensor:
     """Prefill one chunk of ONE request through a block (pool updated in
     place).  x (1,T,D) at positions offset..offset+T-1."""
     h = apply_norm(p["norm1"], x, cfg)
-    o = attn.prefill_attention_paged(p["mixer"], h, pool, block_table,
-                                     offset, cfg, page_size=page_size,
-                                     rope=rope)
+    if b.mixer == "attn":
+        o = attn.prefill_attention_paged(p["mixer"], h, pool, block_table,
+                                         offset, cfg, page_size=page_size,
+                                         rope=ropes["attn"])
+    else:
+        o = mla_mod.mla_prefill_paged(p["mixer"], h, pool, block_table,
+                                      offset, cfg, page_size=page_size,
+                                      rope=ropes["mla"])
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg)
 
@@ -150,13 +198,12 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
                  collect_state: bool = False):
     """Full-sequence causal forward.  tokens (B, S) int.  Returns
     (logits (B, S, V), states) — states (with ``collect_state``) per
-    segment ``{"b<i>": {"k", "v"}}`` stacked (reps, B, S, KV, hd), else
-    None."""
+    segment ``{"b<i>": lines}`` stacked (reps, B, S, ...), else None."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = embed_tokens(params["embed"], tokens, cfg, positions)
-    rope = attn.rope_tables(cfg, positions)
+    ropes = rope_tables(cfg, positions)
     states: List[Any] = []
     for seg_params, (unit, reps) in zip(params["segments"], cfg.segments()):
         per_layer = []
@@ -165,7 +212,7 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
             st = {}
             for i, b in enumerate(unit):
                 x, st[f"b{i}"] = apply_block_full(layer_p[f"b{i}"], b, x,
-                                                  cfg, positions, rope)
+                                                  cfg, positions, ropes)
             per_layer.append(st)
         if collect_state:
             states.append(tree_map(lambda *xs: torch.stack(xs),
@@ -186,7 +233,7 @@ def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],
     place; returns logits (B, V).  Shapes do not depend on which slots
     are live."""
     x = embed_tokens(params["embed"], token, cfg, pos[:, None])
-    rope = attn.rope_tables(cfg, pos[:, None])
+    ropes = rope_tables(cfg, pos[:, None])
     for seg_params, seg_pool, (unit, reps) in zip(
             params["segments"], pools, cfg.segments()):
         for r in range(reps):
@@ -194,7 +241,7 @@ def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],
             for i, b in enumerate(unit):
                 x = apply_block_decode(layer_p[f"b{i}"], b, x,
                                        layer_c[f"b{i}"], pos, cfg,
-                                       block_tables, page_size, rope)
+                                       block_tables, page_size, ropes)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x, cfg)[:, 0, :]
 
@@ -206,12 +253,13 @@ def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
 
     tokens (1,T) at positions offset..offset+T-1; block_table (n_blocks,)
     for this request's slot.  Returns last-token logits (1, V).  Repeated
-    calls over consecutive chunks equal one whole-prompt prefill."""
+    calls over consecutive chunks equal one whole-prompt prefill (for
+    dense FFNs; an MoE FFN's capacity depends on the tokens per call)."""
     T = tokens.shape[1]
     positions = offset + torch.arange(T, dtype=torch.int32,
                                       device=tokens.device)[None, :]
     x = embed_tokens(params["embed"], tokens, cfg, positions)
-    rope = attn.rope_tables(cfg, positions)
+    ropes = rope_tables(cfg, positions)
     for seg_params, seg_pool, (unit, reps) in zip(
             params["segments"], pools, cfg.segments()):
         for r in range(reps):
@@ -220,6 +268,6 @@ def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
                 x = apply_block_prefill_chunk(layer_p[f"b{i}"], b, x,
                                               layer_c[f"b{i}"], offset,
                                               block_table, cfg, page_size,
-                                              rope)
+                                              ropes)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x[:, -1:], cfg)[:, 0, :]

@@ -6,7 +6,8 @@ decodes, and a per-request roofline ledger (scheduler.py).  On CUDA the
 decode step's paged attention is the hand-written kernel
 (kernels/paged_attention.py); sampling runs on the device right after the
 logits, so only the (B,) chosen token ids cross to the host.  Whole-prompt
-prefill is length-bucketed to the next power of two.
+prefill is length-bucketed to the next power of two where padding cannot
+change the result (no MoE FFN, whose capacity the pad tokens would take).
 
 The static whole-batch engine, speculative decoding, tensor parallelism
 and telemetry are not ported yet (ROADMAP queue 1 items 9, 7, 11, 13).
@@ -84,6 +85,12 @@ class Engine:
                              "match EngineConfig.device")
         self.cfg = cfg
         self.params = prepare_params(params, cfg)
+        # bucketed whole-prompt prefill: only archs whose collected states
+        # are all per-token (attention/MLA) survive padding — a recurrent
+        # final state or an MoE capacity cutoff would see the pad tokens
+        self._bucketable = (
+            all(b.mixer in ("attn", "mla") for b in cfg.block_pattern)
+            and all(b.ffn != "moe" for b in cfg.block_pattern))
         self._kv: Optional[PagedKVCache] = None
         self._sched: Optional[Scheduler] = None
         self.decode_steps = 0
@@ -220,7 +227,7 @@ class Engine:
             return                          # req itself was preempted
         whole = start == 0 and end == fill_len
         t0 = now()
-        if whole and self.ecfg.prefill_bucket > 0:
+        if whole and self._bucketable and self.ecfg.prefill_bucket > 0:
             # pad to the next power of two: causal masking keeps the
             # prefix rows equal to an unpadded run
             pl_ = _bucket_len(fill_len, self.ecfg.prefill_bucket)

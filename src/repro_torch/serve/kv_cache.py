@@ -1,7 +1,8 @@
 """Paged KV cache: device page pools viewed through a block-pool manager.
 
 Every attention cache leaf is a batchless page pool ``(reps, num_pages,
-page_size, KV, hd)`` on the engine's device, all layers addressed through
+page_size, ...)`` on the engine's device — GQA K/V ``(KV, hd)`` lines or
+MLA latent ``(r,)`` and rope ``(dr,)`` lines — all layers addressed through
 one per-slot block table.  Physical page 0 is the trash page idle slots
 write to, so the decode step's shapes never depend on which slots are
 live.  Page accounting lives in :class:`BlockPool` (ref-counted pages,
@@ -25,6 +26,31 @@ from ..models.common import ModelConfig
 from ..models import transformer as tfm
 from ..models.params import instantiate, tree_leaves, tree_map
 from .block_pool import BlockPool, chain_hash, token_chain_hashes
+
+
+_PAGED_MIXERS = ("attn", "mla")
+_RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+
+
+def supports_paging(cfg: ModelConfig) -> bool:
+    """True iff every mixer in the model has a paged decode path
+    (decoder-only archs; enc-dec / VLM cross-attention is static-engine
+    territory).  Recurrent mixers count, as in the reference, though the
+    port does not run them yet (``tfm.check_supported`` raises)."""
+    if cfg.is_encoder_decoder or cfg.n_image_tokens:
+        return False
+    return all(b.mixer in _PAGED_MIXERS + _RECURRENT_MIXERS
+               for b in cfg.block_pattern)
+
+
+def supports_prefix_cache(cfg: ModelConfig) -> bool:
+    """Prefix sharing needs (a) all state to live in pages — a recurrent
+    mixer's O(1) state is position-dependent and per-slot — and (b)
+    prefill of a suffix chunk to equal whole-prompt prefill, which an MoE
+    FFN's tokens-per-call capacity cutoff breaks."""
+    return (supports_paging(cfg)
+            and all(b.mixer in _PAGED_MIXERS for b in cfg.block_pattern)
+            and all(b.ffn != "moe" for b in cfg.block_pattern))
 
 
 @dataclasses.dataclass
@@ -68,6 +94,14 @@ class PagedKVCache:
                  max_len: int, device: torch.device,
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = False, eager_freeze: bool = True):
+        if not supports_paging(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: paged KV cache supports decoder-only archs "
+                f"(mixers {_PAGED_MIXERS + _RECURRENT_MIXERS})")
+        if prefix_cache and not supports_prefix_cache(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: prefix sharing needs attention/MLA mixers "
+                "throughout and no MoE FFN (chunked-prefill identity)")
         tfm.check_supported(cfg)
         self.cfg = cfg
         self.device = device
@@ -374,7 +408,7 @@ class PagedKVCache:
     def write_prefill_states(self, slot: int, states: List[Any],
                              prompt_len: int, start: int = 0) -> None:
         """Scatter whole-prompt prefill states (per segment, stacked
-        (reps, 1, S, KV, hd); S may exceed ``prompt_len`` when padded) into
+        (reps, 1, S, ...); S may exceed ``prompt_len`` when padded) into
         this slot's pages; positions below ``start`` (a prefix-cache hit)
         are skipped."""
         idx = np.arange(start, prompt_len)

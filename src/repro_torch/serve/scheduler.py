@@ -35,7 +35,8 @@ import numpy as np
 from ..core.roofline.hardware import H100_SXM, ChipSpec, chip_scope
 from ..core.roofline.model import PhaseTraffic, RooflineTerms, make_terms
 from ..kernels import quantize as kvq
-from ..kernels.paged_attention import paged_decode_vmem_bytes
+from ..kernels.paged_attention import (mla_paged_decode_vmem_bytes,
+                                       paged_decode_vmem_bytes)
 from ..models.common import ModelConfig, model_flops, param_counts
 from ..models.params import torch_dtype
 from ..obs.clock import now
@@ -105,6 +106,12 @@ def decode_token_vmem_bytes(cfg: ModelConfig, context_len: int,
                     n_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
                     head_dim=cfg.hd, isize=isize, kv_isize=kv_isize,
                     scale_isize=scale_isize)
+            elif b.mixer == "mla":
+                attn += reps * mla_paged_decode_vmem_bytes(
+                    context_len=context_len, page_size=page_size,
+                    n_heads=cfg.n_heads, lora_rank=cfg.kv_lora_rank,
+                    rope_dim=cfg.rope_head_dim, isize=isize,
+                    kv_isize=kv_isize, scale_isize=scale_isize)
     return params_bytes_active(cfg) / max(active_batch, 1) + attn
 
 

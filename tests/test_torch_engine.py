@@ -22,7 +22,8 @@ def qwen():
     jc = jcfg.smoke(jcfg.get_config("qwen3-0.6b"))
     tc = tcfg.smoke(tcfg.get_config("qwen3-0.6b"))
     jp = jm.init_params(jc, jax.random.key(0))
-    tp = tm.prepare_params(bridge.to_torch(jax.tree.map(np.asarray, jp)), tc)
+    tp = tm.prepare_params(
+        bridge.to_torch(jax.tree.map(np.asarray, jp), device="cpu"), tc)
     return jc, tc, jp, tp
 
 

@@ -33,6 +33,7 @@ bad = [m for m in sys.modules
        if m == "repro" or m.startswith("repro.")
        or (m.startswith("jax") and sys.modules[m] is not None)]
 print(len(names), "modules;", "leaked:", bad)
+print(" ".join(names))
 assert not bad, bad
 """
 
@@ -44,7 +45,10 @@ def test_port_imports_without_jax_or_reference():
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "leaked: []" in out.stdout
-    assert int(out.stdout.split()[0]) >= 25      # every submodule walked
+    assert int(out.stdout.split()[0]) >= 27      # every submodule walked
+    walked = out.stdout.splitlines()[1].split()
+    for mod in ("models.mla", "models.moe", "kernels.paged_attention"):
+        assert f"repro_torch.{mod}" in walked
 
 
 @pytest.mark.parametrize("path", STANDALONE,
@@ -90,7 +94,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 def test_unported_blocks_raise_with_roadmap_item():
     from repro_torch.models import init_params
-    for arch, item in [("deepseek-v2-236b", "item 6"),
+    for arch, item in [("jamba-v0.1-52b", "item 8"),
                        ("xlstm-350m", "item 8"),
                        ("whisper-small", "item 9")]:
         cfg = tcfg.smoke(tcfg.get_config(arch))

@@ -1,7 +1,8 @@
 """The port's model functions against the JAX package's, on the same
 weights (carried across by repro_torch.bridge) and the same token ids:
 layers, whole-prompt prefill, chunked paged prefill and teacher-forced
-paged decode, on the smoke configs of four dense archs at float32.
+paged decode, on the smoke configs of four dense archs and two MoE archs
+(deepseek-v2: MLA + MoE; kimi-k2: GQA + MoE) at float32.
 
 Tolerance: float32 on both sides, different op order (XLA vs ATen) over
 two layers -> |diff| <= 1e-5 + 1e-4 * |ref|.
@@ -26,7 +27,8 @@ from repro_torch.models import layers as tl
 from repro_torch.models.params import tree_leaves
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-ARCHS = ["qwen3-0.6b", "qwen3-14b", "minicpm-2b", "minitron-4b"]
+ARCHS = ["qwen3-0.6b", "qwen3-14b", "minicpm-2b", "minitron-4b",
+         "deepseek-v2-236b", "kimi-k2-1t-a32b"]
 PAGE = 4
 
 
@@ -36,7 +38,7 @@ def model(request):
     tc = tcfg.smoke(tcfg.get_config(request.param))
     jp = jm.init_params(jc, jax.random.key(0))
     tp = tm.prepare_params(
-        bridge.to_torch(jax.tree.map(np.asarray, jp)), tc)
+        bridge.to_torch(jax.tree.map(np.asarray, jp), device="cpu"), tc)
     return jc, tc, jp, tp
 
 
@@ -47,7 +49,8 @@ def _tokens(cfg, seed, n):
 def _pools(jc, tc, n_pages):
     jpools = tree_instantiate(jm.paged_cache_defs(jc, 2, n_pages, PAGE),
                               jax.random.key(0))
-    tpools = bridge.to_torch(jax.tree.map(np.asarray, jpools))
+    tpools = bridge.to_torch(jax.tree.map(np.asarray, jpools),
+                             device="cpu")
     return jpools, tpools
 
 
@@ -161,6 +164,7 @@ def test_layers_match():
         cfg_t = dataclasses.replace(cfg_t, norm=norm)
         p = {"scale": rng.standard_normal((16,)).astype(np.float32),
              "bias": rng.standard_normal((16,)).astype(np.float32)}
-        _close(tl.apply_norm(bridge.to_torch(p), torch.from_numpy(x), cfg_t),
+        _close(tl.apply_norm(bridge.to_torch(p, device="cpu"),
+                             torch.from_numpy(x), cfg_t),
                jl.apply_norm(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
                              cfg_j))

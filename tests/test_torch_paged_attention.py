@@ -1,6 +1,7 @@
-"""The port's plain paged-attention decode against the JAX package's jnp
-reference and its Pallas kernel (interpret mode, ``pipeline="off"``), on
-the same numpy inputs; plus the device dispatch and the pricing helpers.
+"""The port's plain paged-attention decodes (GQA and MLA) against the JAX
+package's jnp references and its Pallas kernels (interpret mode,
+``pipeline="off"``), on the same numpy inputs; plus the device dispatch
+and the pricing helpers.
 
 Tolerance: the repo's kernel tolerance, rtol=2e-5 / atol=2e-6 at float32.
 """
@@ -98,3 +99,80 @@ def test_pricing_helpers_equal_reference(ctx, page, n_q, pipeline):
         jpa.paged_decode_vmem_bytes(**kw)
     assert tpa.paged_decode_vmem_bytes(**kw, kv_isize=1, scale_isize=4) == \
         jpa.paged_decode_vmem_bytes(**kw, kv_isize=1, scale_isize=4)
+
+
+# --------------------------------------------------------------------------
+# MLA
+# --------------------------------------------------------------------------
+
+def _mla_inputs(seed, B, H, r, dr, page, nb, trash=False):
+    rng = np.random.RandomState(seed)
+    P = 1 + B * nb
+    ql = rng.standard_normal((B, H, r)).astype(np.float32)
+    qr = rng.standard_normal((B, H, dr)).astype(np.float32)
+    cp = rng.standard_normal((P, page, r)).astype(np.float32)
+    rp = rng.standard_normal((P, page, dr)).astype(np.float32)
+    bt = np.zeros((B, nb), np.int32)
+    pos = np.zeros((B,), np.int32)
+    if not trash:
+        free = list(range(1, P))
+        for b in range(B):
+            live = rng.randint(1, nb + 1)
+            for j in range(live):
+                bt[b, j] = free.pop()
+            pos[b] = rng.randint(0, live * page)
+    return ql, qr, cp, rp, bt, pos
+
+
+def _mla_three_ways(args, **kw):
+    ja = [jnp.asarray(a) for a in args]
+    want_jnp = np.asarray(jpa.mla_paged_attention_reference(*ja, **kw))
+    want_pallas = np.asarray(jpa.mla_paged_attention(
+        *ja, **kw, interpret=True, pipeline="off"))
+    got = ops.mla_paged_attention(*[torch.from_numpy(a) for a in args], **kw)
+    return got.numpy(), want_jnp, want_pallas
+
+
+@pytest.mark.parametrize("B,H,r,dr,page,nb,trash", [
+    (3, 4, 32, 8, 4, 5, False),      # smoke widths, ragged tables
+    (2, 8, 64, 16, 8, 3, False),
+    (4, 2, 128, 32, 16, 2, False),
+    (3, 4, 32, 8, 4, 3, True),       # idle lanes: every entry trash page 0
+])
+def test_mla_reference_matches_jax_reference_and_pallas(B, H, r, dr, page,
+                                                        nb, trash):
+    args = _mla_inputs(B * 11 + r, B, H, r, dr, page, nb, trash=trash)
+    got, want_jnp, want_pallas = _mla_three_ways(args, scale=192 ** -0.5)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want_jnp, **TOL)
+    np.testing.assert_allclose(got, want_pallas, **TOL)
+
+
+def test_mla_cpu_tensors_dispatch_to_plain_version_and_kernel_refuses():
+    args = [torch.from_numpy(a)
+            for a in _mla_inputs(3, 2, 4, 32, 8, 4, 3)]
+    assert ops.resolve("mla_paged_attention", torch.device("cpu")) is \
+        tpa.mla_paged_attention_reference
+    assert ops.resolve("mla_paged_attention", torch.device("cuda")) is \
+        tpa.mla_paged_attention
+    n = tpa.mla_paged_attention.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tpa.mla_paged_attention(*args, scale=0.1)
+    ops.mla_paged_attention(*args, scale=0.1)
+    assert tpa.mla_paged_attention.launches == n  # the plain version ran
+    for fn in (tpa.mla_paged_attention, tpa.mla_paged_attention_reference):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            fn(*args, scale=0.1, c_scale=torch.ones(1),
+               r_scale=torch.ones(1))
+
+
+@pytest.mark.parametrize("ctx,page,n_q,pipeline", [
+    (1, 16, 1, "off"), (679, 16, 1, "off"), (100, 8, 5, "double")])
+def test_mla_pricing_helper_equals_reference(ctx, page, n_q, pipeline):
+    kw = dict(context_len=ctx, page_size=page, n_heads=128, lora_rank=512,
+              rope_dim=64, isize=2, n_q=n_q, pipeline=pipeline)
+    assert tpa.mla_paged_decode_vmem_bytes(**kw) == \
+        jpa.mla_paged_decode_vmem_bytes(**kw)
+    assert tpa.mla_paged_decode_vmem_bytes(**kw, kv_isize=1,
+                                           scale_isize=4) == \
+        jpa.mla_paged_decode_vmem_bytes(**kw, kv_isize=1, scale_isize=4)

@@ -142,7 +142,8 @@ def _cfgs(arch, shrink, kv_dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-14b", "minicpm-2b",
-                                  "minitron-4b"])
+                                  "minitron-4b", "deepseek-v2-236b",
+                                  "kimi-k2-1t-a32b"])
 @pytest.mark.parametrize("shrink", [False, True], ids=["full", "smoke"])
 def test_pricing_equals_reference(arch, shrink):
     for kv_dtype in ("bf16", "int8"):
