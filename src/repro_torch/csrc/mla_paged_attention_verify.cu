@@ -1,0 +1,429 @@
+// MLA paged-attention multi-token verification in the latent space for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `_mla_paged_verify_kernel` /
+// `mla_paged_attention_verify` in src/repro/kernels/paged_attention.py:
+// the speculative-decoding verify step of DeepSeek-V2's Multi-head Latent
+// Attention, in the absorbed (latent) form.  For every slot b, query
+// token t (the last committed token and the drafts, at position pos[b]+t)
+// and head h:
+//
+//   s[l]          = (q_lat[b,t,h] . c[l] + q_rope[b,t,h] . kr[l]) * scale
+//   o_lat[b,t,h]  = softmax_l(s) @ c        over the lines l <= pos[b] + t
+//
+// where line l of the slot lives in physical page block_tables[b, l / page]
+// of the latent pool c (P, page, r) and the rope pool kr (P, page, dr).
+// Online softmax in float32; the scores, p and the accumulator stay in
+// float32 as in the Pallas kernel; out = acc / max(l, 1e-30).
+//
+// Bound on the card.  One call must read every live line once, (r + dr)
+// elements, plus q_lat, q_rope and the output, which at T query tokens
+// outweigh the lines: at 4 slots x T 4 x H 128 (r 512, dr 64) the queries
+// and output are ~4.5 MB against ~0.8 MB of lines, ~1.6 us at 3.35 TB/s.
+// The operations, T * H * (4r + 2dr) per line, take ~0.8 us at the bf16
+// tensor-core peak.  This kernel computes on the CUDA cores in float32.
+//
+// Why this grid.  The Pallas kernel keeps one slot's whole (T * H, r)
+// float32 accumulator in VMEM: 4 x 128 x 512 x 4 B = 1 MB at k = 3, over
+// four times the 227 KB of shared memory a Hopper block can use.  So the
+// grid is (B, ceil(H / 8), T): each block owns 8 heads of ONE query token,
+// so the causal limit pos + t is uniform in the block, and the block is
+// the MLA decode kernel (csrc/mla_paged_attention.cu) with that limit:
+// 8 warps = 4 head pairs x 2 column halves (a warp holds 2 heads' queries
+// and accumulators for half the latent columns, which keeps a thread's
+// registers under the 255 limit at r = 512), 16-line float32 tiles of the
+// latent and rope lines staged in shared memory once for the block's 8
+// heads.  At 4 slots, 128 heads and T = 4 that is 256 blocks on 132 SMs.
+//
+// Cost of that choice: every (t, head block) of a slot re-reads the slot's
+// lines, T * H / 8 = 64 times at full width; the repeats come from L2
+// (the longest slot's lines, 229 x 1152 B, are ~264 KB).  Sharing one
+// staged tile across the T tokens of a block, tensor cores (`wgmma`),
+// split-K over pages and TMA page rings are later work.
+//
+// Design, simple first:
+// * each block reads its own block-table row and position and walks only
+//   the lines 0 .. pos + t, 16 at a time; lines past the slot's backed
+//   pages (table entries 0, the trash page) are read and masked by
+//   position exactly as the plain version does;
+// * a warp's 32 lanes split its column half; each lane forms partial dot
+//   products for its 2 heads x 16 lines, one butterfly reduce-scatter
+//   (31 shuffles) leaves lane l with the partial score of (head l / 16,
+//   line l % 16), and the two column halves add theirs through shared
+//   memory (the rope part rides with the first half);
+// * the 16 lanes of a head reduce the tile's max and sum, carry (m, l)
+//   across tiles (both halves compute the same values), and broadcast p
+//   to the lanes that own acc columns;
+// * nothing crosses blocks; idle lanes (every entry trash page 0, pos 0)
+//   read trash lines and give finite output.
+// With T = 1 this is the decode kernel's arithmetic, in the same order.
+//
+// C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
+//   int mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool,
+//                                  block_tables, pos, out, batch, n_tokens,
+//                                  n_heads, latent_dim, rope_dim, page_size,
+//                                  n_blocks, scale, dtype /*0 f32, 1 bf16*/,
+//                                  stream)
+// q_lat / out are (batch, n_tokens, n_heads, latent_dim), q_rope
+// (batch, n_tokens, n_heads, rope_dim); returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for a latent / rope dim or dtype the
+// kernel is not built for).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kHeadsPerWarp = 2;
+constexpr int kColSplits = 2;   // warps sharing a head pair, by columns
+constexpr int kHeadsPerBlock = kWarps / kColSplits * kHeadsPerWarp;
+constexpr int kTileLines = 16;  // lines staged per step
+constexpr float kNegInf = -1e30f;
+static_assert(kHeadsPerWarp * kTileLines == 32, "one score per lane");
+
+template <typename T> struct VecWidth;
+template <> struct VecWidth<float> { static constexpr int N = 4; };
+template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
+
+// 16-byte global load of VecWidth<T>::N elements, widened to float.
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
+}
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float dot4(const float* q, float4 c) {
+  return q[0] * c.x + q[1] * c.y + q[2] * c.z + q[3] * c.w;
+}
+
+template <typename T, int R, int DR>
+__global__ void __launch_bounds__(kWarps * 32)
+mla_verify_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
+                  const T* __restrict__ c_pool, const T* __restrict__ r_pool,
+                  const int32_t* __restrict__ block_tables,
+                  const int32_t* __restrict__ pos, T* __restrict__ out,
+                  int n_tokens, int n_heads, int page_size, int n_blocks,
+                  float scale) {
+  constexpr int VG = VecWidth<T>::N;   // elements per 16-byte global load
+  constexpr int GC = R / VG;           // global vectors per latent line
+  constexpr int GR = DR / VG;          // global vectors per rope line
+  constexpr int CV = R / 4;            // float4 slots per latent line
+  constexpr int CVS = CV / kColSplits; // float4 slots per column half
+  constexpr int RV = DR / 4;           // float4 slots per rope line
+  constexpr int NC = (CVS + 31) / 32;  // latent float4 slots per lane
+  constexpr int NR = (RV + 31) / 32;   // rope float4 slots per lane
+  static_assert(R % VG == 0 && DR % VG == 0, "dims must tile 16 bytes");
+  static_assert(CV % kColSplits == 0, "latent dim must split in halves");
+
+  __shared__ __align__(16) float c_s[kTileLines][R];
+  __shared__ __align__(16) float r_s[kTileLines][DR];
+  __shared__ float s_part[kWarps][32];
+
+  const int b = blockIdx.x;
+  const int tok = blockIdx.z;           // query token: limit pos + tok
+  const size_t bt_row = (size_t)b * n_tokens + tok;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int pair = warp / kColSplits;
+  const int half = warp % kColSplits;
+  const int h0 = blockIdx.y * kHeadsPerBlock + pair * kHeadsPerWarp;
+  const int vbase = half * CVS;        // first float4 slot of this half
+  const bool rope = half == 0;         // the first half adds the rope part
+
+  // this lane's slices of its heads' queries: float4 slot vbase + lane +
+  // 32 k; heads past n_heads (the last block's padding) get zeros
+  float qc[kHeadsPerWarp][NC][4];
+  float qr[kHeadsPerWarp][NR][4];
+  float acc[kHeadsPerWarp][NC][4];
+#pragma unroll
+  for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
+    const int h = h0 + hh;
+    const T* qcb = q_lat + (bt_row * n_heads + h) * R;
+    const T* qrb = q_rope + (bt_row * n_heads + h) * DR;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int v = lane + 32 * k;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qc[hh][k][j] = (h < n_heads && v < CVS)
+                           ? to_float(qcb[(vbase + v) * 4 + j]) : 0.f;
+        acc[hh][k][j] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      const int v = lane + 32 * k;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        qr[hh][k][j] = (rope && h < n_heads && v < RV)
+                           ? to_float(qrb[v * 4 + j]) : 0.f;
+    }
+  }
+
+  // online-softmax state of head (lane / kTileLines) of this warp; every
+  // lane of that head's 16-lane group holds the same values
+  float m_run = kNegInf, l_run = 0.f;
+
+  // lines 0..pos+tok are visible (k_pos <= pos + tok); nothing past them
+  // is read
+  const int n_lines = min(pos[b] + tok + 1, n_blocks * page_size);
+  const int32_t* bt = block_tables + (size_t)b * n_blocks;
+
+  for (int t0 = 0; t0 < n_lines; t0 += kTileLines) {
+    // stage lines t0 .. t0+15 (zeros past the live ones) as float32
+    for (int i = threadIdx.x; i < kTileLines * (GC + GR); i += blockDim.x) {
+      const int line = i / (GC + GR);
+      const int v = i % (GC + GR);
+      const int t = t0 + line;
+      float f[VG];
+      if (t < n_lines) {
+        const int page = __ldg(bt + t / page_size);
+        const size_t row = (size_t)page * page_size + t % page_size;
+        if (v < GC) load_vec(c_pool + row * R + v * VG, f);
+        else load_vec(r_pool + row * DR + (v - GC) * VG, f);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VG; ++j) f[j] = 0.f;
+      }
+      float* dst = v < GC ? &c_s[line][v * VG] : &r_s[line][(v - GC) * VG];
+#pragma unroll
+      for (int j = 0; j < VG / 4; ++j)
+        reinterpret_cast<float4*>(dst)[j] =
+            make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
+    }
+    __syncthreads();
+
+    // partial scores of (head hh, line t) over this lane's slots
+    float part[kHeadsPerWarp * kTileLines];
+#pragma unroll
+    for (int t = 0; t < kTileLines; ++t) {
+      const float4* cl = reinterpret_cast<const float4*>(c_s[t]);
+      const float4* rl = reinterpret_cast<const float4*>(r_s[t]);
+      float sum[kHeadsPerWarp];
+#pragma unroll
+      for (int hh = 0; hh < kHeadsPerWarp; ++hh) sum[hh] = 0.f;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int v = lane + 32 * k;
+        if (v < CVS) {
+          const float4 cv = cl[vbase + v];
+#pragma unroll
+          for (int hh = 0; hh < kHeadsPerWarp; ++hh)
+            sum[hh] += dot4(qc[hh][k], cv);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        const int v = lane + 32 * k;
+        if (rope && v < RV) {
+          const float4 rv = rl[v];
+#pragma unroll
+          for (int hh = 0; hh < kHeadsPerWarp; ++hh)
+            sum[hh] += dot4(qr[hh][k], rv);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < kHeadsPerWarp; ++hh)
+        part[hh * kTileLines + t] = sum[hh];
+    }
+
+    // butterfly reduce-scatter: after step `off` each lane keeps the half
+    // its bit selects, so lane l ends with the full sum of entry l
+#pragma unroll
+    for (int st = 0; st < 5; ++st) {
+      const int off = 16 >> st;
+      const bool upper = (lane & off) != 0;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (i < off) {
+          const float send = upper ? part[i] : part[i + off];
+          const float keep = upper ? part[i + off] : part[i];
+          part[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+    }
+    // add the column halves' partial scores, in the same order in both
+    // warps of the pair, so both carry bit-identical softmax state
+    s_part[warp][lane] = part[0];
+    __syncthreads();
+    float s_full = 0.f;
+#pragma unroll
+    for (int c = 0; c < kColSplits; ++c)
+      s_full += s_part[pair * kColSplits + c][lane];
+    const bool live = t0 + lane % kTileLines < n_lines;
+    const float s = live ? s_full * scale : kNegInf;
+
+    // online softmax over the tile, within each head's 16 lanes
+    float m_tile = s;
+#pragma unroll
+    for (int off = kTileLines / 2; off > 0; off >>= 1)
+      m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, off));
+    const float m_new = fmaxf(m_run, m_tile);
+    const float p = expf(s - m_new);
+    float p_sum = p;
+#pragma unroll
+    for (int off = kTileLines / 2; off > 0; off >>= 1)
+      p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
+    const float alpha = expf(m_run - m_new);
+    l_run = l_run * alpha + p_sum;
+    m_run = m_new;
+
+    // acc[hh] = acc[hh] * alpha[hh] + sum_t p[hh][t] * c[t]
+#pragma unroll
+    for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
+      const float a = __shfl_sync(0xffffffffu, alpha, hh * kTileLines);
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[hh][k][j] *= a;
+    }
+#pragma unroll
+    for (int t = 0; t < kTileLines; ++t) {
+      float ph[kHeadsPerWarp];
+#pragma unroll
+      for (int hh = 0; hh < kHeadsPerWarp; ++hh)
+        ph[hh] = __shfl_sync(0xffffffffu, p, hh * kTileLines + t);
+      const float4* cl = reinterpret_cast<const float4*>(c_s[t]);
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int v = lane + 32 * k;
+        if (v < CVS) {
+          const float4 cv = cl[vbase + v];
+#pragma unroll
+          for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
+            acc[hh][k][0] += ph[hh] * cv.x;
+            acc[hh][k][1] += ph[hh] * cv.y;
+            acc[hh][k][2] += ph[hh] * cv.z;
+            acc[hh][k][3] += ph[hh] * cv.w;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites the staged lines
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
+    const float l_h = __shfl_sync(0xffffffffu, l_run, hh * kTileLines);
+    const float inv = 1.f / fmaxf(l_h, 1e-30f);
+    const int h = h0 + hh;
+    if (h >= n_heads) continue;
+    T* ob = out + (bt_row * n_heads + h) * R + vbase * 4;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int v = lane + 32 * k;
+      if (v < CVS) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          store_val(ob + v * 4 + j, acc[hh][k][j] * inv);
+      }
+    }
+  }
+}
+
+template <typename T, int R, int DR>
+void launch(const void* ql, const void* qr, const void* c, const void* r,
+            const void* bt, const void* pos, void* out, int batch,
+            int n_tokens, int n_heads, int page_size, int n_blocks,
+            float scale, cudaStream_t stream) {
+  const dim3 grid(batch, (n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock,
+                  n_tokens);
+  mla_verify_kernel<T, R, DR><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(ql), static_cast<const T*>(qr),
+      static_cast<const T*>(c), static_cast<const T*>(r),
+      static_cast<const int32_t*>(bt), static_cast<const int32_t*>(pos),
+      static_cast<T*>(out), n_tokens, n_heads, page_size, n_blocks, scale);
+}
+
+template <typename T, int R>
+bool dispatch_rope(int rope_dim, const void* ql, const void* qr,
+                   const void* c, const void* r, const void* bt,
+                   const void* pos, void* out, int batch, int n_tokens,
+                   int n_heads, int page_size, int n_blocks, float scale,
+                   cudaStream_t stream) {
+#define MLA_DR(DR)                                                          \
+  case DR:                                                                  \
+    launch<T, R, DR>(ql, qr, c, r, bt, pos, out, batch, n_tokens, n_heads,  \
+                     page_size, n_blocks, scale, stream);                   \
+    return true;
+  switch (rope_dim) {
+    MLA_DR(8)
+    MLA_DR(16)
+    MLA_DR(32)
+    MLA_DR(64)
+    default:
+      return false;
+  }
+#undef MLA_DR
+}
+
+template <typename T>
+bool dispatch_latent(int latent_dim, int rope_dim, const void* ql,
+                     const void* qr, const void* c, const void* r,
+                     const void* bt, const void* pos, void* out, int batch,
+                     int n_tokens, int n_heads, int page_size, int n_blocks,
+                     float scale, cudaStream_t stream) {
+#define MLA_R(R)                                                            \
+  case R:                                                                   \
+    return dispatch_rope<T, R>(rope_dim, ql, qr, c, r, bt, pos, out, batch, \
+                               n_tokens, n_heads, page_size, n_blocks,      \
+                               scale, stream);
+  switch (latent_dim) {
+    MLA_R(32)
+    MLA_R(64)
+    MLA_R(128)
+    MLA_R(256)
+    MLA_R(512)
+    default:
+      return false;
+  }
+#undef MLA_R
+}
+
+}  // namespace
+
+extern "C" int mla_paged_attention_verify(
+    const void* q_lat, const void* q_rope, const void* c_pool,
+    const void* r_pool, const void* block_tables, const void* pos, void* out,
+    int batch, int n_tokens, int n_heads, int latent_dim, int rope_dim,
+    int page_size, int n_blocks, float scale, int dtype, void* stream) {
+  if (batch <= 0 || n_tokens <= 0 || n_heads <= 0 || page_size <= 0
+      || n_blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool ok = false;
+  if (dtype == 0) {
+    ok = dispatch_latent<float>(latent_dim, rope_dim, q_lat, q_rope, c_pool,
+                                r_pool, block_tables, pos, out, batch,
+                                n_tokens, n_heads, page_size, n_blocks,
+                                scale, s);
+  } else if (dtype == 1) {
+    ok = dispatch_latent<__nv_bfloat16>(
+        latent_dim, rope_dim, q_lat, q_rope, c_pool, r_pool, block_tables,
+        pos, out, batch, n_tokens, n_heads, page_size, n_blocks, scale, s);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -62,3 +62,33 @@ def mla_paged_attention(q_lat, q_rope, c_pool, r_pool, block_tables, pos, *,
     (B,) int32.  Returns o_lat (B, H, r)."""
     return resolve("mla_paged_attention", q_lat.device)(
         q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)
+
+
+register_kernel("paged_attention_verify", cuda=_paged.paged_attention_verify,
+                reference=_paged.paged_attention_verify_reference)
+
+
+def paged_attention_verify(q, k_pool, v_pool, block_tables, pos, *, scale,
+                           soft_cap: float = 0.0):
+    """GQA multi-token paged verification (see kernels/paged_attention.py):
+    q (B, T, KV, G, hd) at positions pos + t; pools (P, page, KV, hd);
+    block_tables (B, n_blocks) int32; pos (B,) int32, the first token's
+    position.  Returns (B, T, KV, G, hd)."""
+    return resolve("paged_attention_verify", q.device)(
+        q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap)
+
+
+register_kernel("mla_paged_attention_verify",
+                cuda=_paged.mla_paged_attention_verify,
+                reference=_paged.mla_paged_attention_verify_reference)
+
+
+def mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool, block_tables,
+                               pos, *, scale):
+    """MLA multi-token paged verification in the latent space (see
+    kernels/paged_attention.py): q_lat (B, T, H, r); q_rope (B, T, H, dr);
+    pools (P, page, r) / (P, page, dr); block_tables (B, n_blocks) int32;
+    pos (B,) int32, the first token's position.  Returns o_lat
+    (B, T, H, r)."""
+    return resolve("mla_paged_attention_verify", q_lat.device)(
+        q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)

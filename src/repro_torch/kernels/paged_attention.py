@@ -20,6 +20,19 @@ removes them exactly.
   ``csrc/mla_paged_attention.cu`` (the port of the Pallas
   ``_mla_paged_decode_kernel``).
 
+Multi-token verification (speculative decoding) scores T = k + 1 query
+tokens per slot in one page walk; pos (B,) is then the position of the
+FIRST query token and query t sees ``k_pos <= pos + t``:
+
+* GQA: q (B, T, KV, G, hd) -> (B, T, KV, G, hd).
+  :func:`paged_attention_verify_reference` is the jnp reference op for
+  op; :func:`paged_attention_verify` launches
+  ``csrc/paged_attention_verify.cu`` (the port of ``_paged_verify_kernel``).
+* MLA: q_lat (B, T, H, r), q_rope (B, T, H, dr) -> o_lat (B, T, H, r).
+  :func:`mla_paged_attention_verify_reference` /
+  :func:`mla_paged_attention_verify` (``csrc/mla_paged_attention_verify.cu``,
+  the port of ``_mla_paged_verify_kernel``).
+
 The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions.  The kernels keep the scores and ``p``
 in float32, as the Pallas kernels do, while the references round the
@@ -39,8 +52,10 @@ from . import build
 
 NEG_INF = -1e30
 
-# head dims and (rounded-up) query-group counts the kernel is instantiated
-# for; csrc/paged_attention.cu dispatches on the same sets
+# head dims the GQA kernels (decode and verify) are instantiated for, and
+# the most query heads per KV head the DECODE kernel holds (its rows live
+# in registers; csrc/paged_attention.cu dispatches on the same sets).  The
+# verify kernel tiles its T * G rows 8 at a time and takes any count.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_MAX_GROUPS = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,6 +112,61 @@ def mla_paged_attention_reference(
     return torch.einsum("bhs,bsr->bhr", w, c_kv).to(q_lat.dtype)
 
 
+def mla_paged_attention_verify_reference(
+    q_lat: torch.Tensor, q_rope: torch.Tensor, c_pool: torch.Tensor,
+    r_pool: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float,
+    c_scale: Optional[torch.Tensor] = None,
+    r_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """MLA multi-token paged verification in the latent space.  q_lat
+    (B, T, H, r), q_rope (B, T, H, dr): T query tokens per slot at
+    positions ``pos + t``.  Returns o_lat (B, T, H, r)."""
+    _reject_scales(c_scale, r_scale)
+    B, T = q_lat.shape[0], q_lat.shape[1]
+    S = block_tables.shape[1] * c_pool.shape[1]
+    bt = block_tables.long()
+    c_kv = c_pool[bt].reshape(B, S, -1)
+    k_rope = r_pool[bt].reshape(B, S, -1)
+    s = (torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
+         + torch.einsum("bthk,bsk->bhts", q_rope, k_rope))
+    s = s.float() * scale
+    q_pos = pos.long()[:, None] + torch.arange(T, device=q_lat.device)
+    valid = (q_pos[:, :, None]
+             >= torch.arange(S, device=q_lat.device)[None, None, :])
+    s = torch.where(valid[:, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(c_kv.dtype)
+    return torch.einsum("bhts,bsr->bthr", w, c_kv).to(q_lat.dtype)
+
+
+def paged_attention_verify_reference(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float, soft_cap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """GQA multi-token paged verification, gather-and-attend.  q (B, T, KV,
+    G, hd): T query tokens per slot at positions ``pos + t`` (pos is the
+    FIRST token's).  Returns (B, T, KV, G, hd)."""
+    _reject_scales(k_scale, v_scale)
+    B, T = q.shape[0], q.shape[1]
+    KV, hd = k_pool.shape[2], k_pool.shape[3]
+    S = block_tables.shape[1] * k_pool.shape[1]
+    bt = block_tables.long()
+    k = k_pool[bt].reshape(B, S, KV, hd)
+    v = v_pool[bt].reshape(B, S, KV, hd)
+    q_pos = pos.long()[:, None] + torch.arange(T, device=q.device)
+    k_pos = torch.arange(S, device=q.device)
+    s = torch.einsum("btkgh,bskh->bkgts", q, k).float() * scale
+    if soft_cap > 0:
+        s = torch.tanh(s / soft_cap) * soft_cap
+    m = q_pos[:, :, None] >= k_pos[None, None, :]               # (B, T, S)
+    s = torch.where(m[:, None, None], s, NEG_INF)
+    p_attn = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgts,bskh->btkgh", p_attn, v).to(q.dtype)
+
+
 def _reject_scales(k_scale, v_scale) -> None:
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
@@ -130,7 +200,8 @@ def paged_attention(
     Same contract as :func:`paged_attention_reference`.  Takes CUDA
     tensors only: bf16 or f32 q / pools, head_dim in
     ``KERNEL_HEAD_DIMS``, at most ``KERNEL_MAX_GROUPS`` query heads per KV
-    head, int32 block tables and positions.  ``launches`` counts the
+    head (a limit of this decode kernel only; :func:`paged_attention_verify`
+    takes any count), int32 block tables and positions.  ``launches`` counts the
     kernel launches this wrapper made."""
     _reject_scales(k_scale, v_scale)
     if not q.is_cuda:
@@ -146,8 +217,9 @@ def paged_attention(
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {KERNEL_HEAD_DIMS}")
     if not 1 <= G <= KERNEL_MAX_GROUPS:
-        raise ValueError(f"{G} query heads per KV head; the kernel takes "
-                         f"1..{KERNEL_MAX_GROUPS}")
+        raise ValueError(f"{G} query heads per KV head; the decode kernel "
+                         f"takes 1..{KERNEL_MAX_GROUPS} (the verify kernel "
+                         "tiles any count)")
     dev = q.device
     _check("q", q, q.dtype, (B, KV, G, hd), dev)
     _check("k_pool", k_pool, q.dtype, (P, page_size, KV, hd), dev)
@@ -249,6 +321,136 @@ mla_paged_attention.launches = 0
 MLA_C_SIGNATURES = {
     "mla_paged_attention_decode": (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
+def paged_attention_verify(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float, soft_cap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the CUDA GQA verify kernel on the current stream (no sync).
+
+    Same contract as :func:`paged_attention_verify_reference`.  Takes CUDA
+    tensors only: bf16 or f32 q / pools, head_dim in ``KERNEL_HEAD_DIMS``,
+    any number T of query tokens and G of query heads per KV head (the
+    kernel tiles the T * G rows of a KV head 8 at a time), int32 block
+    tables and positions.  ``launches`` counts the kernel launches this
+    wrapper made."""
+    _reject_scales(k_scale, v_scale)
+    if not q.is_cuda:
+        raise ValueError(
+            "paged_attention_verify launches a CUDA kernel and takes CUDA "
+            f"tensors only (q is on {q.device}); kernels.ops dispatches CPU "
+            "tensors to paged_attention_verify_reference")
+    B, T, KV, G, hd = q.shape
+    P, page_size = k_pool.shape[0], k_pool.shape[1]
+    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype} not in {list(_DTYPE_CODES)}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {KERNEL_HEAD_DIMS}")
+    if T < 1 or G < 1:
+        raise ValueError(f"empty query slab: T={T}, G={G}")
+    dev = q.device
+    _check("q", q, q.dtype, (B, T, KV, G, hd), dev)
+    _check("k_pool", k_pool, q.dtype, (P, page_size, KV, hd), dev)
+    _check("v_pool", v_pool, q.dtype, (P, page_size, KV, hd), dev)
+    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
+    _check("pos", pos, torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    lib = build.library("paged_attention_verify", VERIFY_C_SIGNATURES)
+    err = lib.paged_attention_verify(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        B, T, KV, G, hd, page_size, n_blocks, float(scale), float(soft_cap),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_verify kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_attention_verify.launches += 1
+    return out
+
+
+paged_attention_verify.launches = 0
+
+# the C interface of csrc/paged_attention_verify.cu
+VERIFY_C_SIGNATURES = {
+    "paged_attention_verify": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
+def mla_paged_attention_verify(
+    q_lat: torch.Tensor, q_rope: torch.Tensor, c_pool: torch.Tensor,
+    r_pool: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float,
+    c_scale: Optional[torch.Tensor] = None,
+    r_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the CUDA MLA verify kernel on the current stream (no sync).
+
+    Same contract as :func:`mla_paged_attention_verify_reference`, and the
+    same sets as :func:`mla_paged_attention`: bf16 or f32, latent rank in
+    ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size in
+    ``MLA_PAGE_SIZES``, any head count and any T >= 1, int32 block tables
+    and positions.  ``launches`` counts the kernel launches this wrapper
+    made."""
+    _reject_scales(c_scale, r_scale)
+    if not q_lat.is_cuda:
+        raise ValueError(
+            "mla_paged_attention_verify launches a CUDA kernel and takes "
+            f"CUDA tensors only (q_lat is on {q_lat.device}); kernels.ops "
+            "dispatches CPU tensors to mla_paged_attention_verify_reference")
+    B, T, H, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    P, page_size = c_pool.shape[0], c_pool.shape[1]
+    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if q_lat.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q_lat dtype {q_lat.dtype} not in "
+                         f"{list(_DTYPE_CODES)}")
+    if r not in MLA_LATENT_DIMS:
+        raise ValueError(f"latent rank {r} not in {MLA_LATENT_DIMS}")
+    if dr not in MLA_ROPE_DIMS:
+        raise ValueError(f"rope dim {dr} not in {MLA_ROPE_DIMS}")
+    if page_size not in MLA_PAGE_SIZES:
+        raise ValueError(f"page size {page_size} not in {MLA_PAGE_SIZES}")
+    if T < 1:
+        raise ValueError(f"empty query slab: T={T}")
+    dev = q_lat.device
+    _check("q_lat", q_lat, q_lat.dtype, (B, T, H, r), dev)
+    _check("q_rope", q_rope, q_lat.dtype, (B, T, H, dr), dev)
+    _check("c_pool", c_pool, q_lat.dtype, (P, page_size, r), dev)
+    _check("r_pool", r_pool, q_lat.dtype, (P, page_size, dr), dev)
+    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
+    _check("pos", pos, torch.int32, (B,), dev)
+    out = torch.empty_like(q_lat)
+    lib = build.library("mla_paged_attention_verify",
+                        MLA_VERIFY_C_SIGNATURES)
+    err = lib.mla_paged_attention_verify(
+        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+        r_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, T, H, r, dr, page_size, n_blocks, float(scale),
+        _DTYPE_CODES[q_lat.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mla_paged_attention_verify kernel launch "
+                           f"failed: CUDA error {err}")
+    mla_paged_attention_verify.launches += 1
+    return out
+
+
+mla_paged_attention_verify.launches = 0
+
+# the C interface of csrc/mla_paged_attention_verify.cu
+MLA_VERIFY_C_SIGNATURES = {
+    "mla_paged_attention_verify": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
 }

@@ -4,11 +4,16 @@ over steady-state engine steps.
     python -m repro_torch.launch.profile_decode [--steps 8]
     python -m repro_torch.launch.profile_decode --arch deepseek-v2-236b \
         --layers 4
+    python -m repro_torch.launch.profile_decode --arch qwen3-14b \
+        --spec draft --draft-arch qwen3-0.6b --spec-k 4
 
 Builds a full-width model (qwen3-0.6b by default; ``--layers`` cuts
 depth only) with random weights, seeded, fills all slots with decoding
 requests, then profiles ``--steps`` engine steps that only decode.
-Prints the window's wall time, the summed device time of every
+With ``--spec ngram|draft`` the engine is the speculative one and a step
+is a round of propose (the draft model's passes, with ``draft``) and one
+verify pass; the draft/verify split of the window's wall time is printed
+too.  Prints the window's wall time, the summed device time of every
 kernel in it (the device busy share is their ratio), and the kernels with
 the most device time, beside the card's name and power limit.
 """
@@ -27,7 +32,8 @@ from ..configs import get_config
 from ..device import resolve_device
 from ..models import init_params
 from ..obs.clock import now
-from ..serve import Engine, EngineConfig, GenerateConfig
+from ..serve import (Engine, EngineConfig, GenerateConfig, SpecConfig,
+                     SpecEngine)
 
 
 def main(argv=None) -> None:
@@ -39,6 +45,10 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--spec", choices=["off", "ngram", "draft"],
+                    default="off")
+    ap.add_argument("--spec-k", type=int, default=4)
+    ap.add_argument("--draft-arch", default="qwen3-0.6b")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -50,10 +60,22 @@ def main(argv=None) -> None:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    engine = Engine(cfg, params, EngineConfig(
-        num_slots=args.slots, max_len=args.prompt_len + 64, device=dev))
+    # a speculative round commits up to k+1 tokens
+    new_tokens = (args.steps + 16) * (args.spec_k + 1 if args.spec != "off"
+                                      else 1)
+    ecfg = EngineConfig(num_slots=args.slots,
+                        max_len=args.prompt_len + new_tokens, device=dev)
+    if args.spec == "off":
+        engine = Engine(cfg, params, ecfg)
+    else:
+        dcfg = get_config(args.draft_arch) if args.spec == "draft" else None
+        dparams = None if dcfg is None else init_params(
+            dcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        engine = SpecEngine(cfg, params, ecfg, SpecConfig(
+            k=args.spec_k, proposer=args.spec, draft_cfg=dcfg,
+            draft_params=dparams))
     rng = np.random.default_rng(0)
-    gen = GenerateConfig(max_new_tokens=args.steps + 16)
+    gen = GenerateConfig(max_new_tokens=new_tokens)
     for _ in range(args.slots):
         engine.submit(rng.integers(0, cfg.vocab_size, args.prompt_len), gen)
     for _ in range(4):                       # admit, prefill, warm decode
@@ -61,6 +83,7 @@ def main(argv=None) -> None:
     if len(engine._sched.decode_requests()) != args.slots:
         raise RuntimeError("slots did not fill before the profiled window")
     torch.cuda.synchronize(dev)
+    walls = {ph: engine.phases[ph].wall_s for ph in ("verify", "draft")}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = now()
@@ -82,6 +105,13 @@ def main(argv=None) -> None:
           f"launches ({len(kernels) / args.steps:.0f}/step); device busy "
           f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.1%} of the "
           f"window")
+    if args.spec != "off":
+        split = {ph: (engine.phases[ph].wall_s - w) / args.steps * 1e3
+                 for ph, w in walls.items()}
+        print(f"[profile] speculative ({args.spec}, k {args.spec_k}): "
+              f"verify {split['verify']:.3f} ms/step, propose "
+              f"{split['draft']:.3f} ms/step of the window (synchronized "
+              "walls)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
             :args.top]:
         print(f"[profile] {t / 1e3:9.3f} ms {t / busy_us:6.1%} "

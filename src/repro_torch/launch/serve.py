@@ -6,11 +6,19 @@
         --arch deepseek-v2-236b --layers 4 --batch 6 --slots 4 \\
         --prefill-chunk 64
 
+Speculative decoding (serve/spec.py):
+
+    ... --spec ngram --spec-k 4                  # weight-free prompt lookup
+    ... --arch qwen3-14b --spec draft --draft-arch qwen3-0.6b
+    ... --spec draft --spec-k-adaptive           # EWMA-adapted draft length
+
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the plain PyTorch path (use ``--smoke`` there).  ``--layers`` cuts depth
-only (a dense-FFN prologue stays).  Weights are random, from a generator
-seeded ``--seed``.  Prints tokens/s and the per-request decode roofline
-ledger line.
+only (a dense-FFN prologue stays), ``--draft-layers`` the draft model's.
+Weights are random, from generators seeded ``--seed`` (target) and
+``--seed + 1`` (draft).  Prints tokens/s, the per-request decode roofline
+ledger line and, with ``--spec``, the acceptance rate and tokens per
+verify pass (on random weights these say nothing about real drafts).
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from ..configs import ALL_ARCHS, get_config, smoke
 from ..device import resolve_device, synchronize
 from ..models import init_params
 from ..obs.clock import now
-from ..serve import Engine, EngineConfig, GenerateConfig
+from ..serve import (Engine, EngineConfig, GenerateConfig, SpecConfig,
+                     SpecEngine, speculative_summary, supports_spec)
 
 
 def main(argv=None):
@@ -34,6 +43,19 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to this many layers (0 = all)")
+    ap.add_argument("--spec", choices=["off", "ngram", "draft"],
+                    default="off",
+                    help="speculative decoding proposer (serve/spec.py)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per verify round")
+    ap.add_argument("--spec-k-adaptive", action="store_true",
+                    help="EWMA-adapted drafted length within the fixed "
+                         "verify shape")
+    ap.add_argument("--draft-arch", default="qwen3-0.6b",
+                    help="draft model arch for --spec draft (shrunk with "
+                         "--smoke)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="cut the draft model to this many layers (0 = all)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -54,10 +76,32 @@ def main(argv=None):
     gen_ = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen_, dev)
     slots = args.slots or args.batch
-    engine = Engine(cfg, params, EngineConfig(
+    ecfg = EngineConfig(
         num_slots=slots, page_size=args.page_size,
         max_len=args.prompt_len + args.new_tokens,
-        prefill_chunk=args.prefill_chunk, device=dev))
+        prefill_chunk=args.prefill_chunk, device=dev)
+    scfg = None
+    if args.spec == "off":
+        engine = Engine(cfg, params, ecfg)
+    else:
+        if not supports_spec(cfg):
+            raise SystemExit(f"{cfg.name}: --spec needs attention/MLA "
+                             "mixers throughout")
+        if args.spec == "draft":
+            dcfg = get_config(args.draft_arch)
+            if args.smoke:
+                dcfg = smoke(dcfg)
+            if args.draft_layers:
+                dcfg = dataclasses.replace(dcfg, n_layers=args.draft_layers)
+            dgen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+            scfg = SpecConfig(k=args.spec_k, proposer="draft",
+                              draft_cfg=dcfg,
+                              draft_params=init_params(dcfg, dgen, dev),
+                              adaptive=args.spec_k_adaptive)
+        else:
+            scfg = SpecConfig(k=args.spec_k, proposer="ngram",
+                              adaptive=args.spec_k_adaptive)
+        engine = SpecEngine(cfg, params, ecfg, scfg)
     rng = np.random.default_rng(args.seed)
     gen = GenerateConfig(max_new_tokens=args.new_tokens)
     reqs = [engine.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
@@ -76,6 +120,15 @@ def main(argv=None):
               f"ttft {r.ttft * 1e3:.1f} ms, AI={t.arithmetic_intensity:.2f} "
               f"FLOP/B, {t.bound_class()}, mean batch "
               f"{r.ledger.mean_batch:.2f}")
+    if scfg is not None:
+        s = speculative_summary(cfg, reqs, args.spec_k,
+                                args.prompt_len + args.new_tokens // 2,
+                                draft_cfg=scfg.draft_cfg)
+        print(f"[serve/spec] proposer={args.spec} k={args.spec_k} "
+              f"acceptance={s['acceptance_rate']:.2f} (random weights) "
+              f"tokens/pass={s['tokens_per_pass']:.2f} (predicted "
+              f"{s['predicted_tokens_per_pass']:.2f}), predicted "
+              f"memory-bound speedup x{s['predicted_speedup']:.2f}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 from .common import BlockDef, ModelConfig
-from .model import (decode_step_paged, init_params, model_param_defs,
+from .model import (decode_step_paged, decode_step_verify_paged,
+                    init_params, model_param_defs,
                     paged_cache_defs, param_count, prefill,
                     prefill_chunk_paged, prefill_padded, prepare_params)
 
 __all__ = [
-    "BlockDef", "ModelConfig", "decode_step_paged", "init_params",
+    "BlockDef", "ModelConfig", "decode_step_paged",
+    "decode_step_verify_paged", "init_params",
     "model_param_defs", "paged_cache_defs", "param_count",
     "prefill", "prefill_chunk_paged", "prefill_padded", "prepare_params",
 ]

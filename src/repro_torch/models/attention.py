@@ -3,8 +3,9 @@ caches.  MLA lives in ``mla.py``; cross-attention is not ported yet
 (ROADMAP queue 1 item 9).
 
 The attention core is plain PyTorch ops, as the reference's is plain jnp
-outside any kernel; only paged decode goes through a hand-written kernel
-(kernels/ops.py ``paged_attention``).  KV heads stay un-repeated: the
+outside any kernel; only paged decode and paged multi-token verification
+go through hand-written kernels (kernels/ops.py ``paged_attention`` and
+``paged_attention_verify``).  KV heads stay un-repeated: the
 query-group dim G rides along so GQA never materializes repeated K/V.
 """
 
@@ -162,6 +163,40 @@ def decode_attention_paged(
         q.reshape(B, KV, G, hd).contiguous(), pool["k"], pool["v"],
         block_tables, pos, scale=1.0 / (hd ** 0.5),
         soft_cap=cfg.attn_logit_soft_cap).reshape(B, 1, H, hd)
+    return _out_proj(o.to(x.dtype), p["wo"])
+
+
+def decode_verify_paged(
+    p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
+    block_tables: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
+    page_size: int, rope: Rope,
+) -> torch.Tensor:
+    """Multi-token verification decode for every slot (speculative
+    decoding), pool updated in place.  x (B, T, D): the draft chain [last
+    committed token, d_1..d_k] at positions ``pos + t``; pos (B,) int32
+    the first token's write position; ``rope`` = rope_tables(cfg,
+    pos[:, None] + arange(T)).  Writes all T K/V lines, then scores all T
+    queries in one page walk (``ops.paged_attention_verify``).  Writes past
+    the slot's backed pages land on the trash page (table entries 0 there);
+    rejected-draft lines are masked for every committed query and
+    overwritten when a real token is fed at their position, so rollback is
+    host-side position bookkeeping."""
+    B, T, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    posq = pos[:, None] + torch.arange(T, dtype=torch.int32,
+                                       device=x.device)[None, :]  # (B, T)
+    q, k_new, v_new = _project_qkv(p, x, cfg, rope)
+    n_blocks = block_tables.shape[1]
+    blk_idx = torch.clamp(posq // page_size, max=n_blocks - 1)
+    blk = torch.gather(block_tables, 1, blk_idx.long())           # (B, T)
+    off = posq % page_size
+    _commit_kv(pool, "k", blk, off, k_new)
+    _commit_kv(pool, "v", blk, off, v_new)
+    o = kernel_ops.paged_attention_verify(
+        q.reshape(B, T, KV, G, hd).contiguous(), pool["k"], pool["v"],
+        block_tables, pos, scale=1.0 / (hd ** 0.5),
+        soft_cap=cfg.attn_logit_soft_cap).reshape(B, T, H, hd)
     return _out_proj(o.to(x.dtype), p["wo"])
 
 

@@ -13,14 +13,16 @@ only the latent and rope lines: pools (P, page, r) and (P, page, dr).
 * :func:`mla_decode_paged` — one-token decode, always in the absorbed
   (latent-space) form; its attention core is ``kernels/ops.py``
   ``mla_paged_attention``, the hand-written CUDA kernel on the card.
+* :func:`mla_decode_verify_paged` — T-token verification (speculative
+  decoding), absorbed; its core is ``ops.mla_paged_attention_verify``.
 
 RoPE tables are computed once per forward at ``rope_head_dim``
 (:func:`rope_tables`) and passed in, where the reference recomputes them
 from positions inside every call.  The pools are updated in place by the
 GQA path's ``_commit_kv`` (the reference's ``_commit_latent``); the
 reference's ``_rms`` is ``layers.rms_head_norm``.  Not ported: the
-verify path (ROADMAP queue 1 item 7) and the static dense cache
-``mla_cache_defs`` / ``mla_decode`` (item 9).
+static dense cache ``mla_cache_defs`` / ``mla_decode`` (ROADMAP queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -214,6 +216,42 @@ def mla_decode_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
         scale=1.0 / ((dn + dr) ** 0.5))                            # (B,H,r)
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["wv_b"])
     return _out_proj(o[:, None], p["wo"])
+
+
+def mla_decode_verify_paged(p, x: torch.Tensor,
+                            pool: Dict[str, torch.Tensor],
+                            block_tables: torch.Tensor, pos: torch.Tensor,
+                            cfg: ModelConfig, *, page_size: int,
+                            rope: Rope = None) -> torch.Tensor:
+    """Multi-token MLA verification against the paged latent pool
+    (speculative decoding), pool updated in place.  x (B, T, D) draft-chain
+    tokens at positions ``pos + t``; pos (B,) int32 the first token's
+    write position; ``rope`` = rope_tables(cfg, pos[:, None] + arange(T)).
+    Absorbed form, as :func:`mla_decode_paged`: all T latent lines are
+    written, then all T queries share one page walk
+    (``ops.mla_paged_attention_verify``); rollback of rejected drafts is
+    position bookkeeping (attention.decode_verify_paged)."""
+    T = x.shape[1]
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+    posq = pos[:, None] + torch.arange(T, dtype=torch.int32,
+                                       device=x.device)[None, :]  # (B, T)
+    if rope is None:
+        rope = rope_tables(cfg, posq)
+    q_nope, q_rope = _queries(p, x, posq, cfg, rope)             # (B,T,H,*)
+    c_new, kr_new = _latent_kv(p, x, posq, cfg, rope)            # (B,T,*)
+    n_blocks = block_tables.shape[1]
+    blk_idx = torch.clamp(posq // page_size, max=n_blocks - 1)
+    blk = torch.gather(block_tables, 1, blk_idx.long())
+    off = posq % page_size
+    _commit_kv(pool, "c_kv", blk, off, c_new)
+    _commit_kv(pool, "k_rope", blk, off, kr_new)
+    q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])    # (B,T,H,r)
+    o_lat = kernel_ops.mla_paged_attention_verify(
+        q_lat.contiguous(), q_rope.contiguous(), pool["c_kv"],
+        pool["k_rope"], block_tables, pos,
+        scale=1.0 / ((dn + dr) ** 0.5))                          # (B,T,H,r)
+    o = torch.einsum("bqhr,rhk->bqhk", o_lat.to(x.dtype), p["wv_b"])
+    return _out_proj(o, p["wo"])
 
 
 def mla_prefill_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],

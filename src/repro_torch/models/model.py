@@ -1,5 +1,5 @@
-"""Model facade: defs, init, prefill, paged decode — the surface the
-serve engine uses (the reference's ``models/model.py``)."""
+"""Model facade: defs, init, prefill, paged decode and verification — the
+surface the serve engine uses (the reference's ``models/model.py``)."""
 
 from __future__ import annotations
 
@@ -75,6 +75,19 @@ def decode_step_paged(params, cfg: ModelConfig, pools: List[Any],
     int32.  Returns logits (B, V)."""
     return tfm.decode_one_paged(params, cfg, pools, block_tables, token, pos,
                                 page_size=page_size)
+
+
+def decode_step_verify_paged(params, cfg: ModelConfig, pools: List[Any],
+                             block_tables: torch.Tensor, tokens: torch.Tensor,
+                             pos: torch.Tensor, *, page_size: int
+                             ) -> torch.Tensor:
+    """Multi-token speculative verification: score tokens (B, T) — per
+    slot the chain [last committed token, draft_1..draft_k] at positions
+    ``pos + t`` — in one weight pass against the paged cache (pools
+    updated in place).  Returns logits (B, T, V).  Attention/MLA archs
+    only."""
+    return tfm.decode_verify_paged(params, cfg, pools, block_tables, tokens,
+                                   pos, page_size=page_size)
 
 
 def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],

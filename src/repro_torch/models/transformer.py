@@ -170,6 +170,34 @@ def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
     return _ffn_tail(p, b, x, cfg)
 
 
+def apply_block_verify(p, b: BlockDef, x: torch.Tensor,
+                       pool: Dict[str, torch.Tensor], pos: torch.Tensor,
+                       cfg: ModelConfig, block_tables: torch.Tensor,
+                       page_size: int, ropes: Dict[str, attn.Rope]
+                       ) -> torch.Tensor:
+    """Multi-token verification through one block (speculative decoding),
+    pool updated in place.  x (B, T, D) draft-chain tokens at per-slot
+    positions ``pos + t``.  Attention-family mixers only: a recurrent
+    mixer's state advance cannot be rolled back when drafts are rejected
+    (serve.spec.supports_spec)."""
+    h = apply_norm(p["norm1"], x, cfg)
+    if b.mixer == "attn":
+        o = attn.decode_verify_paged(p["mixer"], h, pool, block_tables, pos,
+                                     cfg, page_size=page_size,
+                                     rope=ropes["attn"])
+    elif b.mixer == "mla":
+        o = mla_mod.mla_decode_verify_paged(p["mixer"], h, pool,
+                                            block_tables, pos, cfg,
+                                            page_size=page_size,
+                                            rope=ropes["mla"])
+    else:
+        raise NotImplementedError(
+            f"speculative verification needs a rollback-free cache; mixer "
+            f"{b.mixer!r} carries recurrent state (attn/mla only)")
+    x = x + cfg.residual_scale * o
+    return _ffn_tail(p, b, x, cfg)
+
+
 def apply_block_prefill_chunk(p, b: BlockDef, x: torch.Tensor,
                               pool: Dict[str, torch.Tensor], offset: int,
                               block_table: torch.Tensor, cfg: ModelConfig,
@@ -244,6 +272,37 @@ def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],
                                        block_tables, page_size, ropes)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x, cfg)[:, 0, :]
+
+
+def decode_verify_paged(params, cfg: ModelConfig, pools: List[Any],
+                        block_tables: torch.Tensor, tokens: torch.Tensor,
+                        pos: torch.Tensor, *, page_size: int
+                        ) -> torch.Tensor:
+    """Score T = k+1 draft-chain tokens per slot in ONE weight pass.
+
+    tokens (B, T): per slot [last committed token, draft_1..draft_k]; pos
+    (B,) int32 the first token's position (= context_len - 1);
+    block_tables (B, n_blocks) int32.  Returns logits (B, T, V):
+    logits[:, t] is the distribution after token t, what one sequential
+    decode step would give.  All T K/V lines are written in place;
+    rejected positions are overwritten when the real token is later fed
+    there.  The weights and each slot's page walk are read once for the T
+    tokens."""
+    T = tokens.shape[1]
+    posq = pos[:, None] + torch.arange(T, dtype=torch.int32,
+                                       device=tokens.device)[None, :]
+    x = embed_tokens(params["embed"], tokens, cfg, posq)
+    ropes = rope_tables(cfg, posq)
+    for seg_params, seg_pool, (unit, reps) in zip(
+            params["segments"], pools, cfg.segments()):
+        for r in range(reps):
+            layer_p, layer_c = _layer(seg_params, r), _layer(seg_pool, r)
+            for i, b in enumerate(unit):
+                x = apply_block_verify(layer_p[f"b{i}"], b, x,
+                                       layer_c[f"b{i}"], pos, cfg,
+                                       block_tables, page_size, ropes)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return logits_from_hidden(params["embed"], x, cfg)
 
 
 def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],

@@ -2,11 +2,20 @@ from . import sampling
 from .block_pool import BlockPool, PoolStats, chain_hash, token_chain_hashes
 from .engine import Engine, EngineConfig, GenerateConfig
 from .kv_cache import PagedKVCache, SwapSnapshot
+from .proposer import (DraftModelProposer, NgramProposer, Proposal,
+                       ngram_propose)
 from .scheduler import Request, RequestState, RooflineLedger, Scheduler
+from .spec import (SpecConfig, SpecEngine, adaptive_k,
+                   spec_expected_tokens_per_pass, spec_speedup_model,
+                   speculative_summary, supports_spec)
 
 __all__ = [
     "Engine", "EngineConfig", "GenerateConfig",
     "BlockPool", "PoolStats", "chain_hash", "token_chain_hashes",
     "PagedKVCache", "SwapSnapshot",
     "Request", "RequestState", "RooflineLedger", "Scheduler", "sampling",
+    "DraftModelProposer", "NgramProposer", "Proposal", "ngram_propose",
+    "SpecConfig", "SpecEngine", "adaptive_k",
+    "spec_expected_tokens_per_pass", "spec_speedup_model",
+    "speculative_summary", "supports_spec",
 ]

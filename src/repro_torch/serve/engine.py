@@ -9,8 +9,10 @@ logits, so only the (B,) chosen token ids cross to the host.  Whole-prompt
 prefill is length-bucketed to the next power of two where padding cannot
 change the result (no MoE FFN, whose capacity the pad tokens would take).
 
-The static whole-batch engine, speculative decoding, tensor parallelism
-and telemetry are not ported yet (ROADMAP queue 1 items 9, 7, 11, 13).
+Speculative decoding subclasses this engine (serve/spec.py) through two
+hooks, :meth:`Engine._kv_margin` and :meth:`Engine._preempt`.  The static
+whole-batch engine, tensor parallelism and telemetry are not ported yet
+(ROADMAP queue 1 items 9, 11, 13).
 """
 
 from __future__ import annotations
@@ -109,6 +111,7 @@ class Engine:
         self._kv = PagedKVCache(self.cfg, e.num_slots, e.page_size,
                                 e.max_len, self.device,
                                 num_pages=e.num_pages,
+                                margin_tokens=self._kv_margin(),
                                 prefix_cache=e.prefix_cache,
                                 eager_freeze=e.prefill_chunk <= 0)
         self._sched = Scheduler(self.cfg, self._kv,
@@ -125,6 +128,12 @@ class Engine:
         self._top_ks = np.zeros((n,), np.int32)
         self._top_ps = np.zeros((n,), np.float32)
         self.decode_steps = 0
+
+    def _kv_margin(self) -> int:
+        """Block-table margin (tokens) past ``max_len``; the speculative
+        subclass widens it so verify writes near the budget edge stay on
+        legal (trash) table entries."""
+        return 0
 
     def _ensure(self, budget: int) -> None:
         if self._kv is None:
@@ -290,8 +299,13 @@ class Engine:
                         f"{self._kv.available_page_count} obtainable pages "
                         "and no running victim to preempt; raise "
                         "EngineConfig.num_pages or lower num_slots")
-                self._sched.preempt(victim)
+                self._preempt(victim)
         return [r for r in reqs if r.state is not RequestState.PREEMPTED]
+
+    def _preempt(self, req: Request) -> None:
+        """Scheduler preemption plus engine-side hooks (subclasses release
+        per-request companion state, e.g. the draft proposer's slot)."""
+        self._sched.preempt(req)
 
     def _restore_decode_row(self, req: Request) -> None:
         """Re-point the packed decode rows at a swap-resumed request."""

@@ -92,8 +92,14 @@ class PagedKVCache:
 
     def __init__(self, cfg: ModelConfig, num_slots: int, page_size: int,
                  max_len: int, device: torch.device,
-                 num_pages: Optional[int] = None,
+                 num_pages: Optional[int] = None, margin_tokens: int = 0,
                  prefix_cache: bool = False, eager_freeze: bool = True):
+        """``margin_tokens`` widens every block table past the ``max_len``
+        admission ceiling WITHOUT backing pages: speculative verification
+        writes up to k draft lines beyond a request's committed context,
+        and near the end of its budget those positions must still resolve
+        to a legal table entry.  Margin entries stay 0 (the trash page),
+        so overflow writes land harmlessly and never alias live pages."""
         if not supports_paging(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: paged KV cache supports decoder-only archs "
@@ -111,10 +117,14 @@ class PagedKVCache:
         # alloc-time registration of a request's own full prompt pages;
         # only sound when a prompt prefills whole within its admission step
         self.eager_freeze = eager_freeze
-        self.blocks_per_slot = max(1, math.ceil(max_len / page_size))
-        self.max_len = self.blocks_per_slot * page_size
+        admit_blocks = max(1, math.ceil(max_len / page_size))
+        self.blocks_per_slot = admit_blocks + math.ceil(
+            margin_tokens / page_size)
+        self.max_len = admit_blocks * page_size
         if num_pages is None:
-            num_pages = 1 + num_slots * self.blocks_per_slot
+            # full backing store + the trash page (margin blocks are never
+            # backed: they always point at the trash page)
+            num_pages = 1 + num_slots * admit_blocks
         self.num_pages = num_pages
         self.pool = BlockPool(num_pages, page_size)
         defs = tfm.paged_cache_defs(cfg, num_slots, num_pages, page_size)
@@ -163,12 +173,15 @@ class PagedKVCache:
                 and self.pages_needed_for(tokens) + reserve_pages
                 <= self.available_page_count)
 
-    def alloc(self, n_tokens: int, budget: Optional[int] = None,
+    def alloc(self, n_tokens: int, slot: Optional[int] = None,
+              budget: Optional[int] = None,
               tokens: Optional[np.ndarray] = None) -> Optional[int]:
         """Reserve a slot plus pages backing an ``n_tokens`` context now
-        (growth up to ``budget`` tokens is on demand).  ``tokens`` enables
-        prefix-cache aliasing of matching leading full pages.  Returns the
-        slot, or None when slots or pages are exhausted."""
+        (growth up to ``budget`` tokens is on demand).  ``slot`` pins a
+        specific free slot: a draft-model cache mirroring the target
+        engine packs its batch by the target's slot indices.  ``tokens``
+        enables prefix-cache aliasing of matching leading full pages.
+        Returns the slot, or None when slots or pages are exhausted."""
         budget = n_tokens if budget is None else budget
         if max(n_tokens, budget) > self.max_len:
             raise ValueError(f"request needs {max(n_tokens, budget)} tokens "
@@ -197,7 +210,14 @@ class PagedKVCache:
                     self.pool.release(p)
                 return None
             fresh.append(page)
-        slot = self._free_slots.pop()
+        if slot is None:
+            slot = self._free_slots.pop()
+        elif slot in self._free_slots:
+            self._free_slots.remove(slot)
+        else:
+            for p in fresh + matched:
+                self.pool.release(p)
+            raise ValueError(f"slot {slot} is not free")
         row = np.zeros((self.blocks_per_slot,), np.int32)
         row[:n_pages] = matched + fresh
         self.block_tables[slot] = row

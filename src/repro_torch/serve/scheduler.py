@@ -18,7 +18,9 @@ PREEMPTED detour when the block pool runs dry.  Each engine step:
 Decode roofline ledger: one generated token at context length ``L`` does
 ``W(L) = 2 * N_active + 4 * H * hd * L * n_attn_blocks`` FLOPs and moves
 ``Q(L) = params_bytes / B_active + (L + 1) * kv_line_bytes`` HBM bytes;
-each request accumulates W and Q and folds them into RooflineTerms.
+each request accumulates W and Q and folds them into RooflineTerms.  A
+speculative verify step (serve/spec.py) scores k+1 tokens for one weight
+read (:meth:`RooflineLedger.add_verify_step`).
 """
 
 from __future__ import annotations
@@ -89,30 +91,52 @@ def decode_token_bytes(cfg: ModelConfig, context_len: int,
     return weights + (context_len + 1) * kv_line_bytes(cfg)
 
 
+def attn_kernel_vmem_bytes(cfg: ModelConfig, context_len: int,
+                           page_size: int, n_q: int = 1) -> float:
+    """On-chip traffic of one slot's paged-attention walks summed over all
+    attention/MLA layers, for ``n_q`` query tokens (1 = decode, k+1 =
+    verify): the streamed pages plus the kernel-resident re-touches
+    (kernels/paged_attention.py pricing, from the reference kernels' grids
+    and scratch)."""
+    isize = _dtype_bytes(cfg.dtype)
+    kv_isize = kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
+    scale_isize = 4 if kvq.is_quantized(cfg.kv_dtype) else 0
+    total = 0.0
+    for unit, reps in cfg.segments():
+        for b in unit:
+            if b.mixer == "attn":
+                total += reps * paged_decode_vmem_bytes(
+                    context_len=context_len, page_size=page_size,
+                    n_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.hd, isize=isize, n_q=n_q,
+                    kv_isize=kv_isize, scale_isize=scale_isize)
+            elif b.mixer == "mla":
+                total += reps * mla_paged_decode_vmem_bytes(
+                    context_len=context_len, page_size=page_size,
+                    n_heads=cfg.n_heads, lora_rank=cfg.kv_lora_rank,
+                    rope_dim=cfg.rope_head_dim, isize=isize, n_q=n_q,
+                    kv_isize=kv_isize, scale_isize=scale_isize)
+    return total
+
+
 def decode_token_vmem_bytes(cfg: ModelConfig, context_len: int,
                             active_batch: int, page_size: int) -> float:
     """On-chip bytes for one generated token: the amortized weight read
     passes through once, and the paged-attention walks add their streamed
     and resident traffic (kernels/paged_attention.py pricing)."""
-    isize = _dtype_bytes(cfg.dtype)
-    kv_isize = kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
-    scale_isize = 4 if kvq.is_quantized(cfg.kv_dtype) else 0
-    attn = 0.0
-    for unit, reps in cfg.segments():
-        for b in unit:
-            if b.mixer == "attn":
-                attn += reps * paged_decode_vmem_bytes(
-                    context_len=context_len, page_size=page_size,
-                    n_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-                    head_dim=cfg.hd, isize=isize, kv_isize=kv_isize,
-                    scale_isize=scale_isize)
-            elif b.mixer == "mla":
-                attn += reps * mla_paged_decode_vmem_bytes(
-                    context_len=context_len, page_size=page_size,
-                    n_heads=cfg.n_heads, lora_rank=cfg.kv_lora_rank,
-                    rope_dim=cfg.rope_head_dim, isize=isize,
-                    kv_isize=kv_isize, scale_isize=scale_isize)
-    return params_bytes_active(cfg) / max(active_batch, 1) + attn
+    return (params_bytes_active(cfg) / max(active_batch, 1)
+            + attn_kernel_vmem_bytes(cfg, context_len, page_size))
+
+
+def verify_step_vmem_bytes(cfg: ModelConfig, context_len: int, n_fed: int,
+                           active_batch: int, page_size: int) -> float:
+    """On-chip bytes for one slot's multi-token verification step: one
+    weight pass-through scores ``n_fed`` tokens sharing a single page walk
+    (the verify kernels flatten the draft window into extra query rows,
+    so only the resident re-touches scale with n_fed)."""
+    return (params_bytes_active(cfg) / max(active_batch, 1)
+            + attn_kernel_vmem_bytes(cfg, context_len, page_size,
+                                     n_q=n_fed))
 
 
 # --------------------------------------------------------------------------
@@ -131,16 +155,27 @@ class RequestState(enum.Enum):
 class RooflineLedger:
     """Per-request W/Q accounting, folded into RooflineTerms at the end.
 
-    ``preemptions`` counts evictions under pool pressure, ``swap_bytes``
-    the host<->device swap traffic, ``prefix_cached_tokens`` the prompt
-    tokens admission found already in the prefix index, ``pages_peak``
-    the most physical pages the request held."""
+    Speculative decoding splits the decode stream: *verify* steps charge
+    W and Q like decode (``decode_flops`` / ``decode_bytes`` — one weight
+    read scores k+1 tokens) and count in ``weight_passes``; *draft* work
+    on the proposer goes to ``draft_flops`` / ``draft_bytes`` (overhead,
+    not target throughput).  ``acceptance_rate`` is accepted / proposed
+    drafts.  ``preemptions`` counts evictions under pool pressure,
+    ``swap_bytes`` the host<->device swap traffic,
+    ``prefix_cached_tokens`` the prompt tokens admission found already in
+    the prefix index, ``pages_peak`` the most physical pages the request
+    held."""
     prefill_flops: float = 0.0
     decode_flops: float = 0.0
     decode_bytes: float = 0.0
     decode_vmem_bytes: float = 0.0   # on-chip traffic (stream + resident)
     decode_tokens: int = 0
     decode_batch_sum: int = 0        # sum of co-resident batch sizes
+    weight_passes: int = 0           # target forward passes (decode+verify)
+    draft_flops: float = 0.0         # proposer-side work (draft model)
+    draft_bytes: float = 0.0
+    proposed: int = 0                # draft tokens offered for verification
+    accepted: int = 0                # draft tokens that survived
     preemptions: int = 0
     swap_bytes: float = 0.0
     prefix_cached_tokens: int = 0
@@ -154,10 +189,59 @@ class RooflineLedger:
         self.decode_vmem_bytes += vmem_bytes
         self.decode_tokens += 1
         self.decode_batch_sum += active_batch
+        self.weight_passes += 1
+
+    def add_verify_step(self, cfg: ModelConfig, context_len: int,
+                        n_fed: int, n_committed: int, n_accepted: int,
+                        n_proposed: int, active_batch: int,
+                        vmem_bytes: float = 0.0) -> None:
+        """One multi-token verification step: ``n_fed`` = k+1 tokens scored
+        in one weight pass at context ``context_len``; ``n_committed``
+        tokens entered the request (``n_accepted`` of them surviving
+        drafts).  W: fed token t attends ``context_len + t`` keys.  Q: ONE
+        amortized weight read and one page walk over the context plus the
+        just-written lines (read ``context_len + n_fed - 1``, write
+        ``n_fed``), so W scales by n_fed while Q barely moves."""
+        line = kv_line_bytes(cfg)
+        self.decode_flops += sum(
+            decode_token_flops(cfg, context_len + t) for t in range(n_fed))
+        self.decode_bytes += (params_bytes_active(cfg) / max(active_batch, 1)
+                              + (context_len + 2 * n_fed - 1) * line)
+        self.decode_vmem_bytes += vmem_bytes
+        self.decode_tokens += n_committed
+        self.decode_batch_sum += n_committed * active_batch
+        self.weight_passes += 1
+        self.proposed += n_proposed
+        self.accepted += n_accepted
+
+    def add_draft_cost(self, draft_cfg: ModelConfig, context_len: int,
+                       n_fed: int, n_decodes: int, active_batch: int
+                       ) -> None:
+        """Proposer-side work for one round on a draft model: a catch-up
+        pass over ``n_fed`` tokens (the previous round's commits, one
+        weight pass) plus ``n_decodes`` single-token draft steps."""
+        line = kv_line_bytes(draft_cfg)
+        w = params_bytes_active(draft_cfg) / max(active_batch, 1)
+        self.draft_flops += sum(
+            decode_token_flops(draft_cfg, context_len + t)
+            for t in range(n_fed + n_decodes))
+        self.draft_bytes += (
+            w + (context_len + 2 * n_fed - 1) * line
+            + n_decodes * (w + (context_len + n_fed + n_decodes) * line))
 
     @property
     def mean_batch(self) -> float:
         return self.decode_batch_sum / max(self.decode_tokens, 1)
+
+    @property
+    def tokens_per_pass(self) -> float:
+        """Tokens committed per target weight pass (1.0 for sequential
+        decode; the speculative yield otherwise)."""
+        return self.decode_tokens / max(self.weight_passes, 1)
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted / max(self.proposed, 1)
 
     @property
     def arithmetic_intensity(self) -> float:
@@ -259,7 +343,9 @@ class Scheduler:
         self.preempt_count = 0
         self._next_id = 0
         self._admit_seq = 0
-        # per-phase traffic + synchronized wall time (prefill/decode/swap)
+        # per-phase traffic + synchronized wall time (keys: prefill /
+        # decode / verify / draft / swap; the engines charge the compute
+        # phases, preempt and _resume the swap phase)
         self.phases: Dict[str, PhaseTraffic] = collections.defaultdict(
             PhaseTraffic)
 

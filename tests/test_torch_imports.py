@@ -45,9 +45,10 @@ def test_port_imports_without_jax_or_reference():
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "leaked: []" in out.stdout
-    assert int(out.stdout.split()[0]) >= 27      # every submodule walked
+    assert int(out.stdout.split()[0]) >= 29      # every submodule walked
     walked = out.stdout.splitlines()[1].split()
-    for mod in ("models.mla", "models.moe", "kernels.paged_attention"):
+    for mod in ("models.mla", "models.moe", "kernels.paged_attention",
+                "serve.spec", "serve.proposer"):
         assert f"repro_torch.{mod}" in walked
 
 
