@@ -17,7 +17,17 @@ Phases, in order; any failure exits non-zero:
    tolerance stated; times (CUDA events) of the kernel, the plain version
    and one PyTorch library call computing the same function, beside the
    bound;
-4. engine phases, one per path, random weights from generators seeded 0;
+4. the paper's primitive study (launch/primitives.py): the microbench
+   (FMA-chain probe, matmul peaks per dtype, copy / fill / triad
+   bandwidth, warm vs cold) printed beside the data sheet; the
+   inner-product, GELU, direct-conv and Winograd-stage kernels held
+   against their plain versions at the reference benchmarks' shapes and
+   at edge shapes (ragged M / N / K, K = 1, relu and gelu epilogues, odd
+   H / W, C = 3 padded to 8 and 128, GELU blocked equal to naive bit for
+   bit); then the study at card shapes with the four kernels' launch
+   counts zeroed before and read after, every row held against its plain
+   version and within 105% of the measured roof;
+5. engine phases, one per path, random weights from generators seeded 0;
    every request must finish, each path's kernel launch counts (zeroed
    just before the run, read just after) must match its step counts, and
    one step's logits must match the same work done with the plain
@@ -36,7 +46,7 @@ Phases, in order; any failure exits non-zero:
    every speculative stream must equal the plain engine's greedy stream,
    or differ first where the plain engine's top-2 logit margin is under
    the logits tolerance;
-5. one JSON line listing every ported kernel, then the device line last.
+6. one JSON line listing every ported kernel, then the device line last.
 
 Nothing here imports JAX or the JAX package.
 """
@@ -659,6 +669,223 @@ def mla_verify_kernel_phase(torch, np, pa):
                 library_ms=library_ms)
 
 
+# the paper's primitives (PR 14): the data-sheet values the measured
+# roofline is printed beside, and the kernels' hold cases
+DATA_SHEET = {"fma": 67e12, "matmul float32": 67e12,
+              "matmul bfloat16": 989e12, "bandwidth": HBM_BW}
+# the share of the measured roof above which a study row is a counting or
+# timing error
+MAX_UTIL_ROOF = 1.05
+# Winograd against the direct convolution: the reference tests' tolerance
+# (the transforms' float32 rounding, |v| up to 4 |x|)
+WINO_VS_DIRECT = dict(rtol=2e-3, atol=5e-3)
+# study row that stands for each kernel in the kernels line
+PRIM_ROWS = {"inner_product": "inner_product.bf16_square",
+             "gelu_2d": "gelu.flat.blocked",
+             "conv2d_direct": "conv.direct",
+             "winograd_elementwise_stage": "conv.winograd_stage"}
+PRIM_SOURCES = {
+    "inner_product": ("inner_product.cu", "inner_product.py:52"),
+    "gelu_2d": ("gelu.cu", "gelu.py:35"),
+    "conv2d_direct": ("conv_direct.cu", "conv_direct.py:49"),
+    "winograd_elementwise_stage": ("winograd_stage.cu",
+                                   "conv_winograd.py:43")}
+
+
+def prim_hold(torch, tally, key, label, out, checks):
+    """One primitive case: ``out`` against each (reference, tolerance) of
+    ``checks``; fails on a mismatch or a non-finite output.  ``tally``
+    keeps, per ``key``, the case count and the worst error over its
+    allowance."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out.float()).all()):
+        fail(f"{label}: non-finite output")
+    for want, tol in checks:
+        diff = (out.float() - want.float()).abs()
+        allow = tol["atol"] + tol["rtol"] * want.float().abs()
+        ratio = float((diff / allow).max())
+        if ratio > 1.0:
+            fail(f"{label} disagrees with its reference: max abs err "
+                 f"{float(diff.max()):.3e} ({ratio:.2f}x its tolerance "
+                 f"atol {tol['atol']:.3e} rtol {tol['rtol']:.3e})")
+        n, worst = tally.get(key, (0, 0.0))
+        tally[key] = (n + 1, max(worst, ratio))
+
+
+def primitive_holds(torch, np):
+    """Each primitive kernel against its plain version on the card at the
+    reference benchmarks' shapes and at edge shapes (the card shapes are
+    held inside the study): tolerances from launch/primitives.py."""
+    from repro_torch.kernels import conv_direct as cd
+    from repro_torch.kernels import conv_winograd as cw
+    from repro_torch.kernels import gelu as gm
+    from repro_torch.kernels import inner_product as ip
+    from repro_torch.kernels import ref
+    from repro_torch.launch.primitives import CONV_W_SCALE, tolerance
+    rng = np.random.default_rng(14)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def g(shape, name, scale=1.0):
+        a = rng.standard_normal(shape, dtype="float32") * scale
+        return torch.from_numpy(a).to("cuda", dts[name])
+    tally = {}
+    for name in dts:
+        # reference shape, ragged edges, K = 1, one output, a thin N
+        for m, k, n in ((1024, 1024, 1024), (131, 77, 133), (129, 1, 257),
+                        (1, 1, 1), (300, 1000, 5)):
+            x, w = g((m, k), name), g((k, n), name)
+            for fuse in ("none", "relu", "gelu"):
+                prim_hold(torch, tally, f"inner_product {name}",
+                          f"inner_product {name} {m}x{k}x{n} {fuse}",
+                          ip.inner_product(x, w, fuse=fuse),
+                          [(ip.inner_product_reference(x, w, fuse=fuse),
+                            tolerance("sum", name, k)),
+                           (ip.inner_product_reference(
+                               x.float(), w.float(), fuse=fuse),
+                            tolerance("sum", name, k, vs="plain_f32"))])
+        # reference shapes, the paper's C = 3 at the card's size, edges;
+        # blocked and naive bit for bit
+        for shape in ((4096, 512), (256, 227, 3), (256, 227, 227, 3),
+                      (1, 1), (1000, 3), (7, 9, 13)):
+            if name == "float32" and len(shape) == 4:
+                continue                   # the card's C = 3 runs in bf16
+            x = g(shape, name, 2.0)
+            for to in ((None, 8, 128) if shape[-1] == 3 else (None,)):
+                xp = x if to is None else gm.pad_channels(x, to)
+                label = f"gelu {name} {shape} pad {to}"
+                blocked, naive = gm.gelu_blocked(xp), gm.gelu_naive(xp)
+                prim_hold(torch, tally, f"gelu_2d {name}", label, blocked,
+                          [(ref.gelu(xp), tolerance("elementwise", name)),
+                           (ref.gelu(xp.float()),
+                            tolerance("elementwise", name,
+                                      vs="plain_f32"))])
+                if not torch.equal(blocked, naive):
+                    fail(f"{label}: blocked and naive walks differ")
+                del xp, blocked, naive
+            del x
+        # reference shape; C = 3 with odd H / W; even and 1 x 5 kernels
+        for n, h, w_, cin, cout, kh, kw in ((4, 28, 28, 128, 128, 3, 3),
+                                            (2, 7, 5, 3, 17, 3, 3),
+                                            (2, 6, 9, 5, 7, 2, 2),
+                                            (1, 5, 4, 8, 9, 1, 5)):
+            x = g((n, h, w_, cin), name)
+            wt = g((kh, kw, cin, cout), name, CONV_W_SCALE)
+            k = kh * kw * cin
+            prim_hold(torch, tally, f"conv2d_direct {name}",
+                      f"conv2d_direct {name} {x.shape} {wt.shape}",
+                      cd.conv2d_direct(x, wt),
+                      [(cd.conv2d_direct_reference(x, wt),
+                        tolerance("sum", name, k, CONV_W_SCALE)),
+                       (cd.conv2d_direct_reference(x.float(), wt.float()),
+                        tolerance("sum", name, k, CONV_W_SCALE,
+                                  vs="plain_f32"))])
+    # Winograd (float32): the stage alone at the reference shape and at
+    # edges; the whole convolution with odd H / W and C = 3 against the
+    # plain Winograd and the direct convolution
+    for p, t, cin, cout in ((16, 784, 128, 128), (16, 1, 1, 1),
+                            (16, 37, 3, 130)):
+        v, u = g((p, t, cin), "float32"), g((p, cin, cout), "float32")
+        prim_hold(torch, tally, "winograd_elementwise_stage float32",
+                  f"winograd stage {p}x{t}x{cin}x{cout}",
+                  cw.winograd_elementwise_stage(v, u),
+                  [(cw.winograd_elementwise_stage_reference(v, u),
+                    tolerance("sum", "float32", cin))])
+    for n, h, w_, cin, cout in ((4, 28, 28, 128, 128), (2, 13, 15, 32, 128),
+                                (1, 7, 7, 3, 5)):
+        x = g((n, h, w_, cin), "float32")
+        wt = g((3, 3, cin, cout), "float32", CONV_W_SCALE)
+        st = tolerance("sum", "float32", cin, 3 * CONV_W_SCALE)
+        prim_hold(torch, tally, "winograd_elementwise_stage float32",
+                  f"conv2d_winograd {x.shape} {wt.shape}",
+                  cw.conv2d_winograd(x, wt),
+                  [(ref.conv2d_winograd(x, wt),
+                    dict(atol=16 * st["atol"], rtol=st["rtol"])),
+                   (ref.conv2d(x, wt), WINO_VS_DIRECT)])
+    for key, (n, worst) in sorted(tally.items()):
+        print(f"[prim] {key}: {n} checks at the reference and edge shapes "
+              f"passed; worst error {worst:.3f} of its tolerance")
+
+
+def primitives_phase(torch, np, card):
+    """The paper's primitive study (PR 14): the measured roofline beside
+    the data sheet, the four kernels held at reference and edge shapes,
+    then launch/primitives.py's study at card shapes, counted.  Returns
+    the kernels-line entries of the four kernels."""
+    from repro_torch.core.roofline import microbench
+    from repro_torch.kernels import conv_direct as cd
+    from repro_torch.kernels import conv_winograd as cw
+    from repro_torch.kernels import gelu as gm
+    from repro_torch.kernels import inner_product as ip
+    from repro_torch.launch import primitives
+    t0 = time.perf_counter()
+    roof = microbench.run_microbench(cache_path=None, device="cuda")
+    for label, got, sheet in (
+            ("fma", roof.fma_flops, DATA_SHEET["fma"]),
+            ("matmul float32", roof.matmul_flops["float32"],
+             DATA_SHEET["matmul float32"]),
+            ("matmul bfloat16", roof.matmul_flops["bfloat16"],
+             DATA_SHEET["matmul bfloat16"])):
+        print(f"[roofline] {card}: peak {label} {got / 1e12:.2f} TFLOP/s "
+              f"measured vs {sheet / 1e12:.0f} data sheet "
+              f"({got / sheet * 100:.1f}%)")
+    for k, v in roof.bandwidth.items():
+        print(f"[roofline] {card}: bandwidth {k} {v / 1e12:.3f} TB/s "
+              f"measured vs {HBM_BW / 1e12:.2f} data sheet "
+              f"({v / HBM_BW * 100:.1f}%)")
+    wc = roof.warm_cold
+    print(f"[roofline] {card}: warm vs cold pass over 24 MB: warm "
+          f"{wc['warm_s'] * 1e6:.2f} us, cold {wc['cold_s'] * 1e6:.2f} us "
+          f"(cold/warm {wc['cold_s'] / wc['warm_s']:.2f})")
+    primitive_holds(torch, np)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+
+    counters = {"inner_product": ip.inner_product, "gelu_2d": gm.gelu_2d,
+                "conv2d_direct": cd.conv2d_direct,
+                "winograd_elementwise_stage": cw.winograd_elementwise_stage}
+    for c in counters.values():
+        c.launches = 0                           # counts start here
+    study = primitives.Study(torch.device("cuda"), roof)
+    study.run("card")
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}  # read here
+    t2 = time.perf_counter()
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"the study at card shapes never launched {k}")
+    rows = {r.name: r for r in study.rows}
+    for r in study.rows:
+        if r.util_roof > MAX_UTIL_ROOF:
+            fail(f"{r.name}: {r.util_roof * 100:.1f}% of the measured roof "
+                 "(a counting or timing error)")
+    print(f"[prim] {card}: study at card shapes: {len(study.rows)} rows, "
+          f"every util_roof <= {MAX_UTIL_ROOF * 100:.0f}% (max "
+          f"{max(r.util_roof for r in study.rows) * 100:.1f}%); launches "
+          f"{launches}; microbench + holds {t1 - t0:.1f} s, study "
+          f"{t2 - t1:.1f} s")
+    entries = []
+    for k, row_name in PRIM_ROWS.items():
+        r = rows[row_name]
+        bytes_ms = r.char["Q_bytes"] / HBM_BW * 1e3
+        ops_ms = r.char["W_flops"] / PEAK[r.dtype] * 1e3
+        bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+        src, rep = PRIM_SOURCES[k]
+        print(f"[kernel] {k} ({row_name}): kernel {r.seconds * 1e3:.4f} ms, "
+              f"plain {r.plain_s * 1e3:.4f} ms, library "
+              f"{r.library_s * 1e3:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}; data sheet), {r.util_roof * 100:.1f}% of the "
+              f"measured roof")
+        entries.append(dict(
+            name=k, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/{rep}", launches=launches[k],
+            max_abs_err=r.max_abs_err, ms=r.seconds * 1e3,
+            plain_ms=r.plain_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=r.library_s * 1e3))
+    del study, rows
+    torch.cuda.empty_cache()
+    return entries
+
+
 def decode_logits_check(torch, np, engine, ops, op, counter):
     """One decode step of the engine's current batch, run on copies of its
     pools twice: through the kernel, and with the plain version of
@@ -1086,6 +1313,7 @@ def main() -> int:
     verify_entry = gqa_verify_kernel_phase(torch, np, pa)
     mla_entry = mla_kernel_phase(torch, np, pa)
     mla_verify_entry = mla_verify_kernel_phase(torch, np, pa)
+    prim_entries = primitives_phase(torch, np, card)
 
     params = make_params(torch, qwen)
     entry["launches"] = engine_phase(
@@ -1130,7 +1358,7 @@ def main() -> int:
         logits_atol=SPEC_LOGITS_ATOL)
     del params, draft
     print(json.dumps({"kernels": [entry, verify_entry, mla_entry,
-                                  mla_verify_entry]}))
+                                  mla_verify_entry, *prim_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

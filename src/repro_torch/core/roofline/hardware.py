@@ -46,7 +46,9 @@ class ChipSpec:
 # power limit): 989 TFLOP/s bf16/fp16 on the tensor cores, 67 TFLOP/s
 # float32 outside them (PyTorch's default float32 matmul), 1979 fp8/int8;
 # 80 GB of HBM3 at 3.35 TB/s; PCIe Gen5 x16 at 64 GB/s each way to the
-# host.  Measured numbers for the card in use are in PERF.md.
+# host.  This is the analytic fallback: microbench.run_microbench measures
+# the card in use, and MicrobenchResult.to_chipspec() gives a ChipSpec
+# whose per-dtype peaks and HBM beta come from those probes.
 H100_SXM = ChipSpec(
     name="h100_sxm",
     peak_flops=989e12,

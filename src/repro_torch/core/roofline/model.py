@@ -107,3 +107,21 @@ class PhaseTraffic:
         self.wall_s += wall_s
         self.steps += steps
         self.tokens += tokens
+
+
+@dataclasses.dataclass
+class LevelBetas:
+    """The compute peak and one beta per memory level: the denominators of
+    a time-based roofline.  ``source`` records whether they came from the
+    card's microbenchmarks ("measured") or the data sheet ("analytic")."""
+
+    pi: float                    # FLOP/s
+    vmem: float                  # B/s; 0 = not priced
+    hbm: float
+    host: float
+    source: str = "analytic"
+
+    def beta(self, level: str) -> float:
+        if level not in MEMORY_LEVELS:
+            raise ValueError(f"unknown memory level {level!r}")
+        return float(getattr(self, level))

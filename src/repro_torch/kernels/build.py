@@ -3,7 +3,8 @@
 Each source is a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  Libraries land in the
 repository's ``build/kernels/`` (git-ignored), named by a hash of the
-source, and are built on first use: a checkout needs nothing prebuilt.
+source and of the shared headers (``csrc/*.cuh``), and are built on first
+use: a checkout needs nothing prebuilt.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
@@ -40,8 +41,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # included sources
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

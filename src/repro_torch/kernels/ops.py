@@ -12,6 +12,10 @@ from typing import Callable, Dict
 
 import torch
 
+from . import conv_direct as _conv
+from . import conv_winograd as _wino
+from . import gelu as _gelu
+from . import inner_product as _ip
 from . import paged_attention as _paged
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
@@ -92,3 +96,59 @@ def mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool, block_tables,
     (B, T, H, r)."""
     return resolve("mla_paged_attention_verify", q_lat.device)(
         q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)
+
+
+# the paper's primitives (launch/primitives.py times them)
+
+register_kernel("inner_product", cuda=_ip.inner_product,
+                reference=_ip.inner_product_reference)
+
+
+def inner_product(x, w, fuse: str = "none"):
+    """(M, K) @ (K, N), float32 sum, epilogue ``none``/``relu``/``gelu``,
+    output in x.dtype (see kernels/inner_product.py)."""
+    return resolve("inner_product", x.device)(x, w, fuse=fuse)
+
+
+register_kernel("gelu_2d", cuda=_gelu.gelu_2d,
+                reference=_gelu.gelu_2d_reference)
+
+
+def gelu(x):
+    """tanh-GELU of any shape, blocked (coalesced) walk."""
+    return _gelu.gelu_layout(x, _gelu.blocked_tile,
+                             resolve("gelu_2d", x.device))
+
+
+def gelu_naive(x):
+    """tanh-GELU of any shape, naive (strided) walk; equal to
+    :func:`gelu` bit for bit."""
+    return _gelu.gelu_layout(x, _gelu.naive_tile,
+                             resolve("gelu_2d", x.device))
+
+
+register_kernel("conv2d_direct", cuda=_conv.conv2d_direct,
+                reference=_conv.conv2d_direct_reference)
+
+
+def conv2d(x, w):
+    """Direct convolution, NHWC x HWIO, stride 1, SAME (see
+    kernels/conv_direct.py for the padding split)."""
+    return resolve("conv2d_direct", x.device)(x, w)
+
+
+register_kernel("winograd_elementwise_stage",
+                cuda=_wino.winograd_elementwise_stage,
+                reference=_wino.winograd_elementwise_stage_reference)
+
+
+def winograd_elementwise_stage(v, u):
+    """(16, T, Cin) @ (16, Cin, Cout) -> float32 (16, T, Cout)."""
+    return resolve("winograd_elementwise_stage", v.device)(v, u)
+
+
+def conv2d_winograd(x, w):
+    """Winograd F(2x2, 3x3) convolution, stride 1, SAME: float32
+    transforms around the elementwise stage; output in x.dtype."""
+    return _wino.conv2d_winograd(
+        x, w, stage=resolve("winograd_elementwise_stage", x.device))

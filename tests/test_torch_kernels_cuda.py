@@ -414,3 +414,174 @@ def test_mla_verify_kernel_rejects_bad_inputs(card):
         pa.mla_paged_attention_verify(ql, qr, c, r, bt, pos, scale=0.1,
                                       c_scale=torch.ones(1, device=card),
                                       r_scale=torch.ones(1, device=card))
+
+
+# --------------------------------------------------------------------------
+# The paper's primitives: inner product, GELU, direct conv, Winograd stage
+# (csrc/inner_product.cu, gelu.cu, conv_direct.cu, winograd_stage.cu) and
+# the FMA-chain probe (csrc/fma_probe.cu).  Tolerances:
+# launch/primitives.py::tolerance (derived in PERF.md, PR 14).
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import conv_direct as conv_mod       # noqa: E402
+from repro_torch.kernels import conv_winograd as wino_mod     # noqa: E402
+from repro_torch.kernels import gelu as gelu_mod              # noqa: E402
+from repro_torch.kernels import inner_product as ip_mod       # noqa: E402
+from repro_torch.kernels import ref as prim_ref               # noqa: E402
+from repro_torch.launch.primitives import tolerance           # noqa: E402
+
+_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _normal(rng, shape, dev, dtype, scale=1.0):
+    a = rng.standard_normal(shape, dtype=np.float32) * scale
+    return torch.from_numpy(a).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("fuse", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("m,k,n", [
+    (256, 384, 512),          # the reference test's shape
+    (1, 1, 1),                # K = 1, one output
+    (129, 1, 257),            # K = 1, ragged M and N
+    (131, 77, 133),           # no dimension a multiple of any tile
+    (300, 1000, 5),           # thin N, K not a multiple of the K step
+    (256, 5120, 384),         # a slice of qwen3-14b's gate projection
+])
+def test_inner_product_kernel_matches_plain(card, dt, fuse, m, k, n):
+    dtype = _DT[dt]
+    rng = np.random.default_rng(m * 7 + k + n)
+    x, w = _normal(rng, (m, k), card, dtype), _normal(rng, (k, n), card,
+                                                      dtype)
+    before = ip_mod.inner_product.launches
+    out = ip_mod.inner_product(x, w, fuse=fuse)
+    want = ip_mod.inner_product_reference(x, w, fuse=fuse)
+    want32 = ip_mod.inner_product_reference(x.float(), w.float(), fuse=fuse)
+    torch.cuda.synchronize()
+    assert ip_mod.inner_product.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    dname = str(dtype).split(".")[-1]
+    torch.testing.assert_close(out.float(), want.float(),
+                               **tolerance("sum", dname, k))
+    torch.testing.assert_close(out.float(), want32,
+                               **tolerance("sum", dname, k, vs="plain_f32"))
+
+
+def test_inner_product_kernel_rejects_bad_inputs(card):
+    x = torch.ones((4, 3), device=card)
+    with pytest.raises(ValueError, match="multiply"):
+        ip_mod.inner_product(x, torch.ones((4, 3), device=card))
+    with pytest.raises(ValueError, match="fuse"):
+        ip_mod.inner_product(x, torch.ones((3, 2), device=card), fuse="tanh")
+    with pytest.raises(ValueError, match="dtype"):
+        ip_mod.inner_product(x.half(), torch.ones((3, 2), device=card).half())
+    with pytest.raises(ValueError, match="CUDA"):
+        ip_mod.inner_product(x.cpu(), torch.ones((3, 2)))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(256, 128), (512, 384), (8, 1024, 256),
+                                   (1, 1), (1000, 3), (7, 9, 13),
+                                   (256, 227, 227, 3)])
+def test_gelu_kernel_layouts_match_plain_and_each_other(card, dt, shape):
+    dtype = _DT[dt]
+    dname = str(dtype).split(".")[-1]
+    x = _normal(np.random.default_rng(len(shape)), shape, card, dtype, 2.0)
+    before = gelu_mod.gelu_2d.launches
+    blocked = gelu_mod.gelu_blocked(x)
+    naive = gelu_mod.gelu_naive(x)
+    torch.cuda.synchronize()
+    assert gelu_mod.gelu_2d.launches == before + 2
+    assert torch.equal(blocked, naive)               # bit for bit
+    torch.testing.assert_close(blocked.float(), prim_ref.gelu(x).float(),
+                               **tolerance("elementwise", dname))
+    torch.testing.assert_close(blocked.float(), prim_ref.gelu(x.float()),
+                               **tolerance("elementwise", dname,
+                                           vs="plain_f32"))
+
+
+@pytest.mark.parametrize("to", [8, 128])
+def test_gelu_kernel_on_padded_channels(card, to):
+    x = _normal(np.random.default_rng(to), (4, 31, 29, 3), card,
+                torch.bfloat16, 2.0)
+    padded = gelu_mod.pad_channels(x, to)
+    out = gelu_mod.gelu_blocked(padded)
+    torch.testing.assert_close(out.float(), prim_ref.gelu(padded).float(),
+                               **tolerance("elementwise", "bfloat16"))
+    assert bool((out[..., 3:] == 0).all())           # gelu(0) = 0
+
+
+@pytest.mark.parametrize("block", [(256, 128), (1024, 8), (3, 5), (64, 40)])
+def test_gelu_2d_any_tile(card, block):
+    x = _normal(np.random.default_rng(3), (333, 200), card, torch.float32)
+    out = gelu_mod.gelu_2d(x, block=block)
+    torch.testing.assert_close(out, prim_ref.gelu(x),
+                               **tolerance("elementwise", "float32"))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,kw", [
+    (1, 8, 8, 32, 128, 3, 3),       # the reference tests' shapes
+    (1, 12, 12, 64, 128, 3, 3),
+    (4, 28, 28, 128, 128, 3, 3),    # the reference benchmark's
+    (2, 7, 5, 3, 17, 3, 3),         # C = 3, odd H / W, ragged Cout
+    (2, 6, 9, 5, 7, 2, 2),          # even kernel: the Pallas pad split
+    (1, 5, 4, 8, 9, 1, 5),
+])
+def test_conv_direct_kernel_matches_plain(card, dt, n, h, w, cin, cout, kh,
+                                          kw):
+    dtype = _DT[dt]
+    dname = str(dtype).split(".")[-1]
+    rng = np.random.default_rng(n + h + cin)
+    x = _normal(rng, (n, h, w, cin), card, dtype)
+    wt = _normal(rng, (kh, kw, cin, cout), card, dtype, 0.1)
+    before = conv_mod.conv2d_direct.launches
+    out = conv_mod.conv2d_direct(x, wt)
+    want = conv_mod.conv2d_direct_reference(x, wt)
+    want32 = conv_mod.conv2d_direct_reference(x.float(), wt.float())
+    torch.cuda.synchronize()
+    assert conv_mod.conv2d_direct.launches == before + 1
+    k = kh * kw * cin
+    torch.testing.assert_close(out.float(), want.float(),
+                               **tolerance("sum", dname, k, 0.1))
+    torch.testing.assert_close(out.float(), want32,
+                               **tolerance("sum", dname, k, 0.1,
+                                           vs="plain_f32"))
+
+
+@pytest.mark.parametrize("p,t,cin,cout", [(16, 196, 128, 128),
+                                          (16, 1, 1, 1), (16, 37, 3, 130),
+                                          (3, 300, 65, 9)])
+def test_winograd_stage_kernel_matches_plain(card, p, t, cin, cout):
+    rng = np.random.default_rng(t + cin)
+    v = _normal(rng, (p, t, cin), card, torch.float32)
+    u = _normal(rng, (p, cin, cout), card, torch.float32)
+    before = wino_mod.winograd_elementwise_stage.launches
+    out = wino_mod.winograd_elementwise_stage(v, u)
+    torch.cuda.synchronize()
+    assert wino_mod.winograd_elementwise_stage.launches == before + 1
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(
+        out, wino_mod.winograd_elementwise_stage_reference(v, u),
+        **tolerance("sum", "float32", cin))
+
+
+@pytest.mark.parametrize("hw", [8, 10, 7, 13])
+def test_conv_winograd_with_kernel_matches_direct(card, hw):
+    rng = np.random.default_rng(hw)
+    x = _normal(rng, (2, hw, hw + 1, 32), card, torch.float32)
+    w = _normal(rng, (3, 3, 32, 128), card, torch.float32, 0.1)
+    out = wino_mod.conv2d_winograd(x, w)
+    torch.testing.assert_close(out, prim_ref.conv2d_winograd(x, w),
+                               atol=16 * tolerance("sum", "float32", 32,
+                                                   0.3)["atol"],
+                               rtol=2.0 ** -20)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.testing.assert_close(out, prim_ref.conv2d(x, w), rtol=2e-3,
+                               atol=5e-3)
+
+
+def test_fma_probe_measures_a_plausible_float32_rate(card):
+    from repro_torch.core.roofline import microbench
+    flops = microbench.measure_peak_flops(card, iters=4096, repeats=2)
+    assert 1e12 < flops < 1.2 * 132 * 128 * 2 * 2.0e9     # under any clock
