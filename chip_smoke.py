@@ -27,6 +27,14 @@ Phases, in order; any failure exits non-zero:
    bit); then the study at card shapes with the four kernels' launch
    counts zeroed before and read after, every row held against its plain
    version and within 105% of the measured roof;
+   b. the LayerNorm, average-pooling (blocked and naive) and flash-
+   attention kernels held against their plain versions at the reference
+   benchmarks' shapes and at edge shapes (LayerNorm: D 1 to 16384, R 1 to
+   8192, a row misaligned by one element; pooling: odd H / W, C 3 to
+   130, windows 2 to 4, blocked equal to naive bit for bit; flash: S 1 to
+   1000, Sq != Sk both ways, causal and not, G 1 / 5 / 8, hd 64 / 128),
+   then the study's layernorm, pooling and attention sections at card
+   shapes, counted and placed on the roof the same way;
 5. engine phases, one per path, random weights from generators seeded 0;
    every request must finish, each path's kernel launch counts (zeroed
    just before the run, read just after) must match its step counts, and
@@ -810,7 +818,8 @@ def primitives_phase(torch, np, card):
     """The paper's primitive study (PR 14): the measured roofline beside
     the data sheet, the four kernels held at reference and edge shapes,
     then launch/primitives.py's study at card shapes, counted.  Returns
-    the kernels-line entries of the four kernels."""
+    the kernels-line entries of the four kernels and the measured
+    roof."""
     from repro_torch.core.roofline import microbench
     from repro_torch.kernels import conv_direct as cd
     from repro_torch.kernels import conv_winograd as cw
@@ -846,7 +855,8 @@ def primitives_phase(torch, np, card):
     for c in counters.values():
         c.launches = 0                           # counts start here
     study = primitives.Study(torch.device("cuda"), roof)
-    study.run("card")
+    for section in ("microbench", "inner_product", "gelu", "conv"):
+        study.run("card", section)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}  # read here
     t2 = time.perf_counter()
@@ -870,6 +880,169 @@ def primitives_phase(torch, np, card):
         ops_ms = r.char["W_flops"] / PEAK[r.dtype] * 1e3
         bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
         src, rep = PRIM_SOURCES[k]
+        print(f"[kernel] {k} ({row_name}): kernel {r.seconds * 1e3:.4f} ms, "
+              f"plain {r.plain_s * 1e3:.4f} ms, library "
+              f"{r.library_s * 1e3:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}; data sheet), {r.util_roof * 100:.1f}% of the "
+              f"measured roof")
+        entries.append(dict(
+            name=k, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/{rep}", launches=launches[k],
+            max_abs_err=r.max_abs_err, ms=r.seconds * 1e3,
+            plain_ms=r.plain_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=r.library_s * 1e3))
+    del study, rows
+    torch.cuda.empty_cache()
+    return entries, roof
+
+
+# LayerNorm, pooling and flash attention (PR 15): the study row that
+# stands for each kernel in the kernels line, its source and the Pallas
+# call it replaces
+NPA_KERNELS = {
+    "layernorm": ("layernorm.f32_d768", "layernorm.cu", "layernorm.py:37"),
+    "avg_pool_blocked": ("pool.avg_blocked_nhwc", "avgpool.cu",
+                         "avgpool.py:37"),
+    "avg_pool_naive": ("pool.avg_naive_nchw.kernel", "avgpool.cu",
+                       "avgpool.py:65"),
+    "flash_attention": ("flash_attention.q14_s8192", "flash_attention.cu",
+                        "flash_attention.py:78"),
+}
+# flash hold cases: (B, H, KV, Sq, Sk, hd) — the reference tests' largest
+# case, S = 1, G = 1, G = 5, Sq < Sk, Sq > Sk (G 1 to 8, hd 64 and 128)
+FLASH_CASES = ((2, 8, 1, 512, 512, 64), (1, 5, 1, 1, 1, 128),
+               (2, 4, 4, 100, 100, 64), (1, 10, 2, 1000, 1000, 128),
+               (1, 8, 1, 100, 1000, 64), (1, 8, 8, 1000, 100, 128))
+
+
+def norm_pool_attention_holds(torch, np):
+    """The LayerNorm, pooling and flash kernels against their plain
+    versions on the card at the reference benchmarks' shapes and at edge
+    shapes (the card shapes are held inside the study); tolerances from
+    launch/primitives.py."""
+    from repro_torch.kernels import avgpool as pm
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.kernels import layernorm as lnm
+    from repro_torch.launch.primitives import tolerance
+    rng = np.random.default_rng(15)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def g(shape, name, scale=1.0):
+        a = rng.standard_normal(shape, dtype="float32") * scale
+        return torch.from_numpy(a).to("cuda", dts[name])
+    tally = {}
+    for name in dts:
+        tol = tolerance("norm", name)
+        tol32 = tolerance("norm", name, vs="plain_f32")
+        # edges, the reference shape (8192, 4096), and rows that start 4
+        # (2) bytes past a 16-byte boundary (offset -1)
+        cases = [(r, d) for d in (1, 5, 768, 4097, 16384)
+                 for r in (1, 3, 8192)] + [(8192, 4096), (-1, 4097)]
+        for r, d in cases:
+            if r < 0:
+                r = 3
+                x = g((r * d + 1,), name, 3.0)[1:].view(r, d)
+            else:
+                x = g((r, d), name, 3.0)
+            s, b = g((d,), "float32"), g((d,), "float32")
+            prim_hold(torch, tally, f"layernorm {name}",
+                      f"layernorm {name} {r}x{d} at {x.data_ptr() % 16}",
+                      lnm.layernorm(x, s, b),
+                      [(lnm.layernorm_reference(x, s, b), tol),
+                       (lnm.layernorm_reference(x.float(), s, b), tol32)])
+            del x
+        for shape in ((8, 64, 64, 128), (2, 7, 9, 3), (3, 15, 13, 64),
+                      (1, 11, 17, 130)):
+            for win in (2, 3, 4):
+                x = g(shape, name)
+                label = f"avg_pool {name} {shape} window {win}"
+                blocked = pm.avg_pool_blocked(x, window=win)
+                naive = pm.avg_pool_naive(x, window=win)
+                for key, out in (("avg_pool_blocked", blocked),
+                                 ("avg_pool_naive", naive)):
+                    prim_hold(torch, tally, f"{key} {name}", label, out,
+                              [(pm.avg_pool_reference(x, window=win),
+                                tolerance("sum", name, win * win)),
+                               (pm.avg_pool_reference(x.float(), window=win),
+                                tolerance("sum", name, win * win,
+                                          vs="plain_f32"))])
+                if not torch.equal(blocked, naive):
+                    fail(f"{label}: blocked and naive walks differ")
+        for b, h, kv, sq, sk, hd in FLASH_CASES:
+            for causal in (True, False):
+                q, k, v = (g((b, sq, h, hd), name), g((b, sk, kv, hd), name),
+                           g((b, sk, kv, hd), name))
+                heads = [t.transpose(1, 2) for t in (q, k, v)]
+                prim_hold(torch, tally, f"flash_attention {name}",
+                          f"flash_attention {name} B{b} H{h} KV{kv} Sq{sq} "
+                          f"Sk{sk} hd{hd} causal={causal}",
+                          fam.flash_attention(*heads, causal=causal),
+                          [(fam.flash_attention_reference(
+                              *heads, causal=causal),
+                            tolerance("attention", name)),
+                           (fam.flash_attention_reference(
+                               *(t.float() for t in heads), causal=causal),
+                            tolerance("attention", name, vs="plain_f32"))])
+    for key, (n, worst) in sorted(tally.items()):
+        print(f"[prim] {key}: {n} checks at the reference and edge shapes "
+              f"passed; worst error {worst:.3f} of its tolerance")
+
+
+def norm_pool_attention_phase(torch, np, card, roof):
+    """LayerNorm, pooling and flash attention (PR 15): the four kernels
+    held at reference and edge shapes, then the study's layernorm,
+    pooling and attention sections at card shapes with the kernels'
+    launch counts zeroed before and read after.  Returns the kernels-line
+    entries of the four kernels."""
+    from repro_torch.core import analysis
+    from repro_torch.kernels import avgpool as pm
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.kernels import layernorm as lnm
+    from repro_torch.launch import primitives
+    t0 = time.perf_counter()
+    norm_pool_attention_holds(torch, np)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counters = {"layernorm": lnm.layernorm,
+                "avg_pool_blocked": pm.avg_pool_blocked,
+                "avg_pool_naive": pm.avg_pool_nchw,   # the naive walk's
+                "flash_attention": fam.flash_attention}
+    for c in counters.values():
+        c.launches = 0                           # counts start here
+    study = primitives.Study(torch.device("cuda"), roof)
+    for section in ("layernorm", "pooling", "attention"):
+        study.run("card", section)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}  # read here
+    t2 = time.perf_counter()
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"the study at card shapes never launched {k}")
+    for r in study.rows:
+        if r.util_roof > MAX_UTIL_ROOF:
+            fail(f"{r.name}: {r.util_roof * 100:.1f}% of the measured roof "
+                 "(a counting or timing error)")
+    rows = {r.name: r for r in study.rows}
+    print(f"[prim] {card}: layernorm / pooling / attention at card shapes: "
+          f"{len(study.rows)} rows, every util_roof <= "
+          f"{MAX_UTIL_ROOF * 100:.0f}% (max "
+          f"{max(r.util_roof for r in study.rows) * 100:.1f}%); launches "
+          f"{launches}; holds {t1 - t0:.1f} s, study {t2 - t1:.1f} s")
+    naive, blocked = rows["pool.avg_naive_nchw"], rows["pool.avg_blocked_nhwc"]
+    print(f"[prim] {card}: naive pooling op {naive.seconds * 1e3:.4f} ms = "
+          f"NCHW kernel {rows['pool.avg_naive_nchw.kernel'].seconds * 1e3:.4f}"
+          f" ms + transposes; blocked {blocked.seconds * 1e3:.4f} ms")
+    flash = rows["flash_attention.q14_s8192"]
+    model_ai = analysis.flash_attention_ai(8192)
+    print(f"[prim] {card}: flash q14 S 8192 intensity {flash.char['AI']:.1f} "
+          f"FLOP/B; the reference's substitution model "
+          f"(flash_attention_ai, bq 128) {model_ai:.2f}")
+    entries = []
+    for k, (row_name, src, rep) in NPA_KERNELS.items():
+        r = rows[row_name]
+        bytes_ms = r.char["Q_bytes"] / HBM_BW * 1e3
+        ops_ms = r.char["W_flops"] / PEAK[r.dtype] * 1e3
+        bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
         print(f"[kernel] {k} ({row_name}): kernel {r.seconds * 1e3:.4f} ms, "
               f"plain {r.plain_s * 1e3:.4f} ms, library "
               f"{r.library_s * 1e3:.4f} ms, bound {bound_ms:.5f} ms "
@@ -1313,7 +1486,8 @@ def main() -> int:
     verify_entry = gqa_verify_kernel_phase(torch, np, pa)
     mla_entry = mla_kernel_phase(torch, np, pa)
     mla_verify_entry = mla_verify_kernel_phase(torch, np, pa)
-    prim_entries = primitives_phase(torch, np, card)
+    prim_entries, roof = primitives_phase(torch, np, card)
+    npa_entries = norm_pool_attention_phase(torch, np, card, roof)
 
     params = make_params(torch, qwen)
     entry["launches"] = engine_phase(
@@ -1358,7 +1532,8 @@ def main() -> int:
         logits_atol=SPEC_LOGITS_ATOL)
     del params, draft
     print(json.dumps({"kernels": [entry, verify_entry, mla_entry,
-                                  mla_verify_entry, *prim_entries]}))
+                                  mla_verify_entry, *prim_entries,
+                                  *npa_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,20 @@ HLO, so it counts them from the shapes in the same conventions:
   (the paper's section 3.5 caveat);
 * tanh-GELU ``0.5 x (1 + tanh(c (x + 0.044715 x^3)))`` is 9 FLOPs per
   element, one of them the tanh;
+* a sum of n values is n FLOPs (the walk counts a reduction's operand
+  elements); a max reducer is 0 FLOPs, so max pooling's work is 0 (the
+  paper's section 3.5 point: comparisons are invisible to the counter);
 * Q is the least traffic of one call: each input read once and each
   output written once, in its own dtype.  A fused epilogue adds no
   traffic (``Q_unfused`` adds the activation's extra write and read, the
   paper's fusion-traffic point); a pad reads its input and its scalar
   padding value and writes the padded array.
+
+Attention is the exception to "held against the walk": the reference's
+``ref.mha`` materialises the scores, so its walk counts work and traffic
+no flash kernel does.  :func:`attention_character` counts the useful
+work (the two products over the visible (query, key) pairs) and the
+least traffic (q, k, v read and o written once) instead.
 
 ``Q_bytes`` is what a kernel's bound divides by the card's bandwidth.
 Each function returns the keys of ``kernel_character``: ``W_flops``,
@@ -110,3 +119,82 @@ def winograd_conv_character(n: int, h: int, w: int, cin: int, cout: int,
             + 2 * 4 * (8 + 4) * t * cout)    # Y = A^T M A
     return character(work, conv2d_character(n, h, w, cin, cout, 3, 3,
                                             dtype)["Q_bytes"])
+
+
+def layernorm_character(rows: int, d: int, dtype: str = "float32",
+                        param_dtype: str = "float32") -> Dict[str, float]:
+    """Two-pass LayerNorm over (rows, d) as the reference program counts
+    it: per element the mean's add, the deviation's subtract (twice: for
+    the variance and again for the output, as XLA recomputes it), the
+    square, the variance's add, the multiply by rsqrt(var + eps), the
+    scale and the bias (8); per row the mean's 1 / d (twice, recomputed
+    with the deviation), the variance's 1 / d, the + eps and the rsqrt, one
+    transcendental (5).  Q: x read and y written once, scale and bias
+    (``param_dtype``) read once.  (The reference's XLA:CPU program also
+    sums a row of more than 32 values in windows of 32 and materialises
+    its intermediates; neither belongs to the kernel's work or traffic.)
+    """
+    isz, psz = itemsize(dtype), itemsize(param_dtype)
+    return character(8 * rows * d + 5 * rows,
+                     2 * rows * d * isz + 2 * d * psz, rows)
+
+
+def _pool_sizes(n: int, h: int, w: int, c: int, window: int):
+    return n * h * w * c, n * (h // window) * (w // window) * c
+
+
+def avg_pool_character(n: int, h: int, w: int, c: int, window: int = 2,
+                       dtype: str = "float32") -> Dict[str, float]:
+    """NHWC average pooling, stride = window: the window sums count the
+    input's elements (the reducer's operand, cropped rows included, as the
+    walk counts them), plus one divide per output.  Q: the input read and
+    the output written once; ``Q_unfused`` is the reference program's
+    float32 traffic (the scalar init value read, the window sums written
+    and read back by the divide)."""
+    isz = itemsize(dtype)
+    elems, outs = _pool_sizes(n, h, w, c, window)
+    return character(elems + outs, (elems + outs) * isz,
+                     Q_unfused=(elems + outs) * isz + 4 + 2 * outs * 4)
+
+
+def max_pool_character(n: int, h: int, w: int, c: int, window: int = 2,
+                       dtype: str = "float32") -> Dict[str, float]:
+    """NHWC max pooling, stride = window: 0 FLOPs (a max reducer), the
+    same least traffic as average pooling; ``Q_unfused`` adds the scalar
+    init value the reference program reads."""
+    isz = itemsize(dtype)
+    elems, outs = _pool_sizes(n, h, w, c, window)
+    return character(0, (elems + outs) * isz,
+                     Q_unfused=(elems + outs) * isz + isz)
+
+
+def visible_keys(sq: int, sk: int, causal: bool = True) -> int:
+    """Sum over the sq queries of the keys each sees: all sk, or under
+    the top-left causal mask min(i + 1, sk) for query i."""
+    if not causal:
+        return sq * sk
+    full = max(0, sq - sk)                   # queries that see every key
+    part = sq - full                          # query i < sk sees i + 1
+    return part * (part + 1) // 2 + full * sk
+
+
+def attention_character(b: int, h: int, kv: int, sq: int, sk: int,
+                        hd: int, dtype: str = "bfloat16",
+                        causal: bool = True) -> Dict[str, float]:
+    """GQA attention, its useful work: q k^T and p v over the visible
+    (query, key) pairs, 4 hd FLOPs each, and one exp per pair
+    (transcendentals); Q: q and o (B, H, Sq, hd), k and v (B, KV, Sk, hd),
+    each moved once."""
+    pairs = b * h * visible_keys(sq, sk, causal)
+    isz = itemsize(dtype)
+    return character(4 * hd * pairs,
+                     (2 * b * h * sq + 2 * b * kv * sk) * hd * isz, pairs)
+
+
+def flash_attention_ai(seq_len: int, bq: int = 128) -> float:
+    """The JAX package's substitution model of its flash kernel's
+    intensity (``core/roofline/substitute.py``): per head 2 hd S^2 causal
+    FLOPs over q and o written once plus K / V re-read for each of the
+    S / bq query blocks, 2 S hd (1 + S / bq) bf16 bytes: S / (2 (1 +
+    S / bq)) FLOP a byte."""
+    return seq_len / (2.0 * (1.0 + seq_len / bq))

@@ -12,11 +12,15 @@ from typing import Callable, Dict
 
 import torch
 
+from . import avgpool as _pool
 from . import conv_direct as _conv
 from . import conv_winograd as _wino
+from . import flash_attention as _flash
 from . import gelu as _gelu
 from . import inner_product as _ip
+from . import layernorm as _ln
 from . import paged_attention as _paged
+from . import ref as _ref
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 
@@ -152,3 +156,55 @@ def conv2d_winograd(x, w):
     transforms around the elementwise stage; output in x.dtype."""
     return _wino.conv2d_winograd(
         x, w, stage=resolve("winograd_elementwise_stage", x.device))
+
+
+register_kernel("layernorm", cuda=_ln.layernorm,
+                reference=_ln.layernorm_reference)
+
+
+def layernorm(x, scale, bias, eps: float = _ln.EPS):
+    """Row LayerNorm over the last axis (two-pass float32 mean and
+    variance), scale and bias (D,) read as float32, output in x.dtype."""
+    return resolve("layernorm", x.device)(x, scale, bias, eps=eps)
+
+
+register_kernel("avg_pool_blocked", cuda=_pool.avg_pool_blocked,
+                reference=_pool.avg_pool_reference)
+
+
+def avg_pool(x, window: int = 2):
+    """NHWC average pooling, stride = window, blocked walk (channels
+    contiguous); H and W cropped to whole windows."""
+    return resolve("avg_pool_blocked", x.device)(x, window=window)
+
+
+register_kernel("avg_pool_naive", cuda=_pool.avg_pool_nchw,
+                reference=_pool.avg_pool_nchw_reference)
+
+
+def avg_pool_naive(x, window: int = 2):
+    """NHWC average pooling through the naive walk: transpose to NCHW, the
+    NCHW kernel (W innermost), transpose back; equal to :func:`avg_pool`
+    bit for bit."""
+    return _pool.naive_walk(x, window, resolve("avg_pool_naive", x.device))
+
+
+def max_pool(x, window: int = 2, stride: int = 2):
+    """NHWC max pooling, plain PyTorch on every device, as the JAX
+    package routes it to its jnp reference: its work is comparisons, which
+    the FLOP count does not see (the paper's section 3.5 caveat)."""
+    return _ref.max_pool(x, window, stride)
+
+
+register_kernel("flash_attention", cuda=_flash.flash_attention,
+                reference=_flash.flash_attention_reference)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Flash attention in model layout: q (B, Sq, H, hd), k / v (B, Sk,
+    KV, hd); returns (B, Sq, H, hd).  The kernel reads the transposed views
+    through their strides (no copies)."""
+    o = resolve("flash_attention", q.device)(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal)
+    return o.transpose(1, 2)

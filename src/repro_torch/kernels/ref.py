@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the paper's primitives (the JAX package's
 ``kernels/ref.py``, op for op): tanh-GELU, inner product, direct
-convolution and Winograd F(2x2, 3x3).
+convolution, Winograd F(2x2, 3x3), LayerNorm, average and max pooling,
+and GQA attention (``mha``).
 
 Sums are float32 and the result is cast to the input dtype at the end,
 as the jnp code does.  On the card, float32 matmuls and convolutions are
@@ -131,3 +132,72 @@ def conv2d_winograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     u = winograd_kernel_transform(w).reshape(16, cin, -1)
     m = winograd_stage(v, u)
     return winograd_output_transform(m, n, nh, nw, h, wd).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# LayerNorm, pooling and attention
+# --------------------------------------------------------------------------
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Row LayerNorm over the last axis in float32, two passes: the mean,
+    then the mean of the squared deviations (not E[x^2] - mu^2)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
+    return y.to(x.dtype)
+
+
+def _windows(x: torch.Tensor, window: int, stride: int):
+    """The (i, j) offsets of a VALID window walk over NHWC ``x``, each with
+    the strided view of x that offset reads for every output pixel."""
+    n, h, w, c = x.shape
+    ho, wo = (h - window) // stride + 1, (w - window) // stride + 1
+    for i in range(window):
+        for j in range(window):
+            yield x[:, i: i + stride * (ho - 1) + 1: stride,
+                    j: j + stride * (wo - 1) + 1: stride, :]
+
+
+def avg_pool(x: torch.Tensor, window: int = 2, stride: int = 2
+             ) -> torch.Tensor:
+    """NHWC average pooling (no padding): the float32 window sum, taken
+    row by row from 0, divided by window^2."""
+    acc = None
+    for part in _windows(x, window, stride):
+        acc = part.float() if acc is None else acc + part.float()
+    return (acc / (window * window)).to(x.dtype)
+
+
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2
+             ) -> torch.Tensor:
+    """NHWC max pooling from -inf (float32) or the dtype's lowest value:
+    zero FLOPs under the paper's section 3.5 accounting."""
+    init = (-math.inf if x.dtype == torch.float32
+            else torch.finfo(x.dtype).min)
+    acc = None
+    for part in _windows(x, window, stride):
+        acc = torch.maximum(torch.full_like(part, init) if acc is None
+                            else acc, part)
+    return acc
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, hd), k / v (B, Sk, KV, hd); GQA by head grouping.
+    Scores in float32 from products in the input dtype, the top-left
+    causal mask (query i sees keys 0..i), softmax, and p cast to v's dtype
+    before the PV product."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
+    if causal:
+        sk = k.shape[1]
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v)
+    return o.reshape(b, sq, h, hd)

@@ -1,23 +1,32 @@
 """The paper's primitive studies on the card: the measured roofline
 (sections 2.1-2.2), the inner product (fig. 6), GELU's layout and padding
-study (fig. 8, section 3.4) and the convolutions (figs. 3-5), each run
-through its hand-written CUDA kernel and placed on the measured roof.
+study (fig. 8, section 3.4), the convolutions (figs. 3-5), LayerNorm (the
+appendix), average pooling blocked vs naive and max pooling's FLOP
+blindness (fig. 7, sections 3.3 and 3.5), and causal GQA flash attention
+(the language models' hot spot), each run through its hand-written CUDA
+kernel and placed on the measured roof.
 
-    python -m repro_torch.launch.primitives [--only microbench|inner_product|gelu|conv]
+    python -m repro_torch.launch.primitives [--only SECTION]
         [--shapes smoke|reference|card] [--device cuda|cpu]
+
+SECTION: microbench, inner_product, gelu, conv, layernorm, pooling,
+attention (default: all).
 
 Prints the ``name,us_per_call,derived`` rows of the JAX package's
 benchmarks and an ASCII roofline per section.  Each row times three
 things on the same inputs: the kernel (through ``kernels.ops``), its
 plain PyTorch version, and the library call that computes the same
 function (``torch.matmul``, cuDNN's ``F.conv2d`` with TF32 off,
-``F.gelu(approximate="tanh")``, ``torch.bmm``).  ``derived`` carries the
-analytic W and Q (``core/analysis.py``), the intensity, the bound (the
-larger of W over the measured roof of the row's dtype and Q over the
-measured bandwidth), ``util_peak`` (achieved FLOP/s over the highest
-measured peak) and ``util_roof`` (bound over time: the share of the
-measured roof).  Every row also holds the kernel against its plain
-version (``tolerance``) and raises on a mismatch.
+``F.gelu(approximate="tanh")``, ``torch.bmm``, ``F.layer_norm``,
+``F.avg_pool2d`` / ``F.max_pool2d`` on the channels-last view,
+``F.scaled_dot_product_attention``).  Max pooling has no kernel: as in
+the JAX package its op is the plain version on every device.
+``derived`` carries the analytic W and Q (``core/analysis.py``), the
+intensity, the bound (the larger of W over the measured roof of the
+row's dtype and Q over the measured bandwidth), ``util_peak`` (achieved
+FLOP/s over the highest measured peak) and ``util_roof`` (bound over
+time: the share of the measured roof).  Every row also holds the kernel
+against its plain version (``tolerance``) and raises on a mismatch.
 
 Shape sets: ``smoke`` (tiny, for the CPU tests), ``reference`` (the JAX
 benchmarks' shapes; they fit in the H100's 50 MB L2), ``card`` (the
@@ -45,18 +54,25 @@ from ..core.roofline import microbench
 from ..core.roofline.microbench import L2_BYTES, MicrobenchResult
 from ..core.roofline.report import ascii_roofline, fmt_si
 from ..device import resolve_device, synchronize
+from ..kernels import avgpool as pool_mod
 from ..kernels import conv_direct as conv_mod
 from ..kernels import conv_winograd as wino_mod
+from ..kernels import flash_attention as fa_mod
 from ..kernels import gelu as gelu_mod
 from ..kernels import inner_product as ip_mod
+from ..kernels import layernorm as ln_mod
 from ..kernels import ops, ref
 
-SECTIONS = ("microbench", "inner_product", "gelu", "conv")
+SECTIONS = ("microbench", "inner_product", "gelu", "conv", "layernorm",
+            "pooling", "attention")
 
 # Each shape set: inner-product cells (name, M, K, N, dtype, fuse); the
 # flat GELU cell (shape, dtype), run blocked and naive; the C = 3 cell
 # (NHWC shape, dtype), run natural / padded to 8 / padded to 128; the
-# convolution cell (N, H = W, Cin, Cout, dtype), 3x3, direct and Winograd.
+# convolution cell (N, H = W, Cin, Cout, dtype), 3x3, direct and Winograd;
+# LayerNorm cells (name, R, D, dtype); pooling cells (row-name prefix,
+# NHWC shape, dtype, window), each run blocked, naive and max; attention
+# cells (name, B, H, KV, Sq, Sk, hd, dtype, causal) in model layout.
 SHAPES = {
     "smoke": dict(
         inner_product=[("inner_product.f32", 96, 80, 72, "float32", "none"),
@@ -64,7 +80,14 @@ SHAPES = {
                         "gelu")],
         gelu_flat=((64, 256), "float32"),
         gelu_c3=((2, 9, 9, 3), "float32"),
-        conv=(2, 7, 16, 24, "float32")),
+        conv=(2, 7, 16, 24, "float32"),
+        layernorm=[("layernorm.f32_d40", 24, 40, "float32")],
+        pooling=[("pool", (2, 9, 10, 16), "float32", 2),
+                 ("pool.w3", (1, 7, 8, 3), "float32", 3)],
+        attention=[("flash_attention.f32_s80", 1, 4, 2, 80, 80, 64,
+                    "float32", True),
+                   ("flash_attention.f32_sq48_sk96_full", 1, 2, 1, 48, 96,
+                    64, "float32", False)]),
     "reference": dict(
         inner_product=[("inner_product.f32", 1024, 1024, 1024, "float32",
                         "none"),
@@ -72,7 +95,13 @@ SHAPES = {
                         "float32", "gelu")],
         gelu_flat=((4096, 512), "float32"),
         gelu_c3=((256, 227, 3), "float32"),
-        conv=(4, 28, 128, 128, "float32")),
+        conv=(4, 28, 128, 128, "float32"),
+        layernorm=[("layernorm.f32_d768", 8192, 768, "float32"),
+                   ("layernorm.f32_d4096", 8192, 4096, "float32")],
+        pooling=[("pool", (8, 64, 64, 128), "float32", 2)],
+        # tests/test_kernels.py's largest flash case
+        attention=[("flash_attention.f32_s512", 2, 8, 1, 512, 512, 64,
+                    "float32", True)]),
     "card": dict(
         inner_product=[
             ("inner_product.bf16_square", 8192, 8192, 8192, "bfloat16",
@@ -88,7 +117,21 @@ SHAPES = {
         # the paper's [256, 3, 227, 227] in NHWC
         gelu_c3=((256, 227, 227, 3), "bfloat16"),
         # ResNet-50 conv3_x at batch 256
-        conv=(256, 28, 128, 128, "bfloat16")),
+        conv=(256, 28, 128, 128, "bfloat16"),
+        # the reference's width at 16x the rows; a 4096 model width
+        layernorm=[("layernorm.f32_d768", 131072, 768, "float32"),
+                   ("layernorm.f32_d4096", 32768, 4096, "float32"),
+                   ("layernorm.bf16_d4096", 65536, 4096, "bfloat16")],
+        # ResNet-50's stem output at batch 256; the reference bench's
+        # shape at batch 128
+        pooling=[("pool", (256, 112, 112, 64), "bfloat16", 2),
+                 ("pool.f32", (128, 64, 64, 128), "float32", 2)],
+        # qwen3-14b (H 40, KV 8) over one 8192-token prompt; qwen3-0.6b
+        # (H 16, KV 8) over 8 prompts of 2048
+        attention=[("flash_attention.q14_s8192", 1, 40, 8, 8192, 8192,
+                    128, "bfloat16", True),
+                   ("flash_attention.q06_b8_s2048", 8, 16, 8, 2048, 2048,
+                    128, "bfloat16", True)]),
 }
 CONV_W_SCALE = 0.05            # the reference benchmark's weight scale
 TIME_BUDGET_S = 0.2            # device time per measurement, about
@@ -114,12 +157,25 @@ def tolerance(kind: str, dtype: str, k: int = 1, scale: float = 1.0,
     ulps).
     ``kind`` "elementwise": GELU, the same float32 formula; atol = rtol =
     2^-22.
+    ``kind`` "norm" (PR 15, stated before its first chip run): LayerNorm's
+    mean and variance are float32 sums of D terms in another order (the
+    kernel: D / threads terms a thread, then a shuffle tree; PyTorch: a
+    cascade), and rsqrtf is within 2 ulps, so an output of size |y| ~ 5
+    (4.5 standard deviations) differs by well under (D / threads + 40)
+    2^-24 of the row's scale: atol = rtol = 2^-15.
+    ``kind`` "attention" (PR 15, stated before its first chip run): the
+    scores are float32 dots of hd products in another order (about
+    sqrt(hd) 2^-24 at unit-normal inputs, which exp turns into the same
+    relative error of p), and the online softmax rescales acc and l once
+    per slab of 64 keys (Sk / 64 roundings: 128 at Sk 8192, 2^-17); o is
+    a p-weighted mean of values |v| < 5: atol = rtol = 2^-15.
     bf16 outputs are rounded once (half an ulp, 2^-8 relative at most):
     against the plain version run in float32 (``vs`` "plain_f32") rtol
     2^-8; against the plain bf16 output, whose rounding may land one ulp
     away, rtol 2^-7."""
-    atol = 4 * k * 2.0 ** -24 * scale if kind == "sum" else 2.0 ** -22
-    rtol = 2.0 ** -22
+    atol = {"sum": 4 * k * 2.0 ** -24 * scale, "elementwise": 2.0 ** -22,
+            "norm": 2.0 ** -15, "attention": 2.0 ** -15}[kind]
+    rtol = atol if kind in ("norm", "attention") else 2.0 ** -22
     if dtype == "bfloat16":
         rtol = 2.0 ** -8 if vs == "plain_f32" else 2.0 ** -7
     return dict(atol=atol, rtol=rtol)
@@ -459,6 +515,145 @@ class Study:
         self.plot("convolution roofline (paper fig. 3)", rows)
         return rows
 
+    def layernorm(self, cells) -> List[Row]:
+        rows = []
+        for name, r, d, dtype in cells:
+            x = self.tensor((r, d), dtype, 3.0)
+            s = self.tensor((d,), "float32")
+            b = self.tensor((d,), "float32")
+            char = analysis.layernorm_character(r, d, dtype)
+
+            # F.layer_norm on the card wants its weights in x's dtype: the
+            # bf16 row's library call gets them cast once, outside its time
+            gx, cx = s.to(x.dtype), b.to(x.dtype)
+
+            def lib(t, g, c, d=d, gx=gx, cx=cx):
+                return F.layer_norm(t, (d,), gx, cx, eps=ln_mod.EPS)
+            row = self.row(
+                name, dtype, char, (x, s, b), ops.layernorm,
+                ln_mod.layernorm_reference, lib, tolerance("norm", dtype),
+                lambda t, g, c: ln_mod.layernorm_reference(t.float(), g, c),
+                tolerance("norm", dtype, vs="plain_f32"))
+            rows.append(row)
+            self.emit(f"{name}.bound", 0.0,
+                      f"AI={char['AI']:.3f};"
+                      f"memory_bound={row.bound_by == 'bytes'}")
+            del x, s, b
+        self.plot("LayerNorm roofline (paper appendix)", rows)
+        return rows
+
+    def pooling(self, cells) -> List[Row]:
+        rows = []
+        for prefix, shape, dtype, win in cells:
+            n, h, w, c = shape
+            x = self.tensor(shape, dtype)
+            avg = analysis.avg_pool_character(n, h, w, c, win, dtype)
+            tol = tolerance("sum", dtype, win * win)
+            tol32 = tolerance("sum", dtype, win * win, vs="plain_f32")
+
+            def plain(t, win=win):
+                return pool_mod.avg_pool_reference(t, window=win)
+
+            def f32(t, win=win):
+                return pool_mod.avg_pool_reference(t.float(), window=win)
+
+            def lib(t, win=win):                # channels-last view
+                return F.avg_pool2d(t.permute(0, 3, 1, 2),
+                                    win).permute(0, 2, 3, 1)
+            blocked = self.row(f"{prefix}.avg_blocked_nhwc", dtype, avg,
+                               (x,), lambda t, win=win: ops.avg_pool(t, win),
+                               plain, lib, tol, f32, tol32)
+            naive = self.row(f"{prefix}.avg_naive_nchw", dtype, avg, (x,),
+                             lambda t, win=win: ops.avg_pool_naive(t, win),
+                             plain, lib, tol, f32, tol32)
+            # the NCHW kernel alone, on the input the naive op transposes
+            hc, wc = h // win * win, w // win * win
+            xc = x[:, :hc, :wc].permute(0, 3, 1, 2).contiguous()
+            nchw = ops.resolve("avg_pool_naive", xc.device)
+            kernel = self.row(
+                f"{prefix}.avg_naive_nchw.kernel", dtype,
+                analysis.avg_pool_character(n, hc, wc, c, win, dtype), (xc,),
+                lambda t, win=win: nchw(t, window=win),
+                lambda t, win=win: pool_mod.avg_pool_nchw_reference(
+                    t, window=win),
+                lambda t, win=win: F.avg_pool2d(t, win), tol,
+                lambda t, win=win: pool_mod.avg_pool_nchw_reference(
+                    t.float(), window=win), tol32)
+            del xc
+            same = torch.equal(ops.avg_pool(x, win),
+                               ops.avg_pool_naive(x, win))
+            self.emit(f"{prefix}.layouts_bitwise_equal", 0.0,
+                      f"equal={same}")
+            if not same:
+                raise AssertionError(f"{prefix}: average pooling's blocked "
+                                     "and naive walks differ")
+            mx = self.row(
+                f"{prefix}.max", dtype,
+                analysis.max_pool_character(n, h, w, c, win, dtype), (x,),
+                lambda t, win=win: ops.max_pool(t, win, win),
+                lambda t, win=win: ref.max_pool(t, win, win),
+                lambda t, win=win: F.max_pool2d(t.permute(0, 3, 1, 2),
+                                                win).permute(0, 2, 3, 1),
+                dict(atol=0.0, rtol=0.0))
+            self.emit(f"{prefix}.ai_parity", 0.0,
+                      f"AI_blocked={blocked.char['AI']:.3f};"
+                      f"AI_naive={naive.char['AI']:.3f}")
+            self.emit(f"{prefix}.utilization_gap", 0.0,
+                      f"blocked_over_naive="
+                      f"{naive.seconds / blocked.seconds:.2f}x;"
+                      f"blocked_over_naive_kernel="
+                      f"{kernel.seconds / blocked.seconds:.2f}x;"
+                      f"transposes_share="
+                      f"{1 - kernel.seconds / naive.seconds:.3f}")
+            self.emit(f"{prefix}.flop_blindness", 0.0,
+                      f"W_max={mx.char['W_flops']:.3g};"
+                      f"W_avg={blocked.char['W_flops']:.3g};"
+                      f"Q_max={mx.char['Q_bytes']:.3g};"
+                      f"Q_avg={blocked.char['Q_bytes']:.3g};"
+                      f"t_max_over_t_avg={mx.seconds / blocked.seconds:.2f};"
+                      f"plain_max_over_plain_avg="
+                      f"{mx.plain_s / blocked.plain_s:.2f};"
+                      f"library_max_over_library_avg="
+                      f"{mx.library_s / blocked.library_s:.2f}")
+            rows += [blocked, naive, kernel, mx]
+            del x
+        # max pooling's W = 0 puts it off a log-scale plot
+        self.plot("average pooling roofline (paper fig. 7)",
+                  [r for r in rows if r.char["W_flops"] > 0])
+        return rows
+
+    def attention(self, cells) -> List[Row]:
+        rows = []
+        for name, b, h, kv, sq, sk, hd, dtype, causal in cells:
+            q = self.tensor((b, sq, h, hd), dtype)
+            k = self.tensor((b, sk, kv, hd), dtype)
+            v = self.tensor((b, sk, kv, hd), dtype)
+            char = analysis.attention_character(b, h, kv, sq, sk, hd, dtype,
+                                                causal)
+
+            def plain(q, k, v, causal=causal):      # model layout
+                return fa_mod.flash_attention_reference(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal).transpose(1, 2)
+
+            def lib(q, k, v, causal=causal):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=causal, enable_gqa=True).transpose(1, 2)
+            rows.append(self.row(
+                name, dtype, char, (q, k, v),
+                lambda q, k, v, causal=causal: ops.flash_attention(
+                    q, k, v, causal),
+                plain, lib, tolerance("attention", dtype),
+                lambda q, k, v: plain(q.float(), k.float(), v.float()),
+                tolerance("attention", dtype, vs="plain_f32")))
+            self.emit(f"{name}.substitution_model", 0.0,
+                      f"AI_row={char['AI']:.2f};AI_flash_model="
+                      f"{analysis.flash_attention_ai(sk):.2f};bq=128")
+            del q, k, v
+        self.plot("flash attention roofline", rows)
+        return rows
+
     def run(self, shapes: str, only: Optional[str] = None) -> List[Row]:
         cells = SHAPES[shapes]
         todo = SECTIONS if only is None else (only,)
@@ -470,6 +665,12 @@ class Study:
             self.gelu(cells["gelu_flat"], cells["gelu_c3"])
         if "conv" in todo:
             self.conv(cells["conv"])
+        if "layernorm" in todo:
+            self.layernorm(cells["layernorm"])
+        if "pooling" in todo:
+            self.pooling(cells["pooling"])
+        if "attention" in todo:
+            self.attention(cells["attention"])
         return self.rows
 
 

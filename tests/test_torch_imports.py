@@ -45,14 +45,15 @@ def test_port_imports_without_jax_or_reference():
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "leaked: []" in out.stdout
-    assert int(out.stdout.split()[0]) >= 54      # every submodule walked
+    assert int(out.stdout.split()[0]) >= 57      # every submodule walked
     walked = out.stdout.splitlines()[1].split()
     for mod in ("models.mla", "models.moe", "kernels.paged_attention",
                 "serve.spec", "serve.proposer", "kernels.ref",
                 "kernels.inner_product", "kernels.gelu",
                 "kernels.conv_direct", "kernels.conv_winograd",
                 "core.roofline.microbench", "core.roofline.report",
-                "core.analysis", "launch.primitives"):
+                "core.analysis", "launch.primitives", "kernels.layernorm",
+                "kernels.avgpool", "kernels.flash_attention"):
         assert f"repro_torch.{mod}" in walked
 
 

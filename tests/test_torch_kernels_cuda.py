@@ -585,3 +585,190 @@ def test_fma_probe_measures_a_plausible_float32_rate(card):
     from repro_torch.core.roofline import microbench
     flops = microbench.measure_peak_flops(card, iters=4096, repeats=2)
     assert 1e12 < flops < 1.2 * 132 * 128 * 2 * 2.0e9     # under any clock
+
+
+# --------------------------------------------------------------------------
+# LayerNorm, average pooling (blocked and naive) and flash attention
+# (csrc/layernorm.cu, avgpool.cu, flash_attention.cu).  Tolerances:
+# launch/primitives.py::tolerance (stated in PERF.md, PR 15).
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import avgpool as pool_mod                # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod          # noqa: E402
+from repro_torch.kernels import layernorm as ln_mod                # noqa: E402
+from repro_torch.kernels import ops as prim_ops                    # noqa: E402
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("r,d", [(256, 128), (512, 768), (128, 1024),
+                                 (1, 1), (3, 5), (8192, 768), (3, 4097),
+                                 (8, 16384), (64, 1025), (5, 33)])
+def test_layernorm_kernel_matches_plain(card, dt, r, d):
+    dtype = _DT[dt]
+    dname = str(dtype).split(".")[-1]
+    rng = np.random.default_rng(r + d)
+    x = _normal(rng, (r, d), card, dtype, 3.0)
+    s = _normal(rng, (d,), card, torch.float32)
+    b = _normal(rng, (d,), card, torch.float32)
+    before = ln_mod.layernorm.launches
+    out = ln_mod.layernorm(x, s, b)
+    torch.cuda.synchronize()
+    assert ln_mod.layernorm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(),
+                               ln_mod.layernorm_reference(x, s, b).float(),
+                               **tolerance("norm", dname))
+    torch.testing.assert_close(out.float(),
+                               ln_mod.layernorm_reference(x.float(), s, b),
+                               **tolerance("norm", dname, vs="plain_f32"))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_layernorm_kernel_on_misaligned_rows(card, dt, offset):
+    """Rows that start off a 16-byte boundary take the scalar head."""
+    dtype = _DT[dt]
+    dname = str(dtype).split(".")[-1]
+    rng = np.random.default_rng(offset)
+    x = _normal(rng, (7 * 301 + offset,), card, dtype)[offset:].view(7, 301)
+    s = _normal(rng, (301,), card, torch.float32)
+    b = _normal(rng, (301,), card, torch.float32)
+    torch.testing.assert_close(ln_mod.layernorm(x, s, b).float(),
+                               ln_mod.layernorm_reference(x, s, b).float(),
+                               **tolerance("norm", dname))
+
+
+def test_layernorm_kernel_keeps_leading_dims_and_bf16_params(card):
+    rng = np.random.default_rng(0)
+    x = _normal(rng, (2, 3, 64), card, torch.float32)
+    s = _normal(rng, (64,), card, torch.bfloat16)
+    b = _normal(rng, (64,), card, torch.bfloat16)
+    out = prim_ops.layernorm(x, s, b)
+    assert out.shape == (2, 3, 64)
+    torch.testing.assert_close(out, ln_mod.layernorm_reference(x, s, b),
+                               **tolerance("norm", "float32"))
+
+
+def test_layernorm_kernel_rejects_bad_inputs(card):
+    x = torch.ones((4, 8), device=card)
+    with pytest.raises(ValueError, match="scale"):
+        ln_mod.layernorm(x, torch.ones(7, device=card),
+                         torch.ones(8, device=card))
+    with pytest.raises(ValueError, match="dtype"):
+        ln_mod.layernorm(x.half(), torch.ones(8, device=card),
+                         torch.ones(8, device=card))
+    with pytest.raises(ValueError, match="D <="):
+        ln_mod.layernorm(torch.ones((1, ln_mod.MAX_D + 1), device=card),
+                         torch.ones(ln_mod.MAX_D + 1, device=card),
+                         torch.ones(ln_mod.MAX_D + 1, device=card))
+    with pytest.raises(ValueError, match="CUDA"):
+        ln_mod.layernorm(x.cpu(), torch.ones(8), torch.ones(8))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,window", [
+    ((2, 16, 16, 128), 2), ((2, 16, 16, 256), 4),   # the reference tests'
+    ((8, 64, 64, 128), 2),                          # the reference bench's
+    ((2, 7, 9, 3), 2), ((3, 15, 13, 64), 3), ((1, 11, 17, 130), 4),
+    ((1, 3, 3, 5), 1), ((2, 5, 4, 8), 5),          # window 1; past W
+])
+def test_avg_pool_kernels_match_plain_and_each_other(card, dt, shape,
+                                                     window):
+    dtype = _DT[dt]
+    dname = str(dtype).split(".")[-1]
+    x = _normal(np.random.default_rng(shape[-1]), shape, card, dtype)
+    before = (pool_mod.avg_pool_blocked.launches,
+              pool_mod.avg_pool_nchw.launches)
+    blocked = pool_mod.avg_pool_blocked(x, window=window)
+    naive = pool_mod.avg_pool_naive(x, window=window)
+    torch.cuda.synchronize()
+    n, h, w, c = shape
+    want_shape = (n, h // window, w // window, c)
+    assert blocked.shape == naive.shape == want_shape
+    launched = int(blocked.numel() > 0)
+    assert (pool_mod.avg_pool_blocked.launches,
+            pool_mod.avg_pool_nchw.launches) == (before[0] + launched,
+                                                 before[1] + launched)
+    assert torch.equal(blocked, naive)               # bit for bit
+    want = pool_mod.avg_pool_reference(x, window=window)
+    torch.testing.assert_close(blocked.float(), want.float(),
+                               **tolerance("sum", dname, window * window))
+    torch.testing.assert_close(
+        blocked.float(),
+        pool_mod.avg_pool_reference(x.float(), window=window),
+        **tolerance("sum", dname, window * window, vs="plain_f32"))
+
+
+def test_avg_pool_nchw_kernel_alone_matches_plain(card):
+    xc = _normal(np.random.default_rng(1), (4, 32, 30, 28), card,
+                 torch.float32)
+    torch.testing.assert_close(
+        pool_mod.avg_pool_nchw(xc, window=2),
+        pool_mod.avg_pool_nchw_reference(xc, window=2),
+        **tolerance("sum", "float32", 4))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd", [
+    (2, 4, 2, 256, 256, 64), (2, 4, 4, 256, 256, 128),   # the reference
+    (2, 8, 1, 512, 512, 64), (2, 4, 2, 128, 256, 64),    # tests' shapes
+    (1, 5, 1, 1, 1, 128), (2, 4, 4, 100, 100, 64),
+    (1, 10, 2, 1000, 1000, 128), (1, 8, 1, 100, 1000, 64),
+    (1, 8, 8, 1000, 100, 128), (3, 6, 2, 65, 63, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(card, dt, b, h, kv, sq, sk, hd,
+                                              causal):
+    dtype = _DT[dt]
+    dname = str(dtype).split(".")[-1]
+    rng = np.random.default_rng(sq + sk + hd)
+    q = _normal(rng, (b, h, sq, hd), card, dtype)
+    k = _normal(rng, (b, kv, sk, hd), card, dtype)
+    v = _normal(rng, (b, kv, sk, hd), card, dtype)
+    before = fa_mod.flash_attention.launches
+    out = fa_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_mod.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(
+        out.float(),
+        fa_mod.flash_attention_reference(q, k, v, causal=causal).float(),
+        **tolerance("attention", dname))
+    torch.testing.assert_close(
+        out.float(),
+        fa_mod.flash_attention_reference(q.float(), k.float(), v.float(),
+                                         causal=causal),
+        **tolerance("attention", dname, vs="plain_f32"))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_model_layout_reads_strides(card, dt):
+    """ops.flash_attention hands the kernel transposed views: no copies,
+    and the output comes back in model layout."""
+    dtype = _DT[dt]
+    rng = np.random.default_rng(7)
+    q = _normal(rng, (2, 130, 8, 64), card, dtype)
+    k = _normal(rng, (2, 130, 2, 64), card, dtype)
+    v = _normal(rng, (2, 130, 2, 64), card, dtype)
+    out = prim_ops.flash_attention(q, k, v)
+    assert out.shape == q.shape and out.is_contiguous()
+    want = fa_mod.flash_attention_reference(
+        q.transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2)).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **tolerance("attention",
+                                           str(dtype).split(".")[-1]))
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(card):
+    q = torch.ones((1, 4, 8, 64), device=card)
+    k = torch.ones((1, 2, 8, 64), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_mod.flash_attention(q[..., :32], k[..., :32], k[..., :32])
+    k3 = torch.ones((1, 3, 8, 64), device=card)      # 4 heads, 3 KV heads
+    with pytest.raises(ValueError, match="incompatible"):
+        fa_mod.flash_attention(q, k3, k3)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_mod.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention(q.cpu(), k.cpu(), k.cpu())

@@ -25,6 +25,7 @@ import repro.kernels.conv_direct as jconv
 import repro.kernels.conv_winograd as jwino
 import repro.kernels.gelu as jgelu
 import repro.kernels.inner_product as jip
+import repro.kernels.layernorm as jln
 
 from repro_torch import bridge
 from repro_torch.core import analysis
@@ -333,6 +334,24 @@ def test_smoke_study_rows_match_reference_outputs(smoke_study):
             lambda v, u: jwino.winograd_elementwise_stage(v, u,
                                                           interpret=True),
         "conv.winograd": jops.conv2d_winograd,
+        "layernorm.f32_d40":
+            lambda x, s, b: jln.layernorm(x, s, b, interpret=True),
+        "pool.avg_blocked_nhwc": lambda t: jops.avg_pool(t, window=2),
+        "pool.avg_naive_nchw": lambda t: jops.avg_pool_naive(t, window=2),
+        "pool.avg_naive_nchw.kernel":
+            lambda t: jref.avg_pool(t.transpose(0, 2, 3, 1), 2,
+                                    2).transpose(0, 3, 1, 2),
+        "pool.max": lambda t: jops.max_pool(t, window=2, stride=2),
+        "pool.w3.avg_blocked_nhwc": lambda t: jops.avg_pool(t, window=3),
+        "pool.w3.avg_naive_nchw": lambda t: jops.avg_pool_naive(t, window=3),
+        "pool.w3.avg_naive_nchw.kernel":
+            lambda t: jref.avg_pool(t.transpose(0, 2, 3, 1), 3,
+                                    3).transpose(0, 3, 1, 2),
+        "pool.w3.max": lambda t: jops.max_pool(t, window=3, stride=3),
+        "flash_attention.f32_s80":
+            lambda q, k, v: jops.flash_attention(q, k, v, causal=True),
+        "flash_attention.f32_sq48_sk96_full":
+            lambda q, k, v: jops.flash_attention(q, k, v, causal=False),
     }
     assert set(smoke_study.outputs) == set(jfn)
     for name, fn in jfn.items():
@@ -364,10 +383,32 @@ def test_smoke_study_counts_match_cost_walk(smoke_study):
         elif name == "conv.winograd_stage":
             _same(r.char, kernel_character(
                 lambda v, u: jnp.einsum("ptc,pcf->ptf", v, u), *args))
+        elif name.startswith("layernorm"):
+            got = kernel_character(jref.layernorm, *args)
+            # the walk adds XLA:CPU's partial sums of a row over 32 values
+            # (D 40: two windows, in both row sums): 4 per row
+            rows_ = args[0].shape[0]
+            _same(dict(r.char, W_flops=r.char["W_flops"] + 4 * rows_), got,
+                  ("W_flops", "transcendentals"))
+        elif name.startswith("pool"):
+            win = 3 if ".w3." in name else 2
+            x = args[0]
+            if name.endswith(".kernel"):                    # NCHW input
+                x = x.transpose(0, 2, 3, 1)
+            fn = jref.max_pool if name.endswith(".max") else jref.avg_pool
+            got = kernel_character(lambda t: fn(t, win, win), x)
+            _same(dict(r.char, Q_bytes=r.char["Q_unfused"]), got)
+        elif name.startswith("flash_attention"):
+            # useful work only (ref.mha's walk materialises the scores)
+            b, sq, h, hd = args[0].shape
+            sk = args[1].shape[1]
+            causal = not name.endswith("_full")
+            pairs = sum(min(i + 1, sk) if causal else sk for i in range(sq))
+            assert r.char["W_flops"] == 4 * hd * b * h * pairs
         else:
             continue
         checked += 1
-    assert checked == 9
+    assert checked == 20
 
 
 def test_smoke_study_places_rows_on_the_roof(smoke_study):
