@@ -14,9 +14,12 @@ Phases, in order; any failure exits non-zero:
    tables, idle all-trash lanes, soft cap; for the verify kernels also
    draft chains crossing a page, drafts on trash margin entries, chains
    past the table, and T = 1 against the decode kernel), with the
-   tolerance stated; times (CUDA events) of the kernel, the plain version
-   and one PyTorch library call computing the same function, beside the
-   bound;
+   tolerance stated; the ``pipeline="double"`` ring kernels
+   (``paged_attention_ring``, ``mla_paged_attention_ring``) on every one
+   of those cases, equal to the off kernel bit for bit (torch.equal) and
+   within the same tolerance of the plain version; times (CUDA events) of
+   the kernel, the ring kernel, the plain version and one PyTorch library
+   call computing the same function, beside the bound;
 4. the paper's primitive study (launch/primitives.py): the microbench
    (FMA-chain probe, matmul peaks per dtype, copy / fill / triad
    bandwidth, warm vs cold) printed beside the data sheet; the
@@ -53,8 +56,14 @@ Phases, in order; any failure exits non-zero:
       draft's steps); tok/s beside the plain engine's on the same prompts;
    every speculative stream must equal the plain engine's greedy stream,
    or differ first where the plain engine's top-2 logit margin is under
-   the logits tolerance;
-6. one JSON line listing every ported kernel, then the device line last.
+   the logits tolerance; after each of a-e, the same prompts and weights
+   served again with ``EngineConfig.pipeline`` off, double, double, off
+   (deterministic algorithms on for the MoE model): every run's greedy
+   streams byte-equal, each double run launching the ring kernels
+   layers x steps times and no off paged kernel, each off run the
+   reverse, tok/s of every run printed (one call, so comparable);
+6. one JSON line listing the 14 ported kernels, then the card line, then
+   the device line last.
 
 Nothing here imports JAX or the JAX package.
 """
@@ -236,19 +245,26 @@ def bound_of(bytes_ms: float, ops_ms: float):
 
 
 def kernel_phase(torch, np, pa):
-    """paged_attention (CUDA) vs paged_attention_reference on the card."""
+    """paged_attention (CUDA) vs paged_attention_reference on the card, and
+    the GQA ring kernel at decode (T = 1) against both.  Returns the
+    kernels-line entry and the ring's error and time at the same inputs."""
     import torch.nn.functional as F
     rng = np.random.default_rng(0)
-    errs = {}
+    errs, ring_errs = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for kind in ("ragged", "full", "trash", "soft_cap"):
             c = attention_case(torch, np, rng, dtype, kind)
+            args = (c["q"], c["k"], c["v"], c["bt"], c["pos"])
+            kw = dict(scale=c["scale"], soft_cap=c["soft_cap"])
             errs[(name, kind)] = hold(
                 torch, f"paged_attention {name:8s} {kind:8s}",
-                pa.paged_attention, pa.paged_attention_reference,
-                (c["q"], c["k"], c["v"], c["bt"], c["pos"]), 3,
-                dict(scale=c["scale"], soft_cap=c["soft_cap"]), name)
+                pa.paged_attention, pa.paged_attention_reference, args, 3,
+                kw, name)
+            ring_errs[(name, kind)] = ring_hold(
+                torch, f"paged_attention_ring (decode) {name:8s} {kind:8s}",
+                pa.paged_attention_ring, pa.paged_attention,
+                pa.paged_attention_reference, args, 3, kw, name)
     # times at the main path's shapes and types: bf16, engine-like ragged
     # contexts; 16 copies (~135 MB) rotate so every call reads cold HBM
     c = attention_case(torch, np, rng, torch.bfloat16, "ragged")
@@ -256,7 +272,9 @@ def kernel_phase(torch, np, pa):
                c["pos"]) for _ in range(16)]
     kw = dict(scale=c["scale"], soft_cap=0.0)
     n = pa.paged_attention.launches
+    n_ring = pa.paged_attention_ring.launches
     kernel_ms = device_ms(lambda *a: pa.paged_attention(*a, **kw), copies)
+    ring_ms = device_ms(lambda *a: pa.paged_attention_ring(*a, **kw), copies)
     plain_ms = device_ms(lambda *a: pa.paged_attention_reference(*a, **kw),
                          copies)
     S = N_BLOCKS * PAGE
@@ -279,6 +297,7 @@ def kernel_phase(torch, np, pa):
         fail(f"library yardstick disagrees with the plain version: {lib_err}")
     library_ms = device_ms(library, copies)
     pa.paged_attention.launches = n        # comparison launches do not count
+    pa.paged_attention_ring.launches = n_ring
     isize = c["q"].element_size()
     bytes_ms, ops_ms = paged_bound(c["pos"], 1, S, KV * HD * 2 * isize,
                                    KV * G * 4 * HD,
@@ -286,15 +305,17 @@ def kernel_phase(torch, np, pa):
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
     print(f"[kernel] paged_attention bf16 B={SLOTS} KV={KV} G={G} hd={HD} "
           f"page={PAGE} lines={int((c['pos'].long() + 1).sum())}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"(gather + SDPA) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}; operations {ops_ms:.5f} ms at bf16 peak)")
-    return dict(name="paged_attention", route="cuda",
-                source="src/repro_torch/csrc/paged_attention.cu",
-                replaces="src/repro/kernels/paged_attention.py:345",
-                max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+          f"kernel {kernel_ms:.4f} ms, ring kernel {ring_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library (gather + SDPA) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}; operations {ops_ms:.5f} ms "
+          f"at bf16 peak)")
+    return (dict(name="paged_attention", route="cuda",
+                 source="src/repro_torch/csrc/paged_attention.cu",
+                 replaces="src/repro/kernels/paged_attention.py:345",
+                 max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms),
+            dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms))
 
 
 def mla_case(torch, np, rng, dtype, kind: str):
@@ -340,16 +361,23 @@ def mla_bound(q_lat, q_rope, pos, T: int, S: int):
 
 
 def mla_kernel_phase(torch, np, pa):
-    """mla_paged_attention (CUDA) vs mla_paged_attention_reference."""
+    """mla_paged_attention (CUDA) vs mla_paged_attention_reference, and the
+    MLA ring kernel at decode (T = 1) against both.  Returns the
+    kernels-line entry and the ring's error and time at the same inputs."""
     import torch.nn.functional as F
     rng = np.random.default_rng(2)
-    errs = {}
+    errs, ring_errs = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for kind in ("ragged", "edges", "trash", "small"):
             c = mla_case(torch, np, rng, dtype, kind)
             errs[(name, kind)] = hold(
                 torch, f"mla_paged_attention {name:8s} {kind:6s}",
+                pa.mla_paged_attention, pa.mla_paged_attention_reference,
+                c["args"], 4, dict(scale=c["scale"]), name)
+            ring_errs[(name, kind)] = ring_hold(
+                torch, f"mla_paged_attention_ring (decode) {name:8s} "
+                f"{kind:6s}", pa.mla_paged_attention_ring,
                 pa.mla_paged_attention, pa.mla_paged_attention_reference,
                 c["args"], 4, dict(scale=c["scale"]), name)
     # times at the main path's shapes and type: bf16, MLA_LENS; 64 copies
@@ -361,8 +389,11 @@ def mla_kernel_phase(torch, np, pa):
                pos) for _ in range(64)]
     kw = dict(scale=c["scale"])
     n = pa.mla_paged_attention.launches
+    n_ring = pa.mla_paged_attention_ring.launches
     kernel_ms = device_ms(lambda *a: pa.mla_paged_attention(*a, **kw),
                           copies)
+    ring_ms = device_ms(lambda *a: pa.mla_paged_attention_ring(*a, **kw),
+                        copies)
     plain_ms = device_ms(
         lambda *a: pa.mla_paged_attention_reference(*a, **kw), copies)
     B, S = SLOTS, MLA_BLOCKS * PAGE
@@ -388,20 +419,23 @@ def mla_kernel_phase(torch, np, pa):
              f"{lib_err}")
     library_ms = device_ms(library, copies)
     pa.mla_paged_attention.launches = n    # comparison launches do not count
+    pa.mla_paged_attention_ring.launches = n_ring
     bytes_ms, ops_ms = mla_bound(q_lat, q_rope, pos, 1, S)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
     print(f"[kernel] mla_paged_attention bf16 B={SLOTS} H={MLA_H} "
           f"r={MLA_R} dr={MLA_DR} page={PAGE} lines={sum(MLA_LENS)}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"kernel {kernel_ms:.4f} ms, ring kernel {ring_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library "
           f"(gather + SDPA) {library_ms:.4f} ms (max abs diff vs plain "
           f"{lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by}; bytes "
           f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms at bf16 peak)")
-    return dict(name="mla_paged_attention", route="cuda",
-                source="src/repro_torch/csrc/mla_paged_attention.cu",
-                replaces="src/repro/kernels/paged_attention.py:445",
-                max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+    return (dict(name="mla_paged_attention", route="cuda",
+                 source="src/repro_torch/csrc/mla_paged_attention.cu",
+                 replaces="src/repro/kernels/paged_attention.py:445",
+                 max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms),
+            dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms))
 
 
 def hold(torch, label: str, kernel, plain, args, n_float: int, kw,
@@ -429,6 +463,21 @@ def hold(torch, label: str, kernel, plain, args, n_float: int, kw,
     if not ok:
         fail(f"{label} disagrees with its plain version: max abs err {err}")
     return err
+
+
+def ring_hold(torch, label: str, ring, off, plain, args, n_float: int, kw,
+              name: str) -> float:
+    """One ring-kernel case: its output must equal the ``"off"`` kernel's
+    on the same inputs bit for bit (torch.equal), then hold against the
+    plain version as :func:`hold` does.  Returns that max abs error."""
+    got, want = ring(*args, **kw), off(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        d = float((got.float() - want.float()).abs().max())
+        fail(f"{label}: the ring kernel's output differs from the off "
+             f"kernel's (max abs diff {d:.3e}); they must be bit-identical")
+    print(f"[kernel] {label} equals the off kernel bit for bit")
+    return hold(torch, label, ring, plain, args, n_float, kw, name)
 
 
 def verify_tables(torch, np, rng, lens, T: int, page: int, nb: int):
@@ -483,7 +532,9 @@ def gqa_verify_case(torch, np, rng, dtype, kind: str):
 
 def gqa_verify_kernel_phase(torch, np, pa):
     """paged_attention_verify (CUDA) vs paged_attention_verify_reference
-    on the card, and at T = 1 against the decode kernel."""
+    on the card, at T = 1 against the decode kernel, and the GQA ring
+    kernel at verify shapes against both.  Returns the kernels-line entry
+    and the ring's time at the same inputs."""
     import torch.nn.functional as F
     rng = np.random.default_rng(3)
     errs = {}
@@ -496,6 +547,11 @@ def gqa_verify_kernel_phase(torch, np, pa):
                 torch, f"paged_attention_verify {name:8s} {kind:8s}",
                 pa.paged_attention_verify, pa.paged_attention_verify_reference,
                 c["args"], 3, c["kw"], name)
+            ring_hold(torch, f"paged_attention_ring (verify) {name:8s} "
+                      f"{kind:8s}", pa.paged_attention_ring,
+                      pa.paged_attention_verify,
+                      pa.paged_attention_verify_reference, c["args"], 3,
+                      c["kw"], name)
             if kind == "t1":                 # one token = one decode step
                 q, *rest = c["args"]
                 ver = pa.paged_attention_verify(q, *rest, **c["kw"])[:, 0]
@@ -517,8 +573,10 @@ def gqa_verify_kernel_phase(torch, np, pa):
               for _ in range(16)]
     kw = c["kw"]
     n = pa.paged_attention_verify.launches
+    n_ring = pa.paged_attention_ring.launches
     kernel_ms = device_ms(lambda *a: pa.paged_attention_verify(*a, **kw),
                           copies)
+    ring_ms = device_ms(lambda *a: pa.paged_attention_ring(*a, **kw), copies)
     plain_ms = device_ms(
         lambda *a: pa.paged_attention_verify_reference(*a, **kw), copies)
     B, S, H = SLOTS, V_BLOCKS * PAGE, KV * V_G
@@ -545,6 +603,7 @@ def gqa_verify_kernel_phase(torch, np, pa):
              f"version: {lib_err}")
     library_ms = device_ms(library, copies)
     pa.paged_attention_verify.launches = n  # comparison launches not counted
+    pa.paged_attention_ring.launches = n_ring
     isize = q.element_size()
     bytes_ms, ops_ms = paged_bound(pos, V_T, S, KV * HD * 2 * isize,
                                    KV * V_G * 4 * HD, 2 * q.numel() * isize,
@@ -553,16 +612,17 @@ def gqa_verify_kernel_phase(torch, np, pa):
     print(f"[kernel] paged_attention_verify bf16 B={SLOTS} T={V_T} KV={KV} "
           f"G={V_G} hd={HD} page={PAGE} "
           f"lines={int((pos.long() + V_T).sum())}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"kernel {kernel_ms:.4f} ms, ring kernel {ring_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library "
           f"(gather + SDPA) {library_ms:.4f} ms (max abs diff vs plain "
           f"{lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by}; bytes "
           f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms at bf16 peak)")
-    return dict(name="paged_attention_verify", route="cuda",
-                source="src/repro_torch/csrc/paged_attention_verify.cu",
-                replaces="src/repro/kernels/paged_attention.py:557",
-                max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+    return (dict(name="paged_attention_verify", route="cuda",
+                 source="src/repro_torch/csrc/paged_attention_verify.cu",
+                 replaces="src/repro/kernels/paged_attention.py:557",
+                 max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms), ring_ms)
 
 
 def mla_verify_case(torch, np, rng, dtype, kind: str):
@@ -593,8 +653,10 @@ def mla_verify_case(torch, np, rng, dtype, kind: str):
 
 
 def mla_verify_kernel_phase(torch, np, pa):
-    """mla_paged_attention_verify (CUDA) vs its plain version, and at
-    T = 1 against the MLA decode kernel."""
+    """mla_paged_attention_verify (CUDA) vs its plain version, at T = 1
+    against the MLA decode kernel, and the MLA ring kernel at verify
+    shapes against both.  Returns the kernels-line entry and the ring's
+    time at the same inputs."""
     import torch.nn.functional as F
     rng = np.random.default_rng(4)
     errs = {}
@@ -607,6 +669,11 @@ def mla_verify_kernel_phase(torch, np, pa):
                 pa.mla_paged_attention_verify,
                 pa.mla_paged_attention_verify_reference, c["args"], 4,
                 c["kw"], name)
+            ring_hold(torch, f"mla_paged_attention_ring (verify) {name:8s} "
+                      f"{kind:6s}", pa.mla_paged_attention_ring,
+                      pa.mla_paged_attention_verify,
+                      pa.mla_paged_attention_verify_reference, c["args"], 4,
+                      c["kw"], name)
             if kind == "t1":
                 ql, qr, *rest = c["args"]
                 ver = pa.mla_paged_attention_verify(ql, qr, *rest,
@@ -630,8 +697,11 @@ def mla_verify_kernel_phase(torch, np, pa):
                pos) for _ in range(64)]
     kw = c["kw"]
     n = pa.mla_paged_attention_verify.launches
+    n_ring = pa.mla_paged_attention_ring.launches
     kernel_ms = device_ms(
         lambda *a: pa.mla_paged_attention_verify(*a, **kw), copies)
+    ring_ms = device_ms(lambda *a: pa.mla_paged_attention_ring(*a, **kw),
+                        copies)
     plain_ms = device_ms(
         lambda *a: pa.mla_paged_attention_verify_reference(*a, **kw), copies)
     B, S = SLOTS, MLA_V_BLOCKS * PAGE
@@ -660,21 +730,23 @@ def mla_verify_kernel_phase(torch, np, pa):
              f"version: {lib_err}")
     library_ms = device_ms(library, copies)
     pa.mla_paged_attention_verify.launches = n
+    pa.mla_paged_attention_ring.launches = n_ring
     bytes_ms, ops_ms = mla_bound(q_lat, q_rope, pos, MLA_T, S)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
     print(f"[kernel] mla_paged_attention_verify bf16 B={SLOTS} T={MLA_T} "
           f"H={MLA_H} r={MLA_R} dr={MLA_DR} page={PAGE} "
           f"lines={int((pos.long() + MLA_T).sum())}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library (gather + SDPA) "
+          f"ring kernel {ring_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(gather + SDPA) "
           f"{library_ms:.4f} ms (max abs diff vs plain {lib_err:.3e}), "
           f"bound {bound_ms:.5f} ms ({bound_by}; bytes {bytes_ms:.5f} ms, "
           f"operations {ops_ms:.5f} ms at bf16 peak)")
-    return dict(name="mla_paged_attention_verify", route="cuda",
-                source="src/repro_torch/csrc/mla_paged_attention_verify.cu",
-                replaces="src/repro/kernels/paged_attention.py:660",
-                max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+    return (dict(name="mla_paged_attention_verify", route="cuda",
+                 source="src/repro_torch/csrc/mla_paged_attention_verify.cu",
+                 replaces="src/repro/kernels/paged_attention.py:660",
+                 max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms), ring_ms)
 
 
 # the paper's primitives (PR 14): the data-sheet values the measured
@@ -1088,12 +1160,13 @@ def decode_logits_check(torch, np, engine, ops, op, counter):
     with torch.no_grad():
         got = run()
         saved = ops.registered_kernels()[op]
-        ops.register_kernel(op, cuda=saved["cpu"], reference=saved["cpu"])
+        ops.register_kernel(op, cuda=saved["cpu"], reference=saved["cpu"],
+                            ring=saved.get("ring"))
         try:
             want = run()
         finally:
             ops.register_kernel(op, cuda=saved["cuda"],
-                                reference=saved["cpu"])
+                                reference=saved["cpu"], ring=saved.get("ring"))
     counter.launches = n
     rows = torch.as_tensor(slots, device="cuda")
     got, want = got[rows], want[rows]
@@ -1132,13 +1205,14 @@ def make_params(torch, cfg):
 
 
 def engine_phase(torch, np, card, cfg, params, *, max_len: int,
-                 new_tokens: int, op: str, counter, logits_atol: float
-                 ) -> int:
+                 new_tokens: int, op: str, counter, logits_atol: float):
     """The continuous-batching engine on ``cfg`` serves PROMPT_LENS; every
     request must finish, the path's kernel ``op`` (wrapper ``counter``)
     must launch once per layer and decode step in that run, and one
     decode step of a second batch must match the same step with the
-    plain attention.  Returns the launch count of the measured run."""
+    plain attention; then :func:`pipeline_runs` serves the same prompts
+    with ``pipeline`` off and double.  Returns the launch count of the
+    measured run and the ring launch counts of the first double run."""
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import now
     from repro_torch.serve import Engine, EngineConfig, GenerateConfig
@@ -1154,9 +1228,9 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     warm.run()
     del warm
 
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
     engine = Engine(cfg, params, ecfg)
-    reqs = [engine.submit(rng.integers(0, cfg.vocab_size, n), gen)
-            for n in PROMPT_LENS]
+    reqs = [engine.submit(p, gen) for p in prompts]
     counter.launches = 0                     # counts start here
     torch.cuda.synchronize()
     t0 = now()
@@ -1212,7 +1286,86 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
           f"{np.max(ttft) * 1e3:.2f} ms; ledger arithmetic intensity "
           f"{agg.arithmetic_intensity:.3f} FLOP/B; peak memory "
           f"{peak_gb:.2f} GB")
-    return launches
+    rings = pipeline_runs(
+        torch, card, cfg.name, cfg,
+        lambda pl: Engine(cfg, params, dataclasses.replace(ecfg, pipeline=pl)),
+        prompts, gen, lambda e: {op: e.decode_steps * cfg.n_layers})
+    return launches, rings
+
+
+# the off paged-attention kernels and the ring that runs each under
+# pipeline="double" (decode and verify share a ring)
+RING_OF = {"paged_attention": "paged_attention_ring",
+           "paged_attention_verify": "paged_attention_ring",
+           "mla_paged_attention": "mla_paged_attention_ring",
+           "mla_paged_attention_verify": "mla_paged_attention_ring"}
+PIPELINE_ORDER = ("off", "double", "double", "off")
+
+
+def pipeline_runs(torch, card, label, cfg, make, prompts, gen, want_off):
+    """Serve ``prompts`` with engines ``make(pipeline)`` of ``cfg``,
+    pipeline off and double in turns (PIPELINE_ORDER), so that the runs
+    differ by their attention kernels alone: for an MoE model with
+    deterministic algorithms on (its combine's ``index_add_`` otherwise
+    adds in atomic order; the dense path is deterministic as it is).
+    Every run's greedy streams must equal the first run's.  Each run zeroes every paged
+    kernel's launch count just before it and reads them just after: an off
+    run must launch ``want_off(engine)`` (off kernel name -> count) and no
+    ring, a double run the same counts on the rings (RING_OF) and no off
+    kernel.  Prints tok/s of every run (one call, one card: comparable);
+    returns the ring counts of the first double run."""
+    import warnings
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.obs.clock import now
+    names = sorted(set(RING_OF) | set(RING_OF.values()))
+    counters = {n: getattr(pa, n) for n in names}
+    first, rates, rings = None, [], None
+    moe = any(b.ffn == "moe" for b in cfg.block_pattern)
+    torch.use_deterministic_algorithms(moe, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            # cuBLAS on one stream is deterministic; its note says otherwise
+            warnings.filterwarnings(
+                "ignore", message="Deterministic behavior was enabled")
+            for pl in PIPELINE_ORDER:
+                engine = make(pl)
+                reqs = [engine.submit(p, gen) for p in prompts]
+                for c in counters.values():
+                    c.launches = 0               # counts start here
+                torch.cuda.synchronize()
+                t0 = now()
+                engine.run()
+                torch.cuda.synchronize()
+                wall = now() - t0
+                got = {n: c.launches for n, c in counters.items()}  # read
+                want = dict.fromkeys(names, 0)
+                for op, n in want_off(engine).items():
+                    want[RING_OF[op] if pl == "double" else op] += n
+                if got != want:
+                    fail(f"{label} pipeline={pl}: kernel launches {got}, "
+                         f"want {want}")
+                streams = [list(r.generated) for r in reqs]
+                if first is None:
+                    first = streams
+                    if any(r.finish_reason != "length" for r in reqs):
+                        fail(f"{label} pipeline={pl}: a request did not "
+                             "finish")
+                elif streams != first:
+                    fail(f"{label} pipeline={pl}: greedy streams differ from "
+                         "the first run's")
+                if pl == "double" and rings is None:
+                    rings = {n: got[n] for n in set(RING_OF.values())}
+                n_tok = sum(len(s) for s in streams)
+                rates.append(f"{pl} {n_tok / wall:.2f}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    mode = "deterministic algorithms" if moe else "default algorithms"
+    print(f"[pipeline] {label} {card}: tok/s {', '.join(rates)} (runs in "
+          f"this order, {mode}); greedy streams of all "
+          f"{len(PIPELINE_ORDER)} runs byte-equal; launches per double run "
+          f"{rings}, 0 off paged launches; per off run the same on the off "
+          "kernels, 0 ring launches")
+    return rings
 
 
 def pool_copies(kv):
@@ -1260,7 +1413,8 @@ def verify_logits_check(torch, np, engine, ops, op, counter, rng):
                                        pool_copies(kv), bt, feed, pos,
                                        page_size=PAGE).float()
         saved = ops.registered_kernels()[op]
-        ops.register_kernel(op, cuda=saved["cpu"], reference=saved["cpu"])
+        ops.register_kernel(op, cuda=saved["cpu"], reference=saved["cpu"],
+                            ring=saved.get("ring"))
         try:
             pools = pool_copies(kv)
             want = torch.stack([
@@ -1270,7 +1424,7 @@ def verify_logits_check(torch, np, engine, ops, op, counter, rng):
                 for t in range(T)], dim=1)
         finally:
             ops.register_kernel(op, cuda=saved["cuda"],
-                                reference=saved["cpu"])
+                                reference=saved["cpu"], ring=saved.get("ring"))
     counter.launches = n
     rows = torch.as_tensor(slots, device="cuda")
     got, want = got[rows], want[rows]
@@ -1292,8 +1446,10 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     differ where the plain engine's top-2 logit margin is under
     ``logits_atol``; one verify step of a second batch must match k+1
     sequential plain-attention decode steps within ``logits_atol``;
-    acceptance must reach ``min_accept`` when given.  Returns the verify
-    kernel's launch count of the measured run."""
+    acceptance must reach ``min_accept`` when given; then
+    :func:`pipeline_runs` serves the same prompts with ``pipeline`` off and
+    double.  Returns the verify kernel's launch count of the measured run
+    and the ring launch counts of the first double run."""
     from repro_torch.kernels import ops
     from repro_torch.models import decode_step_paged
     from repro_torch.obs.clock import now
@@ -1307,7 +1463,8 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
         def _decode_sample(self, bt, token, pos):
             logits = decode_step_paged(self.params, self.cfg, self._kv.pools,
                                        bt, token, pos,
-                                       page_size=self.ecfg.page_size)
+                                       page_size=self.ecfg.page_size,
+                                       pipeline=self.ecfg.pipeline)
             self.step_margin = top2_margin(logits)
             return sampling.sample_tokens(logits, self._seeds, self._steps,
                                           self._temps, self._top_ks,
@@ -1434,7 +1591,20 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
           f"{peak_gb:.2f} GB")
     if min_accept is not None and acc < min_accept:
         fail(f"{label}: acceptance rate {acc} < {min_accept}")
-    return v_launches
+
+    def want_off(e):
+        rounds = e.phases["draft"].steps
+        want = {verify_counter.__name__: e.verify_steps * cfg.n_layers
+                + (rounds * dcfg.n_layers if dcfg else 0)}
+        if dcfg:
+            want[decode_op] = rounds * (scfg.k - 1) * dcfg.n_layers
+        return want
+    rings = pipeline_runs(
+        torch, card, label, cfg,
+        lambda pl: SpecEngine(cfg, params,
+                              dataclasses.replace(ecfg, pipeline=pl), scfg),
+        prompts, gen, want_off)
+    return v_launches, rings
 
 
 def main() -> int:
@@ -1482,18 +1652,36 @@ def main() -> int:
                                 qwen.vocab_size):
         fail(f"unexpected qwen3-14b config {q14}")
 
-    entry = kernel_phase(torch, np, pa)
-    verify_entry = gqa_verify_kernel_phase(torch, np, pa)
-    mla_entry = mla_kernel_phase(torch, np, pa)
-    mla_verify_entry = mla_verify_kernel_phase(torch, np, pa)
+    entry, gqa_ring = kernel_phase(torch, np, pa)
+    verify_entry, gqa_ring_verify_ms = gqa_verify_kernel_phase(torch, np, pa)
+    mla_entry, mla_ring = mla_kernel_phase(torch, np, pa)
+    mla_verify_entry, mla_ring_verify_ms = mla_verify_kernel_phase(
+        torch, np, pa)
+    # the ring kernels do the decode kernels' work at the decode phases'
+    # inputs: the same plain version, library call and bound (this run's)
+    ring_entry = dict(
+        entry, name="paged_attention_ring",
+        source="src/repro_torch/csrc/paged_attention_ring.cu",
+        replaces="src/repro/kernels/paged_attention.py:803", **gqa_ring)
+    mla_ring_entry = dict(
+        mla_entry, name="mla_paged_attention_ring",
+        source="src/repro_torch/csrc/mla_paged_attention_ring.cu",
+        replaces="src/repro/kernels/paged_attention.py:932", **mla_ring)
+    print(f"[kernel] ring vs off at the same inputs (bf16): GQA decode "
+          f"{gqa_ring['ms']:.4f} vs {entry['ms']:.4f} ms, GQA verify "
+          f"{gqa_ring_verify_ms:.4f} vs {verify_entry['ms']:.4f} ms, MLA "
+          f"decode {mla_ring['ms']:.4f} vs {mla_entry['ms']:.4f} ms, MLA "
+          f"verify {mla_ring_verify_ms:.4f} vs {mla_verify_entry['ms']:.4f} "
+          "ms")
     prim_entries, roof = primitives_phase(torch, np, card)
     npa_entries = norm_pool_attention_phase(torch, np, card, roof)
 
     params = make_params(torch, qwen)
-    entry["launches"] = engine_phase(
+    entry["launches"], rings = engine_phase(
         torch, np, card, qwen, params, max_len=MAX_LEN,
         new_tokens=NEW_TOKENS, op="paged_attention",
         counter=pa.paged_attention, logits_atol=LOGITS_ATOL)
+    ring_entry["launches"] = rings["paged_attention_ring"]
     spec_phase(torch, np, card, qwen, params,
                scfg=SpecConfig(k=SPEC_K, proposer="draft", draft_cfg=qwen,
                                draft_params=params),
@@ -1506,11 +1694,12 @@ def main() -> int:
     del params
 
     params = make_params(torch, deepseek)
-    mla_entry["launches"] = engine_phase(
+    mla_entry["launches"], rings = engine_phase(
         torch, np, card, deepseek, params, max_len=DS_MAX_LEN,
         new_tokens=DS_NEW_TOKENS, op="mla_paged_attention",
         counter=pa.mla_paged_attention, logits_atol=DS_LOGITS_ATOL)
-    mla_verify_entry["launches"] = spec_phase(
+    mla_ring_entry["launches"] = rings["mla_paged_attention_ring"]
+    mla_verify_entry["launches"], _ = spec_phase(
         torch, np, card, deepseek, params,
         scfg=SpecConfig(k=MLA_SPEC_K, proposer="ngram"),
         label="deepseek-v2-236b (4 layers) n-gram", max_len=DS_MAX_LEN,
@@ -1522,7 +1711,7 @@ def main() -> int:
 
     draft = make_params(torch, qwen)
     params = make_params(torch, q14)
-    verify_entry["launches"] = spec_phase(
+    verify_entry["launches"], _ = spec_phase(
         torch, np, card, q14, params,
         scfg=SpecConfig(k=SPEC_K, proposer="draft", draft_cfg=qwen,
                         draft_params=draft),
@@ -1531,9 +1720,11 @@ def main() -> int:
         decode_counter=pa.paged_attention, decode_op="paged_attention",
         logits_atol=SPEC_LOGITS_ATOL)
     del params, draft
-    print(json.dumps({"kernels": [entry, verify_entry, mla_entry,
-                                  mla_verify_entry, *prim_entries,
-                                  *npa_entries]}))
+    kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
+               mla_verify_entry, *prim_entries, *npa_entries]
+    if len(kernels) != 14:
+        fail(f"{len(kernels)} kernels in the kernels line, want 14")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

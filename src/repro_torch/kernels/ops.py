@@ -1,14 +1,24 @@
 """Kernel registry: each op pairs a hand-written CUDA kernel with its
 plain PyTorch version, and the tensor's device picks between them.
 
-* a CPU tensor gets the plain version (the CPU tests run it);
+* a CPU tensor gets the plain version (the CPU tests run it), whatever
+  the pipeline: the plain version has no pages to stream, as the JAX
+  package's jnp reference ignores its pipeline;
 * a CUDA tensor gets the kernel, which launches or raises — there is no
   fallback from a CUDA tensor to the plain version.
+
+The four paged-attention ops also take a page-streaming schedule, the
+JAX package's ``pipeline`` knob (``kernels/ops.py`` there): ``"off"``
+selects their single-walk kernels, ``"double"`` the ring kernels
+(``paged_attention_ring`` / ``mla_paged_attention_ring``, bit-identical
+to ``"off"``); ``None`` takes the process default
+(:func:`set_default_pipeline`, :func:`use_pipeline`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -22,83 +32,132 @@ from . import layernorm as _ln
 from . import paged_attention as _paged
 from . import ref as _ref
 
+PIPELINES = ("off", "double")
+_default_pipeline = "off"
+
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 
 
-def register_kernel(name: str, *, cuda: Callable, reference: Callable
-                    ) -> None:
+def register_kernel(name: str, *, cuda: Callable, reference: Callable,
+                    ring: Optional[Callable] = None) -> None:
     """Register a (CUDA kernel wrapper, plain PyTorch version) pair with
-    the same call contract."""
+    the same call contract; ``ring`` is the kernel ``pipeline="double"``
+    selects on a CUDA tensor (paged-attention ops only, which alone carry
+    a ``"ring"`` entry)."""
     _REGISTRY[name] = {"cuda": cuda, "cpu": reference}
+    if ring is not None:
+        _REGISTRY[name]["ring"] = ring
 
 
 def registered_kernels() -> Dict[str, Dict[str, Callable]]:
     return dict(_REGISTRY)
 
 
-def resolve(name: str, device: torch.device) -> Callable:
-    """The implementation of ``name`` for tensors on ``device``."""
+def check_pipeline(pipeline: str) -> str:
+    """``pipeline`` if it names a schedule in ``PIPELINES``, else raise."""
+    if pipeline not in PIPELINES:
+        raise ValueError(f"pipeline {pipeline!r} not in {PIPELINES}")
+    return pipeline
+
+
+def set_default_pipeline(pipeline: str) -> None:
+    """Process-wide default for ``pipeline=None`` dispatches."""
+    global _default_pipeline
+    _default_pipeline = check_pipeline(pipeline)
+
+
+def default_pipeline() -> str:
+    return _default_pipeline
+
+
+@contextlib.contextmanager
+def use_pipeline(pipeline: str):
+    """Scoped default-pipeline override."""
+    prev = _default_pipeline
+    set_default_pipeline(pipeline)
+    try:
+        yield
+    finally:
+        set_default_pipeline(prev)
+
+
+def resolve(name: str, device: torch.device,
+            pipeline: Optional[str] = None) -> Callable:
+    """The implementation of ``name`` for tensors on ``device`` under the
+    page-streaming schedule ``pipeline`` (None: the process default).
+    ``"double"`` on an op that streams no pages raises."""
+    pipeline = check_pipeline(pipeline or _default_pipeline)
     impls = _REGISTRY[name]
-    if device.type not in impls:
+    if pipeline != "off" and "ring" not in impls:
+        raise ValueError(f"op {name!r} does not support pipeline="
+                         f"{pipeline!r} (not a paged streaming kernel)")
+    if device.type == "cuda" and pipeline == "double":
+        return impls["ring"]
+    if device.type not in ("cuda", "cpu"):
         raise ValueError(f"op {name!r} has no implementation for "
                          f"device {device}")
     return impls[device.type]
 
 
 register_kernel("paged_attention", cuda=_paged.paged_attention,
-                reference=_paged.paged_attention_reference)
+                reference=_paged.paged_attention_reference,
+                ring=_paged.paged_attention_ring)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos, *, scale,
-                    soft_cap: float = 0.0):
+                    soft_cap: float = 0.0, pipeline: Optional[str] = None):
     """GQA paged-decode attention (see kernels/paged_attention.py):
     q (B, KV, G, hd); pools (P, page, KV, hd); block_tables (B, n_blocks)
     int32; pos (B,) int32.  Returns (B, KV, G, hd)."""
-    return resolve("paged_attention", q.device)(
+    return resolve("paged_attention", q.device, pipeline)(
         q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap)
 
 
 register_kernel("mla_paged_attention", cuda=_paged.mla_paged_attention,
-                reference=_paged.mla_paged_attention_reference)
+                reference=_paged.mla_paged_attention_reference,
+                ring=_paged.mla_paged_attention_ring)
 
 
 def mla_paged_attention(q_lat, q_rope, c_pool, r_pool, block_tables, pos, *,
-                        scale):
+                        scale, pipeline: Optional[str] = None):
     """MLA paged decode in the latent space (see
     kernels/paged_attention.py): q_lat (B, H, r); q_rope (B, H, dr); pools
     (P, page, r) / (P, page, dr); block_tables (B, n_blocks) int32; pos
     (B,) int32.  Returns o_lat (B, H, r)."""
-    return resolve("mla_paged_attention", q_lat.device)(
+    return resolve("mla_paged_attention", q_lat.device, pipeline)(
         q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)
 
 
 register_kernel("paged_attention_verify", cuda=_paged.paged_attention_verify,
-                reference=_paged.paged_attention_verify_reference)
+                reference=_paged.paged_attention_verify_reference,
+                ring=_paged.paged_attention_ring)
 
 
 def paged_attention_verify(q, k_pool, v_pool, block_tables, pos, *, scale,
-                           soft_cap: float = 0.0):
+                           soft_cap: float = 0.0,
+                           pipeline: Optional[str] = None):
     """GQA multi-token paged verification (see kernels/paged_attention.py):
     q (B, T, KV, G, hd) at positions pos + t; pools (P, page, KV, hd);
     block_tables (B, n_blocks) int32; pos (B,) int32, the first token's
     position.  Returns (B, T, KV, G, hd)."""
-    return resolve("paged_attention_verify", q.device)(
+    return resolve("paged_attention_verify", q.device, pipeline)(
         q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap)
 
 
 register_kernel("mla_paged_attention_verify",
                 cuda=_paged.mla_paged_attention_verify,
-                reference=_paged.mla_paged_attention_verify_reference)
+                reference=_paged.mla_paged_attention_verify_reference,
+                ring=_paged.mla_paged_attention_ring)
 
 
 def mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool, block_tables,
-                               pos, *, scale):
+                               pos, *, scale, pipeline: Optional[str] = None):
     """MLA multi-token paged verification in the latent space (see
     kernels/paged_attention.py): q_lat (B, T, H, r); q_rope (B, T, H, dr);
     pools (P, page, r) / (P, page, dr); block_tables (B, n_blocks) int32;
     pos (B,) int32, the first token's position.  Returns o_lat
     (B, T, H, r)."""
-    return resolve("mla_paged_attention_verify", q_lat.device)(
+    return resolve("mla_paged_attention_verify", q_lat.device, pipeline)(
         q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)
 
 

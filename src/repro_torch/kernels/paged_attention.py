@@ -33,6 +33,14 @@ FIRST query token and query t sees ``k_pos <= pos + t``:
   :func:`mla_paged_attention_verify` (``csrc/mla_paged_attention_verify.cu``,
   the port of ``_mla_paged_verify_kernel``).
 
+The JAX package's ``pipeline="double"`` schedule (a two-slab DMA walk,
+bit-identical to ``"off"``) becomes one ring kernel per family, decode
+and verify alike, whose page slabs stream through shared memory with
+``cp.async``: :func:`paged_attention_ring` (``csrc/paged_attention_ring.cu``,
+the port of ``_gqa_paged_double``) and :func:`mla_paged_attention_ring`
+(``csrc/mla_paged_attention_ring.cu``, of ``_mla_paged_double``).  Their
+outputs equal the ``"off"`` kernels' bit for bit.
+
 The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions.  The kernels keep the scores and ``p``
 in float32, as the Pallas kernels do, while the references round the
@@ -186,6 +194,57 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _gqa_slab_shapes(q, k_pool, v_pool, block_tables, pos):
+    """The checks of a GQA query slab q (B, T, KV, G, hd) and its pools,
+    shared by the verify and ring kernels; returns (B, T, KV, G, hd,
+    page_size, n_blocks)."""
+    B, T, KV, G, hd = q.shape
+    P, page_size = k_pool.shape[0], k_pool.shape[1]
+    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype} not in {list(_DTYPE_CODES)}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {KERNEL_HEAD_DIMS}")
+    if T < 1 or G < 1:
+        raise ValueError(f"empty query slab: T={T}, G={G}")
+    dev = q.device
+    _check("q", q, q.dtype, (B, T, KV, G, hd), dev)
+    _check("k_pool", k_pool, q.dtype, (P, page_size, KV, hd), dev)
+    _check("v_pool", v_pool, q.dtype, (P, page_size, KV, hd), dev)
+    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
+    _check("pos", pos, torch.int32, (B,), dev)
+    return B, T, KV, G, hd, page_size, n_blocks
+
+
+def _mla_slab_shapes(q_lat, q_rope, c_pool, r_pool, block_tables, pos):
+    """The checks of MLA query slabs q_lat (B, T, H, r) / q_rope
+    (B, T, H, dr) and their pools, shared by the verify and ring kernels;
+    returns (B, T, H, r, dr, page_size, n_blocks)."""
+    B, T, H, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    P, page_size = c_pool.shape[0], c_pool.shape[1]
+    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if q_lat.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q_lat dtype {q_lat.dtype} not in "
+                         f"{list(_DTYPE_CODES)}")
+    if r not in MLA_LATENT_DIMS:
+        raise ValueError(f"latent rank {r} not in {MLA_LATENT_DIMS}")
+    if dr not in MLA_ROPE_DIMS:
+        raise ValueError(f"rope dim {dr} not in {MLA_ROPE_DIMS}")
+    if page_size not in MLA_PAGE_SIZES:
+        raise ValueError(f"page size {page_size} not in {MLA_PAGE_SIZES}")
+    if T < 1:
+        raise ValueError(f"empty query slab: T={T}")
+    dev = q_lat.device
+    _check("q_lat", q_lat, q_lat.dtype, (B, T, H, r), dev)
+    _check("q_rope", q_rope, q_lat.dtype, (B, T, H, dr), dev)
+    _check("c_pool", c_pool, q_lat.dtype, (P, page_size, r), dev)
+    _check("r_pool", r_pool, q_lat.dtype, (P, page_size, dr), dev)
+    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
+    _check("pos", pos, torch.int32, (B,), dev)
+    return B, T, H, r, dr, page_size, n_blocks
 
 
 def paged_attention(
@@ -347,21 +406,9 @@ def paged_attention_verify(
             "paged_attention_verify launches a CUDA kernel and takes CUDA "
             f"tensors only (q is on {q.device}); kernels.ops dispatches CPU "
             "tensors to paged_attention_verify_reference")
-    B, T, KV, G, hd = q.shape
-    P, page_size = k_pool.shape[0], k_pool.shape[1]
-    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q dtype {q.dtype} not in {list(_DTYPE_CODES)}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {KERNEL_HEAD_DIMS}")
-    if T < 1 or G < 1:
-        raise ValueError(f"empty query slab: T={T}, G={G}")
+    B, T, KV, G, hd, page_size, n_blocks = _gqa_slab_shapes(
+        q, k_pool, v_pool, block_tables, pos)
     dev = q.device
-    _check("q", q, q.dtype, (B, T, KV, G, hd), dev)
-    _check("k_pool", k_pool, q.dtype, (P, page_size, KV, hd), dev)
-    _check("v_pool", v_pool, q.dtype, (P, page_size, KV, hd), dev)
-    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
-    _check("pos", pos, torch.int32, (B,), dev)
     out = torch.empty_like(q)
     lib = build.library("paged_attention_verify", VERIFY_C_SIGNATURES)
     err = lib.paged_attention_verify(
@@ -408,28 +455,9 @@ def mla_paged_attention_verify(
             "mla_paged_attention_verify launches a CUDA kernel and takes "
             f"CUDA tensors only (q_lat is on {q_lat.device}); kernels.ops "
             "dispatches CPU tensors to mla_paged_attention_verify_reference")
-    B, T, H, r = q_lat.shape
-    dr = q_rope.shape[-1]
-    P, page_size = c_pool.shape[0], c_pool.shape[1]
-    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
-    if q_lat.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q_lat dtype {q_lat.dtype} not in "
-                         f"{list(_DTYPE_CODES)}")
-    if r not in MLA_LATENT_DIMS:
-        raise ValueError(f"latent rank {r} not in {MLA_LATENT_DIMS}")
-    if dr not in MLA_ROPE_DIMS:
-        raise ValueError(f"rope dim {dr} not in {MLA_ROPE_DIMS}")
-    if page_size not in MLA_PAGE_SIZES:
-        raise ValueError(f"page size {page_size} not in {MLA_PAGE_SIZES}")
-    if T < 1:
-        raise ValueError(f"empty query slab: T={T}")
+    B, T, H, r, dr, page_size, n_blocks = _mla_slab_shapes(
+        q_lat, q_rope, c_pool, r_pool, block_tables, pos)
     dev = q_lat.device
-    _check("q_lat", q_lat, q_lat.dtype, (B, T, H, r), dev)
-    _check("q_rope", q_rope, q_lat.dtype, (B, T, H, dr), dev)
-    _check("c_pool", c_pool, q_lat.dtype, (P, page_size, r), dev)
-    _check("r_pool", r_pool, q_lat.dtype, (P, page_size, dr), dev)
-    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
-    _check("pos", pos, torch.int32, (B,), dev)
     out = torch.empty_like(q_lat)
     lib = build.library("mla_paged_attention_verify",
                         MLA_VERIFY_C_SIGNATURES)
@@ -457,11 +485,154 @@ MLA_VERIFY_C_SIGNATURES = {
 
 
 # --------------------------------------------------------------------------
+# Ring kernels (pipeline="double"): the same functions, pages streamed
+# through a ring of shared-memory slabs with cp.async
+# --------------------------------------------------------------------------
+
+# the ring holds 2..RING_MAX_STAGES slabs, as many as fit beside the
+# block-table copy in RING_SMEM_BYTES of dynamic shared memory (227 KB a
+# block on Hopper, less 2 KB for static shared memory)
+RING_MAX_STAGES = 4
+RING_SMEM_BYTES = 225 * 1024
+
+
+def ring_stages(stage_bytes: int, n_blocks: int) -> int:
+    """Slabs in a ring kernel's ring: at most ``RING_MAX_STAGES``, as many
+    as fit beside the block-table copy (16-byte padded); raises when not
+    even two do."""
+    table = -(-4 * int(n_blocks) // 16) * 16
+    stages = min(RING_MAX_STAGES, (RING_SMEM_BYTES - table) // stage_bytes)
+    if stages < 2:
+        raise ValueError(
+            f"a ring of two {stage_bytes}-byte slabs and a {table}-byte "
+            f"block table does not fit in {RING_SMEM_BYTES} bytes of shared "
+            "memory; use a smaller page or pipeline='off'")
+    return int(stages)
+
+
+def paged_attention_ring(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float, soft_cap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the CUDA GQA ring kernel (``csrc/paged_attention_ring.cu``)
+    on the current stream (no sync): decode with q (B, KV, G, hd), the
+    contract of :func:`paged_attention_reference`, or verification with q
+    (B, T, KV, G, hd), that of :func:`paged_attention_verify_reference`.
+    The output equals :func:`paged_attention` / :func:`paged_attention_verify`
+    bit for bit.  Takes CUDA tensors only: bf16 or f32, head_dim in
+    ``KERNEL_HEAD_DIMS``, any T and G, a page slab pair (2 * page * hd
+    elements) that fits twice in shared memory (:func:`ring_stages`).
+    ``launches`` counts the kernel launches this wrapper made."""
+    _reject_scales(k_scale, v_scale)
+    if not q.is_cuda:
+        raise ValueError(
+            "paged_attention_ring launches a CUDA kernel and takes CUDA "
+            f"tensors only (q is on {q.device}); kernels.ops dispatches CPU "
+            "tensors to the plain versions")
+    decode = q.dim() == 4
+    q5 = q[:, None] if decode else q
+    B, T, KV, G, hd, page_size, n_blocks = _gqa_slab_shapes(
+        q5, k_pool, v_pool, block_tables, pos)
+    dev = q.device
+    stages = ring_stages(2 * page_size * hd * q.element_size(), n_blocks)
+    out = torch.empty_like(q5)
+    lib = build.library("paged_attention_ring", RING_C_SIGNATURES)
+    err = lib.paged_attention_ring(
+        q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        B, T, KV, G, hd, page_size, n_blocks, stages, float(scale),
+        float(soft_cap), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_ring kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_attention_ring.launches += 1
+    return out[:, 0] if decode else out
+
+
+paged_attention_ring.launches = 0
+
+# the C interface of csrc/paged_attention_ring.cu
+RING_C_SIGNATURES = {
+    "paged_attention_ring": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
+def mla_paged_attention_ring(
+    q_lat: torch.Tensor, q_rope: torch.Tensor, c_pool: torch.Tensor,
+    r_pool: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float,
+    c_scale: Optional[torch.Tensor] = None,
+    r_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the CUDA MLA ring kernel (``csrc/mla_paged_attention_ring.cu``)
+    on the current stream (no sync): decode with q_lat (B, H, r) / q_rope
+    (B, H, dr), the contract of :func:`mla_paged_attention_reference`, or
+    verification with q_lat (B, T, H, r) / q_rope (B, T, H, dr), that of
+    :func:`mla_paged_attention_verify_reference`.  The output equals
+    :func:`mla_paged_attention` / :func:`mla_paged_attention_verify` bit for
+    bit.  The same sets as those: bf16 or f32, latent rank in
+    ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size in
+    ``MLA_PAGE_SIZES``, any head count and T >= 1.  ``launches`` counts the
+    kernel launches this wrapper made."""
+    _reject_scales(c_scale, r_scale)
+    if not q_lat.is_cuda:
+        raise ValueError(
+            "mla_paged_attention_ring launches a CUDA kernel and takes CUDA "
+            f"tensors only (q_lat is on {q_lat.device}); kernels.ops "
+            "dispatches CPU tensors to the plain versions")
+    decode = q_lat.dim() == 3
+    ql4 = q_lat[:, None] if decode else q_lat
+    qr4 = q_rope[:, None] if decode else q_rope
+    B, T, H, r, dr, page_size, n_blocks = _mla_slab_shapes(
+        ql4, qr4, c_pool, r_pool, block_tables, pos)
+    dev = q_lat.device
+    # a stage is one 16-line tile (MLA_RING_TILE_LINES) of latent and rope
+    stages = ring_stages(MLA_RING_TILE_LINES * (r + dr)
+                         * q_lat.element_size(), n_blocks)
+    out = torch.empty_like(ql4)
+    lib = build.library("mla_paged_attention_ring", MLA_RING_C_SIGNATURES)
+    err = lib.mla_paged_attention_ring(
+        ql4.data_ptr(), qr4.data_ptr(), c_pool.data_ptr(),
+        r_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, T, H, r, dr, page_size, n_blocks, stages,
+        float(scale), _DTYPE_CODES[q_lat.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mla_paged_attention_ring kernel launch failed: "
+                           f"CUDA error {err}")
+    mla_paged_attention_ring.launches += 1
+    return out[:, 0] if decode else out
+
+
+mla_paged_attention_ring.launches = 0
+# lines of one MLA ring stage (the off kernels' tile, csrc kTileLines)
+MLA_RING_TILE_LINES = 16
+
+# the C interface of csrc/mla_paged_attention_ring.cu
+MLA_RING_C_SIGNATURES = {
+    "mla_paged_attention_ring": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
+# --------------------------------------------------------------------------
 # Pricing helpers (the scheduler's per-token VMEM ledger)
 #
-# Derived from the Pallas kernel's grid (B, KV, n_blocks) and scratch;
-# kept verbatim so the port's ledger equals the reference's.  The H100
-# spec leaves the on-chip level unpriced (core/roofline/hardware.py).
+# Derived from the Pallas kernels' grids and scratch on the TPU (the
+# single-buffered grid (B, KV, n_blocks) for pipeline="off", the two-slab
+# walk for "double"); kept verbatim so the port's ledger equals the
+# reference's.  They price the reference's TPU grid, not the CUDA kernels'
+# shared-memory traffic, and the H100 spec leaves the on-chip level
+# unpriced (core/roofline/hardware.py).
 # --------------------------------------------------------------------------
 
 def live_blocks(context_len: int, page_size: int, n_q: int = 1) -> int:
@@ -476,11 +647,12 @@ def paged_decode_vmem_bytes(
     head_dim: int, isize: int, n_q: int = 1, pipeline: str = "off",
     kv_isize: int = 0, scale_isize: int = 0,
 ) -> float:
-    """On-chip bytes one slot moves in the GQA paged decode (``n_q == 1``)
-    or verify (``n_q == T``) walk: streamed K/V slabs, query re-reads per
-    block step (once per program with ``pipeline="double"``), float32
+    """VMEM bytes one slot moves in the reference's TPU GQA paged decode
+    (``n_q == 1``) or verify (``n_q == T``) walk: streamed K/V slabs,
+    query re-reads per block step (once per program with
+    ``pipeline="double"``, whose walk runs inside one program), float32
     softmax carries read and written per block step, the output flush and
-    the appended lines."""
+    the appended lines.  Not a count of the CUDA kernels' traffic."""
     g = n_heads // kv_heads
     rows = g * n_q
     nb = live_blocks(context_len, page_size, n_q)
@@ -499,10 +671,11 @@ def mla_paged_decode_vmem_bytes(
     rope_dim: int, isize: int, n_q: int = 1, pipeline: str = "off",
     kv_isize: int = 0, scale_isize: int = 0,
 ) -> float:
-    """On-chip bytes one slot moves in the MLA paged decode / verify walk:
-    streamed latent + rope lines, query re-reads per block step (once per
-    program with ``pipeline="double"``), float32 softmax carries read and
-    written per block step, the output flush and the appended lines."""
+    """VMEM bytes one slot moves in the reference's TPU MLA paged decode /
+    verify walk: streamed latent + rope lines, query re-reads per block
+    step (once per program with ``pipeline="double"``), float32 softmax
+    carries read and written per block step, the output flush and the
+    appended lines.  Not a count of the CUDA kernels' traffic."""
     rows = n_heads * n_q
     nb = live_blocks(context_len, page_size, n_q)
     q_steps = nb if pipeline == "off" else 1

@@ -12,6 +12,11 @@ Speculative decoding (serve/spec.py):
     ... --arch qwen3-14b --spec draft --draft-arch qwen3-0.6b
     ... --spec draft --spec-k-adaptive           # EWMA-adapted draft length
 
+``--pipeline double`` runs the paged-attention ring kernels (the JAX
+package's double-buffered page walk; bit-identical to ``off``) for the
+decode, verify and draft steps; on the CPU the plain versions run either
+way.
+
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the plain PyTorch path (use ``--smoke`` there).  ``--layers`` cuts depth
 only (a dense-FFN prologue stays), ``--draft-layers`` the draft model's.
@@ -63,6 +68,9 @@ def main(argv=None):
                     help="decode slots (0 = one per request)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--pipeline", choices=["off", "double"], default="off",
+                    help="paged-attention page streaming: single walk "
+                         "(off) or the cp.async ring kernels (double)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -79,7 +87,7 @@ def main(argv=None):
     ecfg = EngineConfig(
         num_slots=slots, page_size=args.page_size,
         max_len=args.prompt_len + args.new_tokens,
-        prefill_chunk=args.prefill_chunk, device=dev)
+        prefill_chunk=args.prefill_chunk, pipeline=args.pipeline, device=dev)
     scfg = None
     if args.spec == "off":
         engine = Engine(cfg, params, ecfg)
@@ -113,7 +121,8 @@ def main(argv=None):
     n_tok = sum(len(r.generated) for r in reqs)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = "
-          f"{n_tok / dt:.1f} tok/s over {slots} slots on {where}")
+          f"{n_tok / dt:.1f} tok/s over {slots} slots on {where} "
+          f"(pipeline {args.pipeline})")
     for r in reqs:
         t = engine.roofline_terms(r)
         print(f"  req {r.request_id}: {len(r.generated)} tok, "

@@ -143,13 +143,14 @@ def _commit_kv(pool: Dict[str, torch.Tensor], name: str, blk: torch.Tensor,
 def decode_attention_paged(
     p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
     block_tables: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
-    page_size: int, rope: Rope,
+    page_size: int, rope: Rope, pipeline: Optional[str] = None,
 ) -> torch.Tensor:
     """One-token decode for every slot against a paged pool (updated in
     place).  x (B,1,D); pool k/v (P, page, KV, hd); block_tables
     (B, n_blocks) int32; pos (B,) int32 per-slot write position; ``rope``
     = rope_tables(cfg, pos[:, None]).  Inactive slots map to the trash
-    page and are discarded by the caller."""
+    page and are discarded by the caller.  ``pipeline`` selects the
+    kernel's page-streaming schedule (kernels/ops.py)."""
     B, _, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
@@ -162,14 +163,15 @@ def decode_attention_paged(
     o = kernel_ops.paged_attention(
         q.reshape(B, KV, G, hd).contiguous(), pool["k"], pool["v"],
         block_tables, pos, scale=1.0 / (hd ** 0.5),
-        soft_cap=cfg.attn_logit_soft_cap).reshape(B, 1, H, hd)
+        soft_cap=cfg.attn_logit_soft_cap,
+        pipeline=pipeline).reshape(B, 1, H, hd)
     return _out_proj(o.to(x.dtype), p["wo"])
 
 
 def decode_verify_paged(
     p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
     block_tables: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
-    page_size: int, rope: Rope,
+    page_size: int, rope: Rope, pipeline: Optional[str] = None,
 ) -> torch.Tensor:
     """Multi-token verification decode for every slot (speculative
     decoding), pool updated in place.  x (B, T, D): the draft chain [last
@@ -196,7 +198,8 @@ def decode_verify_paged(
     o = kernel_ops.paged_attention_verify(
         q.reshape(B, T, KV, G, hd).contiguous(), pool["k"], pool["v"],
         block_tables, pos, scale=1.0 / (hd ** 0.5),
-        soft_cap=cfg.attn_logit_soft_cap).reshape(B, T, H, hd)
+        soft_cap=cfg.attn_logit_soft_cap,
+        pipeline=pipeline).reshape(B, T, H, hd)
     return _out_proj(o.to(x.dtype), p["wo"])
 
 

@@ -188,8 +188,8 @@ def _mla_attend(p, q_nope: torch.Tensor, q_rope: torch.Tensor,
 
 def mla_decode_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
                      block_tables: torch.Tensor, pos: torch.Tensor,
-                     cfg: ModelConfig, *, page_size: int, rope: Rope = None
-                     ) -> torch.Tensor:
+                     cfg: ModelConfig, *, page_size: int, rope: Rope = None,
+                     pipeline: Optional[str] = None) -> torch.Tensor:
     """One-token MLA decode for every slot against the paged latent pool
     (updated in place).  x (B,1,D); pool c_kv (P,page,r) / k_rope
     (P,page,dr); block_tables (B,n_blocks) int32; pos (B,) int32; ``rope``
@@ -213,7 +213,7 @@ def mla_decode_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
     o_lat = kernel_ops.mla_paged_attention(
         q_lat.contiguous(), q_rope[:, 0].contiguous(), pool["c_kv"],
         pool["k_rope"], block_tables, pos,
-        scale=1.0 / ((dn + dr) ** 0.5))                            # (B,H,r)
+        scale=1.0 / ((dn + dr) ** 0.5), pipeline=pipeline)         # (B,H,r)
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["wv_b"])
     return _out_proj(o[:, None], p["wo"])
 
@@ -222,7 +222,8 @@ def mla_decode_verify_paged(p, x: torch.Tensor,
                             pool: Dict[str, torch.Tensor],
                             block_tables: torch.Tensor, pos: torch.Tensor,
                             cfg: ModelConfig, *, page_size: int,
-                            rope: Rope = None) -> torch.Tensor:
+                            rope: Rope = None,
+                            pipeline: Optional[str] = None) -> torch.Tensor:
     """Multi-token MLA verification against the paged latent pool
     (speculative decoding), pool updated in place.  x (B, T, D) draft-chain
     tokens at positions ``pos + t``; pos (B,) int32 the first token's
@@ -249,7 +250,7 @@ def mla_decode_verify_paged(p, x: torch.Tensor,
     o_lat = kernel_ops.mla_paged_attention_verify(
         q_lat.contiguous(), q_rope.contiguous(), pool["c_kv"],
         pool["k_rope"], block_tables, pos,
-        scale=1.0 / ((dn + dr) ** 0.5))                          # (B,T,H,r)
+        scale=1.0 / ((dn + dr) ** 0.5), pipeline=pipeline)       # (B,T,H,r)
     o = torch.einsum("bqhr,rhk->bqhk", o_lat.to(x.dtype), p["wv_b"])
     return _out_proj(o, p["wo"])
 

@@ -69,25 +69,29 @@ def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,
 
 def decode_step_paged(params, cfg: ModelConfig, pools: List[Any],
                       block_tables: torch.Tensor, token: torch.Tensor,
-                      pos: torch.Tensor, *, page_size: int) -> torch.Tensor:
+                      pos: torch.Tensor, *, page_size: int,
+                      pipeline: Optional[str] = None) -> torch.Tensor:
     """One decode token per slot against the paged cache (pools updated
     in place).  token (B,1); pos (B,) int32; block_tables (B, n_blocks)
-    int32.  Returns logits (B, V)."""
+    int32.  Returns logits (B, V).  ``pipeline`` selects the paged-attention
+    kernel's page-streaming schedule ("off" / "double"; None = the
+    process default of kernels/ops.py)."""
     return tfm.decode_one_paged(params, cfg, pools, block_tables, token, pos,
-                                page_size=page_size)
+                                page_size=page_size, pipeline=pipeline)
 
 
 def decode_step_verify_paged(params, cfg: ModelConfig, pools: List[Any],
                              block_tables: torch.Tensor, tokens: torch.Tensor,
-                             pos: torch.Tensor, *, page_size: int
-                             ) -> torch.Tensor:
+                             pos: torch.Tensor, *, page_size: int,
+                             pipeline: Optional[str] = None) -> torch.Tensor:
     """Multi-token speculative verification: score tokens (B, T) — per
     slot the chain [last committed token, draft_1..draft_k] at positions
     ``pos + t`` — in one weight pass against the paged cache (pools
     updated in place).  Returns logits (B, T, V).  Attention/MLA archs
     only."""
     return tfm.decode_verify_paged(params, cfg, pools, block_tables, tokens,
-                                   pos, page_size=page_size)
+                                   pos, page_size=page_size,
+                                   pipeline=pipeline)
 
 
 def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],

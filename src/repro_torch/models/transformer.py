@@ -14,7 +14,7 @@ each mixer kind present (:func:`rope_tables`) and handed to every layer.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -154,18 +154,19 @@ def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
 def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
                        pool: Dict[str, torch.Tensor], pos: torch.Tensor,
                        cfg: ModelConfig, block_tables: torch.Tensor,
-                       page_size: int, ropes: Dict[str, attn.Rope]
-                       ) -> torch.Tensor:
-    """One-token paged decode through a block (pool updated in place)."""
+                       page_size: int, ropes: Dict[str, attn.Rope],
+                       pipeline: Optional[str] = None) -> torch.Tensor:
+    """One-token paged decode through a block (pool updated in place);
+    ``pipeline`` is the attention kernel's page-streaming schedule."""
     h = apply_norm(p["norm1"], x, cfg)
     if b.mixer == "attn":
         o = attn.decode_attention_paged(p["mixer"], h, pool, block_tables,
                                         pos, cfg, page_size=page_size,
-                                        rope=ropes["attn"])
+                                        rope=ropes["attn"], pipeline=pipeline)
     else:
         o = mla_mod.mla_decode_paged(p["mixer"], h, pool, block_tables, pos,
                                      cfg, page_size=page_size,
-                                     rope=ropes["mla"])
+                                     rope=ropes["mla"], pipeline=pipeline)
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg)
 
@@ -173,8 +174,8 @@ def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
 def apply_block_verify(p, b: BlockDef, x: torch.Tensor,
                        pool: Dict[str, torch.Tensor], pos: torch.Tensor,
                        cfg: ModelConfig, block_tables: torch.Tensor,
-                       page_size: int, ropes: Dict[str, attn.Rope]
-                       ) -> torch.Tensor:
+                       page_size: int, ropes: Dict[str, attn.Rope],
+                       pipeline: Optional[str] = None) -> torch.Tensor:
     """Multi-token verification through one block (speculative decoding),
     pool updated in place.  x (B, T, D) draft-chain tokens at per-slot
     positions ``pos + t``.  Attention-family mixers only: a recurrent
@@ -184,12 +185,13 @@ def apply_block_verify(p, b: BlockDef, x: torch.Tensor,
     if b.mixer == "attn":
         o = attn.decode_verify_paged(p["mixer"], h, pool, block_tables, pos,
                                      cfg, page_size=page_size,
-                                     rope=ropes["attn"])
+                                     rope=ropes["attn"], pipeline=pipeline)
     elif b.mixer == "mla":
         o = mla_mod.mla_decode_verify_paged(p["mixer"], h, pool,
                                             block_tables, pos, cfg,
                                             page_size=page_size,
-                                            rope=ropes["mla"])
+                                            rope=ropes["mla"],
+                                            pipeline=pipeline)
     else:
         raise NotImplementedError(
             f"speculative verification needs a rollback-free cache; mixer "
@@ -252,14 +254,16 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],
                      block_tables: torch.Tensor, token: torch.Tensor,
-                     pos: torch.Tensor, *, page_size: int) -> torch.Tensor:
+                     pos: torch.Tensor, *, page_size: int,
+                     pipeline: Optional[str] = None) -> torch.Tensor:
     """One decode step over the packed slot batch.
 
     token (B,1) (B = num_slots); pos (B,) int32 per-slot positions;
     block_tables (B, n_blocks) int32.  Idle lanes point at the trash page
     and compute garbage the engine discards.  The pools are updated in
     place; returns logits (B, V).  Shapes do not depend on which slots
-    are live."""
+    are live.  ``pipeline`` selects the paged-attention kernels'
+    page-streaming schedule (kernels/ops.py; None = process default)."""
     x = embed_tokens(params["embed"], token, cfg, pos[:, None])
     ropes = rope_tables(cfg, pos[:, None])
     for seg_params, seg_pool, (unit, reps) in zip(
@@ -269,15 +273,16 @@ def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],
             for i, b in enumerate(unit):
                 x = apply_block_decode(layer_p[f"b{i}"], b, x,
                                        layer_c[f"b{i}"], pos, cfg,
-                                       block_tables, page_size, ropes)
+                                       block_tables, page_size, ropes,
+                                       pipeline)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x, cfg)[:, 0, :]
 
 
 def decode_verify_paged(params, cfg: ModelConfig, pools: List[Any],
                         block_tables: torch.Tensor, tokens: torch.Tensor,
-                        pos: torch.Tensor, *, page_size: int
-                        ) -> torch.Tensor:
+                        pos: torch.Tensor, *, page_size: int,
+                        pipeline: Optional[str] = None) -> torch.Tensor:
     """Score T = k+1 draft-chain tokens per slot in ONE weight pass.
 
     tokens (B, T): per slot [last committed token, draft_1..draft_k]; pos
@@ -287,7 +292,7 @@ def decode_verify_paged(params, cfg: ModelConfig, pools: List[Any],
     decode step would give.  All T K/V lines are written in place;
     rejected positions are overwritten when the real token is later fed
     there.  The weights and each slot's page walk are read once for the T
-    tokens."""
+    tokens.  ``pipeline`` as in :func:`decode_one_paged`."""
     T = tokens.shape[1]
     posq = pos[:, None] + torch.arange(T, dtype=torch.int32,
                                        device=tokens.device)[None, :]
@@ -300,7 +305,8 @@ def decode_verify_paged(params, cfg: ModelConfig, pools: List[Any],
             for i, b in enumerate(unit):
                 x = apply_block_verify(layer_p[f"b{i}"], b, x,
                                        layer_c[f"b{i}"], pos, cfg,
-                                       block_tables, page_size, ropes)
+                                       block_tables, page_size, ropes,
+                                       pipeline)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x, cfg)
 

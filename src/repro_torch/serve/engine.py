@@ -4,7 +4,9 @@ A fixed bank of decode slots, one decode step whose shapes do not depend
 on which slots are live, chunked prefill interleaved with running
 decodes, and a per-request roofline ledger (scheduler.py).  On CUDA the
 decode step's paged attention is the hand-written kernel
-(kernels/paged_attention.py); sampling runs on the device right after the
+(kernels/paged_attention.py), its page walk chosen by
+``EngineConfig.pipeline`` ("off", or "double" for the ring kernels);
+sampling runs on the device right after the
 logits, so only the (B,) chosen token ids cross to the host.  Whole-prompt
 prefill is length-bucketed to the next power of two where padding cannot
 change the result (no MoE FFN, whose capacity the pad tokens would take).
@@ -25,6 +27,7 @@ import torch
 
 from ..core.roofline.hardware import H100_SXM, ChipSpec
 from ..device import resolve_device, synchronize
+from ..kernels.ops import check_pipeline
 from ..models import (decode_step_paged, prefill, prefill_chunk_paged,
                       prefill_padded, prepare_params)
 from ..models.common import ModelConfig, model_flops
@@ -59,6 +62,7 @@ class EngineConfig:
     prefix_cache: bool = False        # content-hash prefix sharing + CoW
     watermark: float = 0.0            # admission slack, fraction of pool
     preempt_mode: str = "swap"        # "swap" | "recompute" on pool-dry
+    pipeline: str = "off"             # kernel page streaming: "off"|"double"
     device: Union[str, torch.device] = "cuda"   # "cpu" only when asked
 
 
@@ -79,6 +83,7 @@ class Engine:
                  ecfg: Optional[EngineConfig] = None):
         check_supported(cfg)
         self.ecfg = ecfg or EngineConfig()
+        check_pipeline(self.ecfg.pipeline)
         self.device = resolve_device(self.ecfg.device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:
@@ -319,7 +324,8 @@ class Engine:
         device; returns (B,) token ids (still on the device)."""
         logits = decode_step_paged(self.params, self.cfg, self._kv.pools,
                                    bt, token, pos,
-                                   page_size=self.ecfg.page_size)
+                                   page_size=self.ecfg.page_size,
+                                   pipeline=self.ecfg.pipeline)
         return sampling.sample_tokens(logits, self._seeds, self._steps,
                                       self._temps, self._top_ks,
                                       self._top_ps)
@@ -348,7 +354,8 @@ class Engine:
         ps = self.ecfg.page_size
         for req in running:
             vmem = decode_token_vmem_bytes(self.cfg, req.context_len,
-                                           n_active, ps)
+                                           n_active, ps,
+                                           pipeline=self.ecfg.pipeline)
             req.ledger.add_decode_token(self.cfg, req.context_len, n_active,
                                         vmem_bytes=vmem)
             ph.add(flops=decode_token_flops(self.cfg, req.context_len),

@@ -108,7 +108,8 @@ class DraftModelProposer:
     feeds the tokens the target committed since the last round through
     ``decode_step_verify_paged`` (padded to k+1), and (2) drafts k tokens
     autoregressively with ``decode_step_paged`` and
-    :func:`sampling.sample_with_probs`, keeping every draft's ``q``.
+    :func:`sampling.sample_with_probs`, keeping every draft's ``q``.  Both
+    passes use the target engine's page-streaming ``pipeline``.
     Sampled requests draw their drafts from the stream
     ``sampling.fold_seed(seed, sampling.DRAFT_FOLD)``."""
 
@@ -116,13 +117,15 @@ class DraftModelProposer:
 
     def __init__(self, cfg: ModelConfig, params: Any, *, num_slots: int,
                  page_size: int, max_len: int, k: int,
-                 device: torch.device, prefill_bucket: int = 8):
+                 device: torch.device, pipeline: Optional[str] = None,
+                 prefill_bucket: int = 8):
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
         self.page_size = page_size
         self.k = k
         self.device = device
+        self.pipeline = pipeline
         self.prefill_bucket = prefill_bucket
         self.kv = PagedKVCache(cfg, num_slots, page_size, max_len, device,
                                margin_tokens=k + 1)
@@ -231,7 +234,8 @@ class DraftModelProposer:
         bt = self.kv.block_tables_for([r.slot for r in running])
         logits = decode_step_verify_paged(
             self.params, self.cfg, self.kv.pools, bt, self._tensor(feed),
-            self._tensor(pos), page_size=self.page_size)     # (B, Tc, V)
+            self._tensor(pos), page_size=self.page_size,
+            pipeline=self.pipeline)                          # (B, Tc, V)
         last_idx = self._tensor(np.maximum(n_pend - 1, 0))
         last = logits[torch.arange(B, device=self.device), last_idx]
 
@@ -246,7 +250,7 @@ class DraftModelProposer:
                 self.params, self.cfg, self.kv.pools, bt, tok[:, None],
                 self._tensor(np.where(act, cur_pos + i - 1, 0)
                              .astype(np.int32)),
-                page_size=self.page_size)
+                page_size=self.page_size, pipeline=self.pipeline)
             tok, q = self._sample(step_logits)
             self._dsteps[act] += 1
             toks.append(tok)

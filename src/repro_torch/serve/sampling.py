@@ -10,8 +10,16 @@ Per row ``b``:
   draw at step ``i`` does not depend on the batch it shares — the role
   the reference's ``fold_in(key, step)`` plays.  torch's Philox is not
   JAX's threefry: the two agree in distribution, not bit for bit.
-* ``top_ks[b] > 0`` / ``0 < top_ps[b] < 1`` -> the sort-based filter
-  (:func:`_filter_logits_sort`), whose kept set equals the reference's.
+* ``top_ks[b] > 0`` / ``0 < top_ps[b] < 1`` -> the reference's filter
+  dispatch (:func:`_maybe_filter` -> :func:`_filter_logits`): the
+  sort-free threshold scan (:func:`_filter_logits_scan`) when V >= 1024
+  and 8 * max(top_k) <= V, the sort (:func:`_filter_logits_sort`)
+  otherwise.  Both keep every logit tied at a threshold, but at ties on
+  the k-th value the sort's nucleus mass counts exactly k ranks and the
+  scan's every tied logit, so only the dispatch keeps the reference's set.
+  The nucleus boundary compares a float32 sum with ``top_ps``: where the
+  mass lies within float32 rounding of ``top_p`` the summation order
+  (torch vs XLA) can move it by one token.
 
 Which rows sample is known on the host, so an all-greedy batch (the
 serving default) runs one argmax and nothing else.
@@ -66,6 +74,94 @@ def _filter_logits_sort(logits: torch.Tensor, top_ks: torch.Tensor,
     return torch.where(keep, logits, NEG_INF)
 
 
+def _sortable_bits(x: torch.Tensor) -> torch.Tensor:
+    """Map float32 to the uint32 radix-sort key, held in int64 (torch has
+    no uint32 arithmetic): a >= b iff map(a) >= map(b).  Positives get the
+    sign bit set, negatives have every bit flipped."""
+    bits = x.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(bits >> 31 != 0, bits ^ 0xFFFFFFFF,
+                       bits | 0x80000000)
+
+
+def _threshold_scan(mapped: torch.Tensor, weights: torch.Tensor,
+                    target: torch.Tensor) -> torch.Tensor:
+    """Per-row largest 32-bit threshold ``t`` with ``sum(weights[mapped >=
+    t]) >= target``: 32 bisection steps, high bit to low, each one compare
+    and masked sum over the row.  The weighted count does not increase
+    with ``t``, so fixing one bit at a time lands on the boundary value."""
+    t = torch.zeros(mapped.shape[0], dtype=torch.int64, device=mapped.device)
+    for i in range(32):
+        cand = t | (1 << (31 - i))
+        hit = torch.where(mapped >= cand[:, None], weights, 0.0).sum(-1)
+        t = torch.where(hit >= target, cand, t)
+    return t
+
+
+def _filter_logits_scan(logits: torch.Tensor, top_ks: torch.Tensor,
+                        top_ps: Optional[torch.Tensor] = None,
+                        temps: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The sort-free twin of :func:`_filter_logits_sort`: the k-th-largest
+    logit and the nucleus boundary are value thresholds (the kept set is
+    an upper set of logit values), each found by :func:`_threshold_scan`.
+    The top-k pass counts survivors (weights 1); the top-p pass weighs
+    them by the tempered, top-k-renormalized probabilities and finds the
+    smallest value whose strictly-above mass is still short of ``top_ps``
+    (the first token always survives).  Every logit tied at either
+    threshold is kept, and the nucleus mass counts all of them."""
+    V = logits.shape[-1]
+    mapped = _sortable_bits(logits)
+    k_tgt = torch.clamp(top_ks.long(), 1, V).float()
+    t_k = _threshold_scan(mapped, torch.ones_like(logits, dtype=torch.float32),
+                          k_tgt)
+    in_k = (top_ks[:, None] <= 0) | (mapped >= t_k[:, None])
+    keep = in_k
+    if top_ps is not None:
+        scaled = logits.float()
+        if temps is not None:
+            safe_t = torch.clamp(temps, min=1e-6).float()
+            scaled = scaled / safe_t[:, None]
+        probs = torch.softmax(torch.where(in_k, scaled, NEG_INF), dim=-1)
+        t_p = _threshold_scan(mapped, torch.where(in_k, probs, 0.0),
+                              top_ps.float())
+        off = (top_ps[:, None] <= 0.0) | (top_ps[:, None] >= 1.0)
+        keep = keep & (off | (mapped >= t_p[:, None]))
+    return torch.where(keep, logits, NEG_INF)
+
+
+# below this vocabulary one sort is cheaper than 32 streaming passes
+_SCAN_MIN_VOCAB = 1024
+
+
+def _filter_logits(logits: torch.Tensor, top_ks: torch.Tensor,
+                   top_ps: Optional[torch.Tensor] = None,
+                   temps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's dispatch between the two filters: the scan when V
+    >= ``_SCAN_MIN_VOCAB`` and every requested k is at most V / 8, the
+    sort otherwise.  The per-row controls may lie on the host (the
+    engine's arrays): the choice is made there, without a device sync, and
+    they follow the logits to their device for the filter itself."""
+    V = logits.shape[-1]
+    scan = V >= _SCAN_MIN_VOCAB and int(top_ks.max()) * 8 <= V
+    dev = logits.device
+    top_ks = top_ks.to(dev)
+    top_ps = None if top_ps is None else top_ps.to(dev)
+    temps = None if temps is None else temps.to(dev)
+    fn = _filter_logits_scan if scan else _filter_logits_sort
+    return fn(logits, top_ks, top_ps, temps)
+
+
+def _maybe_filter(logits: torch.Tensor, top_ks: torch.Tensor,
+                  top_ps: Optional[torch.Tensor],
+                  temps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`_filter_logits` when some row asks for a filter, else the
+    logits unchanged (the filters' masks are exact)."""
+    want = bool((top_ks > 0).any())
+    if top_ps is not None:
+        want = want or bool(((top_ps > 0.0) & (top_ps < 1.0)).any())
+    return _filter_logits(logits, top_ks, top_ps, temps) if want else logits
+
+
 def _mix64(hi: int, lo: int) -> int:
     """splitmix64's finalizer of two 32-bit values packed into 64 bits:
     every output bit depends on every input bit."""
@@ -117,17 +213,11 @@ def _gumbel(seed: int, step: int, n: int, device: torch.device
 
 def _filtered(logits: torch.Tensor, temps: np.ndarray, top_ks: np.ndarray,
               top_ps: np.ndarray) -> torch.Tensor:
-    """``logits`` (B, V) float32 through the top-k / top-p filter when any
-    row asks for one (the filter's masks are exact, so unfiltered rows
-    are returned unchanged)."""
-    if np.any(np.asarray(top_ks) > 0) or np.any(
-            (np.asarray(top_ps) > 0.0) & (np.asarray(top_ps) < 1.0)):
-        dev = logits.device
-        return _filter_logits_sort(
-            logits, torch.as_tensor(np.asarray(top_ks), device=dev),
-            torch.as_tensor(np.asarray(top_ps, np.float32), device=dev),
-            torch.as_tensor(np.asarray(temps, np.float32), device=dev))
-    return logits
+    """``logits`` (B, V) float32 through :func:`_maybe_filter` with the
+    engine's host-side per-row controls."""
+    return _maybe_filter(logits, torch.as_tensor(np.asarray(top_ks)),
+                         torch.as_tensor(np.asarray(top_ps, np.float32)),
+                         torch.as_tensor(np.asarray(temps, np.float32)))
 
 
 def sample_tokens(logits: torch.Tensor, seeds: np.ndarray,
@@ -270,31 +360,4 @@ def spec_accept(logits: torch.Tensor, draft: np.ndarray,
     out, n_out = greedy_t.clone(), n_out.clone()
     out[sel] = torch.where(jj < n_acc[:, None], chain, final[:, None])
     n_out[sel] = n_acc + 1
-    return out, n_out
-    out, n_out = out.clone(), n_out.clone()
-    rep = lambda a: np.repeat(np.asarray(a), T)  # noqa: E731
-    filtered = _filtered(logits.reshape(B * T, V), rep(temps),
-                         rep(top_ks), rep(top_ps)).reshape(B, T, V)
-    for b in rows:
-        p = torch.softmax(filtered[b] / float(temps[b]), dim=-1)  # (T, V)
-        q = (torch.nn.functional.one_hot(draft_d[b], V).float()
-             if q_probs is None else q_probs[b].float())          # (k, V)
-        idx = draft_d[b][:, None]
-        p_at = torch.gather(p[:k], 1, idx)[:, 0]
-        q_at = torch.gather(q, 1, idx)[:, 0]
-        acc_seed = fold_seed(seeds[b], ACCEPT_FOLD)
-        u = torch.stack([
-            torch.rand((), generator=row_generator(acc_seed, steps[b] + i,
-                                                   dev), device=dev)
-            for i in range(k)])
-        accept = (u * torch.clamp(q_at, min=1e-30) < p_at) & real[b]
-        n_acc = int(_leading(accept[None])[0])
-        res = p[n_acc]
-        if n_acc < min(int(n_draft[b]), k):          # a real rejection
-            res = torch.clamp(res - q[min(n_acc, k - 1)], min=0.0)
-        res = res / torch.clamp(res.sum(), min=1e-30)
-        gumbel = _gumbel(seeds[b], steps[b] + n_acc, V, dev)
-        out[b, :n_acc] = draft_d[b, :n_acc]
-        out[b, n_acc] = torch.argmax(torch.log(res) + gumbel)
-        n_out[b] = n_acc + 1
     return out, n_out

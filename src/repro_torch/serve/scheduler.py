@@ -92,12 +92,14 @@ def decode_token_bytes(cfg: ModelConfig, context_len: int,
 
 
 def attn_kernel_vmem_bytes(cfg: ModelConfig, context_len: int,
-                           page_size: int, n_q: int = 1) -> float:
+                           page_size: int, n_q: int = 1,
+                           pipeline: str = "off") -> float:
     """On-chip traffic of one slot's paged-attention walks summed over all
     attention/MLA layers, for ``n_q`` query tokens (1 = decode, k+1 =
     verify): the streamed pages plus the kernel-resident re-touches
-    (kernels/paged_attention.py pricing, from the reference kernels' grids
-    and scratch)."""
+    (kernels/paged_attention.py pricing).  This prices the reference's TPU
+    kernel grids and scratch, ``pipeline="double"`` its two-slab walk
+    (query slab fetched once per program), not the CUDA kernels."""
     isize = _dtype_bytes(cfg.dtype)
     kv_isize = kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
     scale_isize = 4 if kvq.is_quantized(cfg.kv_dtype) else 0
@@ -109,34 +111,41 @@ def attn_kernel_vmem_bytes(cfg: ModelConfig, context_len: int,
                     context_len=context_len, page_size=page_size,
                     n_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
                     head_dim=cfg.hd, isize=isize, n_q=n_q,
-                    kv_isize=kv_isize, scale_isize=scale_isize)
+                    pipeline=pipeline, kv_isize=kv_isize,
+                    scale_isize=scale_isize)
             elif b.mixer == "mla":
                 total += reps * mla_paged_decode_vmem_bytes(
                     context_len=context_len, page_size=page_size,
                     n_heads=cfg.n_heads, lora_rank=cfg.kv_lora_rank,
                     rope_dim=cfg.rope_head_dim, isize=isize, n_q=n_q,
-                    kv_isize=kv_isize, scale_isize=scale_isize)
+                    pipeline=pipeline, kv_isize=kv_isize,
+                    scale_isize=scale_isize)
     return total
 
 
 def decode_token_vmem_bytes(cfg: ModelConfig, context_len: int,
-                            active_batch: int, page_size: int) -> float:
+                            active_batch: int, page_size: int,
+                            pipeline: str = "off") -> float:
     """On-chip bytes for one generated token: the amortized weight read
     passes through once, and the paged-attention walks add their streamed
-    and resident traffic (kernels/paged_attention.py pricing)."""
+    and resident traffic (the reference's TPU pricing, per ``pipeline``;
+    see :func:`attn_kernel_vmem_bytes`)."""
     return (params_bytes_active(cfg) / max(active_batch, 1)
-            + attn_kernel_vmem_bytes(cfg, context_len, page_size))
+            + attn_kernel_vmem_bytes(cfg, context_len, page_size,
+                                     pipeline=pipeline))
 
 
 def verify_step_vmem_bytes(cfg: ModelConfig, context_len: int, n_fed: int,
-                           active_batch: int, page_size: int) -> float:
+                           active_batch: int, page_size: int,
+                           pipeline: str = "off") -> float:
     """On-chip bytes for one slot's multi-token verification step: one
     weight pass-through scores ``n_fed`` tokens sharing a single page walk
     (the verify kernels flatten the draft window into extra query rows,
-    so only the resident re-touches scale with n_fed)."""
+    so only the resident re-touches scale with n_fed); the reference's TPU
+    pricing, per ``pipeline`` (:func:`attn_kernel_vmem_bytes`)."""
     return (params_bytes_active(cfg) / max(active_batch, 1)
             + attn_kernel_vmem_bytes(cfg, context_len, page_size,
-                                     n_q=n_fed))
+                                     n_q=n_fed, pipeline=pipeline))
 
 
 # --------------------------------------------------------------------------

@@ -199,7 +199,8 @@ class SpecEngine(Engine):
             self.proposer = DraftModelProposer(
                 s.draft_cfg, self._draft_params, num_slots=e.num_slots,
                 page_size=e.page_size, max_len=self._kv.max_len, k=s.k,
-                device=self.device, prefill_bucket=max(e.prefill_bucket, 1))
+                device=self.device, pipeline=e.pipeline,
+                prefill_bucket=max(e.prefill_bucket, 1))
         else:
             self.proposer = NgramProposer(e.num_slots, s.k,
                                           max_n=s.ngram_max,
@@ -242,7 +243,8 @@ class SpecEngine(Engine):
         t0 = now()
         logits = decode_step_verify_paged(self.params, self.cfg, kv.pools,
                                           bt, feed_d, pos_d,
-                                          page_size=self.ecfg.page_size)
+                                          page_size=self.ecfg.page_size,
+                                          pipeline=self.ecfg.pipeline)
         out_tok, n_out = sampling.spec_accept(
             logits, prop.draft, prop.q_probs, prop.n_draft, self._seeds,
             self._steps, self._temps, self._top_ks, self._top_ps)
@@ -270,7 +272,8 @@ class SpecEngine(Engine):
             # the chain ran to completion; a stop token or the budget cut
             # it short, and then everything committed was an accepted draft
             accepted = committed - 1 if committed == n else committed
-            vmem = verify_step_vmem_bytes(self.cfg, L, T, n_active, ps)
+            vmem = verify_step_vmem_bytes(self.cfg, L, T, n_active, ps,
+                                          pipeline=self.ecfg.pipeline)
             req.ledger.add_verify_step(self.cfg, L, T, committed, accepted,
                                        nd, n_active, vmem_bytes=vmem)
             vph.add(flops=sum(decode_token_flops(self.cfg, L + t)

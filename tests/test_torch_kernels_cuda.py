@@ -772,3 +772,213 @@ def test_flash_attention_kernel_rejects_bad_inputs(card):
         fa_mod.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="CUDA"):
         fa_mod.flash_attention(q.cpu(), k.cpu(), k.cpu())
+
+
+# --------------------------------------------------------------------------
+# Ring kernels, pipeline="double" (csrc/paged_attention_ring.cu,
+# csrc/mla_paged_attention_ring.cu): bit for bit the "off" kernel's output
+# on the same inputs (torch.equal), and within the off kernels' tolerances
+# of the plain versions, over the off kernels' parametrisations.
+# --------------------------------------------------------------------------
+
+def _ring_check(ring, off, plain, args, n_float, kw, dtype):
+    n = ring.launches
+    out = ring(*args, **kw)
+    want = off(*args, **kw)
+    ref = plain(*args, **kw)
+    ref32 = plain(*(a.float() for a in args[:n_float]), *args[n_float:], **kw)
+    torch.cuda.synchronize()
+    assert ring.launches == n + 1
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, want)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(out.float(), ref32, **TOL_F32_PLAIN[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,hd,page,nb", [
+    (4, 8, 2, 128, 16, 32),    # qwen3-0.6b decode
+    (3, 2, 2, 16, 4, 5),       # smoke widths
+    (2, 4, 1, 32, 8, 3),       # MHA
+    (4, 1, 8, 64, 16, 2),      # one KV head, 8 query heads
+    (2, 2, 3, 256, 16, 4),     # odd group count, widest head
+])
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+def test_gqa_ring_decode_equals_off_kernel(card, dtype, B, KV, G, hd, page,
+                                           nb, soft_cap):
+    rng = np.random.default_rng(B * 100 + hd)
+    args = _case(rng, B, KV, G, hd, page, nb, dtype, card)
+    if soft_cap:
+        args = (args[0] * 4, *args[1:])
+    _ring_check(pa.paged_attention_ring, pa.paged_attention,
+                pa.paged_attention_reference, args, 3,
+                dict(scale=hd ** -0.5, soft_cap=soft_cap), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,KV,G,hd,page,nb", [
+    (4, 5, 8, 5, 128, 16, 33),   # qwen3-14b verify, k = 4 (25 rows)
+    (4, 5, 8, 2, 128, 16, 33),   # qwen3-0.6b draft catch-up (10 rows)
+    (3, 4, 2, 2, 16, 4, 5),      # smoke widths
+    (2, 2, 4, 1, 32, 8, 3),      # MHA
+    (2, 5, 1, 8, 64, 16, 2),     # one KV head, 40 rows
+    (2, 3, 2, 3, 256, 16, 4),    # odd group count, widest head
+])
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+def test_gqa_ring_verify_equals_off_kernel(card, dtype, B, T, KV, G, hd,
+                                           page, nb, soft_cap):
+    rng = np.random.default_rng(B * 100 + T * 10 + hd)
+    args = _gqa_verify_case(rng, B, T, KV, G, hd, page, nb, dtype, card)
+    if soft_cap:
+        args = (args[0] * 4, *args[1:])
+    _ring_check(pa.paged_attention_ring, pa.paged_attention_verify,
+                pa.paged_attention_verify_reference, args, 3,
+                dict(scale=hd ** -0.5, soft_cap=soft_cap), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("backed", [True, False],
+                         ids=["backed", "trash-margin"])
+def test_gqa_ring_verify_edges(card, dtype, backed):
+    """Chains crossing a page, from pos 0, and past the whole table."""
+    rng = np.random.default_rng(21)
+    args = _gqa_verify_case(rng, 4, 5, 8, 5, 128, 16, 4, dtype, card,
+                            lens=[15, 31, 1, 62], backed_drafts=backed)
+    _ring_check(pa.paged_attention_ring, pa.paged_attention_verify,
+                pa.paged_attention_verify_reference, args, 3,
+                dict(scale=128 ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gqa_ring_decode_past_the_off_kernels_group_limit(card, dtype):
+    """16 query heads per KV head: the off decode kernel refuses them, the
+    ring takes them as one-token verification, bit-equal to the off
+    verify kernel at T = 1."""
+    rng = np.random.default_rng(25)
+    args = _gqa_verify_case(rng, 3, 1, 2, 16, 64, 16, 6, dtype, card)
+    kw = dict(scale=64 ** -0.5)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        pa.paged_attention(args[0][:, 0].contiguous(), *args[1:], **kw)
+    dec = (args[0][:, 0].contiguous(), *args[1:])
+    out = pa.paged_attention_ring(*dec, **kw)
+    want = pa.paged_attention_verify(*args, **kw)[:, 0]
+    ref = pa.paged_attention_reference(*dec, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_gqa_ring_idle_trash_lanes_finite(card):
+    rng = np.random.default_rng(22)
+    args = _gqa_verify_case(rng, 4, 5, 8, 5, 128, 16, 33, torch.bfloat16,
+                            card, trash=True)
+    _ring_check(pa.paged_attention_ring, pa.paged_attention_verify,
+                pa.paged_attention_verify_reference, args, 3,
+                dict(scale=128 ** -0.5), torch.bfloat16)
+    dec = _case(rng, 4, 8, 2, 128, 16, 32, torch.bfloat16, card, trash=True)
+    _ring_check(pa.paged_attention_ring, pa.paged_attention,
+                pa.paged_attention_reference, dec, 3,
+                dict(scale=128 ** -0.5), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,r,dr,page,nb", [
+    (4, 128, 512, 64, 16, 16),   # deepseek-v2 decode, 4 slots
+    (3, 4, 32, 8, 8, 5),         # smoke widths (one masked head block)
+    (2, 12, 64, 16, 32, 2),      # heads not a multiple of the tile
+    (2, 8, 256, 32, 8, 4),
+    (2, 16, 128, 8, 16, 3),
+])
+def test_mla_ring_decode_equals_off_kernel(card, dtype, B, H, r, dr, page,
+                                           nb):
+    rng = np.random.default_rng(B * 1000 + r + dr)
+    _ring_check(pa.mla_paged_attention_ring, pa.mla_paged_attention,
+                pa.mla_paged_attention_reference,
+                _mla_case(rng, B, H, r, dr, page, nb, dtype, card), 4,
+                dict(scale=192 ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mla_ring_decode_edge_positions_and_trash(card, dtype):
+    """pos 0, a partly filled last page, a full table; idle lanes."""
+    rng = np.random.default_rng(8)
+    for args in (_mla_case(rng, 3, 16, 512, 64, 16, 4, dtype, card,
+                           lens=[1, 16 * 2 + 5, 16 * 4]),
+                 _mla_case(rng, 4, 128, 512, 64, 16, 16, dtype, card,
+                           trash=True)):
+        _ring_check(pa.mla_paged_attention_ring, pa.mla_paged_attention,
+                    pa.mla_paged_attention_reference, args, 4,
+                    dict(scale=192 ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,H,r,dr,page,nb", [
+    (4, 4, 128, 512, 64, 16, 17),  # deepseek-v2 verify, k = 3
+    (3, 3, 4, 32, 8, 8, 5),        # smoke widths (one masked head block)
+    (2, 2, 12, 64, 16, 32, 2),     # heads not a multiple of the tile
+    (2, 5, 8, 256, 32, 8, 4),
+])
+def test_mla_ring_verify_equals_off_kernel(card, dtype, B, T, H, r, dr,
+                                           page, nb):
+    rng = np.random.default_rng(B * 1000 + T * 100 + r + dr)
+    _ring_check(pa.mla_paged_attention_ring, pa.mla_paged_attention_verify,
+                pa.mla_paged_attention_verify_reference,
+                _mla_verify_case(rng, B, T, H, r, dr, page, nb, dtype, card),
+                4, dict(scale=192 ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["backed", "trash-margin", "idle"])
+def test_mla_ring_verify_edges(card, dtype, case):
+    """Chains crossing a page, from pos 0 and past the table, with the
+    drafts' pages backed or on trash entries; idle all-trash lanes."""
+    rng = np.random.default_rng(31)
+    if case == "idle":
+        args = _mla_verify_case(rng, 4, 4, 128, 512, 64, 16, 17, dtype,
+                                card, trash=True)
+    else:
+        args = _mla_verify_case(rng, 4, 4, 16, 512, 64, 16, 4, dtype, card,
+                                lens=[15, 30, 1, 63],
+                                backed_drafts=case == "backed")
+    _ring_check(pa.mla_paged_attention_ring, pa.mla_paged_attention_verify,
+                pa.mla_paged_attention_verify_reference, args, 4,
+                dict(scale=192 ** -0.5), dtype)
+
+
+def test_ring_kernels_dispatch_and_refusals(card):
+    """ops with pipeline="double" launches the rings; the wrappers refuse
+    scales and a page slab that does not fit twice in shared memory."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(40)
+    args = _case(rng, 2, 2, 2, 16, 4, 3, torch.float32, card)
+    n, n_off = pa.paged_attention_ring.launches, pa.paged_attention.launches
+    out = ops.paged_attention(*args, scale=0.25, pipeline="double")
+    with ops.use_pipeline("double"):
+        again = ops.paged_attention(*args, scale=0.25)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_ring.launches == n + 2
+    assert pa.paged_attention.launches == n_off
+    assert torch.equal(out, again)
+    mla = _mla_case(rng, 2, 8, 64, 16, 8, 3, torch.float32, card)
+    n = pa.mla_paged_attention_ring.launches
+    ops.mla_paged_attention(*mla, scale=0.1, pipeline="double")
+    assert pa.mla_paged_attention_ring.launches == n + 1
+    with pytest.raises(NotImplementedError, match="item 5"):
+        pa.paged_attention_ring(*args, scale=0.25,
+                                k_scale=torch.ones(1, device=card))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        pa.mla_paged_attention_ring(*mla, scale=0.1,
+                                    c_scale=torch.ones(1, device=card))
+    q, k, v, bt, pos = args
+    big = torch.zeros((2, 1024, 2, 128), device=card)   # 1 MB slab pair
+    with pytest.raises(ValueError, match="does not fit"):
+        pa.paged_attention_ring(q.new_zeros((2, 2, 2, 128)), big, big, bt,
+                                pos, scale=0.1)
