@@ -17,9 +17,15 @@ Phases, in order; any failure exits non-zero:
    tolerance stated; the ``pipeline="double"`` ring kernels
    (``paged_attention_ring``, ``mla_paged_attention_ring``) on every one
    of those cases, equal to the off kernel bit for bit (torch.equal) and
-   within the same tolerance of the plain version; times (CUDA events) of
-   the kernel, the ring kernel, the plain version and one PyTorch library
-   call computing the same function, beside the bound;
+   within the same tolerance of the plain version; the four kernels'
+   scale branches (int8 and fp8_e4m3 pools with float32 per-line scales)
+   on every one of those cases, bf16 and float32 queries, against the
+   plain version on the same codes and scales (float32 2e-5, bf16 1e-2),
+   and at T = 1 verify equal to decode bit for bit; times (CUDA events)
+   of the kernel, the ring kernel, the plain version and one PyTorch
+   library call computing the same function, beside the bound, and of the
+   scale branches on the same inputs quantized, beside the bound at the
+   quantized line bytes;
 4. the paper's primitive study (launch/primitives.py): the microbench
    (FMA-chain probe, matmul peaks per dtype, copy / fill / triad
    bandwidth, warm vs cold) printed beside the data sheet; the
@@ -61,9 +67,18 @@ Phases, in order; any failure exits non-zero:
    (deterministic algorithms on for the MoE model): every run's greedy
    streams byte-equal, each double run launching the ring kernels
    layers x steps times and no off paged kernel, each off run the
-   reverse, tok/s of every run printed (one call, so comparable);
-6. one JSON line listing the 14 ported kernels, then the card line, then
-   the device line last.
+   reverse, tok/s of every run printed (one call, so comparable); then
+   the same prompts and weights served with quantized KV pools
+   (``EngineConfig.kv_dtype`` int8 and fp8_e4m3; qwen3-14b int8 only),
+   pipeline off: every request finishes, the off kernels launch layers x
+   steps times, the pools' device bytes equal the scheduler's pricing,
+   one step's logits match the plain attention on copies of the quantized
+   pools; tok/s, peak memory and the share of greedy tokens equal to the
+   bf16 streams printed beside the bf16 run's;
+6. one JSON line listing the 14 ported kernels (rows 1, 3, 4 and 5 with
+   ``int8`` / ``fp8_e4m3`` fields: time, max error, bound, plain and
+   library times of the scale branch), then the card line, then the
+   device line last.  Each phase prints its wall time.
 
 Nothing here imports JAX or the JAX package.
 """
@@ -249,8 +264,9 @@ def kernel_phase(torch, np, pa):
     the GQA ring kernel at decode (T = 1) against both.  Returns the
     kernels-line entry and the ring's error and time at the same inputs."""
     import torch.nn.functional as F
+    from repro_torch.kernels import quantize as kvq
     rng = np.random.default_rng(0)
-    errs, ring_errs = {}, {}
+    errs, ring_errs, qerrs = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for kind in ("ragged", "full", "trash", "soft_cap"):
@@ -265,6 +281,10 @@ def kernel_phase(torch, np, pa):
                 torch, f"paged_attention_ring (decode) {name:8s} {kind:8s}",
                 pa.paged_attention_ring, pa.paged_attention,
                 pa.paged_attention_reference, args, 3, kw, name)
+            quant_cases(torch, kvq, f"paged_attention {name:8s} {kind:8s}",
+                        pa.paged_attention, pa.paged_attention_reference,
+                        args, 1, ("k_scale", "v_scale"), kw, name, qerrs,
+                        kind)
     # times at the main path's shapes and types: bf16, engine-like ragged
     # contexts; 16 copies (~135 MB) rotate so every call reads cold HBM
     c = attention_case(torch, np, rng, torch.bfloat16, "ragged")
@@ -281,28 +301,39 @@ def kernel_phase(torch, np, pa):
     k_pos = torch.arange(S, device="cuda")
     mask = (k_pos[None, :] <= c["pos"].long()[:, None])[:, None, None, :]
 
-    def library(q, k, v, bt, pos):
-        # gather the pages, then torch's fused attention with the mask
-        kk = k[bt.long()].reshape(SLOTS, S, KV, HD).transpose(1, 2)
-        vv = v[bt.long()].reshape(SLOTS, S, KV, HD).transpose(1, 2)
+    def library(q, k, v, bt, pos, ks=None, vs=None):
+        # gather (and dequantize) the pages, then torch's fused attention
+        # with the mask
+        kk = gather_pages(k, ks, bt, q.dtype).reshape(
+            SLOTS, S, KV, HD).transpose(1, 2)
+        vv = gather_pages(v, vs, bt, q.dtype).reshape(
+            SLOTS, S, KV, HD).transpose(1, 2)
         qq = q.reshape(SLOTS, KV * G, 1, HD)
         return F.scaled_dot_product_attention(
             qq, kk.repeat_interleave(G, dim=1), vv.repeat_interleave(G, 1),
-            attn_mask=mask, scale=c["scale"])
+            attn_mask=mask, scale=c["scale"]).reshape(SLOTS, KV, G, HD)
 
-    lib_out = library(*copies[0]).reshape(SLOTS, KV, G, HD)
+    lib_out = library(*copies[0])
     lib_err = float((lib_out.float() - pa.paged_attention_reference(
         *copies[0], **kw).float()).abs().max())
     if lib_err > TOL["bfloat16"]["atol"]:
         fail(f"library yardstick disagrees with the plain version: {lib_err}")
     library_ms = device_ms(library, copies)
+    isize = c["q"].element_size()
+
+    def bound(kv_isize, scale_bytes=0):
+        return paged_bound(c["pos"], 1, S, KV * (HD * kv_isize + scale_bytes)
+                           * 2, KV * G * 4 * HD, 2 * c["q"].numel() * isize,
+                           isize)
+    bytes_ms, ops_ms = bound(isize)
+    bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    quant = quant_times(
+        torch, kvq, "paged_attention", pa.paged_attention,
+        pa.paged_attention_reference, library, copies, 1,
+        ("k_scale", "v_scale"), kw, lambda kvd: bound_of(*bound(1, 4)),
+        qerrs, kernel_ms)
     pa.paged_attention.launches = n        # comparison launches do not count
     pa.paged_attention_ring.launches = n_ring
-    isize = c["q"].element_size()
-    bytes_ms, ops_ms = paged_bound(c["pos"], 1, S, KV * HD * 2 * isize,
-                                   KV * G * 4 * HD,
-                                   2 * c["q"].numel() * isize, isize)
-    bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
     print(f"[kernel] paged_attention bf16 B={SLOTS} KV={KV} G={G} hd={HD} "
           f"page={PAGE} lines={int((c['pos'].long() + 1).sum())}: "
           f"kernel {kernel_ms:.4f} ms, ring kernel {ring_ms:.4f} ms, plain "
@@ -314,7 +345,7 @@ def kernel_phase(torch, np, pa):
                  replaces="src/repro/kernels/paged_attention.py:345",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms),
+                 library_ms=library_ms, **quant),
             dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms))
 
 
@@ -349,13 +380,15 @@ def mla_case(torch, np, rng, dtype, kind: str):
                 scale=(128 + 64) ** -0.5)
 
 
-def mla_bound(q_lat, q_rope, pos, T: int, S: int):
-    """:func:`paged_bound` of an MLA call: (r + dr)-element lines, H * (2
-    (r + dr) + 2 r) FLOPs per (query token, line), q_lat, q_rope and the
-    output moved once."""
+def mla_bound(q_lat, q_rope, pos, T: int, S: int, kv_isize: int = 0):
+    """:func:`paged_bound` of an MLA call: (r + dr)-element lines (at
+    ``kv_isize`` bytes a code plus two float32 scales when quantized, else
+    the queries' itemsize), H * (2 (r + dr) + 2 r) FLOPs per (query token,
+    line), q_lat, q_rope and the output moved once."""
     H, r, dr = q_lat.shape[-2], q_lat.shape[-1], q_rope.shape[-1]
     isize = q_lat.element_size()
-    return paged_bound(pos, T, S, (r + dr) * isize,
+    line = (r + dr) * kv_isize + 8 if kv_isize else (r + dr) * isize
+    return paged_bound(pos, T, S, line,
                        H * (2 * (r + dr) + 2 * r),
                        (2 * q_lat.numel() + q_rope.numel()) * isize, isize)
 
@@ -365,8 +398,9 @@ def mla_kernel_phase(torch, np, pa):
     MLA ring kernel at decode (T = 1) against both.  Returns the
     kernels-line entry and the ring's error and time at the same inputs."""
     import torch.nn.functional as F
+    from repro_torch.kernels import quantize as kvq
     rng = np.random.default_rng(2)
-    errs, ring_errs = {}, {}
+    errs, ring_errs, qerrs = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for kind in ("ragged", "edges", "trash", "small"):
@@ -380,6 +414,11 @@ def mla_kernel_phase(torch, np, pa):
                 f"{kind:6s}", pa.mla_paged_attention_ring,
                 pa.mla_paged_attention, pa.mla_paged_attention_reference,
                 c["args"], 4, dict(scale=c["scale"]), name)
+            quant_cases(torch, kvq, f"mla_paged_attention {name:8s} "
+                        f"{kind:6s}", pa.mla_paged_attention,
+                        pa.mla_paged_attention_reference, c["args"], 2,
+                        ("c_scale", "r_scale"), dict(scale=c["scale"]),
+                        name, qerrs, kind)
     # times at the main path's shapes and type: bf16, MLA_LENS; 64 copies
     # of the queries and pools (~110 MB) rotate so every call reads cold
     # HBM
@@ -400,11 +439,12 @@ def mla_kernel_phase(torch, np, pa):
     k_pos = torch.arange(S, device="cuda")
     mask = (k_pos[None, :] <= pos.long()[:, None])[:, None, None, :]
 
-    def library(ql, qr, cpool, rpool, bt, pos):
-        # gather the latent lines, then torch's fused attention with
-        # k = [c | k_rope] and v = c, shared by every head
-        cc = cpool[bt.long()].reshape(B, 1, S, MLA_R)
-        kk = torch.cat([cc, rpool[bt.long()].reshape(B, 1, S, MLA_DR)], -1)
+    def library(ql, qr, cpool, rpool, bt, pos, cs=None, rs=None):
+        # gather (and dequantize) the latent lines, then torch's fused
+        # attention with k = [c | k_rope] and v = c, shared by every head
+        cc = gather_pages(cpool, cs, bt, ql.dtype).reshape(B, 1, S, MLA_R)
+        kk = torch.cat([cc, gather_pages(rpool, rs, bt, ql.dtype).reshape(
+            B, 1, S, MLA_DR)], -1)
         qq = torch.cat([ql, qr], -1)[:, :, None, :]
         return F.scaled_dot_product_attention(
             qq, kk.expand(B, MLA_H, S, MLA_R + MLA_DR),
@@ -418,10 +458,16 @@ def mla_kernel_phase(torch, np, pa):
         fail(f"MLA library yardstick disagrees with the plain version: "
              f"{lib_err}")
     library_ms = device_ms(library, copies)
-    pa.mla_paged_attention.launches = n    # comparison launches do not count
-    pa.mla_paged_attention_ring.launches = n_ring
     bytes_ms, ops_ms = mla_bound(q_lat, q_rope, pos, 1, S)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    quant = quant_times(
+        torch, kvq, "mla_paged_attention", pa.mla_paged_attention,
+        pa.mla_paged_attention_reference, library, copies, 2,
+        ("c_scale", "r_scale"), kw,
+        lambda kvd: bound_of(*mla_bound(q_lat, q_rope, pos, 1, S, 1)),
+        qerrs, kernel_ms)
+    pa.mla_paged_attention.launches = n    # comparison launches do not count
+    pa.mla_paged_attention_ring.launches = n_ring
     print(f"[kernel] mla_paged_attention bf16 B={SLOTS} H={MLA_H} "
           f"r={MLA_R} dr={MLA_DR} page={PAGE} lines={sum(MLA_LENS)}: "
           f"kernel {kernel_ms:.4f} ms, ring kernel {ring_ms:.4f} ms, plain "
@@ -434,7 +480,7 @@ def mla_kernel_phase(torch, np, pa):
                  replaces="src/repro/kernels/paged_attention.py:445",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms),
+                 library_ms=library_ms, **quant),
             dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms))
 
 
@@ -478,6 +524,122 @@ def ring_hold(torch, label: str, ring, off, plain, args, n_float: int, kw,
              f"kernel's (max abs diff {d:.3e}); they must be bit-identical")
     print(f"[kernel] {label} equals the off kernel bit for bit")
     return hold(torch, label, ring, plain, args, n_float, kw, name)
+
+
+# Quantized KV pools: each of the four single-walk kernels' scale
+# branch against its plain version on the same codes and scales.  Both
+# dequantize to the same float32 values and compute in float32, so only
+# the summation order and a bf16 query's output rounding differ: float32
+# 2e-5, bf16 1e-2 (TOL_F32_PLAIN, not the bf16 plain version's 6e-2).
+KV_DTYPES = ("int8", "fp8_e4m3")
+QTOL = TOL_F32_PLAIN
+
+
+def quantize_pools(kvq, args, first: int, kv_dtype: str):
+    """``args`` with its pools at ``first`` and ``first + 1`` quantized
+    from their float32 values; returns (args, the two scale pools)."""
+    out, scales = list(args), []
+    for i in (first, first + 1):
+        out[i], s = kvq.quantize(args[i].float(), kv_dtype)
+        scales.append(s)
+    return tuple(out), scales
+
+
+def quant_hold(torch, label: str, kernel, plain, args, kw, name: str) -> float:
+    """One quantized case (``kw`` carries the scale pools) against the
+    plain version at QTOL[name]; returns the max abs error."""
+    out = kernel(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{label}: non-finite output")
+    err = float((out.float() - ref.float()).abs().max())
+    tol = QTOL[name]
+    ok = bool(torch.allclose(out.float(), ref.float(), **tol))
+    print(f"[kernel] {label} max_abs_err={err:.3e} (atol=rtol="
+          f"{tol['atol']}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{label} disagrees with its plain version: max abs err {err}")
+    return err
+
+
+def quant_cases(torch, kvq, label: str, kernel, plain, args, first: int,
+                names, kw, name: str, errs: dict, kind: str) -> None:
+    """The quantized holds of one case, int8 and fp8, into ``errs``."""
+    for kvd in KV_DTYPES:
+        qargs, scales = quantize_pools(kvq, args, first, kvd)
+        errs[(name, kind, kvd)] = quant_hold(
+            torch, f"{label} {kvd}", kernel, plain, qargs,
+            dict(kw, **dict(zip(names, scales))), name)
+
+
+def t1_equal(torch, kvq, label: str, name: str, verify, decode, args,
+             n_q: int, first: int, names, kw) -> None:
+    """On quantized pools, a one-token verify (``args``: T = 1 queries
+    first, ``n_q`` of them) must equal the decode kernel bit for bit."""
+    for kvd in KV_DTYPES:
+        qargs, scales = quantize_pools(kvq, args, first, kvd)
+        skw = dict(kw, **dict(zip(names, scales)))
+        ver = verify(*qargs, **skw)[:, 0]
+        dec = decode(*(a[:, 0].contiguous() for a in qargs[:n_q]),
+                     *qargs[n_q:], **skw)
+        torch.cuda.synchronize()
+        if not torch.equal(ver, dec):
+            d = float((ver.float() - dec.float()).abs().max())
+            fail(f"{label} {name} {kvd}: T=1 differs from the decode kernel "
+                 f"(max abs diff {d:.3e}); they must be bit-identical")
+        print(f"[kernel] {label} {name:8s} {kvd} T=1 equals the decode "
+              "kernel bit for bit")
+
+
+def gather_pages(pool, scales, bt, dtype):
+    """``pool[bt]``, dequantized to ``dtype`` when ``scales`` is given:
+    the library yardsticks' gather (+ dequantize)."""
+    g = pool[bt.long()]
+    if scales is None:
+        return g
+    s = scales[bt.long()]
+    return (g.float() * s.reshape(s.shape + (1,) * (g.dim() - s.dim()))
+            ).to(dtype)
+
+
+def quant_times(torch, kvq, label: str, kernel, plain, library, copies,
+                first: int, names, kw, bound, errs: dict, bf16_ms: float):
+    """Times of one kernel's scale branch at the main path's bf16 inputs,
+    each timing copy's pools quantized: kernel, plain version and library
+    call (gather + dequantize + SDPA), with ``bound(kv_dtype)`` -> (ms,
+    what bounds it) at the quantized line bytes.  Prints each beside the
+    bf16-pool kernel's time of the same call; returns {kv_dtype: fields}
+    for the kernels line."""
+    n = len(copies[0])
+    out = {}
+    for kvd in KV_DTYPES:
+        qcopies = []
+        for c in copies:
+            qargs, scales = quantize_pools(kvq, c, first, kvd)
+            qcopies.append(qargs + tuple(scales))
+
+        def call(fn):
+            return lambda *a: fn(*a[:n], **kw, **dict(zip(names, a[n:])))
+        ms = device_ms(call(kernel), qcopies)
+        plain_ms = device_ms(call(plain), qcopies)
+        lib_err = float((library(*qcopies[0]).float() - call(plain)(
+            *qcopies[0]).float()).abs().max())
+        if lib_err > TOL["bfloat16"]["atol"]:
+            fail(f"{label} {kvd} library yardstick disagrees with the plain "
+                 f"version: {lib_err}")
+        library_ms = device_ms(library, qcopies)
+        bound_ms, bound_by = bound(kvd)
+        out[kvd] = dict(ms=ms, max_abs_err=errs[("bfloat16", "ragged", kvd)],
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms)
+        print(f"[kernel] {label} {kvd} pools, bf16 queries: kernel {ms:.4f} "
+              f"ms ({ms / bf16_ms:.2f}x the bf16-pool kernel's "
+              f"{bf16_ms:.4f} ms), plain {plain_ms:.4f} ms, library (gather "
+              f"+ dequantize + SDPA) {library_ms:.4f} ms (max abs diff vs "
+              f"plain {lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by})")
+        del qcopies
+    return out
 
 
 def verify_tables(torch, np, rng, lens, T: int, page: int, nb: int):
@@ -536,8 +698,9 @@ def gqa_verify_kernel_phase(torch, np, pa):
     kernel at verify shapes against both.  Returns the kernels-line entry
     and the ring's time at the same inputs."""
     import torch.nn.functional as F
+    from repro_torch.kernels import quantize as kvq
     rng = np.random.default_rng(3)
-    errs = {}
+    errs, qerrs = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for kind in ("ragged", "edges", "margin", "trash", "soft_cap",
@@ -547,6 +710,10 @@ def gqa_verify_kernel_phase(torch, np, pa):
                 torch, f"paged_attention_verify {name:8s} {kind:8s}",
                 pa.paged_attention_verify, pa.paged_attention_verify_reference,
                 c["args"], 3, c["kw"], name)
+            quant_cases(torch, kvq, f"paged_attention_verify {name:8s} "
+                        f"{kind:8s}", pa.paged_attention_verify,
+                        pa.paged_attention_verify_reference, c["args"], 1,
+                        ("k_scale", "v_scale"), c["kw"], name, qerrs, kind)
             ring_hold(torch, f"paged_attention_ring (verify) {name:8s} "
                       f"{kind:8s}", pa.paged_attention_ring,
                       pa.paged_attention_verify,
@@ -565,6 +732,9 @@ def gqa_verify_kernel_phase(torch, np, pa):
                                       **TOL_F32_PLAIN[name]):
                     fail(f"paged_attention_verify at T=1 differs from the "
                          f"decode kernel by {d}")
+                t1_equal(torch, kvq, "paged_attention_verify", name,
+                         pa.paged_attention_verify, pa.paged_attention,
+                         c["args"], 1, 1, ("k_scale", "v_scale"), c["kw"])
     # times at the main path's shapes and type: bf16, MLA_LENS contexts;
     # 16 copies of the pools (~140 MB) rotate so every call reads cold HBM
     c = gqa_verify_case(torch, np, rng, torch.bfloat16, "ragged")
@@ -573,6 +743,7 @@ def gqa_verify_kernel_phase(torch, np, pa):
               for _ in range(16)]
     kw = c["kw"]
     n = pa.paged_attention_verify.launches
+    n_dec = pa.paged_attention.launches
     n_ring = pa.paged_attention_ring.launches
     kernel_ms = device_ms(lambda *a: pa.paged_attention_verify(*a, **kw),
                           copies)
@@ -584,11 +755,13 @@ def gqa_verify_kernel_phase(torch, np, pa):
     mask = (torch.arange(S, device="cuda")[None, None, :]
             <= q_pos[:, :, None])[:, None]                   # (B,1,T,S)
 
-    def library(q, k, v, bt, pos):
-        # gather the pages, then torch's fused attention with the
-        # explicit k_pos <= pos + t mask
-        kk = k[bt.long()].reshape(B, S, KV, HD).transpose(1, 2)
-        vv = v[bt.long()].reshape(B, S, KV, HD).transpose(1, 2)
+    def library(q, k, v, bt, pos, ks=None, vs=None):
+        # gather (and dequantize) the pages, then torch's fused attention
+        # with the explicit k_pos <= pos + t mask
+        kk = gather_pages(k, ks, bt, q.dtype).reshape(
+            B, S, KV, HD).transpose(1, 2)
+        vv = gather_pages(v, vs, bt, q.dtype).reshape(
+            B, S, KV, HD).transpose(1, 2)
         qq = q.permute(0, 2, 3, 1, 4).reshape(B, H, V_T, HD)
         o = F.scaled_dot_product_attention(
             qq, kk.repeat_interleave(V_G, 1), vv.repeat_interleave(V_G, 1),
@@ -602,13 +775,22 @@ def gqa_verify_kernel_phase(torch, np, pa):
         fail(f"GQA verify library yardstick disagrees with the plain "
              f"version: {lib_err}")
     library_ms = device_ms(library, copies)
-    pa.paged_attention_verify.launches = n  # comparison launches not counted
-    pa.paged_attention_ring.launches = n_ring
     isize = q.element_size()
-    bytes_ms, ops_ms = paged_bound(pos, V_T, S, KV * HD * 2 * isize,
-                                   KV * V_G * 4 * HD, 2 * q.numel() * isize,
-                                   isize)
+
+    def bound(kv_isize, scale_bytes=0):
+        return paged_bound(pos, V_T, S, KV * (HD * kv_isize + scale_bytes)
+                           * 2, KV * V_G * 4 * HD, 2 * q.numel() * isize,
+                           isize)
+    bytes_ms, ops_ms = bound(isize)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    quant = quant_times(
+        torch, kvq, "paged_attention_verify", pa.paged_attention_verify,
+        pa.paged_attention_verify_reference, library, copies, 1,
+        ("k_scale", "v_scale"), kw, lambda kvd: bound_of(*bound(1, 4)),
+        qerrs, kernel_ms)
+    pa.paged_attention_verify.launches = n  # comparison launches not counted
+    pa.paged_attention.launches = n_dec
+    pa.paged_attention_ring.launches = n_ring
     print(f"[kernel] paged_attention_verify bf16 B={SLOTS} T={V_T} KV={KV} "
           f"G={V_G} hd={HD} page={PAGE} "
           f"lines={int((pos.long() + V_T).sum())}: "
@@ -622,7 +804,7 @@ def gqa_verify_kernel_phase(torch, np, pa):
                  replaces="src/repro/kernels/paged_attention.py:557",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms), ring_ms)
+                 library_ms=library_ms, **quant), ring_ms)
 
 
 def mla_verify_case(torch, np, rng, dtype, kind: str):
@@ -658,8 +840,9 @@ def mla_verify_kernel_phase(torch, np, pa):
     shapes against both.  Returns the kernels-line entry and the ring's
     time at the same inputs."""
     import torch.nn.functional as F
+    from repro_torch.kernels import quantize as kvq
     rng = np.random.default_rng(4)
-    errs = {}
+    errs, qerrs = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for kind in ("ragged", "edges", "margin", "trash", "small", "t1"):
@@ -669,6 +852,11 @@ def mla_verify_kernel_phase(torch, np, pa):
                 pa.mla_paged_attention_verify,
                 pa.mla_paged_attention_verify_reference, c["args"], 4,
                 c["kw"], name)
+            quant_cases(torch, kvq, f"mla_paged_attention_verify {name:8s} "
+                        f"{kind:6s}", pa.mla_paged_attention_verify,
+                        pa.mla_paged_attention_verify_reference, c["args"],
+                        2, ("c_scale", "r_scale"), c["kw"], name, qerrs,
+                        kind)
             ring_hold(torch, f"mla_paged_attention_ring (verify) {name:8s} "
                       f"{kind:6s}", pa.mla_paged_attention_ring,
                       pa.mla_paged_attention_verify,
@@ -689,6 +877,10 @@ def mla_verify_kernel_phase(torch, np, pa):
                                       **TOL_F32_PLAIN[name]):
                     fail(f"mla_paged_attention_verify at T=1 differs from "
                          f"the decode kernel by {d}")
+                t1_equal(torch, kvq, "mla_paged_attention_verify", name,
+                         pa.mla_paged_attention_verify,
+                         pa.mla_paged_attention, c["args"], 2, 2,
+                         ("c_scale", "r_scale"), c["kw"])
     # times at the main path's shapes and type: bf16, MLA_LENS; 64 copies
     # of the queries and pools (~225 MB) rotate so every call reads cold HBM
     c = mla_verify_case(torch, np, rng, torch.bfloat16, "ragged")
@@ -697,6 +889,7 @@ def mla_verify_kernel_phase(torch, np, pa):
                pos) for _ in range(64)]
     kw = c["kw"]
     n = pa.mla_paged_attention_verify.launches
+    n_dec = pa.mla_paged_attention.launches
     n_ring = pa.mla_paged_attention_ring.launches
     kernel_ms = device_ms(
         lambda *a: pa.mla_paged_attention_verify(*a, **kw), copies)
@@ -709,12 +902,13 @@ def mla_verify_kernel_phase(torch, np, pa):
     mask = (torch.arange(S, device="cuda")[None, None, :]
             <= q_pos[:, :, None])[:, None]                   # (B,1,T,S)
 
-    def library(ql, qr, cpool, rpool, bt, pos):
-        # gather the latent lines, then torch's fused attention with
-        # k = [c | k_rope], v = c shared by every head, and the explicit
-        # k_pos <= pos + t mask
-        cc = cpool[bt.long()].reshape(B, 1, S, MLA_R)
-        kk = torch.cat([cc, rpool[bt.long()].reshape(B, 1, S, MLA_DR)], -1)
+    def library(ql, qr, cpool, rpool, bt, pos, cs=None, rs=None):
+        # gather (and dequantize) the latent lines, then torch's fused
+        # attention with k = [c | k_rope], v = c shared by every head, and
+        # the explicit k_pos <= pos + t mask
+        cc = gather_pages(cpool, cs, bt, ql.dtype).reshape(B, 1, S, MLA_R)
+        kk = torch.cat([cc, gather_pages(rpool, rs, bt, ql.dtype).reshape(
+            B, 1, S, MLA_DR)], -1)
         qq = torch.cat([ql, qr], -1).transpose(1, 2)         # (B,H,T,576)
         o = F.scaled_dot_product_attention(
             qq, kk.expand(B, MLA_H, S, MLA_R + MLA_DR),
@@ -729,10 +923,18 @@ def mla_verify_kernel_phase(torch, np, pa):
         fail(f"MLA verify library yardstick disagrees with the plain "
              f"version: {lib_err}")
     library_ms = device_ms(library, copies)
-    pa.mla_paged_attention_verify.launches = n
-    pa.mla_paged_attention_ring.launches = n_ring
     bytes_ms, ops_ms = mla_bound(q_lat, q_rope, pos, MLA_T, S)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    quant = quant_times(
+        torch, kvq, "mla_paged_attention_verify",
+        pa.mla_paged_attention_verify,
+        pa.mla_paged_attention_verify_reference, library, copies, 2,
+        ("c_scale", "r_scale"), kw,
+        lambda kvd: bound_of(*mla_bound(q_lat, q_rope, pos, MLA_T, S, 1)),
+        qerrs, kernel_ms)
+    pa.mla_paged_attention_verify.launches = n
+    pa.mla_paged_attention.launches = n_dec
+    pa.mla_paged_attention_ring.launches = n_ring
     print(f"[kernel] mla_paged_attention_verify bf16 B={SLOTS} T={MLA_T} "
           f"H={MLA_H} r={MLA_R} dr={MLA_DR} page={PAGE} "
           f"lines={int((pos.long() + MLA_T).sum())}: kernel {kernel_ms:.4f} ms, "
@@ -746,7 +948,7 @@ def mla_verify_kernel_phase(torch, np, pa):
                  replaces="src/repro/kernels/paged_attention.py:660",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms), ring_ms)
+                 library_ms=library_ms, **quant), ring_ms)
 
 
 # the paper's primitives (PR 14): the data-sheet values the measured
@@ -1205,13 +1407,15 @@ def make_params(torch, cfg):
 
 
 def engine_phase(torch, np, card, cfg, params, *, max_len: int,
-                 new_tokens: int, op: str, counter, logits_atol: float):
+                 new_tokens: int, op: str, counter, logits_atol: float,
+                 kv_dtypes=KV_DTYPES):
     """The continuous-batching engine on ``cfg`` serves PROMPT_LENS; every
     request must finish, the path's kernel ``op`` (wrapper ``counter``)
     must launch once per layer and decode step in that run, and one
     decode step of a second batch must match the same step with the
     plain attention; then :func:`pipeline_runs` serves the same prompts
-    with ``pipeline`` off and double.  Returns the launch count of the
+    with ``pipeline`` off and double, and :func:`quantized_runs` with KV
+    pools of each of ``kv_dtypes``.  Returns the launch count of the
     measured run and the ring launch counts of the first double run."""
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import now
@@ -1290,6 +1494,15 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
         torch, card, cfg.name, cfg,
         lambda pl: Engine(cfg, params, dataclasses.replace(ecfg, pipeline=pl)),
         prompts, gen, lambda e: {op: e.decode_steps * cfg.n_layers})
+    quantized_runs(
+        torch, np, card, cfg.name,
+        lambda kvd: Engine(cfg, params,
+                           dataclasses.replace(ecfg, kv_dtype=kvd)),
+        prompts, gen, kv_dtypes, lambda e: {op: e.decode_steps * cfg.n_layers},
+        ([list(r.generated) for r in reqs], n_tok / wall, peak_gb,
+         pool_nbytes(engine)),
+        lambda e: decode_logits_check(torch, np, e, ops, op, counter),
+        logits_atol)
     return launches, rings
 
 
@@ -1368,6 +1581,104 @@ def pipeline_runs(torch, card, label, cfg, make, prompts, gen, want_off):
     return rings
 
 
+def quantized_runs(torch, np, card, label, make, prompts, gen, kv_dtypes,
+                   want_off, base, check, logits_atol,
+                   more=((30, 50, 90), 8)) -> None:
+    """Serve ``prompts`` again with engines ``make(kv_dtype)`` (quantized
+    KV pools, pipeline off), one per ``kv_dtypes``: every request must
+    finish; each run zeroes every paged kernel's launch count just before
+    it and reads them just after, and must launch the off kernels
+    ``want_off(engine)`` times and no ring; the KV pools' device bytes must
+    equal the scheduler's pricing, kv_line_bytes x pages x page size; one
+    step of a second batch (``more``: prompt lengths and new tokens, which
+    must bring three requests to decode together; ``check(engine)``, on
+    copies of the quantized pools) must match the plain attention within
+    ``logits_atol``.  Prints
+    tok/s, peak memory and pool bytes beside the bf16 run's (``base``:
+    its streams, tok/s, peak GB and KV pool bytes, same call) and the
+    share of greedy tokens equal to the bf16 streams (not a gate:
+    quantization moves logits)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.obs.clock import now
+    from repro_torch.serve import GenerateConfig
+    from repro_torch.serve.scheduler import kv_line_bytes
+    names = sorted(set(RING_OF) | set(RING_OF.values()))
+    counters = {n: getattr(pa, n) for n in names}
+    base_streams, base_rate, base_peak, base_pool_bytes = base
+    rng = np.random.default_rng(7)
+    for kvd in kv_dtypes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = make(kvd)
+        reqs = [engine.submit(p, gen) for p in prompts]
+        for c in counters.values():
+            c.launches = 0                       # counts start here
+        torch.cuda.synchronize()
+        t0 = now()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = now() - t0
+        got = {n: c.launches for n, c in counters.items()}   # read here
+        want = dict.fromkeys(names, 0)
+        want.update(want_off(engine))
+        if got != want:
+            fail(f"{label} kv_dtype={kvd}: kernel launches {got}, want "
+                 f"{want}")
+        if any(r.finish_reason != "length"
+               or len(r.generated) != gen.max_new_tokens for r in reqs):
+            fail(f"{label} kv_dtype={kvd}: a request did not finish")
+        kv = engine._kv
+        pool_bytes = pool_nbytes(engine)
+        priced = kv_line_bytes(engine.cfg) * kv.num_pages * kv.page_size
+        if pool_bytes != priced:
+            fail(f"{label} kv_dtype={kvd}: KV pools hold {pool_bytes} B, "
+                 f"the scheduler prices {priced} B")
+        streams = [list(r.generated) for r in reqs]
+        n_tok = sum(len(x) for x in streams)
+        same = sum(a == b for x, y in zip(streams, base_streams)
+                   for a, b in zip(x, y))
+        lens, more_new = more
+        extra = [engine.submit(rng.integers(0, engine.cfg.vocab_size, n),
+                               GenerateConfig(max_new_tokens=more_new))
+                 for n in lens]
+        err = None
+        while engine._sched.has_work():
+            if err is None and len(engine._sched.decode_requests()) == 3:
+                err, scale = check(engine)
+            engine.step()
+        if err is None or any(len(r.generated) != more_new for r in extra):
+            fail(f"the {label} kv_dtype={kvd} logits-check batch did not run "
+                 "as planned")
+        if err > logits_atol:
+            fail(f"{label} kv_dtype={kvd}: logits differ from the plain "
+                 f"attention by {err} > {logits_atol}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        acc = (f", acceptance rate "
+               f"{engine.aggregate_ledger().acceptance_rate:.3f}"
+               if hasattr(engine, "verify_steps") else "")
+        print(f"[quant] {label} kv_dtype={kvd} {card}: {len(reqs)} requests "
+              f"finished; launches {dict((k, v) for k, v in got.items() if v)}"
+              f" = layers x steps, 0 ring launches; KV pools {pool_bytes} B ="
+              f" kv_line_bytes {kv_line_bytes(engine.cfg)} x {kv.num_pages} "
+              f"pages x {kv.page_size} (bf16 pools {base_pool_bytes} B, "
+              f"{base_pool_bytes / pool_bytes:.4f}x); logits vs plain "
+              f"attention max abs "
+              f"diff {err:.4e} (atol {logits_atol}; max |logit| {scale:.3f})")
+        print(f"[quant] {label} kv_dtype={kvd} {card}: {n_tok / wall:.2f} "
+              f"tok/s (bf16 pools {base_rate:.2f}); peak memory "
+              f"{peak_gb:.2f} GB (bf16 pools {base_peak:.2f} GB); greedy "
+              f"tokens equal to the bf16 streams {same}/{n_tok} "
+              f"({same / n_tok:.3f}){acc}")
+        del engine
+
+
+def pool_nbytes(engine) -> int:
+    """Device bytes of an engine's KV pools (every leaf, scales too)."""
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(engine._kv.pools))
+
+
 def pool_copies(kv):
     """Copies of every page pool of a PagedKVCache (same tree)."""
     return [{b: {k: t.clone() for k, t in blk.items()}
@@ -1436,7 +1747,7 @@ def verify_logits_check(torch, np, engine, ops, op, counter, rng):
 def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
                max_len: int, new_tokens: int, verify_counter,
                decode_counter, decode_op: str, logits_atol: float,
-               min_accept=None) -> int:
+               min_accept=None, kv_dtypes=KV_DTYPES) -> int:
     """Speculative decoding (SpecEngine with ``scfg``) against the plain
     engine on the same prompts (PROMPT_LENS) and weights.  Every request
     must finish; the verify kernel must launch once per target layer and
@@ -1448,8 +1759,10 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     sequential plain-attention decode steps within ``logits_atol``;
     acceptance must reach ``min_accept`` when given; then
     :func:`pipeline_runs` serves the same prompts with ``pipeline`` off and
-    double.  Returns the verify kernel's launch count of the measured run
-    and the ring launch counts of the first double run."""
+    double, and :func:`quantized_runs` with the target's KV pools of each
+    of ``kv_dtypes`` (the draft model keeps its own).  Returns the verify
+    kernel's launch count of the measured run and the ring launch counts
+    of the first double run."""
     from repro_torch.kernels import ops
     from repro_torch.models import decode_step_paged
     from repro_torch.obs.clock import now
@@ -1604,7 +1917,46 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
         lambda pl: SpecEngine(cfg, params,
                               dataclasses.replace(ecfg, pipeline=pl), scfg),
         prompts, gen, want_off)
+    quantized_runs(
+        torch, np, card, label,
+        lambda kvd: SpecEngine(cfg, params,
+                               dataclasses.replace(ecfg, kv_dtype=kvd), scfg),
+        prompts, gen, kv_dtypes, want_off,
+        ([list(r.generated) for r in reqs], n_tok / wall, peak_gb,
+         pool_nbytes(engine)),
+        lambda e: verify_logits_check(torch, np, e, ops, decode_op,
+                                      verify_counter, rng),
+        logits_atol, more=((20, 40, 60), 16))
     return v_launches, rings
+
+
+def print_build_summary(name: str, log: str) -> None:
+    """One line per source from nvcc's ``-Xptxas -v`` report: kernel
+    instantiations, their register range, and each one that spills."""
+    import re
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            spills.append(f"{fn}: {m.group(1)} B stores, {m.group(2)} B "
+                          "loads")
+    print(f"[build] {name}: {len(regs)} kernel instantiations, "
+          f"{min(regs or [0])}-{max(regs or [0])} registers, "
+          f"{len(spills)} spilling")
+    for sp in spills:
+        print(f"[build] {name} spills: {sp}")
+
+
+def phase_time(label: str, t0: float) -> float:
+    """Print a phase's wall time; returns the clock for the next phase."""
+    t1 = time.perf_counter()
+    print(f"[time] {label}: {t1 - t0:.1f} s")
+    return t1
 
 
 def main() -> int:
@@ -1631,9 +1983,7 @@ def main() -> int:
     print(f"[build] {', '.join(sources)} built in "
           f"{time.perf_counter() - t0:.1f} s (nvcc sm_90a)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        print_build_summary(name, log)
 
     qwen = get_config("qwen3-0.6b")
     if (qwen.n_layers, qwen.d_model, qwen.n_kv_heads, qwen.hd) != (
@@ -1652,19 +2002,23 @@ def main() -> int:
                                 qwen.vocab_size):
         fail(f"unexpected qwen3-14b config {q14}")
 
+    t_phase = phase_time("build", t0)
     entry, gqa_ring = kernel_phase(torch, np, pa)
     verify_entry, gqa_ring_verify_ms = gqa_verify_kernel_phase(torch, np, pa)
     mla_entry, mla_ring = mla_kernel_phase(torch, np, pa)
     mla_verify_entry, mla_ring_verify_ms = mla_verify_kernel_phase(
         torch, np, pa)
     # the ring kernels do the decode kernels' work at the decode phases'
-    # inputs: the same plain version, library call and bound (this run's)
+    # inputs: the same plain version, library call and bound (this run's);
+    # they have no scale branch, so no quantized fields
     ring_entry = dict(
-        entry, name="paged_attention_ring",
+        {k: v for k, v in entry.items() if k not in KV_DTYPES},
+        name="paged_attention_ring",
         source="src/repro_torch/csrc/paged_attention_ring.cu",
         replaces="src/repro/kernels/paged_attention.py:803", **gqa_ring)
     mla_ring_entry = dict(
-        mla_entry, name="mla_paged_attention_ring",
+        {k: v for k, v in mla_entry.items() if k not in KV_DTYPES},
+        name="mla_paged_attention_ring",
         source="src/repro_torch/csrc/mla_paged_attention_ring.cu",
         replaces="src/repro/kernels/paged_attention.py:932", **mla_ring)
     print(f"[kernel] ring vs off at the same inputs (bf16): GQA decode "
@@ -1673,8 +2027,11 @@ def main() -> int:
           f"decode {mla_ring['ms']:.4f} vs {mla_entry['ms']:.4f} ms, MLA "
           f"verify {mla_ring_verify_ms:.4f} vs {mla_verify_entry['ms']:.4f} "
           "ms")
+    t_phase = phase_time("paged-attention kernel phases", t_phase)
     prim_entries, roof = primitives_phase(torch, np, card)
+    t_phase = phase_time("primitive study", t_phase)
     npa_entries = norm_pool_attention_phase(torch, np, card, roof)
+    t_phase = phase_time("layernorm / pooling / attention", t_phase)
 
     params = make_params(torch, qwen)
     entry["launches"], rings = engine_phase(
@@ -1692,6 +2049,7 @@ def main() -> int:
                decode_op="paged_attention", logits_atol=LOGITS_ATOL,
                min_accept=SELF_DRAFT_MIN_ACCEPT)
     del params
+    t_phase = phase_time("qwen3-0.6b engine and self-draft paths", t_phase)
 
     params = make_params(torch, deepseek)
     mla_entry["launches"], rings = engine_phase(
@@ -1708,6 +2066,7 @@ def main() -> int:
         decode_counter=pa.mla_paged_attention,
         decode_op="mla_paged_attention", logits_atol=DS_LOGITS_ATOL)
     del params
+    t_phase = phase_time("deepseek-v2 engine and n-gram paths", t_phase)
 
     draft = make_params(torch, qwen)
     params = make_params(torch, q14)
@@ -1718,8 +2077,9 @@ def main() -> int:
         label="qwen3-14b + qwen3-0.6b draft", max_len=MAX_LEN,
         new_tokens=NEW_TOKENS, verify_counter=pa.paged_attention_verify,
         decode_counter=pa.paged_attention, decode_op="paged_attention",
-        logits_atol=SPEC_LOGITS_ATOL)
+        logits_atol=SPEC_LOGITS_ATOL, kv_dtypes=("int8",))
     del params, draft
+    phase_time("qwen3-14b speculative path", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

@@ -4,7 +4,9 @@ A tree from the JAX package — ``jax.tree.map(np.asarray, params)`` —
 becomes torch tensors with the same nesting (dicts, the per-segment list,
 stacked ``(reps, ...)`` leaves) and the same dtypes, so the port's
 functions can be fed the reference's exact weights.  bfloat16 crosses as
-its raw 16-bit pattern (numpy has no native bfloat16 that torch reads).
+its raw 16-bit pattern and float8_e4m3fn (quantized KV pools) as its raw
+byte (numpy has neither type natively; ``ml_dtypes``, which JAX brings,
+gives them to numpy).
 """
 
 from __future__ import annotations
@@ -17,19 +19,28 @@ import torch
 from .models.params import tree_map
 
 
+# dtypes numpy holds only through ml_dtypes: name -> (torch dtype, the
+# same-width integer the bits cross as)
+_RAW = {"bfloat16": (torch.bfloat16, np.int16),
+        "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8)}
+
+
 def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
-        return t.view(torch.bfloat16).to(device)
+    if a.dtype.name in _RAW:
+        dt, raw = _RAW[a.dtype.name]
+        t = torch.from_numpy(np.array(a, copy=True).view(raw))
+        return t.view(dt).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy bfloat16; present wherever JAX is
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    for name, (dt, raw) in _RAW.items():
+        if t.dtype == dt:
+            import ml_dtypes  # numpy bfloat16 / fp8; present wherever JAX is
+            return t.view(getattr(torch, np.dtype(raw).name)).numpy().view(
+                getattr(ml_dtypes, name))
     return t.numpy()
 
 

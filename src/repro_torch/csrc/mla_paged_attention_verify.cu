@@ -57,21 +57,31 @@
 // * nothing crosses blocks; idle lanes (every entry trash page 0, pos 0)
 //   read trash lines and give finite output.
 // With T = 1 this is the decode kernel's arithmetic, in the same order.
+// Quantized pools (int8 / fp8 e4m3 codes, float32 scales (P, page) for
+// the latent and the rope pool) take the decode kernel's scale branch:
+// each line is dequantized as float(code) * scale while the tile is
+// staged, as in the `quantized` branch of the Pallas
+// `_mla_paged_verify_kernel` (csrc/kv_load.cuh).
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
-//   int mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool,
-//                                  block_tables, pos, out, batch, n_tokens,
-//                                  n_heads, latent_dim, rope_dim, page_size,
-//                                  n_blocks, scale, dtype /*0 f32, 1 bf16*/,
+//   int mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool, c_scale,
+//                                  r_scale, block_tables, pos, out, batch,
+//                                  n_tokens, n_heads, latent_dim, rope_dim,
+//                                  page_size, n_blocks, scale,
+//                                  dtype /*0 f32, 1 bf16*/,
+//                                  kv_dtype /*0 as q, 1 int8, 2 fp8*/,
 //                                  stream)
 // q_lat / out are (batch, n_tokens, n_heads, latent_dim), q_rope
-// (batch, n_tokens, n_heads, rope_dim); returns cudaGetLastError() after
+// (batch, n_tokens, n_heads, rope_dim); the scale pointers are null
+// unless kv_dtype quantizes; returns cudaGetLastError() after
 // the launch (cudaErrorInvalidValue for a latent / rope dim or dtype the
 // kernel is not built for).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_load.cuh"
 
 namespace {
 
@@ -82,27 +92,6 @@ constexpr int kHeadsPerBlock = kWarps / kColSplits * kHeadsPerWarp;
 constexpr int kTileLines = 16;  // lines staged per step
 constexpr float kNegInf = -1e30f;
 static_assert(kHeadsPerWarp * kTileLines == 32, "one score per lane");
-
-template <typename T> struct VecWidth;
-template <> struct VecWidth<float> { static constexpr int N = 4; };
-template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
-
-// 16-byte global load of VecWidth<T>::N elements, widened to float.
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -118,15 +107,19 @@ __device__ __forceinline__ float dot4(const float* q, float4 c) {
   return q[0] * c.x + q[1] * c.y + q[2] * c.z + q[3] * c.w;
 }
 
-template <typename T, int R, int DR>
+// T: the query / output dtype; S: the pools' storage type (T, int8_t or
+// __nv_fp8_e4m3)
+template <typename T, typename S, int R, int DR>
 __global__ void __launch_bounds__(kWarps * 32)
 mla_verify_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
-                  const T* __restrict__ c_pool, const T* __restrict__ r_pool,
+                  const S* __restrict__ c_pool, const S* __restrict__ r_pool,
+                  const float* __restrict__ c_scale,
+                  const float* __restrict__ r_scale,
                   const int32_t* __restrict__ block_tables,
                   const int32_t* __restrict__ pos, T* __restrict__ out,
                   int n_tokens, int n_heads, int page_size, int n_blocks,
                   float scale) {
-  constexpr int VG = VecWidth<T>::N;   // elements per 16-byte global load
+  constexpr int VG = kv_load::StageVec<S>::N;  // elements per line load
   constexpr int GC = R / VG;           // global vectors per latent line
   constexpr int GR = DR / VG;          // global vectors per rope line
   constexpr int CV = R / 4;            // float4 slots per latent line
@@ -134,7 +127,7 @@ mla_verify_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
   constexpr int RV = DR / 4;           // float4 slots per rope line
   constexpr int NC = (CVS + 31) / 32;  // latent float4 slots per lane
   constexpr int NR = (RV + 31) / 32;   // rope float4 slots per lane
-  static_assert(R % VG == 0 && DR % VG == 0, "dims must tile 16 bytes");
+  static_assert(R % VG == 0 && DR % VG == 0, "dims must tile the loads");
   static_assert(CV % kColSplits == 0, "latent dim must split in halves");
 
   __shared__ __align__(16) float c_s[kTileLines][R];
@@ -192,7 +185,8 @@ mla_verify_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
   const int32_t* bt = block_tables + (size_t)b * n_blocks;
 
   for (int t0 = 0; t0 < n_lines; t0 += kTileLines) {
-    // stage lines t0 .. t0+15 (zeros past the live ones) as float32
+    // stage lines t0 .. t0+15 (zeros past the live ones) as float32,
+    // dequantized with their line's scale when the pools are quantized
     for (int i = threadIdx.x; i < kTileLines * (GC + GR); i += blockDim.x) {
       const int line = i / (GC + GR);
       const int v = i % (GC + GR);
@@ -201,8 +195,12 @@ mla_verify_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
       if (t < n_lines) {
         const int page = __ldg(bt + t / page_size);
         const size_t row = (size_t)page * page_size + t % page_size;
-        if (v < GC) load_vec(c_pool + row * R + v * VG, f);
-        else load_vec(r_pool + row * DR + (v - GC) * VG, f);
+        if (v < GC)
+          kv_load::load_line<VG>(c_pool + row * R + v * VG,
+                                 kv_load::line_scale<S>(c_scale, row), f);
+        else
+          kv_load::load_line<VG>(r_pool + row * DR + (v - GC) * VG,
+                                 kv_load::line_scale<S>(r_scale, row), f);
       } else {
 #pragma unroll
         for (int j = 0; j < VG; ++j) f[j] = 0.f;
@@ -343,30 +341,40 @@ mla_verify_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
   }
 }
 
-template <typename T, int R, int DR>
-void launch(const void* ql, const void* qr, const void* c, const void* r,
-            const void* bt, const void* pos, void* out, int batch,
-            int n_tokens, int n_heads, int page_size, int n_blocks,
-            float scale, cudaStream_t stream) {
-  const dim3 grid(batch, (n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock,
-                  n_tokens);
-  mla_verify_kernel<T, R, DR><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(ql), static_cast<const T*>(qr),
-      static_cast<const T*>(c), static_cast<const T*>(r),
-      static_cast<const int32_t*>(bt), static_cast<const int32_t*>(pos),
-      static_cast<T*>(out), n_tokens, n_heads, page_size, n_blocks, scale);
+// the kernel's pointer and shape arguments, carried through the dispatch
+struct Args {
+  const void* ql;
+  const void* qr;
+  const void* c;
+  const void* r;
+  const float* cs;
+  const float* rs;
+  const void* bt;
+  const void* pos;
+  void* out;
+  int batch, n_tokens, n_heads, page_size, n_blocks;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename S, int R, int DR>
+void launch(const Args& a) {
+  const dim3 grid(a.batch,
+                  (a.n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock,
+                  a.n_tokens);
+  mla_verify_kernel<T, S, R, DR><<<grid, kWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.ql), static_cast<const T*>(a.qr),
+      static_cast<const S*>(a.c), static_cast<const S*>(a.r), a.cs, a.rs,
+      static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
+      static_cast<T*>(a.out), a.n_tokens, a.n_heads, a.page_size,
+      a.n_blocks, a.scale);
 }
 
-template <typename T, int R>
-bool dispatch_rope(int rope_dim, const void* ql, const void* qr,
-                   const void* c, const void* r, const void* bt,
-                   const void* pos, void* out, int batch, int n_tokens,
-                   int n_heads, int page_size, int n_blocks, float scale,
-                   cudaStream_t stream) {
+template <typename T, typename S, int R>
+bool dispatch_rope(int rope_dim, const Args& a) {
 #define MLA_DR(DR)                                                          \
   case DR:                                                                  \
-    launch<T, R, DR>(ql, qr, c, r, bt, pos, out, batch, n_tokens, n_heads,  \
-                     page_size, n_blocks, scale, stream);                   \
+    launch<T, S, R, DR>(a);                                                 \
     return true;
   switch (rope_dim) {
     MLA_DR(8)
@@ -379,17 +387,11 @@ bool dispatch_rope(int rope_dim, const void* ql, const void* qr,
 #undef MLA_DR
 }
 
-template <typename T>
-bool dispatch_latent(int latent_dim, int rope_dim, const void* ql,
-                     const void* qr, const void* c, const void* r,
-                     const void* bt, const void* pos, void* out, int batch,
-                     int n_tokens, int n_heads, int page_size, int n_blocks,
-                     float scale, cudaStream_t stream) {
+template <typename T, typename S>
+bool dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
 #define MLA_R(R)                                                            \
   case R:                                                                   \
-    return dispatch_rope<T, R>(rope_dim, ql, qr, c, r, bt, pos, out, batch, \
-                               n_tokens, n_heads, page_size, n_blocks,      \
-                               scale, stream);
+    return dispatch_rope<T, S, R>(rope_dim, a);
   switch (latent_dim) {
     MLA_R(32)
     MLA_R(64)
@@ -402,27 +404,44 @@ bool dispatch_latent(int latent_dim, int rope_dim, const void* ql,
 #undef MLA_R
 }
 
+template <typename T>
+bool dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
+                    const Args& a) {
+  switch (kv_dtype) {
+    case kv_load::kSame:
+      return dispatch_latent<T, T>(latent_dim, rope_dim, a);
+    case kv_load::kInt8:
+      return dispatch_latent<T, int8_t>(latent_dim, rope_dim, a);
+    case kv_load::kFp8:
+      return dispatch_latent<T, __nv_fp8_e4m3>(latent_dim, rope_dim, a);
+    default:
+      return false;
+  }
+}
+
 }  // namespace
 
 extern "C" int mla_paged_attention_verify(
     const void* q_lat, const void* q_rope, const void* c_pool,
-    const void* r_pool, const void* block_tables, const void* pos, void* out,
-    int batch, int n_tokens, int n_heads, int latent_dim, int rope_dim,
-    int page_size, int n_blocks, float scale, int dtype, void* stream) {
+    const void* r_pool, const void* c_scale, const void* r_scale,
+    const void* block_tables, const void* pos, void* out, int batch,
+    int n_tokens, int n_heads, int latent_dim, int rope_dim, int page_size,
+    int n_blocks, float scale, int dtype, int kv_dtype, void* stream) {
   if (batch <= 0 || n_tokens <= 0 || n_heads <= 0 || page_size <= 0
       || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_dtype != kv_load::kSame && (c_scale == nullptr || r_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q_lat, q_rope, c_pool, r_pool,
+               static_cast<const float*>(c_scale),
+               static_cast<const float*>(r_scale), block_tables, pos, out,
+               batch, n_tokens, n_heads, page_size, n_blocks, scale,
+               static_cast<cudaStream_t>(stream)};
   bool ok = false;
   if (dtype == 0) {
-    ok = dispatch_latent<float>(latent_dim, rope_dim, q_lat, q_rope, c_pool,
-                                r_pool, block_tables, pos, out, batch,
-                                n_tokens, n_heads, page_size, n_blocks,
-                                scale, s);
+    ok = dispatch_store<float>(kv_dtype, latent_dim, rope_dim, a);
   } else if (dtype == 1) {
-    ok = dispatch_latent<__nv_bfloat16>(
-        latent_dim, rope_dim, q_lat, q_rope, c_pool, r_pool, block_tables,
-        pos, out, batch, n_tokens, n_heads, page_size, n_blocks, scale, s);
+    ok = dispatch_store<__nv_bfloat16>(kv_dtype, latent_dim, rope_dim, a);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

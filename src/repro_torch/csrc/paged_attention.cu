@@ -13,6 +13,16 @@
 // ridge.  At 4 slots x 8 KV heads x 256 context x hd 128 in bf16 that is
 // ~4.2 MB, ~1.3 us at 3.35 TB/s.
 //
+// Quantized pools (int8 / fp8 e4m3 codes, csrc/kv_load.cuh): the pool's
+// storage type S is the kernel's second template parameter; a lane still
+// covers VEC elements of the query's dtype, loading VEC codes (8 bytes
+// beside a bf16 query, 4 beside an f32 one), and each stream reads its
+// line's K and V scales (k_scale / v_scale (P, page, KV) float32) once;
+// every element dequantizes as float(code) * scale before the dot
+// product, the Pallas kernel's op order (paged_attention.py, the
+// `quantized` branch of `_paged_decode_kernel`).  The line bytes shrink
+// to hd + 4 per K and per V; 16-byte code loads are later work.
+//
 // Design for that bound, kept simple for a first kernel:
 // * one block per (KV head, slot); it reads its own block-table row and
 //   position (no scalar prefetch on a GPU) and walks only the live lines,
@@ -31,52 +41,45 @@
 // cp.async page pipelines are later work.
 //
 // C interface (bound with ctypes by repro_torch/kernels/build.py):
-//   int paged_attention_decode(q, k_pool, v_pool, block_tables, pos, out,
-//                              batch, kv_heads, groups, head_dim,
-//                              page_size, n_blocks, scale, soft_cap,
-//                              dtype /*0 f32, 1 bf16*/, stream)
-// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a head_dim / groups / dtype the kernel is not built for).
+//   int paged_attention_decode(q, k_pool, v_pool, k_scale, v_scale,
+//                              block_tables, pos, out, batch, kv_heads,
+//                              groups, head_dim, page_size, n_blocks,
+//                              scale, soft_cap, dtype /*0 f32, 1 bf16*/,
+//                              kv_dtype /*0 as q, 1 int8, 2 fp8 e4m3*/,
+//                              stream)
+// (the scale pointers are null unless kv_dtype quantizes) returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// head_dim / groups / dtype the kernel is not built for).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_load.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr float kNegInf = -1e30f;
 
+// elements of the query's dtype per lane vector (16 bytes of T)
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
-
-// 16-byte load of VecWidth<T>::N elements, widened to float.
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int HD, int GMAX>
+// T: the query / output dtype; S: the pools' storage type (T, int8_t or
+// __nv_fp8_e4m3)
+template <typename T, typename S, int HD, int GMAX>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
+                    const S* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int32_t* __restrict__ block_tables,
                     const int32_t* __restrict__ pos, T* __restrict__ out,
                     int kv_heads, int groups, int page_size, int n_blocks,
@@ -111,7 +114,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       if (g < groups) {
-        load_vec(qb + g * HD + elem(v), &qr[g][v * VEC]);
+        kv_load::widen<VEC>(qb + g * HD + elem(v), &qr[g][v * VEC]);
       } else {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) qr[g][v * VEC + i] = 0.f;
@@ -141,12 +144,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     float kf[EPL], vf[EPL];
     if (live) {
       const int page = __ldg(bt + t / page_size);
-      const size_t base = ((size_t)page * page_size + t % page_size)
-                          * line_stride + (size_t)h * HD;
+      const size_t line = (size_t)page * page_size + t % page_size;
+      const size_t base = line * line_stride + (size_t)h * HD;
+      const float ks = kv_load::line_scale<S>(k_scale, line * kv_heads + h);
+      const float vs = kv_load::line_scale<S>(v_scale, line * kv_heads + h);
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        load_vec(k_pool + base + elem(v), &kf[v * VEC]);
-        load_vec(v_pool + base + elem(v), &vf[v * VEC]);
+        kv_load::load_line<VEC>(k_pool + base + elem(v), ks, &kf[v * VEC]);
+        kv_load::load_line<VEC>(v_pool + base + elem(v), vs, &vf[v * VEC]);
       }
     } else {
 #pragma unroll
@@ -205,27 +210,36 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int HD, int GMAX>
-void launch(const void* q, const void* k, const void* v, const void* bt,
-            const void* pos, void* out, int batch, int kv_heads, int groups,
-            int page_size, int n_blocks, float scale, float soft_cap,
-            cudaStream_t stream) {
-  const dim3 grid(kv_heads, batch);
-  paged_decode_kernel<T, HD, GMAX><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(pos), static_cast<T*>(out), kv_heads,
-      groups, page_size, n_blocks, scale, soft_cap);
+// the kernel's pointer and shape arguments, carried through the dispatch
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const void* bt;
+  const void* pos;
+  void* out;
+  int batch, kv_heads, groups, page_size, n_blocks;
+  float scale, soft_cap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename S, int HD, int GMAX>
+void launch(const Args& a) {
+  const dim3 grid(a.kv_heads, a.batch);
+  paged_decode_kernel<T, S, HD, GMAX><<<grid, kWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ks, a.vs,
+      static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
+      static_cast<T*>(a.out), a.kv_heads, a.groups, a.page_size, a.n_blocks,
+      a.scale, a.soft_cap);
 }
 
-template <typename T, int HD>
-bool dispatch_groups(const void* q, const void* k, const void* v,
-                     const void* bt, const void* pos, void* out, int batch,
-                     int kv_heads, int groups, int page_size, int n_blocks,
-                     float scale, float soft_cap, cudaStream_t stream) {
-#define PA_LAUNCH(GM)                                                       \
-  launch<T, HD, GM>(q, k, v, bt, pos, out, batch, kv_heads, groups,         \
-                    page_size, n_blocks, scale, soft_cap, stream)
+template <typename T, typename S, int HD>
+bool dispatch_groups(const Args& a) {
+  const int groups = a.groups;
+#define PA_LAUNCH(GM) launch<T, S, HD, GM>(a)
   if (groups <= 1) { PA_LAUNCH(1); return true; }
   if (groups <= 2) { PA_LAUNCH(2); return true; }
   if (groups <= 4) { PA_LAUNCH(4); return true; }
@@ -234,17 +248,11 @@ bool dispatch_groups(const void* q, const void* k, const void* v,
   return false;
 }
 
-template <typename T>
-bool dispatch_head_dim(int head_dim, const void* q, const void* k,
-                       const void* v, const void* bt, const void* pos,
-                       void* out, int batch, int kv_heads, int groups,
-                       int page_size, int n_blocks, float scale,
-                       float soft_cap, cudaStream_t stream) {
+template <typename T, typename S>
+bool dispatch_head_dim(int head_dim, const Args& a) {
 #define PA_HD(HD)                                                           \
   case HD:                                                                  \
-    return dispatch_groups<T, HD>(q, k, v, bt, pos, out, batch, kv_heads,   \
-                                  groups, page_size, n_blocks, scale,       \
-                                  soft_cap, stream);
+    return dispatch_groups<T, S, HD>(a);
   switch (head_dim) {
     PA_HD(16)
     PA_HD(32)
@@ -257,25 +265,41 @@ bool dispatch_head_dim(int head_dim, const void* q, const void* k,
 #undef PA_HD
 }
 
+template <typename T>
+bool dispatch_store(int kv_dtype, int head_dim, const Args& a) {
+  switch (kv_dtype) {
+    case kv_load::kSame:
+      return dispatch_head_dim<T, T>(head_dim, a);
+    case kv_load::kInt8:
+      return dispatch_head_dim<T, int8_t>(head_dim, a);
+    case kv_load::kFp8:
+      return dispatch_head_dim<T, __nv_fp8_e4m3>(head_dim, a);
+    default:
+      return false;
+  }
+}
+
 }  // namespace
 
 extern "C" int paged_attention_decode(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* pos, void* out, int batch,
-    int kv_heads, int groups, int head_dim, int page_size, int n_blocks,
-    float scale, float soft_cap, int dtype, void* stream) {
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* pos, void* out, int batch, int kv_heads, int groups,
+    int head_dim, int page_size, int n_blocks, float scale, float soft_cap,
+    int dtype, int kv_dtype, void* stream) {
   if (batch <= 0 || kv_heads <= 0 || page_size <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_dtype != kv_load::kSame && (k_scale == nullptr || v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), block_tables, pos, out,
+               batch, kv_heads, groups, page_size, n_blocks, scale, soft_cap,
+               static_cast<cudaStream_t>(stream)};
   bool ok = false;
   if (dtype == 0) {
-    ok = dispatch_head_dim<float>(head_dim, q, k_pool, v_pool, block_tables,
-                                  pos, out, batch, kv_heads, groups,
-                                  page_size, n_blocks, scale, soft_cap, s);
+    ok = dispatch_store<float>(kv_dtype, head_dim, a);
   } else if (dtype == 1) {
-    ok = dispatch_head_dim<__nv_bfloat16>(
-        head_dim, q, k_pool, v_pool, block_tables, pos, out, batch, kv_heads,
-        groups, page_size, n_blocks, scale, soft_cap, s);
+    ok = dispatch_store<__nv_bfloat16>(kv_dtype, head_dim, a);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -35,21 +35,32 @@
 // * the row tiles of one (slot, KV head) each read the slot's lines; the
 //   repeats come from L2 (a slot's K/V per layer is at most a few MB).
 // With T = 1 this is the decode kernel's arithmetic, in the same order.
+// Quantized pools (int8 / fp8 e4m3 codes with float32 scales (P, page,
+// KV)) take the decode kernel's scale branch (csrc/kv_load.cuh): VEC codes
+// per lane vector, the line's K and V scales read once per stream, each
+// element dequantized as float(code) * scale before the dot product, as
+// in the Pallas kernel's `quantized` branch of `_paged_verify_kernel`.
 // Split-K over pages, TMA / cp.async page rings and tensor cores for the
 // (T * G) x page score tile are later work.
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
-//   int paged_attention_verify(q, k_pool, v_pool, block_tables, pos, out,
-//                              batch, n_tokens, kv_heads, groups,
-//                              head_dim, page_size, n_blocks, scale,
-//                              soft_cap, dtype /*0 f32, 1 bf16*/, stream)
-// q and out are (batch, n_tokens, kv_heads, groups, head_dim); returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// head_dim or dtype the kernel is not built for).
+//   int paged_attention_verify(q, k_pool, v_pool, k_scale, v_scale,
+//                              block_tables, pos, out, batch, n_tokens,
+//                              kv_heads, groups, head_dim, page_size,
+//                              n_blocks, scale, soft_cap,
+//                              dtype /*0 f32, 1 bf16*/,
+//                              kv_dtype /*0 as q, 1 int8, 2 fp8 e4m3*/,
+//                              stream)
+// q and out are (batch, n_tokens, kv_heads, groups, head_dim); the scale
+// pointers are null unless kv_dtype quantizes; returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a head_dim or dtype the
+// kernel is not built for).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_load.cuh"
 
 namespace {
 
@@ -57,38 +68,25 @@ constexpr int kWarps = 4;
 constexpr int kRowTile = 8;   // query rows per block
 constexpr float kNegInf = -1e30f;
 
+// elements of the query's dtype per lane vector (16 bytes of T)
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
-
-// 16-byte load of VecWidth<T>::N elements, widened to float.
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// RMAX: rows held per block (a power of two <= kRowTile, >= the rows of
-// any tile of this launch).
-template <typename T, int HD, int RMAX>
+// T: the query / output dtype; S: the pools' storage type (T, int8_t or
+// __nv_fp8_e4m3); RMAX: rows held per block (a power of two <= kRowTile,
+// >= the rows of any tile of this launch).
+template <typename T, typename S, int HD, int RMAX>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_verify_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
+                    const S* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int32_t* __restrict__ block_tables,
                     const int32_t* __restrict__ pos, T* __restrict__ out,
                     int n_tokens, int kv_heads, int groups, int page_size,
@@ -134,7 +132,7 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       if (i < n_rows) {
-        load_vec(q + row_off(i) + elem(v), &qr[i][v * VEC]);
+        kv_load::widen<VEC>(q + row_off(i) + elem(v), &qr[i][v * VEC]);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) qr[i][v * VEC + e] = 0.f;
@@ -165,12 +163,14 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     float kf[EPL], vf[EPL];
     if (live) {
       const int page = __ldg(bt + t / page_size);
-      const size_t base = ((size_t)page * page_size + t % page_size)
-                          * line_stride + (size_t)h * HD;
+      const size_t line = (size_t)page * page_size + t % page_size;
+      const size_t base = line * line_stride + (size_t)h * HD;
+      const float ks = kv_load::line_scale<S>(k_scale, line * kv_heads + h);
+      const float vs = kv_load::line_scale<S>(v_scale, line * kv_heads + h);
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        load_vec(k_pool + base + elem(v), &kf[v * VEC]);
-        load_vec(v_pool + base + elem(v), &vf[v * VEC]);
+        kv_load::load_line<VEC>(k_pool + base + elem(v), ks, &kf[v * VEC]);
+        kv_load::load_line<VEC>(v_pool + base + elem(v), vs, &vf[v * VEC]);
       }
     } else {
 #pragma unroll
@@ -228,30 +228,37 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int HD, int RMAX>
-void launch(const void* q, const void* k, const void* v, const void* bt,
-            const void* pos, void* out, int batch, int n_tokens,
-            int kv_heads, int groups, int page_size, int n_blocks,
-            float scale, float soft_cap, cudaStream_t stream) {
-  const int rows = n_tokens * groups;
-  const dim3 grid(kv_heads, batch, (rows + RMAX - 1) / RMAX);
-  paged_verify_kernel<T, HD, RMAX><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(pos), static_cast<T*>(out), n_tokens,
-      kv_heads, groups, page_size, n_blocks, scale, soft_cap);
+// the kernel's pointer and shape arguments, carried through the dispatch
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const void* bt;
+  const void* pos;
+  void* out;
+  int batch, n_tokens, kv_heads, groups, page_size, n_blocks;
+  float scale, soft_cap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename S, int HD, int RMAX>
+void launch(const Args& a) {
+  const int rows = a.n_tokens * a.groups;
+  const dim3 grid(a.kv_heads, a.batch, (rows + RMAX - 1) / RMAX);
+  paged_verify_kernel<T, S, HD, RMAX><<<grid, kWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ks, a.vs,
+      static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
+      static_cast<T*>(a.out), a.n_tokens, a.kv_heads, a.groups, a.page_size,
+      a.n_blocks, a.scale, a.soft_cap);
 }
 
-template <typename T, int HD>
-bool dispatch_rows(const void* q, const void* k, const void* v,
-                   const void* bt, const void* pos, void* out, int batch,
-                   int n_tokens, int kv_heads, int groups, int page_size,
-                   int n_blocks, float scale, float soft_cap,
-                   cudaStream_t stream) {
-#define PV_LAUNCH(RM)                                                       \
-  launch<T, HD, RM>(q, k, v, bt, pos, out, batch, n_tokens, kv_heads,       \
-                    groups, page_size, n_blocks, scale, soft_cap, stream)
-  const int rows = n_tokens * groups;
+template <typename T, typename S, int HD>
+bool dispatch_rows(const Args& a) {
+#define PV_LAUNCH(RM) launch<T, S, HD, RM>(a)
+  const int rows = a.n_tokens * a.groups;
   if (rows <= 1) { PV_LAUNCH(1); return true; }
   if (rows <= 2) { PV_LAUNCH(2); return true; }
   if (rows <= 4) { PV_LAUNCH(4); return true; }
@@ -260,17 +267,11 @@ bool dispatch_rows(const void* q, const void* k, const void* v,
 #undef PV_LAUNCH
 }
 
-template <typename T>
-bool dispatch_head_dim(int head_dim, const void* q, const void* k,
-                       const void* v, const void* bt, const void* pos,
-                       void* out, int batch, int n_tokens, int kv_heads,
-                       int groups, int page_size, int n_blocks, float scale,
-                       float soft_cap, cudaStream_t stream) {
+template <typename T, typename S>
+bool dispatch_head_dim(int head_dim, const Args& a) {
 #define PV_HD(HD)                                                           \
   case HD:                                                                  \
-    return dispatch_rows<T, HD>(q, k, v, bt, pos, out, batch, n_tokens,     \
-                                kv_heads, groups, page_size, n_blocks,      \
-                                scale, soft_cap, stream);
+    return dispatch_rows<T, S, HD>(a);
   switch (head_dim) {
     PV_HD(16)
     PV_HD(32)
@@ -283,27 +284,42 @@ bool dispatch_head_dim(int head_dim, const void* q, const void* k,
 #undef PV_HD
 }
 
+template <typename T>
+bool dispatch_store(int kv_dtype, int head_dim, const Args& a) {
+  switch (kv_dtype) {
+    case kv_load::kSame:
+      return dispatch_head_dim<T, T>(head_dim, a);
+    case kv_load::kInt8:
+      return dispatch_head_dim<T, int8_t>(head_dim, a);
+    case kv_load::kFp8:
+      return dispatch_head_dim<T, __nv_fp8_e4m3>(head_dim, a);
+    default:
+      return false;
+  }
+}
+
 }  // namespace
 
 extern "C" int paged_attention_verify(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* pos, void* out, int batch,
-    int n_tokens, int kv_heads, int groups, int head_dim, int page_size,
-    int n_blocks, float scale, float soft_cap, int dtype, void* stream) {
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* pos, void* out, int batch, int n_tokens, int kv_heads,
+    int groups, int head_dim, int page_size, int n_blocks, float scale,
+    float soft_cap, int dtype, int kv_dtype, void* stream) {
   if (batch <= 0 || n_tokens <= 0 || kv_heads <= 0 || groups <= 0
       || page_size <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_dtype != kv_load::kSame && (k_scale == nullptr || v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), block_tables, pos, out,
+               batch, n_tokens, kv_heads, groups, page_size, n_blocks, scale,
+               soft_cap, static_cast<cudaStream_t>(stream)};
   bool ok = false;
   if (dtype == 0) {
-    ok = dispatch_head_dim<float>(head_dim, q, k_pool, v_pool, block_tables,
-                                  pos, out, batch, n_tokens, kv_heads,
-                                  groups, page_size, n_blocks, scale,
-                                  soft_cap, s);
+    ok = dispatch_store<float>(kv_dtype, head_dim, a);
   } else if (dtype == 1) {
-    ok = dispatch_head_dim<__nv_bfloat16>(
-        head_dim, q, k_pool, v_pool, block_tables, pos, out, batch,
-        n_tokens, kv_heads, groups, page_size, n_blocks, scale, soft_cap, s);
+    ok = dispatch_store<__nv_bfloat16>(kv_dtype, head_dim, a);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

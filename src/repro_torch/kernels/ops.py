@@ -12,7 +12,11 @@ JAX package's ``pipeline`` knob (``kernels/ops.py`` there): ``"off"``
 selects their single-walk kernels, ``"double"`` the ring kernels
 (``paged_attention_ring`` / ``mla_paged_attention_ring``, bit-identical
 to ``"off"``); ``None`` takes the process default
-(:func:`set_default_pipeline`, :func:`use_pipeline`).
+(:func:`set_default_pipeline`, :func:`use_pipeline`).  They forward the
+scale pools of a quantized KV pool (``k_scale`` / ``v_scale``, ``c_scale``
+/ ``r_scale``) to the single-walk kernels and the plain versions; the
+rings take none yet, so ``"double"`` with scales raises (ROADMAP queue 2
+item 1) rather than run another schedule.
 """
 
 from __future__ import annotations
@@ -99,18 +103,32 @@ def resolve(name: str, device: torch.device,
     return impls[device.type]
 
 
+def _resolve_paged(name: str, device: torch.device,
+                   pipeline: Optional[str], scales) -> Callable:
+    """:func:`resolve` for a paged-attention op whose call carries
+    ``scales``; a quantized pool under ``"double"`` raises."""
+    pipeline = check_pipeline(pipeline or _default_pipeline)
+    if pipeline == "double" and any(s is not None for s in scales):
+        raise NotImplementedError(_paged.RING_SCALES_TODO)
+    return resolve(name, device, pipeline)
+
+
 register_kernel("paged_attention", cuda=_paged.paged_attention,
                 reference=_paged.paged_attention_reference,
                 ring=_paged.paged_attention_ring)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos, *, scale,
-                    soft_cap: float = 0.0, pipeline: Optional[str] = None):
+                    soft_cap: float = 0.0, k_scale=None, v_scale=None,
+                    pipeline: Optional[str] = None):
     """GQA paged-decode attention (see kernels/paged_attention.py):
-    q (B, KV, G, hd); pools (P, page, KV, hd); block_tables (B, n_blocks)
-    int32; pos (B,) int32.  Returns (B, KV, G, hd)."""
-    return resolve("paged_attention", q.device, pipeline)(
-        q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap)
+    q (B, KV, G, hd); pools (P, page, KV, hd), quantized with float32
+    scale pools (P, page, KV); block_tables (B, n_blocks) int32; pos (B,)
+    int32.  Returns (B, KV, G, hd)."""
+    return _resolve_paged("paged_attention", q.device, pipeline,
+                          (k_scale, v_scale))(
+        q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap,
+        k_scale=k_scale, v_scale=v_scale)
 
 
 register_kernel("mla_paged_attention", cuda=_paged.mla_paged_attention,
@@ -119,13 +137,17 @@ register_kernel("mla_paged_attention", cuda=_paged.mla_paged_attention,
 
 
 def mla_paged_attention(q_lat, q_rope, c_pool, r_pool, block_tables, pos, *,
-                        scale, pipeline: Optional[str] = None):
+                        scale, c_scale=None, r_scale=None,
+                        pipeline: Optional[str] = None):
     """MLA paged decode in the latent space (see
     kernels/paged_attention.py): q_lat (B, H, r); q_rope (B, H, dr); pools
-    (P, page, r) / (P, page, dr); block_tables (B, n_blocks) int32; pos
-    (B,) int32.  Returns o_lat (B, H, r)."""
-    return resolve("mla_paged_attention", q_lat.device, pipeline)(
-        q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)
+    (P, page, r) / (P, page, dr), quantized with float32 scale pools
+    (P, page); block_tables (B, n_blocks) int32; pos (B,) int32.  Returns
+    o_lat (B, H, r)."""
+    return _resolve_paged("mla_paged_attention", q_lat.device, pipeline,
+                          (c_scale, r_scale))(
+        q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale,
+        c_scale=c_scale, r_scale=r_scale)
 
 
 register_kernel("paged_attention_verify", cuda=_paged.paged_attention_verify,
@@ -134,14 +156,17 @@ register_kernel("paged_attention_verify", cuda=_paged.paged_attention_verify,
 
 
 def paged_attention_verify(q, k_pool, v_pool, block_tables, pos, *, scale,
-                           soft_cap: float = 0.0,
+                           soft_cap: float = 0.0, k_scale=None, v_scale=None,
                            pipeline: Optional[str] = None):
     """GQA multi-token paged verification (see kernels/paged_attention.py):
-    q (B, T, KV, G, hd) at positions pos + t; pools (P, page, KV, hd);
-    block_tables (B, n_blocks) int32; pos (B,) int32, the first token's
-    position.  Returns (B, T, KV, G, hd)."""
-    return resolve("paged_attention_verify", q.device, pipeline)(
-        q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap)
+    q (B, T, KV, G, hd) at positions pos + t; pools (P, page, KV, hd),
+    quantized with float32 scale pools (P, page, KV); block_tables
+    (B, n_blocks) int32; pos (B,) int32, the first token's position.
+    Returns (B, T, KV, G, hd)."""
+    return _resolve_paged("paged_attention_verify", q.device, pipeline,
+                          (k_scale, v_scale))(
+        q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap,
+        k_scale=k_scale, v_scale=v_scale)
 
 
 register_kernel("mla_paged_attention_verify",
@@ -151,14 +176,17 @@ register_kernel("mla_paged_attention_verify",
 
 
 def mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool, block_tables,
-                               pos, *, scale, pipeline: Optional[str] = None):
+                               pos, *, scale, c_scale=None, r_scale=None,
+                               pipeline: Optional[str] = None):
     """MLA multi-token paged verification in the latent space (see
     kernels/paged_attention.py): q_lat (B, T, H, r); q_rope (B, T, H, dr);
-    pools (P, page, r) / (P, page, dr); block_tables (B, n_blocks) int32;
-    pos (B,) int32, the first token's position.  Returns o_lat
-    (B, T, H, r)."""
-    return resolve("mla_paged_attention_verify", q_lat.device, pipeline)(
-        q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale)
+    pools (P, page, r) / (P, page, dr), quantized with float32 scale pools
+    (P, page); block_tables (B, n_blocks) int32; pos (B,) int32, the first
+    token's position.  Returns o_lat (B, T, H, r)."""
+    return _resolve_paged("mla_paged_attention_verify", q_lat.device,
+                          pipeline, (c_scale, r_scale))(
+        q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale,
+        c_scale=c_scale, r_scale=r_scale)
 
 
 # the paper's primitives (launch/primitives.py times them)

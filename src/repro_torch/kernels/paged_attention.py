@@ -41,6 +41,16 @@ the port of ``_gqa_paged_double``) and :func:`mla_paged_attention_ring`
 (``csrc/mla_paged_attention_ring.cu``, of ``_mla_paged_double``).  Their
 outputs equal the ``"off"`` kernels' bit for bit.
 
+Quantized KV pools (``kernels/quantize.py``): the four plain versions
+and the four single-walk kernels also take int8 / float8_e4m3fn pools with
+float32 scale pools — GQA ``k_scale`` / ``v_scale`` (P, page, KV), MLA
+``c_scale`` / ``r_scale`` (P, page) — and dequantize every line as
+``code.float() * scale`` before the scores, the op order of the Pallas
+kernels' scale branches.  With scales the scores, p and P.V are float32
+in the plain versions too (the dequantized values are), so only the
+summation order and the output rounding separate them from the kernels.
+The ring kernels refuse scales (ROADMAP queue 2 item 1).
+
 The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions.  The kernels keep the scores and ``p``
 in float32, as the Pallas kernels do, while the references round the
@@ -67,6 +77,35 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_MAX_GROUPS = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# storage of the K/V (latent) pools, the kernels' second template
+# parameter (csrc/kv_load.cuh ``Store``): the query's dtype, or int8 /
+# fp8 e4m3 codes with float32 scale pools
+_STORE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def _pair(a, b, names: str) -> bool:
+    """True when both scale pools are given, False when neither; raises
+    on one alone."""
+    if (a is None) != (b is None):
+        raise ValueError(f"{names}: give both scale pools or neither")
+    return a is not None
+
+
+def _gather_kv(pool, scale_pool, bt, B, S, KV, hd):
+    """Gather pages to (B, S, KV, hd), dequantizing (float32) when a scale
+    pool (P, page, KV) is given."""
+    g = pool[bt].reshape(B, S, KV, hd)
+    if scale_pool is None:
+        return g
+    return g.float() * scale_pool[bt].reshape(B, S, KV)[..., None]
+
+
+def _gather_latent(pool, scale_pool, bt, B, S):
+    """Gather latent pages to (B, S, d), dequantizing when quantized."""
+    g = pool[bt].reshape(B, S, -1)
+    if scale_pool is None:
+        return g
+    return g.float() * scale_pool[bt].reshape(B, S)[..., None]
 
 
 def paged_attention_reference(
@@ -76,16 +115,20 @@ def paged_attention_reference(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """GQA paged decode, gather-and-attend.  Returns (B, KV, G, hd)."""
-    _reject_scales(k_scale, v_scale)
+    """GQA paged decode, gather-and-attend.  Returns (B, KV, G, hd).
+    ``k_scale`` / ``v_scale`` (P, page, KV) float32 dequantize a quantized
+    pool before attending (the query is then upcast to float32: torch's
+    einsum does not promote, jnp's does)."""
+    quantized = _pair(k_scale, v_scale, "paged_attention_reference")
     B = q.shape[0]
     KV, hd = k_pool.shape[2], k_pool.shape[3]
     page_size = k_pool.shape[1]
     S = block_tables.shape[1] * page_size
     bt = block_tables.long()
-    k = k_pool[bt].reshape(B, S, KV, hd)
-    v = v_pool[bt].reshape(B, S, KV, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", q, k).float() * scale
+    k = _gather_kv(k_pool, k_scale, bt, B, S, KV, hd)
+    v = _gather_kv(v_pool, v_scale, bt, B, S, KV, hd)
+    qq = q.float() if quantized else q
+    s = torch.einsum("bkgh,bskh->bkgs", qq, k).float() * scale
     if soft_cap > 0:
         s = torch.tanh(s / soft_cap) * soft_cap
     k_pos = torch.arange(S, device=q.device)
@@ -103,15 +146,18 @@ def mla_paged_attention_reference(
     r_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """MLA paged decode in the latent space, gather-and-attend.  Returns
-    o_lat (B, H, r); the caller folds ``wv_b`` / ``wo`` back out."""
-    _reject_scales(c_scale, r_scale)
+    o_lat (B, H, r); the caller folds ``wv_b`` / ``wo`` back out.
+    ``c_scale`` / ``r_scale`` (P, page) float32 dequantize a quantized
+    latent pool (the queries are then upcast to float32)."""
+    quantized = _pair(c_scale, r_scale, "mla_paged_attention_reference")
     B = q_lat.shape[0]
     S = block_tables.shape[1] * c_pool.shape[1]
     bt = block_tables.long()
-    c_kv = c_pool[bt].reshape(B, S, -1)
-    k_rope = r_pool[bt].reshape(B, S, -1)
-    s = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
-         + torch.einsum("bhk,bsk->bhs", q_rope, k_rope))
+    c_kv = _gather_latent(c_pool, c_scale, bt, B, S)
+    k_rope = _gather_latent(r_pool, r_scale, bt, B, S)
+    ql, qr = (q_lat.float(), q_rope.float()) if quantized else (q_lat, q_rope)
+    s = (torch.einsum("bhr,bsr->bhs", ql, c_kv)
+         + torch.einsum("bhk,bsk->bhs", qr, k_rope))
     s = s.float() * scale
     valid = (torch.arange(S, device=q_lat.device)[None, :]
              <= pos.long()[:, None])
@@ -129,15 +175,18 @@ def mla_paged_attention_verify_reference(
 ) -> torch.Tensor:
     """MLA multi-token paged verification in the latent space.  q_lat
     (B, T, H, r), q_rope (B, T, H, dr): T query tokens per slot at
-    positions ``pos + t``.  Returns o_lat (B, T, H, r)."""
-    _reject_scales(c_scale, r_scale)
+    positions ``pos + t``.  Returns o_lat (B, T, H, r).  Scales as in
+    :func:`mla_paged_attention_reference`."""
+    quantized = _pair(c_scale, r_scale,
+                      "mla_paged_attention_verify_reference")
     B, T = q_lat.shape[0], q_lat.shape[1]
     S = block_tables.shape[1] * c_pool.shape[1]
     bt = block_tables.long()
-    c_kv = c_pool[bt].reshape(B, S, -1)
-    k_rope = r_pool[bt].reshape(B, S, -1)
-    s = (torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
-         + torch.einsum("bthk,bsk->bhts", q_rope, k_rope))
+    c_kv = _gather_latent(c_pool, c_scale, bt, B, S)
+    k_rope = _gather_latent(r_pool, r_scale, bt, B, S)
+    ql, qr = (q_lat.float(), q_rope.float()) if quantized else (q_lat, q_rope)
+    s = (torch.einsum("bthr,bsr->bhts", ql, c_kv)
+         + torch.einsum("bthk,bsk->bhts", qr, k_rope))
     s = s.float() * scale
     q_pos = pos.long()[:, None] + torch.arange(T, device=q_lat.device)
     valid = (q_pos[:, :, None]
@@ -156,17 +205,19 @@ def paged_attention_verify_reference(
 ) -> torch.Tensor:
     """GQA multi-token paged verification, gather-and-attend.  q (B, T, KV,
     G, hd): T query tokens per slot at positions ``pos + t`` (pos is the
-    FIRST token's).  Returns (B, T, KV, G, hd)."""
-    _reject_scales(k_scale, v_scale)
+    FIRST token's).  Returns (B, T, KV, G, hd).  Scales as in
+    :func:`paged_attention_reference`."""
+    quantized = _pair(k_scale, v_scale, "paged_attention_verify_reference")
     B, T = q.shape[0], q.shape[1]
     KV, hd = k_pool.shape[2], k_pool.shape[3]
     S = block_tables.shape[1] * k_pool.shape[1]
     bt = block_tables.long()
-    k = k_pool[bt].reshape(B, S, KV, hd)
-    v = v_pool[bt].reshape(B, S, KV, hd)
+    k = _gather_kv(k_pool, k_scale, bt, B, S, KV, hd)
+    v = _gather_kv(v_pool, v_scale, bt, B, S, KV, hd)
     q_pos = pos.long()[:, None] + torch.arange(T, device=q.device)
     k_pos = torch.arange(S, device=q.device)
-    s = torch.einsum("btkgh,bskh->bkgts", q, k).float() * scale
+    qq = q.float() if quantized else q
+    s = torch.einsum("btkgh,bskh->bkgts", qq, k).float() * scale
     if soft_cap > 0:
         s = torch.tanh(s / soft_cap) * soft_cap
     m = q_pos[:, :, None] >= k_pos[None, None, :]               # (B, T, S)
@@ -175,15 +226,20 @@ def paged_attention_verify_reference(
     return torch.einsum("bkgts,bskh->btkgh", p_attn, v).to(q.dtype)
 
 
+# the rings' scale branches are the next slice; their wrappers refuse
+# scales rather than run anything else
+RING_SCALES_TODO = ("the ring kernels (pipeline='double') take no scale "
+                    "pools yet: ROADMAP queue 2 item 1; quantized KV pools "
+                    "run with pipeline='off'")
+
+
 def _reject_scales(k_scale, v_scale) -> None:
     if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pools (scale pools) are not ported yet: "
-            "ROADMAP queue 1 item 5")
+        raise NotImplementedError(RING_SCALES_TODO)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           shape: tuple, device: torch.device) -> None:
+           shape: tuple, device: torch.device, align: int = 16) -> None:
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -192,14 +248,45 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _gqa_slab_shapes(q, k_pool, v_pool, block_tables, pos):
-    """The checks of a GQA query slab q (B, T, KV, G, hd) and its pools,
-    shared by the verify and ring kernels; returns (B, T, KV, G, hd,
-    page_size, n_blocks)."""
+def _check_pools(q_dtype, pools, scales, scale_shape, device) -> int:
+    """Check a kernel's K/V (latent) pools ``[(name, tensor, shape)]`` and
+    its scale pools ``[(name, tensor_or_None)]``; returns the storage code
+    (``_STORE_CODES``; 0 = the query's dtype).  A pool in the query's
+    dtype takes no scales; an int8 / float8_e4m3fn pool needs both,
+    float32, contiguous, of ``scale_shape``."""
+    store = pools[0][1].dtype
+    for name, t, shape in pools:
+        _check(name, t, store, shape, device)
+    given = _pair(scales[0][1], scales[1][1], "scale pools")
+    if store == q_dtype:
+        if given:
+            raise ValueError(f"scale pools given with an unquantized "
+                             f"{store} pool")
+        return 0
+    if store not in _STORE_CODES:
+        raise ValueError(f"pool dtype {store}: not the query's {q_dtype}, "
+                         f"nor a quantized {list(_STORE_CODES)}")
+    if not given:
+        raise ValueError(f"a quantized {store} pool needs its float32 "
+                         "scale pools")
+    for name, t in scales:
+        _check(name, t, torch.float32, scale_shape, device, align=4)
+    return _STORE_CODES[store]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _gqa_slab_shapes(q, k_pool, v_pool, block_tables, pos, k_scale=None,
+                     v_scale=None):
+    """The checks of a GQA query slab q (B, T, KV, G, hd), its pools and
+    scale pools, shared by the verify and ring kernels; returns (B, T, KV,
+    G, hd, page_size, n_blocks, storage code)."""
     B, T, KV, G, hd = q.shape
     P, page_size = k_pool.shape[0], k_pool.shape[1]
     n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
@@ -211,17 +298,22 @@ def _gqa_slab_shapes(q, k_pool, v_pool, block_tables, pos):
         raise ValueError(f"empty query slab: T={T}, G={G}")
     dev = q.device
     _check("q", q, q.dtype, (B, T, KV, G, hd), dev)
-    _check("k_pool", k_pool, q.dtype, (P, page_size, KV, hd), dev)
-    _check("v_pool", v_pool, q.dtype, (P, page_size, KV, hd), dev)
+    store = _check_pools(
+        q.dtype, [("k_pool", k_pool, (P, page_size, KV, hd)),
+                  ("v_pool", v_pool, (P, page_size, KV, hd))],
+        [("k_scale", k_scale), ("v_scale", v_scale)], (P, page_size, KV),
+        dev)
     _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
     _check("pos", pos, torch.int32, (B,), dev)
-    return B, T, KV, G, hd, page_size, n_blocks
+    return B, T, KV, G, hd, page_size, n_blocks, store
 
 
-def _mla_slab_shapes(q_lat, q_rope, c_pool, r_pool, block_tables, pos):
+def _mla_slab_shapes(q_lat, q_rope, c_pool, r_pool, block_tables, pos,
+                     c_scale=None, r_scale=None):
     """The checks of MLA query slabs q_lat (B, T, H, r) / q_rope
-    (B, T, H, dr) and their pools, shared by the verify and ring kernels;
-    returns (B, T, H, r, dr, page_size, n_blocks)."""
+    (B, T, H, dr), their pools and scale pools, shared by the verify and
+    ring kernels; returns (B, T, H, r, dr, page_size, n_blocks, storage
+    code)."""
     B, T, H, r = q_lat.shape
     dr = q_rope.shape[-1]
     P, page_size = c_pool.shape[0], c_pool.shape[1]
@@ -240,11 +332,13 @@ def _mla_slab_shapes(q_lat, q_rope, c_pool, r_pool, block_tables, pos):
     dev = q_lat.device
     _check("q_lat", q_lat, q_lat.dtype, (B, T, H, r), dev)
     _check("q_rope", q_rope, q_lat.dtype, (B, T, H, dr), dev)
-    _check("c_pool", c_pool, q_lat.dtype, (P, page_size, r), dev)
-    _check("r_pool", r_pool, q_lat.dtype, (P, page_size, dr), dev)
+    store = _check_pools(
+        q_lat.dtype, [("c_pool", c_pool, (P, page_size, r)),
+                      ("r_pool", r_pool, (P, page_size, dr))],
+        [("c_scale", c_scale), ("r_scale", r_scale)], (P, page_size), dev)
     _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
     _check("pos", pos, torch.int32, (B,), dev)
-    return B, T, H, r, dr, page_size, n_blocks
+    return B, T, H, r, dr, page_size, n_blocks, store
 
 
 def paged_attention(
@@ -257,12 +351,12 @@ def paged_attention(
     """Launch the CUDA decode kernel on the current stream (no sync).
 
     Same contract as :func:`paged_attention_reference`.  Takes CUDA
-    tensors only: bf16 or f32 q / pools, head_dim in
+    tensors only: a bf16 or f32 q, pools in q's dtype or int8 /
+    float8_e4m3fn with both float32 scale pools (P, page, KV), head_dim in
     ``KERNEL_HEAD_DIMS``, at most ``KERNEL_MAX_GROUPS`` query heads per KV
     head (a limit of this decode kernel only; :func:`paged_attention_verify`
     takes any count), int32 block tables and positions.  ``launches`` counts the
     kernel launches this wrapper made."""
-    _reject_scales(k_scale, v_scale)
     if not q.is_cuda:
         raise ValueError(
             "paged_attention launches a CUDA kernel and takes CUDA tensors "
@@ -281,17 +375,21 @@ def paged_attention(
                          "tiles any count)")
     dev = q.device
     _check("q", q, q.dtype, (B, KV, G, hd), dev)
-    _check("k_pool", k_pool, q.dtype, (P, page_size, KV, hd), dev)
-    _check("v_pool", v_pool, q.dtype, (P, page_size, KV, hd), dev)
+    store = _check_pools(
+        q.dtype, [("k_pool", k_pool, (P, page_size, KV, hd)),
+                  ("v_pool", v_pool, (P, page_size, KV, hd))],
+        [("k_scale", k_scale), ("v_scale", v_scale)], (P, page_size, KV),
+        dev)
     _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
     _check("pos", pos, torch.int32, (B,), dev)
     out = torch.empty_like(q)
     lib = build.library("paged_attention", C_SIGNATURES)
     err = lib.paged_attention_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, KV, G, hd, page_size, n_blocks, float(scale), float(soft_cap),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, KV, G, hd, page_size, n_blocks, float(scale),
+        float(soft_cap), _DTYPE_CODES[q.dtype], store,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -304,8 +402,9 @@ paged_attention.launches = 0
 # the C interface of csrc/paged_attention.cu, bound by kernels/build.py
 C_SIGNATURES = {
     "paged_attention_decode": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
         ctypes.c_int),
 }
 
@@ -329,12 +428,12 @@ def mla_paged_attention(
     """Launch the CUDA MLA decode kernel on the current stream (no sync).
 
     Same contract as :func:`mla_paged_attention_reference`.  Takes CUDA
-    tensors only: bf16 or f32 queries and pools, latent rank in
+    tensors only: bf16 or f32 queries, pools in their dtype or int8 /
+    float8_e4m3fn with both float32 scale pools (P, page), latent rank in
     ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size in
     ``MLA_PAGE_SIZES``, any head count (the last head block is masked),
     int32 block tables and positions.  ``launches`` counts the kernel
     launches this wrapper made."""
-    _reject_scales(c_scale, r_scale)
     if not q_lat.is_cuda:
         raise ValueError(
             "mla_paged_attention launches a CUDA kernel and takes CUDA "
@@ -356,17 +455,20 @@ def mla_paged_attention(
     dev = q_lat.device
     _check("q_lat", q_lat, q_lat.dtype, (B, H, r), dev)
     _check("q_rope", q_rope, q_lat.dtype, (B, H, dr), dev)
-    _check("c_pool", c_pool, q_lat.dtype, (P, page_size, r), dev)
-    _check("r_pool", r_pool, q_lat.dtype, (P, page_size, dr), dev)
+    store = _check_pools(
+        q_lat.dtype, [("c_pool", c_pool, (P, page_size, r)),
+                      ("r_pool", r_pool, (P, page_size, dr))],
+        [("c_scale", c_scale), ("r_scale", r_scale)], (P, page_size), dev)
     _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
     _check("pos", pos, torch.int32, (B,), dev)
     out = torch.empty_like(q_lat)
     lib = build.library("mla_paged_attention", MLA_C_SIGNATURES)
     err = lib.mla_paged_attention_decode(
         q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
-        r_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, H, r, dr, page_size, n_blocks, float(scale),
-        _DTYPE_CODES[q_lat.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, r,
+        dr, page_size, n_blocks, float(scale), _DTYPE_CODES[q_lat.dtype],
+        store, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_paged_attention kernel launch failed: "
                            f"CUDA error {err}")
@@ -379,8 +481,8 @@ mla_paged_attention.launches = 0
 # the C interface of csrc/mla_paged_attention.cu
 MLA_C_SIGNATURES = {
     "mla_paged_attention_decode": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
 }
 
@@ -395,27 +497,28 @@ def paged_attention_verify(
     """Launch the CUDA GQA verify kernel on the current stream (no sync).
 
     Same contract as :func:`paged_attention_verify_reference`.  Takes CUDA
-    tensors only: bf16 or f32 q / pools, head_dim in ``KERNEL_HEAD_DIMS``,
-    any number T of query tokens and G of query heads per KV head (the
-    kernel tiles the T * G rows of a KV head 8 at a time), int32 block
-    tables and positions.  ``launches`` counts the kernel launches this
-    wrapper made."""
-    _reject_scales(k_scale, v_scale)
+    tensors only: a bf16 or f32 q, pools in q's dtype or int8 /
+    float8_e4m3fn with both float32 scale pools (P, page, KV), head_dim in
+    ``KERNEL_HEAD_DIMS``, any number T of query tokens and G of query
+    heads per KV head (the kernel tiles the T * G rows of a KV head 8 at a
+    time), int32 block tables and positions.  ``launches`` counts the
+    kernel launches this wrapper made."""
     if not q.is_cuda:
         raise ValueError(
             "paged_attention_verify launches a CUDA kernel and takes CUDA "
             f"tensors only (q is on {q.device}); kernels.ops dispatches CPU "
             "tensors to paged_attention_verify_reference")
-    B, T, KV, G, hd, page_size, n_blocks = _gqa_slab_shapes(
-        q, k_pool, v_pool, block_tables, pos)
+    B, T, KV, G, hd, page_size, n_blocks, store = _gqa_slab_shapes(
+        q, k_pool, v_pool, block_tables, pos, k_scale, v_scale)
     dev = q.device
     out = torch.empty_like(q)
     lib = build.library("paged_attention_verify", VERIFY_C_SIGNATURES)
     err = lib.paged_attention_verify(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, T, KV, G, hd, page_size, n_blocks, float(scale), float(soft_cap),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, T, KV, G, hd, page_size, n_blocks, float(scale),
+        float(soft_cap), _DTYPE_CODES[q.dtype], store,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_verify kernel launch failed: "
                            f"CUDA error {err}")
@@ -428,8 +531,9 @@ paged_attention_verify.launches = 0
 # the C interface of csrc/paged_attention_verify.cu
 VERIFY_C_SIGNATURES = {
     "paged_attention_verify": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
         ctypes.c_int),
 }
 
@@ -444,28 +548,29 @@ def mla_paged_attention_verify(
     """Launch the CUDA MLA verify kernel on the current stream (no sync).
 
     Same contract as :func:`mla_paged_attention_verify_reference`, and the
-    same sets as :func:`mla_paged_attention`: bf16 or f32, latent rank in
-    ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size in
-    ``MLA_PAGE_SIZES``, any head count and any T >= 1, int32 block tables
-    and positions.  ``launches`` counts the kernel launches this wrapper
-    made."""
-    _reject_scales(c_scale, r_scale)
+    same sets as :func:`mla_paged_attention`: bf16 or f32 queries, pools in
+    their dtype or int8 / float8_e4m3fn with float32 scale pools, latent
+    rank in ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size
+    in ``MLA_PAGE_SIZES``, any head count and any T >= 1, int32 block
+    tables and positions.  ``launches`` counts the kernel launches this
+    wrapper made."""
     if not q_lat.is_cuda:
         raise ValueError(
             "mla_paged_attention_verify launches a CUDA kernel and takes "
             f"CUDA tensors only (q_lat is on {q_lat.device}); kernels.ops "
             "dispatches CPU tensors to mla_paged_attention_verify_reference")
-    B, T, H, r, dr, page_size, n_blocks = _mla_slab_shapes(
-        q_lat, q_rope, c_pool, r_pool, block_tables, pos)
+    B, T, H, r, dr, page_size, n_blocks, store = _mla_slab_shapes(
+        q_lat, q_rope, c_pool, r_pool, block_tables, pos, c_scale, r_scale)
     dev = q_lat.device
     out = torch.empty_like(q_lat)
     lib = build.library("mla_paged_attention_verify",
                         MLA_VERIFY_C_SIGNATURES)
     err = lib.mla_paged_attention_verify(
         q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
-        r_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, T, H, r, dr, page_size, n_blocks, float(scale),
-        _DTYPE_CODES[q_lat.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T, H, r,
+        dr, page_size, n_blocks, float(scale), _DTYPE_CODES[q_lat.dtype],
+        store, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_paged_attention_verify kernel launch "
                            f"failed: CUDA error {err}")
@@ -478,8 +583,8 @@ mla_paged_attention_verify.launches = 0
 # the C interface of csrc/mla_paged_attention_verify.cu
 MLA_VERIFY_C_SIGNATURES = {
     "mla_paged_attention_verify": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
 }
 
@@ -534,7 +639,7 @@ def paged_attention_ring(
             "tensors to the plain versions")
     decode = q.dim() == 4
     q5 = q[:, None] if decode else q
-    B, T, KV, G, hd, page_size, n_blocks = _gqa_slab_shapes(
+    B, T, KV, G, hd, page_size, n_blocks, _ = _gqa_slab_shapes(
         q5, k_pool, v_pool, block_tables, pos)
     dev = q.device
     stages = ring_stages(2 * page_size * hd * q.element_size(), n_blocks)
@@ -590,7 +695,7 @@ def mla_paged_attention_ring(
     decode = q_lat.dim() == 3
     ql4 = q_lat[:, None] if decode else q_lat
     qr4 = q_rope[:, None] if decode else q_rope
-    B, T, H, r, dr, page_size, n_blocks = _mla_slab_shapes(
+    B, T, H, r, dr, page_size, n_blocks, _ = _mla_slab_shapes(
         ql4, qr4, c_pool, r_pool, block_tables, pos)
     dev = q_lat.device
     # a stage is one 16-line tile (MLA_RING_TILE_LINES) of latent and rope

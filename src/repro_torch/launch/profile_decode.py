@@ -7,6 +7,7 @@ over steady-state engine steps.
     python -m repro_torch.launch.profile_decode --arch qwen3-14b \
         --spec draft --draft-arch qwen3-0.6b --spec-k 4
     python -m repro_torch.launch.profile_decode --pipeline double
+    python -m repro_torch.launch.profile_decode --kv-dtype int8
 
 Builds a full-width model (qwen3-0.6b by default; ``--layers`` cuts
 depth only) with random weights, seeded, fills all slots with decoding
@@ -14,7 +15,9 @@ requests, then profiles ``--steps`` engine steps that only decode.
 With ``--spec ngram|draft`` the engine is the speculative one and a step
 is a round of propose (the draft model's passes, with ``draft``) and one
 verify pass; the draft/verify split of the window's wall time is printed
-too.  ``--pipeline double`` runs the paged-attention ring kernels.  Prints the window's wall time, the summed device time of every
+too.  ``--pipeline double`` runs the paged-attention ring kernels;
+``--kv-dtype int8|fp8_e4m3`` quantizes the KV pages (pipeline off).
+Prints the window's wall time, the summed device time of every
 kernel in it (the device busy share is their ratio), and the kernels with
 the most device time, beside the card's name and power limit.
 """
@@ -51,6 +54,8 @@ def main(argv=None) -> None:
     ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--draft-arch", default="qwen3-0.6b")
     ap.add_argument("--pipeline", choices=["off", "double"], default="off")
+    ap.add_argument("--kv-dtype", choices=["bf16", "int8", "fp8_e4m3"],
+                    default=None)
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -67,7 +72,8 @@ def main(argv=None) -> None:
                                       else 1)
     ecfg = EngineConfig(num_slots=args.slots,
                         max_len=args.prompt_len + new_tokens,
-                        pipeline=args.pipeline, device=dev)
+                        pipeline=args.pipeline, kv_dtype=args.kv_dtype,
+                        device=dev)
     if args.spec == "off":
         engine = Engine(cfg, params, ecfg)
     else:
@@ -102,7 +108,8 @@ def main(argv=None) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     print(card)
-    print(f"[profile] {args.arch} (pipeline {args.pipeline}), {args.slots} "
+    print(f"[profile] {args.arch} (pipeline {args.pipeline}, kv_dtype "
+          f"{engine.cfg.kv_dtype}), {args.slots} "
           f"slots decoding, context "
           f"~{args.prompt_len}: {args.steps} steps in {wall * 1e3:.3f} ms "
           f"({wall / args.steps * 1e3:.3f} ms/step); {len(kernels)} kernel "

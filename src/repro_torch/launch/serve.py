@@ -15,7 +15,9 @@ Speculative decoding (serve/spec.py):
 ``--pipeline double`` runs the paged-attention ring kernels (the JAX
 package's double-buffered page walk; bit-identical to ``off``) for the
 decode, verify and draft steps; on the CPU the plain versions run either
-way.
+way.  ``--kv-dtype int8|fp8_e4m3`` stores the target's KV pages quantized
+(a float32 scale per line; the paged kernels dequantize in their page
+walk) with ``--pipeline off``; the draft model keeps its own.
 
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the plain PyTorch path (use ``--smoke`` there).  ``--layers`` cuts depth
@@ -71,6 +73,9 @@ def main(argv=None):
     ap.add_argument("--pipeline", choices=["off", "double"], default="off",
                     help="paged-attention page streaming: single walk "
                          "(off) or the cp.async ring kernels (double)")
+    ap.add_argument("--kv-dtype", choices=["bf16", "int8", "fp8_e4m3"],
+                    default=None,
+                    help="KV page storage (default: the arch config's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -87,7 +92,8 @@ def main(argv=None):
     ecfg = EngineConfig(
         num_slots=slots, page_size=args.page_size,
         max_len=args.prompt_len + args.new_tokens,
-        prefill_chunk=args.prefill_chunk, pipeline=args.pipeline, device=dev)
+        prefill_chunk=args.prefill_chunk, pipeline=args.pipeline,
+        kv_dtype=args.kv_dtype, device=dev)
     scfg = None
     if args.spec == "off":
         engine = Engine(cfg, params, ecfg)
@@ -122,7 +128,7 @@ def main(argv=None):
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = "
           f"{n_tok / dt:.1f} tok/s over {slots} slots on {where} "
-          f"(pipeline {args.pipeline})")
+          f"(pipeline {args.pipeline}), kv_dtype {engine.cfg.kv_dtype}")
     for r in reqs:
         t = engine.roofline_terms(r)
         print(f"  req {r.request_id}: {len(r.generated)} tok, "

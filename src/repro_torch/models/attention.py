@@ -19,7 +19,7 @@ from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
 from .common import ModelConfig
 from .layers import apply_rope, rms_head_norm, rope_cos_sin
-from .params import ParamDef
+from .params import ParamDef, torch_dtype
 
 NEG_INF = -1e30
 
@@ -122,22 +122,52 @@ def paged_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int
                     ) -> Dict[str, ParamDef]:
     """Physical page pool for the GQA KV cache: (num_pages, page_size, KV,
     hd).  Pages carry no batch dim — a per-slot block table maps logical
-    block -> physical page, shared across layers."""
+    block -> physical page, shared across layers.
+
+    With ``cfg.kv_dtype`` quantized (int8 / fp8_e4m3) the k/v pools store
+    codes plus float32 absmax scales per (page, line, kv_head), initialised
+    to ones so never-written lines dequantize to 0; the scale leaves are
+    ordinary paged leaves (CoW, swap and preemption move them with the
+    codes)."""
     KV, hd = cfg.n_kv_heads, cfg.hd
     store = kvq.store_dtype(cfg.kv_dtype, cfg.dtype)
     shape = (num_pages, page_size, KV, hd)
-    return {"k": ParamDef(shape, store, init="zeros"),
+    defs = {"k": ParamDef(shape, store, init="zeros"),
             "v": ParamDef(shape, store, init="zeros")}
+    if kvq.is_quantized(cfg.kv_dtype):
+        for name in ("k_scale", "v_scale"):
+            defs[name] = ParamDef(shape[:-1], "float32", init="ones")
+    return defs
 
 
 def _commit_kv(pool: Dict[str, torch.Tensor], name: str, blk: torch.Tensor,
-               off: torch.Tensor, new: torch.Tensor) -> None:
-    """Write new K or V lines into the page pool IN PLACE (``index_put_``;
-    the reference returns an updated pool instead).  ``new`` (..., KV, hd)
-    indexed by ``blk``/``off`` of matching leading shape.  Idle lanes all
-    write trash page 0, line 0; which of them lands there is irrelevant."""
-    pool[name].index_put_((blk.long(), off.long()),
-                          new.to(pool[name].dtype))
+               off: torch.Tensor, new: torch.Tensor, kv_dtype: str) -> None:
+    """Write new K or V (latent / rope) lines into the page pool IN PLACE
+    (``index_put_``; the reference returns an updated pool instead),
+    quantizing on the way in when the pool has a ``{name}_scale`` leaf.
+    ``new`` (..., line) indexed by ``blk``/``off`` of matching leading
+    shape.  Idle lanes all write trash page 0, line 0; which of them lands
+    there is irrelevant."""
+    idx = (blk.long(), off.long())
+    if f"{name}_scale" in pool:
+        q, s = kvq.quantize(new, kv_dtype, -1)
+        pool[name].index_put_(idx, q)
+        pool[f"{name}_scale"].index_put_(idx, s)
+    else:
+        pool[name].index_put_(idx, new.to(pool[name].dtype))
+
+
+def gather_pages(pool: Dict[str, torch.Tensor], name: str,
+                 block_table: torch.Tensor, dtype: str) -> torch.Tensor:
+    """One slot's pages of leaf ``name`` (n_blocks, page, ...), dequantized
+    and cast to the model ``dtype`` when quantized: chunked prefill
+    re-reads earlier chunks through the same values every later decode
+    step sees."""
+    bt = block_table.long()
+    if f"{name}_scale" not in pool:
+        return pool[name][bt]
+    return kvq.dequantize(pool[name][bt], pool[f"{name}_scale"][bt]).to(
+        torch_dtype(dtype))
 
 
 def decode_attention_paged(
@@ -158,13 +188,13 @@ def decode_attention_paged(
     blk = torch.gather(block_tables, 1,
                        (pos[:, None] // page_size).long())[:, 0]
     off = pos % page_size
-    _commit_kv(pool, "k", blk, off, k_new[:, 0])
-    _commit_kv(pool, "v", blk, off, v_new[:, 0])
+    _commit_kv(pool, "k", blk, off, k_new[:, 0], cfg.kv_dtype)
+    _commit_kv(pool, "v", blk, off, v_new[:, 0], cfg.kv_dtype)
     o = kernel_ops.paged_attention(
         q.reshape(B, KV, G, hd).contiguous(), pool["k"], pool["v"],
         block_tables, pos, scale=1.0 / (hd ** 0.5),
-        soft_cap=cfg.attn_logit_soft_cap,
-        pipeline=pipeline).reshape(B, 1, H, hd)
+        soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
+        v_scale=pool.get("v_scale"), pipeline=pipeline).reshape(B, 1, H, hd)
     return _out_proj(o.to(x.dtype), p["wo"])
 
 
@@ -193,13 +223,13 @@ def decode_verify_paged(
     blk_idx = torch.clamp(posq // page_size, max=n_blocks - 1)
     blk = torch.gather(block_tables, 1, blk_idx.long())           # (B, T)
     off = posq % page_size
-    _commit_kv(pool, "k", blk, off, k_new)
-    _commit_kv(pool, "v", blk, off, v_new)
+    _commit_kv(pool, "k", blk, off, k_new, cfg.kv_dtype)
+    _commit_kv(pool, "v", blk, off, v_new, cfg.kv_dtype)
     o = kernel_ops.paged_attention_verify(
         q.reshape(B, T, KV, G, hd).contiguous(), pool["k"], pool["v"],
         block_tables, pos, scale=1.0 / (hd ** 0.5),
-        soft_cap=cfg.attn_logit_soft_cap,
-        pipeline=pipeline).reshape(B, T, H, hd)
+        soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
+        v_scale=pool.get("v_scale"), pipeline=pipeline).reshape(B, T, H, hd)
     return _out_proj(o.to(x.dtype), p["wo"])
 
 
@@ -218,12 +248,11 @@ def prefill_attention_paged(
     idx = offset + torch.arange(T, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, rope)
     blk, off = block_table[idx.long() // page_size], idx % page_size
-    _commit_kv(pool, "k", blk, off, k_new[0])
-    _commit_kv(pool, "v", blk, off, v_new[0])
+    _commit_kv(pool, "k", blk, off, k_new[0], cfg.kv_dtype)
+    _commit_kv(pool, "v", blk, off, v_new[0], cfg.kv_dtype)
     S = block_table.shape[0] * page_size
-    bt = block_table.long()
-    k = pool["k"][bt].reshape(1, S, KV, hd)
-    v = pool["v"][bt].reshape(1, S, KV, hd)
+    k = gather_pages(pool, "k", block_table, cfg.dtype).reshape(1, S, KV, hd)
+    v = gather_pages(pool, "v", block_table, cfg.dtype).reshape(1, S, KV, hd)
     k_pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     o = _attn_core(q.reshape(B, T, KV, G, hd), k, v, idx[None, :], k_pos,
                    causal=True, scale=1.0 / (hd ** 0.5),

@@ -33,7 +33,8 @@ import torch
 
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
-from .attention import NEG_INF, Rope, _commit_kv, _heads, _out_proj
+from .attention import (NEG_INF, Rope, _commit_kv, _heads, _out_proj,
+                        gather_pages)
 from .common import ModelConfig
 from .layers import rms_head_norm, rope_cos_sin
 from .params import ParamDef
@@ -150,14 +151,21 @@ def mla_paged_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int
                         ) -> Dict[str, ParamDef]:
     """Physical page pools for the latent cache: (num_pages, page, r) and
     (num_pages, page, dr), addressed through the same block tables as the
-    GQA pools.  Quantized pools raise (ROADMAP queue 1 item 5)."""
+    GQA pools.  With ``cfg.kv_dtype`` quantized each pool stores codes
+    plus a float32 absmax scale per (page, line) — the latent vector is
+    one quantization group — initialised to ones."""
     store = kvq.store_dtype(cfg.kv_dtype, cfg.dtype)
-    return {
+    defs = {
         "c_kv": ParamDef((num_pages, page_size, cfg.kv_lora_rank), store,
                          init="zeros"),
         "k_rope": ParamDef((num_pages, page_size, cfg.rope_head_dim), store,
                            init="zeros"),
     }
+    if kvq.is_quantized(cfg.kv_dtype):
+        for name in ("c_kv_scale", "k_rope_scale"):
+            defs[name] = ParamDef((num_pages, page_size), "float32",
+                                  init="ones")
+    return defs
 
 
 def _mla_attend(p, q_nope: torch.Tensor, q_rope: torch.Tensor,
@@ -207,13 +215,14 @@ def mla_decode_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
     c_new, kr_new = _latent_kv(p, x, posb, cfg, rope)
     blk = torch.gather(block_tables, 1, (posb // page_size).long())[:, 0]
     off = pos % page_size
-    _commit_kv(pool, "c_kv", blk, off, c_new[:, 0])
-    _commit_kv(pool, "k_rope", blk, off, kr_new[:, 0])
+    _commit_kv(pool, "c_kv", blk, off, c_new[:, 0], cfg.kv_dtype)
+    _commit_kv(pool, "k_rope", blk, off, kr_new[:, 0], cfg.kv_dtype)
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"])  # (B,H,r)
     o_lat = kernel_ops.mla_paged_attention(
         q_lat.contiguous(), q_rope[:, 0].contiguous(), pool["c_kv"],
         pool["k_rope"], block_tables, pos,
-        scale=1.0 / ((dn + dr) ** 0.5), pipeline=pipeline)         # (B,H,r)
+        scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
+        r_scale=pool.get("k_rope_scale"), pipeline=pipeline)      # (B,H,r)
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["wv_b"])
     return _out_proj(o[:, None], p["wo"])
 
@@ -244,13 +253,14 @@ def mla_decode_verify_paged(p, x: torch.Tensor,
     blk_idx = torch.clamp(posq // page_size, max=n_blocks - 1)
     blk = torch.gather(block_tables, 1, blk_idx.long())
     off = posq % page_size
-    _commit_kv(pool, "c_kv", blk, off, c_new)
-    _commit_kv(pool, "k_rope", blk, off, kr_new)
+    _commit_kv(pool, "c_kv", blk, off, c_new, cfg.kv_dtype)
+    _commit_kv(pool, "k_rope", blk, off, kr_new, cfg.kv_dtype)
     q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])    # (B,T,H,r)
     o_lat = kernel_ops.mla_paged_attention_verify(
         q_lat.contiguous(), q_rope.contiguous(), pool["c_kv"],
         pool["k_rope"], block_tables, pos,
-        scale=1.0 / ((dn + dr) ** 0.5), pipeline=pipeline)       # (B,T,H,r)
+        scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
+        r_scale=pool.get("k_rope_scale"), pipeline=pipeline)    # (B,T,H,r)
     o = torch.einsum("bqhr,rhk->bqhk", o_lat.to(x.dtype), p["wv_b"])
     return _out_proj(o, p["wo"])
 
@@ -270,12 +280,12 @@ def mla_prefill_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
     q_nope, q_rope = _queries(p, x, idx[None, :], cfg, rope)
     c_new, kr_new = _latent_kv(p, x, idx[None, :], cfg, rope)
     blk, off = block_table[idx.long() // page_size], idx % page_size
-    _commit_kv(pool, "c_kv", blk, off, c_new[0])
-    _commit_kv(pool, "k_rope", blk, off, kr_new[0])
+    _commit_kv(pool, "c_kv", blk, off, c_new[0], cfg.kv_dtype)
+    _commit_kv(pool, "k_rope", blk, off, kr_new[0], cfg.kv_dtype)
     S = block_table.shape[0] * page_size
-    bt = block_table.long()
-    c_kv = pool["c_kv"][bt].reshape(1, S, -1)
-    k_rope = pool["k_rope"][bt].reshape(1, S, -1)
+    c_kv = gather_pages(pool, "c_kv", block_table, cfg.dtype).reshape(1, S, -1)
+    k_rope = gather_pages(pool, "k_rope", block_table, cfg.dtype).reshape(
+        1, S, -1)
     k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
     valid = (idx[:, None] >= k_pos[None, :])[None]
     return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, valid, cfg)

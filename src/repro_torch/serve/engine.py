@@ -27,7 +27,9 @@ import torch
 
 from ..core.roofline.hardware import H100_SXM, ChipSpec
 from ..device import resolve_device, synchronize
+from ..kernels import quantize
 from ..kernels.ops import check_pipeline
+from ..kernels.paged_attention import RING_SCALES_TODO
 from ..models import (decode_step_paged, prefill, prefill_chunk_paged,
                       prefill_padded, prepare_params)
 from ..models.common import ModelConfig, model_flops
@@ -64,6 +66,19 @@ class EngineConfig:
     preempt_mode: str = "swap"        # "swap" | "recompute" on pool-dry
     pipeline: str = "off"             # kernel page streaming: "off"|"double"
     device: Union[str, torch.device] = "cuda"   # "cpu" only when asked
+    # KV page storage: None keeps the model config's ``kv_dtype``;
+    # "bf16"|"int8"|"fp8_e4m3" rewrite it at engine build
+    kv_dtype: Optional[str] = None
+
+
+def check_kv_pipeline(cfg: ModelConfig, pipeline: str) -> None:
+    """Quantized KV pools run with ``pipeline="off"`` only: the ring
+    kernels have no scale branch yet, and an engine refuses the pair at
+    build rather than serve it another way."""
+    if pipeline == "double" and quantize.is_quantized(cfg.kv_dtype):
+        raise NotImplementedError(
+            f"{cfg.name}: kv_dtype {cfg.kv_dtype!r} with pipeline='double': "
+            + RING_SCALES_TODO)
 
 
 def _bucket_len(n: int, floor: int) -> int:
@@ -84,6 +99,11 @@ class Engine:
         check_supported(cfg)
         self.ecfg = ecfg or EngineConfig()
         check_pipeline(self.ecfg.pipeline)
+        if (self.ecfg.kv_dtype is not None
+                and self.ecfg.kv_dtype != cfg.kv_dtype):
+            quantize.validate_kv_dtype(self.ecfg.kv_dtype)
+            cfg = dataclasses.replace(cfg, kv_dtype=self.ecfg.kv_dtype)
+        check_kv_pipeline(cfg, self.ecfg.pipeline)
         self.device = resolve_device(self.ecfg.device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:

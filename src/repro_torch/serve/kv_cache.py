@@ -10,6 +10,9 @@ content-hash prefix index); this class owns the tensors, maps slots to
 pages and performs the device copies the pool's decisions require:
 on-demand growth, copy-on-write, freezing into the prefix index, and
 swap-out / swap-in through pinned host memory in one copy each way.
+Quantized pools (``cfg.kv_dtype`` int8 / fp8_e4m3) add a float32
+``{name}_scale`` leaf beside each code leaf; every page operation moves it
+with the codes.
 """
 
 from __future__ import annotations
@@ -22,14 +25,17 @@ import numpy as np
 import torch
 
 from ..device import synchronize
+from ..kernels import quantize as kvq
 from ..models.common import ModelConfig
 from ..models import transformer as tfm
-from ..models.params import instantiate, tree_leaves, tree_map
+from ..models.params import instantiate, torch_dtype, tree_leaves, tree_map
 from .block_pool import BlockPool, chain_hash, token_chain_hashes
 
 
 _PAGED_MIXERS = ("attn", "mla")
 _RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+# byte alignment of each leaf in a swap snapshot's host buffer
+PACK_ALIGN = 16
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
@@ -381,20 +387,31 @@ class PagedKVCache:
         return slot
 
     def _pack_to_host(self, dev: List[Any]) -> List[Any]:
-        """One device->host copy for a whole tree of device tensors."""
+        """One device->host copy for a whole tree of device tensors, packed
+        into one byte buffer.  Each leaf starts at a 16-byte-aligned
+        offset, so viewing its bytes as its dtype never meets a misaligned
+        offset, whatever the leaves' sizes (int8 codes beside float32
+        scales)."""
         leaves = tree_leaves(dev)
-        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in leaves])
-        host = torch.empty(flat.numel(), dtype=torch.uint8,
+        pieces, offsets, total = [], [], 0
+        for t in leaves:
+            n = t.numel() * t.element_size()
+            pad = -n % PACK_ALIGN
+            offsets.append(total)
+            pieces.append(t.reshape(-1).view(torch.uint8))
+            if pad:
+                pieces.append(torch.zeros(pad, dtype=torch.uint8,
+                                          device=t.device))
+            total += n + pad
+        flat = torch.cat(pieces)
+        host = torch.empty(total, dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
         host.copy_(flat)                               # the one copy
-        it = iter(leaves)
-        offsets = [0]
+        it = iter(zip(leaves, offsets))
 
         def unpack(_):
-            t = next(it)
+            t, off = next(it)
             n = t.numel() * t.element_size()
-            off = offsets[0]
-            offsets[0] += n
             return host[off:off + n].view(t.dtype).reshape(t.shape)
 
         self.pool.stats.swap_dmas += 1
@@ -440,4 +457,52 @@ class PagedKVCache:
         def f(pool, state):
             pool[:, phys, off] = state[:, 0, start:prompt_len].to(pool.dtype)
 
-        tree_map(f, self.pools, states)
+        tree_map(f, self.pools, self._quantize_states(states))
+
+    def _quantize_states(self, states: List[Any]) -> List[Any]:
+        """Quantized pools carry ``*_scale`` leaves the collected prefill
+        states lack: quantize each value stream over its line axis (the op
+        the decode commit uses) and add the matching scale state, so the
+        scatter maps over identical trees and its ``.to(pool.dtype)`` on
+        the codes is a no-op, never a raw cast."""
+        if not kvq.is_quantized(self.cfg.kv_dtype):
+            return states
+        out: List[Any] = []
+        for seg_pool, seg_state in zip(self.pools, states):
+            new_seg = {}
+            for bname, blk_pool in seg_pool.items():
+                blk = dict(seg_state[bname])
+                for name in blk_pool:
+                    if name.endswith("_scale"):
+                        base = name[: -len("_scale")]
+                        blk[base], blk[name] = kvq.quantize(
+                            blk[base], self.cfg.kv_dtype, -1)
+                new_seg[bname] = blk
+            out.append(new_seg)
+        return out
+
+    def dense_view(self, slot: int) -> List[Any]:
+        """One slot's cache gathered back into a dense batch-1 layout:
+        every leaf (reps, 1, max_len, ...).  Quantized pools are
+        dequantized back to the model dtype and their scale leaves
+        dropped, so the view's tree is the same whatever ``kv_dtype``.
+        For tests and debugging."""
+        row = torch.as_tensor(self.block_tables[slot], dtype=torch.long,
+                              device=self.device)
+
+        def f(pool):
+            g = pool[:, row]                    # (reps, blocks, page, ...)
+            return g.reshape(g.shape[0], 1,
+                             self.blocks_per_slot * self.page_size,
+                             *g.shape[3:])[:, :, : self.max_len]
+
+        dense = [tree_map(f, seg) for seg in self.pools]
+        if kvq.is_quantized(self.cfg.kv_dtype):
+            for seg in dense:
+                for blk in seg.values():
+                    for name in [n for n in blk if n.endswith("_scale")]:
+                        base = name[: -len("_scale")]
+                        blk[base] = kvq.dequantize(
+                            blk[base], blk.pop(name)).to(
+                                torch_dtype(self.cfg.dtype))
+        return dense

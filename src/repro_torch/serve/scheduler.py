@@ -53,13 +53,26 @@ def _dtype_bytes(dtype: str) -> int:
     return torch_dtype(dtype).itemsize
 
 
+def _kv_store_isize(cfg: ModelConfig) -> int:
+    """Itemsize KV pages are stored at (the quantized storage type when
+    cfg.kv_dtype != bf16, else the activation dtype)."""
+    return kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
+
+
+def _kv_scale_isize(cfg: ModelConfig) -> int:
+    """Per-line float32 scale bytes a quantized pool adds (0 for bf16)."""
+    return 4 if kvq.is_quantized(cfg.kv_dtype) else 0
+
+
 @functools.lru_cache(maxsize=None)
 def kv_line_bytes(cfg: ModelConfig) -> int:
     """Bytes of growing cache per token summed over all layers: the KV
-    line read once per context token per decode step (quantized pools add
-    a float32 scale per kv head, k and v each)."""
-    isize = kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
-    s = 4 if kvq.is_quantized(cfg.kv_dtype) else 0
+    line read once per context token per decode step.  Quantized pools
+    shrink the value bytes to the storage itemsize and add the float32
+    scales the page walk streams beside them: one per kv head for GQA (k
+    and v each), two per line for MLA (latent and rope)."""
+    isize = _kv_store_isize(cfg)
+    s = _kv_scale_isize(cfg)
     total = 0
     for unit, reps in cfg.segments():
         for b in unit:
@@ -101,8 +114,8 @@ def attn_kernel_vmem_bytes(cfg: ModelConfig, context_len: int,
     kernel grids and scratch, ``pipeline="double"`` its two-slab walk
     (query slab fetched once per program), not the CUDA kernels."""
     isize = _dtype_bytes(cfg.dtype)
-    kv_isize = kvq.store_itemsize(cfg.kv_dtype, cfg.dtype)
-    scale_isize = 4 if kvq.is_quantized(cfg.kv_dtype) else 0
+    kv_isize = _kv_store_isize(cfg)
+    scale_isize = _kv_scale_isize(cfg)
     total = 0.0
     for unit, reps in cfg.segments():
         for b in unit:

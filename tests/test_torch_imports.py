@@ -53,7 +53,8 @@ def test_port_imports_without_jax_or_reference():
                 "kernels.conv_direct", "kernels.conv_winograd",
                 "core.roofline.microbench", "core.roofline.report",
                 "core.analysis", "launch.primitives", "kernels.layernorm",
-                "kernels.avgpool", "kernels.flash_attention"):
+                "kernels.avgpool", "kernels.flash_attention",
+                "kernels.quantize"):
         assert f"repro_torch.{mod}" in walked
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import quantize as kvq
 
 pytestmark = pytest.mark.cuda
 
@@ -313,9 +314,19 @@ def test_gqa_verify_kernel_rejects_bad_inputs(card):
         pa.paged_attention_verify(q.transpose(1, 2).contiguous()
                                   .transpose(1, 2), k, v, bt, pos,
                                   scale=0.25)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pa.paged_attention_verify(q, k, v, bt, pos, scale=0.25,
-                                  k_scale=torch.ones(1, device=card))
+    # scale pools: the wrong shape, the wrong dtype, one alone, scales
+    # beside an unquantized pool, a quantized pool without them
+    kq, ks = kvq.quantize(k, "int8")
+    vq, vs = kvq.quantize(v, "int8")
+    for kw, match in [
+            (dict(k_scale=ks[:, :, :1].contiguous(), v_scale=vs), "shape"),
+            (dict(k_scale=ks.double(), v_scale=vs), "dtype"),
+            (dict(k_scale=ks), "both scale pools"),
+            (dict(k_scale=ks, v_scale=vs, pools=(k, v)), "unquantized"),
+            (dict(pools=(kq, vq)), "needs its float32 scale pools")]:
+        kp, vp = kw.pop("pools", (kq, vq))
+        with pytest.raises(ValueError, match=match):
+            pa.paged_attention_verify(q, kp, vp, bt, pos, scale=0.25, **kw)
 
 
 def _mla_verify_case(rng, B, T, H, r, dr, page, nb, dtype, dev, **kw):
@@ -410,10 +421,20 @@ def test_mla_verify_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="shape"):
         pa.mla_paged_attention_verify(ql, qr[:, :2].contiguous(), c, r, bt,
                                       pos, scale=0.1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pa.mla_paged_attention_verify(ql, qr, c, r, bt, pos, scale=0.1,
-                                      c_scale=torch.ones(1, device=card),
-                                      r_scale=torch.ones(1, device=card))
+    # scale pools: the wrong shape, the wrong dtype, one alone, scales
+    # beside an unquantized pool, a quantized pool without them
+    cq, cs = kvq.quantize(c, "fp8_e4m3")
+    rq, rs = kvq.quantize(r, "fp8_e4m3")
+    for kw, match in [
+            (dict(c_scale=cs[:, :4].contiguous(), r_scale=rs), "shape"),
+            (dict(c_scale=cs.half(), r_scale=rs), "dtype"),
+            (dict(r_scale=rs), "both scale pools"),
+            (dict(c_scale=cs, r_scale=rs, pools=(c, r)), "unquantized"),
+            (dict(pools=(cq, rq)), "needs its float32 scale pools")]:
+        cp, rp = kw.pop("pools", (cq, rq))
+        with pytest.raises(ValueError, match=match):
+            pa.mla_paged_attention_verify(ql, qr, cp, rp, bt, pos, scale=0.1,
+                                          **kw)
 
 
 # --------------------------------------------------------------------------
@@ -971,10 +992,10 @@ def test_ring_kernels_dispatch_and_refusals(card):
     n = pa.mla_paged_attention_ring.launches
     ops.mla_paged_attention(*mla, scale=0.1, pipeline="double")
     assert pa.mla_paged_attention_ring.launches == n + 1
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
         pa.paged_attention_ring(*args, scale=0.25,
                                 k_scale=torch.ones(1, device=card))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
         pa.mla_paged_attention_ring(*mla, scale=0.1,
                                     c_scale=torch.ones(1, device=card))
     q, k, v, bt, pos = args
@@ -982,3 +1003,192 @@ def test_ring_kernels_dispatch_and_refusals(card):
     with pytest.raises(ValueError, match="does not fit"):
         pa.paged_attention_ring(q.new_zeros((2, 2, 2, 128)), big, big, bt,
                                 pos, scale=0.1)
+
+
+# --------------------------------------------------------------------------
+# Quantized KV pools: the scale branches of the four single-walk kernels
+# (int8 / fp8 e4m3 codes with float32 per-line scales), each against its
+# plain version on the same codes and scales.  Both dequantize to the same
+# float32 values and compute in float32, so only the summation order and,
+# for a bf16 query, the final output rounding differ: float32 2e-5, bf16
+# TOL_F32_PLAIN's 1e-2.
+# --------------------------------------------------------------------------
+
+KV_DTYPES = ["int8", "fp8_e4m3"]
+QTOL = TOL_F32_PLAIN
+
+
+def _quantize_pools(args, first):
+    """``args`` with the pools at ``first`` and ``first + 1`` quantized
+    (from their float32 values), for each storage type; yields (kv_dtype,
+    args, scale pools)."""
+    for kv_dtype in KV_DTYPES:
+        out, scales = list(args), []
+        for i in (first, first + 1):
+            out[i], s = kvq.quantize(args[i].float(), kv_dtype)
+            scales.append(s)
+        yield kv_dtype, out, scales
+
+
+def _quantized_check(kernel, plain, args, kw, dtype):
+    n = kernel.launches
+    out = kernel(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), **QTOL[dtype])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,hd,page,nb,trash", [
+    (4, 8, 2, 128, 16, 32, False),   # qwen3-0.6b decode
+    (3, 2, 2, 16, 4, 5, False),      # smoke widths
+    (2, 2, 3, 256, 16, 4, False),    # odd group count, widest head
+    (4, 8, 2, 128, 16, 32, True),    # idle lanes: every entry trash page 0
+])
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+def test_quantized_paged_attention_matches_plain(card, dtype, B, KV, G, hd,
+                                                 page, nb, trash, soft_cap):
+    rng = np.random.default_rng(B * 100 + hd + trash)
+    args = _case(rng, B, KV, G, hd, page, nb, dtype, card, trash=trash)
+    if soft_cap:
+        args = (args[0] * 4, *args[1:])
+    for _, qargs, (ks, vs) in _quantize_pools(args, 1):
+        _quantized_check(pa.paged_attention, pa.paged_attention_reference,
+                         qargs, dict(scale=hd ** -0.5, soft_cap=soft_cap,
+                                     k_scale=ks, v_scale=vs), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,KV,G,hd,page,nb,case", [
+    (4, 5, 8, 5, 128, 16, 33, "ragged"),   # qwen3-14b verify, k = 4
+    (3, 3, 2, 2, 16, 4, 5, "ragged"),      # smoke widths
+    (4, 4, 2, 3, 64, 16, 4, "edges"),      # page-crossing chains, past table
+    (4, 4, 2, 3, 64, 16, 4, "margin"),     # the same, drafts on trash entries
+    (4, 5, 8, 5, 128, 16, 33, "trash"),    # idle lanes
+])
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+def test_quantized_paged_attention_verify_matches_plain(
+        card, dtype, B, T, KV, G, hd, page, nb, case, soft_cap):
+    rng = np.random.default_rng(B * 1000 + T * 100 + hd)
+    kw = dict(trash=case == "trash")
+    if case in ("edges", "margin"):
+        kw.update(lens=[15, 30, 1, 63], backed_drafts=case == "edges")
+    args = _gqa_verify_case(rng, B, T, KV, G, hd, page, nb, dtype, card,
+                            **kw)
+    if soft_cap:
+        args = (args[0] * 4, *args[1:])
+    for _, qargs, (ks, vs) in _quantize_pools(args, 1):
+        _quantized_check(pa.paged_attention_verify,
+                         pa.paged_attention_verify_reference, qargs,
+                         dict(scale=hd ** -0.5, soft_cap=soft_cap,
+                              k_scale=ks, v_scale=vs), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,r,dr,page,nb,case", [
+    (4, 128, 512, 64, 16, 16, "ragged"),   # deepseek-v2 decode
+    (3, 4, 32, 8, 8, 4, "ragged"),         # smoke widths
+    (2, 12, 64, 16, 32, 2, "ragged"),      # heads not a multiple of the tile
+    (4, 16, 512, 64, 16, 16, "edges"),     # pos 0, part page, one page, full
+    (4, 128, 512, 64, 16, 16, "trash"),    # idle lanes
+])
+def test_quantized_mla_paged_attention_matches_plain(card, dtype, B, H, r,
+                                                     dr, page, nb, case):
+    rng = np.random.default_rng(B * 1000 + H + r + dr)
+    lens = [1, 37, 16, nb * page] if case == "edges" else None
+    args = _mla_case(rng, B, H, r, dr, page, nb, dtype, card,
+                     trash=case == "trash", lens=lens)
+    args = (args[0] * 0.5, args[1] * 0.5, *args[2:])   # the model's q scale
+    for _, qargs, (cs, rs) in _quantize_pools(args, 2):
+        _quantized_check(pa.mla_paged_attention,
+                         pa.mla_paged_attention_reference, qargs,
+                         dict(scale=192 ** -0.5, c_scale=cs, r_scale=rs),
+                         dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,H,r,dr,page,nb,case", [
+    (4, 4, 128, 512, 64, 16, 17, "ragged"),  # deepseek-v2 verify, k = 3
+    (3, 3, 4, 32, 8, 8, 5, "ragged"),        # smoke widths
+    (4, 4, 16, 512, 64, 16, 4, "edges"),     # chains crossing pages
+    (4, 4, 16, 512, 64, 16, 4, "margin"),    # drafts on trash entries
+    (4, 4, 128, 512, 64, 16, 17, "trash"),   # idle lanes
+])
+def test_quantized_mla_paged_attention_verify_matches_plain(
+        card, dtype, B, T, H, r, dr, page, nb, case):
+    rng = np.random.default_rng(B * 1000 + T * 100 + r + dr)
+    kw = dict(trash=case == "trash")
+    if case in ("edges", "margin"):
+        kw.update(lens=[15, 30, 1, 63], backed_drafts=case == "edges")
+    args = _mla_verify_case(rng, B, T, H, r, dr, page, nb, dtype, card, **kw)
+    args = (args[0] * 0.5, args[1] * 0.5, *args[2:])
+    for _, qargs, (cs, rs) in _quantize_pools(args, 2):
+        _quantized_check(pa.mla_paged_attention_verify,
+                         pa.mla_paged_attention_verify_reference, qargs,
+                         dict(scale=192 ** -0.5, c_scale=cs, r_scale=rs),
+                         dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quantized_verify_t1_equals_decode_kernels(card, dtype):
+    """One verify token is one decode step, bit for bit, on quantized pools
+    too (the same arithmetic in the same order)."""
+    rng = np.random.default_rng(60)
+    q, k, v, bt, pos = _gqa_verify_case(rng, 4, 1, 8, 2, 128, 16, 33, dtype,
+                                        card)
+    for _, (_, kq, vq, *_), (ks, vs) in _quantize_pools((q, k, v), 1):
+        kw = dict(scale=128 ** -0.5, k_scale=ks, v_scale=vs)
+        ver = pa.paged_attention_verify(q, kq, vq, bt, pos, **kw)[:, 0]
+        dec = pa.paged_attention(q[:, 0].contiguous(), kq, vq, bt, pos, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ver, dec)
+    ql, qr, c, r, bt, pos = _mla_verify_case(rng, 4, 1, 128, 512, 64, 16,
+                                             16, dtype, card)
+    for _, (_, _, cq, rq), (cs, rs) in _quantize_pools((ql, qr, c, r), 2):
+        kw = dict(scale=192 ** -0.5, c_scale=cs, r_scale=rs)
+        ver = pa.mla_paged_attention_verify(ql, qr, cq, rq, bt, pos,
+                                            **kw)[:, 0]
+        dec = pa.mla_paged_attention(ql[:, 0].contiguous(),
+                                     qr[:, 0].contiguous(), cq, rq, bt, pos,
+                                     **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ver, dec)
+
+
+def test_quantized_decode_kernels_reject_bad_scale_pools(card):
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(61)
+    q, k, v, bt, pos = _case(rng, 2, 2, 2, 16, 4, 3, torch.bfloat16, card)
+    kq, ks = kvq.quantize(k, "int8")
+    vq, vs = kvq.quantize(v, "int8")
+    for kw, match in [
+            (dict(k_scale=ks, v_scale=vs[:, :2].contiguous()), "shape"),
+            (dict(k_scale=ks, v_scale=vs.bfloat16()), "dtype"),
+            (dict(v_scale=vs), "both scale pools"),
+            (dict(k_scale=ks.transpose(0, 1).contiguous().transpose(0, 1),
+                  v_scale=vs), "contiguous")]:
+        with pytest.raises(ValueError, match=match):
+            pa.paged_attention(q, kq, vq, bt, pos, scale=0.25, **kw)
+    with pytest.raises(ValueError, match="dtype"):       # mixed storage
+        pa.paged_attention(q, kq, vq.view(torch.float8_e4m3fn), bt, pos,
+                           scale=0.25, k_scale=ks, v_scale=vs)
+    ql, qr, c, r, bt, pos = _mla_case(rng, 2, 8, 64, 16, 8, 3,
+                                      torch.float32, card)
+    cq, cs = kvq.quantize(c, "int8")
+    rq, rs = kvq.quantize(r, "int8")
+    with pytest.raises(ValueError, match="shape"):
+        pa.mla_paged_attention(ql, qr, cq, rq, bt, pos, scale=0.1,
+                               c_scale=cs[:1].contiguous(), r_scale=rs)
+    with pytest.raises(ValueError, match="needs its float32 scale pools"):
+        pa.mla_paged_attention(ql, qr, cq, rq, bt, pos, scale=0.1)
+    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
+        ops.mla_paged_attention(ql, qr, cq, rq, bt, pos, scale=0.1,
+                                c_scale=cs, r_scale=rs, pipeline="double")

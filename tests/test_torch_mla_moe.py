@@ -146,10 +146,22 @@ def test_mla_prefill_and_decode_paged_match(absorb):
 
 
 def test_mla_quantized_pool_raises_with_roadmap_item():
-    cfg = dataclasses.replace(tcfg.smoke(tcfg.get_config("deepseek-v2-236b")),
-                              kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmla.mla_paged_pool_defs(cfg, 4, PAGE)
+    """Quantized latent pools are ported (they raised until the ROADMAP
+    item was done): at int8 the pool definitions equal repro's in names,
+    shapes, storage dtypes and init — codes zeros, per-line float32
+    scales ones."""
+    tc = dataclasses.replace(tcfg.smoke(tcfg.get_config("deepseek-v2-236b")),
+                             kv_dtype="int8")
+    jc = dataclasses.replace(jcfg.smoke(jcfg.get_config("deepseek-v2-236b")),
+                             kv_dtype="int8")
+    tdefs = tmla.mla_paged_pool_defs(tc, 4, PAGE)
+    jdefs = jmla.mla_paged_pool_defs(jc, 4, PAGE)
+    assert sorted(tdefs) == sorted(jdefs) == [
+        "c_kv", "c_kv_scale", "k_rope", "k_rope_scale"]
+    for name, d in tdefs.items():
+        assert (d.shape, d.dtype, d.init) == (
+            tuple(jdefs[name].shape), jnp.dtype(jdefs[name].dtype).name,
+            jdefs[name].init), name
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.kernels import paged_attention as jpa
+from repro.kernels import quantize as jq
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
 
@@ -72,6 +73,19 @@ def test_reference_idle_trash_lanes_finite_and_equal():
     np.testing.assert_allclose(got, want_pallas, **TOL)
 
 
+def _int8_pools(args, first_pool):
+    """The arrays of ``args`` with the two pools from ``first_pool`` on
+    quantized to int8 by the reference; returns (numpy args, {scale kwarg
+    suffix index: scales})."""
+    args = list(args)
+    scales = []
+    for i in (first_pool, first_pool + 1):
+        q, s = jq.quantize(jnp.asarray(args[i]), "int8", -1)
+        args[i] = np.asarray(q)
+        scales.append(np.asarray(s))
+    return args, scales
+
+
 def test_cpu_tensors_dispatch_to_plain_version_and_kernel_refuses_them():
     args = [torch.from_numpy(a) for a in _inputs(3, 2, 2, 2, 16, 4, 3)]
     assert ops.resolve("paged_attention", torch.device("cpu")) is \
@@ -83,9 +97,16 @@ def test_cpu_tensors_dispatch_to_plain_version_and_kernel_refuses_them():
         tpa.paged_attention(*args, scale=0.25)
     ops.paged_attention(*args, scale=0.25)
     assert tpa.paged_attention.launches == n     # the plain version ran
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpa.paged_attention_reference(*args, scale=0.25,
-                                      k_scale=torch.ones(1))
+    # scale pools: the plain version dequantizes int8 pools as repro's
+    # jnp reference does
+    qargs, (ks, vs) = _int8_pools(_inputs(3, 2, 2, 2, 16, 4, 3), 1)
+    want = jpa.paged_attention_reference(
+        *[jnp.asarray(a) for a in qargs], scale=0.25, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    got = tpa.paged_attention_reference(
+        *[torch.from_numpy(a) for a in qargs], scale=0.25,
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("ctx,page,n_q,pipeline", [
@@ -160,10 +181,18 @@ def test_mla_cpu_tensors_dispatch_to_plain_version_and_kernel_refuses():
         tpa.mla_paged_attention(*args, scale=0.1)
     ops.mla_paged_attention(*args, scale=0.1)
     assert tpa.mla_paged_attention.launches == n  # the plain version ran
-    for fn in (tpa.mla_paged_attention, tpa.mla_paged_attention_reference):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn(*args, scale=0.1, c_scale=torch.ones(1),
-               r_scale=torch.ones(1))
+    # scale pools: the plain version dequantizes as repro's reference; the
+    # kernel still refuses CPU tensors
+    qargs, (cs, rs) = _int8_pools(_mla_inputs(3, 2, 4, 32, 8, 4, 3), 2)
+    want = jpa.mla_paged_attention_reference(
+        *[jnp.asarray(a) for a in qargs], scale=0.1, c_scale=jnp.asarray(cs),
+        r_scale=jnp.asarray(rs))
+    targs = [torch.from_numpy(a) for a in qargs]
+    tkw = dict(c_scale=torch.from_numpy(cs), r_scale=torch.from_numpy(rs))
+    got = tpa.mla_paged_attention_reference(*targs, scale=0.1, **tkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tpa.mla_paged_attention(*targs, scale=0.1, **tkw)
 
 
 @pytest.mark.parametrize("ctx,page,n_q,pipeline", [

@@ -119,7 +119,7 @@ def test_cpu_tensors_take_the_plain_version_under_double():
     assert torch.equal(off, dbl)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tpa.paged_attention_ring(q, kp, vp, bt, pos, scale=0.25)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
         tpa.paged_attention_ring(q, kp, vp, bt, pos, scale=0.25,
                                  k_scale=torch.ones(1))
     with pytest.raises(ValueError, match="CUDA tensors only"):

@@ -33,6 +33,7 @@ import repro.configs as jcfg
 import repro.models as jm
 import repro.serve as jserve
 from repro.kernels import paged_attention as jpa
+from repro.kernels import quantize as jq
 from repro.parallel.sharding import tree_instantiate
 from repro.serve import proposer as jprop
 from repro.serve import scheduler as jsched
@@ -201,12 +202,25 @@ def test_verify_dispatch_and_kernel_refuses_cpu_tensors():
             cuda(*args, scale=0.25)
         getattr(ops, op)(*args, scale=0.25)
         assert cuda.launches == n                 # the plain version ran
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpa.paged_attention_verify_reference(*gqa, scale=0.25,
-                                             v_scale=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpa.mla_paged_attention_verify(*mla, scale=0.25,
-                                       c_scale=torch.ones(1))
+    # scale pools: both plain versions dequantize int8 pools as repro's
+    # jnp references do; the kernels still refuse CPU tensors
+    for op, args, pool, names in [
+            ("paged_attention_verify", gqa, 1, ("k_scale", "v_scale")),
+            ("mla_paged_attention_verify", mla, 2, ("c_scale", "r_scale"))]:
+        qargs = [a.numpy() for a in args]
+        scales = {}
+        for i, name in zip((pool, pool + 1), names):
+            q, s = jq.quantize(jnp.asarray(qargs[i]), "int8", -1)
+            qargs[i], scales[name] = np.asarray(q), np.asarray(s)
+        want = getattr(jpa, op + "_reference")(
+            *[jnp.asarray(a) for a in qargs], scale=0.25,
+            **{k: jnp.asarray(v) for k, v in scales.items()})
+        targs = [torch.from_numpy(a) for a in qargs]
+        tkw = {k: torch.from_numpy(v) for k, v in scales.items()}
+        got = getattr(tpa, op + "_reference")(*targs, scale=0.25, **tkw)
+        _close(got.numpy(), want, ATTN_TOL)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            getattr(tpa, op)(*targs, scale=0.25, **tkw)
 
 
 # --------------------------------------------------------------------------
