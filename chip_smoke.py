@@ -21,10 +21,13 @@ Phases, in order; any failure exits non-zero:
    scale branches (int8 and fp8_e4m3 pools with float32 per-line scales)
    on every one of those cases, bf16 and float32 queries, against the
    plain version on the same codes and scales (float32 2e-5, bf16 1e-2),
-   and at T = 1 verify equal to decode bit for bit; times (CUDA events)
-   of the kernel, the ring kernel, the plain version and one PyTorch
-   library call computing the same function, beside the bound, and of the
-   scale branches on the same inputs quantized, beside the bound at the
+   and at T = 1 verify equal to decode bit for bit; the ring kernels'
+   scale branches on every one of those quantized cases, equal to the
+   quantized off kernel bit for bit (torch.equal) and within the same
+   tolerance of the plain version; times (CUDA events) of the kernel, the
+   ring kernel, the plain version and one PyTorch library call computing
+   the same function, beside the bound, and of the scale branches (off
+   and ring) on the same inputs quantized, beside the bound at the
    quantized line bytes;
 4. the paper's primitive study (launch/primitives.py): the microbench
    (FMA-chain probe, matmul peaks per dtype, copy / fill / triad
@@ -74,17 +77,23 @@ Phases, in order; any failure exits non-zero:
    steps times, the pools' device bytes equal the scheduler's pricing,
    one step's logits match the plain attention on copies of the quantized
    pools; tok/s, peak memory and the share of greedy tokens equal to the
-   bf16 streams printed beside the bf16 run's;
-6. one JSON line listing the 14 ported kernels (rows 1, 3, 4 and 5 with
-   ``int8`` / ``fp8_e4m3`` fields: time, max error, bound, plain and
-   library times of the scale branch), then the card line, then the
-   device line last.  Each phase prints its wall time.
+   bf16 streams printed beside the bf16 run's; then each quantized engine
+   served again with pipeline double (deterministic algorithms for the
+   MoE model, both runs): greedy streams byte-equal to the off run's, the
+   ring kernels launched layers x steps times and no off kernel, tok/s
+   of both runs printed;
+6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
+   ``fp8_e4m3`` fields: time, max error, bound, plain and library times
+   of the scale branch; rows 2 and 6, the rings, at the decode inputs of
+   rows 1 and 4), then the card line, then the device line last.  Each
+   phase prints its wall time.
 
 Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -284,7 +293,7 @@ def kernel_phase(torch, np, pa):
             quant_cases(torch, kvq, f"paged_attention {name:8s} {kind:8s}",
                         pa.paged_attention, pa.paged_attention_reference,
                         args, 1, ("k_scale", "v_scale"), kw, name, qerrs,
-                        kind)
+                        kind, ring=pa.paged_attention_ring)
     # times at the main path's shapes and types: bf16, engine-like ragged
     # contexts; 16 copies (~135 MB) rotate so every call reads cold HBM
     c = attention_case(torch, np, rng, torch.bfloat16, "ragged")
@@ -327,11 +336,11 @@ def kernel_phase(torch, np, pa):
                            isize)
     bytes_ms, ops_ms = bound(isize)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-    quant = quant_times(
+    quant, ring_quant = quant_times(
         torch, kvq, "paged_attention", pa.paged_attention,
         pa.paged_attention_reference, library, copies, 1,
         ("k_scale", "v_scale"), kw, lambda kvd: bound_of(*bound(1, 4)),
-        qerrs, kernel_ms)
+        qerrs, kernel_ms, pa.paged_attention_ring, ring_ms)
     pa.paged_attention.launches = n        # comparison launches do not count
     pa.paged_attention_ring.launches = n_ring
     print(f"[kernel] paged_attention bf16 B={SLOTS} KV={KV} G={G} hd={HD} "
@@ -346,7 +355,8 @@ def kernel_phase(torch, np, pa):
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                  library_ms=library_ms, **quant),
-            dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms))
+            dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms,
+                 **ring_quant))
 
 
 def mla_case(torch, np, rng, dtype, kind: str):
@@ -418,7 +428,7 @@ def mla_kernel_phase(torch, np, pa):
                         f"{kind:6s}", pa.mla_paged_attention,
                         pa.mla_paged_attention_reference, c["args"], 2,
                         ("c_scale", "r_scale"), dict(scale=c["scale"]),
-                        name, qerrs, kind)
+                        name, qerrs, kind, ring=pa.mla_paged_attention_ring)
     # times at the main path's shapes and type: bf16, MLA_LENS; 64 copies
     # of the queries and pools (~110 MB) rotate so every call reads cold
     # HBM
@@ -460,12 +470,12 @@ def mla_kernel_phase(torch, np, pa):
     library_ms = device_ms(library, copies)
     bytes_ms, ops_ms = mla_bound(q_lat, q_rope, pos, 1, S)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-    quant = quant_times(
+    quant, ring_quant = quant_times(
         torch, kvq, "mla_paged_attention", pa.mla_paged_attention,
         pa.mla_paged_attention_reference, library, copies, 2,
         ("c_scale", "r_scale"), kw,
         lambda kvd: bound_of(*mla_bound(q_lat, q_rope, pos, 1, S, 1)),
-        qerrs, kernel_ms)
+        qerrs, kernel_ms, pa.mla_paged_attention_ring, ring_ms)
     pa.mla_paged_attention.launches = n    # comparison launches do not count
     pa.mla_paged_attention_ring.launches = n_ring
     print(f"[kernel] mla_paged_attention bf16 B={SLOTS} H={MLA_H} "
@@ -481,7 +491,8 @@ def mla_kernel_phase(torch, np, pa):
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                  library_ms=library_ms, **quant),
-            dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms))
+            dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms,
+                 **ring_quant))
 
 
 def hold(torch, label: str, kernel, plain, args, n_float: int, kw,
@@ -564,13 +575,28 @@ def quant_hold(torch, label: str, kernel, plain, args, kw, name: str) -> float:
 
 
 def quant_cases(torch, kvq, label: str, kernel, plain, args, first: int,
-                names, kw, name: str, errs: dict, kind: str) -> None:
-    """The quantized holds of one case, int8 and fp8, into ``errs``."""
+                names, kw, name: str, errs: dict, kind: str, ring) -> None:
+    """The quantized holds of one case, int8 and fp8, into ``errs``: the
+    off kernel against the plain version, then the ring kernel (the
+    scale branch of ``pipeline="double"``) equal to the off kernel bit for
+    bit (torch.equal) on the same codes and scales and against the plain
+    version at the same tolerance (its error under key ``"ring"``)."""
     for kvd in KV_DTYPES:
         qargs, scales = quantize_pools(kvq, args, first, kvd)
+        skw = dict(kw, **dict(zip(names, scales)))
         errs[(name, kind, kvd)] = quant_hold(
-            torch, f"{label} {kvd}", kernel, plain, qargs,
-            dict(kw, **dict(zip(names, scales))), name)
+            torch, f"{label} {kvd}", kernel, plain, qargs, skw, name)
+        got, want = ring(*qargs, **skw), kernel(*qargs, **skw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            d = float((got.float() - want.float()).abs().max())
+            fail(f"{label} {kvd}: the ring kernel's output differs from the "
+                 f"off kernel's (max abs diff {d:.3e}); they must be "
+                 "bit-identical")
+        print(f"[kernel] {label} {kvd} ring equals the off kernel bit for "
+              "bit")
+        errs[(name, kind, kvd, "ring")] = quant_hold(
+            torch, f"{label} {kvd} ring", ring, plain, qargs, skw, name)
 
 
 def t1_equal(torch, kvq, label: str, name: str, verify, decode, args,
@@ -604,15 +630,17 @@ def gather_pages(pool, scales, bt, dtype):
 
 
 def quant_times(torch, kvq, label: str, kernel, plain, library, copies,
-                first: int, names, kw, bound, errs: dict, bf16_ms: float):
+                first: int, names, kw, bound, errs: dict, bf16_ms: float,
+                ring, ring_bf16_ms: float):
     """Times of one kernel's scale branch at the main path's bf16 inputs,
-    each timing copy's pools quantized: kernel, plain version and library
-    call (gather + dequantize + SDPA), with ``bound(kv_dtype)`` -> (ms,
-    what bounds it) at the quantized line bytes.  Prints each beside the
-    bf16-pool kernel's time of the same call; returns {kv_dtype: fields}
-    for the kernels line."""
+    each timing copy's pools quantized: kernel, ring kernel, plain version
+    and library call (gather + dequantize + SDPA), with
+    ``bound(kv_dtype)`` -> (ms, what bounds it) at the quantized line
+    bytes.  Prints each beside the bf16-pool kernels' times of the same
+    call; returns {kv_dtype: fields} for the kernel's and for the ring's
+    kernels-line entries."""
     n = len(copies[0])
-    out = {}
+    out, ring_out = {}, {}
     for kvd in KV_DTYPES:
         qcopies = []
         for c in copies:
@@ -622,6 +650,7 @@ def quant_times(torch, kvq, label: str, kernel, plain, library, copies,
         def call(fn):
             return lambda *a: fn(*a[:n], **kw, **dict(zip(names, a[n:])))
         ms = device_ms(call(kernel), qcopies)
+        ring_ms = device_ms(call(ring), qcopies)
         plain_ms = device_ms(call(plain), qcopies)
         lib_err = float((library(*qcopies[0]).float() - call(plain)(
             *qcopies[0]).float()).abs().max())
@@ -630,16 +659,23 @@ def quant_times(torch, kvq, label: str, kernel, plain, library, copies,
                  f"version: {lib_err}")
         library_ms = device_ms(library, qcopies)
         bound_ms, bound_by = bound(kvd)
+        common = dict(plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=library_ms)
         out[kvd] = dict(ms=ms, max_abs_err=errs[("bfloat16", "ragged", kvd)],
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=library_ms)
+                        **common)
+        ring_out[kvd] = dict(
+            ms=ring_ms,
+            max_abs_err=errs[("bfloat16", "ragged", kvd, "ring")], **common)
         print(f"[kernel] {label} {kvd} pools, bf16 queries: kernel {ms:.4f} "
               f"ms ({ms / bf16_ms:.2f}x the bf16-pool kernel's "
-              f"{bf16_ms:.4f} ms), plain {plain_ms:.4f} ms, library (gather "
-              f"+ dequantize + SDPA) {library_ms:.4f} ms (max abs diff vs "
-              f"plain {lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by})")
+              f"{bf16_ms:.4f} ms), ring kernel {ring_ms:.4f} ms "
+              f"({ring_ms / ring_bf16_ms:.2f}x the bf16-pool ring's "
+              f"{ring_bf16_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+              f"(gather + dequantize + SDPA) {library_ms:.4f} ms (max abs "
+              f"diff vs plain {lib_err:.3e}), bound {bound_ms:.5f} ms "
+              f"({bound_by})")
         del qcopies
-    return out
+    return out, ring_out
 
 
 def verify_tables(torch, np, rng, lens, T: int, page: int, nb: int):
@@ -695,8 +731,9 @@ def gqa_verify_case(torch, np, rng, dtype, kind: str):
 def gqa_verify_kernel_phase(torch, np, pa):
     """paged_attention_verify (CUDA) vs paged_attention_verify_reference
     on the card, at T = 1 against the decode kernel, and the GQA ring
-    kernel at verify shapes against both.  Returns the kernels-line entry
-    and the ring's time at the same inputs."""
+    kernel at verify shapes against both, on bf16 and quantized pools.
+    Returns the kernels-line entry and the ring's times at the same
+    inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import quantize as kvq
     rng = np.random.default_rng(3)
@@ -713,7 +750,8 @@ def gqa_verify_kernel_phase(torch, np, pa):
             quant_cases(torch, kvq, f"paged_attention_verify {name:8s} "
                         f"{kind:8s}", pa.paged_attention_verify,
                         pa.paged_attention_verify_reference, c["args"], 1,
-                        ("k_scale", "v_scale"), c["kw"], name, qerrs, kind)
+                        ("k_scale", "v_scale"), c["kw"], name, qerrs, kind,
+                        ring=pa.paged_attention_ring)
             ring_hold(torch, f"paged_attention_ring (verify) {name:8s} "
                       f"{kind:8s}", pa.paged_attention_ring,
                       pa.paged_attention_verify,
@@ -783,11 +821,11 @@ def gqa_verify_kernel_phase(torch, np, pa):
                            isize)
     bytes_ms, ops_ms = bound(isize)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-    quant = quant_times(
+    quant, ring_quant = quant_times(
         torch, kvq, "paged_attention_verify", pa.paged_attention_verify,
         pa.paged_attention_verify_reference, library, copies, 1,
         ("k_scale", "v_scale"), kw, lambda kvd: bound_of(*bound(1, 4)),
-        qerrs, kernel_ms)
+        qerrs, kernel_ms, pa.paged_attention_ring, ring_ms)
     pa.paged_attention_verify.launches = n  # comparison launches not counted
     pa.paged_attention.launches = n_dec
     pa.paged_attention_ring.launches = n_ring
@@ -804,7 +842,8 @@ def gqa_verify_kernel_phase(torch, np, pa):
                  replaces="src/repro/kernels/paged_attention.py:557",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms, **quant), ring_ms)
+                 library_ms=library_ms, **quant),
+            dict(ms=ring_ms, **ring_quant))
 
 
 def mla_verify_case(torch, np, rng, dtype, kind: str):
@@ -837,8 +876,8 @@ def mla_verify_case(torch, np, rng, dtype, kind: str):
 def mla_verify_kernel_phase(torch, np, pa):
     """mla_paged_attention_verify (CUDA) vs its plain version, at T = 1
     against the MLA decode kernel, and the MLA ring kernel at verify
-    shapes against both.  Returns the kernels-line entry and the ring's
-    time at the same inputs."""
+    shapes against both, on bf16 and quantized pools.  Returns the
+    kernels-line entry and the ring's times at the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import quantize as kvq
     rng = np.random.default_rng(4)
@@ -856,7 +895,7 @@ def mla_verify_kernel_phase(torch, np, pa):
                         f"{kind:6s}", pa.mla_paged_attention_verify,
                         pa.mla_paged_attention_verify_reference, c["args"],
                         2, ("c_scale", "r_scale"), c["kw"], name, qerrs,
-                        kind)
+                        kind, ring=pa.mla_paged_attention_ring)
             ring_hold(torch, f"mla_paged_attention_ring (verify) {name:8s} "
                       f"{kind:6s}", pa.mla_paged_attention_ring,
                       pa.mla_paged_attention_verify,
@@ -925,13 +964,13 @@ def mla_verify_kernel_phase(torch, np, pa):
     library_ms = device_ms(library, copies)
     bytes_ms, ops_ms = mla_bound(q_lat, q_rope, pos, MLA_T, S)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-    quant = quant_times(
+    quant, ring_quant = quant_times(
         torch, kvq, "mla_paged_attention_verify",
         pa.mla_paged_attention_verify,
         pa.mla_paged_attention_verify_reference, library, copies, 2,
         ("c_scale", "r_scale"), kw,
         lambda kvd: bound_of(*mla_bound(q_lat, q_rope, pos, MLA_T, S, 1)),
-        qerrs, kernel_ms)
+        qerrs, kernel_ms, pa.mla_paged_attention_ring, ring_ms)
     pa.mla_paged_attention_verify.launches = n
     pa.mla_paged_attention.launches = n_dec
     pa.mla_paged_attention_ring.launches = n_ring
@@ -948,7 +987,8 @@ def mla_verify_kernel_phase(torch, np, pa):
                  replaces="src/repro/kernels/paged_attention.py:660",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms, **quant), ring_ms)
+                 library_ms=library_ms, **quant),
+            dict(ms=ring_ms, **ring_quant))
 
 
 # the paper's primitives (PR 14): the data-sheet values the measured
@@ -1495,9 +1535,9 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
         lambda pl: Engine(cfg, params, dataclasses.replace(ecfg, pipeline=pl)),
         prompts, gen, lambda e: {op: e.decode_steps * cfg.n_layers})
     quantized_runs(
-        torch, np, card, cfg.name,
-        lambda kvd: Engine(cfg, params,
-                           dataclasses.replace(ecfg, kv_dtype=kvd)),
+        torch, np, card, cfg.name, cfg,
+        lambda kvd, pl: Engine(cfg, params, dataclasses.replace(
+            ecfg, kv_dtype=kvd, pipeline=pl)),
         prompts, gen, kv_dtypes, lambda e: {op: e.decode_steps * cfg.n_layers},
         ([list(r.generated) for r in reqs], n_tok / wall, peak_gb,
          pool_nbytes(engine)),
@@ -1513,65 +1553,87 @@ RING_OF = {"paged_attention": "paged_attention_ring",
            "mla_paged_attention": "mla_paged_attention_ring",
            "mla_paged_attention_verify": "mla_paged_attention_ring"}
 PIPELINE_ORDER = ("off", "double", "double", "off")
+PAGED_KERNELS = sorted(set(RING_OF) | set(RING_OF.values()))
+
+
+@contextlib.contextmanager
+def deterministic(torch, on: bool):
+    """Deterministic algorithms on (``on``) for runs whose streams are
+    compared byte for byte: an MoE model's combine (``index_add_``)
+    otherwise adds in atomic order; the dense path is deterministic as it
+    is.  cuBLAS on one stream is deterministic; its note says otherwise,
+    and is silenced."""
+    import warnings
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message="Deterministic behavior was enabled")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def counted_run(torch, engine, prompts, gen):
+    """Serve ``prompts`` on ``engine``, every paged kernel's launch count
+    zeroed just before the run and read just after.  Returns (requests,
+    {kernel name: launches}, wall seconds)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.obs.clock import now
+    counters = [getattr(pa, n) for n in PAGED_KERNELS]
+    reqs = [engine.submit(p, gen) for p in prompts]
+    for c in counters:
+        c.launches = 0                           # counts start here
+    torch.cuda.synchronize()
+    t0 = now()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = now() - t0
+    return reqs, {c.__name__: c.launches for c in counters}, wall  # read
+
+
+def want_launches(off_counts: dict, pipeline: str) -> dict:
+    """Every paged kernel's launches for a run whose off kernels would
+    launch ``off_counts`` (name -> count): on those kernels with pipeline
+    off, on their rings (RING_OF) with pipeline double, 0 elsewhere."""
+    want = dict.fromkeys(PAGED_KERNELS, 0)
+    for op, n in off_counts.items():
+        want[RING_OF[op] if pipeline == "double" else op] += n
+    return want
 
 
 def pipeline_runs(torch, card, label, cfg, make, prompts, gen, want_off):
     """Serve ``prompts`` with engines ``make(pipeline)`` of ``cfg``,
     pipeline off and double in turns (PIPELINE_ORDER), so that the runs
-    differ by their attention kernels alone: for an MoE model with
-    deterministic algorithms on (its combine's ``index_add_`` otherwise
-    adds in atomic order; the dense path is deterministic as it is).
-    Every run's greedy streams must equal the first run's.  Each run zeroes every paged
-    kernel's launch count just before it and reads them just after: an off
-    run must launch ``want_off(engine)`` (off kernel name -> count) and no
-    ring, a double run the same counts on the rings (RING_OF) and no off
-    kernel.  Prints tok/s of every run (one call, one card: comparable);
-    returns the ring counts of the first double run."""
-    import warnings
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.obs.clock import now
-    names = sorted(set(RING_OF) | set(RING_OF.values()))
-    counters = {n: getattr(pa, n) for n in names}
+    differ by their attention kernels alone (deterministic algorithms on
+    for an MoE model).  Every run's greedy streams must equal the first
+    run's.  Each run (:func:`counted_run`) must launch
+    ``want_launches(want_off(engine), pipeline)``: an off run its off
+    kernels and no ring, a double run the same counts on the rings and no
+    off kernel.  Prints tok/s of every run (one call, one card:
+    comparable); returns the ring counts of the first double run."""
     first, rates, rings = None, [], None
     moe = any(b.ffn == "moe" for b in cfg.block_pattern)
-    torch.use_deterministic_algorithms(moe, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            # cuBLAS on one stream is deterministic; its note says otherwise
-            warnings.filterwarnings(
-                "ignore", message="Deterministic behavior was enabled")
-            for pl in PIPELINE_ORDER:
-                engine = make(pl)
-                reqs = [engine.submit(p, gen) for p in prompts]
-                for c in counters.values():
-                    c.launches = 0               # counts start here
-                torch.cuda.synchronize()
-                t0 = now()
-                engine.run()
-                torch.cuda.synchronize()
-                wall = now() - t0
-                got = {n: c.launches for n, c in counters.items()}  # read
-                want = dict.fromkeys(names, 0)
-                for op, n in want_off(engine).items():
-                    want[RING_OF[op] if pl == "double" else op] += n
-                if got != want:
-                    fail(f"{label} pipeline={pl}: kernel launches {got}, "
-                         f"want {want}")
-                streams = [list(r.generated) for r in reqs]
-                if first is None:
-                    first = streams
-                    if any(r.finish_reason != "length" for r in reqs):
-                        fail(f"{label} pipeline={pl}: a request did not "
-                             "finish")
-                elif streams != first:
-                    fail(f"{label} pipeline={pl}: greedy streams differ from "
-                         "the first run's")
-                if pl == "double" and rings is None:
-                    rings = {n: got[n] for n in set(RING_OF.values())}
-                n_tok = sum(len(s) for s in streams)
-                rates.append(f"{pl} {n_tok / wall:.2f}")
-    finally:
-        torch.use_deterministic_algorithms(False)
+    with deterministic(torch, moe):
+        for pl in PIPELINE_ORDER:
+            engine = make(pl)
+            reqs, got, wall = counted_run(torch, engine, prompts, gen)
+            want = want_launches(want_off(engine), pl)
+            if got != want:
+                fail(f"{label} pipeline={pl}: kernel launches {got}, "
+                     f"want {want}")
+            streams = [list(r.generated) for r in reqs]
+            if first is None:
+                first = streams
+                if any(r.finish_reason != "length" for r in reqs):
+                    fail(f"{label} pipeline={pl}: a request did not finish")
+            elif streams != first:
+                fail(f"{label} pipeline={pl}: greedy streams differ from "
+                     "the first run's")
+            if pl == "double" and rings is None:
+                rings = {n: got[n] for n in set(RING_OF.values())}
+            n_tok = sum(len(x) for x in streams)
+            rates.append(f"{pl} {n_tok / wall:.2f}")
     mode = "deterministic algorithms" if moe else "default algorithms"
     print(f"[pipeline] {label} {card}: tok/s {', '.join(rates)} (runs in "
           f"this order, {mode}); greedy streams of all "
@@ -1581,71 +1643,65 @@ def pipeline_runs(torch, card, label, cfg, make, prompts, gen, want_off):
     return rings
 
 
-def quantized_runs(torch, np, card, label, make, prompts, gen, kv_dtypes,
-                   want_off, base, check, logits_atol,
+def quantized_runs(torch, np, card, label, cfg, make, prompts, gen,
+                   kv_dtypes, want_off, base, check, logits_atol,
                    more=((30, 50, 90), 8)) -> None:
-    """Serve ``prompts`` again with engines ``make(kv_dtype)`` (quantized
-    KV pools, pipeline off), one per ``kv_dtypes``: every request must
-    finish; each run zeroes every paged kernel's launch count just before
-    it and reads them just after, and must launch the off kernels
-    ``want_off(engine)`` times and no ring; the KV pools' device bytes must
-    equal the scheduler's pricing, kv_line_bytes x pages x page size; one
-    step of a second batch (``more``: prompt lengths and new tokens, which
-    must bring three requests to decode together; ``check(engine)``, on
-    copies of the quantized pools) must match the plain attention within
-    ``logits_atol``.  Prints
-    tok/s, peak memory and pool bytes beside the bf16 run's (``base``:
-    its streams, tok/s, peak GB and KV pool bytes, same call) and the
-    share of greedy tokens equal to the bf16 streams (not a gate:
-    quantization moves logits)."""
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.obs.clock import now
+    """Serve ``prompts`` again with engines ``make(kv_dtype, pipeline)``
+    (quantized KV pools), one per ``kv_dtypes``, first with pipeline off:
+    every request must finish; the run (:func:`counted_run`) must launch
+    the off kernels ``want_off(engine)`` times and no ring; the KV pools'
+    device bytes must equal the scheduler's pricing, kv_line_bytes x pages
+    x page size; one step of a second batch on that engine (``more``:
+    prompt lengths and new tokens, which must bring three requests to
+    decode together; ``check(engine)``, on copies of the quantized pools)
+    must match the plain attention within ``logits_atol``.  Then with
+    pipeline double, on the same prompts and weights: greedy streams
+    byte-equal to the off run's, the rings launched the off run's counts
+    and no off kernel (both runs with deterministic algorithms for an MoE
+    model, as :func:`pipeline_runs`).  Prints tok/s of both runs, peak
+    memory and pool bytes beside the bf16 run's (``base``: its streams,
+    tok/s, peak GB and KV pool bytes, same call) and the share of greedy
+    tokens equal to the bf16 streams (not a gate: quantization moves
+    logits)."""
     from repro_torch.serve import GenerateConfig
     from repro_torch.serve.scheduler import kv_line_bytes
-    names = sorted(set(RING_OF) | set(RING_OF.values()))
-    counters = {n: getattr(pa, n) for n in names}
     base_streams, base_rate, base_peak, base_pool_bytes = base
+    moe = any(b.ffn == "moe" for b in cfg.block_pattern)
+    mode = "deterministic algorithms" if moe else "default algorithms"
     rng = np.random.default_rng(7)
     for kvd in kv_dtypes:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        engine = make(kvd)
-        reqs = [engine.submit(p, gen) for p in prompts]
-        for c in counters.values():
-            c.launches = 0                       # counts start here
-        torch.cuda.synchronize()
-        t0 = now()
-        engine.run()
-        torch.cuda.synchronize()
-        wall = now() - t0
-        got = {n: c.launches for n, c in counters.items()}   # read here
-        want = dict.fromkeys(names, 0)
-        want.update(want_off(engine))
-        if got != want:
-            fail(f"{label} kv_dtype={kvd}: kernel launches {got}, want "
-                 f"{want}")
-        if any(r.finish_reason != "length"
-               or len(r.generated) != gen.max_new_tokens for r in reqs):
-            fail(f"{label} kv_dtype={kvd}: a request did not finish")
-        kv = engine._kv
-        pool_bytes = pool_nbytes(engine)
-        priced = kv_line_bytes(engine.cfg) * kv.num_pages * kv.page_size
-        if pool_bytes != priced:
-            fail(f"{label} kv_dtype={kvd}: KV pools hold {pool_bytes} B, "
-                 f"the scheduler prices {priced} B")
-        streams = [list(r.generated) for r in reqs]
-        n_tok = sum(len(x) for x in streams)
-        same = sum(a == b for x, y in zip(streams, base_streams)
-                   for a, b in zip(x, y))
-        lens, more_new = more
-        extra = [engine.submit(rng.integers(0, engine.cfg.vocab_size, n),
-                               GenerateConfig(max_new_tokens=more_new))
-                 for n in lens]
-        err = None
-        while engine._sched.has_work():
-            if err is None and len(engine._sched.decode_requests()) == 3:
-                err, scale = check(engine)
-            engine.step()
+        with deterministic(torch, moe):
+            engine = make(kvd, "off")
+            reqs, got, wall = counted_run(torch, engine, prompts, gen)
+            want = want_launches(want_off(engine), "off")
+            if got != want:
+                fail(f"{label} kv_dtype={kvd}: kernel launches {got}, want "
+                     f"{want}")
+            if any(r.finish_reason != "length"
+                   or len(r.generated) != gen.max_new_tokens for r in reqs):
+                fail(f"{label} kv_dtype={kvd}: a request did not finish")
+            streams = [list(r.generated) for r in reqs]
+            n_tok = sum(len(x) for x in streams)
+            kv = engine._kv
+            pool_bytes = pool_nbytes(engine)
+            line_bytes = kv_line_bytes(engine.cfg)
+            priced = line_bytes * kv.num_pages * kv.page_size
+            if pool_bytes != priced:
+                fail(f"{label} kv_dtype={kvd}: KV pools hold {pool_bytes} B, "
+                     f"the scheduler prices {priced} B")
+            same = sum(a == b for x, y in zip(streams, base_streams)
+                       for a, b in zip(x, y))
+            lens, more_new = more
+            extra = [engine.submit(rng.integers(0, engine.cfg.vocab_size, n),
+                                   GenerateConfig(max_new_tokens=more_new))
+                     for n in lens]
+            err = None
+            while engine._sched.has_work():
+                if err is None and len(engine._sched.decode_requests()) == 3:
+                    err, scale = check(engine)
+                engine.step()
         if err is None or any(len(r.generated) != more_new for r in extra):
             fail(f"the {label} kv_dtype={kvd} logits-check batch did not run "
                  "as planned")
@@ -1656,10 +1712,22 @@ def quantized_runs(torch, np, card, label, make, prompts, gen, kv_dtypes,
         acc = (f", acceptance rate "
                f"{engine.aggregate_ledger().acceptance_rate:.3f}"
                if hasattr(engine, "verify_steps") else "")
+        del engine
+        with deterministic(torch, moe):
+            dengine = make(kvd, "double")
+            dreqs, dgot, dwall = counted_run(torch, dengine, prompts, gen)
+            dwant = want_launches(want_off(dengine), "double")
+        if dgot != dwant:
+            fail(f"{label} kv_dtype={kvd} pipeline=double: kernel launches "
+                 f"{dgot}, want {dwant}")
+        if [list(r.generated) for r in dreqs] != streams:
+            fail(f"{label} kv_dtype={kvd}: pipeline=double greedy streams "
+                 "differ from pipeline=off's")
+        del dengine, dreqs
         print(f"[quant] {label} kv_dtype={kvd} {card}: {len(reqs)} requests "
               f"finished; launches {dict((k, v) for k, v in got.items() if v)}"
               f" = layers x steps, 0 ring launches; KV pools {pool_bytes} B ="
-              f" kv_line_bytes {kv_line_bytes(engine.cfg)} x {kv.num_pages} "
+              f" kv_line_bytes {line_bytes} x {kv.num_pages} "
               f"pages x {kv.page_size} (bf16 pools {base_pool_bytes} B, "
               f"{base_pool_bytes / pool_bytes:.4f}x); logits vs plain "
               f"attention max abs "
@@ -1669,7 +1737,11 @@ def quantized_runs(torch, np, card, label, make, prompts, gen, kv_dtypes,
               f"{peak_gb:.2f} GB (bf16 pools {base_peak:.2f} GB); greedy "
               f"tokens equal to the bf16 streams {same}/{n_tok} "
               f"({same / n_tok:.3f}){acc}")
-        del engine
+        print(f"[quant] {label} kv_dtype={kvd} pipeline=double {card}: "
+              f"greedy streams byte-equal to pipeline=off's; launches "
+              f"{dict((k, v) for k, v in dgot.items() if v)} = layers x "
+              f"steps, 0 off paged launches; tok/s off {n_tok / wall:.2f}, "
+              f"double {n_tok / dwall:.2f} ({mode}, this order)")
 
 
 def pool_nbytes(engine) -> int:
@@ -1918,9 +1990,9 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
                               dataclasses.replace(ecfg, pipeline=pl), scfg),
         prompts, gen, want_off)
     quantized_runs(
-        torch, np, card, label,
-        lambda kvd: SpecEngine(cfg, params,
-                               dataclasses.replace(ecfg, kv_dtype=kvd), scfg),
+        torch, np, card, label, cfg,
+        lambda kvd, pl: SpecEngine(cfg, params, dataclasses.replace(
+            ecfg, kv_dtype=kvd, pipeline=pl), scfg),
         prompts, gen, kv_dtypes, want_off,
         ([list(r.generated) for r in reqs], n_tok / wall, peak_gb,
          pool_nbytes(engine)),
@@ -2004,29 +2076,30 @@ def main() -> int:
 
     t_phase = phase_time("build", t0)
     entry, gqa_ring = kernel_phase(torch, np, pa)
-    verify_entry, gqa_ring_verify_ms = gqa_verify_kernel_phase(torch, np, pa)
+    verify_entry, gqa_ring_verify = gqa_verify_kernel_phase(torch, np, pa)
     mla_entry, mla_ring = mla_kernel_phase(torch, np, pa)
-    mla_verify_entry, mla_ring_verify_ms = mla_verify_kernel_phase(
+    mla_verify_entry, mla_ring_verify = mla_verify_kernel_phase(
         torch, np, pa)
     # the ring kernels do the decode kernels' work at the decode phases'
-    # inputs: the same plain version, library call and bound (this run's);
-    # they have no scale branch, so no quantized fields
+    # inputs: the same plain version, library call and bound (this run's),
+    # and their scale branches the same on the same inputs quantized
     ring_entry = dict(
-        {k: v for k, v in entry.items() if k not in KV_DTYPES},
-        name="paged_attention_ring",
+        entry, name="paged_attention_ring",
         source="src/repro_torch/csrc/paged_attention_ring.cu",
         replaces="src/repro/kernels/paged_attention.py:803", **gqa_ring)
     mla_ring_entry = dict(
-        {k: v for k, v in mla_entry.items() if k not in KV_DTYPES},
-        name="mla_paged_attention_ring",
+        mla_entry, name="mla_paged_attention_ring",
         source="src/repro_torch/csrc/mla_paged_attention_ring.cu",
         replaces="src/repro/kernels/paged_attention.py:932", **mla_ring)
-    print(f"[kernel] ring vs off at the same inputs (bf16): GQA decode "
-          f"{gqa_ring['ms']:.4f} vs {entry['ms']:.4f} ms, GQA verify "
-          f"{gqa_ring_verify_ms:.4f} vs {verify_entry['ms']:.4f} ms, MLA "
-          f"decode {mla_ring['ms']:.4f} vs {mla_entry['ms']:.4f} ms, MLA "
-          f"verify {mla_ring_verify_ms:.4f} vs {mla_verify_entry['ms']:.4f} "
-          "ms")
+    for pools in ("bf16", *KV_DTYPES):
+        def ms(d):
+            return d["ms"] if pools == "bf16" else d[pools]["ms"]
+        print(f"[kernel] ring vs off at the same inputs ({pools} pools): "
+              f"GQA decode {ms(gqa_ring):.4f} vs {ms(entry):.4f} ms, GQA "
+              f"verify {ms(gqa_ring_verify):.4f} vs {ms(verify_entry):.4f} "
+              f"ms, MLA decode {ms(mla_ring):.4f} vs {ms(mla_entry):.4f} ms, "
+              f"MLA verify {ms(mla_ring_verify):.4f} vs "
+              f"{ms(mla_verify_entry):.4f} ms")
     t_phase = phase_time("paged-attention kernel phases", t_phase)
     prim_entries, roof = primitives_phase(torch, np, card)
     t_phase = phase_time("primitive study", t_phase)

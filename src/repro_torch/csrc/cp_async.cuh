@@ -1,6 +1,8 @@
 // Asynchronous global -> shared copies (sm_80+ `cp.async`), shared by the
 // paged-attention ring kernels: 16-byte copies that bypass L1
-// (`.cg`), grouped with commit_group and waited on with wait_group, so a
+// (`.cg`), and 8- and 4-byte copies (`.ca`, the only variant of those
+// sizes) for the quantized pools' narrow rope lines and per-line float32
+// scales; grouped with commit_group and waited on with wait_group, so a
 // block can keep several page slabs in flight while it computes on an
 // earlier one.
 #pragma once
@@ -12,6 +14,20 @@ namespace cp_async {
 __device__ __forceinline__ void copy16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+// Copy 8 / 4 bytes from global memory at src to shared memory at dst (both
+// aligned to the size), asynchronously, in the current group.
+__device__ __forceinline__ void copy8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(s), "l"(src) : "memory");
 }
 

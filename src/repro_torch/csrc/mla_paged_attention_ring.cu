@@ -39,34 +39,52 @@
 //   `cp.async.cg` copies, one commit group per tile; tile j + stages - 1
 //   is issued before tile j is computed.  Lines past the visible ones are
 //   written as zeros, as the off kernels stage them;
+// * quantized pools (int8 / fp8 e4m3 codes, csrc/kv_load.cuh; the storage
+//   type S is the second template parameter, as in the off kernels): a
+//   stage is the tile's 16 raw code lines of latent and rope (16 x (512 +
+//   64) B = 9 KB at full width) and their 16 latent and 16 rope float32
+//   scales, in the tile's commit group: the reference's two (page,) scale
+//   slabs on the same lookahead (paged_attention.py:835-869).  A latent
+//   line of codes is a multiple of 16 B; a rope line at dr 8 is 8 B, so
+//   rope lines copy in chunks of min(16, dr) bytes (an 8-byte
+//   `cp.async.ca`, cp_async::copy8, at dr 8).  The scale pools (P, page)
+//   are contiguous per page, but a 16-byte copy of four scales would
+//   carry lines past the visible ones; each scale is one 4-byte
+//   `cp.async.ca` (copy4), and a line past the visible ones gets zero
+//   codes AND a zero scale, so it dequantizes to the 0.0 the off kernels
+//   stage (zero codes times a stale NaN would be NaN);
 // * the compute is the off kernels' exactly (8 warps = 4 head pairs x 2
 //   column halves, 8 heads of one query token per block, grid
 //   (B, ceil(H / 8), T)): the same partial products, butterfly
 //   reduce-scatter, column-half sum, per-tile online softmax and P.V, in
-//   the same order, on the same float32 values (a bf16 line is widened
-//   when read instead of when staged; the widening is exact).  So the
-//   output equals the off kernel's bit for bit: row 4 at T = 1, row 5
-//   otherwise.
+//   the same order, on the same float32 values (a line is widened, and a
+//   code multiplied by its line's scale, when read instead of when
+//   staged; the widening is exact and the multiply is the off kernels'
+//   own float(code) * scale).  So the output equals the off kernel's bit
+//   for bit at the same storage: row 4 at T = 1, row 5 otherwise.
 // Sharing one staged tile across the T tokens of a slot (row 5 re-reads
-// each line T * H / 8 times through L2), wgmma, split-K over pages and
-// int8/fp8 scale slabs are later work.
+// each line T * H / 8 times through L2), wgmma and split-K over pages are
+// later work.
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
-//   int mla_paged_attention_ring(q_lat, q_rope, c_pool, r_pool,
-//                                block_tables, pos, out, batch, n_tokens,
-//                                n_heads, latent_dim, rope_dim, page_size,
-//                                n_blocks, stages, scale,
-//                                dtype /*0 f32, 1 bf16*/, stream)
+//   int mla_paged_attention_ring(q_lat, q_rope, c_pool, r_pool, c_scale,
+//                                r_scale, block_tables, pos, out, batch,
+//                                n_tokens, n_heads, latent_dim, rope_dim,
+//                                page_size, n_blocks, stages, scale,
+//                                dtype /*0 f32, 1 bf16*/,
+//                                kv_dtype /*0 as q, 1 int8, 2 fp8*/, stream)
 // q_lat / out are (batch, n_tokens, n_heads, latent_dim), q_rope
-// (batch, n_tokens, n_heads, rope_dim); returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for a latent / rope dim, dtype or
-// stage count the kernel is not built for, or a ring that does not fit).
+// (batch, n_tokens, n_heads, rope_dim); the scale pointers are null unless
+// kv_dtype quantizes; returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a latent / rope dim, dtype, storage or stage
+// count the kernel is not built for, or a ring that does not fit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "kv_load.cuh"
 
 namespace {
 
@@ -80,27 +98,19 @@ constexpr float kNegInf = -1e30f;
 constexpr size_t kMaxSmem = 227 * 1024 - kWarps * 32 * sizeof(float);
 static_assert(kHeadsPerWarp * kTileLines == 32, "one score per lane");
 
-template <typename T> struct VecWidth;
-template <> struct VecWidth<float> { static constexpr int N = 4; };
-template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Four consecutive staged elements, widened to float32.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+// Four consecutive staged elements as float32: widened, and times their
+// line's scale over a quantized pool (kv_load::load_line, from shared
+// memory).
+template <typename S>
+__device__ __forceinline__ float4 load4(const S* p, float scale) {
+  float f[4];
+  kv_load::load_line<4, true>(p, scale, f);
+  return make_float4(f[0], f[1], f[2], f[3]);
 }
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
@@ -118,30 +128,52 @@ __host__ __device__ inline size_t table_bytes(int n_blocks) {
   return ((size_t)n_blocks * sizeof(int32_t) + 15) / 16 * 16;
 }
 
-template <typename T, int R, int DR>
+// Bytes of one ring stage: 16 latent and 16 rope lines in the storage
+// type, then, for a quantized pool, their 16 latent and 16 rope float32
+// scales (a multiple of 16 at every R and DR built;
+// kernels/paged_attention.py::mla_ring_stage_bytes is the same count).
+template <typename S, int R, int DR>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return (size_t)kTileLines * (R + DR) * sizeof(S)
+         + (kv_load::Quantized<S>::value ? 2 * kTileLines * sizeof(float)
+                                         : 0);
+}
+
+// T: the query / output dtype; S: the pools' storage type (T, int8_t or
+// __nv_fp8_e4m3)
+template <typename T, typename S, int R, int DR>
 __global__ void __launch_bounds__(kWarps * 32)
 mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
-                const T* __restrict__ c_pool, const T* __restrict__ r_pool,
+                const S* __restrict__ c_pool, const S* __restrict__ r_pool,
+                const float* __restrict__ c_scale,
+                const float* __restrict__ r_scale,
                 const int32_t* __restrict__ block_tables,
                 const int32_t* __restrict__ pos, T* __restrict__ out,
                 int n_tokens, int n_heads, int page_size, int n_blocks,
                 int stages, float scale) {
-  constexpr int VG = VecWidth<T>::N;   // elements per 16-byte copy
-  constexpr int GC = R / VG;           // 16-byte copies per latent line
-  constexpr int GR = DR / VG;          // 16-byte copies per rope line
+  constexpr bool QUANT = kv_load::Quantized<S>::value;
+  constexpr int LB = R * sizeof(S);    // bytes of a latent line
+  constexpr int RB = DR * sizeof(S);   // bytes of a rope line
+  constexpr int RC = RB < 16 ? RB : 16;  // bytes per rope-line copy
+  constexpr int GC = LB / 16;          // 16-byte copies per latent line
+  constexpr int GR = RB / RC;          // copies per rope line
   constexpr int CV = R / 4;            // float4 slots per latent line
   constexpr int CVS = CV / kColSplits; // float4 slots per column half
   constexpr int RV = DR / 4;           // float4 slots per rope line
   constexpr int NC = (CVS + 31) / 32;  // latent float4 slots per lane
   constexpr int NR = (RV + 31) / 32;   // rope float4 slots per lane
-  constexpr int STAGE = kTileLines * (R + DR);   // elements per stage
-  static_assert(R % VG == 0 && DR % VG == 0, "dims must tile 16 bytes");
+  constexpr size_t STAGE = stage_bytes<S, R, DR>();
+  static_assert(LB % 16 == 0 && RB % RC == 0 && RC % 8 == 0,
+                "lines must tile the copies");
+  static_assert(STAGE % 16 == 0, "stages must stay 16-byte aligned");
   static_assert(CV % kColSplits == 0, "latent dim must split in halves");
 
-  // [block-table row | ring of `stages` tiles: latent [16][R], rope [16][DR]]
+  // [block-table row | ring of `stages` tiles: latent [16][R], rope
+  // [16][DR] (and, over a quantized pool, latent scales [16], rope scales
+  // [16])]
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* tbl = reinterpret_cast<int32_t*>(smem);
-  T* ring = reinterpret_cast<T*>(smem + table_bytes(n_blocks));
+  unsigned char* ring = smem + table_bytes(n_blocks);
   __shared__ float s_part[kWarps][32];
 
   const int b = blockIdx.x;
@@ -198,27 +230,67 @@ mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
   for (int j = threadIdx.x; j < n_pages; j += blockDim.x) tbl[j] = bt[j];
   __syncthreads();
 
+  // the latent lines, rope lines and (quantized) latent / rope scales of
+  // stage st
+  auto c_tile = [&](int st) {
+    return reinterpret_cast<S*>(ring + (size_t)st * STAGE);
+  };
+  auto r_tile = [&](int st) { return c_tile(st) + kTileLines * R; };
+  auto c_scales = [&](int st) {
+    return reinterpret_cast<float*>(r_tile(st) + kTileLines * DR);
+  };
+
   // tile j of the walk (lines 16 j .. 16 j + 15) into stage j % stages,
   // zeros past the visible lines; one commit group per call, empty past
   // the last tile
   auto issue = [&](int j) {
     if (j < n_tiles) {
-      T* cs = ring + (size_t)(j % stages) * STAGE;
-      T* rs = cs + kTileLines * R;
+      unsigned char* cs = reinterpret_cast<unsigned char*>(
+          c_tile(j % stages));
+      unsigned char* rs = reinterpret_cast<unsigned char*>(
+          r_tile(j % stages));
+      const unsigned char* cg = reinterpret_cast<const unsigned char*>(
+          c_pool);
+      const unsigned char* rg = reinterpret_cast<const unsigned char*>(
+          r_pool);
       for (int i = threadIdx.x; i < kTileLines * (GC + GR);
            i += blockDim.x) {
         const int line = i / (GC + GR);
         const int v = i % (GC + GR);
         const int t = j * kTileLines + line;
-        T* dst = v < GC ? cs + line * R + v * VG
-                        : rs + line * DR + (v - GC) * VG;
+        const bool lat = v < GC;
+        unsigned char* dst = lat ? cs + line * LB + v * 16
+                                 : rs + line * RB + (v - GC) * RC;
         if (t < n_lines) {
           const size_t row = (size_t)tbl[t / page_size] * page_size
                              + t % page_size;
-          cp_async::copy16(dst, v < GC ? c_pool + row * R + v * VG
-                                       : r_pool + row * DR + (v - GC) * VG);
-        } else {
+          if (lat) {
+            cp_async::copy16(dst, cg + row * LB + v * 16);
+          } else if constexpr (RC == 16) {
+            cp_async::copy16(dst, rg + row * RB + (v - GC) * RC);
+          } else {
+            cp_async::copy8(dst, rg + row * RB + (v - GC) * RC);
+          }
+        } else if (lat || RC == 16) {
           *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        } else {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+        }
+      }
+      if constexpr (QUANT) {
+        // each line's latent and rope scale; a zero past the visible lines
+        float* ss = c_scales(j % stages);
+        for (int i = threadIdx.x; i < 2 * kTileLines; i += blockDim.x) {
+          const int is_r = i >= kTileLines;
+          const int line = i - is_r * kTileLines;
+          const int t = j * kTileLines + line;
+          if (t < n_lines) {
+            const size_t row = (size_t)tbl[t / page_size] * page_size
+                               + t % page_size;
+            cp_async::copy4(ss + i, (is_r ? r_scale : c_scale) + row);
+          } else {
+            ss[i] = 0.f;
+          }
         }
       }
     }
@@ -233,15 +305,19 @@ mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
     // (its stage and s_part), which the next issue refills
     __syncthreads();
     issue(j + stages - 1);
-    const T* cs = ring + (size_t)(j % stages) * STAGE;
-    const T* rs = cs + kTileLines * R;
+    const S* cs = c_tile(j % stages);
+    const S* rs = r_tile(j % stages);
+    const float* css = c_scales(j % stages);   // read only when QUANT
+    const float* rss = css + kTileLines;
 
     // partial scores of (head hh, line t) over this lane's slots
     float part[kHeadsPerWarp * kTileLines];
 #pragma unroll
     for (int t = 0; t < kTileLines; ++t) {
-      const T* cl = cs + t * R;
-      const T* rl = rs + t * DR;
+      const S* cl = cs + t * R;
+      const S* rl = rs + t * DR;
+      const float c_sc = QUANT ? css[t] : 1.f;
+      const float r_sc = QUANT ? rss[t] : 1.f;
       float sum[kHeadsPerWarp];
 #pragma unroll
       for (int hh = 0; hh < kHeadsPerWarp; ++hh) sum[hh] = 0.f;
@@ -249,7 +325,7 @@ mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
       for (int k = 0; k < NC; ++k) {
         const int v = lane + 32 * k;
         if (v < CVS) {
-          const float4 cv = load4(cl + (vbase + v) * 4);
+          const float4 cv = load4(cl + (vbase + v) * 4, c_sc);
 #pragma unroll
           for (int hh = 0; hh < kHeadsPerWarp; ++hh)
             sum[hh] += dot4(qc[hh][k], cv);
@@ -259,7 +335,7 @@ mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
       for (int k = 0; k < NR; ++k) {
         const int v = lane + 32 * k;
         if (rope && v < RV) {
-          const float4 rv = load4(rl + v * 4);
+          const float4 rv = load4(rl + v * 4, r_sc);
 #pragma unroll
           for (int hh = 0; hh < kHeadsPerWarp; ++hh)
             sum[hh] += dot4(qr[hh][k], rv);
@@ -326,12 +402,13 @@ mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
 #pragma unroll
       for (int hh = 0; hh < kHeadsPerWarp; ++hh)
         ph[hh] = __shfl_sync(0xffffffffu, p, hh * kTileLines + t);
-      const T* cl = cs + t * R;
+      const S* cl = cs + t * R;
+      const float c_sc = QUANT ? css[t] : 1.f;
 #pragma unroll
       for (int k = 0; k < NC; ++k) {
         const int v = lane + 32 * k;
         if (v < CVS) {
-          const float4 cv = load4(cl + (vbase + v) * 4);
+          const float4 cv = load4(cl + (vbase + v) * 4, c_sc);
 #pragma unroll
           for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
             acc[hh][k][0] += ph[hh] * cv.x;
@@ -364,15 +441,28 @@ mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
   }
 }
 
-template <typename T, int R, int DR>
-int launch(const void* ql, const void* qr, const void* c, const void* r,
-           const void* bt, const void* pos, void* out, int batch,
-           int n_tokens, int n_heads, int page_size, int n_blocks,
-           int stages, float scale, cudaStream_t stream) {
-  const size_t bytes = table_bytes(n_blocks)
-                       + (size_t)stages * kTileLines * (R + DR) * sizeof(T);
+// the kernel's pointer and shape arguments, carried through the dispatch
+struct Args {
+  const void* ql;
+  const void* qr;
+  const void* c;
+  const void* r;
+  const float* cs;
+  const float* rs;
+  const void* bt;
+  const void* pos;
+  void* out;
+  int batch, n_tokens, n_heads, page_size, n_blocks, stages;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename S, int R, int DR>
+int launch(const Args& a) {
+  const size_t bytes = table_bytes(a.n_blocks)
+                       + (size_t)a.stages * stage_bytes<S, R, DR>();
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = mla_ring_kernel<T, R, DR>;
+  auto kernel = mla_ring_kernel<T, S, R, DR>;
   static size_t opted_in = 48 * 1024 - kWarps * 32 * sizeof(float);
   if (bytes > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -381,28 +471,22 @@ int launch(const void* ql, const void* qr, const void* c, const void* r,
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = bytes;
   }
-  const dim3 grid(batch, (n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock,
-                  n_tokens);
-  kernel<<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const T*>(ql), static_cast<const T*>(qr),
-      static_cast<const T*>(c), static_cast<const T*>(r),
-      static_cast<const int32_t*>(bt), static_cast<const int32_t*>(pos),
-      static_cast<T*>(out), n_tokens, n_heads, page_size, n_blocks, stages,
-      scale);
+  const dim3 grid(a.batch, (a.n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock,
+                  a.n_tokens);
+  kernel<<<grid, kWarps * 32, bytes, a.stream>>>(
+      static_cast<const T*>(a.ql), static_cast<const T*>(a.qr),
+      static_cast<const S*>(a.c), static_cast<const S*>(a.r), a.cs, a.rs,
+      static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
+      static_cast<T*>(a.out), a.n_tokens, a.n_heads, a.page_size,
+      a.n_blocks, a.stages, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int R>
-int dispatch_rope(int rope_dim, const void* ql, const void* qr,
-                  const void* c, const void* r, const void* bt,
-                  const void* pos, void* out, int batch, int n_tokens,
-                  int n_heads, int page_size, int n_blocks, int stages,
-                  float scale, cudaStream_t stream) {
+template <typename T, typename S, int R>
+int dispatch_rope(int rope_dim, const Args& a) {
 #define MLA_DR(DR)                                                          \
   case DR:                                                                  \
-    return launch<T, R, DR>(ql, qr, c, r, bt, pos, out, batch, n_tokens,    \
-                            n_heads, page_size, n_blocks, stages, scale,    \
-                            stream);
+    return launch<T, S, R, DR>(a);
   switch (rope_dim) {
     MLA_DR(8)
     MLA_DR(16)
@@ -414,17 +498,11 @@ int dispatch_rope(int rope_dim, const void* ql, const void* qr,
 #undef MLA_DR
 }
 
-template <typename T>
-int dispatch_latent(int latent_dim, int rope_dim, const void* ql,
-                    const void* qr, const void* c, const void* r,
-                    const void* bt, const void* pos, void* out, int batch,
-                    int n_tokens, int n_heads, int page_size, int n_blocks,
-                    int stages, float scale, cudaStream_t stream) {
+template <typename T, typename S>
+int dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
 #define MLA_R(R)                                                            \
   case R:                                                                   \
-    return dispatch_rope<T, R>(rope_dim, ql, qr, c, r, bt, pos, out, batch, \
-                               n_tokens, n_heads, page_size, n_blocks,      \
-                               stages, scale, stream);
+    return dispatch_rope<T, S, R>(rope_dim, a);
   switch (latent_dim) {
     MLA_R(32)
     MLA_R(64)
@@ -437,27 +515,43 @@ int dispatch_latent(int latent_dim, int rope_dim, const void* ql,
 #undef MLA_R
 }
 
+template <typename T>
+int dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
+                   const Args& a) {
+  switch (kv_dtype) {
+    case kv_load::kSame:
+      return dispatch_latent<T, T>(latent_dim, rope_dim, a);
+    case kv_load::kInt8:
+      return dispatch_latent<T, int8_t>(latent_dim, rope_dim, a);
+    case kv_load::kFp8:
+      return dispatch_latent<T, __nv_fp8_e4m3>(latent_dim, rope_dim, a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int mla_paged_attention_ring(
     const void* q_lat, const void* q_rope, const void* c_pool,
-    const void* r_pool, const void* block_tables, const void* pos, void* out,
-    int batch, int n_tokens, int n_heads, int latent_dim, int rope_dim,
-    int page_size, int n_blocks, int stages, float scale, int dtype,
+    const void* r_pool, const void* c_scale, const void* r_scale,
+    const void* block_tables, const void* pos, void* out, int batch,
+    int n_tokens, int n_heads, int latent_dim, int rope_dim, int page_size,
+    int n_blocks, int stages, float scale, int dtype, int kv_dtype,
     void* stream) {
   if (batch <= 0 || n_tokens <= 0 || n_heads <= 0 || page_size <= 0
       || n_blocks <= 0 || stages < 2 || stages > 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_dtype != kv_load::kSame && (c_scale == nullptr || r_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q_lat, q_rope, c_pool, r_pool,
+               static_cast<const float*>(c_scale),
+               static_cast<const float*>(r_scale), block_tables, pos, out,
+               batch, n_tokens, n_heads, page_size, n_blocks, stages, scale,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return dispatch_latent<float>(latent_dim, rope_dim, q_lat, q_rope,
-                                  c_pool, r_pool, block_tables, pos, out,
-                                  batch, n_tokens, n_heads, page_size,
-                                  n_blocks, stages, scale, s);
+    return dispatch_store<float>(kv_dtype, latent_dim, rope_dim, a);
   if (dtype == 1)
-    return dispatch_latent<__nv_bfloat16>(
-        latent_dim, rope_dim, q_lat, q_rope, c_pool, r_pool, block_tables,
-        pos, out, batch, n_tokens, n_heads, page_size, n_blocks, stages,
-        scale, s);
+    return dispatch_store<__nv_bfloat16>(kv_dtype, latent_dim, rope_dim, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

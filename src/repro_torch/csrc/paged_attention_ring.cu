@@ -14,9 +14,10 @@
 // softmax in float32, out = acc / max(l, 1e-30).
 //
 // Bound on the card: bytes.  A call must read every visible KV line once
-// ((pos + T) lines of 2 * hd elements per slot and KV head), the live
-// table entries, q and the output; 4 * T * G * hd FLOPs per line is far
-// under the ridge.  The `pipeline="off"` kernels (csrc/paged_attention.cu,
+// ((pos + T) lines of 2 * hd elements per slot and KV head, plus two
+// float32 scales for a quantized pool), the live table entries, q and the
+// output; 4 * T * G * hd FLOPs per line is far under the ridge.  The
+// `pipeline="off"` kernels (csrc/paged_attention.cu,
 // csrc/paged_attention_verify.cu) sit at 38x and 56x that bound, which
 // PERF.md puts on dependent loads: each stream reads its line's table
 // entry, then its K/V, from global memory, one line at a time.
@@ -25,41 +26,62 @@
 // * the block copies its slot's live block-table entries into shared
 //   memory once, before the walk, so no K/V address waits on a table
 //   read inside the loop;
-// * a page slab is one page of this KV head's K and V (page x hd elements
+// * a stage is one page of this KV head's K and V (page x hd elements
 //   each, rows hd apart in shared memory, KV * hd apart in the pool);
-//   `stages` (2-4) slabs form a ring in dynamic shared memory, filled with
-//   16-byte `cp.async.cg` copies by all 128 threads, one commit group per
-//   page; page j + stages - 1 is issued before page j is computed, so up
-//   to stages - 1 pages are in flight behind the one being scored
-//   (8 KB a slab at qwen3-0.6b: page 16, hd 128, bf16);
+//   `stages` (2-4) stages form a ring in dynamic shared memory, filled
+//   with 16-byte `cp.async.cg` copies by all 128 threads, one commit group
+//   per page; page j + stages - 1 is issued before page j is computed, so
+//   up to stages - 1 pages are in flight behind the one being scored
+//   (8 KB a stage at qwen3-0.6b: page 16, hd 128, bf16);
+// * quantized pools (int8 / fp8 e4m3 codes, csrc/kv_load.cuh; the storage
+//   type S is the second template parameter, as in the off kernels): a
+//   stage holds the page's K and V code slabs (page x hd bytes each, hd a
+//   multiple of 16 so the 16-byte copies still tile a line) and two
+//   (page,) float32 scale slabs, K's and V's for head h, in the page's
+//   commit group: the reference's two scale slabs on the same lookahead
+//   (paged_attention.py:684-686, :704-711).  Head h's scales are a column
+//   of the (P, page, KV) scale pool, KV * 4 bytes apart, which no 16-byte
+//   copy gathers; each is one 4-byte `cp.async.ca` (cp_async::copy4), 2 *
+//   page of them a stage (32 beside qwen3-0.6b's 32 code copies), rather
+//   than copying the page's whole (page, KV) scale block: KV times the
+//   bytes, and 16-byte alignment of a page's block only when page * KV is
+//   a multiple of 4;
 // * the compute is the off kernels' exactly: the same line-to-stream
-//   assignment (stream s takes lines s, s + STREAMS, ...), in the same
-//   order, with the same float32 operations and the same final merge of
+//   assignment (stream s takes lines s, s + STREAMS, ...), the same lane
+//   layout (a lane covers VEC elements of the query's dtype and, over a
+//   quantized pool, reads VEC codes), the same dequantization
+//   float(code) * scale at the op position of kv_load::load_line, the
+//   same float32 operations in the same order and the same final merge of
 //   the streams' (m, l, acc); only the loads move from global memory to
-//   the ring.  So the output equals the off kernel's bit for bit (row 1
-//   at T = 1, row 3 otherwise), as the Pallas double walk equals its off
-//   walk;
+//   the ring.  So the output equals the off kernel's bit for bit at the
+//   same storage (row 1 at T = 1, row 3 otherwise), as the Pallas double
+//   walk equals its off walk;
 // * rows: as in the verify kernel, T * G rows of any count, tiled 8 per
 //   block (grid KV x B x ceil(T * G / 8)), each row with its own causal
 //   limit pos + t; idle all-trash lanes read trash page 0 and stay finite.
 // Split-K over pages and tensor cores for the (T * G) x page score tile
-// are later work; so are int8/fp8 scale slabs (the wrapper refuses them).
+// are later work.
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
-//   int paged_attention_ring(q, k_pool, v_pool, block_tables, pos, out,
-//                            batch, n_tokens, kv_heads, groups, head_dim,
-//                            page_size, n_blocks, stages, scale, soft_cap,
-//                            dtype /*0 f32, 1 bf16*/, stream)
-// q and out are (batch, n_tokens, kv_heads, groups, head_dim); returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// head_dim, dtype or stage count the kernel is not built for, or a ring
-// that does not fit in shared memory).
+//   int paged_attention_ring(q, k_pool, v_pool, k_scale, v_scale,
+//                            block_tables, pos, out, batch, n_tokens,
+//                            kv_heads, groups, head_dim, page_size,
+//                            n_blocks, stages, scale, soft_cap,
+//                            dtype /*0 f32, 1 bf16*/,
+//                            kv_dtype /*0 as q, 1 int8, 2 fp8 e4m3*/,
+//                            stream)
+// q and out are (batch, n_tokens, kv_heads, groups, head_dim); the scale
+// pointers are null unless kv_dtype quantizes; returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a head_dim, dtype, storage
+// or stage count the kernel is not built for, or a ring that does not fit
+// in shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "kv_load.cuh"
 
 namespace {
 
@@ -71,41 +93,6 @@ constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory a block may u
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
-
-// 16-byte global load of VecWidth<T>::N elements, widened to float.
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// The same 16 bytes from a ring slab in shared memory.
-__device__ __forceinline__ void load_vec_shared(const float* p, float* out) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-}
-
-__device__ __forceinline__ void load_vec_shared(const __nv_bfloat16* p,
-                                                float* out) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
@@ -132,12 +119,28 @@ __host__ __device__ inline size_t table_bytes(int n_blocks) {
   return ((size_t)n_blocks * sizeof(int32_t) + 15) / 16 * 16;
 }
 
-// RMAX: rows held per block (a power of two <= kRowTile, >= the rows of
-// any tile of this launch).
-template <typename T, int HD, int RMAX>
+// Bytes of one ring stage: the K and V slabs of a page in the storage
+// type, then, for a quantized pool, K's and V's (page,) float32 scales;
+// rounded up to 16 so every stage starts 16-byte aligned
+// (kernels/paged_attention.py::gqa_ring_stage_bytes is the same count).
+template <typename S, int HD>
+__host__ __device__ inline size_t stage_bytes(int page_size) {
+  const size_t codes = (size_t)2 * page_size * HD * sizeof(S);
+  const size_t scales =
+      kv_load::Quantized<S>::value ? (size_t)2 * page_size * sizeof(float)
+                                   : 0;
+  return (codes + scales + 15) / 16 * 16;
+}
+
+// T: the query / output dtype; S: the pools' storage type (T, int8_t or
+// __nv_fp8_e4m3).  RMAX: rows held per block (a power of two <= kRowTile,
+// >= the rows of any tile of this launch).
+template <typename T, typename S, int HD, int RMAX>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                  const T* __restrict__ v_pool,
+paged_ring_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
+                  const S* __restrict__ v_pool,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
                   const int32_t* __restrict__ block_tables,
                   const int32_t* __restrict__ pos, T* __restrict__ out,
                   int n_tokens, int kv_heads, int groups, int page_size,
@@ -145,14 +148,19 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   using L = Layout<T, HD, RMAX>;
   constexpr int VEC = L::VEC, LANES = L::LANES, NV = L::NV, EPL = L::EPL;
   constexpr int TPW = L::TPW, STREAMS = L::STREAMS;
-  constexpr int CPL = HD / VEC;       // 16-byte chunks per head vector
+  constexpr bool QUANT = kv_load::Quantized<S>::value;
+  constexpr int SPC = 16 / sizeof(S);   // storage elements per 16-byte copy
+  constexpr int CPL = HD / SPC;         // 16-byte copies per head vector
   static_assert(HD % (VEC * LANES) == 0, "head_dim must tile the lanes");
+  static_assert(HD % SPC == 0, "a head vector must tile 16-byte copies");
 
-  // [block-table row | ring of `stages` (K slab, V slab) pairs]; after the
-  // walk the same bytes hold the streams' merge buffers
+  // [block-table row | ring of `stages` stages: K slab, V slab (and, over
+  // a quantized pool, K scales, V scales)]; after the walk the same bytes
+  // hold the streams' merge buffers
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* tbl = reinterpret_cast<int32_t*>(smem);
-  T* ring = reinterpret_cast<T*>(smem + table_bytes(n_blocks));
+  unsigned char* ring = smem + table_bytes(n_blocks);
+  const size_t stage = stage_bytes<S, HD>(page_size);
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -183,7 +191,7 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       if (i < n_rows) {
-        load_vec(q + row_off(i) + elem(v), &qr[i][v * VEC]);
+        kv_load::widen<VEC>(q + row_off(i) + elem(v), &qr[i][v * VEC]);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) qr[i][v * VEC + e] = 0.f;
@@ -213,21 +221,39 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int slab = page_size * HD;           // elements of one K or V slab
   const int slab_chunks = page_size * CPL;   // 16-byte copies per slab
 
+  // the K slab, V slab and (quantized) K / V scales of stage st
+  auto k_slab = [&](int st) {
+    return reinterpret_cast<S*>(ring + (size_t)st * stage);
+  };
+  auto k_scales = [&](int st) {
+    return reinterpret_cast<float*>(k_slab(st) + 2 * slab);
+  };
+
   // page j of the walk into stage j % stages (one commit group per call,
   // empty past the last page)
   auto issue = [&](int j) {
     if (j < n_pages) {
-      const size_t page_base =
-          (size_t)tbl[j] * page_size * line_stride + (size_t)h * HD;
-      T* st = ring + (size_t)(j % stages) * 2 * slab;
+      const size_t page_line = (size_t)tbl[j] * page_size;
+      const size_t page_base = page_line * line_stride + (size_t)h * HD;
+      S* st = k_slab(j % stages);
       for (int c = threadIdx.x; c < 2 * slab_chunks; c += blockDim.x) {
         const int is_v = c >= slab_chunks;
         const int cc = c - is_v * slab_chunks;
         const int line = cc / CPL;
         const int w = cc % CPL;
-        const T* src = (is_v ? v_pool : k_pool) + page_base
-                       + (size_t)line * line_stride + w * VEC;
-        cp_async::copy16(st + is_v * slab + line * HD + w * VEC, src);
+        const S* src = (is_v ? v_pool : k_pool) + page_base
+                       + (size_t)line * line_stride + w * SPC;
+        cp_async::copy16(st + is_v * slab + line * HD + w * SPC, src);
+      }
+      if constexpr (QUANT) {
+        // head h's (page,) column of each (P, page, KV) scale pool
+        float* ss = k_scales(j % stages);
+        for (int c = threadIdx.x; c < 2 * page_size; c += blockDim.x) {
+          const int is_v = c >= page_size;
+          const int line = c - is_v * page_size;
+          cp_async::copy4(ss + c, (is_v ? v_scale : k_scale)
+                                      + (page_line + line) * kv_heads + h);
+        }
       }
     }
     cp_async::commit();
@@ -240,8 +266,10 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     // whose stage the next issue refills
     __syncthreads();
     issue(j + stages - 1);
-    const T* ks = ring + (size_t)(j % stages) * 2 * slab;
-    const T* vs = ks + slab;
+    const S* ks = k_slab(j % stages);
+    const S* vs = ks + slab;
+    const float* kss = k_scales(j % stages);   // read only when QUANT
+    const float* vss = kss + page_size;
     const int a = j * page_size;               // first line of page j
     const int e_end = min(a + page_size, n_lines);
     // this warp's line groups t0 .. t0 + TPW - 1 (t0 = warp * TPW + k *
@@ -257,10 +285,14 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       float kf[EPL], vf[EPL];
       if (live) {
         const int off = (t - a) * HD;
+        const float k_sc = QUANT ? kss[t - a] : 1.f;
+        const float v_sc = QUANT ? vss[t - a] : 1.f;
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
-          load_vec_shared(ks + off + elem(v), &kf[v * VEC]);
-          load_vec_shared(vs + off + elem(v), &vf[v * VEC]);
+          kv_load::load_line<VEC, true>(ks + off + elem(v), k_sc,
+                                        &kf[v * VEC]);
+          kv_load::load_line<VEC, true>(vs + off + elem(v), v_sc,
+                                        &vf[v * VEC]);
         }
       } else {
 #pragma unroll
@@ -326,17 +358,29 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int HD, int RMAX>
-int launch(const void* q, const void* k, const void* v, const void* bt,
-           const void* pos, void* out, int batch, int n_tokens, int kv_heads,
-           int groups, int page_size, int n_blocks, int stages, float scale,
-           float soft_cap, cudaStream_t stream) {
-  const size_t ring = table_bytes(n_blocks)
-                      + (size_t)stages * 2 * page_size * HD * sizeof(T);
+// the kernel's pointer and shape arguments, carried through the dispatch
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const void* bt;
+  const void* pos;
+  void* out;
+  int batch, n_tokens, kv_heads, groups, page_size, n_blocks, stages;
+  float scale, soft_cap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename S, int HD, int RMAX>
+int launch(const Args& a) {
+  const size_t ring = table_bytes(a.n_blocks)
+                      + (size_t)a.stages * stage_bytes<S, HD>(a.page_size);
   const size_t merge = Layout<T, HD, RMAX>::MERGE_BYTES;
   const size_t bytes = ring > merge ? ring : merge;
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = paged_ring_kernel<T, HD, RMAX>;
+  auto kernel = paged_ring_kernel<T, S, HD, RMAX>;
   static size_t opted_in = 48 * 1024;   // per instantiation
   if (bytes > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -345,45 +389,31 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = bytes;
   }
-  const int rows = n_tokens * groups;
-  const dim3 grid(kv_heads, batch, (rows + RMAX - 1) / RMAX);
-  kernel<<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(pos), static_cast<T*>(out), n_tokens,
-      kv_heads, groups, page_size, n_blocks, stages, scale, soft_cap);
+  const int rows = a.n_tokens * a.groups;
+  const dim3 grid(a.kv_heads, a.batch, (rows + RMAX - 1) / RMAX);
+  kernel<<<grid, kWarps * 32, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ks, a.vs,
+      static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
+      static_cast<T*>(a.out), a.n_tokens, a.kv_heads, a.groups, a.page_size,
+      a.n_blocks, a.stages, a.scale, a.soft_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int dispatch_rows(const void* q, const void* k, const void* v, const void* bt,
-                  const void* pos, void* out, int batch, int n_tokens,
-                  int kv_heads, int groups, int page_size, int n_blocks,
-                  int stages, float scale, float soft_cap,
-                  cudaStream_t stream) {
-#define PR_LAUNCH(RM)                                                       \
-  return launch<T, HD, RM>(q, k, v, bt, pos, out, batch, n_tokens,          \
-                           kv_heads, groups, page_size, n_blocks, stages,   \
-                           scale, soft_cap, stream)
-  const int rows = n_tokens * groups;
-  if (rows <= 1) PR_LAUNCH(1);
-  if (rows <= 2) PR_LAUNCH(2);
-  if (rows <= 4) PR_LAUNCH(4);
-  PR_LAUNCH(kRowTile);
-#undef PR_LAUNCH
+template <typename T, typename S, int HD>
+int dispatch_rows(const Args& a) {
+  const int rows = a.n_tokens * a.groups;
+  if (rows <= 1) return launch<T, S, HD, 1>(a);
+  if (rows <= 2) return launch<T, S, HD, 2>(a);
+  if (rows <= 4) return launch<T, S, HD, 4>(a);
+  return launch<T, S, HD, kRowTile>(a);
 }
 
-template <typename T>
-int dispatch_head_dim(int head_dim, const void* q, const void* k,
-                      const void* v, const void* bt, const void* pos,
-                      void* out, int batch, int n_tokens, int kv_heads,
-                      int groups, int page_size, int n_blocks, int stages,
-                      float scale, float soft_cap, cudaStream_t stream) {
+template <typename T, typename S>
+int dispatch_head_dim(int head_dim, const Args& a) {
 #define PR_HD(HD)                                                           \
   case HD:                                                                  \
-    return dispatch_rows<T, HD>(q, k, v, bt, pos, out, batch, n_tokens,     \
-                                kv_heads, groups, page_size, n_blocks,      \
-                                stages, scale, soft_cap, stream);
+    return dispatch_rows<T, S, HD>(a);
   switch (head_dim) {
     PR_HD(16)
     PR_HD(32)
@@ -396,27 +426,38 @@ int dispatch_head_dim(int head_dim, const void* q, const void* k,
 #undef PR_HD
 }
 
+template <typename T>
+int dispatch_store(int kv_dtype, int head_dim, const Args& a) {
+  switch (kv_dtype) {
+    case kv_load::kSame:
+      return dispatch_head_dim<T, T>(head_dim, a);
+    case kv_load::kInt8:
+      return dispatch_head_dim<T, int8_t>(head_dim, a);
+    case kv_load::kFp8:
+      return dispatch_head_dim<T, __nv_fp8_e4m3>(head_dim, a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int paged_attention_ring(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* pos, void* out, int batch,
-    int n_tokens, int kv_heads, int groups, int head_dim, int page_size,
-    int n_blocks, int stages, float scale, float soft_cap, int dtype,
-    void* stream) {
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* pos, void* out, int batch, int n_tokens, int kv_heads,
+    int groups, int head_dim, int page_size, int n_blocks, int stages,
+    float scale, float soft_cap, int dtype, int kv_dtype, void* stream) {
   if (batch <= 0 || n_tokens <= 0 || kv_heads <= 0 || groups <= 0
       || page_size <= 0 || n_blocks <= 0 || stages < 2 || stages > 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(head_dim, q, k_pool, v_pool,
-                                    block_tables, pos, out, batch, n_tokens,
-                                    kv_heads, groups, page_size, n_blocks,
-                                    stages, scale, soft_cap, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(
-        head_dim, q, k_pool, v_pool, block_tables, pos, out, batch,
-        n_tokens, kv_heads, groups, page_size, n_blocks, stages, scale,
-        soft_cap, s);
+  if (kv_dtype != kv_load::kSame && (k_scale == nullptr || v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), block_tables, pos, out,
+               batch, n_tokens, kv_heads, groups, page_size, n_blocks, stages,
+               scale, soft_cap, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_store<float>(kv_dtype, head_dim, a);
+  if (dtype == 1) return dispatch_store<__nv_bfloat16>(kv_dtype, head_dim, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,9 +14,8 @@ selects their single-walk kernels, ``"double"`` the ring kernels
 to ``"off"``); ``None`` takes the process default
 (:func:`set_default_pipeline`, :func:`use_pipeline`).  They forward the
 scale pools of a quantized KV pool (``k_scale`` / ``v_scale``, ``c_scale``
-/ ``r_scale``) to the single-walk kernels and the plain versions; the
-rings take none yet, so ``"double"`` with scales raises (ROADMAP queue 2
-item 1) rather than run another schedule.
+/ ``r_scale``) to whichever implementation runs: the single-walk kernels,
+the rings or the plain versions.
 """
 
 from __future__ import annotations
@@ -103,16 +102,6 @@ def resolve(name: str, device: torch.device,
     return impls[device.type]
 
 
-def _resolve_paged(name: str, device: torch.device,
-                   pipeline: Optional[str], scales) -> Callable:
-    """:func:`resolve` for a paged-attention op whose call carries
-    ``scales``; a quantized pool under ``"double"`` raises."""
-    pipeline = check_pipeline(pipeline or _default_pipeline)
-    if pipeline == "double" and any(s is not None for s in scales):
-        raise NotImplementedError(_paged.RING_SCALES_TODO)
-    return resolve(name, device, pipeline)
-
-
 register_kernel("paged_attention", cuda=_paged.paged_attention,
                 reference=_paged.paged_attention_reference,
                 ring=_paged.paged_attention_ring)
@@ -125,8 +114,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *, scale,
     q (B, KV, G, hd); pools (P, page, KV, hd), quantized with float32
     scale pools (P, page, KV); block_tables (B, n_blocks) int32; pos (B,)
     int32.  Returns (B, KV, G, hd)."""
-    return _resolve_paged("paged_attention", q.device, pipeline,
-                          (k_scale, v_scale))(
+    return resolve("paged_attention", q.device, pipeline)(
         q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap,
         k_scale=k_scale, v_scale=v_scale)
 
@@ -144,8 +132,7 @@ def mla_paged_attention(q_lat, q_rope, c_pool, r_pool, block_tables, pos, *,
     (P, page, r) / (P, page, dr), quantized with float32 scale pools
     (P, page); block_tables (B, n_blocks) int32; pos (B,) int32.  Returns
     o_lat (B, H, r)."""
-    return _resolve_paged("mla_paged_attention", q_lat.device, pipeline,
-                          (c_scale, r_scale))(
+    return resolve("mla_paged_attention", q_lat.device, pipeline)(
         q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale,
         c_scale=c_scale, r_scale=r_scale)
 
@@ -163,8 +150,7 @@ def paged_attention_verify(q, k_pool, v_pool, block_tables, pos, *, scale,
     quantized with float32 scale pools (P, page, KV); block_tables
     (B, n_blocks) int32; pos (B,) int32, the first token's position.
     Returns (B, T, KV, G, hd)."""
-    return _resolve_paged("paged_attention_verify", q.device, pipeline,
-                          (k_scale, v_scale))(
+    return resolve("paged_attention_verify", q.device, pipeline)(
         q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap,
         k_scale=k_scale, v_scale=v_scale)
 
@@ -183,8 +169,7 @@ def mla_paged_attention_verify(q_lat, q_rope, c_pool, r_pool, block_tables,
     pools (P, page, r) / (P, page, dr), quantized with float32 scale pools
     (P, page); block_tables (B, n_blocks) int32; pos (B,) int32, the first
     token's position.  Returns o_lat (B, T, H, r)."""
-    return _resolve_paged("mla_paged_attention_verify", q_lat.device,
-                          pipeline, (c_scale, r_scale))(
+    return resolve("mla_paged_attention_verify", q_lat.device, pipeline)(
         q_lat, q_rope, c_pool, r_pool, block_tables, pos, scale=scale,
         c_scale=c_scale, r_scale=r_scale)
 

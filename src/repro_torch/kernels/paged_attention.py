@@ -49,7 +49,9 @@ float32 scale pools — GQA ``k_scale`` / ``v_scale`` (P, page, KV), MLA
 kernels' scale branches.  With scales the scores, p and P.V are float32
 in the plain versions too (the dequantized values are), so only the
 summation order and the output rounding separate them from the kernels.
-The ring kernels refuse scales (ROADMAP queue 2 item 1).
+The two ring kernels take them too: a stage carries a page's code slabs
+and their (page,) scale slabs, and the rings equal the quantized off
+kernels bit for bit.
 
 The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions.  The kernels keep the scores and ``p``
@@ -224,18 +226,6 @@ def paged_attention_verify_reference(
     s = torch.where(m[:, None, None], s, NEG_INF)
     p_attn = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bkgts,bskh->btkgh", p_attn, v).to(q.dtype)
-
-
-# the rings' scale branches are the next slice; their wrappers refuse
-# scales rather than run anything else
-RING_SCALES_TODO = ("the ring kernels (pipeline='double') take no scale "
-                    "pools yet: ROADMAP queue 2 item 1; quantized KV pools "
-                    "run with pipeline='off'")
-
-
-def _reject_scales(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(RING_SCALES_TODO)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -599,6 +589,30 @@ MLA_VERIFY_C_SIGNATURES = {
 # block on Hopper, less 2 KB for static shared memory)
 RING_MAX_STAGES = 4
 RING_SMEM_BYTES = 225 * 1024
+# lines of one MLA ring stage (the off kernels' tile, csrc kTileLines)
+MLA_RING_TILE_LINES = 16
+
+
+def gqa_ring_stage_bytes(page_size: int, head_dim: int, kv_isize: int,
+                         quantized: bool = False) -> int:
+    """Bytes of one stage of the GQA ring (``stage_bytes`` in
+    ``csrc/paged_attention_ring.cu``): a page's K and V slabs at the
+    pools' element size ``kv_isize`` and, for a quantized pool, K's and
+    V's (page,) float32 scales of one KV head; rounded up to 16."""
+    n = 2 * int(page_size) * int(head_dim) * int(kv_isize)
+    if quantized:
+        n += 2 * int(page_size) * 4
+    return -(-n // 16) * 16
+
+
+def mla_ring_stage_bytes(latent_dim: int, rope_dim: int, kv_isize: int,
+                         quantized: bool = False) -> int:
+    """Bytes of one stage of the MLA ring (``stage_bytes`` in
+    ``csrc/mla_paged_attention_ring.cu``): ``MLA_RING_TILE_LINES`` latent
+    and rope lines at the pools' element size and, for a quantized pool,
+    each line's latent and rope float32 scale."""
+    line = (int(latent_dim) + int(rope_dim)) * int(kv_isize)
+    return MLA_RING_TILE_LINES * (line + (8 if quantized else 0))
 
 
 def ring_stages(stage_bytes: int, n_blocks: int) -> int:
@@ -627,11 +641,12 @@ def paged_attention_ring(
     contract of :func:`paged_attention_reference`, or verification with q
     (B, T, KV, G, hd), that of :func:`paged_attention_verify_reference`.
     The output equals :func:`paged_attention` / :func:`paged_attention_verify`
-    bit for bit.  Takes CUDA tensors only: bf16 or f32, head_dim in
-    ``KERNEL_HEAD_DIMS``, any T and G, a page slab pair (2 * page * hd
-    elements) that fits twice in shared memory (:func:`ring_stages`).
-    ``launches`` counts the kernel launches this wrapper made."""
-    _reject_scales(k_scale, v_scale)
+    bit for bit, on quantized pools too.  Takes CUDA tensors only: a bf16
+    or f32 q, pools in q's dtype or int8 / float8_e4m3fn with both float32
+    scale pools (P, page, KV), head_dim in ``KERNEL_HEAD_DIMS``, any T and
+    G, a stage (:func:`gqa_ring_stage_bytes`) that fits twice in shared
+    memory (:func:`ring_stages`).  ``launches`` counts the kernel launches
+    this wrapper made."""
     if not q.is_cuda:
         raise ValueError(
             "paged_attention_ring launches a CUDA kernel and takes CUDA "
@@ -639,17 +654,18 @@ def paged_attention_ring(
             "tensors to the plain versions")
     decode = q.dim() == 4
     q5 = q[:, None] if decode else q
-    B, T, KV, G, hd, page_size, n_blocks, _ = _gqa_slab_shapes(
-        q5, k_pool, v_pool, block_tables, pos)
+    B, T, KV, G, hd, page_size, n_blocks, store = _gqa_slab_shapes(
+        q5, k_pool, v_pool, block_tables, pos, k_scale, v_scale)
     dev = q.device
-    stages = ring_stages(2 * page_size * hd * q.element_size(), n_blocks)
+    stages = ring_stages(gqa_ring_stage_bytes(
+        page_size, hd, k_pool.element_size(), store != 0), n_blocks)
     out = torch.empty_like(q5)
     lib = build.library("paged_attention_ring", RING_C_SIGNATURES)
     err = lib.paged_attention_ring(
-        q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, T, KV, G, hd, page_size, n_blocks, stages, float(scale),
-        float(soft_cap), _DTYPE_CODES[q.dtype],
+        q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, T, KV, G, hd, page_size, n_blocks, stages,
+        float(scale), float(soft_cap), _DTYPE_CODES[q.dtype], store,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_ring kernel launch failed: "
@@ -663,8 +679,9 @@ paged_attention_ring.launches = 0
 # the C interface of csrc/paged_attention_ring.cu
 RING_C_SIGNATURES = {
     "paged_attention_ring": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
         ctypes.c_int),
 }
 
@@ -682,11 +699,11 @@ def mla_paged_attention_ring(
     verification with q_lat (B, T, H, r) / q_rope (B, T, H, dr), that of
     :func:`mla_paged_attention_verify_reference`.  The output equals
     :func:`mla_paged_attention` / :func:`mla_paged_attention_verify` bit for
-    bit.  The same sets as those: bf16 or f32, latent rank in
-    ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size in
-    ``MLA_PAGE_SIZES``, any head count and T >= 1.  ``launches`` counts the
-    kernel launches this wrapper made."""
-    _reject_scales(c_scale, r_scale)
+    bit, on quantized pools too.  The same sets as those: bf16 or f32
+    queries, pools in their dtype or int8 / float8_e4m3fn with float32
+    scale pools (P, page), latent rank in ``MLA_LATENT_DIMS``, rope dim in
+    ``MLA_ROPE_DIMS``, page size in ``MLA_PAGE_SIZES``, any head count and
+    T >= 1.  ``launches`` counts the kernel launches this wrapper made."""
     if not q_lat.is_cuda:
         raise ValueError(
             "mla_paged_attention_ring launches a CUDA kernel and takes CUDA "
@@ -695,19 +712,19 @@ def mla_paged_attention_ring(
     decode = q_lat.dim() == 3
     ql4 = q_lat[:, None] if decode else q_lat
     qr4 = q_rope[:, None] if decode else q_rope
-    B, T, H, r, dr, page_size, n_blocks, _ = _mla_slab_shapes(
-        ql4, qr4, c_pool, r_pool, block_tables, pos)
+    B, T, H, r, dr, page_size, n_blocks, store = _mla_slab_shapes(
+        ql4, qr4, c_pool, r_pool, block_tables, pos, c_scale, r_scale)
     dev = q_lat.device
-    # a stage is one 16-line tile (MLA_RING_TILE_LINES) of latent and rope
-    stages = ring_stages(MLA_RING_TILE_LINES * (r + dr)
-                         * q_lat.element_size(), n_blocks)
+    stages = ring_stages(mla_ring_stage_bytes(
+        r, dr, c_pool.element_size(), store != 0), n_blocks)
     out = torch.empty_like(ql4)
     lib = build.library("mla_paged_attention_ring", MLA_RING_C_SIGNATURES)
     err = lib.mla_paged_attention_ring(
         ql4.data_ptr(), qr4.data_ptr(), c_pool.data_ptr(),
-        r_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, T, H, r, dr, page_size, n_blocks, stages,
-        float(scale), _DTYPE_CODES[q_lat.dtype],
+        r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T, H, r,
+        dr, page_size, n_blocks, stages, float(scale),
+        _DTYPE_CODES[q_lat.dtype], store,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_paged_attention_ring kernel launch failed: "
@@ -717,14 +734,12 @@ def mla_paged_attention_ring(
 
 
 mla_paged_attention_ring.launches = 0
-# lines of one MLA ring stage (the off kernels' tile, csrc kTileLines)
-MLA_RING_TILE_LINES = 16
 
 # the C interface of csrc/mla_paged_attention_ring.cu
 MLA_RING_C_SIGNATURES = {
     "mla_paged_attention_ring": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
 }
 

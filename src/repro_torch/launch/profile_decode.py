@@ -16,7 +16,8 @@ With ``--spec ngram|draft`` the engine is the speculative one and a step
 is a round of propose (the draft model's passes, with ``draft``) and one
 verify pass; the draft/verify split of the window's wall time is printed
 too.  ``--pipeline double`` runs the paged-attention ring kernels;
-``--kv-dtype int8|fp8_e4m3`` quantizes the KV pages (pipeline off).
+``--kv-dtype int8|fp8_e4m3`` quantizes the KV pages (under either
+pipeline).
 Prints the window's wall time, the summed device time of every
 kernel in it (the device busy share is their ratio), and the kernels with
 the most device time, beside the card's name and power limit.

@@ -16,8 +16,9 @@ Speculative decoding (serve/spec.py):
 package's double-buffered page walk; bit-identical to ``off``) for the
 decode, verify and draft steps; on the CPU the plain versions run either
 way.  ``--kv-dtype int8|fp8_e4m3`` stores the target's KV pages quantized
-(a float32 scale per line; the paged kernels dequantize in their page
-walk) with ``--pipeline off``; the draft model keeps its own.
+(a float32 scale per line; the paged kernels, off and ring alike,
+dequantize in their page walk) under either pipeline; the draft model
+keeps its own.
 
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the plain PyTorch path (use ``--smoke`` there).  ``--layers`` cuts depth

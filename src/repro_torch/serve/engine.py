@@ -29,7 +29,6 @@ from ..core.roofline.hardware import H100_SXM, ChipSpec
 from ..device import resolve_device, synchronize
 from ..kernels import quantize
 from ..kernels.ops import check_pipeline
-from ..kernels.paged_attention import RING_SCALES_TODO
 from ..models import (decode_step_paged, prefill, prefill_chunk_paged,
                       prefill_padded, prepare_params)
 from ..models.common import ModelConfig, model_flops
@@ -71,16 +70,6 @@ class EngineConfig:
     kv_dtype: Optional[str] = None
 
 
-def check_kv_pipeline(cfg: ModelConfig, pipeline: str) -> None:
-    """Quantized KV pools run with ``pipeline="off"`` only: the ring
-    kernels have no scale branch yet, and an engine refuses the pair at
-    build rather than serve it another way."""
-    if pipeline == "double" and quantize.is_quantized(cfg.kv_dtype):
-        raise NotImplementedError(
-            f"{cfg.name}: kv_dtype {cfg.kv_dtype!r} with pipeline='double': "
-            + RING_SCALES_TODO)
-
-
 def _bucket_len(n: int, floor: int) -> int:
     """Next power of two >= n (but >= floor)."""
     return max(floor, 1 << max(n - 1, 0).bit_length())
@@ -103,7 +92,6 @@ class Engine:
                 and self.ecfg.kv_dtype != cfg.kv_dtype):
             quantize.validate_kv_dtype(self.ecfg.kv_dtype)
             cfg = dataclasses.replace(cfg, kv_dtype=self.ecfg.kv_dtype)
-        check_kv_pipeline(cfg, self.ecfg.pipeline)
         self.device = resolve_device(self.ecfg.device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:

@@ -39,7 +39,7 @@ from ..models import decode_step_verify_paged, prepare_params
 from ..models.common import ModelConfig
 from ..obs.clock import now
 from . import sampling
-from .engine import Engine, EngineConfig, check_kv_pipeline
+from .engine import Engine, EngineConfig
 from .kv_cache import supports_paging
 from .proposer import DraftModelProposer, NgramProposer
 from .scheduler import (Request, RequestState, decode_token_bytes,
@@ -175,8 +175,6 @@ class SpecEngine(Engine):
                     f"draft arch {dcfg.name}: needs attention/MLA mixers")
             if dcfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocab")
-            # the draft's cache keeps its own config's kv_dtype
-            check_kv_pipeline(dcfg, self.ecfg.pipeline)
             self._draft_params = prepare_params(self.scfg.draft_params, dcfg)
         elif self.scfg.proposer != "ngram":
             raise ValueError(f"unknown proposer {self.scfg.proposer!r}")

@@ -975,8 +975,10 @@ def test_mla_ring_verify_edges(card, dtype, case):
 
 
 def test_ring_kernels_dispatch_and_refusals(card):
-    """ops with pipeline="double" launches the rings; the wrappers refuse
-    scales and a page slab that does not fit twice in shared memory."""
+    """ops with pipeline="double" launches the rings; the wrappers take
+    quantized pools with their scales (bit-equal to the off kernels),
+    refuse scale pools beside an unquantized pool, and refuse a page slab
+    that does not fit twice in shared memory."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(40)
     args = _case(rng, 2, 2, 2, 16, 4, 3, torch.float32, card)
@@ -992,12 +994,19 @@ def test_ring_kernels_dispatch_and_refusals(card):
     n = pa.mla_paged_attention_ring.launches
     ops.mla_paged_attention(*mla, scale=0.1, pipeline="double")
     assert pa.mla_paged_attention_ring.launches == n + 1
-    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
-        pa.paged_attention_ring(*args, scale=0.25,
-                                k_scale=torch.ones(1, device=card))
-    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
-        pa.mla_paged_attention_ring(*mla, scale=0.1,
-                                    c_scale=torch.ones(1, device=card))
+    for _, qargs, (ks, vs) in _quantize_pools(args, 1):
+        kw = dict(scale=0.25, k_scale=ks, v_scale=vs)
+        got = pa.paged_attention_ring(*qargs, **kw)
+        assert torch.equal(got, pa.paged_attention(*qargs, **kw))
+    for _, qargs, (cs, rs) in _quantize_pools(mla, 2):
+        kw = dict(scale=0.1, c_scale=cs, r_scale=rs)
+        got = pa.mla_paged_attention_ring(*qargs, **kw)
+        assert torch.equal(got, pa.mla_paged_attention(*qargs, **kw))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="unquantized"):
+        pa.paged_attention_ring(*args, scale=0.25, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="unquantized"):
+        pa.mla_paged_attention_ring(*mla, scale=0.1, c_scale=cs, r_scale=rs)
     q, k, v, bt, pos = args
     big = torch.zeros((2, 1024, 2, 128), device=card)   # 1 MB slab pair
     with pytest.raises(ValueError, match="does not fit"):
@@ -1189,6 +1198,128 @@ def test_quantized_decode_kernels_reject_bad_scale_pools(card):
                                c_scale=cs[:1].contiguous(), r_scale=rs)
     with pytest.raises(ValueError, match="needs its float32 scale pools"):
         pa.mla_paged_attention(ql, qr, cq, rq, bt, pos, scale=0.1)
-    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
+    # under pipeline="double" the ring checks the same scale pools, and
+    # takes good ones
+    with pytest.raises(ValueError, match="shape"):
         ops.mla_paged_attention(ql, qr, cq, rq, bt, pos, scale=0.1,
-                                c_scale=cs, r_scale=rs, pipeline="double")
+                                c_scale=cs[:1].contiguous(), r_scale=rs,
+                                pipeline="double")
+    n = pa.mla_paged_attention_ring.launches
+    got = ops.mla_paged_attention(ql, qr, cq, rq, bt, pos, scale=0.1,
+                                  c_scale=cs, r_scale=rs, pipeline="double")
+    want = pa.mla_paged_attention(ql, qr, cq, rq, bt, pos, scale=0.1,
+                                  c_scale=cs, r_scale=rs)
+    torch.cuda.synchronize()
+    assert pa.mla_paged_attention_ring.launches == n + 1
+    assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# The rings' scale branches (pipeline="double" over int8 / fp8 e4m3 pools):
+# bit for bit the quantized off kernel's output on the same codes and
+# scales (torch.equal), and within QTOL of the plain version, over the
+# quantized off kernels' cases above and the reference's quantized double
+# cases (tests/test_kv_quantize.py: smoke widths, ragged tables; its MLA
+# page 4 is page 8 here, the smallest the MLA kernels take).
+# --------------------------------------------------------------------------
+
+def _ring_quantized_check(ring, off, plain, args, first, names, kw, dtype):
+    for _, qargs, scales in _quantize_pools(args, first):
+        skw = dict(kw, **dict(zip(names, scales)))
+        want = off(*qargs, **skw)
+        out = _quantized_check(ring, plain, qargs, skw, dtype)
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,hd,page,nb,trash", [
+    (4, 8, 2, 128, 16, 32, False),   # qwen3-0.6b decode
+    (3, 2, 2, 16, 4, 5, False),      # smoke widths (the reference's case)
+    (2, 2, 3, 256, 16, 4, False),    # odd group count, widest head
+    (4, 8, 2, 128, 16, 32, True),    # idle lanes: every entry trash page 0
+])
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+def test_gqa_ring_quantized_decode_equals_off_kernel(
+        card, dtype, B, KV, G, hd, page, nb, trash, soft_cap):
+    rng = np.random.default_rng(B * 100 + hd + trash)
+    args = _case(rng, B, KV, G, hd, page, nb, dtype, card, trash=trash)
+    if soft_cap:
+        args = (args[0] * 4, *args[1:])
+    _ring_quantized_check(pa.paged_attention_ring, pa.paged_attention,
+                          pa.paged_attention_reference, args, 1,
+                          ("k_scale", "v_scale"),
+                          dict(scale=hd ** -0.5, soft_cap=soft_cap), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,KV,G,hd,page,nb,case", [
+    (4, 5, 8, 5, 128, 16, 33, "ragged"),   # qwen3-14b verify, k = 4
+    (4, 5, 8, 2, 128, 16, 33, "ragged"),   # qwen3-0.6b draft catch-up
+    (2, 3, 2, 2, 16, 4, 4, "ragged"),      # smoke widths (the reference's)
+    (4, 4, 2, 3, 64, 16, 4, "edges"),      # page-crossing chains, past table
+    (4, 4, 2, 3, 64, 16, 4, "margin"),     # the same, drafts on trash entries
+    (4, 5, 8, 5, 128, 16, 33, "trash"),    # idle lanes
+])
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+def test_gqa_ring_quantized_verify_equals_off_kernel(
+        card, dtype, B, T, KV, G, hd, page, nb, case, soft_cap):
+    rng = np.random.default_rng(B * 1000 + T * 100 + hd)
+    kw = dict(trash=case == "trash")
+    if case in ("edges", "margin"):
+        kw.update(lens=[15, 30, 1, 63], backed_drafts=case == "edges")
+    args = _gqa_verify_case(rng, B, T, KV, G, hd, page, nb, dtype, card,
+                            **kw)
+    if soft_cap:
+        args = (args[0] * 4, *args[1:])
+    _ring_quantized_check(pa.paged_attention_ring, pa.paged_attention_verify,
+                          pa.paged_attention_verify_reference, args, 1,
+                          ("k_scale", "v_scale"),
+                          dict(scale=hd ** -0.5, soft_cap=soft_cap), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,r,dr,page,nb,case", [
+    (4, 128, 512, 64, 16, 16, "ragged"),   # deepseek-v2 decode
+    (3, 4, 32, 8, 8, 4, "ragged"),         # smoke widths, 8-byte rope lines
+    (2, 12, 64, 16, 32, 2, "ragged"),      # heads not a multiple of the tile
+    (4, 16, 512, 64, 16, 16, "edges"),     # pos 0, part page, one page, full
+    (4, 128, 512, 64, 16, 16, "trash"),    # idle lanes
+])
+def test_mla_ring_quantized_decode_equals_off_kernel(card, dtype, B, H, r,
+                                                     dr, page, nb, case):
+    rng = np.random.default_rng(B * 1000 + H + r + dr)
+    lens = [1, 37, 16, nb * page] if case == "edges" else None
+    args = _mla_case(rng, B, H, r, dr, page, nb, dtype, card,
+                     trash=case == "trash", lens=lens)
+    args = (args[0] * 0.5, args[1] * 0.5, *args[2:])   # the model's q scale
+    _ring_quantized_check(pa.mla_paged_attention_ring, pa.mla_paged_attention,
+                          pa.mla_paged_attention_reference, args, 2,
+                          ("c_scale", "r_scale"), dict(scale=192 ** -0.5),
+                          dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,H,r,dr,page,nb,case", [
+    (4, 4, 128, 512, 64, 16, 17, "ragged"),  # deepseek-v2 verify, k = 3
+    (2, 3, 4, 32, 8, 8, 4, "ragged"),        # smoke widths (the reference's)
+    (4, 4, 16, 512, 64, 16, 4, "edges"),     # chains crossing pages
+    (4, 4, 16, 512, 64, 16, 4, "margin"),    # drafts on trash entries
+    (4, 4, 128, 512, 64, 16, 17, "trash"),   # idle lanes
+])
+def test_mla_ring_quantized_verify_equals_off_kernel(
+        card, dtype, B, T, H, r, dr, page, nb, case):
+    rng = np.random.default_rng(B * 1000 + T * 100 + r + dr)
+    kw = dict(trash=case == "trash")
+    if case in ("edges", "margin"):
+        kw.update(lens=[15, 30, 1, 63], backed_drafts=case == "edges")
+    args = _mla_verify_case(rng, B, T, H, r, dr, page, nb, dtype, card, **kw)
+    args = (args[0] * 0.5, args[1] * 0.5, *args[2:])
+    _ring_quantized_check(pa.mla_paged_attention_ring,
+                          pa.mla_paged_attention_verify,
+                          pa.mla_paged_attention_verify_reference, args, 2,
+                          ("c_scale", "r_scale"), dict(scale=192 ** -0.5),
+                          dtype)

@@ -37,6 +37,7 @@ import repro_torch.serve as tserve
 from repro_torch import bridge
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import quantize as tq
 from repro_torch.serve import scheduler as tsched
 
 PAGED = {
@@ -119,9 +120,11 @@ def test_cpu_tensors_take_the_plain_version_under_double():
     assert torch.equal(off, dbl)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tpa.paged_attention_ring(q, kp, vp, bt, pos, scale=0.25)
-    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
-        tpa.paged_attention_ring(q, kp, vp, bt, pos, scale=0.25,
-                                 k_scale=torch.ones(1))
+    kq, ks = tq.quantize(kp, "int8")
+    vq, vs = tq.quantize(vp, "int8")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tpa.paged_attention_ring(q, kq, vq, bt, pos, scale=0.25,
+                                 k_scale=ks, v_scale=vs)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tpa.mla_paged_attention_ring(q[:, 0], q[:, 1], kp[:, :, 0],
                                      vp[:, :, 0], bt, pos, scale=0.1)
@@ -139,6 +142,28 @@ def test_ring_stages_fit_shared_memory():
     assert tpa.ring_stages(64 * 1024, 20000) == 2
     with pytest.raises(ValueError, match="does not fit"):
         tpa.ring_stages(2 * 1024 * 128 * 4, 4)
+
+
+def test_ring_stage_bytes_count_codes_and_scales():
+    """A ring stage holds the page's K / V (latent / rope) lines at the
+    pools' element size plus, over a quantized pool, one float32 scale per
+    line and pool, padded to 16 bytes (the kernels' ``stage_bytes``)."""
+    # qwen3-0.6b: page 16 x hd 128, bf16 and int8 codes + 2 x 16 scales
+    assert tpa.gqa_ring_stage_bytes(16, 128, 2) == 2 * 16 * 128 * 2
+    assert tpa.gqa_ring_stage_bytes(16, 128, 1, True) == 4096 + 128
+    # float32 pools, and a page whose scales need padding: 2 x 3 x 16
+    # codes + 2 x 3 x 4 scale bytes = 120 -> 128
+    assert tpa.gqa_ring_stage_bytes(16, 64, 4) == 8192
+    assert tpa.gqa_ring_stage_bytes(3, 16, 1, True) == 128
+    # deepseek-v2: 16 lines x (512 + 64), bf16 / codes + 16 x 2 scales
+    assert tpa.mla_ring_stage_bytes(512, 64, 2) == 16 * 576 * 2
+    assert tpa.mla_ring_stage_bytes(512, 64, 1, True) == 16 * 576 + 128
+    # smoke widths at dr 8: an 8-byte rope line of codes
+    assert tpa.mla_ring_stage_bytes(32, 8, 1, True) == 16 * (40 + 8)
+    # a quantized stage is about half a bf16 one: four fit beside the
+    # table where they did before
+    assert tpa.ring_stages(tpa.gqa_ring_stage_bytes(16, 256, 1, True),
+                           33) == tpa.RING_MAX_STAGES
 
 
 # --------------------------------------------------------------------------

@@ -15,10 +15,16 @@ the JAX package, on the same numpy inputs and weights:
   ``repro.serve``'s at int8 and fp8 (GQA and MLA, with and without
   chunked prefill), under swap preemption and a copy-on-write prefix;
   swapped and copied pages keep codes and scales byte-exact;
-* the knobs: ``EngineConfig.kv_dtype`` validation and override, the
-  refusal of ``pipeline="double"`` with a quantized pool, the launcher's
-  ``--kv-dtype``, the bridge's int8 / fp8 round trip, and the swap
-  snapshot's aligned packing.
+* ``pipeline="double"`` with a quantized pool (the ring kernels' scale
+  branches on the card, the plain versions here): greedy streams of both
+  engines equal ``repro.serve``'s quantized ``pipeline="off"`` engine
+  (the reference's own quantized double walk does not run on this jax),
+  every paged dispatch carries ``"double"``, and the ledgers equal the
+  reference's pricing of ``pipeline="double"``;
+* the knobs: ``EngineConfig.kv_dtype`` validation and override (with
+  either pipeline, the draft keeping its own ``kv_dtype``), the
+  launcher's ``--kv-dtype``, the bridge's int8 / fp8 round trip, and the
+  swap snapshot's aligned packing.
 
 Tolerance of the attentions: rtol 2e-5 / atol 2e-6, the reference's own
 (``tests/test_kv_quantize.py``).  Engine codes come from torch
@@ -316,6 +322,10 @@ def test_bf16_query_with_quantized_pool_computes_in_float32():
 
 
 def test_scale_pool_pairing_and_ring_refusal():
+    """One scale pool alone raises; a quantized pool under
+    ``pipeline="double"`` (explicit, or the process default) dispatches
+    like any other, and on CPU tensors to the plain version, equal to the
+    ``"off"`` dispatch."""
     rng = np.random.RandomState(26)
     P, page, KV, hd = 5, 4, 2, 16
     q = torch.randn(2, KV, 2, hd)
@@ -323,11 +333,13 @@ def test_scale_pool_pairing_and_ring_refusal():
     bt, pos = (torch.from_numpy(a) for a in _tables(rng, 2, 2, page, P))
     with pytest.raises(ValueError, match="both scale pools or neither"):
         ops.paged_attention(q, kq, kq, bt, pos, scale=0.25, k_scale=ks)
+    kw = dict(scale=0.25, k_scale=ks, v_scale=ks)
+    off = ops.paged_attention(q, kq, kq, bt, pos, pipeline="off", **kw)
     for pipeline in ("double", None):
-        with ops.use_pipeline("double"), \
-                pytest.raises(NotImplementedError, match="queue 2 item 1"):
-            ops.paged_attention(q, kq, kq, bt, pos, scale=0.25, k_scale=ks,
-                                v_scale=ks, pipeline=pipeline)
+        with ops.use_pipeline("double"):
+            got = ops.paged_attention(q, kq, kq, bt, pos, pipeline=pipeline,
+                                      **kw)
+        assert torch.equal(got, off)
 
 
 # -- engines ---------------------------------------------------------------
@@ -435,6 +447,78 @@ def test_prefix_cache_cow_int8_equals_reference():
     assert teng._kv.pool.stats.dedup_hits > 0
 
 
+def _double(kind, prompts, gen_kw, scfg=None, monkeypatch=None, **ecfg):
+    """The same requests through the port's engine with
+    ``pipeline="double"`` (speculative when ``scfg`` names a proposer),
+    repro's engine with ``pipeline="off"`` (the streams' target) and
+    repro's jnp engine priced at ``pipeline="double"`` (the ledger's; its
+    kernels ignore the pipeline, as the port's plain versions do).
+    Returns the port's engine and the pipelines its paged-attention
+    dispatches carried."""
+    jc, tc, jp, tp = _model(kind)
+    seen = []
+    real = ops.resolve
+
+    def spy(name, device, pipeline=None):
+        if "paged_attention" in name:
+            seen.append(pipeline)
+        return real(name, device, pipeline)
+
+    def make(mod, params, cfg, **kw):
+        e = mod.EngineConfig(**ecfg, **kw)
+        if scfg is None:
+            return mod.Engine(cfg, params, e)
+        return mod.SpecEngine(cfg, params, e, mod.SpecConfig(**scfg))
+
+    def run(eng, mod):
+        reqs = [eng.submit(p, mod.GenerateConfig(**gen_kw)) for p in prompts]
+        eng.run()
+        return [[int(x) for x in r.generated] for r in reqs]
+
+    want = run(make(jserve, jp, jc, pipeline="off"), jserve)
+    jdbl = make(jserve, jp, jc, pipeline="double", kernel_backend="jnp")
+    assert run(jdbl, jserve) == want
+    monkeypatch.setattr(ops, "resolve", spy)
+    teng = make(tserve, tp, tc, pipeline="double", device="cpu")
+    assert run(teng, tserve) == want
+    assert all(len(t) == gen_kw["max_new_tokens"] for t in want)
+    got, ref = teng.aggregate_ledger(), jdbl.aggregate_ledger()
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == pytest.approx(
+            getattr(ref, f.name), rel=1e-12), f.name
+    assert got.decode_vmem_bytes > 0
+    return teng, set(seen)
+
+
+@pytest.mark.parametrize("kind,kv_dtype", [
+    ("gqa", "int8"), ("gqa", "fp8_e4m3"), ("mla", "int8"),
+    ("mla", "fp8_e4m3")])
+def test_engine_double_streams_equal_reference_off(kind, kv_dtype,
+                                                   monkeypatch):
+    """Quantized pools under ``pipeline="double"``, chunked prefill
+    included: streams equal repro's quantized ``"off"`` engine, every
+    paged dispatch carries ``"double"``, ledgers equal repro's double
+    pricing."""
+    prompts = [_prompt(40 + i, n) for i, n in enumerate([5, 9, 7])]
+    teng, seen = _double(kind, prompts, dict(max_new_tokens=6),
+                         monkeypatch=monkeypatch, num_slots=2, page_size=4,
+                         max_len=32, prefill_chunk=3, kv_dtype=kv_dtype)
+    assert teng.cfg.kv_dtype == kv_dtype and seen == {"double"}
+    blk = next(iter(teng._kv.pools[0].values()))
+    assert any(n.endswith("_scale") for n in blk)
+
+
+def test_spec_engine_ngram_double_int8_equals_reference_off(monkeypatch):
+    motif = _prompt(47, 4)
+    prompts = [np.tile(motif, 4), _prompt(48, 6)]
+    teng, seen = _double("gqa", prompts, dict(max_new_tokens=8),
+                         scfg=dict(k=3, proposer="ngram"),
+                         monkeypatch=monkeypatch, num_slots=2, page_size=4,
+                         max_len=48, kv_dtype="int8")
+    assert teng.verify_steps > 0 and seen == {"double"}
+    assert teng.aggregate_ledger().accepted > 0
+
+
 def _prefilled_cache(kind, S, **kw):
     """A port cache at int8 with one slot prefilled from an S-token
     prompt; returns (cache, slot, prompt tokens)."""
@@ -521,18 +605,24 @@ def test_engine_config_kv_dtype_validation_and_override():
         tserve.Engine(tc, tp, tserve.EngineConfig(
             num_slots=2, page_size=4, max_len=16, kv_dtype="int3",
             device="cpu"))
-    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
-        tserve.Engine(tc, tp, tserve.EngineConfig(
-            num_slots=2, page_size=4, max_len=16, kv_dtype="int8",
-            pipeline="double", device="cpu"))
-    # the draft model's cache keeps its own config's kv_dtype
+    # a quantized pool builds under pipeline="double" too
+    eng = tserve.Engine(tc, tp, tserve.EngineConfig(
+        num_slots=2, page_size=4, max_len=16, kv_dtype="int8",
+        pipeline="double", device="cpu"))
+    assert eng.cfg.kv_dtype == "int8" and eng.ecfg.pipeline == "double"
+    # the draft model's cache keeps its own config's kv_dtype, under
+    # either pipeline
     qdraft = dataclasses.replace(tc, kv_dtype="fp8_e4m3")
-    with pytest.raises(NotImplementedError, match="queue 2 item 1"):
-        tserve.SpecEngine(tc, tp, tserve.EngineConfig(
-            num_slots=2, page_size=4, max_len=16, pipeline="double",
-            device="cpu"), tserve.SpecConfig(k=2, proposer="draft",
-                                             draft_cfg=qdraft,
-                                             draft_params=tp))
+    dspec = tserve.SpecEngine(tc, tp, tserve.EngineConfig(
+        num_slots=2, page_size=4, max_len=16, pipeline="double",
+        device="cpu"), tserve.SpecConfig(k=2, proposer="draft",
+                                         draft_cfg=qdraft, draft_params=tp))
+    dspec.submit(_prompt(3, 5), tserve.GenerateConfig(max_new_tokens=3))
+    dspec.run()
+    assert dspec.cfg.kv_dtype == "bf16"
+    assert dspec.proposer.kv.cfg.kv_dtype == "fp8_e4m3"
+    assert any(n.endswith("_scale") for n in next(iter(
+        dspec.proposer.kv.pools[0].values())))
     spec = tserve.SpecEngine(tc, tp, tserve.EngineConfig(
         num_slots=2, page_size=4, max_len=16, kv_dtype="int8",
         device="cpu"), tserve.SpecConfig(k=2, proposer="draft",
