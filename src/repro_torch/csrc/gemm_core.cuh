@@ -1,32 +1,33 @@
-// The tiled GEMM core shared by the inner product (csrc/inner_product.cu),
-// the direct convolution as an implicit GEMM (csrc/conv_direct.cu) and the
-// Winograd elementwise stage (csrc/winograd_stage.cu).
+// The tiled float32 GEMM core on the CUDA cores, shared by the float32
+// paths of the inner product (csrc/inner_product.cu) and of the direct
+// convolution as an implicit GEMM (csrc/conv_direct.cu), and by the
+// Winograd elementwise stage (csrc/winograd_stage.cu).  Their bf16 paths
+// run on the tensor cores (csrc/gemm_wgmma.cuh); float32 stays here, a
+// full float32 product as torch.matmul computes it by default (TF32 would
+// change the function).
 //
 //   C[b] (M, N) = epilogue(A[b] (M, K) @ B[b] (K, N)),  b = blockIdx.z
 //
 // A is read through a loader (a dense row-major matrix, or the im2col view
 // of an NHWC image that the convolution computes on the fly); B is a dense
-// row-major (K, N) matrix.  Sums are float32 in registers whatever the
-// input type; the epilogue (none / relu / tanh-GELU) runs on the float32
-// sum and the result is rounded once to the output type.
+// row-major (K, N) matrix.  The epilogue (none / relu / tanh-GELU) runs on
+// the float32 sum.
 //
-// Design, kept simple for a first kernel (CUDA cores, no tensor cores):
+// Design:
 // * a block of 256 threads computes one 128 x 128 tile of C; each thread
 //   an 8 x 8 sub-tile, 64 float32 accumulators in registers;
 // * K advances 8 at a time through shared memory: A's 128 x 8 slab stored
 //   transposed (As[k][m], so a thread reads its 8 rows as two float4), B's
-//   8 x 128 slab as is; every element is widened to float32 on the way in;
+//   8 x 128 slab as is;
 // * the next slab is loaded from global memory into registers while the
-//   current one is multiplied (one slab of prefetch, no cp.async ring);
+//   current one is multiplied (one slab of prefetch);
 // * every load and store is bounds-checked, so M, N and K need not be
 //   multiples of any tile (out-of-range A/B elements read as 0);
 // * each output sums k = 0 .. K-1 in order with fmaf, so the result does
 //   not depend on the launch.
-// Offsets are 64-bit.  Tensor cores (mma.sync / wgmma), TMA and cp.async
-// rings are later work.
+// Offsets are 64-bit.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,20 +43,6 @@ constexpr int kARowStride = kThreads / BK;             // 32
 constexpr int kBRowStride = kThreads / BN;             // 2
 
 enum Epilogue { kNone = 0, kRelu = 1, kGelu = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);                 // round to nearest even
-}
 
 // A as a dense row-major (M, K) matrix with leading dimension ld.
 template <typename T>
@@ -73,14 +60,14 @@ struct DenseA {
     }
   }
   __device__ __forceinline__ float load(int i, int k, int K) const {
-    return (valid[i] && k < K) ? to_f32(p[row[i] + k]) : 0.0f;
+    return (valid[i] && k < K) ? p[row[i] + k] : 0.0f;
   }
 };
 
 template <typename T>
 __device__ __forceinline__ float load_b(const T* __restrict__ B, int64_t ldb,
                                         int k, int n, int K, int N) {
-  return (k < K && n < N) ? to_f32(B[static_cast<int64_t>(k) * ldb + n])
+  return (k < K && n < N) ? B[static_cast<int64_t>(k) * ldb + n]
                           : 0.0f;
 }
 
@@ -176,7 +163,7 @@ __device__ __forceinline__ void gemm_tile(ALoader a, const T* __restrict__ B,
       } else if (epilogue == kGelu) {
         v = gelu_f32(v);
       }
-      row[n] = from_f32<OutT>(v);
+      row[n] = v;
     }
   }
 }

@@ -1,47 +1,125 @@
 // Inner product (fully connected) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_mm_kernel` / `inner_product` in
-// src/repro/kernels/inner_product.py: out (M, N) = epilogue(x (M, K) @
+// src/repro/kernels/inner_product.py:52: out (M, N) = epilogue(x (M, K) @
 // w (K, N)) with a float32 accumulator, epilogue none / relu / tanh-GELU
 // applied to the float32 sum (the paper's fused "warm cache" case: the
 // activation never goes back to device memory), output rounded once to the
 // input type.  The Pallas kernel carries the accumulator across a
 // sequential K grid axis; here each block loops over K itself and keeps
-// the accumulator in registers (csrc/gemm_core.cuh).
+// the accumulator in registers.
 //
 // Bound on the card: operations for large square products (8192^3 in bf16
-// is ~1.1 TFLOP against ~400 MB), bytes for a thin M (qwen3-14b's gate
-// projection over a 256-token prefill chunk, AI 240, sits just left of the
-// data sheet's bf16 ridge of ~295).  This first kernel multiplies on the
-// CUDA cores in float32, so its own ceiling is the float32 FMA rate, not
-// the tensor cores' bf16 rate that bounds the function; tensor cores are
-// later work.
+// is ~1.1 TFLOP against ~400 MB: 1.112 ms at the data sheet's 989 TFLOP/s),
+// bytes for a thin M (qwen3-14b's gate projection over a 256-token prefill
+// chunk, 256 x 5120 x 17408, reads 178 MB of w: 0.0567 ms at 3.35 TB/s;
+// AI 240, just left of the bf16 ridge of ~295).
 //
-// Any M, N, K >= 1 (edges are bounds-checked), float32 or bf16 inputs.
+// bf16 runs on the tensor cores (csrc/gemm_wgmma.cuh): 128 x 256 tiles, or
+// 128 x 128 where those finish in fewer whole waves (the gate projection:
+// 272 tiles in three waves of 132 SMs against 136 wider ones in two; the
+// third wave's 8 tiles leave the card mostly idle for a tile's time, the
+// price of the quantisation); K staged 64 at a time in a ring of 4 or 5
+// stages under the 128-byte swizzle.  At a thin M the row tiles of one
+// column of w are neighbours in launch order, so w is read from memory
+// once.  Producers, chosen here per operand: x by TMA when K % 8 == 0
+// (16-byte rows), w by TMA, read in its (K, N) layout, when N % 8 == 0;
+// otherwise that operand element-wise (bounds-checked loads into the same
+// swizzled stage).  Every bf16 shape takes the wgmma consumers.
+// float32 stays on the CUDA cores (csrc/gemm_core.cuh): a full float32
+// product, as torch.matmul computes it by default.
+//
+// Any M, N, K >= 1, float32 or bf16 inputs.
 //
 // C interface (bound with ctypes by repro_torch/kernels/build.py):
 //   int inner_product_launch(x, w, out, M, N, K,
 //                            epilogue /*0 none, 1 relu, 2 gelu*/,
 //                            dtype /*0 f32, 1 bf16*/, stream)
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a shape, epilogue or dtype the kernel does not take).
+// a shape, epilogue or dtype the kernel does not take);
+//   int inner_product_plan(x, w, M, N, K, dtype)
+// returns the bf16 launch's plan (wg::plan_code: producers of x and w, and
+// BN), or -1 for float32 (CUDA cores).  A bf16 launch fails if a tensor
+// map it needs cannot be encoded.
 
 #include "gemm_core.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
-template <typename T>
 __global__ void __launch_bounds__(gemm::kThreads)
-    inner_product_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                         T* __restrict__ out, int M, int N, int K,
-                         int epilogue) {
-  gemm::DenseA<T> a;
+    inner_product_f32_kernel(const float* __restrict__ x,
+                             const float* __restrict__ w,
+                             float* __restrict__ out, int M, int N, int K,
+                             int epilogue) {
+  gemm::DenseA<float> a;
   a.p = x;
   a.ld = K;
-  gemm::gemm_tile<T, T>(a, w, N, out, N, M, N, K, epilogue);
+  gemm::gemm_tile<float, float>(a, w, N, out, N, M, N, K, epilogue);
+}
+
+template <int BN, class ALoad, class BLoad>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    inner_product_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                              const __grid_constant__ CUtensorMap map_w,
+                              ALoad a, BLoad b, wg::Out o) {
+  wg::gemm_block<BN>(&map_x, &map_w, a, b, o);
+}
+
+struct Plan {
+  bool tma_x, tma_w;
+  int bn;
+};
+
+Plan plan_for(const void* x, const void* w, int M, int N, int K) {
+  Plan p;
+  p.tma_x = K % 8 == 0 && wg::aligned16(x);
+  p.tma_w = N % 8 == 0 && wg::aligned16(w);
+  p.bn = (p.tma_x && p.tma_w) ? wg::pick_bn(M, N) : 128;
+  return p;
+}
+
+template <int BN, class ALoad, class BLoad>
+int launch_bf16(const CUtensorMap& mx, const CUtensorMap& mw, ALoad a,
+                BLoad b, const wg::Out& o, cudaStream_t s) {
+  return wg::launch<BN>(inner_product_bf16_kernel<BN, ALoad, BLoad>, o.M,
+                        o.N, s, mx, mw, a, b, o);
+}
+
+int launch_bf16(const void* x, const void* w, void* out, int M, int N, int K,
+                int epilogue, cudaStream_t s) {
+  const Plan p = plan_for(x, w, M, N, K);
+  CUtensorMap mx = {}, mw = {};
+  if (p.tma_x && !wg::make_map(&mx, x, M, K, wg::BM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.tma_w && !wg::make_map(&mw, w, K, N, wg::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::Out o{static_cast<__nv_bfloat16*>(out), M, N, K, epilogue};
+  wg::DenseView view;
+  view.p = static_cast<const uint16_t*>(x);
+  view.M = M;
+  view.Kdim = K;
+  const wg::ElemA<wg::DenseView> ex{view};
+  const wg::ElemB<128> ew{static_cast<const uint16_t*>(w), K, N};
+  if (p.tma_x && p.tma_w) {
+    if (p.bn == 256)
+      return launch_bf16<256>(mx, mw, wg::TmaA{}, wg::TmaB<256>{}, o, s);
+    return launch_bf16<128>(mx, mw, wg::TmaA{}, wg::TmaB<128>{}, o, s);
+  }
+  if (p.tma_x) return launch_bf16<128>(mx, mw, wg::TmaA{}, ew, o, s);
+  if (p.tma_w) return launch_bf16<128>(mx, mw, ex, wg::TmaB<128>{}, o, s);
+  return launch_bf16<128>(mx, mw, ex, ew, o, s);
 }
 
 }  // namespace
+
+extern "C" int inner_product_plan(const void* x, const void* w, int M, int N,
+                                  int K, int dtype) {
+  if (dtype == 0) return -1;
+  const Plan p = plan_for(x, w, M, N, K);
+  return wg::plan_code(p.tma_x ? wg::kTma : wg::kElement,
+                       p.tma_w ? wg::kTma : wg::kElement, p.bn);
+}
 
 extern "C" int inner_product_launch(const void* x, const void* w, void* out,
                                     int M, int N, int K, int epilogue,
@@ -49,18 +127,13 @@ extern "C" int inner_product_launch(const void* x, const void* w, void* out,
   if (M <= 0 || N <= 0 || K <= 0 || epilogue < 0 || epilogue > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = gemm::grid_for(M, N, 1);
   if (dtype == 0) {
-    inner_product_kernel<float><<<grid, gemm::kThreads, 0, s>>>(
+    inner_product_f32_kernel<<<gemm::grid_for(M, N, 1), gemm::kThreads, 0,
+                               s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(out), M, N, K, epilogue);
-  } else if (dtype == 1) {
-    inner_product_kernel<__nv_bfloat16><<<grid, gemm::kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), M, N, K, epilogue);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) return launch_bf16(x, w, out, M, N, K, epilogue, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

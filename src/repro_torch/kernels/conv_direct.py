@@ -5,11 +5,12 @@ The paper's direct-convolution study: oneDNN blocks NCHW into NCHW16C so
 each vector load comes from one cache line.  In NHWC the channels are
 already the contiguous dimension, so ``csrc/conv_direct.cu`` (the port of
 the Pallas ``conv2d_direct``) runs the convolution as one implicit GEMM
-over (N H W) x Cout with K = KH KW Cin, reading neighbouring channels with
-neighbouring threads.  Padding is ``KH // 2`` rows before and
-``KH - 1 - KH // 2`` after (columns likewise), the Pallas wrapper's split:
-for odd kernels it is XLA's SAME; for even ones it puts the extra row
-before, where ``ref.conv2d`` puts it after.
+over (N H W) x Cout with K = KH KW Cin, one pixel's channels in one
+copy (bf16 on the tensor cores, float32 on the CUDA cores; :func:`plan`
+says which producers fill the stages).  Padding is ``KH // 2`` rows
+before and ``KH - 1 - KH // 2`` after (columns likewise), the Pallas
+wrapper's split: for odd kernels it is XLA's SAME; for even ones it puts
+the extra row before, where ``ref.conv2d`` puts it after.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .inner_product import DTYPE_CODES
+from .inner_product import DTYPE_CODES, describe_plan
 
 
 def pad_split(k: int):
@@ -86,9 +87,24 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 conv2d_direct.launches = 0
 
+
+def plan(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The path :func:`conv2d_direct` takes for these CUDA tensors (the C
+    launch function's own choice; nothing is launched), in
+    :func:`describe_plan`'s words."""
+    lib = build.library("conv_direct", C_SIGNATURES)
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    return describe_plan(lib.conv2d_direct_plan(
+        x.data_ptr(), w.data_ptr(), n, h, wd, cin, cout, kh, kw,
+        DTYPE_CODES[x.dtype]))
+
+
 # the C interface of csrc/conv_direct.cu, bound by kernels/build.py
 C_SIGNATURES = {
     "conv2d_direct_launch": (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
         ctypes.c_int),
+    "conv2d_direct_plan": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8, ctypes.c_int),
 }

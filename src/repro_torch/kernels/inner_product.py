@@ -6,9 +6,12 @@ epilogue (``"none"``, ``"relu"``, ``"gelu"``: tanh-GELU) runs on the
 float32 sum and the result is rounded once to ``x.dtype`` — the paper's
 fused "warm cache" case, where the activation never goes back to device
 memory.  :func:`inner_product` launches ``csrc/inner_product.cu`` (the
-port of the Pallas ``inner_product``); :func:`inner_product_reference` is
-the same function in plain PyTorch.  Unlike the Pallas kernel, whose
-block sizes must divide the shape, both take any M, N, K >= 1.
+port of the Pallas ``inner_product``): bf16 on the tensor cores
+(``csrc/gemm_wgmma.cuh``), float32 on the CUDA cores
+(``csrc/gemm_core.cuh``); :func:`inner_product_reference` is the same
+function in plain PyTorch.  Unlike the Pallas kernel, whose block sizes
+must divide the shape, both take any M, N, K >= 1.  :func:`plan` says
+which path and which stage producers a launch takes.
 """
 
 from __future__ import annotations
@@ -22,6 +25,19 @@ from . import ref as _ref
 
 EPILOGUES = {"none": 0, "relu": 1, "gelu": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the stage producers of csrc/gemm_wgmma.cuh (wg::Producer)
+PRODUCERS = ("tma", "cp.async", "element-wise")
+
+
+def describe_plan(code: int) -> str:
+    """A plan code of the C ``*_plan`` functions in words: the float32
+    CUDA-core path (code < 0), or the wgmma tile and the producers of the
+    A and B stages (``wg::plan_code``: A in bits 0-1, B in bits 2-3, bit
+    4 for 256 columns)."""
+    if code < 0:
+        return "cuda-cores f32"
+    return (f"wgmma 128x{256 if code & 16 else 128}, A "
+            f"{PRODUCERS[code & 3]}, B {PRODUCERS[code >> 2 & 3]}")
 
 
 def apply_epilogue(y: torch.Tensor, fuse: str) -> torch.Tensor:
@@ -90,9 +106,22 @@ def inner_product(x: torch.Tensor, w: torch.Tensor, *,
 
 inner_product.launches = 0
 
+
+def plan(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The path :func:`inner_product` takes for these CUDA tensors (the C
+    launch function's own choice, from shape and alignment; nothing is
+    launched), as :func:`describe_plan` words."""
+    lib = build.library("inner_product", C_SIGNATURES)
+    (m, k), n = x.shape, w.shape[1]
+    return describe_plan(lib.inner_product_plan(
+        x.data_ptr(), w.data_ptr(), m, n, k, DTYPE_CODES[x.dtype]))
+
+
 # the C interface of csrc/inner_product.cu, bound by kernels/build.py
 C_SIGNATURES = {
     "inner_product_launch": (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         ctypes.c_int),
+    "inner_product_plan": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4, ctypes.c_int),
 }

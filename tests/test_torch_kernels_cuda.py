@@ -570,6 +570,115 @@ def test_conv_direct_kernel_matches_plain(card, dt, n, h, w, cin, cout, kh,
                                            vs="plain_f32"))
 
 
+# The bf16 paths on the tensor cores (csrc/gemm_wgmma.cuh) at the core's
+# edges: one BM x BN tile is 128 x 128 or 128 x 256, a stage 64 deep in K,
+# a TMA row 16 bytes (K % 8 == 0 for x, N % 8 == 0 for w, Cin % 8 == 0 for
+# the convolution's cp.async copies); every other shape or alignment takes
+# the element-wise producer.  Each case names the plan it must take.
+@pytest.mark.parametrize("m,k,n,want", [
+    (100, 64, 256, "wgmma 128x128, A tma, B tma"),   # M not a multiple of 64
+    (192, 40, 96, "wgmma 128x128, A tma, B tma"),    # K shorter than a stage
+    (64, 200, 136, "wgmma 128x128, A tma, B tma"),   # K % 64 != 0
+    (257, 520, 8, "wgmma 128x128, A tma, B tma"),    # N = 8
+    (130, 96, 20, "wgmma 128x128, A tma, B element-wise"),   # N % 8 != 0
+    (70, 99, 64, "wgmma 128x128, A element-wise, B tma"),    # K % 8 != 0
+    (8192, 1024, 8192, "wgmma 128x256, A tma, B tma"),
+    # qwen3-14b's gate projection over a 256-token chunk: three waves of
+    # 128-wide tiles beat two of 256-wide ones on 132 SMs
+    (256, 5120, 17408, "wgmma 128x128, A tma, B tma"),
+])
+@pytest.mark.parametrize("fuse", ["none", "gelu"])
+def test_inner_product_bf16_wgmma_edges(card, m, k, n, want, fuse):
+    rng = np.random.default_rng(m + k + n)
+    x = _normal(rng, (m, k), card, torch.bfloat16)
+    w = _normal(rng, (k, n), card, torch.bfloat16)
+    assert ip_mod.plan(x, w) == want
+    out = ip_mod.inner_product(x, w, fuse=fuse)
+    want_out = ip_mod.inner_product_reference(x, w, fuse=fuse)
+    want32 = ip_mod.inner_product_reference(x.float(), w.float(), fuse=fuse)
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               **tolerance("sum", "bfloat16", k))
+    torch.testing.assert_close(out.float(), want32,
+                               **tolerance("sum", "bfloat16", k,
+                                           vs="plain_f32"))
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_inner_product_bf16_misaligned_rows_take_element_wise(card, offset):
+    # contiguous views whose first element is not 16-byte aligned: the
+    # launch picks the element-wise producers and gets the same sums
+    rng = np.random.default_rng(offset)
+    m, k, n = 96, 64, 72
+    xb = _normal(rng, (m * k + offset,), card, torch.bfloat16)
+    wb = _normal(rng, (k * n + offset,), card, torch.bfloat16)
+    x = xb[offset:].view(m, k)
+    w = wb[offset:].view(k, n)
+    assert ip_mod.plan(x, w) == ("wgmma 128x128, A element-wise, "
+                                 "B element-wise")
+    out = ip_mod.inner_product(x, w)
+    torch.testing.assert_close(
+        out.float(), ip_mod.inner_product_reference(x.float(), w.float()),
+        **tolerance("sum", "bfloat16", k, vs="plain_f32"))
+    assert torch.equal(out, ip_mod.inner_product(x.clone(), w.clone()))
+
+
+def test_inner_product_f32_stays_on_the_cuda_cores(card):
+    x = torch.ones((4, 8), device=card)
+    assert ip_mod.plan(x, torch.ones((8, 8), device=card)) == "cuda-cores f32"
+    xc = torch.ones((1, 8, 8, 8), device=card)
+    assert conv_mod.plan(xc, torch.ones((3, 3, 8, 8), device=card)) == (
+        "cuda-cores f32")
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,kw,want", [
+    (2, 9, 11, 16, 24, 3, 3, "A cp.async, B tma"),       # Cin % 8 == 0
+    (3, 10, 7, 64, 130, 3, 3, "A cp.async, B element-wise"),  # Cout ragged
+    (2, 9, 11, 24, 20, 2, 2, "A cp.async, B element-wise"),
+    (2, 8, 13, 40, 16, 1, 5, "A cp.async, B tma"),
+    (2, 9, 11, 5, 16, 1, 5, "A element-wise, B tma"),    # Cin % 8 != 0
+    (2, 6, 9, 12, 33, 2, 2, "A element-wise, B element-wise"),
+    (1, 5, 4, 3, 8, 3, 3, "A element-wise, B tma"),
+])
+def test_conv_direct_bf16_wgmma_edges(card, n, h, w, cin, cout, kh, kw, want):
+    rng = np.random.default_rng(n * h + cin + cout)
+    x = _normal(rng, (n, h, w, cin), card, torch.bfloat16)
+    wt = _normal(rng, (kh, kw, cin, cout), card, torch.bfloat16, 0.1)
+    assert conv_mod.plan(x, wt) == f"wgmma 128x128, {want}"
+    out = conv_mod.conv2d_direct(x, wt)
+    k = kh * kw * cin
+    torch.testing.assert_close(
+        out.float(), conv_mod.conv2d_direct_reference(x, wt).float(),
+        **tolerance("sum", "bfloat16", k, 0.1))
+    torch.testing.assert_close(
+        out.float(), conv_mod.conv2d_direct_reference(x.float(), wt.float()),
+        **tolerance("sum", "bfloat16", k, 0.1, vs="plain_f32"))
+
+
+def test_bf16_gemm_kernels_run_on_hgmma(card):
+    # every bf16 kernel of the two libraries multiplies with HGMMA (wgmma)
+    # in its SASS; the float32 kernels keep FFMA and no HGMMA
+    import re
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    for name in ("inner_product", "conv_direct"):
+        build.build([name])
+        sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs = {f.split("\n", 1)[0].strip(): f
+                 for f in re.split(r"\n\s*Function : ", sass)[1:]}
+        bf16 = [f for f in funcs if "bf16_kernel" in f]
+        f32 = [f for f in funcs if "f32_kernel" in f]
+        assert bf16 and f32, sorted(funcs)
+        for f in bf16:
+            assert "HGMMA" in funcs[f], f
+        for f in f32:
+            assert "HGMMA" not in funcs[f] and "FFMA" in funcs[f], f
+
+
 @pytest.mark.parametrize("p,t,cin,cout", [(16, 196, 128, 128),
                                           (16, 1, 1, 1), (16, 37, 3, 130),
                                           (3, 300, 65, 9)])

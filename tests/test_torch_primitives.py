@@ -183,6 +183,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             fn(*args)
 
 
+@pytest.mark.parametrize("code,words", [
+    (-1, "cuda-cores f32"),
+    (0 | 0 << 2 | 16, "wgmma 128x256, A tma, B tma"),
+    (2 | 0 << 2, "wgmma 128x128, A element-wise, B tma"),
+    (1 | 2 << 2, "wgmma 128x128, A cp.async, B element-wise"),
+    (2 | 2 << 2, "wgmma 128x128, A element-wise, B element-wise"),
+])
+def test_plan_codes_read_as_words(code, words):
+    # the C launch functions' plan codes (wg::plan_code): A producer in
+    # bits 0-1, B producer in bits 2-3, 256 columns in bit 4
+    from repro_torch.kernels import inner_product
+    assert inner_product.describe_plan(code) == words
+
+
 # --------------------------------------------------------------------------
 # analytic W / Q against the reference's cost walk (exact)
 # --------------------------------------------------------------------------
