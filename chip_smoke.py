@@ -6,7 +6,9 @@ Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
-   source, all started together) and print the build time;
+   source, all started together, and one more for the flash kernel's
+   measurement build with P rounded once to bf16) and print the build
+   time;
 3. kernel phases: each kernel (GQA ``paged_attention`` and
    ``paged_attention_verify``, MLA ``mla_paged_attention`` and
    ``mla_paged_attention_verify``) against its plain PyTorch version on
@@ -49,9 +51,13 @@ Phases, in order; any failure exits non-zero:
    benchmarks' shapes and at edge shapes (LayerNorm: D 1 to 16384, R 1 to
    8192, a row misaligned by one element; pooling: odd H / W, C 3 to
    130, windows 2 to 4, blocked equal to naive bit for bit; flash: S 1 to
-   1000, Sq != Sk both ways, causal and not, G 1 / 5 / 8, hd 64 / 128),
-   then the study's layernorm, pooling and attention sections at card
-   shapes, counted and placed on the roof the same way;
+   4096, the bf16 kernel's 128-row tiles and slabs at their edges (S 127
+   to 257), Sq != Sk both ways, causal and not, G 1 / 2 / 5 / 8, hd 64 /
+   128, each case printing the path it took), then the study's
+   layernorm, pooling and attention sections at card shapes, counted and
+   placed on the roof the same way; then the flash kernel beside its
+   build with P rounded once to bf16 at the two card shapes (times in
+   turns, each one's error over the bf16 tolerance);
 5. engine phases, one per path, random weights from generators seeded 0;
    every request must finish, each path's kernel launch counts (zeroed
    just before the run, read just after) must match its step counts, and
@@ -104,6 +110,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1295,10 +1302,21 @@ NPA_KERNELS = {
                         "flash_attention.py:78"),
 }
 # flash hold cases: (B, H, KV, Sq, Sk, hd) — the reference tests' largest
-# case, S = 1, G = 1, G = 5, Sq < Sk, Sq > Sk (G 1 to 8, hd 64 and 128)
+# case, S = 1, G = 1, G = 5, Sq < Sk, Sq > Sk (G 1 to 8, hd 64 and 128);
+# the bf16 kernel's 128-row query tiles and 128-key slabs at their edges
+# (S 127, 128, 129, 257; G 1, 2, 5, 8; Sq < Sk and Sq > Sk) and one long
+# case, S 4096 at G 5
 FLASH_CASES = ((2, 8, 1, 512, 512, 64), (1, 5, 1, 1, 1, 128),
                (2, 4, 4, 100, 100, 64), (1, 10, 2, 1000, 1000, 128),
-               (1, 8, 1, 100, 1000, 64), (1, 8, 8, 1000, 100, 128))
+               (1, 8, 1, 100, 1000, 64), (1, 8, 8, 1000, 100, 128),
+               (1, 2, 2, 127, 127, 64), (2, 4, 2, 128, 128, 128),
+               (1, 5, 1, 129, 129, 64), (1, 8, 1, 257, 257, 128),
+               (1, 10, 2, 127, 257, 128), (1, 4, 2, 128, 257, 64),
+               (1, 8, 1, 257, 129, 128), (2, 2, 2, 257, 127, 64),
+               (1, 10, 2, 4096, 4096, 128))
+# the flash kernel built with P rounded once to bf16 (one P V product
+# instead of hi + lo), timed beside the kept kernel at the card shapes
+FLASH_SINGLE_P = ("FLASH_P_PARTS=1",)
 
 
 def norm_pool_attention_holds(torch, np):
@@ -1355,23 +1373,75 @@ def norm_pool_attention_holds(torch, np):
                 if not torch.equal(blocked, naive):
                     fail(f"{label}: blocked and naive walks differ")
         for b, h, kv, sq, sk, hd in FLASH_CASES:
+            label = (f"flash_attention {name} B{b} H{h} KV{kv} Sq{sq} Sk{sk} "
+                     f"hd{hd}")
+            worst = []
             for causal in (True, False):
                 q, k, v = (g((b, sq, h, hd), name), g((b, sk, kv, hd), name),
                            g((b, sk, kv, hd), name))
                 heads = [t.transpose(1, 2) for t in (q, k, v)]
-                prim_hold(torch, tally, f"flash_attention {name}",
-                          f"flash_attention {name} B{b} H{h} KV{kv} Sq{sq} "
-                          f"Sk{sk} hd{hd} causal={causal}",
-                          fam.flash_attention(*heads, causal=causal),
-                          [(fam.flash_attention_reference(
-                              *heads, causal=causal),
-                            tolerance("attention", name)),
-                           (fam.flash_attention_reference(
-                               *(t.float() for t in heads), causal=causal),
-                            tolerance("attention", name, vs="plain_f32"))])
+                worst.append(prim_hold(
+                    torch, tally, f"flash_attention {name}",
+                    f"{label} causal={causal}",
+                    fam.flash_attention(*heads, causal=causal),
+                    [(fam.flash_attention_reference(*heads, causal=causal),
+                      tolerance("attention", name, sk, hd=hd)),
+                     (fam.flash_attention_reference(
+                         *(t.float() for t in heads), causal=causal),
+                      tolerance("attention", name, sk, vs="plain_f32",
+                                hd=hd))]))
+            print(f"[hold] {label}: {fam.plan(heads[0])}; worst "
+                  f"{worst[0]:.3f} causal, {worst[1]:.3f} full, of its "
+                  f"tolerance")
     for key, (n, worst) in sorted(tally.items()):
         print(f"[prim] {key}: {n} checks at the reference and edge shapes "
               f"passed; worst error {worst:.3f} of its tolerance")
+
+
+def flash_single_p(torch, card, shapes) -> None:
+    """The kept flash kernel (P V as bf16 hi + lo) beside its measurement
+    build with P rounded once to bf16, at the study's card shapes, after
+    the launch counts were read: device times in turns (kept, single,
+    single, kept) on the same cold inputs, and each one's worst error
+    over the bf16 attention tolerance against the plain version in
+    float32 (reported, not held: the single-part build is not expected
+    to meet it)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.launch.primitives import tolerance
+    lib = build.library("flash_attention", fam.C_SIGNATURES, FLASH_SINGLE_P)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for name, b, h, kv, sq, sk, hd, dtype, causal in shapes:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device="cuda")
+                   .to(dt).transpose(1, 2)
+                   for s, n in ((sq, h), (sk, kv), (sk, kv)))
+        want = fam.flash_attention_reference(q.float(), k.float(), v.float(),
+                                             causal=causal).float()
+        tol = tolerance("attention", dtype, sk, vs="plain_f32", hd=hd)
+        allow = tol["atol"] + tol["rtol"] * want.abs()
+
+        def split(q, k, v):
+            return fam.flash_attention(q, k, v, causal=causal)
+
+        def single(q, k, v):
+            return fam.run_library(lib, q, k, v, causal=causal)
+        errs = {}
+        for label, fn in (("split", split), ("single", single)):
+            diff = (fn(q, k, v).float() - want).abs()
+            errs[label] = (float(diff.max()), float((diff / allow).max()))
+            del diff
+        del want, allow
+        t = [device_ms(fn, [(q, k, v)], reps=10, per_sample=5)
+             for fn in (split, single, single, split)]
+        print(f"[flash] {card}: {name}: P as bf16 hi + lo {t[0]:.4f} / "
+              f"{t[3]:.4f} ms (max abs err {errs['split'][0]:.3e}, "
+              f"{errs['split'][1]:.3f} of its tolerance); P rounded once "
+              f"{t[1]:.4f} / {t[2]:.4f} ms (max abs err "
+              f"{errs['single'][0]:.3e}, {errs['single'][1]:.3f} of the "
+              f"tolerance); single / split {(t[1] + t[2]) / (t[0] + t[3]):.3f}")
+        del q, k, v
+    torch.cuda.empty_cache()
 
 
 def norm_pool_attention_phase(torch, np, card, roof):
@@ -1418,6 +1488,11 @@ def norm_pool_attention_phase(torch, np, card, roof):
     print(f"[prim] {card}: naive pooling op {naive.seconds * 1e3:.4f} ms = "
           f"NCHW kernel {rows['pool.avg_naive_nchw.kernel'].seconds * 1e3:.4f}"
           f" ms + transposes; blocked {blocked.seconds * 1e3:.4f} ms")
+    shapes = primitives.SHAPES["card"]["attention"]
+    flash_plans = {c[0]: fam.plan(torch.empty(
+        (1, 1, 1, c[6]), dtype=getattr(torch, c[7]), device="cuda"))
+        for c in shapes}
+    flash_single_p(torch, card, shapes)
     flash = rows["flash_attention.q14_s8192"]
     model_ai = analysis.flash_attention_ai(8192)
     print(f"[prim] {card}: flash q14 S 8192 intensity {flash.char['AI']:.1f} "
@@ -1429,11 +1504,19 @@ def norm_pool_attention_phase(torch, np, card, roof):
         bytes_ms = r.char["Q_bytes"] / HBM_BW * 1e3
         ops_ms = r.char["W_flops"] / PEAK[r.dtype] * 1e3
         bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-        print(f"[kernel] {k} ({row_name}): kernel {r.seconds * 1e3:.4f} ms, "
-              f"plain {r.plain_s * 1e3:.4f} ms, library "
-              f"{r.library_s * 1e3:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}; data sheet), {r.util_roof * 100:.1f}% of the "
-              f"measured roof")
+        # flash's other card row prints beside the one the line stands on
+        names = [row_name] + (["flash_attention.q06_b8_s2048"]
+                              if k == "flash_attention" else [])
+        for name in names:
+            rr = rows[name]
+            b_ms, b_by = bound_of(rr.char["Q_bytes"] / HBM_BW * 1e3,
+                                  rr.char["W_flops"] / PEAK[rr.dtype] * 1e3)
+            path = f" [{flash_plans[name]}]" if name in flash_plans else ""
+            print(f"[kernel] {k} ({name}){path}: kernel "
+                  f"{rr.seconds * 1e3:.4f} ms, plain {rr.plain_s * 1e3:.4f} "
+                  f"ms, library {rr.library_s * 1e3:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}; data sheet), "
+                  f"{rr.util_roof * 100:.1f}% of the measured roof")
         entries.append(dict(
             name=k, route="cuda", source=f"src/repro_torch/csrc/{src}",
             replaces=f"src/repro/kernels/{rep}", launches=launches[k],
@@ -2123,7 +2206,12 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in (SRC / "repro_torch" / "csrc").glob(
         "*.cu"))
-    logs = build.build(sources)
+    with ThreadPoolExecutor(2) as pool:   # all nvcc processes at once
+        single_p = pool.submit(build.build, ["flash_attention"],
+                               FLASH_SINGLE_P)
+        logs = build.build(sources)
+        logs["flash_attention (P rounded once)"] = single_p.result()[
+            "flash_attention"]
     print(f"[build] {', '.join(sources)} built in "
           f"{time.perf_counter() - t0:.1f} s (nvcc sm_90a)")
     for name, log in logs.items():

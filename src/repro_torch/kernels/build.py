@@ -3,8 +3,10 @@
 Each source is a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  Libraries land in the
 repository's ``build/kernels/`` (git-ignored), named by a hash of the
-source and of the shared headers (``csrc/*.cuh``), and are built on first
-use: a checkout needs nothing prebuilt.
+source, of the shared headers (``csrc/*.cuh``) and of any ``-D`` defines,
+and are built on first use: a checkout needs nothing prebuilt.  Defines
+make measurement builds of a source beside the one the wrappers load
+(``FLASH_P_PARTS=1``: flash attention with P rounded once to bf16).
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
@@ -25,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -40,31 +42,36 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):    # included sources
         h.update(header.read_bytes())
+    h.update(" ".join(defines).encode())          # none: the plain build
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str) -> Tuple[Path, Optional[subprocess.Popen], Path]:
-    out = library_path(name)
+def _start(name: str, defines: Sequence[str]
+           ) -> Tuple[Path, Optional[subprocess.Popen], Path]:
+    out = library_path(name, defines)
     if out.exists():
         return out, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, proc, tmp
 
 
-def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every named source that is not built yet, one nvcc each,
-    all started together.  Returns each compiler's output (register and
-    shared-memory use from ``-Xptxas -v``); raises if any build fails."""
-    started = [(n, *_start(n)) for n in names]
+def build(names: Sequence[str], defines: Sequence[str] = ()
+          ) -> Dict[str, str]:
+    """Compile every named source that is not built yet (with ``-D`` of
+    each of ``defines``), one nvcc each, all started together.  Returns
+    each compiler's output (register and shared-memory use from ``-Xptxas
+    -v``); raises if any build fails."""
+    started = [(n, *_start(n, defines)) for n in names]
     logs: Dict[str, str] = {}
     failed: List[str] = []
     for name, out, proc, tmp in started:
@@ -82,16 +89,18 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     return logs
 
 
-def library(name: str, signatures: Dict[str, Tuple[list, object]]
-            ) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built on first use),
-    with ``argtypes``/``restype`` set from ``signatures``."""
-    lib = _loaded.get(name)
+def library(name: str, signatures: Dict[str, Tuple[list, object]],
+            defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` built with ``defines``
+    (on first use), with ``argtypes``/``restype`` set from
+    ``signatures``."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([name], defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib

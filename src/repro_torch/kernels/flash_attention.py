@@ -11,10 +11,13 @@ once to q's dtype.  It is not ``ref.mha``'s, which rounds p to v's dtype
 before the PV product.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu``, which walks
-K / V in slabs of 64 with the online softmax and takes any Sq, Sk >= 1
-and hd 64 or 128 (the Pallas wrapper needs blocks of 128 that divide the
-sequence).  It reads every tensor through its strides, so a transposed
-view of the model layout (B, S, H, hd) needs no copy.
+K / V in slabs with the online softmax and takes any Sq, Sk >= 1 and hd
+64 or 128 (the Pallas wrapper needs blocks of 128 that divide the
+sequence): bf16 on the tensor cores (``wgmma``, K / V slabs by TMA, P
+split into two bf16 parts for the P V product), float32 on the CUDA
+cores.  :func:`plan` says which path a launch takes.  It reads every
+tensor through its strides, so a transposed view of the model layout
+(B, S, H, hd) needs no copy.
 """
 
 from __future__ import annotations
@@ -31,6 +34,17 @@ HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 # score elements per chunk of the plain version (bounds its memory)
 PLAIN_CHUNK_ELEMS = 1 << 28
+
+
+def describe_plan(code: int) -> str:
+    """A plan code of the C ``flash_attention_plan`` in words: hd (64 or
+    128) for the bf16 wgmma kernel, -1 for the float32 CUDA-core kernel;
+    0 (no path) raises."""
+    if code == -1:
+        return "CUDA cores float32"
+    if code in HEAD_DIMS:
+        return f"wgmma bf16 hd{code}"
+    raise ValueError(f"flash_attention has no path for plan code {code}")
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -102,6 +116,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
                              f"{q.dtype} on {q.device}")
+    out = run_library(build.library("flash_attention", C_SIGNATURES), q,
+                      k, v, causal=causal)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def run_library(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool) -> torch.Tensor:
+    """The launch of :func:`flash_attention` (after its checks) through a
+    loaded build ``lib`` of ``csrc/flash_attention.cu``: tensors whose
+    strides the kernel cannot read are copied first.  Not counted in
+    ``flash_attention.launches``; a measurement build (``build.library``
+    with defines) runs through here too."""
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
     vec = 16 // q.element_size()
     args, strides = [], []
     for t in (q, k, v):
@@ -113,7 +145,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         strides += st
     out = torch.empty_like(args[0])
     strides += _strides(out, vec)
-    lib = build.library("flash_attention", C_SIGNATURES)
     err = lib.flash_attention_launch(
         *(t.data_ptr() for t in args), out.data_ptr(), b, h, kv, sq, sk, hd,
         (ctypes.c_longlong * 12)(*strides), 1.0 / math.sqrt(hd),
@@ -122,11 +153,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+def plan(q: torch.Tensor) -> str:
+    """The path :func:`flash_attention` takes for a CUDA query of this
+    dtype and head dim (the C launch function's own choice; nothing is
+    launched), as :func:`describe_plan` words."""
+    lib = build.library("flash_attention", C_SIGNATURES)
+    return describe_plan(lib.flash_attention_plan(DTYPE_CODES[q.dtype],
+                                                  q.shape[-1]))
+
 
 # the C interface of csrc/flash_attention.cu, bound by kernels/build.py
 C_SIGNATURES = {
@@ -135,4 +172,5 @@ C_SIGNATURES = {
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
            ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
+    "flash_attention_plan": ([ctypes.c_int] * 2, ctypes.c_int),
 }

@@ -142,7 +142,7 @@ LIBRARY_RTOL = 2e-2
 
 
 def tolerance(kind: str, dtype: str, k: int = 1, scale: float = 1.0,
-              vs: str = "plain") -> Dict[str, float]:
+              vs: str = "plain", hd: int = 128) -> Dict[str, float]:
     """allclose tolerances of a kernel against its plain version (PERF.md,
     PR 14: stated before the first chip run at 8 k 2^-24 and 2^-20, then
     tightened to these after the holds on the card).
@@ -186,11 +186,38 @@ def tolerance(kind: str, dtype: str, k: int = 1, scale: float = 1.0,
     scale; atol = max(4 k, k^1.5 / 6) * 2^-24 * scale, the float32
     allowance up to k = 576.  Derived after the first hold at 8192^3
     (k 8192) missed the in-order allowance by 6% (2.26e-3 where 2.13e-3
-    was allowed, at an output of -0.045); it allows 7.4e-3 there."""
+    was allowed, at an output of -0.045); it allows 7.4e-3 there.
+    bf16 "attention" on the tensor cores (derived before the kernel's
+    first run on the card; ``k`` is Sk, ``hd`` the head dim; unit-normal
+    q, k, v as every hold makes them): the flash kernel runs both products
+    as ``wgmma`` and its outputs move from the plain version's by three
+    more terms, each bounded in units of 2^-24 and added to the float32
+    atol.  (a) The scores q.k sum hd bf16 products in hd / 16 k16 steps,
+    each truncating up to two ulps of its partial sum (as for "sum"):
+    hd^1.5 / 6 2^-24 before the scale, hd / 6 2^-24 after it; the kernel
+    works in base 2 (x = s log2 e rounded, then x - m) and exp2f is
+    within 2 ulp, which for any p above e^-16 adds at most 32 2^-24 of
+    relative error to p.  A relative error e_j of each p_j moves o by
+    sum_j p_j e_j (v_j - o) / l, at most max e times 2 max|v| < 10, so
+    (a) = 10 (hd / 6 + 32).  (b) P V sums Sk bf16 products in 2 Sk / 16
+    k16 steps (p_hi, then p_lo), each truncating up to two ulps of the
+    accumulator, whose partial sums over unit-normal v grow like
+    sqrt(8 j) p_rms; summed and divided by l = Sk p_mean this is 0.55
+    sqrt(Sk) (p_rms / p_mean) 2^-24, with p_rms / p_mean = e^(1/2) for
+    unit-normal scores: (b) = sqrt(Sk), about twice that.  (c) P enters
+    as p_hi + p_lo, each rounded to nearest, so |p - p_hi - p_lo| <=
+    2^-18 p and o moves by at most 2^-18 max|v| < 5 2^-18: (c) = 320.
+    atol = 2^-15 + (10 (hd / 6 + 32) + 320 + sqrt(Sk)) 2^-24: 8.1e-5 at
+    hd 128 and Sk 1, 8.7e-5 at hd 128 and Sk 8192 (2.7-2.8x the float32
+    atol), 7.5-8.0e-5 at hd 64; rtol as above.  One bf16 rounding of p
+    (2^-9 relative) would move a row of few keys by up to ~2^-9 max|v|,
+    ~1e-2, which this does not allow."""
     atol = {"sum": 4 * k * 2.0 ** -24 * scale, "elementwise": 2.0 ** -22,
             "norm": 2.0 ** -15, "attention": 2.0 ** -15}[kind]
     if kind == "sum" and dtype == "bfloat16":
         atol = max(4 * k, k ** 1.5 / 6) * 2.0 ** -24 * scale
+    if kind == "attention" and dtype == "bfloat16":
+        atol += (10 * (hd / 6 + 32) + 320 + math.sqrt(k)) * 2.0 ** -24
     rtol = atol if kind in ("norm", "attention") else 2.0 ** -22
     if dtype == "bfloat16":
         rtol = 2.0 ** -8 if vs == "plain_f32" else 2.0 ** -7
@@ -660,9 +687,9 @@ class Study:
                 name, dtype, char, (q, k, v),
                 lambda q, k, v, causal=causal: ops.flash_attention(
                     q, k, v, causal),
-                plain, lib, tolerance("attention", dtype),
+                plain, lib, tolerance("attention", dtype, sk, hd=hd),
                 lambda q, k, v: plain(q.float(), k.float(), v.float()),
-                tolerance("attention", dtype, vs="plain_f32")))
+                tolerance("attention", dtype, sk, vs="plain_f32", hd=hd)))
             self.emit(f"{name}.substitution_model", 0.0,
                       f"AI_row={char['AI']:.2f};AI_flash_model="
                       f"{analysis.flash_attention_ai(sk):.2f};bq=128")

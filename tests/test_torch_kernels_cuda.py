@@ -655,14 +655,14 @@ def test_conv_direct_bf16_wgmma_edges(card, n, h, w, cin, cout, kh, kw, want):
 
 
 def test_bf16_gemm_kernels_run_on_hgmma(card):
-    # every bf16 kernel of the two libraries multiplies with HGMMA (wgmma)
-    # in its SASS; the float32 kernels keep FFMA and no HGMMA
+    # every bf16 kernel of the three libraries multiplies with HGMMA
+    # (wgmma) in its SASS; the float32 kernels keep FFMA and no HGMMA
     import re
     import subprocess
     from pathlib import Path
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    for name in ("inner_product", "conv_direct"):
+    for name in ("inner_product", "conv_direct", "flash_attention"):
         build.build([name])
         sass = subprocess.run([str(cuobjdump), "--dump-sass",
                                str(build.library_path(name))],
@@ -845,6 +845,14 @@ def test_avg_pool_nchw_kernel_alone_matches_plain(card):
     (1, 5, 1, 1, 1, 128), (2, 4, 4, 100, 100, 64),
     (1, 10, 2, 1000, 1000, 128), (1, 8, 1, 100, 1000, 64),
     (1, 8, 8, 1000, 100, 128), (3, 6, 2, 65, 63, 64),
+    # the bf16 kernel's 128-row query tiles and 128-key slabs at their
+    # edges, G 1 / 2 / 5 / 8, Sq < Sk and Sq > Sk, hd 64 and 128
+    (1, 2, 2, 127, 127, 64), (2, 4, 2, 128, 128, 128),
+    (1, 5, 1, 129, 129, 64), (1, 8, 1, 257, 257, 128),
+    (1, 10, 2, 127, 257, 128), (1, 4, 2, 128, 257, 64),
+    (2, 5, 1, 129, 128, 128), (1, 8, 1, 257, 129, 128),
+    (2, 2, 2, 257, 127, 64), (1, 16, 2, 128, 129, 64),
+    (1, 10, 2, 4096, 4096, 128),                         # long, G 5
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(card, dt, b, h, kv, sq, sk, hd,
@@ -863,12 +871,36 @@ def test_flash_attention_kernel_matches_plain(card, dt, b, h, kv, sq, sk, hd,
     torch.testing.assert_close(
         out.float(),
         fa_mod.flash_attention_reference(q, k, v, causal=causal).float(),
-        **tolerance("attention", dname))
+        **tolerance("attention", dname, sk, hd=hd))
     torch.testing.assert_close(
         out.float(),
         fa_mod.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal),
-        **tolerance("attention", dname, vs="plain_f32"))
+        **tolerance("attention", dname, sk, vs="plain_f32", hd=hd))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sq,sk", [(257, 257), (129, 300)])
+def test_flash_attention_kernel_is_deterministic(card, dt, sq, sk):
+    # no atomics, a fixed order of sums: the same inputs give the same
+    # bits, also in the model layout's transposed views
+    rng = np.random.default_rng(sq * sk)
+    q = _normal(rng, (2, sq, 10, 128), card, _DT[dt]).transpose(1, 2)
+    k = _normal(rng, (2, sk, 2, 128), card, _DT[dt]).transpose(1, 2)
+    v = _normal(rng, (2, sk, 2, 128), card, _DT[dt]).transpose(1, 2)
+    for causal in (True, False):
+        first = fa_mod.flash_attention(q, k, v, causal=causal)
+        again = fa_mod.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("dt,hd,want", [
+    ("bf16", 128, "wgmma bf16 hd128"), ("bf16", 64, "wgmma bf16 hd64"),
+    ("f32", 128, "CUDA cores float32"), ("f32", 64, "CUDA cores float32"),
+])
+def test_flash_attention_plan_names_its_path(card, dt, hd, want):
+    q = torch.ones((1, 2, 3, hd), device=card, dtype=_DT[dt])
+    assert fa_mod.plan(q) == want
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -887,7 +919,8 @@ def test_flash_attention_model_layout_reads_strides(card, dt):
         v.transpose(1, 2)).transpose(1, 2)
     torch.testing.assert_close(out.float(), want.float(),
                                **tolerance("attention",
-                                           str(dtype).split(".")[-1]))
+                                           str(dtype).split(".")[-1], 130,
+                                           hd=64))
 
 
 def test_flash_attention_kernel_rejects_bad_inputs(card):
