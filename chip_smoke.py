@@ -1080,8 +1080,18 @@ def primitive_holds(torch, np):
                  (70, 99, 64)]
         if name == "bfloat16":
             cases += [(8192, 8192, 8192), (256, 5120, 17408)]
-        for m, k, n in cases:
-            x, w = g((m, k), name), g((k, n), name)
+        else:
+            # the float32 core's edges (128 x 128 tiles, slabs of 32 in K,
+            # 16-byte copies for rows of a multiple of 4 floats): K under
+            # a slab, K % 32, N = 1, one row over a long K; then x and w
+            # at storage offsets 1 and 3 (element-wise producers)
+            cases += [(200, 12, 136), (257, 100, 260), (300, 64, 1),
+                      (1, 4096, 4), (96, 64, 72, 1, 0), (96, 64, 72, 0, 3),
+                      (96, 64, 72, 3, 1)]
+        for m, k, n, *offsets in cases:
+            ox, ow = offsets or (0, 0)
+            x = g((m * k + ox,), name)[ox:].view(m, k)
+            w = g((k * n + ow,), name)[ow:].view(k, n)
             tol = tolerance("sum", name, k)
             tol32 = tolerance("sum", name, k, vs="plain_f32")
             worst = blas = 0.0
@@ -1102,7 +1112,8 @@ def primitive_holds(torch, np):
                                           * want32.abs())).max())
                     del diff
                 del want32
-            print(f"[hold] inner_product {name} {m}x{k}x{n}: "
+            at = f" at offsets {ox}, {ow}" if ox or ow else ""
+            print(f"[hold] inner_product {name} {m}x{k}x{n}{at}: "
                   f"{ip.plan(x, w)}; worst {worst:.3f} of its tolerance"
                   + (f" (torch.matmul {blas:.3f})" if name == "bfloat16"
                      else ""))
@@ -1129,6 +1140,8 @@ def primitive_holds(torch, np):
             del x
         # reference shape; C = 3 with odd H / W; even and 1 x 5 kernels;
         # Cin % 8 == 0 (cp.async rows) and not, Cout ragged
+        # float32 also: Cin % 4 == 0 with Cout 8, K under a slab, one
+        # pixel (all but one tap in the padding)
         for n, h, w_, cin, cout, kh, kw in ((4, 28, 28, 128, 128, 3, 3),
                                             (2, 7, 5, 3, 17, 3, 3),
                                             (2, 6, 9, 5, 7, 2, 2),
@@ -1136,7 +1149,10 @@ def primitive_holds(torch, np):
                                             (2, 9, 11, 16, 24, 3, 3),
                                             (3, 10, 7, 64, 130, 3, 3),
                                             (2, 8, 13, 40, 16, 1, 5),
-                                            (2, 6, 9, 12, 33, 2, 2)):
+                                            (2, 6, 9, 12, 33, 2, 2),
+                                            (2, 6, 9, 5, 8, 2, 2),
+                                            (1, 5, 4, 4, 1, 1, 3),
+                                            (1, 1, 1, 8, 4, 3, 3)):
             x = g((n, h, w_, cin), name)
             wt = g((kh, kw, cin, cout), name, CONV_W_SCALE)
             k = kh * kw * cin
@@ -1154,14 +1170,20 @@ def primitive_holds(torch, np):
     # Winograd (float32): the stage alone at the reference shape and at
     # edges; the whole convolution with odd H / W and C = 3 against the
     # plain Winograd and the direct convolution
+    # (the float32 core's edges: one row a position, p = 3, Cin / Cout
+    # not multiples of 4, so each producer pair)
     for p, t, cin, cout in ((16, 784, 128, 128), (16, 1, 1, 1),
-                            (16, 37, 3, 130)):
+                            (16, 37, 3, 130), (16, 1, 128, 128),
+                            (3, 300, 65, 9), (16, 200, 36, 20),
+                            (5, 130, 8, 3), (16, 129, 3, 128)):
         v, u = g((p, t, cin), "float32"), g((p, cin, cout), "float32")
-        prim_hold(torch, tally, "winograd_elementwise_stage float32",
-                  f"winograd stage {p}x{t}x{cin}x{cout}",
-                  cw.winograd_elementwise_stage(v, u),
-                  [(cw.winograd_elementwise_stage_reference(v, u),
-                    tolerance("sum", "float32", cin))])
+        worst = prim_hold(torch, tally, "winograd_elementwise_stage float32",
+                          f"winograd stage {p}x{t}x{cin}x{cout}",
+                          cw.winograd_elementwise_stage(v, u),
+                          [(cw.winograd_elementwise_stage_reference(v, u),
+                            tolerance("sum", "float32", cin))])
+        print(f"[hold] winograd stage {p}x{t}x{cin}x{cout}: "
+              f"{cw.plan(v, u)}; worst {worst:.3f} of its tolerance")
     for n, h, w_, cin, cout in ((4, 28, 28, 128, 128), (2, 13, 15, 32, 128),
                                 (1, 7, 7, 3, 5)):
         x = g((n, h, w_, cin), "float32")
@@ -1178,7 +1200,46 @@ def primitive_holds(torch, np):
               f"passed; worst error {worst:.3f} of its tolerance")
 
 
-def card_gemm_plans(torch, ip, cd, shapes) -> dict:
+def conv_direct_f32_known_failure(torch) -> None:
+    """The float32 direct convolution at ResNet-50 conv3_x over a batch
+    of 256 on unit-normal float32 inputs, against its plain version with
+    the unchanged float32 "sum" tolerance, and kernel, plain version and
+    cuDNN (TF32 off) each against the float64 sum.  A known failure,
+    reported and not held: the kernel sums each output's K = 1152
+    products in one in-order chain, whose worst of 25.7 M outputs misses
+    the tolerance by a few percent (ROADMAP "Checks to watch").  Fails
+    only on a non-finite output."""
+    from repro_torch.kernels import conv_direct as cd
+    from repro_torch.launch.primitives import (CONV_W_SCALE, cudnn_conv,
+                                               cudnn_conv_f32, tolerance)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((256, 28, 28, 128), generator=g, device="cuda")
+    wt = torch.randn((3, 3, 128, 128), generator=g,
+                     device="cuda") * CONV_W_SCALE
+    tol = tolerance("sum", "float32", 9 * 128, CONV_W_SCALE)
+
+    def ratio(got, want):
+        allow = tol["atol"] + tol["rtol"] * want.abs()
+        return float(((got.to(want.dtype) - want).abs() / allow).max())
+    out = cd.conv2d_direct(x, wt)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail("conv2d_direct float32 at conv3_x batch 256: non-finite output")
+    plain = cd.conv2d_direct_reference(x, wt)
+    vs_plain = ratio(out, plain)
+    exact = cudnn_conv(x.double(), wt.double())
+    line = (f"{vs_plain:.3f} of its tolerance against the plain version "
+            f"({'over it' if vs_plain > 1.0 else 'within it'}); against "
+            f"the float64 sum: kernel {ratio(out, exact):.3f}, plain "
+            f"version {ratio(plain, exact):.3f}, cuDNN (TF32 off) "
+            f"{ratio(cudnn_conv_f32(x, wt), exact):.3f}")
+    print(f"[known failure] conv2d_direct float32 {tuple(x.shape)} "
+          f"{tuple(wt.shape)}, unit-normal float32 inputs: "
+          f"{cd.plan(x, wt)}; {line}")
+    del x, wt, out, plain, exact
+
+
+def card_gemm_plans(torch, ip, cd, cw, shapes) -> dict:
     """The path each GEMM-shaped study row at card shapes takes (the C
     launch functions' own choice from shape and alignment), by row name;
     taken on fresh tensors of the row's shapes, as the study's are."""
@@ -1190,10 +1251,15 @@ def card_gemm_plans(torch, ip, cd, shapes) -> dict:
         plans[name] = ip.plan(x, w)
         del x, w
     n, hw, cin, cout, dtype = shapes["conv"]
-    dt = getattr(torch, dtype)
-    plans["conv.direct"] = cd.plan(
-        torch.empty((n, hw, hw, cin), dtype=dt, device="cuda"),
-        torch.empty((3, 3, cin, cout), dtype=dt, device="cuda"))
+    for name, dt in (("conv.direct", getattr(torch, dtype)),
+                     ("conv.direct.f32", torch.float32)):
+        plans[name] = cd.plan(
+            torch.empty((n, hw, hw, cin), dtype=dt, device="cuda"),
+            torch.empty((3, 3, cin, cout), dtype=dt, device="cuda"))
+    t = n * (-(-hw // 2)) ** 2                  # 2 x 2 output tiles
+    plans["conv.winograd_stage"] = cw.plan(
+        torch.empty((16, t, cin), device="cuda"),
+        torch.empty((16, cin, cout), device="cuda"))
     return plans
 
 
@@ -1229,6 +1295,7 @@ def primitives_phase(torch, np, card):
           f"{wc['warm_s'] * 1e6:.2f} us, cold {wc['cold_s'] * 1e6:.2f} us "
           f"(cold/warm {wc['cold_s'] / wc['warm_s']:.2f})")
     primitive_holds(torch, np)
+    conv_direct_f32_known_failure(torch)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
 
@@ -1256,7 +1323,7 @@ def primitives_phase(torch, np, card):
           f"{max(r.util_roof for r in study.rows) * 100:.1f}%); launches "
           f"{launches}; microbench + holds {t1 - t0:.1f} s, study "
           f"{t2 - t1:.1f} s")
-    plans = card_gemm_plans(torch, ip, cd, primitives.SHAPES["card"])
+    plans = card_gemm_plans(torch, ip, cd, cw, primitives.SHAPES["card"])
     entries = []
     for k, row_name in PRIM_ROWS.items():
         r = rows[row_name]
@@ -1264,10 +1331,12 @@ def primitives_phase(torch, np, card):
         ops_ms = r.char["W_flops"] / PEAK[r.dtype] * 1e3
         bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
         src, rep = PRIM_SOURCES[k]
-        # the inner product's other card rows (gate projection, float32)
-        # print beside the one the kernels line stands on
-        others = [n for n in plans if n.startswith("inner_product.")
-                  and n != row_name] if k == "inner_product" else []
+        # the kernel's other card rows (the inner product's gate
+        # projection and float32, the convolution's float32) print beside
+        # the one the kernels line stands on
+        others = [n for n in plans if n != row_name and (
+            n.startswith(row_name) or (k == "inner_product" and
+                                       n.startswith("inner_product.")))]
         for name in [row_name] + others:
             rr = rows[name]
             b_ms, b_by = bound_of(rr.char["Q_bytes"] / HBM_BW * 1e3,
@@ -2177,6 +2246,11 @@ def print_build_summary(name: str, log: str) -> None:
           f"{len(spills)} spilling")
     for sp in spills:
         print(f"[build] {name} spills: {sp}")
+    # the float32 GEMM core's kernels, one per pair of copy widths (A, B:
+    # 4 floats a copy or 1)
+    from repro_torch.kernels.build import resources
+    for line in resources(log):
+        print(f"[build] {name}: {line}")
 
 
 def phase_time(label: str, t0: float) -> float:

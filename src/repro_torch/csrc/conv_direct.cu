@@ -30,15 +30,18 @@
 // tile, and one tap / channel split per stage), else element-wise (Cin 3,
 // 5: the same view, element by element); w by TMA when Cout % 8 == 0,
 // else element-wise.  Every bf16 shape takes the wgmma consumers.
-// float32 stays on the CUDA cores (csrc/gemm_core.cuh).
+// float32 stays on the CUDA cores (csrc/gemm_core.cuh): A by 16-byte
+// `cp.async` copies of 4 channels of one pixel and tap when Cin % 4 == 0
+// (x 16-byte aligned), else element-wise; w by 16-byte copies when
+// Cout % 4 == 0, else element-wise.
 //
 // C interface (bound with ctypes by repro_torch/kernels/build.py):
 //   int conv2d_direct_launch(x, w, out, n, h, w, cin, cout, kh, kw,
 //                            dtype /*0 f32, 1 bf16*/, stream)
 // returns cudaGetLastError() after the launch;
 //   int conv2d_direct_plan(x, w, n, h, w, cin, cout, kh, kw, dtype)
-// returns the bf16 launch's plan (wg::plan_code: producers of A and w, and
-// BN), or -1 for float32 (CUDA cores).
+// returns the launch's plan: in bf16 wg::plan_code (producers of A and w,
+// and BN), in float32 gemm::plan_code (producers of A and w; negative).
 
 #include "gemm_core.cuh"
 #include "gemm_wgmma.cuh"
@@ -46,55 +49,72 @@
 namespace {
 
 // float32 A as the im2col view of an NHWC image with SAME padding, for the
-// CUDA-core GEMM.
+// CUDA-core GEMM: copies of W = 4 channels of one pixel and tap (Cin % 4
+// == 0) or of one element, zeros in the padding and past M and K.  Row m
+// is pixel m (offset m Cin in x); a thread keeps the (oh, ow) of its first
+// row in the tile and steps it to its other rows, kRowStep pixels apart.
+template <int W>
 struct ConvA {
+  using S = gemm::Slots<W, gemm::BM, gemm::BK>;
   const float* __restrict__ x;
-  int H, W, Cin, KW, ph, pw;
-  int64_t base[gemm::kALoads];   // offset of image n
-  int oh[gemm::kALoads], ow[gemm::kALoads];
-  bool valid[gemm::kALoads];
+  int M, K, H, W_, Cin, KW, ph, pw;
+  int m0, oh0, ow0;
 
-  __device__ __forceinline__ void set_rows(const int* m, int M) {
-#pragma unroll
-    for (int i = 0; i < gemm::kALoads; ++i) {
-      valid[i] = m[i] < M;
-      const int mm = valid[i] ? m[i] : 0;
-      const int n = mm / (H * W);
-      const int r = mm - n * H * W;
-      oh[i] = r / W;
-      ow[i] = r - oh[i] * W;
-      base[i] = static_cast<int64_t>(n) * H * W * Cin;
-    }
+  __device__ __forceinline__ void set_tile(int m) {
+    m0 = m;
+    const int r = (m0 + S::row(threadIdx.x, 0)) % (H * W_);
+    oh0 = r / W_;
+    ow0 = r - oh0 * W_;
   }
-  __device__ __forceinline__ float load(int i, int k, int K) const {
-    if (!valid[i] || k >= K) return 0.0f;
-    const int ci = k % Cin;
-    const int r = k / Cin;
-    const int dw = r % KW;
-    const int dh = r / KW;
-    const int ih = oh[i] + dh - ph;
-    const int iw = ow[i] + dw - pw;
-    if (ih < 0 || ih >= H || iw < 0 || iw >= W) return 0.0f;
-    return x[base[i] + (static_cast<int64_t>(ih) * W + iw) * Cin + ci];
+  __device__ __forceinline__ void fill(float* as, int k0) const {
+    const int t = threadIdx.x, c = S::col(t), k = k0 + c;
+    const int tap = k / Cin, ci = k - tap * Cin;
+    const int dh = tap / KW;
+    const int dy = dh - ph, dx = tap - dh * KW - pw;
+    const int64_t shift = (static_cast<int64_t>(dy) * W_ + dx) * Cin + ci;
+    int oh = oh0, ow = ow0;
+#pragma unroll
+    for (int j = 0; j < S::kCopies; ++j) {
+      if (j > 0) {                     // the next row, kRowStep pixels on
+        ow += S::kRowStep;
+        while (ow >= W_) {
+          ow -= W_;
+          if (++oh == H) oh = 0;
+        }
+      }
+      const int r = S::row(t, j), m = m0 + r;
+      const bool ok = m < M && k < K &&
+                      static_cast<unsigned>(oh + dy) <
+                          static_cast<unsigned>(H) &&
+                      static_cast<unsigned>(ow + dx) <
+                          static_cast<unsigned>(W_);
+      gemm::copy<W>(as + r * gemm::kAStride + c,
+                    ok ? x + static_cast<int64_t>(m) * Cin + shift : x, ok);
+    }
   }
 };
 
-__global__ void __launch_bounds__(gemm::kThreads)
+template <int WA, int WB>
+__global__ void __launch_bounds__(gemm::kThreads, gemm::kMinBlocks)
     conv2d_direct_f32_kernel(const float* __restrict__ x,
                              const float* __restrict__ w,
                              float* __restrict__ out, int N, int H, int W,
-                             int Cin, int Cout, int KH, int KW) {
-  ConvA a;
+                             int Cin, int Cout, int KH, int KW, bool vec_c) {
+  const int M = N * H * W, K = KH * KW * Cin;
+  ConvA<WA> a;
   a.x = x;
+  a.M = M;
+  a.K = K;
   a.H = H;
-  a.W = W;
+  a.W_ = W;
   a.Cin = Cin;
   a.KW = KW;
   a.ph = KH / 2;
   a.pw = KW / 2;
-  gemm::gemm_tile<float, float>(a, w, Cout, out, Cout, N * H * W, Cout,
-                                KH * KW * Cin, gemm::kNone);
+  const gemm::DenseB<WB> b{w, Cout, K, Cout, 0};
+  gemm::gemm_tile(a, b, out, Cout, M, Cout, K, gemm::kNone, vec_c);
 }
+
 
 // bf16 A as the im2col view, for the wgmma producers: rows j < kRows of a
 // producer thread (tile rows pt / 8 + 16 j) keep their pixel; kinfo splits
@@ -218,7 +238,8 @@ int launch_bf16(const void* x, const void* w, void* out, int N, int H, int W,
 extern "C" int conv2d_direct_plan(const void* x, const void* w, int N, int H,
                                   int W, int Cin, int Cout, int KH, int KW,
                                   int dtype) {
-  if (dtype == 0) return -1;
+  if (dtype == 0)
+    return gemm::plan_code(gemm::producer(x, Cin), gemm::producer(w, Cout));
   return wg::plan_code(cp_async_a(x, Cin) ? wg::kCpAsync : wg::kElement,
                        tma_w(w, Cout) ? wg::kTma : wg::kElement, 128);
 }
@@ -232,11 +253,16 @@ extern "C" int conv2d_direct_launch(const void* x, const void* w, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    conv2d_direct_f32_kernel<<<gemm::grid_for(N * H * W, Cout, 1),
-                               gemm::kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), N, H, W, Cin, Cout, KH, KW);
-    return static_cast<int>(cudaGetLastError());
+    const bool vec_c = gemm::producer(out, Cout) == gemm::kVec;
+    return gemm::with_widths(
+        gemm::producer(x, Cin), gemm::producer(w, Cout), [&](auto wa, auto wb) {
+          return gemm::launch(
+              conv2d_direct_f32_kernel<decltype(wa)::value,
+                                       decltype(wb)::value>,
+              N * H * W, Cout, 1, s, static_cast<const float*>(x),
+              static_cast<const float*>(w), static_cast<float*>(out), N, H,
+              W, Cin, Cout, KH, KW, vec_c);
+        });
   }
   if (dtype == 1)
     return launch_bf16(x, w, out, N, H, W, Cin, Cout, KH, KW, s);

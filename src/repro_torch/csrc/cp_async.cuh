@@ -1,10 +1,12 @@
 // Asynchronous global -> shared copies (sm_80+ `cp.async`), shared by the
-// paged-attention ring kernels: 16-byte copies that bypass L1
-// (`.cg`), and 8- and 4-byte copies (`.ca`, the only variant of those
-// sizes) for the quantized pools' narrow rope lines and per-line float32
-// scales; grouped with commit_group and waited on with wait_group, so a
-// block can keep several page slabs in flight while it computes on an
-// earlier one.
+// paged-attention ring kernels and the float32 GEMM core
+// (csrc/gemm_core.cuh): 16-byte copies that bypass L1 (`.cg`), and 8- and
+// 4-byte copies (`.ca`, the only variant of those sizes) for the quantized
+// pools' narrow rope lines and per-line float32 scales and for the GEMM
+// core's element-wise stages; the `_zfill` forms write zeros instead of
+// reading where a copy falls outside its operand.  Grouped with
+// commit_group and waited on with wait_group, so a block can keep several
+// slabs in flight while it computes on an earlier one.
 #pragma once
 
 namespace cp_async {
@@ -29,6 +31,22 @@ __device__ __forceinline__ void copy4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(s), "l"(src) : "memory");
+}
+
+// copy16 / copy4, or 16 / 4 zero bytes at dst if !valid (source size 0:
+// src is not read, but must still be a valid address).
+__device__ __forceinline__ void copy16_zfill(void* dst, const void* src,
+                                             bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void copy4_zfill(void* dst, const void* src,
+                                            bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
 // Close the current group of copies (an empty group is legal and keeps

@@ -27,7 +27,9 @@
 // otherwise that operand element-wise (bounds-checked loads into the same
 // swizzled stage).  Every bf16 shape takes the wgmma consumers.
 // float32 stays on the CUDA cores (csrc/gemm_core.cuh): a full float32
-// product, as torch.matmul computes it by default.
+// product, as torch.matmul computes it by default; x by 16-byte copies
+// when K % 4 == 0, w when N % 4 == 0 (each 16-byte aligned), else that
+// operand element by element.
 //
 // Any M, N, K >= 1, float32 or bf16 inputs.
 //
@@ -38,24 +40,24 @@
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a shape, epilogue or dtype the kernel does not take);
 //   int inner_product_plan(x, w, M, N, K, dtype)
-// returns the bf16 launch's plan (wg::plan_code: producers of x and w, and
-// BN), or -1 for float32 (CUDA cores).  A bf16 launch fails if a tensor
-// map it needs cannot be encoded.
+// returns the launch's plan: in bf16 wg::plan_code (producers of x and w,
+// and BN), in float32 gemm::plan_code (producers of x and w; negative).
+// A bf16 launch fails if a tensor map it needs cannot be encoded.
 
 #include "gemm_core.cuh"
 #include "gemm_wgmma.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(gemm::kThreads)
+template <int WA, int WB>
+__global__ void __launch_bounds__(gemm::kThreads, gemm::kMinBlocks)
     inner_product_f32_kernel(const float* __restrict__ x,
                              const float* __restrict__ w,
                              float* __restrict__ out, int M, int N, int K,
-                             int epilogue) {
-  gemm::DenseA<float> a;
-  a.p = x;
-  a.ld = K;
-  gemm::gemm_tile<float, float>(a, w, N, out, N, M, N, K, epilogue);
+                             int epilogue, bool vec_c) {
+  const gemm::DenseA<WA> a{x, K, M, K, 0};
+  const gemm::DenseB<WB> b{w, N, K, N, 0};
+  gemm::gemm_tile(a, b, out, N, M, N, K, epilogue, vec_c);
 }
 
 template <int BN, class ALoad, class BLoad>
@@ -115,7 +117,8 @@ int launch_bf16(const void* x, const void* w, void* out, int M, int N, int K,
 
 extern "C" int inner_product_plan(const void* x, const void* w, int M, int N,
                                   int K, int dtype) {
-  if (dtype == 0) return -1;
+  if (dtype == 0) return gemm::plan_code(gemm::producer(x, K),
+                                         gemm::producer(w, N));
   const Plan p = plan_for(x, w, M, N, K);
   return wg::plan_code(p.tma_x ? wg::kTma : wg::kElement,
                        p.tma_w ? wg::kTma : wg::kElement, p.bn);
@@ -128,11 +131,16 @@ extern "C" int inner_product_launch(const void* x, const void* w, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    inner_product_f32_kernel<<<gemm::grid_for(M, N, 1), gemm::kThreads, 0,
-                               s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), M, N, K, epilogue);
-    return static_cast<int>(cudaGetLastError());
+    const bool vec_c = gemm::producer(out, N) == gemm::kVec;
+    return gemm::with_widths(
+        gemm::producer(x, K), gemm::producer(w, N), [&](auto wa, auto wb) {
+          return gemm::launch(
+              inner_product_f32_kernel<decltype(wa)::value,
+                                       decltype(wb)::value>,
+              M, N, 1, s, static_cast<const float*>(x),
+              static_cast<const float*>(w), static_cast<float*>(out), M, N,
+              K, epilogue, vec_c);
+        });
   }
   if (dtype == 1) return launch_bf16(x, w, out, M, N, K, epilogue, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -104,3 +105,24 @@ def library(name: str, signatures: Dict[str, Tuple[list, object]],
             getattr(lib, fn).restype = restype
         _loaded[key] = lib
     return lib
+
+
+def resources(log: str) -> List[str]:
+    """Registers and spills of each float32 GEMM-core kernel
+    (``*_f32_kernel<A, B>``, A and B its copy widths) in the ``-Xptxas
+    -v`` report ``log`` of :func:`build`, one line each."""
+    out = []
+    for part in log.split("Function properties for ")[1:]:
+        m = re.match(r"(\w+_f32_kernel)ILi(\d)ELi(\d)E", part)
+        used = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        if m and used and spill:
+            # the mangled name ends in <length><identifier>
+            word = m.group(1)
+            name = next((word[i + d.end():] for i in range(len(word))
+                         for d in [re.match(r"\d+", word[i:])]
+                         if d and len(word) - i - d.end() == int(d.group())),
+                        word)
+            out.append(f"{name}<{m.group(2)}, {m.group(3)}> "
+                       f"{used.group(1)} regs, {spill.group(1)} B spilled")
+    return out

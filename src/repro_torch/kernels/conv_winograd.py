@@ -9,7 +9,8 @@ plain float32 tensor code (``kernels/ref.py``), and the stage that holds
 the whole multiply reduction — 16 independent (T, Cin) @ (Cin, Cout)
 products, float32 in and out — is :func:`winograd_elementwise_stage`,
 which launches ``csrc/winograd_stage.cu`` (the port of the Pallas
-``winograd_elementwise_stage``).
+``winograd_elementwise_stage``) on the float32 GEMM core; :func:`plan`
+says which producers fill its stages.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from . import build
 from . import ref as _ref
+from .inner_product import describe_plan
 
 
 def winograd_elementwise_stage_reference(v: torch.Tensor, u: torch.Tensor
@@ -66,11 +68,27 @@ def winograd_elementwise_stage(v: torch.Tensor, u: torch.Tensor
 
 winograd_elementwise_stage.launches = 0
 
+
+def plan(v: torch.Tensor, u: torch.Tensor) -> str:
+    """The stage producers :func:`winograd_elementwise_stage` takes for
+    these CUDA tensors (the C launch function's own choice from shape and
+    alignment; nothing is launched), in :func:`describe_plan`'s words."""
+    if not v.is_cuda:
+        raise ValueError("plan asks the CUDA library and takes CUDA tensors "
+                         f"only (v is on {v.device})")
+    lib = build.library("winograd_stage", C_SIGNATURES)
+    p, t_, cin = v.shape
+    return describe_plan(lib.winograd_stage_plan(
+        v.data_ptr(), u.data_ptr(), p, t_, cin, u.shape[-1]))
+
+
 # the C interface of csrc/winograd_stage.cu, bound by kernels/build.py
 C_SIGNATURES = {
     "winograd_stage_launch": (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         ctypes.c_int),
+    "winograd_stage_plan": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4, ctypes.c_int),
 }
 
 

@@ -25,17 +25,25 @@ from . import ref as _ref
 
 EPILOGUES = {"none": 0, "relu": 1, "gelu": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the stage producers of csrc/gemm_wgmma.cuh (wg::Producer)
+# the stage producers of csrc/gemm_wgmma.cuh (wg::Producer) and of the
+# float32 core csrc/gemm_core.cuh (gemm::Producer: 16-byte cp.async copies,
+# or one 4-byte copy per element)
 PRODUCERS = ("tma", "cp.async", "element-wise")
+F32_PRODUCERS = ("cp.async", "element-wise")
 
 
 def describe_plan(code: int) -> str:
     """A plan code of the C ``*_plan`` functions in words: the float32
-    CUDA-core path (code < 0), or the wgmma tile and the producers of the
-    A and B stages (``wg::plan_code``: A in bits 0-1, B in bits 2-3, bit
-    4 for 256 columns)."""
-    if code < 0:
+    CUDA-core path (negative: ``gemm::plan_code`` = -2 - (A | B << 1), the
+    producers of the A and B stages; -1 names the path alone), or the
+    wgmma tile and the producers of the A and B stages (``wg::plan_code``:
+    A in bits 0-1, B in bits 2-3, bit 4 for 256 columns)."""
+    if code == -1:
         return "cuda-cores f32"
+    if code < 0:
+        c = -2 - code
+        return (f"cuda-cores f32, A {F32_PRODUCERS[c & 1]}, B "
+                f"{F32_PRODUCERS[c >> 1 & 1]}")
     return (f"wgmma 128x{256 if code & 16 else 128}, A "
             f"{PRODUCERS[code & 3]}, B {PRODUCERS[code >> 2 & 3]}")
 

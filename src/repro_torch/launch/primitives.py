@@ -69,7 +69,8 @@ SECTIONS = ("microbench", "inner_product", "gelu", "conv", "layernorm",
 # Each shape set: inner-product cells (name, M, K, N, dtype, fuse); the
 # flat GELU cell (shape, dtype), run blocked and naive; the C = 3 cell
 # (NHWC shape, dtype), run natural / padded to 8 / padded to 128; the
-# convolution cell (N, H = W, Cin, Cout, dtype), 3x3, direct and Winograd;
+# convolution cell (N, H = W, Cin, Cout, dtype), 3x3, direct and Winograd
+# (and direct in float32 too where the cell's dtype is another);
 # LayerNorm cells (name, R, D, dtype); pooling cells (row-name prefix,
 # NHWC shape, dtype, window), each run blocked, naive and max; attention
 # cells (name, B, H, KV, Sq, Sk, hd, dtype, causal) in model layout.
@@ -222,6 +223,23 @@ def tolerance(kind: str, dtype: str, k: int = 1, scale: float = 1.0,
     if dtype == "bfloat16":
         rtol = 2.0 ** -8 if vs == "plain_f32" else 2.0 ** -7
     return dict(atol=atol, rtol=rtol)
+
+
+def cudnn_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """cuDNN's SAME 3x3 convolution on NHWC views of x and HWIO w."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                    padding=1).permute(0, 2, 3, 1)
+
+
+def cudnn_conv_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`cudnn_conv` with TF32 off for the call (cuDNN's float32
+    default is TF32, another function)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return cudnn_conv(x, w)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 @dataclasses.dataclass
@@ -512,15 +530,12 @@ class Study:
         x = self.tensor((n, hw, hw, cin), dtype)
         w = self.tensor((3, 3, cin, cout), dtype, CONV_W_SCALE)
 
-        def cudnn(a, b):                   # NHWC views, SAME for 3x3
-            return F.conv2d(a.permute(0, 3, 1, 2), b.permute(3, 2, 0, 1),
-                            padding=1).permute(0, 2, 3, 1)
         k = 9 * cin
         direct_char = analysis.conv2d_character(n, hw, hw, cin, cout, 3, 3,
                                                 dtype)
         rows = [self.row(
             "conv.direct", dtype, direct_char, (x, w), ops.conv2d,
-            conv_mod.conv2d_direct_reference, cudnn,
+            conv_mod.conv2d_direct_reference, cudnn_conv,
             tolerance("sum", dtype, k, CONV_W_SCALE),
             lambda a, b: conv_mod.conv2d_direct_reference(a.float(),
                                                           b.float()),
@@ -547,16 +562,30 @@ class Study:
             "conv.winograd", "float32",
             analysis.winograd_conv_character(n, hw, hw, cin, cout, dtype),
             (x, w),
-            ops.conv2d_winograd, ref.conv2d_winograd, cudnn, wtol,
+            ops.conv2d_winograd, ref.conv2d_winograd, cudnn_conv, wtol,
             library_on=(dtype, direct_char)))
         direct, wino = rows[0], rows[2]
         self.emit("conv.winograd_work_reduction", 0.0,
                   f"W_direct/W_stage="
                   f"{direct.char['W_flops'] / stage_char['W_flops']:.2f};"
                   f"t_direct/t_winograd={direct.seconds / wino.seconds:.2f}")
+        if dtype != "float32":
+            rows.append(self.conv_direct_f32(x.float(), w.float()))
         del x, w
         self.plot("convolution roofline (paper fig. 3)", rows)
         return rows
+
+    def conv_direct_f32(self, x, w) -> Row:
+        """The direct convolution in float32 on the float32 GEMM core,
+        against cuDNN in full float32."""
+        n, hw, _, cin = x.shape
+        return self.row(
+            "conv.direct.f32", "float32",
+            analysis.conv2d_character(n, hw, hw, cin, w.shape[-1], 3, 3,
+                                      "float32"),
+            (x, w), ops.conv2d, conv_mod.conv2d_direct_reference,
+            cudnn_conv_f32, tolerance("sum", "float32", 9 * cin,
+                                      CONV_W_SCALE))
 
     def layernorm(self, cells) -> List[Row]:
         rows = []

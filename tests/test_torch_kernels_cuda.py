@@ -624,10 +624,13 @@ def test_inner_product_bf16_misaligned_rows_take_element_wise(card, offset):
 
 def test_inner_product_f32_stays_on_the_cuda_cores(card):
     x = torch.ones((4, 8), device=card)
-    assert ip_mod.plan(x, torch.ones((8, 8), device=card)) == "cuda-cores f32"
+    words = ip_mod.plan(x, torch.ones((8, 8), device=card))
+    assert words.startswith("cuda-cores f32")
+    assert words == "cuda-cores f32, A cp.async, B cp.async"
     xc = torch.ones((1, 8, 8, 8), device=card)
-    assert conv_mod.plan(xc, torch.ones((3, 3, 8, 8), device=card)) == (
-        "cuda-cores f32")
+    words = conv_mod.plan(xc, torch.ones((3, 3, 8, 8), device=card))
+    assert words.startswith("cuda-cores f32")
+    assert words == "cuda-cores f32, A cp.async, B cp.async"
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout,kh,kw,want", [
@@ -656,13 +659,15 @@ def test_conv_direct_bf16_wgmma_edges(card, n, h, w, cin, cout, kh, kw, want):
 
 def test_bf16_gemm_kernels_run_on_hgmma(card):
     # every bf16 kernel of the three libraries multiplies with HGMMA
-    # (wgmma) in its SASS; the float32 kernels keep FFMA and no HGMMA
+    # (wgmma) in its SASS; the float32 kernels (and the Winograd stage's,
+    # float32 only) keep FFMA and no HMMA / HGMMA: a full float32 product
     import re
     import subprocess
     from pathlib import Path
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    for name in ("inner_product", "conv_direct", "flash_attention"):
+    for name in ("inner_product", "conv_direct", "flash_attention",
+                 "winograd_stage"):
         build.build([name])
         sass = subprocess.run([str(cuobjdump), "--dump-sass",
                                str(build.library_path(name))],
@@ -672,11 +677,12 @@ def test_bf16_gemm_kernels_run_on_hgmma(card):
                  for f in re.split(r"\n\s*Function : ", sass)[1:]}
         bf16 = [f for f in funcs if "bf16_kernel" in f]
         f32 = [f for f in funcs if "f32_kernel" in f]
-        assert bf16 and f32, sorted(funcs)
+        assert f32 and (bf16 or name == "winograd_stage"), sorted(funcs)
         for f in bf16:
             assert "HGMMA" in funcs[f], f
         for f in f32:
-            assert "HGMMA" not in funcs[f] and "FFMA" in funcs[f], f
+            assert "HGMMA" not in funcs[f] and "HMMA" not in funcs[f], f
+            assert "FFMA" in funcs[f], f
 
 
 @pytest.mark.parametrize("p,t,cin,cout", [(16, 196, 128, 128),
@@ -694,6 +700,104 @@ def test_winograd_stage_kernel_matches_plain(card, p, t, cin, cout):
     torch.testing.assert_close(
         out, wino_mod.winograd_elementwise_stage_reference(v, u),
         **tolerance("sum", "float32", cin))
+
+
+# The float32 GEMM core (csrc/gemm_core.cuh) at its edges, for its three
+# users: a tile is 128 x 128, a slab 32 deep in K in a ring of 2 stages; A
+# and B take 16-byte cp.async copies when their rows are a multiple of 4
+# floats from a 16-byte aligned base (K % 4 for x, N % 4 for w, Cin % 4
+# for the convolution's im2col A and for v, Cout % 4 for u), else one copy
+# per element.  Each case names the plan it must take and holds the
+# unchanged float32 "sum" tolerance.
+F32 = "cuda-cores f32, "
+
+
+@pytest.mark.parametrize("m,k,n,ox,ow,want", [
+    (131, 77, 133, 0, 0, "A element-wise, B element-wise"),  # all ragged
+    (200, 12, 136, 0, 0, "A cp.async, B cp.async"),   # K under one slab
+    (257, 100, 260, 0, 0, "A cp.async, B cp.async"),  # K % 32 != 0
+    (129, 1, 257, 0, 0, "A element-wise, B element-wise"),   # K = 1
+    (300, 64, 1, 0, 0, "A cp.async, B element-wise"),   # N = 1
+    (70, 99, 64, 0, 0, "A element-wise, B cp.async"),   # K % 4 != 0
+    (96, 64, 72, 1, 0, "A element-wise, B cp.async"),   # offset 1
+    (96, 64, 72, 0, 3, "A cp.async, B element-wise"),   # offset 3
+    (1, 4096, 4, 0, 0, "A cp.async, B cp.async"),     # one row, long K
+])
+@pytest.mark.parametrize("fuse", ["none", "gelu"])
+def test_inner_product_f32_core_edges(card, m, k, n, ox, ow, want, fuse):
+    rng = np.random.default_rng(m + k + n + ox + ow)
+    xb = _normal(rng, (m * k + ox,), card, torch.float32)
+    wb = _normal(rng, (k * n + ow,), card, torch.float32)
+    x, w = xb[ox:].view(m, k), wb[ow:].view(k, n)
+    assert ip_mod.plan(x, w) == F32 + want
+    out = ip_mod.inner_product(x, w, fuse=fuse)
+    torch.testing.assert_close(
+        out, ip_mod.inner_product_reference(x, w, fuse=fuse),
+        **tolerance("sum", "float32", k))
+    assert torch.equal(out, ip_mod.inner_product(x.clone(), w.clone(),
+                                                 fuse=fuse))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,kw,want", [
+    (2, 9, 11, 16, 24, 3, 3, "A cp.async, B cp.async"),
+    (3, 10, 7, 64, 130, 3, 3, "A cp.async, B element-wise"),
+    (2, 7, 5, 3, 17, 3, 3, "A element-wise, B element-wise"),  # C = 3
+    (2, 6, 9, 5, 8, 2, 2, "A element-wise, B cp.async"),
+    (1, 5, 4, 4, 1, 1, 3, "A cp.async, B element-wise"),   # K under a slab
+    (2, 8, 13, 40, 16, 1, 5, "A cp.async, B cp.async"),
+    (1, 1, 1, 8, 4, 3, 3, "A cp.async, B cp.async"),       # all padding
+])
+def test_conv_direct_f32_core_edges(card, n, h, w, cin, cout, kh, kw, want):
+    rng = np.random.default_rng(n * h + cin + cout)
+    x = _normal(rng, (n, h, w, cin), card, torch.float32)
+    wt = _normal(rng, (kh, kw, cin, cout), card, torch.float32, 0.1)
+    assert conv_mod.plan(x, wt) == F32 + want
+    out = conv_mod.conv2d_direct(x, wt)
+    torch.testing.assert_close(
+        out, conv_mod.conv2d_direct_reference(x, wt),
+        **tolerance("sum", "float32", kh * kw * cin, 0.1))
+
+
+@pytest.mark.parametrize("p,t,cin,cout,want", [
+    (16, 1, 128, 128, "A cp.async, B cp.async"),      # one row a position
+    (3, 300, 65, 9, "A element-wise, B element-wise"),
+    (16, 200, 36, 20, "A cp.async, B cp.async"),
+    (5, 130, 8, 3, "A cp.async, B element-wise"),
+    (16, 129, 3, 128, "A element-wise, B cp.async"),
+])
+def test_winograd_stage_f32_core_edges(card, p, t, cin, cout, want):
+    rng = np.random.default_rng(p * t + cin)
+    v = _normal(rng, (p, t, cin), card, torch.float32)
+    u = _normal(rng, (p, cin, cout), card, torch.float32)
+    assert wino_mod.plan(v, u) == F32 + want
+    torch.testing.assert_close(
+        wino_mod.winograd_elementwise_stage(v, u),
+        wino_mod.winograd_elementwise_stage_reference(v, u),
+        **tolerance("sum", "float32", cin))
+
+
+def test_f32_core_result_does_not_depend_on_the_launch(card):
+    # each output sums k in order with fmaf: 16 positions with equal
+    # (v, u) give 16 bit-equal slabs, and rows of an inner product embedded
+    # in a larger M (another tile, another row of it) equal the rows alone
+    rng = np.random.default_rng(21)
+    v1 = _normal(rng, (1, 333, 128), card, torch.float32)
+    u1 = _normal(rng, (1, 128, 128), card, torch.float32)
+    m = wino_mod.winograd_elementwise_stage(v1.expand(16, -1, -1)
+                                            .contiguous(),
+                                            u1.expand(16, -1, -1)
+                                            .contiguous())
+    for i in range(16):
+        assert torch.equal(m[i], m[0]), i
+    assert torch.equal(m[0], wino_mod.winograd_elementwise_stage(v1, u1)[0])
+    x = _normal(rng, (300, 200), card, torch.float32)
+    w = _normal(rng, (200, 136), card, torch.float32)
+    big = _normal(rng, (1000, 200), card, torch.float32)
+    big[517:817] = x
+    for fuse in ("none", "gelu"):
+        alone = ip_mod.inner_product(x, w, fuse=fuse)
+        assert torch.equal(ip_mod.inner_product(big, w, fuse=fuse)[517:817],
+                           alone)
 
 
 @pytest.mark.parametrize("hw", [8, 10, 7, 13])

@@ -189,12 +189,31 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     (2 | 0 << 2, "wgmma 128x128, A element-wise, B tma"),
     (1 | 2 << 2, "wgmma 128x128, A cp.async, B element-wise"),
     (2 | 2 << 2, "wgmma 128x128, A element-wise, B element-wise"),
+    (-2, "cuda-cores f32, A cp.async, B cp.async"),
+    (-2 - 1, "cuda-cores f32, A element-wise, B cp.async"),
+    (-2 - (1 << 1), "cuda-cores f32, A cp.async, B element-wise"),
+    (-2 - (1 | 1 << 1), "cuda-cores f32, A element-wise, B element-wise"),
 ])
 def test_plan_codes_read_as_words(code, words):
     # the C launch functions' plan codes (wg::plan_code): A producer in
-    # bits 0-1, B producer in bits 2-3, 256 columns in bit 4
+    # bits 0-1, B producer in bits 2-3, 256 columns in bit 4; float32
+    # (gemm::plan_code) -2 - (A | B << 1), A and B 0 for 16-byte cp.async
+    # copies, 1 element-wise
     from repro_torch.kernels import inner_product
     assert inner_product.describe_plan(code) == words
+
+
+def test_winograd_plan_words_and_cpu_refusal():
+    # the stage's plan is the float32 core's (gemm::plan_code), read with
+    # the same words; asking for it needs the CUDA library
+    from repro_torch.kernels import conv_winograd
+    assert conv_winograd.describe_plan(-2) == (
+        "cuda-cores f32, A cp.async, B cp.async")
+    assert conv_winograd.describe_plan(-5) == (
+        "cuda-cores f32, A element-wise, B element-wise")
+    v, u = torch.ones((16, 3, 4)), torch.ones((16, 4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_winograd.plan(v, u)
 
 
 # --------------------------------------------------------------------------
@@ -453,3 +472,26 @@ def test_primitives_cli_on_the_cpu(capsys):
     assert "--- GELU roofline" in out
     assert [r.name for r in study.rows][:2] == ["gelu.flat.blocked",
                                                 "gelu.flat.naive"]
+
+
+def test_conv_section_adds_a_float32_direct_row_to_other_dtypes():
+    # a bf16 convolution cell also runs the direct convolution in float32
+    # (the float32 GEMM core on the card), against cuDNN with TF32 off for
+    # that call only; its output is the reference's float32 convolution
+    roof = microbench.MicrobenchResult.analytic()
+    study = primitives.Study(torch.device("cpu"), roof, make=_numpy_make,
+                             keep_outputs=True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    rows = {r.name: r for r in study.conv((1, 6, 8, 12, "bfloat16"))}
+    assert torch.backends.cudnn.allow_tf32 == tf32
+    assert list(rows) == ["conv.direct", "conv.winograd_stage",
+                          "conv.winograd", "conv.direct.f32"]
+    r = rows["conv.direct.f32"]
+    assert r.dtype == "float32" and rows["conv.direct"].dtype == "bfloat16"
+    assert r.char == analysis.conv2d_character(1, 6, 6, 8, 12, 3, 3,
+                                               "float32")
+    x, w = study.inputs["conv.direct.f32"]
+    assert x.dtype == w.dtype == torch.float32
+    close(study.outputs["conv.direct.f32"],
+          jref.conv2d(jnp.asarray(x.numpy()), jnp.asarray(w.numpy())),
+          **TOL["float32"])
