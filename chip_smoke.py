@@ -8,7 +8,12 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together, and one more for the flash kernel's
    measurement build with P rounded once to bf16) and print the build
-   time;
+   time, each source's registers and spills (and those of the MLA
+   tensor-core core's split and merge kernels and of GELU's vector
+   walks), then check their SASS: HGMMA in every instantiation of the
+   MLA core's split kernel (``csrc/mla_core.cu``, the bf16 path of the
+   three MLA wrappers), 16-byte loads and stores (LDG / STG .128) in
+   GELU's flat walk;
 3. kernel phases: each kernel (GQA ``paged_attention`` and
    ``paged_attention_verify``, MLA ``mla_paged_attention`` and
    ``mla_paged_attention_verify``) against its plain PyTorch version on
@@ -30,7 +35,10 @@ Phases, in order; any failure exits non-zero:
    ring kernel, the plain version and one PyTorch library call computing
    the same function, beside the bound, and of the scale branches (off
    and ring) on the same inputs quantized, beside the bound at the
-   quantized line bytes;
+   quantized line bytes; for the MLA decode and verify kernels at their
+   main inputs, the bf16 path's chunk and block count and its output
+   against the model of its own arithmetic order
+   (``mla_split_model``) on bf16, int8 and fp8 pools;
 4. the paper's primitive study (launch/primitives.py): the microbench
    (FMA-chain probe, matmul peaks per dtype, copy / fill / triad
    bandwidth, warm vs cold) printed beside the data sheet; the
@@ -38,7 +46,8 @@ Phases, in order; any failure exits non-zero:
    against their plain versions at the reference benchmarks' shapes and
    at edge shapes (ragged M / N / K, K = 1, relu and gelu epilogues, odd
    H / W, C = 3 padded to 8 and 128, GELU blocked equal to naive bit for
-   bit; for the bf16 GEMMs on the tensor cores the core's edges: M % 64,
+   bit, also on views 1 and 3 elements into a buffer at lengths that are
+   not a multiple of the 16-byte vector; for the bf16 GEMMs on the tensor cores the core's edges: M % 64,
    K under one stage and K % 64, N = 8, N % 8, K % 8, Cin % 8 and Cout
    ragged, 8192^3 and the gate projection, each printing the path and
    stage producers it took and where cuBLAS falls in its allowance);
@@ -60,7 +69,9 @@ Phases, in order; any failure exits non-zero:
    turns, each one's error over the bf16 tolerance);
 5. engine phases, one per path, random weights from generators seeded 0;
    every request must finish, each path's kernel launch counts (zeroed
-   just before the run, read just after) must match its step counts, and
+   just before the run, read just after) must match its step counts
+   times the kernels of a call (two for the MLA wrappers' tensor-core
+   core, a split and a merge kernel; one for GQA), and
    one step's logits must match the same work done with the plain
    attention:
    a. the continuous-batching engine on full-width qwen3-0.6b (GQA);
@@ -415,6 +426,46 @@ def mla_bound(q_lat, q_rope, pos, T: int, S: int, kv_isize: int = 0):
                        (2 * q_lat.numel() + q_rope.numel()) * isize, isize)
 
 
+# the MLA kernels' bf16 path against the model of its own arithmetic
+# order (kernels.paged_attention.mla_split_model): float32 sums in another
+# order, then one bf16 rounding of the output (one bf16 ulp, 2^-8
+# relative, where the two fall either side of a rounding boundary)
+MODEL_TOL = dict(atol=1e-3, rtol=2 ** -7)
+
+
+def split_report(torch, kvq, pa, label: str, kernel, args, T: int,
+                 page: int, n_blocks: int) -> None:
+    """The bf16 tensor-core path at the main path's inputs: its chunk and
+    block count (kernels.paged_attention.mla_split_plan), and the kernel
+    against the split model on bf16, int8 and fp8 pools; fails past
+    MODEL_TOL."""
+    q_lat, pos = args[0], args[5]
+    plan = pa.mla_split_plan(pos, T, page, n_blocks, q_lat.shape[-2],
+                             q_lat.shape[-1])
+    errs = []
+    for kvd in ("bf16", *KV_DTYPES):
+        if kvd == "bf16":
+            a, skw = args, {}
+        else:
+            a, scales = quantize_pools(kvq, args, 2, kvd)
+            skw = dict(zip(("c_scale", "r_scale"), scales))
+        kw = dict(scale=(128 + 64) ** -0.5, **skw)
+        out = kernel(*a, **kw)
+        model = pa.mla_split_model(*a, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - model.float()).abs().max())
+        if not torch.allclose(out.float(), model.float(), **MODEL_TOL):
+            fail(f"{label} {kvd} disagrees with the split model: {err}")
+        errs.append(f"{kvd} {err:.3e}")
+    rows = q_lat.shape[0] * T
+    print(f"[split] {label}: chunks of {plan['chunk_lines']} lines "
+          f"({pa.MLA_CHUNK_PAGES} pages), {plan['blocks']} of "
+          f"{plan['grid']} split blocks walk lines, then a merge kernel of "
+          f"{rows * q_lat.shape[-2]} blocks; vs the split model "
+          f"(atol {MODEL_TOL['atol']}, rtol 2^-7) max abs diff "
+          + ", ".join(errs))
+
+
 def mla_kernel_phase(torch, np, pa):
     """mla_paged_attention (CUDA) vs mla_paged_attention_reference, and the
     MLA ring kernel at decode (T = 1) against both.  Returns the
@@ -445,6 +496,8 @@ def mla_kernel_phase(torch, np, pa):
     # of the queries and pools (~110 MB) rotate so every call reads cold
     # HBM
     c = mla_case(torch, np, rng, torch.bfloat16, "ragged")
+    split_report(torch, kvq, pa, "mla_paged_attention", pa.mla_paged_attention,
+                 c["args"], 1, PAGE, MLA_BLOCKS)
     q_lat, q_rope, cp, rp, bt, pos = c["args"]
     copies = [(q_lat.clone(), q_rope.clone(), cp.clone(), rp.clone(), bt,
                pos) for _ in range(64)]
@@ -498,7 +551,7 @@ def mla_kernel_phase(torch, np, pa):
           f"{lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by}; bytes "
           f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms at bf16 peak)")
     return (dict(name="mla_paged_attention", route="cuda",
-                 source="src/repro_torch/csrc/mla_paged_attention.cu",
+                 source="src/repro_torch/csrc/mla_core.cu",
                  replaces="src/repro/kernels/paged_attention.py:445",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -924,10 +977,10 @@ def mla_verify_kernel_phase(torch, np, pa):
                 d = float((ver.float() - dec.float()).abs().max())
                 print(f"[kernel] mla_paged_attention_verify {name:8s} T=1 "
                       f"vs the decode kernel: max abs diff {d:.3e}")
-                if not torch.allclose(ver.float(), dec.float(),
-                                      **TOL_F32_PLAIN[name]):
+                if not torch.equal(ver, dec):
                     fail(f"mla_paged_attention_verify at T=1 differs from "
-                         f"the decode kernel by {d}")
+                         f"the decode kernel by {d}; they must be "
+                         "bit-identical")
                 t1_equal(torch, kvq, "mla_paged_attention_verify", name,
                          pa.mla_paged_attention_verify,
                          pa.mla_paged_attention, c["args"], 2, 2,
@@ -935,6 +988,9 @@ def mla_verify_kernel_phase(torch, np, pa):
     # times at the main path's shapes and type: bf16, MLA_LENS; 64 copies
     # of the queries and pools (~225 MB) rotate so every call reads cold HBM
     c = mla_verify_case(torch, np, rng, torch.bfloat16, "ragged")
+    split_report(torch, kvq, pa, "mla_paged_attention_verify",
+                 pa.mla_paged_attention_verify, c["args"], MLA_T, PAGE,
+                 MLA_V_BLOCKS)
     q_lat, q_rope, cp, rp, bt, pos = c["args"]
     copies = [(q_lat.clone(), q_rope.clone(), cp.clone(), rp.clone(), bt,
                pos) for _ in range(64)]
@@ -995,7 +1051,7 @@ def mla_verify_kernel_phase(torch, np, pa):
           f"bound {bound_ms:.5f} ms ({bound_by}; bytes {bytes_ms:.5f} ms, "
           f"operations {ops_ms:.5f} ms at bf16 peak)")
     return (dict(name="mla_paged_attention_verify", route="cuda",
-                 source="src/repro_torch/csrc/mla_paged_attention_verify.cu",
+                 source="src/repro_torch/csrc/mla_core.cu",
                  replaces="src/repro/kernels/paged_attention.py:660",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1138,6 +1194,18 @@ def primitive_holds(torch, np):
                     fail(f"{label}: blocked and naive walks differ")
                 del xp, blocked, naive
             del x
+        # the vector walk's scalar head and tail: views 1 and 3 elements
+        # into a buffer, lengths not a multiple of the 16-byte vector
+        for shape in ((333, 200), (7, 9, 13), (1, 5), (4099,)):
+            for off in (1, 3):
+                n = int(np.prod(shape))
+                x = g((n + off,), name, 2.0)[off:].view(shape)
+                label = f"gelu {name} {shape} at offset {off}"
+                blocked, naive = gm.gelu_blocked(x), gm.gelu_naive(x)
+                prim_hold(torch, tally, f"gelu_2d {name}", label, blocked,
+                          [(ref.gelu(x), tolerance("elementwise", name))])
+                if not torch.equal(blocked, naive):
+                    fail(f"{label}: blocked and naive walks differ")
         # reference shape; C = 3 with odd H / W; even and 1 x 5 kernels;
         # Cin % 8 == 0 (cp.async rows) and not, Cout ragged
         # float32 also: Cin % 4 == 0 with Cout 8, K under a slab, one
@@ -1731,9 +1799,10 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
         if not all(0 <= t < cfg.vocab_size for t in r.generated):
             fail(f"{cfg.name} request {r.request_id}: token ids outside "
                  "the vocab")
-    if launches != steps * cfg.n_layers:
-        fail(f"{op} launched {launches} times for {steps} decode steps x "
-             f"{cfg.n_layers} layers")
+    per_call = launches_per_call(op, cfg)
+    if launches != steps * cfg.n_layers * per_call:
+        fail(f"{op} launched {launches} kernels for {steps} decode steps x "
+             f"{cfg.n_layers} layers x {per_call} a call")
     if logits_err is None or any(len(r.generated) != 8 for r in more):
         fail(f"the {cfg.name} logits-check batch did not run as planned")
     if logits_err > logits_atol:
@@ -1744,7 +1813,8 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     print(f"[engine] {cfg.name}: {len(reqs)} requests (prompts "
           f"{list(PROMPT_LENS)}, {new_tokens} new tokens, {SLOTS} slots, "
           f"prefill chunk {PREFILL_CHUNK}) all finished; {steps} decode "
-          f"steps, {op} launches {launches} = steps x {cfg.n_layers}")
+          f"steps, {op} launches {launches} = steps x {cfg.n_layers} "
+          f"layers x {per_call} a call")
     print(f"[engine] {cfg.name} decode logits vs plain attention: max abs "
           f"diff {logits_err:.4e} (atol {logits_atol}; max |logit| "
           f"{scale:.3f})")
@@ -1757,17 +1827,31 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     rings = pipeline_runs(
         torch, card, cfg.name, cfg,
         lambda pl: Engine(cfg, params, dataclasses.replace(ecfg, pipeline=pl)),
-        prompts, gen, lambda e: {op: e.decode_steps * cfg.n_layers})
+        prompts, gen,
+        lambda e: {op: e.decode_steps * cfg.n_layers * per_call})
     quantized_runs(
         torch, np, card, cfg.name, cfg,
         lambda kvd, pl: Engine(cfg, params, dataclasses.replace(
             ecfg, kv_dtype=kvd, pipeline=pl)),
-        prompts, gen, kv_dtypes, lambda e: {op: e.decode_steps * cfg.n_layers},
+        prompts, gen, kv_dtypes,
+        lambda e: {op: e.decode_steps * cfg.n_layers * per_call},
         ([list(r.generated) for r in reqs], n_tok / wall, peak_gb,
          pool_nbytes(engine)),
         lambda e: decode_logits_check(torch, np, e, ops, op, counter),
         logits_atol)
     return launches, rings
+
+
+def launches_per_call(op: str, cfg) -> int:
+    """Kernel launches of one call of the paged wrapper ``op`` in a model
+    of ``cfg``: for bf16 activations the MLA wrappers' tensor-core core
+    is a split and a merge kernel (kernels.paged_attention.
+    mla_launches_per_call), every GQA wrapper one kernel.  A ring's calls
+    launch what the off kernel's do."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.params import torch_dtype
+    return (pa.mla_launches_per_call(torch_dtype(cfg.dtype))
+            if op.startswith("mla_") else 1)
 
 
 # the off paged-attention kernels and the ring that runs each under
@@ -1950,8 +2034,8 @@ def quantized_runs(torch, np, card, label, cfg, make, prompts, gen,
         del dengine, dreqs
         print(f"[quant] {label} kv_dtype={kvd} {card}: {len(reqs)} requests "
               f"finished; launches {dict((k, v) for k, v in got.items() if v)}"
-              f" = layers x steps, 0 ring launches; KV pools {pool_bytes} B ="
-              f" kv_line_bytes {line_bytes} x {kv.num_pages} "
+              f" = layers x steps x kernels a call, 0 ring launches; KV pools "
+              f"{pool_bytes} B = kv_line_bytes {line_bytes} x {kv.num_pages} "
               f"pages x {kv.page_size} (bf16 pools {base_pool_bytes} B, "
               f"{base_pool_bytes / pool_bytes:.4f}x); logits vs plain "
               f"attention max abs "
@@ -1964,7 +2048,7 @@ def quantized_runs(torch, np, card, label, cfg, make, prompts, gen,
         print(f"[quant] {label} kv_dtype={kvd} pipeline=double {card}: "
               f"greedy streams byte-equal to pipeline=off's; launches "
               f"{dict((k, v) for k, v in dgot.items() if v)} = layers x "
-              f"steps, 0 off paged launches; tok/s off {n_tok / wall:.2f}, "
+              f"steps x kernels a call, 0 off paged launches; tok/s off {n_tok / wall:.2f}, "
               f"double {n_tok / dwall:.2f} ({mode}, this order)")
 
 
@@ -2148,8 +2232,11 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
         if not all(0 <= t < cfg.vocab_size for t in r.generated):
             fail(f"{label} request {r.request_id}: token ids outside the "
                  "vocab")
-    want_v = steps * cfg.n_layers + (rounds * dcfg.n_layers if dcfg else 0)
-    want_d = rounds * (scfg.k - 1) * dcfg.n_layers if dcfg else 0
+    v_call = launches_per_call(verify_counter.__name__, cfg)
+    d_call = launches_per_call(decode_op, dcfg or cfg)
+    want_v = (steps * cfg.n_layers
+              + (rounds * dcfg.n_layers if dcfg else 0)) * v_call
+    want_d = rounds * (scfg.k - 1) * dcfg.n_layers * d_call if dcfg else 0
     if v_launches != want_v or d_launches != want_d:
         fail(f"{label}: verify kernel launched {v_launches} times (want "
              f"{want_v}), decode kernel {d_launches} (want {want_d}) for "
@@ -2203,10 +2290,10 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
 
     def want_off(e):
         rounds = e.phases["draft"].steps
-        want = {verify_counter.__name__: e.verify_steps * cfg.n_layers
-                + (rounds * dcfg.n_layers if dcfg else 0)}
+        want = {verify_counter.__name__: (e.verify_steps * cfg.n_layers
+                + (rounds * dcfg.n_layers if dcfg else 0)) * v_call}
         if dcfg:
-            want[decode_op] = rounds * (scfg.k - 1) * dcfg.n_layers
+            want[decode_op] = rounds * (scfg.k - 1) * dcfg.n_layers * d_call
         return want
     rings = pipeline_runs(
         torch, card, label, cfg,
@@ -2251,6 +2338,62 @@ def print_build_summary(name: str, log: str) -> None:
     from repro_torch.kernels.build import resources
     for line in resources(log):
         print(f"[build] {name}: {line}")
+    # the MLA tensor-core core's kernels and GELU's vector walks
+    for family in NEW_KERNELS:
+        found = []
+        for part in log.split("Function properties for ")[1:]:
+            used = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            if family in part.split("\n", 1)[0] and used and spill:
+                found.append((int(used.group(1)), int(spill.group(1)),
+                              part.split("\n", 1)[0].strip()))
+        if found:
+            regs = [f[0] for f in found]
+            main = [f[0] for f in found if MAIN_INSTANCE in f[2]]
+            print(f"[build] {name}: {family} {len(found)} instantiations, "
+                  f"{min(regs)}-{max(regs)} registers"
+                  + (f" ({main[0]} at bf16 r 512 dr 64)" if main else "")
+                  + f", {sum(f[1] > 0 for f in found)} spilling")
+
+
+# kernels whose registers and spills the build lines print, and the
+# mangled tail of the MLA core's main-path instantiation (bf16 pools, r
+# 512, dr 64)
+NEW_KERNELS = ("mla_split_bf16_kernel", "mla_combine_kernel",
+               "gelu_flat_kernel", "gelu_rows_kernel")
+MAIN_INSTANCE = "I13__nv_bfloat16Li512ELi64E"
+# the instructions that show each new kernel's design in its SASS: wgmma
+# in the MLA core's split kernels, 16-byte loads and stores in GELU's
+# vector walks
+HGMMA = {"HGMMA": r"HGMMA"}
+SASS_WANT = {"mla_core": ("mla_split_bf16_kernel", HGMMA),
+             "gelu": ("gelu_flat_kernel",
+                      {"LDG.E.128": r"LDG\.E[.\w]*\.128",
+                       "STG.E.128": r"STG\.E[.\w]*\.128"})}
+
+
+def sass_check() -> None:
+    """cuobjdump the built libraries: every instantiation of each new
+    kernel must carry its design's instructions (SASS_WANT); prints a
+    line per library, fails on a miss."""
+    import re
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    for name, (kernel, want) in SASS_WANT.items():
+        sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                 if kernel in f.split("\n", 1)[0]]
+        counts = {w: [len(re.findall(pattern, f)) for f in funcs]
+                  for w, pattern in want.items()}
+        if not funcs or any(min(c) == 0 for c in counts.values()):
+            fail(f"{name}: {kernel} lacks {list(want)} in its SASS "
+                 f"({counts})")
+        print(f"[sass] {name}: {kernel} in {len(funcs)} instantiations, "
+              + ", ".join(f"{w} {min(c)}-{max(c)} each"
+                          for w, c in counts.items()))
 
 
 def phase_time(label: str, t0: float) -> float:
@@ -2290,6 +2433,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (nvcc sm_90a)")
     for name, log in logs.items():
         print_build_summary(name, log)
+    sass_check()
 
     qwen = get_config("qwen3-0.6b")
     if (qwen.n_layers, qwen.d_model, qwen.n_kv_heads, qwen.hd) != (
@@ -2323,7 +2467,7 @@ def main() -> int:
         replaces="src/repro/kernels/paged_attention.py:803", **gqa_ring)
     mla_ring_entry = dict(
         mla_entry, name="mla_paged_attention_ring",
-        source="src/repro_torch/csrc/mla_paged_attention_ring.cu",
+        source="src/repro_torch/csrc/mla_core.cu",
         replaces="src/repro/kernels/paged_attention.py:932", **mla_ring)
     for pools in ("bf16", *KV_DTYPES):
         def ms(d):

@@ -336,17 +336,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void pin_u32(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 #define FW_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define FW_D16(i) FW_D4(i), FW_D4(i + 4), FW_D4(i + 8), FW_D4(i + 12)
 
@@ -366,42 +355,6 @@ __device__ __forceinline__ void mma_qk(float (&d)[64], uint64_t da,
       : FW_D16(0), FW_D16(16), FW_D16(32), FW_D16(48)
       : "l"(da), "l"(db), "r"(accumulate));
 }
-
-// o (64 x HD) += P (64 x 16, bf16 pairs in registers: the A fragment) V
-// (16 x HD, (keys, hd) row-major in shared memory, read transposed).
-template <int HD> struct MmaPV;
-
-template <> struct MmaPV<128> {
-  __device__ static __forceinline__ void run(float (&d)[64], const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : FW_D16(0), FW_D16(16), FW_D16(32), FW_D16(48)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <> struct MmaPV<64> {
-  __device__ static __forceinline__ void run(float (&d)[32], const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : FW_D16(0), FW_D16(16)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
 
 #undef FW_D16
 #undef FW_D4
@@ -575,11 +528,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const float a0 = sc[2 * i], a1 = sc[2 * i + 1];
-      p_hi[i] = bf16x2(a0, a1);
+      p_hi[i] = wg::bf16x2(a0, a1);
       if constexpr (PARTS == 2) {
         const float h0 = __uint_as_float(p_hi[i] << 16);
         const float h1 = __uint_as_float(p_hi[i] & 0xffff0000u);
-        p_lo[i] = bf16x2(a0 - h0, a1 - h1);   // both differences exact
+        p_lo[i] = wg::bf16x2(a0 - h0, a1 - h1);   // both differences exact
       }
     }
 
@@ -590,14 +543,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int cc = 0; cc < BK / 16; ++cc) {
       const uint64_t dv = wg::sw128_desc(
           v_addr + s * L::kTile + cc * 16 * 128, kAtom, 1024);
-      MmaPV<HD>::run(acc, &p_hi[4 * cc], dv);
-      if constexpr (PARTS == 2) MmaPV<HD>::run(acc, &p_lo[4 * cc], dv);
+      wg::MmaRegA<HD>::run(acc, &p_hi[4 * cc], dv);
+      if constexpr (PARTS == 2) wg::MmaRegA<HD>::run(acc, &p_lo[4 * cc], dv);
     }
     wg::wgmma_commit();
     wg::wgmma_wait<0>();
     wg::pin(acc);
-    pin_u32(p_hi);
-    if constexpr (PARTS == 2) pin_u32(p_lo);
+    wg::pin_u32(p_hi);
+    if constexpr (PARTS == 2) wg::pin_u32(p_lo);
     if (lane == 0) wg::mbar_arrive(&empty[s]);
   }
 

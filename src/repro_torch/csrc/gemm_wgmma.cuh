@@ -10,6 +10,9 @@
 // data sheet, ~786 measured through cuBLAS), bytes for a thin M (qwen3-14b's
 // gate projection over 256 tokens reads 178 MB of weights for 46 GFLOP).
 // The float32 path and the Winograd stage stay on csrc/gemm_core.cuh.
+// Its PTX helpers, descriptors and wgmma wrappers (B from shared memory,
+// A from shared memory or, for P, from registers) also serve flash
+// attention (csrc/flash_attention.cu) and the MLA core (csrc/mla_core.cuh).
 //
 // Design (sm_90a only: wgmma, setmaxnreg):
 // * a block of three warpgroups computes one BM x BN = 128 x 128 or
@@ -243,9 +246,86 @@ template <> struct Mma<256> {
   }
 };
 
+
+// d (64 x N) += A (64 x 16, bf16 pairs in registers) B (16 x N, (k, n)
+// row-major in shared memory, read transposed: imm-trans-b 1).  a[r] is
+// the bf16 pair (bf16x2) of elements 2 r, 2 r + 1 of a thread's m64n16
+// float32 accumulator fragment, so a score tile packs straight into the A
+// operand (P in flash attention and in the MLA core).
+template <int N> struct MmaRegA;
+
+template <> struct MmaRegA<64> {
+  __device__ static __forceinline__ void run(float (&d)[32], const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D16(0), WG_D16(16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct MmaRegA<128> {
+  __device__ static __forceinline__ void run(float (&d)[64], const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_D64(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct MmaRegA<256> {
+  __device__ static __forceinline__ void run(float (&d)[128],
+                                             const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
+        "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+        "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "
+        "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+        "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "
+        "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+        "%125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : WG_D64(0), WG_D64(64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
 #undef WG_D64
 #undef WG_D16
 #undef WG_D4
+
+// Keep the compiler from moving A-fragment registers across wgmma.
+template <int N>
+__device__ __forceinline__ void pin_u32(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// (lo, hi) rounded to a bf16 pair in one 32-bit register, lo in the low
+// half.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // -- producers ---------------------------------------------------------------
 //

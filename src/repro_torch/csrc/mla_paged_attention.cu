@@ -10,30 +10,28 @@
 //
 // where line t of the slot lives in physical page block_tables[b, t / page]
 // of the latent pool c (P, page, r) and the rope pool kr (P, page, dr).
-// Online softmax in float32; the scores, p and the accumulator stay in
-// float32 as in the Pallas kernel; out = acc / max(l, 1e-30).
+// Online softmax in float32; out = acc / max(l, 1e-30).
 //
 // Bound on the card.  One call reads every live line once, (r + dr)
 // elements, plus q and the output; it does H * (4r + 2dr) FLOPs per line.
 // At DeepSeek-V2's width (H 128, r 512, dr 64) that is ~242 FLOP per byte
 // of line in bf16, near the H100's bf16 tensor-core ridge (~295), so the
 // least time is about even between bytes and operations (0.57 us vs
-// 0.19 us at 4 slots x ~680 lines).  This kernel computes on the CUDA
-// cores in float32 (67 TFLOP/s, not 989), so it is bound by its own
-// arithmetic and by shared-memory reads, not by HBM: tensor cores
-// (`wgmma` with 64 heads as the M dimension) are the later lever.
+// 0.19 us at 4 slots x ~680 lines).
 //
-// Why the heads are split.  The Pallas kernel keeps one slot's whole
-// (H, r) float32 accumulator in VMEM: 128 x 512 x 4 = 256 KB at full
-// width, more than the 227 KB of shared memory a Hopper block can use.
-// So the grid is (B, ceil(H / 8)): each block owns 8 heads of one slot,
-// whose accumulators (16 KB) live in registers.  The 8 warps are 4 head
-// pairs x 2 column halves: a warp holds 2 heads' queries and accumulators
-// for half the latent columns, which keeps a thread's registers at
-// r = 512 under the 255 limit (one warp per head pair over all 512
-// columns spilled) while each staged line is still read once per 2 heads.
+// bf16 queries take csrc/mla_core.cu (wgmma with 64 heads as M, split-K
+// over chunks of pages merged in chunk order), the core that the verify
+// walk and the ring call too; the wrapper picks it by the queries' dtype.
 //
-// Design, simple first:
+// This source is the float32 path, on the CUDA cores in full float32.  Why
+// the heads are split.  The Pallas kernel keeps one slot's whole (H, r)
+// float32 accumulator in VMEM: 128 x 512 x 4 = 256 KB at full width, more
+// than the 227 KB of shared memory a Hopper block can use.  So the grid is
+// (B, ceil(H / 8)): each block owns 8 heads of one slot, whose
+// accumulators (16 KB) live in registers.  The 8 warps are 4 head pairs x
+// 2 column halves: a warp holds 2 heads' queries and accumulators for half
+// the latent columns, which keeps a thread's registers at r = 512 under
+// the 255 limit while each staged line is still read once per 2 heads.
 // * each block reads its own block-table row and position (no scalar
 //   prefetch on a GPU) and walks only the slot's live lines, 16 at a
 //   time; the 256 threads stage those lines into shared memory once, with
@@ -55,14 +53,12 @@
 // the op order of the `quantized` branch of the Pallas
 // `_mla_paged_decode_kernel`; lines past the live ones stay zeros.  The
 // line shrinks to r + dr + 8 bytes.
-// Split-K over pages (the main path's grid is 64 blocks on 132 SMs),
-// cp.async / TMA page rings and wgmma are later work.
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
 //   int mla_paged_attention_decode(q_lat, q_rope, c_pool, r_pool, c_scale,
 //                                  r_scale, block_tables, pos, out, batch,
 //                                  n_heads, latent_dim, rope_dim, page_size,
-//                                  n_blocks, scale, dtype /*0 f32, 1 bf16*/,
+//                                  n_blocks, scale, dtype /*0 f32*/,
 //                                  kv_dtype /*0 as q, 1 int8, 2 fp8*/,
 //                                  stream)
 // (the scale pointers are null unless kv_dtype quantizes) returns
@@ -86,21 +82,15 @@ constexpr float kNegInf = -1e30f;
 static_assert(kHeadsPerWarp * kTileLines == 32, "one score per lane");
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float dot4(const float* q, float4 c) {
   return q[0] * c.x + q[1] * c.y + q[2] * c.z + q[3] * c.w;
 }
 
-// T: the query / output dtype; S: the pools' storage type (T, int8_t or
-// __nv_fp8_e4m3)
+// T: the query / output dtype, float (bf16 queries take csrc/mla_core.cu);
+// S: the pools' storage type (T, int8_t or __nv_fp8_e4m3)
 template <typename T, typename S, int R, int DR>
 __global__ void __launch_bounds__(kWarps * 32)
 mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
@@ -346,7 +336,7 @@ struct Args {
 };
 
 template <typename T, typename S, int R, int DR>
-void launch(const Args& a) {
+int launch(const Args& a) {
   const dim3 grid(a.batch,
                   (a.n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock);
   mla_decode_kernel<T, S, R, DR><<<grid, kWarps * 32, 0, a.stream>>>(
@@ -354,27 +344,27 @@ void launch(const Args& a) {
       static_cast<const S*>(a.c), static_cast<const S*>(a.r), a.cs, a.rs,
       static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
       static_cast<T*>(a.out), a.n_heads, a.page_size, a.n_blocks, a.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename S, int R>
-bool dispatch_rope(int rope_dim, const Args& a) {
+int dispatch_rope(int rope_dim, const Args& a) {
 #define MLA_DR(DR)                                                          \
   case DR:                                                                  \
-    launch<T, S, R, DR>(a);                                                 \
-    return true;
+    return launch<T, S, R, DR>(a);
   switch (rope_dim) {
     MLA_DR(8)
     MLA_DR(16)
     MLA_DR(32)
     MLA_DR(64)
     default:
-      return false;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MLA_DR
 }
 
 template <typename T, typename S>
-bool dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
+int dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
 #define MLA_R(R)                                                            \
   case R:                                                                   \
     return dispatch_rope<T, S, R>(rope_dim, a);
@@ -385,14 +375,14 @@ bool dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
     MLA_R(256)
     MLA_R(512)
     default:
-      return false;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MLA_R
 }
 
 template <typename T>
-bool dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
-                    const Args& a) {
+int dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
+                   const Args& a) {
   switch (kv_dtype) {
     case kv_load::kSame:
       return dispatch_latent<T, T>(latent_dim, rope_dim, a);
@@ -401,7 +391,7 @@ bool dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
     case kv_load::kFp8:
       return dispatch_latent<T, __nv_fp8_e4m3>(latent_dim, rope_dim, a);
     default:
-      return false;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -422,12 +412,7 @@ extern "C" int mla_paged_attention_decode(
                static_cast<const float*>(r_scale), block_tables, pos, out,
                batch, n_heads, page_size, n_blocks, scale,
                static_cast<cudaStream_t>(stream)};
-  bool ok = false;
-  if (dtype == 0) {
-    ok = dispatch_store<float>(kv_dtype, latent_dim, rope_dim, a);
-  } else if (dtype == 1) {
-    ok = dispatch_store<__nv_bfloat16>(kv_dtype, latent_dim, rope_dim, a);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return dispatch_store<float>(kv_dtype, latent_dim, rope_dim, a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

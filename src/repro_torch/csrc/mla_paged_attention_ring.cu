@@ -23,55 +23,55 @@
 // elements, the live table entries, q_lat, q_rope and the output; the
 // operations, T * H * (4r + 2dr) per line, put it near the bf16 ridge at
 // full width (PERF.md), so bytes and operations bound it about evenly.
-// The `pipeline="off"` kernels (csrc/mla_paged_attention{,_verify}.cu)
-// stage 16 lines at a time into float32 shared memory synchronously: every
-// thread loads, converts and stores, waits at a barrier, then computes,
-// so no load overlaps the arithmetic.
 //
+// bf16 queries take csrc/mla_core.cu, the off walks' core, with `stages`
+// tiles of a chunk in flight (at most a chunk's tiles: 2 at page 16): the
+// next tile's cp.async copies run while the current one is multiplied.
+// The chunk, the tiles and the merge do not depend on the stage count, so
+// the output equals the off walks' bit for bit (row 4 at T = 1, row 5
+// otherwise).
+//
+// This source is the float32 path, the CUDA-core ring below.  The
+// `pipeline="off"` float32 kernels stage 16 lines at a time into float32
+// shared memory synchronously: every thread loads, converts and stores,
+// waits at a barrier, then computes, so no load overlaps the arithmetic.
 // What the ring does about it:
 // * the block copies its slot's live block-table entries into shared
 //   memory once, so no line address waits on a table read in the walk;
 // * a stage is one 16-line tile (`kTileLines`, the off kernels' tile: one
-//   page at page 16) of RAW latent and rope lines, in the pools' own type:
-//   16 x (512 + 64) x 2 B = 18 KB in bf16 at full width; `stages` (2-4)
-//   tiles form a ring in dynamic shared memory (above 48 KB the kernel
-//   opts in with cudaFuncSetAttribute), filled with 16-byte
+//   page at page 16) of RAW latent and rope lines, in the pools' own type;
+//   `stages` (2-4) tiles form a ring in dynamic shared memory (above 48 KB
+//   the kernel opts in with cudaFuncSetAttribute), filled with 16-byte
 //   `cp.async.cg` copies, one commit group per tile; tile j + stages - 1
 //   is issued before tile j is computed.  Lines past the visible ones are
 //   written as zeros, as the off kernels stage them;
 // * quantized pools (int8 / fp8 e4m3 codes, csrc/kv_load.cuh; the storage
 //   type S is the second template parameter, as in the off kernels): a
-//   stage is the tile's 16 raw code lines of latent and rope (16 x (512 +
-//   64) B = 9 KB at full width) and their 16 latent and 16 rope float32
-//   scales, in the tile's commit group: the reference's two (page,) scale
-//   slabs on the same lookahead (paged_attention.py:835-869).  A latent
-//   line of codes is a multiple of 16 B; a rope line at dr 8 is 8 B, so
-//   rope lines copy in chunks of min(16, dr) bytes (an 8-byte
-//   `cp.async.ca`, cp_async::copy8, at dr 8).  The scale pools (P, page)
-//   are contiguous per page, but a 16-byte copy of four scales would
-//   carry lines past the visible ones; each scale is one 4-byte
-//   `cp.async.ca` (copy4), and a line past the visible ones gets zero
-//   codes AND a zero scale, so it dequantizes to the 0.0 the off kernels
-//   stage (zero codes times a stale NaN would be NaN);
-// * the compute is the off kernels' exactly (8 warps = 4 head pairs x 2
-//   column halves, 8 heads of one query token per block, grid
+//   stage is the tile's 16 raw code lines of latent and rope and their 16
+//   latent and 16 rope float32 scales, in the tile's commit group: the
+//   reference's two (page,) scale slabs on the same lookahead
+//   (paged_attention.py:835-869).  A rope line at dr 8 is 8 B, so rope
+//   lines copy in chunks of min(16, dr) bytes (an 8-byte `cp.async.ca`,
+//   cp_async::copy8, at dr 8); each scale is one 4-byte `cp.async.ca`
+//   (copy4), and a line past the visible ones gets zero codes AND a zero
+//   scale, so it dequantizes to the 0.0 the off kernels stage (zero codes
+//   times a stale NaN would be NaN);
+// * the compute is the float32 off kernels' exactly (8 warps = 4 head
+//   pairs x 2 column halves, 8 heads of one query token per block, grid
 //   (B, ceil(H / 8), T)): the same partial products, butterfly
 //   reduce-scatter, column-half sum, per-tile online softmax and P.V, in
 //   the same order, on the same float32 values (a line is widened, and a
 //   code multiplied by its line's scale, when read instead of when
 //   staged; the widening is exact and the multiply is the off kernels'
 //   own float(code) * scale).  So the output equals the off kernel's bit
-//   for bit at the same storage: row 4 at T = 1, row 5 otherwise.
-// Sharing one staged tile across the T tokens of a slot (row 5 re-reads
-// each line T * H / 8 times through L2), wgmma and split-K over pages are
-// later work.
+//   for bit at the same storage.
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
 //   int mla_paged_attention_ring(q_lat, q_rope, c_pool, r_pool, c_scale,
 //                                r_scale, block_tables, pos, out, batch,
 //                                n_tokens, n_heads, latent_dim, rope_dim,
 //                                page_size, n_blocks, stages, scale,
-//                                dtype /*0 f32, 1 bf16*/,
+//                                dtype /*0 f32*/,
 //                                kv_dtype /*0 as q, 1 int8, 2 fp8*/, stream)
 // q_lat / out are (batch, n_tokens, n_heads, latent_dim), q_rope
 // (batch, n_tokens, n_heads, rope_dim); the scale pointers are null unless
@@ -99,9 +99,6 @@ constexpr size_t kMaxSmem = 227 * 1024 - kWarps * 32 * sizeof(float);
 static_assert(kHeadsPerWarp * kTileLines == 32, "one score per lane");
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // Four consecutive staged elements as float32: widened, and times their
 // line's scale over a quantized pool (kv_load::load_line, from shared
@@ -114,9 +111,6 @@ __device__ __forceinline__ float4 load4(const S* p, float scale) {
 }
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float dot4(const float* q, float4 c) {
   return q[0] * c.x + q[1] * c.y + q[2] * c.z + q[3] * c.w;
@@ -139,8 +133,8 @@ __host__ __device__ constexpr size_t stage_bytes() {
                                          : 0);
 }
 
-// T: the query / output dtype; S: the pools' storage type (T, int8_t or
-// __nv_fp8_e4m3)
+// T: the query / output dtype, float (bf16 queries take csrc/mla_core.cu);
+// S: the pools' storage type (T, int8_t or __nv_fp8_e4m3)
 template <typename T, typename S, int R, int DR>
 __global__ void __launch_bounds__(kWarps * 32)
 mla_ring_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
@@ -551,7 +545,5 @@ extern "C" int mla_paged_attention_ring(
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     return dispatch_store<float>(kv_dtype, latent_dim, rope_dim, a);
-  if (dtype == 1)
-    return dispatch_store<__nv_bfloat16>(kv_dtype, latent_dim, rope_dim, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

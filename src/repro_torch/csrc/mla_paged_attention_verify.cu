@@ -21,25 +21,22 @@
 // outweigh the lines: at 4 slots x T 4 x H 128 (r 512, dr 64) the queries
 // and output are ~4.5 MB against ~0.8 MB of lines, ~1.6 us at 3.35 TB/s.
 // The operations, T * H * (4r + 2dr) per line, take ~0.8 us at the bf16
-// tensor-core peak.  This kernel computes on the CUDA cores in float32.
+// tensor-core peak.
 //
+// bf16 queries take csrc/mla_core.cu, the decode walk's core, with each
+// tile staged synchronously (stages 1): a block there owns one (slot,
+// token) row, so a one-token verify is the decode call bit for bit.
+//
+// This source is the float32 path, on the CUDA cores in full float32.
 // Why this grid.  The Pallas kernel keeps one slot's whole (T * H, r)
 // float32 accumulator in VMEM: 4 x 128 x 512 x 4 B = 1 MB at k = 3, over
 // four times the 227 KB of shared memory a Hopper block can use.  So the
-// grid is (B, ceil(H / 8), T): each block owns 8 heads of ONE query token,
-// so the causal limit pos + t is uniform in the block, and the block is
-// the MLA decode kernel (csrc/mla_paged_attention.cu) with that limit:
-// 8 warps = 4 head pairs x 2 column halves (a warp holds 2 heads' queries
-// and accumulators for half the latent columns, which keeps a thread's
-// registers under the 255 limit at r = 512), 16-line float32 tiles of the
-// latent and rope lines staged in shared memory once for the block's 8
-// heads.  At 4 slots, 128 heads and T = 4 that is 256 blocks on 132 SMs.
-//
-// Cost of that choice: every (t, head block) of a slot re-reads the slot's
-// lines, T * H / 8 = 64 times at full width; the repeats come from L2
-// (the longest slot's lines, 229 x 1152 B, are ~264 KB).  Sharing one
-// staged tile across the T tokens of a block, tensor cores (`wgmma`),
-// split-K over pages and TMA page rings are later work.
+// grid is (B, ceil(H / 8), T): each block owns 8 heads of ONE query token, so the
+// causal limit pos + t is uniform in the block, and the block is the MLA
+// decode kernel's float32 block with that limit: 8 warps = 4 head pairs x
+// 2 column halves, 16-line float32 tiles of the latent and rope lines
+// staged in shared memory once for the block's 8 heads.  Every
+// (t, head block) of a slot re-reads the slot's lines from L2.
 //
 // Design, simple first:
 // * each block reads its own block-table row and position and walks only
@@ -56,7 +53,8 @@
 //   to the lanes that own acc columns;
 // * nothing crosses blocks; idle lanes (every entry trash page 0, pos 0)
 //   read trash lines and give finite output.
-// With T = 1 this is the decode kernel's arithmetic, in the same order.
+// With T = 1 this is the decode kernel's float32 arithmetic, in the same
+// order.
 // Quantized pools (int8 / fp8 e4m3 codes, float32 scales (P, page) for
 // the latent and the rope pool) take the decode kernel's scale branch:
 // each line is dequantized as float(code) * scale while the tile is
@@ -68,7 +66,7 @@
 //                                  r_scale, block_tables, pos, out, batch,
 //                                  n_tokens, n_heads, latent_dim, rope_dim,
 //                                  page_size, n_blocks, scale,
-//                                  dtype /*0 f32, 1 bf16*/,
+//                                  dtype /*0 f32*/,
 //                                  kv_dtype /*0 as q, 1 int8, 2 fp8*/,
 //                                  stream)
 // q_lat / out are (batch, n_tokens, n_heads, latent_dim), q_rope
@@ -94,21 +92,15 @@ constexpr float kNegInf = -1e30f;
 static_assert(kHeadsPerWarp * kTileLines == 32, "one score per lane");
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float dot4(const float* q, float4 c) {
   return q[0] * c.x + q[1] * c.y + q[2] * c.z + q[3] * c.w;
 }
 
-// T: the query / output dtype; S: the pools' storage type (T, int8_t or
-// __nv_fp8_e4m3)
+// T: the query / output dtype, float (bf16 queries take csrc/mla_core.cu);
+// S: the pools' storage type (T, int8_t or __nv_fp8_e4m3)
 template <typename T, typename S, int R, int DR>
 __global__ void __launch_bounds__(kWarps * 32)
 mla_verify_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
@@ -358,7 +350,7 @@ struct Args {
 };
 
 template <typename T, typename S, int R, int DR>
-void launch(const Args& a) {
+int launch(const Args& a) {
   const dim3 grid(a.batch,
                   (a.n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock,
                   a.n_tokens);
@@ -368,27 +360,27 @@ void launch(const Args& a) {
       static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
       static_cast<T*>(a.out), a.n_tokens, a.n_heads, a.page_size,
       a.n_blocks, a.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename S, int R>
-bool dispatch_rope(int rope_dim, const Args& a) {
+int dispatch_rope(int rope_dim, const Args& a) {
 #define MLA_DR(DR)                                                          \
   case DR:                                                                  \
-    launch<T, S, R, DR>(a);                                                 \
-    return true;
+    return launch<T, S, R, DR>(a);
   switch (rope_dim) {
     MLA_DR(8)
     MLA_DR(16)
     MLA_DR(32)
     MLA_DR(64)
     default:
-      return false;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MLA_DR
 }
 
 template <typename T, typename S>
-bool dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
+int dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
 #define MLA_R(R)                                                            \
   case R:                                                                   \
     return dispatch_rope<T, S, R>(rope_dim, a);
@@ -399,14 +391,14 @@ bool dispatch_latent(int latent_dim, int rope_dim, const Args& a) {
     MLA_R(256)
     MLA_R(512)
     default:
-      return false;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MLA_R
 }
 
 template <typename T>
-bool dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
-                    const Args& a) {
+int dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
+                   const Args& a) {
   switch (kv_dtype) {
     case kv_load::kSame:
       return dispatch_latent<T, T>(latent_dim, rope_dim, a);
@@ -415,7 +407,7 @@ bool dispatch_store(int kv_dtype, int latent_dim, int rope_dim,
     case kv_load::kFp8:
       return dispatch_latent<T, __nv_fp8_e4m3>(latent_dim, rope_dim, a);
     default:
-      return false;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -425,8 +417,9 @@ extern "C" int mla_paged_attention_verify(
     const void* q_lat, const void* q_rope, const void* c_pool,
     const void* r_pool, const void* c_scale, const void* r_scale,
     const void* block_tables, const void* pos, void* out, int batch,
-    int n_tokens, int n_heads, int latent_dim, int rope_dim, int page_size,
-    int n_blocks, float scale, int dtype, int kv_dtype, void* stream) {
+    int n_tokens, int n_heads, int latent_dim, int rope_dim,
+    int page_size, int n_blocks, float scale, int dtype, int kv_dtype,
+    void* stream) {
   if (batch <= 0 || n_tokens <= 0 || n_heads <= 0 || page_size <= 0
       || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -437,12 +430,7 @@ extern "C" int mla_paged_attention_verify(
                static_cast<const float*>(r_scale), block_tables, pos, out,
                batch, n_tokens, n_heads, page_size, n_blocks, scale,
                static_cast<cudaStream_t>(stream)};
-  bool ok = false;
-  if (dtype == 0) {
-    ok = dispatch_store<float>(kv_dtype, latent_dim, rope_dim, a);
-  } else if (dtype == 1) {
-    ok = dispatch_store<__nv_bfloat16>(kv_dtype, latent_dim, rope_dim, a);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return dispatch_store<float>(kv_dtype, latent_dim, rope_dim, a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

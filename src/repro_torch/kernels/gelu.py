@@ -7,8 +7,8 @@ a blocked 8 doubles the FLOPs and multiplies the traffic) or wastes memory
 transactions.  :func:`gelu_2d` launches ``csrc/gelu.cu`` (the port of the
 Pallas ``gelu_2d``) with a tile shape that picks the walk:
 
-* :func:`gelu_blocked`: tiles of whole rows, one contiguous run each, so
-  neighbouring threads read neighbouring elements (coalesced);
+* :func:`gelu_blocked`: tiles of whole rows, so the whole array is one
+  contiguous run, walked in one pass of 16-byte accesses (coalesced);
 * :func:`gelu_naive`: strips of 1024 rows x 8 columns, walked down the
   rows, so each warp's load touches 32 sectors for 32 elements (strided)
   — the Hopper form of the Pallas (128k, 8) tiles that fill 8 of 128
@@ -55,9 +55,12 @@ def gelu_2d(x: torch.Tensor, *, block: Tuple[int, int] = (256, 128)
     """Launch the CUDA GELU kernel over x (R, C) with tiles ``block`` =
     (rows, cols) on the current stream (no sync).  A tile of whole rows is
     walked as one contiguous run, a tile at least a warp wide row by row,
-    a narrower strip down its rows.  Takes a contiguous 2-D float32 or
-    bf16 CUDA tensor; the tiles need not divide the shape.  ``launches``
-    counts the kernel launches this wrapper made."""
+    a narrower strip down its rows; the first two with 16-byte accesses
+    where the addresses allow (the output lies as far past a 16-byte
+    boundary as x, so a misaligned x costs only a scalar head).  Takes a
+    contiguous 2-D float32 or bf16 CUDA tensor; the tiles need not divide
+    the shape.  ``launches`` counts the kernel launches this wrapper
+    made."""
     if not x.is_cuda:
         raise ValueError(
             "gelu_2d launches a CUDA kernel and takes CUDA tensors only "
@@ -71,7 +74,7 @@ def gelu_2d(x: torch.Tensor, *, block: Tuple[int, int] = (256, 128)
     br, bc = (int(b) for b in block)
     if br < 1 or bc < 1:
         raise ValueError(f"bad tile {block}")
-    out = torch.empty_like(x)
+    out = _same_phase(x)
     lib = build.library("gelu", C_SIGNATURES)
     err = lib.gelu_2d_launch(
         x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], br, bc,
@@ -83,6 +86,18 @@ def gelu_2d(x: torch.Tensor, *, block: Tuple[int, int] = (256, 128)
 
 
 gelu_2d.launches = 0
+
+
+def _same_phase(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like x whose address lies as far past a
+    16-byte boundary as x's, so the kernel's 16-byte vector walk covers
+    both with one scalar head (a view into a slightly larger buffer when
+    x itself is not 16-byte aligned)."""
+    off = x.data_ptr() % 16 // x.element_size()
+    if off == 0:
+        return torch.empty_like(x)
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape)
 
 # the C interface of csrc/gelu.cu, bound by kernels/build.py
 C_SIGNATURES = {

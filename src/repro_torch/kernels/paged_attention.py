@@ -55,10 +55,11 @@ kernels bit for bit.
 
 The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions.  The kernels keep the scores and ``p``
-in float32, as the Pallas kernels do, while the references round the
-scores to the input dtype and cast the probabilities to the value dtype
-before the PV product; in bf16 the two therefore differ by bf16
-rounding.
+in float32, as the Pallas kernels do (the MLA kernels' bf16 path takes p
+into the tensor cores as bf16 hi + lo, :func:`mla_split_model`), while
+the references round the scores to the input dtype and cast the
+probabilities to the value dtype before the PV product; in bf16 the two
+therefore differ by bf16 rounding.
 """
 
 from __future__ import annotations
@@ -406,6 +407,159 @@ MLA_LATENT_DIMS = (32, 64, 128, 256, 512)
 MLA_ROPE_DIMS = (8, 16, 32, 64)
 MLA_PAGE_SIZES = (8, 16, 32)
 MLA_HEADS_PER_BLOCK = 8
+# bf16 queries of all three MLA wrappers take the tensor-core core
+# (csrc/mla_core.cu): blocks of MLA_HEAD_TILE heads over chunks of
+# MLA_CHUNK_PAGES pages, output columns in parts of at most
+# MLA_COLUMN_PART, the chunks' float32 partials merged in chunk order by
+# a second kernel (MLA_CORE_LAUNCHES kernels a call)
+MLA_HEAD_TILE = 64
+MLA_CHUNK_PAGES = 2
+MLA_COLUMN_PART = 256
+MLA_CORE_LAUNCHES = 2
+
+
+def mla_launches_per_call(dtype: torch.dtype) -> int:
+    """Kernel launches of one call of an MLA wrapper with ``dtype``
+    queries: the core's split and merge kernels for bf16, the CUDA-core
+    kernel alone for float32."""
+    return MLA_CORE_LAUNCHES if dtype == torch.bfloat16 else 1
+
+
+def mla_workspace_bytes(rows: int, n_blocks: int, n_heads: int,
+                        latent_dim: int) -> int:
+    """Bytes of the tensor-core MLA kernels' workspace for ``rows``
+    (slot, token) rows over a table of ``n_blocks`` pages
+    (``workspace_bytes`` in ``csrc/mla_core.cu``): each row's most chunks
+    x heads x (r
+    float32 sums + the running max and sum)."""
+    chunks = -(-int(n_blocks) // MLA_CHUNK_PAGES)
+    return int(rows) * chunks * int(n_heads) * (int(latent_dim) + 2) * 4
+
+
+def mla_split_plan(pos, n_tokens: int, page_size: int, n_blocks: int,
+                   n_heads: int, latent_dim: int) -> dict:
+    """What a bf16 MLA call launches: the lines of a chunk, the split
+    kernel's grid and the blocks of it that have lines to walk (the rest
+    return at once), for positions ``pos`` (a sequence or tensor of the
+    slots' first query positions) and T = ``n_tokens``."""
+    chunk = MLA_CHUNK_PAGES * int(page_size)
+    parts = max(1, -(-int(latent_dim) // 64) * 64 // MLA_COLUMN_PART)
+    tiles = -(-int(n_heads) // MLA_HEAD_TILE)
+    cap = int(n_blocks) * int(page_size)
+    pos = [int(p) for p in (pos.tolist() if hasattr(pos, "tolist")
+                            else pos)]
+    active = sum(-(-min(p + t + 1, cap) // chunk)
+                 for p in pos for t in range(int(n_tokens)))
+    max_chunks = -(-int(n_blocks) // MLA_CHUNK_PAGES)
+    return dict(chunk_lines=chunk,
+                grid=max_chunks * parts * tiles * len(pos) * int(n_tokens),
+                blocks=active * parts * tiles)
+
+
+def mla_split_model(
+    q_lat: torch.Tensor, q_rope: torch.Tensor, c_pool: torch.Tensor,
+    r_pool: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float,
+    c_scale: Optional[torch.Tensor] = None,
+    r_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain model of the tensor-core MLA kernels' arithmetic order
+    (``csrc/mla_core.cu``), for decode (q_lat (B, H, r)) or verify (q_lat
+    (B, T, H, r)), the contracts of :func:`mla_paged_attention_reference`
+    / :func:`mla_paged_attention_verify_reference`.  Per (slot, token):
+    the visible lines in chunks of ``MLA_CHUNK_PAGES`` pages, each walked
+    in tiles of 16 lines with an online softmax (float32 m, l, acc); the
+    scores ``scale (sc_c S_c + sc_r S_r)`` with the codes' dot products
+    S_c, S_r taken before the line scales (scales 1 for bf16 pools); P
+    times each line's latent scale, split into bf16 hi + lo, both
+    multiplied by the codes; the chunks' (m, l, acc) merged in chunk
+    order; out = O / max(L, 1e-30) in q's dtype.  Float32 sums in torch's
+    order, so it agrees with the kernel up to summation order and the
+    output's one rounding."""
+    quantized = _pair(c_scale, r_scale, "mla_split_model")
+    decode = q_lat.dim() == 3
+    ql = (q_lat[:, None] if decode else q_lat).float()
+    qr = (q_rope[:, None] if decode else q_rope).float()
+    B, T, H, r = ql.shape
+    page, nb = c_pool.shape[1], block_tables.shape[1]
+    codes_c = c_pool.float().reshape(-1, r)
+    codes_r = r_pool.float().reshape(-1, r_pool.shape[-1])
+    if quantized:
+        sc_c, sc_r = c_scale.reshape(-1), r_scale.reshape(-1)
+    chunk = MLA_CHUNK_PAGES * page
+    out = torch.empty((B, T, H, r), dtype=torch.float32, device=ql.device)
+    for b in range(B):
+        for t in range(T):
+            n = min(int(pos[b]) + t + 1, nb * page)
+            line = torch.arange(n, device=ql.device)
+            rows = block_tables[b].long()[line // page] * page + line % page
+            cc, rr = codes_c[rows], codes_r[rows]
+            parts = []
+            for c0 in range(0, n, chunk):
+                m = torch.full((H,), NEG_INF, device=ql.device)
+                l = torch.zeros((H,), device=ql.device)
+                acc = torch.zeros((H, r), device=ql.device)
+                for t0 in range(c0, min(c0 + chunk, n), 16):
+                    sl = slice(t0, min(t0 + 16, c0 + chunk, n))
+                    s_c, s_r = ql[b, t] @ cc[sl].T, qr[b, t] @ rr[sl].T
+                    if quantized:
+                        s = sc_c[rows[sl]] * s_c + sc_r[rows[sl]] * s_r
+                    else:
+                        s = s_c + s_r
+                    s = s * scale
+                    mx = torch.maximum(m, s.max(-1).values)
+                    alpha = torch.exp(m - mx)
+                    p = torch.exp(s - mx[:, None])
+                    l = l * alpha + p.sum(-1)
+                    m = mx
+                    if quantized:
+                        p = p * sc_c[rows[sl]]
+                    hi = p.bfloat16().float()
+                    lo = (p - hi).bfloat16().float()
+                    acc = acc * alpha[:, None] + hi @ cc[sl] + lo @ cc[sl]
+                parts.append((m, l, acc))
+            top = torch.stack([m for m, _, _ in parts]).max(0).values
+            den = torch.zeros((H,), device=ql.device)
+            o = torch.zeros((H, r), device=ql.device)
+            for m, l, acc in parts:
+                w = torch.exp(m - top)
+                den = den + l * w
+                o = o + acc * w[:, None]
+            out[b, t] = o / den.clamp_min(1e-30)[:, None]
+    out = out.to(q_lat.dtype)
+    return out[:, 0] if decode else out
+
+
+def _mla_core(ql4: torch.Tensor, qr4: torch.Tensor, c_pool: torch.Tensor,
+              r_pool: torch.Tensor, c_scale: Optional[torch.Tensor],
+              r_scale: Optional[torch.Tensor], block_tables: torch.Tensor,
+              pos: torch.Tensor, out: torch.Tensor, *, stages: int,
+              scale: float, store: int) -> int:
+    """Launch the tensor-core core (``csrc/mla_core.cu``: the split kernel,
+    then the merge kernel) on bf16 queries ql4 (B, T, H, r) / qr4 (B, T,
+    H, dr) into ``out``, with ``stages`` tiles in flight (1: each tile
+    staged synchronously) over a workspace it allocates; returns the CUDA
+    error code.  The shapes are the caller's, checked."""
+    B, T, H, r = ql4.shape
+    n_blocks = block_tables.shape[1]
+    work = torch.empty(mla_workspace_bytes(B * T, n_blocks, H, r),
+                       dtype=torch.uint8, device=ql4.device)
+    lib = build.library("mla_core", MLA_CORE_C_SIGNATURES)
+    return lib.mla_core_attention(
+        ql4.data_ptr(), qr4.data_ptr(), c_pool.data_ptr(), r_pool.data_ptr(),
+        _ptr(c_scale), _ptr(r_scale), block_tables.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), work.data_ptr(), B, T, H, r,
+        qr4.shape[-1], c_pool.shape[1], n_blocks, int(stages), float(scale),
+        store, torch.cuda.current_stream(ql4.device).cuda_stream)
+
+
+# the C interface of csrc/mla_core.cu
+MLA_CORE_C_SIGNATURES = {
+    "mla_core_attention": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
 
 
 def mla_paged_attention(
@@ -422,8 +576,12 @@ def mla_paged_attention(
     float8_e4m3fn with both float32 scale pools (P, page), latent rank in
     ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size in
     ``MLA_PAGE_SIZES``, any head count (the last head block is masked),
-    int32 block tables and positions.  ``launches`` counts the kernel
-    launches this wrapper made."""
+    int32 block tables and positions.  bf16 queries run on the tensor
+    cores (``csrc/mla_core.cu``: a split kernel over chunks of pages and
+    a merge kernel, :func:`mla_split_plan`; the arithmetic order of
+    :func:`mla_split_model`), float32 queries on the CUDA cores
+    (``csrc/mla_paged_attention.cu``).  ``launches`` counts the kernel
+    launches this wrapper made (:func:`mla_launches_per_call` a call)."""
     if not q_lat.is_cuda:
         raise ValueError(
             "mla_paged_attention launches a CUDA kernel and takes CUDA "
@@ -452,17 +610,23 @@ def mla_paged_attention(
     _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
     _check("pos", pos, torch.int32, (B,), dev)
     out = torch.empty_like(q_lat)
-    lib = build.library("mla_paged_attention", MLA_C_SIGNATURES)
-    err = lib.mla_paged_attention_decode(
-        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
-        r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, r,
-        dr, page_size, n_blocks, float(scale), _DTYPE_CODES[q_lat.dtype],
-        store, torch.cuda.current_stream(dev).cuda_stream)
+    if q_lat.dtype == torch.bfloat16:
+        err = _mla_core(q_lat[:, None], q_rope[:, None], c_pool, r_pool,
+                        c_scale, r_scale, block_tables, pos, out, stages=1,
+                        scale=scale, store=store)
+    else:
+        lib = build.library("mla_paged_attention", MLA_C_SIGNATURES)
+        err = lib.mla_paged_attention_decode(
+            q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+            r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
+            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H,
+            r, dr, page_size, n_blocks, float(scale),
+            _DTYPE_CODES[q_lat.dtype], store,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_paged_attention kernel launch failed: "
                            f"CUDA error {err}")
-    mla_paged_attention.launches += 1
+    mla_paged_attention.launches += mla_launches_per_call(q_lat.dtype)
     return out
 
 
@@ -542,8 +706,11 @@ def mla_paged_attention_verify(
     their dtype or int8 / float8_e4m3fn with float32 scale pools, latent
     rank in ``MLA_LATENT_DIMS``, rope dim in ``MLA_ROPE_DIMS``, page size
     in ``MLA_PAGE_SIZES``, any head count and any T >= 1, int32 block
-    tables and positions.  ``launches`` counts the kernel launches this
-    wrapper made."""
+    tables and positions; bf16 on the tensor-core core as there, one
+    (slot, token) row a block, so T = 1 equals the decode call bit for
+    bit; float32 on ``csrc/mla_paged_attention_verify.cu``.  ``launches``
+    counts the kernel launches this wrapper made
+    (:func:`mla_launches_per_call` a call)."""
     if not q_lat.is_cuda:
         raise ValueError(
             "mla_paged_attention_verify launches a CUDA kernel and takes "
@@ -553,18 +720,24 @@ def mla_paged_attention_verify(
         q_lat, q_rope, c_pool, r_pool, block_tables, pos, c_scale, r_scale)
     dev = q_lat.device
     out = torch.empty_like(q_lat)
-    lib = build.library("mla_paged_attention_verify",
-                        MLA_VERIFY_C_SIGNATURES)
-    err = lib.mla_paged_attention_verify(
-        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
-        r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T, H, r,
-        dr, page_size, n_blocks, float(scale), _DTYPE_CODES[q_lat.dtype],
-        store, torch.cuda.current_stream(dev).cuda_stream)
+    if q_lat.dtype == torch.bfloat16:
+        err = _mla_core(q_lat, q_rope, c_pool, r_pool, c_scale, r_scale,
+                        block_tables, pos, out, stages=1, scale=scale,
+                        store=store)
+    else:
+        lib = build.library("mla_paged_attention_verify",
+                            MLA_VERIFY_C_SIGNATURES)
+        err = lib.mla_paged_attention_verify(
+            q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+            r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
+            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T,
+            H, r, dr, page_size, n_blocks, float(scale),
+            _DTYPE_CODES[q_lat.dtype], store,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_paged_attention_verify kernel launch "
                            f"failed: CUDA error {err}")
-    mla_paged_attention_verify.launches += 1
+    mla_paged_attention_verify.launches += mla_launches_per_call(q_lat.dtype)
     return out
 
 
@@ -589,7 +762,8 @@ MLA_VERIFY_C_SIGNATURES = {
 # block on Hopper, less 2 KB for static shared memory)
 RING_MAX_STAGES = 4
 RING_SMEM_BYTES = 225 * 1024
-# lines of one MLA ring stage (the off kernels' tile, csrc kTileLines)
+# lines of one MLA ring stage (the off kernels' tile, csrc kTileLines; the
+# tensor-core core's too)
 MLA_RING_TILE_LINES = 16
 
 
@@ -613,6 +787,27 @@ def mla_ring_stage_bytes(latent_dim: int, rope_dim: int, kv_isize: int,
     each line's latent and rope float32 scale."""
     line = (int(latent_dim) + int(rope_dim)) * int(kv_isize)
     return MLA_RING_TILE_LINES * (line + (8 if quantized else 0))
+
+
+def mla_core_stages(latent_dim: int, rope_dim: int, quantized: bool,
+                    page_size: int) -> int:
+    """Tiles the ring keeps in flight in the tensor-core MLA core
+    (``Shape::smem_bytes`` in ``csrc/mla_core.cu``): at most
+    ``RING_MAX_STAGES`` and a chunk's tiles, as many as fit in
+    ``RING_SMEM_BYTES`` beside the 64 heads' queries (and, for a quantized
+    pool, the widened tile).  A stage is a bf16 tile of (r / 64 + 1)
+    128-byte swizzle atoms of 16 lines, or 16 raw code lines and their
+    32 float32 scales."""
+    atoms = -(-int(latent_dim) // 64) + 1
+    tile = atoms * MLA_RING_TILE_LINES * 128
+    if quantized:
+        stage = MLA_RING_TILE_LINES * (int(latent_dim) + int(rope_dim) + 8)
+    else:
+        stage = tile
+    fixed = 1024 + atoms * MLA_HEAD_TILE * 128 + (tile if quantized else 0)
+    chunk_tiles = -(-MLA_CHUNK_PAGES * int(page_size) // MLA_RING_TILE_LINES)
+    return max(1, min(RING_MAX_STAGES, chunk_tiles,
+                      (RING_SMEM_BYTES - fixed) // stage))
 
 
 def ring_stages(stage_bytes: int, n_blocks: int) -> int:
@@ -703,7 +898,10 @@ def mla_paged_attention_ring(
     queries, pools in their dtype or int8 / float8_e4m3fn with float32
     scale pools (P, page), latent rank in ``MLA_LATENT_DIMS``, rope dim in
     ``MLA_ROPE_DIMS``, page size in ``MLA_PAGE_SIZES``, any head count and
-    T >= 1.  ``launches`` counts the kernel launches this wrapper made."""
+    T >= 1.  bf16 runs the off walks' tensor-core core
+    (``csrc/mla_core.cu``) with :func:`mla_core_stages` tiles in flight.
+    ``launches`` counts the kernel launches this wrapper made
+    (:func:`mla_launches_per_call` a call)."""
     if not q_lat.is_cuda:
         raise ValueError(
             "mla_paged_attention_ring launches a CUDA kernel and takes CUDA "
@@ -715,21 +913,27 @@ def mla_paged_attention_ring(
     B, T, H, r, dr, page_size, n_blocks, store = _mla_slab_shapes(
         ql4, qr4, c_pool, r_pool, block_tables, pos, c_scale, r_scale)
     dev = q_lat.device
-    stages = ring_stages(mla_ring_stage_bytes(
-        r, dr, c_pool.element_size(), store != 0), n_blocks)
     out = torch.empty_like(ql4)
-    lib = build.library("mla_paged_attention_ring", MLA_RING_C_SIGNATURES)
-    err = lib.mla_paged_attention_ring(
-        ql4.data_ptr(), qr4.data_ptr(), c_pool.data_ptr(),
-        r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T, H, r,
-        dr, page_size, n_blocks, stages, float(scale),
-        _DTYPE_CODES[q_lat.dtype], store,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if q_lat.dtype == torch.bfloat16:
+        err = _mla_core(ql4, qr4, c_pool, r_pool, c_scale, r_scale,
+                        block_tables, pos, out,
+                        stages=mla_core_stages(r, dr, store != 0, page_size),
+                        scale=scale, store=store)
+    else:
+        stages = ring_stages(mla_ring_stage_bytes(
+            r, dr, c_pool.element_size(), store != 0), n_blocks)
+        lib = build.library("mla_paged_attention_ring", MLA_RING_C_SIGNATURES)
+        err = lib.mla_paged_attention_ring(
+            ql4.data_ptr(), qr4.data_ptr(), c_pool.data_ptr(),
+            r_pool.data_ptr(), _ptr(c_scale), _ptr(r_scale),
+            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T, H,
+            r, dr, page_size, n_blocks, stages, float(scale),
+            _DTYPE_CODES[q_lat.dtype], store,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_paged_attention_ring kernel launch failed: "
                            f"CUDA error {err}")
-    mla_paged_attention_ring.launches += 1
+    mla_paged_attention_ring.launches += mla_launches_per_call(q_lat.dtype)
     return out[:, 0] if decode else out
 
 

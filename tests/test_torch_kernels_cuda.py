@@ -137,7 +137,9 @@ def _mla_check(args, dtype):
     ref32 = pa.mla_paged_attention_reference(*(a.float() for a in args[:4]),
                                              *args[4:], **kw)
     torch.cuda.synchronize()
-    assert pa.mla_paged_attention.launches == n + 1
+    # bf16: the tensor-core core's split and merge kernels
+    assert pa.mla_paged_attention.launches == n + (
+        2 if dtype == torch.bfloat16 else 1)
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
     torch.testing.assert_close(out.float(), ref32, **TOL_F32_PLAIN[dtype])
@@ -347,7 +349,8 @@ def _mla_verify_check(args, dtype):
     ref32 = pa.mla_paged_attention_verify_reference(
         *(a.float() for a in args[:4]), *args[4:], **kw)
     torch.cuda.synchronize()
-    assert pa.mla_paged_attention_verify.launches == n + 1
+    assert pa.mla_paged_attention_verify.launches == n + (
+        2 if dtype == torch.bfloat16 else 1)
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
     torch.testing.assert_close(out.float(), ref32, **TOL_F32_PLAIN[dtype])
@@ -399,8 +402,7 @@ def test_mla_verify_kernel_t1_equals_decode_kernel(card, dtype):
     dec = pa.mla_paged_attention(ql[:, 0].contiguous(),
                                  qr[:, 0].contiguous(), c, r, bt, pos, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(ver.float(), dec.float(),
-                               **TOL_F32_PLAIN[dtype])
+    assert torch.equal(ver, dec)           # the same walk, bit for bit
 
 
 def test_mla_verify_kernel_rejects_bad_inputs(card):
@@ -661,20 +663,9 @@ def test_bf16_gemm_kernels_run_on_hgmma(card):
     # every bf16 kernel of the three libraries multiplies with HGMMA
     # (wgmma) in its SASS; the float32 kernels (and the Winograd stage's,
     # float32 only) keep FFMA and no HMMA / HGMMA: a full float32 product
-    import re
-    import subprocess
-    from pathlib import Path
-    from repro_torch.kernels import build
-    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     for name in ("inner_product", "conv_direct", "flash_attention",
                  "winograd_stage"):
-        build.build([name])
-        sass = subprocess.run([str(cuobjdump), "--dump-sass",
-                               str(build.library_path(name))],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        funcs = {f.split("\n", 1)[0].strip(): f
-                 for f in re.split(r"\n\s*Function : ", sass)[1:]}
+        funcs = _sass_functions(name)
         bf16 = [f for f in funcs if "bf16_kernel" in f]
         f32 = [f for f in funcs if "f32_kernel" in f]
         assert f32 and (bf16 or name == "winograd_stage"), sorted(funcs)
@@ -1048,6 +1039,13 @@ def test_flash_attention_kernel_rejects_bad_inputs(card):
 # of the plain versions, over the off kernels' parametrisations.
 # --------------------------------------------------------------------------
 
+def _kernels_a_call(wrapper, dtype):
+    # a bf16 call of an MLA wrapper runs the tensor-core core: its split
+    # and merge kernels; every other call one kernel
+    mla = wrapper.__name__.startswith("mla_")
+    return 2 if mla and dtype == torch.bfloat16 else 1
+
+
 def _ring_check(ring, off, plain, args, n_float, kw, dtype):
     n = ring.launches
     out = ring(*args, **kw)
@@ -1055,7 +1053,7 @@ def _ring_check(ring, off, plain, args, n_float, kw, dtype):
     ref = plain(*args, **kw)
     ref32 = plain(*(a.float() for a in args[:n_float]), *args[n_float:], **kw)
     torch.cuda.synchronize()
-    assert ring.launches == n + 1
+    assert ring.launches == n + _kernels_a_call(ring, dtype)
     assert bool(torch.isfinite(out).all())
     assert torch.equal(out, want)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
@@ -1290,7 +1288,7 @@ def _quantized_check(kernel, plain, args, kw, dtype):
     out = kernel(*args, **kw)
     ref = plain(*args, **kw)
     torch.cuda.synchronize()
-    assert kernel.launches == n + 1
+    assert kernel.launches == n + _kernels_a_call(kernel, dtype)
     assert out.dtype == dtype and bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.float(), ref.float(), **QTOL[dtype])
     return out
@@ -1569,3 +1567,209 @@ def test_mla_ring_quantized_verify_equals_off_kernel(
                           pa.mla_paged_attention_verify_reference, args, 2,
                           ("c_scale", "r_scale"), dict(scale=192 ** -0.5),
                           dtype)
+
+
+# --------------------------------------------------------------------------
+# The tensor-core MLA core (csrc/mla_core.cu), the bf16 path of the
+# decode, verify and ring wrappers: split-K over chunks of pages,
+# merged in chunk order.  Each case holds the off kernel against the plain
+# version (TOL / TOL_F32_PLAIN, or QTOL over quantized pools) and against
+# the model of its own arithmetic order (pa.mla_split_model, held against
+# the JAX reference on the CPU by tests/test_torch_mla_split.py) at
+# MODEL_TOL: float32 sums in another order, then one bf16 rounding of the
+# output (at most one bf16 ulp, 2^-8 relative, where the two land on
+# either side of a rounding boundary).  The ring equals the off kernel,
+# and a second call the first, bit for bit.
+# --------------------------------------------------------------------------
+
+MODEL_TOL = dict(atol=1e-3, rtol=2 ** -7)
+MLA_STORES = ["bf16", *KV_DTYPES]
+
+
+def _stored(args, store):
+    """(args, scale kwargs) with the pools at 2 and 3 in ``store``."""
+    if store == "bf16":
+        return args, {}
+    out, scales = list(args), []
+    for i in (2, 3):
+        out[i], s = kvq.quantize(args[i].float(), store)
+        scales.append(s)
+    return tuple(out), dict(c_scale=scales[0], r_scale=scales[1])
+
+
+def _core_check(args, store):
+    args, skw = _stored(args, store)
+    kw = dict(scale=192 ** -0.5, **skw)
+    decode = args[0].dim() == 3
+    off = pa.mla_paged_attention if decode else pa.mla_paged_attention_verify
+    plain = (pa.mla_paged_attention_reference if decode
+             else pa.mla_paged_attention_verify_reference)
+    n = off.launches
+    out, again = off(*args, **kw), off(*args, **kw)
+    ring = pa.mla_paged_attention_ring(*args, **kw)
+    model = pa.mla_split_model(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert off.launches == n + 4          # two calls, two kernels each
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert torch.equal(out, again) and torch.equal(out, ring)
+    torch.testing.assert_close(out.float(), model.float(), **MODEL_TOL)
+    if skw:
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **QTOL[torch.bfloat16])
+    else:
+        ref32 = plain(*(a.float() for a in args[:4]), *args[4:], **kw)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **TOL[torch.bfloat16])
+        torch.testing.assert_close(out.float(), ref32,
+                                   **TOL_F32_PLAIN[torch.bfloat16])
+    return out
+
+
+@pytest.mark.parametrize("store", MLA_STORES)
+@pytest.mark.parametrize("B,H,r,dr,page,nb,lens", [
+    # deepseek-v2 width: lines on chunk edges (a chunk is 2 pages, 32
+    # lines), one line, a full table; every slot idle
+    (4, 128, 512, 64, 16, 16, (32, 64, 33, 31)),
+    (4, 128, 512, 64, 16, 16, (1, 2, 16, 17)),
+    (4, 128, 512, 64, 16, 16, (256, 256, 255, 224)),
+    (4, 128, 512, 64, 16, 16, None),
+    # smoke widths (H 4, r 32, dr 8, page 8: a chunk is 16 lines)
+    (3, 4, 32, 8, 8, 4, (1, 16, 32)),
+    (3, 4, 32, 8, 8, 4, None),
+], ids=["chunk-edges", "one-line", "full-table", "trash", "smoke",
+        "smoke-trash"])
+def test_mla_core_decode_edges(card, store, B, H, r, dr, page, nb, lens):
+    rng = np.random.default_rng(B + H + r + page)
+    args = _mla_case(rng, B, H, r, dr, page, nb, torch.bfloat16, card,
+                     trash=lens is None, lens=list(lens or ()))
+    _core_check((args[0] * 0.5, args[1] * 0.5, *args[2:]), store)
+
+
+@pytest.mark.parametrize("store", MLA_STORES)
+@pytest.mark.parametrize("B,T,H,r,dr,page,nb,lens", [
+    (4, 4, 128, 512, 64, 16, 17, (97, 163, 190, 229)),
+    (4, 4, 128, 512, 64, 16, 17, (29, 32, 1, 270)),   # chains across edges
+    (3, 3, 4, 32, 8, 8, 5, (1, 14, 30)),
+], ids=["serve", "chunk-edges", "smoke"])
+def test_mla_core_verify_edges(card, store, B, T, H, r, dr, page, nb, lens):
+    rng = np.random.default_rng(B + T + r)
+    args = _mla_verify_case(rng, B, T, H, r, dr, page, nb, torch.bfloat16,
+                            card, lens=list(lens))
+    _core_check((args[0] * 0.5, args[1] * 0.5, *args[2:]), store)
+
+
+@pytest.mark.parametrize("store", MLA_STORES)
+@pytest.mark.parametrize("B,H,r,dr,page,nb", [
+    (4, 128, 512, 64, 16, 16), (3, 4, 32, 8, 8, 4)], ids=["full", "smoke"])
+def test_mla_core_t1_verify_and_ring_equal_decode(card, store, B, H, r, dr,
+                                                  page, nb):
+    rng = np.random.default_rng(70 + r)
+    args = _mla_verify_case(rng, B, 1, H, r, dr, page, nb, torch.bfloat16,
+                            card)
+    args, skw = _stored(args, store)
+    kw = dict(scale=192 ** -0.5, **skw)
+    ql, qr = args[0][:, 0].contiguous(), args[1][:, 0].contiguous()
+    dec = pa.mla_paged_attention(ql, qr, *args[2:], **kw)
+    ver = pa.mla_paged_attention_verify(*args, **kw)[:, 0]
+    ring_dec = pa.mla_paged_attention_ring(ql, qr, *args[2:], **kw)
+    ring_ver = pa.mla_paged_attention_ring(*args, **kw)[:, 0]
+    torch.cuda.synchronize()
+    for got in (ver, ring_dec, ring_ver):
+        assert torch.equal(got, dec)
+
+
+def test_mla_split_plan_matches_the_launch(card):
+    # the workspace the wrappers allocate is the header's count, and the
+    # plan's blocks are the ones with lines to walk
+    rng = np.random.default_rng(71)
+    args = _mla_case(rng, 4, 128, 512, 64, 16, 16, torch.bfloat16, card,
+                     lens=[97, 163, 190, 229])
+    plan = pa.mla_split_plan(args[5], 1, 16, 16, 128, 512)
+    assert (plan["chunk_lines"], plan["grid"], plan["blocks"]) == (32, 128,
+                                                                   96)
+    out = pa.mla_paged_attention(*args, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
+def _sass_functions(name):
+    """{mangled name: SASS} of each kernel in csrc/<name>.cu's library
+    (built if it is not), from cuobjdump beside nvcc."""
+    import re
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    build.build([name])
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {f.split("\n", 1)[0].strip(): f
+            for f in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def test_mla_bf16_kernels_run_on_hgmma(card):
+    # the tensor-core core's split kernel carries HGMMA, built once for
+    # the three walks; the float32 CUDA-core kernels FFMA and no HGMMA
+    funcs = _sass_functions("mla_core")
+    split = [f for f in funcs if "mla_split_bf16_kernel" in f]
+    assert len(split) == 3 * 5 * 4, sorted(funcs)
+    for f in split:
+        assert "HGMMA" in funcs[f], f
+    for name, f32 in (("mla_paged_attention", "mla_decode_kernel"),
+                      ("mla_paged_attention_verify", "mla_verify_kernel"),
+                      ("mla_paged_attention_ring", "mla_ring_kernel")):
+        funcs = _sass_functions(name)
+        cuda_cores = [f for f in funcs if f32 in f]
+        assert cuda_cores and not any("mla_split" in f for f in funcs), \
+            sorted(funcs)
+        for f in cuda_cores:
+            assert "HGMMA" not in funcs[f] and "FFMA" in funcs[f], f
+
+
+# --------------------------------------------------------------------------
+# GELU's vector walks (csrc/gelu.cu): 16-byte accesses over the flat array
+# and over aligned row-wise tiles, bit-equal to the strided walk
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("shape", [(333, 200), (7, 9, 13), (1, 5), (1000, 3),
+                                   (4099,)])
+def test_gelu_vector_walk_at_any_alignment(card, dt, offset, shape):
+    """A contiguous view ``offset`` elements into a buffer (the vector walk
+    peels a scalar head) and lengths that are not a multiple of 8 or 4 (a
+    scalar tail): blocked equals naive bit for bit."""
+    dtype = _DT[dt]
+    dname = str(dtype).split(".")[-1]
+    n = int(np.prod(shape))
+    buf = _normal(np.random.default_rng(n + offset), (n + offset,), card,
+                  dtype, 2.0)
+    x = buf[offset:].view(shape)
+    blocked, naive = gelu_mod.gelu_blocked(x), gelu_mod.gelu_naive(x)
+    torch.cuda.synchronize()
+    assert (blocked.data_ptr() - x.data_ptr()) % 16 == 0
+    assert torch.equal(blocked, naive)
+    torch.testing.assert_close(blocked.float(), prim_ref.gelu(x).float(),
+                               **tolerance("elementwise", dname))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("block", [(64, 40), (5, 32), (256, 128)])
+def test_gelu_row_tiles_take_vectors_bit_equal(card, dt, block):
+    x = _normal(np.random.default_rng(5), (333, 200), card, _DT[dt], 2.0)
+    out = gelu_mod.gelu_2d(x, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gelu_mod.gelu_naive(x))
+
+
+def test_gelu_vector_kernels_issue_16_byte_accesses(card):
+    import re
+    funcs = _sass_functions("gelu")
+    for kernel in ("gelu_flat_kernel", "gelu_rows_kernel"):
+        found = [f for f in funcs if kernel in f]
+        assert found, sorted(funcs)
+        for f in found:
+            assert re.search(r"LDG\.E[.\w]*\.128", funcs[f]), f
+            assert re.search(r"STG\.E[.\w]*\.128", funcs[f]), f
