@@ -8,20 +8,21 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together, and one more for the flash kernel's
    measurement build with P rounded once to bf16) and print the build
-   time, each source's registers and spills (and those of the MLA
-   tensor-core core's split and merge kernels and of GELU's vector
-   walks), then check their SASS: HGMMA in every instantiation of the
-   MLA core's split kernel (``csrc/mla_core.cu``, the bf16 path of the
-   three MLA wrappers), 16-byte loads and stores (LDG / STG .128) in
-   GELU's flat walk;
+   time, each source's registers and spills (and those of the two
+   tensor-core cores' kernels and of GELU's vector walks), then check
+   their SASS: HGMMA in every instantiation of the MLA core's split
+   kernel (``csrc/mla_core.cu``, the bf16 path of the three MLA
+   wrappers) and of the GQA core's
+   (``csrc/gqa_core.cu``, the bf16 path of the three GQA wrappers),
+   16-byte loads and stores (LDG / STG .128) in GELU's flat walk;
 3. kernel phases: each kernel (GQA ``paged_attention`` and
    ``paged_attention_verify``, MLA ``mla_paged_attention`` and
    ``mla_paged_attention_verify``) against its plain PyTorch version on
    the card at its main path's shapes and at its edge cases (ragged
    tables, idle all-trash lanes, soft cap; for the verify kernels also
    draft chains crossing a page, drafts on trash margin entries, chains
-   past the table, and T = 1 against the decode kernel), with the
-   tolerance stated; the ``pipeline="double"`` ring kernels
+   past the table, and T = 1 against the decode kernel, bit for bit in
+   bf16), with the tolerance stated; the ``pipeline="double"`` ring kernels
    (``paged_attention_ring``, ``mla_paged_attention_ring``) on every one
    of those cases, equal to the off kernel bit for bit (torch.equal) and
    within the same tolerance of the plain version; the four kernels'
@@ -35,10 +36,11 @@ Phases, in order; any failure exits non-zero:
    ring kernel, the plain version and one PyTorch library call computing
    the same function, beside the bound, and of the scale branches (off
    and ring) on the same inputs quantized, beside the bound at the
-   quantized line bytes; for the MLA decode and verify kernels at their
-   main inputs, the bf16 path's chunk and block count and its output
-   against the model of its own arithmetic order
-   (``mla_split_model``) on bf16, int8 and fp8 pools;
+   quantized line bytes; for the GQA and MLA decode and verify kernels at
+   their main inputs, the bf16 path's chunk and block count and its
+   output against the model of its own arithmetic order
+   (``gqa_split_model``, ``mla_split_model``) on bf16, int8 and fp8
+   pools;
 4. the paper's primitive study (launch/primitives.py): the microbench
    (FMA-chain probe, matmul peaks per dtype, copy / fill / triad
    bandwidth, warm vs cold) printed beside the data sheet; the
@@ -71,7 +73,7 @@ Phases, in order; any failure exits non-zero:
    every request must finish, each path's kernel launch counts (zeroed
    just before the run, read just after) must match its step counts
    times the kernels of a call (two for the MLA wrappers' tensor-core
-   core, a split and a merge kernel; one for GQA), and
+   core, a split and a merge kernel; one for the GQA core), and
    one step's logits must match the same work done with the plain
    attention:
    a. the continuous-batching engine on full-width qwen3-0.6b (GQA);
@@ -352,6 +354,8 @@ def kernel_phase(torch, np, pa):
         fail(f"library yardstick disagrees with the plain version: {lib_err}")
     library_ms = device_ms(library, copies)
     isize = c["q"].element_size()
+    gqa_split_report(torch, kvq, pa, "paged_attention", pa.paged_attention,
+                     copies, kw, 1, N_BLOCKS)
 
     def bound(kv_isize, scale_bytes=0):
         return paged_bound(c["pos"], 1, S, KV * (HD * kv_isize + scale_bytes)
@@ -373,7 +377,7 @@ def kernel_phase(torch, np, pa):
           f"bound {bound_ms:.5f} ms ({bound_by}; operations {ops_ms:.5f} ms "
           f"at bf16 peak)")
     return (dict(name="paged_attention", route="cuda",
-                 source="src/repro_torch/csrc/paged_attention.cu",
+                 source="src/repro_torch/csrc/gqa_core.cu",
                  replaces="src/repro/kernels/paged_attention.py:345",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -462,6 +466,39 @@ def split_report(torch, kvq, pa, label: str, kernel, args, T: int,
           f"({pa.MLA_CHUNK_PAGES} pages), {plan['blocks']} of "
           f"{plan['grid']} split blocks walk lines, then a merge kernel of "
           f"{rows * q_lat.shape[-2]} blocks; vs the split model "
+          f"(atol {MODEL_TOL['atol']}, rtol 2^-7) max abs diff "
+          + ", ".join(errs))
+
+
+def gqa_split_report(torch, kvq, pa, label: str, kernel, copies, kw, T: int,
+                     n_blocks: int) -> None:
+    """The GQA core (bf16 path of rows 1-3) at a row's timing inputs: its
+    chunks, grid, working blocks and merging row groups
+    (kernels.paged_attention.gqa_split_plan); the kernel against the split
+    model (gqa_split_model) on bf16, int8 and fp8 pools, failing past
+    MODEL_TOL."""
+    q, k, v, bt, pos = copies[0]
+    KV, G = q.shape[-3], q.shape[-2]
+    plan = pa.gqa_split_plan(pos, T, k.shape[1], n_blocks, G, KV)
+    errs = []
+    for kvd in ("bf16", *KV_DTYPES):
+        if kvd == "bf16":
+            a, skw = copies[0], {}
+        else:
+            a, scales = quantize_pools(kvq, copies[0], 1, kvd)
+            skw = dict(zip(("k_scale", "v_scale"), scales))
+        out = kernel(*a, **kw, **skw)
+        model = pa.gqa_split_model(*a, **kw, **skw)
+        torch.cuda.synchronize()
+        err = float((out.float() - model.float()).abs().max())
+        if not torch.allclose(out.float(), model.float(), **MODEL_TOL):
+            fail(f"{label} {kvd} disagrees with the split model: {err}")
+        errs.append(f"{kvd} {err:.3e}")
+    print(f"[split] {label}: chunks of {plan['chunk_lines']} lines "
+          f"({pa.GQA_CHUNK_PAGES} x {k.shape[1]}-line pages), "
+          f"{plan['blocks']} of {plan['grid']} blocks walk lines, "
+          f"{plan['merges']} row groups merge in their last block, one "
+          f"launch; vs the split model "
           f"(atol {MODEL_TOL['atol']}, rtol 2^-7) max abs diff "
           + ", ".join(errs))
 
@@ -831,8 +868,11 @@ def gqa_verify_kernel_phase(torch, np, pa):
                 d = float((ver.float() - dec.float()).abs().max())
                 print(f"[kernel] paged_attention_verify {name:8s} T=1 vs "
                       f"the decode kernel: max abs diff {d:.3e}")
-                if not torch.allclose(ver.float(), dec.float(),
-                                      **TOL_F32_PLAIN[name]):
+                # bf16: one core for both walks, bit for bit
+                same = (torch.equal(ver, dec) if dtype == torch.bfloat16
+                        else torch.allclose(ver.float(), dec.float(),
+                                            **TOL_F32_PLAIN[name]))
+                if not same:
                     fail(f"paged_attention_verify at T=1 differs from the "
                          f"decode kernel by {d}")
                 t1_equal(torch, kvq, "paged_attention_verify", name,
@@ -879,6 +919,8 @@ def gqa_verify_kernel_phase(torch, np, pa):
              f"version: {lib_err}")
     library_ms = device_ms(library, copies)
     isize = q.element_size()
+    gqa_split_report(torch, kvq, pa, "paged_attention_verify",
+                     pa.paged_attention_verify, copies, kw, V_T, V_BLOCKS)
 
     def bound(kv_isize, scale_bytes=0):
         return paged_bound(pos, V_T, S, KV * (HD * kv_isize + scale_bytes)
@@ -903,7 +945,7 @@ def gqa_verify_kernel_phase(torch, np, pa):
           f"{lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by}; bytes "
           f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms at bf16 peak)")
     return (dict(name="paged_attention_verify", route="cuda",
-                 source="src/repro_torch/csrc/paged_attention_verify.cu",
+                 source="src/repro_torch/csrc/gqa_core.cu",
                  replaces="src/repro/kernels/paged_attention.py:557",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1578,6 +1620,50 @@ def flash_single_p(torch, card, shapes) -> None:
               f"{errs['single'][0]:.3e}, {errs['single'][1]:.3f} of the "
               f"tolerance); single / split {(t[1] + t[2]) / (t[0] + t[3]):.3f}")
         del q, k, v
+    torch.cuda.empty_cache()
+
+
+def layernorm_in_turns(torch, card) -> None:
+    """bf16 LayerNorm (row 9) at the study's bf16 cell (65536 x 4096, 512
+    MB, so every call reads cold HBM): the kernel and ``F.layer_norm``
+    (weights cast to bf16 once, outside the time) timed in turns (kernel,
+    library, library, kernel) on the same inputs, after the launch counts
+    were read; the kernel held against the plain version run in float32
+    at the study's tolerance."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.launch.primitives import tolerance
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    r, d = 65536, 4096
+    x = (torch.randn((r, d), generator=gen, device="cuda") * 3.0).bfloat16()
+    g = torch.randn((d,), generator=gen, device="cuda")
+    b = torch.randn((d,), generator=gen, device="cuda")
+    gx, bx = g.bfloat16(), b.bfloat16()
+
+    def kernel(x, g, b):
+        return ln.layernorm(x, g, b)
+
+    def library(x, g, b):
+        return F.layer_norm(x, (d,), gx, bx, eps=ln.EPS)
+    want = ln.layernorm_reference(x.float(), g, b)
+    tol = tolerance("norm", "bfloat16", vs="plain_f32")
+    errs = {}
+    for label, fn in (("kernel", kernel), ("library", library)):
+        diff = (fn(x, g, b).float() - want).abs()
+        errs[label] = float(diff.max())
+        del diff
+    if not torch.allclose(kernel(x, g, b).float(), want, **tol):
+        fail(f"layernorm bf16 {r} x {d} misses its tolerance: "
+             f"{errs['kernel']}")
+    del want
+    t = [device_ms(fn, [(x, g, b)], reps=10, per_sample=5)
+         for fn in (kernel, library, library, kernel)]
+    print(f"[layernorm] {card}: bf16 {r} x {d} in turns: kernel {t[0]:.4f} "
+          f"/ {t[3]:.4f} ms (max abs err vs plain in f32 "
+          f"{errs['kernel']:.3e}), F.layer_norm {t[1]:.4f} / {t[2]:.4f} ms "
+          f"({errs['library']:.3e}); kernel / library "
+          f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}")
+    del x
     torch.cuda.empty_cache()
 
 
@@ -2349,24 +2435,30 @@ def print_build_summary(name: str, log: str) -> None:
                               part.split("\n", 1)[0].strip()))
         if found:
             regs = [f[0] for f in found]
-            main = [f[0] for f in found if MAIN_INSTANCE in f[2]]
+            tail, shape = MAIN_INSTANCE.get(family, ("", ""))
+            main = [f[0] for f in found if tail and tail in f[2]]
             print(f"[build] {name}: {family} {len(found)} instantiations, "
                   f"{min(regs)}-{max(regs)} registers"
-                  + (f" ({main[0]} at bf16 r 512 dr 64)" if main else "")
+                  + (f" ({main[0]} at {shape})" if main else "")
                   + f", {sum(f[1] > 0 for f in found)} spilling")
 
 
 # kernels whose registers and spills the build lines print, and the
-# mangled tail of the MLA core's main-path instantiation (bf16 pools, r
-# 512, dr 64)
+# mangled tail of the two cores' main-path instantiations (bf16 pools; MLA
+# r 512, dr 64; GQA hd 128)
 NEW_KERNELS = ("mla_split_bf16_kernel", "mla_combine_kernel",
-               "gelu_flat_kernel", "gelu_rows_kernel")
-MAIN_INSTANCE = "I13__nv_bfloat16Li512ELi64E"
+               "gqa_split_bf16_kernel", "gelu_flat_kernel",
+               "gelu_rows_kernel")
+MAIN_INSTANCE = {
+    "mla_split_bf16_kernel": ("I13__nv_bfloat16Li512ELi64E",
+                              "bf16 r 512 dr 64"),
+    "gqa_split_bf16_kernel": ("I13__nv_bfloat16Li128E", "bf16 hd 128")}
 # the instructions that show each new kernel's design in its SASS: wgmma
-# in the MLA core's split kernels, 16-byte loads and stores in GELU's
+# in the two cores' split kernels, 16-byte loads and stores in GELU's
 # vector walks
 HGMMA = {"HGMMA": r"HGMMA"}
 SASS_WANT = {"mla_core": ("mla_split_bf16_kernel", HGMMA),
+             "gqa_core": ("gqa_split_bf16_kernel", HGMMA),
              "gelu": ("gelu_flat_kernel",
                       {"LDG.E.128": r"LDG\.E[.\w]*\.128",
                        "STG.E.128": r"STG\.E[.\w]*\.128"})}
@@ -2463,7 +2555,7 @@ def main() -> int:
     # and their scale branches the same on the same inputs quantized
     ring_entry = dict(
         entry, name="paged_attention_ring",
-        source="src/repro_torch/csrc/paged_attention_ring.cu",
+        source="src/repro_torch/csrc/gqa_core.cu",
         replaces="src/repro/kernels/paged_attention.py:803", **gqa_ring)
     mla_ring_entry = dict(
         mla_entry, name="mla_paged_attention_ring",
@@ -2482,6 +2574,7 @@ def main() -> int:
     prim_entries, roof = primitives_phase(torch, np, card)
     t_phase = phase_time("primitive study", t_phase)
     npa_entries = norm_pool_attention_phase(torch, np, card, roof)
+    layernorm_in_turns(torch, card)
     t_phase = phase_time("layernorm / pooling / attention", t_phase)
 
     params = make_params(torch, qwen)

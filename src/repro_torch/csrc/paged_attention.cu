@@ -13,10 +13,15 @@
 // ridge.  At 4 slots x 8 KV heads x 256 context x hd 128 in bf16 that is
 // ~4.2 MB, ~1.3 us at 3.35 TB/s.
 //
+// bf16 queries take csrc/gqa_core.cu (wgmma with the rows as M, split-K
+// over chunks of pages merged in chunk order), the core that the verify
+// walk and the ring call too; the wrapper picks it by the queries' dtype.
+// This source is the float32 path, on the CUDA cores.
+//
 // Quantized pools (int8 / fp8 e4m3 codes, csrc/kv_load.cuh): the pool's
 // storage type S is the kernel's second template parameter; a lane still
-// covers VEC elements of the query's dtype, loading VEC codes (8 bytes
-// beside a bf16 query, 4 beside an f32 one), and each stream reads its
+// covers VEC elements of the query's dtype, loading VEC codes (4 bytes
+// beside a float32 query), and each stream reads its
 // line's K and V scales (k_scale / v_scale (P, page, KV) float32) once;
 // every element dequantizes as float(code) * scale before the dot
 // product, the Pallas kernel's op order (paged_attention.py, the
@@ -36,15 +41,13 @@
 //   the value dtype first);
 // * the streams' states merge in shared memory at the end.
 // The grid is KV x B blocks (32 on the main path, on 132 SMs), so at small
-// batch the kernel is latency- and occupancy-bound, not bandwidth-bound;
-// splitting the page walk across blocks (flash-decoding) and TMA /
-// cp.async page pipelines are later work.
+// batch the kernel is latency- and occupancy-bound, not bandwidth-bound.
 //
 // C interface (bound with ctypes by repro_torch/kernels/build.py):
 //   int paged_attention_decode(q, k_pool, v_pool, k_scale, v_scale,
 //                              block_tables, pos, out, batch, kv_heads,
 //                              groups, head_dim, page_size, n_blocks,
-//                              scale, soft_cap, dtype /*0 f32, 1 bf16*/,
+//                              scale, soft_cap, dtype /*0 f32*/,
 //                              kv_dtype /*0 as q, 1 int8, 2 fp8 e4m3*/,
 //                              stream)
 // (the scale pointers are null unless kv_dtype quantizes) returns
@@ -65,15 +68,11 @@ constexpr float kNegInf = -1e30f;
 // elements of the query's dtype per lane vector (16 bytes of T)
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
-template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
-// T: the query / output dtype; S: the pools' storage type (T, int8_t or
-// __nv_fp8_e4m3)
+// T: the query / output dtype, float (bf16 queries take csrc/gqa_core.cu);
+// S: the pools' storage type (T, int8_t or __nv_fp8_e4m3)
 template <typename T, typename S, int HD, int GMAX>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
@@ -295,12 +294,7 @@ extern "C" int paged_attention_decode(
                static_cast<const float*>(v_scale), block_tables, pos, out,
                batch, kv_heads, groups, page_size, n_blocks, scale, soft_cap,
                static_cast<cudaStream_t>(stream)};
-  bool ok = false;
-  if (dtype == 0) {
-    ok = dispatch_store<float>(kv_dtype, head_dim, a);
-  } else if (dtype == 1) {
-    ok = dispatch_store<__nv_bfloat16>(kv_dtype, head_dim, a);
-  }
+  const bool ok = dtype == 0 && dispatch_store<float>(kv_dtype, head_dim, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

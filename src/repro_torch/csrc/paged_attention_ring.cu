@@ -32,7 +32,7 @@
 //   with 16-byte `cp.async.cg` copies by all 128 threads, one commit group
 //   per page; page j + stages - 1 is issued before page j is computed, so
 //   up to stages - 1 pages are in flight behind the one being scored
-//   (8 KB a stage at qwen3-0.6b: page 16, hd 128, bf16);
+//   (16 KB a stage at page 16, hd 128 in float32);
 // * quantized pools (int8 / fp8 e4m3 codes, csrc/kv_load.cuh; the storage
 //   type S is the second template parameter, as in the off kernels): a
 //   stage holds the page's K and V code slabs (page x hd bytes each, hd a
@@ -59,15 +59,17 @@
 // * rows: as in the verify kernel, T * G rows of any count, tiled 8 per
 //   block (grid KV x B x ceil(T * G / 8)), each row with its own causal
 //   limit pos + t; idle all-trash lanes read trash page 0 and stay finite.
-// Split-K over pages and tensor cores for the (T * G) x page score tile
-// are later work.
+// bf16 queries take csrc/gqa_core.cu with tiles in flight (tensor cores,
+// split-K over chunks of pages), the core that the off walks call too; the
+// wrapper picks it by the queries' dtype.  This source is the float32
+// ring, on the CUDA cores.
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
 //   int paged_attention_ring(q, k_pool, v_pool, k_scale, v_scale,
 //                            block_tables, pos, out, batch, n_tokens,
 //                            kv_heads, groups, head_dim, page_size,
 //                            n_blocks, stages, scale, soft_cap,
-//                            dtype /*0 f32, 1 bf16*/,
+//                            dtype /*0 f32*/,
 //                            kv_dtype /*0 as q, 1 int8, 2 fp8 e4m3*/,
 //                            stream)
 // q and out are (batch, n_tokens, kv_heads, groups, head_dim); the scale
@@ -92,12 +94,8 @@ constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory a block may u
 
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
-template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Lane layout of one head vector (as in the off kernels) and the size of
 // the streams' merge buffers.
@@ -132,9 +130,10 @@ __host__ __device__ inline size_t stage_bytes(int page_size) {
   return (codes + scales + 15) / 16 * 16;
 }
 
-// T: the query / output dtype; S: the pools' storage type (T, int8_t or
-// __nv_fp8_e4m3).  RMAX: rows held per block (a power of two <= kRowTile,
-// >= the rows of any tile of this launch).
+// T: the query / output dtype, float (bf16 queries take csrc/gqa_core.cu);
+// S: the pools' storage type (T, int8_t or __nv_fp8_e4m3).  RMAX: rows
+// held per block (a power of two <= kRowTile, >= the rows of any tile of
+// this launch).
 template <typename T, typename S, int HD, int RMAX>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_ring_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
@@ -458,6 +457,5 @@ extern "C" int paged_attention_ring(
                batch, n_tokens, kv_heads, groups, page_size, n_blocks, stages,
                scale, soft_cap, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_store<float>(kv_dtype, head_dim, a);
-  if (dtype == 1) return dispatch_store<__nv_bfloat16>(kv_dtype, head_dim, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -40,15 +40,17 @@
 // per lane vector, the line's K and V scales read once per stream, each
 // element dequantized as float(code) * scale before the dot product, as
 // in the Pallas kernel's `quantized` branch of `_paged_verify_kernel`.
-// Split-K over pages, TMA / cp.async page rings and tensor cores for the
-// (T * G) x page score tile are later work.
+// bf16 queries take csrc/gqa_core.cu (tensor cores for the (T * G) x page
+// score tile, split-K over chunks of pages), which the decode walk and the
+// ring call too; the wrapper picks it by the queries' dtype.  This source
+// is the float32 path, on the CUDA cores.
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
 //   int paged_attention_verify(q, k_pool, v_pool, k_scale, v_scale,
 //                              block_tables, pos, out, batch, n_tokens,
 //                              kv_heads, groups, head_dim, page_size,
 //                              n_blocks, scale, soft_cap,
-//                              dtype /*0 f32, 1 bf16*/,
+//                              dtype /*0 f32*/,
 //                              kv_dtype /*0 as q, 1 int8, 2 fp8 e4m3*/,
 //                              stream)
 // q and out are (batch, n_tokens, kv_heads, groups, head_dim); the scale
@@ -71,16 +73,13 @@ constexpr float kNegInf = -1e30f;
 // elements of the query's dtype per lane vector (16 bytes of T)
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
-template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
-// T: the query / output dtype; S: the pools' storage type (T, int8_t or
-// __nv_fp8_e4m3); RMAX: rows held per block (a power of two <= kRowTile,
-// >= the rows of any tile of this launch).
+// T: the query / output dtype, float (bf16 queries take csrc/gqa_core.cu);
+// S: the pools' storage type (T, int8_t or __nv_fp8_e4m3); RMAX: rows
+// held per block (a power of two <= kRowTile, >= the rows of any tile of
+// this launch).
 template <typename T, typename S, int HD, int RMAX>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_verify_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
@@ -315,12 +314,7 @@ extern "C" int paged_attention_verify(
                static_cast<const float*>(v_scale), block_tables, pos, out,
                batch, n_tokens, kv_heads, groups, page_size, n_blocks, scale,
                soft_cap, static_cast<cudaStream_t>(stream)};
-  bool ok = false;
-  if (dtype == 0) {
-    ok = dispatch_store<float>(kv_dtype, head_dim, a);
-  } else if (dtype == 1) {
-    ok = dispatch_store<__nv_bfloat16>(kv_dtype, head_dim, a);
-  }
+  const bool ok = dtype == 0 && dispatch_store<float>(kv_dtype, head_dim, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

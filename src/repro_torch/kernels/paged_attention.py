@@ -11,14 +11,15 @@ removes them exactly.
 * GQA: q (B, KV, G, hd); k/v pools (P, page, KV, hd).
   :func:`paged_attention_reference` gathers the pages and attends — the
   JAX package's jnp reference, op for op; :func:`paged_attention`
-  launches ``csrc/paged_attention.cu`` (the port of the Pallas
-  ``_paged_decode_kernel``).
+  launches the port of the Pallas ``_paged_decode_kernel``: bf16 queries
+  on the tensor-core GQA core ``csrc/gqa_core.cu``, float32 queries on
+  ``csrc/paged_attention.cu``.
 * MLA, in the absorbed latent space: q_lat (B, H, r), q_rope (B, H, dr);
   latent / rope pools (P, page, r) / (P, page, dr); output o_lat
   (B, H, r).  :func:`mla_paged_attention_reference` is the jnp reference
-  op for op; :func:`mla_paged_attention` launches
-  ``csrc/mla_paged_attention.cu`` (the port of the Pallas
-  ``_mla_paged_decode_kernel``).
+  op for op; :func:`mla_paged_attention` launches the port of the Pallas
+  ``_mla_paged_decode_kernel``: bf16 on the tensor-core MLA core
+  ``csrc/mla_core.cu``, float32 on ``csrc/mla_paged_attention.cu``.
 
 Multi-token verification (speculative decoding) scores T = k + 1 query
 tokens per slot in one page walk; pos (B,) is then the position of the
@@ -26,19 +27,23 @@ FIRST query token and query t sees ``k_pos <= pos + t``:
 
 * GQA: q (B, T, KV, G, hd) -> (B, T, KV, G, hd).
   :func:`paged_attention_verify_reference` is the jnp reference op for
-  op; :func:`paged_attention_verify` launches
-  ``csrc/paged_attention_verify.cu`` (the port of ``_paged_verify_kernel``).
+  op; :func:`paged_attention_verify` launches the port of
+  ``_paged_verify_kernel`` (bf16 on ``csrc/gqa_core.cu``, float32 on
+  ``csrc/paged_attention_verify.cu``).
 * MLA: q_lat (B, T, H, r), q_rope (B, T, H, dr) -> o_lat (B, T, H, r).
   :func:`mla_paged_attention_verify_reference` /
-  :func:`mla_paged_attention_verify` (``csrc/mla_paged_attention_verify.cu``,
-  the port of ``_mla_paged_verify_kernel``).
+  :func:`mla_paged_attention_verify` (bf16 on ``csrc/mla_core.cu``,
+  float32 on ``csrc/mla_paged_attention_verify.cu``, the port of
+  ``_mla_paged_verify_kernel``).
 
 The JAX package's ``pipeline="double"`` schedule (a two-slab DMA walk,
-bit-identical to ``"off"``) becomes one ring kernel per family, decode
-and verify alike, whose page slabs stream through shared memory with
-``cp.async``: :func:`paged_attention_ring` (``csrc/paged_attention_ring.cu``,
-the port of ``_gqa_paged_double``) and :func:`mla_paged_attention_ring`
-(``csrc/mla_paged_attention_ring.cu``, of ``_mla_paged_double``).  Their
+bit-identical to ``"off"``) becomes one ring walk per family, decode and
+verify alike, whose page slabs stream through shared memory with
+``cp.async``: :func:`paged_attention_ring` (the port of
+``_gqa_paged_double``: bf16 on the GQA core with tiles in flight,
+float32 on ``csrc/paged_attention_ring.cu``) and
+:func:`mla_paged_attention_ring` (of ``_mla_paged_double``: bf16 on the
+MLA core, float32 on ``csrc/mla_paged_attention_ring.cu``).  Their
 outputs equal the ``"off"`` kernels' bit for bit.
 
 Quantized KV pools (``kernels/quantize.py``): the four plain versions
@@ -51,15 +56,16 @@ in the plain versions too (the dequantized values are), so only the
 summation order and the output rounding separate them from the kernels.
 The two ring kernels take them too: a stage carries a page's code slabs
 and their (page,) scale slabs, and the rings equal the quantized off
-kernels bit for bit.
+kernels bit for bit.  The two tensor-core cores take the codes as bf16
+(exact) and fold the line scales into the scores and into P
+(:func:`gqa_split_model`, :func:`mla_split_model`).
 
 The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions.  The kernels keep the scores and ``p``
-in float32, as the Pallas kernels do (the MLA kernels' bf16 path takes p
-into the tensor cores as bf16 hi + lo, :func:`mla_split_model`), while
-the references round the scores to the input dtype and cast the
-probabilities to the value dtype before the PV product; in bf16 the two
-therefore differ by bf16 rounding.
+in float32, as the Pallas kernels do (the cores' bf16 path takes p into
+the tensor cores as bf16 hi + lo), while the references round the scores
+to the input dtype and cast the probabilities to the value dtype before
+the PV product; in bf16 the two therefore differ by bf16 rounding.
 """
 
 from __future__ import annotations
@@ -73,10 +79,11 @@ from . import build
 
 NEG_INF = -1e30
 
-# head dims the GQA kernels (decode and verify) are instantiated for, and
-# the most query heads per KV head the DECODE kernel holds (its rows live
-# in registers; csrc/paged_attention.cu dispatches on the same sets).  The
-# verify kernel tiles its T * G rows 8 at a time and takes any count.
+# head dims the GQA kernels (decode and verify, both cores) are
+# instantiated for, and the most query heads per KV head the float32
+# DECODE kernel holds (its rows live in registers; csrc/paged_attention.cu
+# dispatches on the same sets).  The float32 verify kernel tiles its T * G
+# rows 8 at a time and the bf16 core 64 at a time: both take any count.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_MAX_GROUPS = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -332,6 +339,190 @@ def _mla_slab_shapes(q_lat, q_rope, c_pool, r_pool, block_tables, pos,
     return B, T, H, r, dr, page_size, n_blocks, store
 
 
+# bf16 queries of all three GQA wrappers take the tensor-core core
+# (csrc/gqa_core.cu): blocks of GQA_ROW_TILE of a (slot, KV head)'s T * G
+# rows over chunks of GQA_CHUNK_PAGES pages walked GQA_TILE_LINES lines at
+# a time; a row group's chunks merged in chunk order by its last block, so
+# a call is one kernel launch
+GQA_ROW_TILE = 64
+GQA_CHUNK_PAGES = 1
+GQA_TILE_LINES = 16
+
+
+def gqa_workspace_bytes(batch: int, n_tokens: int, kv_heads: int,
+                        groups: int, n_blocks: int, head_dim: int) -> int:
+    """Bytes of the GQA core's workspace (csrc/gqa_core.cu): per (slot, KV
+    head, row, chunk) hd float32 sums and the running max and sum, for the
+    most chunks a table of ``n_blocks`` pages holds."""
+    chunks = -(-int(n_blocks) // GQA_CHUNK_PAGES)
+    return (int(batch) * int(kv_heads) * int(n_tokens) * int(groups)
+            * chunks * (int(head_dim) + 2) * 4)
+
+
+def gqa_row_groups(batch: int, n_tokens: int, kv_heads: int,
+                   groups: int) -> int:
+    """Row groups of a GQA core call, one counter each: (slot, KV head,
+    tile of GQA_ROW_TILE of the T * G rows)."""
+    tiles = -(-int(n_tokens) * int(groups) // GQA_ROW_TILE)
+    return int(batch) * int(kv_heads) * tiles
+
+
+# the core's arrival counters, one int32 per row group, per (device,
+# stream): zeroed once when allocated (or grown), set back to 0 by every
+# launch's last block of each row group
+_gqa_counters: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _gqa_counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _gqa_counters[key] = buf
+    return buf
+
+
+def gqa_split_plan(pos, n_tokens: int, page_size: int, n_blocks: int,
+                   groups: int, kv_heads: int) -> dict:
+    """What a bf16 GQA call launches, without launching: the lines of a
+    chunk, the grid, the blocks of it that have lines to walk (the rest
+    return at once) and the row groups whose blocks merge (more than one
+    chunk; the others write their output directly), for positions ``pos``
+    (a sequence or tensor of the slots' first query positions) and T =
+    ``n_tokens``."""
+    chunk = GQA_CHUNK_PAGES * int(page_size)
+    cap = int(n_blocks) * int(page_size)
+    tiles = -(-int(n_tokens) * int(groups) // GQA_ROW_TILE)
+    pos = [int(p) for p in (pos.tolist() if hasattr(pos, "tolist")
+                            else pos)]
+    chunks = [-(-min(p + int(n_tokens), cap) // chunk) for p in pos]
+    max_chunks = -(-int(n_blocks) // GQA_CHUNK_PAGES)
+    per_slot = int(kv_heads) * tiles
+    return dict(chunk_lines=chunk, grid=max_chunks * per_slot * len(pos),
+                blocks=sum(chunks) * per_slot,
+                merges=sum(c > 1 for c in chunks) * per_slot)
+
+
+def gqa_split_model(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    block_tables: torch.Tensor, pos: torch.Tensor, *,
+    scale: float, soft_cap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain model of the tensor-core GQA core's arithmetic order
+    (``csrc/gqa_core.cu``), for decode (q (B, KV, G, hd)) or verify (q
+    (B, T, KV, G, hd)), the contracts of :func:`paged_attention_reference`
+    / :func:`paged_attention_verify_reference`.  Per (slot, KV head): the
+    slot's visible lines, min(pos + T, table lines), in chunks of
+    ``GQA_CHUNK_PAGES`` pages, each walked in tiles of 16 lines with an
+    online softmax (float32 m, l, acc) over the T * G rows, row t G + g
+    masked past its line pos + t (p = 0 there, so a row that sees none of
+    a chunk keeps (-1e30, 0, 0)); the scores ``(ks S) * scale`` with the
+    codes' dot products S taken before the K line scales (scales 1 for
+    bf16 pools), then the soft cap; P times each line's V scale, split into
+    bf16 hi + lo, both multiplied by the codes; one chunk: out = acc /
+    max(l, 1e-30), else the chunks' (m, l, acc) merged in chunk order and
+    out = O / max(L, 1e-30), in q's dtype.  Float32 sums in torch's
+    order, so it agrees with the kernel up to summation order and the
+    output's one rounding."""
+    quantized = _pair(k_scale, v_scale, "gqa_split_model")
+    decode = q.dim() == 4
+    q5 = (q[:, None] if decode else q).float()
+    B, T, KV, G, hd = q5.shape
+    page, nb = k_pool.shape[1], block_tables.shape[1]
+    codes_k = k_pool.float().reshape(-1, KV, hd)
+    codes_v = v_pool.float().reshape(-1, KV, hd)
+    if quantized:
+        sc_k, sc_v = k_scale.reshape(-1, KV), v_scale.reshape(-1, KV)
+    chunk = GQA_CHUNK_PAGES * page
+    dev = q5.device
+    out = torch.empty((B, T, KV, G, hd), dtype=torch.float32, device=dev)
+    for b in range(B):
+        n = min(int(pos[b]) + T, nb * page)
+        line = torch.arange(n, device=dev)
+        rows = block_tables[b].long()[line // page] * page + line % page
+        lim = (int(pos[b]) + torch.arange(T, device=dev)).repeat_interleave(G)
+        for h in range(KV):
+            qq = q5[b, :, h].reshape(T * G, hd)
+            kk, vv = codes_k[rows, h], codes_v[rows, h]
+            parts = []
+            for c0 in range(0, n, chunk):
+                m = torch.full((T * G,), NEG_INF, device=dev)
+                l = torch.zeros((T * G,), device=dev)
+                acc = torch.zeros((T * G, hd), device=dev)
+                for t0 in range(c0, min(c0 + chunk, n), GQA_TILE_LINES):
+                    sl = slice(t0, min(t0 + GQA_TILE_LINES, c0 + chunk, n))
+                    s = qq @ kk[sl].T
+                    if quantized:
+                        s = sc_k[rows[sl], h] * s
+                    s = s * scale
+                    if soft_cap > 0:
+                        s = torch.tanh(s / soft_cap) * soft_cap
+                    ok = line[sl][None, :] <= lim[:, None]
+                    s = torch.where(ok, s, NEG_INF)
+                    mx = torch.maximum(m, s.max(-1).values)
+                    alpha = torch.exp(m - mx)
+                    p = torch.where(ok, torch.exp(s - mx[:, None]), 0.0)
+                    l = l * alpha + p.sum(-1)
+                    m = mx
+                    if quantized:
+                        p = p * sc_v[rows[sl], h]
+                    hi = p.bfloat16().float()
+                    lo = (p - hi).bfloat16().float()
+                    acc = acc * alpha[:, None] + hi @ vv[sl] + lo @ vv[sl]
+                parts.append((m, l, acc))
+            if len(parts) == 1:
+                o, den = parts[0][2], parts[0][1]
+            else:
+                top = torch.stack([m for m, _, _ in parts]).max(0).values
+                den = torch.zeros((T * G,), device=dev)
+                o = torch.zeros((T * G, hd), device=dev)
+                for m, l, acc in parts:
+                    w = torch.exp(m - top)
+                    den = den + l * w
+                    o = o + acc * w[:, None]
+            out[b, :, h] = (o / den.clamp_min(1e-30)[:, None]).reshape(
+                T, G, hd)
+    out = out.to(q.dtype)
+    return out[:, 0] if decode else out
+
+
+def gqa_core_run(q5: torch.Tensor, k_pool: torch.Tensor,
+                 v_pool: torch.Tensor, k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor], block_tables: torch.Tensor,
+                 pos: torch.Tensor, out: torch.Tensor, *, stages: int,
+                 scale: float, soft_cap: float, store: int) -> int:
+    """Launch the tensor-core GQA core (``csrc/gqa_core.cu``) on bf16
+    queries q5 (B, T, KV, G, hd) into ``out``, with ``stages`` tiles in
+    flight (1: each tile staged synchronously), over a workspace it
+    allocates and the device's counters; returns the CUDA error code.  The
+    shapes are the caller's, checked."""
+    lib = build.library("gqa_core", GQA_CORE_C_SIGNATURES)
+    B, T, KV, G, hd = q5.shape
+    n_blocks = block_tables.shape[1]
+    dev = q5.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work = torch.empty(gqa_workspace_bytes(B, T, KV, G, n_blocks, hd),
+                       dtype=torch.uint8, device=dev)
+    counters = _counters(dev, stream, gqa_row_groups(B, T, KV, G))
+    return lib.gqa_core_attention(
+        q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), work.data_ptr(), counters.data_ptr(), B, T, KV, G,
+        hd, k_pool.shape[1], n_blocks, int(stages), float(scale),
+        float(soft_cap), store, stream)
+
+
+# the C interface of csrc/gqa_core.cu
+GQA_CORE_C_SIGNATURES = {
+    "gqa_core_attention": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
 def paged_attention(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     block_tables: torch.Tensor, pos: torch.Tensor, *,
@@ -344,43 +535,40 @@ def paged_attention(
     Same contract as :func:`paged_attention_reference`.  Takes CUDA
     tensors only: a bf16 or f32 q, pools in q's dtype or int8 /
     float8_e4m3fn with both float32 scale pools (P, page, KV), head_dim in
-    ``KERNEL_HEAD_DIMS``, at most ``KERNEL_MAX_GROUPS`` query heads per KV
-    head (a limit of this decode kernel only; :func:`paged_attention_verify`
-    takes any count), int32 block tables and positions.  ``launches`` counts the
-    kernel launches this wrapper made."""
+    ``KERNEL_HEAD_DIMS``, int32 block tables and positions.  bf16 queries
+    run on the tensor cores (``csrc/gqa_core.cu`` with T 1: split-K over
+    chunks of pages, merged in the launch, :func:`gqa_split_plan`; the
+    arithmetic order of :func:`gqa_split_model`) and take any count of
+    query heads per KV head; float32 queries run on the CUDA cores
+    (``csrc/paged_attention.cu``), at most ``KERNEL_MAX_GROUPS`` query
+    heads per KV head.  ``launches`` counts the kernel launches this
+    wrapper made, one a call."""
     if not q.is_cuda:
         raise ValueError(
             "paged_attention launches a CUDA kernel and takes CUDA tensors "
             f"only (q is on {q.device}); kernels.ops dispatches CPU tensors "
             "to paged_attention_reference")
-    B, KV, G, hd = q.shape
-    P, page_size = k_pool.shape[0], k_pool.shape[1]
-    n_blocks = block_tables.shape[1] if block_tables.dim() == 2 else -1
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q dtype {q.dtype} not in {list(_DTYPE_CODES)}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {KERNEL_HEAD_DIMS}")
-    if not 1 <= G <= KERNEL_MAX_GROUPS:
-        raise ValueError(f"{G} query heads per KV head; the decode kernel "
-                         f"takes 1..{KERNEL_MAX_GROUPS} (the verify kernel "
-                         "tiles any count)")
+    B, _, KV, G, hd, page_size, n_blocks, store = _gqa_slab_shapes(
+        q[:, None], k_pool, v_pool, block_tables, pos, k_scale, v_scale)
     dev = q.device
-    _check("q", q, q.dtype, (B, KV, G, hd), dev)
-    store = _check_pools(
-        q.dtype, [("k_pool", k_pool, (P, page_size, KV, hd)),
-                  ("v_pool", v_pool, (P, page_size, KV, hd))],
-        [("k_scale", k_scale), ("v_scale", v_scale)], (P, page_size, KV),
-        dev)
-    _check("block_tables", block_tables, torch.int32, (B, n_blocks), dev)
-    _check("pos", pos, torch.int32, (B,), dev)
     out = torch.empty_like(q)
-    lib = build.library("paged_attention", C_SIGNATURES)
-    err = lib.paged_attention_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, KV, G, hd, page_size, n_blocks, float(scale),
-        float(soft_cap), _DTYPE_CODES[q.dtype], store,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        err = gqa_core_run(q[:, None], k_pool, v_pool, k_scale, v_scale,
+                        block_tables, pos, out, stages=1, scale=scale,
+                        soft_cap=soft_cap, store=store)
+    else:
+        if not 1 <= G <= KERNEL_MAX_GROUPS:
+            raise ValueError(
+                f"{G} query heads per KV head; the float32 decode kernel "
+                f"takes 1..{KERNEL_MAX_GROUPS} (bf16 queries and the verify "
+                "kernel take any count)")
+        lib = build.library("paged_attention", C_SIGNATURES)
+        err = lib.paged_attention_decode(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, KV, G, hd, page_size,
+            n_blocks, float(scale), float(soft_cap), _DTYPE_CODES[q.dtype],
+            store, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -654,9 +842,13 @@ def paged_attention_verify(
     tensors only: a bf16 or f32 q, pools in q's dtype or int8 /
     float8_e4m3fn with both float32 scale pools (P, page, KV), head_dim in
     ``KERNEL_HEAD_DIMS``, any number T of query tokens and G of query
-    heads per KV head (the kernel tiles the T * G rows of a KV head 8 at a
-    time), int32 block tables and positions.  ``launches`` counts the
-    kernel launches this wrapper made."""
+    heads per KV head, int32 block tables and positions.  bf16 queries run
+    on the tensor-core core as :func:`paged_attention` does (the T * G rows
+    of a KV head 64 at a time, chunks fixed by the slot's visible lines),
+    so T = 1 equals the decode call bit for bit; float32 queries on
+    ``csrc/paged_attention_verify.cu`` (the rows 8 at a time).
+    ``launches`` counts the kernel launches this wrapper made, one a
+    call."""
     if not q.is_cuda:
         raise ValueError(
             "paged_attention_verify launches a CUDA kernel and takes CUDA "
@@ -666,13 +858,18 @@ def paged_attention_verify(
         q, k_pool, v_pool, block_tables, pos, k_scale, v_scale)
     dev = q.device
     out = torch.empty_like(q)
-    lib = build.library("paged_attention_verify", VERIFY_C_SIGNATURES)
-    err = lib.paged_attention_verify(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, T, KV, G, hd, page_size, n_blocks, float(scale),
-        float(soft_cap), _DTYPE_CODES[q.dtype], store,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        err = gqa_core_run(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                        pos, out, stages=1, scale=scale, soft_cap=soft_cap,
+                        store=store)
+    else:
+        lib = build.library("paged_attention_verify", VERIFY_C_SIGNATURES)
+        err = lib.paged_attention_verify(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, T, KV, G, hd, page_size,
+            n_blocks, float(scale), float(soft_cap), _DTYPE_CODES[q.dtype],
+            store, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_verify kernel launch failed: "
                            f"CUDA error {err}")
@@ -810,6 +1007,26 @@ def mla_core_stages(latent_dim: int, rope_dim: int, quantized: bool,
                       (RING_SMEM_BYTES - fixed) // stage))
 
 
+def gqa_core_stages(head_dim: int, quantized: bool, page_size: int) -> int:
+    """Tiles the ring keeps in flight in the tensor-core GQA core
+    (``Shape::smem_bytes`` in ``csrc/gqa_core.cu``): at most
+    ``RING_MAX_STAGES`` and a chunk's tiles, as many as fit in
+    ``RING_SMEM_BYTES`` beside the 64 rows' queries (and, for a quantized
+    pool, the widened K and V tiles).  A stage is a K and a V tile of
+    max(hd, 64) / 64 128-byte swizzle atoms of 16 lines, or 16 raw K and V
+    code lines and their 32 float32 scales."""
+    atoms = max(int(head_dim), 64) // 64
+    tile = atoms * GQA_TILE_LINES * 128
+    if quantized:
+        stage = 2 * GQA_TILE_LINES * int(head_dim) + 2 * GQA_TILE_LINES * 4
+    else:
+        stage = 2 * tile
+    fixed = 1024 + atoms * GQA_ROW_TILE * 128 + (2 * tile if quantized else 0)
+    chunk_tiles = -(-GQA_CHUNK_PAGES * int(page_size) // GQA_TILE_LINES)
+    return max(1, min(RING_MAX_STAGES, chunk_tiles,
+                      (RING_SMEM_BYTES - fixed) // stage))
+
+
 def ring_stages(stage_bytes: int, n_blocks: int) -> int:
     """Slabs in a ring kernel's ring: at most ``RING_MAX_STAGES``, as many
     as fit beside the block-table copy (16-byte padded); raises when not
@@ -831,17 +1048,20 @@ def paged_attention_ring(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA GQA ring kernel (``csrc/paged_attention_ring.cu``)
-    on the current stream (no sync): decode with q (B, KV, G, hd), the
-    contract of :func:`paged_attention_reference`, or verification with q
-    (B, T, KV, G, hd), that of :func:`paged_attention_verify_reference`.
-    The output equals :func:`paged_attention` / :func:`paged_attention_verify`
-    bit for bit, on quantized pools too.  Takes CUDA tensors only: a bf16
-    or f32 q, pools in q's dtype or int8 / float8_e4m3fn with both float32
+    """Launch the CUDA GQA ring walk on the current stream (no sync):
+    decode with q (B, KV, G, hd), the contract of
+    :func:`paged_attention_reference`, or verification with q (B, T, KV,
+    G, hd), that of :func:`paged_attention_verify_reference`.  The output
+    equals :func:`paged_attention` / :func:`paged_attention_verify` bit
+    for bit, on quantized pools too.  Takes CUDA tensors only: a bf16 or
+    f32 q, pools in q's dtype or int8 / float8_e4m3fn with both float32
     scale pools (P, page, KV), head_dim in ``KERNEL_HEAD_DIMS``, any T and
-    G, a stage (:func:`gqa_ring_stage_bytes`) that fits twice in shared
-    memory (:func:`ring_stages`).  ``launches`` counts the kernel launches
-    this wrapper made."""
+    G.  bf16 runs the off walks' tensor-core core (``csrc/gqa_core.cu``)
+    with :func:`gqa_core_stages` tiles in flight; float32 the CUDA-core
+    ring ``csrc/paged_attention_ring.cu``, whose stage
+    (:func:`gqa_ring_stage_bytes`) must fit twice in shared memory
+    (:func:`ring_stages`).  ``launches`` counts the kernel launches this
+    wrapper made, one a call."""
     if not q.is_cuda:
         raise ValueError(
             "paged_attention_ring launches a CUDA kernel and takes CUDA "
@@ -852,16 +1072,23 @@ def paged_attention_ring(
     B, T, KV, G, hd, page_size, n_blocks, store = _gqa_slab_shapes(
         q5, k_pool, v_pool, block_tables, pos, k_scale, v_scale)
     dev = q.device
-    stages = ring_stages(gqa_ring_stage_bytes(
-        page_size, hd, k_pool.element_size(), store != 0), n_blocks)
     out = torch.empty_like(q5)
-    lib = build.library("paged_attention_ring", RING_C_SIGNATURES)
-    err = lib.paged_attention_ring(
-        q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, T, KV, G, hd, page_size, n_blocks, stages,
-        float(scale), float(soft_cap), _DTYPE_CODES[q.dtype], store,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        err = gqa_core_run(q5, k_pool, v_pool, k_scale, v_scale, block_tables,
+                        pos, out,
+                        stages=gqa_core_stages(hd, store != 0, page_size),
+                        scale=scale, soft_cap=soft_cap, store=store)
+    else:
+        stages = ring_stages(gqa_ring_stage_bytes(
+            page_size, hd, k_pool.element_size(), store != 0), n_blocks)
+        lib = build.library("paged_attention_ring", RING_C_SIGNATURES)
+        err = lib.paged_attention_ring(
+            q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, T, KV, G, hd, page_size,
+            n_blocks, stages, float(scale), float(soft_cap),
+            _DTYPE_CODES[q.dtype], store,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_ring kernel launch failed: "
                            f"CUDA error {err}")

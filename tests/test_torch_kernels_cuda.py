@@ -1120,20 +1120,28 @@ def test_gqa_ring_verify_edges(card, dtype, backed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_gqa_ring_decode_past_the_off_kernels_group_limit(card, dtype):
-    """16 query heads per KV head: the off decode kernel refuses them, the
-    ring takes them as one-token verification, bit-equal to the off
-    verify kernel at T = 1."""
+    """16 query heads per KV head: the float32 off decode kernel refuses
+    them, the ring takes them as one-token verification, bit-equal to the
+    off verify kernel at T = 1.  bf16 queries run on the tensor-core core
+    in every walk, so the off decode takes them too, bit-equal to the ring
+    and to verify at T = 1."""
     rng = np.random.default_rng(25)
     args = _gqa_verify_case(rng, 3, 1, 2, 16, 64, 16, 6, dtype, card)
     kw = dict(scale=64 ** -0.5)
-    with pytest.raises(ValueError, match="query heads per KV head"):
-        pa.paged_attention(args[0][:, 0].contiguous(), *args[1:], **kw)
     dec = (args[0][:, 0].contiguous(), *args[1:])
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="query heads per KV head"):
+            pa.paged_attention(*dec, **kw)
+        off = None
+    else:
+        off = pa.paged_attention(*dec, **kw)
     out = pa.paged_attention_ring(*dec, **kw)
     want = pa.paged_attention_verify(*args, **kw)[:, 0]
     ref = pa.paged_attention_reference(*dec, **kw)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+    if off is not None:
+        assert torch.equal(off, out)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
@@ -1723,6 +1731,194 @@ def test_mla_bf16_kernels_run_on_hgmma(card):
         funcs = _sass_functions(name)
         cuda_cores = [f for f in funcs if f32 in f]
         assert cuda_cores and not any("mla_split" in f for f in funcs), \
+            sorted(funcs)
+        for f in cuda_cores:
+            assert "HGMMA" not in funcs[f] and "FFMA" in funcs[f], f
+
+
+# --------------------------------------------------------------------------
+# The tensor-core GQA core (csrc/gqa_core.cu), the bf16 path of the
+# decode, verify and ring wrappers: the rows of a KV head as the wgmma M,
+# split-K over chunks of pages merged in chunk order by each row group's
+# last block, one launch a call.  Each case holds the off kernel against
+# the plain version (TOL / TOL_F32_PLAIN, or QTOL over quantized pools)
+# and against the model of its own arithmetic order (pa.gqa_split_model,
+# held against the JAX references on the CPU by
+# tests/test_torch_gqa_split.py) at MODEL_TOL.  The ring equals the off
+# kernel, and a second call the first, bit for bit; the row groups'
+# counters are back at 0 after every call.
+# --------------------------------------------------------------------------
+
+GQA_STORES = ["bf16", *KV_DTYPES]
+
+
+def _gqa_stored(args, store):
+    """(args, scale kwargs) with the pools at 1 and 2 in ``store``."""
+    if store == "bf16":
+        return args, {}
+    out, scales = list(args), []
+    for i in (1, 2):
+        out[i], s = kvq.quantize(args[i].float(), store)
+        scales.append(s)
+    return tuple(out), dict(k_scale=scales[0], v_scale=scales[1])
+
+
+def _gqa_counters_are_zero():
+    for buf in pa._gqa_counters.values():
+        assert not bool(buf.any()), "a row group's counter was left set"
+
+
+def _gqa_core_check(args, store, soft_cap=0.0):
+    args, skw = _gqa_stored(args, store)
+    kw = dict(scale=args[0].shape[-1] ** -0.5, soft_cap=soft_cap, **skw)
+    decode = args[0].dim() == 4
+    off = pa.paged_attention if decode else pa.paged_attention_verify
+    plain = (pa.paged_attention_reference if decode
+             else pa.paged_attention_verify_reference)
+    n = off.launches
+    out = off(*args, **kw)
+    torch.cuda.synchronize()
+    _gqa_counters_are_zero()
+    again = off(*args, **kw)
+    ring = pa.paged_attention_ring(*args, **kw)
+    model = pa.gqa_split_model(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    _gqa_counters_are_zero()
+    assert off.launches == n + 2          # two calls, one kernel each
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert torch.equal(out, again) and torch.equal(out, ring)
+    torch.testing.assert_close(out.float(), model.float(), **MODEL_TOL)
+    if skw:
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **QTOL[torch.bfloat16])
+    else:
+        ref32 = plain(*(a.float() for a in args[:3]), *args[3:], **kw)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **TOL[torch.bfloat16])
+        torch.testing.assert_close(out.float(), ref32,
+                                   **TOL_F32_PLAIN[torch.bfloat16])
+    return out
+
+
+@pytest.mark.parametrize("store", GQA_STORES)
+@pytest.mark.parametrize("B,KV,G,hd,page,nb,lens", [
+    # qwen3-0.6b decode: lines on chunk edges (a chunk is a page, 16
+    # lines), one line, a full table; every slot idle
+    (4, 8, 2, 128, 16, 32, (32, 64, 33, 31)),
+    (4, 8, 2, 128, 16, 32, (1, 2, 16, 17)),
+    (4, 8, 2, 128, 16, 32, (512, 512, 511, 480)),
+    (4, 8, 2, 128, 16, 32, None),
+    # every other head dim; G 16, past the float32 kernel's limit
+    (3, 2, 2, 16, 4, 5, (1, 9, 20)),
+    (2, 4, 3, 32, 8, 3, (5, 24)),
+    (2, 1, 8, 64, 16, 4, (33, 64)),
+    (2, 2, 3, 256, 16, 4, (17, 64)),
+    (2, 1, 16, 64, 16, 6, (40, 96)),
+], ids=["chunk-edges", "one-line", "full-table", "trash", "hd16", "hd32",
+        "hd64", "hd256", "g16"])
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+def test_gqa_core_decode_edges(card, store, B, KV, G, hd, page, nb, lens,
+                               soft_cap):
+    rng = np.random.default_rng(B + KV + G + hd + page)
+    q, *rest = _gqa_verify_case(rng, B, 1, KV, G, hd, page, nb,
+                                torch.bfloat16, card, trash=lens is None,
+                                lens=list(lens or ()))
+    q = q[:, 0].contiguous() * (4.0 if soft_cap else 1.0)
+    _gqa_core_check((q, *rest), store, soft_cap)
+
+
+@pytest.mark.parametrize("store", GQA_STORES)
+@pytest.mark.parametrize("B,T,KV,G,hd,page,nb,lens,backed", [
+    # qwen3-14b verify, k 4 (25 rows), at chip_smoke.py's lines
+    (4, 5, 8, 5, 128, 16, 33, (97, 163, 190, 229), True),
+    # chains crossing a page and a chunk, from pos 0, past the table; the
+    # same with the drafts on trash entries
+    (4, 5, 8, 5, 128, 16, 4, (15, 31, 1, 62), True),
+    (4, 5, 8, 5, 128, 16, 4, (15, 31, 1, 62), False),
+    # 72 rows of a KV head: two row tiles
+    (2, 9, 2, 8, 64, 16, 4, (30, 50), True),
+    (3, 4, 2, 2, 16, 4, 5, (1, 14, 30), True),
+    (2, 2, 4, 1, 32, 8, 3, (8, 20), True),
+    (2, 3, 2, 3, 256, 16, 4, (20, 60), True),
+], ids=["serve", "edges", "margin", "rows72", "hd16", "hd32", "hd256"])
+def test_gqa_core_verify_edges(card, store, B, T, KV, G, hd, page, nb, lens,
+                               backed):
+    rng = np.random.default_rng(B + T + KV + G + hd)
+    args = _gqa_verify_case(rng, B, T, KV, G, hd, page, nb, torch.bfloat16,
+                            card, lens=list(lens), backed_drafts=backed)
+    _gqa_core_check(args, store)
+
+
+def test_gqa_core_verify_idle_lanes_and_soft_cap(card):
+    rng = np.random.default_rng(80)
+    for store in GQA_STORES:
+        args = _gqa_verify_case(rng, 4, 5, 8, 5, 128, 16, 33,
+                                torch.bfloat16, card, trash=True)
+        _gqa_core_check(args, store)
+        q, *rest = _gqa_verify_case(rng, 4, 5, 8, 5, 128, 16, 33,
+                                    torch.bfloat16, card,
+                                    lens=[97, 163, 190, 229],
+                                    backed_drafts=True)
+        _gqa_core_check((q * 4.0, *rest), store, soft_cap=30.0)
+
+
+@pytest.mark.parametrize("store", GQA_STORES)
+@pytest.mark.parametrize("T,G,page,nb,lens", [
+    (1, 2, 32, 4, (40, 100)), (1, 2, 64, 3, (150, 65)),
+    (5, 5, 32, 4, (40, 90)), (5, 5, 64, 3, (130, 60))],
+    ids=["decode-page32", "decode-page64", "verify-page32", "verify-page64"])
+def test_gqa_core_ring_with_tiles_in_flight(card, store, T, G, page, nb,
+                                            lens):
+    # at page 16 a chunk is one tile, which the ring stages synchronously
+    # as the off walk does; at pages 32 and 64 it keeps 2 and 4 tiles in
+    # flight and still equals the off walk bit for bit
+    assert pa.gqa_core_stages(128, store != "bf16", page) == page // 16
+    rng = np.random.default_rng(page + T)
+    args = _gqa_verify_case(rng, 2, T, 8, G, 128, page, nb, torch.bfloat16,
+                            card, lens=list(lens), backed_drafts=True)
+    if T == 1:
+        args = (args[0][:, 0].contiguous(), *args[1:])
+    _gqa_core_check(args, store)
+
+
+@pytest.mark.parametrize("store", GQA_STORES)
+@pytest.mark.parametrize("B,KV,G,hd,page,nb", [
+    (4, 8, 2, 128, 16, 33), (4, 8, 5, 128, 16, 33), (3, 2, 5, 16, 4, 5)],
+    ids=["qwen3-0.6b", "qwen3-14b", "smoke"])
+def test_gqa_core_t1_verify_and_ring_equal_decode(card, store, B, KV, G, hd,
+                                                  page, nb):
+    rng = np.random.default_rng(90 + G + hd)
+    args = _gqa_verify_case(rng, B, 1, KV, G, hd, page, nb, torch.bfloat16,
+                            card)
+    args, skw = _gqa_stored(args, store)
+    for cap in (0.0, 30.0):
+        kw = dict(scale=hd ** -0.5, soft_cap=cap, **skw)
+        q = args[0][:, 0].contiguous()
+        dec = pa.paged_attention(q, *args[1:], **kw)
+        ver = pa.paged_attention_verify(*args, **kw)[:, 0]
+        ring_dec = pa.paged_attention_ring(q, *args[1:], **kw)
+        ring_ver = pa.paged_attention_ring(*args, **kw)[:, 0]
+        torch.cuda.synchronize()
+        for got in (ver, ring_dec, ring_ver):
+            assert torch.equal(got, dec)
+    _gqa_counters_are_zero()
+
+
+def test_gqa_bf16_kernels_run_on_hgmma(card):
+    # the tensor-core core's kernel carries HGMMA, built once for the
+    # three walks; the float32 CUDA-core kernels FFMA and no HGMMA
+    funcs = _sass_functions("gqa_core")
+    split = [f for f in funcs if "gqa_split_bf16_kernel" in f]
+    assert len(split) == 3 * len(pa.KERNEL_HEAD_DIMS), sorted(funcs)
+    for f in split:
+        assert "HGMMA" in funcs[f], f
+    for name, f32 in (("paged_attention", "paged_decode_kernel"),
+                      ("paged_attention_verify", "paged_verify_kernel"),
+                      ("paged_attention_ring", "paged_ring_kernel")):
+        funcs = _sass_functions(name)
+        cuda_cores = [f for f in funcs if f32 in f]
+        assert cuda_cores and not any("gqa_split" in f for f in funcs), \
             sorted(funcs)
         for f in cuda_cores:
             assert "HGMMA" not in funcs[f] and "FFMA" in funcs[f], f
