@@ -106,6 +106,21 @@ Phases, in order; any failure exits non-zero:
    MoE model, both runs): greedy streams byte-equal to the off run's, the
    ring kernels launched layers x steps times and no off kernel, tok/s
    of both runs printed;
+   f. CUDA graphs: every engine above replays captured graphs of its
+   decode, verify, catch-up and draft steps (on by default on the card),
+   and each wrapper's launch count adds at each replay what its capture
+   counted, so every launch hold above holds under replay; the pipeline
+   runs are off and double with graphs, then double and off eager
+   (``cuda_graphs=False``): all four byte-equal, each with its launch
+   counts; on qwen3-0.6b each quantized pool is served eagerly too, byte-
+   equal to its graphed run; ``[graph]`` lines print tok/s, mean decode /
+   verify step and draft round both ways and the capture time; one
+   torch.profiler pass over three replays of each path's captured steps
+   counts the GQA core's kernel (or the MLA core's split and merge
+   kernels) once per layer a replay; ``[dispatch]`` lines print
+   ``Engine.measure_dispatch_overhead`` (the no-kernel decode step, the
+   paper's dispatch floor) eager and graphed beside the mean decode step
+   both ways, for qwen3-0.6b and qwen3-14b;
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -1826,15 +1841,18 @@ def make_params(torch, cfg):
 
 def engine_phase(torch, np, card, cfg, params, *, max_len: int,
                  new_tokens: int, op: str, counter, logits_atol: float,
-                 kv_dtypes=KV_DTYPES):
+                 kv_dtypes=KV_DTYPES, dispatch: bool = False):
     """The continuous-batching engine on ``cfg`` serves PROMPT_LENS; every
     request must finish, the path's kernel ``op`` (wrapper ``counter``)
     must launch once per layer and decode step in that run, and one
     decode step of a second batch must match the same step with the
     plain attention; then :func:`pipeline_runs` serves the same prompts
     with ``pipeline`` off and double, and :func:`quantized_runs` with KV
-    pools of each of ``kv_dtypes``.  Returns the launch count of the
-    measured run and the ring launch counts of the first double run."""
+    pools of each of ``kv_dtypes``.  The measured run replays captured
+    graphs, whose core kernels a profiler pass counts; with ``dispatch``
+    the dispatch floors are printed and each quantized engine also served
+    eagerly.  Returns the launch count of the measured run and the ring
+    launch counts of the first double run."""
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import now
     from repro_torch.serve import Engine, EngineConfig, GenerateConfig
@@ -1865,6 +1883,9 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     dec_ms = dec.wall_s / max(dec.steps, 1) * 1e3
     agg = engine.aggregate_ledger()
 
+    graph_kernels(torch, cfg.name, engine._graphs, "decode",
+                  dict.fromkeys(CORE_KERNELS[op], cfg.n_layers))
+
     # logits check on a second batch, outside the measured run: once three
     # requests decode together, one step is run both ways on pool copies
     more = [engine.submit(rng.integers(0, cfg.vocab_size, n),
@@ -1889,6 +1910,8 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     if launches != steps * cfg.n_layers * per_call:
         fail(f"{op} launched {launches} kernels for {steps} decode steps x "
              f"{cfg.n_layers} layers x {per_call} a call")
+    if not engine.graphs or "decode" not in engine._graphs.graphs:
+        fail(f"{cfg.name}: the engine did not capture its decode step")
     if logits_err is None or any(len(r.generated) != 8 for r in more):
         fail(f"the {cfg.name} logits-check batch did not run as planned")
     if logits_err > logits_atol:
@@ -1905,27 +1928,53 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
           f"diff {logits_err:.4e} (atol {logits_atol}; max |logit| "
           f"{scale:.3f})")
     print(f"[engine] {cfg.name} {card}: {n_tok / wall:.2f} tok/s over "
-          f"{wall:.3f} s; mean decode step {dec_ms:.3f} ms; "
+          f"{wall:.3f} s (CUDA graphs; capture {capture_ms(engine):.1f} ms "
+          f"in the first decode step); mean decode step {dec_ms:.3f} ms; "
           f"TTFT mean {np.mean(ttft) * 1e3:.2f} ms, max "
           f"{np.max(ttft) * 1e3:.2f} ms; ledger arithmetic intensity "
           f"{agg.arithmetic_intensity:.3f} FLOP/B; peak memory "
           f"{peak_gb:.2f} GB")
-    rings = pipeline_runs(
+    rings, steps = pipeline_runs(
         torch, card, cfg.name, cfg,
-        lambda pl: Engine(cfg, params, dataclasses.replace(ecfg, pipeline=pl)),
+        lambda pl, g: Engine(cfg, params, dataclasses.replace(
+            ecfg, pipeline=pl, cuda_graphs=g)),
         prompts, gen,
         lambda e: {op: e.decode_steps * cfg.n_layers * per_call})
+    if dispatch:
+        dispatch_line(torch, card, cfg, params, ecfg,
+                      {g: [d["decode"] for d in steps[g]] for g in steps})
     quantized_runs(
         torch, np, card, cfg.name, cfg,
-        lambda kvd, pl: Engine(cfg, params, dataclasses.replace(
-            ecfg, kv_dtype=kvd, pipeline=pl)),
+        lambda kvd, pl, g=True: Engine(cfg, params, dataclasses.replace(
+            ecfg, kv_dtype=kvd, pipeline=pl, cuda_graphs=g)),
         prompts, gen, kv_dtypes,
         lambda e: {op: e.decode_steps * cfg.n_layers * per_call},
         ([list(r.generated) for r in reqs], n_tok / wall, peak_gb,
          pool_nbytes(engine)),
         lambda e: decode_logits_check(torch, np, e, ops, op, counter),
-        logits_atol)
+        logits_atol, eager=dispatch)
     return launches, rings
+
+
+def dispatch_line(torch, card, cfg, params, ecfg, decode_ms) -> None:
+    """The paper's dispatch floor (``Engine.measure_dispatch_overhead``:
+    the decode step of the no-kernel twin, median of 20) with CUDA graphs
+    off and on, printed beside the mean decode step of ``cfg``'s runs each
+    way (``decode_ms``: {graphs: [ms of each run]})."""
+    from repro_torch.serve import Engine
+    floor = {g: Engine(cfg, params, dataclasses.replace(
+        ecfg, cuda_graphs=g)).measure_dispatch_overhead() * 1e3
+        for g in (False, True)}
+    if not (0.0 < floor[True] and 0.0 < floor[False]):
+        fail(f"{cfg.name}: dispatch floors {floor}")
+
+    def runs(g):
+        return ", ".join(f"{x:.3f}" for x in decode_ms[g])
+
+    print(f"[dispatch] {cfg.name} {card}: no-kernel decode step (median "
+          f"of 20) eager {floor[False]:.3f} ms, graphed {floor[True]:.3f} "
+          f"ms ({floor[False] / floor[True]:.1f}x); mean decode step eager "
+          f"{runs(False)} ms, graphed {runs(True)} ms")
 
 
 def launches_per_call(op: str, cfg) -> int:
@@ -1946,7 +1995,17 @@ RING_OF = {"paged_attention": "paged_attention_ring",
            "paged_attention_verify": "paged_attention_ring",
            "mla_paged_attention": "mla_paged_attention_ring",
            "mla_paged_attention_verify": "mla_paged_attention_ring"}
-PIPELINE_ORDER = ("off", "double", "double", "off")
+# (pipeline, CUDA graphs) of the comparison runs: both pipelines graphed,
+# then both eager, the pipelines in turns
+PIPELINE_ORDER = (("off", True), ("double", True), ("double", False),
+                  ("off", False))
+# the kernels of each paged op's bf16 core, one launch each per call
+CORE_KERNELS = {"paged_attention": ("gqa_split_bf16_kernel",),
+                "paged_attention_verify": ("gqa_split_bf16_kernel",),
+                "mla_paged_attention": ("mla_split_bf16_kernel",
+                                        "mla_combine_kernel"),
+                "mla_paged_attention_verify": ("mla_split_bf16_kernel",
+                                               "mla_combine_kernel")}
 PAGED_KERNELS = sorted(set(RING_OF) | set(RING_OF.values()))
 
 
@@ -1966,6 +2025,61 @@ def deterministic(torch, on: bool):
             yield
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def run_kind(graphs: bool) -> str:
+    return "graphed" if graphs else "eager"
+
+
+def step_ms(engine) -> dict:
+    """Mean synchronized step times of an engine's run, ms: decode step,
+    or verify step and draft round."""
+    out = {}
+    for ph in ("decode", "verify", "draft"):
+        p = engine.phases.get(ph)
+        if p is not None and p.steps:
+            out[ph] = p.wall_s / p.steps * 1e3
+    return out
+
+
+def capture_ms(engine) -> float:
+    """Milliseconds an engine's graphs (its draft model's too) took to
+    capture, once per engine (their first calls' eager runs excluded)."""
+    prop = getattr(engine, "proposer", None)
+    return (engine.graph_capture_s + (prop._graphs.capture_s if hasattr(
+        prop, "_graphs") else 0.0)) * 1e3
+
+
+def fmt_steps(d: dict) -> str:
+    names = {"decode": "decode step", "verify": "verify step",
+             "draft": "draft round"}
+    return ", ".join(f"{names[k]} {v:.3f} ms" for k, v in d.items())
+
+
+def graph_kernels(torch, label: str, graphs, name: str, want: dict,
+                  replays: int = 3) -> None:
+    """One torch.profiler pass (CUDA activity) over ``replays`` replays of
+    the captured step ``name`` of a ``serve.graphs.StepGraphs``: every
+    kernel named in ``want`` (a part of its name -> launches a replay)
+    must run that often inside the graph.  Replays a step whose inputs are
+    unchanged since its last run, which rewrites the same KV lines."""
+    from torch.profiler import ProfilerActivity, profile
+    graph = graphs.graphs[name].graph
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    got = {k: sum(k in n for n in names) for k in want}
+    if not names or any(got[k] != n * replays for k, n in want.items()):
+        fail(f"{label} {name} graph: the profiler saw {got} over {replays} "
+             f"replays ({len(names)} kernels), want {want} a replay")
+    print(f"[graph] {label} {name} graph: {len(names) / replays:.0f} "
+          f"kernels a replay (torch.profiler over {replays} replays); "
+          + ", ".join(f"{k} {got[k] // replays} a replay (= layers)"
+                      for k in want))
 
 
 def counted_run(torch, engine, prompts, gen):
@@ -1997,49 +2111,65 @@ def want_launches(off_counts: dict, pipeline: str) -> dict:
 
 
 def pipeline_runs(torch, card, label, cfg, make, prompts, gen, want_off):
-    """Serve ``prompts`` with engines ``make(pipeline)`` of ``cfg``,
-    pipeline off and double in turns (PIPELINE_ORDER), so that the runs
-    differ by their attention kernels alone (deterministic algorithms on
-    for an MoE model).  Every run's greedy streams must equal the first
-    run's.  Each run (:func:`counted_run`) must launch
-    ``want_launches(want_off(engine), pipeline)``: an off run its off
-    kernels and no ring, a double run the same counts on the rings and no
-    off kernel.  Prints tok/s of every run (one call, one card:
-    comparable); returns the ring counts of the first double run."""
+    """Serve ``prompts`` with engines ``make(pipeline, graphs)`` of
+    ``cfg`` in the runs of PIPELINE_ORDER: pipeline off and double with
+    CUDA graphs, then double and off eager, so that runs differ by their
+    attention kernels or by capture alone (deterministic algorithms on for
+    an MoE model).  Every run's greedy streams must equal the first run's.
+    Each run (:func:`counted_run`) must launch ``want_launches(want_off(
+    engine), pipeline)``: an off run its off kernels and no ring, a double
+    run the same counts on the rings and no off kernel, graphed or eager.
+    Prints tok/s and mean step times of every run (one call, one card:
+    comparable); returns the ring counts of the first double run and each
+    mode's mean step times {graphs: [step_ms of its runs]}."""
     first, rates, rings = None, [], None
+    steps = {True: [], False: []}
+    capture = []
     moe = any(b.ffn == "moe" for b in cfg.block_pattern)
     with deterministic(torch, moe):
-        for pl in PIPELINE_ORDER:
-            engine = make(pl)
+        for pl, graphs in PIPELINE_ORDER:
+            engine = make(pl, graphs)
             reqs, got, wall = counted_run(torch, engine, prompts, gen)
             want = want_launches(want_off(engine), pl)
+            run = f"pipeline={pl} {run_kind(graphs)}"
             if got != want:
-                fail(f"{label} pipeline={pl}: kernel launches {got}, "
-                     f"want {want}")
+                fail(f"{label} {run}: kernel launches {got}, want {want}")
+            if engine.graphs != graphs:
+                fail(f"{label} {run}: engine.graphs is {engine.graphs}")
             streams = [list(r.generated) for r in reqs]
             if first is None:
                 first = streams
                 if any(r.finish_reason != "length" for r in reqs):
-                    fail(f"{label} pipeline={pl}: a request did not finish")
+                    fail(f"{label} {run}: a request did not finish")
             elif streams != first:
-                fail(f"{label} pipeline={pl}: greedy streams differ from "
-                     "the first run's")
+                fail(f"{label} {run}: greedy streams differ from the "
+                     "first run's")
             if pl == "double" and rings is None:
                 rings = {n: got[n] for n in set(RING_OF.values())}
             n_tok = sum(len(x) for x in streams)
-            rates.append(f"{pl} {n_tok / wall:.2f}")
-    mode = "deterministic algorithms" if moe else "default algorithms"
+            rates.append(f"{pl} {run_kind(graphs)} {n_tok / wall:.2f}")
+            steps[graphs].append(step_ms(engine))
+            if graphs:
+                capture.append(capture_ms(engine))
+    algo = "deterministic algorithms" if moe else "default algorithms"
     print(f"[pipeline] {label} {card}: tok/s {', '.join(rates)} (runs in "
-          f"this order, {mode}); greedy streams of all "
+          f"this order, {algo}); greedy streams of all "
           f"{len(PIPELINE_ORDER)} runs byte-equal; launches per double run "
           f"{rings}, 0 off paged launches; per off run the same on the off "
           "kernels, 0 ring launches")
-    return rings
+    print(f"[graph] {label} {card}: greedy streams byte-equal with CUDA "
+          f"graphs on and off, pipeline off and double, the same launch "
+          f"counts; graphed: {'; '.join(map(fmt_steps, steps[True]))} "
+          f"(capture {', '.join(f'{c:.1f}' for c in capture)} ms once per "
+          f"engine, in the first step); eager: "
+          f"{'; '.join(map(fmt_steps, steps[False]))} (runs off, double, "
+          f"double, off)")
+    return rings, steps
 
 
 def quantized_runs(torch, np, card, label, cfg, make, prompts, gen,
                    kv_dtypes, want_off, base, check, logits_atol,
-                   more=((30, 50, 90), 8)) -> None:
+                   more=((30, 50, 90), 8), eager=False) -> None:
     """Serve ``prompts`` again with engines ``make(kv_dtype, pipeline)``
     (quantized KV pools), one per ``kv_dtypes``, first with pipeline off:
     every request must finish; the run (:func:`counted_run`) must launch
@@ -2048,9 +2178,12 @@ def quantized_runs(torch, np, card, label, cfg, make, prompts, gen,
     x page size; one step of a second batch on that engine (``more``:
     prompt lengths and new tokens, which must bring three requests to
     decode together; ``check(engine)``, on copies of the quantized pools)
-    must match the plain attention within ``logits_atol``.  Then with
-    pipeline double, on the same prompts and weights: greedy streams
-    byte-equal to the off run's, the rings launched the off run's counts
+    must match the plain attention within ``logits_atol``.  With
+    ``eager``, the same engine with CUDA graphs off (``make(kv_dtype,
+    "off", False)``) serves the prompts again: greedy streams byte-equal
+    to the graphed run's, the same launch counts.  Then with pipeline
+    double, on the same prompts and weights: greedy streams byte-equal to
+    the off run's, the rings launched the off run's counts
     and no off kernel (both runs with deterministic algorithms for an MoE
     model, as :func:`pipeline_runs`).  Prints tok/s of both runs, peak
     memory and pool bytes beside the bf16 run's (``base``: its streams,
@@ -2106,7 +2239,25 @@ def quantized_runs(torch, np, card, label, cfg, make, prompts, gen,
         acc = (f", acceptance rate "
                f"{engine.aggregate_ledger().acceptance_rate:.3f}"
                if hasattr(engine, "verify_steps") else "")
+        graphed = step_ms(engine)
         del engine
+        if eager:
+            with deterministic(torch, moe):
+                eengine = make(kvd, "off", False)
+                ereqs, egot, ewall = counted_run(torch, eengine, prompts,
+                                                 gen)
+            if egot != got:
+                fail(f"{label} kv_dtype={kvd} eager: kernel launches "
+                     f"{egot}, graphed {got}")
+            if [list(r.generated) for r in ereqs] != streams:
+                fail(f"{label} kv_dtype={kvd}: eager greedy streams differ "
+                     "from the graphed run's")
+            print(f"[graph] {label} kv_dtype={kvd} {card}: greedy streams "
+                  f"byte-equal with CUDA graphs on and off, the same launch "
+                  f"counts; tok/s graphed {n_tok / wall:.2f} "
+                  f"({fmt_steps(graphed)}), eager {n_tok / ewall:.2f} "
+                  f"({fmt_steps(step_ms(eengine))})")
+            del eengine, ereqs
         with deterministic(torch, moe):
             dengine = make(kvd, "double")
             dreqs, dgot, dwall = counted_run(torch, dengine, prompts, gen)
@@ -2213,7 +2364,8 @@ def verify_logits_check(torch, np, engine, ops, op, counter, rng):
 def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
                max_len: int, new_tokens: int, verify_counter,
                decode_counter, decode_op: str, logits_atol: float,
-               min_accept=None, kv_dtypes=KV_DTYPES) -> int:
+               min_accept=None, kv_dtypes=KV_DTYPES,
+               dispatch: bool = False) -> int:
     """Speculative decoding (SpecEngine with ``scfg``) against the plain
     engine on the same prompts (PROMPT_LENS) and weights.  Every request
     must finish; the verify kernel must launch once per target layer and
@@ -2226,11 +2378,13 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     acceptance must reach ``min_accept`` when given; then
     :func:`pipeline_runs` serves the same prompts with ``pipeline`` off and
     double, and :func:`quantized_runs` with the target's KV pools of each
-    of ``kv_dtypes`` (the draft model keeps its own).  Returns the verify
-    kernel's launch count of the measured run and the ring launch counts
-    of the first double run."""
+    of ``kv_dtypes`` (the draft model keeps its own).  The measured run
+    replays captured graphs, whose core kernels a profiler pass counts;
+    with ``dispatch`` the plain engine also serves the prompts eagerly
+    (streams byte-equal) and the dispatch floors are printed.  Returns the
+    verify kernel's launch count of the measured run and the ring launch
+    counts of the first double run."""
     from repro_torch.kernels import ops
-    from repro_torch.models import decode_step_paged
     from repro_torch.obs.clock import now
     from repro_torch.serve import (Engine, EngineConfig, GenerateConfig,
                                    SpecEngine, sampling)
@@ -2239,11 +2393,8 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
         """The plain engine, keeping each committed token's top-2 logit
         margin by (request id, token index); its tokens are unchanged."""
 
-        def _decode_sample(self, bt, token, pos):
-            logits = decode_step_paged(self.params, self.cfg, self._kv.pools,
-                                       bt, token, pos,
-                                       page_size=self.ecfg.page_size,
-                                       pipeline=self.ecfg.pipeline)
+        def _decode_sample(self):
+            logits = self._decode_logits()
             self.step_margin = top2_margin(logits)
             return sampling.sample_tokens(logits, self._seeds, self._steps,
                                           self._temps, self._top_ks,
@@ -2281,6 +2432,28 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     base.run()
     torch.cuda.synchronize()
     base_wall = now() - t0
+    if dispatch:
+        eager = Engine(cfg, params, dataclasses.replace(ecfg,
+                                                        cuda_graphs=False))
+        ereqs = [eager.submit(p, gen) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = now()
+        eager.run()
+        torch.cuda.synchronize()
+        eager_wall = now() - t0
+        if [r.generated for r in ereqs] != [r.generated for r in breqs]:
+            fail(f"{label}: the plain engine's eager greedy streams differ "
+                 "from its graphed ones")
+        n_plain = sum(len(r.generated) for r in breqs)
+        print(f"[graph] {cfg.name} plain engine {card}: greedy streams "
+              f"byte-equal with CUDA graphs on and off; tok/s graphed "
+              f"{n_plain / base_wall:.2f} ({fmt_steps(step_ms(base))}; "
+              f"capture {capture_ms(base):.1f} ms), eager "
+              f"{n_plain / eager_wall:.2f} ({fmt_steps(step_ms(eager))})")
+        dispatch_line(torch, card, cfg, params, ecfg,
+                      {True: [step_ms(base)["decode"]],
+                       False: [step_ms(eager)["decode"]]})
+        del eager, ereqs
 
     engine = SpecEngine(cfg, params, ecfg, scfg)
     reqs = [engine.submit(p, gen) for p in prompts]
@@ -2293,6 +2466,14 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     wall = now() - t0
     v_launches = verify_counter.launches     # counts read here
     d_launches = decode_counter.launches
+    vop = verify_counter.__name__
+    graph_kernels(torch, label, engine._graphs, "verify",
+                  dict.fromkeys(CORE_KERNELS[vop], cfg.n_layers))
+    if dcfg:
+        for name, op in (("catchup", vop), ("draft", decode_op)):
+            graph_kernels(torch, f"{label} draft model",
+                          engine.proposer._graphs, name,
+                          dict.fromkeys(CORE_KERNELS[op], dcfg.n_layers))
     steps = engine.verify_steps
     rounds = engine.phases["draft"].steps
     ver, dra = engine.phases["verify"], engine.phases["draft"]
@@ -2365,7 +2546,8 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
           f"{base.phases['decode'].wall_s / max(base.phases['decode'].steps, 1) * 1e3:.3f} ms); "
           f"speculative {n_tok / wall:.2f} tok/s (mean verify step "
           f"{ver.wall_s / max(ver.steps, 1) * 1e3:.3f} ms, mean draft "
-          f"round {dra.wall_s / max(dra.steps, 1) * 1e3:.3f} ms); "
+          f"round {dra.wall_s / max(dra.steps, 1) * 1e3:.3f} ms; CUDA "
+          f"graphs, capture {capture_ms(engine):.1f} ms); "
           f"acceptance rate {acc:.3f} (random weights), tokens per verify "
           f"pass {agg.tokens_per_pass:.3f}; ledger arithmetic intensity "
           f"{agg.arithmetic_intensity:.3f} FLOP/B (plain "
@@ -2381,15 +2563,15 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
         if dcfg:
             want[decode_op] = rounds * (scfg.k - 1) * dcfg.n_layers * d_call
         return want
-    rings = pipeline_runs(
+    rings, _ = pipeline_runs(
         torch, card, label, cfg,
-        lambda pl: SpecEngine(cfg, params,
-                              dataclasses.replace(ecfg, pipeline=pl), scfg),
+        lambda pl, g: SpecEngine(cfg, params, dataclasses.replace(
+            ecfg, pipeline=pl, cuda_graphs=g), scfg),
         prompts, gen, want_off)
     quantized_runs(
         torch, np, card, label, cfg,
-        lambda kvd, pl: SpecEngine(cfg, params, dataclasses.replace(
-            ecfg, kv_dtype=kvd, pipeline=pl), scfg),
+        lambda kvd, pl, g=True: SpecEngine(cfg, params, dataclasses.replace(
+            ecfg, kv_dtype=kvd, pipeline=pl, cuda_graphs=g), scfg),
         prompts, gen, kv_dtypes, want_off,
         ([list(r.generated) for r in reqs], n_tok / wall, peak_gb,
          pool_nbytes(engine)),
@@ -2581,7 +2763,7 @@ def main() -> int:
     entry["launches"], rings = engine_phase(
         torch, np, card, qwen, params, max_len=MAX_LEN,
         new_tokens=NEW_TOKENS, op="paged_attention",
-        counter=pa.paged_attention, logits_atol=LOGITS_ATOL)
+        counter=pa.paged_attention, logits_atol=LOGITS_ATOL, dispatch=True)
     ring_entry["launches"] = rings["paged_attention_ring"]
     spec_phase(torch, np, card, qwen, params,
                scfg=SpecConfig(k=SPEC_K, proposer="draft", draft_cfg=qwen,
@@ -2621,7 +2803,7 @@ def main() -> int:
         label="qwen3-14b + qwen3-0.6b draft", max_len=MAX_LEN,
         new_tokens=NEW_TOKENS, verify_counter=pa.paged_attention_verify,
         decode_counter=pa.paged_attention, decode_op="paged_attention",
-        logits_atol=SPEC_LOGITS_ATOL, kv_dtypes=("int8",))
+        logits_atol=SPEC_LOGITS_ATOL, kv_dtypes=("int8",), dispatch=True)
     del params, draft
     phase_time("qwen3-14b speculative path", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,

@@ -70,6 +70,7 @@ the PV product; in bf16 the two therefore differ by bf16 rounding.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -367,13 +368,44 @@ def gqa_row_groups(batch: int, n_tokens: int, kv_heads: int,
     return int(batch) * int(kv_heads) * tiles
 
 
-# the core's arrival counters, one int32 per row group, per (device,
-# stream): zeroed once when allocated (or grown), set back to 0 by every
-# launch's last block of each row group
+# the core's arrival counters, one int32 per row group: zeroed once when
+# allocated, set back to 0 by every launch's last block of each row group.
+# Eager calls take one buffer per (device, stream), replaced by a larger
+# one when a call needs more.  A captured CUDA graph keeps the pointer it
+# was captured with, so a captured step holds a buffer of its own
+# (:func:`hold_gqa_counters`), sized before capture and never replaced
 _gqa_counters: dict = {}
+_held_counters: list = []
+
+
+def gqa_counters(n: int, device: torch.device) -> torch.Tensor:
+    """A zeroed counter buffer for ``n`` row groups (:func:`gqa_row_groups`)
+    on ``device``, for :func:`hold_gqa_counters`."""
+    return torch.zeros(max(int(n), 1), dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def hold_gqa_counters(buf: torch.Tensor):
+    """GQA core launches inside this scope count on ``buf`` (from
+    :func:`gqa_counters`) instead of the per-stream buffers; a launch that
+    needs more row groups than ``buf`` holds raises rather than regrow it
+    under a graph that captured its pointer."""
+    _held_counters.append(buf)
+    try:
+        yield buf
+    finally:
+        _held_counters.pop()
 
 
 def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    if _held_counters:
+        buf = _held_counters[-1]
+        if buf.device != device or buf.numel() < n:
+            raise ValueError(
+                f"held GQA counters ({buf.numel()} on {buf.device}) cannot "
+                f"take a call of {n} row groups on {device}; size them for "
+                "the largest captured call")
+        return buf
     key = (device.index, stream)
     buf = _gqa_counters.get(key)
     if buf is None or buf.numel() < n:
@@ -496,8 +528,9 @@ def gqa_core_run(q5: torch.Tensor, k_pool: torch.Tensor,
     """Launch the tensor-core GQA core (``csrc/gqa_core.cu``) on bf16
     queries q5 (B, T, KV, G, hd) into ``out``, with ``stages`` tiles in
     flight (1: each tile staged synchronously), over a workspace it
-    allocates and the device's counters; returns the CUDA error code.  The
-    shapes are the caller's, checked."""
+    allocates and the stream's counters (a captured step's own, under
+    :func:`hold_gqa_counters`); returns the CUDA error code.  The shapes
+    are the caller's, checked."""
     lib = build.library("gqa_core", GQA_CORE_C_SIGNATURES)
     B, T, KV, G, hd = q5.shape
     n_blocks = block_tables.shape[1]

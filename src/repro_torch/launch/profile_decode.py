@@ -8,6 +8,8 @@ over steady-state engine steps.
         --spec draft --draft-arch qwen3-0.6b --spec-k 4
     python -m repro_torch.launch.profile_decode --pipeline double
     python -m repro_torch.launch.profile_decode --kv-dtype int8
+    python -m repro_torch.launch.profile_decode --graph off
+    python -m repro_torch.launch.profile_decode --no-kernel --graph off
 
 Builds a full-width model (qwen3-0.6b by default; ``--layers`` cuts
 depth only) with random weights, seeded, fills all slots with decoding
@@ -17,10 +19,16 @@ is a round of propose (the draft model's passes, with ``draft``) and one
 verify pass; the draft/verify split of the window's wall time is printed
 too.  ``--pipeline double`` runs the paged-attention ring kernels;
 ``--kv-dtype int8|fp8_e4m3`` quantizes the KV pages (under either
-pipeline).
-Prints the window's wall time, the summed device time of every
-kernel in it (the device busy share is their ratio), and the kernels with
-the most device time, beside the card's name and power limit.
+pipeline).  ``--graph on`` (the default) replays the captured step graphs
+(serve/graphs.py), ``--graph off`` runs the steps eagerly.
+``--no-kernel`` profiles the config's no-kernel twin instead
+(``serve.engine.no_kernel_cfg``: every width floored, the same op
+graph), the paper's dispatch-floor run.
+Prints the window's wall time, the device kernels in it and the host's
+launch calls (``cudaLaunchKernel`` and ``cudaGraphLaunch``), the summed
+device time of every kernel (the device busy share is its ratio to the
+wall), the kernels with the most device time and the host ops with the
+most self time, beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -39,6 +47,12 @@ from ..models import init_params
 from ..obs.clock import now
 from ..serve import (Engine, EngineConfig, GenerateConfig, SpecConfig,
                      SpecEngine)
+from ..serve.engine import no_kernel_cfg
+
+
+# the host calls that put work on the card: one kernel each, or one graph
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
 def main(argv=None) -> None:
@@ -57,6 +71,11 @@ def main(argv=None) -> None:
     ap.add_argument("--pipeline", choices=["off", "double"], default="off")
     ap.add_argument("--kv-dtype", choices=["bf16", "int8", "fp8_e4m3"],
                     default=None)
+    ap.add_argument("--graph", choices=["on", "off"], default="on",
+                    help="replay captured CUDA graphs of the steps (on) or "
+                    "run them eagerly (off)")
+    ap.add_argument("--no-kernel", action="store_true",
+                    help="profile the no-kernel twin of the config")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -67,6 +86,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.no_kernel:
+        cfg = no_kernel_cfg(cfg)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     # a speculative round commits up to k+1 tokens
     new_tokens = (args.steps + 16) * (args.spec_k + 1 if args.spec != "off"
@@ -74,7 +95,7 @@ def main(argv=None) -> None:
     ecfg = EngineConfig(num_slots=args.slots,
                         max_len=args.prompt_len + new_tokens,
                         pipeline=args.pipeline, kv_dtype=args.kv_dtype,
-                        device=dev)
+                        cuda_graphs=args.graph == "on", device=dev)
     if args.spec == "off":
         engine = Engine(cfg, params, ecfg)
     else:
@@ -88,7 +109,7 @@ def main(argv=None) -> None:
     gen = GenerateConfig(max_new_tokens=new_tokens)
     for _ in range(args.slots):
         engine.submit(rng.integers(0, cfg.vocab_size, args.prompt_len), gen)
-    for _ in range(4):                       # admit, prefill, warm decode
+    for _ in range(4):              # admit, prefill, warm decode, capture
         engine.step()
     if len(engine._sched.decode_requests()) != args.slots:
         raise RuntimeError("slots did not fill before the profiled window")
@@ -104,17 +125,21 @@ def main(argv=None) -> None:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    host_launches = sum(e.name in HOST_LAUNCHES for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CPU)
     by_name: dict = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     print(card)
-    print(f"[profile] {args.arch} (pipeline {args.pipeline}, kv_dtype "
-          f"{engine.cfg.kv_dtype}), {args.slots} "
+    print(f"[profile] {cfg.name} (pipeline {args.pipeline}, kv_dtype "
+          f"{engine.cfg.kv_dtype}, graph {args.graph}), {args.slots} "
           f"slots decoding, context "
           f"~{args.prompt_len}: {args.steps} steps in {wall * 1e3:.3f} ms "
           f"({wall / args.steps * 1e3:.3f} ms/step); {len(kernels)} kernel "
-          f"launches ({len(kernels) / args.steps:.0f}/step); device busy "
+          f"launches ({len(kernels) / args.steps:.0f}/step) from "
+          f"{host_launches} host launch calls "
+          f"({host_launches / args.steps:.0f}/step); device busy "
           f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.1%} of the "
           f"window")
     if args.spec != "off":
@@ -128,6 +153,13 @@ def main(argv=None) -> None:
             :args.top]:
         print(f"[profile] {t / 1e3:9.3f} ms {t / busy_us:6.1%} "
               f"{n / args.steps:6.1f}/step  {name[:90]}")
+    host = sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:args.top]
+    for e in host:
+        print(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{e.self_cpu_time_total / 1e6 / wall:6.1%} of the window "
+              f"{e.count / args.steps:7.1f}/step  {e.key[:70]}")
 
 
 if __name__ == "__main__":

@@ -7,9 +7,16 @@ decode step's paged attention is the hand-written kernel
 (kernels/paged_attention.py), its page walk chosen by
 ``EngineConfig.pipeline`` ("off", or "double" for the ring kernels);
 sampling runs on the device right after the
-logits, so only the (B,) chosen token ids cross to the host.  Whole-prompt
-prefill is length-bucketed to the next power of two where padding cannot
-change the result (no MoE FFN, whose capacity the pad tokens would take).
+logits, so only the (B,) chosen token ids cross to the host.  On CUDA the
+decode step (embed, every layer, final norm and logits) is one captured
+CUDA graph replayed each step (serve/graphs.py, ``EngineConfig.
+cuda_graphs``), the counterpart of the reference's jitted step; sampling
+stays eager, since it draws per row from host-seeded generators.
+Whole-prompt prefill is length-bucketed to the next power of two where
+padding cannot change the result (no MoE FFN, whose capacity the pad
+tokens would take).  :meth:`Engine.measure_dispatch_overhead` is the
+paper's no-kernel run (§2.4): the per-step floor of framework and launch
+cost, in the mode (graphed or eager) the engine runs in.
 
 Speculative decoding subclasses this engine (serve/spec.py) through two
 hooks, :meth:`Engine._kv_margin` and :meth:`Engine._preempt`.  The static
@@ -29,12 +36,15 @@ from ..core.roofline.hardware import H100_SXM, ChipSpec
 from ..device import resolve_device, synchronize
 from ..kernels import quantize
 from ..kernels.ops import check_pipeline
-from ..models import (decode_step_paged, prefill, prefill_chunk_paged,
-                      prefill_padded, prepare_params)
+from ..kernels.paged_attention import (KERNEL_HEAD_DIMS, MLA_LATENT_DIMS,
+                                       MLA_ROPE_DIMS)
+from ..models import (decode_step_paged, init_params, prefill,
+                      prefill_chunk_paged, prefill_padded, prepare_params)
 from ..models.common import ModelConfig, model_flops
 from ..models.transformer import check_supported
 from ..obs.clock import now
 from . import sampling
+from .graphs import StaticInput, StepGraphs, graphs_enabled
 from .kv_cache import PagedKVCache
 from .scheduler import (Request, RequestState, RooflineLedger, Scheduler,
                         decode_token_bytes, decode_token_flops,
@@ -68,6 +78,44 @@ class EngineConfig:
     # KV page storage: None keeps the model config's ``kv_dtype``;
     # "bf16"|"int8"|"fp8_e4m3" rewrite it at engine build
     kv_dtype: Optional[str] = None
+    # fixed-shape steps as captured CUDA graphs: None = on for CUDA, off
+    # for the CPU (True there raises)
+    cuda_graphs: Optional[bool] = None
+
+
+# the smallest sizes the port's paged-attention kernels take, for the
+# fields the reference's no-kernel twin floors below them
+KERNEL_FLOORS = {"head_dim": min(KERNEL_HEAD_DIMS),
+                 "kv_lora_rank": min(MLA_LATENT_DIMS),
+                 "rope_head_dim": min(MLA_ROPE_DIMS)}
+
+
+def no_kernel_cfg(cfg: ModelConfig) -> ModelConfig:
+    """A degenerate twin of ``cfg``: identical layer count, block pattern
+    and paged-cache structure, every tensor dimension floored, so the
+    decode step runs the same op graph with near-zero kernel work and its
+    synchronized wall IS the per-step framework and launch floor (the
+    paper's no-kernel run).  The reference's floors, except three the
+    port's CUDA kernels refuse (``KERNEL_FLOORS``): ``head_dim`` is raised
+    to the GQA kernels' smallest head dim (16), ``kv_lora_rank`` to the
+    MLA kernels' smallest latent rank (32) and ``rope_head_dim`` to their
+    smallest rope dim (8), never above ``cfg``'s own, so the twin's step
+    launches the same hand-written kernels as the real one."""
+    shrink = {"d_model": 8, "n_heads": 1, "n_kv_heads": 1,
+              "head_dim": 8, "d_ff": 8, "vocab_size": 32,
+              "moe_d_ff": 8, "q_lora_rank": 8, "kv_lora_rank": 8,
+              "rope_head_dim": 4, "nope_head_dim": 8, "v_head_dim": 8}
+    updates = {k: v for k, v in shrink.items()
+               if getattr(cfg, k) > v}
+    twin = dataclasses.replace(cfg, name=cfg.name + "-nokernel",
+                               **updates)
+    own = {"head_dim": cfg.hd, "kv_lora_rank": cfg.kv_lora_rank,
+           "rope_head_dim": cfg.rope_head_dim}
+    got = {"head_dim": twin.hd, "kv_lora_rank": twin.kv_lora_rank,
+           "rope_head_dim": twin.rope_head_dim}
+    raised = {k: min(own[k], floor) for k, floor in KERNEL_FLOORS.items()
+              if 0 < got[k] < floor}
+    return dataclasses.replace(twin, **raised)
 
 
 def _bucket_len(n: int, floor: int) -> int:
@@ -93,6 +141,7 @@ class Engine:
             quantize.validate_kv_dtype(self.ecfg.kv_dtype)
             cfg = dataclasses.replace(cfg, kv_dtype=self.ecfg.kv_dtype)
         self.device = resolve_device(self.ecfg.device)
+        self.graphs = graphs_enabled(self.ecfg.cuda_graphs, self.device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:
             raise ValueError(f"params live on {tok.device}, the engine on "
@@ -108,7 +157,10 @@ class Engine:
             and all(b.ffn != "moe" for b in cfg.block_pattern))
         self._kv: Optional[PagedKVCache] = None
         self._sched: Optional[Scheduler] = None
+        self._graphs: Optional[StepGraphs] = None
+        self.step_count = 0
         self.decode_steps = 0
+        self._dispatch_s: Optional[float] = None
 
     # -- wiring ------------------------------------------------------------
 
@@ -140,7 +192,20 @@ class Engine:
         self._temps = np.zeros((n,), np.float32)
         self._top_ks = np.zeros((n,), np.int32)
         self._top_ps = np.zeros((n,), np.float32)
+        # the decode step's inputs, in buffers its graph keeps; the graphs
+        # go with the pools they captured
+        self._tok_in = StaticInput((n, 1), torch.int64, self.device)
+        self._pos_in = StaticInput((n,), torch.int32, self.device)
+        self._graphs = StepGraphs(self.device, self.graphs, self.cfg, n,
+                                  self._graph_tokens())
+        self.step_count = 0
         self.decode_steps = 0
+        self._dispatch_s = None
+
+    def _graph_tokens(self) -> int:
+        """Tokens per slot of the engine's largest captured step (the
+        decode step's 1; the speculative subclass verifies k + 1)."""
+        return 1
 
     def _kv_margin(self) -> int:
         """Block-table margin (tokens) past ``max_len``; the speculative
@@ -200,6 +265,7 @@ class Engine:
                 f"{self._kv.available_page_count} obtainable pages "
                 f"(watermark {sched.watermark_pages}), "
                 f"{len(sched.preempted)} preempted waiting to resume")
+        self.step_count += 1
         return sched.finished[n_done:]
 
     def run(self) -> List[Request]:
@@ -220,6 +286,53 @@ class Engine:
         """Per-phase traffic + synchronized wall time (prefill / decode /
         swap)."""
         return self._sched.phases if self._sched is not None else {}
+
+    def reset_phases(self) -> None:
+        """Drop accumulated phase traffic: call after a warm-up pass so
+        capture and kernel builds never pollute the timed budget."""
+        if self._sched is not None:
+            self._sched.reset_phases()
+
+    @property
+    def graph_capture_s(self) -> float:
+        """Seconds this engine's pools' graphs took to capture (0 eager)."""
+        return self._graphs.capture_s if self._graphs is not None else 0.0
+
+    def _no_kernel_cfg(self) -> ModelConfig:
+        """This engine's no-kernel twin config (:func:`no_kernel_cfg`)."""
+        return no_kernel_cfg(self.cfg)
+
+    def measure_dispatch_overhead(self, repeats: int = 20) -> float:
+        """Per-step framework and launch overhead, seconds: the paper's
+        kernel / no-kernel protocol (§2.4).  Runs the SAME decode step,
+        sampling included, with every kernel's work degenerated to the
+        floor (:meth:`_no_kernel_cfg`) on an engine of this one's
+        settings, so it is the replay floor when graphs are on and the
+        eager dispatch floor when they are off.  Median of ``repeats``
+        synchronized calls after one untimed call (kernel builds,
+        capture); cached until the next :meth:`reset`."""
+        if self._dispatch_s is not None:
+            return self._dispatch_s
+        nk_cfg = self._no_kernel_cfg()
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        nk = Engine(nk_cfg, init_params(nk_cfg, gen, self.device),
+                    dataclasses.replace(self.ecfg, num_pages=None))
+        nk.reset()
+        n = nk.ecfg.num_slots
+        nk._kv.block_tables_for(list(range(n)))
+        nk._tok_in.set(np.zeros((n, 1), np.int64))
+        nk._pos_in.set(np.zeros((n,), np.int32))
+        with torch.no_grad():
+            nk._decode_sample()                     # build, capture: untimed
+            synchronize(self.device)
+            samples = []
+            for _ in range(max(repeats, 1)):
+                t0 = now()
+                nk._decode_sample()
+                synchronize(self.device)
+                samples.append(now() - t0)
+        self._dispatch_s = float(np.median(samples))
+        return self._dispatch_s
 
     def aggregate_ledger(self) -> RooflineLedger:
         """One ledger summing every request this scheduler has seen."""
@@ -326,17 +439,27 @@ class Engine:
         self._pos[req.slot] = req.context_len - 1
         self._steps[req.slot] = len(req.generated)
 
-    def _decode_sample(self, bt: torch.Tensor, token: torch.Tensor,
-                       pos: torch.Tensor) -> torch.Tensor:
+    def _decode_body(self) -> torch.Tensor:
+        """The decode step over the persistent inputs (block tables,
+        tokens, positions): logits (B, V)."""
+        return decode_step_paged(self.params, self.cfg, self._kv.pools,
+                                 self._kv.tables.tensor, self._tok_in.tensor,
+                                 self._pos_in.tensor,
+                                 page_size=self.ecfg.page_size,
+                                 pipeline=self.ecfg.pipeline)
+
+    def _decode_logits(self) -> torch.Tensor:
+        """The decode step's logits: its graph replayed (captured at the
+        first call) on CUDA, the body eagerly on the CPU or with graphs
+        off.  The graph's output is overwritten by its next replay."""
+        return self._graphs.run("decode", self._decode_body)
+
+    def _decode_sample(self) -> torch.Tensor:
         """The decode step and the sampler over its logits, all on the
         device; returns (B,) token ids (still on the device)."""
-        logits = decode_step_paged(self.params, self.cfg, self._kv.pools,
-                                   bt, token, pos,
-                                   page_size=self.ecfg.page_size,
-                                   pipeline=self.ecfg.pipeline)
-        return sampling.sample_tokens(logits, self._seeds, self._steps,
-                                      self._temps, self._top_ks,
-                                      self._top_ps)
+        return sampling.sample_tokens(self._decode_logits(), self._seeds,
+                                      self._steps, self._temps,
+                                      self._top_ks, self._top_ps)
 
     def _run_decode(self, running: List[Request]) -> None:
         kv = self._kv
@@ -348,12 +471,11 @@ class Engine:
         slots = [r.slot for r in running]
         active = np.zeros((self.ecfg.num_slots,), bool)
         active[slots] = True
-        token = np.where(active, self._next_token, 0).astype(np.int64)
-        pos = np.where(active, self._pos, 0).astype(np.int32)
-        bt = kv.block_tables_for(slots)
-        token_d, pos_d = self._tensor(token[:, None]), self._tensor(pos)
+        kv.block_tables_for(slots)
+        self._tok_in.set(np.where(active, self._next_token, 0)[:, None])
+        self._pos_in.set(np.where(active, self._pos, 0))
         t0 = now()
-        next_tok = self._decode_sample(bt, token_d, pos_d)
+        next_tok = self._decode_sample()
         tok_np = next_tok.cpu().numpy()       # the only device->host copy
         t1 = now()
         self.decode_steps += 1
@@ -437,6 +559,7 @@ class Engine:
             self.ecfg = prev_ecfg
             self._kv = None
             self._sched = None
+            self._graphs = None         # they captured the dropped pools
         n_gen = max(len(r.generated) for r in done)
         out = np.zeros((B, S + n_gen), np.int32)
         finished = np.zeros((B,), bool)

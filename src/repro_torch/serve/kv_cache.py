@@ -30,6 +30,7 @@ from ..models.common import ModelConfig
 from ..models import transformer as tfm
 from ..models.params import instantiate, torch_dtype, tree_leaves, tree_map
 from .block_pool import BlockPool, chain_hash, token_chain_hashes
+from .graphs import StaticInput
 
 
 _PAGED_MIXERS = ("attn", "mla")
@@ -137,6 +138,10 @@ class PagedKVCache:
         self.pools = instantiate(defs, None, device)
         self.block_tables = np.zeros((num_slots, self.blocks_per_slot),
                                      np.int32)
+        # the device tables a decode / verify step reads, one persistent
+        # buffer (a captured step keeps its pointer), refilled each step
+        self.tables = StaticInput(self.block_tables.shape, torch.int32,
+                                  device)
         self._free_slots: List[int] = list(range(num_slots - 1, -1, -1))
         self._meta: Dict[int, _SlotMeta] = {}
 
@@ -433,14 +438,15 @@ class PagedKVCache:
 
     def block_tables_for(self, slots: Optional[List[int]] = None
                          ) -> torch.Tensor:
-        """Device block tables (int32); rows not in ``slots`` point at the
+        """Device block tables (int32), written into the persistent
+        ``tables`` buffer and returned; rows not in ``slots`` point at the
         trash page so idle lanes cannot clobber live pages."""
         if slots is None:
             bt = self.block_tables
         else:
             bt = np.zeros_like(self.block_tables)
             bt[slots] = self.block_tables[slots]
-        return torch.as_tensor(bt, device=self.device)
+        return self.tables.set(bt)
 
     def write_prefill_states(self, slot: int, states: List[Any],
                              prompt_len: int, start: int = 0) -> None:

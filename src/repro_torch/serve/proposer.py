@@ -11,7 +11,9 @@ JAX package's ``serve/proposer.py`` in PyTorch.
   SAME slot indices as the target engine, the multi-token verify step to
   catch up on the tokens the target committed, and
   :func:`sampling.sample_with_probs` for its k draft steps, so the
-  verifier receives the proposal distribution ``q`` of every draft.
+  verifier receives the proposal distribution ``q`` of every draft.  On
+  CUDA the catch-up and the draft step are captured CUDA graphs over its
+  own pools (serve/graphs.py); sampling stays eager between replays.
 
 Both return a :class:`Proposal`; slots with nothing proposed carry
 ``n_draft = 0`` and are verified as ordinary decode steps.
@@ -30,6 +32,7 @@ from ..models import (decode_step_paged, decode_step_verify_paged, prefill,
 from ..models.common import ModelConfig
 from . import sampling
 from .engine import _bucket_len
+from .graphs import StaticInput, StepGraphs
 from .kv_cache import PagedKVCache
 from .scheduler import Request
 
@@ -109,16 +112,17 @@ class DraftModelProposer:
     ``decode_step_verify_paged`` (padded to k+1), and (2) drafts k tokens
     autoregressively with ``decode_step_paged`` and
     :func:`sampling.sample_with_probs`, keeping every draft's ``q``.  Both
-    passes use the target engine's page-streaming ``pipeline``.
-    Sampled requests draw their drafts from the stream
-    ``sampling.fold_seed(seed, sampling.DRAFT_FOLD)``."""
+    passes use the target engine's page-streaming ``pipeline`` and, with
+    ``cuda_graphs`` (the target engine's resolved setting), replay graphs
+    captured over the draft's pools.  Sampled requests draw their drafts
+    from the stream ``sampling.fold_seed(seed, sampling.DRAFT_FOLD)``."""
 
     kind = "draft"
 
     def __init__(self, cfg: ModelConfig, params: Any, *, num_slots: int,
                  page_size: int, max_len: int, k: int,
                  device: torch.device, pipeline: Optional[str] = None,
-                 prefill_bucket: int = 8):
+                 prefill_bucket: int = 8, cuda_graphs: bool = False):
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
@@ -139,6 +143,20 @@ class DraftModelProposer:
         # length-bucketed prefill needs per-token collected states: an MoE
         # FFN's capacity cutoffs would see the pad tokens
         self._bucketable = all(b.ffn != "moe" for b in cfg.block_pattern)
+        # the two steps' inputs, in buffers their graphs keep: the catch-up
+        # feed and positions; the draft step's token (copied from the last
+        # draw on the device) and positions (one row a step, staged once a
+        # round)
+        self._feed_in = StaticInput((num_slots, k + 1), torch.int64, device)
+        self._pos_in = StaticInput((num_slots,), torch.int32, device)
+        self._step_pos_in = StaticInput((max(k - 1, 1), num_slots),
+                                        torch.int32, device)
+        self._step_tok = torch.zeros((num_slots, 1), dtype=torch.int64,
+                                     device=device)
+        self._step_pos = torch.zeros((num_slots,), dtype=torch.int32,
+                                     device=device)
+        self._graphs = StepGraphs(device, cuda_graphs, cfg, num_slots,
+                                  k + 1)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -186,6 +204,18 @@ class DraftModelProposer:
 
     # -- one proposal round ------------------------------------------------
 
+    def _catchup_body(self) -> torch.Tensor:
+        return decode_step_verify_paged(
+            self.params, self.cfg, self.kv.pools, self.kv.tables.tensor,
+            self._feed_in.tensor, self._pos_in.tensor,
+            page_size=self.page_size, pipeline=self.pipeline)
+
+    def _draft_body(self) -> torch.Tensor:
+        return decode_step_paged(
+            self.params, self.cfg, self.kv.pools, self.kv.tables.tensor,
+            self._step_tok, self._step_pos, page_size=self.page_size,
+            pipeline=self.pipeline)
+
     def _sample(self, logits: torch.Tensor):
         return sampling.sample_with_probs(logits, self._seeds, self._dsteps,
                                           self._temps, self._top_ks,
@@ -231,26 +261,27 @@ class DraftModelProposer:
                     f"{req.request_id} ({self.kv.available_page_count} "
                     "obtainable) — the draft pool must mirror the target "
                     "engine's sizing")
-        bt = self.kv.block_tables_for([r.slot for r in running])
-        logits = decode_step_verify_paged(
-            self.params, self.cfg, self.kv.pools, bt, self._tensor(feed),
-            self._tensor(pos), page_size=self.page_size,
-            pipeline=self.pipeline)                          # (B, Tc, V)
+        self.kv.block_tables_for([r.slot for r in running])
+        self._feed_in.set(feed)
+        self._pos_in.set(pos)
+        cur_pos = pos + n_pend.astype(np.int32)      # draft token 1's pos
+        # draft step i (1..k_hi-1) writes at cur_pos + i - 1
+        self._step_pos_in.set(np.where(
+            act, cur_pos + np.arange(self._step_pos_in.tensor.shape[0])[
+                :, None], 0))
+        logits = self._graphs.run("catchup", self._catchup_body)  # (B,Tc,V)
         last_idx = self._tensor(np.maximum(n_pend - 1, 0))
         last = logits[torch.arange(B, device=self.device), last_idx]
 
         # 2. draft k_hi tokens autoregressively, keeping each q (adaptive k
         # runs fewer steps; draft and q stay padded to width k)
-        cur_pos = pos + n_pend.astype(np.int32)      # draft token 1's pos
         tok, q = self._sample(last)
         self._dsteps[act] += 1
         toks, qs = [tok], [q]
         for i in range(1, k_hi):
-            step_logits = decode_step_paged(
-                self.params, self.cfg, self.kv.pools, bt, tok[:, None],
-                self._tensor(np.where(act, cur_pos + i - 1, 0)
-                             .astype(np.int32)),
-                page_size=self.page_size, pipeline=self.pipeline)
+            self._step_tok.copy_(tok[:, None])
+            self._step_pos.copy_(self._step_pos_in.tensor[i - 1])
+            step_logits = self._graphs.run("draft", self._draft_body)
             tok, q = self._sample(step_logits)
             self._dsteps[act] += 1
             toks.append(tok)

@@ -371,6 +371,11 @@ class Scheduler:
         self.phases: Dict[str, PhaseTraffic] = collections.defaultdict(
             PhaseTraffic)
 
+    def reset_phases(self) -> None:
+        """Drop accumulated phase traffic (after warm-up, before a timed
+        window: capture and kernel builds must not pollute the budget)."""
+        self.phases.clear()
+
     @property
     def watermark_pages(self) -> int:
         return int(math.ceil(self.watermark * (self.kv.num_pages - 1)))

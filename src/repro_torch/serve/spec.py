@@ -22,6 +22,10 @@ and are overwritten when a real token is fed at that position.  The
 ledger gains the verify / draft phase splits
 (``RooflineLedger.add_verify_step`` / ``add_draft_cost``).
 
+On CUDA the verify step (fixed shape (num_slots, k+1)) replays a captured
+CUDA graph, as the engine's decode step does (serve/graphs.py); the
+acceptance rule and its host copies stay eager.
+
 The JAX package's ``serve/spec.py`` in PyTorch; its ``export_request``
 (the multi-replica serving tier) is not ported (ROADMAP queue 1 item 12).
 """
@@ -40,6 +44,7 @@ from ..models.common import ModelConfig
 from ..obs.clock import now
 from . import sampling
 from .engine import Engine, EngineConfig
+from .graphs import StaticInput
 from .kv_cache import supports_paging
 from .proposer import DraftModelProposer, NgramProposer
 from .scheduler import (Request, RequestState, decode_token_bytes,
@@ -191,16 +196,23 @@ class SpecEngine(Engine):
         # budget edge those writes must resolve to (trash) table entries
         return self.scfg.k + 1
 
+    def _graph_tokens(self) -> int:
+        return self.scfg.k + 1
+
     def reset(self, num_slots: Optional[int] = None,
               max_len: Optional[int] = None) -> None:
         super().reset(num_slots=num_slots, max_len=max_len)
         e, s = self.ecfg, self.scfg
+        # the verify step's token chains, in a buffer its graph keeps
+        self._feed_in = StaticInput((e.num_slots, s.k + 1), torch.int64,
+                                    self.device)
         if s.proposer == "draft":
             self.proposer = DraftModelProposer(
                 s.draft_cfg, self._draft_params, num_slots=e.num_slots,
                 page_size=e.page_size, max_len=self._kv.max_len, k=s.k,
                 device=self.device, pipeline=e.pipeline,
-                prefill_bucket=max(e.prefill_bucket, 1))
+                prefill_bucket=max(e.prefill_bucket, 1),
+                cuda_graphs=self.graphs)
         else:
             self.proposer = NgramProposer(e.num_slots, s.k,
                                           max_n=s.ngram_max,
@@ -208,6 +220,13 @@ class SpecEngine(Engine):
         self.verify_steps = 0
 
     # -- decode = propose -> verify -> accept -> commit --------------------
+
+    def _verify_body(self) -> torch.Tensor:
+        """The verify step over the persistent inputs: logits (B, T, V)."""
+        return decode_step_verify_paged(
+            self.params, self.cfg, self._kv.pools, self._kv.tables.tensor,
+            self._feed_in.tensor, self._pos_in.tensor,
+            page_size=self.ecfg.page_size, pipeline=self.ecfg.pipeline)
 
     def _run_decode(self, running: List[Request]) -> None:
         kv, s = self._kv, self.scfg
@@ -220,7 +239,6 @@ class SpecEngine(Engine):
         if not running:
             return
         slots = [r.slot for r in running]
-        bt = kv.block_tables_for(slots)
         active = np.zeros((self.ecfg.num_slots,), bool)
         active[slots] = True
         k_eff = None
@@ -238,13 +256,11 @@ class SpecEngine(Engine):
         feed = np.zeros((self.ecfg.num_slots, T), np.int64)
         feed[:, 0] = np.where(active, self._next_token, 0)
         feed[:, 1:] = prop.draft
-        pos = np.where(active, self._pos, 0).astype(np.int32)
-        feed_d, pos_d = self._tensor(feed), self._tensor(pos)
+        kv.block_tables_for(slots)
+        self._feed_in.set(feed)
+        self._pos_in.set(np.where(active, self._pos, 0))
         t0 = now()
-        logits = decode_step_verify_paged(self.params, self.cfg, kv.pools,
-                                          bt, feed_d, pos_d,
-                                          page_size=self.ecfg.page_size,
-                                          pipeline=self.ecfg.pipeline)
+        logits = self._graphs.run("verify", self._verify_body)
         out_tok, n_out = sampling.spec_accept(
             logits, prop.draft, prop.q_probs, prop.n_draft, self._seeds,
             self._steps, self._temps, self._top_ks, self._top_ps)
