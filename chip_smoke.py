@@ -43,7 +43,10 @@ Phases, in order; any failure exits non-zero:
    pools;
 4. the paper's primitive study (launch/primitives.py): the microbench
    (FMA-chain probe, matmul peaks per dtype, copy / fill / triad
-   bandwidth, warm vs cold) printed beside the data sheet; the
+   bandwidth, warm vs cold, and the hierarchical roofline's per-level
+   betas: the L2-resident triad of ``csrc/l2_probe.cu``, the pinned host
+   link and the host copy's overlap with a matmul loop) printed beside
+   the data sheet; the
    inner-product, GELU, direct-conv and Winograd-stage kernels held
    against their plain versions at the reference benchmarks' shapes and
    at edge shapes (ragged M / N / K, K = 1, relu and gelu epilogues, odd
@@ -121,6 +124,15 @@ Phases, in order; any failure exits non-zero:
    ``Engine.measure_dispatch_overhead`` (the no-kernel decode step, the
    paper's dispatch floor) eager and graphed beside the mean decode step
    both ways, for qwen3-0.6b and qwen3-14b;
+   g. serve telemetry on the measured roofs (``roof.to_chipspec()``):
+   qwen3-0.6b graphed, telemetry off and on in turns, twice each (greedy
+   streams and launch counts equal, tok/s on within 1.25x of off, a valid
+   trace with the reference's events, every attainment window within
+   105% of its roof, printed through ``attainment_rows``, the TTFT
+   breakdown summing to TTFT, ``Engine.hierarchy_report``); the measured
+   runs of deepseek-v2 (c) and speculative qwen3-14b (e) with telemetry
+   on print one ``[telemetry]`` attainment line each (with the propose /
+   verify spans);
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -1388,6 +1400,31 @@ def card_gemm_plans(torch, ip, cd, cw, shapes) -> dict:
     return plans
 
 
+def level_betas_lines(card, roof) -> None:
+    """The hierarchical roofline's measured betas (microbench schema 2)
+    beside the data sheet: the L2-resident stream (``vmem``), HBM, the
+    pinned host link (``host``) and the host copy's overlap with a matmul
+    loop; fails unless each is finite and positive and the overlap in
+    [0, 1]."""
+    import math
+    from repro_torch.core.roofline.hardware import H100_SXM
+    lb, ov = roof.level_bw, roof.overlap.get("host", float("nan"))
+    for k in ("vmem", "hbm", "host"):
+        if not (math.isfinite(lb.get(k, float("nan"))) and lb[k] > 0):
+            fail(f"microbench level {k}: beta {lb.get(k)}")
+    if not 0.0 <= ov <= 1.0 or "ici" in lb:
+        fail(f"microbench overlap {roof.overlap}, levels {lb}")
+    print(f"[roofline] {card}: per-level betas: vmem (L2-resident triad "
+          f"over 12 MB, csrc/l2_probe.cu) {lb['vmem'] / 1e12:.3f} TB/s "
+          f"(data sheet: none), {lb['vmem'] / lb['hbm']:.2f}x hbm "
+          f"{lb['hbm'] / 1e12:.3f} TB/s; host (one 64 MB copy each way "
+          f"through pinned memory) {lb['host'] / 1e9:.2f} GB/s vs "
+          f"{H100_SXM.host_bw / 1e9:.0f} data sheet "
+          f"({lb['host'] / H100_SXM.host_bw * 100:.1f}%); host copy hidden "
+          f"under a bf16 matmul loop: overlap fraction {ov:.3f}; ici: none "
+          "(one card)")
+
+
 def primitives_phase(torch, np, card):
     """The paper's primitive study (PR 14): the measured roofline beside
     the data sheet, the four kernels held at reference and edge shapes,
@@ -1419,6 +1456,7 @@ def primitives_phase(torch, np, card):
     print(f"[roofline] {card}: warm vs cold pass over 24 MB: warm "
           f"{wc['warm_s'] * 1e6:.2f} us, cold {wc['cold_s'] * 1e6:.2f} us "
           f"(cold/warm {wc['cold_s'] / wc['warm_s']:.2f})")
+    level_betas_lines(card, roof)
     primitive_holds(torch, np)
     conv_direct_f32_known_failure(torch)
     torch.cuda.empty_cache()
@@ -1841,7 +1879,8 @@ def make_params(torch, cfg):
 
 def engine_phase(torch, np, card, cfg, params, *, max_len: int,
                  new_tokens: int, op: str, counter, logits_atol: float,
-                 kv_dtypes=KV_DTYPES, dispatch: bool = False):
+                 kv_dtypes=KV_DTYPES, dispatch: bool = False,
+                 telemetry_chip=None):
     """The continuous-batching engine on ``cfg`` serves PROMPT_LENS; every
     request must finish, the path's kernel ``op`` (wrapper ``counter``)
     must launch once per layer and decode step in that run, and one
@@ -1851,8 +1890,10 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     pools of each of ``kv_dtypes``.  The measured run replays captured
     graphs, whose core kernels a profiler pass counts; with ``dispatch``
     the dispatch floors are printed and each quantized engine also served
-    eagerly.  Returns the launch count of the measured run and the ring
-    launch counts of the first double run."""
+    eagerly; with ``telemetry_chip`` the measured run has telemetry on,
+    priced on that chip, and prints its attainment line.  Returns the
+    launch count of the measured run and the ring launch counts of the
+    first double run."""
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import now
     from repro_torch.serve import Engine, EngineConfig, GenerateConfig
@@ -1869,7 +1910,10 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     del warm
 
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
-    engine = Engine(cfg, params, ecfg)
+    engine = Engine(cfg, params, ecfg if telemetry_chip is None else
+                    dataclasses.replace(ecfg, telemetry=True,
+                                        chip=telemetry_chip,
+                                        telemetry_window=TELEMETRY_WINDOW))
     reqs = [engine.submit(p, gen) for p in prompts]
     counter.launches = 0                     # counts start here
     torch.cuda.synchronize()
@@ -1882,6 +1926,8 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
     dec = engine.phases["decode"]
     dec_ms = dec.wall_s / max(dec.steps, 1) * 1e3
     agg = engine.aggregate_ledger()
+    if telemetry_chip is not None:
+        attainment_line(card, cfg.name, engine)
 
     graph_kernels(torch, cfg.name, engine._graphs, "decode",
                   dict.fromkeys(CORE_KERNELS[op], cfg.n_layers))
@@ -2365,7 +2411,7 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
                max_len: int, new_tokens: int, verify_counter,
                decode_counter, decode_op: str, logits_atol: float,
                min_accept=None, kv_dtypes=KV_DTYPES,
-               dispatch: bool = False) -> int:
+               dispatch: bool = False, telemetry_chip=None) -> int:
     """Speculative decoding (SpecEngine with ``scfg``) against the plain
     engine on the same prompts (PROMPT_LENS) and weights.  Every request
     must finish; the verify kernel must launch once per target layer and
@@ -2381,9 +2427,11 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     of ``kv_dtypes`` (the draft model keeps its own).  The measured run
     replays captured graphs, whose core kernels a profiler pass counts;
     with ``dispatch`` the plain engine also serves the prompts eagerly
-    (streams byte-equal) and the dispatch floors are printed.  Returns the
-    verify kernel's launch count of the measured run and the ring launch
-    counts of the first double run."""
+    (streams byte-equal) and the dispatch floors are printed; with
+    ``telemetry_chip`` the measured run has telemetry on, priced on that
+    chip, and prints its attainment line and propose / verify spans.
+    Returns the verify kernel's launch count of the measured run and the
+    ring launch counts of the first double run."""
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import now
     from repro_torch.serve import (Engine, EngineConfig, GenerateConfig,
@@ -2455,7 +2503,10 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
                        False: [step_ms(eager)["decode"]]})
         del eager, ereqs
 
-    engine = SpecEngine(cfg, params, ecfg, scfg)
+    engine = SpecEngine(cfg, params, ecfg if telemetry_chip is None else
+                        dataclasses.replace(
+                            ecfg, telemetry=True, chip=telemetry_chip,
+                            telemetry_window=TELEMETRY_WINDOW), scfg)
     reqs = [engine.submit(p, gen) for p in prompts]
     verify_counter.launches = 0              # counts start here
     decode_counter.launches = 0
@@ -2478,6 +2529,8 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     rounds = engine.phases["draft"].steps
     ver, dra = engine.phases["verify"], engine.phases["draft"]
     agg, base_agg = engine.aggregate_ledger(), base.aggregate_ledger()
+    if telemetry_chip is not None:
+        attainment_line(card, label, engine)
 
     # verify logits check on a second batch, outside the measured run: its
     # prompts prefill whole in one step, so all three decode together
@@ -2579,6 +2632,180 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
                                       verify_counter, rng),
         logits_atol, more=((20, 40, 60), 16))
     return v_launches, rings
+
+
+# telemetry: engine steps per attainment window (a qwen3-0.6b step is
+# ~7 ms graphed, so a window is ~0.1 s), the bar on tok/s with telemetry
+# on against off (the reference's, tests/test_obs.py), the most a window
+# may reach of a measured roof, and the events a serve trace must hold
+TELEMETRY_WINDOW = 16
+TELEMETRY_BAR = 1.25
+MAX_ATTAINMENT = 1.05
+TRACE_NAMES = {"prefill_chunk", "decode_step", "submit", "place",
+               "first_token", "request"}
+
+
+def check_windows(label: str, windows) -> None:
+    """Every attainment window must name a roof it has and stay within
+    MAX_ATTAINMENT of it (a measured roof is not clamped)."""
+    if not windows:
+        fail(f"{label}: no attainment window closed")
+    for w in windows:
+        if w.binding_roof not in w.roofs or not 0.0 < w.fraction:
+            fail(f"{label}: window {w.index} binds {w.binding_roof!r} "
+                 f"at {w.fraction}")
+        if w.fraction > MAX_ATTAINMENT:
+            fail(f"{label}: window {w.index} at {w.fraction * 100:.1f}% of "
+                 f"its {w.binding_roof} roof (> {MAX_ATTAINMENT * 100:.0f}%)")
+
+
+def attainment_line(card, label: str, engine) -> None:
+    """One line for an engine's attainment windows on the measured roofs
+    (harvested first), with its trace's step spans; the trace must
+    validate and the windows pass :func:`check_windows`."""
+    from collections import Counter
+    from repro_torch.obs import validate_trace
+    obs = engine.obs
+    obs.harvest(engine)
+    windows = obs.attainment.windows
+    check_windows(label, windows)
+    doc = obs.export_trace()
+    errs = validate_trace(doc)
+    if errs:
+        fail(f"{label}: trace invalid: {errs[:3]}")
+    spans = Counter(e["name"] for e in doc["traceEvents"] if e["ph"] == "X")
+    fr = sorted(w.fraction for w in windows)
+    binds = Counter(w.binding_roof for w in windows)
+    print(f"[telemetry] {label} {card}: {len(windows)} attainment windows "
+          f"on {engine.ecfg.chip.name}, binding {dict(binds)}, fraction of "
+          f"the binding roof min {fr[0] * 100:.2f}% median "
+          f"{fr[len(fr) // 2] * 100:.2f}% max {fr[-1] * 100:.2f}%; trace "
+          f"valid, {len(doc['traceEvents'])} events, spans "
+          + ", ".join(f"{k} {spans[k]}" for k in ("decode_step", "propose",
+                                                  "verify", "prefill_chunk")
+                      if spans[k]))
+
+
+def telemetry_phase(torch, np, card, cfg, params, roof) -> None:
+    """Serve telemetry at full width: qwen3-0.6b graphed, pipeline off,
+    PROMPT_LENS, on the card's measured roofs (``roof.to_chipspec()``).
+    One engine with telemetry off and one with it on, each warmed up
+    first (its graph captured there, before the tracker's baseline),
+    then runs off, on, off, on: greedy streams and launch counts equal in
+    all four, tok/s on within TELEMETRY_BAR of off, the trace valid with
+    the reference's events, every window within MAX_ATTAINMENT of its
+    roof, the TTFT breakdown summing to TTFT; prints the windows
+    (``attainment_rows``), the TTFT split, the wall of a full window beyond
+    its HBM-bound time beside the dispatch floor, and
+    ``Engine.hierarchy_report`` on the measured betas."""
+    from collections import Counter
+    from repro_torch.core.roofline.report import (ATTAINMENT_HEADER,
+                                                  attainment_rows,
+                                                  text_table)
+    from repro_torch.obs import validate_trace
+    from repro_torch.serve import Engine, EngineConfig, GenerateConfig
+
+    chip = roof.to_chipspec()
+    base = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda",
+                        chip=chip, telemetry_window=TELEMETRY_WINDOW)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    gen = GenerateConfig(max_new_tokens=NEW_TOKENS)
+    engines = {on: Engine(cfg, params, dataclasses.replace(base,
+                                                           telemetry=on))
+               for on in (False, True)}
+    for eng in engines.values():
+        # one chunk: prefill and the first decode step (the capture) in
+        # the first engine step, whose end is the tracker's baseline
+        eng.submit(rng.integers(0, cfg.vocab_size, 30), GenerateConfig(8))
+        eng.run()
+        eng.reset_phases()
+    on_eng = engines[True]
+    obs = on_eng.obs
+    runs, full = [], []
+    for on in (False, True, False, True):
+        if on:
+            obs.attainment.rebase(on_eng)    # no window spans the idle gap
+            n0 = len(obs.attainment.windows)
+        reqs, got, wall = counted_run(torch, engines[on], prompts, gen)
+        if on:
+            # windows closed by ticks hold TELEMETRY_WINDOW steps each;
+            # the harvest closes the run's last, shorter one
+            full += obs.attainment.windows[n0:]
+            obs.harvest(on_eng)
+        runs.append((on, reqs, got, wall))
+    first_streams = [list(r.generated) for r in runs[0][1]]
+    for on, reqs, got, _ in runs:
+        if [list(r.generated) for r in reqs] != first_streams:
+            fail(f"telemetry {'on' if on else 'off'}: greedy streams differ")
+        if got != runs[0][2]:
+            fail(f"telemetry {'on' if on else 'off'}: launches {got}, want "
+                 f"{runs[0][2]}")
+        if any(r.finish_reason != "length" for r in reqs):
+            fail("telemetry phase: a request did not finish")
+    n_tok = sum(len(x) for x in first_streams)
+    rate = {on: [n_tok / w for o, _, _, w in runs if o == on]
+            for on in (False, True)}
+    ratio = np.mean(rate[False]) / np.mean(rate[True])
+    print(f"[telemetry] {cfg.name} {card}: greedy streams of 4 runs "
+          f"(telemetry off, on, off, on; graphed, pipeline off) byte-equal; "
+          f"launches per run {runs[0][2]['paged_attention']} "
+          f"paged_attention, equal in all; tok/s off "
+          + ", ".join(f"{x:.2f}" for x in rate[False]) + ", on "
+          + ", ".join(f"{x:.2f}" for x in rate[True])
+          + f" (mean off / on {ratio:.3f}, bar {TELEMETRY_BAR})")
+    if ratio > TELEMETRY_BAR:
+        fail(f"telemetry on is {ratio:.3f}x slower than off "
+             f"(bar {TELEMETRY_BAR})")
+
+    doc = obs.export_trace()
+    errs = validate_trace(doc)
+    names = Counter(e["name"] for e in doc["traceEvents"])
+    if errs or not TRACE_NAMES <= set(names):
+        fail(f"telemetry trace: errors {errs[:3]}, names {sorted(names)}")
+    if names["decode_step"] != on_eng.decode_steps:
+        fail(f"{names['decode_step']} decode_step spans for "
+             f"{on_eng.decode_steps} decode steps")
+    print(f"[telemetry] {cfg.name} trace: valid, {len(doc['traceEvents'])} "
+          "events: " + ", ".join(f"{k} {names[k]}" for k in sorted(
+              TRACE_NAMES | {"pool_pages", "roofline_attainment"})))
+
+    windows = obs.attainment.windows
+    check_windows(cfg.name, windows)
+    print(f"[telemetry] {cfg.name} {card}: attainment windows of "
+          f"{TELEMETRY_WINDOW} steps (each run's last one shorter) on the "
+          f"measured roofs ({chip.name}):")
+    print(text_table(attainment_rows(windows), ATTAINMENT_HEADER))
+
+    on_reqs = [r for on, reqs, _, _ in runs if on for r in reqs]
+    split = {k: [] for k in ("queue_wait_s", "prefill_s", "first_decode_s")}
+    for r in on_reqs:
+        bd = r.ttft_breakdown()
+        if abs(sum(bd.values()) - r.ttft) > 1e-9:
+            fail(f"request {r.request_id}: TTFT breakdown {bd} does not sum "
+                 f"to {r.ttft}")
+        for k, v in bd.items():
+            split[k].append(v)
+    print(f"[telemetry] {cfg.name} TTFT breakdown over the on runs' "
+          f"{len(on_reqs)} requests (mean ms; segments sum to TTFT): "
+          + ", ".join(f"{k[:-2]} {np.mean(v) * 1e3:.2f}"
+                      for k, v in split.items())
+          + f", TTFT {np.mean([r.ttft for r in on_reqs]) * 1e3:.2f}")
+
+    floor_ms = on_eng.measure_dispatch_overhead() * 1e3
+    step_ms = [w.dt_s / TELEMETRY_WINDOW * 1e3 for w in full]
+    hbm_ms = [s * w.attainment["hbm"] for s, w in zip(step_ms, full)]
+    beyond = [s - h for s, h in zip(step_ms, hbm_ms)]
+    if full:
+        print(f"[telemetry] {cfg.name} {card}: {len(full)} full windows: "
+              f"wall a step {np.median(step_ms):.3f} ms (median), its "
+              f"HBM-bound time {np.median(hbm_ms):.3f} ms, beyond it "
+              f"{np.median(beyond):.3f} ms (min {min(beyond):.3f}, max "
+              f"{max(beyond):.3f}) against the graphed dispatch floor "
+              f"{floor_ms:.3f} ms")
+    print(on_eng.hierarchy_report(betas=roof.level_betas(),
+                                  overlap=roof.overlap))
 
 
 def print_build_summary(name: str, log: str) -> None:
@@ -2774,14 +3001,18 @@ def main() -> int:
                decode_counter=pa.paged_attention,
                decode_op="paged_attention", logits_atol=LOGITS_ATOL,
                min_accept=SELF_DRAFT_MIN_ACCEPT)
-    del params
     t_phase = phase_time("qwen3-0.6b engine and self-draft paths", t_phase)
+    telemetry_phase(torch, np, card, qwen, params, roof)
+    del params
+    t_phase = phase_time("telemetry", t_phase)
+    chip = roof.to_chipspec()
 
     params = make_params(torch, deepseek)
     mla_entry["launches"], rings = engine_phase(
         torch, np, card, deepseek, params, max_len=DS_MAX_LEN,
         new_tokens=DS_NEW_TOKENS, op="mla_paged_attention",
-        counter=pa.mla_paged_attention, logits_atol=DS_LOGITS_ATOL)
+        counter=pa.mla_paged_attention, logits_atol=DS_LOGITS_ATOL,
+        telemetry_chip=chip)
     mla_ring_entry["launches"] = rings["mla_paged_attention_ring"]
     mla_verify_entry["launches"], _ = spec_phase(
         torch, np, card, deepseek, params,
@@ -2803,7 +3034,8 @@ def main() -> int:
         label="qwen3-14b + qwen3-0.6b draft", max_len=MAX_LEN,
         new_tokens=NEW_TOKENS, verify_counter=pa.paged_attention_verify,
         decode_counter=pa.paged_attention, decode_op="paged_attention",
-        logits_atol=SPEC_LOGITS_ATOL, kv_dtypes=("int8",), dispatch=True)
+        logits_atol=SPEC_LOGITS_ATOL, kv_dtypes=("int8",), dispatch=True,
+        telemetry_chip=chip)
     del params, draft
     phase_time("qwen3-14b speculative path", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,

@@ -13,7 +13,15 @@ cold-cache protocols.  Here:
 * :func:`measure_peak_bandwidth`: copy, fill and triad over 1 GiB buffers
   (20x the H100's 50 MB L2), best of the three;
 * :func:`measure_warm_vs_cold`: one streaming pass over buffers that sit
-  in L2 against the same pass after a larger-than-L2 write evicted them.
+  in L2 against the same pass after a larger-than-L2 write evicted them;
+* the per-level betas of the hierarchical roofline (arXiv 2009.05257):
+  :func:`measure_cache_bandwidth` (``vmem``: a triad looped over 12 MB
+  inside one launch of ``csrc/l2_probe.cu``, so every pass after the
+  first hits L2), :func:`measure_host_link_bandwidth` (``host``: one copy
+  each way through pinned host memory, as ``kv_cache.swap_out`` moves a
+  slot), :func:`measure_ici_bandwidth` (``ici``: None on one card) and
+  :func:`measure_compute_transfer_overlap` (the share of a pinned copy on
+  a second stream hidden under a matmul loop on the first).
 
 Times come from CUDA events on the card.  On the CPU (only when asked for)
 the same protocol runs with plain PyTorch probes and a host clock; those
@@ -38,13 +46,13 @@ import torch
 
 from ...device import resolve_device
 from ...kernels import build
-from .hardware import H100_SXM, ChipSpec
+from .hardware import H100_SXM, MEMORY_LEVELS, ChipSpec
 from .model import LevelBetas
 
 # Bump whenever the cached JSON layout or the measurement protocol
 # changes: a cache written under an older schema must not reprice the
-# roofline.
-CACHE_SCHEMA = 1
+# roofline.  Schema 2 added the per-level betas and overlap fractions.
+CACHE_SCHEMA = 2
 DEFAULT_CACHE = (Path(__file__).resolve().parents[4] / "results"
                  / "microbench_torch.json")
 L2_BYTES = 50 * 10**6                # H100 SXM L2 (data sheet)
@@ -57,7 +65,10 @@ _CPU_SIZES = dict(fma=dict(size=1 << 14, iters=64, repeats=3),
               matmul=dict(n=128, repeats=3),
               bw=dict(nbytes=1 << 22, repeats=3),
               warm_cold=dict(nbytes=1 << 20, evict_bytes=1 << 23,
-                             repeats=3))
+                             repeats=3),
+              cache=dict(nbytes=1 << 18, inner=16, repeats=3),
+              host=dict(nbytes=1 << 22, repeats=3),
+              overlap={})
 
 
 def device_fingerprint(device: torch.device) -> Dict[str, object]:
@@ -217,12 +228,166 @@ def measure_warm_vs_cold(device: torch.device, *, nbytes: int = 12 << 20,
             "cold_Bps": 2 * nbytes / cold}
 
 
+# the C interface of csrc/l2_probe.cu
+L2_SIGNATURES = {
+    "l2_probe_launch": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+                         ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+}
+# a = a * L2_TRIAD_S + b: stays bounded over any number of passes
+L2_TRIAD_S = 0.5
+
+
+def l2_probe(a: torch.Tensor, b: torch.Tensor, *, iters: int,
+             blocks: int, threads: int = 256) -> None:
+    """Launch the cache-resident triad (``csrc/l2_probe.cu``): ``iters``
+    passes of a = a * 0.5 + b over two float32 tensors on the card."""
+    lib = build.library("l2_probe", L2_SIGNATURES)
+    err = lib.l2_probe_launch(a.data_ptr(), b.data_ptr(), a.numel() // 4,
+                              iters, L2_TRIAD_S, blocks, threads,
+                              torch.cuda.current_stream(a.device)
+                              .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"l2_probe launch failed: CUDA error {err}")
+
+
+def measure_cache_bandwidth(device: torch.device, *, nbytes: int = 6 << 20,
+                            inner: int = 64, repeats: int = 5) -> float:
+    """B/s of a cache-resident stream, the ``vmem`` level's beta: a triad
+    over two float32 arrays of ``nbytes`` each (12 MB together, well
+    inside the 50 MB L2), repeated ``inner`` times, so every pass after
+    the first hits L2.  On the card the passes run inside one launch of
+    ``csrc/l2_probe.cu`` (4 blocks of 256 threads an SM); on the CPU as
+    ``inner`` plain in-place triads over a buffer sized for its caches.
+    Per pass: read a, read b, write a."""
+    n = nbytes // 4
+    a = torch.ones(n, dtype=torch.float32, device=device)
+    b = torch.ones(n, dtype=torch.float32, device=device)
+    if device.type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+        def run():
+            l2_probe(a, b, iters=inner, blocks=4 * sms)
+    else:
+        def run():
+            for _ in range(inner):
+                torch.add(b, a, alpha=L2_TRIAD_S, out=a)
+    dt = _time_best(run, device, repeats=repeats)
+    if not bool(torch.isfinite(a).all()):
+        raise RuntimeError("the cache-resident triad produced non-finite "
+                           "values")
+    return 3.0 * nbytes * inner / dt
+
+
+def measure_host_link_bandwidth(device: torch.device, *,
+                                nbytes: int = 64 << 20,
+                                repeats: int = 5) -> float:
+    """B/s of the ``host`` level, what a swap crosses, measured the way
+    ``kv_cache.swap_out`` moves a slot: one copy of one contiguous device
+    buffer into pinned host memory, and one back (as ``swap_in``'s);
+    the beta is the harmonic mean of the two legs.  On the CPU both
+    buffers are host memory (the same DRAM)."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    dev.fill_(1)
+    host = torch.empty(nbytes, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    d2h = nbytes / _time_best(lambda: host.copy_(dev), device,
+                              repeats=repeats)
+    h2d = nbytes / _time_best(lambda: dev.copy_(host), device,
+                              repeats=repeats)
+    return 2.0 / (1.0 / d2h + 1.0 / h2d)
+
+
+def measure_ici_bandwidth(device: torch.device, *, nbytes: int = 64 << 20,
+                          repeats: int = 5) -> Optional[float]:
+    """B/s of a copy from ``device`` to a second card, the ``ici`` level's
+    beta; None with one card (or on the CPU): the level stays unpriced."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    other = torch.device("cuda", (device.index or 0) + 1
+                         if (device.index or 0) + 1
+                         < torch.cuda.device_count() else 0)
+    x = torch.ones(nbytes // 4, dtype=torch.float32, device=device)
+    y = torch.empty_like(x, device=other)
+
+    def hop():
+        y.copy_(x)
+        torch.cuda.synchronize(other)
+    torch.cuda.synchronize(device)
+    best = float("inf")
+    for i in range(repeats + 2):
+        t0 = time.perf_counter()
+        hop()
+        if i >= 2:
+            best = min(best, time.perf_counter() - t0)
+    return nbytes / best
+
+
+def _overlap_fraction(t_c: float, t_x: float, t_both: float) -> float:
+    """The reference's clamp: 1.0 when the shorter leg hides entirely
+    under the longer, 0.0 when the two serialize."""
+    denom = min(t_c, t_x)
+    if denom <= 0:
+        return 0.0
+    return min(max((t_c + t_x - t_both) / denom, 0.0), 1.0)
+
+
+def measure_compute_transfer_overlap(device: torch.device, *, n: int = 4096,
+                                     iters: int = 8, nbytes: int = 64 << 20,
+                                     repeats: int = 5) -> Dict[str, float]:
+    """Achievable compute / transfer concurrency of the host level:
+    ``iters`` bf16 ``n`` x ``n`` matmuls on the default stream (t_c), one
+    device -> pinned-host copy of ``nbytes`` on a second stream (t_x, the
+    swap-out direction), then both issued together (t_both); ``host`` =
+    clamp((t_c + t_x - t_both) / min(t_c, t_x), 0, 1), the reference's
+    formula.  Empty on the CPU, which has no second engine to race (not
+    "no overlap"); the card-to-card level waits for tensor parallelism
+    (ROADMAP queue 1 item 11)."""
+    if device.type != "cuda":
+        return {}
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn((n, n), generator=g, device=device).to(torch.bfloat16)
+    b = torch.randn((n, n), generator=g, device=device).to(torch.bfloat16)
+    c = torch.empty((n, n), dtype=torch.bfloat16, device=device)
+    src = torch.ones(nbytes, dtype=torch.uint8, device=device)
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+
+    def compute():
+        for _ in range(iters):
+            torch.matmul(a, b, out=c)
+
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def transfer(with_compute: bool):
+        def go():
+            side.wait_stream(cur)            # start after the start event
+            with torch.cuda.stream(side):
+                dst.copy_(src, non_blocking=True)
+            if with_compute:
+                compute()
+            cur.wait_stream(side)            # the end event waits for it
+        return go
+
+    t_c = _time_best(compute, device, repeats=repeats)
+    t_x = _time_best(transfer(False), device, repeats=repeats)
+    t_both = _time_best(transfer(True), device, repeats=repeats)
+    torch.cuda.synchronize(device)
+    return {"host": _overlap_fraction(t_c, t_x, t_both)}
+
+
 @dataclasses.dataclass
 class MicrobenchResult:
     fma_flops: float                       # float32 FMA-chain probe
     matmul_flops: Dict[str, float]         # torch.matmul, per dtype
     bandwidth: Dict[str, float]            # copy / fill / triad / best
     warm_cold: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # per-level betas (B/s) of the memory hierarchy; a level absent here
+    # falls back to the data sheet in level_betas() / to_chipspec()
+    level_bw: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # measured compute / transfer overlap fraction per level; empty means
+    # the platform had no second engine to race, not "no overlap"
+    overlap: Dict[str, float] = dataclasses.field(default_factory=dict)
     fingerprint: Dict[str, object] = dataclasses.field(default_factory=dict)
     source: str = "measured"               # "measured" | "analytic"
 
@@ -252,25 +417,38 @@ class MicrobenchResult:
                                  for d in MATMUL_DTYPES},
                    bandwidth={"copy": bw, "fill": bw, "triad": bw,
                               "best": bw},
+                   level_bw={lvl: chip.level_bw(lvl)
+                             for lvl in MEMORY_LEVELS},
                    source="analytic")
 
+    def _level(self, level: str, default: float) -> float:
+        v = self.level_bw.get(level)
+        return float(v) if v else default
+
     def level_betas(self, fallback: ChipSpec = H100_SXM) -> LevelBetas:
-        """Measured HBM beta and peak; the levels no probe measures yet
-        (on-chip, host link) from ``fallback``."""
-        return LevelBetas(pi=self.peak_flops,
-                          vmem=fallback.level_bw("vmem"), hbm=self.peak_bw,
-                          host=fallback.level_bw("host"), source=self.source)
+        """The time-based ledger's denominators: measured where a probe
+        ran, ``fallback`` for levels the platform could not exercise
+        (``ici`` on one card)."""
+        return LevelBetas(
+            pi=self.peak_flops,
+            vmem=self._level("vmem", fallback.level_bw("vmem")),
+            hbm=self._level("hbm", self.peak_bw),
+            ici=self._level("ici", fallback.ici_bw),
+            dcn=self._level("dcn", fallback.dcn_bw),
+            host=self._level("host", fallback.level_bw("host")),
+            source=self.source)
 
     def to_chipspec(self, base: ChipSpec = H100_SXM) -> ChipSpec:
-        """A ChipSpec whose per-dtype peaks and HBM beta come from the
-        probes (capacity and unmeasured levels from ``base``)."""
+        """A ChipSpec whose per-dtype peaks and per-level betas come from
+        the probes (capacity and unmeasured levels from ``base``)."""
         kind = self.fingerprint.get("device_kind", base.name)
+        b = self.level_betas(base)
         return ChipSpec(
             name=f"{kind} ({self.source})", peak_flops=self.peak_flops,
             peak_flops_by_dtype={d: self.flops_for(d)
                                  for d in ("float32", *self.matmul_flops)},
-            hbm_bw=self.peak_bw, hbm_bytes=base.hbm_bytes,
-            vmem_bw=base.vmem_bw, host_bw=base.host_bw)
+            hbm_bw=b.hbm, hbm_bytes=base.hbm_bytes, vmem_bw=b.vmem,
+            host_bw=b.host, ici_bw=b.ici, dcn_bw=b.dcn)
 
 
 def _load_cache(path: Path, device: torch.device) -> MicrobenchResult:
@@ -290,6 +468,7 @@ def _load_cache(path: Path, device: torch.device) -> MicrobenchResult:
     return MicrobenchResult(
         fma_flops=d["fma_flops"], matmul_flops=d["matmul_flops"],
         bandwidth=d["bandwidth"], warm_cold=d.get("warm_cold", {}),
+        level_bw=d.get("level_bw", {}), overlap=d.get("overlap", {}),
         fingerprint=cached_fp, source=d.get("source", "measured"))
 
 
@@ -306,16 +485,24 @@ def run_microbench(cache_path: Optional[Union[str, Path]] = DEFAULT_CACHE,
           else {k: {} for k in _CPU_SIZES})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    bandwidth = measure_peak_bandwidth(dev, **kw["bw"])
+    level_bw = {"vmem": measure_cache_bandwidth(dev, **kw["cache"]),
+                "hbm": bandwidth["best"],
+                "host": measure_host_link_bandwidth(dev, **kw["host"])}
+    ici = measure_ici_bandwidth(dev)
+    if ici is not None:
+        level_bw["ici"] = ici
     res = MicrobenchResult(
         fma_flops=measure_peak_flops(dev, **kw["fma"]),
         matmul_flops={d: measure_peak_matmul_flops(dev, d, **kw["matmul"])
                       for d in MATMUL_DTYPES},
-        bandwidth=measure_peak_bandwidth(dev, **kw["bw"]),
+        bandwidth=bandwidth,
         warm_cold=measure_warm_vs_cold(dev, **kw["warm_cold"]),
+        level_bw=level_bw,
+        overlap=measure_compute_transfer_overlap(dev, **kw["overlap"]),
         fingerprint=device_fingerprint(dev))
     if cache_path:
         Path(cache_path).parent.mkdir(parents=True, exist_ok=True)
         Path(cache_path).write_text(json.dumps(dataclasses.asdict(res),
                                                indent=2))
     return res
-

@@ -20,13 +20,25 @@ way.  ``--kv-dtype int8|fp8_e4m3`` stores the target's KV pages quantized
 dequantize in their page walk) under either pipeline; the draft model
 keeps its own.
 
+Telemetry (``obs/``): ``--trace OUT.json`` writes the run's Chrome
+trace-event timeline (chrome://tracing, ui.perfetto.dev),
+``--metrics-snapshot OUT.prom`` a Prometheus text snapshot; either turns
+telemetry on and prints the live roofline-attainment windows and the
+hierarchical roofline report after the run.  ``--chip measured`` runs the
+card's microbenchmarks (core/roofline/microbench.py, cached in
+``results/microbench_torch.json``) and prices the ledger, the windows and
+the report on the measured betas instead of the data sheet:
+
+    ... --trace t.json --metrics-snapshot m.prom --chip measured
+
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the plain PyTorch path (use ``--smoke`` there).  ``--layers`` cuts depth
 only (a dense-FFN prologue stays), ``--draft-layers`` the draft model's.
 Weights are random, from generators seeded ``--seed`` (target) and
 ``--seed + 1`` (draft).  Prints tokens/s, the per-request decode roofline
-ledger line and, with ``--spec``, the acceptance rate and tokens per
-verify pass (on random weights these say nothing about real drafts).
+ledger line with its TTFT and inter-token latency and, with ``--spec``,
+the acceptance rate and tokens per verify pass (on random weights these
+say nothing about real drafts).
 """
 
 from __future__ import annotations
@@ -38,6 +50,10 @@ import numpy as np
 import torch
 
 from ..configs import ALL_ARCHS, get_config, smoke
+from ..core.roofline import microbench
+from ..core.roofline.hardware import H100_SXM
+from ..core.roofline.report import (ATTAINMENT_HEADER, attainment_rows,
+                                    text_table)
 from ..device import resolve_device, synchronize
 from ..models import init_params
 from ..obs.clock import now
@@ -79,6 +95,15 @@ def main(argv=None):
                     help="KV page storage (default: the arch config's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="turn telemetry on and write the Chrome "
+                         "trace-event timeline here")
+    ap.add_argument("--metrics-snapshot", default=None, metavar="OUT.prom",
+                    help="turn telemetry on and write a Prometheus "
+                         "text-exposition metrics snapshot here")
+    ap.add_argument("--chip", choices=["sheet", "measured"], default="sheet",
+                    help="price the roofline on the data sheet (H100 SXM) "
+                         "or on the card's measured betas (microbench)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -87,6 +112,17 @@ def main(argv=None):
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
+    roof = None
+    chip = H100_SXM
+    if args.chip == "measured":
+        roof = microbench.run_microbench(device=dev)
+        chip = roof.to_chipspec()
+        print(f"[serve/chip] {chip.name}: beta hbm "
+              f"{chip.hbm_bw / 1e12:.3f} TB/s, vmem (L2-resident stream) "
+              f"{chip.vmem_bw / 1e12:.3f} TB/s, host (pinned copy) "
+              f"{chip.host_bw / 1e9:.2f} GB/s, host overlap "
+              f"{roof.overlap.get('host', float('nan')):.2f}")
+    telemetry = bool(args.trace or args.metrics_snapshot)
     gen_ = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen_, dev)
     slots = args.slots or args.batch
@@ -94,7 +130,7 @@ def main(argv=None):
         num_slots=slots, page_size=args.page_size,
         max_len=args.prompt_len + args.new_tokens,
         prefill_chunk=args.prefill_chunk, pipeline=args.pipeline,
-        kv_dtype=args.kv_dtype, device=dev)
+        kv_dtype=args.kv_dtype, device=dev, chip=chip, telemetry=telemetry)
     scfg = None
     if args.spec == "off":
         engine = Engine(cfg, params, ecfg)
@@ -125,6 +161,8 @@ def main(argv=None):
     engine.run()
     synchronize(dev)
     dt = now() - t0
+    if engine.obs is not None:
+        engine.obs.harvest(engine)    # the last window ends with the run
     n_tok = sum(len(r.generated) for r in reqs)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = "
@@ -132,10 +170,13 @@ def main(argv=None):
           f"(pipeline {args.pipeline}), kv_dtype {engine.cfg.kv_dtype}")
     for r in reqs:
         t = engine.roofline_terms(r)
+        lat = r.latency_stats()
         print(f"  req {r.request_id}: {len(r.generated)} tok, "
-              f"ttft {r.ttft * 1e3:.1f} ms, AI={t.arithmetic_intensity:.2f} "
-              f"FLOP/B, {t.bound_class()}, mean batch "
-              f"{r.ledger.mean_batch:.2f}")
+              f"ttft {lat['ttft_s'] * 1e3:.1f} ms, itl p50 "
+              f"{lat['itl_p50_s'] * 1e3:.2f} ms p95 "
+              f"{lat['itl_p95_s'] * 1e3:.2f} ms, "
+              f"AI={t.arithmetic_intensity:.2f} FLOP/B, {t.bound_class()}, "
+              f"mean batch {r.ledger.mean_batch:.2f}")
     if scfg is not None:
         s = speculative_summary(cfg, reqs, args.spec_k,
                                 args.prompt_len + args.new_tokens // 2,
@@ -145,6 +186,34 @@ def main(argv=None):
               f"tokens/pass={s['tokens_per_pass']:.2f} (predicted "
               f"{s['predicted_tokens_per_pass']:.2f}), predicted "
               f"memory-bound speedup x{s['predicted_speedup']:.2f}")
+    _export_telemetry(args, engine, roof)
+
+
+def _export_telemetry(args, engine, roof) -> None:
+    """After the run (harvested as it ended): write the requested trace
+    and snapshot, and print the attainment windows and the hierarchical
+    roofline report (on the measured betas with ``--chip measured``)."""
+    obs = engine.obs
+    if obs is None:
+        return
+    if args.trace:
+        obs.export_trace(args.trace)
+        print(f"[serve/obs] trace written to {args.trace} "
+              f"({len(obs.tracer.events)} events): load it in "
+              "chrome://tracing or ui.perfetto.dev")
+    if args.metrics_snapshot:
+        obs.snapshot(args.metrics_snapshot)
+        print(f"[serve/obs] metrics snapshot written to "
+              f"{args.metrics_snapshot}")
+    if obs.attainment.windows:
+        print(f"[serve/obs] roofline attainment windows on "
+              f"{engine.ecfg.chip.name}:")
+        print(text_table(attainment_rows(obs.attainment.windows),
+                         ATTAINMENT_HEADER))
+    engine.measure_dispatch_overhead()
+    print(engine.hierarchy_report(
+        betas=roof.level_betas() if roof is not None else None,
+        overlap=roof.overlap if roof is not None else None))
 
 
 if __name__ == "__main__":

@@ -18,10 +18,19 @@ tokens would take).  :meth:`Engine.measure_dispatch_overhead` is the
 paper's no-kernel run (§2.4): the per-step floor of framework and launch
 cost, in the mode (graphed or eager) the engine runs in.
 
+Telemetry (``EngineConfig.telemetry``, off by default; ``obs/``) records
+the stamps the engine already takes: the ``decode_step`` span is the two
+stamps around the graph replay and the token read-back, the
+``prefill_chunk`` span the two around a chunk and its synchronize; the
+first decode step, whose graph capture runs inside it, is traced like any
+other.  The hooks add no device op, synchronize or read-back.
+:meth:`Engine.hierarchy_report` prints the hierarchical and time-based
+roofline of the engine's ledger and phases.
+
 Speculative decoding subclasses this engine (serve/spec.py) through two
 hooks, :meth:`Engine._kv_margin` and :meth:`Engine._preempt`.  The static
-whole-batch engine, tensor parallelism and telemetry are not ported yet
-(ROADMAP queue 1 items 9, 11, 13).
+whole-batch engine and tensor parallelism are not ported yet (ROADMAP
+queue 1 items 9 and 11).
 """
 
 from __future__ import annotations
@@ -42,7 +51,9 @@ from ..models import (decode_step_paged, init_params, prefill,
                       prefill_chunk_paged, prefill_padded, prepare_params)
 from ..models.common import ModelConfig, model_flops
 from ..models.transformer import check_supported
+from ..obs import Telemetry
 from ..obs.clock import now
+from ..obs.trace import ENGINE_TID, LIFECYCLE_TID, SLOT_TID0
 from . import sampling
 from .graphs import StaticInput, StepGraphs, graphs_enabled
 from .kv_cache import PagedKVCache
@@ -81,6 +92,11 @@ class EngineConfig:
     # fixed-shape steps as captured CUDA graphs: None = on for CUDA, off
     # for the CPU (True there raises)
     cuda_graphs: Optional[bool] = None
+    # observability (obs/): span tracing, metrics and live roofline
+    # attainment, observation-only (token streams and launch counts are
+    # the same on and off)
+    telemetry: bool = False
+    telemetry_window: int = 4         # engine steps per attainment window
 
 
 # the smallest sizes the port's paged-attention kernels take, for the
@@ -161,8 +177,38 @@ class Engine:
         self.step_count = 0
         self.decode_steps = 0
         self._dispatch_s: Optional[float] = None
+        self.obs: Optional[Telemetry] = None
+        self._obs_pid = 0
+        if self.ecfg.telemetry:
+            self.attach_telemetry(
+                Telemetry(window_steps=self.ecfg.telemetry_window))
 
     # -- wiring ------------------------------------------------------------
+
+    def attach_telemetry(self, obs: Telemetry) -> None:
+        """Adopt a telemetry bundle (``EngineConfig.telemetry`` builds the
+        engine's own) and name this engine's trace tracks."""
+        self.obs = obs
+        obs.tracer.process(self._obs_pid, self._obs_process_name())
+        obs.tracer.thread(self._obs_pid, ENGINE_TID, "engine steps")
+        obs.tracer.thread(self._obs_pid, LIFECYCLE_TID, "request lifecycle")
+        if self._sched is not None:
+            self._sched.obs = obs
+            self._sched.obs_pid = self._obs_pid
+            self._announce_slots()
+
+    def _obs_process_name(self) -> str:
+        return f"{self.cfg.name} engine"
+
+    def _announce_slots(self) -> None:
+        for s in range(self.ecfg.num_slots):
+            self.obs.tracer.thread(self._obs_pid, SLOT_TID0 + s,
+                                   f"slot {s}")
+
+    def _ledger_chips(self) -> int:
+        """Chips the per-request ledger's W / Q are split across (1: the
+        port serves on one card; tensor parallelism is ROADMAP item 11)."""
+        return 1
 
     def reset(self, num_slots: Optional[int] = None,
               max_len: Optional[int] = None) -> None:
@@ -183,6 +229,10 @@ class Engine:
                                 prefill_chunk=e.prefill_chunk,
                                 watermark=e.watermark,
                                 preempt_mode=e.preempt_mode)
+        if self.obs is not None:
+            self._sched.obs = self.obs
+            self._sched.obs_pid = self._obs_pid
+            self._announce_slots()
         n = e.num_slots
         self._next_token = np.zeros((n,), np.int32)
         self._pos = np.zeros((n,), np.int32)
@@ -236,7 +286,12 @@ class Engine:
                       temperature=gen.temperature, top_k=gen.top_k,
                       top_p=gen.top_p, stop_token=gen.stop_token, seed=seed,
                       submit_time=now())
-        return self._sched.submit(req)
+        req = self._sched.submit(req)
+        if self.obs is not None:
+            self.obs.tracer.instant("submit", self._obs_pid, LIFECYCLE_TID,
+                                    req.submit_time,
+                                    request=req.request_id)
+        return req
 
     @torch.no_grad()
     def step(self) -> List[Request]:
@@ -266,6 +321,8 @@ class Engine:
                 f"(watermark {sched.watermark_pages}), "
                 f"{len(sched.preempted)} preempted waiting to resume")
         self.step_count += 1
+        if self.obs is not None:
+            self.obs.on_step(self)
         return sched.finished[n_done:]
 
     def run(self) -> List[Request]:
@@ -279,7 +336,8 @@ class Engine:
 
     def roofline_terms(self, req: Request):
         """The request's decode RooflineTerms on ``EngineConfig.chip``."""
-        return req.ledger.terms(self.cfg, self.ecfg.chip)
+        return req.ledger.terms(self.cfg, self.ecfg.chip,
+                                n_chips=self._ledger_chips())
 
     @property
     def phases(self):
@@ -316,7 +374,8 @@ class Engine:
         nk_cfg = self._no_kernel_cfg()
         gen = torch.Generator(device=self.device).manual_seed(0)
         nk = Engine(nk_cfg, init_params(nk_cfg, gen, self.device),
-                    dataclasses.replace(self.ecfg, num_pages=None))
+                    dataclasses.replace(self.ecfg, num_pages=None,
+                                        telemetry=False))
         nk.reset()
         n = nk.ecfg.num_slots
         nk._kv.block_tables_for(list(range(n)))
@@ -346,6 +405,41 @@ class Engine:
                 setattr(agg, f.name,
                         getattr(agg, f.name) + getattr(req.ledger, f.name))
         return agg
+
+    def hierarchy_report(self, betas=None, label: str = "decode",
+                         overlap: Optional[Dict[str, float]] = None) -> str:
+        """The hierarchical and time-based roofline report: the aggregate
+        decode terms' per-level ladder (vmem / hbm / ici / dcn / host) and
+        the per-phase time budget against ``betas`` (the measured
+        ``MicrobenchResult.level_betas()`` when given; this engine's chip
+        otherwise), less the dispatch floor of
+        :meth:`measure_dispatch_overhead` when it has been measured.
+        ``overlap`` (e.g. ``MicrobenchResult.overlap``) adds the serial
+        and overlapped budgets to the time table."""
+        from ..core.roofline.model import LevelBetas
+        from ..core.roofline.report import (HIERARCHY_HEADER,
+                                            TIME_BUDGET_HEADER,
+                                            TIME_BUDGET_OVERLAP_HEADER,
+                                            hierarchy_rows, text_table,
+                                            time_budget_rows)
+        if betas is None:
+            betas = LevelBetas.from_chip(self.ecfg.chip, dtype=self.cfg.dtype)
+        t = self.aggregate_ledger().terms(self.cfg, self.ecfg.chip,
+                                          n_chips=self._ledger_chips())
+        dispatch = self._dispatch_s or 0.0
+        out = [f"== hierarchical roofline: {self.cfg.name} "
+               f"(betas: {betas.source}) ==",
+               text_table(hierarchy_rows(label, t), HIERARCHY_HEADER)]
+        rows = time_budget_rows(dict(self.phases), betas,
+                                dispatch_s_per_step=dispatch,
+                                overlap=overlap)
+        if rows:
+            out.append("-- time budget (dispatch "
+                       f"{dispatch * 1e6:.0f}us/step) --")
+            out.append(text_table(rows, TIME_BUDGET_OVERLAP_HEADER
+                                  if overlap is not None
+                                  else TIME_BUDGET_HEADER))
+        return "\n".join(out)
 
     # -- internals ---------------------------------------------------------
 
@@ -387,6 +481,11 @@ class Engine:
                 kv.freeze_committed(req.slot, fill, end)
         synchronize(self.device)
         t1 = now()
+        if self.obs is not None:
+            self.obs.tracer.span("prefill_chunk", self._obs_pid,
+                                 SLOT_TID0 + req.slot, t0, t1,
+                                 request=req.request_id, start=start,
+                                 end=end)
         self._sched.phases["prefill"].add(
             flops=(model_flops(cfg, end, 1, "prefill")
                    - model_flops(cfg, start, 1, "prefill")),
@@ -479,6 +578,9 @@ class Engine:
         tok_np = next_tok.cpu().numpy()       # the only device->host copy
         t1 = now()
         self.decode_steps += 1
+        if self.obs is not None:
+            self.obs.tracer.span("decode_step", self._obs_pid, ENGINE_TID,
+                                 t0, t1, batch=len(running))
         n_active = len(running)
         ph = self._sched.phases["decode"]
         ps = self.ecfg.page_size
@@ -502,6 +604,10 @@ class Engine:
         req.token_times.append(now() if t is None else t)
         if first:
             req.state = RequestState.RUNNING
+            if self.obs is not None:
+                self.obs.tracer.instant(
+                    "first_token", self._obs_pid, LIFECYCLE_TID,
+                    req.token_times[-1], request=req.request_id)
         if self._kv.prefix_cache:
             # pages whose every position is now final become shareable
             self._kv.freeze_committed(req.slot, req.tokens,

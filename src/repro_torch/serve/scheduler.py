@@ -42,6 +42,7 @@ from ..kernels.paged_attention import (mla_paged_decode_vmem_bytes,
 from ..models.common import ModelConfig, model_flops, param_counts
 from ..models.params import torch_dtype
 from ..obs.clock import now
+from ..obs.trace import LIFECYCLE_TID, SLOT_TID0
 from .kv_cache import PagedKVCache
 
 
@@ -190,6 +191,7 @@ class RooflineLedger:
     prefill_flops: float = 0.0
     decode_flops: float = 0.0
     decode_bytes: float = 0.0
+    decode_kv_bytes: float = 0.0     # KV-walk share of decode_bytes
     decode_vmem_bytes: float = 0.0   # on-chip traffic (stream + resident)
     decode_tokens: int = 0
     decode_batch_sum: int = 0        # sum of co-resident batch sizes
@@ -208,6 +210,7 @@ class RooflineLedger:
         self.decode_flops += decode_token_flops(cfg, context_len)
         self.decode_bytes += decode_token_bytes(cfg, context_len,
                                                 active_batch)
+        self.decode_kv_bytes += (context_len + 1) * kv_line_bytes(cfg)
         self.decode_vmem_bytes += vmem_bytes
         self.decode_tokens += 1
         self.decode_batch_sum += active_batch
@@ -229,6 +232,7 @@ class RooflineLedger:
             decode_token_flops(cfg, context_len + t) for t in range(n_fed))
         self.decode_bytes += (params_bytes_active(cfg) / max(active_batch, 1)
                               + (context_len + 2 * n_fed - 1) * line)
+        self.decode_kv_bytes += (context_len + 2 * n_fed - 1) * line
         self.decode_vmem_bytes += vmem_bytes
         self.decode_tokens += n_committed
         self.decode_batch_sum += n_committed * active_batch
@@ -269,14 +273,24 @@ class RooflineLedger:
     def arithmetic_intensity(self) -> float:
         return self.decode_flops / max(self.decode_bytes, 1.0)
 
-    def terms(self, cfg: ModelConfig, chip: ChipSpec = H100_SXM
-              ) -> RooflineTerms:
-        """RooflineTerms for this request's decode stream on one chip."""
+    def terms(self, cfg: ModelConfig, chip: ChipSpec = H100_SXM,
+              n_chips: int = 1) -> RooflineTerms:
+        """RooflineTerms for this request's decode stream on one chip:
+        every level the reference's fills at ``n_chips`` 1 (HBM from the
+        decode bytes, ``vmem`` from the on-chip pricing, ``host`` from the
+        swap bytes; no card-to-card bytes), with the decode FLOPs as the
+        model FLOPs.  Wider scopes arrive with tensor parallelism
+        (ROADMAP queue 1 item 11)."""
+        if n_chips != 1:
+            raise NotImplementedError(
+                f"n_chips={n_chips}: the multi-chip ledger scopes are "
+                "ROADMAP queue 1 item 11")
         return make_terms(
             scope=chip_scope(chip), dtype=cfg.dtype,
             flops_dev=self.decode_flops, hbm_bytes_dev=self.decode_bytes,
             vmem_bytes_dev=self.decode_vmem_bytes,
-            host_bytes_dev=self.swap_bytes)
+            host_bytes_dev=self.swap_bytes,
+            model_flops_total=self.decode_flops)
 
 
 @dataclasses.dataclass
@@ -302,9 +316,13 @@ class Request:
     # preemption); swap-on-resume restores swap_snapshot instead
     prefill_src: Optional[np.ndarray] = None
     swap_snapshot: Optional[Any] = None
-    # wall-clock stamps (obs.clock.now): submit, first slot placement,
-    # end of the last prefill chunk, one per committed token
+    # wall-clock stamps (obs.clock.now): submit, the hand-off from a
+    # front door (0.0: none; the serving tier is ROADMAP item 12), first
+    # slot placement, end of the last prefill chunk, one per committed
+    # token (speculative commits share one stamp), so TTFT telescopes
+    # into queue wait + prefill + first decode (ttft_breakdown)
     submit_time: float = 0.0
+    dispatch_time: float = 0.0
     prefill_start_time: float = 0.0
     prefill_end_time: float = 0.0
     token_times: List[float] = dataclasses.field(default_factory=list)
@@ -325,6 +343,39 @@ class Request:
         if not self.token_times:
             return float("nan")
         return self.token_times[0] - self.submit_time
+
+    def ttft_breakdown(self) -> Dict[str, float]:
+        """TTFT split into its three telescoping segments:
+
+            queue_wait_s   = prefill_start_time - submit_time
+            prefill_s      = prefill_end_time - prefill_start_time
+            first_decode_s = token_times[0] - prefill_end_time
+
+        The stamps bracket each other (submit -> first placement -> the
+        synchronize after the last prefill chunk -> first commit), so the
+        segments sum to :attr:`ttft` with no residual.  NaNs before the
+        first commit."""
+        if not self.token_times:
+            nan = float("nan")
+            return {"queue_wait_s": nan, "prefill_s": nan,
+                    "first_decode_s": nan}
+        return {
+            "queue_wait_s": self.prefill_start_time - self.submit_time,
+            "prefill_s": self.prefill_end_time - self.prefill_start_time,
+            "first_decode_s": self.token_times[0] - self.prefill_end_time,
+        }
+
+    def latency_stats(self) -> Dict[str, float]:
+        """TTFT and inter-token latency percentiles for this request."""
+        gaps = np.diff(np.asarray(self.token_times))
+        return {
+            "ttft_s": self.ttft,
+            "itl_p50_s": float(np.percentile(gaps, 50)) if gaps.size else
+            float("nan"),
+            "itl_p95_s": float(np.percentile(gaps, 95)) if gaps.size else
+            float("nan"),
+            "n_tokens": float(len(self.token_times)),
+        }
 
     @property
     def context_len(self) -> int:
@@ -370,6 +421,10 @@ class Scheduler:
         # phases, preempt and _resume the swap phase)
         self.phases: Dict[str, PhaseTraffic] = collections.defaultdict(
             PhaseTraffic)
+        # telemetry bundle and trace process id, threaded in by the owning
+        # engine (obs.Telemetry, or None = telemetry off)
+        self.obs = None
+        self.obs_pid = 0
 
     def reset_phases(self) -> None:
         """Drop accumulated phase traffic (after warm-up, before a timed
@@ -409,6 +464,10 @@ class Scheduler:
             req.prefill_start_time = now()
         req.ledger.pages_peak = max(req.ledger.pages_peak,
                                     self.kv.slot_pages(slot))
+        if self.obs is not None:
+            self.obs.tracer.instant(
+                "place", self.obs_pid, LIFECYCLE_TID, now(),
+                request=req.request_id, slot=slot, prefilling=prefilling)
 
     def _resume(self, req: Request) -> bool:
         """Bring one preempted request back; False if it does not fit."""
@@ -423,9 +482,14 @@ class Scheduler:
             if slot is None:
                 return False
             self.kv.synchronize()
+            t1 = now()
             self.phases["swap"].add(host=float(snap.nbytes),
-                                    wall_s=now() - t0)
+                                    wall_s=t1 - t0)
             req.ledger.swap_bytes += snap.nbytes
+            if self.obs is not None:
+                self.obs.tracer.span(
+                    "swap_in", self.obs_pid, SLOT_TID0 + slot, t0, t1,
+                    request=req.request_id, bytes=int(snap.nbytes))
             req.swap_snapshot = None
             self._place(req, slot, prefilling=False)
             return True
@@ -470,11 +534,16 @@ class Scheduler:
         del self.active[req.slot]
         if self.preempt_mode == "swap" and req.state is RequestState.RUNNING:
             t0 = now()
-            snap = self.kv.swap_out(req.slot)
+            snap = self.kv.swap_out(req.slot)     # ends in the host copy
+            t1 = now()
             self.phases["swap"].add(host=float(snap.nbytes),
-                                    wall_s=now() - t0)
+                                    wall_s=t1 - t0)
             req.swap_snapshot = snap
             req.ledger.swap_bytes += snap.nbytes
+            if self.obs is not None:
+                self.obs.tracer.span(
+                    "swap_out", self.obs_pid, SLOT_TID0 + req.slot, t0, t1,
+                    request=req.request_id, bytes=int(snap.nbytes))
         else:
             req.prefill_src = req.tokens
             self.kv.free(req.slot)
@@ -483,6 +552,10 @@ class Scheduler:
         req.ledger.preemptions += 1
         self.preempt_count += 1
         self.preempted.append(req)
+        if self.obs is not None:
+            self.obs.tracer.instant(
+                "preempt", self.obs_pid, LIFECYCLE_TID, now(),
+                request=req.request_id, mode=self.preempt_mode)
 
     def preempt_victim(self) -> Optional[Request]:
         """Newest-admitted running request (least sunk decode work)."""
@@ -518,3 +591,15 @@ class Scheduler:
         del self.active[req.slot]
         req.slot = -1
         self.finished.append(req)
+        if self.obs is not None:
+            # the whole request lifetime as one async slice, emitted as a
+            # balanced pair at completion (no orphan ids from requests
+            # still in flight at export time)
+            t_end = now()
+            t_begin = req.submit_time if req.submit_time > 0.0 else t_end
+            self.obs.tracer.async_begin(
+                "request", self.obs_pid, LIFECYCLE_TID, req.request_id,
+                t_begin)
+            self.obs.tracer.async_end(
+                "request", self.obs_pid, LIFECYCLE_TID, req.request_id,
+                t_end, tokens=len(req.generated), reason=reason)

@@ -24,7 +24,9 @@ ledger gains the verify / draft phase splits
 
 On CUDA the verify step (fixed shape (num_slots, k+1)) replays a captured
 CUDA graph, as the engine's decode step does (serve/graphs.py); the
-acceptance rule and its host copies stay eager.
+acceptance rule and its host copies stay eager.  With telemetry on, the
+``propose`` span ends at the draft round's synchronize and the ``verify``
+span at the verify step's read-back.
 
 The JAX package's ``serve/spec.py`` in PyTorch; its ``export_request``
 (the multi-replica serving tier) is not ported (ROADMAP queue 1 item 12).
@@ -42,6 +44,7 @@ from ..device import synchronize
 from ..models import decode_step_verify_paged, prepare_params
 from ..models.common import ModelConfig
 from ..obs.clock import now
+from ..obs.trace import ENGINE_TID
 from . import sampling
 from .engine import Engine, EngineConfig
 from .graphs import StaticInput
@@ -252,6 +255,9 @@ class SpecEngine(Engine):
         synchronize(self.device)
         td1 = now()
         self._sched.phases["draft"].add(wall_s=td1 - td0, steps=1)
+        if self.obs is not None:
+            self.obs.tracer.span("propose", self._obs_pid, ENGINE_TID,
+                                 td0, td1, batch=len(running))
 
         feed = np.zeros((self.ecfg.num_slots, T), np.int64)
         feed[:, 0] = np.where(active, self._next_token, 0)
@@ -269,6 +275,9 @@ class SpecEngine(Engine):
         t1 = now()
         self.decode_steps += 1
         self.verify_steps += 1
+        if self.obs is not None:
+            self.obs.tracer.span("verify", self._obs_pid, ENGINE_TID,
+                                 t0, t1, batch=len(running), k=k)
 
         n_active = len(running)
         vph = self._sched.phases["verify"]
