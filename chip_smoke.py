@@ -110,7 +110,8 @@ Phases, in order; any failure exits non-zero:
    ring kernels launched layers x steps times and no off kernel, tok/s
    of both runs printed;
    f. CUDA graphs: every engine above replays captured graphs of its
-   decode, verify, catch-up and draft steps (on by default on the card),
+   decode, verify, catch-up and draft steps and of its prefill chunks
+   and prompt buckets, one per shape (on by default on the card),
    and each wrapper's launch count adds at each replay what its capture
    counted, so every launch hold above holds under replay; the pipeline
    runs are off and double with graphs, then double and off eager
@@ -133,6 +134,29 @@ Phases, in order; any failure exits non-zero:
    runs of deepseek-v2 (c) and speculative qwen3-14b (e) with telemetry
    on print one ``[telemetry]`` attainment line each (with the propose /
    verify spans);
+   h. engine options (``[options]``), qwen3-0.6b at full size and
+   deepseek-v2 at 4 layers, each case served graphed and eagerly with
+   byte-equal streams, pools byte-equal outside page 0, equal launch
+   counts and equal ``capacity_report``s: prefix sharing (a 96-token
+   prefix with three tails, and a 128-token prompt twice, the second an
+   aligned full hit: a T = 1 chunk after copy-on-write; deduplicated
+   pages and copies > 0; streams equal the prefix-off run's or first
+   differ under its top-2 margin; deepseek-v2 must refuse
+   ``prefix_cache=True``), preemption by swap and by recompute in a pool
+   of PREEMPT_PAGES (preemptions > 0, swapped bytes > 0; streams against
+   the fully backed run: swap exactly, recompute under the top-2 margin
+   rule, deepseek-v2's recompute reported only), seeded sampled requests
+   (temperature 0.8, top-k 50, top-p 0.9); then SAMPLER_DRAWS seeded draws
+   of the sampler from one row of qwen3's vocabulary: none outside the
+   kept set, total variation against the filtered, tempered softmax
+   within ``sampling.tv_null_bound``;
+   i. prefill graphs (prefill ``[graph]`` lines), qwen3-0.6b and
+   deepseek-v2: PROMPT_LENS twice on a graphed and an eager engine, the
+   second pass timed: streams, pools outside page 0 and launches equal,
+   the captured prefill shapes and their capture time, the mean prefill
+   step and TTFT both ways, peak memory and each way's prefill time
+   budget (``time_budget_rows`` on the measured betas less the engine's
+   dispatch floor);
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -1975,7 +1999,9 @@ def engine_phase(torch, np, card, cfg, params, *, max_len: int,
           f"{scale:.3f})")
     print(f"[engine] {cfg.name} {card}: {n_tok / wall:.2f} tok/s over "
           f"{wall:.3f} s (CUDA graphs; capture {capture_ms(engine):.1f} ms "
-          f"in the first decode step); mean decode step {dec_ms:.3f} ms; "
+          f"inside the run: the decode step's and "
+          f"{len(engine.prefill_shapes)} prefill shapes', each once); mean "
+          f"decode step {dec_ms:.3f} ms; "
           f"TTFT mean {np.mean(ttft) * 1e3:.2f} ms, max "
           f"{np.max(ttft) * 1e3:.2f} ms; ledger arithmetic intensity "
           f"{agg.arithmetic_intensity:.3f} FLOP/B; peak memory "
@@ -2089,8 +2115,9 @@ def step_ms(engine) -> dict:
 
 
 def capture_ms(engine) -> float:
-    """Milliseconds an engine's graphs (its draft model's too) took to
-    capture, once per engine (their first calls' eager runs excluded)."""
+    """Milliseconds an engine's graphs (its draft model's too: every step
+    and prefill shape) took to capture, each once per engine (their first
+    calls' eager runs excluded)."""
     prop = getattr(engine, "proposer", None)
     return (engine.graph_capture_s + (prop._graphs.capture_s if hasattr(
         prop, "_graphs") else 0.0)) * 1e3
@@ -2128,14 +2155,16 @@ def graph_kernels(torch, label: str, graphs, name: str, want: dict,
                       for k in want))
 
 
-def counted_run(torch, engine, prompts, gen):
-    """Serve ``prompts`` on ``engine``, every paged kernel's launch count
-    zeroed just before the run and read just after.  Returns (requests,
-    {kernel name: launches}, wall seconds)."""
+def counted_run(torch, engine, prompts, gen, seeds=None):
+    """Serve ``prompts`` on ``engine`` (request i seeded ``seeds[i]`` when
+    given), every paged kernel's launch count zeroed just before the run
+    and read just after.  Returns (requests, {kernel name: launches}, wall
+    seconds)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.obs.clock import now
     counters = [getattr(pa, n) for n in PAGED_KERNELS]
-    reqs = [engine.submit(p, gen) for p in prompts]
+    reqs = [engine.submit(p, gen, seed=None if seeds is None else seeds[i])
+            for i, p in enumerate(prompts)]
     for c in counters:
         c.launches = 0                           # counts start here
     torch.cuda.synchronize()
@@ -2206,8 +2235,8 @@ def pipeline_runs(torch, card, label, cfg, make, prompts, gen, want_off):
     print(f"[graph] {label} {card}: greedy streams byte-equal with CUDA "
           f"graphs on and off, pipeline off and double, the same launch "
           f"counts; graphed: {'; '.join(map(fmt_steps, steps[True]))} "
-          f"(capture {', '.join(f'{c:.1f}' for c in capture)} ms once per "
-          f"engine, in the first step); eager: "
+          f"(capture {', '.join(f'{c:.1f}' for c in capture)} ms, each "
+          f"step and prefill shape once per engine, inside the run); eager: "
           f"{'; '.join(map(fmt_steps, steps[False]))} (runs off, double, "
           f"double, off)")
     return rings, steps
@@ -2355,6 +2384,34 @@ def top2_margin(logits):
     return (v[:, 0] - v[:, 1]).cpu().numpy()
 
 
+def margin_engine(cfg, params, ecfg):
+    """The plain engine, keeping each committed token's top-2 logit margin
+    in ``margins`` by (request id, token index); its tokens are
+    unchanged."""
+    from repro_torch.serve import Engine, sampling
+
+    class MarginEngine(Engine):
+        def _decode_sample(self):
+            logits = self._decode_logits()
+            self.step_margin = top2_margin(logits)
+            return sampling.sample_tokens(logits, self._seeds, self._steps,
+                                          self._temps, self._top_ks,
+                                          self._top_ps)
+
+        def _sample_first(self, last_logits, req):
+            self.first_margin = top2_margin(last_logits.reshape(1, -1))[0]
+            return super()._sample_first(last_logits, req)
+
+        def _commit_token(self, req, tok, first=False, t=None):
+            m = self.first_margin if first else self.step_margin[req.slot]
+            self.margins[(req.request_id, len(req.generated))] = float(m)
+            super()._commit_token(req, tok, first=first, t=t)
+
+    engine = MarginEngine(cfg, params, ecfg)
+    engine.margins = {}
+    return engine
+
+
 def verify_logits_check(torch, np, engine, ops, op, counter, rng):
     """One verify step of a SpecEngine's current batch (each slot's next
     token and k random draft tokens), run on copies of its pools: through
@@ -2435,27 +2492,7 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import now
     from repro_torch.serve import (Engine, EngineConfig, GenerateConfig,
-                                   SpecEngine, sampling)
-
-    class MarginEngine(Engine):
-        """The plain engine, keeping each committed token's top-2 logit
-        margin by (request id, token index); its tokens are unchanged."""
-
-        def _decode_sample(self):
-            logits = self._decode_logits()
-            self.step_margin = top2_margin(logits)
-            return sampling.sample_tokens(logits, self._seeds, self._steps,
-                                          self._temps, self._top_ks,
-                                          self._top_ps)
-
-        def _sample_first(self, last_logits, req):
-            self.first_margin = top2_margin(last_logits.reshape(1, -1))[0]
-            return super()._sample_first(last_logits, req)
-
-        def _commit_token(self, req, tok, first=False, t=None):
-            m = self.first_margin if first else self.step_margin[req.slot]
-            self.margins[(req.request_id, len(req.generated))] = float(m)
-            super()._commit_token(req, tok, first=first, t=t)
+                                   SpecEngine)
 
     torch.cuda.reset_peak_memory_stats()
     dcfg = scfg.draft_cfg
@@ -2472,8 +2509,7 @@ def spec_phase(torch, np, card, cfg, params, *, scfg, label: str,
         warm.run()
     del warm
 
-    base = MarginEngine(cfg, params, ecfg)
-    base.margins = {}
+    base = margin_engine(cfg, params, ecfg)
     breqs = [base.submit(p, gen) for p in prompts]
     torch.cuda.synchronize()
     t0 = now()
@@ -2690,7 +2726,8 @@ def telemetry_phase(torch, np, card, cfg, params, roof) -> None:
     """Serve telemetry at full width: qwen3-0.6b graphed, pipeline off,
     PROMPT_LENS, on the card's measured roofs (``roof.to_chipspec()``).
     One engine with telemetry off and one with it on, each warmed up
-    first (its graph captured there, before the tracker's baseline),
+    first on prompts of the same lengths (its decode and prefill graphs
+    captured there, before the tracker's baseline),
     then runs off, on, off, on: greedy streams and launch counts equal in
     all four, tok/s on within TELEMETRY_BAR of off, the trace valid with
     the reference's events, every window within MAX_ATTAINMENT of its
@@ -2716,13 +2753,15 @@ def telemetry_phase(torch, np, card, cfg, params, roof) -> None:
                                                            telemetry=on))
                for on in (False, True)}
     for eng in engines.values():
-        # one chunk: prefill and the first decode step (the capture) in
-        # the first engine step, whose end is the tracker's baseline
-        eng.submit(rng.integers(0, cfg.vocab_size, 30), GenerateConfig(8))
+        # prompts of the measured lengths: every prefill shape and the
+        # decode step captured before the tracker's baseline
+        for n in PROMPT_LENS:
+            eng.submit(rng.integers(0, cfg.vocab_size, n), GenerateConfig(8))
         eng.run()
         eng.reset_phases()
     on_eng = engines[True]
     obs = on_eng.obs
+    w0 = len(obs.attainment.windows)       # the warm-up's, with captures
     runs, full = [], []
     for on in (False, True, False, True):
         if on:
@@ -2771,7 +2810,7 @@ def telemetry_phase(torch, np, card, cfg, params, roof) -> None:
           "events: " + ", ".join(f"{k} {names[k]}" for k in sorted(
               TRACE_NAMES | {"pool_pages", "roofline_attainment"})))
 
-    windows = obs.attainment.windows
+    windows = obs.attainment.windows[w0:]
     check_windows(cfg.name, windows)
     print(f"[telemetry] {cfg.name} {card}: attainment windows of "
           f"{TELEMETRY_WINDOW} steps (each run's last one shorter) on the "
@@ -2806,6 +2845,334 @@ def telemetry_phase(torch, np, card, cfg, params, roof) -> None:
               f"{floor_ms:.3f} ms")
     print(on_eng.hierarchy_report(betas=roof.level_betas(),
                                   overlap=roof.overlap))
+
+
+# the [options] phase: prefix sharing (a 96-token prefix, six full pages,
+# with distinct tails, and one 128-token prompt served twice, the second
+# time an aligned full hit whose last token is recomputed, a T = 1 chunk,
+# into the shared page after copy-on-write), preemption in a pool too
+# small for the first four requests' contexts (20 pages beside the trash
+# page: they are admitted on 18 and grow to 22 at OPT_NEW_TOKENS), and
+# sampled requests, each request seeded
+OPT_PREFIX, OPT_TAILS, OPT_REPEAT = 96, (20, 37, 5), 128
+OPT_NEW_TOKENS, PREEMPT_PAGES = 16, 21
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+# the sampler on the card: draws of sample_tokens from one logits row (one
+# seeded stream each, in batches of rows), held against the filtered,
+# tempered softmax by total variation within sampling.tv_null_bound (the
+# null TV's mean + 6 sigma; under 0.02 at these draws); the row: qwen3's
+# vocabulary of N(0, 9) logits, seeded
+SAMPLER_DRAWS, SAMPLER_BATCH = 20000, 1000
+# capacity_report counters that must agree graphed and eager (all keys)
+CAP_KEYS = ("pages_total", "pages_in_use", "pages_peak", "pages_cached",
+            "pages_deduped", "cow_copies", "evictions", "preemptions",
+            "page_bytes", "pool_bytes", "params_bytes", "pages_per_request",
+            "effective_batch", "capacity_max_batch")
+
+
+def serve_waves(torch, engine, waves, gen, seeds=None):
+    """:func:`counted_run` over each list of prompts in ``waves`` in turn on
+    one engine (request i seeded ``seeds[i]`` across the waves).  Returns
+    (requests, {kernel: launches} summed, wall seconds summed)."""
+    reqs, counts, wall = [], {}, 0.0
+    for prompts in waves:
+        part = None if seeds is None else seeds[len(reqs):]
+        r, c, w = counted_run(torch, engine, prompts, gen, part)
+        reqs += r
+        wall += w
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return reqs, counts, wall
+
+
+def pools_equal_outside_trash(torch, a, b) -> bool:
+    """Two engines' page pools byte-equal on every page but page 0 (the
+    trash page, which idle lanes and a bucket's pad positions write in
+    any order)."""
+    from repro_torch.models.params import tree_leaves
+    return all(torch.equal(x[:, 1:], y[:, 1:]) for x, y in zip(
+        tree_leaves(a._kv.pools), tree_leaves(b._kv.pools)))
+
+
+def prefill_capture_ms(engine) -> float:
+    """Milliseconds an engine's captured prefill graphs took to capture."""
+    return sum(g.capture_s for n, g in engine._graphs.graphs.items()
+               if n.startswith("prefill")) * 1e3
+
+
+def graphed_and_eager(torch, label: str, case: str, make, waves, gen,
+                      seeds=None):
+    """One option case served by ``make(True)`` (CUDA graphs) and
+    ``make(False)`` (the same bodies eagerly), one after the other: every
+    request must finish, and the two must give byte-equal streams, pools
+    byte-equal outside page 0, equal paged-kernel launch counts and equal
+    ``capacity_report``s; each pool passes ``BlockPool.check`` against its
+    tables.  Returns the graphed engine, its requests and its report."""
+    from repro_torch.serve.crosscheck import capacity_report
+    runs = {}
+    for graphs in (True, False):
+        engine = make(graphs)
+        reqs, counts, wall = serve_waves(torch, engine, waves, gen, seeds)
+        if any(r.finish_reason != "length" for r in reqs):
+            fail(f"{label} {case} {run_kind(graphs)}: a request did not "
+                 "finish")
+        try:
+            engine._kv.pool.check(engine._kv.table_refs())
+        except AssertionError as e:
+            fail(f"{label} {case} {run_kind(graphs)}: pool check: {e}")
+        runs[graphs] = (engine, reqs, counts, capacity_report(engine), wall)
+    (g, greqs, gcounts, gcap, gwall), (e, ereqs, ecounts, ecap, ewall) = (
+        runs[True], runs[False])
+    if [r.generated for r in greqs] != [r.generated for r in ereqs]:
+        fail(f"{label} {case}: streams differ graphed and eager")
+    if not pools_equal_outside_trash(torch, g, e):
+        fail(f"{label} {case}: pools differ graphed and eager outside "
+             "page 0")
+    if gcounts != ecounts:
+        fail(f"{label} {case}: launches graphed {gcounts}, eager {ecounts}")
+    if {k: gcap[k] for k in CAP_KEYS} != {k: ecap[k] for k in CAP_KEYS}:
+        fail(f"{label} {case}: capacity graphed {gcap}, eager {ecap}")
+    if g.prefill_shapes and not any(n.startswith("prefill")
+                                    for n in g._graphs.graphs):
+        fail(f"{label} {case}: no prefill step was captured")
+    n_tok = sum(len(r.generated) for r in greqs)
+    launched = {k: v for k, v in gcounts.items() if v}
+    print(f"[options] {label} {case}: graphed = eager: streams byte-equal, "
+          f"pools byte-equal outside page 0, launches {launched}, capacity "
+          f"pages peak {gcap['pages_peak']}/{gcap['pages_total']} deduped "
+          f"{gcap['pages_deduped']} cow {gcap['cow_copies']} evictions "
+          f"{gcap['evictions']} preemptions {gcap['preemptions']}; prefill "
+          f"shapes {sorted(g.prefill_shapes)}; tok/s graphed "
+          f"{n_tok / gwall:.2f}, eager {n_tok / ewall:.2f}")
+    return g, greqs, gcap
+
+
+def against_baseline(label: str, case: str, base, base_reqs, reqs,
+                     logits_atol: float, exact: bool) -> int:
+    """Streams of ``reqs`` against the same requests' greedy streams on a
+    :func:`margin_engine` ``base``: equal, or (unless ``exact``) first
+    differing where the base run's top-2 logit margin is under
+    ``logits_atol`` (the chunk boundaries differ, so bf16 GEMMs round
+    differently).  Returns how many are equal."""
+    n_same = 0
+    for b, r in zip(base_reqs, reqs):
+        diff = [j for j, (x, y) in enumerate(zip(b.generated, r.generated))
+                if x != y]
+        if not diff:
+            n_same += 1
+            continue
+        j = diff[0]
+        m = base.margins[(b.request_id, j)]
+        print(f"[options] {label} {case} request {b.request_id}: first "
+              f"differs from the baseline at token {j}, where the baseline's "
+              f"top-2 logit margin is {m:.4e}")
+        if exact or m > logits_atol:
+            fail(f"{label} {case} request {b.request_id}: stream differs "
+                 f"from the baseline at token {j} (top-2 margin {m}, "
+                 f"{'exact hold' if exact else f'atol {logits_atol}'})")
+    return n_same
+
+
+def options_phase(torch, np, card, cfg, params, *, max_len: int,
+                  logits_atol: float) -> None:
+    """The engine options no other phase takes, each served graphed and
+    eagerly (:func:`graphed_and_eager`): prefix sharing with copy-on-write
+    (``prefix_cache=True`` must raise on an MoE model, as in the
+    reference), preemption by swap and by recompute in a pool of
+    PREEMPT_PAGES, sampled requests (SAMPLED, each seeded).  Prefix and
+    preemption streams are held against a fully backed, prefix-off run:
+    swap exactly, prefix sharing and recompute (other chunk boundaries)
+    equal or first differing under the baseline's top-2 margin; an MoE
+    model's recompute re-prefills committed tokens at another chunk
+    capacity, so it is reported, not held."""
+    from repro_torch.serve import Engine, EngineConfig, GenerateConfig
+    from repro_torch.serve import sampling
+    moe = any(b.ffn == "moe" for b in cfg.block_pattern)
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=max_len,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, V, n) for n in PROMPT_LENS]
+    gen = GenerateConfig(max_new_tokens=OPT_NEW_TOKENS)
+
+    def engines(**kw):
+        return lambda g: Engine(cfg, params, dataclasses.replace(
+            ecfg, cuda_graphs=g, **kw))
+
+    with deterministic(torch, moe):
+        if moe:
+            try:
+                Engine(cfg, params, dataclasses.replace(
+                    ecfg, prefix_cache=True)).reset()
+            except NotImplementedError as e:
+                print(f"[options] {cfg.name}: prefix_cache=True raises "
+                      f"NotImplementedError, as in the reference ({e})")
+            else:
+                fail(f"{cfg.name}: prefix_cache=True did not raise")
+        else:
+            shared = rng.integers(0, V, OPT_PREFIX)
+            repeat = rng.integers(0, V, OPT_REPEAT)
+            tails = [np.concatenate([shared, rng.integers(0, V, n)])
+                     for n in OPT_TAILS]
+            waves = [[tails[0], repeat], [tails[1], tails[2], repeat]]
+            eng, reqs, cap = graphed_and_eager(
+                torch, cfg.name, "prefix sharing", engines(prefix_cache=True),
+                waves, gen)
+            if not (cap["pages_deduped"] > 0 and cap["cow_copies"] > 0):
+                fail(f"{cfg.name} prefix sharing: deduped "
+                     f"{cap['pages_deduped']}, cow {cap['cow_copies']}")
+            if ("chunk", 1) not in eng.prefill_shapes:
+                fail(f"{cfg.name}: the aligned full hit ran no T = 1 chunk")
+            base = margin_engine(cfg, params, ecfg)
+            breqs, _, _ = serve_waves(torch, base, waves, gen)
+            n = against_baseline(cfg.name, "prefix sharing", base, breqs,
+                                 reqs, logits_atol, exact=False)
+            print(f"[options] {cfg.name} prefix sharing: {n}/{len(reqs)} "
+                  "streams equal the prefix-off run's (the rest may differ "
+                  f"first under its top-2 margin, atol {logits_atol})")
+
+        base = margin_engine(cfg, params, ecfg)
+        breqs, _, _ = serve_waves(torch, base, [prompts], gen)
+        for mode in ("swap", "recompute"):
+            eng, reqs, cap = graphed_and_eager(
+                torch, cfg.name, f"preempt {mode}", engines(
+                    num_pages=PREEMPT_PAGES, preempt_mode=mode),
+                [prompts], gen)
+            if cap["preemptions"] <= 0:
+                fail(f"{cfg.name} preempt {mode}: nothing was preempted")
+            swapped = sum(r.ledger.swap_bytes for r in reqs)
+            if mode == "swap" and swapped <= 0:
+                fail(f"{cfg.name} preempt swap: no bytes swapped")
+            if moe and mode == "recompute":
+                n = sum(b.generated == r.generated
+                        for b, r in zip(breqs, reqs))
+                print(f"[options] {cfg.name} preempt recompute: {n}/"
+                      f"{len(reqs)} streams equal the fully backed run's "
+                      "(not held: a re-prefill runs committed tokens at "
+                      "another MoE capacity)")
+                continue
+            n = against_baseline(cfg.name, f"preempt {mode}", base, breqs,
+                                 reqs, logits_atol, exact=mode == "swap")
+            print(f"[options] {cfg.name} preempt {mode}: {cap['preemptions']} "
+                  f"preemptions, {swapped / 1e6:.2f} MB swapped; {n}/"
+                  f"{len(reqs)} streams equal the fully backed run's"
+                  + (" (exact hold)" if mode == "swap" else
+                     f" (the rest may differ first under its top-2 margin, "
+                     f"atol {logits_atol})"))
+
+        sgen = GenerateConfig(max_new_tokens=OPT_NEW_TOKENS, **SAMPLED)
+        seeds = [sampling.fold_seed(11, b) for b in range(len(prompts))]
+        eng, reqs, _ = graphed_and_eager(torch, cfg.name, "sampled",
+                                         engines(), [prompts], sgen, seeds)
+        n = sum(b.generated == r.generated for b, r in zip(breqs, reqs))
+        print(f"[options] {cfg.name} sampled (temperature "
+              f"{SAMPLED['temperature']}, top-k {SAMPLED['top_k']}, top-p "
+              f"{SAMPLED['top_p']}, seeded): streams byte-equal graphed and "
+              f"eager; {n}/{len(reqs)} equal the greedy ones")
+
+
+def sampler_distribution(torch, np, card, vocab: int) -> None:
+    """SAMPLER_DRAWS draws of ``sampling.sample_tokens`` on the card from
+    one logits row at SAMPLED's settings: no draw outside the kept set,
+    and the frequencies within ``sampling.tv_null_bound`` of the filtered,
+    tempered softmax in total variation."""
+    from repro_torch.serve import sampling
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = torch.randn(vocab, generator=gen, device="cuda") * 3
+    t, k, p = SAMPLED["temperature"], SAMPLED["top_k"], SAMPLED["top_p"]
+    target = sampling.target_distribution(row, t, k, p)
+    draws = []
+    for i in range(0, SAMPLER_DRAWS, SAMPLER_BATCH):
+        b = min(SAMPLER_BATCH, SAMPLER_DRAWS - i)
+        draws.append(sampling.sample_tokens(
+            row[None].expand(b, -1), np.arange(i, i + b),
+            np.zeros(b, np.int32), np.full(b, t, np.float32),
+            np.full(b, k, np.int32), np.full(b, p, np.float32)).cpu())
+    toks = torch.cat(draws).numpy()
+    freq = np.bincount(toks, minlength=vocab) / SAMPLER_DRAWS
+    tv = 0.5 * np.abs(freq - target).sum()
+    bound = sampling.tv_null_bound(target, SAMPLER_DRAWS)
+    outside = int((target[toks] == 0).sum())
+    print(f"[options] sampler on the card {card}: {SAMPLER_DRAWS} seeded "
+          f"draws of sample_tokens (temperature {t}, top-k {k}, top-p {p}) "
+          f"from one row of {vocab} logits: {int((target > 0).sum())} kept, "
+          f"{outside} draws outside the kept set; total variation "
+          f"{tv:.4f} against the filtered, tempered softmax (bound "
+          f"{bound:.4f}: the null mean + 6 sigma)")
+    if outside or not tv <= bound:
+        fail(f"sampler on the card: {outside} draws outside the kept set, "
+             f"total variation {tv} > {bound}")
+
+
+def prefill_graph_lines(torch, np, card, cfg, params, betas, *, max_len: int,
+                        new_tokens: int) -> None:
+    """Prefill as captured graphs against the same bodies run eagerly: one
+    engine each way serves PROMPT_LENS twice, and the second pass is timed
+    (its captures fell in the first).  Streams byte-equal both passes and
+    both ways, pools outside page 0 and launch counts equal; prints the
+    captured prefill shapes and their capture ms, the mean prefill-chunk
+    wall, TTFT mean and max, peak memory, and ``hierarchy_report``'s
+    prefill row (on ``betas``, less the dispatch floor) both ways."""
+    from repro_torch.core.roofline.report import (TIME_BUDGET_HEADER,
+                                                  text_table,
+                                                  time_budget_rows)
+    from repro_torch.serve import Engine, EngineConfig, GenerateConfig
+    moe = any(b.ffn == "moe" for b in cfg.block_pattern)
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=max_len,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda")
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    gen = GenerateConfig(max_new_tokens=new_tokens)
+    res = {}
+    with deterministic(torch, moe):
+        for graphs in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            engine = Engine(cfg, params, dataclasses.replace(
+                ecfg, cuda_graphs=graphs))
+            first, _, _ = counted_run(torch, engine, prompts, gen)
+            engine.reset_phases()
+            reqs, counts, _ = counted_run(torch, engine, prompts, gen)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if [r.generated for r in reqs] != [r.generated for r in first]:
+                fail(f"{cfg.name} {run_kind(graphs)}: the second pass's "
+                     "streams differ from the first's")
+            ph = engine.phases["prefill"]
+            engine.measure_dispatch_overhead()
+            row = time_budget_rows({"prefill": ph}, betas,
+                                   dispatch_s_per_step=engine._dispatch_s)
+            res[graphs] = dict(
+                engine=engine, reqs=reqs, counts=counts, peak=peak,
+                chunk_ms=ph.wall_s / max(ph.steps, 1) * 1e3,
+                chunks=ph.steps, ttft=[r.ttft * 1e3 for r in reqs],
+                table=text_table(row[:1], TIME_BUDGET_HEADER))
+    g, e = res[True], res[False]
+    if [r.generated for r in g["reqs"]] != [r.generated for r in e["reqs"]]:
+        fail(f"{cfg.name}: prefill graphs change the streams")
+    if not pools_equal_outside_trash(torch, g["engine"], e["engine"]):
+        fail(f"{cfg.name}: prefill graphs change the pools outside page 0")
+    if g["counts"] != e["counts"]:
+        fail(f"{cfg.name}: launches graphed {g['counts']}, eager "
+             f"{e['counts']}")
+    shapes = sorted(g["engine"].prefill_shapes)
+    names = [n for n in g["engine"]._graphs.graphs if n.startswith("prefill")]
+    if not shapes or len(names) != len(shapes):
+        fail(f"{cfg.name}: prefill shapes {shapes}, captured {names}")
+    print(f"[graph] {cfg.name} prefill {card}: captured {len(names)} "
+          f"prefill shapes {shapes} in {prefill_capture_ms(g['engine']):.1f} "
+          f"ms of capture; streams, pools outside page 0 and launches equal "
+          f"graphed and eager; second pass: mean prefill step graphed "
+          f"{g['chunk_ms']:.3f} ms, eager {e['chunk_ms']:.3f} ms "
+          f"({g['chunks']} steps each); TTFT mean graphed "
+          f"{np.mean(g['ttft']):.2f} ms (max {np.max(g['ttft']):.2f}), eager "
+          f"{np.mean(e['ttft']):.2f} ms (max {np.max(e['ttft']):.2f}); "
+          f"peak memory graphed {g['peak']:.2f} GB, eager {e['peak']:.2f} GB")
+    for graphs in (True, False):
+        r = res[graphs]
+        print(f"[graph] {cfg.name} prefill time budget, {run_kind(graphs)} "
+              f"(dispatch floor {r['engine']._dispatch_s * 1e3:.3f} ms a "
+              f"step, betas {betas.source}):")
+        print(r["table"])
 
 
 def print_build_summary(name: str, log: str) -> None:
@@ -3003,8 +3370,15 @@ def main() -> int:
                min_accept=SELF_DRAFT_MIN_ACCEPT)
     t_phase = phase_time("qwen3-0.6b engine and self-draft paths", t_phase)
     telemetry_phase(torch, np, card, qwen, params, roof)
-    del params
     t_phase = phase_time("telemetry", t_phase)
+    options_phase(torch, np, card, qwen, params, max_len=MAX_LEN,
+                  logits_atol=LOGITS_ATOL)
+    sampler_distribution(torch, np, card, qwen.vocab_size)
+    t_phase = phase_time("qwen3-0.6b options", t_phase)
+    prefill_graph_lines(torch, np, card, qwen, params, roof.level_betas(),
+                        max_len=MAX_LEN, new_tokens=NEW_TOKENS)
+    del params
+    t_phase = phase_time("qwen3-0.6b prefill graphs", t_phase)
     chip = roof.to_chipspec()
 
     params = make_params(torch, deepseek)
@@ -3022,8 +3396,14 @@ def main() -> int:
         verify_counter=pa.mla_paged_attention_verify,
         decode_counter=pa.mla_paged_attention,
         decode_op="mla_paged_attention", logits_atol=DS_LOGITS_ATOL)
-    del params
     t_phase = phase_time("deepseek-v2 engine and n-gram paths", t_phase)
+    options_phase(torch, np, card, deepseek, params, max_len=DS_MAX_LEN,
+                  logits_atol=DS_LOGITS_ATOL)
+    t_phase = phase_time("deepseek-v2 options", t_phase)
+    prefill_graph_lines(torch, np, card, deepseek, params, roof.level_betas(),
+                        max_len=DS_MAX_LEN, new_tokens=DS_NEW_TOKENS)
+    del params
+    t_phase = phase_time("deepseek-v2 prefill graphs", t_phase)
 
     draft = make_params(torch, qwen)
     params = make_params(torch, q14)

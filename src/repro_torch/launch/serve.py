@@ -12,6 +12,22 @@ Speculative decoding (serve/spec.py):
     ... --arch qwen3-14b --spec draft --draft-arch qwen3-0.6b
     ... --spec draft --spec-k-adaptive           # EWMA-adapted draft length
 
+Sampling and block-pool memory management (serve/block_pool.py), with
+the reference's flags: ``--temperature``, ``--top-k`` and ``--top-p``
+sample every request from its own seeded stream (request ``b`` seeded
+``sampling.fold_seed(--seed, b)``; temperature 0 is greedy); pages are
+allocated on demand as contexts grow; ``--prefix-cache`` shares prompt
+prefixes by content-hash page aliasing with copy-on-write on divergence;
+an undersized pool (``--num-pages``, the trash page included; 0 = fully
+backed) preempts the newest running request when it runs dry, by
+``--preempt swap`` (pages to host memory and back) or ``--preempt
+recompute`` (dropped, re-prefilled on resume); ``--watermark`` keeps that
+fraction of the pool free at admission.  Each run prints the reference's
+``[serve/capacity]`` line (serve/crosscheck.py::capacity_report):
+
+    ... --prefix-cache --num-pages 24 --watermark 0.1 --preempt swap \
+        --temperature 0.8 --top-k 50 --top-p 0.9
+
 ``--pipeline double`` runs the paged-attention ring kernels (the JAX
 package's double-buffered page walk; bit-identical to ``off``) for the
 decode, verify and draft steps; on the CPU the plain versions run either
@@ -31,14 +47,22 @@ the report on the measured betas instead of the data sheet:
 
     ... --trace t.json --metrics-snapshot m.prom --chip measured
 
-Runs on the card by default (``--device cuda``); ``--device cpu`` runs
-the plain PyTorch path (use ``--smoke`` there).  ``--layers`` cuts depth
-only (a dense-FFN prologue stays), ``--draft-layers`` the draft model's.
+Runs on the card by default (``--device cuda``), where the decode,
+verify, draft and prefill steps replay captured CUDA graphs;
+``--device cpu`` runs the plain PyTorch path (use ``--smoke`` there).
+``--layers`` cuts depth only (a dense-FFN prologue stays),
+``--draft-layers`` the draft model's.
 Weights are random, from generators seeded ``--seed`` (target) and
 ``--seed + 1`` (draft).  Prints tokens/s, the per-request decode roofline
 ledger line with its TTFT and inter-token latency and, with ``--spec``,
 the acceptance rate and tokens per verify pass (on random weights these
 say nothing about real drafts).
+
+The reference's other flags: ``--backend`` has no counterpart, since the
+port has one kernel backend per op; ``--chip`` takes ``sheet`` or
+``measured`` here (the card), not a TPU; ``--mesh``, ``--overlap``,
+``--router``, ``--roles`` and ``--link`` come with tensor parallelism and
+the serving tier (ROADMAP queue 1 items 11 and 12).
 """
 
 from __future__ import annotations
@@ -58,7 +82,9 @@ from ..device import resolve_device, synchronize
 from ..models import init_params
 from ..obs.clock import now
 from ..serve import (Engine, EngineConfig, GenerateConfig, SpecConfig,
-                     SpecEngine, speculative_summary, supports_spec)
+                     SpecEngine, sampling, speculative_summary,
+                     supports_spec)
+from ..serve.crosscheck import capacity_report
 
 
 def main(argv=None):
@@ -83,6 +109,23 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k sampling filter (0 = off)")
+    ap.add_argument("--top-p", type=float, default=0.0,
+                    help="nucleus sampling mass (0 or >= 1 = off)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-hash prefix sharing + copy-on-write "
+                         "(serve/block_pool.py)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="block-pool size incl. trash page (0 = fully "
+                         "backed; smaller exercises preemption)")
+    ap.add_argument("--watermark", type=float, default=0.0,
+                    help="admission slack as a fraction of pool pages")
+    ap.add_argument("--preempt", choices=["swap", "recompute"],
+                    default="swap",
+                    help="pool-dry preemption: swap pages to host or "
+                         "drop + recompute on resume")
     ap.add_argument("--slots", type=int, default=0,
                     help="decode slots (0 = one per request)")
     ap.add_argument("--page-size", type=int, default=16)
@@ -130,7 +173,9 @@ def main(argv=None):
         num_slots=slots, page_size=args.page_size,
         max_len=args.prompt_len + args.new_tokens,
         prefill_chunk=args.prefill_chunk, pipeline=args.pipeline,
-        kv_dtype=args.kv_dtype, device=dev, chip=chip, telemetry=telemetry)
+        kv_dtype=args.kv_dtype, device=dev, chip=chip, telemetry=telemetry,
+        prefix_cache=args.prefix_cache, num_pages=args.num_pages or None,
+        watermark=args.watermark, preempt_mode=args.preempt)
     scfg = None
     if args.spec == "off":
         engine = Engine(cfg, params, ecfg)
@@ -154,9 +199,12 @@ def main(argv=None):
                               adaptive=args.spec_k_adaptive)
         engine = SpecEngine(cfg, params, ecfg, scfg)
     rng = np.random.default_rng(args.seed)
-    gen = GenerateConfig(max_new_tokens=args.new_tokens)
+    gen = GenerateConfig(max_new_tokens=args.new_tokens,
+                         temperature=args.temperature, top_k=args.top_k,
+                         top_p=args.top_p)
     reqs = [engine.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
-                          gen) for _ in range(args.batch)]
+                          gen, seed=sampling.fold_seed(args.seed, b))
+            for b in range(args.batch)]
     t0 = now()
     engine.run()
     synchronize(dev)
@@ -177,6 +225,13 @@ def main(argv=None):
               f"{lat['itl_p95_s'] * 1e3:.2f} ms, "
               f"AI={t.arithmetic_intensity:.2f} FLOP/B, {t.bound_class()}, "
               f"mean batch {r.ledger.mean_batch:.2f}")
+    cap = capacity_report(engine)
+    print(f"[serve/capacity] pages peak={cap['pages_peak']}"
+          f"/{cap['pages_total']} ({cap['page_bytes']} B/page), "
+          f"deduped={cap['pages_deduped']} cow={cap['cow_copies']} "
+          f"preemptions={cap['preemptions']}, effective batch "
+          f"{cap['effective_batch']} vs capacity-implied max "
+          f"{cap['capacity_max_batch']} on {chip.name}")
     if scfg is not None:
         s = speculative_summary(cfg, reqs, args.spec_k,
                                 args.prompt_len + args.new_tokens // 2,
@@ -187,6 +242,7 @@ def main(argv=None):
               f"{s['predicted_tokens_per_pass']:.2f}), predicted "
               f"memory-bound speedup x{s['predicted_speedup']:.2f}")
     _export_telemetry(args, engine, roof)
+    print("[serve] first sequence:", reqs[0].generated[:16])
 
 
 def _export_telemetry(args, engine, roof) -> None:

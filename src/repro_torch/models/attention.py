@@ -235,13 +235,15 @@ def decode_verify_paged(
 
 def prefill_attention_paged(
     p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
-    block_table: torch.Tensor, offset: int, cfg: ModelConfig, *,
+    block_table: torch.Tensor, offset, cfg: ModelConfig, *,
     page_size: int, rope: Rope,
 ) -> torch.Tensor:
     """Chunked prefill for ONE request: x (1,T,D) at positions
-    offset..offset+T-1 (``rope`` for those), attending to everything this
-    slot has cached (earlier chunks + causal self).  block_table
-    (n_blocks,).  The pool is updated in place."""
+    offset..offset+T-1 (``rope`` for those; ``offset`` an int or a 0-d
+    int32 device tensor), attending to everything this slot has cached
+    (earlier chunks + causal self) over the whole table row, so no shape
+    depends on ``offset``.  block_table (n_blocks,).  The pool is updated
+    in place."""
     B, T, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV

@@ -266,13 +266,14 @@ def mla_decode_verify_paged(p, x: torch.Tensor,
 
 
 def mla_prefill_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
-                      block_table: torch.Tensor, offset: int,
+                      block_table: torch.Tensor, offset,
                       cfg: ModelConfig, *, page_size: int, rope: Rope = None
                       ) -> torch.Tensor:
     """Chunked MLA prefill for ONE request: x (1,T,D) at positions
-    offset..offset+T-1 (``rope`` for those), attending to everything this
-    slot has cached plus itself, causally.  block_table (n_blocks,).  The
-    pool is updated in place."""
+    offset..offset+T-1 (``rope`` for those; ``offset`` an int or a 0-d
+    int32 device tensor), attending to everything this slot has cached
+    plus itself, causally, over the whole table row.  block_table
+    (n_blocks,).  The pool is updated in place."""
     T = x.shape[1]
     idx = offset + torch.arange(T, dtype=torch.int32, device=x.device)
     if rope is None:

@@ -50,15 +50,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
 
 
 def prefill_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
-                   true_len: int):
+                   true_len: Union[int, torch.Tensor]):
     """Whole-prompt prefill over a length-bucketed (zero-padded) buffer.
     tokens (B, S_padded) with the real prompt in the first ``true_len``
     positions; causal masking keeps the prefix rows equal to an unpadded
-    prefill.  Returns (last_logits (B, V) at position true_len-1,
+    prefill.  ``true_len`` is an int or a 0-d int32 tensor on the tokens'
+    device, read by a fixed-shape gather (so a captured bucket replays at
+    any length).  Returns (last_logits (B, V) at position true_len-1,
     states)."""
     logits, states = tfm.forward_full(params, cfg, tokens,
                                       collect_state=True)
-    return logits[:, true_len - 1, :], states
+    last = torch.as_tensor(true_len, device=logits.device).reshape(1) - 1
+    return logits.index_select(1, last.long())[:, 0], states
 
 
 def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,

@@ -14,7 +14,7 @@ each mixer kind present (:func:`rope_tables`) and handed to every layer.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -25,6 +25,10 @@ from .common import BlockDef, ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
                      logits_from_hidden, mlp_defs, norm_defs)
 from .params import stack_defs, tree_map
+
+# a prefill chunk's first position: a host int, or a 0-d int32 device
+# tensor (the captured chunk's persistent input)
+Offset = Union[int, torch.Tensor]
 
 # ROADMAP queue 1 item that ports each block kind still missing
 _TODO = {"mamba": 8, "mlstm": 8, "slstm": 8,
@@ -201,12 +205,13 @@ def apply_block_verify(p, b: BlockDef, x: torch.Tensor,
 
 
 def apply_block_prefill_chunk(p, b: BlockDef, x: torch.Tensor,
-                              pool: Dict[str, torch.Tensor], offset: int,
+                              pool: Dict[str, torch.Tensor], offset: Offset,
                               block_table: torch.Tensor, cfg: ModelConfig,
                               page_size: int, ropes: Dict[str, attn.Rope]
                               ) -> torch.Tensor:
     """Prefill one chunk of ONE request through a block (pool updated in
-    place).  x (1,T,D) at positions offset..offset+T-1."""
+    place).  x (1,T,D) at positions offset..offset+T-1 (``offset`` an int
+    or a 0-d int32 device tensor)."""
     h = apply_norm(p["norm1"], x, cfg)
     if b.mixer == "attn":
         o = attn.prefill_attention_paged(p["mixer"], h, pool, block_table,
@@ -313,13 +318,17 @@ def decode_verify_paged(params, cfg: ModelConfig, pools: List[Any],
 
 def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
                         block_table: torch.Tensor, tokens: torch.Tensor,
-                        offset: int, *, page_size: int) -> torch.Tensor:
+                        offset: Offset, *, page_size: int) -> torch.Tensor:
     """Prefill one chunk of one request into its pages (updated in place).
 
     tokens (1,T) at positions offset..offset+T-1; block_table (n_blocks,)
-    for this request's slot.  Returns last-token logits (1, V).  Repeated
-    calls over consecutive chunks equal one whole-prompt prefill (for
-    dense FFNs; an MoE FFN's capacity depends on the tokens per call)."""
+    for this request's slot.  ``offset`` is an int or a 0-d int32 tensor
+    on the tokens' device: nothing here reads it on the host, so a
+    captured chunk replays at any offset, and its shapes depend on T and
+    n_blocks alone (the attention walks the whole table row).  Returns
+    last-token logits (1, V).  Repeated calls over consecutive chunks
+    equal one whole-prompt prefill (for dense FFNs; an MoE FFN's capacity
+    depends on the tokens per call)."""
     T = tokens.shape[1]
     positions = offset + torch.arange(T, dtype=torch.int32,
                                       device=tokens.device)[None, :]

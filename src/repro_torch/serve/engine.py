@@ -10,11 +10,18 @@ sampling runs on the device right after the
 logits, so only the (B,) chosen token ids cross to the host.  On CUDA the
 decode step (embed, every layer, final norm and logits) is one captured
 CUDA graph replayed each step (serve/graphs.py, ``EngineConfig.
-cuda_graphs``), the counterpart of the reference's jitted step; sampling
-stays eager, since it draws per row from host-seeded generators.
-Whole-prompt prefill is length-bucketed to the next power of two where
-padding cannot change the result (no MoE FFN, whose capacity the pad
-tokens would take).  :meth:`Engine.measure_dispatch_overhead` is the
+cuda_graphs``), the counterpart of the reference's jitted step; so is a
+paged prefill chunk, one graph per chunk length, and a length-bucketed
+whole-prompt prefill with the scatter of its states, one graph per
+bucket (``Engine.prefill_shapes`` records the shapes, as the
+reference's jit cache does).  Their inputs (tokens, block-table row,
+offset, length) sit in persistent buffers, so the same fixed-shape body
+runs graphed or eagerly (CPU, ``cuda_graphs=False``).  Sampling stays
+eager, since it draws per row from host-seeded generators, and so does
+the unpadded whole-prompt prefill, as the reference does not jit it
+either.  Whole-prompt prefill is length-bucketed to the next power of
+two where padding cannot change the result (no MoE FFN, whose capacity
+the pad tokens would take).  :meth:`Engine.measure_dispatch_overhead` is the
 paper's no-kernel run (§2.4): the per-step floor of framework and launch
 cost, in the mode (graphed or eager) the engine runs in.
 
@@ -36,6 +43,7 @@ queue 1 items 9 and 11).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -55,7 +63,7 @@ from ..obs import Telemetry
 from ..obs.clock import now
 from ..obs.trace import ENGINE_TID, LIFECYCLE_TID, SLOT_TID0
 from . import sampling
-from .graphs import StaticInput, StepGraphs, graphs_enabled
+from .graphs import PrefillInputs, StaticInput, StepGraphs, graphs_enabled
 from .kv_cache import PagedKVCache
 from .scheduler import (Request, RequestState, RooflineLedger, Scheduler,
                         decode_token_bytes, decode_token_flops,
@@ -139,6 +147,20 @@ def _bucket_len(n: int, floor: int) -> int:
     return max(floor, 1 << max(n - 1, 0).bit_length())
 
 
+def bucket_prefill_body(params, cfg: ModelConfig, kv: PagedKVCache,
+                        inputs: PrefillInputs, S: int) -> torch.Tensor:
+    """A whole prompt padded to ``S`` tokens (``inputs.tokens(S)``,
+    ``inputs.length`` real ones) prefilled and its states scattered into
+    the pages of the table row ``inputs.row`` (pad positions on the trash
+    page): the body of an engine's or a draft model's ``prefill_bucket:S``
+    step.  Returns the last real token's logits (1, V)."""
+    last, states = prefill_padded(params, cfg, inputs.tokens(S).tensor,
+                                  inputs.length.tensor)
+    kv.scatter_prefill_states(inputs.row.tensor, states, 0,
+                              inputs.length.tensor)
+    return last
+
+
 class Engine:
     """Continuous-batching serve engine with a paged KV cache.
 
@@ -174,6 +196,9 @@ class Engine:
         self._kv: Optional[PagedKVCache] = None
         self._sched: Optional[Scheduler] = None
         self._graphs: Optional[StepGraphs] = None
+        # prefill shapes run through a fixed-shape body (and captured, with
+        # graphs on): ("chunk", T) and ("bucket", S_padded)
+        self.prefill_shapes: set = set()
         self.step_count = 0
         self.decode_steps = 0
         self._dispatch_s: Optional[float] = None
@@ -246,8 +271,11 @@ class Engine:
         # go with the pools they captured
         self._tok_in = StaticInput((n, 1), torch.int64, self.device)
         self._pos_in = StaticInput((n,), torch.int32, self.device)
+        self._prefill_in = PrefillInputs(self._kv.blocks_per_slot,
+                                         self.device)
         self._graphs = StepGraphs(self.device, self.graphs, self.cfg, n,
                                   self._graph_tokens())
+        self.prefill_shapes = set()
         self.step_count = 0
         self.decode_steps = 0
         self._dispatch_s = None
@@ -455,26 +483,34 @@ class Engine:
         if not self._grow_spans([req], lambda r: (start, end)):
             return                          # req itself was preempted
         whole = start == 0 and end == fill_len
+        inp = self._prefill_in
         t0 = now()
         if whole and self._bucketable and self.ecfg.prefill_bucket > 0:
             # pad to the next power of two: causal masking keeps the
             # prefix rows equal to an unpadded run
-            pl_ = _bucket_len(fill_len, self.ecfg.prefill_bucket)
-            toks = np.zeros((1, pl_), np.int64)
+            S = _bucket_len(fill_len, self.ecfg.prefill_bucket)
+            toks = np.zeros((1, S), np.int64)
             toks[0, :fill_len] = fill
-            last_logits, states = prefill_padded(
-                self.params, cfg, self._tensor(toks), fill_len)
-            kv.write_prefill_states(req.slot, states, fill_len)
+            inp.row.set(kv.block_tables[req.slot])
+            inp.length.set(fill_len)
+            inp.tokens(S).set(toks)
+            self.prefill_shapes.add(("bucket", S))
+            last_logits = self._graphs.run(
+                f"prefill_bucket:{S}", functools.partial(
+                    bucket_prefill_body, self.params, cfg, kv, inp, S))
         elif whole:
             last_logits, states = prefill(
                 self.params, cfg, self._tensor(fill[None, :].astype(np.int64)))
             kv.write_prefill_states(req.slot, states, fill_len)
         else:
-            btr = self._tensor(kv.block_tables[req.slot])
-            toks = self._tensor(fill[None, start:end].astype(np.int64))
-            last_logits = prefill_chunk_paged(
-                self.params, cfg, kv.pools, btr, toks, start,
-                page_size=self.ecfg.page_size)
+            T = end - start
+            inp.row.set(kv.block_tables[req.slot])
+            inp.offset.set(start)
+            inp.tokens(T).set(fill[None, start:end])
+            self.prefill_shapes.add(("chunk", T))
+            last_logits = self._graphs.run(
+                f"prefill_chunk:{T}",
+                functools.partial(self._chunk_body, T))
             if kv.prefix_cache:
                 # every full page this chunk finalized holds canonical
                 # prompt content now, so it is shareable right away
@@ -537,6 +573,15 @@ class Engine:
         self._next_token[req.slot] = req.generated[-1]
         self._pos[req.slot] = req.context_len - 1
         self._steps[req.slot] = len(req.generated)
+
+    def _chunk_body(self, T: int) -> torch.Tensor:
+        """A prefill chunk of ``T`` tokens over the persistent prefill
+        inputs (tokens, block-table row, offset): last logits (1, V)."""
+        inp = self._prefill_in
+        return prefill_chunk_paged(self.params, self.cfg, self._kv.pools,
+                                   inp.row.tensor, inp.tokens(T).tensor,
+                                   inp.offset.tensor,
+                                   page_size=self.ecfg.page_size)
 
     def _decode_body(self) -> torch.Tensor:
         """The decode step over the persistent inputs (block tables,
@@ -632,7 +677,9 @@ class Engine:
         self._steps[slot] = 0
 
     def _sample_first(self, last_logits: torch.Tensor, req: Request) -> int:
-        """The prefill's first token, through the same sampler (B=1)."""
+        """The prefill's first token, through the same sampler (B=1).  A
+        captured prefill's logits are read here, before another replay
+        can overwrite them."""
         s = req.slot
         tok = sampling.sample_tokens(
             last_logits.reshape(1, -1), self._seeds[s:s + 1],

@@ -1,24 +1,38 @@
 """Fixed-shape engine steps as captured CUDA graphs: the port's
-counterpart of the reference's jitted step.
+counterpart of the reference's jitted steps.
 
-The reference runs each engine step (decode, speculative verify, a draft
-model's catch-up and draft steps) as one compiled program dispatched once
-a step.  Run eagerly, the same step is one Python-dispatched launch per
-op (thousands a step).  On CUDA, :class:`StepGraphs` captures each step
-body once with ``torch.cuda.graph`` and replays it every later step.
+The reference runs each engine step as one compiled program dispatched
+once a step: the decode step, the speculative verify step, a draft
+model's catch-up and draft steps, and a prefill chunk of each length and
+a whole-prompt bucket of each padded length (one compile per shape).
+Run eagerly, the same step is one Python-dispatched launch per op
+(thousands a step).  On CUDA, :class:`StepGraphs` captures each step
+body once with ``torch.cuda.graph`` and replays it at every later call:
+
+* ``decode``, ``verify``, ``catchup``, ``draft``: one graph each;
+* ``prefill_chunk:T``: one paged prefill chunk of T tokens, once per T;
+* ``prefill_bucket:S``: a whole prompt padded to S tokens with the
+  scatter of its states into the pages, once per S (the engine's, and
+  the draft model's on its own :class:`StepGraphs`).
 
 A step body is a function of no arguments that reads only persistent
 tensors: the weights, the page pools (mutated in place, never replaced)
 and the :class:`StaticInput` buffers its owner fills before each step
-from pinned host staging, outside the graph.  Its shapes never change
-(slots idle this step point at the trash page).  Its first call runs the
-body eagerly on a side stream, which is that step's real work and also
-builds the kernels and makes their one-time settings (shared-memory
-opt-ins); then the body is captured, and every later call replays it.
-Every replay adds to each kernel wrapper's ``launches`` what the capture
-counted, so launch counts mean what they mean eagerly.  A capture or a
-replay that fails raises: there is no fallback to the eager body.  On the
-CPU there are no graphs and the same body runs eagerly every step.
+from pinned host staging, outside the graph (a prefill's are one
+:class:`PrefillInputs`).  Its shapes never change (slots idle this step
+point at the trash page; a prefill's offset and length are device
+scalars).  Its first call runs the body eagerly on a side stream, which
+is that step's real work and also builds the kernels and makes their
+one-time settings (shared-memory opt-ins); then the body is captured,
+and every later call replays it.  Every replay adds to each kernel
+wrapper's ``launches`` what the capture counted, so launch counts mean
+what they mean eagerly.  A capture or a replay that fails raises: there
+is no fallback to the eager body.  On the CPU there are no graphs and the
+same body runs eagerly every step.
+
+All graphs of one :class:`StepGraphs` share one memory pool, so a
+graph's output may be overwritten by the next replay of any of them:
+each owner reads a step's output before it replays another step.
 
 The GQA core counts arrivals in a buffer whose pointer a graph keeps, so
 each :class:`StepGraphs` holds one of its own, sized at construction for
@@ -83,6 +97,26 @@ class StaticInput:
             self.tensor.copy_(self._host, non_blocking=True)
             self._copied.record()
         return self.tensor
+
+
+class PrefillInputs:
+    """The persistent inputs of one engine's (or draft model's) captured
+    prefill bodies: the request's block-table row (n_blocks,), a 0-d
+    offset (a chunk's first position), a 0-d length (a bucket's true
+    prompt length) and a (1, T) token buffer for each chunk or bucket
+    length T, made at its first use."""
+
+    def __init__(self, n_blocks: int, device: torch.device):
+        self.device = device
+        self.row = StaticInput((n_blocks,), torch.int32, device)
+        self.offset = StaticInput((), torch.int32, device)
+        self.length = StaticInput((), torch.int32, device)
+        self._tokens: Dict[int, StaticInput] = {}
+
+    def tokens(self, T: int) -> StaticInput:
+        if T not in self._tokens:
+            self._tokens[T] = StaticInput((1, T), torch.int64, self.device)
+        return self._tokens[T]
 
 
 class StepGraph:

@@ -159,6 +159,14 @@ class PagedKVCache:
     def free_slot_count(self) -> int:
         return len(self._free_slots)
 
+    @property
+    def page_bytes(self) -> int:
+        """Device bytes of ONE physical page summed over every pool leaf
+        (scales too): the unit of the capacity axis.  Every leaf is
+        paged, since no ported mixer keeps per-slot state."""
+        return sum(t.numel() // self.num_pages * t.element_size()
+                   for t in tree_leaves(self.pools))
+
     def prefix_match_pages(self, tokens: np.ndarray) -> int:
         """How many of ``tokens``'s full pages are in the prefix index (no
         references taken)."""
@@ -452,16 +460,30 @@ class PagedKVCache:
                              prompt_len: int, start: int = 0) -> None:
         """Scatter whole-prompt prefill states (per segment, stacked
         (reps, 1, S, ...); S may exceed ``prompt_len`` when padded) into
-        this slot's pages; positions below ``start`` (a prefix-cache hit)
-        are skipped."""
-        idx = np.arange(start, prompt_len)
-        phys = torch.as_tensor(self.block_tables[slot][idx // self.page_size],
-                               dtype=torch.long, device=self.device)
-        off = torch.as_tensor(idx % self.page_size, dtype=torch.long,
-                              device=self.device)
+        this slot's pages through :meth:`scatter_prefill_states`;
+        positions below ``start`` (a prefix-cache hit) and pad positions
+        go to the trash page."""
+        row = torch.as_tensor(self.block_tables[slot], device=self.device)
+        self.scatter_prefill_states(row, states, start, prompt_len)
+
+    def scatter_prefill_states(self, row: torch.Tensor, states: List[Any],
+                               start, true_len) -> None:
+        """Scatter prefill states through the block-table row ``row``
+        (n_blocks,) on the device, in one fixed-shape index: every one of
+        the states' S positions is written, and those outside ``[start,
+        true_len)`` (0-d device tensors or ints) go to the trash page,
+        table entry 0.  No host array is built and no shape depends on the
+        prompt, so a captured prefill replays it at any length; the pools
+        equal a scatter of the real positions alone everywhere outside
+        page 0, whose lines the pad positions overwrite."""
+        S = tree_leaves(states)[0].shape[2]
+        p = torch.arange(S, device=row.device)
+        blk = row[torch.clamp(p // self.page_size, max=row.shape[0] - 1)]
+        phys = torch.where((p >= start) & (p < true_len), blk.long(), 0)
+        off = p % self.page_size
 
         def f(pool, state):
-            pool[:, phys, off] = state[:, 0, start:prompt_len].to(pool.dtype)
+            pool[:, phys, off] = state[:, 0].to(pool.dtype)
 
         tree_map(f, self.pools, self._quantize_states(states))
 

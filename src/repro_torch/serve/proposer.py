@@ -13,7 +13,10 @@ JAX package's ``serve/proposer.py`` in PyTorch.
   :func:`sampling.sample_with_probs` for its k draft steps, so the
   verifier receives the proposal distribution ``q`` of every draft.  On
   CUDA the catch-up and the draft step are captured CUDA graphs over its
-  own pools (serve/graphs.py); sampling stays eager between replays.
+  own pools (serve/graphs.py), and so is its length-bucketed prefill of
+  an admitted request's context, one graph per bucket; sampling stays
+  eager between replays, and so does the exact-length prefill of an MoE
+  draft model (which the reference jits once per length).
 
 Both return a :class:`Proposal`; slots with nothing proposed carry
 ``n_draft = 0`` and are verified as ordinary decode steps.
@@ -22,17 +25,17 @@ Both return a :class:`Proposal`; slots with nothing proposed carry
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..models import (decode_step_paged, decode_step_verify_paged, prefill,
-                      prefill_padded)
+from ..models import decode_step_paged, decode_step_verify_paged, prefill
 from ..models.common import ModelConfig
 from . import sampling
-from .engine import _bucket_len
-from .graphs import StaticInput, StepGraphs
+from .engine import _bucket_len, bucket_prefill_body
+from .graphs import PrefillInputs, StaticInput, StepGraphs
 from .kv_cache import PagedKVCache
 from .scheduler import Request
 
@@ -155,6 +158,7 @@ class DraftModelProposer:
                                      device=device)
         self._step_pos = torch.zeros((num_slots,), dtype=torch.int32,
                                      device=device)
+        self._prefill_in = PrefillInputs(self.kv.blocks_per_slot, device)
         self._graphs = StepGraphs(device, cuda_graphs, cfg, num_slots,
                                   k + 1)
 
@@ -178,15 +182,19 @@ class DraftModelProposer:
                 "— the draft pool must mirror the target engine's sizing")
         self._slots[req.request_id] = slot
         if self._bucketable:
-            toks = np.zeros((1, _bucket_len(L, self.prefill_bucket)),
-                            np.int64)
+            S = _bucket_len(L, self.prefill_bucket)
+            toks = np.zeros((1, S), np.int64)
             toks[0, :L] = fill
-            _, states = prefill_padded(self.params, self.cfg,
-                                       self._tensor(toks), L)
+            inp = self._prefill_in
+            inp.row.set(self.kv.block_tables[slot])
+            inp.length.set(L)
+            inp.tokens(S).set(toks)
+            self._graphs.run(f"prefill_bucket:{S}", functools.partial(
+                bucket_prefill_body, self.params, self.cfg, self.kv, inp, S))
         else:
             _, states = prefill(self.params, self.cfg,
                                 self._tensor(fill[None, :]))
-        self.kv.write_prefill_states(slot, states, L)
+            self.kv.write_prefill_states(slot, states, L)
         self._fed[req.request_id] = L
         sampled = req.seed is not None
         self._seeds[slot] = (sampling.fold_seed(req.seed, sampling.DRAFT_FOLD)

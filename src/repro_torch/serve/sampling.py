@@ -244,6 +244,35 @@ def sample_tokens(logits: torch.Tensor, seeds: np.ndarray,
     return out
 
 
+def target_distribution(logits: torch.Tensor, temp: float, top_k: int,
+                        top_p: float) -> np.ndarray:
+    """The distribution :func:`sample_tokens` draws a row from at
+    temperature ``temp`` > 0: the softmax of ``logits`` (V,) after the
+    top-k / top-p filters, divided by ``temp``; float64 on the host, 0
+    outside the kept set."""
+    f = _filtered(logits.float()[None], np.asarray([temp], np.float32),
+                  np.asarray([top_k]), np.asarray([top_p], np.float32))[0]
+    f = f.double().cpu().numpy()
+    keep = f > NEG_INF / 2
+    z = np.where(keep, f / temp, -np.inf)
+    p = np.exp(z - z[keep].max())
+    return p / p.sum()
+
+
+def tv_null_bound(probs: np.ndarray, n: int, sigmas: float = 6.0) -> float:
+    """A bound on the total variation ``sum |f - p| / 2`` between the
+    frequencies ``f`` of ``n`` independent draws from ``probs`` and
+    ``probs`` itself, which a correct sampler exceeds with negligible
+    probability: the TV's mean plus ``sigmas`` standard deviations, each
+    count taken as normal with variance ``v = n p (1 - p)``, so that
+    ``E|f - p| = sqrt(2 v / pi) / n`` and ``Var|f - p| = v (1 - 2 / pi) /
+    n^2``, the counts' (negative) correlation left out."""
+    v = probs * (1.0 - probs) / n
+    mean = 0.5 * np.sum(np.sqrt(2.0 * v / np.pi))
+    sd = 0.5 * np.sqrt(np.sum(v * (1.0 - 2.0 / np.pi)))
+    return float(mean + sigmas * sd)
+
+
 def sample_with_probs(logits: torch.Tensor, seeds: np.ndarray,
                       steps: np.ndarray, temps: np.ndarray,
                       top_ks: np.ndarray, top_ps: np.ndarray
