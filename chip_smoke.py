@@ -157,6 +157,21 @@ Phases, in order; any failure exits non-zero:
    step and TTFT both ways, peak memory and each way's prefill time
    budget (``time_budget_rows`` on the measured betas less the engine's
    dispatch floor);
+   j. the roofline cross-checks (``[crosscheck]`` lines,
+   ``serve/crosscheck.py``): each core's on-chip bytes at its kernel
+   phase's main inputs over the measured L2 beta as a share of its
+   measured time (at most 1.05); on qwen3-0.6b 4 slots mid-decode the
+   ledger's W and Q against the op-level walk of the decode step (W
+   within 10%, the paged attention priced as the kernel; weights + KV
+   equal to the ledger's Q plus terms counted from the trees), the
+   ``vmem`` ledger against the launch-grid walk (ratio 1.0), the graphed
+   decode step's wall against max(W / pi, Q / beta) of the walked decode
+   + sample body (floor share at most 1), and ``crosscheck_overlap``
+   pipeline off against double (streams byte-equal, the ``vmem`` term not
+   grown, wall within +25%); ``crosscheck_host`` on the options phase's
+   swap engines (ratio 1.0); deepseek-v2's walk with the all-experts gap
+   attributed to the ``moe_experts`` scope; speculative qwen3-14b's
+   verify step's measured intensity above 2.5 times the decode step's;
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -382,6 +397,9 @@ def kernel_phase(torch, np, pa):
     ring_ms = device_ms(lambda *a: pa.paged_attention_ring(*a, **kw), copies)
     plain_ms = device_ms(lambda *a: pa.paged_attention_reference(*a, **kw),
                          copies)
+    ONCHIP["paged_attention (GQA core, decode)"] = (onchip_call(
+        pa, c["pos"], 1, N_BLOCKS, kv_heads=KV, groups=G, head_dim=HD),
+        kernel_ms, ring_ms)
     S = N_BLOCKS * PAGE
     k_pos = torch.arange(S, device="cuda")
     mask = (k_pos[None, :] <= c["pos"].long()[:, None])[:, None, None, :]
@@ -598,6 +616,9 @@ def mla_kernel_phase(torch, np, pa):
                         copies)
     plain_ms = device_ms(
         lambda *a: pa.mla_paged_attention_reference(*a, **kw), copies)
+    ONCHIP["mla_paged_attention (MLA core, decode)"] = (onchip_call(
+        pa, pos, 1, MLA_BLOCKS, n_heads=MLA_H, lora_rank=MLA_R,
+        rope_dim=MLA_DR), kernel_ms, ring_ms)
     B, S = SLOTS, MLA_BLOCKS * PAGE
     k_pos = torch.arange(S, device="cuda")
     mask = (k_pos[None, :] <= pos.long()[:, None])[:, None, None, :]
@@ -944,6 +965,9 @@ def gqa_verify_kernel_phase(torch, np, pa):
     ring_ms = device_ms(lambda *a: pa.paged_attention_ring(*a, **kw), copies)
     plain_ms = device_ms(
         lambda *a: pa.paged_attention_verify_reference(*a, **kw), copies)
+    ONCHIP["paged_attention_verify (GQA core, T 5)"] = (onchip_call(
+        pa, pos, V_T, V_BLOCKS, kv_heads=KV, groups=V_G, head_dim=HD),
+        kernel_ms, ring_ms)
     B, S, H = SLOTS, V_BLOCKS * PAGE, KV * V_G
     q_pos = pos.long()[:, None] + torch.arange(V_T, device="cuda")
     mask = (torch.arange(S, device="cuda")[None, None, :]
@@ -1097,6 +1121,9 @@ def mla_verify_kernel_phase(torch, np, pa):
                         copies)
     plain_ms = device_ms(
         lambda *a: pa.mla_paged_attention_verify_reference(*a, **kw), copies)
+    ONCHIP["mla_paged_attention_verify (MLA core, T 4)"] = (onchip_call(
+        pa, pos, MLA_T, MLA_V_BLOCKS, n_heads=MLA_H, lora_rank=MLA_R,
+        rope_dim=MLA_DR), kernel_ms, ring_ms)
     B, S = SLOTS, MLA_V_BLOCKS * PAGE
     q_pos = pos.long()[:, None] + torch.arange(MLA_T, device="cuda")
     mask = (torch.arange(S, device="cuda")[None, None, :]
@@ -3043,6 +3070,8 @@ def options_phase(torch, np, card, cfg, params, *, max_len: int,
             swapped = sum(r.ledger.swap_bytes for r in reqs)
             if mode == "swap" and swapped <= 0:
                 fail(f"{cfg.name} preempt swap: no bytes swapped")
+            if mode == "swap":
+                host_line(card, cfg, eng)
             if moe and mode == "recompute":
                 n = sum(b.generated == r.generated
                         for b, r in zip(breqs, reqs))
@@ -3069,6 +3098,24 @@ def options_phase(torch, np, card, cfg, params, *, max_len: int,
               f"{SAMPLED['temperature']}, top-k {SAMPLED['top_k']}, top-p "
               f"{SAMPLED['top_p']}, seeded): streams byte-equal graphed and "
               f"eager; {n}/{len(reqs)} equal the greedy ones")
+
+
+def host_line(card, cfg, eng) -> None:
+    """crosscheck_host on a swap engine: the ledger's slot_swap_bytes
+    against the walk of the gather-and-pack swap_out runs, at the pages of
+    the longest prompt and of a full slot; both ratio 1.0."""
+    from repro_torch.serve.crosscheck import crosscheck_host
+    kv = eng._kv
+    for n_blocks in (kv.pages_needed(max(PROMPT_LENS)),
+                     kv.pages_needed(kv.max_len)):
+        h = crosscheck_host(eng, n_blocks)
+        if h["host_ratio"] != 1.0:
+            fail(f"{cfg.name} crosscheck_host: ratio {h['host_ratio']} "
+                 f"({h['analytic_swap_bytes']} vs {h['hlo_output_bytes']})")
+        print(f"[crosscheck] {cfg.name} host (swap) {card}: slot_swap_bytes "
+              f"{h['analytic_swap_bytes'] / 1e6:.4f} MB = walked "
+              f"gather-and-pack output {h['hlo_output_bytes'] / 1e6:.4f} MB "
+              f"at {h['n_blocks']} pages, ratio {h['host_ratio']:.1f}")
 
 
 def sampler_distribution(torch, np, card, vocab: int) -> None:
@@ -3102,6 +3149,268 @@ def sampler_distribution(torch, np, card, vocab: int) -> None:
     if outside or not tv <= bound:
         fail(f"sampler on the card: {outside} draws outside the kept set, "
              f"total variation {tv} > {bound}")
+
+
+# the [crosscheck] phase: the ledger's W and Q held against the op-level
+# walk of the steps the engines run (serve/crosscheck.py, fake CPU
+# tensors of the live shapes), its vmem bytes against the launch-grid
+# walk of the CUDA kernels and against what the card's L2 could move in
+# each core's measured time.  Bars: the reference's 10% on W
+# (tests/test_serve_crosscheck.py), verify intensity above 2.5 times the
+# decode step's (the same), the reference's crosscheck_overlap wall_tol;
+# bytes equal to the ledger's plus the terms crosscheck counts from the
+# parameter and pool trees, up to float64 rounding
+XC_FLOPS_TOL = 0.10
+XC_VERIFY_AI = 2.5
+XC_WALL_TOL = 0.25
+# on-chip bytes over the measured L2 beta, as a share of a core's
+# measured time: a count the kernel could not have moved in its time is
+# wrong (5% for the two timings' spread)
+XC_L2_SHARE = 1.05
+# prompts of at most one prefill chunk (one step prefills all four), and
+# the decode steps each engine serves
+XC_PROMPTS = (17, 45, 60, 33)
+XC_NEW_TOKENS = 24
+# kernel phase label -> (on-chip bytes of one call at the phase's main
+# inputs, kernel ms, ring ms), filled by the kernel phases
+ONCHIP: dict = {}
+
+
+def onchip_call(pa, pos, T: int, n_blocks: int, **shape) -> float:
+    """On-chip bytes of one bf16 call (kernels.paged_attention
+    ``gqa_onchip_bytes`` / ``mla_onchip_bytes``) at positions ``pos``."""
+    f = pa.gqa_onchip_bytes if "kv_heads" in shape else pa.mla_onchip_bytes
+    return sum(f(int(p) + 1, page_size=PAGE, n_q=T, n_blocks=n_blocks,
+                 isize=2, kv_isize=2, **shape) for p in pos.tolist())
+
+
+def l2_share_lines(card, roof) -> None:
+    """Each core's on-chip bytes at its kernel phase's main inputs over
+    the measured L2 beta, as a share of the kernel's and the ring's
+    measured times; fails above XC_L2_SHARE."""
+    beta = roof.level_betas().vmem
+    if len(ONCHIP) != 4:
+        fail(f"{len(ONCHIP)} kernel phases counted their on-chip bytes")
+    for label, (nbytes, ms, ring_ms) in ONCHIP.items():
+        floor = nbytes / beta * 1e3
+        shares = floor / ms, floor / ring_ms
+        if max(shares) > XC_L2_SHARE:
+            fail(f"{label}: {nbytes} on-chip bytes need {floor:.5f} ms at "
+                 f"the L2 beta, {max(shares):.3f} of the measured time")
+        print(f"[crosscheck] {label} {card}: on-chip {nbytes / 1e6:.3f} MB "
+              f"at the L2 beta {beta / 1e12:.3f} TB/s = {floor * 1e3:.3f} "
+              f"us; share of the kernel's {ms:.4f} ms {shares[0]:.3f}, of "
+              f"the ring's {ring_ms:.4f} ms {shares[1]:.3f} (limit "
+              f"{XC_L2_SHARE})")
+
+
+def xc_engine(np, cfg, make, label: str):
+    """An engine from ``make()`` served XC_PROMPTS once (graphs captured),
+    then the same prompts stepped until all four decode: mid-decode."""
+    from repro_torch.serve import GenerateConfig
+    eng = make()
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in XC_PROMPTS]
+    gen = GenerateConfig(max_new_tokens=XC_NEW_TOKENS)
+    for p in prompts:
+        eng.submit(p, gen)
+    eng.run()
+    for p in prompts:
+        eng.submit(p, gen)
+    for _ in range(4):
+        if len(eng._sched.decode_requests()) == len(prompts):
+            return eng
+        eng.step()
+    fail(f"{label}: {len(eng._sched.decode_requests())} of "
+         f"{len(prompts)} requests decoding after 4 steps")
+
+
+def xc_line(card, label: str, out: dict) -> None:
+    """Print one cross-check: W and Q from the ledger and the walk, their
+    ratios, the naive FLOPs and the walk's parameter / pool / activation
+    split (``crosscheck._compare``'s keys)."""
+    scope = out["scopes"].get("paged_attention", {})
+    print(f"[crosscheck] {label} {card}: W ledger "
+          f"{out['analytic_flops'] / 1e9:.4f} GFLOP, walk "
+          f"{out['hlo_flops'] / 1e9:.4f} (raw {out['hlo_flops_raw'] / 1e9:.4f};"
+          f" naive, matmuls only, {out['naive_flops'] / 1e9:.4f}; the plain "
+          f"paged attention's, over every table line, "
+          f"{scope.get('flops', 0.0) / 1e9:.4f}, priced as the kernel's "
+          f"live lines {out['kernel_flops'] / 1e9:.4f}), "
+          f"ratio {out['flops_ratio']:.4f}; Q ledger "
+          f"{out['analytic_bytes'] / 1e9:.4f} GB, walk "
+          f"{out['hlo_bytes'] / 1e9:.4f} GB (raw {out['hlo_bytes_raw'] / 1e9:.4f},"
+          f" ratio {out['bytes_ratio']:.4f}) = parameters "
+          f"{out['param_bytes'] / 1e9:.4f} + pools "
+          f"{out['pool_bytes'] / 1e6:.3f} MB appended + "
+          f"{out['kernel_bytes'] / 1e6:.3f} MB kernel walk + activations "
+          f"{out['activation_bytes'] / 1e9:.4f} GB; weights + KV "
+          f"{out['weights_kv_bytes'] / 1e9:.4f} GB, ratio "
+          f"{out['weights_kv_ratio']:.4f}")
+
+
+def xc_holds(label: str, out: dict, flops: bool = True) -> None:
+    """W within XC_FLOPS_TOL (unless ``flops`` is False); the walk's
+    weights + KV (an MoE step's with the active experts for all of them)
+    equal to the ledger's Q plus the terms counted from the parameter and
+    pool trees, up to ``bytes_tolerance`` of it (``crosscheck.bytes_held``:
+    float64 rounding; a ledger formula off by any weight, norm, line or
+    table leaves its bytes)."""
+    from repro_torch.serve.crosscheck import bytes_held
+    if flops and abs(out["flops_ratio"] - 1.0) > XC_FLOPS_TOL:
+        fail(f"{label}: W ratio {out['flops_ratio']:.4f} outside "
+             f"{XC_FLOPS_TOL}")
+    analytic = out["analytic_bytes"]
+    if not bytes_held(out):
+        fail(f"{label}: weights + KV {out['weights_kv_dense_bytes']} = "
+             f"ledger {analytic} + named {out['named_bytes']} + residual "
+             f"{out['bytes_residual']}, over {out['bytes_tolerance']} of "
+             f"the ledger's Q")
+    print(f"[crosscheck] {label}: held: W within {XC_FLOPS_TOL:.0%}"
+          + ("" if flops else " not held (reported)")
+          + f"; weights + KV {out['weights_kv_dense_bytes'] / 1e9:.6f} GB = "
+          f"ledger Q {analytic / 1e9:.6f} GB + lookup rows "
+          f"{out['lookup_bytes'] / 1e6:.3f} MB + norm scales "
+          f"{out['norm_bytes'] / 1e6:.3f} MB + wide leaves "
+          f"{out['wide_bytes'] / 1e6:.3f} MB + appended lines "
+          f"{out['pool_bytes'] / 1e6:.3f} MB - untied input table "
+          f"{out['untied_table_bytes'] / 1e6:.3f} MB (the ledger's "
+          f"exception: a pass the step never makes) + residual "
+          f"{out['bytes_residual']:.1f} B (bar {out['bytes_tolerance']:g} "
+          f"of Q); line {out['line_bytes']:.0f} B from the pool tree, "
+          f"{out['ledger_line_bytes']} B in the ledger")
+
+
+def vmem_hold(label: str, eng, n_q: int = 1) -> None:
+    from repro_torch.serve.crosscheck import crosscheck_vmem
+    vm = crosscheck_vmem(eng, n_q=n_q)
+    if vm["vmem_ratio"] != 1.0:
+        fail(f"{label}: vmem ratio {vm['vmem_ratio']} (closed form "
+             f"{vm['analytic_vmem_bytes']}, launch walk "
+             f"{vm['kernel_walk_bytes']})")
+    print(f"[crosscheck] {label} vmem (pipeline {vm['pipeline']}, T "
+          f"{n_q}): ledger {vm['analytic_vmem_bytes'] / 1e6:.4f} MB = launch "
+          f"walk {vm['kernel_walk_bytes'] / 1e6:.4f} MB, ratio "
+          f"{vm['vmem_ratio']:.1f}, contexts {vm['contexts']}")
+
+
+def crosscheck_qwen(torch, np, card, cfg, params, roof) -> None:
+    """qwen3-0.6b at full width, 4 slots mid-decode: crosscheck_decode (W
+    within 10%, weights + KV held by ``crosscheck.bytes_held``), the vmem
+    ledger against the launch walk, step_cost_analysis of the graphed
+    decode + sample step against its measured wall (the wall at least
+    max(W / pi, Q / beta) at the measured roofs), the four cores' L2
+    shares, and crosscheck_overlap pipeline off against double."""
+    from repro_torch.serve import Engine, EngineConfig, GenerateConfig
+    from repro_torch.serve import crosscheck as xc
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda")
+    l2_share_lines(card, roof)
+    label = f"{cfg.name} decode"
+    eng = xc_engine(np, cfg, lambda: Engine(cfg, params, ecfg), label)
+    out = xc.crosscheck_decode(eng)
+    xc_line(card, label, out)
+    xc_holds(label, out)
+    vmem_hold(label, eng)
+    step = xc.step_cost_analysis(eng)
+    eng.reset_phases()
+    eng.run()
+    ph = eng.phases["decode"]
+    wall = ph.wall_s / max(ph.steps, 1)
+    betas = roof.level_betas()
+    pi = roof.flops_for(cfg.dtype)
+    floor = max(step["flops"] / pi, step["bytes"] / betas.hbm)
+    if floor > wall:
+        fail(f"{label}: the graphed step's wall {wall * 1e3:.4f} ms is "
+             f"under its device floor {floor * 1e3:.4f} ms")
+    print(f"[crosscheck] {label} step_cost_analysis {card}: decode + "
+          f"sample W {step['flops'] / 1e9:.4f} GFLOP, Q "
+          f"{step['bytes'] / 1e9:.4f} GB (raw {step['bytes_raw'] / 1e9:.4f});"
+          f" floor max(W / pi, Q / beta) = {floor * 1e3:.4f} ms at pi "
+          f"{pi / 1e12:.1f} TFLOP/s, beta {betas.hbm / 1e12:.3f} TB/s; "
+          f"graphed step wall {wall * 1e3:.4f} ms over {ph.steps} steps, "
+          f"floor share {floor / wall:.4f} (must be <= 1)")
+
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in XC_PROMPTS]
+    pair = [Engine(cfg, params, dataclasses.replace(ecfg, pipeline=pl))
+            for pl in ("off", "double")]
+    try:
+        ov = xc.crosscheck_overlap(
+            *pair, prompts, GenerateConfig(max_new_tokens=XC_NEW_TOKENS),
+            windows=3, wall_tol=XC_WALL_TOL, betas=betas)
+    except RuntimeError as e:
+        fail(f"{cfg.name} crosscheck_overlap: {e}")
+    print(f"[crosscheck] {cfg.name} overlap (pipeline off vs double) {card}:"
+          f" streams byte-equal; levels {ov['levels']}; vmem term "
+          f"{ov['terms_off']['vmem'] * 1e6:.3f} vs "
+          f"{ov['terms_on']['vmem'] * 1e6:.3f} us a step (not grown); wall "
+          f"{ov['wall_off_s'] * 1e3:.4f} vs {ov['wall_on_s'] * 1e3:.4f} ms a "
+          f"step (within +{XC_WALL_TOL:.0%}; windows off "
+          + ", ".join(f"{w * 1e3:.3f}" for w in ov["walls_off_s"])
+          + ", on " + ", ".join(f"{w * 1e3:.3f}" for w in ov["walls_on_s"])
+          + f"); inferred overlap {ov['inferred_overlap']}")
+
+
+def crosscheck_deepseek(torch, np, card, cfg, params) -> None:
+    """deepseek-v2 (4 layers): crosscheck_decode, the MoE gap attributed:
+    the ``moe_experts`` scope reads every routed expert's weights where
+    the ledger charges the top-k, and the walk with the active experts'
+    bytes in that scope's place meets the dense step's bytes hold."""
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve import crosscheck as xc
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=DS_MAX_LEN,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda")
+    label = f"{cfg.name} ({cfg.n_layers} layers) decode"
+    eng = xc_engine(np, cfg, lambda: Engine(cfg, params, ecfg), label)
+    out = xc.crosscheck_decode(eng)
+    xc_line(card, label, out)
+    walked, experts = out["experts_walked_bytes"], out["expert_bytes"]
+    if walked != experts:
+        fail(f"{label}: the moe_experts scope read {walked} parameter "
+             f"bytes, the routed experts hold {experts}")
+    print(f"[crosscheck] {label} MoE gap: walk/ledger Q "
+          f"{1 / out['weights_kv_ratio']:.4f}; moe_experts scope "
+          f"{out['scopes']['moe_experts']['bytes'] / 1e9:.4f} GB of which "
+          f"parameters {walked / 1e9:.4f} GB = {cfg.n_experts} experts x "
+          f"{experts / cfg.n_experts / 1e6:.3f} MB over the MoE layers, "
+          f"ledger's active {out['active_expert_bytes'] / 1e9:.4f} GB (top "
+          f"{cfg.moe_top_k}); with the active experts in the scope's place "
+          f"weights + KV {out['weights_kv_dense_bytes'] / 1e9:.4f} GB, ratio "
+          f"{out['weights_kv_dense_ratio']:.4f}")
+    xc_holds(label, out, flops=False)
+    vmem_hold(label, eng)
+
+
+def crosscheck_spec(torch, np, card, cfg, params, draft_cfg,
+                    draft_params) -> None:
+    """Speculative qwen3-14b (k SPEC_K, a qwen3-0.6b draft): the verify
+    step's and the decode step's cross-checks; the verify step's measured
+    intensity must exceed XC_VERIFY_AI times the decode step's."""
+    from repro_torch.serve import EngineConfig, SpecConfig, SpecEngine
+    from repro_torch.serve import crosscheck as xc
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda")
+    scfg = SpecConfig(k=SPEC_K, proposer="draft", draft_cfg=draft_cfg,
+                      draft_params=draft_params)
+    label = f"{cfg.name} + {draft_cfg.name} draft"
+    eng = xc_engine(np, cfg, lambda: SpecEngine(cfg, params, ecfg, scfg),
+                    label)
+    ver = xc.crosscheck_verify(eng)
+    dec = xc.crosscheck_decode(eng)
+    xc_line(card, f"{label} verify (T {ver['n_tokens']})", ver)
+    xc_line(card, f"{label} decode", dec)
+    xc_holds(f"{label} verify", ver)
+    xc_holds(f"{label} decode", dec)
+    ai_ver = ver["hlo_flops"] / ver["hlo_bytes"]
+    ai_dec = dec["hlo_flops"] / dec["hlo_bytes"]
+    if not ai_ver > XC_VERIFY_AI * ai_dec:
+        fail(f"{label}: verify intensity {ai_ver:.3f} not above "
+             f"{XC_VERIFY_AI} x decode's {ai_dec:.3f}")
+    print(f"[crosscheck] {label}: measured intensity verify {ai_ver:.3f} "
+          f"FLOP/B, decode {ai_dec:.3f}: {ai_ver / ai_dec:.2f}x (must exceed "
+          f"{XC_VERIFY_AI}x)")
+    vmem_hold(label, eng, n_q=SPEC_K + 1)
 
 
 def prefill_graph_lines(torch, np, card, cfg, params, betas, *, max_len: int,
@@ -3377,8 +3686,10 @@ def main() -> int:
     t_phase = phase_time("qwen3-0.6b options", t_phase)
     prefill_graph_lines(torch, np, card, qwen, params, roof.level_betas(),
                         max_len=MAX_LEN, new_tokens=NEW_TOKENS)
-    del params
     t_phase = phase_time("qwen3-0.6b prefill graphs", t_phase)
+    crosscheck_qwen(torch, np, card, qwen, params, roof)
+    del params
+    t_phase = phase_time("crosscheck: qwen3-0.6b", t_phase)
     chip = roof.to_chipspec()
 
     params = make_params(torch, deepseek)
@@ -3402,8 +3713,10 @@ def main() -> int:
     t_phase = phase_time("deepseek-v2 options", t_phase)
     prefill_graph_lines(torch, np, card, deepseek, params, roof.level_betas(),
                         max_len=DS_MAX_LEN, new_tokens=DS_NEW_TOKENS)
-    del params
     t_phase = phase_time("deepseek-v2 prefill graphs", t_phase)
+    crosscheck_deepseek(torch, np, card, deepseek, params)
+    del params
+    t_phase = phase_time("crosscheck: deepseek-v2", t_phase)
 
     draft = make_params(torch, qwen)
     params = make_params(torch, q14)
@@ -3416,8 +3729,10 @@ def main() -> int:
         decode_counter=pa.paged_attention, decode_op="paged_attention",
         logits_atol=SPEC_LOGITS_ATOL, kv_dtypes=("int8",), dispatch=True,
         telemetry_chip=chip)
+    t_phase = phase_time("qwen3-14b speculative path", t_phase)
+    crosscheck_spec(torch, np, card, q14, params, qwen, draft)
     del params, draft
-    phase_time("qwen3-14b speculative path", t_phase)
+    phase_time("crosscheck: qwen3-14b speculative", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

@@ -1209,14 +1209,134 @@ MLA_RING_C_SIGNATURES = {
 
 
 # --------------------------------------------------------------------------
-# Pricing helpers (the scheduler's per-token VMEM ledger)
+# On-chip bytes of the CUDA kernels (the scheduler's per-token ``vmem``
+# ledger)
+#
+# What one call moves between L2 and the SMs, the level the L2-resident
+# probe (csrc/l2_probe.cu) prices, counted from the sources' tile loops:
+# each working block's staged K / V (latent + rope) lines with their
+# scales, the query rows each block loads, the split-K partials written to
+# the workspace and read back by the merge, and the output written.  A
+# block counts each global byte it loads or stores once.  Blocks with no
+# lines (past a slot's walk) return at once and move nothing.  Block-table
+# entries, positions and the GQA core's counters (4 bytes a page, a slot,
+# a row group) are left out.  Per slot and layer, for ``context_len`` L:
+# the slot's first query sits at L - 1 (decode: lines 0 .. L - 1).
+# --------------------------------------------------------------------------
+
+def _visible(context_len: int, t: int, n_blocks: Optional[int],
+             page_size: int) -> int:
+    """Lines query t of a slot at ``context_len`` sees: pos + t + 1 with
+    pos = L - 1, at most the table's lines."""
+    n = int(context_len) + int(t)
+    return n if n_blocks is None else min(n, int(n_blocks) * int(page_size))
+
+
+def f32_row_tile(rows: int) -> int:
+    """Rows a block of the float32 GQA verify / ring kernels holds
+    (``dispatch_rows`` in csrc/paged_attention_verify.cu and
+    csrc/paged_attention_ring.cu)."""
+    return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
+
+
+def gqa_merge_read(head_dim: int) -> int:
+    """Bytes the GQA core's merge reads of one row's partials of one
+    chunk.  Its loads are ``__ldcg`` (L2, past L1), so every load
+    instruction is a read of its own, counted as the distinct bytes a
+    warp's threads address (threads of a warp on one address are one
+    request): a thread a row reads the chunk's m (4 bytes) for the row's
+    maximum; then each of the head_dim / 4 threads of the row reads (m, l)
+    (8 bytes, once per warp the row spans: head_dim / 128 warps, at least
+    one) and its own 4 columns of acc (4 x head_dim bytes in all).  Sector
+    rounding (32 bytes) is not counted."""
+    hd = int(head_dim)
+    return 4 + 8 * max(1, hd // 128) + 4 * hd
+
+
+def gqa_onchip_bytes(context_len: int, *, page_size: int, kv_heads: int,
+                     groups: int, head_dim: int, isize: int, kv_isize: int,
+                     quantized: bool = False, n_q: int = 1,
+                     pipeline: str = "off",
+                     n_blocks: Optional[int] = None) -> float:
+    """On-chip bytes one slot's GQA call moves for one layer, in the kernel
+    that queries of ``isize`` bytes dispatch to: bf16 (2) the tensor-core
+    core ``csrc/gqa_core.cu`` whatever the pipeline (its stages change
+    overlap, not bytes); float32 (4) ``csrc/paged_attention.cu`` (decode,
+    off), ``csrc/paged_attention_verify.cu`` (``n_q`` > 1, off) or the ring
+    ``csrc/paged_attention_ring.cu`` (``pipeline="double"``), which stages
+    whole pages.  A K and a V line are ``head_dim * kv_isize`` bytes each,
+    plus their two float32 scales when ``quantized``.  The core's split-K
+    partials cross L2 twice when a call takes several chunks: written
+    once, read by the merge as :func:`gqa_merge_read` counts."""
+    T, G, hd, KV = int(n_q), int(groups), int(head_dim), int(kv_heads)
+    rows = T * G
+    line = 2 * hd * int(kv_isize) + (8 if quantized else 0)
+    n = _visible(context_len, T - 1, n_blocks, page_size)
+    if isize == 2:
+        nc = -(-n // (GQA_CHUNK_PAGES * int(page_size)))
+        tiles = -(-rows // GQA_ROW_TILE)
+        total = nc * rows * hd * 2 + tiles * n * line + rows * hd * 2
+        if nc > 1:                    # partials written, read by the merge
+            total += nc * rows * (4 * hd + 8) + nc * rows * gqa_merge_read(hd)
+        return float(KV * total)
+    qo = 2 * rows * hd * int(isize)
+    if pipeline == "off" and T == 1:
+        return float(KV * (qo + n * line))
+    R = f32_row_tile(rows)
+    walk = 0
+    for row0 in range(0, rows, R):
+        nr = min(R, rows - row0)
+        nl = _visible(context_len, (row0 + nr - 1) // G, n_blocks, page_size)
+        if pipeline == "double":
+            nl = -(-nl // int(page_size)) * int(page_size)
+        walk += nl * line
+    return float(KV * (qo + walk))
+
+
+def mla_onchip_bytes(context_len: int, *, page_size: int, n_heads: int,
+                     lora_rank: int, rope_dim: int, isize: int, kv_isize: int,
+                     quantized: bool = False, n_q: int = 1,
+                     pipeline: str = "off",
+                     n_blocks: Optional[int] = None) -> float:
+    """On-chip bytes one slot's MLA call moves for one layer: bf16 queries
+    (``isize`` 2) on the tensor-core core ``csrc/mla_core.cu`` (every one of
+    a chunk's ``MLA_COLUMN_PART``-column parts stages the query rows and
+    the whole latent + rope tile again; each chunk's float32 partials are
+    written and the merge kernel reads them back, one (head, token) a
+    block: its threads' repeated loads of a chunk's (m, l) are plain
+    loads, which L1 serves, so they count once), whatever the pipeline; float32 on the CUDA-core kernels
+    (``csrc/mla_paged_attention{,_verify,_ring}.cu``: one block per 8
+    heads of a token, each staging the token's visible lines; the ring's
+    16-line tiles stop at the last visible line, so its bytes are the off
+    kernels').  A line is ``(lora_rank + rope_dim) * kv_isize`` bytes, plus
+    two float32 scales when ``quantized``."""
+    H, r, dr = int(n_heads), int(lora_rank), int(rope_dim)
+    line = (r + dr) * int(kv_isize) + (8 if quantized else 0)
+    total = 0
+    for t in range(int(n_q)):
+        n = _visible(context_len, t, n_blocks, page_size)
+        if isize == 2:
+            rp = -(-r // 64) * 64
+            parts = rp // min(rp, MLA_COLUMN_PART)
+            tiles = -(-H // MLA_HEAD_TILE)
+            nc = -(-n // (MLA_CHUNK_PAGES * int(page_size)))
+            total += (nc * parts * H * (r + dr) * 2 + parts * tiles * n * line
+                      + 2 * nc * H * (4 * r + 8) + H * r * 2)
+        else:
+            blocks = -(-H // MLA_HEADS_PER_BLOCK)
+            total += (H * (r + dr) * int(isize) + blocks * n * line
+                      + H * r * int(isize))
+    return float(total)
+
+
+# --------------------------------------------------------------------------
+# The reference's TPU pricing
 #
 # Derived from the Pallas kernels' grids and scratch on the TPU (the
 # single-buffered grid (B, KV, n_blocks) for pipeline="off", the two-slab
-# walk for "double"); kept verbatim so the port's ledger equals the
-# reference's.  They price the reference's TPU grid, not the CUDA kernels'
-# shared-memory traffic, and the H100 spec leaves the on-chip level
-# unpriced (core/roofline/hardware.py).
+# walk for "double"); kept verbatim and held equal to the reference's.
+# They price the reference's TPU grid, not the CUDA kernels' traffic
+# (:func:`gqa_onchip_bytes`, :func:`mla_onchip_bytes` are that).
 # --------------------------------------------------------------------------
 
 def live_blocks(context_len: int, page_size: int, n_q: int = 1) -> int:

@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
 from .common import ModelConfig
@@ -78,14 +79,15 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, rope: Rope):
 def _attn_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
                soft_cap: float = 0.0) -> torch.Tensor:
     """q (B,Sq,KV,G,hd)  k,v (B,Sk,KV,hd)  ->  (B,Sq,KV,G,hd)."""
-    s = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
-    if soft_cap > 0:
-        s = torch.tanh(s / soft_cap) * soft_cap
-    if causal:
-        m = q_pos[:, :, None] >= k_pos[:, None, :]              # (B, Sq, Sk)
-        s = torch.where(m[:, None, None, :, :], s, NEG_INF)
-    p_attn = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bkgqs,bskh->bqkgh", p_attn, v)
+    with named_scope("fused_attention"):
+        s = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+        if soft_cap > 0:
+            s = torch.tanh(s / soft_cap) * soft_cap
+        if causal:
+            m = q_pos[:, :, None] >= k_pos[:, None, :]          # (B, Sq, Sk)
+            s = torch.where(m[:, None, None, :, :], s, NEG_INF)
+        p_attn = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bkgqs,bskh->bqkgh", p_attn, v)
 
 
 def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -190,11 +192,13 @@ def decode_attention_paged(
     off = pos % page_size
     _commit_kv(pool, "k", blk, off, k_new[:, 0], cfg.kv_dtype)
     _commit_kv(pool, "v", blk, off, v_new[:, 0], cfg.kv_dtype)
-    o = kernel_ops.paged_attention(
-        q.reshape(B, KV, G, hd).contiguous(), pool["k"], pool["v"],
-        block_tables, pos, scale=1.0 / (hd ** 0.5),
-        soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
-        v_scale=pool.get("v_scale"), pipeline=pipeline).reshape(B, 1, H, hd)
+    with named_scope("paged_attention"):
+        o = kernel_ops.paged_attention(
+            q.reshape(B, KV, G, hd).contiguous(), pool["k"], pool["v"],
+            block_tables, pos, scale=1.0 / (hd ** 0.5),
+            soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
+            v_scale=pool.get("v_scale"), pipeline=pipeline
+        ).reshape(B, 1, H, hd)
     return _out_proj(o.to(x.dtype), p["wo"])
 
 
@@ -225,11 +229,13 @@ def decode_verify_paged(
     off = posq % page_size
     _commit_kv(pool, "k", blk, off, k_new, cfg.kv_dtype)
     _commit_kv(pool, "v", blk, off, v_new, cfg.kv_dtype)
-    o = kernel_ops.paged_attention_verify(
-        q.reshape(B, T, KV, G, hd).contiguous(), pool["k"], pool["v"],
-        block_tables, pos, scale=1.0 / (hd ** 0.5),
-        soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
-        v_scale=pool.get("v_scale"), pipeline=pipeline).reshape(B, T, H, hd)
+    with named_scope("paged_attention"):
+        o = kernel_ops.paged_attention_verify(
+            q.reshape(B, T, KV, G, hd).contiguous(), pool["k"], pool["v"],
+            block_tables, pos, scale=1.0 / (hd ** 0.5),
+            soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
+            v_scale=pool.get("v_scale"), pipeline=pipeline
+        ).reshape(B, T, H, hd)
     return _out_proj(o.to(x.dtype), p["wo"])
 
 

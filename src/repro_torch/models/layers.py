@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.roofline.op_cost import named_scope
 from .common import ModelConfig
 from .params import ParamDef, torch_dtype
 
@@ -137,8 +138,9 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def logits_from_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    w = tied_head(p, cfg).T if cfg.tie_embeddings else p["head"]
-    return x @ w
+    with named_scope("logits"):
+        w = tied_head(p, cfg).T if cfg.tie_embeddings else p["head"]
+        return x @ w
 
 
 # --------------------------------------------------------------------------

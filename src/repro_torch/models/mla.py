@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
 from .attention import (NEG_INF, Rope, _commit_kv, _heads, _out_proj,
@@ -124,13 +125,14 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig,
     scale = 1.0 / ((dn + dr) ** 0.5)
 
     def chunk_attn(qn, qr, qp):
-        s = (torch.einsum("bqhk,bshk->bhqs", qn, k_nope)
-             + torch.einsum("bqhk,bsk->bhqs", qr, k_rope))
-        s = s.float() * scale
-        m = qp[:, :, None] >= q_positions[:, None, :]
-        s = torch.where(m[:, None, :, :], s, NEG_INF)
-        w = torch.softmax(s, dim=-1).to(v.dtype)
-        return torch.einsum("bhqs,bshk->bqhk", w, v)
+        with named_scope("fused_attention"):
+            s = (torch.einsum("bqhk,bshk->bhqs", qn, k_nope)
+                 + torch.einsum("bqhk,bsk->bhqs", qr, k_rope))
+            s = s.float() * scale
+            m = qp[:, :, None] >= q_positions[:, None, :]
+            s = torch.where(m[:, None, :, :], s, NEG_INF)
+            w = torch.softmax(s, dim=-1).to(v.dtype)
+            return torch.einsum("bhqs,bshk->bqhk", w, v)
 
     chunk = cfg.attn_chunk
     if S > 2 * chunk and S % chunk == 0:
@@ -218,11 +220,12 @@ def mla_decode_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
     _commit_kv(pool, "c_kv", blk, off, c_new[:, 0], cfg.kv_dtype)
     _commit_kv(pool, "k_rope", blk, off, kr_new[:, 0], cfg.kv_dtype)
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"])  # (B,H,r)
-    o_lat = kernel_ops.mla_paged_attention(
-        q_lat.contiguous(), q_rope[:, 0].contiguous(), pool["c_kv"],
-        pool["k_rope"], block_tables, pos,
-        scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
-        r_scale=pool.get("k_rope_scale"), pipeline=pipeline)      # (B,H,r)
+    with named_scope("paged_attention"):
+        o_lat = kernel_ops.mla_paged_attention(
+            q_lat.contiguous(), q_rope[:, 0].contiguous(), pool["c_kv"],
+            pool["k_rope"], block_tables, pos,
+            scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
+            r_scale=pool.get("k_rope_scale"), pipeline=pipeline)  # (B,H,r)
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["wv_b"])
     return _out_proj(o[:, None], p["wo"])
 
@@ -256,11 +259,12 @@ def mla_decode_verify_paged(p, x: torch.Tensor,
     _commit_kv(pool, "c_kv", blk, off, c_new, cfg.kv_dtype)
     _commit_kv(pool, "k_rope", blk, off, kr_new, cfg.kv_dtype)
     q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])    # (B,T,H,r)
-    o_lat = kernel_ops.mla_paged_attention_verify(
-        q_lat.contiguous(), q_rope.contiguous(), pool["c_kv"],
-        pool["k_rope"], block_tables, pos,
-        scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
-        r_scale=pool.get("k_rope_scale"), pipeline=pipeline)    # (B,T,H,r)
+    with named_scope("paged_attention"):
+        o_lat = kernel_ops.mla_paged_attention_verify(
+            q_lat.contiguous(), q_rope.contiguous(), pool["c_kv"],
+            pool["k_rope"], block_tables, pos,
+            scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
+            r_scale=pool.get("k_rope_scale"), pipeline=pipeline)  # (B,T,H,r)
     o = torch.einsum("bqhr,rhk->bqhk", o_lat.to(x.dtype), p["wv_b"])
     return _out_proj(o, p["wo"])
 

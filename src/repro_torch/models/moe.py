@@ -28,6 +28,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..core.roofline.op_cost import named_scope
 from .common import ModelConfig, round_up
 from .layers import activate, apply_mlp, is_glu, mlp_defs
 from .params import ParamDef
@@ -132,9 +133,13 @@ def _moe_global(p, xf: torch.Tensor, gates: torch.Tensor,
     """One global slot table: dispatch, expert products, gated combine."""
     N, D = xf.shape
     E = cfg.n_experts
-    xe, slot_token, slot_gate = _dispatch_combine(xf, gates, eids, C, cfg)
-    ye = _expert_glu(p, xe, cfg)
-    yflat = ye.reshape(E * C, D) * slot_gate[:, None].to(ye.dtype)
-    out = torch.zeros((N + 1, D), dtype=ye.dtype, device=xf.device)
-    out.index_add_(0, slot_token.long(), yflat)
+    with named_scope("moe_dispatch"):
+        xe, slot_token, slot_gate = _dispatch_combine(xf, gates, eids, C,
+                                                      cfg)
+    with named_scope("moe_experts"):
+        ye = _expert_glu(p, xe, cfg)
+    with named_scope("moe_dispatch"):
+        yflat = ye.reshape(E * C, D) * slot_gate[:, None].to(ye.dtype)
+        out = torch.zeros((N + 1, D), dtype=ye.dtype, device=xf.device)
+        out.index_add_(0, slot_token.long(), yflat)
     return out[:N]

@@ -39,6 +39,31 @@ _RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
 PACK_ALIGN = 16
 
 
+def gather_slot_pages(pools: Any, phys: torch.Tensor) -> Any:
+    """A slot's physical pages ``phys`` (n,) of every pool leaf, copied
+    out: the device half of a swap."""
+    return tree_map(lambda t: t[:, phys].contiguous(), pools)
+
+
+def pack_leaves(leaves: List[torch.Tensor]):
+    """The leaves' bytes in one flat uint8 buffer on their device, each
+    leaf at a ``PACK_ALIGN``-aligned offset (zero padding between), so
+    viewing a leaf's bytes as its dtype never meets a misaligned offset
+    whatever the leaves' sizes (int8 codes beside float32 scales).
+    Returns (buffer, offsets)."""
+    pieces, offsets, total = [], [], 0
+    for t in leaves:
+        n = t.numel() * t.element_size()
+        pad = -n % PACK_ALIGN
+        offsets.append(total)
+        pieces.append(t.reshape(-1).view(torch.uint8))
+        if pad:
+            pieces.append(torch.zeros(pad, dtype=torch.uint8,
+                                      device=t.device))
+        total += n + pad
+    return torch.cat(pieces), offsets
+
+
 def supports_paging(cfg: ModelConfig) -> bool:
     """True iff every mixer in the model has a paged decode path
     (decoder-only archs; enc-dec / VLM cross-attention is static-engine
@@ -343,7 +368,7 @@ class PagedKVCache:
         meta = self._meta[slot]
         phys = torch.as_tensor(self.block_tables[slot][: meta.n_blocks],
                                dtype=torch.long, device=self.device)
-        dev = tree_map(lambda t: t[:, phys].contiguous(), self.pools)
+        dev = gather_slot_pages(self.pools, phys)
         snap = SwapSnapshot(
             n_blocks=meta.n_blocks, budget=meta.budget,
             frozen_blocks=meta.frozen_blocks,
@@ -401,23 +426,10 @@ class PagedKVCache:
 
     def _pack_to_host(self, dev: List[Any]) -> List[Any]:
         """One device->host copy for a whole tree of device tensors, packed
-        into one byte buffer.  Each leaf starts at a 16-byte-aligned
-        offset, so viewing its bytes as its dtype never meets a misaligned
-        offset, whatever the leaves' sizes (int8 codes beside float32
-        scales)."""
+        into one byte buffer (:func:`pack_leaves`)."""
         leaves = tree_leaves(dev)
-        pieces, offsets, total = [], [], 0
-        for t in leaves:
-            n = t.numel() * t.element_size()
-            pad = -n % PACK_ALIGN
-            offsets.append(total)
-            pieces.append(t.reshape(-1).view(torch.uint8))
-            if pad:
-                pieces.append(torch.zeros(pad, dtype=torch.uint8,
-                                          device=t.device))
-            total += n + pad
-        flat = torch.cat(pieces)
-        host = torch.empty(total, dtype=torch.uint8,
+        flat, offsets = pack_leaves(leaves)
+        host = torch.empty(flat.numel(), dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
         host.copy_(flat)                               # the one copy
         it = iter(zip(leaves, offsets))

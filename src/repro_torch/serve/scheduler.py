@@ -37,8 +37,7 @@ import numpy as np
 from ..core.roofline.hardware import H100_SXM, ChipSpec, chip_scope
 from ..core.roofline.model import PhaseTraffic, RooflineTerms, make_terms
 from ..kernels import quantize as kvq
-from ..kernels.paged_attention import (mla_paged_decode_vmem_bytes,
-                                       paged_decode_vmem_bytes)
+from ..kernels.paged_attention import gqa_onchip_bytes, mla_onchip_bytes
 from ..models.common import ModelConfig, model_flops, param_counts
 from ..models.params import torch_dtype
 from ..obs.clock import now
@@ -108,32 +107,32 @@ def decode_token_bytes(cfg: ModelConfig, context_len: int,
 def attn_kernel_vmem_bytes(cfg: ModelConfig, context_len: int,
                            page_size: int, n_q: int = 1,
                            pipeline: str = "off") -> float:
-    """On-chip traffic of one slot's paged-attention walks summed over all
+    """On-chip traffic of one slot's paged-attention calls summed over all
     attention/MLA layers, for ``n_q`` query tokens (1 = decode, k+1 =
-    verify): the streamed pages plus the kernel-resident re-touches
-    (kernels/paged_attention.py pricing).  This prices the reference's TPU
-    kernel grids and scratch, ``pipeline="double"`` its two-slab walk
-    (query slab fetched once per program), not the CUDA kernels."""
-    isize = _dtype_bytes(cfg.dtype)
-    kv_isize = _kv_store_isize(cfg)
-    scale_isize = _kv_scale_isize(cfg)
+    verify): the bytes the CUDA kernel that ``cfg.dtype``, ``cfg.kv_dtype``
+    and ``pipeline`` dispatch to moves between L2 and the SMs
+    (kernels/paged_attention.py ``gqa_onchip_bytes`` /
+    ``mla_onchip_bytes``: staged lines and scales, query rows per block,
+    split-K partials and the merge, the output), whatever device the
+    engine runs on, as the reference's ledger priced its Pallas kernel
+    whatever the backend."""
+    kw = dict(page_size=page_size, isize=_dtype_bytes(cfg.dtype),
+              kv_isize=_kv_store_isize(cfg),
+              quantized=kvq.is_quantized(cfg.kv_dtype), n_q=n_q,
+              pipeline=pipeline)
     total = 0.0
     for unit, reps in cfg.segments():
         for b in unit:
             if b.mixer == "attn":
-                total += reps * paged_decode_vmem_bytes(
-                    context_len=context_len, page_size=page_size,
-                    n_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-                    head_dim=cfg.hd, isize=isize, n_q=n_q,
-                    pipeline=pipeline, kv_isize=kv_isize,
-                    scale_isize=scale_isize)
+                total += reps * gqa_onchip_bytes(
+                    context_len, kv_heads=cfg.n_kv_heads,
+                    groups=cfg.n_heads // cfg.n_kv_heads, head_dim=cfg.hd,
+                    **kw)
             elif b.mixer == "mla":
-                total += reps * mla_paged_decode_vmem_bytes(
-                    context_len=context_len, page_size=page_size,
-                    n_heads=cfg.n_heads, lora_rank=cfg.kv_lora_rank,
-                    rope_dim=cfg.rope_head_dim, isize=isize, n_q=n_q,
-                    pipeline=pipeline, kv_isize=kv_isize,
-                    scale_isize=scale_isize)
+                total += reps * mla_onchip_bytes(
+                    context_len, n_heads=cfg.n_heads,
+                    lora_rank=cfg.kv_lora_rank, rope_dim=cfg.rope_head_dim,
+                    **kw)
     return total
 
 
@@ -141,9 +140,8 @@ def decode_token_vmem_bytes(cfg: ModelConfig, context_len: int,
                             active_batch: int, page_size: int,
                             pipeline: str = "off") -> float:
     """On-chip bytes for one generated token: the amortized weight read
-    passes through once, and the paged-attention walks add their streamed
-    and resident traffic (the reference's TPU pricing, per ``pipeline``;
-    see :func:`attn_kernel_vmem_bytes`)."""
+    passes through once, and the paged-attention kernel adds its own
+    (:func:`attn_kernel_vmem_bytes`)."""
     return (params_bytes_active(cfg) / max(active_batch, 1)
             + attn_kernel_vmem_bytes(cfg, context_len, page_size,
                                      pipeline=pipeline))
@@ -153,13 +151,20 @@ def verify_step_vmem_bytes(cfg: ModelConfig, context_len: int, n_fed: int,
                            active_batch: int, page_size: int,
                            pipeline: str = "off") -> float:
     """On-chip bytes for one slot's multi-token verification step: one
-    weight pass-through scores ``n_fed`` tokens sharing a single page walk
-    (the verify kernels flatten the draft window into extra query rows,
-    so only the resident re-touches scale with n_fed); the reference's TPU
-    pricing, per ``pipeline`` (:func:`attn_kernel_vmem_bytes`)."""
+    weight pass-through scores ``n_fed`` tokens sharing one call of the
+    verify kernel (:func:`attn_kernel_vmem_bytes` at ``n_q = n_fed``)."""
     return (params_bytes_active(cfg) / max(active_batch, 1)
             + attn_kernel_vmem_bytes(cfg, context_len, page_size,
                                      n_q=n_fed, pipeline=pipeline))
+
+
+def slot_swap_bytes(cfg: ModelConfig, n_blocks: int, page_size: int) -> float:
+    """Host-link bytes to park (or restore) one slot: its physical pages
+    across every paged cache leaf (the attention archs of the port carry
+    no recurrent-state rows, the reference's second term) — the analytic
+    prediction serve/crosscheck.crosscheck_host holds against the walk of
+    the gather-and-pack ``PagedKVCache.swap_out`` runs."""
+    return float(n_blocks * page_size * kv_line_bytes(cfg))
 
 
 # --------------------------------------------------------------------------

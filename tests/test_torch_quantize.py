@@ -62,6 +62,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.models import attention as tattn
 from repro_torch.models import mla as tmla
 from repro_torch.models.common import BlockDef as TBlockDef
+from repro_torch.serve import crosscheck as txc
 from repro_torch.serve import kv_cache as tkv
 from repro_torch.serve import scheduler as tsched
 
@@ -452,9 +453,13 @@ def _double(kind, prompts, gen_kw, scfg=None, monkeypatch=None, **ecfg):
     ``pipeline="double"`` (speculative when ``scfg`` names a proposer),
     repro's engine with ``pipeline="off"`` (the streams' target) and
     repro's jnp engine priced at ``pipeline="double"`` (the ledger's; its
-    kernels ignore the pipeline, as the port's plain versions do).
+    kernels ignore the pipeline, as the port's plain versions do; its
+    on-chip term priced by the launch-grid walk of the CUDA kernel the
+    port dispatches to, the port ledger's count).
     Returns the port's engine and the pipelines its paged-attention
     dispatches carried."""
+    monkeypatch.setattr(jsched, "attn_kernel_vmem_bytes",
+                        txc.kernel_walk_vmem_bytes)
     jc, tc, jp, tp = _model(kind)
     seen = []
     real = ops.resolve

@@ -43,6 +43,7 @@ import repro_torch.serve as tserve
 from repro_torch import bridge
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.serve import crosscheck as txc
 from repro_torch.serve import kv_cache as tkv
 from repro_torch.serve import sampling as tsamp
 from repro_torch.serve import scheduler as tsched
@@ -455,10 +456,15 @@ def test_spec_greedy_streams_identical(arch, proposer, qwen, deepseek):
     assert teng.verify_steps > 0
 
 
-def test_spec_ledger_phase_splits_equal_reference(qwen):
+def test_spec_ledger_phase_splits_equal_reference(qwen, monkeypatch):
     """The same run through repro's and the port's SpecEngine (draft
     proposer, chunked prefill, two slots) charges every request's ledger
     and the verify phase the same W, Q, tokens, passes and acceptance."""
+    # the ledger's on-chip term is the CUDA kernels' count: the reference's
+    # ledger is priced with the launch-grid walk of those kernels, so the
+    # rest of it stays the baseline and the term is held against the walk
+    monkeypatch.setattr(jsched, "attn_kernel_vmem_bytes",
+                        txc.kernel_walk_vmem_bytes)
     jc = qwen[0]
     prompts = [_prompt(jc, 60 + i, 6) for i in range(3)]
     jeng, teng, (jreqs, treqs, _) = _three_engines(
@@ -705,7 +711,12 @@ def test_launcher_spec_flags_on_cpu(capsys):
         assert "(random weights)" in out
 
 
-def test_verify_pricing_equals_reference(qwen, deepseek):
+def test_verify_pricing_equals_reference(qwen, deepseek, monkeypatch):
+    # the ledger's on-chip term is the CUDA kernels' count: the reference's
+    # ledger is priced with the launch-grid walk of those kernels, so the
+    # rest of it stays the baseline and the term is held against the walk
+    monkeypatch.setattr(jsched, "attn_kernel_vmem_bytes",
+                        txc.kernel_walk_vmem_bytes)
     for jc, tc in ((qwen[0], qwen[1]), (deepseek[0], deepseek[1])):
         for L, T, B in ((1, 1, 1), (17, 4, 3), (100, 5, 2)):
             assert tsched.verify_step_vmem_bytes(tc, L, T, B, PAGE) == \
