@@ -172,6 +172,25 @@ Phases, in order; any failure exits non-zero:
    swap engines (ratio 1.0); deepseek-v2's walk with the all-experts gap
    attributed to the ``moe_experts`` scope; speculative qwen3-14b's
    verify step's measured intensity above 2.5 times the decode step's;
+   k. the recurrent and hybrid mixers (``[recurrent]`` lines):
+   full-width xlstm-350m (24 layers: 21 mLSTM, 3 sLSTM) and
+   jamba-v0.1-52b at its published widths cut to JAMBA_LAYERS (one
+   period: 1 GQA layer, 7 mamba, 4 MoE FFNs of 16 experts), each served
+   as in a (every request finishes, ``paged_attention`` once per
+   attention layer and step, 0 for xlstm), then with pipeline off /
+   double, graphed and eager (streams byte-equal, the rings once per
+   step), a slot left out of three decode steps keeping its state rows
+   bit for bit, xlstm's greedy tokens within XL_GAP_ATOL of a
+   forward_full over their tokens; mean step graphed and eager, kernels
+   a step, the ledger's Q split into weights, state and KV, the decode
+   floor share and peak memory; the options of h on both (prefix_cache
+   refused, swap and recompute preemption in PREEMPT_PAGES: swap equal
+   to the fully backed run, recompute under the top-2 margin rule or
+   reported for the MoE model; the host cross-check with the state rows
+   in the swap, ratio 1.0; sampled); ``crosscheck_decode`` with the state
+   rows as their own category (bytes hold, W reported) and the walked
+   floor share; row 1 and its ring held at jamba's G 4 and timed before
+   jamba's engine; jamba's 26.6 GB freed at the end;
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -305,10 +324,11 @@ def device_ms(fn, inputs, reps: int = 25, per_sample: int = 10) -> float:
     return float(np.median(samples))
 
 
-def attention_case(torch, np, rng, dtype, kind: str):
-    """Inputs of one kernel case at the main path's shapes."""
+def attention_case(torch, np, rng, dtype, kind: str, groups: int = G):
+    """Inputs of one kernel case at the main path's shapes (``groups``
+    query heads a KV head: qwen3-0.6b's G by default)."""
     dev = "cuda"
-    q = torch.from_numpy(rng.standard_normal((SLOTS, KV, G, HD),
+    q = torch.from_numpy(rng.standard_normal((SLOTS, KV, groups, HD),
                                              dtype="float32"))
     kp = torch.from_numpy(rng.standard_normal((N_PAGES, PAGE, KV, HD),
                                               dtype="float32"))
@@ -2180,6 +2200,7 @@ def graph_kernels(torch, label: str, graphs, name: str, want: dict,
           f"kernels a replay (torch.profiler over {replays} replays); "
           + ", ".join(f"{k} {got[k] // replays} a replay (= layers)"
                       for k in want))
+    return len(names) / replays
 
 
 def counted_run(torch, engine, prompts, gen, seeds=None):
@@ -2915,10 +2936,12 @@ def serve_waves(torch, engine, waves, gen, seeds=None):
 def pools_equal_outside_trash(torch, a, b) -> bool:
     """Two engines' page pools byte-equal on every page but page 0 (the
     trash page, which idle lanes and a bucket's pad positions write in
-    any order)."""
+    any order), and their recurrent state rows byte-equal in every slot."""
     from repro_torch.models.params import tree_leaves
-    return all(torch.equal(x[:, 1:], y[:, 1:]) for x, y in zip(
-        tree_leaves(a._kv.pools), tree_leaves(b._kv.pools)))
+    return all(torch.equal(x[:, 1:], y[:, 1:]) if paged else
+               torch.equal(x, y) for x, y, paged in zip(
+                   tree_leaves(a._kv.pools), tree_leaves(b._kv.pools),
+                   tree_leaves(a._kv._paged)))
 
 
 def prefill_capture_ms(engine) -> float:
@@ -3004,8 +3027,8 @@ def options_phase(torch, np, card, cfg, params, *, max_len: int,
                   logits_atol: float) -> None:
     """The engine options no other phase takes, each served graphed and
     eagerly (:func:`graphed_and_eager`): prefix sharing with copy-on-write
-    (``prefix_cache=True`` must raise on an MoE model, as in the
-    reference), preemption by swap and by recompute in a pool of
+    (``prefix_cache=True`` must raise on an MoE or recurrent model, as in
+    the reference), preemption by swap and by recompute in a pool of
     PREEMPT_PAGES, sampled requests (SAMPLED, each seeded).  Prefix and
     preemption streams are held against a fully backed, prefix-off run:
     swap exactly, prefix sharing and recompute (other chunk boundaries)
@@ -3014,6 +3037,7 @@ def options_phase(torch, np, card, cfg, params, *, max_len: int,
     capacity, so it is reported, not held."""
     from repro_torch.serve import Engine, EngineConfig, GenerateConfig
     from repro_torch.serve import sampling
+    from repro_torch.serve.kv_cache import supports_prefix_cache
     moe = any(b.ffn == "moe" for b in cfg.block_pattern)
     ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=max_len,
                         prefill_chunk=PREFILL_CHUNK, device="cuda")
@@ -3027,7 +3051,7 @@ def options_phase(torch, np, card, cfg, params, *, max_len: int,
             ecfg, cuda_graphs=g, **kw))
 
     with deterministic(torch, moe):
-        if moe:
+        if not supports_prefix_cache(cfg):
             try:
                 Engine(cfg, params, dataclasses.replace(
                     ecfg, prefix_cache=True)).reset()
@@ -3484,6 +3508,263 @@ def prefill_graph_lines(torch, np, card, cfg, params, betas, *, max_len: int,
         print(r["table"])
 
 
+# --------------------------------------------------------------------------
+# Recurrent and hybrid mixers: xlstm-350m whole, jamba-v0.1-52b at its
+# published widths cut to one 8-layer period (1 GQA layer, 7 mamba, 4 MoE
+# FFNs of 16 experts top-2, 4 dense)
+# --------------------------------------------------------------------------
+
+JAMBA_LAYERS = 8
+# jamba's attention layer: 32 query heads over 8 KV heads (G 4), hd 128
+JAMBA_G = 4
+# a greedy token's gap under the top logit of a forward_full over the
+# same tokens: bf16 activations through 24 layers, whole-sequence cells
+# and S-row GEMMs against step-by-step cells and 4-row GEMMs, as
+# LOGITS_ATOL bounds qwen3-0.6b's decode logits
+XL_GAP_ATOL = LOGITS_ATOL
+
+
+def jamba_kernel_holds(torch, np, pa) -> None:
+    """Row 1 (``paged_attention``, the GQA core) and its ring at jamba's
+    attention shape, G 4, held as kernel_phase holds them at qwen3-0.6b's
+    G 2 (TOL, TOL_F32_PLAIN; the ring bit-equal to the off kernel), and
+    both timed with the plain version.  Launches here are not counted."""
+    n, n_ring = pa.paged_attention.launches, pa.paged_attention_ring.launches
+    rng = np.random.default_rng(28)
+    for kind in ("ragged", "full", "trash", "soft_cap"):
+        c = attention_case(torch, np, rng, torch.bfloat16, kind,
+                           groups=JAMBA_G)
+        args = (c["q"], c["k"], c["v"], c["bt"], c["pos"])
+        kw = dict(scale=c["scale"], soft_cap=c["soft_cap"])
+        hold(torch, f"paged_attention bfloat16 {kind:8s} G={JAMBA_G}",
+             pa.paged_attention, pa.paged_attention_reference, args, 3, kw,
+             "bfloat16")
+        ring_hold(torch, f"paged_attention_ring (decode) bfloat16 "
+                  f"{kind:8s} G={JAMBA_G}", pa.paged_attention_ring,
+                  pa.paged_attention, pa.paged_attention_reference, args, 3,
+                  kw, "bfloat16")
+    c = attention_case(torch, np, rng, torch.bfloat16, "ragged",
+                       groups=JAMBA_G)
+    copies = [(c["q"].clone(), c["k"].clone(), c["v"].clone(), c["bt"],
+               c["pos"]) for _ in range(16)]
+    kw = dict(scale=c["scale"], soft_cap=0.0)
+    kernel_ms = device_ms(lambda *a: pa.paged_attention(*a, **kw), copies)
+    ring_ms = device_ms(lambda *a: pa.paged_attention_ring(*a, **kw), copies)
+    plain_ms = device_ms(lambda *a: pa.paged_attention_reference(*a, **kw),
+                         copies)
+    pa.paged_attention.launches = n
+    pa.paged_attention_ring.launches = n_ring
+    print(f"[kernel] paged_attention bf16 at jamba's shape B={SLOTS} KV={KV} "
+          f"G={JAMBA_G} hd={HD} page={PAGE} lines="
+          f"{int((c['pos'].long() + 1).sum())}: kernel {kernel_ms:.4f} ms, "
+          f"ring kernel {ring_ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+
+def greedy_gap(torch, np, cfg, params, reqs) -> float:
+    """The largest gap, over every greedy token of ``reqs``, between the
+    top logit of a forward_full over the request's tokens and the logit
+    of the token the engine chose there (0 where they agree)."""
+    from repro_torch.models.transformer import forward_full
+    worst = 0.0
+    with torch.no_grad():
+        for r in reqs:
+            seq = np.concatenate([r.prompt, r.generated[:-1]]).astype(
+                np.int64)
+            logits, _ = forward_full(params, cfg, torch.as_tensor(
+                seq[None], device="cuda"))
+            rows = logits[0, len(r.prompt) - 1:].float()
+            chosen = torch.as_tensor(r.generated, device="cuda")
+            gap = rows.max(-1).values - rows.gather(1, chosen[:, None])[:, 0]
+            worst = max(worst, float(gap.max()))
+    return worst
+
+
+def idle_slot_check(torch, np, cfg, params, ecfg) -> int:
+    """Three requests prefilled and decoding; one left out of three decode
+    steps keeps its state rows bit for bit while the others' move.
+    Returns the bytes of state rows compared."""
+    from repro_torch.serve import Engine, GenerateConfig
+    from repro_torch.serve.kv_cache import split_leaves
+    rng = np.random.default_rng(31)
+    eng = Engine(cfg, params, ecfg)
+    for n in (20, 33, 41):
+        eng.submit(rng.integers(0, cfg.vocab_size, n), GenerateConfig(8))
+    eng.step()
+    running = eng._sched.decode_requests()
+    if len(running) != 3:
+        fail(f"{cfg.name} idle-slot check: {len(running)} decoding, want 3")
+    rows = split_leaves(eng._kv.pools, eng._kv._paged)[1]
+    idle, others = running[1], [running[0], running[2]]
+    before = [t[:, idle.slot].clone() for t in rows]
+    moved = [t[:, others[0].slot].clone() for t in rows]
+    for _ in range(3):
+        eng._run_decode(others)
+    torch.cuda.synchronize()
+    if not all(torch.equal(b, t[:, idle.slot]) for b, t in zip(before, rows)):
+        fail(f"{cfg.name}: an idle slot's state rows changed in a decode "
+             "step that left it out")
+    if all(torch.equal(m, t[:, others[0].slot]) for m, t in zip(moved, rows)):
+        fail(f"{cfg.name}: a decoding slot's state rows did not move")
+    eng.run()
+    return sum(b.numel() * b.element_size() for b in before)
+
+
+def recurrent_phase(torch, np, card, cfg, params, roof) -> dict:
+    """A recurrent or hybrid model through the engine, as engine_phase
+    serves qwen3-0.6b: PROMPT_LENS, NEW_TOKENS new, SLOTS slots, chunk
+    PREFILL_CHUNK.  The measured run replays captured graphs; every
+    request must finish; ``paged_attention`` must launch once per
+    attention layer and decode step (0 times for xlstm), the rings never.
+    Then the same prompts with pipeline off / double, graphed and eager
+    (:func:`pipeline_runs`: streams byte-equal), a slot left idle keeps
+    its state rows bit for bit (:func:`idle_slot_check`), and for a model
+    without MoE every greedy token sits within XL_GAP_ATOL of the top
+    logit of a forward_full over its tokens.  Prints the mean step both
+    ways, kernels a step, the ledger's Q split into weights / state / KV,
+    the decode floor share at the measured roofs and peak memory, beside
+    the card; returns the numbers."""
+    from repro_torch.serve import Engine, EngineConfig, GenerateConfig
+    from repro_torch.serve.scheduler import state_bytes
+    moe = any(b.ffn == "moe" for b in cfg.block_pattern)
+    n_attn = sum(reps for unit, reps in cfg.segments() for b in unit
+                 if b.mixer == "attn")
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda")
+    rng = np.random.default_rng(1)
+    gen = GenerateConfig(max_new_tokens=NEW_TOKENS)
+    V = cfg.vocab_size
+
+    def want_off(e):
+        return {"paged_attention": e.decode_steps * n_attn}
+
+    with deterministic(torch, moe):
+        warm = Engine(cfg, params, ecfg)
+        warm.submit(rng.integers(0, V, 70), GenerateConfig(4))
+        warm.run()
+        del warm
+        prompts = [rng.integers(0, V, n) for n in PROMPT_LENS]
+        engine = Engine(cfg, params, ecfg)
+        reqs, got, wall = counted_run(torch, engine, prompts, gen)
+    want = want_launches(want_off(engine), "off")
+    if got != want:
+        fail(f"{cfg.name}: kernel launches {got}, want {want}")
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.generated) != NEW_TOKENS:
+            fail(f"{cfg.name} request {r.request_id} ended "
+                 f"{r.finish_reason!r} with {len(r.generated)} tokens")
+        if not all(0 <= t < V for t in r.generated):
+            fail(f"{cfg.name} request {r.request_id}: tokens outside the "
+                 "vocab")
+    if not engine.graphs or "decode" not in engine._graphs.graphs:
+        fail(f"{cfg.name}: the engine did not capture its decode step")
+    steps = engine.decode_steps
+    dec = engine.phases["decode"]
+    dec_ms = dec.wall_s / max(dec.steps, 1) * 1e3
+    n_tok = sum(len(r.generated) for r in reqs)
+    agg = engine.aggregate_ledger()
+    kernels = graph_kernels(torch, cfg.name, engine._graphs, "decode",
+                            dict.fromkeys(CORE_KERNELS["paged_attention"],
+                                          n_attn) if n_attn else {})
+    state_q = agg.decode_tokens * 2 * state_bytes(cfg) / steps
+    kv_q = agg.decode_kv_bytes / steps - state_q  # the ledger's KV + state
+    q_step = agg.decode_bytes / steps
+    w_step = agg.decode_flops / steps
+    pi, beta = roof.flops_for(cfg.dtype), roof.level_betas().hbm
+    floor_ms = max(w_step / pi, q_step / beta) * 1e3
+    gap = None if moe else greedy_gap(torch, np, cfg, params, reqs)
+    if gap is not None and gap > XL_GAP_ATOL:
+        fail(f"{cfg.name}: a greedy token sits {gap} under the top logit "
+             f"of a forward_full over its tokens (atol {XL_GAP_ATOL})")
+    rings, step_runs = pipeline_runs(
+        torch, card, cfg.name, cfg,
+        lambda pl, g: Engine(cfg, params, dataclasses.replace(
+            ecfg, pipeline=pl, cuda_graphs=g)), prompts, gen, want_off)
+    if rings.get("paged_attention_ring", 0) != steps * n_attn:
+        fail(f"{cfg.name}: ring launches {rings}, want {steps * n_attn}")
+    with deterministic(torch, moe):
+        idle_bytes = idle_slot_check(torch, np, cfg, params, ecfg)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eager_ms = [d["decode"] for d in step_runs[False]]
+    graphed_ms = [d["decode"] for d in step_runs[True]]
+    print(f"[recurrent] {cfg.name} {card}: {len(reqs)} requests (prompts "
+          f"{list(PROMPT_LENS)}, {NEW_TOKENS} new tokens, {SLOTS} slots, "
+          f"prefill chunk {PREFILL_CHUNK}) all finished; {steps} decode "
+          f"steps; paged_attention launches {got['paged_attention']} = "
+          f"steps x {n_attn} attention layer(s), rings {rings} in the "
+          f"double run; {n_tok / wall:.2f} tok/s graphed; mean decode step "
+          f"graphed {dec_ms:.3f} ms (pipeline runs "
+          f"{', '.join(f'{x:.3f}' for x in graphed_ms)}), eager "
+          f"{', '.join(f'{x:.3f}' for x in eager_ms)} ms; "
+          f"{kernels:.0f} kernels a graphed step; peak memory "
+          f"{peak_gb:.2f} GB")
+    print(f"[recurrent] {cfg.name} {card} ledger per decode step (mean of "
+          f"{steps}): Q {q_step / 1e9:.4f} GB = weights "
+          f"{(q_step - state_q - kv_q) / 1e9:.4f} + state "
+          f"{state_q / 1e9:.4f} ({state_q / q_step:.1%}; "
+          f"{state_bytes(cfg) / 1e6:.3f} MB a slot, read and written) + KV "
+          f"{kv_q / 1e9:.4f}; W {w_step / 1e9:.4f} GFLOP; decode floor "
+          f"max(W / pi, Q / beta) {floor_ms:.4f} ms at pi "
+          f"{pi / 1e12:.1f} TFLOP/s, beta {beta / 1e12:.3f} TB/s: share of "
+          f"the graphed step {floor_ms / dec_ms:.4f}")
+    print(f"[recurrent] {cfg.name} {card}: a slot left out of 3 decode "
+          f"steps kept its {idle_bytes / 1e6:.3f} MB of state rows bit for "
+          "bit"
+          + ("" if gap is None else f"; every greedy token within "
+             f"{gap:.4f} of the top logit of a forward_full over its tokens "
+             f"(atol {XL_GAP_ATOL})"))
+    return dict(steps=steps, launches=got["paged_attention"],
+                graphed_ms=dec_ms, eager_ms=eager_ms, kernels=kernels,
+                q_step=q_step, state_q=state_q, floor_ms=floor_ms,
+                peak_gb=peak_gb, gap=gap)
+
+
+def crosscheck_recurrent(torch, np, card, cfg, params, roof) -> None:
+    """``crosscheck_decode`` on a recurrent or hybrid model, 4 slots
+    mid-decode: the walk's split with the state rows as their own
+    category, the W ratio reported, and the bytes hold (weights + KV +
+    state = the ledger's Q plus terms counted from the trees, the state
+    rows' freeze read, re-reads and idle slots among them: residual within
+    1e-9 of Q); ``step_cost_analysis`` of the graphed step against its
+    wall (floor share at most 1)."""
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve import crosscheck as xc
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+                        prefill_chunk=PREFILL_CHUNK, device="cuda")
+    label = f"{cfg.name} decode"
+    moe = any(b.ffn == "moe" for b in cfg.block_pattern)
+    with deterministic(torch, moe):
+        eng = xc_engine(np, cfg, lambda: Engine(cfg, params, ecfg), label)
+        out = xc.crosscheck_decode(eng)
+        xc_line(card, label, out)
+        xc_holds(label, out, flops=False)
+        print(f"[crosscheck] {label} state rows {card}: walked "
+              f"{out['state_bytes'] / 1e6:.3f} MB = the ledger's read and "
+              f"write 2 x {len(out['contexts'])} x "
+              f"{out['state_row_bytes'] / 1e6:.3f} MB + the freeze's read "
+              f"{out['state_freeze_read_bytes'] / 1e6:.3f} MB + the cells' "
+              f"re-reads {out['state_reread_bytes'] / 1e6:.3f} MB + idle "
+              f"slots {out['state_idle_bytes'] / 1e6:.3f} MB; leaves the "
+              f"ledger's parameter count omits "
+              f"{out['omitted_bytes'] / 1e6:.3f} MB; "
+              f"activations {out['activation_bytes'] / 1e9:.4f} GB; W "
+              f"ratio {out['flops_ratio']:.4f} (reported)")
+        step = xc.step_cost_analysis(eng)
+        eng.reset_phases()
+        eng.run()
+    ph = eng.phases["decode"]
+    wall = ph.wall_s / max(ph.steps, 1)
+    pi, beta = roof.flops_for(cfg.dtype), roof.level_betas().hbm
+    floor = max(step["flops"] / pi, step["bytes"] / beta)
+    if floor > wall:
+        fail(f"{label}: the graphed step's wall {wall * 1e3:.4f} ms is "
+             f"under its walked floor {floor * 1e3:.4f} ms")
+    print(f"[crosscheck] {label} step_cost_analysis {card}: decode + sample "
+          f"W {step['flops'] / 1e9:.4f} GFLOP, Q {step['bytes'] / 1e9:.4f} "
+          f"GB; floor {floor * 1e3:.4f} ms; graphed step wall "
+          f"{wall * 1e3:.4f} ms over {ph.steps} steps, floor share "
+          f"{floor / wall:.4f} (must be <= 1)")
+
+
 def print_build_summary(name: str, log: str) -> None:
     """One line per source from nvcc's ``-Xptxas -v`` report: kernel
     instantiations, their register range, and each one that spills."""
@@ -3732,7 +4013,37 @@ def main() -> int:
     t_phase = phase_time("qwen3-14b speculative path", t_phase)
     crosscheck_spec(torch, np, card, q14, params, qwen, draft)
     del params, draft
-    phase_time("crosscheck: qwen3-14b speculative", t_phase)
+    t_phase = phase_time("crosscheck: qwen3-14b speculative", t_phase)
+
+    xlstm = get_config("xlstm-350m")
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                n_layers=JAMBA_LAYERS)
+    if (xlstm.n_layers, xlstm.d_model, xlstm.n_heads) != (24, 1024, 4) or (
+            jamba.d_model, jamba.n_heads, jamba.n_kv_heads, jamba.hd,
+            jamba.d_inner, jamba.mamba_d_state, jamba.d_ff,
+            jamba.vocab_size) != (4096, KV * JAMBA_G, KV, HD, 8192, 16,
+                                  14336, 65536):
+        fail(f"unexpected recurrent configs {xlstm} {jamba}")
+    params = make_params(torch, xlstm)
+    recurrent_phase(torch, np, card, xlstm, params, roof)
+    options_phase(torch, np, card, xlstm, params, max_len=MAX_LEN,
+                  logits_atol=LOGITS_ATOL)
+    crosscheck_recurrent(torch, np, card, xlstm, params, roof)
+    del params
+    t_phase = phase_time("xlstm-350m engine, options and crosscheck",
+                         t_phase)
+    jamba_kernel_holds(torch, np, pa)
+    params = make_params(torch, jamba)
+    recurrent_phase(torch, np, card, jamba, params, roof)
+    options_phase(torch, np, card, jamba, params, max_len=MAX_LEN,
+                  logits_atol=LOGITS_ATOL)
+    crosscheck_recurrent(torch, np, card, jamba, params, roof)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[recurrent] {jamba.name} weights freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after")
+    phase_time("jamba-v0.1-52b (8 layers) engine, options and crosscheck",
+               t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

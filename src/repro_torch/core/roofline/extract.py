@@ -80,7 +80,7 @@ class StepCharacter:
     cost_raw: Dict[str, float]
     scopes: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # tracked tag -> {"flops", "bytes", "param_bytes", "pool_bytes",
-    # "activation_bytes"}
+    # "activation_bytes"}, and "state_bytes" when the walk had state rows
     bytes_by_category: Dict[str, float] = dataclasses.field(
         default_factory=dict)
 
@@ -108,11 +108,12 @@ def _tensor_bytes(tree: Any) -> int:
 
 
 def characterize(fn: Callable, *args, params: Any = None, pools: Any = None,
-                 **kwargs) -> StepCharacter:
+                 states: Any = None, **kwargs) -> StepCharacter:
     """Walk one call ``fn(*args, **kwargs)`` and build its StepCharacter.
 
-    ``params`` / ``pools`` name the model's parameters and KV pools among
-    the arguments, for the walk's byte split (``bytes_by_category``).  Run
+    ``params`` / ``pools`` / ``states`` name the model's parameters, KV
+    pools and recurrent state rows among the arguments, for the walk's
+    byte split (``bytes_by_category``).  Run
     it on fake tensors (``FakeTensorMode``, entered by the caller) to
     characterize a full-width step without computing or allocating it.
     W, Q and transcendentals come from :mod:`op_cost`; the naive counter,
@@ -122,7 +123,7 @@ def characterize(fn: Callable, *args, params: Any = None, pools: Any = None,
     naive = FlopCounterMode(display=False)
     with naive:
         cost, out = op_cost.walk(fn, *args, params=params, pools=pools,
-                                 **kwargs)
+                                 states=states, **kwargs)
     memory = MemoryFootprint(argument_bytes=_tensor_bytes((args, kwargs)),
                              output_bytes=_tensor_bytes(out))
     return StepCharacter(

@@ -39,10 +39,12 @@ counts it under ``hlo_cost.py``'s own conventions:
   this a decode step would be charged its whole KV pool.
 
 Every byte is also split by what the tensor is: a parameter of the model,
-a KV pool, or anything else (activations).  Views of a parameter or a
-pool stay what their base is.  So a cross-check can hold the ledger's
-weights and KV lines against the first two and name the third as the
-traffic the ledger leaves out on purpose.
+a KV pool, a recurrent mixer's per-slot state row (a category only when
+the walk is given such rows), or anything else (activations).  Views of a
+parameter, a pool or a state row stay what their base is.  So a
+cross-check can hold the ledger's weights, KV lines and state against the
+first three and name the last as the traffic the ledger leaves out on
+purpose.  An ``out=`` tensor is written, not read.
 
 Scopes: :func:`named_scope` is the counterpart of ``jax.named_scope``.
 It keeps a plain thread-local stack of tags and makes no CUDA call, so
@@ -76,6 +78,8 @@ TRACKED_SCOPES = (
 )
 
 CATEGORIES = ("param", "pool", "activation")
+# the category of recurrent state rows, split out when the walk has them
+STATE = "state"
 
 _local = threading.local()
 
@@ -213,9 +217,10 @@ def _prod(shape: Iterable[int]) -> int:
 
 @dataclasses.dataclass
 class OpCost:
-    """What a walk counted: totals, the category split of the bytes, per
-    tracked scope ``{"flops", "bytes", "param_bytes", "pool_bytes",
-    "activation_bytes"}``, and how often each aten op ran."""
+    """What a walk counted: totals, the category split of the bytes (with
+    a ``"state"`` entry when the walk was given state rows), per tracked
+    scope ``{"flops", "bytes", "<category>_bytes", ...}``, and how often
+    each aten op ran."""
 
     flops: float = 0.0
     bytes: float = 0.0
@@ -242,12 +247,14 @@ class OpCost:
 class OpCostMode(TorchDispatchMode):
     """Count every aten op dispatched inside (see the module docstring).
 
-    ``params`` and ``pools`` are trees whose tensors are the model's
-    parameters and KV pools: their bytes, and their views', are counted
-    under those categories.  The ops run as usual (on fake tensors, under a
-    ``FakeTensorMode`` entered before this one, nothing is computed)."""
+    ``params``, ``pools`` and ``states`` are trees whose tensors are the
+    model's parameters, KV pools and recurrent state rows: their bytes,
+    and their views', are counted under those categories.  The ops run as
+    usual (on fake tensors, under a ``FakeTensorMode`` entered before this
+    one, nothing is computed)."""
 
-    def __init__(self, params: Any = None, pools: Any = None):
+    def __init__(self, params: Any = None, pools: Any = None,
+                 states: Any = None):
         super().__init__()
         self.cost = OpCost()
         self._cat: Dict[int, str] = {}
@@ -256,6 +263,11 @@ class OpCostMode(TorchDispatchMode):
             self._mark(t, "param")
         for t in _tensors(pools):
             self._mark(t, "pool")
+        rows = _tensors(states)
+        if rows:
+            self.cost.by_category[STATE] = 0.0
+        for t in rows:
+            self._mark(t, STATE)
 
     def _mark(self, t: torch.Tensor, cat: str) -> None:
         if cat == "activation":
@@ -272,31 +284,31 @@ class OpCostMode(TorchDispatchMode):
                 reads: List[Tuple[torch.Tensor, float]],
                 writes: List[Tuple[torch.Tensor, float]]) -> None:
         c = self.cost
-        by = {k: 0.0 for k in CATEGORIES}
+        by = {k: 0.0 for k in c.by_category}
         for t, b in reads + writes:
             by[self.category(t)] += b
         total = sum(by.values())
         c.flops += flops
         c.transcendentals += trans
         c.bytes += total
-        for k in CATEGORIES:
+        for k in by:
             c.by_category[k] += by[k]
         tag = current_scope()
         if tag is not None:
             acc = c.scopes.setdefault(tag, {
-                "flops": 0.0, "bytes": 0.0, "param_bytes": 0.0,
-                "pool_bytes": 0.0, "activation_bytes": 0.0})
+                "flops": 0.0, "bytes": 0.0,
+                **{f"{k}_bytes": 0.0 for k in by}})
             acc["flops"] += flops
             acc["bytes"] += total
-            acc["param_bytes"] += by["param"]
-            acc["pool_bytes"] += by["pool"]
-            acc["activation_bytes"] += by["activation"]
+            for k in by:
+                acc[f"{k}_bytes"] += by[k]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
-        ins = _tensors((args, kwargs))
+        ins = _tensors((args, {k: v for k, v in kwargs.items()
+                               if k != "out"}))
         outs = _tensors(out)
         if not (outs or name in _WRITE_OPS):
             return out                    # metadata (device, size, item)
@@ -428,10 +440,10 @@ class OpCostMode(TorchDispatchMode):
 
 
 def walk(fn: Callable, *args, params: Any = None, pools: Any = None,
-         **kwargs) -> Tuple[OpCost, Any]:
+         states: Any = None, **kwargs) -> Tuple[OpCost, Any]:
     """Run ``fn(*args, **kwargs)`` under :class:`OpCostMode` and return
     (its cost, its output)."""
-    mode = OpCostMode(params=params, pools=pools)
+    mode = OpCostMode(params=params, pools=pools, states=states)
     with mode:
         out = fn(*args, **kwargs)
     return mode.cost, out

@@ -4,6 +4,9 @@ over steady-state engine steps.
     python -m repro_torch.launch.profile_decode [--steps 8]
     python -m repro_torch.launch.profile_decode --arch deepseek-v2-236b \
         --layers 4
+    python -m repro_torch.launch.profile_decode --arch xlstm-350m
+    python -m repro_torch.launch.profile_decode --arch jamba-v0.1-52b \
+        --layers 8
     python -m repro_torch.launch.profile_decode --arch qwen3-14b \
         --spec draft --draft-arch qwen3-0.6b --spec-k 4
     python -m repro_torch.launch.profile_decode --pipeline double

@@ -5,6 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-236b --layers 4 --batch 6 --slots 4 \\
         --prefill-chunk 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --batch 6 --slots 4 --prefill-chunk 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --layers 8 --batch 6 --slots 4 \\
+        --prefill-chunk 64
+
+Recurrent and hybrid archs (xlstm-350m, jamba-v0.1-52b) keep per-slot
+state rows beside the pages; ``--spec`` and ``--prefix-cache`` refuse
+them, as the reference does.
 
 Speculative decoding (serve/spec.py):
 

@@ -1,4 +1,5 @@
-"""Shared layers: norms, activations, MLPs, embeddings, RoPE.
+"""Shared layers: norms, activations, MLPs, embeddings, RoPE, and the
+short causal depthwise conv of the recurrent mixers.
 
 Each layer is a (param defs, apply) pair over plain tensors and parameter
 dicts, mirroring the JAX package's ``models/layers.py`` op for op: norms
@@ -51,6 +52,14 @@ def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float
     xf = x.float()
     ms = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+def group_norm_heads(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head group norm of the xLSTM cells: x is (..., H, hd)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -169,3 +178,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[..., None, :].to(x.dtype)
     s = sin[..., None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Short causal depthwise conv (mamba / xLSTM front conv)
+# --------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  tail: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv.  x (B, L, C), w (C, W) in x's dtype.
+
+    Returns (y, new_tail): ``tail`` (B, W-1, C) carries the last W-1
+    inputs across prefill / decode boundaries (zeros when None), and
+    ``new_tail`` is a view of the padded input.  The taps add in the
+    reference's order (tap 0 first)."""
+    B, L, C = x.shape
+    W = w.shape[-1]
+    if tail is None:
+        tail = x.new_zeros((B, W - 1, C))
+    xp = torch.cat([tail, x], dim=1)                 # (B, L+W-1, C)
+    y = xp[:, :L, :] * w[:, 0]
+    for k in range(1, W):
+        y = y + xp[:, k:k + L, :] * w[:, k]
+    new_tail = xp[:, L:, :] if W > 1 else tail
+    return y, new_tail

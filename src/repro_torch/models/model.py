@@ -42,8 +42,9 @@ def prepare_params(params, cfg: ModelConfig):
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
     """Full-context forward collecting decode state.  Returns
-    (last_logits (B, V), states) — states stacked (reps, B, S, KV, hd) per
-    segment, ready for the paged scatter."""
+    (last_logits (B, V), states) — per segment, attention lines stacked
+    (reps, B, S, ...) and recurrent final states (reps, B, ...), ready for
+    ``PagedKVCache.write_prefill_states``."""
     logits, states = tfm.forward_full(params, cfg, tokens,
                                       collect_state=True)
     return logits[:, -1, :], states
@@ -73,14 +74,18 @@ def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,
 def decode_step_paged(params, cfg: ModelConfig, pools: List[Any],
                       block_tables: torch.Tensor, token: torch.Tensor,
                       pos: torch.Tensor, *, page_size: int,
-                      pipeline: Optional[str] = None) -> torch.Tensor:
-    """One decode token per slot against the paged cache (pools updated
-    in place).  token (B,1); pos (B,) int32; block_tables (B, n_blocks)
-    int32.  Returns logits (B, V).  ``pipeline`` selects the paged-attention
-    kernel's page-streaming schedule ("off" / "double"; None = the
-    process default of kernels/ops.py)."""
+                      pipeline: Optional[str] = None,
+                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decode token per slot against the paged cache (pools and state
+    rows updated in place).  token (B,1); pos (B,) int32; block_tables
+    (B, n_blocks) int32; active (B,) bool, the decoding slots, whose
+    recurrent state rows alone advance (required when the model has a
+    recurrent mixer).  Returns logits (B, V).  ``pipeline`` selects the
+    paged-attention kernel's page-streaming schedule ("off" / "double";
+    None = the process default of kernels/ops.py)."""
     return tfm.decode_one_paged(params, cfg, pools, block_tables, token, pos,
-                                page_size=page_size, pipeline=pipeline)
+                                page_size=page_size, pipeline=pipeline,
+                                active=active)
 
 
 def decode_step_verify_paged(params, cfg: ModelConfig, pools: List[Any],
@@ -99,11 +104,12 @@ def decode_step_verify_paged(params, cfg: ModelConfig, pools: List[Any],
 
 def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
                         block_table: torch.Tensor, tokens: torch.Tensor,
-                        offset: int, *, page_size: int) -> torch.Tensor:
-    """Prefill one chunk of one request into its pages (chunked prefill).
-    Returns last-token logits (1, V)."""
+                        offset, *, page_size: int, slot=None) -> torch.Tensor:
+    """Prefill one chunk of one request into its pages and its slot's
+    state rows (chunked prefill).  ``offset`` and ``slot`` are ints or 0-d
+    int32 device tensors.  Returns last-token logits (1, V)."""
     return tfm.prefill_chunk_paged(params, cfg, pools, block_table, tokens,
-                                   offset, page_size=page_size)
+                                   offset, page_size=page_size, slot=slot)
 
 
 def param_count(cfg: ModelConfig) -> int:

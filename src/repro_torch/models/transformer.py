@@ -6,10 +6,14 @@ per ``cfg.segments()`` piece, every leaf stacked ``(reps, ...)`` — so a
 weight tree crosses from the JAX package leaf for leaf; layer ``i`` of a
 segment is the ``[i]`` view of each stacked leaf.
 
-This covers decoder-only archs built of GQA attention or MLA blocks with a
-dense, MoE or no FFN; every other block kind raises NotImplementedError
-naming its ROADMAP item.  RoPE tables are computed once per forward for
-each mixer kind present (:func:`rope_tables`) and handed to every layer.
+This covers decoder-only archs built of GQA attention, MLA, mamba, mLSTM
+or sLSTM blocks with a dense, MoE or no FFN; the encoder-decoder and
+vision block kinds raise NotImplementedError naming their ROADMAP item.
+Attention caches are page pools; a recurrent mixer keeps per-slot state
+rows ``(reps, num_slots, ...)`` beside them, which a decode step freezes
+for inactive slots and a prefill chunk reads and writes at its slot.
+RoPE tables are computed once per forward for each mixer kind present
+(:func:`rope_tables`) and handed to every layer.
 """
 
 from __future__ import annotations
@@ -21,18 +25,21 @@ import torch
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .common import BlockDef, ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
                      logits_from_hidden, mlp_defs, norm_defs)
 from .params import stack_defs, tree_map
 
-# a prefill chunk's first position: a host int, or a 0-d int32 device
-# tensor (the captured chunk's persistent input)
+# a prefill chunk's first position (or its slot): a host int, or a 0-d
+# int32 device tensor (the captured chunk's persistent input)
 Offset = Union[int, torch.Tensor]
 
 # ROADMAP queue 1 item that ports each block kind still missing
-_TODO = {"mamba": 8, "mlstm": 8, "slstm": 8,
-         "cross_attn": 9, "attn+cross": 9}
+_TODO = {"cross_attn": 9, "attn+cross": 9}
+
+RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -68,8 +75,16 @@ def block_defs(cfg: ModelConfig, b: BlockDef) -> Dict[str, Any]:
     defs: Dict[str, Any] = {"norm1": norm_defs(cfg)}
     if b.mixer == "attn":
         defs["mixer"] = attn.attn_defs(cfg)
-    else:
+    elif b.mixer == "mla":
         defs["mixer"] = mla_mod.mla_defs(cfg)
+    elif b.mixer == "mamba":
+        defs["mixer"] = ssm_mod.mamba_defs(cfg)
+    elif b.mixer == "mlstm":
+        defs["mixer"] = xlstm_mod.mlstm_defs(cfg)
+    elif b.mixer == "slstm":
+        defs["mixer"] = xlstm_mod.slstm_defs(cfg)
+    else:
+        raise ValueError(b.mixer)
     if b.ffn == "dense":
         defs["norm2"] = norm_defs(cfg)
         defs["ffn"] = mlp_defs(cfg)
@@ -89,22 +104,73 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
             "final_norm": norm_defs(cfg)}
 
 
+def paged_block_cache_defs(cfg: ModelConfig, b: BlockDef, num_slots: int,
+                           num_pages: int, page_size: int) -> Dict[str, Any]:
+    """One block's decode cache: batchless page pools (num_pages,
+    page_size, ...) for GQA / MLA, per-slot state rows (num_slots, ...)
+    for a recurrent mixer."""
+    if b.mixer == "attn":
+        return attn.paged_pool_defs(cfg, num_pages, page_size)
+    if b.mixer == "mla":
+        return mla_mod.mla_paged_pool_defs(cfg, num_pages, page_size)
+    if b.mixer == "mamba":
+        return ssm_mod.state_defs(cfg, num_slots)
+    if b.mixer == "mlstm":
+        return xlstm_mod.mlstm_state_defs(cfg, num_slots)
+    if b.mixer == "slstm":
+        return xlstm_mod.slstm_state_defs(cfg, num_slots)
+    raise NotImplementedError(
+        f"paged cache unsupported for mixer {b.mixer!r} (decoder-only)")
+
+
 def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int) -> List[Dict[str, Any]]:
-    """Per-segment page pools: (reps, num_pages, page_size, KV, hd) K/V
-    for GQA blocks, (reps, num_pages, page_size, r | dr) latent and rope
-    lines for MLA blocks.  ``num_slots`` sizes recurrent state rows,
-    which no ported block has; it stays for the reference's signature."""
+    """Per-segment decode caches, every leaf stacked (reps, ...): page
+    pools (num_pages, page_size, KV, hd) K/V for GQA blocks, (num_pages,
+    page_size, r | dr) latent and rope lines for MLA blocks, and state
+    rows (num_slots, ...) for recurrent blocks, zeros."""
     check_supported(cfg)
     segs = []
     for unit, reps in cfg.segments():
         unit_caches = {
-            f"b{i}": (attn.paged_pool_defs(cfg, num_pages, page_size)
-                      if b.mixer == "attn" else
-                      mla_mod.mla_paged_pool_defs(cfg, num_pages, page_size))
+            f"b{i}": paged_block_cache_defs(cfg, b, num_slots, num_pages,
+                                            page_size)
             for i, b in enumerate(unit)}
         segs.append(stack_defs(unit_caches, reps))
     return segs
+
+
+def has_recurrent(cfg: ModelConfig) -> bool:
+    return any(b.mixer in RECURRENT_MIXERS for b in cfg.block_pattern)
+
+
+def _recurrent_mixer(p, b: BlockDef, h: torch.Tensor, cfg: ModelConfig,
+                     state: Optional[Dict[str, torch.Tensor]]):
+    """A recurrent mixer over h (B, L, D) from ``state`` (None: zeros).
+    Returns (out, new state)."""
+    if b.mixer == "mamba":
+        return ssm_mod.mamba_mixer(p, h, cfg, state=state, return_state=True)
+    if b.mixer == "mlstm":
+        return xlstm_mod.mlstm_mixer(p, h, cfg, state=state,
+                                     return_state=True)
+    return xlstm_mod.slstm_mixer(p, h, cfg, state=state, return_state=True)
+
+
+def _freeze(rows: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+            active: torch.Tensor) -> None:
+    """Write ``new`` into the state rows of the active slots, in place;
+    an inactive slot's rows keep their bytes (``torch.where`` into the
+    persistent row, so a captured step keeps its pointer)."""
+    for name, old in rows.items():
+        m = active.reshape((-1,) + (1,) * (old.dim() - 1))
+        torch.where(m, new[name].to(old.dtype), old, out=old)
+
+
+def _slot_index(slot: Offset, device: torch.device) -> torch.Tensor:
+    """``slot`` (an int or a 0-d device tensor) as a (1,) long index."""
+    if isinstance(slot, torch.Tensor):
+        return slot.reshape(1).long()
+    return torch.tensor([int(slot)], dtype=torch.long, device=device)
 
 
 def rope_tables(cfg: ModelConfig, positions: torch.Tensor
@@ -142,15 +208,17 @@ def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
                      positions: torch.Tensor, ropes: Dict[str, attn.Rope]
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (x, state) — the block's cache lines: {"k", "v"} for GQA,
-    {"c_kv", "k_rope"} for MLA."""
+    {"c_kv", "k_rope"} for MLA; a recurrent mixer's final state."""
     h = apply_norm(p["norm1"], x, cfg)
     if b.mixer == "attn":
         o, state = attn.multihead_attention(p["mixer"], h, cfg,
                                             positions=positions,
                                             rope=ropes["attn"])
-    else:
+    elif b.mixer == "mla":
         o, state = mla_mod.mla_attention(p["mixer"], h, cfg, positions,
                                          rope=ropes["mla"])
+    else:
+        o, state = _recurrent_mixer(p["mixer"], b, h, cfg, None)
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg), state
 
@@ -159,18 +227,26 @@ def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
                        pool: Dict[str, torch.Tensor], pos: torch.Tensor,
                        cfg: ModelConfig, block_tables: torch.Tensor,
                        page_size: int, ropes: Dict[str, attn.Rope],
-                       pipeline: Optional[str] = None) -> torch.Tensor:
+                       pipeline: Optional[str] = None,
+                       active: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """One-token paged decode through a block (pool updated in place);
-    ``pipeline`` is the attention kernel's page-streaming schedule."""
+    ``pipeline`` is the attention kernel's page-streaming schedule.  A
+    recurrent mixer's state rows (B = num_slots) advance for the slots
+    ``active`` (B,) bool marks and keep their bytes elsewhere, so a packed
+    step cannot clobber a slot that is idle or mid-prefill."""
     h = apply_norm(p["norm1"], x, cfg)
     if b.mixer == "attn":
         o = attn.decode_attention_paged(p["mixer"], h, pool, block_tables,
                                         pos, cfg, page_size=page_size,
                                         rope=ropes["attn"], pipeline=pipeline)
-    else:
+    elif b.mixer == "mla":
         o = mla_mod.mla_decode_paged(p["mixer"], h, pool, block_tables, pos,
                                      cfg, page_size=page_size,
                                      rope=ropes["mla"], pipeline=pipeline)
+    else:
+        o, new = _recurrent_mixer(p["mixer"], b, h, cfg, pool)
+        _freeze(pool, new, active)
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg)
 
@@ -207,20 +283,27 @@ def apply_block_verify(p, b: BlockDef, x: torch.Tensor,
 def apply_block_prefill_chunk(p, b: BlockDef, x: torch.Tensor,
                               pool: Dict[str, torch.Tensor], offset: Offset,
                               block_table: torch.Tensor, cfg: ModelConfig,
-                              page_size: int, ropes: Dict[str, attn.Rope]
+                              page_size: int, ropes: Dict[str, attn.Rope],
+                              slot: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """Prefill one chunk of ONE request through a block (pool updated in
     place).  x (1,T,D) at positions offset..offset+T-1 (``offset`` an int
-    or a 0-d int32 device tensor)."""
+    or a 0-d int32 device tensor).  A recurrent mixer starts from row
+    ``slot`` ((1,) long index) of its state leaves and writes it back."""
     h = apply_norm(p["norm1"], x, cfg)
     if b.mixer == "attn":
         o = attn.prefill_attention_paged(p["mixer"], h, pool, block_table,
                                          offset, cfg, page_size=page_size,
                                          rope=ropes["attn"])
-    else:
+    elif b.mixer == "mla":
         o = mla_mod.mla_prefill_paged(p["mixer"], h, pool, block_table,
                                       offset, cfg, page_size=page_size,
                                       rope=ropes["mla"])
+    else:
+        st = {k: v.index_select(0, slot) for k, v in pool.items()}
+        o, new = _recurrent_mixer(p["mixer"], b, h, cfg, st)
+        for k, v in pool.items():
+            v.index_copy_(0, slot, new[k].to(v.dtype))
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg)
 
@@ -233,7 +316,9 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
                  collect_state: bool = False):
     """Full-sequence causal forward.  tokens (B, S) int.  Returns
     (logits (B, S, V), states) — states (with ``collect_state``) per
-    segment ``{"b<i>": lines}`` stacked (reps, B, S, ...), else None."""
+    segment ``{"b<i>": lines}`` stacked (reps, B, S, ...) for attention
+    blocks and a recurrent block's final state (reps, B, ...), else
+    None."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
@@ -260,15 +345,25 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],
                      block_tables: torch.Tensor, token: torch.Tensor,
                      pos: torch.Tensor, *, page_size: int,
-                     pipeline: Optional[str] = None) -> torch.Tensor:
+                     pipeline: Optional[str] = None,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step over the packed slot batch.
 
     token (B,1) (B = num_slots); pos (B,) int32 per-slot positions;
-    block_tables (B, n_blocks) int32.  Idle lanes point at the trash page
-    and compute garbage the engine discards.  The pools are updated in
-    place; returns logits (B, V).  Shapes do not depend on which slots
-    are live.  ``pipeline`` selects the paged-attention kernels'
-    page-streaming schedule (kernels/ops.py; None = process default)."""
+    block_tables (B, n_blocks) int32; active (B,) bool marks the slots
+    holding a decoding request (needed when the model has a recurrent
+    mixer: the other slots' state rows are frozen).  Idle lanes point at
+    the trash page and compute garbage the engine discards.  The pools
+    are updated in place; returns logits (B, V).  Shapes do not depend
+    on which slots are live.  ``pipeline`` selects the paged-attention
+    kernels' page-streaming schedule (kernels/ops.py; None = process
+    default).
+
+    MoE caveat, as in the reference: idle lanes' garbage tokens enter
+    expert routing and can move capacity cutoffs for live tokens."""
+    if active is None and has_recurrent(cfg):
+        raise ValueError(f"{cfg.name}: a decode step over recurrent state "
+                         "rows needs the active (B,) mask")
     x = embed_tokens(params["embed"], token, cfg, pos[:, None])
     ropes = rope_tables(cfg, pos[:, None])
     for seg_params, seg_pool, (unit, reps) in zip(
@@ -279,7 +374,7 @@ def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],
                 x = apply_block_decode(layer_p[f"b{i}"], b, x,
                                        layer_c[f"b{i}"], pos, cfg,
                                        block_tables, page_size, ropes,
-                                       pipeline)
+                                       pipeline, active)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x, cfg)[:, 0, :]
 
@@ -318,18 +413,29 @@ def decode_verify_paged(params, cfg: ModelConfig, pools: List[Any],
 
 def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
                         block_table: torch.Tensor, tokens: torch.Tensor,
-                        offset: Offset, *, page_size: int) -> torch.Tensor:
-    """Prefill one chunk of one request into its pages (updated in place).
+                        offset: Offset, *, page_size: int,
+                        slot: Optional[Offset] = None) -> torch.Tensor:
+    """Prefill one chunk of one request into its pages and state rows
+    (updated in place).
 
     tokens (1,T) at positions offset..offset+T-1; block_table (n_blocks,)
-    for this request's slot.  ``offset`` is an int or a 0-d int32 tensor
-    on the tokens' device: nothing here reads it on the host, so a
-    captured chunk replays at any offset, and its shapes depend on T and
-    n_blocks alone (the attention walks the whole table row).  Returns
-    last-token logits (1, V).  Repeated calls over consecutive chunks
-    equal one whole-prompt prefill (for dense FFNs; an MoE FFN's capacity
-    depends on the tokens per call)."""
+    and ``slot`` for this request's slot.  ``offset`` and ``slot`` are
+    ints or 0-d int32 tensors on the tokens' device: nothing here reads
+    them on the host, so a captured chunk replays at any offset and for
+    any slot, and its shapes depend on T and n_blocks alone (the
+    attention walks the whole table row).  Returns last-token logits (1,
+    V).  Repeated calls over consecutive chunks equal one whole-prompt
+    prefill (for dense FFNs; an MoE FFN's capacity depends on the tokens
+    per call): attention chunks attend to every page written before, and
+    recurrent mixers carry their slot's rows from chunk to chunk (a
+    model with one needs ``slot``)."""
     T = tokens.shape[1]
+    slot_idx = None
+    if has_recurrent(cfg):
+        if slot is None:
+            raise ValueError(f"{cfg.name}: a prefill chunk over recurrent "
+                             "state rows needs its slot")
+        slot_idx = _slot_index(slot, tokens.device)
     positions = offset + torch.arange(T, dtype=torch.int32,
                                       device=tokens.device)[None, :]
     x = embed_tokens(params["embed"], tokens, cfg, positions)
@@ -342,6 +448,6 @@ def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
                 x = apply_block_prefill_chunk(layer_p[f"b{i}"], b, x,
                                               layer_c[f"b{i}"], offset,
                                               block_table, cfg, page_size,
-                                              ropes)
+                                              ropes, slot_idx)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x[:, -1:], cfg)[:, 0, :]

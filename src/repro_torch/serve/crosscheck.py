@@ -66,10 +66,11 @@ from ..core.roofline.substitute import (paged_attention_kernel_bytes,
 from ..kernels import paged_attention as kpa
 from ..kernels import quantize as kvq
 from ..models import decode_step_paged, decode_step_verify_paged
+from ..models import ssm, xlstm
 from ..models.common import param_counts
 from ..models.params import torch_dtype, tree_leaves, tree_map
 from . import sampling
-from .kv_cache import gather_slot_pages, pack_leaves
+from .kv_cache import gather_slot_pages, pack_leaves, split_leaves
 from .scheduler import (attn_kernel_vmem_bytes, decode_token_bytes,
                         decode_token_flops, kv_line_bytes,
                         params_bytes_active, slot_swap_bytes)
@@ -96,20 +97,22 @@ def _live(engine):
 
 def decode_step_character(engine) -> extract.StepCharacter:
     """Walk the engine's decode step (``models.decode_step_paged``, plain
-    versions) on fake CPU tensors of its live shapes and characterize
-    it."""
+    versions) on fake CPU tensors of its live shapes, every slot active,
+    and characterize it; state rows are their own byte category."""
     cfg, kv, e = _live(engine)
     B = e.num_slots
     with _abstract() as fake:
         params = tree_map(fake, engine.params)
         pools = tree_map(fake, kv.pools)
+        paged, rows = split_leaves(pools, kv._paged)
         bt = torch.zeros((B, kv.blocks_per_slot), dtype=torch.int32)
         tok = torch.zeros((B, 1), dtype=torch.int32)
         pos = torch.zeros((B,), dtype=torch.int32)
+        active = torch.ones((B,), dtype=torch.bool)
         return extract.characterize(
             decode_step_paged, params, cfg, pools, bt, tok, pos,
-            page_size=e.page_size, pipeline=e.pipeline, params=params,
-            pools=pools)
+            page_size=e.page_size, pipeline=e.pipeline, active=active,
+            params=params, pools=paged, states=rows)
 
 
 def verify_step_character(engine, n_tokens: int) -> extract.StepCharacter:
@@ -149,6 +152,58 @@ def _tree_paths(tree, prefix: str = ""):
         yield prefix, tree
 
 
+# how often one decode step reads each incoming state leaf of a mixer
+# (the mixers' modules say where); the freeze reads every leaf once more
+_STATE_READS = {"mamba": ssm.DECODE_STATE_READS,
+                "mlstm": xlstm.MLSTM_DECODE_STATE_READS,
+                "slstm": xlstm.SLSTM_DECODE_STATE_READS}
+
+
+def _state_terms(engine, n_active: int) -> Dict[str, float]:
+    """The state rows' terms of the bytes hold, counted from the pool
+    tree's state leaves (``state_defs``) alone: ``state_row_bytes``, one
+    slot's rows; ``state_freeze_read_bytes``, the freeze's read of every
+    slot's old rows (``torch.where`` of new and old rows); and
+    ``state_reread_bytes``, the reads of an incoming leaf beyond the
+    first inside the mixers (``*DECODE_STATE_READS``), every slot; and
+    ``state_idle_bytes``, the rows of the slots not decoding, which the
+    step reads and writes and the ledger, priced per request, does not."""
+    cfg, kv = engine._kv.cfg, engine._kv
+    B = kv.num_slots
+    row = reread = 0.0
+    for seg_pool, (unit, _) in zip(kv.pools, cfg.segments()):
+        for i, b in enumerate(unit):
+            reads = _STATE_READS.get(b.mixer)
+            if reads is None:
+                continue
+            for name, t in seg_pool[f"b{i}"].items():
+                leaf = t.numel() // B * t.element_size()
+                row += leaf
+                reread += (reads[name] - 1) * leaf
+    return {"state_row_bytes": row,
+            "state_freeze_read_bytes": B * row,
+            "state_reread_bytes": B * reread,
+            "state_idle_bytes": (B - n_active) * 2 * row}
+
+
+# the leaves of each recurrent mixer that the ledger's parameter count
+# (models/common.py ``_block_params``, the reference's) leaves out: the
+# gate biases and skips, and the sLSTM's output projection
+_OMITTED = {"mamba": ("D_skip",), "mlstm": ("bi", "bf", "skip"),
+            "slstm": ("b_z", "b_i", "b_f", "b_o", "out_proj")}
+
+
+def _omitted_ids(engine) -> set:
+    """ids of the parameter leaves named by ``_OMITTED``."""
+    out = set()
+    for seg, (unit, _) in zip(engine.params.get("segments", []),
+                              engine.cfg.segments()):
+        for i, b in enumerate(unit):
+            mixer = seg[f"b{i}"]["mixer"]
+            out |= {id(mixer[n]) for n in _OMITTED.get(b.mixer, ())}
+    return out
+
+
 def _tree_terms(engine, n_rows: int) -> Dict[str, float]:
     """What one step reads of the parameters and writes of the pools
     beyond the ledger's pricing, counted from the trees alone, never from
@@ -167,6 +222,8 @@ def _tree_terms(engine, n_rows: int) -> Dict[str, float]:
     * ``expert_bytes``: the routed experts' weights, which the global
       dispatch reads for every expert, and ``active_expert_bytes``, their
       top-k share, which the ledger charges;
+    * ``omitted_bytes``: the recurrent mixers' leaves the ledger's
+      parameter count leaves out (``_OMITTED``), read in full;
     * ``line_bytes``: one token's cache line over every pool leaf (scales
       too), from the pool tree: the unit of the appended lines and of the
       kernel's page walk."""
@@ -176,11 +233,15 @@ def _tree_terms(engine, n_rows: int) -> Dict[str, float]:
                for blk in seg.values() for ffn in [blk.get("ffn", {})]
                if "router" in ffn
                for w in ("w_up", "w_gate", "w_down") if w in ffn}
+    omitted = _omitted_ids(engine)
     out = dict.fromkeys(("lookup_bytes", "untied_table_bytes", "norm_bytes",
-                         "wide_bytes", "expert_bytes"), 0.0)
+                         "wide_bytes", "expert_bytes", "omitted_bytes"),
+                        0.0)
     for path, t in _tree_paths(engine.params):
         nbytes = t.numel() * t.element_size()
-        if path == "/embed/tok":
+        if id(t) in omitted:
+            out["omitted_bytes"] += nbytes
+        elif path == "/embed/tok":
             out["lookup_bytes"] = n_rows * t.shape[-1] * t.element_size()
             if not cfg.tie_embeddings:
                 out["untied_table_bytes"] = t.numel() * isize
@@ -230,7 +291,8 @@ def _compare(engine, char: extract.StepCharacter, analytic_flops: float,
     kernel), ``activation_bytes`` (outside the scope), ``weights_kv_bytes``
     = param + pool + kernel bytes (what the ledger prices) and its ratio,
     ``kernel_flops`` (the scope's FLOPs priced as the kernel),
-    ``naive_flops``, the walk's tracked scopes as walked, and the bytes
+    ``naive_flops``, the walk's tracked scopes as walked, ``state_bytes``
+    (the state rows' category, 0 without recurrent mixers), and the bytes
     hold's terms.
 
     The bytes hold.  ``bytes_residual`` = the walk's weights + KV bytes
@@ -238,13 +300,15 @@ def _compare(engine, char: extract.StepCharacter, analytic_flops: float,
     ``moe_experts`` scope's parameter bytes: ``weights_kv_dense_bytes``)
     less the ledger's Q less ``named_bytes``, the terms
     :func:`_tree_terms` counts from the trees: lookup rows + norm scales
-    + wide leaves + the appended lines (num_slots x T x ``line_bytes``)
-    - the untied table.  The kernel's page walk is priced at the pool
-    tree's line, not the ledger's.  A right ledger leaves float64
+    + wide leaves + the recurrent leaves the ledger omits + the appended
+    lines (num_slots x T x ``line_bytes``) - the untied table + the state
+    rows' freeze read, re-reads and idle slots (:func:`_state_terms`).  The kernel's page walk is priced at
+    the pool tree's line, not the ledger's.  A right ledger leaves float64
     rounding; the hold is |residual| <= ``bytes_tolerance`` x the
     ledger's Q (``BYTES_HOLD_TOL``)."""
     n_rows = engine.ecfg.num_slots * n_q
     terms = _tree_terms(engine, n_rows)
+    terms.update(_state_terms(engine, len(contexts)))
     line = terms["line_bytes"]
     d, sub = _kernel_priced(engine, char, contexts, line, n_q)
     walk = sub or d
@@ -253,13 +317,16 @@ def _compare(engine, char: extract.StepCharacter, analytic_flops: float,
         if sub else 0.0
     by = char.bytes_by_category
     pool = by["pool"] - scope.get("pool_bytes", 0.0)
-    weights_kv = by["param"] + pool + kernel
+    state = by.get("state", 0.0)
+    weights_kv = by["param"] + pool + kernel + state
     experts_walked = char.scopes.get("moe_experts", {}).get("param_bytes",
                                                             0.0)
     dense = weights_kv - experts_walked + terms["active_expert_bytes"]
     named = (terms["lookup_bytes"] + terms["norm_bytes"]
-             + terms["wide_bytes"] + n_rows * line
-             - terms["untied_table_bytes"])
+             + terms["wide_bytes"] + terms["omitted_bytes"] + n_rows * line
+             - terms["untied_table_bytes"]
+             + terms["state_freeze_read_bytes"]
+             + terms["state_reread_bytes"] + terms["state_idle_bytes"])
     return {
         "analytic_flops": analytic_flops,
         "analytic_bytes": analytic_bytes,
@@ -277,6 +344,7 @@ def _compare(engine, char: extract.StepCharacter, analytic_flops: float,
         "param_bytes": by["param"],
         "pool_bytes": pool,
         "kernel_bytes": kernel,
+        "state_bytes": state,
         "activation_bytes": (by["activation"]
                              - scope.get("activation_bytes", 0.0)),
         "weights_kv_bytes": weights_kv,
@@ -366,14 +434,18 @@ def step_cost_analysis(engine) -> Dict[str, float]:
                 pools=pools, tables=types.SimpleNamespace(
                     tensor=fake(kv.tables.tensor))),
             _tok_in=types.SimpleNamespace(tensor=fake(engine._tok_in.tensor)),
-            _pos_in=types.SimpleNamespace(tensor=fake(engine._pos_in.tensor)))
+            _pos_in=types.SimpleNamespace(tensor=fake(engine._pos_in.tensor)),
+            _active_in=types.SimpleNamespace(
+                tensor=fake(engine._active_in.tensor)))
 
         def step():
             return sampling.sample_tokens(
                 Engine._decode_body(body), engine._seeds, engine._steps,
                 engine._temps, engine._top_ks, engine._top_ps)
 
-        char = extract.characterize(step, params=body.params, pools=pools)
+        paged, rows = split_leaves(pools, kv._paged)
+        char = extract.characterize(step, params=body.params, pools=paged,
+                                    states=rows)
     d, sub = _kernel_priced(engine, char, contexts,
                             kv.page_bytes / kv.page_size, 1) \
         if contexts else (extract.character_as_dict(char), None)
@@ -559,7 +631,8 @@ def crosscheck_host(engine, n_blocks: Optional[int] = None) -> Dict:
 
     The swap phase charges ``slot_swap_bytes`` per preemption round trip.
     This walks the gather-and-pack ``PagedKVCache.swap_out`` runs
-    (``gather_slot_pages`` of every pool leaf, ``pack_leaves`` into the
+    (``gather_slot_pages`` of every pool leaf's pages and every state
+    leaf's row, ``pack_leaves`` into the
     ONE flat buffer that crosses to the host) on fake tensors of the live
     pool shapes and compares its output bytes, the bytes that cross the
     link, against the pricing."""
@@ -571,12 +644,15 @@ def crosscheck_host(engine, n_blocks: Optional[int] = None) -> Dict:
     n_blocks = max(int(n_blocks), 1)
 
     def pack(pools, phys):
-        return pack_leaves(tree_leaves(gather_slot_pages(pools, phys)))[0]
+        return pack_leaves(tree_leaves(
+            gather_slot_pages(pools, phys, kv._paged, 0)))[0]
 
     with _abstract() as fake:
         pools = tree_map(fake, kv.pools)
+        paged, rows = split_leaves(pools, kv._paged)
         phys = torch.zeros((n_blocks,), dtype=torch.long)
-        char = extract.characterize(pack, pools, phys, pools=pools)
+        char = extract.characterize(pack, pools, phys, pools=paged,
+                                    states=rows)
     out_bytes = float(char.memory.output_bytes)
     analytic = slot_swap_bytes(cfg, n_blocks, e.page_size)
     return {

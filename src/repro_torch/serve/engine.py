@@ -2,7 +2,11 @@
 
 A fixed bank of decode slots, one decode step whose shapes do not depend
 on which slots are live, chunked prefill interleaved with running
-decodes, and a per-request roofline ledger (scheduler.py).  On CUDA the
+decodes, and a per-request roofline ledger (scheduler.py).  A recurrent
+mixer's state rows (xlstm, jamba's mamba layers) advance only for the
+slots the decode step's active mask marks, and a prefill chunk reads and
+writes its slot's rows; both the mask and the slot are persistent inputs
+of the captured steps.  On CUDA the
 decode step's paged attention is the hand-written kernel
 (kernels/paged_attention.py), its page walk chosen by
 ``EngineConfig.pipeline`` ("off", or "double" for the ring kernels);
@@ -271,6 +275,7 @@ class Engine:
         # go with the pools they captured
         self._tok_in = StaticInput((n, 1), torch.int64, self.device)
         self._pos_in = StaticInput((n,), torch.int32, self.device)
+        self._active_in = StaticInput((n,), torch.bool, self.device)
         self._prefill_in = PrefillInputs(self._kv.blocks_per_slot,
                                          self.device)
         self._graphs = StepGraphs(self.device, self.graphs, self.cfg, n,
@@ -409,6 +414,7 @@ class Engine:
         nk._kv.block_tables_for(list(range(n)))
         nk._tok_in.set(np.zeros((n, 1), np.int64))
         nk._pos_in.set(np.zeros((n,), np.int32))
+        nk._active_in.set(np.ones((n,), bool))
         with torch.no_grad():
             nk._decode_sample()                     # build, capture: untimed
             synchronize(self.device)
@@ -505,6 +511,7 @@ class Engine:
         else:
             T = end - start
             inp.row.set(kv.block_tables[req.slot])
+            inp.slot.set(req.slot)
             inp.offset.set(start)
             inp.tokens(T).set(fill[None, start:end])
             self.prefill_shapes.add(("chunk", T))
@@ -576,21 +583,24 @@ class Engine:
 
     def _chunk_body(self, T: int) -> torch.Tensor:
         """A prefill chunk of ``T`` tokens over the persistent prefill
-        inputs (tokens, block-table row, offset): last logits (1, V)."""
+        inputs (tokens, block-table row, slot, offset): last logits
+        (1, V)."""
         inp = self._prefill_in
         return prefill_chunk_paged(self.params, self.cfg, self._kv.pools,
                                    inp.row.tensor, inp.tokens(T).tensor,
                                    inp.offset.tensor,
-                                   page_size=self.ecfg.page_size)
+                                   page_size=self.ecfg.page_size,
+                                   slot=inp.slot.tensor)
 
     def _decode_body(self) -> torch.Tensor:
         """The decode step over the persistent inputs (block tables,
-        tokens, positions): logits (B, V)."""
+        tokens, positions, the active mask): logits (B, V)."""
         return decode_step_paged(self.params, self.cfg, self._kv.pools,
                                  self._kv.tables.tensor, self._tok_in.tensor,
                                  self._pos_in.tensor,
                                  page_size=self.ecfg.page_size,
-                                 pipeline=self.ecfg.pipeline)
+                                 pipeline=self.ecfg.pipeline,
+                                 active=self._active_in.tensor)
 
     def _decode_logits(self) -> torch.Tensor:
         """The decode step's logits: its graph replayed (captured at the
@@ -618,6 +628,7 @@ class Engine:
         kv.block_tables_for(slots)
         self._tok_in.set(np.where(active, self._next_token, 0)[:, None])
         self._pos_in.set(np.where(active, self._pos, 0))
+        self._active_in.set(active)
         t0 = now()
         next_tok = self._decode_sample()
         tok_np = next_tok.cpu().numpy()       # the only device->host copy

@@ -20,7 +20,8 @@ tensors: the weights, the page pools (mutated in place, never replaced)
 and the :class:`StaticInput` buffers its owner fills before each step
 from pinned host staging, outside the graph (a prefill's are one
 :class:`PrefillInputs`).  Its shapes never change (slots idle this step
-point at the trash page; a prefill's offset and length are device
+point at the trash page and keep their state rows through the decode
+step's active mask; a prefill's slot, offset and length are device
 scalars).  Its first call runs the body eagerly on a side stream, which
 is that step's real work and also builds the kernels and makes their
 one-time settings (shared-memory opt-ins); then the body is captured,
@@ -101,14 +102,17 @@ class StaticInput:
 
 class PrefillInputs:
     """The persistent inputs of one engine's (or draft model's) captured
-    prefill bodies: the request's block-table row (n_blocks,), a 0-d
-    offset (a chunk's first position), a 0-d length (a bucket's true
-    prompt length) and a (1, T) token buffer for each chunk or bucket
-    length T, made at its first use."""
+    prefill bodies: the request's block-table row (n_blocks,), its 0-d
+    slot (the state rows a recurrent mixer reads and writes, so one chunk
+    graph per T serves every slot), a 0-d offset (a chunk's first
+    position), a 0-d length (a bucket's true prompt length) and a (1, T)
+    token buffer for each chunk or bucket length T, made at its first
+    use."""
 
     def __init__(self, n_blocks: int, device: torch.device):
         self.device = device
         self.row = StaticInput((n_blocks,), torch.int32, device)
+        self.slot = StaticInput((), torch.int32, device)
         self.offset = StaticInput((), torch.int32, device)
         self.length = StaticInput((), torch.int32, device)
         self._tokens: Dict[int, StaticInput] = {}

@@ -3,9 +3,13 @@
 Every attention cache leaf is a batchless page pool ``(reps, num_pages,
 page_size, ...)`` on the engine's device — GQA K/V ``(KV, hd)`` lines or
 MLA latent ``(r,)`` and rope ``(dr,)`` lines — all layers addressed through
-one per-slot block table.  Physical page 0 is the trash page idle slots
-write to, so the decode step's shapes never depend on which slots are
-live.  Page accounting lives in :class:`BlockPool` (ref-counted pages,
+one per-slot block table.  A recurrent mixer's O(1) state (mamba h and
+conv tail, mLSTM C / n / m and conv tail, sLSTM c / n / h / m) is a
+per-slot row ``(reps, num_slots, ...)`` instead: zeroed when a slot is
+allocated, written by a whole-prompt prefill, carried by swap with the
+slot's pages (``_paged`` flags each leaf).  Physical page 0 is the trash
+page idle slots write to, so the decode step's shapes never depend on
+which slots are live.  Page accounting lives in :class:`BlockPool` (ref-counted pages,
 content-hash prefix index); this class owns the tensors, maps slots to
 pages and performs the device copies the pool's decisions require:
 on-demand growth, copy-on-write, freezing into the prefix index, and
@@ -34,15 +38,36 @@ from .graphs import StaticInput
 
 
 _PAGED_MIXERS = ("attn", "mla")
-_RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+_RECURRENT_MIXERS = tfm.RECURRENT_MIXERS
 # byte alignment of each leaf in a swap snapshot's host buffer
 PACK_ALIGN = 16
 
 
-def gather_slot_pages(pools: Any, phys: torch.Tensor) -> Any:
-    """A slot's physical pages ``phys`` (n,) of every pool leaf, copied
-    out: the device half of a swap."""
-    return tree_map(lambda t: t[:, phys].contiguous(), pools)
+def gather_slot_pages(pools: Any, phys: torch.Tensor, paged: Any,
+                      slot: int) -> Any:
+    """A slot's physical pages ``phys`` (n,) of every paged leaf and its
+    row ``slot`` (reps, 1, ...) of every state leaf (``paged``: the
+    pools' tree of flags), copied out: the device half of a swap."""
+    return tree_map(lambda t, f: t[:, phys].contiguous() if f
+                    else t[:, slot:slot + 1].contiguous(), pools, paged)
+
+
+def paged_flags(cfg: ModelConfig) -> List[Any]:
+    """The decode cache's tree (``tfm.paged_cache_defs``'s) with a bool at
+    every leaf: True for a page pool, False for a per-slot state row."""
+    defs = tfm.paged_cache_defs(cfg, 1, 1, 1)
+    flags = []
+    for seg, (unit, _) in zip(defs, cfg.segments()):
+        flags.append({f"b{i}": tree_map(lambda _, f=b.mixer in _PAGED_MIXERS:
+                                        f, seg[f"b{i}"])
+                      for i, b in enumerate(unit)})
+    return flags
+
+
+def split_leaves(pools: Any, paged: Any):
+    """(paged leaves, state-row leaves) of a pool tree, in leaf order."""
+    pairs = list(zip(tree_leaves(pools), tree_leaves(paged)))
+    return [t for t, f in pairs if f], [t for t, f in pairs if not f]
 
 
 def pack_leaves(leaves: List[torch.Tensor]):
@@ -67,8 +92,8 @@ def pack_leaves(leaves: List[torch.Tensor]):
 def supports_paging(cfg: ModelConfig) -> bool:
     """True iff every mixer in the model has a paged decode path
     (decoder-only archs; enc-dec / VLM cross-attention is static-engine
-    territory).  Recurrent mixers count, as in the reference, though the
-    port does not run them yet (``tfm.check_supported`` raises)."""
+    territory).  Recurrent mixers count: their state rows sit beside the
+    pages."""
     if cfg.is_encoder_decoder or cfg.n_image_tokens:
         return False
     return all(b.mixer in _PAGED_MIXERS + _RECURRENT_MIXERS
@@ -102,8 +127,9 @@ class _SlotMeta:
 
 @dataclasses.dataclass
 class SwapSnapshot:
-    """A preempted slot's pages, parked in host memory.  ``data`` mirrors
-    the pool tree with each leaf's pages ``(reps, n_blocks, page, ...)``
+    """A preempted slot's pages and state rows, parked in host memory.
+    ``data`` mirrors the pool tree, each paged leaf's pages ``(reps,
+    n_blocks, page, ...)`` and each state leaf's row ``(reps, 1, ...)``,
     as views into one pinned host buffer."""
     n_blocks: int
     budget: int
@@ -161,6 +187,8 @@ class PagedKVCache:
         self.pool = BlockPool(num_pages, page_size)
         defs = tfm.paged_cache_defs(cfg, num_slots, num_pages, page_size)
         self.pools = instantiate(defs, None, device)
+        # leaf -> page pool (True) or per-slot state row (False)
+        self._paged = paged_flags(cfg)
         self.block_tables = np.zeros((num_slots, self.blocks_per_slot),
                                      np.int32)
         # the device tables a decode / verify step reads, one persistent
@@ -186,11 +214,18 @@ class PagedKVCache:
 
     @property
     def page_bytes(self) -> int:
-        """Device bytes of ONE physical page summed over every pool leaf
-        (scales too): the unit of the capacity axis.  Every leaf is
-        paged, since no ported mixer keeps per-slot state."""
+        """Device bytes of ONE physical page summed over every paged leaf
+        (scales too): the unit of the capacity axis.  State rows are not
+        paged and count in no page."""
         return sum(t.numel() // self.num_pages * t.element_size()
-                   for t in tree_leaves(self.pools))
+                   for t in split_leaves(self.pools, self._paged)[0])
+
+    @property
+    def state_row_bytes(self) -> int:
+        """Device bytes of ONE slot's state rows over every recurrent
+        leaf (0 for attention-only models)."""
+        return sum(t.numel() // self.num_slots * t.element_size()
+                   for t in split_leaves(self.pools, self._paged)[1])
 
     def prefix_match_pages(self, tokens: np.ndarray) -> int:
         """How many of ``tokens``'s full pages are in the prefix index (no
@@ -270,6 +305,7 @@ class PagedKVCache:
         self._meta[slot] = _SlotMeta(
             n_blocks=n_pages, budget=budget, cached_tokens=cached,
             frozen_blocks=len(matched), hash_chain=hashes)
+        self._zero_slot_state(slot)
         if self.prefix_cache and self.eager_freeze and tokens is not None:
             meta = self._meta[slot]
             meta.exempt_lo = len(matched)
@@ -361,14 +397,15 @@ class PagedKVCache:
     # -- preemption / swap -------------------------------------------------
 
     def swap_out(self, slot: int) -> SwapSnapshot:
-        """Copy the slot's pages to host memory and free them.  Every
-        leaf's gathered pages are packed into one byte buffer on the
-        device, so the swap crosses to the host as ONE copy (into pinned
-        memory on CUDA); the snapshot's leaves are views of it."""
+        """Copy the slot's pages and state rows to host memory and free
+        them.  Every leaf's gathered pages (or row) are packed into one
+        byte buffer on the device, so the swap crosses to the host as ONE
+        copy (into pinned memory on CUDA); the snapshot's leaves are views
+        of it."""
         meta = self._meta[slot]
         phys = torch.as_tensor(self.block_tables[slot][: meta.n_blocks],
                                dtype=torch.long, device=self.device)
-        dev = gather_slot_pages(self.pools, phys)
+        dev = gather_slot_pages(self.pools, phys, self._paged, slot)
         snap = SwapSnapshot(
             n_blocks=meta.n_blocks, budget=meta.budget,
             frozen_blocks=meta.frozen_blocks,
@@ -383,9 +420,11 @@ class PagedKVCache:
         return snap.n_blocks - hits
 
     def swap_in(self, snap: SwapSnapshot) -> Optional[int]:
-        """Restore a swapped-out slot: frozen-prefix pages still in the
-        index are aliased, the rest re-acquired and copied back from the
-        host.  Returns the slot, or None if slots/pages are exhausted."""
+        """Restore a swapped-out slot, into any free slot: frozen-prefix
+        pages still in the index are aliased, the rest re-acquired and
+        copied back from the host, and the state rows copied into the new
+        slot's rows.  Returns the slot, or None if slots/pages are
+        exhausted."""
         if not self._free_slots:
             return None
         pages: List[int] = []
@@ -413,15 +452,17 @@ class PagedKVCache:
             n_blocks=snap.n_blocks, budget=snap.budget,
             cached_tokens=snap.cached_tokens, frozen_blocks=frozen,
             hash_chain=list(snap.hash_chain[:frozen]))
-        if restore:
-            dst = torch.as_tensor(np.asarray(pages, np.int64)[restore],
-                                  device=self.device)
-            src = torch.as_tensor(restore, dtype=torch.long)
+        dst = torch.as_tensor(np.asarray(pages, np.int64)[restore],
+                              device=self.device)
+        src = torch.as_tensor(restore, dtype=torch.long)
 
-            def put(pool, host):
+        def put(pool, host, paged):
+            if not paged:
+                pool[:, slot] = host[:, 0].to(self.device, pool.dtype)
+            elif restore:
                 pool[:, dst] = host[:, src].to(self.device, pool.dtype)
 
-            tree_map(put, self.pools, snap.data)
+        tree_map(put, self.pools, snap.data, self._paged)
         return slot
 
     def _pack_to_host(self, dev: List[Any]) -> List[Any]:
@@ -449,10 +490,19 @@ class PagedKVCache:
     # -- device page ops ---------------------------------------------------
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Device-side page copy across every pool leaf (copy-on-write)."""
-        def f(pool):
-            pool[:, dst] = pool[:, src]
-        tree_map(f, self.pools)
+        """Device-side page copy across every paged leaf (copy-on-write)."""
+        def f(pool, paged):
+            if paged:
+                pool[:, dst] = pool[:, src]
+        tree_map(f, self.pools, self._paged)
+
+    def _zero_slot_state(self, slot: int) -> None:
+        """A fresh request starts from zero recurrent state; attention
+        pages need no reset (masked by position)."""
+        def f(pool, paged):
+            if not paged:
+                pool[:, slot].zero_()
+        tree_map(f, self.pools, self._paged)
 
     # -- views -------------------------------------------------------------
 
@@ -470,13 +520,21 @@ class PagedKVCache:
 
     def write_prefill_states(self, slot: int, states: List[Any],
                              prompt_len: int, start: int = 0) -> None:
-        """Scatter whole-prompt prefill states (per segment, stacked
-        (reps, 1, S, ...); S may exceed ``prompt_len`` when padded) into
-        this slot's pages through :meth:`scatter_prefill_states`;
-        positions below ``start`` (a prefix-cache hit) and pad positions
-        go to the trash page."""
+        """Write whole-prompt prefill states into this slot: attention
+        lines (per segment, stacked (reps, 1, S, ...); S may exceed
+        ``prompt_len`` when padded) into its pages through
+        :meth:`scatter_prefill_states`, where positions below ``start`` (a
+        prefix-cache hit) and pad positions go to the trash page; a
+        recurrent block's final state (reps, 1, ...) into its rows."""
         row = torch.as_tensor(self.block_tables[slot], device=self.device)
         self.scatter_prefill_states(row, states, start, prompt_len)
+        for seg_pool, seg_state, seg_flag in zip(self.pools, states,
+                                                 self._paged):
+            for bname, blk in seg_pool.items():
+                for name, pool in blk.items():
+                    if not seg_flag[bname][name]:
+                        pool[:, slot] = seg_state[bname][name][:, 0].to(
+                            pool.dtype)
 
     def scatter_prefill_states(self, row: torch.Tensor, states: List[Any],
                                start, true_len) -> None:
@@ -487,17 +545,23 @@ class PagedKVCache:
         table entry 0.  No host array is built and no shape depends on the
         prompt, so a captured prefill replays it at any length; the pools
         equal a scatter of the real positions alone everywhere outside
-        page 0, whose lines the pad positions overwrite."""
-        S = tree_leaves(states)[0].shape[2]
+        page 0, whose lines the pad positions overwrite.  State rows are
+        left alone (:meth:`write_prefill_states` writes them)."""
+        states = self._quantize_states(states)
+        lines = split_leaves(states, self._paged)[0]
+        if not lines:
+            return
+        S = lines[0].shape[2]
         p = torch.arange(S, device=row.device)
         blk = row[torch.clamp(p // self.page_size, max=row.shape[0] - 1)]
         phys = torch.where((p >= start) & (p < true_len), blk.long(), 0)
         off = p % self.page_size
 
-        def f(pool, state):
-            pool[:, phys, off] = state[:, 0].to(pool.dtype)
+        def f(pool, state, paged):
+            if paged:
+                pool[:, phys, off] = state[:, 0].to(pool.dtype)
 
-        tree_map(f, self.pools, self._quantize_states(states))
+        tree_map(f, self.pools, states, self._paged)
 
     def _quantize_states(self, states: List[Any]) -> List[Any]:
         """Quantized pools carry ``*_scale`` leaves the collected prefill
@@ -523,20 +587,23 @@ class PagedKVCache:
 
     def dense_view(self, slot: int) -> List[Any]:
         """One slot's cache gathered back into a dense batch-1 layout:
-        every leaf (reps, 1, max_len, ...).  Quantized pools are
-        dequantized back to the model dtype and their scale leaves
-        dropped, so the view's tree is the same whatever ``kv_dtype``.
-        For tests and debugging."""
+        paged leaves (reps, 1, max_len, ...), state leaves (reps, 1,
+        ...).  Quantized pools are dequantized back to the model dtype and
+        their scale leaves dropped, so the view's tree is the same whatever
+        ``kv_dtype``.  For tests and debugging."""
         row = torch.as_tensor(self.block_tables[slot], dtype=torch.long,
                               device=self.device)
 
-        def f(pool):
+        def f(pool, paged):
+            if not paged:
+                return pool[:, slot:slot + 1].clone()
             g = pool[:, row]                    # (reps, blocks, page, ...)
             return g.reshape(g.shape[0], 1,
                              self.blocks_per_slot * self.page_size,
                              *g.shape[3:])[:, :, : self.max_len]
 
-        dense = [tree_map(f, seg) for seg in self.pools]
+        dense = [tree_map(f, seg, flag)
+                 for seg, flag in zip(self.pools, self._paged)]
         if kvq.is_quantized(self.cfg.kv_dtype):
             for seg in dense:
                 for blk in seg.values():

@@ -85,6 +85,29 @@ def kv_line_bytes(cfg: ModelConfig) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def state_bytes(cfg: ModelConfig) -> int:
+    """Bytes of one slot's O(1) recurrent state summed over all layers
+    (mamba h and conv tail, mLSTM C / n / m and conv tail, sLSTM c / n /
+    h / m): read and written once per decode step."""
+    isize = _dtype_bytes(cfg.dtype)
+    di = cfg.d_inner
+    total = 0
+    for unit, reps in cfg.segments():
+        for b in unit:
+            if b.mixer == "mamba":
+                total += (di * cfg.mamba_d_state * 4
+                          + (cfg.mamba_conv_width - 1) * di * isize) * reps
+            elif b.mixer == "mlstm":
+                d2 = 2 * cfg.d_model
+                hd = d2 // cfg.n_heads
+                total += (cfg.n_heads * (hd * hd + hd + 1) * 4
+                          + (cfg.mamba_conv_width - 1) * d2 * isize) * reps
+            elif b.mixer == "slstm":
+                total += 4 * cfg.d_model * 4 * reps
+    return total
+
+
+@functools.lru_cache(maxsize=None)
 def params_bytes_active(cfg: ModelConfig) -> float:
     """Weight bytes touched per decode step (active params only)."""
     return param_counts(cfg)["active"] * _dtype_bytes(cfg.dtype)
@@ -98,10 +121,11 @@ def decode_token_flops(cfg: ModelConfig, context_len: int) -> float:
 def decode_token_bytes(cfg: ModelConfig, context_len: int,
                        active_batch: int) -> float:
     """Q for one generated token: amortized weight read + this request's
-    KV line reads and its one write.  (The attention archs of this slice
-    carry no recurrent state, the reference's third term.)"""
+    KV line reads and its one write + its recurrent state, read and
+    written once."""
     weights = params_bytes_active(cfg) / max(active_batch, 1)
-    return weights + (context_len + 1) * kv_line_bytes(cfg)
+    kv = (context_len + 1) * kv_line_bytes(cfg)
+    return weights + kv + 2 * state_bytes(cfg)
 
 
 def attn_kernel_vmem_bytes(cfg: ModelConfig, context_len: int,
@@ -140,9 +164,10 @@ def decode_token_vmem_bytes(cfg: ModelConfig, context_len: int,
                             active_batch: int, page_size: int,
                             pipeline: str = "off") -> float:
     """On-chip bytes for one generated token: the amortized weight read
-    passes through once, and the paged-attention kernel adds its own
-    (:func:`attn_kernel_vmem_bytes`)."""
+    and the recurrent state traffic pass through once, and the
+    paged-attention kernel adds its own (:func:`attn_kernel_vmem_bytes`)."""
     return (params_bytes_active(cfg) / max(active_batch, 1)
+            + 2 * state_bytes(cfg)
             + attn_kernel_vmem_bytes(cfg, context_len, page_size,
                                      pipeline=pipeline))
 
@@ -152,19 +177,22 @@ def verify_step_vmem_bytes(cfg: ModelConfig, context_len: int, n_fed: int,
                            pipeline: str = "off") -> float:
     """On-chip bytes for one slot's multi-token verification step: one
     weight pass-through scores ``n_fed`` tokens sharing one call of the
-    verify kernel (:func:`attn_kernel_vmem_bytes` at ``n_q = n_fed``)."""
+    verify kernel (:func:`attn_kernel_vmem_bytes` at ``n_q = n_fed``);
+    the recurrent state term is the reference's, though speculation runs
+    on attention / MLA archs only."""
     return (params_bytes_active(cfg) / max(active_batch, 1)
+            + 2 * state_bytes(cfg)
             + attn_kernel_vmem_bytes(cfg, context_len, page_size,
                                      n_q=n_fed, pipeline=pipeline))
 
 
 def slot_swap_bytes(cfg: ModelConfig, n_blocks: int, page_size: int) -> float:
     """Host-link bytes to park (or restore) one slot: its physical pages
-    across every paged cache leaf (the attention archs of the port carry
-    no recurrent-state rows, the reference's second term) — the analytic
-    prediction serve/crosscheck.crosscheck_host holds against the walk of
-    the gather-and-pack ``PagedKVCache.swap_out`` runs."""
-    return float(n_blocks * page_size * kv_line_bytes(cfg))
+    across every paged cache leaf plus its recurrent state rows — the
+    analytic prediction serve/crosscheck.crosscheck_host holds against the
+    walk of the gather-and-pack ``PagedKVCache.swap_out`` runs."""
+    return float(n_blocks * page_size * kv_line_bytes(cfg)
+                 + state_bytes(cfg))
 
 
 # --------------------------------------------------------------------------
@@ -196,7 +224,7 @@ class RooflineLedger:
     prefill_flops: float = 0.0
     decode_flops: float = 0.0
     decode_bytes: float = 0.0
-    decode_kv_bytes: float = 0.0     # KV-walk share of decode_bytes
+    decode_kv_bytes: float = 0.0     # KV-walk + state share of decode_bytes
     decode_vmem_bytes: float = 0.0   # on-chip traffic (stream + resident)
     decode_tokens: int = 0
     decode_batch_sum: int = 0        # sum of co-resident batch sizes
@@ -215,7 +243,8 @@ class RooflineLedger:
         self.decode_flops += decode_token_flops(cfg, context_len)
         self.decode_bytes += decode_token_bytes(cfg, context_len,
                                                 active_batch)
-        self.decode_kv_bytes += (context_len + 1) * kv_line_bytes(cfg)
+        self.decode_kv_bytes += ((context_len + 1) * kv_line_bytes(cfg)
+                                 + 2 * state_bytes(cfg))
         self.decode_vmem_bytes += vmem_bytes
         self.decode_tokens += 1
         self.decode_batch_sum += active_batch
@@ -231,13 +260,16 @@ class RooflineLedger:
         drafts).  W: fed token t attends ``context_len + t`` keys.  Q: ONE
         amortized weight read and one page walk over the context plus the
         just-written lines (read ``context_len + n_fed - 1``, write
-        ``n_fed``), so W scales by n_fed while Q barely moves."""
+        ``n_fed``) plus the recurrent state read and written once, so W
+        scales by n_fed while Q barely moves."""
         line = kv_line_bytes(cfg)
         self.decode_flops += sum(
             decode_token_flops(cfg, context_len + t) for t in range(n_fed))
         self.decode_bytes += (params_bytes_active(cfg) / max(active_batch, 1)
-                              + (context_len + 2 * n_fed - 1) * line)
-        self.decode_kv_bytes += (context_len + 2 * n_fed - 1) * line
+                              + (context_len + 2 * n_fed - 1) * line
+                              + 2 * state_bytes(cfg))
+        self.decode_kv_bytes += ((context_len + 2 * n_fed - 1) * line
+                                 + 2 * state_bytes(cfg))
         self.decode_vmem_bytes += vmem_bytes
         self.decode_tokens += n_committed
         self.decode_batch_sum += n_committed * active_batch

@@ -143,7 +143,9 @@ def test_report_rows_equal_reference(case):
 
 @pytest.mark.parametrize("arch,verify", [
     ("qwen3-0.6b", False), ("qwen3-0.6b", True), ("qwen3-14b", True),
-    ("deepseek-v2-236b", False), ("deepseek-v2-236b", True)])
+    ("deepseek-v2-236b", False), ("deepseek-v2-236b", True),
+    ("xlstm-350m", False), ("xlstm-350m", True),
+    ("jamba-v0.1-52b", False), ("jamba-v0.1-52b", True)])
 def test_terms_from_the_same_ledger_equal_reference(arch, verify):
     jc, tc = jcfg.get_config(arch), tcfg.get_config(arch)
     jl, tl = jsch.RooflineLedger(), tsch.RooflineLedger()
