@@ -118,10 +118,11 @@ Phases, in order; any failure exits non-zero:
    (``cuda_graphs=False``): all four byte-equal, each with its launch
    counts; on qwen3-0.6b each quantized pool is served eagerly too, byte-
    equal to its graphed run; ``[graph]`` lines print tok/s, mean decode /
-   verify step and draft round both ways and the capture time; one
-   torch.profiler pass over three replays of each path's captured steps
-   counts the GQA core's kernel (or the MLA core's split and merge
-   kernels) once per layer a replay; ``[dispatch]`` lines print
+   verify step and draft round both ways and the capture time;
+   torch.profiler passes over three replays of each path's captured
+   steps (after three it drops; the fullest of three passes: the
+   profiler loses events) count the GQA core's kernel (or the MLA core's
+   split and merge kernels) once per layer a replay; ``[dispatch]`` lines print
    ``Engine.measure_dispatch_overhead`` (the no-kernel decode step, the
    paper's dispatch floor) eager and graphed beside the mean decode step
    both ways, for qwen3-0.6b and qwen3-14b;
@@ -191,10 +192,29 @@ Phases, in order; any failure exits non-zero:
    rows as their own category (bytes hold, W reported) and the walked
    floor share; row 1 and its ring held at jamba's G 4 and timed before
    jamba's engine; jamba's 26.6 GB freed at the end;
+   l. the static whole-batch path (``[static]`` lines, ``StaticEngine``
+   over dense caches): row 1 held (TOL, TOL_F32_PLAIN) and timed at the
+   static shapes, a dense cache viewed as 16-line pages under the
+   identity table: whisper-small's self attention, its cross attention
+   over 1500 frames (1504 lines, pos 1499) and llama-3.2-vision's over
+   1600 image tokens; whisper-small whole (12 + 12 layers, 1500 frames)
+   over 4 rows of 24-token prompts, 32 new tokens, and
+   llama-3.2-vision-90b at its published widths cut to VISION_LAYERS (2
+   cross and 8 self layers) over 2 rows, 16 new tokens, each with every
+   cross gate set in [0.5, 1.5) and seeded sources: greedy streams byte-
+   equal graphed and eager, ``paged_attention`` launched once per self
+   and cross layer and step, every greedy token within LOGITS_ATOL of
+   the top logit of a forward_full over its tokens, another source
+   moving the first logits by more than LOGITS_ATOL; mean decode step
+   both ways, prefill (and whisper's encoder alone), peak memory; the
+   vision weights freed; qwen3-0.6b's static streams equal to the
+   continuous engine's ``generate``, greedy and seeded sampled, byte for
+   byte;
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
-   rows 1 and 4), then the card line, then the device line last.  Each
+   rows 1 and 4; row 1 with ``static_launches``, the graphed static runs'
+   launches), then the card line, then the device line last.  Each
    phase prints its wall time.
 
 Nothing here imports JAX or the JAX package.
@@ -690,7 +710,7 @@ def mla_kernel_phase(torch, np, pa):
 
 
 def hold(torch, label: str, kernel, plain, args, n_float: int, kw,
-         name: str) -> float:
+         name: str, tag: str = "kernel") -> float:
     """One kernel case against its plain version on the same inputs: at
     TOL[name], and at TOL_F32_PLAIN[name] against the plain version run in
     float32 on the same values (its first ``n_float`` arguments cast).
@@ -708,7 +728,7 @@ def hold(torch, label: str, kernel, plain, args, n_float: int, kw,
     tol, tol32 = TOL[name], TOL_F32_PLAIN[name]
     ok = (bool(torch.allclose(out.float(), ref.float(), **tol))
           and bool(torch.allclose(out.float(), ref32, **tol32)))
-    print(f"[kernel] {label} max_abs_err={err:.3e} (atol=rtol="
+    print(f"[{tag}] {label} max_abs_err={err:.3e} (atol=rtol="
           f"{tol['atol']}); vs plain in f32 {err32:.3e} (atol=rtol="
           f"{tol32['atol']}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -2177,27 +2197,46 @@ def fmt_steps(d: dict) -> str:
 
 
 def graph_kernels(torch, label: str, graphs, name: str, want: dict,
-                  replays: int = 3) -> None:
-    """One torch.profiler pass (CUDA activity) over ``replays`` replays of
+                  replays: int = 3, passes: int = 3) -> None:
+    """torch.profiler passes (CUDA activity) over ``replays`` replays of
     the captured step ``name`` of a ``serve.graphs.StepGraphs``: every
     kernel named in ``want`` (a part of its name -> launches a replay)
-    must run that often inside the graph.  Replays a step whose inputs are
-    unchanged since its last run, which rewrites the same KV lines."""
-    from torch.profiler import ProfilerActivity, profile
+    must run that often inside the graph.  The profiler loses kernel
+    events but never adds any (on an H100: a graph's first kernels in
+    every profile started late in this script, and now and then a
+    burst).  So each pass profiles a warm-up cycle of ``replays``
+    replays, whose events it drops, then the counted cycle, ``passes``
+    passes run, and the one that saw the most kernels is held.  Replays a
+    step whose inputs are unchanged since its last run, which rewrites the
+    same KV lines."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     graph = graphs.graphs[name].graph
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(replays):
-            graph.replay()
+    names: list = []
+    totals = []
+    for _ in range(passes):
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):                 # the warm-up, then counted
+                for _ in range(replays):
+                    graph.replay()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        totals.append(len(seen))
+        if len(seen) > len(names):
+            names = seen
     got = {k: sum(k in n for n in names) for k in want}
     if not names or any(got[k] != n * replays for k, n in want.items()):
         fail(f"{label} {name} graph: the profiler saw {got} over {replays} "
-             f"replays ({len(names)} kernels), want {want} a replay")
+             f"replays ({len(names)} kernels, the most of {passes} "
+             f"passes), want {want} a replay")
     print(f"[graph] {label} {name} graph: {len(names) / replays:.0f} "
-          f"kernels a replay (torch.profiler over {replays} replays); "
+          f"kernels a replay (torch.profiler over {replays} replays after "
+          f"as many untimed, the fullest of {passes} passes, which saw "
+          f"{totals} kernels); "
           + ", ".join(f"{k} {got[k] // replays} a replay (= layers)"
                       for k in want))
     return len(names) / replays
@@ -3765,6 +3804,258 @@ def crosscheck_recurrent(torch, np, card, cfg, params, roof) -> None:
           f"{floor / wall:.4f} (must be <= 1)")
 
 
+# --------------------------------------------------------------------------
+# The static whole-batch path (StaticEngine over dense caches): whisper-small
+# whole, llama-3.2-vision-90b at its published widths cut to VISION_LAYERS,
+# and qwen3-0.6b static against continuous
+# --------------------------------------------------------------------------
+
+VISION_LAYERS = 10
+# (rows, prompt tokens, new tokens) of each static run
+STATIC_RUNS = {"whisper-small": (4, 24, 32),
+               "llama-3.2-vision-90b": (2, 24, 16)}
+STATIC_QWEN = (4, 32, 16)
+
+
+def static_kernel_holds(torch, np, pa, whisper, vision) -> None:
+    """Row 1 (``paged_attention``) at the static engine's shapes: a dense
+    cache (B, Smax_r, KV, hd) viewed as a pool of 16-line pages under the
+    identity table (``models.attention.dense_attention``); whisper's self
+    attention at its last decode step, whisper's cross attention over its
+    1500 frames (1504 lines, pos 1499) and vision's over its 1600 image
+    tokens (pos 1599).  Held as kernel_phase holds (TOL, TOL_F32_PLAIN)
+    and timed with the plain version beside the bound.  Launches here are
+    not counted."""
+    from repro_torch.models.attention import dense_lines, identity_tables
+    n = pa.paged_attention.launches
+    rng = np.random.default_rng(29)
+    rows, prompt, new = STATIC_RUNS[whisper.name]
+    vrows = STATIC_RUNS[vision.name][0]
+    cases = (("whisper-small self", whisper, rows, prompt + new,
+              prompt + new - 2),
+             ("whisper-small cross", whisper, rows, whisper.n_audio_frames,
+              whisper.n_audio_frames - 1),
+             ("llama-3.2-vision cross", vision, vrows, vision.n_image_tokens,
+              vision.n_image_tokens - 1))
+    for label, cfg, B, n_lines, last in cases:
+        KV_, hd = cfg.n_kv_heads, cfg.hd
+        G_ = cfg.n_heads // KV_
+        S = dense_lines(n_lines)
+
+        def normal(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, dtype="float32")).to("cuda", torch.bfloat16)
+        q = normal(B, KV_, G_, hd)
+        k = normal(B * S // PAGE, PAGE, KV_, hd)
+        v = normal(B * S // PAGE, PAGE, KV_, hd)
+        bt = identity_tables(B, S, "cuda")
+        pos = torch.full((B,), last, dtype=torch.int32, device="cuda")
+        kw = dict(scale=hd ** -0.5, soft_cap=0.0)
+        hold(torch, f"paged_attention bfloat16 {label}: B={B} KV={KV_} "
+             f"G={G_} hd={hd} lines {S} (pos {last})", pa.paged_attention,
+             pa.paged_attention_reference, (q, k, v, bt, pos), 3, kw,
+             "bfloat16", tag="static")
+        n_copies = min(64, max(2, int(4e8 // (4 * k.numel()))))
+        copies = [(q.clone(), k.clone(), v.clone(), bt, pos)
+                  for _ in range(n_copies)]
+        kernel_ms = device_ms(lambda *a: pa.paged_attention(*a, **kw),
+                              copies)
+        plain_ms = device_ms(
+            lambda *a: pa.paged_attention_reference(*a, **kw), copies)
+        bound_ms, bound_by = bound_of(*paged_bound(
+            pos, 1, S, KV_ * hd * 2 * 2, KV_ * G_ * 4 * hd,
+            2 * q.numel() * 2, 2))
+        print(f"[static] paged_attention {label}: kernel {kernel_ms:.4f} ms,"
+              f" plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+    pa.paged_attention.launches = n
+
+
+def set_gates(torch, params, seed: int) -> int:
+    """Every cross-attention gate (init 0, so the cross path would move no
+    logit) set to a value drawn uniformly from [0.5, 1.5) by a generator
+    seeded ``seed``; returns how many."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 0
+    for seg in params["segments"]:
+        for blk in seg.values():
+            for name in ("mixer", "cross"):
+                if name in blk and "gate" in blk[name]:
+                    t = blk[name]["gate"]
+                    t.copy_(torch.rand(t.shape, generator=g, device="cuda")
+                            + 0.5)
+                    n += t.numel()
+    return n
+
+
+def cross_source(torch, cfg, rows: int, seed: int) -> dict:
+    """The stub encoder frames or image patch embeddings of ``rows`` rows,
+    drawn from a generator seeded ``seed``, as generate() takes them."""
+    from repro_torch.models.params import torch_dtype
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = cfg.n_audio_frames if cfg.is_encoder_decoder else cfg.n_image_tokens
+    x = torch.randn((rows, n, cfg.d_model), generator=g,
+                    device="cuda").to(torch_dtype(cfg.dtype))
+    return {"enc_embeds" if cfg.is_encoder_decoder else "img_embeds": x}
+
+
+def static_phase(torch, np, card, pa, cfg) -> int:
+    """``cfg`` (an encoder-decoder or vision model) through the static
+    engine: STATIC_RUNS[cfg.name] rows, prompt and new tokens, greedy,
+    cross gates set (:func:`set_gates`), seeded sources.  The graphed run
+    (counts zeroed before it and read after) must launch
+    ``paged_attention`` once per self and cross attention layer and
+    decode step, and a profiler pass over replays of its captured decode
+    step must see the GQA core's kernel as often; the eager run must give
+    the same tokens byte for byte; every greedy token must lie within
+    LOGITS_ATOL of the top logit of a forward_full over its tokens with
+    the same source; another source must move the first logits by more
+    than LOGITS_ATOL.  Prints the mean decode step graphed and eager,
+    kernels a graphed step, the prefill (row by row: the encoder and the
+    decoder) and peak memory; frees the weights.  Returns the graphed
+    run's launches."""
+    from repro_torch.models import prefill
+    from repro_torch.models.transformer import _run_encoder, forward_full
+    from repro_torch.obs.clock import now
+    from repro_torch.serve import GenerateConfig, StaticEngine
+    rows, prompt, new = STATIC_RUNS[cfg.name]
+    params = make_params(torch, cfg)
+    n_gates = set_gates(torch, params, 9)
+    src = cross_source(torch, cfg, rows, 2)
+    other = cross_source(torch, cfg, rows, 3)
+    rng = np.random.default_rng(29)
+    prompts = rng.integers(0, cfg.vocab_size, (rows, prompt))
+    gen = GenerateConfig(max_new_tokens=new)
+    per_step = sum(reps * (2 if b.mixer == "attn+cross" else 1)
+                   for unit, reps in cfg.segments() for b in unit)
+    with torch.no_grad():
+        StaticEngine(cfg, params).generate(prompts, GenerateConfig(2), **src)
+        torch.cuda.synchronize()
+        pa.paged_attention.launches = 0             # counts start here
+        graphed = StaticEngine(cfg, params)
+        out = graphed.generate(prompts, gen, **src)
+        torch.cuda.synchronize()
+        launches = pa.paged_attention.launches      # counts read here
+        eager = StaticEngine(cfg, params, cuda_graphs=False)
+        out_e = eager.generate(prompts, gen, **src)
+        eager_launches = pa.paged_attention.launches - launches
+        toks = out["tokens"]
+        if not np.array_equal(toks, out_e["tokens"]):
+            fail(f"{cfg.name}: the static engine's graphed and eager greedy "
+                 "streams differ")
+        steps = graphed.decode_steps
+        kernels = graph_kernels(torch, f"{cfg.name} static", graphed._graphs,
+                                "decode", dict.fromkeys(
+                                    CORE_KERNELS["paged_attention"],
+                                    per_step))
+        if steps != new - 1 or launches != steps * per_step or (
+                eager_launches != launches):
+            fail(f"{cfg.name}: paged_attention launched {launches} "
+                 f"(eager {eager_launches}) in {steps} static decode steps,"
+                 f" want steps x {per_step}")
+        if not all(0 <= t < cfg.vocab_size for t in toks.reshape(-1)):
+            fail(f"{cfg.name}: static tokens outside the vocab")
+        logits, _ = forward_full(params, cfg, torch.as_tensor(
+            toks[:, :-1], device="cuda"), **src)
+        rows_l = logits[:, prompt - 1:].float()
+        chosen = torch.as_tensor(toks[:, prompt:], device="cuda")
+        gap = float((rows_l.max(-1).values
+                     - rows_l.gather(2, chosen[..., None])[..., 0]).max())
+        if not np.isfinite(gap) or gap > LOGITS_ATOL:
+            fail(f"{cfg.name}: a static greedy token sits {gap} under the "
+                 f"top logit of a forward_full over its tokens (atol "
+                 f"{LOGITS_ATOL})")
+        first, _ = prefill(params, cfg, torch.as_tensor(prompts,
+                                                        device="cuda"), **src)
+        moved, _ = prefill(params, cfg, torch.as_tensor(prompts,
+                                                        device="cuda"),
+                           **other)
+        move = float((first.float() - moved.float()).abs().max())
+        if not move > LOGITS_ATOL:
+            fail(f"{cfg.name}: another cross source moves the first logits "
+                 f"by {move} <= {LOGITS_ATOL}: the cross path is dead")
+        enc_ms = None
+        if cfg.is_encoder_decoder:
+            torch.cuda.synchronize()
+            t0 = now()
+            _run_encoder(params, cfg, src["enc_embeds"])
+            torch.cuda.synchronize()
+            enc_ms = (now() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    g_ms = float(np.mean(graphed.decode_s[1:])) * 1e3
+    e_ms = float(np.mean(eager.decode_s)) * 1e3
+    print(f"[static] {cfg.name} {card}: {rows} rows x {prompt}-token "
+          f"prompts, {new} new tokens, {n_gates} cross gates in [0.5, 1.5),"
+          f" seeded sources: greedy streams byte-equal graphed and eager; "
+          f"paged_attention launches {launches} = {steps} decode steps x "
+          f"{per_step} (self + cross); every greedy token within {gap:.4f} "
+          f"of the top logit of a forward_full over its tokens (atol "
+          f"{LOGITS_ATOL}); another source moves the first logits by "
+          f"{move:.4f}")
+    print(f"[static] {cfg.name} {card}: mean decode step graphed "
+          f"{g_ms:.3f} ms (capture {graphed.graph_capture_s * 1e3:.1f} ms in"
+          f" the first), eager {e_ms:.3f} ms ({rows * 1e3 / g_ms:.1f} and "
+          f"{rows * 1e3 / e_ms:.1f} tok/s), {kernels:.0f} kernels a graphed "
+          f"step; prefill {graphed.prefill_s * 1e3:.2f} ms "
+          f"graphed run, {eager.prefill_s * 1e3:.2f} ms eager run"
+          + ("" if enc_ms is None else f" (encoder alone {enc_ms:.2f} ms)")
+          + f"; peak memory {peak_gb:.2f} GB")
+    del params, graphed, eager
+    torch.cuda.empty_cache()
+    print(f"[static] {cfg.name} weights freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after")
+    return launches
+
+
+def static_vs_continuous(torch, np, card, cfg) -> None:
+    """qwen3-0.6b (no MoE, no MLA): the static engine's greedy and seeded
+    sampled streams equal the continuous engine's ``generate`` byte for
+    byte on the same prompts (STATIC_QWEN rows, prompt and new tokens),
+    row b of both drawing from seed s + b.  Reports first how far one
+    whole-batch prefill lies from the same rows prefilled one by one."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import (Engine, EngineConfig, GenerateConfig,
+                                   StaticEngine)
+    rows, prompt, new = STATIC_QWEN
+    params = make_params(torch, cfg)
+    prompts = np.random.default_rng(30).integers(0, cfg.vocab_size,
+                                                 (rows, prompt))
+    # why the static engine prefills row by row (reported, not held)
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.no_grad():
+        whole, states = prefill(params, cfg, toks)
+        per_row = [prefill(params, cfg, toks[b:b + 1]) for b in range(rows)]
+    d_logits = float((whole.float() - torch.cat(
+        [r[0] for r in per_row]).float()).abs().max())
+    d_k = float((states[0]["b0"]["k"].float() - torch.cat(
+        [r[1][0]["b0"]["k"] for r in per_row], dim=1).float()).abs().max())
+    print(f"[static] {cfg.name} {card}: one ({rows}, {prompt}) prefill "
+          f"against {rows} (1, {prompt}) prefills: last logits differ by "
+          f"{d_logits:.4f}, K lines by {d_k:.4f} (reported: the GEMMs' bits "
+          "depend on their row count, so the static engine prefills row by "
+          "row, as the continuous engine does)")
+    del whole, states, per_row
+    eng = Engine(cfg, params, EngineConfig(device="cuda"))
+    static = StaticEngine(cfg, params)
+    for label, gen, seed in (
+            ("greedy", GenerateConfig(max_new_tokens=new), None),
+            ("sampled", GenerateConfig(max_new_tokens=new, **SAMPLED), 5)):
+        with torch.no_grad():
+            s_out = static.generate(prompts, gen, seed=seed)["tokens"]
+        c_out = eng.generate(prompts, gen, seed=seed)["tokens"]
+        if not np.array_equal(s_out, c_out):
+            bad = int(np.argmax((s_out != c_out).any(1)))
+            fail(f"{cfg.name} {label}: the static engine's stream differs "
+                 f"from the continuous engine's (row {bad}: "
+                 f"{s_out[bad, prompt:].tolist()} vs "
+                 f"{c_out[bad, prompt:].tolist()})")
+        print(f"[static] {cfg.name} {card}: static = continuous byte for "
+              f"byte, {label} ({rows} rows x {prompt}-token prompts, {new} "
+              f"new tokens{'' if seed is None else f', seeds {seed} + b'})")
+    del params, eng, static
+    torch.cuda.empty_cache()
+
+
 def print_build_summary(name: str, log: str) -> None:
     """One line per source from nvcc's ``-Xptxas -v`` report: kernel
     instantiations, their register range, and each one that spills."""
@@ -4042,8 +4333,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[recurrent] {jamba.name} weights freed: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after")
-    phase_time("jamba-v0.1-52b (8 layers) engine, options and crosscheck",
-               t_phase)
+    t_phase = phase_time(
+        "jamba-v0.1-52b (8 layers) engine, options and crosscheck", t_phase)
+
+    whisper = get_config("whisper-small")
+    vision = dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                                 n_layers=VISION_LAYERS)
+    if (whisper.n_layers, whisper.n_encoder_layers, whisper.d_model,
+            whisper.n_kv_heads, whisper.hd, whisper.n_audio_frames,
+            whisper.vocab_size) != (12, 12, 768, 12, 64, 1500, 51865) or (
+            vision.d_model, vision.n_heads, vision.n_kv_heads, vision.hd,
+            vision.n_image_tokens, vision.vocab_size) != (
+            8192, 64, KV, HD, 1600, 128256):
+        fail(f"unexpected static-path configs {whisper} {vision}")
+    static_kernel_holds(torch, np, pa, whisper, vision)
+    entry["static_launches"] = {
+        c.name: static_phase(torch, np, card, pa, c)
+        for c in (whisper, vision)}
+    static_vs_continuous(torch, np, card, qwen)
+    phase_time("static path: whisper-small, llama-3.2-vision-90b (10 "
+               "layers), qwen3-0.6b static = continuous", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

@@ -15,6 +15,21 @@ Recurrent and hybrid archs (xlstm-350m, jamba-v0.1-52b) keep per-slot
 state rows beside the pages; ``--spec`` and ``--prefix-cache`` refuse
 them, as the reference does.
 
+Encoder-decoder and vision archs (whisper-small, llama-3.2-vision-90b)
+have cross-attention caches that do not page: they run the static
+whole-batch engine (serve/engine.py ``StaticEngine``: one prefill of the
+``--batch`` prompts, then lockstep decode, its step a captured CUDA graph
+on the card) over stub frame / patch embeddings drawn from ``--seed``,
+and print ``[serve/static] ... tok/s`` and the first sequence:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-90b --layers 10 --batch 2
+
+The paged engine's options (``--slots``, ``--prefill-chunk``, ``--spec``,
+``--prefix-cache``, ``--num-pages``, the pipelines and KV dtypes,
+telemetry) do not apply to them.
+
 Speculative decoding (serve/spec.py):
 
     ... --spec ngram --spec-k 4                  # weight-free prompt lookup
@@ -89,11 +104,13 @@ from ..core.roofline.report import (ATTAINMENT_HEADER, attainment_rows,
                                     text_table)
 from ..device import resolve_device, synchronize
 from ..models import init_params
+from ..models.params import torch_dtype
 from ..obs.clock import now
 from ..serve import (Engine, EngineConfig, GenerateConfig, SpecConfig,
                      SpecEngine, sampling, speculative_summary,
                      supports_spec)
 from ..serve.crosscheck import capacity_report
+from ..serve.kv_cache import supports_paging
 
 
 def main(argv=None):
@@ -177,6 +194,11 @@ def main(argv=None):
     telemetry = bool(args.trace or args.metrics_snapshot)
     gen_ = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen_, dev)
+    if not supports_paging(cfg):
+        if telemetry or args.spec != "off":
+            raise SystemExit(f"{cfg.name}: the static engine takes no "
+                             "--spec or telemetry (paged engine only)")
+        return _run_static(args, cfg, params, dev)
     slots = args.slots or args.batch
     ecfg = EngineConfig(
         num_slots=slots, page_size=args.page_size,
@@ -252,6 +274,44 @@ def main(argv=None):
               f"memory-bound speedup x{s['predicted_speedup']:.2f}")
     _export_telemetry(args, engine, roof)
     print("[serve] first sequence:", reqs[0].generated[:16])
+
+
+def _run_static(args, cfg, params, dev) -> None:
+    """The static whole-batch engine over ``--batch`` prompts of
+    ``--prompt-len`` tokens, with frame / patch embeddings drawn from a
+    generator seeded ``--seed``; sampled rows take seeds ``--seed + b``."""
+    rng = np.random.default_rng(args.seed)
+    prompts = np.stack([rng.integers(0, cfg.vocab_size, args.prompt_len)
+                        for _ in range(args.batch)])
+    emb = torch.Generator(device=dev).manual_seed(args.seed)
+    dt_ = torch_dtype(cfg.dtype)
+    kwargs = {}
+    if cfg.is_encoder_decoder:
+        kwargs["enc_embeds"] = torch.randn(
+            (args.batch, cfg.n_audio_frames, cfg.d_model), generator=emb,
+            device=dev).to(dt_)
+    if cfg.n_image_tokens:
+        kwargs["img_embeds"] = torch.randn(
+            (args.batch, cfg.n_image_tokens, cfg.d_model), generator=emb,
+            device=dev).to(dt_)
+    engine = Engine(cfg, params, EngineConfig(device=dev))
+    gen = GenerateConfig(max_new_tokens=args.new_tokens,
+                         temperature=args.temperature, top_k=args.top_k,
+                         top_p=args.top_p)
+    t0 = now()
+    out = engine.generate(prompts, gen, seed=args.seed, **kwargs)
+    synchronize(dev)
+    dt = now() - t0
+    toks = out["tokens"]
+    n_new = toks.shape[1] - args.prompt_len
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    st = engine.static_engine()
+    print(f"[serve/static] {args.batch} seqs x {n_new} new tokens in "
+          f"{dt:.2f}s ({args.batch * n_new / dt:.1f} tok/s) on {where}: "
+          f"prefill {st.prefill_s * 1e3:.1f} ms, {st.decode_steps} decode "
+          f"steps" + (f", mean {np.mean(st.decode_s) * 1e3:.3f} ms"
+                      if st.decode_s else ""))
+    print("[serve] first sequence:", toks[0, args.prompt_len:].tolist())
 
 
 def _export_telemetry(args, engine, roof) -> None:

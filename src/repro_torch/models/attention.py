@@ -1,12 +1,17 @@
-"""GQA self-attention (+qk-norm, RoPE) over full sequences and paged KV
-caches.  MLA lives in ``mla.py``; cross-attention is not ported yet
-(ROADMAP queue 1 item 9).
+"""GQA self-attention (+qk-norm, RoPE) and gated cross-attention over full
+sequences, paged KV caches and the static engine's dense caches.  MLA
+lives in ``mla.py``.
 
 The attention core is plain PyTorch ops, as the reference's is plain jnp
-outside any kernel; only paged decode and paged multi-token verification
-go through hand-written kernels (kernels/ops.py ``paged_attention`` and
-``paged_attention_verify``).  KV heads stay un-repeated: the
-query-group dim G rides along so GQA never materializes repeated K/V.
+outside any kernel; only decode and multi-token verification go through
+hand-written kernels (kernels/ops.py ``paged_attention`` and
+``paged_attention_verify``).  The static engine's dense caches
+(B, Smax_r, KV, hd), their sequence axis rounded up to a multiple of
+``DENSE_PAGE``, are viewed without a copy as a page pool under an
+identity block table (:func:`dense_attention`), so its self and cross
+decode attention run the same kernel as the paged engine (the reference
+attends them with plain jnp).  KV heads stay un-repeated: the query-group
+dim G rides along so GQA never materializes repeated K/V.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ NEG_INF = -1e30
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
-def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def attn_defs(cfg: ModelConfig, cross: bool = False
+              ) -> Dict[str, ParamDef]:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.dtype
     defs = {
@@ -39,6 +45,9 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     if cfg.qk_norm:
         defs["q_norm"] = ParamDef((hd,), "float32", init="ones")
         defs["k_norm"] = ParamDef((hd,), "float32", init="ones")
+    if cross:
+        # tanh-gated residual (llama-3.2-vision style, init 0 = identity)
+        defs["gate"] = ParamDef((), "float32", init="zeros")
     return defs
 
 
@@ -64,15 +73,20 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, rope: Rope):
-    """Self-attention q, k, v (B, S, heads, hd) with qk-norm and RoPE."""
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+def _project_qkv(p, x: torch.Tensor, kv_src: torch.Tensor, cfg: ModelConfig,
+                 rope_q: Rope, rope_k: Rope):
+    """q from ``x``, k and v from ``kv_src`` (x itself for self-attention),
+    (B, S, heads, hd), with qk-norm; RoPE only on a side whose tables are
+    given (cross-attention passes none)."""
+    q = _heads(x, p["wq"])
+    k, v = _heads(kv_src, p["wk"]), _heads(kv_src, p["wv"])
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
-    if rope is not None:
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
+    if rope_q is not None:
+        q = apply_rope(q, *rope_q)
+    if rope_k is not None:
+        k = apply_rope(k, *rope_k)
     return q, k, v
 
 
@@ -91,29 +105,52 @@ def _attn_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
 
 
 def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
-                        positions: torch.Tensor, rope: Rope
+                        positions: Optional[torch.Tensor], rope: Rope,
+                        kv_src: Optional[torch.Tensor] = None,
+                        causal: Optional[bool] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal full-sequence self-attention.  x (B, S, D), positions (B, S),
-    ``rope`` = rope_tables(cfg, positions).  Returns (out (B, S, D),
-    {"k", "v"} (B, S, KV, hd)) — the K/V lines a prefill collects."""
+    """Full-sequence attention (prefill, encoder).  x (B, S, D),
+    positions (B, S) or None (``arange``), ``rope`` = rope_tables(cfg,
+    positions) or None.  With ``kv_src`` (B, Sk, D) it is cross-attention:
+    no RoPE, not causal, and the output scaled by ``tanh(gate)``; else
+    causal as ``cfg.causal`` unless ``causal`` says otherwise.  Returns
+    (out (B, S, D), {"k", "v"} (B, Sk, KV, hd)) — the K/V lines a prefill
+    collects (qk-normed and RoPE'd as attended)."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
-    q, k, v = _project_qkv(p, x, cfg, rope)
+    cross = kv_src is not None
+    src = kv_src if cross else x
+    causal = (cfg.causal and not cross) if causal is None else causal
+    rope = None if cross else rope
+    q, k, v = _project_qkv(p, x, src, cfg, rope, rope)
     q = q.reshape(B, S, KV, G, hd)
     scale = 1.0 / (hd ** 0.5)
+    Sk = src.shape[1]
+    q_pos = k_pos = None
+    if causal:
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=x.device).expand(B, S)
+        q_pos = positions
+        k_pos = (positions if Sk == S else torch.arange(
+            Sk, dtype=torch.int32, device=x.device).expand(B, Sk))
     chunk = cfg.attn_chunk
     if S > 2 * chunk and S % chunk == 0:
-        # query chunks bound the score matrix to (B, KV, G, chunk, S)
+        # query chunks bound the score matrix to (B, KV, G, chunk, Sk)
         o = torch.cat([
-            _attn_core(q[:, i:i + chunk], k, v, positions[:, i:i + chunk],
-                       positions, causal=True, scale=scale,
+            _attn_core(q[:, i:i + chunk], k, v,
+                       None if q_pos is None else q_pos[:, i:i + chunk],
+                       k_pos, causal=causal, scale=scale,
                        soft_cap=cfg.attn_logit_soft_cap)
             for i in range(0, S, chunk)], dim=1)
     else:
-        o = _attn_core(q, k, v, positions, positions, causal=True,
-                       scale=scale, soft_cap=cfg.attn_logit_soft_cap)
-    return _out_proj(o, p["wo"]), {"k": k, "v": v}
+        o = _attn_core(q, k, v, q_pos, k_pos, causal=causal, scale=scale,
+                       soft_cap=cfg.attn_logit_soft_cap)
+    out = _out_proj(o, p["wo"])
+    if cross and "gate" in p:
+        out = torch.tanh(p["gate"]).to(out.dtype) * out
+    return out, {"k": k, "v": v}
 
 
 # --------------------------------------------------------------------------
@@ -186,7 +223,7 @@ def decode_attention_paged(
     B, _, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
-    q, k_new, v_new = _project_qkv(p, x, cfg, rope)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, rope, rope)
     blk = torch.gather(block_tables, 1,
                        (pos[:, None] // page_size).long())[:, 0]
     off = pos % page_size
@@ -222,7 +259,7 @@ def decode_verify_paged(
     G = H // KV
     posq = pos[:, None] + torch.arange(T, dtype=torch.int32,
                                        device=x.device)[None, :]  # (B, T)
-    q, k_new, v_new = _project_qkv(p, x, cfg, rope)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, rope, rope)
     n_blocks = block_tables.shape[1]
     blk_idx = torch.clamp(posq // page_size, max=n_blocks - 1)
     blk = torch.gather(block_tables, 1, blk_idx.long())           # (B, T)
@@ -254,7 +291,7 @@ def prefill_attention_paged(
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
     idx = offset + torch.arange(T, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, rope)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, rope, rope)
     blk, off = block_table[idx.long() // page_size], idx % page_size
     _commit_kv(pool, "k", blk, off, k_new[0], cfg.kv_dtype)
     _commit_kv(pool, "v", blk, off, v_new[0], cfg.kv_dtype)
@@ -266,3 +303,74 @@ def prefill_attention_paged(
                    causal=True, scale=1.0 / (hd ** 0.5),
                    soft_cap=cfg.attn_logit_soft_cap).reshape(B, T, H, hd)
     return _out_proj(o, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# Dense KV cache (the static engine)
+# --------------------------------------------------------------------------
+
+# lines a dense cache's sequence axis is rounded up to, and the page of the
+# identity table that views it as a pool
+DENSE_PAGE = 16
+
+
+def dense_lines(n: int) -> int:
+    """``n`` rounded up to a multiple of ``DENSE_PAGE``: the sequence axis
+    of a dense cache of ``n`` lines (the extra lines stay zero and are
+    never read)."""
+    return -(-n // DENSE_PAGE) * DENSE_PAGE
+
+
+def init_cache_defs(cfg: ModelConfig, batch: int, max_len: int
+                    ) -> Dict[str, ParamDef]:
+    """Dense decode cache k/v (batch, dense_lines(max_len), KV, hd),
+    zeros."""
+    shape = (batch, dense_lines(max_len), cfg.n_kv_heads, cfg.hd)
+    return {"k": ParamDef(shape, cfg.dtype, init="zeros"),
+            "v": ParamDef(shape, cfg.dtype, init="zeros")}
+
+
+def identity_tables(batch: int, lines: int, device) -> torch.Tensor:
+    """The block table of a dense cache (batch, lines, ...) viewed as a
+    pool of pages of ``DENSE_PAGE`` lines: row b's block j is page
+    ``b * lines / DENSE_PAGE + j``.  (batch, n_blocks) int32."""
+    nb = lines // DENSE_PAGE
+    return torch.arange(batch * nb, dtype=torch.int32,
+                        device=device).view(batch, nb)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pos: torch.Tensor, *, scale: float,
+                    soft_cap: float = 0.0) -> torch.Tensor:
+    """One query token a row against dense caches k/v (B, Smax_r, KV, hd)
+    through ``kernels.ops.paged_attention``: the caches viewed, without a
+    copy, as a pool (B * Smax_r / DENSE_PAGE, DENSE_PAGE, KV, hd) under
+    :func:`identity_tables`.  q (B, KV, G, hd); pos (B,) int32, the last
+    line each row sees.  Returns (B, KV, G, hd)."""
+    B, S, KV, hd = k.shape
+    shape = (B * S // DENSE_PAGE, DENSE_PAGE, KV, hd)
+    return kernel_ops.paged_attention(
+        q.contiguous(), k.view(shape), v.view(shape),
+        identity_tables(B, S, q.device), pos, scale=scale,
+        soft_cap=soft_cap, pipeline="off")
+
+
+def decode_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     pos: torch.Tensor, cfg: ModelConfig, *, rope: Rope
+                     ) -> torch.Tensor:
+    """One-token decode against a dense cache (updated in place).
+    x (B,1,D); cache k/v (B, Smax_r, KV, hd); pos (B,) int32, the write
+    position of each row (the reference's scalar, broadcast); ``rope`` =
+    rope_tables(cfg, pos[:, None])."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, rope, rope)
+    rows = torch.arange(B, device=x.device)
+    cache["k"].index_put_((rows, pos.long()), k_new[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_((rows, pos.long()), v_new[:, 0].to(cache["v"].dtype))
+    with named_scope("paged_attention"):
+        o = dense_attention(q.reshape(B, KV, H // KV, hd), cache["k"],
+                            cache["v"], pos, scale=1.0 / (hd ** 0.5),
+                            soft_cap=cfg.attn_logit_soft_cap
+                            ).reshape(B, 1, H, hd)
+    return _out_proj(o.to(x.dtype), p["wo"])

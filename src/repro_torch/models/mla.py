@@ -15,14 +15,16 @@ only the latent and rope lines: pools (P, page, r) and (P, page, dr).
   ``mla_paged_attention``, the hand-written CUDA kernel on the card.
 * :func:`mla_decode_verify_paged` — T-token verification (speculative
   decoding), absorbed; its core is ``ops.mla_paged_attention_verify``.
+* :func:`mla_decode` — one-token decode against the static engine's
+  dense latent cache (:func:`mla_cache_defs`), absorbed or expanded as
+  ``cfg.mla_absorb`` says, in plain PyTorch as the reference's is jnp.
 
 RoPE tables are computed once per forward at ``rope_head_dim``
 (:func:`rope_tables`) and passed in, where the reference recomputes them
 from positions inside every call.  The pools are updated in place by the
 GQA path's ``_commit_kv`` (the reference's ``_commit_latent``); the
-reference's ``_rms`` is ``layers.rms_head_norm``.  Not ported: the
-static dense cache ``mla_cache_defs`` / ``mla_decode`` (ROADMAP queue 1
-item 9).
+reference's ``_rms`` is ``layers.rms_head_norm``.  The dense cache's
+sequence axis is rounded up as the GQA one is (``attention.dense_lines``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
 from .attention import (NEG_INF, Rope, _commit_kv, _heads, _out_proj,
-                        gather_pages)
+                        dense_lines, gather_pages)
 from .common import ModelConfig
 from .layers import rms_head_norm, rope_cos_sin
 from .params import ParamDef
@@ -294,3 +296,43 @@ def mla_prefill_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
     k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
     valid = (idx[:, None] >= k_pos[None, :])[None]
     return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, valid, cfg)
+
+
+# --------------------------------------------------------------------------
+# Dense latent cache (the static engine)
+# --------------------------------------------------------------------------
+
+def mla_cache_defs(cfg: ModelConfig, batch: int, max_len: int
+                   ) -> Dict[str, ParamDef]:
+    """Dense latent cache c_kv (batch, dense_lines(max_len), r) and k_rope
+    (batch, dense_lines(max_len), dr), zeros."""
+    S = dense_lines(max_len)
+    return {"c_kv": ParamDef((batch, S, cfg.kv_lora_rank), cfg.dtype,
+                             init="zeros"),
+            "k_rope": ParamDef((batch, S, cfg.rope_head_dim), cfg.dtype,
+                               init="zeros")}
+
+
+def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               pos: torch.Tensor, cfg: ModelConfig, *, rope: Rope = None
+               ) -> torch.Tensor:
+    """One-token MLA decode against the dense latent cache (updated in
+    place).  x (B,1,D); cache c_kv (B, Smax_r, r) / k_rope (B, Smax_r,
+    dr); pos (B,) int32 write positions; ``rope`` = rope_tables(cfg,
+    pos[:, None]).  Absorbed or expanded per ``cfg.mla_absorb``, lines
+    past ``pos`` masked: the reference's ``mla_decode``."""
+    B = x.shape[0]
+    posb = pos[:, None]
+    if rope is None:
+        rope = rope_tables(cfg, posb)
+    q_nope, q_rope = _queries(p, x, posb, cfg, rope)             # (B,1,H,*)
+    c_new, kr_new = _latent_kv(p, x, posb, cfg, rope)            # (B,1,*)
+    rows = torch.arange(B, device=x.device)
+    cache["c_kv"].index_put_((rows, pos.long()),
+                             c_new[:, 0].to(cache["c_kv"].dtype))
+    cache["k_rope"].index_put_((rows, pos.long()),
+                               kr_new[:, 0].to(cache["k_rope"].dtype))
+    k_pos = torch.arange(cache["c_kv"].shape[1], device=x.device)
+    valid = (k_pos[None, :] <= pos.long()[:, None])[:, None, :]  # (B,1,S)
+    return _mla_attend(p, q_nope, q_rope, cache["c_kv"], cache["k_rope"],
+                       valid, cfg)

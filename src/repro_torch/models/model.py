@@ -1,5 +1,6 @@
-"""Model facade: defs, init, prefill, paged decode and verification — the
-surface the serve engine uses (the reference's ``models/model.py``)."""
+"""Model facade: defs, init, prefill, paged decode and verification, and
+the static engine's dense caches and decode step — the surface the serve
+engines use (the reference's ``models/model.py``)."""
 
 from __future__ import annotations
 
@@ -40,12 +41,28 @@ def prepare_params(params, cfg: ModelConfig):
     return {**params, "embed": embed}
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """Full-context forward collecting decode state.  Returns
-    (last_logits (B, V), states) — per segment, attention lines stacked
-    (reps, B, S, ...) and recurrent final states (reps, B, ...), ready for
-    ``PagedKVCache.write_prefill_states``."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Union[str, torch.device] = "cuda"):
+    """Zeroed dense decode caches (transformer.cache_defs: sequence axes
+    rounded up to a multiple of 16) for ``batch`` rows of up to
+    ``max_len`` tokens, on ``device``."""
+    return instantiate(tfm.cache_defs(cfg, batch, max_len), None,
+                       resolve_device(device))
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            enc_embeds: Optional[torch.Tensor] = None,
+            img_embeds: Optional[torch.Tensor] = None):
+    """Full-context forward collecting decode state (``enc_embeds`` /
+    ``img_embeds``: the cross-attention source of an encoder-decoder or
+    vision model).  Returns (last_logits (B, V), states) — per segment,
+    attention lines stacked (reps, B, S, ...), cross lines (reps, B,
+    S_src, ...) and recurrent final states (reps, B, ...), ready for
+    ``PagedKVCache.write_prefill_states`` or the static engine's dense
+    caches."""
     logits, states = tfm.forward_full(params, cfg, tokens,
+                                      enc_embeds=enc_embeds,
+                                      img_embeds=img_embeds,
                                       collect_state=True)
     return logits[:, -1, :], states
 
@@ -63,6 +80,16 @@ def prefill_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
                                       collect_state=True)
     last = torch.as_tensor(true_len, device=logits.device).reshape(1) - 1
     return logits.index_select(1, last.long())[:, 0], states
+
+
+def decode_step(params, cfg: ModelConfig, caches: List[Any],
+                token: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One token for every row of a static batch against dense caches
+    (updated in place).  token (B,1); pos (B,) int32 (the reference's
+    scalar, one per row).  Returns logits (B, V).  GQA self and cross
+    attention run ``kernels.ops.paged_attention`` over the caches viewed
+    as pools (the hand-written kernel on the card)."""
+    return tfm.decode_one(params, cfg, caches, token, pos)
 
 
 def paged_cache_defs(cfg: ModelConfig, num_slots: int, num_pages: int,

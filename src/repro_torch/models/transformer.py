@@ -6,12 +6,19 @@ per ``cfg.segments()`` piece, every leaf stacked ``(reps, ...)`` — so a
 weight tree crosses from the JAX package leaf for leaf; layer ``i`` of a
 segment is the ``[i]`` view of each stacked leaf.
 
-This covers decoder-only archs built of GQA attention, MLA, mamba, mLSTM
-or sLSTM blocks with a dense, MoE or no FFN; the encoder-decoder and
-vision block kinds raise NotImplementedError naming their ROADMAP item.
-Attention caches are page pools; a recurrent mixer keeps per-slot state
-rows ``(reps, num_slots, ...)`` beside them, which a decode step freezes
-for inactive slots and a prefill chunk reads and writes at its slot.
+Blocks are GQA attention, MLA, mamba, mLSTM or sLSTM, gated cross
+attention (``cross_attn``, llama-3.2-vision) or self + cross attention
+(``attn+cross``, whisper's decoder), with a dense, MoE or no FFN; an
+encoder-decoder model (whisper) has an ``encoder`` stack of causal GQA
+blocks over stub frame embeddings.  The paged engine's caches are page
+pools; a recurrent mixer keeps per-slot state rows ``(reps, num_slots,
+...)`` beside them, which a decode step freezes for inactive slots and a
+prefill chunk reads and writes at its slot.  The static engine's caches
+(:func:`cache_defs`, :func:`decode_one`) are dense ``(reps, B, Smax_r,
+...)`` buffers, their sequence axis rounded up to a multiple of 16 and
+read by the paged-attention kernel through an identity table
+(``attention.dense_attention``); cross-attention caches hold the
+source's K/V lines, written once by the prefill.
 RoPE tables are computed once per forward for each mixer kind present
 (:func:`rope_tables`) and handed to every layer.
 """
@@ -22,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..core.roofline.op_cost import named_scope
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -29,25 +37,23 @@ from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .common import BlockDef, ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
-                     logits_from_hidden, mlp_defs, norm_defs)
-from .params import stack_defs, tree_map
+                     logits_from_hidden, mlp_defs, norm_defs, rms_head_norm)
+from .params import ParamDef, stack_defs, tree_map
 
 # a prefill chunk's first position (or its slot): a host int, or a 0-d
 # int32 device tensor (the captured chunk's persistent input)
 Offset = Union[int, torch.Tensor]
 
 # ROADMAP queue 1 item that ports each block kind still missing
-_TODO = {"cross_attn": 9, "attn+cross": 9}
+_TODO: Dict[str, int] = {}
 
 RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+# the encoder's blocks (whisper): causal GQA attention and a dense FFN
+ENCODER_BLOCK = BlockDef("attn", "dense")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configs this slice does not port."""
-    if cfg.is_encoder_decoder or cfg.n_image_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder / vision models are not ported "
-            "yet: ROADMAP queue 1 item 9")
     for unit, _ in cfg.segments():
         for b in unit:
             for kind in (b.mixer, b.ffn):
@@ -75,6 +81,12 @@ def block_defs(cfg: ModelConfig, b: BlockDef) -> Dict[str, Any]:
     defs: Dict[str, Any] = {"norm1": norm_defs(cfg)}
     if b.mixer == "attn":
         defs["mixer"] = attn.attn_defs(cfg)
+    elif b.mixer == "cross_attn":
+        defs["mixer"] = attn.attn_defs(cfg, cross=True)
+    elif b.mixer == "attn+cross":
+        defs["mixer"] = attn.attn_defs(cfg)
+        defs["norm_x"] = norm_defs(cfg)
+        defs["cross"] = attn.attn_defs(cfg, cross=True)
     elif b.mixer == "mla":
         defs["mixer"] = mla_mod.mla_defs(cfg)
     elif b.mixer == "mamba":
@@ -100,8 +112,65 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     for unit, reps in cfg.segments():
         unit_defs = {f"b{i}": block_defs(cfg, b) for i, b in enumerate(unit)}
         segs.append(stack_defs(unit_defs, reps))
-    return {"embed": embed_defs(cfg), "segments": segs,
+    defs = {"embed": embed_defs(cfg), "segments": segs,
             "final_norm": norm_defs(cfg)}
+    if cfg.is_encoder_decoder:
+        enc_unit = {"b0": block_defs(cfg, ENCODER_BLOCK)}
+        defs["encoder"] = {
+            "blocks": stack_defs(enc_unit, cfg.n_encoder_layers),
+            "final_norm": norm_defs(cfg),
+            "pos": ParamDef((cfg.n_audio_frames, cfg.d_model), "float32",
+                            init="embed", scale=0.02),
+        }
+    return defs
+
+
+def cross_len(cfg: ModelConfig, b: BlockDef) -> int:
+    """Source lines of a cross-attention block's cache: the image tokens
+    (or audio frames) of ``cross_attn``, the audio frames of
+    ``attn+cross``."""
+    if b.mixer == "cross_attn":
+        return cfg.n_image_tokens or cfg.n_audio_frames
+    return cfg.n_audio_frames
+
+
+def block_cache_defs(cfg: ModelConfig, b: BlockDef, batch: int,
+                     max_len: int) -> Dict[str, Any]:
+    """One block's dense decode cache ({} if stateless): k/v (batch,
+    Smax_r, KV, hd) for self-attention, ck/cv (batch, S_src rounded, KV,
+    hd) for cross-attention, the latent lines for MLA, a recurrent
+    mixer's state (batch, ...)."""
+    if b.mixer == "attn":
+        return attn.init_cache_defs(cfg, batch, max_len)
+    if b.mixer == "cross_attn":
+        c = attn.init_cache_defs(cfg, batch, cross_len(cfg, b))
+        return {"ck": c["k"], "cv": c["v"]}
+    if b.mixer == "attn+cross":
+        c = attn.init_cache_defs(cfg, batch, max_len)
+        cc = attn.init_cache_defs(cfg, batch, cross_len(cfg, b))
+        return {"k": c["k"], "v": c["v"], "ck": cc["k"], "cv": cc["v"]}
+    if b.mixer == "mla":
+        return mla_mod.mla_cache_defs(cfg, batch, max_len)
+    if b.mixer == "mamba":
+        return ssm_mod.state_defs(cfg, batch)
+    if b.mixer == "mlstm":
+        return xlstm_mod.mlstm_state_defs(cfg, batch)
+    if b.mixer == "slstm":
+        return xlstm_mod.slstm_state_defs(cfg, batch)
+    raise ValueError(b.mixer)
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int
+               ) -> List[Dict[str, Any]]:
+    """Per-segment dense decode caches of the static engine, every leaf
+    stacked (reps, ...), zeros."""
+    check_supported(cfg)
+    segs = []
+    for unit, reps in cfg.segments():
+        unit_caches = {f"b{i}": block_cache_defs(cfg, b, batch, max_len)
+                       for i, b in enumerate(unit)}
+        segs.append(stack_defs(unit_caches, reps))
+    return segs
 
 
 def paged_block_cache_defs(cfg: ModelConfig, b: BlockDef, num_slots: int,
@@ -175,11 +244,12 @@ def _slot_index(slot: Offset, device: torch.device) -> torch.Tensor:
 
 def rope_tables(cfg: ModelConfig, positions: torch.Tensor
                 ) -> Dict[str, attn.Rope]:
-    """RoPE cos/sin per mixer kind in the model (GQA at ``hd``, MLA at
-    ``rope_head_dim``), computed once per forward for ``positions``."""
+    """RoPE cos/sin per mixer kind in the model (GQA self-attention at
+    ``hd``, MLA at ``rope_head_dim``; cross attention takes none),
+    computed once per forward for ``positions``."""
     kinds = {b.mixer for unit, _ in cfg.segments() for b in unit}
     ropes: Dict[str, attn.Rope] = {}
-    if "attn" in kinds:
+    if kinds & {"attn", "attn+cross"}:
         ropes["attn"] = attn.rope_tables(cfg, positions)
     if "mla" in kinds:
         ropes["mla"] = mla_mod.rope_tables(cfg, positions)
@@ -204,16 +274,46 @@ def _ffn_tail(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig
     return x + cfg.residual_scale * o
 
 
+def _cross_kv(p, src: torch.Tensor, cfg: ModelConfig):
+    """A cross-attention block's cache lines from the source (B, S_src,
+    D): k, v (B, S_src, KV, hd), un-normed (the reference's ``_cross_kv``:
+    k_norm is not applied to the cached keys even with ``cfg.qk_norm``,
+    though the full forward's cross attention applies it)."""
+    return attn._heads(src, p["wk"]), attn._heads(src, p["wv"])
+
+
+def _cross_attend(p, h: torch.Tensor, src: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence gated cross attention of h over ``src`` and the
+    lines a prefill collects for it ({"ck", "cv"}, :func:`_cross_kv`)."""
+    o, kv = attn.multihead_attention(p, h, cfg, positions=None, rope=None,
+                                     kv_src=src, causal=False)
+    ck, cv = (_cross_kv(p, src, cfg) if cfg.qk_norm
+              else (kv["k"], kv["v"]))
+    return o, {"ck": ck, "cv": cv}
+
+
 def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor, ropes: Dict[str, attn.Rope]
+                     positions: Optional[torch.Tensor],
+                     ropes: Dict[str, attn.Rope],
+                     cross_src: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (x, state) — the block's cache lines: {"k", "v"} for GQA,
-    {"c_kv", "k_rope"} for MLA; a recurrent mixer's final state."""
+    {"ck", "cv"} over ``cross_src`` (B, S_src, D) for cross attention
+    (both for ``attn+cross``), {"c_kv", "k_rope"} for MLA; a recurrent
+    mixer's final state."""
     h = apply_norm(p["norm1"], x, cfg)
-    if b.mixer == "attn":
+    if b.mixer in ("attn", "attn+cross"):
         o, state = attn.multihead_attention(p["mixer"], h, cfg,
                                             positions=positions,
                                             rope=ropes["attn"])
+        if b.mixer == "attn+cross":
+            x = x + cfg.residual_scale * o
+            h2 = apply_norm(p["norm_x"], x, cfg)
+            o, cross = _cross_attend(p["cross"], h2, cross_src, cfg)
+            state = {**state, **cross}
+    elif b.mixer == "cross_attn":
+        o, state = _cross_attend(p["mixer"], h, cross_src, cfg)
     elif b.mixer == "mla":
         o, state = mla_mod.mla_attention(p["mixer"], h, cfg, positions,
                                          rope=ropes["mla"])
@@ -223,30 +323,89 @@ def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
     return _ffn_tail(p, b, x, cfg), state
 
 
+def _cross_attend_cached(p, x: torch.Tensor, ck: torch.Tensor,
+                         cv: torch.Tensor, cfg: ModelConfig,
+                         src_len: int) -> torch.Tensor:
+    """One query token a row against a cross-attention cache ck/cv (B,
+    S_src rounded, KV, hd) of ``src_len`` real lines, unmasked over them
+    and gated: the reference's ``_cross_attend_cached`` (q-norm on q only,
+    no soft cap) through ``attention.dense_attention`` with every row's
+    last line ``src_len - 1``."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = attn._heads(x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+    last = torch.full((B,), src_len - 1, dtype=torch.int32,
+                      device=x.device)
+    with named_scope("paged_attention"):
+        o = attn.dense_attention(q.reshape(B, KV, H // KV, hd), ck, cv,
+                                 last, scale=1.0 / (hd ** 0.5)
+                                 ).reshape(B, 1, H, hd)
+    out = attn._out_proj(o.to(x.dtype), p["wo"])
+    if "gate" in p:
+        out = torch.tanh(p["gate"]).to(out.dtype) * out
+    return out
+
+
+def _replace_state(cache: Dict[str, torch.Tensor],
+                   new: Dict[str, torch.Tensor]) -> None:
+    """A dense decode step's recurrent state, written into the persistent
+    cache leaves in place (every row advances)."""
+    for name, old in cache.items():
+        old.copy_(new[name])
+
+
 def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
                        pool: Dict[str, torch.Tensor], pos: torch.Tensor,
-                       cfg: ModelConfig, block_tables: torch.Tensor,
+                       cfg: ModelConfig,
+                       block_tables: Optional[torch.Tensor],
                        page_size: int, ropes: Dict[str, attn.Rope],
                        pipeline: Optional[str] = None,
                        active: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """One-token paged decode through a block (pool updated in place);
-    ``pipeline`` is the attention kernel's page-streaming schedule.  A
+    """One-token decode through a block (caches updated in place).
+
+    Paged (``block_tables`` (B, n_blocks)): GQA / MLA page pools, and
+    ``pipeline`` the attention kernel's page-streaming schedule; a
     recurrent mixer's state rows (B = num_slots) advance for the slots
     ``active`` (B,) bool marks and keep their bytes elsewhere, so a packed
-    step cannot clobber a slot that is idle or mid-prefill."""
+    step cannot clobber a slot that is idle or mid-prefill.  Dense
+    (``block_tables`` None, the static engine): ``pool`` is the block's
+    dense cache (:func:`block_cache_defs`), every row writes at ``pos``
+    and every recurrent row advances."""
     h = apply_norm(p["norm1"], x, cfg)
-    if b.mixer == "attn":
+    dense = block_tables is None
+    if b.mixer == "attn" and dense:
+        o = attn.decode_attention(p["mixer"], h, pool, pos, cfg,
+                                  rope=ropes["attn"])
+    elif b.mixer == "attn":
         o = attn.decode_attention_paged(p["mixer"], h, pool, block_tables,
                                         pos, cfg, page_size=page_size,
                                         rope=ropes["attn"], pipeline=pipeline)
+    elif b.mixer == "cross_attn":
+        o = _cross_attend_cached(p["mixer"], h, pool["ck"], pool["cv"], cfg,
+                                 cross_len(cfg, b))
+    elif b.mixer == "attn+cross":
+        o = attn.decode_attention(p["mixer"], h, pool, pos, cfg,
+                                  rope=ropes["attn"])
+        x = x + cfg.residual_scale * o
+        h2 = apply_norm(p["norm_x"], x, cfg)
+        o = _cross_attend_cached(p["cross"], h2, pool["ck"], pool["cv"], cfg,
+                                 cross_len(cfg, b))
+    elif b.mixer == "mla" and dense:
+        o = mla_mod.mla_decode(p["mixer"], h, pool, pos, cfg,
+                               rope=ropes["mla"])
     elif b.mixer == "mla":
         o = mla_mod.mla_decode_paged(p["mixer"], h, pool, block_tables, pos,
                                      cfg, page_size=page_size,
                                      rope=ropes["mla"], pipeline=pipeline)
     else:
         o, new = _recurrent_mixer(p["mixer"], b, h, cfg, pool)
-        _freeze(pool, new, active)
+        if dense:
+            _replace_state(pool, new)
+        else:
+            _freeze(pool, new, active)
     x = x + cfg.residual_scale * o
     return _ffn_tail(p, b, x, cfg)
 
@@ -312,17 +471,49 @@ def apply_block_prefill_chunk(p, b: BlockDef, x: torch.Tensor,
 # Forward passes
 # --------------------------------------------------------------------------
 
+def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor
+                 ) -> torch.Tensor:
+    """Whisper-style encoder over precomputed (stub) frame embeddings
+    (B, frames, D): learned positions, ``n_encoder_layers`` causal GQA
+    blocks without RoPE (the reference's encoder passes no positions, so
+    its attention takes ``cfg.causal``), a final norm."""
+    enc = params["encoder"]
+    F = enc_embeds.shape[1]
+    x = enc_embeds + enc["pos"][:F].to(enc_embeds.dtype)[None]
+    no_rope = {"attn": None}
+    for r in range(cfg.n_encoder_layers):
+        x, _ = apply_block_full(_layer(enc["blocks"], r)["b0"],
+                                ENCODER_BLOCK, x, cfg, None, no_rope)
+    return apply_norm(enc["final_norm"], x, cfg)
+
+
 def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 enc_embeds: Optional[torch.Tensor] = None,
+                 img_embeds: Optional[torch.Tensor] = None,
                  collect_state: bool = False):
-    """Full-sequence causal forward.  tokens (B, S) int.  Returns
-    (logits (B, S, V), states) — states (with ``collect_state``) per
-    segment ``{"b<i>": lines}`` stacked (reps, B, S, ...) for attention
-    blocks and a recurrent block's final state (reps, B, ...), else
-    None."""
+    """Full-sequence forward.  tokens (B, S) int; ``enc_embeds`` (B,
+    frames, D) for an encoder-decoder model (run through the encoder),
+    ``img_embeds`` (B, n_img, D) for a vision model: the cross-attention
+    source, cast to the model dtype.  Returns (logits (B, S, V), states)
+    — states (with ``collect_state``) per segment ``{"b<i>": lines}``
+    stacked (reps, B, S, ...) for attention blocks ((reps, B, S_src, ...)
+    for their cross lines) and a recurrent block's final state (reps, B,
+    ...), else None."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = embed_tokens(params["embed"], tokens, cfg, positions)
+    cross_src = None
+    if cfg.is_encoder_decoder:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward "
+                             "needs enc_embeds")
+        cross_src = _run_encoder(params, cfg, enc_embeds.to(x.dtype))
+    elif cfg.n_image_tokens:
+        if img_embeds is None:
+            raise ValueError(f"{cfg.name}: a vision forward needs "
+                             "img_embeds")
+        cross_src = img_embeds.to(x.dtype)
     ropes = rope_tables(cfg, positions)
     states: List[Any] = []
     for seg_params, (unit, reps) in zip(params["segments"], cfg.segments()):
@@ -332,7 +523,8 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
             st = {}
             for i, b in enumerate(unit):
                 x, st[f"b{i}"] = apply_block_full(layer_p[f"b{i}"], b, x,
-                                                  cfg, positions, ropes)
+                                                  cfg, positions, ropes,
+                                                  cross_src)
             per_layer.append(st)
         if collect_state:
             states.append(tree_map(lambda *xs: torch.stack(xs),
@@ -340,6 +532,26 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = apply_norm(params["final_norm"], x, cfg)
     logits = logits_from_hidden(params["embed"], x, cfg)
     return logits, (states if collect_state else None)
+
+
+def decode_one(params, cfg: ModelConfig, caches: List[Any],
+               token: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One decode step of the static engine over dense caches (updated in
+    place).  token (B,1); pos (B,) int32 — the reference's scalar
+    position, one per row, so a captured step reads it from a persistent
+    buffer.  Returns logits (B, V)."""
+    x = embed_tokens(params["embed"], token, cfg, pos[:, None])
+    ropes = rope_tables(cfg, pos[:, None])
+    for seg_params, seg_cache, (unit, reps) in zip(
+            params["segments"], caches, cfg.segments()):
+        for r in range(reps):
+            layer_p, layer_c = _layer(seg_params, r), _layer(seg_cache, r)
+            for i, b in enumerate(unit):
+                x = apply_block_decode(layer_p[f"b{i}"], b, x,
+                                       layer_c[f"b{i}"], pos, cfg, None, 0,
+                                       ropes)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return logits_from_hidden(params["embed"], x, cfg)[:, 0, :]
 
 
 def decode_one_paged(params, cfg: ModelConfig, pools: List[Any],

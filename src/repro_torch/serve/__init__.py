@@ -1,6 +1,6 @@
 from . import sampling
 from .block_pool import BlockPool, PoolStats, chain_hash, token_chain_hashes
-from .engine import Engine, EngineConfig, GenerateConfig
+from .engine import Engine, EngineConfig, GenerateConfig, StaticEngine
 from .kv_cache import PagedKVCache, SwapSnapshot
 from .proposer import (DraftModelProposer, NgramProposer, Proposal,
                        ngram_propose)
@@ -10,7 +10,7 @@ from .spec import (SpecConfig, SpecEngine, adaptive_k,
                    speculative_summary, supports_spec)
 
 __all__ = [
-    "Engine", "EngineConfig", "GenerateConfig",
+    "Engine", "EngineConfig", "GenerateConfig", "StaticEngine",
     "BlockPool", "PoolStats", "chain_hash", "token_chain_hashes",
     "PagedKVCache", "SwapSnapshot",
     "Request", "RequestState", "RooflineLedger", "Scheduler", "sampling",

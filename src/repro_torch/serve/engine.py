@@ -1,4 +1,5 @@
-"""Continuous-batching serve engine over a paged KV cache.
+"""Serving engines: the continuous-batching engine over a paged KV cache,
+and the static whole-batch engine.
 
 A fixed bank of decode slots, one decode step whose shapes do not depend
 on which slots are live, chunked prefill interleaved with running
@@ -39,9 +40,33 @@ other.  The hooks add no device op, synchronize or read-back.
 roofline of the engine's ledger and phases.
 
 Speculative decoding subclasses this engine (serve/spec.py) through two
-hooks, :meth:`Engine._kv_margin` and :meth:`Engine._preempt`.  The static
-whole-batch engine and tensor parallelism are not ported yet (ROADMAP
-queue 1 items 9 and 11).
+hooks, :meth:`Engine._kv_margin` and :meth:`Engine._preempt`.  Tensor
+parallelism is not ported yet (ROADMAP queue 1 item 11).
+
+:class:`StaticEngine` is the reference's original whole-batch prefill ->
+lockstep decode loop over dense caches (``models.init_cache``), kept as
+the engine the continuous one is checked against token for token and as
+the serving path of the archs with cross-attention caches
+(whisper-small, llama-3.2-vision-90b): :meth:`Engine.generate` routes to
+it for them, or when given ``enc_embeds`` / ``img_embeds``.  Its prefill
+(the encoder and the forward, one row at a time where the reference runs
+the batch in one call: on the card a GEMM's bits depend on its row
+count, and a row's prefill must equal the continuous engine's) runs
+eagerly, as the reference does not jit it either; its decode step is one
+captured graph on CUDA (the reference's jitted ``decode_step``) over
+persistent token and position buffers and the caches, whose self and
+cross decode attention run the hand-written paged-attention kernel
+through an identity block table (``models.attention.dense_attention``).
+Both engines sample through ``sampling.sample_tokens`` with row ``b`` of
+``generate(seed=s)`` drawing from seed ``s + b`` at step index i, so a
+static batch samples what the continuous engine's ``generate(seed=s)``
+samples on the same prompts.
+Token-for-token caveats, the reference's: paged MLA decode is always
+absorbed, so for MLA archs the two engines agree byte for byte only with
+``cfg.mla_absorb``; an MoE FFN's capacity cutoffs depend on the batch.
+On the card the continuous engine pads a whole prompt to its
+power-of-two bucket, so byte equality there needs prompts of such a
+length (or an arch that is not bucketed).
 """
 
 from __future__ import annotations
@@ -59,16 +84,18 @@ from ..kernels import quantize
 from ..kernels.ops import check_pipeline
 from ..kernels.paged_attention import (KERNEL_HEAD_DIMS, MLA_LATENT_DIMS,
                                        MLA_ROPE_DIMS)
-from ..models import (decode_step_paged, init_params, prefill,
-                      prefill_chunk_paged, prefill_padded, prepare_params)
+from ..models import (decode_step, decode_step_paged, init_cache,
+                      init_params, prefill, prefill_chunk_paged,
+                      prefill_padded, prepare_params)
 from ..models.common import ModelConfig, model_flops
+from ..models.params import tree_map
 from ..models.transformer import check_supported
 from ..obs import Telemetry
 from ..obs.clock import now
 from ..obs.trace import ENGINE_TID, LIFECYCLE_TID, SLOT_TID0
 from . import sampling
 from .graphs import PrefillInputs, StaticInput, StepGraphs, graphs_enabled
-from .kv_cache import PagedKVCache
+from .kv_cache import PagedKVCache, supports_paging
 from .scheduler import (Request, RequestState, RooflineLedger, Scheduler,
                         decode_token_bytes, decode_token_flops,
                         decode_token_vmem_bytes, kv_line_bytes,
@@ -165,12 +192,139 @@ def bucket_prefill_body(params, cfg: ModelConfig, kv: PagedKVCache,
     return last
 
 
+def _place_prefill_states(caches: List[Any], states: List[Any],
+                          row: int = 0) -> None:
+    """Copy collected per-layer states (reps, n, ...) into rows ``row`` ..
+    ``row + n - 1`` of the dense caches, in place: a recurrent state
+    replaces the rows' state, attention lines (reps, n, S, ...) and cross
+    lines (reps, n, S_src, ...) take the prefix of the rounded axis."""
+    def merge(c, s):
+        c[(slice(None), slice(row, row + s.shape[1]))
+          + tuple(slice(0, n) for n in s.shape[2:])].copy_(s)
+    tree_map(merge, caches, states)
+
+
+class StaticEngine:
+    """Prefill (row by row) -> lockstep decode of the whole batch over
+    dense caches (the reference's original engine).  Runs where
+    ``params`` live; on CUDA the decode step replays a captured graph
+    unless ``cuda_graphs`` is False."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 cuda_graphs: Optional[bool] = None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.params = prepare_params(params, cfg)
+        self.device = params["embed"]["tok"].device
+        self.graphs = graphs_enabled(cuda_graphs, self.device)
+        # the last generate()'s caches and captured decode step, kept
+        # together (a graph replayed over freed caches would write into
+        # memory reused since) until the next generate() drops them
+        self._caches: Optional[List[Any]] = None
+        self._graphs: Optional[StepGraphs] = None
+        # the last generate()'s host timings: prefill (s), every decode
+        # step (s, graph capture included in the first on CUDA)
+        self.prefill_s = 0.0
+        self.decode_s: List[float] = []
+
+    @torch.no_grad()
+    def generate(self, prompts, gen: GenerateConfig, enc_embeds=None,
+                 img_embeds=None, seed: Optional[int] = None
+                 ) -> Dict[str, Any]:
+        """prompts (B, S) int (equal lengths) -> {"tokens" (B, S+new),
+        "finished" (B,)} numpy arrays.  ``enc_embeds`` (B, frames, D) /
+        ``img_embeds`` (B, n_img, D) feed an encoder-decoder / vision
+        model.  Row ``b`` samples with seed ``seed + b`` when a seed is
+        given, else greedily."""
+        cfg, dev = self.cfg, self.device
+        prompts_np = np.asarray(prompts, np.int64)
+        B, S = prompts_np.shape
+        self._caches = self._graphs = None
+        caches = self._caches = init_cache(cfg, B, S + gen.max_new_tokens,
+                                           dev)
+        tokens_t = torch.as_tensor(prompts_np, device=dev)
+        enc = None if enc_embeds is None else torch.as_tensor(enc_embeds,
+                                                              device=dev)
+        img = None if img_embeds is None else torch.as_tensor(img_embeds,
+                                                              device=dev)
+        t0 = now()
+        # row by row, where the reference prefills the batch in one call:
+        # a bf16 GEMM's bits depend on its row count (cuBLAS picks its
+        # kernel by M), so only a (1, S) prefill reproduces the continuous
+        # engine's per-request prefill byte for byte
+        last = []
+        for b in range(B):
+            logits, states = prefill(
+                self.params, cfg, tokens_t[b:b + 1],
+                enc_embeds=None if enc is None else enc[b:b + 1],
+                img_embeds=None if img is None else img[b:b + 1])
+            _place_prefill_states(caches, states, b)
+            last.append(logits)
+        last_logits = torch.cat(last)
+        del states
+        synchronize(dev)
+        self.prefill_s = now() - t0
+        self.decode_s = []
+        # the decode step's inputs, in buffers its graph keeps
+        tok_in = StaticInput((B, 1), torch.int64, dev)
+        pos_in = StaticInput((B,), torch.int32, dev)
+        self._graphs = StepGraphs(dev, self.graphs, cfg, B, 1)
+
+        def body() -> torch.Tensor:
+            return decode_step(self.params, cfg, caches, tok_in.tensor,
+                               pos_in.tensor)
+
+        seeds = (np.zeros((B,), np.int64) if seed is None
+                 else seed + np.arange(B, dtype=np.int64))
+        temps = np.full((B,), gen.temperature if seed is not None else 0.0,
+                        np.float32)
+        top_ks = np.full((B,), gen.top_k, np.int32)
+        top_ps = np.full((B,), gen.top_p, np.float32)
+
+        def sample(logits: torch.Tensor, i: int) -> np.ndarray:
+            return sampling.sample_tokens(
+                logits, seeds, np.full((B,), i, np.int32), temps, top_ks,
+                top_ps).cpu().numpy()
+
+        cur = sample(last_logits, 0)
+        tokens = [prompts_np.astype(np.int32)]
+        finished = np.zeros((B,), bool)
+        for i in range(gen.max_new_tokens):
+            tokens.append(cur[:, None].astype(np.int32))
+            if gen.stop_token is not None:
+                finished |= cur == gen.stop_token
+                if finished.all():
+                    break
+            if i == gen.max_new_tokens - 1:
+                break
+            t0 = now()
+            tok_in.set(cur[:, None])
+            pos_in.set(np.full((B,), S + i, np.int32))
+            cur = sample(self._graphs.run("decode", body), i + 1)
+            self.decode_s.append(now() - t0)
+        return {"tokens": np.concatenate(tokens, axis=1),
+                "finished": finished}
+
+    @property
+    def decode_steps(self) -> int:
+        return len(self.decode_s)
+
+    @property
+    def graph_capture_s(self) -> float:
+        """Seconds the last generate()'s decode graph took to capture."""
+        return self._graphs.capture_s if self._graphs is not None else 0.0
+
+
 class Engine:
     """Continuous-batching serve engine with a paged KV cache.
 
         eng = Engine(cfg, params, EngineConfig(num_slots=8, max_len=512))
         eng.submit(prompt_ids, GenerateConfig(max_new_tokens=64))
         done = eng.run()          # -> List[Request] with roofline ledgers
+
+    ``generate()`` keeps the whole-batch signature and uses
+    :class:`StaticEngine` for archs whose caches cannot page (enc-dec,
+    vision cross-attention) or when given cross-attention sources.
     """
 
     def __init__(self, cfg: ModelConfig, params,
@@ -191,6 +345,8 @@ class Engine:
                              "match EngineConfig.device")
         self.cfg = cfg
         self.params = prepare_params(params, cfg)
+        self.paged_ok = supports_paging(cfg)
+        self._static: Optional[StaticEngine] = None
         # bucketed whole-prompt prefill: only archs whose collected states
         # are all per-token (attention/MLA) survive padding — a recurrent
         # final state or an MoE capacity cutoff would see the pad tokens
@@ -239,10 +395,20 @@ class Engine:
         port serves on one card; tensor parallelism is ROADMAP item 11)."""
         return 1
 
+    def static_engine(self) -> StaticEngine:
+        if self._static is None:
+            self._static = StaticEngine(self.cfg, self.params,
+                                        cuda_graphs=self.ecfg.cuda_graphs)
+        return self._static
+
     def reset(self, num_slots: Optional[int] = None,
               max_len: Optional[int] = None) -> None:
         """(Re)build the paged cache and scheduler.  Drops any in-flight
         requests; call only when idle."""
+        if not self.paged_ok:
+            raise NotImplementedError(
+                f"{self.cfg.name}: continuous batching needs a paged cache; "
+                "use generate() (static fallback) for this arch")
         if num_slots is not None or max_len is not None:
             self.ecfg = dataclasses.replace(
                 self.ecfg, num_slots=num_slots or self.ecfg.num_slots,
@@ -701,11 +867,19 @@ class Engine:
 
     # -- batch API ---------------------------------------------------------
 
-    def generate(self, prompts, gen: GenerateConfig,
-                 seed: Optional[int] = None) -> Dict[str, Any]:
+    def generate(self, prompts, gen: GenerateConfig, enc_embeds=None,
+                 img_embeds=None, seed: Optional[int] = None
+                 ) -> Dict[str, Any]:
         """prompts (B, S) int -> {"tokens" (B, S+new), "finished" (B,)}
         numpy arrays, through the continuous path with one slot per row
-        (row ``b`` samples with seed ``seed + b`` when a seed is given)."""
+        (row ``b`` samples with seed ``seed + b`` when a seed is given);
+        archs without a paged decode path (enc-dec / vision), or a call
+        with ``enc_embeds`` / ``img_embeds``, take the static engine."""
+        if (enc_embeds is not None or img_embeds is not None
+                or not self.paged_ok):
+            return self.static_engine().generate(
+                prompts, gen, enc_embeds=enc_embeds, img_embeds=img_embeds,
+                seed=seed)
         if self._sched is not None and self._sched.has_work():
             raise ValueError(
                 "generate() rebuilds the scheduler and would drop requests "

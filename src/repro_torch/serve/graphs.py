@@ -9,7 +9,9 @@ Run eagerly, the same step is one Python-dispatched launch per op
 (thousands a step).  On CUDA, :class:`StepGraphs` captures each step
 body once with ``torch.cuda.graph`` and replays it at every later call:
 
-* ``decode``, ``verify``, ``catchup``, ``draft``: one graph each;
+* ``decode``, ``verify``, ``catchup``, ``draft``: one graph each (the
+  static engine's ``decode`` step runs over its dense caches, on a
+  :class:`StepGraphs` of its own for each ``generate`` call);
 * ``prefill_chunk:T``: one paged prefill chunk of T tokens, once per T;
 * ``prefill_bucket:S``: a whole prompt padded to S tokens with the
   scatter of its states into the pages, once per S (the engine's, and

@@ -101,8 +101,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 def test_unported_blocks_raise_with_roadmap_item():
     from repro_torch.models import init_params
-    for arch, item in [("whisper-small", "item 9"),
-                       ("llama-3.2-vision-90b", "item 9")]:
-        cfg = tcfg.smoke(tcfg.get_config(arch))
+    for arch, item in [("whisper-small", "item 11"),
+                       ("llama-3.2-vision-90b", "item 11")]:
+        cfg = dataclasses.replace(tcfg.smoke(tcfg.get_config(arch)),
+                                  tp_axis="model")
         with pytest.raises(NotImplementedError, match=item):
             init_params(cfg, torch.Generator().manual_seed(0), "cpu")
