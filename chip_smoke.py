@@ -210,12 +210,39 @@ Phases, in order; any failure exits non-zero:
    vision weights freed; qwen3-0.6b's static streams equal to the
    continuous engine's ``generate``, greedy and seeded sampled, byte for
    byte;
+   m. tensor-parallel serving (``[tp]`` lines, serve/shard.py): rows 1,
+   3 and 4 held against their plain versions at the local head counts
+   tp 2 gives them (TP_KV KV heads at G 5, decode and verify at T
+   TP_VERIFY_T; TP_MLA_H MLA heads) and timed; the unsharded engine
+   first, eager, on qwen3-14b whole and on an MLA model
+   with a dense FFN at deepseek-v2-236b's attention widths (TP_MLA_LAYERS
+   layers), keeping its streams, each token's top-2 margin and the first
+   decode step's logits, its weights freed; then two ranks on this one
+   card over gloo with CUDA tensors (``parallel.mesh.spawn``), eager, each
+   drawing only its shards of the same generator-seeded weights: 4
+   requests of TP_PROMPTS tokens, TP_NEW new tokens, 4 slots; tokens equal
+   on both ranks, streams equal to the unsharded ones or parted under the
+   top-2 margin rule (TP_LOGITS_ATOL), the first decode logits within
+   TP_LOGITS_ATOL, row 1 (qwen3-14b, 4 local KV heads) and row 4
+   (MLA-dense, 64 local heads over a replicated latent pool) launched
+   layers x steps times a rank, the ledger's TP_STEP_BYTES a qwen3-14b
+   step, ``crosscheck_collectives`` within 1.15 with 2 x layers
+   all-reduces and one all-gather; qwen3-14b again through
+   ``ShardedSpecEngine`` (n-gram, k 3): row 3 launched layers x verify
+   steps, the verify charge ``decode_step_ici_bytes(cfg, 4, 2, 4)`` a
+   round; per-rank peak memory, the eager step tp 2 against tp 1 and the
+   collectives' share of a step (CUDA events around the edges); then a
+   CUDA graph captured over ``row_parallel_psum`` and ``all_gather_cols``
+   on NCCL with a world of one (the capture dispatching one all-reduce
+   and one all-gather), replayed equal to eager (NCCL at tp > 1 needs two
+   cards);
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
    rows 1 and 4; row 1 with ``static_launches``, the graphed static runs'
-   launches), then the card line, then the device line last.  Each
-   phase prints its wall time.
+   launches; rows 1, 3 and 4 with ``tp_launches``, each rank's launches
+   in the [tp] runs), then the card line, then the device line last.
+   Each phase prints its wall time.
 
 Nothing here imports JAX or the JAX package.
 """
@@ -224,6 +251,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -344,15 +372,16 @@ def device_ms(fn, inputs, reps: int = 25, per_sample: int = 10) -> float:
     return float(np.median(samples))
 
 
-def attention_case(torch, np, rng, dtype, kind: str, groups: int = G):
+def attention_case(torch, np, rng, dtype, kind: str, groups: int = G,
+                   kv: int = KV):
     """Inputs of one kernel case at the main path's shapes (``groups``
-    query heads a KV head: qwen3-0.6b's G by default)."""
+    query heads a KV head, ``kv`` KV heads: qwen3-0.6b's by default)."""
     dev = "cuda"
-    q = torch.from_numpy(rng.standard_normal((SLOTS, KV, groups, HD),
+    q = torch.from_numpy(rng.standard_normal((SLOTS, kv, groups, HD),
                                              dtype="float32"))
-    kp = torch.from_numpy(rng.standard_normal((N_PAGES, PAGE, KV, HD),
+    kp = torch.from_numpy(rng.standard_normal((N_PAGES, PAGE, kv, HD),
                                               dtype="float32"))
-    vp = torch.from_numpy(rng.standard_normal((N_PAGES, PAGE, KV, HD),
+    vp = torch.from_numpy(rng.standard_normal((N_PAGES, PAGE, kv, HD),
                                               dtype="float32"))
     bt = torch.zeros((SLOTS, N_BLOCKS), dtype=torch.int32)
     pos = torch.zeros((SLOTS,), dtype=torch.int32)
@@ -495,12 +524,13 @@ def kernel_phase(torch, np, pa):
                  **ring_quant))
 
 
-def mla_case(torch, np, rng, dtype, kind: str):
-    """Inputs of one MLA kernel case.  ``ragged``: the main path's shapes
-    and MLA_LENS; ``edges``: pos 0, a partly filled last page, one exact
-    page and a full table; ``trash``: every slot idle (all entries trash
-    page 0, pos 0); ``small``: smoke widths (H 4, r 32, dr 8, page 8)."""
-    B, H, r, dr, page, nb = SLOTS, MLA_H, MLA_R, MLA_DR, PAGE, MLA_BLOCKS
+def mla_case(torch, np, rng, dtype, kind: str, heads: int = MLA_H):
+    """Inputs of one MLA kernel case at ``heads`` query heads.  ``ragged``:
+    the main path's shapes and MLA_LENS; ``edges``: pos 0, a partly filled
+    last page, one exact page and a full table; ``trash``: every slot idle
+    (all entries trash page 0, pos 0); ``small``: smoke widths (H 4, r 32,
+    dr 8, page 8)."""
+    B, H, r, dr, page, nb = SLOTS, heads, MLA_R, MLA_DR, PAGE, MLA_BLOCKS
     lens = {"ragged": MLA_LENS, "edges": (1, 37, 16, DS_MAX_LEN),
             "trash": None, "small": (1, 9, 20)}[kind]
     if kind == "small":
@@ -918,14 +948,16 @@ def verify_tables(torch, np, rng, lens, T: int, page: int, nb: int):
     return P, make
 
 
-def gqa_verify_case(torch, np, rng, dtype, kind: str):
+def gqa_verify_case(torch, np, rng, dtype, kind: str, kv: int = KV,
+                    T: int = V_T):
     """Inputs of one GQA verify case at qwen3-14b's verify shapes (4
-    slots, KV 8, G 5, hd 128, T 5, page 16, 33 blocks).  Kinds: ``ragged``
-    (MLA_LENS contexts, drafts backed), ``edges`` (chains crossing a page
-    at pos 14 and 30, one at pos 0, one past the table; drafts backed),
-    ``margin`` (the same with the drafts on trash entries), ``trash`` (idle
-    lanes), ``soft_cap`` (4x queries, cap 30), ``t1`` (T = 1)."""
-    T = 1 if kind == "t1" else V_T
+    slots, KV 8, G 5, hd 128, T 5, page 16, 33 blocks; ``kv`` and ``T``
+    override).  Kinds: ``ragged`` (MLA_LENS contexts, drafts backed),
+    ``edges`` (chains crossing a page at pos 14 and 30, one at pos 0, one
+    past the table; drafts backed), ``margin`` (the same with the drafts
+    on trash entries), ``trash`` (idle lanes), ``soft_cap`` (4x queries,
+    cap 30), ``t1`` (T = 1)."""
+    T = 1 if kind == "t1" else T
     lens = {"ragged": MLA_LENS, "edges": (15, 31, 1, V_BLOCKS * PAGE + 2),
             "margin": (15, 31, 1, V_BLOCKS * PAGE + 2), "trash": None,
             "soft_cap": MLA_LENS, "t1": MLA_LENS}[kind]
@@ -933,10 +965,10 @@ def gqa_verify_case(torch, np, rng, dtype, kind: str):
     bt, pos = make(backed=kind != "margin")
     g = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape, dtype="float32"))
-    q = g(SLOTS, T, KV, V_G, HD) * (4.0 if kind == "soft_cap" else 1.0)
+    q = g(SLOTS, T, kv, V_G, HD) * (4.0 if kind == "soft_cap" else 1.0)
     dev = "cuda"
-    return dict(args=(q.to(dev, dtype), g(P, PAGE, KV, HD).to(dev, dtype),
-                      g(P, PAGE, KV, HD).to(dev, dtype), bt.to(dev),
+    return dict(args=(q.to(dev, dtype), g(P, PAGE, kv, HD).to(dev, dtype),
+                      g(P, PAGE, kv, HD).to(dev, dtype), bt.to(dev),
                       pos.to(dev)),
                 kw=dict(scale=HD ** -0.5,
                         soft_cap=30.0 if kind == "soft_cap" else 0.0))
@@ -4056,6 +4088,472 @@ def static_vs_continuous(torch, np, card, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# m. tensor-parallel serving ([tp] lines)
+# --------------------------------------------------------------------------
+
+# qwen3-14b whole at tp 2: 4 slots, page 16, 4 requests of 17-60 tokens,
+# 32 new tokens each; then its n-gram verify (k 3); then MLA with a dense
+# FFN at deepseek-v2-236b's attention widths, TP_MLA_LAYERS layers
+TP = 2
+TP_PROMPTS = (17, 33, 46, 60)
+TP_NEW, TP_MAX_LEN, TP_SPEC_K, TP_MLA_LAYERS = 32, 128, 3, 4
+# the ledger's charge of one qwen3-14b decode step at 4 slots: 80
+# all-reduces x 2 x (4 x 5120 x 2 B) x 1/2 plus the untied head's
+# all-gather, 4 x 151936 x 2 B x 1/2
+TP_STEP_BYTES = 3_884_544
+# First decode logits, tp 2 against the unsharded engine (PERF.md §6,
+# tensor-parallel serving): each row-parallel edge rounds the two ranks'
+# partial products to bf16 before the sum and the sum once more, where
+# one card rounds the whole product once.  A bf16 rounding errs by
+# 2^-8 / sqrt(12) of the value in rms; the two partials (each ~1/sqrt(2)
+# of the sum) and the sum give sqrt(2) x that, ~0.41 x 2^-8 an edge, a
+# random walk over qwen3-14b's 80 edges: sqrt(80) x 0.41 x 2^-8 ~ 1.4% of
+# the final hidden state, ~0.013 at the largest logit (0.90 at init).
+# Held at 0.03, about 2.3x that.  The same bar bounds the unsharded
+# engine's top-2 margin wherever a tp-2 stream first parts from it.
+TP_LOGITS_ATOL = 0.03
+# the collective cross-check's bar (the reference's)
+TP_ICI_RATIO = 1.15
+
+
+# rows 1, 3 and 4 at the local head counts tp 2 gives them: qwen3-14b's
+# 8 KV heads halved at G 5 (decode, and verify at n-gram k 3), deepseek-v2's
+# 128 MLA heads halved
+TP_KV, TP_VERIFY_T, TP_MLA_H = 4, TP_SPEC_K + 1, MLA_H // 2
+
+
+def tp_kernel_holds(torch, np, pa) -> None:
+    """Rows 1, 3 and 4 at the tp-2 local head counts (TP_KV KV heads at
+    G 5, decode and verify at T TP_VERIFY_T; TP_MLA_H MLA heads), held as
+    the kernel phases hold them at the main shapes (TOL, TOL_F32_PLAIN)
+    and timed with the plain version beside the bound.  Launches here are
+    not counted."""
+    counters = (pa.paged_attention, pa.paged_attention_verify,
+                pa.mla_paged_attention)
+    before = [c.launches for c in counters]
+    rng = np.random.default_rng(30)
+    bf16 = torch.bfloat16
+    shape = f"KV={TP_KV} G={V_G}"
+    for kind in ("ragged", "full", "trash", "soft_cap"):
+        c = attention_case(torch, np, rng, bf16, kind, groups=V_G,
+                           kv=TP_KV)
+        hold(torch, f"paged_attention bfloat16 {kind:8s} {shape}",
+             pa.paged_attention, pa.paged_attention_reference,
+             (c["q"], c["k"], c["v"], c["bt"], c["pos"]), 3,
+             dict(scale=c["scale"], soft_cap=c["soft_cap"]), "bfloat16",
+             tag="tp")
+    for kind in ("ragged", "edges", "margin", "trash", "soft_cap"):
+        c = gqa_verify_case(torch, np, rng, bf16, kind, kv=TP_KV,
+                            T=TP_VERIFY_T)
+        hold(torch, f"paged_attention_verify bfloat16 {kind:8s} {shape} "
+             f"T={TP_VERIFY_T}", pa.paged_attention_verify,
+             pa.paged_attention_verify_reference, c["args"], 3, c["kw"],
+             "bfloat16", tag="tp")
+    for kind in ("ragged", "edges", "trash"):
+        c = mla_case(torch, np, rng, bf16, kind, heads=TP_MLA_H)
+        hold(torch, f"mla_paged_attention bfloat16 {kind:6s} H={TP_MLA_H}",
+             pa.mla_paged_attention, pa.mla_paged_attention_reference,
+             c["args"], 4, dict(scale=c["scale"]), "bfloat16", tag="tp")
+    # times on ragged contexts, 16 copies rotating
+    c = attention_case(torch, np, rng, bf16, "ragged", groups=V_G, kv=TP_KV)
+    q, pos = c["q"], c["pos"]
+    row1 = ([(q.clone(), c["k"].clone(), c["v"].clone(), c["bt"], pos)
+             for _ in range(16)], dict(scale=c["scale"], soft_cap=0.0),
+            paged_bound(pos, 1, N_BLOCKS * PAGE, TP_KV * HD * 2 * 2,
+                        TP_KV * V_G * 4 * HD, 2 * q.numel() * 2, 2))
+    c = gqa_verify_case(torch, np, rng, bf16, "ragged", kv=TP_KV,
+                        T=TP_VERIFY_T)
+    q, *rest = c["args"]
+    row3 = ([(q.clone(), rest[0].clone(), rest[1].clone(), *rest[2:])
+             for _ in range(16)], c["kw"],
+            paged_bound(rest[3], TP_VERIFY_T, V_BLOCKS * PAGE,
+                        TP_KV * HD * 2 * 2, TP_KV * V_G * 4 * HD,
+                        2 * q.numel() * 2, 2))
+    c = mla_case(torch, np, rng, bf16, "ragged", heads=TP_MLA_H)
+    q_lat, q_rope, *rest = c["args"]
+    row4 = ([(q_lat.clone(), q_rope.clone(), rest[0].clone(),
+              rest[1].clone(), *rest[2:]) for _ in range(16)],
+            dict(scale=c["scale"]),
+            mla_bound(q_lat, q_rope, rest[3], 1, MLA_BLOCKS * PAGE))
+    for (kernel, plain), (copies, kw, bound) in zip(
+            ((pa.paged_attention, pa.paged_attention_reference),
+             (pa.paged_attention_verify, pa.paged_attention_verify_reference),
+             (pa.mla_paged_attention, pa.mla_paged_attention_reference)),
+            (row1, row3, row4)):
+        kernel_ms = device_ms(lambda *a: kernel(*a, **kw), copies)
+        plain_ms = device_ms(lambda *a: plain(*a, **kw), copies)
+        bound_ms, bound_by = bound_of(*bound)
+        print(f"[tp] {kernel.__name__} bf16 at its tp-2 local shape "
+              f"(ragged): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+    for c, n in zip(counters, before):
+        c.launches = n
+
+
+def tp_mla_config(get_config):
+    """deepseek-v2-236b's attention widths with a dense FFN (d_ff 12288,
+    its dense prologue's) in every block, TP_MLA_LAYERS deep: the card's
+    counterpart of the reference tests' ``mla-dense-smoke``."""
+    from repro_torch.models import BlockDef
+    return dataclasses.replace(
+        get_config("deepseek-v2-236b"), name="deepseek-v2-mla-dense",
+        block_pattern=(BlockDef("mla", "dense"),), n_layers=TP_MLA_LAYERS,
+        n_experts=0, moe_top_k=0, moe_d_ff=0, n_shared_experts=0,
+        moe_first_dense=0)
+
+
+def tp_configs():
+    from repro_torch.configs import get_config
+    return {"qwen3-14b": get_config("qwen3-14b"),
+            "mla-dense": tp_mla_config(get_config)}
+
+
+def tp_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.default_rng(40)
+    return [rng.integers(0, vocab, n) for n in TP_PROMPTS]
+
+
+def tp_job(torch, eng, prompts, gen, spec: bool) -> dict:
+    """Serve ``prompts`` on one rank's sharded engine, row 1 / 3 / 4's
+    launches zeroed just before and read just after; the first decode
+    step's logits kept; then the collective walk and the timed edges of
+    one more step (outside the counted run)."""
+    from repro_torch.core.roofline.op_collectives import CollectiveWalk
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.obs.clock import now
+    from repro_torch.parallel.mesh import use_mesh
+    from repro_torch.serve.crosscheck import crosscheck_collectives
+    first = {}
+    body = eng._verify_body if spec else eng._decode_logits
+    name = "_verify_body" if spec else "_decode_logits"
+
+    def keep():
+        out = body()
+        if "logits" not in first:
+            rows = [r.slot for r in eng._sched.decode_requests()]
+            first["logits"] = out[rows].float().cpu().numpy()
+        return out
+    setattr(eng, name, keep)
+    counters = (pa.paged_attention, pa.paged_attention_verify,
+                pa.mla_paged_attention)
+    reqs = [eng.submit(p, gen) for p in prompts]
+    for c in counters:
+        c.launches = 0                            # counts start here
+    torch.cuda.synchronize()
+    t0 = now()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = now() - t0
+    launches = {c.__name__: c.launches for c in counters}  # read here
+    delattr(eng, name)                            # the class's own again
+    ph = eng.phases["verify" if spec else "decode"]
+    out = dict(
+        tokens=[[int(t) for t in r.generated] for r in reqs],
+        launches=launches, wall=wall, logits=first.get("logits"),
+        steps=ph.steps, step_ms=ph.wall_s / max(ph.steps, 1) * 1e3,
+        ici=[r.ledger.decode_ici_bytes for r in reqs],
+        passes=[r.ledger.weight_passes for r in reqs],
+        step_bytes=eng._step_collective_bytes(
+            eng._graph_tokens() if spec else 1),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not spec:
+        out["cc"] = crosscheck_collectives(eng)
+        timer = CollectiveWalk(timed=True)
+        with use_mesh(eng.mesh), torch.no_grad():
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            with timer:
+                eng._decode_body()
+            e.record()
+            out["edge_ms"] = timer.edge_ms()
+            out["timed_step_ms"] = s.elapsed_time(e)
+        out["n_edges"] = len(timer.pairs)
+    return out
+
+
+def tp_rank(rank: int, world: int) -> list:
+    """One rank of the [tp] phase: gloo over CUDA tensors, eager.  Draws
+    its shards of the generator-seeded weights, serves qwen3-14b, its
+    n-gram verify and the MLA-dense model; returns every rank's results
+    (rank 0's return is what the parent holds)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import init_params
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.mesh import (axis_group, make_host_mesh,
+                                           use_mesh)
+    from repro_torch.serve import (EngineConfig, GenerateConfig,
+                                   ShardedEngine, ShardedSpecEngine,
+                                   SpecConfig, param_pspecs)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(1, world)
+    with use_mesh(mesh):
+        staged = coll.staged_p2p(axis_group("model"),
+                                 torch.empty(0, device=dev))
+    res = {"p2p_staged": staged, "backend": mesh.backend}
+    ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE, max_len=TP_MAX_LEN,
+                        device=dev)
+    gen = GenerateConfig(max_new_tokens=TP_NEW)
+    for key, cfg in tp_configs().items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev, specs=param_pspecs(cfg, mesh), mesh=mesh)
+        res[f"{key} params_gb"] = sum(
+            t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+        prompts = tp_prompts(cfg.vocab_size)
+        eng = ShardedEngine(cfg, params, ecfg, mesh_shape=(1, world),
+                            mesh=mesh)
+        res[key] = tp_job(torch, eng, prompts, gen, False)
+        del eng
+        gc.collect()
+        if key == "qwen3-14b":
+            eng = ShardedSpecEngine(
+                cfg, params, ecfg, SpecConfig(k=TP_SPEC_K, proposer="ngram"),
+                mesh_shape=(1, world), mesh=mesh)
+            res[f"{key} ngram"] = tp_job(torch, eng, prompts, gen, True)
+            del eng
+        del params
+        gc.collect()
+    every = [None] * world
+    dist.all_gather_object(every, res)
+    return every
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def nccl_world_one(rank: int, world: int) -> dict:
+    """The collective edges inside a captured CUDA graph on NCCL with a
+    world of one: a row-parallel product with ``row_parallel_psum`` and a
+    head with ``all_gather_cols`` (a group of one still issues both), the
+    capture walked for the ``c10d`` operators it dispatched, replayed on
+    new inputs, equal to eager bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.roofline.op_collectives import CollectiveWalk
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.mesh import Mesh, use_mesh
+    mesh = Mesh(("data", "model"), (1, 1), 0, {"model": dist.group.WORLD},
+                dist.get_backend())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    h = torch.randn((4, 1, 2560), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((2560, 5120), generator=g, device="cuda") / 50).to(
+        torch.bfloat16)
+    head = (torch.randn((5120, 4096), generator=g, device="cuda") / 70).to(
+        torch.bfloat16)
+
+    def body():
+        y = coll.row_parallel_psum(h @ w, "model")
+        return coll.all_gather_cols(y @ head, "model")
+
+    with use_mesh(mesh), torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph), CollectiveWalk() as walk:
+            out = body()
+        h.copy_(torch.randn(h.shape, generator=g, device="cuda").to(
+            torch.bfloat16))
+        graph.replay()
+        want = body()
+        torch.cuda.synchronize()
+        return {"equal": bool(torch.equal(out, want)),
+                "captured": sorted(op.kind for op in walk.ops),
+                "shape": tuple(out.shape), "backend": dist.get_backend(),
+                "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+
+
+def tp_reference(torch, np, card, cfg) -> dict:
+    """The unsharded engine on the same generator-seeded weights, eager,
+    in this process: greedy streams, each token's top-2 margin, the first
+    decode step's logits and the mean decode step; its weights are freed
+    before returning."""
+    from repro_torch.serve import EngineConfig, GenerateConfig
+    params = make_params(torch, cfg)
+    eng = margin_engine(cfg, params, EngineConfig(
+        num_slots=SLOTS, page_size=PAGE, max_len=TP_MAX_LEN, device="cuda",
+        cuda_graphs=False))
+    first = {}
+    body = eng._decode_logits
+
+    def keep():
+        out = body()
+        if "logits" not in first:
+            rows = [r.slot for r in eng._sched.decode_requests()]
+            first["logits"] = out[rows].float().cpu().numpy()
+        return out
+    eng._decode_logits = keep
+    reqs, launches, wall = counted_run(
+        torch, eng, tp_prompts(cfg.vocab_size),
+        GenerateConfig(max_new_tokens=TP_NEW))
+    ph = eng.phases["decode"]
+    out = dict(tokens=[[int(t) for t in r.generated] for r in reqs],
+               margins=dict(eng.margins), logits=first["logits"],
+               step_ms=ph.wall_s / max(ph.steps, 1) * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng._decode_logits, eng, params, reqs, body
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_streams(label: str, got, ref) -> str:
+    """Streams equal to the unsharded engine's, or parted first where its
+    top-2 margin was under TP_LOGITS_ATOL; says where, and what share of
+    the unsharded tokens had a margin under that bar."""
+    margins = list(ref["margins"].values())
+    under = (f"{sum(m < TP_LOGITS_ATOL for m in margins)} of "
+             f"{len(margins)} unsharded tokens have a top-2 margin under "
+             f"{TP_LOGITS_ATOL}")
+    parted = []
+    for i, (a, b) in enumerate(zip(got, ref["tokens"])):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        m = ref["margins"].get((i, j), float("inf"))
+        if m >= TP_LOGITS_ATOL:
+            fail(f"{label}: request {i} parts from the unsharded stream at "
+                 f"token {j} where its top-2 margin is {m:.4f} >= "
+                 f"{TP_LOGITS_ATOL}")
+        parted.append(f"request {i} at token {j} (margin {m:.4f})")
+    return ("streams equal to the unsharded engine's" if not parted else
+            "streams parted under the top-2 margin rule: "
+            + ", ".join(parted)) + f" ({under})"
+
+
+def tp_phase(torch, np, card) -> dict:
+    """Tensor-parallel serving (serve/shard.py) on the one card: two ranks
+    over gloo with CUDA tensors, eager.  Returns rows 1, 3 and 4's launches
+    on each rank."""
+    from repro_torch.parallel.mesh import spawn
+    from repro_torch.serve.scheduler import decode_step_ici_bytes
+    cfgs = tp_configs()
+    q14 = cfgs["qwen3-14b"]
+    if decode_step_ici_bytes(q14, SLOTS, TP) != TP_STEP_BYTES:
+        fail(f"qwen3-14b's step at 4 slots is charged "
+             f"{decode_step_ici_bytes(q14, SLOTS, TP)} B, want "
+             f"{TP_STEP_BYTES}")
+    print(f"[tp] {card}: two ranks share this one card (one HBM, one "
+          "set of SMs), so the tp-2 times below say nothing about tp-2 "
+          "speed on two cards; they hold correctness and the ledger")
+    refs = {k: tp_reference(torch, np, card, c) for k, c in cfgs.items()}
+    torch.cuda.empty_cache()
+    print(f"[tp] unsharded references freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    try:
+        ranks = spawn(tp_rank, TP, backend="gloo", device="cuda",
+                      timeout=900)
+    except RuntimeError as e:
+        fail(f"[tp] a rank failed: {e}")
+    r0 = ranks[0]
+    print(f"[tp] backend {r0['backend']}, CUDA tensors; send / recv "
+          + ("through pinned host memory" if r0["p2p_staged"] else "direct")
+          + ", the other collectives direct")
+    out = {}
+    for key, cfg in cfgs.items():
+        ref = refs[key]
+        L = cfg.n_layers
+        op = "mla_paged_attention" if key == "mla-dense" else \
+            "paged_attention"
+        per_call = 2 if op.startswith("mla") else 1
+        for job, spec in ((key, False), (f"{key} ngram", True)):
+            if job not in r0:
+                continue
+            runs = [r[job] for r in ranks]
+            label = f"{job} tp {TP}"
+            if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+                fail(f"{label}: ranks committed different tokens")
+            kop = "paged_attention_verify" if spec else op
+            want = L * per_call * runs[0]["steps"]
+            got = [r["launches"][kop] for r in runs]
+            if any(g != want for g in got):
+                fail(f"{label}: {kop} launched {got} times on the ranks, "
+                     f"want {L} x {per_call} a step x {runs[0]['steps']} "
+                     "steps")
+            out.setdefault(kop, {})[job] = got
+            step_bytes = decode_step_ici_bytes(
+                cfg, SLOTS, TP, TP_SPEC_K + 1 if spec else 1)
+            charged = sum(runs[0]["ici"])
+            if not (runs[0]["step_bytes"] == step_bytes and abs(
+                    charged - step_bytes * runs[0]["steps"])
+                    <= 1e-9 * charged):
+                fail(f"{label}: ledger charged {charged} B over "
+                     f"{runs[0]['steps']} steps, want {step_bytes} a step")
+            streams = tp_streams(label, runs[0]["tokens"], ref)
+            line = (f"[tp] {label} {card}: {streams}; tokens equal on "
+                    f"{TP} ranks; {kop} {got[0]} launches a rank = {L} x "
+                    f"{per_call} x {runs[0]['steps']} steps; ledger "
+                    f"{step_bytes:.0f} B a step ({charged:.0f} B in all)")
+            if spec:
+                per_req = [step_bytes * n / SLOTS for n in runs[0]["passes"]]
+                line += (f"; per request charged "
+                         f"{[round(x) for x in runs[0]['ici']]} B vs "
+                         f"weight passes x step / slots {[round(x) for x in per_req]}"
+                         " (equal while all slots verify)")
+            print(line)
+            if spec:
+                continue
+            d = float(np.abs(runs[0]["logits"] - ref["logits"]).max())
+            if not d <= TP_LOGITS_ATOL:
+                fail(f"{label}: first decode logits differ from the "
+                     f"unsharded engine's by {d:.4f} > {TP_LOGITS_ATOL}")
+            cc = runs[0]["cc"]
+            kinds = {"all-reduce": 2 * L, "all-gather": 1}
+            if cc["ops_by_kind"] != kinds or not (
+                    1 / TP_ICI_RATIO <= cc["ici_ratio"] <= TP_ICI_RATIO):
+                fail(f"{label}: collective cross-check {cc}, want ops "
+                     f"{kinds} within {TP_ICI_RATIO}")
+            print(f"[tp] {label} {card}: first decode logits within "
+                  f"{d:.4f} of the unsharded engine's (atol "
+                  f"{TP_LOGITS_ATOL}, max |logit| "
+                  f"{float(np.abs(ref['logits']).max()):.2f}); "
+                  f"crosscheck_collectives ledger {cc['analytic_ici_bytes']:.0f}"
+                  f" B vs walked {cc['walk_ici_bytes']:.0f} B a step (ratio "
+                  f"{cc['ici_ratio']:.4f}), ops {cc['ops_by_kind']}")
+            print(f"[tp] {label} {card}: eager decode step "
+                  f"{runs[0]['step_ms']:.2f} ms (ranks "
+                  f"{[round(r['step_ms'], 2) for r in runs]}) vs unsharded "
+                  f"eager {ref['step_ms']:.2f} ms; collectives "
+                  f"{runs[0]['edge_ms']:.2f} ms of a {runs[0]['timed_step_ms']:.2f}"
+                  f" ms step timed with events around {runs[0]['n_edges']} "
+                  f"edges ({runs[0]['edge_ms'] / runs[0]['timed_step_ms']:.1%}"
+                  "; the timed step dispatches through Python); peak memory "
+                  f"a rank {[round(r['peak_gb'], 2) for r in runs]} GB "
+                  f"(shards {ranks[0][f'{key} params_gb']:.2f} GB) vs "
+                  f"unsharded {ref['peak_gb']:.2f} GB")
+    try:
+        one = spawn(nccl_world_one, 1, backend="nccl", device="cuda",
+                    timeout=300)
+    except RuntimeError as e:
+        fail(f"[tp] NCCL world of one failed: {e}")
+    if one["captured"] != ["all-gather", "all-reduce"]:
+        fail(f"[tp] NCCL world of one: the capture dispatched "
+             f"{one['captured']}, want one all-reduce and one all-gather")
+    if not one["equal"]:
+        fail("[tp] NCCL world of one: the captured graph's replay differs "
+             "from eager")
+    print(f"[tp] NCCL {one['nccl']} world of one {card}: a CUDA graph "
+          "captured over row_parallel_psum and all_gather_cols (the "
+          f"capture dispatched {one['captured']}) replays equal to eager "
+          f"bit for bit (output {one['shape']}); NCCL at tp > 1 needs two "
+          "cards and is not verified here")
+    return out
+
+
 def print_build_summary(name: str, log: str) -> None:
     """One line per source from nvcc's ``-Xptxas -v`` report: kernel
     instantiations, their register range, and each one that spills."""
@@ -4351,8 +4849,17 @@ def main() -> int:
         c.name: static_phase(torch, np, card, pa, c)
         for c in (whisper, vision)}
     static_vs_continuous(torch, np, card, qwen)
-    phase_time("static path: whisper-small, llama-3.2-vision-90b (10 "
-               "layers), qwen3-0.6b static = continuous", t_phase)
+    t_phase = phase_time("static path: whisper-small, llama-3.2-vision-90b "
+                         "(10 layers), qwen3-0.6b static = continuous",
+                         t_phase)
+    tp_kernel_holds(torch, np, pa)
+    tp = tp_phase(torch, np, card)
+    entry["tp_launches"] = tp["paged_attention"]
+    verify_entry["tp_launches"] = tp["paged_attention_verify"]
+    mla_entry["tp_launches"] = tp["mla_paged_attention"]
+    phase_time(f"tensor parallel: qwen3-14b, its n-gram verify and MLA-dense "
+               f"({TP_MLA_LAYERS} layers) at tp {TP}, NCCL world of one",
+               t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

@@ -12,9 +12,9 @@ Paper protocol -> the port's mapping:
                       in ``cost_raw`` as the reference keeps
                       ``cost_analysis()`` (the paper reports both the
                       LLC-derived and the IMC-derived traffic);
-* Collective traffic: none on one card.  ``CollectiveSummary`` is carried
-                      with zero wire bytes; parsing collectives comes with
-                      tensor parallelism (ROADMAP queue 1 item 11);
+* Collective traffic: ``CollectiveSummary``, filled by the walk of the
+                      ``c10d`` operators a sharded step dispatches
+                      (``op_collectives.py``); zero on one card;
 * Overhead subtraction: :meth:`StepCharacter.subtract`, the paper's
                       run-minus-no-run, which the engine's no-kernel twin
                       (``Engine._no_kernel_cfg``) can feed.
@@ -36,8 +36,9 @@ from .model import RooflineTerms, make_terms
 @dataclasses.dataclass
 class CollectiveSummary:
     """Per-device collective wire bytes, the reference's
-    ``hlo.py::CollectiveSummary`` as data.  One card moves none, so every
-    field stays zero until collectives are parsed (item 11)."""
+    ``hlo.py::CollectiveSummary`` as data (``op_collectives.summarize``
+    fills it from a walked step; ``ops_by_kind`` counts the ops of each
+    kind).  One card moves none: every field stays zero."""
 
     total_wire_bytes: float = 0.0
     ici_wire_bytes: float = 0.0
@@ -47,6 +48,7 @@ class CollectiveSummary:
         default_factory=dict)
     n_ops: int = 0
     top_ops: List[Any] = dataclasses.field(default_factory=list)
+    ops_by_kind: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

@@ -19,9 +19,11 @@ cold-cache protocols.  Here:
   inside one launch of ``csrc/l2_probe.cu``, so every pass after the
   first hits L2), :func:`measure_host_link_bandwidth` (``host``: one copy
   each way through pinned host memory, as ``kv_cache.swap_out`` moves a
-  slot), :func:`measure_ici_bandwidth` (``ici``: None on one card) and
+  slot), :func:`measure_ici_bandwidth` (``ici``: an NCCL all-reduce
+  between two cards, None below two) and
   :func:`measure_compute_transfer_overlap` (the share of a pinned copy on
-  a second stream hidden under a matmul loop on the first).
+  a second stream hidden under a matmul loop on the first, and with two
+  cards of the all-reduce under it).
 
 Times come from CUDA events on the card.  On the CPU (only when asked for)
 the same protocol runs with plain PyTorch probes and a host clock; those
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -298,29 +301,61 @@ def measure_host_link_bandwidth(device: torch.device, *,
     return 2.0 / (1.0 / d2h + 1.0 / h2d)
 
 
+def _ici_probe_rank(rank: int, world: int, nbytes: int, repeats: int,
+                    n: int, iters: int) -> Dict[str, float]:
+    """One NCCL rank of :func:`_ici_probe`: the all-reduce of ``nbytes``
+    alone, ``iters`` bf16 ``n`` x ``n`` matmuls alone, then both at once
+    (the all-reduce on its own stream); best-of-``repeats`` seconds."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", rank)
+    x = torch.ones(nbytes // 2, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((n, n), generator=g, device=dev).to(torch.bfloat16)
+    c = torch.empty_like(a)
+    side = torch.cuda.Stream(dev)
+    cur = torch.cuda.current_stream(dev)
+
+    def reduce():
+        dist.all_reduce(x)
+
+    def compute():
+        for _ in range(iters):
+            torch.matmul(a, a, out=c)
+
+    def both():
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            dist.all_reduce(x)
+        compute()
+        cur.wait_stream(side)
+
+    out = {name: _time_best(fn, dev, repeats=repeats)
+           for name, fn in (("reduce", reduce), ("compute", compute),
+                            ("both", both))}
+    dist.barrier()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _ici_probe(nbytes: int, repeats: int, n: int = 4096,
+               iters: int = 8) -> Dict[str, float]:
+    """Rank 0's times of :func:`_ici_probe_rank` on two NCCL ranks, the
+    first two cards (once per process and argument set)."""
+    from ...parallel.mesh import spawn
+    return spawn(_ici_probe_rank, 2, backend="nccl", device="cuda",
+                 args=(nbytes, repeats, n, iters))
+
+
 def measure_ici_bandwidth(device: torch.device, *, nbytes: int = 64 << 20,
                           repeats: int = 5) -> Optional[float]:
-    """B/s of a copy from ``device`` to a second card, the ``ici`` level's
-    beta; None with one card (or on the CPU): the level stays unpriced."""
+    """The ``ici`` level's beta: per-card wire bytes over the time of an
+    NCCL all-reduce of ``nbytes`` between two cards (the ring moves 2 x
+    payload x (n-1)/n = payload bytes per card at n = 2), the
+    communication a tensor-parallel step does.  None with fewer than two
+    cards (or on the CPU): the level stays at the data sheet."""
     if device.type != "cuda" or torch.cuda.device_count() < 2:
         return None
-    other = torch.device("cuda", (device.index or 0) + 1
-                         if (device.index or 0) + 1
-                         < torch.cuda.device_count() else 0)
-    x = torch.ones(nbytes // 4, dtype=torch.float32, device=device)
-    y = torch.empty_like(x, device=other)
-
-    def hop():
-        y.copy_(x)
-        torch.cuda.synchronize(other)
-    torch.cuda.synchronize(device)
-    best = float("inf")
-    for i in range(repeats + 2):
-        t0 = time.perf_counter()
-        hop()
-        if i >= 2:
-            best = min(best, time.perf_counter() - t0)
-    return nbytes / best
+    return nbytes / _ici_probe(nbytes, repeats)["reduce"]
 
 
 def _overlap_fraction(t_c: float, t_x: float, t_both: float) -> float:
@@ -340,11 +375,16 @@ def measure_compute_transfer_overlap(device: torch.device, *, n: int = 4096,
     device -> pinned-host copy of ``nbytes`` on a second stream (t_x, the
     swap-out direction), then both issued together (t_both); ``host`` =
     clamp((t_c + t_x - t_both) / min(t_c, t_x), 0, 1), the reference's
-    formula.  Empty on the CPU, which has no second engine to race (not
-    "no overlap"); the card-to-card level waits for tensor parallelism
-    (ROADMAP queue 1 item 11)."""
+    formula.  With two or more cards ``ici`` is the same fraction for an
+    NCCL all-reduce between two cards racing the matmuls.  Empty on the
+    CPU, which has no second engine to race (not "no overlap")."""
     if device.type != "cuda":
         return {}
+    out = {}
+    if torch.cuda.device_count() >= 2:
+        t = _ici_probe(nbytes, repeats, n, iters)
+        out["ici"] = _overlap_fraction(t["compute"], t["reduce"],
+                                       t["both"])
     g = torch.Generator(device=device).manual_seed(0)
     a = torch.randn((n, n), generator=g, device=device).to(torch.bfloat16)
     b = torch.randn((n, n), generator=g, device=device).to(torch.bfloat16)
@@ -373,7 +413,8 @@ def measure_compute_transfer_overlap(device: torch.device, *, n: int = 4096,
     t_x = _time_best(transfer(False), device, repeats=repeats)
     t_both = _time_best(transfer(True), device, repeats=repeats)
     torch.cuda.synchronize(device)
-    return {"host": _overlap_fraction(t_c, t_x, t_both)}
+    out["host"] = _overlap_fraction(t_c, t_x, t_both)
+    return out
 
 
 @dataclasses.dataclass

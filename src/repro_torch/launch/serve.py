@@ -82,11 +82,22 @@ ledger line with its TTFT and inter-token latency and, with ``--spec``,
 the acceptance rate and tokens per verify pass (on random weights these
 say nothing about real drafts).
 
+Tensor parallelism (serve/shard.py): ``--mesh dp,tp`` with dp 1 starts
+tp ranks (parallel/mesh.py ``spawn``), one NCCL rank per card on CUDA
+(more ranks than cards is refused) or gloo ranks with ``--device cpu``;
+each builds the same sharded engine, drawing only its shards of the
+weights, and rank 0 prints the run and the ``[serve/mesh]``
+communication roofline (per-card HBM beside the card-to-card link).
+``--overlap ring`` runs the row-parallel epilogues as ring matmuls:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh 1,2 --batch 3 --prompt-len 12 --new-tokens 6 --slots 2
+
 The reference's other flags: ``--backend`` has no counterpart, since the
 port has one kernel backend per op; ``--chip`` takes ``sheet`` or
-``measured`` here (the card), not a TPU; ``--mesh``, ``--overlap``,
-``--router``, ``--roles`` and ``--link`` come with tensor parallelism and
-the serving tier (ROADMAP queue 1 items 11 and 12).
+``measured`` here (the card), not a TPU; dp > 1 in ``--mesh``,
+``--router``, ``--roles`` and ``--link`` come with the serving tier
+(ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -100,20 +111,23 @@ import torch
 from ..configs import ALL_ARCHS, get_config, smoke
 from ..core.roofline import microbench
 from ..core.roofline.hardware import H100_SXM
-from ..core.roofline.report import (ATTAINMENT_HEADER, attainment_rows,
+from ..core.roofline.report import (ATTAINMENT_HEADER, COMM_HEADER,
+                                    attainment_rows, comm_terms_row,
                                     text_table)
 from ..device import resolve_device, synchronize
 from ..models import init_params
 from ..models.params import torch_dtype
 from ..obs.clock import now
+from ..parallel.mesh import make_host_mesh, rank_device, spawn
 from ..serve import (Engine, EngineConfig, GenerateConfig, SpecConfig,
-                     SpecEngine, sampling, speculative_summary,
-                     supports_spec)
+                     SpecEngine, make_engine, param_pspecs, parse_mesh,
+                     sampling, speculative_summary, supports_spec,
+                     tp_sharding_error)
 from ..serve.crosscheck import capacity_report
 from ..serve.kv_cache import supports_paging
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ALL_ARCHS), default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
@@ -173,27 +187,82 @@ def main(argv=None):
     ap.add_argument("--chip", choices=["sheet", "measured"], default="sheet",
                     help="price the roofline on the data sheet (H100 SXM) "
                          "or on the card's measured betas (microbench)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", default="1,1",
+                    help="dp,tp: tensor-parallel ranks (dp > 1 is the "
+                         "serving tier, not ported)")
+    ap.add_argument("--overlap", choices=["none", "ring"], default="none",
+                    help="tensor-parallel epilogue: blocking all-reduce or "
+                         "ring matmul")
+    return ap
 
+
+def _model_config(args):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    dp, tp = parse_mesh(args.mesh)
+    if dp != 1:
+        raise SystemExit(f"--mesh {args.mesh}: dp > 1 (serving replicas "
+                         "behind a router) is ROADMAP queue 1 item 12")
+    if tp < 1:
+        raise SystemExit(f"--mesh {args.mesh}: tp must be >= 1")
+    if tp == 1:
+        return _serve(args)
+    err = tp_sharding_error(_model_config(args), tp)
+    if err:
+        raise SystemExit(err)
     dev = resolve_device(args.device)
-    roof = None
+    if dev.type == "cuda" and torch.cuda.device_count() < tp:
+        raise SystemExit(
+            f"--mesh 1,{tp} runs one NCCL rank per card; this machine has "
+            f"{torch.cuda.device_count()} card(s) (use --device cpu for "
+            "gloo ranks on the CPU)")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    # measured once, here, before any rank starts: the ici probes take
+    # cards 0 and 1 and must not run beside the ranks or each other
+    roof = (microbench.run_microbench(device=rank_device(0, args.device))
+            if args.chip == "measured" else None)
+    spawn(_serve_rank, tp, backend=backend, device=dev.type,
+          args=(args, roof))
+
+
+def _serve_rank(rank: int, world: int, args, roof) -> None:
+    """One tensor-parallel rank of :func:`main`; rank 0 prints."""
+    _serve(args, tp=world, rank=rank, roof=roof)
+
+
+def _serve(args, tp: int = 1, rank: int = 0, roof=None) -> None:
+    """Serve on one card, or as rank ``rank`` of ``tp``; ``roof`` is the
+    microbenchmark result measured before the ranks started (``--chip
+    measured`` at tp > 1)."""
+    say = print if rank == 0 else (lambda *a, **k: None)
+    cfg = _model_config(args)
+    dev = (resolve_device(args.device) if tp == 1
+           else rank_device(rank, args.device))
+    mesh = make_host_mesh(1, tp) if tp > 1 else None
     chip = H100_SXM
     if args.chip == "measured":
-        roof = microbench.run_microbench(device=dev)
+        if roof is None:
+            roof = microbench.run_microbench(device=dev)
         chip = roof.to_chipspec()
-        print(f"[serve/chip] {chip.name}: beta hbm "
-              f"{chip.hbm_bw / 1e12:.3f} TB/s, vmem (L2-resident stream) "
-              f"{chip.vmem_bw / 1e12:.3f} TB/s, host (pinned copy) "
-              f"{chip.host_bw / 1e9:.2f} GB/s, host overlap "
-              f"{roof.overlap.get('host', float('nan')):.2f}")
+        say(f"[serve/chip] {chip.name}: beta hbm "
+            f"{chip.hbm_bw / 1e12:.3f} TB/s, vmem (L2-resident stream) "
+            f"{chip.vmem_bw / 1e12:.3f} TB/s, host (pinned copy) "
+            f"{chip.host_bw / 1e9:.2f} GB/s, host overlap "
+            f"{roof.overlap.get('host', float('nan')):.2f}")
     telemetry = bool(args.trace or args.metrics_snapshot)
     gen_ = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(cfg, gen_, dev)
+    # a rank draws the whole generator sequence but keeps its shards only
+    params = init_params(cfg, gen_, dev, **(
+        {} if mesh is None else dict(specs=param_pspecs(cfg, mesh),
+                                     mesh=mesh)))
     if not supports_paging(cfg):
         if telemetry or args.spec != "off":
             raise SystemExit(f"{cfg.name}: the static engine takes no "
@@ -206,11 +275,10 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk, pipeline=args.pipeline,
         kv_dtype=args.kv_dtype, device=dev, chip=chip, telemetry=telemetry,
         prefix_cache=args.prefix_cache, num_pages=args.num_pages or None,
-        watermark=args.watermark, preempt_mode=args.preempt)
+        watermark=args.watermark, preempt_mode=args.preempt,
+        overlap=args.overlap)
     scfg = None
-    if args.spec == "off":
-        engine = Engine(cfg, params, ecfg)
-    else:
+    if args.spec != "off":
         if not supports_spec(cfg):
             raise SystemExit(f"{cfg.name}: --spec needs attention/MLA "
                              "mixers throughout")
@@ -228,6 +296,12 @@ def main(argv=None):
         else:
             scfg = SpecConfig(k=args.spec_k, proposer="ngram",
                               adaptive=args.spec_k_adaptive)
+    if mesh is not None:
+        engine = make_engine(cfg, params, ecfg, scfg, mesh_shape=(1, tp),
+                             mesh=mesh)
+    elif scfg is None:
+        engine = Engine(cfg, params, ecfg)
+    else:
         engine = SpecEngine(cfg, params, ecfg, scfg)
     rng = np.random.default_rng(args.seed)
     gen = GenerateConfig(max_new_tokens=args.new_tokens,
@@ -244,36 +318,46 @@ def main(argv=None):
         engine.obs.harvest(engine)    # the last window ends with the run
     n_tok = sum(len(r.generated) for r in reqs)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[serve] {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = "
-          f"{n_tok / dt:.1f} tok/s over {slots} slots on {where} "
-          f"(pipeline {args.pipeline}), kv_dtype {engine.cfg.kv_dtype}")
+    say(f"[serve] {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = "
+        f"{n_tok / dt:.1f} tok/s over {slots} slots on {where} "
+        f"(pipeline {args.pipeline}), kv_dtype {engine.cfg.kv_dtype}"
+        + (f", tp {tp} over {mesh.backend}, overlap {args.overlap}"
+           if mesh is not None else ""))
     for r in reqs:
         t = engine.roofline_terms(r)
         lat = r.latency_stats()
-        print(f"  req {r.request_id}: {len(r.generated)} tok, "
-              f"ttft {lat['ttft_s'] * 1e3:.1f} ms, itl p50 "
-              f"{lat['itl_p50_s'] * 1e3:.2f} ms p95 "
-              f"{lat['itl_p95_s'] * 1e3:.2f} ms, "
-              f"AI={t.arithmetic_intensity:.2f} FLOP/B, {t.bound_class()}, "
-              f"mean batch {r.ledger.mean_batch:.2f}")
+        say(f"  req {r.request_id}: {len(r.generated)} tok, "
+            f"ttft {lat['ttft_s'] * 1e3:.1f} ms, itl p50 "
+            f"{lat['itl_p50_s'] * 1e3:.2f} ms p95 "
+            f"{lat['itl_p95_s'] * 1e3:.2f} ms, "
+            f"AI={t.arithmetic_intensity:.2f} FLOP/B, {t.bound_class()}, "
+            f"mean batch {r.ledger.mean_batch:.2f}")
+    if mesh is not None:
+        # which roof binds decode at this width: per-card HBM or the link
+        say(f"[serve/mesh] communication roofline (tp={tp}, "
+            f"{mesh.backend}; ici beta {chip.ici_bw / 1e9:.0f} GB/s):")
+        say(text_table([comm_terms_row(f"req {r.request_id}",
+                                       engine.roofline_terms(r))
+                        for r in reqs[:4]], COMM_HEADER))
     cap = capacity_report(engine)
-    print(f"[serve/capacity] pages peak={cap['pages_peak']}"
-          f"/{cap['pages_total']} ({cap['page_bytes']} B/page), "
-          f"deduped={cap['pages_deduped']} cow={cap['cow_copies']} "
-          f"preemptions={cap['preemptions']}, effective batch "
-          f"{cap['effective_batch']} vs capacity-implied max "
-          f"{cap['capacity_max_batch']} on {chip.name}")
+    say(f"[serve/capacity] pages peak={cap['pages_peak']}"
+        f"/{cap['pages_total']} ({cap['page_bytes']} B/page), "
+        f"deduped={cap['pages_deduped']} cow={cap['cow_copies']} "
+        f"preemptions={cap['preemptions']}, effective batch "
+        f"{cap['effective_batch']} vs capacity-implied max "
+        f"{cap['capacity_max_batch']} on {chip.name}")
     if scfg is not None:
         s = speculative_summary(cfg, reqs, args.spec_k,
                                 args.prompt_len + args.new_tokens // 2,
                                 draft_cfg=scfg.draft_cfg)
-        print(f"[serve/spec] proposer={args.spec} k={args.spec_k} "
-              f"acceptance={s['acceptance_rate']:.2f} (random weights) "
-              f"tokens/pass={s['tokens_per_pass']:.2f} (predicted "
-              f"{s['predicted_tokens_per_pass']:.2f}), predicted "
-              f"memory-bound speedup x{s['predicted_speedup']:.2f}")
-    _export_telemetry(args, engine, roof)
-    print("[serve] first sequence:", reqs[0].generated[:16])
+        say(f"[serve/spec] proposer={args.spec} k={args.spec_k} "
+            f"acceptance={s['acceptance_rate']:.2f} (random weights) "
+            f"tokens/pass={s['tokens_per_pass']:.2f} (predicted "
+            f"{s['predicted_tokens_per_pass']:.2f}), predicted "
+            f"memory-bound speedup x{s['predicted_speedup']:.2f}")
+    if rank == 0:
+        _export_telemetry(args, engine, roof)
+    say("[serve] first sequence:", reqs[0].generated[:16])
 
 
 def _run_static(args, cfg, params, dev) -> None:

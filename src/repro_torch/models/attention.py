@@ -23,6 +23,7 @@ import torch
 from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
+from ..parallel.collectives import row_parallel_matmul
 from .common import ModelConfig
 from .layers import apply_rope, rms_head_norm, rope_cos_sin
 from .params import ParamDef, torch_dtype
@@ -37,17 +38,23 @@ def attn_defs(cfg: ModelConfig, cross: bool = False
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.dtype
     defs = {
-        "wq": ParamDef((D, H, hd), dt, fan_in_axes=(0,)),
-        "wk": ParamDef((D, KV, hd), dt, fan_in_axes=(0,)),
-        "wv": ParamDef((D, KV, hd), dt, fan_in_axes=(0,)),
-        "wo": ParamDef((H, hd, D), dt, fan_in_axes=(0, 1)),
+        "wq": ParamDef((D, H, hd), dt, fan_in_axes=(0,),
+                       logical=("d_model", "heads", "head_dim")),
+        "wk": ParamDef((D, KV, hd), dt, fan_in_axes=(0,),
+                       logical=("d_model", "kv_heads", "head_dim")),
+        "wv": ParamDef((D, KV, hd), dt, fan_in_axes=(0,),
+                       logical=("d_model", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, hd, D), dt, fan_in_axes=(0, 1),
+                       logical=("heads", "head_dim", "d_model")),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), "float32", init="ones")
-        defs["k_norm"] = ParamDef((hd,), "float32", init="ones")
+        defs["q_norm"] = ParamDef((hd,), "float32", init="ones",
+                                  logical=("head_dim",))
+        defs["k_norm"] = ParamDef((hd,), "float32", init="ones",
+                                  logical=("head_dim",))
     if cross:
         # tanh-gated residual (llama-3.2-vision style, init 0 = identity)
-        defs["gate"] = ParamDef((), "float32", init="zeros")
+        defs["gate"] = ParamDef((), "float32", init="zeros", logical=())
     return defs
 
 
@@ -67,10 +74,17 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], -1)).view(B, S, *w.shape[1:])
 
 
-def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, hd) @ (H, hd, D) -> (B, S, D)."""
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """(B, S, H, hd) @ (H, hd, D) -> (B, S, D).  Under tensor parallelism
+    (``cfg.tp_axis``) the rank holds its heads only, so the product is a
+    partial sum: the row-parallel edge all-reduces it over the axis (the
+    reference's o-projection psum), or runs it as the ring matmul with
+    ``cfg.tp_overlap`` "ring"."""
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return row_parallel_matmul(o.reshape(B, S, -1),
+                               wo.reshape(-1, wo.shape[-1]), cfg.tp_axis,
+                               cfg.tp_overlap)
 
 
 def _project_qkv(p, x: torch.Tensor, kv_src: torch.Tensor, cfg: ModelConfig,
@@ -147,7 +161,7 @@ def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         o = _attn_core(q, k, v, q_pos, k_pos, causal=causal, scale=scale,
                        soft_cap=cfg.attn_logit_soft_cap)
-    out = _out_proj(o, p["wo"])
+    out = _out_proj(o, p["wo"], cfg)
     if cross and "gate" in p:
         out = torch.tanh(p["gate"]).to(out.dtype) * out
     return out, {"k": k, "v": v}
@@ -171,11 +185,13 @@ def paged_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int
     KV, hd = cfg.n_kv_heads, cfg.hd
     store = kvq.store_dtype(cfg.kv_dtype, cfg.dtype)
     shape = (num_pages, page_size, KV, hd)
-    defs = {"k": ParamDef(shape, store, init="zeros"),
-            "v": ParamDef(shape, store, init="zeros")}
+    axes = ("none", "kv_seq", "kv_heads", "head_dim")
+    defs = {"k": ParamDef(shape, store, init="zeros", logical=axes),
+            "v": ParamDef(shape, store, init="zeros", logical=axes)}
     if kvq.is_quantized(cfg.kv_dtype):
         for name in ("k_scale", "v_scale"):
-            defs[name] = ParamDef(shape[:-1], "float32", init="ones")
+            defs[name] = ParamDef(shape[:-1], "float32", init="ones",
+                                  logical=axes[:-1])
     return defs
 
 
@@ -236,7 +252,7 @@ def decode_attention_paged(
             soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
             v_scale=pool.get("v_scale"), pipeline=pipeline
         ).reshape(B, 1, H, hd)
-    return _out_proj(o.to(x.dtype), p["wo"])
+    return _out_proj(o.to(x.dtype), p["wo"], cfg)
 
 
 def decode_verify_paged(
@@ -273,7 +289,7 @@ def decode_verify_paged(
             soft_cap=cfg.attn_logit_soft_cap, k_scale=pool.get("k_scale"),
             v_scale=pool.get("v_scale"), pipeline=pipeline
         ).reshape(B, T, H, hd)
-    return _out_proj(o.to(x.dtype), p["wo"])
+    return _out_proj(o.to(x.dtype), p["wo"], cfg)
 
 
 def prefill_attention_paged(
@@ -302,7 +318,7 @@ def prefill_attention_paged(
     o = _attn_core(q.reshape(B, T, KV, G, hd), k, v, idx[None, :], k_pos,
                    causal=True, scale=1.0 / (hd ** 0.5),
                    soft_cap=cfg.attn_logit_soft_cap).reshape(B, T, H, hd)
-    return _out_proj(o, p["wo"])
+    return _out_proj(o, p["wo"], cfg)
 
 
 # --------------------------------------------------------------------------
@@ -326,8 +342,9 @@ def init_cache_defs(cfg: ModelConfig, batch: int, max_len: int
     """Dense decode cache k/v (batch, dense_lines(max_len), KV, hd),
     zeros."""
     shape = (batch, dense_lines(max_len), cfg.n_kv_heads, cfg.hd)
-    return {"k": ParamDef(shape, cfg.dtype, init="zeros"),
-            "v": ParamDef(shape, cfg.dtype, init="zeros")}
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ParamDef(shape, cfg.dtype, init="zeros", logical=axes),
+            "v": ParamDef(shape, cfg.dtype, init="zeros", logical=axes)}
 
 
 def identity_tables(batch: int, lines: int, device) -> torch.Tensor:
@@ -373,4 +390,4 @@ def decode_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                             cache["v"], pos, scale=1.0 / (hd ** 0.5),
                             soft_cap=cfg.attn_logit_soft_cap
                             ).reshape(B, 1, H, hd)
-    return _out_proj(o.to(x.dtype), p["wo"])
+    return _out_proj(o.to(x.dtype), p["wo"], cfg)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.roofline.op_cost import named_scope
+from ..parallel.collectives import all_gather_cols, row_parallel_matmul
 from .common import ModelConfig
 from .params import ParamDef, torch_dtype
 
@@ -27,9 +28,11 @@ from .params import ParamDef, torch_dtype
 def norm_defs(cfg: ModelConfig, dim: Optional[int] = None
               ) -> Dict[str, ParamDef]:
     d = dim or cfg.d_model
-    defs = {"scale": ParamDef((d,), "float32", init="ones")}
+    defs = {"scale": ParamDef((d,), "float32", init="ones",
+                              logical=("d_model",))}
     if cfg.norm == "layer":
-        defs["bias"] = ParamDef((d,), "float32", init="zeros")
+        defs["bias"] = ParamDef((d,), "float32", init="zeros",
+                                  logical=("d_model",))
     return defs
 
 
@@ -97,18 +100,23 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
     F_ = d_ff or cfg.d_ff
     dt = cfg.dtype
     defs = {
-        "w_up": ParamDef((D, F_), dt),
-        "w_down": ParamDef((F_, D), dt, fan_in_axes=(0,)),
+        "w_up": ParamDef((D, F_), dt, logical=("d_model", "d_ff")),
+        "w_down": ParamDef((F_, D), dt, fan_in_axes=(0,),
+                           logical=("d_ff", "d_model")),
     }
     if is_glu(cfg.act):
-        defs["w_gate"] = ParamDef((D, F_), dt)
+        defs["w_gate"] = ParamDef((D, F_), dt, logical=("d_model", "d_ff"))
     return defs
 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense FFN.  Under tensor parallelism (``cfg.tp_axis``) the rank
+    holds its slice of d_ff, so the down-projection contracts a partial
+    inner dim and the row-parallel edge sums it over the axis."""
     h = x @ p["w_up"]
     g = x @ p["w_gate"] if "w_gate" in p else None
-    return activate(h, g, cfg.act) @ p["w_down"]
+    return row_parallel_matmul(activate(h, g, cfg.act), p["w_down"],
+                               cfg.tp_axis, cfg.tp_overlap)
 
 
 # --------------------------------------------------------------------------
@@ -117,12 +125,14 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     V, D = cfg.vocab_size, cfg.d_model
-    defs = {"tok": ParamDef((V, D), "float32", init="embed", scale=0.02)}
+    defs = {"tok": ParamDef((V, D), "float32", init="embed", scale=0.02,
+                            logical=("vocab", "d_model"))}
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((D, V), cfg.dtype)
+        defs["head"] = ParamDef((D, V), cfg.dtype, logical=("d_model", "vocab"))
     if cfg.pos_emb == "learned":
         defs["pos"] = ParamDef((min(cfg.max_seq_len, 65536), D), "float32",
-                               init="embed", scale=0.02)
+                               init="embed", scale=0.02,
+                               logical=("seq", "d_model"))
     return defs
 
 
@@ -147,9 +157,17 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def logits_from_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits over the vocabulary.  Under tensor parallelism an untied
+    head is vocab-sharded, so the rank computed V/n columns and the edge
+    all-gathers them (``cfg.vocab_size`` stays global in the local config,
+    which is how the edge tells); a tied table is replicated for the
+    token lookup and gives full rows already."""
     with named_scope("logits"):
         w = tied_head(p, cfg).T if cfg.tie_embeddings else p["head"]
-        return x @ w
+        out = x @ w
+        if cfg.tp_axis is not None and out.shape[-1] != cfg.vocab_size:
+            out = all_gather_cols(out, cfg.tp_axis)
+        return out
 
 
 # --------------------------------------------------------------------------

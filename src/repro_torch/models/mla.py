@@ -67,16 +67,23 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     dt = cfg.dtype
     defs: Dict[str, ParamDef] = {}
     if r_q:
-        defs["wq_a"] = ParamDef((D, r_q), dt)
-        defs["q_a_norm"] = ParamDef((r_q,), "float32", init="ones")
-        defs["wq_b"] = ParamDef((r_q, H, dn + dr), dt, fan_in_axes=(0,))
+        defs["wq_a"] = ParamDef((D, r_q), dt, logical=("d_model", "none"))
+        defs["q_a_norm"] = ParamDef((r_q,), "float32", init="ones",
+                                    logical=("none",))
+        defs["wq_b"] = ParamDef((r_q, H, dn + dr), dt, fan_in_axes=(0,),
+                                logical=("none", "heads", "head_dim"))
     else:
-        defs["wq"] = ParamDef((D, H, dn + dr), dt, fan_in_axes=(0,))
-    defs["wkv_a"] = ParamDef((D, r_kv + dr), dt)
-    defs["kv_a_norm"] = ParamDef((r_kv,), "float32", init="ones")
-    defs["wk_b"] = ParamDef((r_kv, H, dn), dt, fan_in_axes=(0,))
-    defs["wv_b"] = ParamDef((r_kv, H, dv), dt, fan_in_axes=(0,))
-    defs["wo"] = ParamDef((H, dv, D), dt, fan_in_axes=(0, 1))
+        defs["wq"] = ParamDef((D, H, dn + dr), dt, fan_in_axes=(0,),
+                              logical=("d_model", "heads", "head_dim"))
+    defs["wkv_a"] = ParamDef((D, r_kv + dr), dt, logical=("d_model", "none"))
+    defs["kv_a_norm"] = ParamDef((r_kv,), "float32", init="ones",
+                                 logical=("none",))
+    defs["wk_b"] = ParamDef((r_kv, H, dn), dt, fan_in_axes=(0,),
+                            logical=("none", "heads", "head_dim"))
+    defs["wv_b"] = ParamDef((r_kv, H, dv), dt, fan_in_axes=(0,),
+                            logical=("none", "heads", "head_dim"))
+    defs["wo"] = ParamDef((H, dv, D), dt, fan_in_axes=(0, 1),
+                          logical=("heads", "head_dim", "d_model"))
     return defs
 
 
@@ -144,7 +151,7 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig,
                        for i in range(0, S, chunk)], dim=1)
     else:
         o = chunk_attn(q_nope, q_rope, q_positions)
-    return _out_proj(o, p["wo"]), {"c_kv": c_kv, "k_rope": k_rope}
+    return _out_proj(o, p["wo"], cfg), {"c_kv": c_kv, "k_rope": k_rope}
 
 
 # --------------------------------------------------------------------------
@@ -161,14 +168,14 @@ def mla_paged_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int
     store = kvq.store_dtype(cfg.kv_dtype, cfg.dtype)
     defs = {
         "c_kv": ParamDef((num_pages, page_size, cfg.kv_lora_rank), store,
-                         init="zeros"),
+                         init="zeros", logical=("none", "kv_seq", "none")),
         "k_rope": ParamDef((num_pages, page_size, cfg.rope_head_dim), store,
-                           init="zeros"),
+                           init="zeros", logical=("none", "kv_seq", "none")),
     }
     if kvq.is_quantized(cfg.kv_dtype):
         for name in ("c_kv_scale", "k_rope_scale"):
             defs[name] = ParamDef((num_pages, page_size), "float32",
-                                  init="ones")
+                                  init="ones", logical=("none", "kv_seq"))
     return defs
 
 
@@ -195,7 +202,7 @@ def _mla_attend(p, q_nope: torch.Tensor, q_rope: torch.Tensor,
         s = torch.where(valid[:, None], s.float() * scale, NEG_INF)
         w = torch.softmax(s, dim=-1).to(v.dtype)
         o = torch.einsum("bhqs,bshk->bqhk", w, v)
-    return _out_proj(o, p["wo"])
+    return _out_proj(o, p["wo"], cfg)
 
 
 def mla_decode_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
@@ -229,7 +236,7 @@ def mla_decode_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
             scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
             r_scale=pool.get("k_rope_scale"), pipeline=pipeline)  # (B,H,r)
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["wv_b"])
-    return _out_proj(o[:, None], p["wo"])
+    return _out_proj(o[:, None], p["wo"], cfg)
 
 
 def mla_decode_verify_paged(p, x: torch.Tensor,
@@ -268,7 +275,7 @@ def mla_decode_verify_paged(p, x: torch.Tensor,
             scale=1.0 / ((dn + dr) ** 0.5), c_scale=pool.get("c_kv_scale"),
             r_scale=pool.get("k_rope_scale"), pipeline=pipeline)  # (B,T,H,r)
     o = torch.einsum("bqhr,rhk->bqhk", o_lat.to(x.dtype), p["wv_b"])
-    return _out_proj(o, p["wo"])
+    return _out_proj(o, p["wo"], cfg)
 
 
 def mla_prefill_paged(p, x: torch.Tensor, pool: Dict[str, torch.Tensor],
@@ -307,10 +314,11 @@ def mla_cache_defs(cfg: ModelConfig, batch: int, max_len: int
     """Dense latent cache c_kv (batch, dense_lines(max_len), r) and k_rope
     (batch, dense_lines(max_len), dr), zeros."""
     S = dense_lines(max_len)
+    axes = ("batch", "kv_seq", "none")
     return {"c_kv": ParamDef((batch, S, cfg.kv_lora_rank), cfg.dtype,
-                             init="zeros"),
+                             init="zeros", logical=axes),
             "k_rope": ParamDef((batch, S, cfg.rope_head_dim), cfg.dtype,
-                               init="zeros")}
+                               init="zeros", logical=axes)}
 
 
 def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],

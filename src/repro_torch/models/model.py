@@ -11,23 +11,40 @@ import torch
 from ..device import resolve_device
 from . import transformer as tfm
 from .common import ModelConfig
-from .params import instantiate, torch_dtype, tree_count
+from .params import instantiate, torch_dtype, tree_count, tree_map
 
 
 def model_param_defs(cfg: ModelConfig):
     return tfm.model_defs(cfg)
 
 
+def param_shardings(cfg: ModelConfig, mesh, rules=None):
+    """The spec of every parameter leaf on ``mesh`` under ``rules``
+    (parallel/sharding.py ``DEFAULT`` when None)."""
+    from ..parallel import sharding as shd
+    return shd.tree_specs(model_param_defs(cfg), mesh, rules or shd.DEFAULT)
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: Union[str, torch.device] = "cuda"):
+                device: Union[str, torch.device] = "cuda", *, specs=None,
+                mesh=None):
     """Random weights drawn from ``generator`` (a fresh one seeded 0 on
-    ``device`` when None), placed on ``device``."""
+    ``device`` when None), placed on ``device``.  With ``specs`` (a spec
+    tree, e.g. serve/shard.py ``param_pspecs``) and ``mesh``, each leaf
+    is drawn whole from the same generator sequence and replaced by this
+    rank's block before the next is drawn: every rank of a mesh gets its
+    shard of the same weights, and none holds the whole tree."""
+    from ..parallel.sharding import shard_leaf
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    defs = model_param_defs(cfg)
     with torch.no_grad():
-        return prepare_params(instantiate(model_param_defs(cfg), generator,
-                                          dev), cfg)
+        if specs is None:
+            return prepare_params(instantiate(defs, generator, dev), cfg)
+        return prepare_params(tree_map(
+            lambda d, sp: shard_leaf(d.instantiate(generator, dev), sp,
+                                     mesh), defs, specs), cfg)
 
 
 def prepare_params(params, cfg: ModelConfig):

@@ -18,8 +18,10 @@ stable like ``jnp.argsort``, the out-of-range "drop" index E*C lands in
 one spare row that is cut off, and the combine scatter-adds into an
 (N+1, D) buffer whose last row is the pad sentinel.  At decode the
 expert products read every expert's weights, as the reference's do.
-The data-local dispatch (``moe_dispatch="local"``) is tensor-parallel
-work: ROADMAP queue 1 item 11.
+The data-local dispatch (``moe_dispatch="local"``) groups tokens by the
+mesh's data axis, which the tensor-parallel serve step does not have
+(serve/shard.py refuses MoE): it comes with training, ROADMAP queue 1
+item 14.
 """
 
 from __future__ import annotations
@@ -38,12 +40,15 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     dt = cfg.dtype
     defs: Dict[str, ParamDef] = {
-        "router": ParamDef((D, E), "float32"),
-        "w_up": ParamDef((E, D, F), dt, fan_in_axes=(1,)),
-        "w_down": ParamDef((E, F, D), dt, fan_in_axes=(1,)),
+        "router": ParamDef((D, E), "float32", logical=("d_model", "none")),
+        "w_up": ParamDef((E, D, F), dt, fan_in_axes=(1,),
+                         logical=("experts", "d_model", "d_ff")),
+        "w_down": ParamDef((E, F, D), dt, fan_in_axes=(1,),
+                           logical=("experts", "d_ff", "d_model")),
     }
     if is_glu(cfg.act):
-        defs["w_gate"] = ParamDef((E, D, F), dt, fan_in_axes=(1,))
+        defs["w_gate"] = ParamDef((E, D, F), dt, fan_in_axes=(1,),
+                                  logical=("experts", "d_model", "d_ff"))
     if cfg.n_shared_experts:
         defs["shared"] = mlp_defs(cfg,
                                   d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
@@ -113,7 +118,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
     if cfg.moe_dispatch == "local":
         raise NotImplementedError(
             "moe_dispatch='local' (data-local expert dispatch) is not "
-            "ported yet: ROADMAP queue 1 item 11")
+            "ported yet: ROADMAP queue 1 item 14")
     out = _moe_global(p, xf, gates, eids, C, cfg)
     if cfg.n_shared_experts:
         out = out + apply_mlp(p["shared"], xf, cfg)

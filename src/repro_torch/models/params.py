@@ -2,10 +2,12 @@
 instantiated from an explicit ``torch.Generator``.
 
 Counterpart of ``ParamDef`` / ``stack_defs`` / ``tree_instantiate`` in the
-JAX package's ``parallel/sharding.py``, minus the logical sharding axes
-(sharding is not ported yet).  The init rules are the same; the numbers
-are not, since torch's generator is not JAX's — tests carry JAX weights
-across with :mod:`repro_torch.bridge` instead.
+JAX package's ``parallel/sharding.py``.  Each leaf names its dims'
+logical axes (``logical``: "heads", "d_ff", ...), which
+``parallel/sharding.py`` resolves against a mesh; ``stack_defs``
+prepends "layers".  The init rules are the same; the numbers are not,
+since torch's generator is not JAX's — tests carry JAX weights across
+with :mod:`repro_torch.bridge` instead.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ class ParamDef:
     init: str = "lecun"          # lecun | zeros | ones | normal | embed
     fan_in_axes: Tuple[int, ...] = (-1,)  # axes whose product is fan-in
     scale: float = 1.0
+    # logical axis name per dim (parallel/sharding.py DEFAULT_RULES keys)
+    logical: Tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        if len(self.logical) != len(self.shape):
+            raise ValueError(f"shape {self.shape} vs logical {self.logical}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -98,7 +106,7 @@ def stack_defs(defs: Any, n: int) -> Any:
     """Prepend a stacked ``(reps, ...)`` layer axis to every ParamDef."""
     def f(d: ParamDef) -> ParamDef:
         return dataclasses.replace(
-            d, shape=(n,) + d.shape,
+            d, shape=(n,) + d.shape, logical=("layers",) + d.logical,
             fan_in_axes=tuple(a if a < 0 else a + 1 for a in d.fan_in_axes))
     return tree_map(f, defs)
 

@@ -35,14 +35,18 @@ def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
                       cfg.dt_rank, cfg.mamba_conv_width)
     dt = cfg.dtype
     return {
-        "in_proj": ParamDef((D, 2 * di), dt),
-        "conv_w": ParamDef((di, W), "float32", init="normal", scale=10.0),
-        "x_proj": ParamDef((di, R + 2 * N), dt),
-        "dt_proj": ParamDef((R, di), "float32"),
-        "dt_bias": ParamDef((di,), "float32", init="zeros"),
-        "A_log": ParamDef((di, N), "float32", init="ones"),
-        "D_skip": ParamDef((di,), "float32", init="ones"),
-        "out_proj": ParamDef((di, D), dt, fan_in_axes=(0,)),
+        "in_proj": ParamDef((D, 2 * di), dt, logical=("d_model", "d_ff")),
+        "conv_w": ParamDef((di, W), "float32", init="normal", scale=10.0,
+                           logical=("d_ff", "none")),
+        "x_proj": ParamDef((di, R + 2 * N), dt, logical=("d_ff", "none")),
+        "dt_proj": ParamDef((R, di), "float32", logical=("none", "d_ff")),
+        "dt_bias": ParamDef((di,), "float32", init="zeros",
+                            logical=("d_ff",)),
+        "A_log": ParamDef((di, N), "float32", init="ones",
+                          logical=("d_ff", "state")),
+        "D_skip": ParamDef((di,), "float32", init="ones", logical=("d_ff",)),
+        "out_proj": ParamDef((di, D), dt, fan_in_axes=(0,),
+                             logical=("d_ff", "d_model")),
     }
 
 
@@ -51,8 +55,10 @@ def state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
     tail (batch, W-1, d_inner) in the model dtype, both zeros."""
     di, N, W = cfg.d_inner, cfg.mamba_d_state, cfg.mamba_conv_width
     return {
-        "h": ParamDef((batch, di, N), "float32", init="zeros"),
-        "conv": ParamDef((batch, W - 1, di), cfg.dtype, init="zeros"),
+        "h": ParamDef((batch, di, N), "float32", init="zeros",
+                      logical=("batch", "d_ff", "state")),
+        "conv": ParamDef((batch, W - 1, di), cfg.dtype, init="zeros",
+                         logical=("batch", "none", "d_ff")),
     }
 
 

@@ -61,9 +61,6 @@ def check_supported(cfg: ModelConfig) -> None:
                     raise NotImplementedError(
                         f"{cfg.name}: {kind!r} blocks are not ported yet: "
                         f"ROADMAP queue 1 item {_TODO[kind]}")
-    if cfg.tp_axis is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet: "
-                                  "ROADMAP queue 1 item 11")
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -120,7 +117,8 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
             "blocks": stack_defs(enc_unit, cfg.n_encoder_layers),
             "final_norm": norm_defs(cfg),
             "pos": ParamDef((cfg.n_audio_frames, cfg.d_model), "float32",
-                            init="embed", scale=0.02),
+                            init="embed", scale=0.02,
+                            logical=("seq", "d_model")),
         }
     return defs
 
@@ -342,7 +340,7 @@ def _cross_attend_cached(p, x: torch.Tensor, ck: torch.Tensor,
         o = attn.dense_attention(q.reshape(B, KV, H // KV, hd), ck, cv,
                                  last, scale=1.0 / (hd ** 0.5)
                                  ).reshape(B, 1, H, hd)
-    out = attn._out_proj(o.to(x.dtype), p["wo"])
+    out = attn._out_proj(o.to(x.dtype), p["wo"], cfg)
     if "gate" in p:
         out = torch.tanh(p["gate"]).to(out.dtype) * out
     return out

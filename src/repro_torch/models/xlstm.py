@@ -44,18 +44,23 @@ def mlstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     W = cfg.mamba_conv_width
     dt = cfg.dtype
     return {
-        "w_up": ParamDef((D, di), dt),
-        "w_z": ParamDef((D, di), dt),
-        "conv_w": ParamDef((di, W), "float32", init="normal"),
-        "wq": ParamDef((di, di), dt),
-        "wk": ParamDef((di, di), dt),
-        "wv": ParamDef((di, di), dt),
-        "wi": ParamDef((di, H), "float32", init="normal"),
-        "bi": ParamDef((H,), "float32", init="zeros"),
-        "wf": ParamDef((di, H), "float32", init="normal"),
-        "bf": ParamDef((H,), "float32", init="ones", scale=3.0),
-        "skip": ParamDef((di,), "float32", init="ones"),
-        "w_down": ParamDef((di, D), dt, fan_in_axes=(0,)),
+        "w_up": ParamDef((D, di), dt, logical=("d_model", "d_ff")),
+        "w_z": ParamDef((D, di), dt, logical=("d_model", "d_ff")),
+        "conv_w": ParamDef((di, W), "float32", init="normal",
+                           logical=("d_ff", "none")),
+        "wq": ParamDef((di, di), dt, logical=("d_ff", "none")),
+        "wk": ParamDef((di, di), dt, logical=("d_ff", "none")),
+        "wv": ParamDef((di, di), dt, logical=("d_ff", "none")),
+        "wi": ParamDef((di, H), "float32", init="normal",
+                       logical=("d_ff", "heads")),
+        "bi": ParamDef((H,), "float32", init="zeros", logical=("heads",)),
+        "wf": ParamDef((di, H), "float32", init="normal",
+                       logical=("d_ff", "heads")),
+        "bf": ParamDef((H,), "float32", init="ones", scale=3.0,
+                       logical=("heads",)),
+        "skip": ParamDef((di,), "float32", init="ones", logical=("d_ff",)),
+        "w_down": ParamDef((di, D), dt, fan_in_axes=(0,),
+                           logical=("d_ff", "d_model")),
     }
 
 
@@ -68,10 +73,14 @@ def mlstm_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
     hd = di // H
     W = cfg.mamba_conv_width
     return {
-        "C": ParamDef((batch, H, hd, hd), "float32", init="zeros"),
-        "n": ParamDef((batch, H, hd), "float32", init="zeros"),
-        "m": ParamDef((batch, H), "float32", init="zeros"),
-        "conv": ParamDef((batch, W - 1, di), cfg.dtype, init="zeros"),
+        "C": ParamDef((batch, H, hd, hd), "float32", init="zeros",
+                      logical=("batch", "heads", "head_dim", "none")),
+        "n": ParamDef((batch, H, hd), "float32", init="zeros",
+                      logical=("batch", "heads", "head_dim")),
+        "m": ParamDef((batch, H), "float32", init="zeros",
+                      logical=("batch", "heads")),
+        "conv": ParamDef((batch, W - 1, di), cfg.dtype, init="zeros",
+                         logical=("batch", "none", "d_ff")),
     }
 
 
@@ -200,11 +209,14 @@ def slstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     dt = cfg.dtype
     defs = {}
     for g in ("z", "i", "f", "o"):
-        defs[f"w_{g}"] = ParamDef((D, H, hd), dt)
-        defs[f"r_{g}"] = ParamDef((H, hd, hd), "float32", init="normal")
+        defs[f"w_{g}"] = ParamDef((D, H, hd), dt,
+                                  logical=("d_model", "heads", "head_dim"))
+        defs[f"r_{g}"] = ParamDef((H, hd, hd), "float32", init="normal",
+                                  logical=("heads", "head_dim", "none"))
         defs[f"b_{g}"] = ParamDef((H, hd), "float32",
-                                  init="ones" if g == "f" else "zeros")
-    defs["out_proj"] = ParamDef((D, D), dt)
+                                  init="ones" if g == "f" else "zeros",
+                                  logical=("heads", "head_dim"))
+    defs["out_proj"] = ParamDef((D, D), dt, logical=("d_model", "none"))
     return defs
 
 
@@ -212,7 +224,8 @@ def slstm_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
     """Per-slot rows: float32 c, n, h, m, each (batch, H, hd), zeros."""
     H = cfg.n_heads
     hd = cfg.d_model // H
-    return {name: ParamDef((batch, H, hd), "float32", init="zeros")
+    return {name: ParamDef((batch, H, hd), "float32", init="zeros",
+                           logical=("batch", "heads", "head_dim"))
             for name in ("c", "n", "h", "m")}
 
 

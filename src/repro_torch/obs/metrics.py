@@ -194,10 +194,10 @@ def harvest_serve(registry: Registry, engine,
     Safe to call repeatedly: cumulative sources land through
     ``Counter.set_total`` (idempotent), per-request latency observations
     are de-duplicated through ``seen`` (request ids the caller keeps
-    between harvests; the Telemetry bundle owns one).  The reference's
-    card-to-card and migration families wait for tensor parallelism and
-    the serving tier (ROADMAP queue 1 items 11-12): one card moves no
-    ``ici`` bytes.
+    between harvests; the Telemetry bundle owns one).  The ``ici`` level
+    is the tensor-parallel wire bytes the ledger charged (0 on one card);
+    the reference's migration families wait for the serving tier (ROADMAP
+    queue 1 item 12).
     """
     led = engine.aggregate_ledger()
 
@@ -214,6 +214,7 @@ def harvest_serve(registry: Registry, engine,
                           ("level",))
     by.set_total(led.decode_vmem_bytes, level="vmem")
     by.set_total(led.decode_bytes, level="hbm")
+    by.set_total(led.decode_ici_bytes, level="ici")
     by.set_total(led.swap_bytes, level="host")
     registry.counter("serve_kv_bytes_total",
                      "KV-line bytes decode attention walked"

@@ -5,6 +5,9 @@ from .kv_cache import PagedKVCache, SwapSnapshot
 from .proposer import (DraftModelProposer, NgramProposer, Proposal,
                        ngram_propose)
 from .scheduler import Request, RequestState, RooflineLedger, Scheduler
+from .shard import (ShardedEngine, ShardedSpecEngine, make_engine,
+                    param_pspecs, parse_mesh, pool_pspecs, supports_tp,
+                    tp_local_config, tp_sharding_error)
 from .spec import (SpecConfig, SpecEngine, adaptive_k,
                    spec_expected_tokens_per_pass, spec_speedup_model,
                    speculative_summary, supports_spec)
@@ -18,4 +21,7 @@ __all__ = [
     "SpecConfig", "SpecEngine", "adaptive_k",
     "spec_expected_tokens_per_pass", "spec_speedup_model",
     "speculative_summary", "supports_spec",
+    "ShardedEngine", "ShardedSpecEngine", "make_engine", "param_pspecs",
+    "parse_mesh", "pool_pspecs", "supports_tp", "tp_local_config",
+    "tp_sharding_error",
 ]

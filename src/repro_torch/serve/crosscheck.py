@@ -41,14 +41,17 @@ ledger up to terms counted from the parameter and pool trees alone
 * :func:`crosscheck_host`: the swap pricing against the walk of the
   gather-and-pack ``PagedKVCache.swap_out`` runs;
 * :func:`overlapped_levels` / :func:`crosscheck_overlap`: the ``vmem``
-  level under ``pipeline="double"`` (the ``ici`` half arrives with
-  tensor parallelism's ``EngineConfig.overlap``, ROADMAP queue 1 item 11);
+  level under ``pipeline="double"`` and the ``ici`` level under the
+  tensor-parallel ring epilogues (``EngineConfig.overlap="ring"``);
+* :func:`crosscheck_collectives`: a sharded engine's charged
+  card-to-card bytes against the ``c10d`` collectives one of its decode
+  steps dispatches (core/roofline/op_collectives.py; a real step on every
+  rank, since fake tensors cannot cross a process group);
 * :func:`capacity_report`: the HBM-capacity axis (pages per request
   beside the weights, and the batch the card's memory would hold).
 
-Not ported yet: the collective cross-check (``crosscheck_collectives``,
-item 11) and the fleet capacity report (``_cluster_capacity_report``,
-item 12).
+Not ported yet: the fleet capacity report (``_cluster_capacity_report``,
+ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ from ..models.common import param_counts
 from ..models.params import torch_dtype, tree_leaves, tree_map
 from . import sampling
 from .kv_cache import gather_slot_pages, pack_leaves, split_leaves
-from .scheduler import (attn_kernel_vmem_bytes, decode_token_bytes,
+from .scheduler import (attn_kernel_vmem_bytes, decode_collective_count,
+                        decode_step_ici_bytes, decode_token_bytes,
                         decode_token_flops, kv_line_bytes,
                         params_bytes_active, slot_swap_bytes)
 
@@ -429,7 +433,8 @@ def step_cost_analysis(engine) -> Dict[str, float]:
     with _abstract() as fake:
         pools = tree_map(fake, kv.pools)
         body = types.SimpleNamespace(
-            params=tree_map(fake, engine.params), cfg=cfg, ecfg=e,
+            params=tree_map(fake, engine.params), cfg=cfg,
+            step_cfg=engine.step_cfg, ecfg=e,
             _kv=types.SimpleNamespace(
                 pools=pools, tables=types.SimpleNamespace(
                     tensor=fake(kv.tables.tensor))),
@@ -666,9 +671,48 @@ def crosscheck_host(engine, n_blocks: Optional[int] = None) -> Dict:
 def overlapped_levels(ecfg) -> List[str]:
     """Memory levels an engine config claims to overlap: ``vmem`` when
     the paged kernels keep page tiles in flight (EngineConfig.pipeline !=
-    "off").  The reference's ``ici`` level arrives with tensor
-    parallelism's ``EngineConfig.overlap``."""
-    return ["vmem"] if ecfg.pipeline != "off" else []
+    "off"), ``ici`` when the tensor-parallel epilogues run as ring
+    matmuls under their chunk products (EngineConfig.overlap != "none")."""
+    out = []
+    if ecfg.pipeline != "off":
+        out.append("vmem")
+    if ecfg.overlap != "none":
+        out.append("ici")
+    return out
+
+
+# the reference's bar on analytic / walked collective bytes
+ICI_RATIO_TOL = 1.15
+
+
+def crosscheck_collectives(engine) -> Dict:
+    """Ledger <-> walk cross-check of the communication roofline axis.
+
+    A sharded engine (serve/shard.py) charges each decode step the
+    analytic per-card wire bytes of ``scheduler.decode_step_ici_bytes``
+    (one ring all-reduce per row-parallel epilogue, one tiled all-gather
+    for an untied vocab-sharded head).  This runs one decode step on
+    every rank under core/roofline/op_collectives.py's walk of the
+    ``c10d`` operators it dispatches, prices them with the ring model and
+    compares; the reference's bar is ``1 / 1.15 <= ici_ratio <= 1.15``.
+    Every rank of the engine's mesh must call it together."""
+    if getattr(engine, "mesh", None) is None:
+        raise ValueError("engine has no tp > 1 mesh; build a "
+                         "ShardedEngine(mesh_shape=(1, tp)) first")
+    cfg, e = engine.cfg, engine.ecfg
+    analytic = decode_step_ici_bytes(cfg, e.num_slots, engine.tp)
+    walk = engine.walk_decode_collectives()
+    return {
+        "analytic_ici_bytes": analytic,
+        "walk_ici_bytes": walk.ici_wire_bytes,
+        "walk_dcn_bytes": walk.dcn_wire_bytes,
+        "ici_ratio": analytic / max(walk.ici_wire_bytes, 1.0),
+        "n_collective_ops": walk.n_ops,
+        "by_kind": dict(walk.by_kind),
+        "ops_by_kind": dict(walk.ops_by_kind),
+        "collective_count_analytic": decode_collective_count(cfg),
+        "tp": engine.tp,
+    }
 
 
 def crosscheck_overlap(engine_off, engine_on, prompts, gen, *,

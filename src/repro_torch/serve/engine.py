@@ -41,7 +41,11 @@ roofline of the engine's ledger and phases.
 
 Speculative decoding subclasses this engine (serve/spec.py) through two
 hooks, :meth:`Engine._kv_margin` and :meth:`Engine._preempt`.  Tensor
-parallelism is not ported yet (ROADMAP queue 1 item 11).
+parallelism (serve/shard.py) subclasses it through three: the device
+steps run ``Engine.step_cfg`` (the shard's local config there, with the
+collective edges), the ledger splits W / Q over :meth:`Engine.
+_ledger_chips` cards and charges :meth:`Engine._step_collective_bytes`
+a step.
 
 :class:`StaticEngine` is the reference's original whole-batch prefill ->
 lockstep decode loop over dense caches (``models.init_cache``), kept as
@@ -124,6 +128,9 @@ class EngineConfig:
     watermark: float = 0.0            # admission slack, fraction of pool
     preempt_mode: str = "swap"        # "swap" | "recompute" on pool-dry
     pipeline: str = "off"             # kernel page streaming: "off"|"double"
+    # tensor-parallel epilogue schedule (serve/shard.py): "none" blocks on
+    # the all-reduce, "ring" runs parallel/collectives.ring_matmul_reduce
+    overlap: str = "none"
     device: Union[str, torch.device] = "cuda"   # "cpu" only when asked
     # KV page storage: None keeps the model config's ``kv_dtype``;
     # "bf16"|"int8"|"fp8_e4m3" rewrite it at engine build
@@ -332,6 +339,9 @@ class Engine:
         check_supported(cfg)
         self.ecfg = ecfg or EngineConfig()
         check_pipeline(self.ecfg.pipeline)
+        if self.ecfg.overlap not in ("none", "ring"):
+            raise ValueError(f"overlap {self.ecfg.overlap!r} not in "
+                             "('none', 'ring')")
         if (self.ecfg.kv_dtype is not None
                 and self.ecfg.kv_dtype != cfg.kv_dtype):
             quantize.validate_kv_dtype(self.ecfg.kv_dtype)
@@ -344,6 +354,9 @@ class Engine:
                              f"{self.device}; init_params(device=...) must "
                              "match EngineConfig.device")
         self.cfg = cfg
+        # the config the device steps and the pools are built from: the
+        # model's own, or a tensor-parallel shard's (serve/shard.py)
+        self.step_cfg = cfg
         self.params = prepare_params(params, cfg)
         self.paged_ok = supports_paging(cfg)
         self._static: Optional[StaticEngine] = None
@@ -391,9 +404,15 @@ class Engine:
                                    f"slot {s}")
 
     def _ledger_chips(self) -> int:
-        """Chips the per-request ledger's W / Q are split across (1: the
-        port serves on one card; tensor parallelism is ROADMAP item 11)."""
+        """Chips the per-request ledger's W / Q are split across (the
+        tensor-parallel width for serve/shard.py's engines)."""
         return 1
+
+    def _step_collective_bytes(self, n_tokens: int) -> float:
+        """Per-card collective wire bytes one packed step feeding
+        ``n_tokens`` tokens a slot moves (0 on one card; the sharded
+        engines price their edges, scheduler.decode_step_ici_bytes)."""
+        return 0.0
 
     def static_engine(self) -> StaticEngine:
         if self._static is None:
@@ -414,7 +433,7 @@ class Engine:
                 self.ecfg, num_slots=num_slots or self.ecfg.num_slots,
                 max_len=max_len or self.ecfg.max_len)
         e = self.ecfg
-        self._kv = PagedKVCache(self.cfg, e.num_slots, e.page_size,
+        self._kv = PagedKVCache(self.step_cfg, e.num_slots, e.page_size,
                                 e.max_len, self.device,
                                 num_pages=e.num_pages,
                                 margin_tokens=self._kv_margin(),
@@ -444,8 +463,8 @@ class Engine:
         self._active_in = StaticInput((n,), torch.bool, self.device)
         self._prefill_in = PrefillInputs(self._kv.blocks_per_slot,
                                          self.device)
-        self._graphs = StepGraphs(self.device, self.graphs, self.cfg, n,
-                                  self._graph_tokens())
+        self._graphs = StepGraphs(self.device, self.graphs, self.step_cfg,
+                                  n, self._graph_tokens())
         self.prefill_shapes = set()
         self.step_count = 0
         self.decode_steps = 0
@@ -669,10 +688,12 @@ class Engine:
             self.prefill_shapes.add(("bucket", S))
             last_logits = self._graphs.run(
                 f"prefill_bucket:{S}", functools.partial(
-                    bucket_prefill_body, self.params, cfg, kv, inp, S))
+                    bucket_prefill_body, self.params, self.step_cfg, kv, inp,
+                    S))
         elif whole:
             last_logits, states = prefill(
-                self.params, cfg, self._tensor(fill[None, :].astype(np.int64)))
+                self.params, self.step_cfg,
+                self._tensor(fill[None, :].astype(np.int64)))
             kv.write_prefill_states(req.slot, states, fill_len)
         else:
             T = end - start
@@ -752,7 +773,7 @@ class Engine:
         inputs (tokens, block-table row, slot, offset): last logits
         (1, V)."""
         inp = self._prefill_in
-        return prefill_chunk_paged(self.params, self.cfg, self._kv.pools,
+        return prefill_chunk_paged(self.params, self.step_cfg, self._kv.pools,
                                    inp.row.tensor, inp.tokens(T).tensor,
                                    inp.offset.tensor,
                                    page_size=self.ecfg.page_size,
@@ -761,7 +782,7 @@ class Engine:
     def _decode_body(self) -> torch.Tensor:
         """The decode step over the persistent inputs (block tables,
         tokens, positions, the active mask): logits (B, V)."""
-        return decode_step_paged(self.params, self.cfg, self._kv.pools,
+        return decode_step_paged(self.params, self.step_cfg, self._kv.pools,
                                  self._kv.tables.tensor, self._tok_in.tensor,
                                  self._pos_in.tensor,
                                  page_size=self.ecfg.page_size,
@@ -804,6 +825,8 @@ class Engine:
             self.obs.tracer.span("decode_step", self._obs_pid, ENGINE_TID,
                                  t0, t1, batch=len(running))
         n_active = len(running)
+        # each request carries its share of the step's collective bytes
+        ici_share = self._step_collective_bytes(1) / n_active
         ph = self._sched.phases["decode"]
         ps = self.ecfg.page_size
         for req in running:
@@ -811,12 +834,12 @@ class Engine:
                                            n_active, ps,
                                            pipeline=self.ecfg.pipeline)
             req.ledger.add_decode_token(self.cfg, req.context_len, n_active,
-                                        vmem_bytes=vmem)
+                                        vmem_bytes=vmem, ici_bytes=ici_share)
             ph.add(flops=decode_token_flops(self.cfg, req.context_len),
                    vmem=vmem,
                    hbm=decode_token_bytes(self.cfg, req.context_len,
                                           n_active),
-                   steps=0, tokens=1)
+                   ici=ici_share, steps=0, tokens=1)
             self._commit_token(req, int(tok_np[req.slot]), t=t1)
         ph.add(wall_s=t1 - t0, steps=1, tokens=0)
 

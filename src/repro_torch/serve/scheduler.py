@@ -34,7 +34,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.roofline.hardware import H100_SXM, ChipSpec, chip_scope
+from ..core.roofline.hardware import H100_SXM, ChipSpec, tp_scope
 from ..core.roofline.model import PhaseTraffic, RooflineTerms, make_terms
 from ..kernels import quantize as kvq
 from ..kernels.paged_attention import gqa_onchip_bytes, mla_onchip_bytes
@@ -195,6 +195,64 @@ def slot_swap_bytes(cfg: ModelConfig, n_blocks: int, page_size: int) -> float:
                  + state_bytes(cfg))
 
 
+@functools.lru_cache(maxsize=None)
+def kv_shard_fraction(cfg: ModelConfig, tp: int) -> float:
+    """Share of the per-token KV line each card holds at tensor-parallel
+    width ``tp``: GQA k/v pools (and their per-(line, kv_head) scales)
+    shard over kv_heads, MLA latent pools replicate (serve/shard.py
+    ``pool_pspecs``), so every card walks the whole compressed cache.
+    Feeds the per-card HBM term of :meth:`RooflineLedger.terms`."""
+    if tp <= 1:
+        return 1.0
+    total = kv_line_bytes(cfg)
+    if total == 0:
+        return 1.0
+    isize = _kv_store_isize(cfg)
+    s = _kv_scale_isize(cfg)
+    sharded = 0
+    for unit, reps in cfg.segments():
+        for b in unit:
+            if b.mixer == "attn":
+                sharded += 2 * cfg.n_kv_heads * (cfg.hd * isize + s) * reps
+    return (sharded / tp + (total - sharded)) / total
+
+
+@functools.lru_cache(maxsize=None)
+def decode_collective_count(cfg: ModelConfig) -> int:
+    """All-reduces per tensor-parallel decode step: one per row-parallel
+    matmul epilogue, the attention / MLA o-projection and the dense-FFN
+    down-projection (parallel/collectives.py ``row_parallel_psum``)."""
+    n = 0
+    for unit, reps in cfg.segments():
+        for b in unit:
+            if b.mixer in ("attn", "mla"):
+                n += reps
+            if b.ffn == "dense":
+                n += reps
+    return n
+
+
+def decode_step_ici_bytes(cfg: ModelConfig, batch: int, tp: int,
+                          n_tokens: int = 1) -> float:
+    """Per-card wire bytes of ONE tensor-parallel step over ``batch`` slots
+    feeding ``n_tokens`` tokens each (1 for decode, k + 1 for verify).
+    Each of the :func:`decode_collective_count` all-reduces moves a
+    (batch, n_tokens, d_model) activation at the ring cost ``2 x payload x
+    (tp-1)/tp``; an untied vocab-sharded head adds one tiled all-gather of
+    the logits at ``payload x (tp-1)/tp``.  serve/crosscheck.py
+    ``crosscheck_collectives`` holds it against the collectives a step
+    dispatches."""
+    if tp <= 1:
+        return 0.0
+    isize = _dtype_bytes(cfg.dtype)
+    ring = (tp - 1) / tp
+    act_payload = batch * n_tokens * cfg.d_model * isize
+    wire = decode_collective_count(cfg) * 2.0 * act_payload * ring
+    if not cfg.tie_embeddings:
+        wire += batch * n_tokens * cfg.vocab_size * isize * ring
+    return wire
+
+
 # --------------------------------------------------------------------------
 # Requests + ledger
 # --------------------------------------------------------------------------
@@ -220,12 +278,14 @@ class RooflineLedger:
     ``swap_bytes`` the host<->device swap traffic,
     ``prefix_cached_tokens`` the prompt tokens admission found already in
     the prefix index, ``pages_peak`` the most physical pages the request
-    held."""
+    held.  ``decode_ici_bytes`` is the per-card card-to-card wire traffic
+    the tensor-parallel engine charged (0 on one card)."""
     prefill_flops: float = 0.0
     decode_flops: float = 0.0
     decode_bytes: float = 0.0
     decode_kv_bytes: float = 0.0     # KV-walk + state share of decode_bytes
     decode_vmem_bytes: float = 0.0   # on-chip traffic (stream + resident)
+    decode_ici_bytes: float = 0.0    # per-card tensor-parallel wire bytes
     decode_tokens: int = 0
     decode_batch_sum: int = 0        # sum of co-resident batch sizes
     weight_passes: int = 0           # target forward passes (decode+verify)
@@ -239,13 +299,17 @@ class RooflineLedger:
     pages_peak: int = 0
 
     def add_decode_token(self, cfg: ModelConfig, context_len: int,
-                         active_batch: int, vmem_bytes: float = 0.0) -> None:
+                         active_batch: int, vmem_bytes: float = 0.0,
+                         ici_bytes: float = 0.0) -> None:
+        """``ici_bytes``: this request's share of the step's collective
+        wire bytes (``decode_step_ici_bytes / active_batch``)."""
         self.decode_flops += decode_token_flops(cfg, context_len)
         self.decode_bytes += decode_token_bytes(cfg, context_len,
                                                 active_batch)
         self.decode_kv_bytes += ((context_len + 1) * kv_line_bytes(cfg)
                                  + 2 * state_bytes(cfg))
         self.decode_vmem_bytes += vmem_bytes
+        self.decode_ici_bytes += ici_bytes
         self.decode_tokens += 1
         self.decode_batch_sum += active_batch
         self.weight_passes += 1
@@ -253,7 +317,8 @@ class RooflineLedger:
     def add_verify_step(self, cfg: ModelConfig, context_len: int,
                         n_fed: int, n_committed: int, n_accepted: int,
                         n_proposed: int, active_batch: int,
-                        vmem_bytes: float = 0.0) -> None:
+                        vmem_bytes: float = 0.0,
+                        ici_bytes: float = 0.0) -> None:
         """One multi-token verification step: ``n_fed`` = k+1 tokens scored
         in one weight pass at context ``context_len``; ``n_committed``
         tokens entered the request (``n_accepted`` of them surviving
@@ -271,6 +336,7 @@ class RooflineLedger:
         self.decode_kv_bytes += ((context_len + 2 * n_fed - 1) * line
                                  + 2 * state_bytes(cfg))
         self.decode_vmem_bytes += vmem_bytes
+        self.decode_ici_bytes += ici_bytes
         self.decode_tokens += n_committed
         self.decode_batch_sum += n_committed * active_batch
         self.weight_passes += 1
@@ -312,21 +378,28 @@ class RooflineLedger:
 
     def terms(self, cfg: ModelConfig, chip: ChipSpec = H100_SXM,
               n_chips: int = 1) -> RooflineTerms:
-        """RooflineTerms for this request's decode stream on one chip:
-        every level the reference's fills at ``n_chips`` 1 (HBM from the
+        """RooflineTerms for this request's decode stream: HBM from the
         decode bytes, ``vmem`` from the on-chip pricing, ``host`` from the
-        swap bytes; no card-to-card bytes), with the decode FLOPs as the
-        model FLOPs.  Wider scopes arrive with tensor parallelism
-        (ROADMAP queue 1 item 11)."""
-        if n_chips != 1:
-            raise NotImplementedError(
-                f"n_chips={n_chips}: the multi-chip ledger scopes are "
-                "ROADMAP queue 1 item 11")
+        swap bytes, ``ici`` from the charged collective bytes, the decode
+        FLOPs as the model FLOPs.
+
+        ``n_chips`` > 1 is the tensor-parallel scope (``tp_scope``): the
+        weight read and the FLOPs split evenly over the cards, the KV
+        share by :func:`kv_shard_fraction` (GQA pools shard, MLA latent
+        pools replicate), the on-chip bytes as HBM's, the swap bytes as
+        the pools', and ``decode_ici_bytes`` is already per card."""
+        n = max(n_chips, 1)
+        frac = kv_shard_fraction(cfg, n)
+        hbm_dev = ((self.decode_bytes - self.decode_kv_bytes) / n
+                   + self.decode_kv_bytes * frac)
+        vmem_dev = (self.decode_vmem_bytes * hbm_dev
+                    / max(self.decode_bytes, 1.0))
         return make_terms(
-            scope=chip_scope(chip), dtype=cfg.dtype,
-            flops_dev=self.decode_flops, hbm_bytes_dev=self.decode_bytes,
-            vmem_bytes_dev=self.decode_vmem_bytes,
-            host_bytes_dev=self.swap_bytes,
+            scope=tp_scope(chip, n), dtype=cfg.dtype,
+            flops_dev=self.decode_flops / n, hbm_bytes_dev=hbm_dev,
+            ici_wire_bytes_dev=self.decode_ici_bytes,
+            vmem_bytes_dev=vmem_dev,
+            host_bytes_dev=self.swap_bytes * frac,
             model_flops_total=self.decode_flops)
 
 

@@ -227,7 +227,8 @@ class SpecEngine(Engine):
     def _verify_body(self) -> torch.Tensor:
         """The verify step over the persistent inputs: logits (B, T, V)."""
         return decode_step_verify_paged(
-            self.params, self.cfg, self._kv.pools, self._kv.tables.tensor,
+            self.params, self.step_cfg, self._kv.pools,
+            self._kv.tables.tensor,
             self._feed_in.tensor, self._pos_in.tensor,
             page_size=self.ecfg.page_size, pipeline=self.ecfg.pipeline)
 
@@ -280,6 +281,7 @@ class SpecEngine(Engine):
                                  t0, t1, batch=len(running), k=k)
 
         n_active = len(running)
+        ici_share = self._step_collective_bytes(T) / n_active
         vph = self._sched.phases["verify"]
         ps = self.ecfg.page_size
         line = kv_line_bytes(self.cfg)
@@ -300,13 +302,14 @@ class SpecEngine(Engine):
             vmem = verify_step_vmem_bytes(self.cfg, L, T, n_active, ps,
                                           pipeline=self.ecfg.pipeline)
             req.ledger.add_verify_step(self.cfg, L, T, committed, accepted,
-                                       nd, n_active, vmem_bytes=vmem)
+                                       nd, n_active, vmem_bytes=vmem,
+                                       ici_bytes=ici_share)
             vph.add(flops=sum(decode_token_flops(self.cfg, L + t)
                               for t in range(T)),
                     vmem=vmem,
                     hbm=(params_bytes_active(self.cfg) / n_active
                          + (L + 2 * T - 1) * line),
-                    steps=0, tokens=committed)
+                    ici=ici_share, steps=0, tokens=committed)
             if s.adaptive and nd > 0:
                 prev = self._accept_ewma.get(req.request_id, 1.0)
                 self._accept_ewma[req.request_id] = (

@@ -9,7 +9,8 @@ with equal numbers in each package:
   ``attribution_residual``;
 * the report rows and tables, string for string;
 * the unbound / unpriced conventions: a zero-byte level has no roof, no
-  time and no inf / NaN cell, and ``level_bw("ici")`` on one card is 0;
+  time and no inf / NaN cell; the data sheet's ``ici`` / ``dcn`` betas
+  are NVLink's and one NIC's, and one card moves no bytes on them;
 * the microbench's new per-level betas and overlap fractions: cache
   round trip, the schema guard (a foreign cache falls back to the data
   sheet without measuring), ``measure_ici_bandwidth`` None off a
@@ -171,8 +172,14 @@ def test_terms_from_the_same_ledger_equal_reference(arch, verify):
     _close(t.level_times(), j.level_times(), "level_times")
     assert t.bound_class() == j.bound_class()
     assert trep.hierarchy_rows("d", t) == jrep.hierarchy_rows("d", j)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tl.terms(tc, tchip, n_chips=2)
+    # the tensor-parallel scope: weights and FLOPs split, KV by the
+    # shard fraction, equal to the reference's
+    j2, t2 = jl.terms(jc, jchip, n_chips=2), tl.terms(tc, tchip, n_chips=2)
+    assert t2.scope == j2.scope == "tp2" and t2.n_chips == 2
+    for name in ("hbm_bytes_dev", "flops_dev", "t_lower", "t_upper",
+                 "binding_roof"):
+        _close(getattr(t2, name), getattr(j2, name), name)
+    _close(t2.level_times(), j2.level_times(), "level_times")
 
 
 def _phases(mod):
@@ -245,7 +252,9 @@ def test_unbound_levels_render_unbound_and_finite():
 def test_data_sheet_prices_no_card_link_and_leaves_vmem_unpriced():
     assert thw.MEMORY_LEVELS == jhw.MEMORY_LEVELS
     chip = thw.H100_SXM
-    assert chip.level_bw("ici") == chip.level_bw("dcn") == 0.0
+    # the card-to-card and network links are data-sheet values (NVLink 4
+    # each way, one 400 Gb/s NIC); one card moves no bytes on them
+    assert (chip.level_bw("ici"), chip.level_bw("dcn")) == (450e9, 50e9)
     assert chip.level_bw("vmem") == 0.0 and chip.level_bw("host") == 64e9
     with pytest.raises(ValueError, match="unknown memory level"):
         chip.level_bw("l3")
@@ -257,7 +266,8 @@ def test_data_sheet_prices_no_card_link_and_leaves_vmem_unpriced():
     assert t.level_times()["vmem"] == 0.0 and t.level_roof("vmem") is None
     assert t.bound_class() == "memory-bound"
     b = tmodel.LevelBetas.from_chip(chip)
-    assert (b.pi, b.ici, b.dcn, b.source) == (989e12, 0.0, 0.0, "analytic")
+    assert (b.pi, b.ici, b.dcn, b.source) == (989e12, 450e9, 50e9,
+                                              "analytic")
     times = tmodel.time_attribution(
         dataclasses.replace(tmodel.PhaseTraffic(), vmem=3e9, hbm=1e9),
         b)
@@ -278,10 +288,12 @@ def test_measured_levels_reach_the_chipspec_and_betas():
     chip = res.to_chipspec()
     assert (chip.vmem_bw, chip.hbm_bw, chip.host_bw) == (7.5e12, 3.1e12,
                                                          5.2e10)
-    assert chip.ici_bw == chip.dcn_bw == 0.0
+    # no probe reached the card-to-card link: the data sheet's stands
+    assert (chip.ici_bw, chip.dcn_bw) == (thw.H100_SXM.ici_bw,
+                                          thw.H100_SXM.dcn_bw)
     b = res.level_betas()
     assert (b.vmem, b.hbm, b.host, b.ici, b.source) == (
-        7.5e12, 3.1e12, 5.2e10, 0.0, "measured")
+        7.5e12, 3.1e12, 5.2e10, thw.H100_SXM.ici_bw, "measured")
     # levels no probe reached fall back to the data sheet
     bare = dataclasses.replace(res, level_bw={})
     assert bare.level_betas().host == thw.H100_SXM.host_bw

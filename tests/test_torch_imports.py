@@ -54,7 +54,9 @@ def test_port_imports_without_jax_or_reference():
                 "core.roofline.microbench", "core.roofline.report",
                 "core.analysis", "launch.primitives", "kernels.layernorm",
                 "kernels.avgpool", "kernels.flash_attention",
-                "kernels.quantize"):
+                "kernels.quantize", "parallel.mesh", "parallel.sharding",
+                "parallel.collectives", "serve.shard",
+                "core.roofline.op_collectives"):
         assert f"repro_torch.{mod}" in walked
 
 
@@ -100,10 +102,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_unported_blocks_raise_with_roadmap_item():
+    """Tensor parallelism is ported (a config naming ``tp_axis`` builds);
+    what stays unported raises with its ROADMAP item: serving replicas
+    over a data axis (item 12)."""
     from repro_torch.models import init_params
-    for arch, item in [("whisper-small", "item 11"),
-                       ("llama-3.2-vision-90b", "item 11")]:
+    from repro_torch.serve import ShardedEngine
+    for arch in ("whisper-small", "llama-3.2-vision-90b", "qwen3-0.6b"):
         cfg = dataclasses.replace(tcfg.smoke(tcfg.get_config(arch)),
                                   tp_axis="model")
-        with pytest.raises(NotImplementedError, match=item):
-            init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cfg = tcfg.smoke(tcfg.get_config("qwen3-0.6b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ShardedEngine(cfg, params, mesh_shape=(2, 1))

@@ -228,7 +228,7 @@ def test_moe_local_dispatch_raises_with_roadmap_item():
     jc, tc, jp, tp = _load("deepseek-v2-236b")
     _, tb = _block(jp, tp, 1, "ffn")
     cfg = dataclasses.replace(tc, moe_dispatch="local")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         tmoe.moe_ffn(tb, torch.zeros(1, 2, tc.d_model), cfg)
 
 
