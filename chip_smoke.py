@@ -235,7 +235,28 @@ Phases, in order; any failure exits non-zero:
    CUDA graph captured over ``row_parallel_psum`` and ``all_gather_cols``
    on NCCL with a world of one (the capture dispatching one all-reduce
    and one all-gather), replayed equal to eager (NCCL at tp > 1 needs two
-   cards);
+   cards); rows 1 (at the static shapes too), 3 and 4 timed beside one
+   library call (gather + SDPA) where they are held;
+   n. the multi-replica serving tier (``[router]`` lines,
+   serve/{cluster,router}.py): two replicas colocated on this card (one
+   copy of the weights), stepped in turn by the router, qwen3-0.6b whole
+   and graphed, page 16, 4 slots a replica, PROMPT_LENS with NEW_TOKENS
+   new: mixed (no migration), disaggregated 1 prefill + 1 decode, a
+   rescue run (replica 0 mixed in ROUTER_RESCUE_PAGES pages preempting by
+   swap, its preemptees moved to the decode-only replica 1), int8 pages
+   disaggregated, seeded sampling (temperature 0.8, top-k 50, top-p 0.9)
+   disaggregated, n-gram speculation (k 3) disaggregated; then the [tp]
+   phase's MLA-dense model (deepseek-v2-236b's attention widths, 4
+   layers, dense FFNs) disaggregated: in every disaggregated run each
+   migrated request's pages (scale slabs and latents included) gathered
+   through the destination's block table right after the restore equal
+   the source's just before the export, bit for bit; every run's tokens
+   equal one engine's on the same weights (a parting fails, with that
+   engine's top-2 margin at the token); migration bytes within 15% of
+   the analytic page model; rows 1 / 3 / 4 launched on each replica
+   layers x that replica's steps; the migration wall a request, the
+   router's tok/s beside one engine's, the TTFT split and peak memory
+   printed;
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -3849,6 +3870,64 @@ STATIC_RUNS = {"whisper-small": (4, 24, 32),
 STATIC_QWEN = (4, 32, 16)
 
 
+def gqa_library(torch, bt, pos, page: int, scale: float, T: int = 0):
+    """One PyTorch library call's worth of GQA paged attention at these
+    tables: gather the pages, then ``scaled_dot_product_attention`` with
+    the mask k_pos <= pos (+ t).  ``T`` 0 takes decode queries (B, KV, G,
+    hd), else verify queries (B, T, KV, G, hd).  Returns fn(q, k, v, bt,
+    pos)."""
+    import torch.nn.functional as F
+    B, S, t = bt.shape[0], bt.shape[1] * page, max(T, 1)
+    q_pos = pos.long()[:, None] + torch.arange(t, device="cuda")
+    mask = (torch.arange(S, device="cuda")[None, None, :]
+            <= q_pos[:, :, None])[:, None]                   # (B,1,t,S)
+
+    def library(q, k, v, bt, pos):
+        kv, hd = k.shape[2], k.shape[3]
+        kk = k[bt.long()].reshape(B, S, kv, hd).transpose(1, 2)
+        vv = v[bt.long()].reshape(B, S, kv, hd).transpose(1, 2)
+        g = q.shape[2] if T == 0 else q.shape[3]
+        qq = (q.reshape(B, kv * g, 1, hd) if T == 0 else
+              q.permute(0, 2, 3, 1, 4).reshape(B, kv * g, T, hd))
+        o = F.scaled_dot_product_attention(
+            qq, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1),
+            attn_mask=mask, scale=scale)
+        return (o.reshape(B, kv, g, hd) if T == 0 else
+                o.reshape(B, kv, g, T, hd).permute(0, 3, 1, 2, 4))
+    return library
+
+
+def mla_library(torch, bt, pos, page: int, scale: float):
+    """The MLA decode counterpart of :func:`gqa_library`: gather the latent
+    and rope lines, then SDPA with k = [c | k_rope] and v = c shared by
+    every head.  Returns fn(q_lat, q_rope, c_pool, r_pool, bt, pos)."""
+    import torch.nn.functional as F
+    B, S = bt.shape[0], bt.shape[1] * page
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+
+    def library(ql, qr, cpool, rpool, bt, pos):
+        H, r, dr = ql.shape[1], cpool.shape[-1], rpool.shape[-1]
+        cc = cpool[bt.long()].reshape(B, 1, S, r)
+        kk = torch.cat([cc, rpool[bt.long()].reshape(B, 1, S, dr)], -1)
+        qq = torch.cat([ql, qr], -1)[:, :, None, :]
+        return F.scaled_dot_product_attention(
+            qq, kk.expand(B, H, S, r + dr), cc.expand(B, H, S, r),
+            attn_mask=mask, scale=scale)[:, :, 0]
+    return library
+
+
+def library_ms(torch, label: str, library, plain, copies, kw) -> float:
+    """The library call held against the plain version on the first
+    inputs (bf16 tolerance), then timed over the copies."""
+    err = float((library(*copies[0]).float()
+                 - plain(*copies[0], **kw).float()).abs().max())
+    if err > TOL["bfloat16"]["atol"]:
+        fail(f"{label}: library yardstick disagrees with the plain version:"
+             f" {err}")
+    return device_ms(library, copies)
+
+
 def static_kernel_holds(torch, np, pa, whisper, vision) -> None:
     """Row 1 (``paged_attention``) at the static engine's shapes: a dense
     cache (B, Smax_r, KV, hd) viewed as a pool of 16-line pages under the
@@ -3894,12 +3973,16 @@ def static_kernel_holds(torch, np, pa, whisper, vision) -> None:
                               copies)
         plain_ms = device_ms(
             lambda *a: pa.paged_attention_reference(*a, **kw), copies)
+        lib_ms = library_ms(
+            torch, f"[static] {label}",
+            gqa_library(torch, bt, pos, PAGE, kw["scale"]),
+            pa.paged_attention_reference, copies, kw)
         bound_ms, bound_by = bound_of(*paged_bound(
             pos, 1, S, KV_ * hd * 2 * 2, KV_ * G_ * 4 * hd,
             2 * q.numel() * 2, 2))
         print(f"[static] paged_attention {label}: kernel {kernel_ms:.4f} ms,"
-              f" plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by})")
+              f" plain {plain_ms:.4f} ms, library (gather + SDPA) "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     pa.paged_attention.launches = n
 
 
@@ -4176,17 +4259,27 @@ def tp_kernel_holds(torch, np, pa) -> None:
               rest[1].clone(), *rest[2:]) for _ in range(16)],
             dict(scale=c["scale"]),
             mla_bound(q_lat, q_rope, rest[3], 1, MLA_BLOCKS * PAGE))
-    for (kernel, plain), (copies, kw, bound) in zip(
+    libraries = (
+        gqa_library(torch, row1[0][0][3], row1[0][0][4], PAGE,
+                    row1[1]["scale"]),
+        gqa_library(torch, row3[0][0][3], row3[0][0][4], PAGE,
+                    row3[1]["scale"], T=TP_VERIFY_T),
+        mla_library(torch, row4[0][0][4], row4[0][0][5], PAGE,
+                    row4[1]["scale"]))
+    for (kernel, plain), (copies, kw, bound), library in zip(
             ((pa.paged_attention, pa.paged_attention_reference),
              (pa.paged_attention_verify, pa.paged_attention_verify_reference),
              (pa.mla_paged_attention, pa.mla_paged_attention_reference)),
-            (row1, row3, row4)):
+            (row1, row3, row4), libraries):
         kernel_ms = device_ms(lambda *a: kernel(*a, **kw), copies)
         plain_ms = device_ms(lambda *a: plain(*a, **kw), copies)
+        lib_ms = library_ms(torch, f"[tp] {kernel.__name__}", library,
+                            plain, copies, kw)
         bound_ms, bound_by = bound_of(*bound)
         print(f"[tp] {kernel.__name__} bf16 at its tp-2 local shape "
               f"(ragged): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+              f"ms, library (gather + SDPA) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by})")
     for c, n in zip(counters, before):
         c.launches = n
 
@@ -4554,6 +4647,319 @@ def tp_phase(torch, np, card) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# n. the multi-replica serving tier (serve/cluster.py, serve/router.py)
+# --------------------------------------------------------------------------
+
+# replica 0's pool in the rescue run (the trash page included): the six
+# prompts' growth preempts there by swap, and the preemptees its pool
+# cannot take back move to replica 1 (found by the page arithmetic alone:
+# 12 preemptions, 2 rescues on any model at these lengths)
+ROUTER_RESCUE_PAGES = 24
+ROUTER_SEEDS = tuple(range(100, 100 + len(PROMPT_LENS)))
+
+
+@contextlib.contextmanager
+def migration_pages():
+    """Every migrating request's pages (each paged leaf, its scale slabs
+    and state rows, gathered through the block table, as bytes) on the
+    source just before its export and on the destination right after its
+    restore: (before, after) dicts by request id, and the wall seconds of
+    each export and each restore (``walls``: "export", "restore")."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve.kv_cache import gather_slot_pages
+    from repro_torch.serve.scheduler import RequestState, Scheduler
+
+    def pages(kv, slot):
+        phys = torch.as_tensor(kv.block_tables[slot][:kv.slot_pages(slot)],
+                               dtype=torch.long, device=kv.device)
+        return [t.contiguous().view(torch.uint8) for t in tree_leaves(
+            gather_slot_pages(kv.pools, phys, kv._paged, slot))]
+
+    from repro_torch.obs.clock import now
+    before, after = {}, {}
+    walls = {"export": [], "restore": []}
+    detach, resume = Scheduler.detach, Scheduler._resume
+
+    def spy_detach(self, req, link="dcn"):
+        running = req.state is RequestState.RUNNING
+        if running:
+            before[req.request_id] = pages(self.kv, req.slot)
+            torch.cuda.synchronize()
+        t0 = now()
+        out = detach(self, req, link)        # ends in its copy to host
+        if running:
+            walls["export"].append(now() - t0)
+        return out
+
+    def spy_resume(self, req):
+        moving = req.migrating
+        t0 = now()
+        ok = resume(self, req)               # ends in a synchronize
+        if ok and moving:
+            walls["restore"].append(now() - t0)
+            after[req.request_id] = pages(self.kv, req.slot)
+        return ok
+
+    Scheduler.detach, Scheduler._resume = spy_detach, spy_resume
+    try:
+        yield before, after, walls
+    finally:
+        Scheduler.detach, Scheduler._resume = detach, resume
+
+
+def pages_equal(torch, label: str, before: dict, after: dict) -> str:
+    """The pages after each migration equal those before it bit for bit."""
+    if not before or sorted(before) != sorted(after):
+        fail(f"[router] {label}: pages recorded for {sorted(before)} before "
+             f"export and {sorted(after)} after restore")
+    n = 0
+    for rid in before:
+        if len(before[rid]) != len(after[rid]) or not all(
+                torch.equal(a, b) for a, b in zip(before[rid], after[rid])):
+            fail(f"[router] {label}: request {rid}'s pages after migration "
+                 "differ from those before it")
+        n += sum(t.numel() for t in before[rid])
+    return (f"pages after migration equal those before bit for bit "
+            f"({len(before)} requests, {n / 1e6:.2f} MB)")
+
+
+def router_run(torch, cluster, prompts, gen, seeds=None):
+    """Serve ``prompts`` through a Router over ``cluster``, every paged
+    kernel's launch count zeroed just before the run and read just after,
+    and split by replica (each replica's step bracketed).  Returns
+    (router, requests, {kernel: launches}, [per replica], wall s)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.obs.clock import now
+    from repro_torch.serve import Router
+    per = [dict.fromkeys(PAGED_KERNELS, 0) for _ in cluster.replicas]
+    for i, eng in enumerate(cluster.replicas):
+        def step(step=eng.step, i=i):
+            n0 = {n: getattr(pa, n).launches for n in PAGED_KERNELS}
+            out = step()
+            for n in PAGED_KERNELS:
+                per[i][n] += getattr(pa, n).launches - n0[n]
+            return out
+        eng.step = step
+    router = Router(cluster)
+    reqs = [router.submit(p, gen, seed=None if seeds is None else seeds[i])
+            for i, p in enumerate(prompts)]
+    for n in PAGED_KERNELS:
+        getattr(pa, n).launches = 0              # counts start here
+    torch.cuda.synchronize()
+    t0 = now()
+    router.run()
+    torch.cuda.synchronize()
+    wall = now() - t0
+    total = {n: getattr(pa, n).launches for n in PAGED_KERNELS}  # read
+    for eng in cluster.replicas:
+        del eng.step                 # the counting wrapper: a cycle
+    return router, reqs, total, per, wall
+
+
+def router_warm(torch, router, prompts, gen, seeds=None):
+    """The same requests through a router that has served them once:
+    (requests, None, wall s)."""
+    from repro_torch.obs.clock import now
+    reqs = [router.submit(p, gen, seed=None if seeds is None else seeds[i])
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = now()
+    router.run()
+    torch.cuda.synchronize()
+    return reqs, None, now() - t0
+
+
+def router_streams(label: str, got, base, margins) -> str:
+    """Streams equal to one engine's; a parting fails, with the engine's
+    top-2 margin at the token (every shape a request meets is the one
+    engine's: the decode and verify steps keep their (slots, T) shape
+    whatever runs in them, and prefill runs a request alone)."""
+    for i, (a, b) in enumerate(zip(got, base)):
+        if a != b:
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            m = margins.get((i, j), float("nan"))
+            fail(f"[router] {label}: request {i} parts from one engine's "
+                 f"stream at token {j} (one engine's top-2 margin there "
+                 f"{m:.4f}); no shape differs between the two")
+    return "tokens equal one engine's on the same weights"
+
+
+def router_phase(torch, np, card) -> None:
+    """The multi-replica tier on the one card: replicas colocated, stepped
+    in turn by the router (times say nothing of disaggregation's speed on
+    separate cards).  qwen3-0.6b whole, graphed, page 16, 4 slots a
+    replica, PROMPT_LENS with NEW_TOKENS new: dp 2 mixed; dp 2
+    disaggregated (1 prefill + 1 decode); a rescue run (replica 0 mixed in
+    ROUTER_RESCUE_PAGES pages, replica 1 decode-only); disaggregated with
+    int8 pages, with seeded sampling, and with n-gram speculation (k 3);
+    then the MLA-dense model of the [tp] phase disaggregated.  Each holds
+    its pages across every migration bit for bit (the disaggregated
+    runs), its tokens against one engine on the same weights, its
+    migration bytes against the analytic page model (within 15%) and its
+    kernel launches per replica (layers x that replica's steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import (Cluster, EngineConfig, GenerateConfig,
+                                   RoleConfig, SpecConfig, SpecEngine)
+    from repro_torch.serve.scheduler import kv_line_bytes, state_bytes
+    qwen = get_config("qwen3-0.6b")
+    mla = tp_mla_config(get_config)
+    base_ecfg = EngineConfig(num_slots=SLOTS, page_size=PAGE,
+                             max_len=MAX_LEN, prefill_chunk=PREFILL_CHUNK,
+                             device="cuda")
+    gen = GenerateConfig(max_new_tokens=NEW_TOKENS)
+    sampled = GenerateConfig(max_new_tokens=NEW_TOKENS, temperature=0.8,
+                             top_k=50, top_p=0.9)
+    disagg = RoleConfig.disaggregated(1, 1)
+    runs = (
+        # label, cfg, roles, ecfg changes, spec, gen, seeds
+        ("qwen3-0.6b mixed dp 2", qwen, RoleConfig.mixed(2), {}, None, gen,
+         None),
+        ("qwen3-0.6b disaggregated 1+1", qwen, disagg, {}, None, gen, None),
+        ("qwen3-0.6b rescue", qwen, RoleConfig(("mixed", "decode")),
+         dict(num_pages=ROUTER_RESCUE_PAGES), None, gen, None),
+        ("qwen3-0.6b int8 disaggregated", qwen, disagg,
+         dict(kv_dtype="int8"), None, gen, None),
+        ("qwen3-0.6b sampled disaggregated", qwen, disagg, {}, None, sampled,
+         ROUTER_SEEDS),
+        ("qwen3-0.6b n-gram k 3 disaggregated", qwen, disagg, {},
+         SpecConfig(k=3, proposer="ngram"), gen, None),
+        ("MLA-dense (4 layers) disaggregated", mla, disagg,
+         dict(max_len=DS_MAX_LEN), None, gen, None),
+    )
+    print(f"[router] {card}: the replicas of each run share this one card "
+          "in one process and the router steps them in turn, so the times "
+          "below hold correctness and accounting, not the speed of "
+          "disaggregation across cards")
+    params, cfg_now = None, None
+    for label, cfg, roles, change, scfg, g, seeds in runs:
+        if cfg is not cfg_now:
+            del params
+            gc.collect()
+            params, cfg_now = make_params(torch, cfg), cfg
+        rng = np.random.default_rng(50)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+        one_ecfg = dataclasses.replace(
+            base_ecfg, **{k: v for k, v in change.items()
+                          if k != "num_pages"})
+        ecfg = dataclasses.replace(base_ecfg, **change)
+        one = (margin_engine(cfg, params, one_ecfg) if scfg is None
+               else SpecEngine(cfg, params, one_ecfg, scfg))
+        base, base_launches, base_wall = counted_run(torch, one, prompts, g,
+                                                     seeds)
+        margins = getattr(one, "margins", {})
+        torch.cuda.reset_peak_memory_stats()
+        with migration_pages() as (before, after, walls):
+            cluster = Cluster(cfg, params, ecfg, scfg, mesh_shape=(2, 1),
+                              roles=roles)
+            router, reqs, total, per, wall = router_run(
+                torch, cluster, prompts, g, seeds)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for r in reqs:
+            if r.finish_reason != "length" or len(r.generated) != NEW_TOKENS:
+                fail(f"[router] {label}: request {r.request_id} ended "
+                     f"{r.finish_reason!r} with {len(r.generated)} tokens")
+        if not cluster.colocated or any(
+                e.device.type != "cuda" for e in cluster.replicas):
+            fail(f"[router] {label}: replicas not colocated on the card")
+        if any(e.params["embed"]["tok"].data_ptr()
+               != params["embed"]["tok"].data_ptr()
+               for e in cluster.replicas):
+            fail(f"[router] {label}: a replica holds its own weights")
+        got = [list(r.generated) for r in reqs]
+        streams = router_streams(label, got, [list(r.generated)
+                                              for r in base], margins)
+        led = cluster.aggregate_ledger()
+        line = []
+        if roles.disaggregates and "prefill" in roles.roles:
+            line.append(pages_equal(torch, label, before, after))
+            if router.migrations != len(prompts):
+                fail(f"[router] {label}: {router.migrations} migrations "
+                     f"for {len(prompts)} requests")
+        elif roles.disaggregates:                      # the rescue run
+            if not (led.preemptions > 0 and router.migrations > 0):
+                fail(f"[router] {label}: {led.preemptions} preemptions, "
+                     f"{router.migrations} rescues; want both > 0")
+            line.append(f"{led.preemptions} swap preemptions on replica 0, "
+                        f"{router.migrations} preemptees rescued to "
+                        "replica 1")
+        elif router.migrations:
+            fail(f"[router] {label}: a mixed fleet migrated")
+        if router.migrations:
+            analytic = (led.migration_pages * PAGE * kv_line_bytes(
+                cluster.replicas[0].cfg)
+                + led.migrations * state_bytes(cluster.replicas[0].cfg))
+            ratio = analytic / led.migration_bytes
+            if not 1 / 1.15 <= ratio <= 1.15:
+                fail(f"[router] {label}: migration bytes "
+                     f"{led.migration_bytes:.0f} vs analytic {analytic:.0f}"
+                     f" (ratio {ratio:.4f}) outside 15%")
+            in_ms = np.mean(walls["restore"]) * 1e3
+            out = (f"export (gather, pack, device -> pinned host) "
+                   f"{np.mean(walls['export']) * 1e3:.3f} ms + "
+                   if walls["export"] else
+                   "export: the swap-out at preemption, charged to swap; ")
+            line.append(
+                f"{router.migrations} migrations, {led.migration_bytes:.0f} "
+                f"B ({led.migration_pages} pages) vs analytic "
+                f"{analytic:.0f} B (ratio {ratio:.4f}); migration wall a "
+                f"request: {out}restore (pinned host -> device, place) "
+                f"{in_ms:.3f} ms")
+        # launches: each replica, layers x its own steps
+        op = ("paged_attention_verify" if scfg is not None else
+              "mla_paged_attention" if cfg is mla else "paged_attention")
+        per_call = launches_per_call(op, cfg)
+        want = [cfg.n_layers * per_call * (e.verify_steps if scfg is not None
+                                           else e.decode_steps)
+                for e in cluster.replicas]
+        got_l = [p[op] for p in per]
+        if got_l != want or sum(got_l) != total[op] or any(
+                total[n] for n in PAGED_KERNELS if n != op):
+            fail(f"[router] {label}: {op} launched {got_l} on the replicas "
+                 f"(run total {total}), want {want}")
+        n_tok = sum(len(x) for x in got)
+        cap = sum(capture_ms(e) for e in cluster.replicas)
+        line = "; ".join([streams] + line)
+        print(f"[router] {label} {card}: {line}")
+        # the same requests again on the same replicas and engine, their
+        # graphs captured: the warm walls and TTFTs
+        warm = []
+        for serve in (lambda: router_warm(torch, router, prompts, g, seeds),
+                      lambda: counted_run(torch, one, prompts, g, seeds)):
+            w_reqs, _, w_wall = serve()
+            if [list(r.generated) for r in w_reqs] != got:
+                fail(f"[router] {label}: the warm pass changed the tokens")
+            warm.append((w_wall, np.array([list(
+                r.ttft_breakdown().values()) for r in w_reqs])))
+        (r_wall, ttft), (o_wall, o_ttft) = warm
+        print(f"[router] {label} {card}: {op} {got_l} launches on the "
+              f"replicas (roles {','.join(roles.roles)}) = {cfg.n_layers} "
+              f"layers x {per_call} x their steps; cold (graph capture "
+              f"inside: {cap:.1f} ms over the replicas, {capture_ms(one):.1f}"
+              f" ms one engine) router {n_tok / wall:.2f} vs one engine "
+              f"{n_tok / base_wall:.2f} tok/s; warm router "
+              f"{n_tok / r_wall:.2f} vs one engine {n_tok / o_wall:.2f} "
+              f"tok/s (replicas sharing one card); warm TTFT mean "
+              f"{ttft.sum(1).mean() * 1e3:.2f} ms = queue "
+              f"{ttft[:, 0].mean() * 1e3:.2f} + prefill "
+              f"{ttft[:, 1].mean() * 1e3:.2f} + first decode "
+              f"{ttft[:, 2].mean() * 1e3:.2f} (one engine "
+              f"{o_ttft.sum(1).mean() * 1e3:.2f} = "
+              f"{o_ttft[:, 0].mean() * 1e3:.2f} + "
+              f"{o_ttft[:, 1].mean() * 1e3:.2f} + "
+              f"{o_ttft[:, 2].mean() * 1e3:.2f}); peak memory "
+              f"{peak_gb:.2f} GB")
+        del cluster, router, reqs, one, base, before, after, walls
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def print_build_summary(name: str, log: str) -> None:
     """One line per source from nvcc's ``-Xptxas -v`` report: kernel
     instantiations, their register range, and each one that spills."""
@@ -4857,9 +5263,12 @@ def main() -> int:
     entry["tp_launches"] = tp["paged_attention"]
     verify_entry["tp_launches"] = tp["paged_attention_verify"]
     mla_entry["tp_launches"] = tp["mla_paged_attention"]
-    phase_time(f"tensor parallel: qwen3-14b, its n-gram verify and MLA-dense "
-               f"({TP_MLA_LAYERS} layers) at tp {TP}, NCCL world of one",
-               t_phase)
+    t_phase = phase_time(
+        f"tensor parallel: qwen3-14b, its n-gram verify and MLA-dense "
+        f"({TP_MLA_LAYERS} layers) at tp {TP}, NCCL world of one", t_phase)
+    router_phase(torch, np, card)
+    phase_time("serving tier: qwen3-0.6b and MLA-dense replicas behind the "
+               "router", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

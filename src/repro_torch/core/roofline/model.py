@@ -25,9 +25,9 @@ a level's transfer time hidden behind compute) the bound is ``dispatch +
 max(t_compute, max_l ov_l t_l) + sum_l (1 - ov_l) t_l``
 (:func:`overlapped_budget`, :attr:`RooflineTerms.t_overlapped`).
 
-The reference's ``RooflineTerms`` carries KV-migration bytes for its
-multi-replica tier; here they stay 0 on ``"dcn"`` until that tier is
-ported (ROADMAP queue 1 item 12).
+KV-migration bytes (the multi-replica tier, serve/cluster.py) sit inside
+their carrying link's wire total and in ``migration_bytes_dev``, which
+``roofs()`` prices as a ``migration`` roof of its own.
 """
 
 from __future__ import annotations

@@ -93,11 +93,23 @@ communication roofline (per-card HBM beside the card-to-card link).
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --mesh 1,2 --batch 3 --prompt-len 12 --new-tokens 6 --slots 2
 
+The multi-replica tier (serve/cluster.py, serve/router.py): ``--router``
+(implied by ``--mesh dp,1`` with dp > 1) serves through the front door
+over dp replica engines, ``--roles disagg`` splits them into prefill and
+decode replicas with KV pages migrating between them, ``--link dcn|ici``
+names the wire the migration roofline term prices.  A host with fewer
+cards than replicas colocates them (one card steps them in turn, one
+copy of the weights).  Prints the router's tok/s, each request's TTFT
+split and migrations, the migration roofline and the fleet's capacity:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh 2,1 --router --roles disagg --batch 3 --prompt-len 12 \
+        --new-tokens 6 --slots 2
+
 The reference's other flags: ``--backend`` has no counterpart, since the
 port has one kernel backend per op; ``--chip`` takes ``sheet`` or
-``measured`` here (the card), not a TPU; dp > 1 in ``--mesh``,
-``--router``, ``--roles`` and ``--link`` come with the serving tier
-(ROADMAP queue 1 item 12).
+``measured`` here (the card), not a TPU.  A tp > 1 replica behind the
+router is refused (ROADMAP queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -188,11 +200,23 @@ def _parser() -> argparse.ArgumentParser:
                     help="price the roofline on the data sheet (H100 SXM) "
                          "or on the card's measured betas (microbench)")
     ap.add_argument("--mesh", default="1,1",
-                    help="dp,tp: tensor-parallel ranks (dp > 1 is the "
-                         "serving tier, not ported)")
+                    help="dp,tp: dp serving replicas behind the router, "
+                         "or tp tensor-parallel ranks")
     ap.add_argument("--overlap", choices=["none", "ring"], default="none",
                     help="tensor-parallel epilogue: blocking all-reduce or "
                          "ring matmul")
+    ap.add_argument("--router", action="store_true",
+                    help="serve through the multi-replica front door "
+                         "(serve/router.py); implied by --mesh dp,1 with "
+                         "dp > 1")
+    ap.add_argument("--roles", choices=["mixed", "disagg"], default="mixed",
+                    help="replica roles for --router: 'mixed' serves each "
+                         "request end to end, 'disagg' splits the fleet "
+                         "into prefill and decode replicas with KV-page "
+                         "migration between them (serve/cluster.py)")
+    ap.add_argument("--link", choices=["dcn", "ici"], default="dcn",
+                    help="wire level the migration snapshots are priced on "
+                         "(the 'migration' roofline term)")
     return ap
 
 
@@ -208,11 +232,15 @@ def _model_config(args):
 def main(argv=None):
     args = _parser().parse_args(argv)
     dp, tp = parse_mesh(args.mesh)
-    if dp != 1:
-        raise SystemExit(f"--mesh {args.mesh}: dp > 1 (serving replicas "
-                         "behind a router) is ROADMAP queue 1 item 12")
-    if tp < 1:
-        raise SystemExit(f"--mesh {args.mesh}: tp must be >= 1")
+    if dp < 1 or tp < 1:
+        raise SystemExit(f"--mesh {args.mesh}: dp and tp must be >= 1")
+    if args.router or dp > 1:
+        if tp != 1:
+            raise SystemExit(f"--mesh {args.mesh}: a tp > 1 replica behind "
+                             "the router needs tp ranks of its own "
+                             "(ROADMAP queue 1 item 18); serve replicas "
+                             "at tp 1")
+        return _serve(args, dp=dp)
     if tp == 1:
         return _serve(args)
     err = tp_sharding_error(_model_config(args), tp)
@@ -238,10 +266,12 @@ def _serve_rank(rank: int, world: int, args, roof) -> None:
     _serve(args, tp=world, rank=rank, roof=roof)
 
 
-def _serve(args, tp: int = 1, rank: int = 0, roof=None) -> None:
+def _serve(args, tp: int = 1, rank: int = 0, roof=None,
+           dp: int = 0) -> None:
     """Serve on one card, or as rank ``rank`` of ``tp``; ``roof`` is the
     microbenchmark result measured before the ranks started (``--chip
-    measured`` at tp > 1)."""
+    measured`` at tp > 1).  ``dp`` > 0 serves through the router over
+    that many replicas (:func:`_run_router`)."""
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = _model_config(args)
     dev = (resolve_device(args.device) if tp == 1
@@ -264,6 +294,9 @@ def _serve(args, tp: int = 1, rank: int = 0, roof=None) -> None:
         {} if mesh is None else dict(specs=param_pspecs(cfg, mesh),
                                      mesh=mesh)))
     if not supports_paging(cfg):
+        if dp:
+            raise SystemExit(f"{cfg.name}: --router needs the paged decode "
+                             "path (decoder-only archs)")
         if telemetry or args.spec != "off":
             raise SystemExit(f"{cfg.name}: the static engine takes no "
                              "--spec or telemetry (paged engine only)")
@@ -296,6 +329,8 @@ def _serve(args, tp: int = 1, rank: int = 0, roof=None) -> None:
         else:
             scfg = SpecConfig(k=args.spec_k, proposer="ngram",
                               adaptive=args.spec_k_adaptive)
+    if dp:
+        return _run_router(args, cfg, params, ecfg, scfg, dp, dev)
     if mesh is not None:
         engine = make_engine(cfg, params, ecfg, scfg, mesh_shape=(1, tp),
                              mesh=mesh)
@@ -358,6 +393,88 @@ def _serve(args, tp: int = 1, rank: int = 0, roof=None) -> None:
     if rank == 0:
         _export_telemetry(args, engine, roof)
     say("[serve] first sequence:", reqs[0].generated[:16])
+
+
+def _run_router(args, cfg, params, ecfg, scfg, dp: int, dev) -> None:
+    """The multi-replica tier: a Cluster of dp replica engines (at least
+    two under ``--roles disagg``: half prefill, half decode) behind the
+    Router, with each request's TTFT split, the migration ledger and
+    roofline, and the fleet's capacity beside the throughput."""
+    from ..core.roofline.report import MIGRATION_HEADER, migration_row
+    from ..serve import Cluster, RoleConfig, Router
+    dp = max(dp, 2 if args.roles == "disagg" else 1)
+    if args.roles == "disagg":
+        n_pre = max(dp // 2, 1)
+        roles = RoleConfig.disaggregated(n_pre, dp - n_pre, link=args.link)
+    else:
+        roles = RoleConfig.mixed(dp, link=args.link)
+    cluster = Cluster(cfg, params, ecfg, scfg, mesh_shape=(dp, 1),
+                      roles=roles)
+    router = Router(cluster)
+    rng = np.random.default_rng(args.seed)
+    gen = GenerateConfig(max_new_tokens=args.new_tokens,
+                         temperature=args.temperature, top_k=args.top_k,
+                         top_p=args.top_p)
+    reqs = [router.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
+                          gen, seed=sampling.fold_seed(args.seed, b))
+            for b in range(args.batch)]
+    t0 = now()
+    done = router.run()
+    synchronize(dev)
+    dt = now() - t0
+    n_new = sum(len(r.generated) for r in done)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    place = ("colocated on one device, stepped in turn" if cluster.colocated
+             else "one device each")
+    print(f"[serve/router] {len(done)} requests, {n_new} new tokens in "
+          f"{dt:.3f}s ({n_new / dt:.1f} tok/s) over dp={dp} tp=1 replicas "
+          f"({place}, {where}; roles {','.join(roles.roles)})")
+    for r in sorted(done, key=lambda r: r.request_id)[:4]:
+        bd = r.ttft_breakdown()
+        print(f"[serve/router]   req {r.request_id}: {len(r.generated)} "
+              f"tokens ({r.finish_reason}), ttft={r.ttft * 1e3:.1f}ms = "
+              f"queue {bd['queue_wait_s'] * 1e3:.1f} + prefill "
+              f"{bd['prefill_s'] * 1e3:.1f} + first-decode "
+              f"{bd['first_decode_s'] * 1e3:.1f}, "
+              f"migrations={r.ledger.migrations}")
+    stats = router.stats()
+    print(f"[serve/router] migrations={router.migrations} "
+          f"({stats['migration_bytes'] / 1e3:.1f} kB packed KV over "
+          f"{roles.link}), ttft p50={stats['ttft_p50_s'] * 1e3:.1f}ms "
+          f"p95={stats['ttft_p95_s'] * 1e3:.1f}ms")
+    chip = ecfg.chip
+    if router.migrations:
+        print(f"[serve/router] migration roofline on {chip.name}:")
+        print(text_table([migration_row("fleet decode",
+                                        cluster.roofline_terms())],
+                         MIGRATION_HEADER))
+    cap = capacity_report(cluster)
+    per = ", ".join(
+        f"r{r['replica']}({r['role']}) {r['pages_peak']}pk"
+        f"/{r['pages_in_use']}use" if r["live"] else
+        f"r{r['replica']}({r['role']}) idle" for r in cap["replicas"])
+    print(f"[serve/capacity] fleet pages peak={cap['pages_peak']}"
+          f"/{cap['pages_total']}, per-replica [{per}], cluster B_max="
+          f"{cap['capacity_max_batch']} on {chip.name}")
+    obs = cluster.obs
+    if obs is not None:
+        obs.harvest(cluster)
+        if args.trace:
+            obs.export_trace(args.trace)
+            print(f"[serve/obs] trace written to {args.trace} "
+                  f"({len(obs.tracer.events)} events): load it in "
+                  "chrome://tracing or ui.perfetto.dev")
+        if args.metrics_snapshot:
+            obs.snapshot(args.metrics_snapshot)
+            print(f"[serve/obs] metrics snapshot written to "
+                  f"{args.metrics_snapshot}")
+        if obs.attainment.windows:
+            print(f"[serve/obs] roofline attainment windows on "
+                  f"{chip.name}:")
+            print(text_table(attainment_rows(obs.attainment.windows),
+                             ATTAINMENT_HEADER))
+    first = min(done, key=lambda r: r.request_id)
+    print("[serve] first sequence:", first.generated[:16])
 
 
 def _run_static(args, cfg, params, dev) -> None:

@@ -13,7 +13,9 @@ One :class:`Telemetry` bundle ties the three pieces together:
   ledger deltas.
 
 An ``Engine`` owns a private bundle when ``EngineConfig.telemetry`` is
-on.  Everything here is observation-only: the hooks are host-side list
+on; a ``Cluster`` builds one shared bundle and attaches it to every
+replica, so the replicas land on one timeline (pid = replica index) and
+one registry.  Everything here is observation-only: the hooks are host-side list
 appends and dict updates behind ``if obs is not None``, never a device
 op, a synchronize or a read-back, so token streams and launch counts are
 the same with telemetry on or off, graphed or eager.  :mod:`.clock` is
@@ -38,7 +40,7 @@ __all__ = [
 
 
 class Telemetry:
-    """The bundle an engine threads through its hooks.
+    """The bundle an engine or a cluster threads through its hooks.
 
     ``on_step`` is the per-step path: a pool-occupancy counter sample and
     an attainment tick; everything else happens on lifecycle edges or at
@@ -75,14 +77,16 @@ class Telemetry:
 
     # -- harvest / export -------------------------------------------------
 
-    def harvest(self, engine) -> None:
-        """Fold an engine into the registry, closing its partial
-        attainment window first so short runs still report at least
-        one."""
-        w = self.attainment.flush(engine, getattr(engine, "_obs_pid", 0))
-        if w is not None:
-            self._publish(w)
-        harvest_serve(self.registry, engine, seen=self._seen)
+    def harvest(self, source) -> None:
+        """Fold a serving source (an engine, or a Cluster's replicas)
+        into the registry, closing each engine's partial attainment
+        window first so short runs still report at least one."""
+        from .metrics import _engines
+        for i, eng in enumerate(_engines(source)):
+            w = self.attainment.flush(eng, getattr(eng, "_obs_pid", i))
+            if w is not None:
+                self._publish(w)
+        harvest_serve(self.registry, source, seen=self._seen)
 
     def export_trace(self, path: Optional[str] = None) -> Dict[str, Any]:
         return self.tracer.export(path)

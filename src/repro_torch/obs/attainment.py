@@ -55,9 +55,8 @@ class AttainmentWindow:
 
 def _ledger_delta(cur, prev):
     """Field-wise difference of two aggregate ledgers (generic over the
-    dataclass so new ledger fields are picked up automatically; a string
-    field, such as the reference's migration link, is carried, not
-    subtracted)."""
+    dataclass so new ledger fields are picked up automatically; the one
+    string field, the migration link, is carried, not subtracted)."""
     out = type(cur)()
     for f in dataclasses.fields(type(cur)):
         v = getattr(cur, f.name)

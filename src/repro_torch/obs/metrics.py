@@ -186,20 +186,28 @@ class Registry:
 # -- serve-stack harvest --------------------------------------------------
 
 
-def harvest_serve(registry: Registry, engine,
+def _engines(source) -> list:
+    """The engines of a serving source: a Cluster's replicas, or the one
+    engine."""
+    reps = getattr(source, "replicas", None)
+    return list(reps) if reps is not None else [source]
+
+
+def harvest_serve(registry: Registry, source,
                   seen: Optional[set] = None) -> None:
-    """Project an ``Engine`` (duck-typed: ``aggregate_ledger``, ``_kv``,
-    ``_sched``) into ``registry``.
+    """Project a serving source (an ``Engine`` or a ``Cluster``,
+    duck-typed: ``aggregate_ledger``, and ``_kv`` / ``_sched`` on each of
+    its engines) into ``registry``.
 
     Safe to call repeatedly: cumulative sources land through
     ``Counter.set_total`` (idempotent), per-request latency observations
     are de-duplicated through ``seen`` (request ids the caller keeps
     between harvests; the Telemetry bundle owns one).  The ``ici`` level
     is the tensor-parallel wire bytes the ledger charged (0 on one card);
-    the reference's migration families wait for the serving tier (ROADMAP
-    queue 1 item 12).
+    the migration families count the cluster's cross-replica moves and
+    their packed bytes on the link that carried them.
     """
-    led = engine.aggregate_ledger()
+    led = source.aggregate_ledger()
 
     c = registry.counter("serve_decode_tokens_total",
                          "tokens committed by decode/verify steps")
@@ -222,6 +230,13 @@ def harvest_serve(registry: Registry, engine,
     registry.counter("serve_preemptions_total",
                      "requests evicted under pool pressure"
                      ).set_total(led.preemptions)
+    registry.counter("serve_migrations_total",
+                     "cross-replica KV migrations"
+                     ).set_total(led.migrations)
+    registry.counter(
+        "serve_migration_bytes_total",
+        "packed SwapSnapshot bytes moved between replicas", ("link",)
+    ).set_total(led.migration_bytes, link=led.migration_link)
     registry.counter("serve_prefix_cached_tokens_total",
                      "prompt tokens served from the prefix cache"
                      ).set_total(led.prefix_cached_tokens)
@@ -234,25 +249,31 @@ def harvest_serve(registry: Registry, engine,
                        "accepted / proposed draft tokens"
                        ).set(led.acceptance_rate)
 
-    # block-pool capacity counters + live occupancy
-    kv = getattr(engine, "_kv", None)
-    if kv is not None:
+    # block-pool capacity counters + live occupancy, summed over pools
+    pool_tot: Dict[str, int] = {}
+    in_use = peak = total = 0
+    for eng in _engines(source):
+        kv = getattr(eng, "_kv", None)
+        if kv is None:
+            continue
         pool = kv.pool
+        in_use += pool.num_pages - 1 - pool.free_page_count
+        peak += pool.stats.peak_in_use
+        total += pool.num_pages - 1
+        for k, v in pool.stats.as_dict().items():
+            pool_tot[k] = pool_tot.get(k, 0) + v
+    if total:
         registry.gauge("serve_pool_pages_in_use",
-                       "referenced pool pages right now").set(
-            pool.num_pages - 1 - pool.free_page_count)
+                       "referenced pool pages right now").set(in_use)
         registry.gauge("serve_pool_pages_peak",
-                       "high-water mark of referenced pages").set(
-            pool.stats.peak_in_use)
+                       "high-water mark of referenced pages").set(peak)
         registry.gauge("serve_pool_pages_total",
-                       "allocatable pool pages (excl. trash)").set(
-            pool.num_pages - 1)
+                       "allocatable pool pages (excl. trash)").set(total)
         pc = registry.counter("serve_pool_events_total",
                               "block-pool events (PoolStats)", ("event",))
-        stats = pool.stats.as_dict()
         for k in ("dedup_hits", "cow_copies", "evictions", "freezes",
                   "swap_dmas", "swap_transfers_saved"):
-            pc.set_total(stats[k], event=k)
+            pc.set_total(pool_tot.get(k, 0), event=k)
 
     # per-request latency: TTFT breakdown + inter-token gaps.  Requests
     # observe once (the seen set): histograms are not idempotent like the
@@ -264,9 +285,12 @@ def harvest_serve(registry: Registry, engine,
     ih = registry.histogram("serve_itl_seconds",
                             "inter-token latency (pooled gaps)")
     gaps: List[float] = []
-    sched = getattr(engine, "_sched", None)
-    done = {req.request_id: req
-            for req in (sched.finished if sched is not None else ())}
+    done = {}
+    for eng in _engines(source):
+        sched = getattr(eng, "_sched", None)
+        if sched is not None:
+            for req in sched.finished:
+                done[req.request_id] = req
     for rid, req in sorted(done.items()):
         tt = [req.token_times[i + 1] - req.token_times[i]
               for i in range(len(req.token_times) - 1)]

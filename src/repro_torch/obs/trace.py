@@ -10,23 +10,24 @@ observation-only by construction: token streams are byte-identical with
 it on or off, graphed or eager.
 
 Export is the Chrome trace-event JSON format (``chrome://tracing`` or
-https://ui.perfetto.dev): one *process* per engine, one *thread* per
-track (the engine's step track, a request-lifecycle track, one track per
-decode slot), so a run opens as a timeline with prefill chunks and
-decode steps as slices and pool / attainment counters above them.
+https://ui.perfetto.dev): one *process* per engine (pid = replica index
+in a cluster; the router's front door has a pid of its own), one
+*thread* per track (the engine's step track, a request-lifecycle track,
+one track per decode slot), so a run opens as a timeline with prefill
+chunks and decode steps as slices, migrations as flow arrows between
+replica processes and pool / attainment counters above them.
 
 Event vocabulary (small, so the validator can be strict):
 
 * ``X`` duration slices for serially-executed device windows only
-  (prefill chunks, decode / verify / propose steps, swap copies); on one
-  track they never partially overlap (they may nest), which
-  :func:`validate_trace` enforces;
+  (prefill chunks, decode / verify / propose steps, swap and migrate
+  copies); on one track they never partially overlap (they may nest),
+  which :func:`validate_trace` enforces;
 * ``b`` / ``e`` async pairs (per request id) for request lifetimes;
-* ``i`` instants for point edges: submit, placement, first token,
-  preemption;
-* ``s`` / ``f`` flow pairs (the reference's migration arrows between
-  replicas; no port path emits them until the serving tier, ROADMAP
-  queue 1 item 12);
+* ``i`` instants for point edges: submit, dispatch, enqueue, migrate,
+  placement, first token, preemption;
+* ``s`` / ``f`` flow pairs linking a migration's export on the source
+  replica to its restore on the destination;
 * ``C`` counters (pool pages in use, live roofline attainment);
 * ``M`` metadata naming every process and thread.
 """
@@ -44,7 +45,7 @@ from . import clock
 ENGINE_TID = 0          # packed device steps: decode/verify/propose
 LIFECYCLE_TID = 1       # request instants + async request spans
 SLOT_TID0 = 10          # per-slot prefill/swap/migrate spans
-ROUTER_PID = 999        # the serving tier's front door (item 12)
+ROUTER_PID = 999        # the front door is its own process
 
 
 class Tracer:

@@ -3,7 +3,8 @@ package's ``parallel/mesh.py`` for explicit SPMD.
 
 Axes:
   pod   -- data-parallel across hosts; gradient all-reduce only
-  data  -- data-parallel inside a host (serving replicas: ROADMAP item 12)
+  data  -- data-parallel inside a host (serving replicas, serve/cluster.py:
+           one device row each, :func:`dp_submeshes`)
   model -- tensor parallel
 
 The reference is single-controller: one program over a
@@ -111,6 +112,35 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
 
 def single_device_mesh() -> Mesh:
     return Mesh(("data", "model"), (1, 1))
+
+
+def host_devices(device: str = "cuda") -> list:
+    """The devices a host offers for placement: its cards, or the one
+    CPU device (``device="cpu"``)."""
+    import torch
+    if device == "cpu":
+        return [torch.device("cpu")]
+    if device != "cuda":
+        raise ValueError(f"device {device!r} not in ('cpu', 'cuda')")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def dp_submeshes(dp: int, tp: int = 1, device: str = "cuda") -> list:
+    """The first ``dp * tp`` devices as ``dp`` rows of ``tp``: one device
+    row per serving replica, row ``i`` the devices rank row ``i`` of a
+    ``(dp, tp)`` mesh would hold.  Replicas never meet in a collective
+    (a router moves requests, not activations), so each gets a row of its
+    own rather than a slice of one mesh; a tp = 1 replica's row is one
+    ``torch.device``, ``cuda:i``.  Raises ValueError when an axis is < 1
+    or the host has fewer devices."""
+    dp, tp = int(dp), int(tp)
+    if dp < 1 or tp < 1:
+        raise ValueError(f"dp_submeshes({dp}, {tp}): axes must be >= 1")
+    devs = host_devices(device)
+    need = dp * tp
+    if len(devs) < need:
+        raise ValueError(f"need {need} devices, have {len(devs)}")
+    return [tuple(devs[i * tp:(i + 1) * tp]) for i in range(dp)]
 
 
 def mesh_axis_sizes(mesh) -> Dict[str, int]:
@@ -264,7 +294,7 @@ def spawn(fn: Callable, world: int, *, backend: str = "gloo",
 
 __all__ = [
     "BATCH_AXES", "DATA_AXIS", "MODEL_AXIS", "POD_AXIS", "Mesh",
-    "active_mesh", "axis_group", "batch_shards", "make_host_mesh",
-    "mesh_axis_sizes", "rank_device", "single_device_mesh", "spawn",
+    "active_mesh", "axis_group", "batch_shards", "dp_submeshes",
+    "host_devices", "make_host_mesh", "mesh_axis_sizes", "rank_device", "single_device_mesh", "spawn",
     "use_mesh",
 ]

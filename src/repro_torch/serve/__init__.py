@@ -1,9 +1,11 @@
 from . import sampling
 from .block_pool import BlockPool, PoolStats, chain_hash, token_chain_hashes
+from .cluster import Cluster, RoleConfig
 from .engine import Engine, EngineConfig, GenerateConfig, StaticEngine
 from .kv_cache import PagedKVCache, SwapSnapshot
 from .proposer import (DraftModelProposer, NgramProposer, Proposal,
                        ngram_propose)
+from .router import Router
 from .scheduler import Request, RequestState, RooflineLedger, Scheduler
 from .shard import (ShardedEngine, ShardedSpecEngine, make_engine,
                     param_pspecs, parse_mesh, pool_pspecs, supports_tp,
@@ -24,4 +26,5 @@ __all__ = [
     "ShardedEngine", "ShardedSpecEngine", "make_engine", "param_pspecs",
     "parse_mesh", "pool_pspecs", "supports_tp", "tp_local_config",
     "tp_sharding_error",
+    "Cluster", "RoleConfig", "Router",
 ]

@@ -48,10 +48,8 @@ ledger up to terms counted from the parameter and pool trees alone
   steps dispatches (core/roofline/op_collectives.py; a real step on every
   rank, since fake tensors cannot cross a process group);
 * :func:`capacity_report`: the HBM-capacity axis (pages per request
-  beside the weights, and the batch the card's memory would hold).
-
-Not ported yet: the fleet capacity report (``_cluster_capacity_report``,
-ROADMAP queue 1 item 12).
+  beside the weights, and the batch the card's memory would hold), per
+  replica and summed over a ``Cluster``'s.
 """
 
 from __future__ import annotations
@@ -826,7 +824,13 @@ def capacity_report(engine) -> Dict:
 
     ``effective_batch`` (requests holding a slot now) against it says
     whether the deployment is slot-limited or capacity-limited; every
-    deduplicated or on-demand-deferred page moves B_max's denominator."""
+    deduplicated or on-demand-deferred page moves B_max's denominator.
+
+    A ``Cluster`` (serve/cluster.py) aggregates: a row per replica (each
+    owns its pool, so pages in use and peak are per-replica facts) and
+    fleet sums; B_max adds over replicas, each bringing its own memory."""
+    if hasattr(engine, "replicas"):
+        return _cluster_capacity_report(engine)
     if engine._kv is None:
         raise ValueError("engine has no live pool; submit work or reset()")
     kv, cfg, chip = engine._kv, engine.cfg, engine.ecfg.chip
@@ -854,3 +858,36 @@ def capacity_report(engine) -> Dict:
         "effective_batch": len(active),
         "capacity_max_batch": cap_batch,
     }
+
+
+_CAP_SUM_KEYS = ("pages_total", "pages_in_use", "pages_peak", "pages_cached",
+                 "pages_deduped", "cow_copies", "evictions", "preemptions",
+                 "pool_bytes", "effective_batch", "capacity_max_batch")
+
+
+def _cluster_capacity_report(cluster) -> Dict:
+    """The fleet's capacity: one row per replica (role-tagged), sums on the
+    page and batch axes over the replicas with a live pool
+    (``replicas_live``; a replica that never received work has none)."""
+    per = []
+    for i, eng in enumerate(cluster.replicas):
+        row: Dict = {"replica": i, "role": cluster.role(i)}
+        if eng._kv is None:
+            row["live"] = False
+        else:
+            row.update(capacity_report(eng))
+            row["live"] = True
+        per.append(row)
+    live = [r for r in per if r["live"]]
+    if not live:
+        raise ValueError("no replica has a live pool; route work through "
+                         "the Router (or engine.reset()) first")
+    out: Dict = {k: sum(r[k] for r in live) for k in _CAP_SUM_KEYS}
+    # the same on every replica (one cfg and ecfg)
+    for k in ("page_bytes", "params_bytes", "pages_per_request"):
+        out[k] = live[0][k]
+    agg = cluster.aggregate_ledger()
+    out.update(replicas=per, replicas_live=len(live),
+               migrations=int(agg.migrations),
+               migration_bytes=float(agg.migration_bytes))
+    return out

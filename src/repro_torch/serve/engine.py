@@ -383,11 +383,16 @@ class Engine:
 
     # -- wiring ------------------------------------------------------------
 
-    def attach_telemetry(self, obs: Telemetry) -> None:
+    def attach_telemetry(self, obs: Telemetry, pid: Optional[int] = None,
+                         name: Optional[str] = None) -> None:
         """Adopt a telemetry bundle (``EngineConfig.telemetry`` builds the
-        engine's own) and name this engine's trace tracks."""
+        engine's own; a Cluster shares one over its replicas, ``pid`` the
+        replica index, so they land on one timeline) and name this
+        engine's trace tracks."""
         self.obs = obs
-        obs.tracer.process(self._obs_pid, self._obs_process_name())
+        if pid is not None:
+            self._obs_pid = pid
+        obs.tracer.process(self._obs_pid, name or self._obs_process_name())
         obs.tracer.thread(self._obs_pid, ENGINE_TID, "engine steps")
         obs.tracer.thread(self._obs_pid, LIFECYCLE_TID, "request lifecycle")
         if self._sched is not None:
@@ -511,6 +516,39 @@ class Engine:
                                     request=req.request_id)
         return req
 
+    def enqueue(self, req: Request) -> Request:
+        """Queue a request built elsewhere without renumbering it: a
+        Router stamps cluster-unique ids (its stream keys on them) and
+        the submit time at its front door; this stamps the dispatch."""
+        self._ensure(req.budget)
+        if req.submit_time == 0.0:
+            req.submit_time = now()
+        req.dispatch_time = now()
+        req = self._sched.submit(req, keep_id=True)
+        if self.obs is not None:
+            self.obs.tracer.instant("enqueue", self._obs_pid, LIFECYCLE_TID,
+                                    req.dispatch_time,
+                                    request=req.request_id)
+        return req
+
+    def export_request(self, req: Request, link: str = "dcn") -> Request:
+        """Detach a request for migration to another replica
+        (``Scheduler.detach``: its pages pack into one SwapSnapshot in
+        host memory, the bytes charge the migration ledger on ``link``).
+        Subclasses release engine-side companion state first (the
+        speculative proposer's slot)."""
+        return self._sched.detach(req, link=link)
+
+    def import_request(self, req: Request) -> Request:
+        """Adopt a migrated request: it queues with resume priority, and
+        the next :meth:`step` restores its snapshot into this pool and
+        re-points the packed decode rows at it, the swap-resume path, so
+        its stream continues as one engine's would.  The restore writes
+        the pools in place and the next step writes the block tables into
+        the persistent buffer the captured graphs read."""
+        self._ensure(req.budget)
+        return self._sched.attach(req)
+
     @torch.no_grad()
     def step(self) -> List[Request]:
         """One scheduler iteration: admit (resuming preempted requests
@@ -613,16 +651,15 @@ class Engine:
         return self._dispatch_s
 
     def aggregate_ledger(self) -> RooflineLedger:
-        """One ledger summing every request this scheduler has seen."""
+        """One ledger summing every request this scheduler has seen (the
+        migration link carried, not summed: ``RooflineLedger.add``)."""
         agg = RooflineLedger()
         if self._sched is None:
             return agg
         s = self._sched
         for req in (list(s.finished) + list(s.active.values())
                     + list(s.preempted) + list(s.waiting)):
-            for f in dataclasses.fields(RooflineLedger):
-                setattr(agg, f.name,
-                        getattr(agg, f.name) + getattr(req.ledger, f.name))
+            agg.add(req.ledger)
         return agg
 
     def hierarchy_report(self, betas=None, label: str = "decode",

@@ -44,6 +44,7 @@ its largest step (``kernels.paged_attention.hold_gqa_counters``).
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -162,9 +163,20 @@ class StepGraph:
         counters = launch_counters()
         before = [fn.launches for fn in counters]
         graph = torch.cuda.CUDAGraph()
-        with pa.hold_gqa_counters(self.counters), torch.cuda.graph(
-                graph, pool=self.pool):
-            self.out = body()
+        # only this thread's work may reach the capture: no other thread's
+        # CUDA call (a profiler's activity flush) invalidates it, and no
+        # garbage collection frees a dead engine's buffers inside it
+        # (torch.cuda.graph collects just before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with pa.hold_gqa_counters(self.counters), torch.cuda.graph(
+                    graph, pool=self.pool,
+                    capture_error_mode="thread_local"):
+                self.out = body()
+        finally:
+            if collecting:
+                gc.enable()
         # the capture launched nothing: its counts are what a replay adds
         for fn, n0 in zip(counters, before):
             if fn.launches != n0:

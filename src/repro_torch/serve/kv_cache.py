@@ -243,6 +243,14 @@ class PagedKVCache:
         return self.pages_needed(len(tokens)) - self.prefix_match_pages(
             tokens)
 
+    def can_admit(self, n_tokens: int, reserve_pages: int = 0) -> bool:
+        """Whether a slot and ``n_tokens``' pages plus ``reserve_pages``
+        are obtainable now (no prefix dedup: see :meth:`can_admit_tokens`)."""
+        return (n_tokens <= self.max_len
+                and bool(self._free_slots)
+                and self.pages_needed(n_tokens) + reserve_pages
+                <= self.available_page_count)
+
     def can_admit_tokens(self, tokens: np.ndarray,
                          reserve_pages: int = 0) -> bool:
         """Whether a slot and the context's pages (after prefix-cache
@@ -422,9 +430,9 @@ class PagedKVCache:
     def swap_in(self, snap: SwapSnapshot) -> Optional[int]:
         """Restore a swapped-out slot, into any free slot: frozen-prefix
         pages still in the index are aliased, the rest re-acquired and
-        copied back from the host, and the state rows copied into the new
-        slot's rows.  Returns the slot, or None if slots/pages are
-        exhausted."""
+        copied back from the host (each leaf in one copy from the pinned
+        buffer), and the state rows copied into the new slot's rows.
+        Returns the slot, or None if slots/pages are exhausted."""
         if not self._free_slots:
             return None
         pages: List[int] = []
@@ -454,13 +462,16 @@ class PagedKVCache:
             hash_chain=list(snap.hash_chain[:frozen]))
         dst = torch.as_tensor(np.asarray(pages, np.int64)[restore],
                               device=self.device)
-        src = torch.as_tensor(restore, dtype=torch.long)
+        src = torch.as_tensor(restore, dtype=torch.long, device=self.device)
 
         def put(pool, host, paged):
+            # each leaf crosses whole, in one copy out of the pinned
+            # buffer; the pages to restore are picked on the device
+            leaf = host.to(self.device)
             if not paged:
-                pool[:, slot] = host[:, 0].to(self.device, pool.dtype)
+                pool[:, slot] = leaf[:, 0].to(pool.dtype)
             elif restore:
-                pool[:, dst] = host[:, src].to(self.device, pool.dtype)
+                pool[:, dst] = leaf[:, src].to(pool.dtype)
 
         tree_map(put, self.pools, snap.data, self._paged)
         return slot

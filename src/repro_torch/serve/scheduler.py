@@ -279,7 +279,11 @@ class RooflineLedger:
     ``prefix_cached_tokens`` the prompt tokens admission found already in
     the prefix index, ``pages_peak`` the most physical pages the request
     held.  ``decode_ici_bytes`` is the per-card card-to-card wire traffic
-    the tensor-parallel engine charged (0 on one card)."""
+    the tensor-parallel engine charged (0 on one card).  The migration
+    fields count cross-replica moves (serve/cluster.py): each packs the
+    slot's pages into one SwapSnapshot on the source replica and restores
+    it into the destination's pool; the bytes ride ``migration_link``
+    ("dcn" across replica groups, "ici" inside a node)."""
     prefill_flops: float = 0.0
     decode_flops: float = 0.0
     decode_bytes: float = 0.0
@@ -297,6 +301,10 @@ class RooflineLedger:
     swap_bytes: float = 0.0
     prefix_cached_tokens: int = 0
     pages_peak: int = 0
+    migrations: int = 0              # replica-to-replica moves
+    migration_bytes: float = 0.0     # packed-snapshot bytes moved
+    migration_pages: int = 0         # physical pages those snapshots held
+    migration_link: str = "dcn"      # wire level that carried them
 
     def add_decode_token(self, cfg: ModelConfig, context_len: int,
                          active_batch: int, vmem_bytes: float = 0.0,
@@ -387,20 +395,44 @@ class RooflineLedger:
         weight read and the FLOPs split evenly over the cards, the KV
         share by :func:`kv_shard_fraction` (GQA pools shard, MLA latent
         pools replicate), the on-chip bytes as HBM's, the swap bytes as
-        the pools', and ``decode_ici_bytes`` is already per card."""
+        the pools', and ``decode_ici_bytes`` is already per card.
+
+        Migration bytes land on their carrying wire level
+        (``migration_link``) and in ``migration_bytes_dev`` (each card
+        ships its pool shard), so the terms grow a ``migration`` roof
+        (RooflineTerms.roofs) that can out-bind decode bandwidth on a
+        migration-heavy workload."""
         n = max(n_chips, 1)
         frac = kv_shard_fraction(cfg, n)
         hbm_dev = ((self.decode_bytes - self.decode_kv_bytes) / n
                    + self.decode_kv_bytes * frac)
         vmem_dev = (self.decode_vmem_bytes * hbm_dev
                     / max(self.decode_bytes, 1.0))
+        mig_dev = self.migration_bytes * frac
+        on_ici = self.migration_link == "ici"
         return make_terms(
             scope=tp_scope(chip, n), dtype=cfg.dtype,
             flops_dev=self.decode_flops / n, hbm_bytes_dev=hbm_dev,
-            ici_wire_bytes_dev=self.decode_ici_bytes,
+            ici_wire_bytes_dev=self.decode_ici_bytes + (mig_dev if on_ici
+                                                        else 0.0),
+            dcn_wire_bytes_dev=0.0 if on_ici else mig_dev,
             vmem_bytes_dev=vmem_dev,
             host_bytes_dev=self.swap_bytes * frac,
+            migration_bytes_dev=mig_dev,
+            migration_link=self.migration_link,
             model_flops_total=self.decode_flops)
+
+    def add(self, other: "RooflineLedger") -> None:
+        """Fold ``other`` into this ledger: every count sums; the link
+        is carried from a ledger that migrated (it names a wire, it does
+        not add)."""
+        for f in dataclasses.fields(RooflineLedger):
+            v = getattr(other, f.name)
+            if isinstance(v, str):
+                if other.migration_bytes > 0:
+                    setattr(self, f.name, v)
+                continue
+            setattr(self, f.name, getattr(self, f.name) + v)
 
 
 @dataclasses.dataclass
@@ -426,16 +458,21 @@ class Request:
     # preemption); swap-on-resume restores swap_snapshot instead
     prefill_src: Optional[np.ndarray] = None
     swap_snapshot: Optional[Any] = None
-    # wall-clock stamps (obs.clock.now): submit, the hand-off from a
-    # front door (0.0: none; the serving tier is ROADMAP item 12), first
-    # slot placement, end of the last prefill chunk, one per committed
-    # token (speculative commits share one stamp), so TTFT telescopes
-    # into queue wait + prefill + first decode (ttft_breakdown)
+    # wall-clock stamps (obs.clock.now): submit (at the engine, or at a
+    # Router's front door), the router -> replica hand-off (0.0: no
+    # router crossed), first slot placement, end of the last prefill
+    # chunk, one per committed token (speculative commits share one
+    # stamp), so TTFT telescopes into queue wait + prefill + first
+    # decode (ttft_breakdown)
     submit_time: float = 0.0
     dispatch_time: float = 0.0
     prefill_start_time: float = 0.0
     prefill_end_time: float = 0.0
     token_times: List[float] = dataclasses.field(default_factory=list)
+    # cross-replica migration (serve/cluster.py): True between
+    # Scheduler.detach on the source and the restore on the destination,
+    # which then charges phase "migrate" instead of "swap"
+    migrating: bool = False
 
     @property
     def prompt_len(self) -> int:
@@ -545,9 +582,15 @@ class Scheduler:
     def watermark_pages(self) -> int:
         return int(math.ceil(self.watermark * (self.kv.num_pages - 1)))
 
-    def submit(self, req: Request) -> Request:
-        req.request_id = self._next_id
-        self._next_id += 1
+    def submit(self, req: Request, keep_id: bool = False) -> Request:
+        """Queue a request.  ``keep_id`` keeps a caller-assigned id (a
+        Router stamps cluster-unique ids before dispatch) and moves the
+        local counter past it, so direct submits never collide."""
+        if keep_id:
+            self._next_id = max(self._next_id, req.request_id + 1)
+        else:
+            req.request_id = self._next_id
+            self._next_id += 1
         req.state = RequestState.WAITING
         self.waiting.append(req)
         return req
@@ -593,13 +636,28 @@ class Scheduler:
                 return False
             self.kv.synchronize()
             t1 = now()
-            self.phases["swap"].add(host=float(snap.nbytes),
-                                    wall_s=t1 - t0)
-            req.ledger.swap_bytes += snap.nbytes
-            if self.obs is not None:
-                self.obs.tracer.span(
-                    "swap_in", self.obs_pid, SLOT_TID0 + slot, t0, t1,
-                    request=req.request_id, bytes=int(snap.nbytes))
+            if req.migrating:
+                # the restore leg of a migration: the wire bytes were
+                # charged at detach; the copy in is this replica's host
+                # traffic, phase "migrate"
+                self.phases["migrate"].add(host=float(snap.nbytes),
+                                           wall_s=t1 - t0)
+                req.migrating = False
+                if self.obs is not None:
+                    self.obs.tracer.span(
+                        "migrate_in", self.obs_pid, SLOT_TID0 + slot, t0,
+                        t1, request=req.request_id, bytes=int(snap.nbytes))
+                    self.obs.tracer.flow_finish(
+                        "migrate", self.obs_pid, SLOT_TID0 + slot,
+                        req.request_id, t1)
+            else:
+                self.phases["swap"].add(host=float(snap.nbytes),
+                                        wall_s=t1 - t0)
+                req.ledger.swap_bytes += snap.nbytes
+                if self.obs is not None:
+                    self.obs.tracer.span(
+                        "swap_in", self.obs_pid, SLOT_TID0 + slot, t0, t1,
+                        request=req.request_id, bytes=int(snap.nbytes))
             req.swap_snapshot = None
             self._place(req, slot, prefilling=False)
             return True
@@ -666,6 +724,61 @@ class Scheduler:
             self.obs.tracer.instant(
                 "preempt", self.obs_pid, LIFECYCLE_TID, now(),
                 request=req.request_id, mode=self.preempt_mode)
+
+    def detach(self, req: Request, link: str = "dcn") -> Request:
+        """Take a request off this replica for migration to another
+        (serve/cluster.py): pack its pages into one :class:`SwapSnapshot`
+        if it holds a slot (the swap path's single copy to host), or
+        adopt the snapshot a preemption already parked, and charge the
+        packed bytes to the migration ledger as wire traffic on ``link``.
+        The caller hands the request to the destination's :meth:`attach`.
+        A recompute-mode preemptee carries tokens, not pages: it moves
+        for free (the destination re-prefills it)."""
+        if req.state not in (RequestState.RUNNING, RequestState.PREEMPTED):
+            raise ValueError(f"cannot migrate a {req.state.value} request")
+        if req.state is RequestState.RUNNING:
+            del self.active[req.slot]
+            t0 = now()
+            snap = self.kv.swap_out(req.slot)     # ends in the host copy
+            wall = now() - t0
+            if self.obs is not None:
+                self.obs.tracer.span(
+                    "migrate_out", self.obs_pid, SLOT_TID0 + req.slot, t0,
+                    t0 + wall, request=req.request_id,
+                    bytes=int(snap.nbytes))
+            req.swap_snapshot = snap
+            req.slot = -1
+            req.state = RequestState.PREEMPTED
+        else:
+            if req in self.preempted:
+                self.preempted.remove(req)
+            snap = req.swap_snapshot          # its copy was charged as swap
+            wall = 0.0
+            if snap is None:                  # recompute-mode preemptee
+                return req
+        req.migrating = True
+        req.ledger.migrations += 1
+        req.ledger.migration_bytes += float(snap.nbytes)
+        req.ledger.migration_pages += int(snap.n_blocks)
+        req.ledger.migration_link = link
+        self.phases["migrate"].add(host=float(snap.nbytes), wall_s=wall,
+                                   **{link: float(snap.nbytes)})
+        if self.obs is not None:
+            self.obs.tracer.flow_start(
+                "migrate", self.obs_pid, LIFECYCLE_TID, req.request_id,
+                now(), link=link, bytes=int(snap.nbytes))
+        return req
+
+    def attach(self, req: Request) -> Request:
+        """Adopt a detached request: keep its cluster-unique id clear of
+        the local counter and queue it with resume priority.  The next
+        :meth:`admit` restores its snapshot into this pool (frozen prefix
+        pages found in the local index are aliased, kv_cache.swap_in) or
+        re-prefills its context (a recompute-mode preemptee)."""
+        self._next_id = max(self._next_id, req.request_id + 1)
+        req.state = RequestState.PREEMPTED
+        self.preempted.append(req)
+        return req
 
     def preempt_victim(self) -> Optional[Request]:
         """Newest-admitted running request (least sunk decode work)."""

@@ -44,16 +44,22 @@ a step, its terms split over ``tp_scope``, and serve/crosscheck.py
 ``crosscheck_collectives`` holds the charged bytes against the
 collectives a step dispatches.
 
-Scope: ``dp`` > 1 (serving replicas, ``dp_submeshes``) is ROADMAP queue 1
-item 12.  MoE FFNs need expert-parallel dispatch and recurrent mixers
-keep per-slot state rows with no head dim to shard: both are refused
-(:func:`tp_sharding_error`).
+Serving replicas (``dp`` > 1) are independent engines behind a router
+(serve/cluster.py): each is built with ``submesh=`` its device row
+(parallel/mesh.py ``dp_submeshes``) and ``replica_id=``.  A tp = 1
+replica pins its weights and pools to its row's one device and is the
+parent ``Engine`` byte for byte.  A tp > 1 replica would need tp ranks
+of its own under this explicit SPMD and is refused (ROADMAP queue 1
+item 18).  MoE FFNs need expert-parallel dispatch and recurrent mixers keep
+per-slot state rows with no head dim to shard: both are refused at tp >
+1 (:func:`tp_sharding_error`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,6 +67,7 @@ from ..core.roofline import op_collectives
 from ..models import model_param_defs, paged_cache_defs
 from ..models.common import ModelConfig
 from ..models.model import prepare_params
+from ..models.params import tree_map
 from ..parallel import sharding as shd
 from ..parallel.mesh import MODEL_AXIS, Mesh, make_host_mesh, use_mesh
 from .engine import Engine, EngineConfig
@@ -179,16 +186,38 @@ class _ShardedStepMixin:
     every step, and the ledger hooks."""
 
     def _init_sharded(self, cfg: ModelConfig, params, ecfg, mesh_shape,
-                      mesh: Optional[Mesh], init):
+                      mesh: Optional[Mesh], init,
+                      submesh: Optional[Sequence[torch.device]] = None,
+                      replica_id: int = 0):
         dp, tp = int(mesh_shape[0]), int(mesh_shape[1])
         if dp < 1 or tp < 1:
             raise ValueError(f"mesh {mesh_shape}: axes must be >= 1")
-        if dp != 1:
+        if dp != 1 and submesh is None:
             raise NotImplementedError(
-                "dp > 1: serving replicas are independent engines behind a "
-                "router (replica sub-meshes, dp_submeshes): ROADMAP queue 1 "
-                "item 12")
+                "dp > 1 serving replicas are independent engines behind a "
+                "router: one engine cannot be two replicas.  Build a "
+                "serve.cluster.Cluster; it gives each replica its device "
+                "row (parallel.mesh.dp_submeshes) through submesh=")
         self.dp, self.tp, self.mesh = dp, tp, None
+        self.replica_id = int(replica_id)
+        self.replica_device: Optional[torch.device] = None
+        if submesh is not None:
+            row = tuple(submesh)
+            if len(row) != tp:
+                raise ValueError(f"replica device row {row} does not "
+                                 f"match (data=1, model={tp})")
+            if tp > 1:
+                raise NotImplementedError(
+                    f"a tp={tp} replica inside a cluster needs {tp} ranks "
+                    "of its own under explicit SPMD: ROADMAP queue 1 "
+                    "item 18")
+            # one-device replica: weights and pools on the row's device,
+            # no wrapper, so the steps are the parent Engine's
+            dev = torch.device(row[0])
+            self.replica_device = dev
+            init(cfg, tree_map(lambda t: t.to(dev), params),
+                 dataclasses.replace(ecfg or EngineConfig(), device=dev))
+            return
         if tp == 1:
             init(cfg, params, ecfg)
             return
@@ -221,7 +250,12 @@ class _ShardedStepMixin:
         return super()._obs_process_name()
 
     def step(self):
-        with use_mesh(self.mesh):
+        dev = self.replica_device
+        # a replica on its own card launches its kernels and captures its
+        # graphs there, whatever the current card is
+        on_card = (torch.cuda.device(dev) if dev is not None
+                   and dev.type == "cuda" else contextlib.nullcontext())
+        with use_mesh(self.mesh), on_card:
             return super().step()
 
     def _step_collective_bytes(self, n_tokens: int) -> float:
@@ -267,9 +301,12 @@ class ShardedEngine(_ShardedStepMixin, Engine):
     def __init__(self, cfg: ModelConfig, params,
                  ecfg: Optional[EngineConfig] = None,
                  mesh_shape: Tuple[int, int] = (1, 1),
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 submesh: Optional[Sequence[torch.device]] = None,
+                 replica_id: int = 0):
         self._init_sharded(cfg, params, ecfg, mesh_shape, mesh,
-                           lambda c, p, e: Engine.__init__(self, c, p, e))
+                           lambda c, p, e: Engine.__init__(self, c, p, e),
+                           submesh=submesh, replica_id=replica_id)
 
 
 class ShardedSpecEngine(_ShardedStepMixin, SpecEngine):
@@ -283,23 +320,36 @@ class ShardedSpecEngine(_ShardedStepMixin, SpecEngine):
                  ecfg: Optional[EngineConfig] = None,
                  scfg: Optional[SpecConfig] = None,
                  mesh_shape: Tuple[int, int] = (1, 1),
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 submesh: Optional[Sequence[torch.device]] = None,
+                 replica_id: int = 0):
+        if submesh is not None and scfg is not None and (
+                scfg.draft_params is not None):
+            # a replica's draft model lives on the replica's device too
+            dev = torch.device(tuple(submesh)[0])
+            scfg = dataclasses.replace(scfg, draft_params=tree_map(
+                lambda t: t.to(dev), scfg.draft_params))
         self._init_sharded(
             cfg, params, ecfg, mesh_shape, mesh,
-            lambda c, p, e: SpecEngine.__init__(self, c, p, e, scfg))
+            lambda c, p, e: SpecEngine.__init__(self, c, p, e, scfg),
+            submesh=submesh, replica_id=replica_id)
 
 
 def make_engine(cfg: ModelConfig, params,
                 ecfg: Optional[EngineConfig] = None,
                 scfg: Optional[SpecConfig] = None,
                 mesh_shape: Tuple[int, int] = (1, 1),
-                mesh: Optional[Mesh] = None):
+                mesh: Optional[Mesh] = None,
+                submesh: Optional[Sequence[torch.device]] = None,
+                replica_id: int = 0):
     """The engine a launcher builds: speculative with ``scfg``, sharded
-    past a 1x1 mesh."""
+    past a 1x1 mesh; a serving replica on its device row with
+    ``submesh`` (serve/cluster.py)."""
+    kw = dict(mesh_shape=mesh_shape, mesh=mesh, submesh=submesh,
+              replica_id=replica_id)
     if scfg is not None:
-        return ShardedSpecEngine(cfg, params, ecfg, scfg,
-                                 mesh_shape=mesh_shape, mesh=mesh)
-    return ShardedEngine(cfg, params, ecfg, mesh_shape=mesh_shape, mesh=mesh)
+        return ShardedSpecEngine(cfg, params, ecfg, scfg, **kw)
+    return ShardedEngine(cfg, params, ecfg, **kw)
 
 
 __all__ = [

@@ -28,8 +28,9 @@ acceptance rule and its host copies stay eager.  With telemetry on, the
 ``propose`` span ends at the draft round's synchronize and the ``verify``
 span at the verify step's read-back.
 
-The JAX package's ``serve/spec.py`` in PyTorch; its ``export_request``
-(the multi-replica serving tier) is not ported (ROADMAP queue 1 item 12).
+The JAX package's ``serve/spec.py`` in PyTorch.  :meth:`SpecEngine.
+export_request` frees the proposer's mirrored slot before a request
+migrates to another replica (serve/cluster.py).
 """
 
 from __future__ import annotations
@@ -325,6 +326,16 @@ class SpecEngine(Engine):
         # re-admits (re-prefilling the committed context) on resume
         self.proposer.release(req)
         super()._preempt(req)
+
+    def export_request(self, req: Request, link: str = "dcn") -> Request:
+        # a running target's mirrored proposer slot is freed here (a
+        # preempted one was released at preemption); the acceptance EWMA
+        # leaves with the request, and the destination's proposer
+        # re-admits from the committed context
+        if req.state is RequestState.RUNNING:
+            self.proposer.release(req)
+        self._accept_ewma.pop(req.request_id, None)
+        return super().export_request(req, link=link)
 
     def step(self) -> List[Request]:
         done = super().step()

@@ -166,8 +166,8 @@ def test_serve_cli_mesh_prints_communication_roofline(capfd):
     out = capfd.readouterr().out
     assert "[serve/mesh] communication roofline (tp=2, gloo" in out
     assert "tp2" in out and "overlap ring" in out
-    with pytest.raises(SystemExit, match="item 12"):
-        serve_cli.main(["--smoke", "--device", "cpu", "--mesh", "2,1"])
+    with pytest.raises(SystemExit, match="item 18"):
+        serve_cli.main(["--smoke", "--device", "cpu", "--mesh", "2,2"])
     with pytest.raises(SystemExit, match="MoE"):
         serve_cli.main(["--smoke", "--device", "cpu", "--mesh", "1,2",
                         "--arch", "deepseek-v2-236b"])

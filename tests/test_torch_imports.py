@@ -45,7 +45,7 @@ def test_port_imports_without_jax_or_reference():
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "leaked: []" in out.stdout
-    assert int(out.stdout.split()[0]) >= 57      # every submodule walked
+    assert int(out.stdout.split()[0]) >= 59      # every submodule walked
     walked = out.stdout.splitlines()[1].split()
     for mod in ("models.mla", "models.moe", "kernels.paged_attention",
                 "serve.spec", "serve.proposer", "kernels.ref",
@@ -56,7 +56,8 @@ def test_port_imports_without_jax_or_reference():
                 "kernels.avgpool", "kernels.flash_attention",
                 "kernels.quantize", "parallel.mesh", "parallel.sharding",
                 "parallel.collectives", "serve.shard",
-                "core.roofline.op_collectives"):
+                "core.roofline.op_collectives", "serve.cluster",
+                "serve.router"):
         assert f"repro_torch.{mod}" in walked
 
 
@@ -102,9 +103,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_unported_blocks_raise_with_roadmap_item():
-    """Tensor parallelism is ported (a config naming ``tp_axis`` builds);
-    what stays unported raises with its ROADMAP item: serving replicas
-    over a data axis (item 12)."""
+    """Tensor parallelism and the serving replicas are ported (a config
+    naming ``tp_axis`` builds; dp > 1 without a device row points at the
+    Cluster); what stays unported raises with its ROADMAP item: a
+    tensor-parallel replica inside a cluster (item 18)."""
     from repro_torch.models import init_params
     from repro_torch.serve import ShardedEngine
     for arch in ("whisper-small", "llama-3.2-vision-90b", "qwen3-0.6b"):
@@ -113,5 +115,8 @@ def test_unported_blocks_raise_with_roadmap_item():
         init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     cfg = tcfg.smoke(tcfg.get_config("qwen3-0.6b"))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="Cluster"):
         ShardedEngine(cfg, params, mesh_shape=(2, 1))
+    cpu = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        ShardedEngine(cfg, params, mesh_shape=(2, 2), submesh=(cpu, cpu))

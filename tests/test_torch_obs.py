@@ -314,10 +314,15 @@ def test_ledger_delta_is_generic_over_fields():
     a.add_decode_token(cfg, 10, 2, vmem_bytes=5.0)
     b.add_decode_token(cfg, 10, 2, vmem_bytes=5.0)
     b.add_decode_token(cfg, 11, 2, vmem_bytes=7.0)
+    b.migration_link = "ici"
     d = tatt._ledger_delta(b, a)
     for f in dataclasses.fields(tsch.RooflineLedger):
+        if isinstance(getattr(b, f.name), str):   # the link: carried
+            assert getattr(d, f.name) == getattr(b, f.name)
+            continue
         assert getattr(d, f.name) == getattr(b, f.name) - getattr(a, f.name)
     assert d.decode_tokens == 1 and d.decode_vmem_bytes == 7.0
+    assert d.migration_link == "ici"
 
 
 def test_tracker_refuses_empty_windows():

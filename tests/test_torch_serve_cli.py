@@ -175,7 +175,20 @@ def _draws(logits, n, temp, top_k, top_p, batch=2000):
     return np.concatenate([t.numpy() for t in out])
 
 
-def test_sampler_distribution_within_null_bound():
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for the sampler's filter scan: under the
+    suite's six workers torch's default (one thread a core in every
+    worker) oversubscribes the cores, and this test's 22 000 filtered
+    rows then spent most of their wall waiting for them."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def test_sampler_distribution_within_null_bound(two_threads):
     """20 000 seeded draws at temperature 0.8, top-k 50, top-p 0.9 from
     one row: every draw in the kept set and the frequencies within
     ``tv_null_bound`` (6 sigma) of the filtered, tempered softmax; 2 000

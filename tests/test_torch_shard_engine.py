@@ -15,7 +15,8 @@ prompts, float32 smoke configs:
   the reference ``SpecEngine``'s, each round charged
   ``decode_step_ici_bytes(cfg, 2, 2, n_tokens=4) / 2``;
 * the 1x1 mesh: ``ShardedEngine`` is ``Engine`` byte for byte (tokens,
-  ledgers, pools), and a dp > 1 mesh names ROADMAP item 12.
+  ledgers, pools), and a dp > 1 mesh without a replica's device row
+  points at ``serve.cluster.Cluster``.
 
 The two ranks run every case in one spawn.  JAX is imported inside the
 tests only, so the spawned ranks, which import this module for its
@@ -219,7 +220,7 @@ def test_1x1_mesh_is_the_engine_byte_for_byte():
         for k in x:
             for leaf in x[k]:
                 assert torch.equal(x[k][leaf], y[k][leaf])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="Cluster"):
         ShardedEngine(cfg, params, ecfg, mesh_shape=(2, 1))
     with pytest.raises(ValueError):
         ShardedEngine(cfg, params, ecfg, mesh_shape=(0, 1))
