@@ -257,6 +257,26 @@ Phases, in order; any failure exits non-zero:
    layers x that replica's steps; the migration wall a request, the
    router's tok/s beside one engine's, the TTFT split and peak memory
    printed;
+   o. training (``[train]`` lines, train/ and launch/train.py): qwen3-0.6b
+   whole through ``launch/train.py``'s ``main`` (bf16 weights, float32
+   AdamW moments, remat full, B 4 x S 2048, 8 cosine steps at lr 3e-4):
+   its pre-flight report (the op walk of the step on fake tensors: W
+   against the model FLOPs, the bound on the data sheet and on the
+   measured roofs beside the measured step), the loss at every step
+   (it must fall), the median step of steps 3-8, tokens/s, the model
+   FLOPs' share of the measured bf16 matmul roof and peak memory; the
+   whole state's checkpoint (bytes, save_async's snapshot and write,
+   the restore, equal bit for bit); grad_accum 2 against the full batch
+   on the same step (loss and global gradient norm within the tolerances
+   derived in ``accumulation_check``); the bitwise resume under
+   deterministic algorithms (qwen3-0.6b's widths at 2 layers, a fault at
+   step 4, a restart: losses and final state equal an uninterrupted
+   run's); deepseek-v2-236b at full width, 2 layers (dense + MoE), one
+   forward and backward with the data-local dispatch: loss, nll, aux,
+   finite gradients, the routed experts that got tokens (each with
+   nonzero gradients, the others zero), peak memory
+   (``deepseek_dispatch_check``); the training
+   path launches none of the 14 kernels (every wrapper's count unchanged);
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -3662,7 +3682,7 @@ def greedy_gap(torch, np, cfg, params, reqs) -> float:
         for r in reqs:
             seq = np.concatenate([r.prompt, r.generated[:-1]]).astype(
                 np.int64)
-            logits, _ = forward_full(params, cfg, torch.as_tensor(
+            logits, _, _ = forward_full(params, cfg, torch.as_tensor(
                 seq[None], device="cuda"))
             rows = logits[0, len(r.prompt) - 1:].float()
             chosen = torch.as_tensor(r.generated, device="cuda")
@@ -4070,7 +4090,7 @@ def static_phase(torch, np, card, pa, cfg) -> int:
                  f" want steps x {per_step}")
         if not all(0 <= t < cfg.vocab_size for t in toks.reshape(-1)):
             fail(f"{cfg.name}: static tokens outside the vocab")
-        logits, _ = forward_full(params, cfg, torch.as_tensor(
+        logits, _, _ = forward_full(params, cfg, torch.as_tensor(
             toks[:, :-1], device="cuda"), **src)
         rows_l = logits[:, prompt - 1:].float()
         chosen = torch.as_tensor(toks[:, prompt:], device="cuda")
@@ -4960,6 +4980,333 @@ def router_phase(torch, np, card) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# o. training ([train] lines): launch/train.py and train/ on the card
+# --------------------------------------------------------------------------
+
+# qwen3-0.6b whole through launch/train.py, as a user runs it: bf16
+# weights, float32 AdamW moments, remat full (the config's), B 4 x S 2048,
+# 8 steps of the cosine schedule at lr 3e-4 (warmup min(20, steps // 5))
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 8, 3e-4
+# the bitwise resume: qwen3-0.6b's widths cut to RESUME_LAYERS layers
+# (the checkpoint IO of six saves stays small), 6 steps, a checkpoint
+# every 3, a transient fault injected at step 4, then a restart
+RESUME_LAYERS, RESUME_B, RESUME_S = 2, 2, 256
+RESUME_STEPS, RESUME_EVERY, RESUME_FAULT = 6, 3, 4
+# gradient accumulation against the full batch (derived in train_phase)
+ACCUM_LOSS_RTOL, ACCUM_GNORM_RTOL = 2.0 ** -8, 2.0 ** -6
+# deepseek-v2-236b at full width cut to 2 layers (the dense prologue and
+# one MoE layer of 160 experts, top-6), B 2 x S 1024
+DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_S = 2, 2, 1024
+
+
+def kernel_launch_counts() -> dict:
+    """Every kernel wrapper's launch count (the wrappers of the 14 rows,
+    each a function of ``repro_torch.kernels`` with a ``launches``
+    count)."""
+    from repro_torch.kernels import (avgpool, conv_direct, conv_winograd,
+                                     flash_attention, gelu, inner_product,
+                                     layernorm)
+    from repro_torch.kernels import paged_attention as pa
+    mods = (pa, inner_product, gelu, conv_direct, conv_winograd, layernorm,
+            avgpool, flash_attention)
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{n}": f.launches
+            for m in mods for n, f in sorted(vars(m).items())
+            if callable(f) and isinstance(getattr(f, "launches", None), int)}
+
+
+def leaves_equal(torch, a, b) -> bool:
+    from repro_torch.models.params import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def train_qwen(torch, np, card, roof, tmp: str) -> dict:
+    """Part 1: qwen3-0.6b whole through ``launch/train.py``'s ``main``
+    (its pre-flight report, then TrainLoop), and the whole state's
+    checkpoint: its bytes, the restore (bit for bit) and the save, timed.
+    Returns the config and the run's final state."""
+    import os
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.common import model_flops
+    from repro_torch.train import CheckpointManager
+    from repro_torch.train.loop import abstract_state
+    cfg = get_config("qwen3-0.6b")
+    if (cfg.remat, cfg.dtype, cfg.tie_embeddings) != ("full", "bfloat16",
+                                                      True):
+        fail(f"unexpected qwen3-0.6b training config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_cli.main([
+        "--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
+        "--ckpt-dir", tmp, "--ckpt-every", "100"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["loop"].history
+    losses = [h["loss"] for h in hist]
+    if [h["step"] for h in hist] != list(range(1, TRAIN_STEPS + 1)):
+        fail(f"train history steps {[h['step'] for h in hist]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"qwen3-0.6b training loss did not fall: {losses}")
+    step_s = float(np.median([h["dt"] for h in hist[2:]]))
+    mf = model_flops(cfg, TRAIN_S, TRAIN_B, "train")
+    bf16 = roof.matmul_flops["bfloat16"]
+    rep = res["report"]
+    w, q = rep.character.flops_dev, rep.character.hbm_bytes_dev
+    bound_meas = max(w / bf16, q / roof.peak_bw)
+    print(f"[train] qwen3-0.6b whole ({cfg.n_layers} layers, bf16 weights, "
+          f"float32 moments, remat {cfg.remat}), B {TRAIN_B} x S {TRAIN_S}, "
+          f"{TRAIN_STEPS} steps, cosine lr {TRAIN_LR}: loss by step "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (falls "
+          f"{losses[0] - losses[-1]:.4f}); {card}")
+    print(f"[train] qwen3-0.6b step (median of steps 3-{TRAIN_STEPS}) "
+          f"{step_s * 1e3:.2f} ms (steps 1-2: {hist[0]['dt'] * 1e3:.1f}, "
+          f"{hist[1]['dt'] * 1e3:.1f} ms), "
+          f"{TRAIN_B * TRAIN_S / step_s:.0f} tokens/s; model FLOPs "
+          f"{mf:.4e} a step = {mf / step_s / 1e12:.1f} TFLOP/s, "
+          f"{100 * mf / step_s / bf16:.2f}% of the measured bf16 matmul "
+          f"roof ({bf16 / 1e12:.1f} TFLOP/s); peak memory {peak / 1e9:.2f} "
+          f"GB; launch/train.py wall {wall:.1f} s (pre-flight walk "
+          f"{rep.walk_seconds:.1f} s and the final checkpoint included)")
+    print(f"[train] pre-flight walk of the step (fake tensors): W "
+          f"{w:.4e} FLOPs = {w / mf:.3f} x model FLOPs, Q {q / 1e9:.2f} GB; "
+          f"bound {rep.terms.t_lower * 1e3:.2f} ms on the data sheet "
+          f"({rep.terms.bound_class()}), {bound_meas * 1e3:.2f} ms on the "
+          f"measured roofs, against the measured step {step_s * 1e3:.2f} ms "
+          f"({100 * bound_meas / step_s:.1f}% of it)")
+    state = res["out"]["state"]
+    mgr = CheckpointManager(os.path.join(tmp, cfg.name))
+    path = os.path.join(mgr.step_dir(TRAIN_STEPS), "arrays.npz")
+    nbytes = os.path.getsize(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, manifest = mgr.restore(abstract_state(cfg), device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    if manifest["step"] != TRAIN_STEPS or not leaves_equal(torch, restored,
+                                                           state):
+        fail("the final checkpoint does not restore bit for bit")
+    del restored
+    shutil.rmtree(mgr.dir)
+    mgr = CheckpointManager(os.path.join(tmp, "timed"), keep=1)
+    t0 = time.perf_counter()
+    mgr.save_async(state, TRAIN_STEPS)
+    t_snap = time.perf_counter() - t0
+    mgr.wait()
+    t_save = time.perf_counter() - t0
+    shutil.rmtree(mgr.dir)
+    print(f"[train] qwen3-0.6b checkpoint (params, moments, step): "
+          f"{nbytes / 1e9:.3f} GB on disk; save_async {t_snap:.2f} s "
+          f"host snapshot + {t_save - t_snap:.2f} s written in the "
+          f"background; restore to the card {t_restore:.2f} s, equal to "
+          f"the state bit for bit (warm page cache)")
+    return {"cfg": cfg, "state": state}
+
+
+def accumulation_check(torch, cfg, state) -> None:
+    """Part 3: ``grad_accum`` 2 against the full batch, one step each on
+    the same state and batch (qwen3-0.6b whole, B 4 x S 2048).
+
+    Tolerances.  The two steps compute the same function; they differ
+    in rounding only.  (a) cuBLAS picks a GEMM kernel by row count, so
+    a 4096-row product may sum in another order than an 8192-row one and
+    round some bf16 outputs to the neighbouring value (one bf16 ulp,
+    2^-8 of the element at most); such flips are sparse and of random
+    sign, so after 28 layers the logits move far less than 2^-8 of
+    themselves, and the loss, a float32 mean over 8192 tokens, less
+    again: held at 2^-8 of the loss (ACCUM_LOSS_RTOL), one bf16 ulp.
+    (b) A weight's full-batch gradient is one bf16 rounding of a float32
+    sum over 8192 tokens; accumulated, it is two bf16 roundings of
+    4096-token sums (each within 2^-9 of its half), added in float32 and
+    halved, so every element lies within 2^-8 of |g| plus the (a) flips,
+    and so does the global norm: held at 2^-6 (ACCUM_GNORM_RTOL), four
+    times that."""
+    from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
+                                   make_train_step)
+    data = SyntheticLMData(cfg, TRAIN_B, TRAIN_S, device="cuda")
+    batch = data.batch_at(TRAIN_STEPS)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 5),
+                    total_steps=TRAIN_STEPS)
+    out = {}
+    for n in (1, 2):
+        new, m = make_train_step(cfg, TrainConfig(opt=opt, grad_accum=n))(
+            state, batch)
+        out[n] = (float(m["loss"]), float(m["grad_norm"]))
+        del new
+    (l1, g1), (l2, g2) = out[1], out[2]
+    dl, dg = abs(l2 - l1) / abs(l1), abs(g2 - g1) / abs(g1)
+    print(f"[train] grad_accum 2 vs the full batch (qwen3-0.6b, step "
+          f"{TRAIN_STEPS + 1}): loss {l2:.6f} vs {l1:.6f} (rel "
+          f"{dl:.2e}, tol {ACCUM_LOSS_RTOL:.2e}), grad norm {g2:.6f} vs "
+          f"{g1:.6f} (rel {dg:.2e}, tol {ACCUM_GNORM_RTOL:.2e})")
+    if not (dl <= ACCUM_LOSS_RTOL and dg <= ACCUM_GNORM_RTOL):
+        fail("gradient accumulation misses its tolerance")
+
+
+def resume_check(torch, np, cfg, tmp: str) -> None:
+    """Part 2: a run of RESUME_STEPS steps checkpointing every
+    RESUME_EVERY, against one that fails at step RESUME_FAULT (the
+    loop's emergency checkpoint, then the fault re-raised) and is
+    restarted: the restarted run's losses and final state must equal the
+    uninterrupted run's bit for bit.  Under deterministic algorithms: the
+    embedding gather's, ``take_along_dim``'s backward add with atomics
+    otherwise."""
+    import os
+    from repro_torch.train import (CheckpointManager, LoopConfig, OptConfig,
+                                   SyntheticLMData, TrainConfig, TrainLoop,
+                                   make_initial_state)
+    from repro_torch.train.loop import _TransientError
+    small = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    loop_cfg = LoopConfig(
+        total_steps=RESUME_STEPS, ckpt_every=RESUME_EVERY, log_every=1,
+        max_retries=0, train=TrainConfig(opt=OptConfig(
+            lr=1e-3, warmup_steps=0, total_steps=RESUME_STEPS)))
+    data = SyntheticLMData(small, RESUME_B, RESUME_S, seed=5, device="cuda")
+    armed = {"on": True}
+
+    def injector(step):
+        if step == RESUME_FAULT and armed["on"]:
+            raise _TransientError("injected node loss")
+
+    def loop(name, inject=None):
+        return TrainLoop(small, loop_cfg, data,
+                         CheckpointManager(os.path.join(tmp, name), keep=3),
+                         make_initial_state(small, 0, "cuda"),
+                         failure_injector=inject)
+
+    with deterministic(torch, True):
+        ref = loop("uninterrupted")
+        ref_out = ref.run()
+        crashed = loop("restarted", injector)
+        try:
+            crashed.run()
+            fail("the injected fault did not stop the run")
+        except _TransientError:
+            pass
+        armed["on"] = False
+        resumed = loop("restarted", injector)
+        t0 = time.perf_counter()
+        out = resumed.run()
+        wall = time.perf_counter() - t0
+    want = {h["step"]: h["loss"] for h in ref.history}
+    got = {h["step"]: h["loss"] for h in resumed.history}
+    first = min(got) if got else None
+    if (out["step"] != RESUME_STEPS or first != RESUME_FAULT + 1
+            or any(got[s] != want[s] for s in got)
+            or not leaves_equal(torch, out["state"], ref_out["state"])):
+        fail(f"resume is not bitwise: {got} vs {want}")
+    print(f"[train] resume (qwen3-0.6b widths, {RESUME_LAYERS} layers, B "
+          f"{RESUME_B} x S {RESUME_S}, deterministic algorithms): fault at "
+          f"step {RESUME_FAULT}, restarted from its emergency checkpoint: "
+          f"losses of steps {sorted(got)} and the final state equal the "
+          f"uninterrupted run's bit for bit "
+          f"({', '.join(f'{got[s]:.6f}' for s in sorted(got))}); restart "
+          f"to step {RESUME_STEPS} {wall:.2f} s")
+
+
+def deepseek_dispatch_check(torch, np) -> None:
+    """Part 4: deepseek-v2-236b at full width, 2 layers (the dense
+    prologue, one MoE layer), one ``loss_fn`` forward and backward
+    (``train.step.value_and_grad``, no optimizer state) with the
+    data-local dispatch, under deterministic algorithms.  One rank is one
+    group, so "local" runs the global dispatch over the rank's tokens:
+    the line reads the routing through ``_dispatch_combine``'s kept
+    slots and requires every routed expert with tokens to have nonzero
+    gradients and every other to have zero ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train import SyntheticLMData
+    from repro_torch.train.step import value_and_grad
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DS_TRAIN_LAYERS, moe_dispatch="local")
+    if [(tuple(b.ffn for b in u), r) for u, r in cfg.segments()] != [
+            (("dense",), 1), (("moe",), 1)] or cfg.n_experts != 160:
+        fail(f"unexpected deepseek-v2 training cut {cfg.segments()}")
+    params = make_params(torch, cfg)
+    batch = SyntheticLMData(cfg, DS_TRAIN_B, DS_TRAIN_S,
+                            device="cuda").batch_at(0)
+    kept = []
+    inner = moe_mod._dispatch_combine
+
+    def spy(xf, gates, eids, C, c):
+        out = inner(xf, gates, eids, C, c)
+        kept.append((out[1].reshape(c.n_experts, C) < xf.shape[0]).sum(1))
+        return out
+
+    moe_mod._dispatch_combine = spy
+    try:
+        with deterministic(torch, True):
+            torch.cuda.reset_peak_memory_stats()
+            loss, metrics, grads = value_and_grad(params, batch, cfg)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        moe_mod._dispatch_combine = inner
+    got = kept[0].cpu()
+    finite = all(bool(torch.isfinite(g).all()) for _, g in tree_paths(grads))
+    ffn = grads["segments"][1]["b0"]["ffn"]
+    norms = torch.stack([torch.linalg.vector_norm(
+        ffn[k][0], dim=(1, 2), dtype=torch.float32)
+        for k in ("w_up", "w_gate", "w_down")])
+    busy = got > 0
+    moved = (norms > 0).all(0).cpu()
+    still = (norms == 0).all(0).cpu()
+    ok = bool(moved[busy].all()) and bool(still[~busy].all())
+    print(f"[train] deepseek-v2-236b ({DS_TRAIN_LAYERS} layers: dense + "
+          f"MoE), B {DS_TRAIN_B} x S {DS_TRAIN_S}, dispatch local (one "
+          f"group a rank): loss {float(loss):.6f} = nll "
+          f"{float(metrics['nll']):.6f} + aux {float(metrics['aux']):.6f}; "
+          f"gradients finite: {finite}; {int(busy.sum())} of "
+          f"{cfg.n_experts} routed experts got tokens (kept "
+          f"{int(got.sum())} pairs), all of them with nonzero w_up / "
+          f"w_gate / w_down gradients and the other {int((~busy).sum())} "
+          f"with zero ones: {ok}; peak memory {peak / 1e9:.2f} GB")
+    if not (finite and ok and np.isfinite(float(loss))):
+        fail("deepseek-v2 local dispatch gradients")
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, np, card, roof) -> None:
+    """The [train] phase: qwen3-0.6b whole through launch/train.py, its
+    checkpoint, gradient accumulation, the bitwise resume, and
+    deepseek-v2's local dispatch.  The training path runs no ported
+    kernel (the reference's training runs no Pallas kernel): every
+    wrapper's launch count must stay as it was."""
+    import signal
+    import tempfile
+    before = kernel_launch_counts()
+    prev = signal.getsignal(signal.SIGTERM)   # TrainLoop installs its own
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            run = train_qwen(torch, np, card, roof, tmp)
+            cfg = run["cfg"]
+            accumulation_check(torch, cfg, run["state"])
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            resume_check(torch, np, cfg, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        deepseek_dispatch_check(torch, np)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    after = kernel_launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if moved or len(after) < 14:
+        fail(f"the training path launched ported kernels: {moved} "
+             f"({len(after)} wrappers counted)")
+    print(f"[train] the training path launched none of the ported kernels "
+          f"({len(after)} wrappers' launch counts unchanged)")
+
+
 def print_build_summary(name: str, log: str) -> None:
     """One line per source from nvcc's ``-Xptxas -v`` report: kernel
     instantiations, their register range, and each one that spills."""
@@ -5267,8 +5614,12 @@ def main() -> int:
         f"tensor parallel: qwen3-14b, its n-gram verify and MLA-dense "
         f"({TP_MLA_LAYERS} layers) at tp {TP}, NCCL world of one", t_phase)
     router_phase(torch, np, card)
-    phase_time("serving tier: qwen3-0.6b and MLA-dense replicas behind the "
-               "router", t_phase)
+    t_phase = phase_time("serving tier: qwen3-0.6b and MLA-dense replicas "
+                         "behind the router", t_phase)
+    train_phase(torch, np, card, roof)
+    phase_time(f"training: qwen3-0.6b whole ({TRAIN_STEPS} steps), "
+               f"checkpoint, accumulation, resume, deepseek-v2 "
+               f"({DS_TRAIN_LAYERS} layers) dispatch", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

@@ -1,4 +1,17 @@
-"""Analytic work W (FLOPs) and traffic Q (bytes) of the paper's primitives.
+"""The paper's analysis as a library call: a whole step's roofline report
+(:func:`analyze_step`, :class:`AnalysisReport`), and the analytic work W
+(FLOPs) and traffic Q (bytes) of the paper's primitives.
+
+A step's report walks one call of the step with the op-level cost walk
+(``core/roofline/extract.py::characterize``), on fake tensors when its
+arguments are fake (``launch/specs.py``: the full-width step is
+characterized without computing or allocating it), where the reference
+lowers, compiles and parses the HLO.  The walk runs the call, so it sees
+every aten op the call dispatches: the forward, the backward the
+autograd engine runs (and the forward a checkpointed layer recomputes),
+the optimizer's update.
+
+The primitives:
 
 The JAX package reads W and Q off the compiled HLO module
 (``core/analysis.py::kernel_character``, its cost walk); the port has no
@@ -33,10 +46,21 @@ Each function returns the keys of ``kernel_character``: ``W_flops``,
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Dict, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
+from torch.utils._pytree import tree_flatten
+
+from ..parallel.mesh import mesh_axis_sizes
+from .roofline import H100_SXM, ChipSpec, RooflineTerms, ScopeSpec
+from .roofline.extract import (StepCharacter, character_as_dict,
+                               characterize, terms_from_character)
+from .roofline.hardware import scope_for_mesh
+from .roofline.report import render_report
 
 GELU_FLOPS = 9                      # per element, the tanh included
 EPILOGUE_FLOPS = {"none": 0, "relu": 1, "gelu": GELU_FLOPS}
@@ -198,3 +222,81 @@ def flash_attention_ai(seq_len: int, bq: int = 128) -> float:
     S / bq query blocks, 2 S hd (1 + S / bq) bf16 bytes: S / (2 (1 +
     S / bq)) FLOP a byte."""
     return seq_len / (2.0 * (1.0 + seq_len / bq))
+
+
+# --------------------------------------------------------------------------
+# A step's report
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AnalysisReport:
+    label: str
+    character: StepCharacter
+    terms: RooflineTerms
+    walk_seconds: float
+    mesh_shape: Dict[str, int]
+
+    def render(self) -> str:
+        extra = []
+        top = self.character.collectives.top_ops[:5]
+        if top:
+            extra.append("top collectives (per-device wire bytes):")
+            for op in top:
+                extra.append(f"  {op.kind:<20} {op.wire_bytes / 1e6:>10.2f} MB"
+                             f"  x{op.group_size}")
+        if self.character.scopes:
+            extra.append("per-scope (named_scope) breakdown:")
+            for tag, sb in sorted(self.character.scopes.items(),
+                                  key=lambda kv: -kv[1]["bytes"]):
+                extra.append(
+                    f"  {tag:<18} flops={sb['flops'] / 1e12:8.2f} TF"
+                    f"  bytes={sb['bytes'] / 2**30:9.2f} GiB")
+        mem = self.character.memory
+        extra.append(
+            f"memory/device: args={mem.argument_bytes / 2**30:.2f} GiB"
+            f" temps={mem.temp_bytes / 2**30:.2f} GiB"
+            f" out={mem.output_bytes / 2**30:.2f} GiB")
+        return render_report(self.label, self.terms, extra)
+
+    def as_dict(self) -> Dict[str, Any]:
+        d = character_as_dict(self.character)
+        t = self.terms
+        d.update(
+            label=self.label, mesh_shape=self.mesh_shape,
+            walk_seconds=self.walk_seconds, scope=t.scope,
+            n_chips=t.n_chips, dtype=t.dtype, compute_s=t.compute_s,
+            memory_s=t.memory_s, ici_s=t.ici_s, dcn_s=t.dcn_s,
+            dominant=t.dominant, bound=t.bound_class(),
+            t_lower_s=t.t_lower, t_upper_s=t.t_upper,
+            arithmetic_intensity=t.arithmetic_intensity,
+            model_flops_total=t.model_flops_total,
+            useful_ratio=t.useful_ratio,
+            roofline_fraction=t.roofline_fraction,
+            hardware_fraction=t.hardware_fraction)
+        return d
+
+
+def analyze_step(fn: Callable, *, args: Sequence[Any], mesh=None,
+                 label: str = "step", scope: Optional[ScopeSpec] = None,
+                 chip: ChipSpec = H100_SXM, dtype: str = "bfloat16",
+                 model_flops: Optional[float] = None) -> AnalysisReport:
+    """Walk one call ``fn(*args)`` and price it on ``scope`` (the scope
+    of ``mesh``'s axis sizes on ``chip`` when None; one card without a
+    mesh).  Fake arguments (``launch/specs.py``) are walked in their own
+    ``FakeTensorMode``: nothing is computed or allocated.  The walk's
+    temporaries are not tracked (``MemoryFootprint.temp_bytes`` 0)."""
+    mesh_shape = (mesh_axis_sizes(mesh) if mesh is not None
+                  else {"data": 1, "model": 1})
+    if scope is None:
+        scope = scope_for_mesh(mesh_shape, chip)
+    from torch._guards import detect_fake_mode
+    mode = detect_fake_mode(
+        [t for t in tree_flatten(args)[0] if isinstance(t, torch.Tensor)])
+    t0 = time.perf_counter()
+    with mode if mode is not None else contextlib.nullcontext():
+        char = characterize(fn, *args)
+    terms = terms_from_character(char, scope, dtype=dtype,
+                                 model_flops_total=model_flops)
+    return AnalysisReport(label=label, character=char, terms=terms,
+                          walk_seconds=time.perf_counter() - t0,
+                          mesh_shape=mesh_shape)

@@ -151,6 +151,34 @@ class ModelConfig:
         return [(pro, self.moe_first_dense), (self.block_pattern, rest)]
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> Sequence[str]:
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        out.append("long_500k")
+    return out
+
+
 # --------------------------------------------------------------------------
 # Parameter / FLOP accounting (MODEL_FLOPS = 6*N*D convention + attention)
 # --------------------------------------------------------------------------

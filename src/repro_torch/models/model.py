@@ -4,14 +4,15 @@ engines use (the reference's ``models/model.py``)."""
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from ..device import resolve_device
 from . import transformer as tfm
 from .common import ModelConfig
-from .params import instantiate, torch_dtype, tree_count, tree_map
+from .params import (instantiate, torch_dtype, tree_count, tree_map,
+                     tree_nbytes)
 
 
 def model_param_defs(cfg: ModelConfig):
@@ -58,6 +59,30 @@ def prepare_params(params, cfg: ModelConfig):
     return {**params, "embed": embed}
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as meta tensors: every leaf's shape and dtype,
+    no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.torch_dtype,
+                                          device="meta"),
+                    model_param_defs(cfg))
+
+
+def cache_param_defs(cfg: ModelConfig, batch: int, max_len: int):
+    """ParamDefs of the dense decode caches (:func:`init_cache`)."""
+    return tfm.cache_defs(cfg, batch, max_len)
+
+
+def drop_cast(params):
+    """``params`` without the tied embedding's cached cast
+    (:func:`prepare_params`): a new top-level dict of the same tensors.
+    Training leaves the cast out: it is neither trained nor counted by
+    the optimizer nor checkpointed."""
+    if "tok_cast" not in params.get("embed", {}):
+        return params
+    embed = {k: v for k, v in params["embed"].items() if k != "tok_cast"}
+    return {**params, "embed": embed}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda"):
     """Zeroed dense decode caches (transformer.cache_defs: sequence axes
@@ -65,6 +90,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``max_len`` tokens, on ``device``."""
     return instantiate(tfm.cache_defs(cfg, batch, max_len), None,
                        resolve_device(device))
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in float32.  logits (B, S, V); labels (B, S);
+    ``mask`` (B, S) weights each token (all ones when None)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)                          # (B, S)
+    ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
+    nll = lse - ll
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens (B, S), labels (B, S); optional ``loss_mask``,
+    ``enc_embeds`` / ``img_embeds``.  The forward runs under
+    ``cfg.remat``.  Returns (loss = nll + aux, {"nll", "aux"})."""
+    logits, aux, _ = tfm.forward_full(
+        params, cfg, batch["tokens"],
+        enc_embeds=batch.get("enc_embeds"),
+        img_embeds=batch.get("img_embeds"))
+    nll = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -77,10 +131,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     S_src, ...) and recurrent final states (reps, B, ...), ready for
     ``PagedKVCache.write_prefill_states`` or the static engine's dense
     caches."""
-    logits, states = tfm.forward_full(params, cfg, tokens,
-                                      enc_embeds=enc_embeds,
-                                      img_embeds=img_embeds,
-                                      collect_state=True)
+    logits, _, states = tfm.forward_full(params, cfg, tokens,
+                                         enc_embeds=enc_embeds,
+                                         img_embeds=img_embeds,
+                                         collect_state=True, remat=False)
     return logits[:, -1, :], states
 
 
@@ -93,8 +147,8 @@ def prefill_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
     device, read by a fixed-shape gather (so a captured bucket replays at
     any length).  Returns (last_logits (B, V) at position true_len-1,
     states)."""
-    logits, states = tfm.forward_full(params, cfg, tokens,
-                                      collect_state=True)
+    logits, _, states = tfm.forward_full(params, cfg, tokens,
+                                         collect_state=True, remat=False)
     last = torch.as_tensor(true_len, device=logits.device).reshape(1) - 1
     return logits.index_select(1, last.long())[:, 0], states
 
@@ -158,3 +212,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, pools: List[Any],
 
 def param_count(cfg: ModelConfig) -> int:
     return tree_count(model_param_defs(cfg))
+
+
+def param_bytes(cfg: ModelConfig) -> int:
+    return tree_nbytes(model_param_defs(cfg))

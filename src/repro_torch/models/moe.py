@@ -18,10 +18,14 @@ stable like ``jnp.argsort``, the out-of-range "drop" index E*C lands in
 one spare row that is cut off, and the combine scatter-adds into an
 (N+1, D) buffer whose last row is the pad sentinel.  At decode the
 expert products read every expert's weights, as the reference's do.
-The data-local dispatch (``moe_dispatch="local"``) groups tokens by the
-mesh's data axis, which the tensor-parallel serve step does not have
-(serve/shard.py refuses MoE): it comes with training, ROADMAP queue 1
-item 14.
+
+The data-local dispatch (``moe_dispatch="local"``) groups tokens by
+their data-parallel shard, each group's capacity from its own token
+count.  Under the port's explicit SPMD a rank holds only its own shard's
+tokens, so its tokens are its one group and the global dispatch over
+them is the local one.  The aux loss is the reference's formula over the
+tokens the call sees: a rank's, where the reference's is over the global
+batch.
 """
 
 from __future__ import annotations
@@ -115,10 +119,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
         torch.ones((N * K,), dtype=torch.float32, device=x.device)) / (N * K)
     aux = E * (me * ce).sum() * cfg.router_aux_coef
 
-    if cfg.moe_dispatch == "local":
-        raise NotImplementedError(
-            "moe_dispatch='local' (data-local expert dispatch) is not "
-            "ported yet: ROADMAP queue 1 item 14")
+    # "local": a rank's tokens are its one group, so C is the group's.
     out = _moe_global(p, xf, gates, eids, C, cfg)
     if cfg.n_shared_experts:
         out = out + apply_mlp(p["shared"], xf, cfg)

@@ -102,6 +102,26 @@ def tree_leaves(tree: Any) -> list:
     return out
 
 
+def tree_unflatten(template: Any, leaves: list) -> Any:
+    """A tree of ``template``'s structure holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def tree_paths(tree: Any, prefix: str = "") -> list:
+    """(path, leaf) pairs in :func:`tree_leaves` order, a path the dict
+    keys and list indices joined by "/" (``params/segments/0/b0/mixer/wq``:
+    the JAX package's checkpoint keys)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, t in enumerate(tree)
+                for pl in tree_paths(t, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
 def stack_defs(defs: Any, n: int) -> Any:
     """Prepend a stacked ``(reps, ...)`` layer axis to every ParamDef."""
     def f(d: ParamDef) -> ParamDef:
@@ -120,3 +140,8 @@ def instantiate(defs: Any, generator: Optional[torch.Generator],
 
 def tree_count(defs: Any) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs))
+
+
+def tree_nbytes(defs: Any) -> int:
+    return sum(math.prod(d.shape) * torch_dtype(d.dtype).itemsize
+               for d in tree_leaves(defs))

@@ -25,9 +25,12 @@ RoPE tables are computed once per forward for each mixer kind present
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.roofline.op_cost import named_scope
 from . import attention as attn
@@ -259,17 +262,19 @@ def rope_tables(cfg: ModelConfig, positions: torch.Tensor
 # --------------------------------------------------------------------------
 
 def _ffn_tail(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
-    """Shared norm2 -> FFN -> residual tail (the MoE aux loss, a training
-    term, is dropped)."""
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Shared norm2 -> FFN -> residual tail.  Returns (x, aux): the MoE
+    FFN's float32 load-balance loss, None for a dense or absent FFN (the
+    reference's zero)."""
     if b.ffn == "none":
-        return x
+        return x, None
     h = apply_norm(p["norm2"], x, cfg)
+    aux = None
     if b.ffn == "dense":
         o = apply_mlp(p["ffn"], h, cfg)
     else:
-        o, _ = moe_mod.moe_ffn(p["ffn"], h, cfg)
-    return x + cfg.residual_scale * o
+        o, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
+    return x + cfg.residual_scale * o, aux
 
 
 def _cross_kv(p, src: torch.Tensor, cfg: ModelConfig):
@@ -295,11 +300,13 @@ def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
                      positions: Optional[torch.Tensor],
                      ropes: Dict[str, attn.Rope],
                      cross_src: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (x, state) — the block's cache lines: {"k", "v"} for GQA,
-    {"ck", "cv"} over ``cross_src`` (B, S_src, D) for cross attention
-    (both for ``attn+cross``), {"c_kv", "k_rope"} for MLA; a recurrent
-    mixer's final state."""
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """Returns (x, aux, state): the MoE aux loss (None without a MoE
+    FFN) and the block's cache lines: {"k", "v"} for GQA, {"ck", "cv"}
+    over ``cross_src`` (B, S_src, D) for cross attention (both for
+    ``attn+cross``), {"c_kv", "k_rope"} for MLA; a recurrent mixer's
+    final state."""
     h = apply_norm(p["norm1"], x, cfg)
     if b.mixer in ("attn", "attn+cross"):
         o, state = attn.multihead_attention(p["mixer"], h, cfg,
@@ -318,7 +325,8 @@ def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
     else:
         o, state = _recurrent_mixer(p["mixer"], b, h, cfg, None)
     x = x + cfg.residual_scale * o
-    return _ffn_tail(p, b, x, cfg), state
+    x, aux = _ffn_tail(p, b, x, cfg)
+    return x, aux, state
 
 
 def _cross_attend_cached(p, x: torch.Tensor, ck: torch.Tensor,
@@ -405,7 +413,7 @@ def apply_block_decode(p, b: BlockDef, x: torch.Tensor,
         else:
             _freeze(pool, new, active)
     x = x + cfg.residual_scale * o
-    return _ffn_tail(p, b, x, cfg)
+    return _ffn_tail(p, b, x, cfg)[0]
 
 
 def apply_block_verify(p, b: BlockDef, x: torch.Tensor,
@@ -434,7 +442,7 @@ def apply_block_verify(p, b: BlockDef, x: torch.Tensor,
             f"speculative verification needs a rollback-free cache; mixer "
             f"{b.mixer!r} carries recurrent state (attn/mla only)")
     x = x + cfg.residual_scale * o
-    return _ffn_tail(p, b, x, cfg)
+    return _ffn_tail(p, b, x, cfg)[0]
 
 
 def apply_block_prefill_chunk(p, b: BlockDef, x: torch.Tensor,
@@ -462,38 +470,103 @@ def apply_block_prefill_chunk(p, b: BlockDef, x: torch.Tensor,
         for k, v in pool.items():
             v.index_copy_(0, slot, new[k].to(v.dtype))
     x = x + cfg.residual_scale * o
-    return _ffn_tail(p, b, x, cfg)
+    return _ffn_tail(p, b, x, cfg)[0]
 
 
 # --------------------------------------------------------------------------
 # Forward passes
 # --------------------------------------------------------------------------
 
-def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor
-                 ) -> torch.Tensor:
+REMAT_MODES = ("full", "dots", "none")
+
+
+def remat_mode(cfg: ModelConfig, remat: Optional[bool] = None) -> str:
+    """The activation checkpointing a full forward runs under: ``remat``
+    False forces "none" and True "full" (the reference's override);
+    None takes ``cfg.remat``."""
+    mode = {False: "none", True: "full"}.get(remat, cfg.remat)
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {mode!r} not in {REMAT_MODES}")
+    return mode
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of the 2-D products (``mm`` / ``addmm``: the weight products, which
+    have no batch dim), recompute the rest, batched products included,
+    so the (.., S, S) attention scores and the per-expert products are
+    not kept (the counterpart of ``checkpoint_dots_with_no_batch_dims``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematted(fn, mode: str):
+    """``fn`` under activation checkpointing ``mode``: "full" saves only
+    its inputs and recomputes the rest in backward, "dots" also saves the
+    2-D matrix products' outputs, "none" is ``fn``.  With grad disabled
+    (serving) nothing is saved for backward, so ``fn`` runs as is."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    # the models draw no random numbers, so no RNG state is kept
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
+def _unstack(tree: Any, reps: int) -> List[Any]:
+    """The ``reps`` layers of a stacked ``(reps, ...)`` dict tree, as
+    views: one ``unbind`` a leaf, whose backward stacks the layers'
+    gradients once (indexing layer by layer would add a full-size zero
+    gradient a layer)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: per[k][r] for k in tree} for r in range(reps)]
+    return list(tree.unbind(0))
+
+
+def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+                 remat: Optional[bool] = None) -> torch.Tensor:
     """Whisper-style encoder over precomputed (stub) frame embeddings
     (B, frames, D): learned positions, ``n_encoder_layers`` causal GQA
     blocks without RoPE (the reference's encoder passes no positions, so
-    its attention takes ``cfg.causal``), a final norm."""
+    its attention takes ``cfg.causal``), a final norm.  Each block is
+    checkpointed when the remat mode is "full" (the reference's
+    encoder checkpoints under "full" only)."""
     enc = params["encoder"]
     F = enc_embeds.shape[1]
     x = enc_embeds + enc["pos"][:F].to(enc_embeds.dtype)[None]
     no_rope = {"attn": None}
-    for r in range(cfg.n_encoder_layers):
-        x, _ = apply_block_full(_layer(enc["blocks"], r)["b0"],
-                                ENCODER_BLOCK, x, cfg, None, no_rope)
+
+    def body(y, layer_p):
+        return apply_block_full(layer_p["b0"], ENCODER_BLOCK, y, cfg, None,
+                                no_rope)[0]
+
+    mode = remat_mode(cfg, remat)
+    body = _rematted(body, "full" if mode == "full" else "none")
+    for layer_p in _unstack(enc["blocks"], cfg.n_encoder_layers):
+        x = body(x, layer_p)
     return apply_norm(enc["final_norm"], x, cfg)
 
 
 def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
                  enc_embeds: Optional[torch.Tensor] = None,
                  img_embeds: Optional[torch.Tensor] = None,
-                 collect_state: bool = False):
+                 collect_state: bool = False,
+                 remat: Optional[bool] = None):
     """Full-sequence forward.  tokens (B, S) int; ``enc_embeds`` (B,
     frames, D) for an encoder-decoder model (run through the encoder),
     ``img_embeds`` (B, n_img, D) for a vision model: the cross-attention
-    source, cast to the model dtype.  Returns (logits (B, S, V), states)
-    — states (with ``collect_state``) per segment ``{"b<i>": lines}``
+    source, cast to the model dtype.  Each layer runs under the
+    checkpointing of :func:`remat_mode` (``cfg.remat`` unless ``remat``
+    overrides it; only while grad is enabled).
+
+    Returns (logits (B, S, V), aux, states): aux the float32 sum of the
+    MoE blocks' load-balance losses, added in layer order (0 without
+    MoE); states (with ``collect_state``) per segment ``{"b<i>": lines}``
     stacked (reps, B, S, ...) for attention blocks ((reps, B, S_src, ...)
     for their cross lines) and a recurrent block's final state (reps, B,
     ...), else None."""
@@ -506,30 +579,39 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
         if enc_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder forward "
                              "needs enc_embeds")
-        cross_src = _run_encoder(params, cfg, enc_embeds.to(x.dtype))
+        cross_src = _run_encoder(params, cfg, enc_embeds.to(x.dtype), remat)
     elif cfg.n_image_tokens:
         if img_embeds is None:
             raise ValueError(f"{cfg.name}: a vision forward needs "
                              "img_embeds")
         cross_src = img_embeds.to(x.dtype)
     ropes = rope_tables(cfg, positions)
+    mode = remat_mode(cfg, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     states: List[Any] = []
     for seg_params, (unit, reps) in zip(params["segments"], cfg.segments()):
-        per_layer = []
-        for r in range(reps):
-            layer_p = _layer(seg_params, r)
+
+        def body(y, a, layer_p, unit=unit):
             st = {}
             for i, b in enumerate(unit):
-                x, st[f"b{i}"] = apply_block_full(layer_p[f"b{i}"], b, x,
-                                                  cfg, positions, ropes,
-                                                  cross_src)
+                y, ab, st[f"b{i}"] = apply_block_full(
+                    layer_p[f"b{i}"], b, y, cfg, positions, ropes, cross_src)
+                if ab is not None:
+                    a = a + ab
+            # a layer's lines leave the body only when they are collected
+            return y, a, (st if collect_state else None)
+
+        body = _rematted(body, mode)
+        per_layer = []
+        for layer_p in _unstack(seg_params, reps):
+            x, aux, st = body(x, aux, layer_p)
             per_layer.append(st)
         if collect_state:
             states.append(tree_map(lambda *xs: torch.stack(xs),
                                    *per_layer))
     x = apply_norm(params["final_norm"], x, cfg)
     logits = logits_from_hidden(params["embed"], x, cfg)
-    return logits, (states if collect_state else None)
+    return logits, aux, (states if collect_state else None)
 
 
 def decode_one(params, cfg: ModelConfig, caches: List[Any],

@@ -233,12 +233,13 @@ def _rank_main(fn: Callable, rank: int, world: int, backend: str,
         out.put((rank, False, traceback.format_exc()))
 
 
-def spawn(fn: Callable, world: int, *, backend: str = "gloo",
-          device: str = "cpu", args: tuple = (), threads: Optional[int] = None,
+def spawn(fn: Callable, world: int, *, device: str,
+          backend: str = "gloo", args: tuple = (), threads: Optional[int] = None,
           timeout: float = 1800.0) -> Any:
     """Run ``fn(rank, world, *args)`` on ``world`` ranks, each a process
     started with the ``spawn`` method inside a process group of
-    ``backend`` ("gloo" or "nccl"), rank r on :func:`rank_device`.
+    ``backend`` ("gloo" or "nccl"), rank r on :func:`rank_device` of
+    ``device`` ("cuda" or "cpu": required, the caller chooses).
     ``fn`` must be importable by name (module level).  The rendezvous is
     a ``FileStore`` in a fresh temporary directory, so concurrent calls
     never meet.  Returns rank 0's result; raises with the traceback of the

@@ -23,13 +23,12 @@ parallel/collectives.py are written where activations cross ranks.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..models.params import ParamDef, torch_dtype, tree_count, tree_leaves
+from ..models.params import ParamDef, tree_count, tree_nbytes
 from ..models.params import tree_map
 from .mesh import mesh_axis_sizes
 
@@ -161,11 +160,6 @@ def tree_specs(defs, mesh, rules: ShardingRules = DEFAULT):
     sizes = mesh_axis_sizes(mesh)
     return tree_map(lambda d: resolve_spec(d.logical, d.shape, sizes, rules),
                     defs)
-
-
-def tree_nbytes(defs) -> int:
-    return sum(math.prod(d.shape) * torch_dtype(d.dtype).itemsize
-               for d in tree_leaves(defs))
 
 
 def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:

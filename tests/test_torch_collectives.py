@@ -106,7 +106,7 @@ def _collective_checks(rank: int, world: int) -> dict:
 
 
 def test_collectives_on_three_gloo_ranks():
-    out = spawn(_collective_checks, 3, threads=1)
+    out = spawn(_collective_checks, 3, device="cpu", threads=1)
     assert len(out) == 3
 
 
@@ -137,7 +137,7 @@ def _crosscheck_worker(rank: int, world: int) -> dict:
 
 
 def test_collectives_crosscheck_and_ici_metric_on_two_ranks():
-    out = spawn(_crosscheck_worker, 2, threads=1)
+    out = spawn(_crosscheck_worker, 2, device="cpu", threads=1)
     assert len(out["collectives"]) == 3
     for name, kinds in (("qwen", {"all-reduce"}),
                         ("mla", {"all-reduce", "all-gather"})):

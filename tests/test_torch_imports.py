@@ -57,7 +57,9 @@ def test_port_imports_without_jax_or_reference():
                 "kernels.quantize", "parallel.mesh", "parallel.sharding",
                 "parallel.collectives", "serve.shard",
                 "core.roofline.op_collectives", "serve.cluster",
-                "serve.router"):
+                "serve.router", "train.step", "train.optimizer",
+                "train.data", "train.checkpoint", "train.loop",
+                "launch.train", "launch.specs", "launch.train_lm"):
         assert f"repro_torch.{mod}" in walked
 
 

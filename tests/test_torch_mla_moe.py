@@ -224,12 +224,17 @@ def test_moe_capacity_drops_match():
         torch.topk(tprobs, K, dim=-1).indices.numpy(), eids)
 
 
-def test_moe_local_dispatch_raises_with_roadmap_item():
-    jc, tc, jp, tp = _load("deepseek-v2-236b")
-    _, tb = _block(jp, tp, 1, "ffn")
-    cfg = dataclasses.replace(tc, moe_dispatch="local")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmoe.moe_ffn(tb, torch.zeros(1, 2, tc.d_model), cfg)
+@pytest.mark.parametrize("cf", [1.25, 0.25], ids=["kept", "dropping"])
+def test_moe_local_dispatch_matches_reference(cf):
+    """moe_dispatch="local" without a mesh (one group on both sides):
+    the port (a rank's tokens are its one group) against the reference's
+    ``_moe_local``, with and without capacity drops."""
+    jc, tc, jp, tp = _load("deepseek-v2-236b", capacity_factor=cf,
+                           moe_dispatch="local")
+    x = _x(jc, 13, 2, 32)
+    _, (jo, jaux), (to, taux) = _moe_both(jc, tc, jp, tp, x)
+    _close(to, jo)
+    _close(taux, jaux)
 
 
 # --------------------------------------------------------------------------

@@ -239,8 +239,8 @@ def test_forward_full_matches_reference(model):
     jl, _, jst = jtfm.forward_full(jp, jc, jnp.asarray(toks, jnp.int32),
                                    collect_state=True)
     with torch.no_grad():
-        tl, tst = ttfm.forward_full(tp, tc, _t(toks).long(),
-                                    collect_state=True)
+        tl, _, tst = ttfm.forward_full(tp, tc, _t(toks).long(),
+                                       collect_state=True)
     _close(tl, jl, LOGITS_TOL)
     jleaves = jax.tree.leaves(jst)
     tleaves = tree_leaves(tst)

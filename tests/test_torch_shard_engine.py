@@ -155,7 +155,8 @@ def test_tp2_engines_equal_reference_and_tp1():
         jparams = {k: jm.init_params(c, jax.random.key(keys[k]))
                    for k, c in jcfgs.items()}
         weights = {k: jax.tree.map(np.asarray, p) for k, p in jparams.items()}
-        tp2 = spawn(_rank_cases, 2, args=(weights,), threads=1)
+        tp2 = spawn(_rank_cases, 2, device="cpu", args=(weights,),
+                    threads=1)
 
         tcfgs = _configs()
         refs = {}                 # the reference's streams by (config, spec)

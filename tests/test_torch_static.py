@@ -196,8 +196,8 @@ def test_forward_full_with_states_matches_reference(variant):
     jl, _, jst = jtfm.forward_full(jp, jc, jnp.asarray(toks, jnp.int32),
                                    collect_state=True, **jkw)
     with torch.no_grad():
-        tl, tst = ttfm.forward_full(tp, tc, _t(toks).long(),
-                                    collect_state=True, **tkw)
+        tl, _, tst = ttfm.forward_full(tp, tc, _t(toks).long(),
+                                       collect_state=True, **tkw)
     _close(tl, jl, LOGITS_TOL)
     jleaves = jax.tree.leaves(jst)
     tleaves = tree_leaves(tst)
