@@ -5234,9 +5234,9 @@ def deepseek_dispatch_check(torch, np) -> None:
     kept = []
     inner = moe_mod._dispatch_combine
 
-    def spy(xf, gates, eids, C, c):
-        out = inner(xf, gates, eids, C, c)
-        kept.append((out[1].reshape(c.n_experts, C) < xf.shape[0]).sum(1))
+    def spy(xf, gates, eids, C, c, **kw):
+        out = inner(xf, gates, eids, C, c, **kw)
+        kept.append((out[1].reshape(c.n_experts, -1) < xf.shape[0]).sum(1))
         return out
 
     moe_mod._dispatch_combine = spy
@@ -5305,6 +5305,470 @@ def train_phase(torch, np, card, roof) -> None:
              f"({len(after)} wrappers counted)")
     print(f"[train] the training path launched none of the ported kernels "
           f"({len(after)} wrappers' launch counts unchanged)")
+
+
+# --------------------------------------------------------------------------
+# p. data-parallel training ([train-dp] lines): two ranks on the one card
+# --------------------------------------------------------------------------
+
+# qwen3-0.6b whole at data 2 through launch/train.py: the [train] batch
+# of 4 x 2048 as 2 rows a rank, 3 steps, a checkpoint at step 2
+DP_STEPS, DP_CKPT = 3, 2
+# a parameter after one step, data 2 against one rank at grad_accum 2 on
+# the same rows: one bf16 ulp of it plus lr x DP_LR_SHARE.  The ranks'
+# bf16 gradients g0, g1 are the microbatches' bit for bit (deterministic
+# algorithms, the same GEMM shapes); data 2 sums them in bf16, the
+# reduce's dtype (one rounding, 2^-8 relative), the one rank in float32;
+# the clip's norm moves as much.  AdamW's first update lr g s / (|g s| +
+# eps) moves by at most lr x (2^-8 + 2^-8) = lr x 2^-7 for a relative
+# change of g and of s, and the float32 results may round to adjacent
+# bf16 values: one ulp (dp_dense_check's docstring has the steps)
+DP_LR_SHARE = 2.0 ** -7
+# the NCCL world of one: qwen3-0.6b whole at B 2 x S 512
+DP_NCCL_B, DP_NCCL_S = 2, 512
+
+
+def digest(torch, t) -> tuple:
+    """Two int64 sums over ``t``'s bits (plain and position-weighted):
+    equal tensors give equal digests, and a changed element changes the
+    weighted one."""
+    v = t.detach().contiguous().view(-1)
+    v = v.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[v.element_size()]).to(torch.int64)
+    w = torch.arange(1, v.numel() + 1, device=v.device,
+                     dtype=torch.int64) % 65521
+    return int(v.sum()), int((v * w).sum())
+
+
+def dp_ulp(torch, t):
+    """One ulp of each element of ``t`` in its dtype (of its magnitude,
+    at least the dtype's smallest normal's)."""
+    fi = torch.finfo(t.dtype)
+    mag = t.detach().float().abs().clamp_min(fi.tiny)
+    return torch.exp2(torch.floor(torch.log2(mag))) * fi.eps
+
+
+def dp_objects(obj, world: int) -> list:
+    import torch.distributed as dist
+    every = [None] * world
+    dist.all_gather_object(every, obj)
+    return every
+
+
+def dp_dense_check(torch, rank: int, world: int, mesh, dev) -> dict:
+    """qwen3-0.6b whole, data 2 on this rank's 2 rows of the [train]
+    batch, 2 steps under deterministic algorithms: the parameters' digests
+    equal on both ranks after every step, the second step's collectives
+    timed; rank 0 then runs one rank at grad_accum 2 on the whole batch
+    from the same initial state.
+
+    Tolerance of a parameter after step 1.  Under deterministic algorithms
+    a rank's forward and backward over its 2 rows are the one rank's
+    microbatch's, bit for bit (the same GEMM shapes), so the loss
+    (s0 + s1) / 8192 equals (s0 / 4096 + s1 / 4096) / 2 bit for bit (a
+    power-of-two divisor is exact) and the two ranks' bf16 gradients g0,
+    g1 are the microbatches'.  Data 2 reduces them in bf16 (their dtype),
+    bf16(g0 + g1) / 2; the one rank adds them in float32, (g0 + g1) / 2:
+    each element within one bf16 rounding, 2^-8 relative, and the clip's
+    norm as well.  AdamW's first update is lr g s / (|g s| + eps) (+ the
+    decay), which a relative change e of g s moves by at most lr e: below
+    lr x 2^-7 for both.  The float32 results may then round to adjacent
+    bf16 values: one ulp of the parameter plus lr x DP_LR_SHARE."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline.op_collectives import (CollectiveWalk,
+                                                          summarize)
+    from repro_torch.models.params import tree_paths
+    from repro_torch.parallel.mesh import batch_shard
+    from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
+                                   make_initial_state, make_train_step)
+    cfg = get_config("qwen3-0.6b")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=DP_STEPS)
+    step = make_train_step(cfg, TrainConfig(opt=opt), mesh)
+    data = SyntheticLMData(cfg, TRAIN_B, TRAIN_S, device=dev,
+                           shard=batch_shard(mesh), shards=world)
+    res = {"equal": []}
+    with deterministic(torch, True):
+        state = make_initial_state(cfg, 0, dev, mesh=mesh)()
+        for i in range(2):
+            batch = data.batch_at(i)
+            if i == 1:
+                walk = CollectiveWalk(timed=True, mesh=mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with walk:
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+                res["step_ms"] = (time.perf_counter() - t0) * 1e3
+                res["edge_ms"] = walk.edge_ms()
+                cc = summarize(walk.ops)
+                res["ops"] = dict(cc.ops_by_kind)
+                res["by_axes"] = {k[0]: v for k, v in cc.by_axes.items()}
+            else:
+                state, m = step(state, batch)
+                first = {"loss": m["loss"].clone(),
+                         "params": {k: v.clone() for k, v in
+                                    tree_paths(state["params"])}}
+            dig = {k: digest(torch, v) for k, v in
+                   tree_paths(state["params"])}
+            res["equal"].append(all(d == dig for d in dp_objects(dig,
+                                                                 world)))
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = make_train_step(cfg, TrainConfig(opt=opt, grad_accum=2))
+        full = SyntheticLMData(cfg, TRAIN_B, TRAIN_S, device=dev)
+        with deterministic(torch, True):
+            state0 = make_initial_state(cfg, 0, dev)()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = one(state0, full.batch_at(0))
+            torch.cuda.synchronize()
+            res["one_step_ms"] = (time.perf_counter() - t0) * 1e3
+        lr = float(m["lr"])
+        res["loss"] = (float(first["loss"]), float(m["loss"]))
+        worst, worst_key, n_diff = 0.0, "", 0
+        for k, b in tree_paths(new["params"]):
+            a = first["params"][k]
+            d = (a.float() - b.float()).abs()
+            tol = dp_ulp(torch, torch.maximum(a.float().abs(),
+                                              b.float().abs()).to(b.dtype)
+                         ) + lr * DP_LR_SHARE
+            r = float((d / tol).max())
+            n_diff += int((d > 0).sum())
+            if r > worst:
+                worst, worst_key = r, k
+        res["params"] = (worst, worst_key, n_diff, lr)
+        del new, state0, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_moe_check(torch, np, rank: int, world: int, mesh, dev) -> dict:
+    """deepseek-v2 at 2 layers (dense prologue, one MoE layer of 160
+    experts), global dispatch, data 2 on the [train] MoE batch (one row of
+    1024 tokens a rank) under deterministic algorithms: a forward's kept
+    pairs and routing, then loss_fn's value and gradient; rank 0 then runs
+    one rank over the whole batch on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.mesh import batch_shard, use_mesh
+    from repro_torch.train import SyntheticLMData
+    from repro_torch.train.step import value_and_grad
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DS_TRAIN_LAYERS)
+    if cfg.moe_dispatch != "global" or cfg.n_experts != 160:
+        fail(f"unexpected deepseek-v2 config {cfg}")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+
+    def expert_norms(grads):
+        ffn = grads["segments"][1]["b0"]["ffn"]
+        return torch.stack([torch.linalg.vector_norm(
+            ffn[k][0], dim=(1, 2), dtype=torch.float32)
+            for k in ("w_up", "w_gate", "w_down")])
+
+    def run(batch, on_mesh: bool):
+        ctx = use_mesh(mesh, process_wide=True) if on_mesh else \
+            contextlib.nullcontext()
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic(torch, True), ctx:
+            with torch.no_grad(), moe_mod.record_dispatch() as log:
+                loss_fn(params, batch, cfg)
+            loss, met, grads = value_and_grad(params, batch, cfg)
+            norms = expert_norms(grads)
+            del grads
+            if on_mesh:        # an expert's mean gradient: any rank's
+                coll.all_reduce_(norms, ("data",))
+            torch.cuda.synchronize()
+        # numpy, not tensors: a rank's tensors cannot outlive its process
+        calls = [{k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                  for k, v in c.items()} for c in log]
+        return {"loss": float(loss), "nll": float(met["nll"]),
+                "aux": float(met["aux"]), "calls": calls,
+                "moved": ((norms > 0).all(0)).cpu().numpy(),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    data = SyntheticLMData(cfg, DS_TRAIN_B, DS_TRAIN_S, device=dev,
+                           shard=batch_shard(mesh), shards=world)
+    mine = run(data.batch_at(0), True)
+    every = dp_objects(mine, world)
+    res = {"ranks": every}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        full = SyntheticLMData(cfg, DS_TRAIN_B, DS_TRAIN_S, device=dev)
+        res["one"] = run(full.batch_at(0), False)
+        # the global dispatch over the ranks' own routing, in one group
+        choice = torch.from_numpy(np.concatenate(
+            [r["calls"][0]["choice"] for r in every]))
+        N = choice.shape[0]
+        gates = torch.full(choice.shape, 1.0 / cfg.moe_top_k)
+        _, slot_token, _ = moe_mod._dispatch_combine(
+            torch.zeros((N, 1)), gates, choice, every[0]["calls"][0][
+                "capacity"], cfg)
+        full_slots = (slot_token < N).nonzero()[:, 0]
+        res["regrouped"] = set(zip(
+            slot_token[full_slots].long().tolist(),
+            (full_slots // every[0]["calls"][0]["capacity"]).tolist()))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_dp_rank(rank: int, world: int) -> dict:
+    """One rank of the [train-dp] checks (gloo, CUDA tensors): the dense
+    hold and the MoE dispatch, and this process's kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.parallel.mesh import make_host_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(world)
+    dense = dp_dense_check(torch, rank, world, mesh, dev)
+    moe = dp_moe_check(torch, np, rank, world, mesh, dev)
+    return {"dense": dense, "moe": moe, "backend": mesh.backend,
+            "launches": dp_objects(sum(kernel_launch_counts().values()),
+                                   world)}
+
+
+def dp_nccl_one(rank: int, world: int) -> dict:
+    """The data-parallel step on an NCCL world of one (the ``data`` axis a
+    group of one, so every reduce is issued) against the undistributed
+    step: qwen3-0.6b whole, one step from the same state and batch under
+    deterministic algorithms."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline.op_collectives import CollectiveWalk
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
+                                   make_initial_state, make_train_step)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh(("data", "model"), (1, 1), 0, {"data": dist.group.WORLD},
+                dist.get_backend())
+    cfg = get_config("qwen3-0.6b")
+    tc = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=0,
+                                   total_steps=DP_STEPS))
+    batch = SyntheticLMData(cfg, DP_NCCL_B, DP_NCCL_S,
+                            device=dev).batch_at(0)
+    with deterministic(torch, True):
+        state = make_initial_state(cfg, 0, dev)()
+        plain, pm = make_train_step(cfg, tc)(state, batch)
+        with CollectiveWalk(mesh=mesh) as walk:
+            dp, dm = make_train_step(cfg, tc, mesh)(state, batch)
+        torch.cuda.synchronize()
+    same = leaves_equal(torch, plain, dp) and all(
+        torch.equal(pm[k], dm[k]) for k in ("loss", "grad_norm"))
+    return {"equal": same, "loss": float(dm["loss"]),
+            "ops": len(walk.ops), "sizes": sorted({o.group_size
+                                                   for o in walk.ops}),
+            "axes": sorted({o.axis for o in walk.ops}),
+            "backend": dist.get_backend(),
+            "launches": sum(kernel_launch_counts().values())}
+
+
+def dp_cli_run(torch, np, card, tmp: str) -> dict:
+    """Part 1: launch/train.py --data 2 on the one card (two gloo ranks),
+    then the data-2 checkpoint of step DP_CKPT restored here at data 1:
+    its leaves equal the file's, and step DP_CKPT + 1 from it (one rank,
+    grad_accum 2: the ranks' rows a microbatch each) gives the data-2
+    run's loss at that step bit for bit."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train import (CheckpointManager, OptConfig,
+                                   SyntheticLMData, TrainConfig,
+                                   make_train_step)
+    from repro_torch.train.loop import abstract_state
+    cfg = get_config("qwen3-0.6b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        out = train_cli.main([
+            "--arch", cfg.name, "--data", "2", "--steps", str(DP_STEPS),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--lr",
+            str(TRAIN_LR), "--ckpt-dir", tmp, "--ckpt-every",
+            str(DP_CKPT)])
+    except RuntimeError as e:
+        fail(f"[train-dp] launch/train.py --data 2: {e}")
+    wall = time.perf_counter() - t0
+    hist = out["history"]
+    if [h["step"] for h in hist] != list(range(1, DP_STEPS + 1)) or \
+            out["backend"] != "gloo":
+        fail(f"[train-dp] history {hist}, backend {out['backend']}")
+    losses = [h["loss"] for h in hist]
+    one_moments = 8 * sum(t.numel() for _, t in tree_paths(
+        abstract_state(cfg)["params"]))
+    mb = out["moment_bytes"]
+    if not all(abs(m - one_moments / 2) <= 1e-6 * one_moments for m in mb):
+        fail(f"[train-dp] moments a rank {mb} B, want half of "
+             f"{one_moments} B")
+    by_axis = out["collectives"]
+    print(f"[train-dp] launch/train.py --data 2, qwen3-0.6b whole (bf16, "
+          f"remat full), global B {TRAIN_B} x S {TRAIN_S} as {TRAIN_B // 2}"
+          f" rows a rank, {DP_STEPS} steps, two gloo ranks on one card "
+          f"({card}): loss by step "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; step dt "
+          f"{', '.join(f'{h['dt'] * 1e3:.1f}' for h in hist)} ms (two "
+          f"processes time-slice one card and reduce through gloo's host "
+          f"copies: this says nothing of data-parallel speed on two cards); "
+          f"moments a rank {[round(m / 1e9, 3) for m in mb]} GB = half of "
+          f"one rank's {one_moments / 1e9:.3f} GB; peak a rank "
+          f"{[round((p or 0) / 1e9, 2) for p in out['peak_bytes']]} GB; "
+          f"pre-flight"
+          f" collectives a rank {', '.join(f'{k} {v / 1e9:.3f} GB' for k, v in by_axis.items())}"
+          f"; wall {wall:.1f} s")
+    mgr = CheckpointManager(os.path.join(tmp, cfg.name))
+    if sorted(mgr.all_steps()) != [DP_CKPT, DP_STEPS]:
+        fail(f"[train-dp] checkpoints {mgr.all_steps()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, manifest = mgr.restore(abstract_state(cfg), DP_CKPT,
+                                  device="cuda")
+    t_restore = time.perf_counter() - t0
+    with np.load(os.path.join(mgr.step_dir(DP_CKPT), "arrays.npz")) as f:
+        for k, v in tree_paths(state):
+            want = torch.from_numpy(f[k])
+            got = v.cpu()
+            if got.dtype == torch.bfloat16:
+                got = got.view(torch.int16)
+            if not torch.equal(got, want):
+                fail(f"[train-dp] restored {k} differs from the file")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=min(20, DP_STEPS // 5),
+                    total_steps=DP_STEPS)
+    step = make_train_step(cfg, TrainConfig(opt=opt, grad_accum=2))
+    batch = SyntheticLMData(cfg, TRAIN_B, TRAIN_S,
+                            device="cuda").batch_at(DP_CKPT)
+    _, m = step(state, batch)
+    resumed = float(m["loss"])
+    if resumed != losses[DP_CKPT]:
+        fail(f"[train-dp] step {DP_CKPT + 1} resumed at data 1: loss "
+             f"{resumed!r} vs the data-2 run's {losses[DP_CKPT]!r}")
+    print(f"[train-dp] the data-2 checkpoint of step {DP_CKPT} restored at"
+          f" data 1 ({manifest['step']}; {t_restore:.2f} s, warm page "
+          f"cache): every leaf equals the file bit for bit, moments whole; "
+          f"step {DP_CKPT + 1} from it (one rank, grad_accum 2) loss "
+          f"{resumed:.9f} = the data-2 run's bit for bit")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_dp_phase(torch, np, card) -> None:
+    """The [train-dp] phase: launch/train.py --data 2, the restore at data
+    1, the dense and MoE holds on two gloo ranks, the NCCL world of one.
+    No ported kernel launches here or in a rank."""
+    import signal
+    import tempfile
+    from repro_torch.parallel.mesh import spawn
+    before = kernel_launch_counts()
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+            dp_cli_run(torch, np, card, tmp)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    torch.cuda.empty_cache()
+    try:
+        ranks = spawn(train_dp_rank, 2, backend="gloo", device="cuda",
+                      timeout=900)
+    except RuntimeError as e:
+        fail(f"[train-dp] a rank failed: {e}")
+    dense = ranks["dense"]
+    if not all(dense["equal"]):
+        fail(f"[train-dp] parameters differ across ranks: {dense['equal']}")
+    l_dp, l_one = dense["loss"]
+    worst, key, n_diff, lr = dense["params"]
+    print(f"[train-dp] qwen3-0.6b data 2 vs one rank at grad_accum 2, step "
+          f"1 from one state ({card}): loss {l_dp:.9f} vs {l_one:.9f} "
+          f"({'equal bit for bit' if l_dp == l_one else 'DIFFERENT'}); "
+          f"parameters within {worst:.3f} of their tolerance at worst "
+          f"({key}; one bf16 ulp + lr {lr:.3e} x 2^-7, the reduce's dtype "
+          f"bf16), {n_diff} elements not bit-equal; parameter digests equal"
+          f" on both ranks after steps 1-2")
+    if l_dp != l_one or worst > 1.0:
+        fail("[train-dp] data 2 misses the one-rank accumulated step")
+    print(f"[train-dp] qwen3-0.6b data 2 step 2 (deterministic "
+          f"algorithms): {dense['step_ms']:.1f} ms, its collectives "
+          f"{dense['edge_ms']:.1f} ms ({dense['ops']}; walked a rank "
+          f"{', '.join(f'{k} {v / 1e9:.3f} GB' for k, v in dense['by_axes'].items())}"
+          f"), against one rank's grad_accum 2 step "
+          f"{dense['one_step_ms']:.1f} ms on the same 4 rows (two "
+          f"processes on one card, gloo through host memory)")
+    moe = ranks["moe"]
+    one, per = moe["one"], moe["ranks"]
+    calls = [r["calls"][0] for r in per]
+    got = set()
+    for c in calls:
+        got |= set(zip(c["token"].tolist(), c["expert"].tolist()))
+    n_kept = sum(len(c["token"]) for c in calls)
+    want = set(zip(one["calls"][0]["token"].tolist(),
+                   one["calls"][0]["expert"].tolist()))
+    routing = np.concatenate([c["choice"] for c in calls])
+    diff = (routing != one["calls"][0]["choice"]).any(1)
+    n_flip = int(diff.sum())
+    touched = set(routing[diff].flatten().tolist()) | set(
+        one["calls"][0]["choice"][diff].flatten().tolist())
+    off = {e for _, e in got ^ want}
+    moved = per[0]["moved"]
+    same_moved = bool((moved == one["moved"]).all())
+    if n_kept != len(got) or got != moe["regrouped"]:
+        fail("[train-dp] deepseek-v2: the ranks' kept pairs are not the "
+             "global dispatch of their routing")
+    if n_flip == 0 and (got != want or not same_moved):
+        fail("[train-dp] deepseek-v2: data 2 keeps other pairs or moves "
+             "other experts than one rank on the same routing")
+    if not off <= touched or not set(
+            np.nonzero(moved != one["moved"])[0].tolist()) <= touched:
+        fail(f"[train-dp] deepseek-v2: pairs differ outside the experts "
+             f"of the {n_flip} tokens routed differently")
+    rel = {k: abs(per[0][k] - one[k]) / abs(one[k])
+           for k in ("loss", "aux")}
+    print(f"[train-dp] deepseek-v2-236b ({DS_TRAIN_LAYERS} layers), global "
+          f"dispatch, B {DS_TRAIN_B} x S {DS_TRAIN_S} as one row a rank, "
+          f"data 2 vs one rank ({card}): kept {n_kept} pairs (capacity "
+          f"{calls[0]['capacity']}) = the global dispatch of the ranks' "
+          f"routing; one rank kept {len(want)}, sets "
+          f"{'equal' if got == want else f'differ in {len(got ^ want)}'}; "
+          f"{n_flip} of {routing.shape[0]} tokens routed differently "
+          f"(bf16 GEMMs over 1024 vs 2048 rows); loss {per[0]['loss']:.6f}"
+          f" vs {one['loss']:.6f}, aux {per[0]['aux']:.6f} vs "
+          f"{one['aux']:.6f} (rel {rel['loss']:.2e}, {rel['aux']:.2e}; tol "
+          f"{ACCUM_LOSS_RTOL:.2e}); experts with nonzero gradients "
+          f"{int(moved.sum())} vs {int(one['moved'].sum())}"
+          f"{' (the same)' if same_moved else ''}; "
+          f"peak a rank {[round(r['peak_gb'], 2) for r in per]} GB, one "
+          f"rank {one['peak_gb']:.2f} GB")
+    if max(rel.values()) > ACCUM_LOSS_RTOL:
+        fail("[train-dp] deepseek-v2: loss or aux off the one-rank run's")
+    try:
+        nccl = spawn(dp_nccl_one, 1, backend="nccl", device="cuda",
+                     timeout=600)
+    except RuntimeError as e:
+        fail(f"[train-dp] NCCL world of one failed: {e}")
+    if not nccl["equal"] or nccl["sizes"] != [1] or nccl["axes"] != [
+            "data"] or not nccl["ops"]:
+        fail(f"[train-dp] NCCL world of one: {nccl}")
+    print(f"[train-dp] NCCL world of one ({card}): the data-parallel step "
+          f"(qwen3-0.6b, B {DP_NCCL_B} x S {DP_NCCL_S}) issued "
+          f"{nccl['ops']} collectives on the data group of one and equals "
+          f"the undistributed step bit for bit (loss {nccl['loss']:.6f}, "
+          f"parameters, moments); NCCL data 2 needs two cards")
+    after = kernel_launch_counts()
+    moved_k = {k: after[k] - before[k] for k in after
+               if after[k] != before[k]}
+    in_ranks = ranks["launches"] + [nccl["launches"]]
+    if moved_k or any(in_ranks) or len(after) < 14:
+        fail(f"[train-dp] ported kernels launched: {moved_k}, ranks "
+             f"{in_ranks}")
+    print(f"[train-dp] no ported kernel launched ({len(after)} wrappers' "
+          "counts unchanged here, 0 in every rank)")
 
 
 def print_build_summary(name: str, log: str) -> None:
@@ -5617,9 +6081,13 @@ def main() -> int:
     t_phase = phase_time("serving tier: qwen3-0.6b and MLA-dense replicas "
                          "behind the router", t_phase)
     train_phase(torch, np, card, roof)
-    phase_time(f"training: qwen3-0.6b whole ({TRAIN_STEPS} steps), "
-               f"checkpoint, accumulation, resume, deepseek-v2 "
-               f"({DS_TRAIN_LAYERS} layers) dispatch", t_phase)
+    t_phase = phase_time(
+        f"training: qwen3-0.6b whole ({TRAIN_STEPS} steps), checkpoint, "
+        f"accumulation, resume, deepseek-v2 ({DS_TRAIN_LAYERS} layers) "
+        "dispatch", t_phase)
+    train_dp_phase(torch, np, card)
+    phase_time("data-parallel training: launch/train.py --data 2, restore "
+               "at data 1, dense and MoE holds, NCCL world of one", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

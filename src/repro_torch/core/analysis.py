@@ -238,6 +238,13 @@ class AnalysisReport:
 
     def render(self) -> str:
         extra = []
+        by_axes = self.character.collectives.by_axes
+        if by_axes:
+            extra.append("collectives by mesh axis (per-device wire bytes): "
+                         + ", ".join(
+                             f"{'+'.join(k)} ({'dcn' if 'pod' in k else 'ici'})"
+                             f" {v / 1e6:.3f} MB"
+                             for k, v in sorted(by_axes.items())))
         top = self.character.collectives.top_ops[:5]
         if top:
             extra.append("top collectives (per-device wire bytes):")
@@ -284,17 +291,29 @@ def analyze_step(fn: Callable, *, args: Sequence[Any], mesh=None,
     of ``mesh``'s axis sizes on ``chip`` when None; one card without a
     mesh).  Fake arguments (``launch/specs.py``) are walked in their own
     ``FakeTensorMode``: nothing is computed or allocated.  The walk's
-    temporaries are not tracked (``MemoryFootprint.temp_bytes`` 0)."""
+    temporaries are not tracked (``MemoryFootprint.temp_bytes`` 0).
+
+    On a ``parallel.mesh.Mesh`` with process groups (a data-parallel
+    step: every rank of it walks its own step together) the walk also
+    records the ``c10d`` operators the step dispatches
+    (``op_collectives.CollectiveWalk``; a collective on fake tensors
+    moves nothing) and attributes each to its mesh axis: the report's
+    collectives by axis, ``data`` on ``ici`` and ``pod`` on ``dcn``."""
     mesh_shape = (mesh_axis_sizes(mesh) if mesh is not None
                   else {"data": 1, "model": 1})
     if scope is None:
         scope = scope_for_mesh(mesh_shape, chip)
     from torch._guards import detect_fake_mode
+    from .roofline.op_collectives import CollectiveWalk, summarize
     mode = detect_fake_mode(
         [t for t in tree_flatten(args)[0] if isinstance(t, torch.Tensor)])
+    walk = (CollectiveWalk(mesh=mesh) if getattr(mesh, "groups", None)
+            else contextlib.nullcontext())
     t0 = time.perf_counter()
-    with mode if mode is not None else contextlib.nullcontext():
+    with mode if mode is not None else contextlib.nullcontext(), walk:
         char = characterize(fn, *args)
+    if isinstance(walk, CollectiveWalk):
+        char.collectives = summarize(walk.ops)
     terms = terms_from_character(char, scope, dtype=dtype,
                                  model_flops_total=model_flops)
     return AnalysisReport(label=label, character=char, terms=terms,

@@ -59,6 +59,7 @@ class CollectiveOp:
     group_size: int           # ranks in the op's process group
     op: str = ""              # the c10d operator's name
     link: str = "ici"         # "ici" | "dcn"
+    axis: str = ""            # the mesh axis of its group ("" unknown)
 
     @property
     def payload_bytes(self) -> float:
@@ -86,26 +87,33 @@ def _nbytes(x: Any) -> int:
     return 0
 
 
-def _group_size(pg: Any) -> int:
+def _group(pg: Any):
     import torch.distributed as dist
-    return dist.ProcessGroup.unbox(pg).size()
+    return dist.ProcessGroup.unbox(pg)
 
 
 class CollectiveWalk(TorchDispatchMode):
     """Records every collective ``c10d`` operator dispatched inside it (a
     receive is the other end of a recorded send and is not counted).
 
+    With ``mesh`` (a ``parallel.mesh.Mesh``) each op is attributed to the
+    mesh axis whose process group it ran on, by the group's name: its
+    ``axis``, and its link, ``dcn`` for ``pod`` (across hosts), ``ici``
+    otherwise.
+
     With ``timed`` (ops on a card), each recorded op also gets a pair of
     CUDA events: the start before the op, the end before the first
     operator dispatched after it (by then ``wait()`` has made the stream
     wait for the collective); :meth:`edge_ms` sums them."""
 
-    def __init__(self, timed: bool = False):
+    def __init__(self, timed: bool = False, mesh: Any = None):
         super().__init__()
         self.ops: List[CollectiveOp] = []
         self.timed = timed
         self.pairs: List[Tuple[Any, Any]] = []
         self._open = None
+        self._axes = {g.group_name: a for a, g in
+                      (mesh.groups.items() if mesh is not None else ())}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -120,10 +128,14 @@ class CollectiveWalk(TorchDispatchMode):
                 self._open = None
         if edge:
             kind, res, opd, pg = C10D_OPS[name]
+            group = _group(args[pg])
+            axis = self._axes.get(group.group_name, "") if self._axes \
+                else ""
             self.ops.append(CollectiveOp(
                 kind=kind, result_bytes=_nbytes(args[res]),
                 operand_bytes=_nbytes(args[opd]),
-                group_size=_group_size(args[pg]), op=name))
+                group_size=group.size(), op=name,
+                link="dcn" if axis == "pod" else "ici", axis=axis))
         out = func(*args, **kwargs)
         if edge and self.timed:
             self._open = ev
@@ -137,22 +149,25 @@ class CollectiveWalk(TorchDispatchMode):
 
 def summarize(ops: List[CollectiveOp]) -> CollectiveSummary:
     """The reference's ``CollectiveSummary.from_ops``, plus the op count
-    of each kind (``by_axes`` stays empty: a process group does not name
-    its mesh axis)."""
+    of each kind; ``by_axes`` holds the wire bytes of the ops a walk with
+    a mesh attributed to an axis."""
     by_kind: Dict[str, float] = {}
     n_by_kind: Dict[str, int] = {}
+    by_axes: Dict[Tuple[str, ...], float] = {}
     ici = dcn = 0.0
     for op in ops:
         w = op.wire_bytes
         by_kind[op.kind] = by_kind.get(op.kind, 0.0) + w
         n_by_kind[op.kind] = n_by_kind.get(op.kind, 0) + 1
+        if op.axis:
+            by_axes[(op.axis,)] = by_axes.get((op.axis,), 0.0) + w
         if op.link == "dcn":
             dcn += w
         else:
             ici += w
     return CollectiveSummary(
         total_wire_bytes=ici + dcn, ici_wire_bytes=ici, dcn_wire_bytes=dcn,
-        by_kind=by_kind, n_ops=len(ops),
+        by_kind=by_kind, by_axes=by_axes, n_ops=len(ops),
         top_ops=sorted(ops, key=lambda o: -o.wire_bytes)[:12],
         ops_by_kind=n_by_kind)
 

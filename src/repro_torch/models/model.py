@@ -97,27 +97,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # --------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """Mean token NLL in float32.  logits (B, S, V); labels (B, S);
-    ``mask`` (B, S) weights each token (all ones when None)."""
+    ``mask`` (B, S) weights each token (all ones when None).  Over
+    data-parallel ``axes`` (``parallel.mesh.dp_axes``) the rows are this
+    rank's shard and the mean is the global one: the masked sum and the
+    mask count are all-reduced together (``collectives.psum``) and
+    divided once, since a mean of per-rank means is wrong whenever the
+    ranks' counts differ."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)                          # (B, S)
     ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
     nll = lse - ll
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    total, count = (nll * mask).sum(), mask.sum()
+    if axes:
+        from ..parallel.collectives import psum
+        total, count = psum(torch.stack([total, count]), axes).unbind(0)
+    return total / count.clamp_min(1.0)
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B, S), labels (B, S); optional ``loss_mask``,
     ``enc_embeds`` / ``img_embeds``.  The forward runs under
-    ``cfg.remat``.  Returns (loss = nll + aux, {"nll", "aux"})."""
+    ``cfg.remat``.  Returns (loss = nll + aux, {"nll", "aux"}).
+
+    Under an active mesh with data-parallel axes (train/step.py's
+    data-parallel step) the batch is this rank's shard and every value
+    is the global batch's: the nll's token mean and the MoE dispatch and
+    aux reduce over the axes (:func:`cross_entropy`, ``moe.moe_ffn``)."""
+    from ..parallel.mesh import active_mesh, dp_axes
     logits, aux, _ = tfm.forward_full(
         params, cfg, batch["tokens"],
         enc_embeds=batch.get("enc_embeds"),
         img_embeds=batch.get("img_embeds"))
-    nll = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    nll = cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                        dp_axes(active_mesh()))
     return nll + aux, {"nll": nll, "aux": aux}
 
 

@@ -19,25 +19,61 @@ one spare row that is cut off, and the combine scatter-adds into an
 (N+1, D) buffer whose last row is the pad sentinel.  At decode the
 expert products read every expert's weights, as the reference's do.
 
-The data-local dispatch (``moe_dispatch="local"``) groups tokens by
-their data-parallel shard, each group's capacity from its own token
-count.  Under the port's explicit SPMD a rank holds only its own shard's
-tokens, so its tokens are its one group and the global dispatch over
-them is the local one.  The aux loss is the reference's formula over the
-tokens the call sees: a rank's, where the reference's is over the global
-batch.
+Data parallelism (an active mesh with data-parallel axes,
+``parallel.mesh.dp_axes``: train/step.py's data-parallel step) gives a
+rank its shard of the batch's tokens, and every value is the global
+batch's, as under the reference's GSPMD:
+
+* the global dispatch takes its capacity from the global token count.
+  The reference's stable sort makes a pair's slot its position among its
+  expert's pairs in global token order; here each rank all-gathers the
+  shards' per-expert pair counts, takes the exclusive prefix over the
+  shards before its own, and keeps a pair while that prefix plus its
+  local position is below C.  Each rank then computes only its own kept
+  pairs, in a buffer as deep as its largest expert's kept count (a host
+  read), where the reference spreads the C slots over ``data``: another
+  placement, the same kept pairs and outputs;
+* the data-local dispatch (``moe_dispatch="local"``) groups tokens by
+  their data-parallel shard, each group's capacity from its own token
+  count: a rank's tokens are its one group, so the global dispatch over
+  them is the local one, mesh or none;
+* the aux loss's ``me`` and ``ce`` are means over the global batch: the
+  router probabilities' sum goes through ``collectives.psum``, whose
+  backward makes the ranks' mean gradient the global one, and the pair
+  counts are the gathered shards'.
+
+:func:`record_dispatch` logs each call's kept (token, expert) pairs by
+global token index.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..core.roofline.op_cost import named_scope
+from ..parallel.mesh import active_mesh, batch_shard, dp_axes
 from .common import ModelConfig, round_up
 from .layers import activate, apply_mlp, is_glu, mlp_defs
 from .params import ParamDef
+
+_LOG: Dict[str, Optional[List[Dict[str, torch.Tensor]]]] = {"calls": None}
+
+
+@contextlib.contextmanager
+def record_dispatch():
+    """Collect every MoE call's kept pairs while inside: yields a list
+    that gets one dict a call, ``{"token": (P,) int64 global token index,
+    "expert": (P,) int64, "choice": (N, K) the call's tokens' chosen
+    experts, "capacity": C}`` (a checkpointed layer's recompute in
+    backward logs again)."""
+    prev, _LOG["calls"] = _LOG["calls"], []
+    try:
+        yield _LOG["calls"]
+    finally:
+        _LOG["calls"] = prev
 
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -68,14 +104,22 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def _dispatch_combine(xf: torch.Tensor, gates: torch.Tensor,
-                      eids: torch.Tensor, C: int, cfg: ModelConfig
+                      eids: torch.Tensor, C: int, cfg: ModelConfig, *,
+                      offset: Optional[torch.Tensor] = None,
+                      depth: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort-based dispatch for one token group.
 
-    xf (N, D); gates/eids (N, K).  Returns (xe (E,C,D), slot_token (E*C,)
-    int32, slot_gate (E*C,) float32) with N as the pad sentinel."""
+    xf (N, D); gates/eids (N, K).  Returns (xe (E,Cb,D), slot_token
+    (E*Cb,) int32, slot_gate (E*Cb,) float32) with N as the pad sentinel.
+    ``offset`` (E,) int32: the pairs of each expert that come before this
+    group's in the global order (the data-parallel dispatch; zeros when
+    None), so a pair is kept while offset + its rank is below C; ``depth``
+    Cb (C when None): the buffer's slots an expert, at least every
+    expert's kept count here."""
     N, D = xf.shape
     E, K = cfg.n_experts, cfg.moe_top_k
+    Cb = C if depth is None else depth
     dev = xf.device
     flat_e = eids.reshape(-1).to(torch.int32)                # (N*K,)
     order = torch.argsort(flat_e, stable=True)               # (N*K,)
@@ -85,16 +129,19 @@ def _dispatch_combine(xf: torch.Tensor, gates: torch.Tensor,
         side="left", out_int32=True)                         # (E,)
     rank = (torch.arange(N * K, dtype=torch.int32, device=dev)
             - first_idx[sorted_e.long()])
-    slot = sorted_e * C + rank                               # (N*K,)
-    # pairs past capacity go to the spare row E*C, cut off below
-    dest = torch.where(rank < C, slot, E * C).long()
-    slot_token = torch.full((E * C + 1,), N, dtype=torch.int32, device=dev)
+    slot = sorted_e * Cb + rank                              # (N*K,)
+    keep = rank < C if offset is None else (
+        rank + offset[sorted_e.long()] < C)
+    # pairs past capacity go to the spare row E*Cb, cut off below
+    dest = torch.where(keep, slot, E * Cb).long()
+    slot_token = torch.full((E * Cb + 1,), N, dtype=torch.int32,
+                            device=dev)
     slot_token[dest] = (order // K).to(torch.int32)
-    slot_gate = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
+    slot_gate = torch.zeros((E * Cb + 1,), dtype=torch.float32, device=dev)
     slot_gate[dest] = gates.reshape(-1)[order].float()
-    slot_token, slot_gate = slot_token[:E * C], slot_gate[:E * C]
+    slot_token, slot_gate = slot_token[:E * Cb], slot_gate[:E * Cb]
     xpad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
-    xe = xpad[slot_token.long()].reshape(E, C, D)
+    xe = xpad[slot_token.long()].reshape(E, Cb, D)
     return xe, slot_token, slot_gate
 
 
@@ -104,26 +151,57 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     N = B * S
-    C = _capacity(N, cfg)
     xf = x.reshape(N, D)
+    mesh = active_mesh()
+    axes = dp_axes(mesh)
 
     logits = xf.float() @ p["router"]                        # (N, E)
     probs = torch.softmax(logits, dim=-1)
     gates, eids = torch.topk(probs, K, dim=-1)               # (N, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # aux load-balance loss (Switch eq. 4)
-    me = probs.mean(0)                                       # (E,)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+    # aux load-balance loss (Switch eq. 4), over the global batch
+    counts = torch.zeros((E,), dtype=torch.float32,
+                         device=x.device).index_add_(
         0, eids.reshape(-1),
-        torch.ones((N * K,), dtype=torch.float32, device=x.device)) / (N * K)
+        torch.ones((N * K,), dtype=torch.float32, device=x.device))
+    if axes:
+        from ..parallel.collectives import gather_shards, psum
+        with named_scope("moe_dispatch"):
+            shard_counts = gather_shards(counts, axes)       # (R, E)
+        R, shard = shard_counts.shape[0], batch_shard(mesh)
+        me = psum(probs.sum(0), axes) / (N * R)
+        ce = shard_counts.sum(0) / (N * R * K)
+    else:
+        R, shard = 1, 0
+        me = probs.mean(0)                                   # (E,)
+        ce = counts / (N * K)
     aux = E * (me * ce).sum() * cfg.router_aux_coef
 
-    # "local": a rank's tokens are its one group, so C is the group's.
-    out = _moe_global(p, xf, gates, eids, C, cfg)
+    if R > 1 and cfg.moe_dispatch != "local":
+        C = _capacity(N * R, cfg)
+        offset = shard_counts[:shard].sum(0).to(torch.int32)
+        kept = torch.clamp(torch.minimum(C - offset, counts.to(torch.int32)),
+                           min=0)
+        out = _moe_global(p, xf, gates, eids, C, cfg, offset=offset,
+                          depth=_depth(kept, C), shard=shard)
+    else:
+        # "local", or one shard: this rank's tokens are its one group
+        out = _moe_global(p, xf, gates, eids, _capacity(N, cfg), cfg,
+                          shard=shard)
     if cfg.n_shared_experts:
         out = out + apply_mlp(p["shared"], xf, cfg)
     return out.reshape(B, S, D), aux
+
+
+def _depth(kept: torch.Tensor, C: int) -> int:
+    """The slots an expert of this rank's buffer: its largest expert's
+    kept count (read on the host) rounded up to 8, at most C; C itself
+    while walking fake tensors, which hold no counts."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if isinstance(kept, FakeTensor):
+        return C
+    return min(round_up(max(int(kept.max()), 1), 8), C)
 
 
 def _expert_glu(p, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -134,18 +212,29 @@ def _expert_glu(p, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _moe_global(p, xf: torch.Tensor, gates: torch.Tensor,
-                eids: torch.Tensor, C: int, cfg: ModelConfig
+                eids: torch.Tensor, C: int, cfg: ModelConfig, *,
+                offset: Optional[torch.Tensor] = None,
+                depth: Optional[int] = None, shard: int = 0
                 ) -> torch.Tensor:
-    """One global slot table: dispatch, expert products, gated combine."""
+    """One slot table: dispatch, expert products, gated combine
+    (``offset`` / ``depth``: :func:`_dispatch_combine`'s; ``shard``
+    places the tokens in the global order for :func:`record_dispatch`)."""
     N, D = xf.shape
     E = cfg.n_experts
     with named_scope("moe_dispatch"):
-        xe, slot_token, slot_gate = _dispatch_combine(xf, gates, eids, C,
-                                                      cfg)
+        xe, slot_token, slot_gate = _dispatch_combine(
+            xf, gates, eids, C, cfg, offset=offset, depth=depth)
+    Cb = xe.shape[1]
+    if _LOG["calls"] is not None:
+        full = (slot_token < N).nonzero()[:, 0]
+        _LOG["calls"].append({
+            "token": slot_token[full].long() + shard * N,
+            "expert": full // Cb, "choice": eids.detach().clone(),
+            "capacity": C})
     with named_scope("moe_experts"):
         ye = _expert_glu(p, xe, cfg)
     with named_scope("moe_dispatch"):
-        yflat = ye.reshape(E * C, D) * slot_gate[:, None].to(ye.dtype)
+        yflat = ye.reshape(E * Cb, D) * slot_gate[:, None].to(ye.dtype)
         out = torch.zeros((N + 1, D), dtype=ye.dtype, device=xf.device)
         out.index_add_(0, slot_token.long(), yflat)
     return out[:N]

@@ -1,6 +1,7 @@
-"""The tensor-parallel collective edges and the ring collective matmuls
-on ``torch.distributed``: the JAX package's ``parallel/collectives.py``
-for explicit SPMD.
+"""The tensor-parallel collective edges, the ring collective matmuls and
+the data-parallel reduces on ``torch.distributed``: the JAX package's
+``parallel/collectives.py`` for explicit SPMD, and the collectives GSPMD
+places in the reference's data-parallel train step.
 
 Every function runs on every rank of the axis (``axis`` names a mesh axis;
 its process group comes from the active mesh, parallel/mesh.py
@@ -13,7 +14,13 @@ unsharded model: the plain product, no collective.
   ``overlap="ring"`` computes it as :func:`ring_matmul_reduce`;
 * :func:`all_gather_cols`: the vocab-sharded logits edge;
 * :func:`ring_allgather_matmul`, :func:`psum_scatter_matmul`: the
-  sequence-parallel entry edge and the reduce-scatter epilogue.
+  sequence-parallel entry edge and the reduce-scatter epilogue;
+* data parallelism over the batch axes ``("data", "pod")``
+  (``mesh.dp_axes``): :func:`psum`, a differentiable all-reduce (the
+  loss's token sums, the MoE router statistics), :func:`gather_shards`
+  (per-shard values in batch-shard order), :func:`reduce_scatter_dim` /
+  :func:`all_gather_dim` (ZeRO-1's gradient reduce-scatter and
+  parameter all-gather) and :func:`all_reduce_`.
 
 Sums run in the activation dtype, as ``psum`` does.  ``gloo`` takes CUDA
 tensors for the all-reduce, the all-gather and the reduce-scatter, and
@@ -197,8 +204,110 @@ def psum_scatter_matmul(x: torch.Tensor, w: torch.Tensor,
     return out.t()[:, :max(min((idx + 1) * cols, N) - lo, 0)].to(x.dtype)
 
 
+# --------------------------------------------------------------------------
+# Data parallelism
+# --------------------------------------------------------------------------
+
+def _dp_groups(axes) -> list:
+    return [axis_group(a) for a in axes]
+
+
+class _PSum(torch.autograd.Function):
+    """All-reduce (sum) whose backward is the all-reduce of the
+    cotangent: ``psum``'s transpose.  Every rank's output is the same
+    global sum, so a loss built from it is the global loss on every
+    rank; the backward sums the ranks' (equal) cotangents, so each rank's
+    gradient is R times its own tokens' share of the global gradient,
+    and the mean over the R ranks, the data-parallel gradient reduce, is
+    the global gradient (an identity backward would give 1/R of it)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        out = x.contiguous().clone()
+        for g in groups:
+            dist.all_reduce(out, group=g)
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        gx = gy.contiguous().clone()
+        for g in ctx.groups:
+            dist.all_reduce(gx, group=g)
+        return gx, None
+
+
+def psum(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of ``x`` over every rank of ``axes`` (an all-reduce per
+    axis, in order), differentiable as :class:`_PSum` says.  The groups
+    are resolved here, so the backward needs no active mesh."""
+    groups = _dp_groups(axes)
+    return _PSum.apply(x, groups) if groups else x
+
+
+def all_reduce_(t: torch.Tensor, axes) -> torch.Tensor:
+    """In-place sum of ``t`` over ``axes`` (one all-reduce per axis, in
+    the tensor's dtype), not differentiable; returns ``t``."""
+    for g in _dp_groups(axes):
+        dist.all_reduce(t, group=g)
+    return t
+
+
+def gather_shards(t: torch.Tensor, axes) -> torch.Tensor:
+    """Every batch shard's ``t``, stacked (R, *t.shape) in batch-shard
+    order (row-major over ``("pod", "data")``, ``mesh.batch_shard``):
+    one all-gather per axis of ``axes``, ``"data"`` before ``"pod"``."""
+    out = t.contiguous()
+    for a in axes:
+        group = axis_group(a)
+        n, _ = _size_rank(group)
+        buf = out.new_empty((n * out.numel(),))
+        _ALL_GATHER(buf, out.reshape(-1), group=group)
+        out = buf.view(n, *out.shape)
+    return out.reshape(-1, *t.shape)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, axis: str,
+                       form: Optional[str] = None) -> torch.Tensor:
+    """The sum of ``t`` over ``axis``, this rank's block along ``dim``
+    (the dim's size over the axis's; rank order).  ``form`` (None: the
+    backend's) is "reduce_scatter", NCCL's ``reduce_scatter_tensor`` on
+    the blocks moved to the front, or "all_reduce", the whole sum then
+    the rank's slice: the form taken on gloo, whose reduce-scatter not
+    every torch build has.  Either sums in ``t``'s dtype."""
+    group = axis_group(axis)
+    n, idx = _size_rank(group)
+    k = t.shape[dim] // n
+    if form is None:
+        form = ("all_reduce" if dist.get_backend(group) == "gloo"
+                else "reduce_scatter")
+    if form == "all_reduce":
+        full = t.contiguous().clone()
+        dist.all_reduce(full, group=group)
+        return full.narrow(dim, idx * k, k).contiguous()
+    if form != "reduce_scatter":
+        raise ValueError(f"form {form!r} not in (None, 'all_reduce', "
+                         "'reduce_scatter')")
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((k, *src.shape[1:]))
+    _REDUCE_SCATTER(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """The ranks' blocks of ``axis`` laid side by side along ``dim``, in
+    rank order (ZeRO-1's parameter all-gather)."""
+    group = axis_group(axis)
+    n, _ = _size_rank(group)
+    src = t.movedim(dim, 0).contiguous()
+    buf = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    _ALL_GATHER(buf, src, group=group)
+    return buf.movedim(0, dim).contiguous()
+
+
 __all__ = [
-    "all_gather_cols", "psum_scatter_matmul", "ring_allgather_matmul",
+    "all_gather_cols", "all_gather_dim", "all_reduce_", "gather_shards",
+    "psum", "reduce_scatter_dim", "psum_scatter_matmul", "ring_allgather_matmul",
     "ring_matmul_reduce", "row_parallel_matmul", "row_parallel_psum",
     "staged_p2p",
 ]

@@ -3,8 +3,9 @@ package's ``parallel/mesh.py`` for explicit SPMD.
 
 Axes:
   pod   -- data-parallel across hosts; gradient all-reduce only
-  data  -- data-parallel inside a host (serving replicas, serve/cluster.py:
-           one device row each, :func:`dp_submeshes`)
+  data  -- data-parallel inside a host (training: the batch's rows and the
+           ZeRO-1 moment shards, train/step.py; serving replicas,
+           serve/cluster.py: one device row each, :func:`dp_submeshes`)
   model -- tensor parallel
 
 The reference is single-controller: one program over a
@@ -60,6 +61,12 @@ class Mesh:
     @property
     def sizes(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.shape))
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (ranks row-major over
+        the axes, as :func:`make_host_mesh` lays them out)."""
+        idx = np.unravel_index(self.rank, self.shape)
+        return int(idx[self.axis_names.index(axis)])
 
     def group(self, axis: str):
         """The process group spanning ``axis`` through this rank."""
@@ -156,6 +163,36 @@ def batch_shards(mesh) -> int:
     return n
 
 
+def batch_shard(mesh: Mesh) -> int:
+    """This rank's shard of the batch: row-major over ``("pod", "data")``,
+    the order of GSPMD's ``batch`` -> ``("pod", "data")`` sharding."""
+    r = 0
+    for a in BATCH_AXES:
+        if a in mesh.axis_names:
+            r = r * mesh.sizes[a] + mesh.coord(a)
+    return r
+
+
+def dp_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
+    """The batch axes of ``mesh`` that the data-parallel collectives
+    reduce over: those with a process group (a size above 1, or a group
+    of one set by hand), "data" first, then "pod"."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in (DATA_AXIS, POD_AXIS) if a in mesh.groups)
+
+
+def dp_backend(device: str, world: int) -> str:
+    """The process-group backend of ``world`` data-parallel ranks on
+    ``device``: gloo on the CPU, or when ranks share a card (fewer cards
+    than ranks); NCCL when each rank has a card of its own.  NCCL that
+    fails to start raises: nothing falls back to gloo."""
+    if device == "cpu":
+        return "gloo"
+    import torch
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
 # --------------------------------------------------------------------------
 # The active mesh: where the collectives find an axis's group
 # --------------------------------------------------------------------------
@@ -165,26 +202,35 @@ class _Active(threading.local):
 
 
 _ACTIVE = _Active()
+_PROCESS: Dict[str, Optional[Mesh]] = {"mesh": None}
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh]):
-    """Make ``mesh`` the one whose groups the collectives use."""
-    prev = _ACTIVE.mesh
-    _ACTIVE.mesh = mesh
+def use_mesh(mesh: Optional[Mesh], process_wide: bool = False):
+    """Make ``mesh`` the one whose groups the collectives use, in this
+    thread, or with ``process_wide`` in every thread that has none of its
+    own: a training step's backward, and the recompute of its
+    checkpointed layers, run on the autograd engine's device threads."""
+    if process_wide:
+        prev, _PROCESS["mesh"] = _PROCESS["mesh"], mesh
+    else:
+        prev, _ACTIVE.mesh = _ACTIVE.mesh, mesh
     try:
         yield mesh
     finally:
-        _ACTIVE.mesh = prev
+        if process_wide:
+            _PROCESS["mesh"] = prev
+        else:
+            _ACTIVE.mesh = prev
 
 
 def active_mesh() -> Optional[Mesh]:
-    return _ACTIVE.mesh
+    return _ACTIVE.mesh if _ACTIVE.mesh is not None else _PROCESS["mesh"]
 
 
 def axis_group(axis: str):
     """The active mesh's process group for ``axis``."""
-    mesh = _ACTIVE.mesh
+    mesh = active_mesh()
     if mesh is None:
         raise RuntimeError(
             f"a collective over axis {axis!r} needs an active mesh "
@@ -284,9 +330,10 @@ def spawn(fn: Callable, world: int, *, device: str,
             results[rank] = value
         return results[0]
     finally:
-        for p in procs:
+        started = [p for p in procs if p.pid is not None]
+        for p in started:
             p.join(timeout=30)
-        for p in procs:
+        for p in started:
             if p.is_alive():
                 p.kill()
                 p.join()
@@ -295,7 +342,8 @@ def spawn(fn: Callable, world: int, *, device: str,
 
 __all__ = [
     "BATCH_AXES", "DATA_AXIS", "MODEL_AXIS", "POD_AXIS", "Mesh",
-    "active_mesh", "axis_group", "batch_shards", "dp_submeshes",
-    "host_devices", "make_host_mesh", "mesh_axis_sizes", "rank_device", "single_device_mesh", "spawn",
-    "use_mesh",
+    "active_mesh", "axis_group", "batch_shard", "batch_shards",
+    "dp_axes", "dp_backend", "dp_submeshes", "host_devices",
+    "make_host_mesh", "mesh_axis_sizes", "rank_device",
+    "single_device_mesh", "spawn", "use_mesh",
 ]

@@ -15,9 +15,15 @@
   (int16, as ``bridge.py`` carries it) and the manifest's ``dtypes``
   names every leaf's dtype.
 
-The reference's restore re-shards onto any mesh; the port's explicit
-SPMD restores whole leaves onto one device (data-parallel restore across
-mesh shapes is ROADMAP queue 1 item 19).
+* **Elastic**: the files hold whole leaves and logical keys only, as
+  the reference's.  Under a data-parallel mesh (``mesh=`` and
+  ``shards=``, a tree of the state's structure holding each ZeRO-1
+  moment's ``optimizer.MomentShard``) a save all-gathers the moment
+  blocks into whole leaves on every rank, rank 0 writes, and the others
+  wait on a barrier; a restore reads whole leaves and keeps this rank's
+  block of each sharded one.  So a checkpoint saved at data 4 restores
+  at data 2 or on one device bit for bit, and crosses to the reference
+  and back.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.params import tree_paths, tree_unflatten
+from ..models.params import tree_map, tree_paths, tree_unflatten
 
 def _flat(tree) -> Dict[str, Any]:
     return dict(tree_paths(tree))
@@ -53,13 +59,46 @@ def _snapshot(state) -> Dict[str, Any]:
 
 
 class CheckpointManager:
+    """Checkpoints under ``directory``; with ``mesh`` and ``shards`` (a
+    tree of the state's structure: each leaf's ``MomentShard`` on this
+    rank, or None) every rank of the mesh calls :meth:`save`,
+    :meth:`save_async`, :meth:`wait` and :meth:`restore` together."""
+
     def __init__(self, directory: str, keep: int = 3,
-                 milestone_every: int = 0):
+                 milestone_every: int = 0, *, mesh=None, shards=None):
         self.dir = directory
         self.keep = keep
         self.milestone_every = milestone_every
+        self.mesh = mesh
+        self.shards = dict(tree_paths(shards)) if shards is not None \
+            else {}
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
+
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self):
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+            dist.barrier()
+
+    def _whole(self, state):
+        """``state`` with every sharded leaf all-gathered whole (a
+        collective on the mesh's ``data`` axis)."""
+        if not any(sh is not None for sh in self.shards.values()):
+            return state
+        from ..parallel.collectives import all_gather_dim
+        from ..parallel.mesh import DATA_AXIS, use_mesh
+        keys = iter(k for k, _ in tree_paths(state))
+
+        def whole(t):
+            sh = self.shards.get(next(keys))
+            return t if sh is None else all_gather_dim(t, sh.dim, DATA_AXIS)
+
+        with use_mesh(self.mesh):
+            return tree_map(whole, state)
 
     # -- paths ------------------------------------------------------------
     def step_dir(self, step: int) -> str:
@@ -80,12 +119,21 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, state, step: int, meta: Optional[Dict] = None):
-        """Synchronous atomic save."""
-        self._write(_snapshot(state), step, meta or {})
+        """Synchronous atomic save (after any background write)."""
+        self.wait()
+        state = self._whole(state)
+        if self._writer:
+            self._write(_snapshot(state), step, meta or {})
+        self._barrier()
 
     def save_async(self, state, step: int, meta: Optional[Dict] = None):
-        """Snapshot to host memory now, write in the background."""
+        """Snapshot to host memory now, write in the background (the
+        ranks other than 0 only take part in the gather; :meth:`wait`
+        joins them all)."""
         self.wait()
+        state = self._whole(state)
+        if not self._writer:
+            return
         host = _snapshot(state)
         self._thread = threading.Thread(
             target=self._write, args=(host, step, meta or {}), daemon=True)
@@ -95,6 +143,7 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
 
     def _write(self, host: Dict[str, Any], step: int, meta: Dict):
         tmp = os.path.join(self.dir, f"tmp.{step}.{os.getpid()}")
@@ -129,8 +178,9 @@ class CheckpointManager:
                 device: Union[str, torch.device] = "cuda"):
         """Restore the checkpoint of ``step`` (the latest when None) onto
         ``device``.  ``abstract_state``: a tree of tensors (meta or real)
-        whose structure, shapes and dtypes the result takes.  Returns
-        (state, manifest)."""
+        whose structure, shapes and dtypes the result takes (a sharded
+        leaf's: this rank's block, cut from the whole one on disk).
+        Returns (state, manifest)."""
         dev = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -148,11 +198,17 @@ class CheckpointManager:
             leaves = []
             for key, ref in flat_abs.items():
                 arr = data[key]
-                if tuple(arr.shape) != tuple(ref.shape):
+                sh = self.shards.get(key)
+                shape = tuple(arr.shape) if sh is None else sh.shape(
+                    arr.shape)
+                if shape != tuple(ref.shape):
                     raise ValueError(f"{key}: checkpoint shape {arr.shape} "
+                                     f"{'' if sh is None else f'({sh}) '}"
                                      f"!= {tuple(ref.shape)}")
                 t = torch.from_numpy(arr)
                 if dtypes.get(key) == "bfloat16":
                     t = t.view(torch.bfloat16)
+                if sh is not None:
+                    t = sh.take(t).contiguous()
                 leaves.append(t.to(device=dev, dtype=ref.dtype))
         return tree_unflatten(abstract_state, leaves), manifest

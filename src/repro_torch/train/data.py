@@ -9,6 +9,14 @@ explicit device.  Encoder frames and image embeddings are drawn in
 float32 and cast to the model dtype by torch, whose round-to-nearest-even
 cast gives the bits of the reference's ``ml_dtypes`` cast.
 
+A data-parallel rank (``shard`` r of ``shards``) takes its rows of the
+global batch: shard r of each of the ``micro`` microbatches, the rows
+GSPMD's ``batch`` -> ``("pod", "data")`` sharding gives shard r once
+the reference's step has split the global batch into microbatches
+(``train/step.py``), laid out so that the rank's own microbatch split
+gives microbatch i's shard.  The draw is the global batch's, so every
+rank's rows are the ones a single device would see.
+
 The prefetcher double-buffers on a worker thread so host-side batch
 synthesis overlaps the device step.
 """
@@ -27,19 +35,37 @@ from ..models.common import ModelConfig
 from ..models.params import torch_dtype
 
 
+def shard_rows(batch: int, shard: int, shards: int,
+               micro: int = 1) -> np.ndarray:
+    """The global batch's rows that shard ``shard`` of ``shards`` takes,
+    in order: its block of each of the ``micro`` equal microbatches."""
+    if batch % (shards * micro):
+        raise ValueError(f"batch {batch} does not split into {micro} "
+                         f"microbatches of {shards} shards")
+    per = batch // micro
+    rows = per // shards
+    return np.concatenate([np.arange(i * per + shard * rows,
+                                     i * per + (shard + 1) * rows)
+                           for i in range(micro)])
+
+
 class SyntheticLMData:
     def __init__(self, cfg: ModelConfig, batch: int, seq: int,
                  seed: int = 1234,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", *,
+                 shard: int = 0, shards: int = 1, micro: int = 1):
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
         self.seed = seed
         self.device = resolve_device(device)
+        self.rows = (None if shards == 1 else
+                     shard_rows(batch, shard, shards, micro))
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
         """Tokens / labels int32 (B, S); enc_embeds / img_embeds in the
-        model dtype, on this data's device."""
+        model dtype, on this data's device (a data-parallel shard: its
+        B / shards rows of the global batch, :func:`shard_rows`)."""
         rng = np.random.Generator(np.random.Philox(key=self.seed,
                                                    counter=step))
         # a Zipf-ish skew so losses move like real text rather than uniform
@@ -55,6 +81,8 @@ class SyntheticLMData:
             out["img_embeds"] = rng.standard_normal(
                 (self.batch, self.cfg.n_image_tokens, self.cfg.d_model),
                 dtype=np.float32)
+        if self.rows is not None:
+            out = {k: v[self.rows] for k, v in out.items()}
         dt = torch_dtype(self.cfg.dtype)
         return {k: torch.from_numpy(v).to(
                     dt if k.endswith("_embeds") else torch.int32

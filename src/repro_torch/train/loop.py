@@ -10,6 +10,14 @@ JAX package's ``train/loop.py`` in PyTorch.
 * straggler watchdog — per-step wall-time EMA / variance; outlier steps
   are recorded and handed to the (pluggable) mitigation hook,
 * async checkpoint every N steps with keep-K retention.
+
+Data parallel (``mesh=``): every rank runs the loop over its rows
+(``SyntheticLMData(shard=, shards=)``) with the data-parallel step, and
+the ranks agree before each attempt of a step on a preemption and on a
+failure (one all-reduce of two flags), so they save, retry and stop
+together; checkpoints are collective (``CheckpointManager(mesh=,
+shards=)``), the restore's step is rank 0's, rank 0 alone keeps the
+history, and each rank keeps its own straggler watchdog.
 """
 
 from __future__ import annotations
@@ -26,9 +34,11 @@ from ..device import resolve_device, synchronize
 from ..models import (abstract_params, drop_cast, init_params,
                       model_param_defs)
 from ..models.common import ModelConfig
+from ..models.params import tree_map
+from ..parallel.mesh import Mesh, dp_axes
 from .checkpoint import CheckpointManager
 from .data import SyntheticLMData
-from .optimizer import abstract_opt_state, init_opt_state
+from .optimizer import abstract_opt_state, init_opt_state, moment_shards
 from .step import TrainConfig, make_train_step
 
 
@@ -89,43 +99,89 @@ class LoopConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
-def abstract_state(cfg: ModelConfig) -> Dict[str, Any]:
+def _moment_shards(cfg: ModelConfig, mesh: Optional[Mesh]):
+    return moment_shards(model_param_defs(cfg), mesh) if dp_axes(mesh) \
+        else None
+
+
+def abstract_state(cfg: ModelConfig, mesh: Optional[Mesh] = None
+                   ) -> Dict[str, Any]:
     """The train state of ``cfg`` as meta tensors (what
     :func:`make_initial_state` builds: parameters in their dtypes,
-    float32 moments, an int32 step)."""
+    float32 moments, an int32 step; on a data-parallel ``mesh`` the
+    moments are this rank's ZeRO-1 blocks)."""
+    defs = model_param_defs(cfg)
     return {"params": abstract_params(cfg),
-            "opt": abstract_opt_state(model_param_defs(cfg))}
+            "opt": abstract_opt_state(defs, _moment_shards(cfg, mesh))}
+
+
+def state_shards(cfg: ModelConfig, mesh: Optional[Mesh]):
+    """The train state's tree of ``optimizer.MomentShard`` (None for a
+    whole leaf) on ``mesh``: a checkpoint manager's ``shards``."""
+    sh = _moment_shards(cfg, mesh)
+    defs = model_param_defs(cfg)
+    none = tree_map(lambda d: None, defs)
+    return {"params": none,
+            "opt": {"mu": sh or none, "nu": sh or none, "step": None}}
 
 
 class TrainLoop:
     """Steps ``data`` from the latest checkpoint of ``ckpt`` (or from
     ``init_state_fn()``, a state of :func:`abstract_state`'s structure)
-    to ``loop_cfg.total_steps``, on ``data``'s device."""
+    to ``loop_cfg.total_steps``, on ``data``'s device; with ``mesh``,
+    on every rank of it together (the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, loop_cfg: LoopConfig,
                  data: SyntheticLMData, ckpt: CheckpointManager,
                  init_state_fn: Callable[[], Dict[str, Any]],
                  step_fn: Optional[Callable] = None,
                  failure_injector: Optional[Callable[[int], None]] = None,
-                 on_straggler: Optional[Callable[[StragglerEvent], None]] = None):
+                 on_straggler: Optional[Callable[[StragglerEvent], None]] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.loop_cfg = loop_cfg
         self.data = data
         self.ckpt = ckpt
         self.init_state_fn = init_state_fn
-        self.step_fn = step_fn or make_train_step(cfg, loop_cfg.train)
+        self.mesh = mesh
+        self.step_fn = step_fn or make_train_step(cfg, loop_cfg.train, mesh)
         self.failure_injector = failure_injector
         self.on_straggler = on_straggler
         self.watchdog = StragglerWatchdog()
         self.history: List[Dict[str, float]] = []
         self._sigterm = False
+        self._ranks = bool(dp_axes(mesh))
+
+    # -- agreement across ranks -----------------------------------------------
+    def _agree(self, *flags: bool) -> List[bool]:
+        """Each flag set on any rank (an all-reduce of their max over the
+        world; as given on one device)."""
+        if not self._ranks:
+            return list(flags)
+        import torch.distributed as dist
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int32,
+                         device=self.data.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return [bool(x) for x in t.tolist()]
+
+    def _latest(self) -> Optional[int]:
+        """The latest checkpoint's step, rank 0's on a mesh."""
+        latest = self.ckpt.latest_step()
+        if not self._ranks:
+            return latest
+        import torch.distributed as dist
+        t = torch.tensor([-1 if latest is None else latest],
+                         dtype=torch.int64, device=self.data.device)
+        dist.broadcast(t, src=0)
+        return None if int(t) < 0 else int(t)
 
     # -- lifecycle ----------------------------------------------------------
     def _state_and_start(self):
-        latest = self.ckpt.latest_step()
+        latest = self._latest()
         if latest is not None:
             state, manifest = self.ckpt.restore(
-                abstract_state(self.cfg), latest, device=self.data.device)
+                abstract_state(self.cfg, self.mesh), latest,
+                device=self.data.device)
             return state, int(manifest["step"])
         return self.init_state_fn(), 0
 
@@ -137,35 +193,49 @@ class TrainLoop:
         except ValueError:
             pass  # non-main thread (tests)
 
+    def _inject(self, step: int) -> Optional[_TransientError]:
+        try:
+            if self.failure_injector is not None:
+                self.failure_injector(step)
+        except _TransientError as e:
+            return e
+        return None
+
     def run(self) -> Dict[str, Any]:
         self._install_sigterm()
         state, start = self._state_and_start()
         step = start
+        lead = self.mesh is None or self.mesh.rank == 0
         while step < self.loop_cfg.total_steps:
-            if self._sigterm:
-                self.ckpt.save(state, step, {"reason": "sigterm"})
-                return {"state": state, "step": step, "preempted": True}
             batch = self.data.batch_at(step)
             t0 = time.perf_counter()
             for attempt in range(self.loop_cfg.max_retries + 1):
-                try:
-                    if self.failure_injector is not None:
-                        self.failure_injector(step)
-                    state, metrics = self.step_fn(state, batch)
-                    synchronize(self.data.device)
-                    break
-                except _TransientError:
-                    if attempt == self.loop_cfg.max_retries:
-                        # persistent failure: checkpoint and abort (the
-                        # scheduler restarts us; resume is deterministic)
-                        self.ckpt.save(state, step, {"reason": "failure"})
-                        raise
+                err = self._inject(step)
+                stop, failed = self._agree(self._sigterm, err is not None)
+                if stop:
+                    self.ckpt.save(state, step, {"reason": "sigterm"})
+                    return {"state": state, "step": step, "preempted": True}
+                if not failed:
+                    try:
+                        state, metrics = self.step_fn(state, batch)
+                        synchronize(self.data.device)
+                        break
+                    except _TransientError as e:
+                        if self._ranks:    # the other ranks are mid-step
+                            raise
+                        err = e
+                if attempt == self.loop_cfg.max_retries:
+                    # persistent failure: checkpoint and abort (the
+                    # scheduler restarts us; resume is deterministic)
+                    self.ckpt.save(state, step, {"reason": "failure"})
+                    raise err if err is not None else _TransientError(
+                        f"another rank failed step {step}")
             dt = time.perf_counter() - t0
             event = self.watchdog.update(step, dt)
             if event and self.on_straggler:
                 self.on_straggler(event)
             step += 1
-            if step % self.loop_cfg.log_every == 0 or step == 1:
+            if lead and (step % self.loop_cfg.log_every == 0 or step == 1):
                 self.history.append(
                     {"step": step, "loss": float(metrics["loss"]),
                      "dt": dt})
@@ -181,16 +251,19 @@ class _TransientError(RuntimeError):
 
 
 def make_initial_state(cfg: ModelConfig, seed: int = 0,
-                       device: Union[str, torch.device] = "cuda"):
+                       device: Union[str, torch.device] = "cuda",
+                       mesh: Optional[Mesh] = None):
     """A function building the initial train state on ``device``: the
     parameters drawn from a generator seeded ``seed`` (without the tied
-    embedding's cached cast, which training leaves out) and zero
-    moments."""
+    embedding's cached cast, which training leaves out; the same on
+    every rank) and zero moments (on a data-parallel ``mesh`` this
+    rank's ZeRO-1 blocks)."""
     dev = resolve_device(device)
+    shards = _moment_shards(cfg, mesh)
 
     def init():
         g = torch.Generator(device=dev).manual_seed(seed)
         params = drop_cast(init_params(cfg, g, dev))
-        return {"params": params, "opt": init_opt_state(params)}
+        return {"params": params, "opt": init_opt_state(params, shards)}
 
     return init

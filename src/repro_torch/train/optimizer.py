@@ -10,10 +10,13 @@ float32 value and no step waits on the host.
 
 ZeRO-1: :func:`zero1_spec` gives each moment its parameter's spec plus
 the ``data`` axis on the largest still-unsharded divisible dim, so
-optimizer state would be partitioned across data-parallel replicas.  The
-port keeps it as spec trees over ``parallel/sharding.py``; data-parallel
-execution (the gradient all-reduce and the moments sharded by these
-specs) is ROADMAP queue 1 item 19.
+optimizer state is partitioned across data-parallel replicas
+(:func:`moment_shards`: a rank's block of each moment).  On a mesh
+(:func:`adamw_update_dp`) each rank reduce-scatters its gradients along
+each moment's data dim (an all-reduce where a moment is replicated),
+all-reduces over ``pod``, whose ranks hold replicas as in the reference,
+clips by the global norm, updates its shard and all-gathers the
+parameters.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ import torch
 
 from ..models.model import drop_cast
 from ..models.params import tree_leaves, tree_map, tree_unflatten
+from ..parallel import collectives as coll
 from ..parallel import sharding as shd
-from ..parallel.mesh import mesh_axis_sizes
+from ..parallel.mesh import DATA_AXIS, POD_AXIS, dp_axes, mesh_axis_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,16 +72,59 @@ def lr_at(step: Union[int, torch.Tensor], oc: OptConfig) -> torch.Tensor:
     return oc.lr * warm * frac
 
 
-def init_opt_state(params) -> Dict[str, Any]:
+@dataclasses.dataclass(frozen=True)
+class MomentShard:
+    """A rank's block of a moment: ``count`` equal blocks along ``dim``,
+    this rank's the ``index``-th (its ``data`` coordinate)."""
+    dim: int
+    index: int
+    count: int
+
+    def shape(self, full) -> Tuple[int, ...]:
+        out = list(full)
+        out[self.dim] //= self.count
+        return tuple(out)
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        k = t.shape[self.dim] // self.count
+        return t.narrow(self.dim, self.index * k, k)
+
+
+def moment_shards(param_defs, mesh):
+    """A tree of ``param_defs``' structure: each moment's
+    :class:`MomentShard` on this rank of ``mesh`` (the dim
+    :func:`zero1_spec` gives ``data``), or None where the moment is
+    replicated (no dim the data axis divides, or no data axis)."""
+    sizes = mesh_axis_sizes(mesh)
+    n = sizes.get(DATA_AXIS, 1)
+    if n <= 1:
+        return tree_map(lambda d: None, param_defs)
+    index = mesh.coord(DATA_AXIS)
+
+    def one(d):
+        for dim, entry in enumerate(zero1_spec(d, mesh)):
+            if entry == DATA_AXIS:
+                return MomentShard(dim, index, n)
+            if entry is not None and DATA_AXIS in entry:
+                raise ValueError(f"{d}: data shares a dim with {entry}")
+        return None
+
+    return tree_map(one, param_defs)
+
+
+def init_opt_state(params, shards=None) -> Dict[str, Any]:
     """Zero float32 moments beside each parameter (the tied embedding's
-    cached cast is no parameter: ``models.drop_cast``), and the step
-    counter (a 0-d int32 tensor), on the parameters' device."""
+    cached cast is no parameter: ``models.drop_cast``), each this rank's
+    block under ``shards`` (:func:`moment_shards`; whole when None), and
+    the step counter (a 0-d int32 tensor), on the parameters' device."""
     params = drop_cast(params)
     leaves = tree_leaves(params)
-    zeros = lambda t: tree_map(                                 # noqa: E731
-        lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                              device=x.device), t)
-    return {"mu": zeros(params), "nu": zeros(params),
+    if shards is None:
+        shards = tree_map(lambda x: None, params)
+    zeros = lambda: tree_map(                                   # noqa: E731
+        lambda x, sh: torch.zeros(x.shape if sh is None else sh.shape(
+            x.shape), dtype=torch.float32, device=x.device), params, shards)
+    return {"mu": zeros(), "nu": zeros(),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=leaves[0].device)}
 
@@ -99,6 +146,20 @@ def adamw_update(params, grads, opt_state, oc: OptConfig):
     dtype."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
+    upd, lr = _adamw_leaf(step, gnorm, oc)
+    out = [upd(*a) for a in zip(tree_leaves(params), tree_leaves(grads),
+                                tree_leaves(opt_state["mu"]),
+                                tree_leaves(opt_state["nu"]))]
+    new_p, new_mu, new_nu = (tree_unflatten(params, [o[i] for o in out])
+                             for i in range(3))
+    return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, {
+        "grad_norm": gnorm, "lr": lr}
+
+
+def _adamw_leaf(step: torch.Tensor, gnorm: torch.Tensor, oc: OptConfig):
+    """(the update of one leaf ``(p, g, mu, nu) -> (p, mu, nu)`` at
+    ``step`` with the gradients clipped by ``gnorm``, the learning
+    rate)."""
     scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(step, oc)
@@ -119,13 +180,64 @@ def adamw_update(params, grads, opt_state, oc: OptConfig):
             delta = delta + oc.weight_decay * pf
         return (pf - lr * delta).to(p.dtype), mu, nu
 
-    out = [upd(*a) for a in zip(tree_leaves(params), tree_leaves(grads),
-                                tree_leaves(opt_state["mu"]),
-                                tree_leaves(opt_state["nu"]))]
-    new_p, new_mu, new_nu = (tree_unflatten(params, [o[i] for o in out])
-                             for i in range(3))
-    return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, {
-        "grad_norm": gnorm, "lr": lr}
+    return upd, lr
+
+
+@torch.no_grad()
+def adamw_update_dp(params, grads, opt_state, oc: OptConfig, shards,
+                    mesh):
+    """:func:`adamw_update` on a data-parallel mesh, ZeRO-1: ``grads``
+    are this rank's (its shard of the batch, in the dtype the reduce
+    runs in), ``opt_state`` holds this rank's moment blocks under
+    ``shards`` (:func:`moment_shards`), on ``mesh``'s batch axes with a
+    group (``parallel.mesh.dp_axes``; the collectives find the groups in
+    the active mesh).  Per leaf: the gradient's sum over
+    ``data``, reduce-scattered to the moment's block (all-reduced whole
+    where the moment is replicated), then over ``pod`` on that block,
+    divided by the shard count: the mean gradient, in the gradient's
+    dtype.  The clip takes the global norm: every leaf's float32 sum of
+    squares, a sharded leaf's from its blocks, all-reduced over ``data``
+    in one vector and added in leaf order (with one data rank, bit for
+    bit :func:`global_norm`).  Each rank updates its blocks, and the
+    parameters are all-gathered along the moments' dims.  Returns
+    :func:`adamw_update`'s triple."""
+    axes = dp_axes(mesh)
+    data = DATA_AXIS in axes
+    pod = POD_AXIS in axes
+    shards_n = 1
+    for a in axes:
+        shards_n *= mesh.sizes[a]
+    lead = (mesh.coord(DATA_AXIS) == 0) if data else True
+    p_l, s_l = tree_leaves(params), tree_leaves(shards)
+    reduced, sq = [], []
+    for g, sh in zip(tree_leaves(grads), s_l):
+        if data:
+            g = (coll.all_reduce_(g.clone(), (DATA_AXIS,)) if sh is None
+                 else coll.reduce_scatter_dim(g, sh.dim, DATA_AXIS))
+        if pod:
+            g = coll.all_reduce_(g.contiguous(), (POD_AXIS,))
+        g = g / shards_n
+        reduced.append(g)
+        s = torch.sum(torch.square(g.float()))
+        sq.append(s if sh is not None or lead else torch.zeros_like(s))
+    sq = torch.stack(sq)
+    if data:
+        coll.all_reduce_(sq, (DATA_AXIS,))
+    gnorm = torch.sqrt(sum(sq.unbind(0)))
+    step = opt_state["step"] + 1
+    upd, lr = _adamw_leaf(step, gnorm, oc)
+    new_p, new_mu, new_nu = [], [], []
+    for p, g, mu, nu, sh in zip(p_l, reduced, tree_leaves(opt_state["mu"]),
+                                tree_leaves(opt_state["nu"]), s_l):
+        q, mu, nu = upd(p if sh is None else sh.take(p), g, mu, nu)
+        if sh is not None:
+            q = coll.all_gather_dim(q, sh.dim, DATA_AXIS)
+        new_p.append(q)
+        new_mu.append(mu)
+        new_nu.append(nu)
+    tree = lambda leaves: tree_unflatten(params, leaves)       # noqa: E731
+    return tree(new_p), {"mu": tree(new_mu), "nu": tree(new_nu),
+                         "step": step}, {"grad_norm": gnorm, "lr": lr}
 
 
 # --------------------------------------------------------------------------
@@ -167,10 +279,14 @@ def opt_state_shardings(param_defs, mesh,
     return {"mu": moment, "nu": moment, "step": ()}
 
 
-def abstract_opt_state(param_defs):
-    """The optimizer state as meta tensors (shapes and dtypes only)."""
+def abstract_opt_state(param_defs, shards=None):
+    """The optimizer state as meta tensors (shapes and dtypes only), the
+    moments this rank's blocks under ``shards`` (whole when None)."""
+    if shards is None:
+        shards = tree_map(lambda d: None, param_defs)
     mom = lambda: tree_map(                                     # noqa: E731
-        lambda d: torch.empty(d.shape, dtype=torch.float32, device="meta"),
-        param_defs)
+        lambda d, sh: torch.empty(d.shape if sh is None else sh.shape(
+            d.shape), dtype=torch.float32, device="meta"),
+        param_defs, shards)
     return {"mu": mom(), "nu": mom(),
             "step": torch.empty((), dtype=torch.int32, device="meta")}

@@ -260,8 +260,25 @@ def test_entry_points_default_to_the_card(tmp_path):
         train_cli.main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_lm.main([])
-    with pytest.raises(NotImplementedError, match="item 19"):
-        train_cli.main(["--smoke", "--device", "cpu", "--data", "2"])
+
+
+def test_launch_train_data_parallel_on_cpu(tmp_path, capfd):
+    """``--data 2`` on the CPU: two gloo ranks train the global batch,
+    rank 0 prints the pre-flight (with the step's collectives by axis)
+    and the history; a rerun resumes from the collective checkpoint."""
+    argv = ["--smoke", "--device", "cpu", "--data", "2", "--steps", "3",
+            "--batch", "4", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    out = train_cli.main(argv)
+    text = capfd.readouterr().out
+    assert "[train] data 2: 2 ranks over gloo on cpu" in text
+    assert "collectives by mesh axis" in text and "data (ici)" in text
+    assert "[train] finished at step 3 on 2 ranks (cpu)" in text
+    assert out["step"] == 3 and out["backend"] == "gloo"
+    assert [h["step"] for h in out["history"]] == [1, 2, 3]
+    assert out["collectives"]["data"] > 0
+    assert CheckpointManager(str(tmp_path / "qwen3-0.6b-smoke")
+                             ).all_steps() == [3]
+    assert train_cli.main(argv)["history"] == []
 
 
 def test_launch_train_smoke_on_cpu(tmp_path, capsys):

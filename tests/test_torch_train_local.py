@@ -9,10 +9,10 @@ data shard (G 2, each group's capacity from its own tokens); under the
 port's explicit SPMD a rank holds one shard, its one group.  So the
 reference's logits are the port's per-shard logits side by side, and
 the reference's nll (a mean over the batch) and its gradient are the
-mean of the port's per-shard ones.  The aux loss is the reference's
-formula over the tokens a call sees: the reference's is over the global
-batch, which the port's full-batch loss gives (a rank's own aux against
-the global one is ROADMAP queue 1 item 19).
+mean of the port's per-shard ones.  The aux loss is over the global
+batch in both: here the port's full-batch loss gives it (on a
+data-parallel mesh each rank's loss carries the global aux itself,
+tests/test_torch_train_dp.py).
 
 Tolerances: float32 on both sides: values rtol 1e-4 / atol 1e-5 (the
 gradients' atol in units of the leaf's largest where that exceeds 1, as
