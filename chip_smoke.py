@@ -87,9 +87,10 @@ Phases, in order; any failure exits non-zero:
    d. speculative decoding on that deepseek with the n-gram proposer
       (k 3), through the MLA verify kernel;
    e. speculative decoding on full-width, full-depth qwen3-14b verified
-      against a full-width qwen3-0.6b draft model (k 4), through the GQA
-      verify kernel (the draft's catch-up too) and the decode kernel (the
-      draft's steps); tok/s beside the plain engine's on the same prompts;
+      against a full-width qwen3-0.6b draft model (k 4), Q14_NEW_TOKENS
+      new tokens a request, through the GQA verify kernel (the draft's
+      catch-up too) and the decode kernel (the draft's steps); tok/s
+      beside the plain engine's on the same prompts;
    every speculative stream must equal the plain engine's greedy stream,
    or differ first where the plain engine's top-2 logit margin is under
    the logits tolerance; after each of a-e, the same prompts and weights
@@ -277,6 +278,29 @@ Phases, in order; any failure exits non-zero:
    nonzero gradients, the others zero), peak memory
    (``deepseek_dispatch_check``); the training
    path launches none of the 14 kernels (every wrapper's count unchanged);
+   p. data-parallel training (``[train-dp]`` lines): launch/train.py
+   --data 2 on two gloo ranks, the restore at data 1, qwen3-0.6b and
+   deepseek-v2 held against one rank, the NCCL world of one;
+   q. tensor-parallel training (``[train-tp]`` lines, train/step.py on a
+   ``model`` axis): gloo ranks on this card; qwen3-0.6b whole at (data
+   1, model 2), bf16, remat full, B 4 x S 1024, 3 steps, step 1 against
+   one rank on the same rows and weights (loss within tp_loss_bar, grad
+   norm within TP_GNORM_RTOL, every gradient leaf gathered whole within
+   TP_GRAD_RTOL, parameters within one bf16 ulp + TP_PARAM_LR lr and,
+   beyond one ulp + lr x 2^-7, only where the gradients' signs differ,
+   derived beside the constants), replicated leaves bit-equal on both
+   ranks, moments, peak, step and gloo edge ms per rank, the checkpoint
+   of step 2 restored at (1, 1) bit for bit and stepped (step 3's loss
+   within tp_loss_bar); qwen3-0.6b at (data 2, model 2), four ranks, B 4
+   x S 512, 2 steps (moment blocks a quarter of one rank's, loss against
+   one rank); deepseek-v2 at 2 layers, model 2 (80 experts and 64 MLA
+   heads a rank; in bf16, every token routed otherwise than on one rank
+   has a top-6 margin within twice its router probabilities' measured
+   change, and the kept pairs differ only in those tokens' experts; in
+   float32 the kept pairs equal one rank's; loss and aux within
+   TP_MOE_RTOL); every rank's pre-flight walk, its ``model`` bytes equal
+   to ``train.step.tp_wire_bytes`` and its ``data`` bytes to
+   ``dp_wire_bytes``; no ported kernel launched;
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -294,6 +318,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -364,6 +389,10 @@ MLA_T, MLA_V_BLOCKS = 4, DS_MAX_LEN // PAGE + 1
 # logits tie exactly at the top of a 152k vocabulary now and then).
 SPEC_K, MLA_SPEC_K = 4, 3
 Q14_LAYERS = 40
+# qwen3-14b's speculative path decodes 16 new tokens a request (as
+# deepseek-v2's paths do), not NEW_TOKENS: its eager and graphed runs of
+# the 40 layers are the script's longest on a host that dispatches slowly
+Q14_NEW_TOKENS = 16
 SPEC_LOGITS_ATOL = 0.1
 # self-draft: the same weights draft and verify, so greedy drafts are
 # accepted but where bf16 rounding flips an argmax; a verify mask that let
@@ -4196,11 +4225,12 @@ def static_vs_continuous(torch, np, card, cfg) -> None:
 # --------------------------------------------------------------------------
 
 # qwen3-14b whole at tp 2: 4 slots, page 16, 4 requests of 17-60 tokens,
-# 32 new tokens each; then its n-gram verify (k 3); then MLA with a dense
-# FFN at deepseek-v2-236b's attention widths, TP_MLA_LAYERS layers
+# 16 new tokens each (eager steps of ~0.35 s a rank over gloo); then its
+# n-gram verify (k 3); then MLA with a dense FFN at deepseek-v2-236b's
+# attention widths, TP_MLA_LAYERS layers
 TP = 2
 TP_PROMPTS = (17, 33, 46, 60)
-TP_NEW, TP_MAX_LEN, TP_SPEC_K, TP_MLA_LAYERS = 32, 128, 3, 4
+TP_NEW, TP_MAX_LEN, TP_SPEC_K, TP_MLA_LAYERS = 16, 128, 3, 4
 # the ledger's charge of one qwen3-14b decode step at 4 slots: 80
 # all-reduces x 2 x (4 x 5120 x 2 B) x 1/2 plus the untied head's
 # all-gather, 4 x 151936 x 2 B x 1/2
@@ -5771,6 +5801,682 @@ def train_dp_phase(torch, np, card) -> None:
           "counts unchanged here, 0 in every rank)")
 
 
+# --------------------------------------------------------------------------
+# q. tensor-parallel training ([train-tp] lines): gloo ranks on the one card
+# --------------------------------------------------------------------------
+
+# qwen3-0.6b whole at (data 1, model 2): B 4 x S 1024, 3 steps, the
+# checkpoint of step 2
+TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS, TP_TRAIN_CKPT = 4, 1024, 3, 2
+# qwen3-0.6b at (data 2, model 2): B 4 x S 512, 2 steps
+TP22_B, TP22_S, TP22_STEPS = 4, 512, 2
+# The loss, model 2 against one rank on the same rows and weights.  The
+# forward differs at the row-parallel edges only (the embedding's sum adds
+# zeros, exact): each rounds the two ranks' bf16 partial products before
+# their sum and the sum once more, where one card rounds the whole
+# product once: TP_LOGITS_ATOL's derivation, ~0.41 x 2^-8 of the value an
+# edge, a random walk over the edges.  qwen3-0.6b has 56 (2 a layer),
+# fewer than the 80 that bar was derived for: the final hidden state's
+# logits move by less than TP_LOGITS_ATOL.  A token's NLL, lse(z) - z_y,
+# moves by at most a = 2 x TP_LOGITS_ATOL, and its move is a sum of
+# round-to-nearest errors, zero in mean (lse's curvature adds a bias of
+# the order of the logits' squared error, ~1e-4 x a).  The tokens' errors
+# come from their own elements' roundings, independent of each other, so
+# Hoeffding's inequality bounds their mean, the loss, by
+# a sqrt(2 ln(2 / p) / N) but with probability p = TP_LOSS_P:
+# tp_loss_bar(N), 5.05e-3 at N = 4096 tokens.  Step 3 from the tp run's
+# checkpoint on one rank against the tp run's step 3 (a loss after two
+# updates, the logits no longer near uniform) takes the same bar.
+TP_LOSS_P = 1e-6
+# The global gradient norm: the backward's tp_copy sums add as many bf16
+# roundings again, summed over 6e8 squares: the relative bar the [train]
+# phase takes for bf16 gradients summed in another order (ACCUM_GNORM_RTOL)
+TP_GNORM_RTOL = ACCUM_GNORM_RTOL
+# Each gradient leaf, model 2 gathered whole against one rank's (step 1's
+# state and rows): |g_tp - g_one| / |g_one| (Frobenius).  A leaf's
+# gradient sums products of forward activations and backward cotangents,
+# each carrying the edges' roundings between it and the ends of the
+# network: at most the 56 forward reduces and the 56 backward copies at
+# ~0.41 x 2^-8 each, a random walk of sqrt(112) x 0.41 x 2^-8 = 2^-5.9
+# relative, element by element, and so for the leaf's norm.  The bar is
+# four times that, 2^-4: the walk's steps are not independent (a layer's
+# error feeds the next) and the nonlinearities' gains (softmax, SiLU,
+# the norms) reach 2.  A missing tp_copy leaves a partial gradient, a
+# doubled one a gradient twice its size: errors of 1/2 to 1.
+TP_GRAD_RTOL = 2.0 ** -4
+# A parameter after step 1: AdamW's first update is lr g s / (|g s| +
+# eps) (+ the decay, the same on both), at most lr in size whatever g's
+# error, so two runs part by at most one bf16 ulp (the rounding of the
+# float32 result) + 2 lr.  Where both runs' g s have one sign and reach
+# 2^7 eps, the updates part by at most lr eps / |g s| <= lr x 2^-7
+# (DP_LR_SHARE), and the parameters by one ulp more: every element beyond
+# that must be one whose gradient's sign differs between the runs (the
+# measured gradients say which) or whose |g s| is below 2^7 eps.
+TP_PARAM_LR = 2.0
+TP_NEAR_EPS = 2.0 ** 7
+# deepseek-v2 (2 layers) at model 2 against one rank: loss and aux
+TP_MOE_RTOL = 2.0 ** -8
+
+
+def tp_loss_bar(n_tokens: int) -> float:
+    """The bar of a tp run's loss against one rank's over ``n_tokens``
+    tokens (TP_LOSS_P's derivation)."""
+    return 2 * TP_LOGITS_ATOL * math.sqrt(2 * math.log(2 / TP_LOSS_P)
+                                          / n_tokens)
+
+
+def tp_whole(torch, state, cfg, mesh) -> dict:
+    """Every parameter leaf whole on every rank (the blocks all-gathered
+    over ``model``)."""
+    from repro_torch.models.params import tree_paths
+    from repro_torch.parallel.mesh import use_mesh
+    from repro_torch.train.loop import state_shards
+    sh = dict(tree_paths(state_shards(cfg, mesh)))
+    with use_mesh(mesh):
+        return {k: v if sh[f"params/{k}"] is None else
+                sh[f"params/{k}"].gather(v)
+                for k, v in tree_paths(state["params"])}
+
+
+def tp_replicated_equal(torch, state, cfg, mesh, world: int) -> bool:
+    """Whether every rank's copy of each leaf the mesh replicates is the
+    same bits (digests gathered over the world)."""
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train.loop import state_shards
+    sh = dict(tree_paths(state_shards(cfg, mesh)))
+    dig = {k: digest(torch, v) for k, v in tree_paths(state)
+           if sh[k] is None}
+    return all(d == dig for d in dp_objects(dig, world))
+
+
+def tp_walk(torch, cfg, mesh, tcfg, B: int, S: int) -> dict:
+    """This rank's pre-flight walk (fake tensors) of the mesh step: the
+    walked bytes by axis and by edge, and the analytic counts."""
+    from repro_torch.core.analysis import analyze_step
+    from repro_torch.launch import specs as tspecs
+    from repro_torch.models.common import ShapeCell
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import dp_wire_bytes, tp_wire_bytes
+    args, _, _ = tspecs.train_specs(cfg, ShapeCell("t", S, B, "train"),
+                                    mesh)
+    t0 = time.perf_counter()
+    rep = analyze_step(make_train_step(cfg, tcfg, mesh), args=args,
+                       mesh=mesh)
+    c = rep.character.collectives
+    return {"axes": {k[0]: v for k, v in c.by_axes.items()},
+            "edges": dict(c.by_edge), "s": time.perf_counter() - t0,
+            "tp": tp_wire_bytes(cfg, mesh.sizes, B, S, tcfg),
+            "dp": dp_wire_bytes(cfg, mesh.sizes, tcfg)}
+
+
+def tp_whole_grads(torch, state, batch, cfg, mesh) -> dict:
+    """loss_fn's gradient at ``state``'s parameters on ``batch``, the
+    mesh step's (the rank's local config, its blocks all-gathered whole
+    over ``model``; a collective), by leaf key."""
+    from repro_torch.models import drop_cast
+    from repro_torch.models.params import tree_paths
+    from repro_torch.parallel.mesh import use_mesh
+    from repro_torch.train.loop import state_shards
+    from repro_torch.train.step import train_local_config, value_and_grad
+    sh = dict(tree_paths(state_shards(cfg, mesh)))
+    with use_mesh(mesh, process_wide=True):
+        _, _, grads = value_and_grad(drop_cast(state["params"]), batch,
+                                     train_local_config(cfg, mesh))
+        return {k: g if sh[f"params/{k}"] is None else
+                sh[f"params/{k}"].gather(g)
+                for k, g in tree_paths(grads)}
+
+
+def tp_grad_hold(torch, got: dict, want: dict) -> tuple:
+    """(worst leaf's |g_tp - g_one| / |g_one|, its leaf, the median
+    leaf's, elements whose gradient's sign differs)."""
+    rel, flips = {}, 0
+    for k, b in want.items():
+        a, b = got[k].float(), b.float()
+        n = float(torch.linalg.vector_norm(b))
+        e = float(torch.linalg.vector_norm(a - b))
+        rel[k] = e / n if n > 0 else (0.0 if e == 0 else math.inf)
+        flips += int((torch.sign(a) != torch.sign(b)).sum())
+    key = max(rel, key=rel.get)
+    return rel[key], key, sorted(rel.values())[len(rel) // 2], flips
+
+
+def tp_param_hold(torch, got: dict, want: dict, g_got: dict, g_want: dict,
+                  scale: float, lr: float, eps: float) -> tuple:
+    """(worst share of the TP_PARAM_LR bar, its leaf, share of elements
+    beyond one ulp + lr x DP_LR_SHARE, elements compared, elements beyond
+    it whose gradients keep their sign and reach TP_NEAR_EPS x eps after
+    the clip's ``scale``: none may)."""
+    worst, key, beyond, n, unexplained = 0.0, "", 0, 0, 0
+    for k, b in want.items():
+        a = got[k]
+        d = (a.float() - b.float()).abs()
+        ulp = dp_ulp(torch, torch.maximum(a.float().abs(),
+                                          b.float().abs()).to(b.dtype))
+        r = float((d / (ulp + lr * TP_PARAM_LR)).max())
+        far = d > ulp + lr * DP_LR_SHARE
+        beyond += int(far.sum())
+        ga, gb = g_got[k].float(), g_want[k].float()
+        flip = (torch.sign(ga) != torch.sign(gb)) | (
+            torch.minimum(ga.abs(), gb.abs()) * scale <= TP_NEAR_EPS * eps)
+        unexplained += int((far & ~flip).sum())
+        n += d.numel()
+        if r > worst:
+            worst, key = r, k
+    return worst, key, beyond / n, n, unexplained
+
+
+def tp_pairs(np, c_tp: dict, c_one: dict) -> tuple:
+    """(the tp run's kept (token, expert) pairs, one rank's, a mask of the
+    tokens whose top-k set differs, the experts those tokens chose in
+    either run) of one recorded MoE call."""
+    got = set(zip(c_tp["token"].tolist(), c_tp["expert"].tolist()))
+    want = set(zip(c_one["token"].tolist(), c_one["expert"].tolist()))
+    diff = (np.sort(c_tp["choice"], 1) != np.sort(c_one["choice"], 1)
+            ).any(1)
+    touched = set(c_tp["choice"][diff].flatten().tolist()) | set(
+        c_one["choice"][diff].flatten().tolist())
+    return got, want, diff, touched
+
+
+def tp_qwen12(torch, rank: int, world: int, mesh, dev, tmp: str) -> dict:
+    """qwen3-0.6b whole at (data 1, model 2), bf16, remat full, under
+    deterministic algorithms: step 1's gradients (gathered whole), step 1
+    (the whole parameters kept), step 2 timed with its collectives, the
+    checkpoint of step 2 (collective, rank 0 writes), step 3; this rank's
+    walk; then, on rank 0 alone, one rank's gradients and step 1 from the
+    same state on the same rows, and the checkpoint restored at (1, 1)
+    and stepped."""
+    import os
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline.op_collectives import (CollectiveWalk,
+                                                          summarize)
+    from repro_torch.models import drop_cast
+    from repro_torch.models.params import tree_paths
+    from repro_torch.parallel.mesh import batch_shard, batch_shards
+    from repro_torch.train import (CheckpointManager, OptConfig,
+                                   SyntheticLMData, TrainConfig,
+                                   make_initial_state, make_train_step)
+    from repro_torch.train.loop import abstract_state, state_shards
+    from repro_torch.train.step import value_and_grad
+    import torch.distributed as dist
+    cfg = get_config("qwen3-0.6b")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TP_TRAIN_STEPS)
+    tc = TrainConfig(opt=opt)
+    data = SyntheticLMData(cfg, TP_TRAIN_B, TP_TRAIN_S, device=dev,
+                           shard=batch_shard(mesh), shards=batch_shards(mesh))
+    ckdir = os.path.join(tmp, "qwen12")
+    mgr = CheckpointManager(ckdir, mesh=mesh, shards=state_shards(cfg, mesh))
+    step = make_train_step(cfg, tc, mesh)
+    res = {"losses": []}
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic(torch, True):
+        state = make_initial_state(cfg, 0, dev, mesh=mesh)()
+        res["moment_bytes"] = sum(t.numel() * t.element_size() for _, t in
+                                  tree_paths(state["opt"]))
+        g_tp = tp_whole_grads(torch, state, data.batch_at(0), cfg, mesh)
+        if rank != 0:
+            g_tp = None
+        for i in range(TP_TRAIN_STEPS):
+            batch = data.batch_at(i)
+            walk = CollectiveWalk(timed=True, mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with walk:
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            res["losses"].append(float(m["loss"]))
+            if i == 0:
+                res["gnorm"] = float(m["grad_norm"])
+                res["lr"] = float(m["lr"])
+                whole = tp_whole(torch, state, cfg, mesh)  # collective
+                first = whole if rank == 0 else None
+                del whole
+            if i == 1:
+                res["step_ms"], res["edge_ms"] = ms, walk.edge_ms()
+                cc = summarize(walk.ops)
+                res["ops"] = dict(cc.ops_by_kind)
+                res["walked"] = {k[0]: v for k, v in cc.by_axes.items()}
+                res["walked_edges"] = dict(cc.by_edge)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(state, TP_TRAIN_CKPT)
+                res["save_s"] = time.perf_counter() - t0
+        res["equal"] = tp_replicated_equal(torch, state, cfg, mesh, world)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["walk"] = tp_walk(torch, cfg, mesh, tc, TP_TRAIN_B, TP_TRAIN_S)
+    dist.barrier()
+    if rank == 0:
+        one = make_train_step(cfg, tc)
+        full = SyntheticLMData(cfg, TP_TRAIN_B, TP_TRAIN_S, device=dev)
+        with deterministic(torch, True):
+            state = make_initial_state(cfg, 0, dev)()
+            _, _, g_one = value_and_grad(drop_cast(state["params"]),
+                                         full.batch_at(0), cfg)
+            g_one = dict(tree_paths(g_one))
+            new, m = one(state, full.batch_at(0))
+            res["one"] = {"loss": float(m["loss"]),
+                          "gnorm": float(m["grad_norm"])}
+            res["grads"] = tp_grad_hold(torch, g_tp, g_one)
+            scale = min(1.0, opt.clip_norm / max(res["gnorm"],
+                                                 res["one"]["gnorm"]))
+            res["params"] = tp_param_hold(
+                torch, first, dict(tree_paths(new["params"])), g_tp, g_one,
+                scale, res["lr"], opt.eps)
+            del state, new, first, g_tp, g_one
+            gc.collect()
+            torch.cuda.empty_cache()
+            plain = CheckpointManager(ckdir)
+            t0 = time.perf_counter()
+            state, manifest = plain.restore(abstract_state(cfg),
+                                            TP_TRAIN_CKPT, device=dev)
+            res["restore_s"] = time.perf_counter() - t0
+            with np.load(os.path.join(plain.step_dir(TP_TRAIN_CKPT),
+                                      "arrays.npz")) as f:
+                res["restored_equal"] = all(np.array_equal(
+                    (v.cpu().view(torch.int16) if v.dtype == torch.bfloat16
+                     else v.cpu()).numpy(), f[k])
+                    for k, v in tree_paths(state))
+            _, m = one(state, full.batch_at(TP_TRAIN_CKPT))
+            res["resumed"] = float(m["loss"])
+            del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def tp_qwen22(torch, rank: int, world: int, mesh, dev) -> dict:
+    """qwen3-0.6b whole at (data 2, model 2), B 4 x S 512, 2 steps: each
+    rank's moment blocks against one rank's whole moments, the losses,
+    its walk; rank 0 then runs one rank's step 1 on the 4 rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import tree_paths
+    from repro_torch.parallel.mesh import batch_shard, batch_shards
+    from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
+                                   make_initial_state, make_train_step)
+    from repro_torch.train.loop import abstract_state, state_shards
+    import torch.distributed as dist
+    cfg = get_config("qwen3-0.6b")
+    tc = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=0,
+                                   total_steps=TP22_STEPS))
+    data = SyntheticLMData(cfg, TP22_B, TP22_S, device=dev,
+                           shard=batch_shard(mesh), shards=batch_shards(mesh))
+    step = make_train_step(cfg, tc, mesh)
+    whole = {k: v.numel() for k, v in tree_paths(abstract_state(cfg)["opt"])}
+    sh = dict(tree_paths(state_shards(cfg, mesh)))
+    res = {"losses": []}
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic(torch, True):
+        state = make_initial_state(cfg, 0, dev, mesh=mesh)()
+        mine = dict(tree_paths(state["opt"]))
+        both = [k for k, b in sh.items() if k.startswith("opt/mu/")
+                and b is not None and {p[1] for p in b.pieces} == {
+                    "data", "model"}]
+        res["quarter"] = (len(both), all(
+            mine[k[4:]].numel() * 4 == whole[k[4:]] for k in both))
+        res["moment_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in mine.values())
+        res["one_moment_bytes"] = sum(
+            n * 4 for k, n in whole.items() if k != "step")
+        for i in range(TP22_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, data.batch_at(i))
+            torch.cuda.synchronize()
+            res["losses"].append(float(m["loss"]))
+            res["step_ms"] = (time.perf_counter() - t0) * 1e3
+        res["equal"] = tp_replicated_equal(torch, state, cfg, mesh, world)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, m, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["walk"] = tp_walk(torch, cfg, mesh, tc, TP22_B, TP22_S)
+    dist.barrier()
+    if rank == 0:
+        full = SyntheticLMData(cfg, TP22_B, TP22_S, device=dev)
+        with deterministic(torch, True):
+            state = make_initial_state(cfg, 0, dev)()
+            _, m = make_train_step(cfg, tc)(state, full.batch_at(0))
+            res["one_loss"] = float(m["loss"])
+            del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def tp_deepseek(torch, rank: int, world: int, mesh, dev) -> dict:
+    """deepseek-v2 at 2 layers (the dense prologue, one MoE layer of 160
+    experts), global dispatch, model 2, B 2 x S 1024 (every rank all the
+    rows) under deterministic algorithms: this rank's local experts and
+    heads, a forward's kept pairs and router probabilities, loss_fn's
+    value and gradient; rank 0 then runs one rank on the same weights and
+    rows.  Then the float32 witness: the same forward at model 2 and on
+    one rank with the weights in float32 (TF32 off), its kept pairs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_fn, param_shardings
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel.mesh import use_mesh
+    from repro_torch.train import SyntheticLMData
+    from repro_torch.train.step import train_local_config, value_and_grad
+    import torch.distributed as dist
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DS_TRAIN_LAYERS)
+    batch = SyntheticLMData(cfg, DS_TRAIN_B, DS_TRAIN_S,
+                            device=dev).batch_at(0)
+    inner = moe_mod.moe_ffn
+
+    def run(params, c, on_mesh: bool, grad: bool = True):
+        ctx = use_mesh(mesh, process_wide=True) if on_mesh else \
+            contextlib.nullcontext()
+        probs = []
+
+        def spy(p, x, c_):       # the router's probabilities, as moe_ffn's
+            probs.append(torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                       @ p["router"], -1).cpu().numpy())
+            return inner(p, x, c_)
+
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        with deterministic(torch, True), ctx:
+            moe_mod.moe_ffn = spy
+            try:
+                with torch.no_grad(), moe_mod.record_dispatch() as log:
+                    loss, met = loss_fn(params, batch, c)
+            finally:
+                moe_mod.moe_ffn = inner
+            if grad:
+                loss, met, grads = value_and_grad(params, batch, c)
+                out["finite"] = all(bool(torch.isfinite(g).all())
+                                    for g in tree_leaves(grads))
+                del grads
+            torch.cuda.synchronize()
+        return {"loss": float(loss), "nll": float(met["nll"]),
+                "aux": float(met["aux"]), "probs": probs, **out,
+                "calls": [{k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                           for k, v in c_.items()} for c_ in log],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, specs=param_shardings(cfg, mesh), mesh=mesh)
+    ffn = params["segments"][1]["b0"]["ffn"]
+    mla = params["segments"][1]["b0"]["mixer"]
+    res = {"experts": ffn["w_up"].shape[1], "heads": mla["wq_b"].shape[2],
+           "shared_ff": ffn["shared"]["w_up"].shape[-1]}
+    res["tp"] = run(params, train_local_config(cfg, mesh), True)
+    del params, ffn, mla
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["ranks"] = dp_objects([c["token"] for c in res["tp"]["calls"]],
+                              world)
+    dist.barrier()
+    if rank == 0:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        res["one"] = run(params, cfg, False)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # the float32 witness: the row-parallel sums' order changes the
+    # router's inputs by ~2^-24 relative, below every token's top-6 margin
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = init_params(c32, torch.Generator(device=dev).manual_seed(0),
+                             dev, specs=param_shardings(c32, mesh),
+                             mesh=mesh)
+        res["tp32"] = run(params, train_local_config(c32, mesh), True,
+                          grad=False)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            params = init_params(c32, torch.Generator(
+                device=dev).manual_seed(0), dev)
+            res["one32"] = run(params, c32, False, grad=False)
+            del params
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def train_tp2_rank(rank: int, world: int, tmp: str) -> dict:
+    """One of the two ranks of [train-tp]'s (data 1, model 2) checks
+    (gloo, CUDA tensors): qwen3-0.6b whole, deepseek-v2 (2 layers), and
+    this process's kernel launches."""
+    import torch
+    from repro_torch.parallel.mesh import make_host_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(model=world)
+    qwen = tp_qwen12(torch, rank, world, mesh, dev, tmp)
+    moe = tp_deepseek(torch, rank, world, mesh, dev)
+    return {"qwen": qwen, "moe": moe, "backend": mesh.backend,
+            "every": dp_objects({k: qwen[k] for k in (
+                "moment_bytes", "peak_gb", "step_ms", "edge_ms", "walk",
+                "equal", "losses")}, world),
+            "launches": dp_objects(sum(kernel_launch_counts().values()),
+                                   world)}
+
+
+def train_tp4_rank(rank: int, world: int) -> dict:
+    """One of the four ranks of [train-tp]'s (data 2, model 2) checks."""
+    import torch
+    from repro_torch.parallel.mesh import make_host_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(data=2, model=2)
+    res = tp_qwen22(torch, rank, world, mesh, dev)
+    return {"qwen": res, "every": dp_objects({k: res[k] for k in (
+        "moment_bytes", "peak_gb", "step_ms", "walk", "quarter", "equal",
+        "losses")}, world),
+        "launches": dp_objects(sum(kernel_launch_counts().values()), world)}
+
+
+def tp_walk_line(label: str, walks: list) -> float:
+    """Print each rank's walked bytes against the analytic counts; returns
+    the worst distance of a ratio from 1."""
+    worst = 0.0
+    parts = []
+    for r, w in enumerate(walks):
+        ratios = {"model": w["axes"].get("model", 0.0) / w["tp"]["model"]}
+        if "data" in w["axes"] or w["dp"]["data"]:
+            ratios["data"] = w["axes"].get("data", 0.0) / w["dp"]["data"]
+        worst = max([worst] + [abs(x - 1) for x in ratios.values()])
+        parts.append(f"rank {r}: " + ", ".join(
+            f"{k} {w['axes'].get(k, 0.0) / 1e9:.4f} GB (ratio {v:.4f})"
+            for k, v in ratios.items()) + f" [{w['s']:.1f} s]")
+    edges = walks[0]["edges"]
+    print(f"[train-tp] {label} pre-flight walk (fake tensors, each rank its "
+          f"own step): {'; '.join(parts)}; rank 0's model bytes by edge "
+          + ", ".join(f"{k} {v / 1e9:.4f} GB (analytic "
+                      f"{walks[0]['tp'][k] / 1e9:.4f})"
+                      for k, v in sorted(edges.items())))
+    return worst
+
+
+def train_tp_phase(torch, np, card) -> None:
+    """The [train-tp] phase: qwen3-0.6b whole at (data 1, model 2) against
+    one rank, its checkpoint at (1, 1); qwen3-0.6b at (data 2, model 2);
+    deepseek-v2 (2 layers) at model 2 against one rank; every rank's
+    pre-flight walk against the analytic counts.  Gloo ranks on this one
+    card (NCCL at model > 1 needs a card a rank: unverified).  No ported
+    kernel launches here or in a rank."""
+    import tempfile
+    from repro_torch.parallel.mesh import spawn
+    before = kernel_launch_counts()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        try:
+            two = spawn(train_tp2_rank, 2, backend="gloo", device="cuda",
+                        args=(tmp,), timeout=900)
+        except RuntimeError as e:
+            fail(f"[train-tp] a (1, 2) rank failed: {e}")
+    q = two["qwen"]
+    every = two["every"]
+    if not all(e["equal"] for e in every) or any(
+            e["losses"] != every[0]["losses"] for e in every):
+        fail("[train-tp] qwen3-0.6b (1, 2): replicated leaves or losses "
+             "differ across ranks")
+    l_tp, l_one = q["losses"][0], q["one"]["loss"]
+    bar12 = tp_loss_bar(TP_TRAIN_B * TP_TRAIN_S)
+    g_rel = abs(q["gnorm"] - q["one"]["gnorm"]) / q["one"]["gnorm"]
+    worst, key, share, n, unexplained = q["params"]
+    g_worst, g_key, g_median, g_flips = q["grads"]
+    print(f"[train-tp] qwen3-0.6b whole (bf16, remat full), B {TP_TRAIN_B} "
+          f"x S {TP_TRAIN_S}, (data 1, model 2) vs one rank, step 1 from "
+          f"one state on the same rows ({card}): loss {l_tp:.6f} vs "
+          f"{l_one:.6f} (|d| {abs(l_tp - l_one):.2e}, bar {bar12:.2e}); "
+          f"grad norm {q['gnorm']:.6f} vs {q['one']['gnorm']:.6f} (rel "
+          f"{g_rel:.2e}, bar {TP_GNORM_RTOL:.2e}); each gradient leaf "
+          f"gathered whole within {g_worst:.3e} of one rank's at worst "
+          f"({g_key}; median leaf {g_median:.3e}; bar {TP_GRAD_RTOL:.3e}), "
+          f"{g_flips / n * 100:.3f}% of elements with the other sign; "
+          f"parameters within {worst:.3f} of one bf16 ulp + {TP_PARAM_LR:g} "
+          f"lr at worst ({key}), {share * 100:.3f}% of {n} elements beyond "
+          f"one ulp + lr x 2^-7, {unexplained} of them with gradients of one "
+          f"sign above {TP_NEAR_EPS:g} eps (bar 0); replicated leaves and "
+          f"losses equal on both ranks")
+    if abs(l_tp - l_one) > bar12 or g_rel > TP_GNORM_RTOL \
+            or g_worst > TP_GRAD_RTOL or worst > 1.0 or unexplained:
+        fail("[train-tp] qwen3-0.6b (1, 2) misses the one-rank step")
+    print(f"[train-tp] qwen3-0.6b (1, 2) per rank (two gloo ranks time-slice "
+          f"one card and reduce through host memory: no tp speed): losses "
+          f"{', '.join(f'{x:.6f}' for x in q['losses'])}; "
+          + "; ".join(f"rank {r}: moments {e['moment_bytes'] / 1e9:.3f} GB, "
+                      f"peak {e['peak_gb']:.2f} GB, step 2 "
+                      f"{e['step_ms']:.1f} ms, gloo edges {e['edge_ms']:.1f}"
+                      f" ms" for r, e in enumerate(every))
+          + f"; step 2's collectives {q['ops']}, walked model "
+          f"{q['walked'].get('model', 0.0) / 1e9:.4f} GB")
+    if not q["restored_equal"] or abs(q["resumed"] - q["losses"][
+            TP_TRAIN_CKPT]) > bar12:
+        fail(f"[train-tp] the (1, 2) checkpoint at (1, 1): restored equal "
+             f"{q['restored_equal']}, step {TP_TRAIN_CKPT + 1} loss "
+             f"{q['resumed']} vs {q['losses'][TP_TRAIN_CKPT]}")
+    print(f"[train-tp] the (1, 2) checkpoint of step {TP_TRAIN_CKPT} (saved "
+          f"in {q['save_s']:.2f} s, blocks gathered, rank 0 writes) restored "
+          f"at (1, 1) in {q['restore_s']:.2f} s (warm page cache): every "
+          f"leaf equals the file bit for bit; step {TP_TRAIN_CKPT + 1} from "
+          f"it on one rank loss {q['resumed']:.6f} vs the tp run's "
+          f"{q['losses'][TP_TRAIN_CKPT]:.6f} (|d| "
+          f"{abs(q['resumed'] - q['losses'][TP_TRAIN_CKPT]):.2e}, bar "
+          f"{bar12:.2e})")
+    bad = tp_walk_line("qwen3-0.6b (1, 2)", [e["walk"] for e in every])
+    try:
+        four = spawn(train_tp4_rank, 4, backend="gloo", device="cuda",
+                     timeout=900)
+    except RuntimeError as e:
+        fail(f"[train-tp] a (2, 2) rank failed: {e}")
+    f4 = four["every"]
+    q4 = four["qwen"]
+    n_both = f4[0]["quarter"][0]
+    if not all(e["quarter"][1] and e["equal"] for e in f4) or n_both == 0:
+        fail(f"[train-tp] (2, 2): moment blocks not a quarter or replicated "
+             f"leaves differ: {[(e['quarter'], e['equal']) for e in f4]}")
+    d4, bar22 = abs(q4["losses"][0] - q4["one_loss"]), tp_loss_bar(
+        TP22_B * TP22_S)
+    print(f"[train-tp] qwen3-0.6b (data 2, model 2), four gloo ranks, B "
+          f"{TP22_B} x S {TP22_S}: step 1 loss {q4['losses'][0]:.6f} vs one "
+          f"rank {q4['one_loss']:.6f} (|d| {d4:.2e}, bar {bar22:.2e}), step "
+          f"2 {q4['losses'][1]:.6f}; ZeRO-1 on "
+          f"model shards: the {n_both} moments both axes divide are a "
+          f"quarter of one rank's on every rank; moments a rank "
+          f"{[round(e['moment_bytes'] / 1e9, 3) for e in f4]} GB of one "
+          f"rank's {q4['one_moment_bytes'] / 1e9:.3f} GB; peak a rank "
+          f"{[round(e['peak_gb'], 2) for e in f4]} GB; step "
+          f"{[round(e['step_ms'], 1) for e in f4]} ms")
+    if d4 > bar22:
+        fail("[train-tp] (2, 2) misses the one-rank loss")
+    bad = max(bad, tp_walk_line("qwen3-0.6b (2, 2)",
+                                [e["walk"] for e in f4]))
+    if bad > 5e-5:
+        fail(f"[train-tp] a walk's bytes part from the analytic count by "
+             f"{bad:.2e}")
+    moe = two["moe"]
+    tp_, one = moe["tp"], moe["one"]
+    if (moe["experts"], moe["heads"]) != (80, 64) or not tp_["finite"]:
+        fail(f"[train-tp] deepseek-v2 model 2: {moe['experts']} experts, "
+             f"{moe['heads']} heads a rank, finite {tp_['finite']}")
+    ranks = moe["ranks"]
+    if any(len(r) != len(ranks[0]) or any(not np.array_equal(a, b) for a, b
+                                          in zip(r, ranks[0]))
+           for r in ranks):
+        fail("[train-tp] deepseek-v2: the model ranks keep different pairs")
+    c_tp, c_one = tp_["calls"][0], one["calls"][0]
+    got, want, flipped, touched = tp_pairs(np, c_tp, c_one)
+    n_flip = int(flipped.sum())
+    off = {e for _, e in got ^ want}
+    # a token whose top-6 differs has, on one rank, a margin (6th less
+    # 7th probability) within twice its probabilities' largest change: an
+    # expert a in the one rank's six but not the tp run's, and b the other
+    # way, give margin <= p1[a] - p1[b] <= (p1[a] - p2[a]) + (p2[b] -
+    # p1[b]) <= 2 max |p1 - p2|
+    p1, p2 = one["probs"][0], tp_["probs"][0]
+    top = -np.sort(-p1, axis=1)
+    margin = top[:, 5] - top[:, 6]
+    moved = np.abs(p1 - p2).max(1)
+    near = margin <= 2 * moved
+    if not off <= touched or (flipped & ~near).any():
+        fail(f"[train-tp] deepseek-v2: kept pairs differ outside the experts"
+             f" of the {n_flip} tokens routed differently, or "
+             f"{int((flipped & ~near).sum())} of them route otherwise "
+             f"beyond their margins")
+    t32, o32 = moe["tp32"], moe["one32"]
+    got32, want32, flip32, _ = tp_pairs(np, t32["calls"][0],
+                                        o32["calls"][0])
+    flip32 = int(flip32.sum())
+    m32 = float(np.abs(t32["probs"][0] - o32["probs"][0]).max())
+    rel = {k: abs(tp_[k] - one[k]) / abs(one[k]) for k in ("loss", "aux")}
+    print(f"[train-tp] deepseek-v2-236b ({DS_TRAIN_LAYERS} layers: dense + "
+          f"one MoE layer), global dispatch, B {DS_TRAIN_B} x S {DS_TRAIN_S},"
+          f" model 2 vs one rank ({card}): {moe['experts']} experts and "
+          f"{moe['heads']} MLA heads a rank (shared experts' d_ff "
+          f"{moe['shared_ff']} a rank); bf16: kept {len(got)} pairs "
+          f"(capacity {c_tp['capacity']}), the same on both ranks; one rank "
+          f"kept {len(want)}, sets "
+          f"{'equal' if got == want else f'differ in {len(got ^ want)}'}, "
+          f"only in the experts of the {n_flip} of "
+          f"{c_tp['choice'].shape[0]} tokens routed differently; router "
+          f"probabilities moved by {float(moved.max()):.2e} at most, "
+          f"{int(near.sum())} tokens have a top-6 margin within twice their "
+          f"move, and every rerouted token is one of them; float32 (TF32 "
+          f"off): kept {len(got32)} pairs vs one rank's {len(want32)}, "
+          f"sets {'equal' if got32 == want32 else 'differ'}, {flip32} "
+          f"tokens routed differently, probabilities moved by {m32:.2e}; "
+          f"loss {tp_['loss']:.6f} vs {one['loss']:.6f}, aux "
+          f"{tp_['aux']:.6f} vs {one['aux']:.6f} (rel {rel['loss']:.2e}, "
+          f"{rel['aux']:.2e}; bar {TP_MOE_RTOL:.2e}); gradients finite; "
+          f"peak a rank {tp_['peak_gb']:.2f} GB, one rank "
+          f"{one['peak_gb']:.2f} GB")
+    if got32 != want32 or flip32:
+        fail("[train-tp] deepseek-v2: float32 kept pairs differ from one "
+             "rank's")
+    if max(rel.values()) > TP_MOE_RTOL:
+        fail("[train-tp] deepseek-v2: loss or aux off the one-rank run's")
+    after = kernel_launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    in_ranks = two["launches"] + four["launches"]
+    if moved or any(in_ranks) or len(after) < 14:
+        fail(f"[train-tp] ported kernels launched: {moved}, ranks "
+             f"{in_ranks}")
+    print(f"[train-tp] no ported kernel launched ({len(after)} wrappers' "
+          f"counts unchanged here, 0 in every rank); backend "
+          f"{two['backend']}: NCCL at model > 1 needs a card a rank and "
+          "stays unverified")
+
+
 def print_build_summary(name: str, log: str) -> None:
     """One line per source from nvcc's ``-Xptxas -v`` report: kernel
     instantiations, their register range, and each one that spills."""
@@ -6012,7 +6718,7 @@ def main() -> int:
         scfg=SpecConfig(k=SPEC_K, proposer="draft", draft_cfg=qwen,
                         draft_params=draft),
         label="qwen3-14b + qwen3-0.6b draft", max_len=MAX_LEN,
-        new_tokens=NEW_TOKENS, verify_counter=pa.paged_attention_verify,
+        new_tokens=Q14_NEW_TOKENS, verify_counter=pa.paged_attention_verify,
         decode_counter=pa.paged_attention, decode_op="paged_attention",
         logits_atol=SPEC_LOGITS_ATOL, kv_dtypes=("int8",), dispatch=True,
         telemetry_chip=chip)
@@ -6086,8 +6792,12 @@ def main() -> int:
         f"accumulation, resume, deepseek-v2 ({DS_TRAIN_LAYERS} layers) "
         "dispatch", t_phase)
     train_dp_phase(torch, np, card)
-    phase_time("data-parallel training: launch/train.py --data 2, restore "
-               "at data 1, dense and MoE holds, NCCL world of one", t_phase)
+    t_phase = phase_time("data-parallel training: launch/train.py --data 2, "
+                         "restore at data 1, dense and MoE holds, NCCL world "
+                         "of one", t_phase)
+    train_tp_phase(torch, np, card)
+    phase_time("tensor-parallel training: qwen3-0.6b at (1, 2) and (2, 2), "
+               "deepseek-v2 (2 layers) at (1, 2), pre-flight walks", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

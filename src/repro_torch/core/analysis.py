@@ -245,6 +245,11 @@ class AnalysisReport:
                              f"{'+'.join(k)} ({'dcn' if 'pod' in k else 'ici'})"
                              f" {v / 1e6:.3f} MB"
                              for k, v in sorted(by_axes.items())))
+        by_edge = self.character.collectives.by_edge
+        if by_edge:
+            extra.append("tensor-parallel edges (per-device wire bytes): "
+                         + ", ".join(f"{k} {v / 1e6:.3f} MB"
+                                     for k, v in sorted(by_edge.items())))
         top = self.character.collectives.top_ops[:5]
         if top:
             extra.append("top collectives (per-device wire bytes):")
@@ -293,12 +298,13 @@ def analyze_step(fn: Callable, *, args: Sequence[Any], mesh=None,
     ``FakeTensorMode``: nothing is computed or allocated.  The walk's
     temporaries are not tracked (``MemoryFootprint.temp_bytes`` 0).
 
-    On a ``parallel.mesh.Mesh`` with process groups (a data-parallel
-    step: every rank of it walks its own step together) the walk also
-    records the ``c10d`` operators the step dispatches
+    On a ``parallel.mesh.Mesh`` with process groups (a data- or
+    tensor-parallel step: every rank of it walks its own step together)
+    the walk also records the ``c10d`` operators the step dispatches
     (``op_collectives.CollectiveWalk``; a collective on fake tensors
-    moves nothing) and attributes each to its mesh axis: the report's
-    collectives by axis, ``data`` on ``ici`` and ``pod`` on ``dcn``."""
+    moves nothing) and attributes each to its mesh axis, and a tp edge's
+    to its edge: the report's collectives by axis, ``model`` and
+    ``data`` on ``ici`` and ``pod`` on ``dcn``, and by edge."""
     mesh_shape = (mesh_axis_sizes(mesh) if mesh is not None
                   else {"data": 1, "model": 1})
     if scope is None:

@@ -38,7 +38,7 @@ class CollectiveSummary:
     """Per-device collective wire bytes, the reference's
     ``hlo.py::CollectiveSummary`` as data (``op_collectives.summarize``
     fills it from a walked step; ``ops_by_kind`` counts the ops of each
-    kind).  One card moves none: every field stays zero."""
+    kind, ``by_edge`` the bytes of each tensor-parallel edge).  One card moves none: every field stays zero."""
 
     total_wire_bytes: float = 0.0
     ici_wire_bytes: float = 0.0
@@ -49,6 +49,8 @@ class CollectiveSummary:
     n_ops: int = 0
     top_ops: List[Any] = dataclasses.field(default_factory=list)
     ops_by_kind: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # wire bytes of the tensor-parallel edges' ops, by edge
+    by_edge: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

@@ -21,6 +21,13 @@ an all-gather / reduce-scatter / all-to-all ``payload x (n-1)/n``, a
 point-to-point send its payload (the matching receive moves nothing more
 on this device's wire), payload being the larger of the op's result and
 operand bytes on this device.
+
+Each op also carries its edge: the innermost of the tensor-parallel
+edges' tags (:data:`EDGE_TAGS`: ``tp_copy``, whose
+all-reduce runs in the backward, ``tp_reduce``, ``tp_gather``) open on
+the dispatching thread, so a step's ``model`` bytes split by edge
+(:func:`summarize`'s ``by_edge``), forward, backward and a checkpointed
+layer's recompute alike.
 """
 
 from __future__ import annotations
@@ -32,6 +39,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from .extract import CollectiveSummary
+from .op_cost import _stack
+
+# the tags parallel/collectives.py's tensor-parallel edges issue their
+# collectives under (``op_cost.named_scope``)
+EDGE_TAGS = ("tp_copy", "tp_reduce", "tp_gather")
 
 # c10d operator -> (the reference's collective kind, and the positions of
 # its result tensors, its operand tensors and its process group among the
@@ -60,6 +72,7 @@ class CollectiveOp:
     op: str = ""              # the c10d operator's name
     link: str = "ici"         # "ici" | "dcn"
     axis: str = ""            # the mesh axis of its group ("" unknown)
+    edge: str = ""            # the tp edge that issued it (EDGE_TAGS)
 
     @property
     def payload_bytes(self) -> float:
@@ -85,6 +98,13 @@ def _nbytes(x: Any) -> int:
     if isinstance(x, (list, tuple)):
         return sum(_nbytes(t) for t in x)
     return 0
+
+
+def _edge() -> str:
+    for tag in reversed(_stack()):
+        if tag in EDGE_TAGS:
+            return tag
+    return ""
 
 
 def _group(pg: Any):
@@ -135,7 +155,8 @@ class CollectiveWalk(TorchDispatchMode):
                 kind=kind, result_bytes=_nbytes(args[res]),
                 operand_bytes=_nbytes(args[opd]),
                 group_size=group.size(), op=name,
-                link="dcn" if axis == "pod" else "ici", axis=axis))
+                link="dcn" if axis == "pod" else "ici", axis=axis,
+                edge=_edge()))
         out = func(*args, **kwargs)
         if edge and self.timed:
             self._open = ev
@@ -150,10 +171,11 @@ class CollectiveWalk(TorchDispatchMode):
 def summarize(ops: List[CollectiveOp]) -> CollectiveSummary:
     """The reference's ``CollectiveSummary.from_ops``, plus the op count
     of each kind; ``by_axes`` holds the wire bytes of the ops a walk with
-    a mesh attributed to an axis."""
+    a mesh attributed to an axis, ``by_edge`` those of the tp edges."""
     by_kind: Dict[str, float] = {}
     n_by_kind: Dict[str, int] = {}
     by_axes: Dict[Tuple[str, ...], float] = {}
+    by_edge: Dict[str, float] = {}
     ici = dcn = 0.0
     for op in ops:
         w = op.wire_bytes
@@ -161,6 +183,8 @@ def summarize(ops: List[CollectiveOp]) -> CollectiveSummary:
         n_by_kind[op.kind] = n_by_kind.get(op.kind, 0) + 1
         if op.axis:
             by_axes[(op.axis,)] = by_axes.get((op.axis,), 0.0) + w
+        if op.edge:
+            by_edge[op.edge] = by_edge.get(op.edge, 0.0) + w
         if op.link == "dcn":
             dcn += w
         else:
@@ -169,7 +193,7 @@ def summarize(ops: List[CollectiveOp]) -> CollectiveSummary:
         total_wire_bytes=ici + dcn, ici_wire_bytes=ici, dcn_wire_bytes=dcn,
         by_kind=by_kind, by_axes=by_axes, n_ops=len(ops),
         top_ops=sorted(ops, key=lambda o: -o.wire_bytes)[:12],
-        ops_by_kind=n_by_kind)
+        ops_by_kind=n_by_kind, by_edge=by_edge)
 
 
 def walk_collectives(fn: Callable, *args, **kwargs
@@ -181,5 +205,5 @@ def walk_collectives(fn: Callable, *args, **kwargs
     return out, summarize(walk.ops)
 
 
-__all__ = ["C10D_OPS", "CollectiveOp", "CollectiveWalk", "summarize",
+__all__ = ["C10D_OPS", "EDGE_TAGS", "CollectiveOp", "CollectiveWalk", "summarize",
            "walk_collectives"]

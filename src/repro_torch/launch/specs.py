@@ -22,7 +22,7 @@ from ..models import cache_param_defs, model_param_defs
 from ..models.common import ModelConfig, ShapeCell
 from ..models.params import torch_dtype, tree_map
 from ..parallel import sharding as shd
-from ..parallel.mesh import Mesh, batch_shards, dp_axes, mesh_axis_sizes
+from ..parallel.mesh import batch_shards, holds_blocks, mesh_axis_sizes
 from ..train.loop import abstract_state
 from ..train.optimizer import opt_state_shardings
 
@@ -83,18 +83,20 @@ def train_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
     """(args, in_specs, out_specs) of ``train_step(state, batch)``: the
     state of ``train/loop.py::abstract_state`` (parameters in their
     dtypes, float32 moments, an int32 step) as fake tensors.  The args
-    are one rank's: on a data-parallel mesh (a ``parallel.mesh.Mesh``
-    whose batch axes have groups) the batch is its global_batch / shards
-    rows and the moments its ZeRO-1 blocks, what the rank's step really
-    takes; the specs stay the global arrays' partitioning."""
+    are one rank's: on a mesh of ranks (``parallel.mesh.holds_blocks``:
+    ``(data, model)`` or ``(pod, data, model)``, or a rank's view) the
+    batch is its global_batch / batch shards rows (the ranks of one
+    ``model`` row take the same ones), the parameters its blocks and the
+    moments their ZeRO-1 blocks, what the rank's step really takes; the
+    specs stay the global arrays' partitioning."""
     mode = mode or FakeTensorMode()
     defs = model_param_defs(cfg)
-    dp = isinstance(mesh, Mesh) and bool(dp_axes(mesh))
-    state = _fake_like(mode, abstract_state(cfg, mesh if dp else None))
+    ranks = holds_blocks(mesh)
+    state = _fake_like(mode, abstract_state(cfg, mesh if ranks else None))
     state_specs = {"params": shd.tree_specs(defs, mesh),
                    "opt": opt_state_shardings(defs, mesh)}
     B, S = cell.global_batch, cell.seq_len
-    rows = B // batch_shards(mesh) if dp else B
+    rows = B // batch_shards(mesh) if ranks else B
     args = (state, batch_specs(cfg, rows, S, mode))
     in_specs = (state_specs, batch_shardings(cfg, B, S, mesh))
     return args, in_specs, (state_specs, None)

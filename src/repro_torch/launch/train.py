@@ -29,7 +29,10 @@ CPU.  The backend is NCCL when each rank has a card of its own, gloo on
 the CPU or when ranks share a card (``--data 2`` on one card: two gloo
 ranks on it), printed before the ranks start.  Each rank walks its own
 step for the pre-flight, whose report then carries the step's
-collectives by mesh axis; rank 0 prints it and the history.
+collectives by mesh axis; rank 0 prints it and the history.  The
+reference's CLI has no ``model`` option, and neither has this one: the
+tensor-parallel step (a ``model`` axis beside ``data`` and ``pod``) is
+reached through ``train.make_train_step(..., mesh=)`` directly.
 """
 
 from __future__ import annotations

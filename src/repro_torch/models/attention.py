@@ -23,8 +23,8 @@ import torch
 from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
-from ..parallel.collectives import row_parallel_matmul
-from .common import ModelConfig
+from ..parallel.collectives import row_parallel_matmul, tp_copy
+from .common import KvSlicedConfig, ModelConfig
 from .layers import apply_rope, rms_head_norm, rope_cos_sin
 from .params import ParamDef, torch_dtype
 
@@ -87,16 +87,40 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig
                                cfg.tp_overlap)
 
 
+def _kv_weight(w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``wk`` / ``wv`` (D, KV, hd) as this rank reads it.  Where the rules
+    replicate the KV heads because they do not divide the tp axis (a
+    ``KvSlicedConfig``, whose ``n_kv_heads`` is then 1), the rank's local
+    query heads all read KV head ``coord x KV / tp``: the rank takes that
+    slice, through ``tp_copy`` so that the ranks sharing a KV head sum
+    their gradients (with one KV head, MQA, the slice is the whole
+    weight, and the ``tp_copy`` all the same)."""
+    if not isinstance(cfg, KvSlicedConfig):
+        return w
+    from ..parallel.mesh import active_mesh
+    mesh = active_mesh()
+    kv = w.shape[1] * mesh.coord(cfg.tp_axis) // mesh.sizes[cfg.tp_axis]
+    return tp_copy(w, cfg.tp_axis)[:, kv:kv + cfg.n_kv_heads]
+
+
 def _project_qkv(p, x: torch.Tensor, kv_src: torch.Tensor, cfg: ModelConfig,
                  rope_q: Rope, rope_k: Rope):
     """q from ``x``, k and v from ``kv_src`` (x itself for self-attention),
     (B, S, heads, hd), with qk-norm; RoPE only on a side whose tables are
-    given (cross-attention passes none)."""
+    given (cross-attention passes none).  Under tensor parallelism the
+    products are head-sharded: ``x`` and ``kv_src`` enter through
+    ``tp_copy``, and so do the qk-norm scales, shared by every head, so
+    that their partial gradients sum over the axis."""
+    axis = cfg.tp_axis
+    same = kv_src is x
+    x = tp_copy(x, axis)
+    kv_src = x if same else tp_copy(kv_src, axis)
     q = _heads(x, p["wq"])
-    k, v = _heads(kv_src, p["wk"]), _heads(kv_src, p["wv"])
+    k = _heads(kv_src, _kv_weight(p["wk"], cfg))
+    v = _heads(kv_src, _kv_weight(p["wv"], cfg))
     if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+        q = rms_head_norm(tp_copy(p["q_norm"], axis), q, cfg.norm_eps)
+        k = rms_head_norm(tp_copy(p["k_norm"], axis), k, cfg.norm_eps)
     if rope_q is not None:
         q = apply_rope(q, *rope_q)
     if rope_k is not None:

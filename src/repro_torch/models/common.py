@@ -152,6 +152,18 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class KvSlicedConfig(ModelConfig):
+    """A tensor-parallel training rank's local config whose KV heads do
+    not divide the tp axis (``parallel.sharding.tp_local_config(...,
+    kv_slice=True)``): the rules replicate ``wk`` / ``wv``, and the rank
+    reads the ``n_kv_heads`` of them that its query heads use, through
+    ``tp_copy`` (models/attention.py).  The type is the fact: the local
+    shapes alone cannot tell a replicated KV head (MQA) from a shard of
+    one head a rank.  No field of its own, so it stays equal field by
+    field to the configs the reference holds."""
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeCell:
     """One assigned (input-shape) cell."""
     name: str

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.roofline.op_cost import named_scope
-from ..parallel.collectives import all_gather_cols, row_parallel_matmul
+from ..parallel.collectives import (all_gather_cols, row_parallel_matmul,
+                                    tp_copy, tp_reduce)
 from .common import ModelConfig
 from .params import ParamDef, torch_dtype
 
@@ -109,14 +110,28 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
     return defs
 
 
-def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The dense FFN.  Under tensor parallelism (``cfg.tp_axis``) the rank
-    holds its slice of d_ff, so the down-projection contracts a partial
-    inner dim and the row-parallel edge sums it over the axis."""
+def _mlp_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = x @ p["w_up"]
     g = x @ p["w_gate"] if "w_gate" in p else None
-    return row_parallel_matmul(activate(h, g, cfg.act), p["w_down"],
+    return activate(h, g, cfg.act)
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense FFN.  Under tensor parallelism (``cfg.tp_axis``) the rank
+    holds its slice of d_ff: x enters through ``tp_copy`` (the up and
+    gate products are column-sharded), and the down-projection contracts
+    a partial inner dim that the row-parallel edge sums over the axis."""
+    x = tp_copy(x, cfg.tp_axis)
+    return row_parallel_matmul(_mlp_hidden(p, x, cfg), p["w_down"],
                                cfg.tp_axis, cfg.tp_overlap)
+
+
+def mlp_partial(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense FFN without its edges: under tensor parallelism this
+    rank's partial sum of the down-projection (the MoE layer's shared
+    experts, reduced once with the routed experts' combine); the whole
+    FFN without an axis."""
+    return _mlp_hidden(p, x, cfg) @ p["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +163,20 @@ def tied_head(p, cfg: ModelConfig) -> torch.Tensor:
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = p["tok"][tokens].to(torch_dtype(cfg.dtype))
+    """The token (and learned position) embedding.  A vocab-sharded table
+    (training's rules under tensor parallelism) looks up the tokens of
+    its vocabulary block, writes zeros for the rest, and sums the ranks'
+    rows with ``tp_reduce`` (each token's row comes from one rank, so
+    the sum is exact in any dtype)."""
+    rows = p["tok"].shape[0]
+    if rows == cfg.vocab_size:
+        x = p["tok"][tokens].to(torch_dtype(cfg.dtype))
+    else:               # this rank's block of the vocabulary
+        from ..parallel.mesh import active_mesh
+        local = tokens.long() - active_mesh().coord(cfg.tp_axis) * rows
+        mine = (local >= 0) & (local < rows)
+        x = p["tok"][torch.where(mine, local, 0)].to(torch_dtype(cfg.dtype))
+        x = tp_reduce(x * mine[..., None].to(x.dtype), cfg.tp_axis)
     if cfg.pos_emb == "learned":
         if positions is None:
             raise ValueError("learned position embeddings need positions")
@@ -157,15 +185,19 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def logits_from_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Logits over the vocabulary.  Under tensor parallelism an untied
-    head is vocab-sharded, so the rank computed V/n columns and the edge
-    all-gathers them (``cfg.vocab_size`` stays global in the local config,
-    which is how the edge tells); a tied table is replicated for the
-    token lookup and gives full rows already."""
+    """Logits over the vocabulary.  Under tensor parallelism a
+    vocab-sharded head (an untied one, or in training the tied table as
+    well) gives the rank V/n columns: x enters through ``tp_copy`` and
+    the edge all-gathers the columns (``cfg.vocab_size`` stays global in
+    the local config, which is how the edge tells); serving's tied table
+    is replicated for the token lookup and gives full rows already."""
     with named_scope("logits"):
         w = tied_head(p, cfg).T if cfg.tie_embeddings else p["head"]
+        sharded = cfg.tp_axis is not None and w.shape[-1] != cfg.vocab_size
+        if sharded:
+            x = tp_copy(x, cfg.tp_axis)
         out = x @ w
-        if cfg.tp_axis is not None and out.shape[-1] != cfg.vocab_size:
+        if sharded:
             out = all_gather_cols(out, cfg.tp_axis)
         return out
 

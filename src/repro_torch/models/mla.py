@@ -36,6 +36,7 @@ import torch
 from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
+from ..parallel.collectives import tp_copy
 from .attention import (NEG_INF, Rope, _commit_kv, _heads, _out_proj,
                         dense_lines, gather_pages)
 from .common import ModelConfig
@@ -90,15 +91,17 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 def _queries(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
              rope: Rope = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """q_nope (B,S,H,dn) and RoPE'd q_rope (B,S,H,dr); ``rope`` =
-    rope_tables(cfg, pos), computed here when not given."""
+    rope_tables(cfg, pos), computed here when not given.  Under tensor
+    parallelism the replicated latent ``c_q`` (or x without a q latent)
+    enters the head-sharded product through ``tp_copy``."""
     dn = cfg.nope_head_dim
     if rope is None:
         rope = rope_tables(cfg, pos)
     if cfg.q_lora_rank:
         cq = rms_head_norm(p["q_a_norm"], x @ p["wq_a"], cfg.norm_eps)
-        q = _heads(cq, p["wq_b"])
+        q = _heads(tp_copy(cq, cfg.tp_axis), p["wq_b"])
     else:
-        q = _heads(x, p["wq"])
+        q = _heads(tp_copy(x, cfg.tp_axis), p["wq"])
     return q[..., :dn], _rope_pairs(q[..., dn:], rope)
 
 
@@ -129,14 +132,18 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig,
         rope = rope_tables(cfg, q_positions)
     q_nope, q_rope = _queries(p, x, q_positions, cfg, rope)
     c_kv, k_rope = _latent_kv(p, x, q_positions, cfg, rope)
-    k_nope = _heads(c_kv, p["wk_b"])                  # (B, S, H, dn)
-    v = _heads(c_kv, p["wv_b"])                       # (B, S, H, dv)
+    # the latent line and the shared RoPE key are replicated; the heads
+    # that read them are sharded under tensor parallelism
+    c_kv_h, k_rope_h = tp_copy(c_kv, cfg.tp_axis), tp_copy(k_rope,
+                                                           cfg.tp_axis)
+    k_nope = _heads(c_kv_h, p["wk_b"])                # (B, S, H, dn)
+    v = _heads(c_kv_h, p["wv_b"])                     # (B, S, H, dv)
     scale = 1.0 / ((dn + dr) ** 0.5)
 
     def chunk_attn(qn, qr, qp):
         with named_scope("fused_attention"):
             s = (torch.einsum("bqhk,bshk->bhqs", qn, k_nope)
-                 + torch.einsum("bqhk,bsk->bhqs", qr, k_rope))
+                 + torch.einsum("bqhk,bsk->bhqs", qr, k_rope_h))
             s = s.float() * scale
             m = qp[:, :, None] >= q_positions[:, None, :]
             s = torch.where(m[:, None, :, :], s, NEG_INF)

@@ -59,12 +59,18 @@ def prepare_params(params, cfg: ModelConfig):
     return {**params, "embed": embed}
 
 
-def abstract_params(cfg: ModelConfig):
+def abstract_params(cfg: ModelConfig, mesh=None):
     """The parameter tree as meta tensors: every leaf's shape and dtype,
-    no storage (the reference's ``ShapeDtypeStruct`` tree)."""
-    return tree_map(lambda d: torch.empty(d.shape, dtype=d.torch_dtype,
-                                          device="meta"),
-                    model_param_defs(cfg))
+    no storage (the reference's ``ShapeDtypeStruct`` tree); with
+    ``mesh`` this rank's blocks under :func:`param_shardings`."""
+    defs = model_param_defs(cfg)
+    if mesh is None:
+        return tree_map(lambda d: torch.empty(d.shape, dtype=d.torch_dtype,
+                                              device="meta"), defs)
+    from ..parallel.sharding import local_shape
+    return tree_map(lambda d, sp: torch.empty(
+        local_shape(d.shape, sp, mesh), dtype=d.torch_dtype, device="meta"),
+        defs, param_shardings(cfg, mesh))
 
 
 def cache_param_defs(cfg: ModelConfig, batch: int, max_len: int):

@@ -42,6 +42,18 @@ batch's, as under the reference's GSPMD:
   backward makes the ranks' mean gradient the global one, and the pair
   counts are the gathered shards'.
 
+Tensor parallelism (``cfg.tp_axis``, training's rules): ``experts``
+lands on the axis (a rank holds E/tp of them; where E does not divide
+it, every expert's ``d_ff`` is split instead), and the shared experts'
+``d_ff`` is split as a dense FFN's.  The tokens are replicated across
+the axis, so the router, the top-k, the capacity ranks, the kept pairs
+and the aux are computed over all E experts on every rank, as on one;
+each rank runs the products of its own experts' slots, and its combine
+and shared output are partial sums that one ``tp_reduce`` finishes.
+The tokens enter the experts through ``tp_copy``, and so do the gates
+(the gradient of a gate reaches only the rank holding its expert's
+output; the router's own path, aux included, is whole on every rank).
+
 :func:`record_dispatch` logs each call's kept (token, expert) pairs by
 global token index.
 """
@@ -54,9 +66,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..core.roofline.op_cost import named_scope
+from ..parallel.collectives import tp_copy, tp_reduce
 from ..parallel.mesh import active_mesh, batch_shard, dp_axes
 from .common import ModelConfig, round_up
-from .layers import activate, apply_mlp, is_glu, mlp_defs
+from .layers import activate, is_glu, mlp_defs, mlp_partial
 from .params import ParamDef
 
 _LOG: Dict[str, Optional[List[Dict[str, torch.Tensor]]]] = {"calls": None}
@@ -106,12 +119,15 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
 def _dispatch_combine(xf: torch.Tensor, gates: torch.Tensor,
                       eids: torch.Tensor, C: int, cfg: ModelConfig, *,
                       offset: Optional[torch.Tensor] = None,
-                      depth: Optional[int] = None
+                      depth: Optional[int] = None,
+                      experts: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort-based dispatch for one token group.
 
-    xf (N, D); gates/eids (N, K).  Returns (xe (E,Cb,D), slot_token
-    (E*Cb,) int32, slot_gate (E*Cb,) float32) with N as the pad sentinel.
+    xf (N, D); gates/eids (N, K).  Returns (xe (El,Cb,D), slot_token
+    (E*Cb,) int32, slot_gate (E*Cb,) float32) with N as the pad sentinel:
+    the slot table of every expert, the buffer of the ``experts`` range
+    (first, El) only (all E when None; a tensor-parallel rank's own).
     ``offset`` (E,) int32: the pairs of each expert that come before this
     group's in the global order (the data-parallel dispatch; zeros when
     None), so a pair is kept while offset + its rank is below C; ``depth``
@@ -140,8 +156,9 @@ def _dispatch_combine(xf: torch.Tensor, gates: torch.Tensor,
     slot_gate = torch.zeros((E * Cb + 1,), dtype=torch.float32, device=dev)
     slot_gate[dest] = gates.reshape(-1)[order].float()
     slot_token, slot_gate = slot_token[:E * Cb], slot_gate[:E * Cb]
+    e0, El = experts or (0, E)
     xpad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
-    xe = xpad[slot_token.long()].reshape(E, Cb, D)
+    xe = xpad[slot_token[e0 * Cb:(e0 + El) * Cb].long()].reshape(El, Cb, D)
     return xe, slot_token, slot_gate
 
 
@@ -154,6 +171,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
     xf = x.reshape(N, D)
     mesh = active_mesh()
     axes = dp_axes(mesh)
+    tp = cfg.tp_axis
 
     logits = xf.float() @ p["router"]                        # (N, E)
     probs = torch.softmax(logits, dim=-1)
@@ -178,20 +196,22 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
         ce = counts / (N * K)
     aux = E * (me * ce).sum() * cfg.router_aux_coef
 
+    # the experts' inputs, replicated, enter this rank's products
+    xd, gd = tp_copy(xf, tp), tp_copy(gates, tp)
     if R > 1 and cfg.moe_dispatch != "local":
         C = _capacity(N * R, cfg)
         offset = shard_counts[:shard].sum(0).to(torch.int32)
         kept = torch.clamp(torch.minimum(C - offset, counts.to(torch.int32)),
                            min=0)
-        out = _moe_global(p, xf, gates, eids, C, cfg, offset=offset,
+        out = _moe_global(p, xd, gd, eids, C, cfg, offset=offset,
                           depth=_depth(kept, C), shard=shard)
     else:
         # "local", or one shard: this rank's tokens are its one group
-        out = _moe_global(p, xf, gates, eids, _capacity(N, cfg), cfg,
+        out = _moe_global(p, xd, gd, eids, _capacity(N, cfg), cfg,
                           shard=shard)
     if cfg.n_shared_experts:
-        out = out + apply_mlp(p["shared"], xf, cfg)
-    return out.reshape(B, S, D), aux
+        out = out + mlp_partial(p["shared"], xd, cfg)
+    return tp_reduce(out, tp).reshape(B, S, D), aux
 
 
 def _depth(kept: torch.Tensor, C: int) -> int:
@@ -218,12 +238,18 @@ def _moe_global(p, xf: torch.Tensor, gates: torch.Tensor,
                 ) -> torch.Tensor:
     """One slot table: dispatch, expert products, gated combine
     (``offset`` / ``depth``: :func:`_dispatch_combine`'s; ``shard``
-    places the tokens in the global order for :func:`record_dispatch`)."""
+    places the tokens in the global order for :func:`record_dispatch`).
+    The products and the combine cover this rank's experts (all of them
+    unless ``experts`` is sharded over ``cfg.tp_axis``): a partial sum
+    under tensor parallelism."""
     N, D = xf.shape
-    E = cfg.n_experts
+    El = p["w_up"].shape[0]
+    e0 = 0 if El == cfg.n_experts else \
+        active_mesh().coord(cfg.tp_axis) * El
     with named_scope("moe_dispatch"):
         xe, slot_token, slot_gate = _dispatch_combine(
-            xf, gates, eids, C, cfg, offset=offset, depth=depth)
+            xf, gates, eids, C, cfg, offset=offset, depth=depth,
+            experts=(e0, El))
     Cb = xe.shape[1]
     if _LOG["calls"] is not None:
         full = (slot_token < N).nonzero()[:, 0]
@@ -234,7 +260,8 @@ def _moe_global(p, xf: torch.Tensor, gates: torch.Tensor,
     with named_scope("moe_experts"):
         ye = _expert_glu(p, xe, cfg)
     with named_scope("moe_dispatch"):
-        yflat = ye.reshape(E * Cb, D) * slot_gate[:, None].to(ye.dtype)
+        mine = slice(e0 * Cb, (e0 + El) * Cb)
+        yflat = ye.reshape(El * Cb, D) * slot_gate[mine, None].to(ye.dtype)
         out = torch.zeros((N + 1, D), dtype=ye.dtype, device=xf.device)
-        out.index_add_(0, slot_token.long(), yflat)
+        out.index_add_(0, slot_token[mine].long(), yflat)
     return out[:N]

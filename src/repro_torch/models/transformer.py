@@ -55,8 +55,20 @@ RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
 ENCODER_BLOCK = BlockDef("attn", "dense")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configs this slice does not port."""
+def check_supported(cfg: ModelConfig, train_tp: int = 1) -> None:
+    """Raise NotImplementedError for configs this slice does not port;
+    with ``train_tp`` > 1 (a train step over a ``model`` axis that wide)
+    also for recurrent mixers, whose ``d_ff`` / ``heads`` the
+    reference's GSPMD shards in training but the port's explicit edges
+    do not yet (ROADMAP queue 1 item 21; serving refuses them at tp > 1
+    in both packages)."""
+    rec = sorted({b.mixer for b in cfg.block_pattern
+                  if b.mixer in RECURRENT_MIXERS})
+    if train_tp > 1 and rec:
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent mixers {rec} have no tensor-parallel "
+            f"edges in training (model={train_tp}): ROADMAP queue 1 "
+            "item 21")
     for unit, _ in cfg.segments():
         for b in unit:
             for kind in (b.mixer, b.ffn):

@@ -8,11 +8,24 @@ its process group comes from the active mesh, parallel/mesh.py
 ``use_mesh``) and returns this rank's result.  ``axis=None`` is the
 unsharded model: the plain product, no collective.
 
+* :func:`tp_copy` / :func:`tp_reduce`: Megatron's two conjugate edges
+  of a tensor-parallel region, differentiable.  ``tp_copy`` ("f") is
+  the identity forward and all-reduces the cotangent backward: it goes
+  where a replicated activation (or a replicated weight read in part)
+  enters a column-sharded product, whose backward leaves each rank a
+  partial gradient.  ``tp_reduce`` ("g") all-reduces forward and is the
+  identity backward: the row-parallel exit, whose consumer is
+  replicated on every rank of the axis.  ``psum`` below is neither: its
+  backward all-reduces too, right for the loss's token sums over the
+  batch axes, and tp times the gradient at a tp exit;
 * :func:`row_parallel_psum` / :func:`row_parallel_matmul`: the
   all-reduce epilogue of a row-parallel (contraction-sharded) matmul, the
-  attention / MLA o-projection and the FFN down-projection;
-  ``overlap="ring"`` computes it as :func:`ring_matmul_reduce`;
-* :func:`all_gather_cols`: the vocab-sharded logits edge;
+  attention / MLA o-projection and the FFN down-projection, through
+  ``tp_reduce`` while the partial product carries a gradient (the same
+  forward bits as serving's bare all-reduce); ``overlap="ring"``
+  computes it as :func:`ring_matmul_reduce`, serving only;
+* :func:`all_gather_cols`: the vocab-sharded logits edge, whose backward
+  keeps the rank's own column block;
 * :func:`ring_allgather_matmul`, :func:`psum_scatter_matmul`: the
   sequence-parallel entry edge and the reduce-scatter epilogue;
 * data parallelism over the batch axes ``("data", "pod")``
@@ -58,15 +71,111 @@ def _size_rank(group):
     return dist.get_world_size(group), dist.get_rank(group)
 
 
+def _grad_edge(x: torch.Tensor) -> bool:
+    """Whether ``x`` is on a path autograd will differentiate: the edges
+    run as functions with a backward only then (serving runs them under
+    no_grad, on weights that need none)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce_tagged(t: torch.Tensor, group, tag: str) -> torch.Tensor:
+    """An all-reduce under the walk's tag of its edge
+    (``op_collectives.EDGE_TAGS``)."""
+    from ..core.roofline.op_cost import named_scope
+    with named_scope(tag):
+        dist.all_reduce(t, group=group)
+    return t
+
+
+class _TPCopy(torch.autograd.Function):
+    """Identity forward; the cotangent's all-reduce over the group
+    backward (Megatron's "f")."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _all_reduce_tagged(gy.contiguous().clone(), ctx.group,
+                                  "tp_copy"), None
+
+
+class _TPReduce(torch.autograd.Function):
+    """All-reduce forward; identity backward (Megatron's "g"): every
+    rank's consumer of the sum is the same replicated computation, so
+    each rank's cotangent is already the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_tagged(x.contiguous().clone(), group, "tp_reduce")
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None
+
+
+def tp_copy(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """``x`` entering a region sharded over ``axis``: the identity, whose
+    backward sums the ranks' partial cotangents (:class:`_TPCopy`).
+    Without a gradient to carry (serving, ``axis`` None, an input that
+    needs none) it is ``x`` itself and moves nothing."""
+    if axis is None or not _grad_edge(x):
+        return x
+    return _TPCopy.apply(x, axis_group(axis))
+
+
+def tp_reduce(partial: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial results (a
+    row-parallel product, a vocab-sharded lookup): an all-reduce in
+    ``partial``'s dtype, differentiable as :class:`_TPReduce` while
+    ``partial`` carries a gradient, else :func:`row_parallel_psum`'s bare
+    all-reduce (the same bits).  ``axis`` None is ``partial``."""
+    if axis is None:
+        return partial
+    if _grad_edge(partial):
+        return _TPReduce.apply(partial, axis_group(axis))
+    return row_parallel_psum(partial, axis)
+
+
 def row_parallel_psum(partial: torch.Tensor, axis: str) -> torch.Tensor:
     """All-reduce (sum) over ``axis`` of a row-parallel matmul's partial
     product: each rank contracted its slice of the inner dim (local heads
     of the o-projection, local d_ff of the down-projection).  Two of
     these per transformer block are the whole card-to-card cost of a
-    tensor-parallel decode step (scheduler.decode_step_ici_bytes)."""
+    tensor-parallel decode step (scheduler.decode_step_ici_bytes).  Not
+    differentiable: training goes through :func:`tp_reduce`."""
     out = partial.contiguous()
     dist.all_reduce(out, group=axis_group(axis))
     return out
+
+
+def _gather_cols(x: torch.Tensor, group) -> torch.Tensor:
+    n, _ = _size_rank(group)
+    buf = x.new_empty((n * x.numel(),))
+    _ALL_GATHER(buf, x.contiguous().view(-1), group=group)
+    C = x.shape[-1]
+    return buf.view(n, *x.shape).movedim(0, -2).reshape(*x.shape[:-1],
+                                                         n * C)
+
+
+class _GatherCols(torch.autograd.Function):
+    """The tiled all-gather of column blocks; backward keeps the rank's
+    own block of the cotangent (every rank's consumer of the gathered
+    columns is the same replicated computation)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rank, ctx.cols = _size_rank(group)[1], x.shape[-1]
+        from ..core.roofline.op_cost import named_scope
+        with named_scope("tp_gather"):
+            return _gather_cols(x, group)
+
+    @staticmethod
+    def backward(ctx, gy):
+        c = ctx.cols
+        return gy[..., ctx.rank * c:(ctx.rank + 1) * c], None
 
 
 def all_gather_cols(x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -74,14 +183,12 @@ def all_gather_cols(x: torch.Tensor, axis: str) -> torch.Tensor:
     order (a tiled all-gather).  The collective gathers along dim 0 of a
     flat buffer; the column blocks are laid back side by side here.  A
     group of one still issues it (a copy), so a graph captured there
-    holds the edge."""
+    holds the edge.  Differentiable while ``x`` carries a gradient
+    (:class:`_GatherCols`)."""
     group = axis_group(axis)
-    n, _ = _size_rank(group)
-    buf = x.new_empty((n * x.numel(),))
-    _ALL_GATHER(buf, x.contiguous().view(-1), group=group)
-    C = x.shape[-1]
-    return buf.view(n, *x.shape).movedim(0, -2).reshape(*x.shape[:-1],
-                                                         n * C)
+    if _grad_edge(x):
+        return _GatherCols.apply(x, group)
+    return _gather_cols(x, group)
 
 
 def _ring_shift(t: torch.Tensor, group) -> torch.Tensor:
@@ -133,16 +240,22 @@ def ring_matmul_reduce(h: torch.Tensor, w: torch.Tensor,
 def row_parallel_matmul(h: torch.Tensor, w: torch.Tensor,
                         axis: Optional[str],
                         overlap: str = "none") -> torch.Tensor:
-    """The row-parallel epilogue: ``h @ w`` then :func:`row_parallel_psum`
-    (``overlap="none"``) or :func:`ring_matmul_reduce` ("ring");
+    """The row-parallel epilogue: ``h @ w`` then :func:`tp_reduce`
+    (``overlap="none"``) or :func:`ring_matmul_reduce` ("ring", which
+    raises NotImplementedError on operands that carry a gradient);
     ``axis=None`` is the plain matmul whatever the schedule."""
     if overlap not in ("none", "ring"):
         raise ValueError(f"overlap {overlap!r} not in ('none', 'ring')")
     if axis is None:
         return h @ w
     if overlap == "ring":
+        if _grad_edge(h) or _grad_edge(w):
+            raise NotImplementedError(
+                "tp_overlap='ring' has no backward: the ring matmul is a "
+                "serving schedule (training under it: ROADMAP queue 1 "
+                "item 21)")
         return ring_matmul_reduce(h, w, axis)
-    return row_parallel_psum(h @ w, axis)
+    return tp_reduce(h @ w, axis)
 
 
 def _pad_to(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -306,7 +419,8 @@ def all_gather_dim(t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
 
 
 __all__ = [
-    "all_gather_cols", "all_gather_dim", "all_reduce_", "gather_shards",
+    "all_gather_cols", "all_gather_dim", "all_reduce_",
+    "gather_shards", "tp_copy", "tp_reduce",
     "psum", "reduce_scatter_dim", "psum_scatter_matmul", "ring_allgather_matmul",
     "ring_matmul_reduce", "row_parallel_matmul", "row_parallel_psum",
     "staged_p2p",

@@ -6,7 +6,9 @@ Axes:
   data  -- data-parallel inside a host (training: the batch's rows and the
            ZeRO-1 moment shards, train/step.py; serving replicas,
            serve/cluster.py: one device row each, :func:`dp_submeshes`)
-  model -- tensor parallel
+  model -- tensor parallel (serving: serve/shard.py; training: the heads,
+           FFN, vocabulary and experts of train/step.py's mesh step,
+           beside data and pod)
 
 The reference is single-controller: one program over a
 ``jax.sharding.Mesh`` of devices.  Here every rank is a process of its
@@ -180,6 +182,17 @@ def dp_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
     if mesh is None:
         return ()
     return tuple(a for a in (DATA_AXIS, POD_AXIS) if a in mesh.groups)
+
+
+def holds_blocks(mesh) -> bool:
+    """Whether ``mesh`` spreads a train state over ranks, each holding
+    its blocks of it: a :class:`Mesh` of more than one rank (a rank's
+    view built by hand, ``Mesh(names, shape, rank=r)``, included: its
+    shapes are rank r's, though it runs no collective), or one with an
+    axis group set by hand (a world of one).  Else the state is whole,
+    as on one device.  The train step, the train state and
+    ``launch/specs.py::train_specs`` all ask this."""
+    return isinstance(mesh, Mesh) and (mesh.size > 1 or bool(mesh.groups))
 
 
 def dp_backend(device: str, world: int) -> str:

@@ -28,9 +28,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.common import KvSlicedConfig, ModelConfig
 from ..models.params import ParamDef, tree_count, tree_nbytes
 from ..models.params import tree_map
-from .mesh import mesh_axis_sizes
+from .mesh import MODEL_AXIS, mesh_axis_sizes
 
 Candidates = Tuple[Tuple[str, ...], ...]
 Spec = Tuple[object, ...]
@@ -105,11 +106,75 @@ DEFAULT = ShardingRules(DEFAULT_RULES)
 # block-table indirection), the slot batch, the experts and the sequence
 # fallbacks stay replicated.  The tied embedding table is replicated by
 # serve/shard.py (the token lookup needs every row); an untied head stays
-# vocab-sharded and the logits edge all-gathers.
+# vocab-sharded and the logits edge all-gathers.  Training takes DEFAULT
+# (``models.param_shardings``): the table and the experts on ``model``
+# too, the lookup a vocab-sharded one (models/layers.py).
 DECODE_TP_RULES = DEFAULT.override(
     kv_seq=((),), seq_sp=((),), seq_fb=((),),
     batch=((),), expert_cap=((),), experts=((),),
 )
+
+
+# --------------------------------------------------------------------------
+# The local config a tensor-parallel rank runs (serving and training)
+# --------------------------------------------------------------------------
+
+_KV_MIXERS = ("attn", "attn+cross", "cross_attn")
+
+
+def tp_width_error(cfg: ModelConfig, tp: int, *, kv_slice: bool = False
+                   ) -> Optional[str]:
+    """Why the widths of ``cfg`` cannot be split ``tp`` ways (None when
+    they can): the query / o heads, the GQA KV heads, the dense FFN's
+    inner dim.  Serving shards KV heads with their pools, so they must
+    divide; with ``kv_slice`` (training) KV heads that do not divide are
+    replicated by the rules and each rank slices the one its query heads
+    read, which needs ``tp`` to be a multiple of them."""
+    if tp <= 1:
+        return None
+    if cfg.n_heads % tp:
+        return f"{cfg.name}: n_heads {cfg.n_heads} not divisible by tp={tp}"
+    kv_mixers = {b.mixer for b in cfg.block_pattern} & set(
+        _KV_MIXERS if kv_slice else ("attn",))
+    if kv_mixers and cfg.n_kv_heads % tp and (not kv_slice
+                                              or tp % cfg.n_kv_heads):
+        return (f"{cfg.name}: n_kv_heads {cfg.n_kv_heads} not divisible "
+                f"by tp={tp} (KV pools shard over kv_heads)" if not kv_slice
+                else f"{cfg.name}: n_kv_heads {cfg.n_kv_heads} neither "
+                f"divides nor is divided by tp={tp}")
+    if any(b.ffn == "dense" for b in cfg.block_pattern) and cfg.d_ff % tp:
+        return f"{cfg.name}: d_ff {cfg.d_ff} not divisible by tp={tp}"
+    return None
+
+
+def tp_local_config(cfg: ModelConfig, tp: int, overlap: str = "none",
+                    *, kv_slice: bool = False) -> ModelConfig:
+    """The config one rank's steps run at tensor-parallel width ``tp``
+    (the gates are the caller's: :func:`tp_width_error` and its own):
+    local head and FFN counts, an explicit head_dim (it must not
+    re-derive from the local head count), ``tp_axis`` naming the axis
+    the collective edges reduce over, and ``tp_overlap`` their schedule
+    ("none" | "ring").  KV heads that do not divide stay global, or with
+    ``kv_slice`` become the one KV head a rank's query heads read (a
+    ``models.common.KvSlicedConfig``).  vocab_size, n_experts and
+    moe_d_ff stay global: the logits edge, the embedding and the MoE
+    layer tell a sharded leaf by its shape."""
+    kv = cfg.n_kv_heads
+    if kv % tp == 0:
+        kv //= tp
+    elif kv_slice:
+        kv = 1
+        cfg = KvSlicedConfig(**{f.name: getattr(cfg, f.name)
+                                for f in dataclasses.fields(cfg)})
+    return dataclasses.replace(
+        cfg,
+        n_heads=cfg.n_heads // tp,
+        n_kv_heads=kv,
+        head_dim=cfg.hd,
+        d_ff=cfg.d_ff // tp if cfg.d_ff % tp == 0 else cfg.d_ff,
+        tp_axis=MODEL_AXIS,
+        tp_overlap=overlap,
+    )
 
 
 def resolve_spec(logical: Sequence[Optional[str]], shape: Sequence[int],
@@ -172,6 +237,65 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A rank's block of a whole leaf: ``pieces`` (dim, axis, index,
+    count), cut in order, each keeping the ``index``-th of ``count``
+    equal parts of ``dim`` (the rank's coordinate on ``axis``).  A
+    parameter's block is its spec's; a ZeRO-1 moment's adds the
+    ``data`` piece (train/optimizer.py ``zero1_spec``)."""
+    pieces: Tuple[Tuple[int, str, int, int], ...]
+
+    @property
+    def dim(self) -> int:
+        """The dim of a one-piece block (a ZeRO-1 moment's ``data``
+        piece, :meth:`on`)."""
+        (dim, _, _, _), = self.pieces
+        return dim
+
+    @property
+    def count(self) -> int:
+        """The number of blocks the whole leaf is cut into."""
+        return int(np.prod([p[3] for p in self.pieces]))
+
+    def on(self, axis: str) -> Optional["Block"]:
+        """The pieces cut over ``axis`` (None when none is): a ZeRO-1
+        moment's ``data`` piece is its block of the rank's parameter
+        block, and a ``model`` piece says the parameter is sharded."""
+        mine = tuple(p for p in self.pieces if p[1] == axis)
+        return Block(mine) if mine else None
+
+    def shape(self, full) -> Tuple[int, ...]:
+        out = list(full)
+        for dim, _, _, count in self.pieces:
+            out[dim] //= count
+        return tuple(out)
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        for dim, _, index, count in self.pieces:
+            k = t.shape[dim] // count
+            t = t.narrow(dim, index * k, k)
+        return t
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's block: an all-gather along
+        each piece's dim over its axis, last piece first (a collective
+        on the active mesh)."""
+        from .collectives import all_gather_dim
+        for dim, axis, _, _ in reversed(self.pieces):
+            t = all_gather_dim(t, dim, axis)
+        return t
+
+
+def leaf_block(spec: Spec, mesh) -> Optional[Block]:
+    """This rank's :class:`Block` of a leaf under ``spec`` on ``mesh`` (a
+    ``parallel.mesh.Mesh``), None where the leaf is whole on every
+    rank."""
+    pieces = tuple((dim, ax, mesh.coord(ax), mesh.sizes[ax])
+                   for dim, entry in enumerate(spec) for ax in _axes(entry))
+    return Block(pieces) if pieces else None
+
+
 def shard_leaf(tensor: torch.Tensor, spec: Spec, mesh,
                rank: Optional[int] = None) -> torch.Tensor:
     """Rank ``rank``'s block of ``tensor`` under ``spec`` (the mesh's own
@@ -200,7 +324,8 @@ def shard_leaf(tensor: torch.Tensor, spec: Spec, mesh,
 
 
 __all__ = [
-    "DECODE_TP_RULES", "DEFAULT", "DEFAULT_RULES", "DIM_PRIORITY",
-    "ParamDef", "ShardingRules", "local_shape", "resolve_spec",
-    "shard_leaf", "tree_count", "tree_nbytes", "tree_specs",
+    "Block", "DECODE_TP_RULES", "DEFAULT", "DEFAULT_RULES", "DIM_PRIORITY",
+    "ParamDef", "ShardingRules", "leaf_block", "local_shape", "resolve_spec",
+    "shard_leaf", "tp_local_config", "tp_width_error", "tree_count",
+    "tree_nbytes", "tree_specs",
 ]

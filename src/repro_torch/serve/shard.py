@@ -102,15 +102,7 @@ def tp_sharding_error(cfg: ModelConfig, tp: int) -> Optional[str]:
     if any(b.ffn == "moe" for b in cfg.block_pattern):
         return (f"{cfg.name}: MoE FFNs need expert-parallel dispatch; "
                 "tensor-parallel decode shards dense FFNs")
-    if cfg.n_heads % tp:
-        return f"{cfg.name}: n_heads {cfg.n_heads} not divisible by tp={tp}"
-    if (any(b.mixer == "attn" for b in cfg.block_pattern)
-            and cfg.n_kv_heads % tp):
-        return (f"{cfg.name}: n_kv_heads {cfg.n_kv_heads} not divisible "
-                f"by tp={tp} (KV pools shard over kv_heads)")
-    if any(b.ffn == "dense" for b in cfg.block_pattern) and cfg.d_ff % tp:
-        return f"{cfg.name}: d_ff {cfg.d_ff} not divisible by tp={tp}"
-    return None
+    return shd.tp_width_error(cfg, tp)
 
 
 def supports_tp(cfg: ModelConfig, tp: int) -> bool:
@@ -119,24 +111,13 @@ def supports_tp(cfg: ModelConfig, tp: int) -> bool:
 
 def tp_local_config(cfg: ModelConfig, tp: int,
                     overlap: str = "none") -> ModelConfig:
-    """The config one rank's steps run: local head and FFN counts, an
-    explicit head_dim (it must not re-derive from the local head count),
-    ``tp_axis`` naming the axis the collective edges reduce over, and
-    ``tp_overlap`` their schedule ("none" | "ring").  vocab_size stays
-    global: the logits edge tells a sharded head by it."""
+    """The config one rank's serve steps run (``parallel.sharding.
+    tp_local_config``, which training's ranks run too), behind serving's
+    gates (:func:`tp_sharding_error`)."""
     err = tp_sharding_error(cfg, tp)
     if err:
         raise NotImplementedError(err)
-    return dataclasses.replace(
-        cfg,
-        n_heads=cfg.n_heads // tp,
-        n_kv_heads=(cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0
-                    else cfg.n_kv_heads),
-        head_dim=cfg.hd,
-        d_ff=cfg.d_ff // tp if cfg.d_ff % tp == 0 else cfg.d_ff,
-        tp_axis=MODEL_AXIS,
-        tp_overlap=overlap,
-    )
+    return shd.tp_local_config(cfg, tp, overlap)
 
 
 def param_pspecs(cfg: ModelConfig, mesh) -> Any:

@@ -16,14 +16,15 @@
   names every leaf's dtype.
 
 * **Elastic**: the files hold whole leaves and logical keys only, as
-  the reference's.  Under a data-parallel mesh (``mesh=`` and
-  ``shards=``, a tree of the state's structure holding each ZeRO-1
-  moment's ``optimizer.MomentShard``) a save all-gathers the moment
-  blocks into whole leaves on every rank, rank 0 writes, and the others
-  wait on a barrier; a restore reads whole leaves and keeps this rank's
-  block of each sharded one.  So a checkpoint saved at data 4 restores
-  at data 2 or on one device bit for bit, and crosses to the reference
-  and back.
+  the reference's.  On a mesh (``mesh=`` and ``shards=``, a tree of the
+  state's structure holding each leaf's ``parallel.sharding.Block``: a
+  parameter's model block, a ZeRO-1 moment's model and data block,
+  ``loop.state_shards``) a save all-gathers every block into its whole
+  leaf on every rank, rank 0 writes, and the others wait on a barrier;
+  a restore reads whole leaves and cuts this rank's block of each
+  sharded one along both axes.  So a checkpoint saved on (data 4, model
+  2) restores on (2, 4), at data 2 or on one device bit for bit, and
+  crosses to the reference and back.
 """
 
 from __future__ import annotations
@@ -60,8 +61,8 @@ def _snapshot(state) -> Dict[str, Any]:
 
 class CheckpointManager:
     """Checkpoints under ``directory``; with ``mesh`` and ``shards`` (a
-    tree of the state's structure: each leaf's ``MomentShard`` on this
-    rank, or None) every rank of the mesh calls :meth:`save`,
+    tree of the state's structure: each leaf's ``Block`` on this rank,
+    or None) every rank of the mesh calls :meth:`save`,
     :meth:`save_async`, :meth:`wait` and :meth:`restore` together."""
 
     def __init__(self, directory: str, keep: int = 3,
@@ -86,16 +87,15 @@ class CheckpointManager:
 
     def _whole(self, state):
         """``state`` with every sharded leaf all-gathered whole (a
-        collective on the mesh's ``data`` axis)."""
+        collective over each block's axes)."""
         if not any(sh is not None for sh in self.shards.values()):
             return state
-        from ..parallel.collectives import all_gather_dim
-        from ..parallel.mesh import DATA_AXIS, use_mesh
+        from ..parallel.mesh import use_mesh
         keys = iter(k for k, _ in tree_paths(state))
 
         def whole(t):
             sh = self.shards.get(next(keys))
-            return t if sh is None else all_gather_dim(t, sh.dim, DATA_AXIS)
+            return t if sh is None else sh.gather(t)
 
         with use_mesh(self.mesh):
             return tree_map(whole, state)

@@ -15,7 +15,9 @@ GSPMD's ``batch`` -> ``("pod", "data")`` sharding gives shard r once
 the reference's step has split the global batch into microbatches
 (``train/step.py``), laid out so that the rank's own microbatch split
 gives microbatch i's shard.  The draw is the global batch's, so every
-rank's rows are the ones a single device would see.
+rank's rows are the ones a single device would see.  The ranks of one
+``model`` row are one shard: ``shard=parallel.mesh.batch_shard(mesh)``
+is the (pod, data) coordinate, the same for them.
 
 The prefetcher double-buffers on a worker thread so host-side batch
 synthesis overlaps the device step.

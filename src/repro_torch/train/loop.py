@@ -11,13 +11,14 @@ JAX package's ``train/loop.py`` in PyTorch.
   are recorded and handed to the (pluggable) mitigation hook,
 * async checkpoint every N steps with keep-K retention.
 
-Data parallel (``mesh=``): every rank runs the loop over its rows
-(``SyntheticLMData(shard=, shards=)``) with the data-parallel step, and
-the ranks agree before each attempt of a step on a preemption and on a
-failure (one all-reduce of two flags), so they save, retry and stop
-together; checkpoints are collective (``CheckpointManager(mesh=,
-shards=)``), the restore's step is rank 0's, rank 0 alone keeps the
-history, and each rank keeps its own straggler watchdog.
+Data and tensor parallel (``mesh=``): every rank runs the loop over its
+rows (``SyntheticLMData(shard=, shards=)``; the ranks of one ``model``
+row take the same ones) with the mesh's step, and the ranks agree before
+each attempt of a step on a preemption and on a failure (one all-reduce
+of two flags), so they save, retry and stop together; checkpoints are
+collective (``CheckpointManager(mesh=, shards=)``), the restore's step
+is rank 0's, rank 0 alone keeps the history, and each rank keeps its own
+straggler watchdog.
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ import torch
 
 from ..device import resolve_device, synchronize
 from ..models import (abstract_params, drop_cast, init_params,
-                      model_param_defs)
+                      model_param_defs, param_shardings)
 from ..models.common import ModelConfig
 from ..models.params import tree_map
-from ..parallel.mesh import Mesh, dp_axes
+from ..parallel.mesh import Mesh, holds_blocks
+from ..parallel.sharding import leaf_block
 from .checkpoint import CheckpointManager
 from .data import SyntheticLMData
 from .optimizer import abstract_opt_state, init_opt_state, moment_shards
@@ -100,29 +102,37 @@ class LoopConfig:
 
 
 def _moment_shards(cfg: ModelConfig, mesh: Optional[Mesh]):
-    return moment_shards(model_param_defs(cfg), mesh) if dp_axes(mesh) \
-        else None
+    return moment_shards(model_param_defs(cfg), mesh) \
+        if holds_blocks(mesh) else None
 
 
 def abstract_state(cfg: ModelConfig, mesh: Optional[Mesh] = None
                    ) -> Dict[str, Any]:
     """The train state of ``cfg`` as meta tensors (what
     :func:`make_initial_state` builds: parameters in their dtypes,
-    float32 moments, an int32 step; on a data-parallel ``mesh`` the
-    moments are this rank's ZeRO-1 blocks)."""
-    defs = model_param_defs(cfg)
-    return {"params": abstract_params(cfg),
-            "opt": abstract_opt_state(defs, _moment_shards(cfg, mesh))}
+    float32 moments, an int32 step); on a ``mesh`` with ranks the
+    parameters are this rank's blocks (``models.param_shardings``) and
+    the moments their ZeRO-1 blocks."""
+    return {"params": abstract_params(cfg, mesh if holds_blocks(mesh)
+                                      else None),
+            "opt": abstract_opt_state(model_param_defs(cfg),
+                                      _moment_shards(cfg, mesh))}
 
 
 def state_shards(cfg: ModelConfig, mesh: Optional[Mesh]):
-    """The train state's tree of ``optimizer.MomentShard`` (None for a
-    whole leaf) on ``mesh``: a checkpoint manager's ``shards``."""
-    sh = _moment_shards(cfg, mesh)
+    """The train state's tree of ``parallel.sharding.Block`` (None for a
+    whole leaf) on ``mesh``: each parameter's block under its spec, each
+    moment's ``optimizer.moment_shards`` block (the parameter's plus the
+    data piece); a checkpoint manager's ``shards``."""
     defs = model_param_defs(cfg)
-    none = tree_map(lambda d: None, defs)
-    return {"params": none,
-            "opt": {"mu": sh or none, "nu": sh or none, "step": None}}
+    if not holds_blocks(mesh):
+        none = tree_map(lambda d: None, defs)
+        return {"params": none,
+                "opt": {"mu": none, "nu": none, "step": None}}
+    moment = moment_shards(defs, mesh)
+    return {"params": tree_map(lambda d, sp: leaf_block(sp, mesh), defs,
+                               param_shardings(cfg, mesh)),
+            "opt": {"mu": moment, "nu": moment, "step": None}}
 
 
 class TrainLoop:
@@ -150,7 +160,7 @@ class TrainLoop:
         self.watchdog = StragglerWatchdog()
         self.history: List[Dict[str, float]] = []
         self._sigterm = False
-        self._ranks = bool(dp_axes(mesh))
+        self._ranks = holds_blocks(mesh)
 
     # -- agreement across ranks -----------------------------------------------
     def _agree(self, *flags: bool) -> List[bool]:
@@ -255,15 +265,17 @@ def make_initial_state(cfg: ModelConfig, seed: int = 0,
                        mesh: Optional[Mesh] = None):
     """A function building the initial train state on ``device``: the
     parameters drawn from a generator seeded ``seed`` (without the tied
-    embedding's cached cast, which training leaves out; the same on
-    every rank) and zero moments (on a data-parallel ``mesh`` this
-    rank's ZeRO-1 blocks)."""
+    embedding's cached cast, which training leaves out; the same weights
+    on every rank, each holding its blocks on a ``mesh`` with ranks:
+    ``init_params(..., specs=, mesh=)``) and zero moments (this rank's
+    ZeRO-1 blocks of them on a ``mesh`` with a data axis)."""
     dev = resolve_device(device)
     shards = _moment_shards(cfg, mesh)
+    specs = param_shardings(cfg, mesh) if holds_blocks(mesh) else None
 
     def init():
         g = torch.Generator(device=dev).manual_seed(seed)
-        params = drop_cast(init_params(cfg, g, dev))
+        params = drop_cast(init_params(cfg, g, dev, specs=specs, mesh=mesh))
         return {"params": params, "opt": init_opt_state(params, shards)}
 
     return init

@@ -16,7 +16,11 @@ optimizer state is partitioned across data-parallel replicas
 each moment's data dim (an all-reduce where a moment is replicated),
 all-reduces over ``pod``, whose ranks hold replicas as in the reference,
 clips by the global norm, updates its shard and all-gathers the
-parameters.
+parameters.  Under a ``model`` axis too, a parameter is this rank's
+model block (its spec's) and ZeRO-1 cuts that block again along the
+moment's data dim: the reduce-scatter and all-gather run over ``data``
+inside the rank's model shard, and the norm's squares of a
+model-sharded leaf are summed over ``model``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from ..models.model import drop_cast
 from ..models.params import tree_leaves, tree_map, tree_unflatten
 from ..parallel import collectives as coll
 from ..parallel import sharding as shd
-from ..parallel.mesh import DATA_AXIS, POD_AXIS, dp_axes, mesh_axis_sizes
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, POD_AXIS, dp_axes,
+                             mesh_axis_sizes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,58 +77,39 @@ def lr_at(step: Union[int, torch.Tensor], oc: OptConfig) -> torch.Tensor:
     return oc.lr * warm * frac
 
 
-@dataclasses.dataclass(frozen=True)
-class MomentShard:
-    """A rank's block of a moment: ``count`` equal blocks along ``dim``,
-    this rank's the ``index``-th (its ``data`` coordinate)."""
-    dim: int
-    index: int
-    count: int
-
-    def shape(self, full) -> Tuple[int, ...]:
-        out = list(full)
-        out[self.dim] //= self.count
-        return tuple(out)
-
-    def take(self, t: torch.Tensor) -> torch.Tensor:
-        k = t.shape[self.dim] // self.count
-        return t.narrow(self.dim, self.index * k, k)
-
-
 def moment_shards(param_defs, mesh):
     """A tree of ``param_defs``' structure: each moment's
-    :class:`MomentShard` on this rank of ``mesh`` (the dim
-    :func:`zero1_spec` gives ``data``), or None where the moment is
-    replicated (no dim the data axis divides, or no data axis)."""
-    sizes = mesh_axis_sizes(mesh)
-    n = sizes.get(DATA_AXIS, 1)
-    if n <= 1:
-        return tree_map(lambda d: None, param_defs)
-    index = mesh.coord(DATA_AXIS)
+    ``parallel.sharding.Block`` on this rank of ``mesh`` under its
+    :func:`zero1_spec` (the parameter's ``model`` pieces, then the
+    ``data`` piece), or None where the moment is whole on every rank.
+    The block's ``data`` piece (``Block.on``) cuts the rank's parameter
+    block: ``zero1_spec`` never puts ``data`` on a model-sharded dim, so
+    that dim's size is the whole leaf's; a ``model`` piece says the
+    parameter itself is this rank's block."""
+    return tree_map(lambda d: shd.leaf_block(zero1_spec(d, mesh), mesh),
+                    param_defs)
 
-    def one(d):
-        for dim, entry in enumerate(zero1_spec(d, mesh)):
-            if entry == DATA_AXIS:
-                return MomentShard(dim, index, n)
-            if entry is not None and DATA_AXIS in entry:
-                raise ValueError(f"{d}: data shares a dim with {entry}")
-        return None
 
-    return tree_map(one, param_defs)
+def _data_piece(blk):
+    """The ``data`` piece of a moment's block (None when it has none)."""
+    return None if blk is None else blk.on(DATA_AXIS)
 
 
 def init_opt_state(params, shards=None) -> Dict[str, Any]:
     """Zero float32 moments beside each parameter (the tied embedding's
-    cached cast is no parameter: ``models.drop_cast``), each this rank's
-    block under ``shards`` (:func:`moment_shards`; whole when None), and
-    the step counter (a 0-d int32 tensor), on the parameters' device."""
+    cached cast is no parameter: ``models.drop_cast``), each the ``data``
+    piece of its block under ``shards`` (:func:`moment_shards`; whole
+    when None) of the rank's parameter block, and the step counter (a
+    0-d int32 tensor), on the parameters' device."""
     params = drop_cast(params)
     leaves = tree_leaves(params)
     if shards is None:
         shards = tree_map(lambda x: None, params)
     zeros = lambda: tree_map(                                   # noqa: E731
-        lambda x, sh: torch.zeros(x.shape if sh is None else sh.shape(
-            x.shape), dtype=torch.float32, device=x.device), params, shards)
+        lambda x, sh: torch.zeros(
+            x.shape if _data_piece(sh) is None else _data_piece(sh).shape(
+                x.shape), dtype=torch.float32, device=x.device),
+        params, shards)
     return {"mu": zeros(), "nu": zeros(),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=leaves[0].device)}
@@ -199,18 +185,27 @@ def adamw_update_dp(params, grads, opt_state, oc: OptConfig, shards,
     squares, a sharded leaf's from its blocks, all-reduced over ``data``
     in one vector and added in leaf order (with one data rank, bit for
     bit :func:`global_norm`).  Each rank updates its blocks, and the
-    parameters are all-gathered along the moments' dims.  Returns
+    parameters are all-gathered along the moments' dims.  On a mesh with
+    a ``model`` group, a leaf whose block has a ``model`` piece is this
+    rank's model block: its squares are partial sums, added over
+    ``model`` with the vector; a leaf replicated over ``model`` counts
+    once.  ``shards`` None: every leaf whole.  Returns
     :func:`adamw_update`'s triple."""
     axes = dp_axes(mesh)
     data = DATA_AXIS in axes
     pod = POD_AXIS in axes
+    model = MODEL_AXIS in mesh.groups
     shards_n = 1
     for a in axes:
         shards_n *= mesh.sizes[a]
     lead = (mesh.coord(DATA_AXIS) == 0) if data else True
-    p_l, s_l = tree_leaves(params), tree_leaves(shards)
+    lead_m = (mesh.coord(MODEL_AXIS) == 0) if model else True
+    if shards is None:
+        shards = tree_map(lambda x: None, params)
+    blocks = tree_leaves(shards)
+    p_l, s_l = tree_leaves(params), [_data_piece(b) for b in blocks]
     reduced, sq = [], []
-    for g, sh in zip(tree_leaves(grads), s_l):
+    for g, sh, blk in zip(tree_leaves(grads), s_l, blocks):
         if data:
             g = (coll.all_reduce_(g.clone(), (DATA_AXIS,)) if sh is None
                  else coll.reduce_scatter_dim(g, sh.dim, DATA_AXIS))
@@ -219,10 +214,14 @@ def adamw_update_dp(params, grads, opt_state, oc: OptConfig, shards,
         g = g / shards_n
         reduced.append(g)
         s = torch.sum(torch.square(g.float()))
-        sq.append(s if sh is not None or lead else torch.zeros_like(s))
+        ms = blk is not None and blk.on(MODEL_AXIS) is not None
+        once = (sh is not None or lead) and (ms or lead_m)
+        sq.append(s if once else torch.zeros_like(s))
     sq = torch.stack(sq)
     if data:
         coll.all_reduce_(sq, (DATA_AXIS,))
+    if model:
+        coll.all_reduce_(sq, (MODEL_AXIS,))
     gnorm = torch.sqrt(sum(sq.unbind(0)))
     step = opt_state["step"] + 1
     upd, lr = _adamw_leaf(step, gnorm, oc)
@@ -281,7 +280,8 @@ def opt_state_shardings(param_defs, mesh,
 
 def abstract_opt_state(param_defs, shards=None):
     """The optimizer state as meta tensors (shapes and dtypes only), the
-    moments this rank's blocks under ``shards`` (whole when None)."""
+    moments this rank's blocks under ``shards`` (:func:`moment_shards`;
+    whole when None) of the whole leaves ``param_defs`` gives."""
     if shards is None:
         shards = tree_map(lambda d: None, param_defs)
     mom = lambda: tree_map(                                     # noqa: E731

@@ -26,6 +26,21 @@ moments sharded by ``zero1_spec``).  The reduce runs in the gradients'
 dtype, as GSPMD's all-reduce does: each leaf's own with ``grad_accum``
 1 (bf16 for a bf16 parameter), float32 when accumulated (the float32
 microbatch sum), bf16 for every leaf under ``compress_pod_grads``.
+
+Tensor parallelism (a mesh with a ``model`` group, alone or beside the
+batch axes) computes what the reference's GSPMD step computes under
+``launch/specs.py::train_specs`` shardings: every rank holds its blocks
+of the parameters under the DEFAULT rules (``models.param_shardings``:
+heads, kv_heads, d_ff, vocab and experts on ``model``) and runs the
+parent step's body on its local config (:func:`train_local_config`),
+whose forward crosses ranks only at the differentiable tp edges
+(``parallel.collectives.tp_copy`` / ``tp_reduce``, the logits'
+``all_gather_cols``): the same loss, nll, aux, gradient norm and
+update, up to the order of the row-parallel sums.  The ranks of one
+``model`` row take the same batch rows; ZeRO-1 cuts each rank's model
+block along ``data`` (optimizer.py), and the clip's norm sums a
+model-sharded leaf's squares over ``model``.  :func:`tp_wire_bytes`
+counts a step's ``model``-axis bytes by edge.
 """
 
 from __future__ import annotations
@@ -36,10 +51,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..models import drop_cast, loss_fn, model_param_defs
+from ..models import drop_cast, loss_fn, model_param_defs, param_shardings
 from ..models.common import ModelConfig
 from ..models.params import tree_leaves, tree_map, tree_unflatten
-from ..parallel.mesh import Mesh, dp_axes, use_mesh
+from ..models.transformer import check_supported, remat_mode
+from ..parallel import sharding as shd
+from ..parallel.mesh import MODEL_AXIS, Mesh, holds_blocks, use_mesh
 from .optimizer import (OptConfig, adamw_update, adamw_update_dp,
                         moment_shards)
 
@@ -117,17 +134,22 @@ def dp_wire_bytes(cfg: ModelConfig, sizes: Dict[str, int],
     squared norms (float32, one a leaf) over ``data``; and the loss's
     two float32 token sums, all-reduced forward and backward in every
     microbatch over each axis.  A dense model's whole step; a MoE layer
-    adds its dispatch's gathers.  Returns {"data", "pod", "pod_grads"
-    (the pod bytes of the gradients alone)}."""
+    adds its dispatch's gathers.  Under a ``model`` axis each leaf counts
+    its rank's model block.  Returns {"data", "pod", "pod_grads" (the
+    pod bytes of the gradients alone)}."""
     from ..models.params import torch_dtype
     from .optimizer import zero1_spec
     n, p = sizes.get("data", 1), sizes.get("pod", 1)
     rn, rp = (n - 1) / n, (p - 1) / p
-    defs = tree_leaves(model_param_defs(cfg))
+    all_defs = model_param_defs(cfg)
+    defs = tree_leaves(all_defs)
+    specs: list = []     # tree_leaves would walk into the spec tuples
+    tree_map(lambda d, sp: specs.append(sp), all_defs,
+             param_shardings(cfg, sizes))
     data = pod_grads = 0.0
-    for d in defs:
+    for d, sp in zip(defs, specs):
         numel = 1
-        for x in d.shape:
+        for x in shd.local_shape(d.shape, sp, sizes):
             numel *= x
         rdt = (torch.bfloat16 if tcfg.compress_pod_grads else
                torch.float32 if tcfg.grad_accum > 1 else torch_dtype(d.dtype))
@@ -146,29 +168,171 @@ def dp_wire_bytes(cfg: ModelConfig, sizes: Dict[str, int],
             "pod_grads": pod_grads}
 
 
+def tp_wire_bytes(cfg: ModelConfig, sizes: Dict[str, int], B: int, S: int,
+                  tcfg: TrainConfig = TrainConfig()) -> Dict[str, float]:
+    """The per-device ``model``-axis wire bytes of one train step of
+    ``cfg`` on a mesh of axis ``sizes`` (global batch ``B`` x ``S``), by
+    edge, under the ring model (``op_collectives.CollectiveOp``: an
+    all-reduce of p bytes puts 2 p (n-1)/n on the wire, an all-gather's
+    result of p bytes p (n-1)/n).  In every microbatch of a rank's
+    T = B / batch shards / grad_accum x S tokens (activations in the
+    model dtype):
+
+    * ``tp_reduce`` (forward): the vocab-sharded embedding's (T, D); per
+      layer the o-projection's (two for self + cross attention) and the
+      FFN's (a MoE layer's one, routed plus shared); under remat "full" /
+      "dots" the recompute of a checkpointed body (a segment's unit, an
+      encoder layer under "full") runs its reduces again, all but the
+      last: torch stops a recompute at the last tensor the backward
+      needs, and nothing after the last reduce saves one;
+    * ``tp_copy`` (backward): per attention layer the (T, D) input, a
+      cross-attention source that carries a gradient (whisper's encoder
+      output, not an image embedding), the two qk-norm scales (float32),
+      ``wk`` and ``wv`` where the KV heads are replicated and sliced; per
+      MLA layer ``c_q`` (x without a q latent), ``c_kv`` and ``k_rope``;
+      per FFN its input, a MoE layer's float32 gates (T, k) as well; the
+      logits' input;
+    * ``tp_gather`` (forward): the logits' (T, V);
+    * ``norm``: the clip's float32 vector of squares, one a leaf, once a
+      step.
+
+    A vocabulary the axis does not divide stays whole (no embedding,
+    logits or gather edge).  ``model`` is the sum.  All zeros without a
+    ``model`` axis."""
+    from ..models.params import torch_dtype
+    from ..parallel.mesh import batch_shards
+    n = sizes.get(MODEL_AXIS, 1)
+    out = dict.fromkeys(("tp_copy", "tp_reduce", "tp_gather", "norm"), 0.0)
+    if n <= 1:
+        return {"model": 0.0, **out}
+    ring = (n - 1) / n
+    isz = torch_dtype(cfg.dtype).itemsize
+    T = B // batch_shards(sizes) // tcfg.grad_accum * S
+    D = cfg.d_model
+
+    def ar(elems: float, size: int = isz) -> float:
+        return 2.0 * elems * size * ring
+
+    act = ar(T * D)
+    copy = red = 0.0
+    if cfg.vocab_size % n == 0:
+        red += act                                     # the embedding
+        copy += act                                    # the logits' input
+        out["tp_gather"] = T * cfg.vocab_size * isz * ring * tcfg.grad_accum
+
+    def attn(cross: bool) -> float:
+        c = act
+        if cross and cfg.is_encoder_decoder:           # the encoder output
+            c += ar(B // batch_shards(sizes) // tcfg.grad_accum
+                    * cfg.n_audio_frames * D)
+        if cfg.qk_norm:
+            c += 2 * ar(cfg.hd, 4)
+        if cfg.n_kv_heads % n:
+            c += 2 * ar(D * cfg.n_kv_heads * cfg.hd)
+        return c
+
+    def block(b) -> Tuple[float, int]:
+        """(tp_copy bytes, forward reduces) of one block."""
+        c, k = 0.0, 1
+        if b.mixer in ("attn", "cross_attn"):
+            c += attn(b.mixer == "cross_attn")
+        elif b.mixer == "attn+cross":
+            c += attn(False) + attn(True)
+            k = 2
+        elif b.mixer == "mla":
+            q = cfg.q_lora_rank or D
+            c += ar(T * (q + cfg.kv_lora_rank + cfg.rope_head_dim))
+        if b.ffn != "none":
+            c += act + (ar(T * cfg.moe_top_k, 4) if b.ffn == "moe" else 0)
+            k += 1
+        return c, k
+
+    mode = remat_mode(cfg)
+    for unit, reps in cfg.segments():
+        edges = [block(b) for b in unit]
+        k = sum(e[1] for e in edges)
+        copy += reps * sum(e[0] for e in edges)
+        red += reps * (k + (k - 1 if mode != "none" else 0)) * act
+    if cfg.is_encoder_decoder:
+        te = ar(B // batch_shards(sizes) // tcfg.grad_accum
+                * cfg.n_audio_frames * D)
+        copy += cfg.n_encoder_layers * 2 * te
+        red += cfg.n_encoder_layers * (2 + (mode == "full")) * te
+    out["tp_copy"] = copy * tcfg.grad_accum
+    out["tp_reduce"] = red * tcfg.grad_accum
+    out["norm"] = ar(len(tree_leaves(model_param_defs(cfg))), 4)
+    return {"model": sum(out.values()), **out}
+
+
+def tp_size(mesh: Optional[Mesh]) -> int:
+    """The width of ``mesh``'s ``model`` axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.sizes.get(MODEL_AXIS, 1)
+
+
+def train_tp_error(cfg: ModelConfig, tp: int) -> Optional[str]:
+    """Why a train step of ``cfg`` cannot split its widths ``tp`` ways
+    (None when it can): the shared gates (``parallel.sharding.
+    tp_width_error``, KV heads replicated and sliced where they do not
+    divide), and a MoE layer's: its experts or their ``d_ff``, and the
+    shared experts' ``d_ff``, must divide, or its output would not be
+    one partial sum.  Recurrent mixers: ``check_supported``."""
+    if tp <= 1:
+        return None
+    if any(b.ffn == "moe" for b in cfg.block_pattern):
+        if cfg.n_experts % tp and cfg.moe_d_ff % tp:
+            return (f"{cfg.name}: neither n_experts {cfg.n_experts} nor "
+                    f"moe_d_ff {cfg.moe_d_ff} divisible by model={tp}")
+        if (cfg.moe_d_ff * cfg.n_shared_experts) % tp:
+            return (f"{cfg.name}: the shared experts' d_ff "
+                    f"{cfg.moe_d_ff * cfg.n_shared_experts} not divisible "
+                    f"by model={tp}")
+    return shd.tp_width_error(cfg, tp, kv_slice=True)
+
+
+def train_local_config(cfg: ModelConfig, mesh: Optional[Mesh]
+                       ) -> ModelConfig:
+    """The config a rank's train step runs on ``mesh``: ``cfg`` itself
+    without a ``model`` axis, else ``parallel.sharding.tp_local_config``
+    (serving's, with the KV heads sliced where the rules replicate them),
+    behind ``check_supported(cfg, train_tp=)`` and
+    :func:`train_tp_error`."""
+    tp = tp_size(mesh)
+    if tp <= 1:
+        return cfg
+    check_supported(cfg, train_tp=tp)
+    err = train_tp_error(cfg, tp)
+    if err:
+        raise NotImplementedError(err)
+    return shd.tp_local_config(cfg, tp, cfg.tp_overlap, kv_slice=True)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig(),
                     mesh: Optional[Mesh] = None) -> Callable:
     """``(state, batch) -> (state, metrics)``.  With ``mesh`` (every rank
     of it calls the step together) the batch is this rank's rows, the
-    state's moments its ZeRO-1 blocks (``loop.make_initial_state(...,
-    mesh=)``), and the step is the data-parallel one of the module
-    docstring; the mesh is made active process-wide while the step runs,
-    since its backward runs on the autograd engine's threads."""
-    axes = dp_axes(mesh)
-    shards = moment_shards(model_param_defs(cfg), mesh) if axes else None
+    state its parameter blocks and their moments' ZeRO-1 blocks
+    (``loop.make_initial_state(..., mesh=)``), and the step is the data-
+    and tensor-parallel one of the module docstring on
+    :func:`train_local_config`; the mesh is made active process-wide
+    while the step runs, since its backward, and the recompute of its
+    checkpointed layers, run on the autograd engine's threads."""
+    step_cfg = train_local_config(cfg, mesh)
+    ranks = holds_blocks(mesh)
+    shards = moment_shards(model_param_defs(cfg), mesh) if ranks else None
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params, opt_state = drop_cast(state["params"]), state["opt"]
-        with (use_mesh(mesh, process_wide=True) if axes
+        with (use_mesh(mesh, process_wide=True) if ranks
               else contextlib.nullcontext()):
             if tcfg.grad_accum > 1:
                 loss, grads, metrics = _grad_microbatched(
-                    params, batch, cfg, tcfg.grad_accum)
+                    params, batch, step_cfg, tcfg.grad_accum)
             else:
-                loss, metrics, grads = value_and_grad(params, batch, cfg)
+                loss, metrics, grads = value_and_grad(params, batch,
+                                                      step_cfg)
             if tcfg.compress_pod_grads:
                 grads = compress_bf16(grads)
-            if axes:
+            if ranks:
                 new_params, new_opt, opt_metrics = adamw_update_dp(
                     params, grads, opt_state, tcfg.opt, shards, mesh)
             else:
