@@ -2,7 +2,12 @@
 
     python3 chip_smoke.py            # one NVIDIA H100, from a repo checkout
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero.  Work that launches none
+of the kernels runs beside other work where the card's memory holds
+both: the training phase (o.) while nvcc builds, the dry run's two walks
+(r., CPU only) from the start, [train-tp]'s (2, 2) ranks beside
+[train-dp]'s launch/train.py run, and each NCCL world of one beside its
+phase's gloo ranks.
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
@@ -175,7 +180,8 @@ Phases, in order; any failure exits non-zero:
    attributed to the ``moe_experts`` scope; speculative qwen3-14b's
    verify step's measured intensity above 2.5 times the decode step's;
    k. the recurrent and hybrid mixers (``[recurrent]`` lines):
-   full-width xlstm-350m (24 layers: 21 mLSTM, 3 sLSTM) and
+   xlstm-350m at its published widths cut to XLSTM_LAYERS (one period:
+   7 mLSTM, 1 sLSTM) and
    jamba-v0.1-52b at its published widths cut to JAMBA_LAYERS (one
    period: 1 GQA layer, 7 mamba, 4 MoE FFNs of 16 experts), each served
    as in a (every request finishes, ``paged_attention`` once per
@@ -258,12 +264,14 @@ Phases, in order; any failure exits non-zero:
    layers x that replica's steps; the migration wall a request, the
    router's tok/s beside one engine's, the TTFT split and peak memory
    printed;
-   o. training (``[train]`` lines, train/ and launch/train.py): qwen3-0.6b
-   whole through ``launch/train.py``'s ``main`` (bf16 weights, float32
-   AdamW moments, remat full, B 4 x S 2048, 8 cosine steps at lr 3e-4):
-   its pre-flight report (the op walk of the step on fake tensors: W
-   against the model FLOPs, the bound on the data sheet and on the
-   measured roofs beside the measured step), the loss at every step
+   o. training (``[train]`` lines, train/ and launch/train.py; run
+   while nvcc builds, its step against the measured roofs printed after
+   the primitive study): qwen3-0.6b whole through ``launch/train.py``'s
+   ``main`` (bf16 weights, float32 AdamW moments, remat full, B 4 x S
+   2048, 8 cosine steps at lr 3e-4): its pre-flight report (the op
+   walk of the step on fake tensors: W against the model FLOPs, the
+   bound on the data sheet and on the measured roofs beside the
+   measured step), the loss at every step
    (it must fall), the median step of steps 3-8, tokens/s, the model
    FLOPs' share of the measured bf16 matmul roof and peak memory; the
    whole state's checkpoint (bytes, save_async's snapshot and write,
@@ -279,15 +287,17 @@ Phases, in order; any failure exits non-zero:
    (``deepseek_dispatch_check``); the training
    path launches none of the 14 kernels (every wrapper's count unchanged);
    p. data-parallel training (``[train-dp]`` lines): launch/train.py
-   --data 2 on two gloo ranks, the restore at data 1, qwen3-0.6b and
-   deepseek-v2 held against one rank, the NCCL world of one;
+   --data 2 on two gloo ranks, the restore at data 1, qwen3-0.6b (its
+   widths at GLOO_LAYERS layers) and deepseek-v2 held against one rank,
+   the NCCL world of one;
    q. tensor-parallel training (``[train-tp]`` lines, train/step.py on a
-   ``model`` axis): gloo ranks on this card; qwen3-0.6b whole at (data
-   1, model 2), bf16, remat full, B 4 x S 1024, 3 steps, step 1 against
-   one rank on the same rows and weights (loss within tp_loss_bar, grad
-   norm within TP_GNORM_RTOL, every gradient leaf gathered whole within
-   TP_GRAD_RTOL, parameters within one bf16 ulp + TP_PARAM_LR lr and,
-   beyond one ulp + lr x 2^-7, only where the gradients' signs differ,
+   ``model`` axis): gloo ranks on this card; qwen3-0.6b (its widths at
+   GLOO_LAYERS layers) at (data 1, model 2), bf16, remat full, B 4 x S
+   1024, 3 steps, step 1 against one rank on the same rows and weights
+   (loss within tp_loss_bar, grad norm within TP_GNORM_RTOL, every
+   gradient leaf gathered whole within TP_GRAD_RTOL, parameters within
+   one bf16 ulp + TP_PARAM_LR lr and, beyond one ulp + lr x 2^-7, only
+   where the gradients' signs differ,
    derived beside the constants), replicated leaves bit-equal on both
    ranks, moments, peak, step and gloo edge ms per rank, the checkpoint
    of step 2 restored at (1, 1) bit for bit and stepped (step 3's loss
@@ -301,6 +311,20 @@ Phases, in order; any failure exits non-zero:
    TP_MOE_RTOL); every rank's pre-flight walk, its ``model`` bytes equal
    to ``train.step.tp_wire_bytes`` and its ``data`` bytes to
    ``dp_wire_bytes``; no ported kernel launched;
+   r. the production-mesh dry run (``[dryrun]`` lines,
+   launch/dryrun.py): one rank of qwen3-14b/train_4k on the 16 x 16 mesh
+   (40 heads over 16: context-parallel attention at full width) and of
+   deepseek-v2-236b/prefill_32k on 2 x 16 x 16 walked on fake tensors
+   over a fake process group, their terms, walk seconds, collective
+   bytes by axis and MODEL_FLOPS over W; both archives re-priced
+   (launch/reanalyze.py) on the data sheet (equal to the walk's own
+   numbers) and on the measured roofs (the walks run in a process of
+   their own on one CPU thread from the script's start); then context
+   parallelism for real: minicpm-2b at 2 layers on (data 1, model 5), 36
+   heads over 5, five gloo ranks on this card, bf16, step 1 against one
+   rank (loss within tp_loss_bar, grad norm within TP_GNORM_RTOL),
+   replicated leaves bit-equal on every rank, the step's walked ``model`` bytes
+   equal to ``train.step.tp_wire_bytes``, no ported kernel launched;
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
@@ -3650,16 +3674,19 @@ def prefill_graph_lines(torch, np, card, cfg, params, betas, *, max_len: int,
 
 
 # --------------------------------------------------------------------------
-# Recurrent and hybrid mixers: xlstm-350m whole, jamba-v0.1-52b at its
-# published widths cut to one 8-layer period (1 GQA layer, 7 mamba, 4 MoE
-# FFNs of 16 experts top-2, 4 dense)
+# Recurrent and hybrid mixers: xlstm-350m and jamba-v0.1-52b at their
+# published widths, each cut to one 8-layer period (xlstm: 7 mLSTM, 1
+# sLSTM; jamba: 1 GQA layer, 7 mamba, 4 MoE FFNs of 16 experts top-2, 4
+# dense).  One period keeps every mixer kind of each; xlstm's 24 layers
+# whole took ~60 s of the script's 1200 s limit
 # --------------------------------------------------------------------------
 
+XLSTM_LAYERS = 8
 JAMBA_LAYERS = 8
 # jamba's attention layer: 32 query heads over 8 KV heads (G 4), hd 128
 JAMBA_G = 4
 # a greedy token's gap under the top logit of a forward_full over the
-# same tokens: bf16 activations through 24 layers, whole-sequence cells
+# same tokens: bf16 activations through 8 layers, whole-sequence cells
 # and S-row GEMMs against step-by-step cells and 4-row GEMMs, as
 # LOGITS_ATOL bounds qwen3-0.6b's decode logits
 XL_GAP_ATOL = LOGITS_ATOL
@@ -4597,6 +4624,9 @@ def tp_phase(torch, np, card) -> dict:
     torch.cuda.empty_cache()
     print(f"[tp] unsharded references freed: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    # the NCCL world of one (one small process) runs beside the ranks
+    nccl = beside(spawn, nccl_world_one, 1, backend="nccl", device="cuda",
+                  timeout=300)
     try:
         ranks = spawn(tp_rank, TP, backend="gloo", device="cuda",
                       timeout=900)
@@ -4679,8 +4709,7 @@ def tp_phase(torch, np, card) -> dict:
                   f"(shards {ranks[0][f'{key} params_gb']:.2f} GB) vs "
                   f"unsharded {ref['peak_gb']:.2f} GB")
     try:
-        one = spawn(nccl_world_one, 1, backend="nccl", device="cuda",
-                    timeout=300)
+        one = nccl.result()
     except RuntimeError as e:
         fail(f"[tp] NCCL world of one failed: {e}")
     if one["captured"] != ["all-gather", "all-reduce"]:
@@ -5052,11 +5081,12 @@ def leaves_equal(torch, a, b) -> bool:
         x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
 
 
-def train_qwen(torch, np, card, roof, tmp: str) -> dict:
+def train_qwen(torch, np, card, tmp: str) -> dict:
     """Part 1: qwen3-0.6b whole through ``launch/train.py``'s ``main``
     (its pre-flight report, then TrainLoop), and the whole state's
     checkpoint: its bytes, the restore (bit for bit) and the save, timed.
-    Returns the config and the run's final state."""
+    Returns the config, the run's final state and the step's numbers
+    that :func:`train_roof_line` holds against the measured roofs."""
     import os
     import shutil
     from repro_torch.configs import get_config
@@ -5085,10 +5115,8 @@ def train_qwen(torch, np, card, roof, tmp: str) -> dict:
         fail(f"qwen3-0.6b training loss did not fall: {losses}")
     step_s = float(np.median([h["dt"] for h in hist[2:]]))
     mf = model_flops(cfg, TRAIN_S, TRAIN_B, "train")
-    bf16 = roof.matmul_flops["bfloat16"]
     rep = res["report"]
     w, q = rep.character.flops_dev, rep.character.hbm_bytes_dev
-    bound_meas = max(w / bf16, q / roof.peak_bw)
     print(f"[train] qwen3-0.6b whole ({cfg.n_layers} layers, bf16 weights, "
           f"float32 moments, remat {cfg.remat}), B {TRAIN_B} x S {TRAIN_S}, "
           f"{TRAIN_STEPS} steps, cosine lr {TRAIN_LR}: loss by step "
@@ -5098,17 +5126,16 @@ def train_qwen(torch, np, card, roof, tmp: str) -> dict:
           f"{step_s * 1e3:.2f} ms (steps 1-2: {hist[0]['dt'] * 1e3:.1f}, "
           f"{hist[1]['dt'] * 1e3:.1f} ms), "
           f"{TRAIN_B * TRAIN_S / step_s:.0f} tokens/s; model FLOPs "
-          f"{mf:.4e} a step = {mf / step_s / 1e12:.1f} TFLOP/s, "
-          f"{100 * mf / step_s / bf16:.2f}% of the measured bf16 matmul "
-          f"roof ({bf16 / 1e12:.1f} TFLOP/s); peak memory {peak / 1e9:.2f} "
-          f"GB; launch/train.py wall {wall:.1f} s (pre-flight walk "
-          f"{rep.walk_seconds:.1f} s and the final checkpoint included)")
+          f"{mf:.4e} a step = {mf / step_s / 1e12:.1f} TFLOP/s; peak "
+          f"memory {peak / 1e9:.2f} GB; launch/train.py wall {wall:.1f} s "
+          f"(pre-flight walk {rep.walk_seconds:.1f} s and the final "
+          f"checkpoint included; the kernels' nvcc builds run beside it)")
     print(f"[train] pre-flight walk of the step (fake tensors): W "
           f"{w:.4e} FLOPs = {w / mf:.3f} x model FLOPs, Q {q / 1e9:.2f} GB; "
           f"bound {rep.terms.t_lower * 1e3:.2f} ms on the data sheet "
-          f"({rep.terms.bound_class()}), {bound_meas * 1e3:.2f} ms on the "
-          f"measured roofs, against the measured step {step_s * 1e3:.2f} ms "
-          f"({100 * bound_meas / step_s:.1f}% of it)")
+          f"({rep.terms.bound_class()}), against the measured step "
+          f"{step_s * 1e3:.2f} ms "
+          f"({100 * rep.terms.t_lower / step_s:.1f}% of it)")
     state = res["out"]["state"]
     mgr = CheckpointManager(os.path.join(tmp, cfg.name))
     path = os.path.join(mgr.step_dir(TRAIN_STEPS), "arrays.npz")
@@ -5135,7 +5162,22 @@ def train_qwen(torch, np, card, roof, tmp: str) -> dict:
           f"host snapshot + {t_save - t_snap:.2f} s written in the "
           f"background; restore to the card {t_restore:.2f} s, equal to "
           f"the state bit for bit (warm page cache)")
-    return {"cfg": cfg, "state": state}
+    return {"cfg": cfg, "state": state,
+            "step": {"step_s": step_s, "mf": mf, "w": w, "q": q}}
+
+
+def train_roof_line(card, roof, step: dict) -> None:
+    """The [train] step against the measured roofs (the primitive study's,
+    measured after the phase ran): the model FLOPs' share of the bf16
+    matmul roof, and the pre-flight walk's bound on these roofs."""
+    bf16 = roof.matmul_flops["bfloat16"]
+    step_s, mf, w, q = (step[k] for k in ("step_s", "mf", "w", "q"))
+    bound_meas = max(w / bf16, q / roof.peak_bw)
+    print(f"[train] qwen3-0.6b step {step_s * 1e3:.2f} ms on the measured "
+          f"roofs ({card}): model FLOPs {100 * mf / step_s / bf16:.2f}% of "
+          f"the bf16 matmul roof ({bf16 / 1e12:.1f} TFLOP/s); the pre-flight "
+          f"walk's bound {bound_meas * 1e3:.2f} ms, "
+          f"{100 * bound_meas / step_s:.1f}% of the step")
 
 
 def accumulation_check(torch, cfg, state) -> None:
@@ -5304,20 +5346,22 @@ def deepseek_dispatch_check(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(torch, np, card, roof) -> None:
+def train_phase(torch, np, card) -> dict:
     """The [train] phase: qwen3-0.6b whole through launch/train.py, its
     checkpoint, gradient accumulation, the bitwise resume, and
     deepseek-v2's local dispatch.  The training path runs no ported
     kernel (the reference's training runs no Pallas kernel): every
-    wrapper's launch count must stay as it was."""
+    wrapper's launch count must stay as it was, and so :func:`main` runs
+    the phase while nvcc builds the kernels.  Returns the qwen3-0.6b
+    step's numbers for :func:`train_roof_line`."""
     import signal
     import tempfile
     before = kernel_launch_counts()
     prev = signal.getsignal(signal.SIGTERM)   # TrainLoop installs its own
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-            run = train_qwen(torch, np, card, roof, tmp)
-            cfg = run["cfg"]
+            run = train_qwen(torch, np, card, tmp)
+            cfg, step = run["cfg"], run["step"]
             accumulation_check(torch, cfg, run["state"])
             del run
             gc.collect()
@@ -5335,14 +5379,31 @@ def train_phase(torch, np, card, roof) -> None:
              f"({len(after)} wrappers counted)")
     print(f"[train] the training path launched none of the ported kernels "
           f"({len(after)} wrappers' launch counts unchanged)")
+    return step
 
 
 # --------------------------------------------------------------------------
 # p. data-parallel training ([train-dp] lines): two ranks on the one card
 # --------------------------------------------------------------------------
 
-# qwen3-0.6b whole at data 2 through launch/train.py: the [train] batch
-# of 4 x 2048 as 2 rows a rank, 3 steps, a checkpoint at step 2
+# The gloo phases ([train-dp], [train-tp]) run qwen3-0.6b at its full
+# widths cut to GLOO_LAYERS layers: two to four processes time-slice the
+# one card and reduce through host memory, so depth buys no check there
+# (the [train] phase trains it whole) and costs the script's time limit
+GLOO_LAYERS = 4
+
+
+def gloo_qwen():
+    """qwen3-0.6b at full width, GLOO_LAYERS deep: the gloo phases'
+    dense model."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-0.6b"),
+                               n_layers=GLOO_LAYERS)
+
+
+# qwen3-0.6b (GLOO_LAYERS layers) at data 2 through launch/train.py: the
+# [train] batch of 4 x 2048 as 2 rows a rank, 3 steps, a checkpoint at
+# step 2
 DP_STEPS, DP_CKPT = 3, 2
 # a parameter after one step, data 2 against one rank at grad_accum 2 on
 # the same rows: one bf16 ulp of it plus lr x DP_LR_SHARE.  The ranks'
@@ -5354,7 +5415,7 @@ DP_STEPS, DP_CKPT = 3, 2
 # change of g and of s, and the float32 results may round to adjacent
 # bf16 values: one ulp (dp_dense_check's docstring has the steps)
 DP_LR_SHARE = 2.0 ** -7
-# the NCCL world of one: qwen3-0.6b whole at B 2 x S 512
+# the NCCL world of one: qwen3-0.6b (GLOO_LAYERS layers) at B 2 x S 512
 DP_NCCL_B, DP_NCCL_S = 2, 512
 
 
@@ -5386,11 +5447,11 @@ def dp_objects(obj, world: int) -> list:
 
 
 def dp_dense_check(torch, rank: int, world: int, mesh, dev) -> dict:
-    """qwen3-0.6b whole, data 2 on this rank's 2 rows of the [train]
-    batch, 2 steps under deterministic algorithms: the parameters' digests
-    equal on both ranks after every step, the second step's collectives
-    timed; rank 0 then runs one rank at grad_accum 2 on the whole batch
-    from the same initial state.
+    """qwen3-0.6b (GLOO_LAYERS layers), data 2 on this rank's 2 rows of
+    the [train] batch, 2 steps under deterministic algorithms: the
+    parameters' digests equal on both ranks after every step, the second
+    step's collectives timed; rank 0 then runs one rank at grad_accum 2 on
+    the whole batch from the same initial state.
 
     Tolerance of a parameter after step 1.  Under deterministic algorithms
     a rank's forward and backward over its 2 rows are the one rank's
@@ -5404,14 +5465,13 @@ def dp_dense_check(torch, rank: int, world: int, mesh, dev) -> dict:
     decay), which a relative change e of g s moves by at most lr e: below
     lr x 2^-7 for both.  The float32 results may then round to adjacent
     bf16 values: one ulp of the parameter plus lr x DP_LR_SHARE."""
-    from repro_torch.configs import get_config
     from repro_torch.core.roofline.op_collectives import (CollectiveWalk,
                                                           summarize)
     from repro_torch.models.params import tree_paths
     from repro_torch.parallel.mesh import batch_shard
     from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
                                    make_initial_state, make_train_step)
-    cfg = get_config("qwen3-0.6b")
+    cfg = gloo_qwen()
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=DP_STEPS)
     step = make_train_step(cfg, TrainConfig(opt=opt), mesh)
     data = SyntheticLMData(cfg, TRAIN_B, TRAIN_S, device=dev,
@@ -5568,11 +5628,11 @@ def train_dp_rank(rank: int, world: int) -> dict:
 def dp_nccl_one(rank: int, world: int) -> dict:
     """The data-parallel step on an NCCL world of one (the ``data`` axis a
     group of one, so every reduce is issued) against the undistributed
-    step: qwen3-0.6b whole, one step from the same state and batch under
+    step: qwen3-0.6b (GLOO_LAYERS layers), one step from the same state
+    and batch under
     deterministic algorithms."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.core.roofline.op_collectives import CollectiveWalk
     from repro_torch.parallel.mesh import Mesh
     from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
@@ -5580,7 +5640,7 @@ def dp_nccl_one(rank: int, world: int) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = Mesh(("data", "model"), (1, 1), 0, {"data": dist.group.WORLD},
                 dist.get_backend())
-    cfg = get_config("qwen3-0.6b")
+    cfg = gloo_qwen()
     tc = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=0,
                                    total_steps=DP_STEPS))
     batch = SyntheticLMData(cfg, DP_NCCL_B, DP_NCCL_S,
@@ -5608,19 +5668,19 @@ def dp_cli_run(torch, np, card, tmp: str) -> dict:
     grad_accum 2: the ranks' rows a microbatch each) gives the data-2
     run's loss at that step bit for bit."""
     import os
-    from repro_torch.configs import get_config
     from repro_torch.launch import train as train_cli
     from repro_torch.models.params import tree_paths
     from repro_torch.train import (CheckpointManager, OptConfig,
                                    SyntheticLMData, TrainConfig,
                                    make_train_step)
     from repro_torch.train.loop import abstract_state
-    cfg = get_config("qwen3-0.6b")
+    cfg = gloo_qwen()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
         out = train_cli.main([
-            "--arch", cfg.name, "--data", "2", "--steps", str(DP_STEPS),
+            "--arch", cfg.name, "--layers", str(GLOO_LAYERS), "--data", "2",
+            "--steps", str(DP_STEPS),
             "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--lr",
             str(TRAIN_LR), "--ckpt-dir", tmp, "--ckpt-every",
             str(DP_CKPT)])
@@ -5639,7 +5699,8 @@ def dp_cli_run(torch, np, card, tmp: str) -> dict:
         fail(f"[train-dp] moments a rank {mb} B, want half of "
              f"{one_moments} B")
     by_axis = out["collectives"]
-    print(f"[train-dp] launch/train.py --data 2, qwen3-0.6b whole (bf16, "
+    print(f"[train-dp] launch/train.py --data 2, qwen3-0.6b at "
+          f"{cfg.n_layers} layers (full width, bf16, "
           f"remat full), global B {TRAIN_B} x S {TRAIN_S} as {TRAIN_B // 2}"
           f" rows a rank, {DP_STEPS} steps, two gloo ranks on one card "
           f"({card}): loss by step "
@@ -5690,10 +5751,14 @@ def dp_cli_run(torch, np, card, tmp: str) -> dict:
     return out
 
 
-def train_dp_phase(torch, np, card) -> None:
+def train_dp_phase(torch, np, card, four) -> None:
     """The [train-dp] phase: launch/train.py --data 2, the restore at data
-    1, the dense and MoE holds on two gloo ranks, the NCCL world of one.
-    No ported kernel launches here or in a rank."""
+    1, the dense and MoE holds on two gloo ranks, the NCCL world of one
+    beside them.  ``four``, [train-tp]'s (data 2, model 2) ranks started
+    beside the launch/train.py run, is waited for before the holds' ranks
+    start (the card's memory holds the two, not three).  No ported kernel
+    launches here or in a rank."""
+    import concurrent.futures
     import signal
     import tempfile
     from repro_torch.parallel.mesh import spawn
@@ -5705,6 +5770,10 @@ def train_dp_phase(torch, np, card) -> None:
     finally:
         signal.signal(signal.SIGTERM, prev)
     torch.cuda.empty_cache()
+    concurrent.futures.wait([four])
+    # the NCCL world of one (one small process) runs beside the ranks
+    nccl = beside(spawn, dp_nccl_one, 1, backend="nccl", device="cuda",
+                  timeout=600)
     try:
         ranks = spawn(train_dp_rank, 2, backend="gloo", device="cuda",
                       timeout=900)
@@ -5778,8 +5847,7 @@ def train_dp_phase(torch, np, card) -> None:
     if max(rel.values()) > ACCUM_LOSS_RTOL:
         fail("[train-dp] deepseek-v2: loss or aux off the one-rank run's")
     try:
-        nccl = spawn(dp_nccl_one, 1, backend="nccl", device="cuda",
-                     timeout=600)
+        nccl = nccl.result()
     except RuntimeError as e:
         fail(f"[train-dp] NCCL world of one failed: {e}")
     if not nccl["equal"] or nccl["sizes"] != [1] or nccl["axes"] != [
@@ -5805,18 +5873,20 @@ def train_dp_phase(torch, np, card) -> None:
 # q. tensor-parallel training ([train-tp] lines): gloo ranks on the one card
 # --------------------------------------------------------------------------
 
-# qwen3-0.6b whole at (data 1, model 2): B 4 x S 1024, 3 steps, the
-# checkpoint of step 2
+# qwen3-0.6b (GLOO_LAYERS layers) at (data 1, model 2): B 4 x S 1024, 3
+# steps, the checkpoint of step 2
 TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS, TP_TRAIN_CKPT = 4, 1024, 3, 2
-# qwen3-0.6b at (data 2, model 2): B 4 x S 512, 2 steps
+# qwen3-0.6b (GLOO_LAYERS layers) at (data 2, model 2): B 4 x S 512, 2
+# steps
 TP22_B, TP22_S, TP22_STEPS = 4, 512, 2
 # The loss, model 2 against one rank on the same rows and weights.  The
 # forward differs at the row-parallel edges only (the embedding's sum adds
 # zeros, exact): each rounds the two ranks' bf16 partial products before
 # their sum and the sum once more, where one card rounds the whole
 # product once: TP_LOGITS_ATOL's derivation, ~0.41 x 2^-8 of the value an
-# edge, a random walk over the edges.  qwen3-0.6b has 56 (2 a layer),
-# fewer than the 80 that bar was derived for: the final hidden state's
+# edge, a random walk over the edges.  qwen3-0.6b has 2 a layer (56
+# whole, 8 at GLOO_LAYERS), fewer than the 80 that bar was derived for:
+# the final hidden state's
 # logits move by less than TP_LOGITS_ATOL.  A token's NLL, lse(z) - z_y,
 # moves by at most a = 2 x TP_LOGITS_ATOL, and its move is a sum of
 # round-to-nearest errors, zero in mean (lse's curvature adds a bias of
@@ -5829,16 +5899,18 @@ TP22_B, TP22_S, TP22_STEPS = 4, 512, 2
 # updates, the logits no longer near uniform) takes the same bar.
 TP_LOSS_P = 1e-6
 # The global gradient norm: the backward's tp_copy sums add as many bf16
-# roundings again, summed over 6e8 squares: the relative bar the [train]
-# phase takes for bf16 gradients summed in another order (ACCUM_GNORM_RTOL)
+# roundings again, summed over 2e8 squares or more: the relative bar the
+# [train] phase takes for bf16 gradients summed in another order
+# (ACCUM_GNORM_RTOL)
 TP_GNORM_RTOL = ACCUM_GNORM_RTOL
 # Each gradient leaf, model 2 gathered whole against one rank's (step 1's
 # state and rows): |g_tp - g_one| / |g_one| (Frobenius).  A leaf's
 # gradient sums products of forward activations and backward cotangents,
 # each carrying the edges' roundings between it and the ends of the
-# network: at most the 56 forward reduces and the 56 backward copies at
-# ~0.41 x 2^-8 each, a random walk of sqrt(112) x 0.41 x 2^-8 = 2^-5.9
-# relative, element by element, and so for the leaf's norm.  The bar is
+# network: at most the 56 forward reduces and the 56 backward copies of
+# the whole model (8 and 8 at GLOO_LAYERS) at ~0.41 x 2^-8 each, a random
+# walk of at most sqrt(112) x 0.41 x 2^-8 = 2^-5.9 relative, element by
+# element, and so for the leaf's norm.  The bar is
 # four times that, 2^-4: the walk's steps are not independent (a layer's
 # error feeds the next) and the nonlinearities' gains (softmax, SiLU,
 # the norms) reach 2.  A missing tp_copy leaves a partial gradient, a
@@ -5980,7 +6052,8 @@ def tp_pairs(np, c_tp: dict, c_one: dict) -> tuple:
 
 
 def tp_qwen12(torch, rank: int, world: int, mesh, dev, tmp: str) -> dict:
-    """qwen3-0.6b whole at (data 1, model 2), bf16, remat full, under
+    """qwen3-0.6b (GLOO_LAYERS layers) at (data 1, model 2), bf16, remat
+    full, under
     deterministic algorithms: step 1's gradients (gathered whole), step 1
     (the whole parameters kept), step 2 timed with its collectives, the
     checkpoint of step 2 (collective, rank 0 writes), step 3; this rank's
@@ -5989,7 +6062,6 @@ def tp_qwen12(torch, rank: int, world: int, mesh, dev, tmp: str) -> dict:
     and stepped."""
     import os
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.core.roofline.op_collectives import (CollectiveWalk,
                                                           summarize)
     from repro_torch.models import drop_cast
@@ -6001,7 +6073,7 @@ def tp_qwen12(torch, rank: int, world: int, mesh, dev, tmp: str) -> dict:
     from repro_torch.train.loop import abstract_state, state_shards
     from repro_torch.train.step import value_and_grad
     import torch.distributed as dist
-    cfg = get_config("qwen3-0.6b")
+    cfg = gloo_qwen()
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TP_TRAIN_STEPS)
     tc = TrainConfig(opt=opt)
     data = SyntheticLMData(cfg, TP_TRAIN_B, TP_TRAIN_S, device=dev,
@@ -6092,17 +6164,17 @@ def tp_qwen12(torch, rank: int, world: int, mesh, dev, tmp: str) -> dict:
 
 
 def tp_qwen22(torch, rank: int, world: int, mesh, dev) -> dict:
-    """qwen3-0.6b whole at (data 2, model 2), B 4 x S 512, 2 steps: each
+    """qwen3-0.6b (GLOO_LAYERS layers) at (data 2, model 2), B 4 x S 512, 2
+    steps: each
     rank's moment blocks against one rank's whole moments, the losses,
     its walk; rank 0 then runs one rank's step 1 on the 4 rows."""
-    from repro_torch.configs import get_config
     from repro_torch.models.params import tree_paths
     from repro_torch.parallel.mesh import batch_shard, batch_shards
     from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
                                    make_initial_state, make_train_step)
     from repro_torch.train.loop import abstract_state, state_shards
     import torch.distributed as dist
-    cfg = get_config("qwen3-0.6b")
+    cfg = gloo_qwen()
     tc = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=0,
                                    total_steps=TP22_STEPS))
     data = SyntheticLMData(cfg, TP22_B, TP22_S, device=dev,
@@ -6255,7 +6327,8 @@ def tp_deepseek(torch, rank: int, world: int, mesh, dev) -> dict:
 
 def train_tp2_rank(rank: int, world: int, tmp: str) -> dict:
     """One of the two ranks of [train-tp]'s (data 1, model 2) checks
-    (gloo, CUDA tensors): qwen3-0.6b whole, deepseek-v2 (2 layers), and
+    (gloo, CUDA tensors): qwen3-0.6b (GLOO_LAYERS layers), deepseek-v2
+    (2 layers), and
     this process's kernel launches."""
     import torch
     from repro_torch.parallel.mesh import make_host_mesh
@@ -6306,13 +6379,14 @@ def tp_walk_line(label: str, walks: list) -> float:
     return worst
 
 
-def train_tp_phase(torch, np, card) -> None:
-    """The [train-tp] phase: qwen3-0.6b whole at (data 1, model 2) against
-    one rank, its checkpoint at (1, 1); qwen3-0.6b at (data 2, model 2);
-    deepseek-v2 (2 layers) at model 2 against one rank; every rank's
-    pre-flight walk against the analytic counts.  Gloo ranks on this one
-    card (NCCL at model > 1 needs a card a rank: unverified).  No ported
-    kernel launches here or in a rank."""
+def train_tp_phase(torch, np, card, four) -> None:
+    """The [train-tp] phase: qwen3-0.6b (GLOO_LAYERS layers) at (data 1,
+    model 2) against one rank, its checkpoint at (1, 1); qwen3-0.6b at
+    (data 2, model 2) (``four``: the Future of its ranks, started beside
+    [train-dp]); deepseek-v2 (2 layers) at model 2 against one rank;
+    every rank's pre-flight walk against the analytic counts.  Gloo ranks
+    on this one card (NCCL at model > 1 needs a card a rank: unverified).
+    No ported kernel launches here or in a rank."""
     import tempfile
     from repro_torch.parallel.mesh import spawn
     before = kernel_launch_counts()
@@ -6334,7 +6408,8 @@ def train_tp_phase(torch, np, card) -> None:
     g_rel = abs(q["gnorm"] - q["one"]["gnorm"]) / q["one"]["gnorm"]
     worst, key, share, n, unexplained = q["params"]
     g_worst, g_key, g_median, g_flips = q["grads"]
-    print(f"[train-tp] qwen3-0.6b whole (bf16, remat full), B {TP_TRAIN_B} "
+    print(f"[train-tp] qwen3-0.6b at {GLOO_LAYERS} layers (full width, "
+          f"bf16, remat full), B {TP_TRAIN_B} "
           f"x S {TP_TRAIN_S}, (data 1, model 2) vs one rank, step 1 from "
           f"one state on the same rows ({card}): loss {l_tp:.6f} vs "
           f"{l_one:.6f} (|d| {abs(l_tp - l_one):.2e}, bar {bar12:.2e}); "
@@ -6375,8 +6450,7 @@ def train_tp_phase(torch, np, card) -> None:
           f"{bar12:.2e})")
     bad = tp_walk_line("qwen3-0.6b (1, 2)", [e["walk"] for e in every])
     try:
-        four = spawn(train_tp4_rank, 4, backend="gloo", device="cuda",
-                     timeout=900)
+        four = four.result()    # started beside [train-dp]'s launch/train.py
     except RuntimeError as e:
         fail(f"[train-tp] a (2, 2) rank failed: {e}")
     f4 = four["every"]
@@ -6477,6 +6551,288 @@ def train_tp_phase(torch, np, card) -> None:
           "stays unverified")
 
 
+# --------------------------------------------------------------------------
+# r. the production-mesh dry run ([dryrun] lines)
+# --------------------------------------------------------------------------
+
+# (arch, shape, multi_pod) of the two cells walked at full width
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", False),
+                ("deepseek-v2-236b", "prefill_32k", True))
+# context parallelism for real: minicpm-2b at CP_LAYERS layers on (data 1,
+# model CP_MODEL), B x S tokens (S / CP_MODEL query rows a rank), one
+# step.  5 is the narrowest axis its 36 heads do not divide; at 8 each
+# rank holds the replicated 122753-row float32 tied table with its
+# gradient, two moments and the updated copy, ~8 GB a rank, and eight
+# ranks with their CUDA contexts overflow the 80 GB card
+CP_LAYERS, CP_MODEL, CP_B, CP_S = 2, 5, 2, 320
+# The loss against one rank: the run differs from one rank at the FFN's
+# row-parallel reduce of 5 bf16 partials (each rounded, then 4 bf16
+# additions: ~sqrt(1 + 4 / 2) x 2^-8 / sqrt(12) = 0.50 x 2^-8 of the
+# value in rms) and, since a bf16 GEMM's bits depend on its row count, at
+# the ~6 products a layer over the rank's rows (one rounding each, 0.29 x
+# 2^-8): ~0.87 x 2^-8 a layer, 1.2 x 2^-8 of the final hidden state over 2
+# layers, below the 80-edge walk (3.7 x 2^-8) TP_LOGITS_ATOL was derived
+# for; the sequence gathers are exact.  So the logits move by less than
+# TP_LOGITS_ATOL and the loss bar is tp_loss_bar(CP_B x CP_S), as
+# [train-tp]'s; the grad norm takes TP_GNORM_RTOL (2^-6).
+
+
+def dryrun_walks(card: str) -> None:
+    """Part (a): the two cells walked on fake tensors, one rank of a fake
+    process group each, their JSON and archives written.  CPU work only:
+    :func:`start_walks` runs it in a process of its own from the script's
+    start."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    for arch, shape, multi in DRYRUN_CELLS:
+        with make_production_mesh(multi_pod=multi) as mesh:
+            res = dryrun.run_cell(arch, shape, mesh, force=True,
+                                  verbose=False)
+        if res["status"] != "ok":
+            fail(f"[dryrun] {arch}/{shape}: {res['status']} "
+                 f"{res.get('error', res.get('reason'))}")
+        axes = res["collective_by_axes"]
+        wire = res.get("tp_wire_model_bytes")
+        ratio = "" if wire is None else (
+            f"; walked model bytes / tp_wire_bytes "
+            f"{axes.get('model', 0.0) / wire:.4f}")
+        print(f"[dryrun] {res['label']} (rank 0 of {res['n_chips']}, fake "
+              f"tensors, walked on this host's CPU in "
+              f"{res['walk_seconds']:.1f} s; priced on the H100 data sheet, "
+              f"analytic): W {res['flops_dev'] / 1e12:.1f} TF, Q "
+              f"{res['hbm_bytes_dev'] / 1e12:.3f} TB a device; compute "
+              f"{res['compute_s']:.3f} s, memory {res['memory_s']:.3f} s, "
+              f"ici {res['ici_s']:.3f} s, dcn {res['dcn_s']:.3f} s, "
+              f"{res['dominant']}-bound; collectives by axis "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                          sorted(axes.items()))
+              + f"; cell_flops / W {res['useful_ratio']:.3f}, roofline "
+              f"fraction {res['roofline_fraction'] * 100:.2f}%{ratio}")
+        if wire is not None and abs(axes.get("model", 0.0) / wire - 1) \
+                > 1e-9:
+            fail(f"[dryrun] {arch}/{shape}: walked model bytes "
+                 f"{axes.get('model')} vs tp_wire_bytes {wire}")
+        sys.stdout.flush()
+
+
+def dryrun_reprice(card: str, measured) -> None:
+    """Part (b): each walked cell's archive re-priced from its JSON, no
+    model built, on the sheet (equal to the walk's numbers) and on the
+    measured roofs (``measured``, a ChipSpec)."""
+    from repro_torch.core.analysis import analyze_records
+    from repro_torch.core.roofline.hardware import H100_SXM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.reanalyze import load_record, reanalyze_cell
+    for arch, shape, multi in DRYRUN_CELLS:
+        path = dryrun.result_path(arch, shape, "multipod" if multi
+                                  else "pod")
+        with open(path) as f:
+            res = json.load(f)
+        record = load_record(path)
+        again = analyze_records(record, res["mesh_shape"], chip=H100_SXM,
+                                dtype=res["dtype"],
+                                model_flops=res["model_flops_total"])
+        d = again.as_dict()
+        keys = ("flops_dev", "hbm_bytes_dev", "collective_ici_bytes_dev",
+                "collective_dcn_bytes_dev", "compute_s", "memory_s",
+                "ici_s", "dcn_s")
+        if any(d[k] != res[k] for k in keys):
+            fail(f"[dryrun] {arch}/{shape}: the archive re-priced on the "
+                 f"sheet differs: {[(k, d[k], res[k]) for k in keys]}")
+        m = analyze_records(record, res["mesh_shape"], chip=measured,
+                            dtype=res["dtype"],
+                            model_flops=res["model_flops_total"]).as_dict()
+        print(f"[dryrun] {res['label']} re-priced from its archive "
+              f"(launch/reanalyze.py, no model built): on the sheet equal to "
+              f"the walk's numbers; on the measured roofs ({measured.name}, "
+              f"{card}): compute {m['compute_s']:.3f} s, memory "
+              f"{m['memory_s']:.3f} s, ici {m['ici_s']:.3f} s, dcn "
+              f"{m['dcn_s']:.3f} s, {m['dominant']}-bound, roofline "
+              f"fraction {m['roofline_fraction'] * 100:.2f}% (sheet "
+              f"{res['roofline_fraction'] * 100:.2f}%)")
+        if not reanalyze_cell(path, measured):
+            fail(f"[dryrun] reanalyze_cell({path}) found nothing")
+
+
+_WALKER = ("import sys; sys.path[:0] = sys.argv[1:3]; "
+           "import torch; torch.set_num_threads(1); "
+           "import chip_smoke as cs; cs.dryrun_walks(sys.argv[3])")
+
+
+def start_walks(card: str):
+    """Start part (a) of the [dryrun] phase in a process of its own, on
+    one CPU thread, so that it runs beside the phases before it;
+    :func:`dryrun_phase` collects it, and it is killed at exit if a phase
+    fails first.  Its output goes to temporary files (a pipe would stall
+    it once full)."""
+    import atexit
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _WALKER, str(ROOT), str(SRC), card],
+        stdout=out, stderr=err, text=True)
+    proc.files = (out, err)
+    atexit.register(stop_walks, proc)
+    return proc
+
+
+def stop_walks(proc) -> None:
+    """Kill the walker if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def cp_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("minicpm-2b"), n_layers=CP_LAYERS)
+
+
+def host_replicated_equal(torch, state, cfg, mesh, world: int) -> bool:
+    """:func:`tp_replicated_equal` with the digests taken on the host
+    (SHA-1 of each replicated leaf's bytes): the card keeps no weight
+    vector the size of the largest leaf, which five ranks' replicated
+    minicpm-2b tables leave no room for."""
+    import hashlib
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train.loop import state_shards
+    sh = dict(tree_paths(state_shards(cfg, mesh)))
+    dig = {k: hashlib.sha1(v.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        for k, v in tree_paths(state) if sh[k] is None}
+    return all(d == dig for d in dp_objects(dig, world))
+
+
+def dryrun_cp_rank(rank: int, world: int) -> dict:
+    """One of the CP_MODEL ranks of part (c): minicpm-2b's step 1 at
+    (data 1, model CP_MODEL), its collectives walked; rank 0 then runs
+    one rank's step 1 on the same rows and weights."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.roofline.op_collectives import (CollectiveWalk,
+                                                          summarize)
+    from repro_torch.parallel.mesh import (batch_shard, batch_shards,
+                                           make_host_mesh)
+    from repro_torch.train import (OptConfig, SyntheticLMData, TrainConfig,
+                                   make_initial_state, make_train_step)
+    from repro_torch.train.step import tp_wire_bytes, train_local_config
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(model=world)
+    cfg = cp_config()
+    tc = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=0,
+                                   total_steps=1))
+    data = SyntheticLMData(cfg, CP_B, CP_S, device=dev,
+                           shard=batch_shard(mesh), shards=batch_shards(mesh))
+    local = train_local_config(cfg, mesh)
+    from repro_torch.models.common import layout_of
+    res = {"layout": layout_of(local), "heads": local.n_heads,
+           "d_ff": local.d_ff,
+           "tp": tp_wire_bytes(cfg, mesh.sizes, CP_B, CP_S, tc)}
+    step = make_train_step(cfg, tc, mesh)
+    with deterministic(torch, True):
+        state = make_initial_state(cfg, 0, dev, mesh=mesh)()
+        walk = CollectiveWalk(mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with walk:
+            state, m = step(state, data.batch_at(0))
+        torch.cuda.synchronize()
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3
+        cc = summarize(walk.ops)
+        res["walked"] = {k[0]: v for k, v in cc.by_axes.items()}
+        res["edges"] = dict(cc.by_edge)
+        res["loss"], res["gnorm"] = float(m["loss"]), float(m["grad_norm"])
+        res["equal"] = host_replicated_equal(torch, state, cfg, mesh, world)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        with deterministic(torch, True):
+            one = make_train_step(cfg, tc)
+            state = make_initial_state(cfg, 0, dev)()
+            _, m = one(state, SyntheticLMData(cfg, CP_B, CP_S,
+                                              device=dev).batch_at(0))
+            res["one"] = {"loss": float(m["loss"]),
+                          "gnorm": float(m["grad_norm"])}
+            del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    res["launches"] = sum(kernel_launch_counts().values())
+    return {"res": res, "every": dp_objects(
+        {k: res[k] for k in ("loss", "gnorm", "equal", "walked", "step_ms",
+                             "peak_gb", "launches")}, world)}
+
+
+def dryrun_phase(torch, np, card, roof, walker) -> None:
+    """The [dryrun] phase: (c) on CP_MODEL gloo ranks on this card, while
+    ``walker`` (:func:`start_walks`) finishes (a) if it still runs; then
+    (b) on the walks' archives and the lines, (a) and (b) first."""
+    from repro_torch.parallel.mesh import spawn
+    before = kernel_launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        out = spawn(dryrun_cp_rank, CP_MODEL, backend="gloo",
+                    device="cuda", timeout=600)
+    except RuntimeError as e:
+        fail(f"[dryrun] a (1, {CP_MODEL}) rank failed: {e}")
+    t0 = time.perf_counter()
+    try:
+        walker.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("[dryrun] the walks did not end within 900 s of part (c)")
+    for f in walker.files:
+        f.seek(0)
+    walked, err = (f.read() for f in walker.files)
+    print(walked, end="")
+    print(f"[dryrun] the walks ran beside the phases from the script's "
+          f"start and ended {time.perf_counter() - t0:.1f} s after part (c)")
+    if walker.returncode:
+        fail(f"[dryrun] the walks failed: {err[-3000:]}")
+    dryrun_reprice(card, roof.to_chipspec())
+    r, every = out["res"], out["every"]
+    cfg = cp_config()
+    bar = tp_loss_bar(CP_B * CP_S)
+    d_loss = abs(r["loss"] - r["one"]["loss"])
+    g_rel = abs(r["gnorm"] - r["one"]["gnorm"]) / r["one"]["gnorm"]
+    ratio = r["walked"].get("model", 0.0) / r["tp"]["model"]
+    same = all(e["loss"] == every[0]["loss"] and e["equal"] for e in every)
+    print(f"[dryrun] context parallelism for real: {cfg.name} at "
+          f"{CP_LAYERS} layers, bf16, remat {cfg.remat}, B {CP_B} x S "
+          f"{CP_S}, (data 1, model {CP_MODEL}) on {CP_MODEL} gloo ranks of "
+          f"this card ({card}): {cfg.n_heads} heads stay whole a rank "
+          f"({r['layout']}, attention over {CP_S // CP_MODEL} query rows a "
+          f"rank), d_ff {r['d_ff']} a rank, vocabulary {cfg.vocab_size} "
+          f"whole; step 1 loss {r['loss']:.6f} vs one rank "
+          f"{r['one']['loss']:.6f} (|d| {d_loss:.2e}, bar {bar:.2e}); grad "
+          f"norm {r['gnorm']:.6f} vs {r['one']['gnorm']:.6f} (rel "
+          f"{g_rel:.2e}, bar {TP_GNORM_RTOL:.2e}); replicated leaves "
+          f"{'bit-equal' if same else 'DIFFERENT'} on all {CP_MODEL} ranks; "
+          f"walked model bytes {r['walked'].get('model', 0.0) / 1e6:.3f} MB "
+          f"= tp_wire_bytes {r['tp']['model'] / 1e6:.3f} MB (ratio "
+          f"{ratio:.4f}; by edge "
+          + ", ".join(f"{k} {v / 1e6:.3f}" for k, v in
+                      sorted(r["edges"].items()))
+          + f" MB); step 1 {[round(e['step_ms']) for e in every]} ms, peak "
+          f"{[round(e['peak_gb'], 2) for e in every]} GB a rank "
+          f"({CP_MODEL} processes time-slice one card: no speed claim)")
+    from repro_torch.models.common import LocalLayout
+    cp = LocalLayout(context_parallel=True)
+    if r["layout"] != cp or d_loss > bar or \
+            g_rel > TP_GNORM_RTOL or not same or abs(ratio - 1) > 1e-9:
+        fail("[dryrun] the context-parallel step misses its holds")
+    after = kernel_launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    in_ranks = [e["launches"] for e in every]
+    if moved or any(in_ranks) or len(after) < 14:
+        fail(f"[dryrun] ported kernels launched: {moved}, ranks {in_ranks}")
+    print(f"[dryrun] no ported kernel launched ({len(after)} wrappers' "
+          "counts unchanged here, 0 in every rank)")
+
+
 def print_build_summary(name: str, log: str) -> None:
     """One line per source from nvcc's ``-Xptxas -v`` report: kernel
     instantiations, their register range, and each one that spills."""
@@ -6566,6 +6922,17 @@ def sass_check() -> None:
                           for w, c in counts.items()))
 
 
+def beside(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` started in a thread of its own: a Future.
+    Used for ``spawn`` calls whose ranks run beside the caller's work
+    (each call has its own store and queue, so concurrent calls never
+    meet)."""
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(fn, *args, **kwargs)
+    pool.shutdown(wait=False)
+    return future
+
+
 def phase_time(label: str, t0: float) -> float:
     """Print a phase's wall time; returns the clock for the next phase."""
     t1 = time.perf_counter()
@@ -6590,17 +6957,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card)
+    walker = start_walks(card)
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in (SRC / "repro_torch" / "csrc").glob(
         "*.cu"))
+
+    def timed_build(names, defines=()):
+        return build.build(names, defines), time.perf_counter()
+
     with ThreadPoolExecutor(2) as pool:   # all nvcc processes at once
-        single_p = pool.submit(build.build, ["flash_attention"],
+        single_p = pool.submit(timed_build, ["flash_attention"],
                                FLASH_SINGLE_P)
-        logs = build.build(sources)
-        logs["flash_attention (P rounded once)"] = single_p.result()[
-            "flash_attention"]
+        built = pool.submit(timed_build, sources)
+        # the training path launches none of the kernels: it trains while
+        # nvcc builds them
+        train_step = train_phase(torch, np, card)
+        t_train = time.perf_counter()
+        logs, t_built = built.result()
+        single, t_single = single_p.result()
+        logs["flash_attention (P rounded once)"] = single["flash_attention"]
     print(f"[build] {', '.join(sources)} built in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc sm_90a)")
+          f"{max(t_built, t_single) - t0:.1f} s (nvcc sm_90a, beside "
+          f"[train])")
     for name, log in logs.items():
         print_build_summary(name, log)
     sass_check()
@@ -6622,7 +7000,11 @@ def main() -> int:
                                 qwen.vocab_size):
         fail(f"unexpected qwen3-14b config {q14}")
 
-    t_phase = phase_time("build", t0)
+    print(f"[time] training beside the build: qwen3-0.6b whole "
+          f"({TRAIN_STEPS} steps), checkpoint, accumulation, resume, "
+          f"deepseek-v2 ({DS_TRAIN_LAYERS} layers) dispatch: "
+          f"{t_train - t0:.1f} s")
+    t_phase = phase_time("build and training", t0)
     entry, gqa_ring = kernel_phase(torch, np, pa)
     verify_entry, gqa_ring_verify = gqa_verify_kernel_phase(torch, np, pa)
     mla_entry, mla_ring = mla_kernel_phase(torch, np, pa)
@@ -6650,6 +7032,7 @@ def main() -> int:
               f"{ms(mla_verify_entry):.4f} ms")
     t_phase = phase_time("paged-attention kernel phases", t_phase)
     prim_entries, roof = primitives_phase(torch, np, card)
+    train_roof_line(card, roof, train_step)
     t_phase = phase_time("primitive study", t_phase)
     npa_entries = norm_pool_attention_phase(torch, np, card, roof)
     layernorm_in_turns(torch, card)
@@ -6727,10 +7110,12 @@ def main() -> int:
     del params, draft
     t_phase = phase_time("crosscheck: qwen3-14b speculative", t_phase)
 
-    xlstm = get_config("xlstm-350m")
+    xlstm = dataclasses.replace(get_config("xlstm-350m"),
+                                n_layers=XLSTM_LAYERS)
     jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
                                 n_layers=JAMBA_LAYERS)
-    if (xlstm.n_layers, xlstm.d_model, xlstm.n_heads) != (24, 1024, 4) or (
+    if (xlstm.d_model, xlstm.n_heads, len(xlstm.block_pattern)) != (
+            1024, 4, XLSTM_LAYERS) or (
             jamba.d_model, jamba.n_heads, jamba.n_kv_heads, jamba.hd,
             jamba.d_inner, jamba.mamba_d_state, jamba.d_ff,
             jamba.vocab_size) != (4096, KV * JAMBA_G, KV, HD, 8192, 16,
@@ -6742,7 +7127,8 @@ def main() -> int:
                   logits_atol=LOGITS_ATOL)
     crosscheck_recurrent(torch, np, card, xlstm, params, roof)
     del params
-    t_phase = phase_time("xlstm-350m engine, options and crosscheck",
+    t_phase = phase_time(f"xlstm-350m ({XLSTM_LAYERS} layers) engine, "
+                         "options and crosscheck",
                          t_phase)
     jamba_kernel_holds(torch, np, pa)
     params = make_params(torch, jamba)
@@ -6786,18 +7172,25 @@ def main() -> int:
     router_phase(torch, np, card)
     t_phase = phase_time("serving tier: qwen3-0.6b and MLA-dense replicas "
                          "behind the router", t_phase)
-    train_phase(torch, np, card, roof)
-    t_phase = phase_time(
-        f"training: qwen3-0.6b whole ({TRAIN_STEPS} steps), checkpoint, "
-        f"accumulation, resume, deepseek-v2 ({DS_TRAIN_LAYERS} layers) "
-        "dispatch", t_phase)
-    train_dp_phase(torch, np, card)
-    t_phase = phase_time("data-parallel training: launch/train.py --data 2, "
-                         "restore at data 1, dense and MoE holds, NCCL world "
-                         "of one", t_phase)
-    train_tp_phase(torch, np, card)
-    phase_time("tensor-parallel training: qwen3-0.6b at (1, 2) and (2, 2), "
-               "deepseek-v2 (2 layers) at (1, 2), pre-flight walks", t_phase)
+    from repro_torch.parallel.mesh import spawn
+    # [train-tp]'s (data 2, model 2) ranks run beside launch/train.py
+    # --data 2 (the two runs' peaks fit the card together)
+    four = beside(spawn, train_tp4_rank, 4, backend="gloo", device="cuda",
+                  timeout=900)
+    train_dp_phase(torch, np, card, four)
+    t_phase = phase_time(f"data-parallel training: launch/train.py --data 2 "
+                         f"(qwen3-0.6b at {GLOO_LAYERS} layers; [train-tp]'s "
+                         "(2, 2) ranks beside it), restore at data 1, dense "
+                         "and MoE holds, NCCL world of one", t_phase)
+    train_tp_phase(torch, np, card, four)
+    t_phase = phase_time(f"tensor-parallel training: qwen3-0.6b ("
+                         f"{GLOO_LAYERS} layers) at (1, 2) (and (2, 2), run "
+                         "beside [train-dp]), deepseek-v2 (2 layers) at (1, "
+                         "2), pre-flight walks", t_phase)
+    dryrun_phase(torch, np, card, roof, walker)
+    phase_time(f"production-mesh dry run: {cp_config().name} ({CP_LAYERS} "
+               f"layers) context parallel at (1, {CP_MODEL}), the two "
+               f"full-width walks collected", t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

@@ -55,10 +55,10 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 from torch.utils._pytree import tree_flatten
 
-from ..parallel.mesh import mesh_axis_sizes
 from .roofline import H100_SXM, ChipSpec, RooflineTerms, ScopeSpec
 from .roofline.extract import (StepCharacter, character_as_dict,
-                               characterize, terms_from_character)
+                               character_of, terms_from_character,
+                               walk_record)
 from .roofline.hardware import scope_for_mesh
 from .roofline.report import render_report
 
@@ -235,6 +235,10 @@ class AnalysisReport:
     terms: RooflineTerms
     walk_seconds: float
     mesh_shape: Dict[str, int]
+    # the walk's record (extract.walk_record), what launch/dryrun.py
+    # archives; None for a report built by hand
+    record: Optional[Dict[str, Any]] = dataclasses.field(default=None,
+                                                         repr=False)
 
     def render(self) -> str:
         extra = []
@@ -288,40 +292,61 @@ class AnalysisReport:
         return d
 
 
+def analyze_records(record: Dict[str, Any], mesh_shape: Dict[str, int], *,
+                    label: str = "step", scope: Optional[ScopeSpec] = None,
+                    chip: ChipSpec = H100_SXM, dtype: str = "bfloat16",
+                    model_flops: Optional[float] = None,
+                    walk_seconds: float = 0.0) -> AnalysisReport:
+    """Price a walk's record (``extract.walk_record``, its collectives
+    included) on ``scope`` (the scope of ``mesh_shape`` on ``chip`` when
+    None): the counterpart of the reference's ``analyze_compiled``,
+    which characterizes a compiled module without running it.  Nothing
+    of the model is needed, so an archived record is priced again under
+    new rules (``launch/reanalyze.py``)."""
+    if scope is None:
+        scope = scope_for_mesh(mesh_shape, chip)
+    char = character_of(record)
+    terms = terms_from_character(char, scope, dtype=dtype,
+                                 model_flops_total=model_flops)
+    return AnalysisReport(label=label, character=char, terms=terms,
+                          walk_seconds=walk_seconds,
+                          mesh_shape=dict(mesh_shape), record=record)
+
+
 def analyze_step(fn: Callable, *, args: Sequence[Any], mesh=None,
                  label: str = "step", scope: Optional[ScopeSpec] = None,
                  chip: ChipSpec = H100_SXM, dtype: str = "bfloat16",
                  model_flops: Optional[float] = None) -> AnalysisReport:
     """Walk one call ``fn(*args)`` and price it on ``scope`` (the scope
     of ``mesh``'s axis sizes on ``chip`` when None; one card without a
-    mesh).  Fake arguments (``launch/specs.py``) are walked in their own
+    mesh): the walk's record (``extract.walk_record``) priced by
+    :func:`analyze_records`, the report keeping the record.  Fake
+    arguments (``launch/specs.py``) are walked in their own
     ``FakeTensorMode``: nothing is computed or allocated.  The walk's
     temporaries are not tracked (``MemoryFootprint.temp_bytes`` 0).
 
     On a ``parallel.mesh.Mesh`` with process groups (a data- or
-    tensor-parallel step: every rank of it walks its own step together)
-    the walk also records the ``c10d`` operators the step dispatches
+    tensor-parallel step: every rank of it walks its own step together,
+    or one rank of a fake world, ``launch/mesh.py``) the walk also
+    records the ``c10d`` operators the step dispatches
     (``op_collectives.CollectiveWalk``; a collective on fake tensors
     moves nothing) and attributes each to its mesh axis, and a tp edge's
     to its edge: the report's collectives by axis, ``model`` and
     ``data`` on ``ici`` and ``pod`` on ``dcn``, and by edge."""
+    from torch._guards import detect_fake_mode
+    from ..parallel.mesh import mesh_axis_sizes
     mesh_shape = (mesh_axis_sizes(mesh) if mesh is not None
                   else {"data": 1, "model": 1})
-    if scope is None:
-        scope = scope_for_mesh(mesh_shape, chip)
-    from torch._guards import detect_fake_mode
-    from .roofline.op_collectives import CollectiveWalk, summarize
+    from .roofline.op_collectives import CollectiveWalk
     mode = detect_fake_mode(
         [t for t in tree_flatten(args)[0] if isinstance(t, torch.Tensor)])
     walk = (CollectiveWalk(mesh=mesh) if getattr(mesh, "groups", None)
             else contextlib.nullcontext())
     t0 = time.perf_counter()
     with mode if mode is not None else contextlib.nullcontext(), walk:
-        char = characterize(fn, *args)
+        record = walk_record(fn, *args)[0]
     if isinstance(walk, CollectiveWalk):
-        char.collectives = summarize(walk.ops)
-    terms = terms_from_character(char, scope, dtype=dtype,
-                                 model_flops_total=model_flops)
-    return AnalysisReport(label=label, character=char, terms=terms,
-                          walk_seconds=time.perf_counter() - t0,
-                          mesh_shape=mesh_shape)
+        record["collectives"] = [dataclasses.asdict(op) for op in walk.ops]
+    return analyze_records(record, mesh_shape, label=label, scope=scope,
+                           chip=chip, dtype=dtype, model_flops=model_flops,
+                           walk_seconds=time.perf_counter() - t0)

@@ -111,6 +111,52 @@ def _tensor_bytes(tree: Any) -> int:
     return total
 
 
+def walk_record(fn: Callable, *args, params: Any = None, pools: Any = None,
+                states: Any = None, **kwargs) -> Tuple[Dict[str, Any], Any]:
+    """Walk one call ``fn(*args, **kwargs)`` and return (its record, its
+    output).  The record is what :func:`character_of` prices, with
+    nothing of the model in it: ``ops`` (``op_cost.OpCostMode``'s
+    records), ``categories`` (the byte split), ``memory``
+    (:class:`MemoryFootprint`'s fields), ``cost_raw`` (the naive counter,
+    ``FlopCounterMode``'s total, as ``naive_flops``) and ``collectives``
+    (empty here; ``core/analysis.py::analyze_step`` adds the ``c10d``
+    operators a sharded step dispatched, ``op_collectives.CollectiveOp``
+    fields)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    naive = FlopCounterMode(display=False)
+    mode = op_cost.OpCostMode(params=params, pools=pools, states=states)
+    with naive, mode:
+        out = fn(*args, **kwargs)
+    memory = MemoryFootprint(argument_bytes=_tensor_bytes((args, kwargs)),
+                             output_bytes=_tensor_bytes(out))
+    record = {"ops": mode.records, "categories": list(mode.categories),
+              "memory": dataclasses.asdict(memory),
+              "cost_raw": {"naive_flops": float(naive.get_total_flops())},
+              "collectives": []}
+    return record, out
+
+
+def character_of(record: Dict[str, Any]) -> StepCharacter:
+    """The :class:`StepCharacter` of a walk's record
+    (:func:`walk_record`): its ops priced by ``op_cost.price`` and its
+    collectives summarized by ``op_collectives.summarize``."""
+    from .op_collectives import CollectiveOp, summarize
+    cost = op_cost.price(record["ops"], tuple(record["categories"]))
+    ops = [op if isinstance(op, CollectiveOp) else CollectiveOp(**op)
+           for op in record["collectives"]]
+    return StepCharacter(
+        flops_dev=cost.flops,
+        hbm_bytes_dev=cost.bytes,
+        transcendentals_dev=cost.transcendentals,
+        collectives=summarize(ops) if ops else CollectiveSummary(),
+        memory=MemoryFootprint(**record["memory"]),
+        op_counts=dict(cost.op_counts),
+        cost_raw=dict(record["cost_raw"]),
+        scopes={k: dict(v) for k, v in cost.scopes.items()},
+        bytes_by_category=dict(cost.by_category),
+    )
+
+
 def characterize(fn: Callable, *args, params: Any = None, pools: Any = None,
                  states: Any = None, **kwargs) -> StepCharacter:
     """Walk one call ``fn(*args, **kwargs)`` and build its StepCharacter.
@@ -123,24 +169,8 @@ def characterize(fn: Callable, *args, params: Any = None, pools: Any = None,
     W, Q and transcendentals come from :mod:`op_cost`; the naive counter,
     ``FlopCounterMode``'s total, is kept in ``cost_raw`` as
     ``naive_flops``."""
-    from torch.utils.flop_counter import FlopCounterMode
-    naive = FlopCounterMode(display=False)
-    with naive:
-        cost, out = op_cost.walk(fn, *args, params=params, pools=pools,
-                                 states=states, **kwargs)
-    memory = MemoryFootprint(argument_bytes=_tensor_bytes((args, kwargs)),
-                             output_bytes=_tensor_bytes(out))
-    return StepCharacter(
-        flops_dev=cost.flops,
-        hbm_bytes_dev=cost.bytes,
-        transcendentals_dev=cost.transcendentals,
-        collectives=CollectiveSummary(),
-        memory=memory,
-        op_counts=dict(cost.op_counts),
-        cost_raw={"naive_flops": float(naive.get_total_flops())},
-        scopes={k: dict(v) for k, v in cost.scopes.items()},
-        bytes_by_category=dict(cost.by_category),
-    )
+    return character_of(walk_record(fn, *args, params=params, pools=pools,
+                                    states=states, **kwargs)[0])
 
 
 def terms_from_character(

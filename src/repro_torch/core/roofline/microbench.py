@@ -506,11 +506,50 @@ def _load_cache(path: Path, device: torch.device) -> MicrobenchResult:
             f"{fp}; falling back to the analytic hardware.py constants "
             "(delete the cache to re-measure)", stacklevel=3)
         return MicrobenchResult.analytic()
+    return _from_cache(d)
+
+
+def _from_cache(d: dict) -> MicrobenchResult:
     return MicrobenchResult(
         fma_flops=d["fma_flops"], matmul_flops=d["matmul_flops"],
         bandwidth=d["bandwidth"], warm_cold=d.get("warm_cold", {}),
         level_bw=d.get("level_bw", {}), overlap=d.get("overlap", {}),
-        fingerprint=cached_fp, source=d.get("source", "measured"))
+        fingerprint=d.get("fingerprint") or {},
+        source=d.get("source", "measured"))
+
+
+def card_measurement(cache_path: Union[str, Path] = DEFAULT_CACHE
+                     ) -> MicrobenchResult:
+    """The card's measured roofs, for pricing work that is walked
+    elsewhere (the dry run walks on the host's CPU): the cache at
+    ``cache_path`` when its fingerprint names a CUDA card under this
+    schema (and, with a card visible, that card), whatever the current
+    platform; with no cache and a card visible, measured on the card and
+    cached.  Never the CPU's numbers and never the data sheet in their
+    place: anything else raises."""
+    path = Path(cache_path)
+    card = torch.cuda.is_available()
+    if not path.exists():
+        if not card:
+            raise RuntimeError(
+                f"no measurement of the card in {path}: run `python -m "
+                "repro_torch.launch.primitives --only microbench` on the "
+                "card, which writes it, or price on the data sheet")
+        return run_microbench(path, device="cuda")
+    d = json.loads(path.read_text())
+    fp = d.get("fingerprint") or {}
+    want = device_fingerprint(torch.device("cuda")) if card else None
+    if (fp.get("schema") != CACHE_SCHEMA
+            or fp.get("device_kind") in (None, "cpu")
+            or d.get("source", "measured") != "measured"
+            or (want is not None and fp != want)):
+        raise RuntimeError(
+            f"{path} holds no measurement of "
+            f"{want['device_kind'] if want else 'a CUDA card'} under "
+            f"schema {CACHE_SCHEMA} (it holds {fp or 'no fingerprint'}, "
+            f"{d.get('source', 'measured')}): delete it and run `python -m "
+            "repro_torch.launch.primitives --only microbench` on the card")
+    return _from_cache(d)
 
 
 def run_microbench(cache_path: Optional[Union[str, Path]] = DEFAULT_CACHE,

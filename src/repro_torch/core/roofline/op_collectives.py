@@ -24,7 +24,8 @@ operand bytes on this device.
 
 Each op also carries its edge: the innermost of the tensor-parallel
 edges' tags (:data:`EDGE_TAGS`: ``tp_copy``, whose
-all-reduce runs in the backward, ``tp_reduce``, ``tp_gather``) open on
+all-reduce runs in the backward, ``tp_reduce``, ``tp_gather`` and the
+context-parallel ``seq_gather``) open on
 the dispatching thread, so a step's ``model`` bytes split by edge
 (:func:`summarize`'s ``by_edge``), forward, backward and a checkpointed
 layer's recompute alike.
@@ -43,7 +44,7 @@ from .op_cost import _stack
 
 # the tags parallel/collectives.py's tensor-parallel edges issue their
 # collectives under (``op_cost.named_scope``)
-EDGE_TAGS = ("tp_copy", "tp_reduce", "tp_gather")
+EDGE_TAGS = ("tp_copy", "tp_reduce", "tp_gather", "seq_gather")
 
 # c10d operator -> (the reference's collective kind, and the positions of
 # its result tensors, its operand tensors and its process group among the

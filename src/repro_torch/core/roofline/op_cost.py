@@ -46,6 +46,15 @@ cross-check can hold the ledger's weights, KV lines and state against the
 first three and name the last as the traffic the ledger leaves out on
 purpose.  An ``out=`` tensor is written, not read.
 
+The walk and the price are apart: :class:`OpCostMode` keeps a record of
+every op (its operands and results as :class:`TensorRec`: shape,
+strides, element size, category, identity; its other arguments; the
+tracked scope open), and :func:`price` turns records into an
+:class:`OpCost`.  A record is the port's counterpart of the reference's
+archived partitioned HLO: ``launch/dryrun.py`` archives it and
+``launch/reanalyze.py`` prices it again, without a model, whenever the
+rules change (:func:`records_to_json` / :func:`records_from_json`).
+
 Scopes: :func:`named_scope` is the counterpart of ``jax.named_scope``.
 It keeps a plain thread-local stack of tags and makes no CUDA call, so
 it stays on the main path at no cost to launches or streams; the walk
@@ -64,7 +73,6 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 # the reference's tags (core/roofline/hlo_cost.py), in its order
 TRACKED_SCOPES = (
@@ -191,11 +199,57 @@ _SUM_REDUCTIONS = {"sum", "mean", "nansum", "prod", "cumsum", "cumprod",
                    "logsumexp"}
 
 
-def _tensors(x: Any) -> List[torch.Tensor]:
-    return [t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
+class TensorRec:
+    """A tensor as the walk saw it at one op: shape, strides, element
+    size, byte category and identity (``tid``, the tensor object's id,
+    so an in-place op's result is known to be its first operand).  It
+    answers the calls pricing makes of a tensor (``shape``, ``stride()``,
+    ``numel()``, ``element_size()``, ``dim()``), so the pricing rules
+    run alike on live tensors and on an archived walk."""
+
+    __slots__ = ("shape", "_stride", "itemsize", "cat", "tid")
+
+    def __init__(self, shape, stride, itemsize: int, cat: str, tid: int):
+        self.shape = tuple(int(s) for s in shape)
+        self._stride = tuple(int(s) for s in stride)
+        self.itemsize = int(itemsize)
+        self.cat = cat
+        self.tid = int(tid)
+
+    def stride(self) -> Tuple[int, ...]:
+        return self._stride
+
+    def numel(self) -> int:
+        return _prod(self.shape)
+
+    def element_size(self) -> int:
+        return self.itemsize
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"t": [list(self.shape), list(self._stride), self.itemsize,
+                      self.cat, self.tid]}
 
 
-def _span_elems(t: torch.Tensor) -> int:
+_TENSOR_TYPES = (torch.Tensor, TensorRec)
+
+
+def _tensors(x: Any) -> List[Any]:
+    """The tensors of a nest of lists, tuples and dicts, in order (a
+    plain walk: an op's arguments need nothing more general, and the
+    walk calls this twice an op)."""
+    if isinstance(x, _TENSOR_TYPES):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []
+
+
+def _span_elems(t) -> int:
     """Elements an operand spans: a broadcast (stride 0) dim counts once."""
     n = 1
     for s, st in zip(t.shape, t.stride()):
@@ -206,7 +260,7 @@ def _span_elems(t: torch.Tensor) -> int:
     return n
 
 
-def _nbytes(t: torch.Tensor, span: bool = True) -> float:
+def _nbytes(t, span: bool = True) -> float:
     n = _span_elems(t) if span else t.numel()
     return float(n * t.element_size())
 
@@ -244,19 +298,74 @@ class OpCost:
         return self.by_category["activation"]
 
 
+# -- the record ---------------------------------------------------------------
+
+def encode(x: Any, cat: Callable[[torch.Tensor], str]) -> Any:
+    """An op argument as the record keeps it: a tensor as a
+    :class:`TensorRec` (its category from ``cat``), lists and tuples as
+    lists, None, bools and numbers as they are, anything else (a dtype,
+    a device, a layout) as its string."""
+    if isinstance(x, torch.Tensor):
+        return TensorRec(x.shape, x.stride(), x.element_size(), cat(x),
+                         id(x))
+    if isinstance(x, (list, tuple)):
+        return [encode(v, cat) for v in x]
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    return str(x)
+
+
+def _to_json(x: Any) -> Any:
+    if isinstance(x, TensorRec):
+        return x.to_json()
+    if isinstance(x, list):
+        return [_to_json(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _to_json(v) for k, v in x.items()}
+    return x
+
+
+def _from_json(x: Any) -> Any:
+    if isinstance(x, dict):
+        if set(x) == {"t"}:
+            return TensorRec(*x["t"])
+        return {k: _from_json(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_from_json(v) for v in x]
+    return x
+
+
+def records_to_json(records: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """The records as JSON-ready values (tensors as ``{"t": [shape,
+    strides, itemsize, category, tid]}``); :func:`records_from_json`
+    inverts it."""
+    return [_to_json(r) for r in records]
+
+
+def records_from_json(data: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    return [_from_json(r) for r in data]
+
+
 class OpCostMode(TorchDispatchMode):
-    """Count every aten op dispatched inside (see the module docstring).
+    """Record every aten op dispatched inside (see the module docstring).
 
     ``params``, ``pools`` and ``states`` are trees whose tensors are the
     model's parameters, KV pools and recurrent state rows: their bytes,
     and their views', are counted under those categories.  The ops run as
     usual (on fake tensors, under a ``FakeTensorMode`` entered before this
-    one, nothing is computed)."""
+    one, nothing is computed).
+
+    The walk keeps a record of each op (:attr:`records`: its name, its
+    operands and results as :class:`TensorRec`, the other arguments, the
+    tracked scope open; a view or an allocation by name only) and
+    :attr:`cost` prices them (:func:`price`): the walk's record and its
+    price are apart, so an archived record is priced again under another
+    rule without running anything."""
 
     def __init__(self, params: Any = None, pools: Any = None,
                  states: Any = None):
         super().__init__()
-        self.cost = OpCost()
+        self.records: List[Dict[str, Any]] = []
         self._cat: Dict[int, str] = {}
         self._keep: List[torch.Tensor] = []   # ids stay unique while walked
         for t in _tensors(params):
@@ -264,10 +373,14 @@ class OpCostMode(TorchDispatchMode):
         for t in _tensors(pools):
             self._mark(t, "pool")
         rows = _tensors(states)
-        if rows:
-            self.cost.by_category[STATE] = 0.0
+        self.categories = CATEGORIES + ((STATE,) if rows else ())
         for t in rows:
             self._mark(t, STATE)
+
+    @property
+    def cost(self) -> OpCost:
+        """The records priced (:func:`price`)."""
+        return price(self.records, self.categories)
 
     def _mark(self, t: torch.Tensor, cat: str) -> None:
         if cat == "activation":
@@ -278,31 +391,6 @@ class OpCostMode(TorchDispatchMode):
     def category(self, t: torch.Tensor) -> str:
         return self._cat.get(id(t), "activation")
 
-    # -- accounting -------------------------------------------------------
-
-    def _charge(self, flops: float, trans: float,
-                reads: List[Tuple[torch.Tensor, float]],
-                writes: List[Tuple[torch.Tensor, float]]) -> None:
-        c = self.cost
-        by = {k: 0.0 for k in c.by_category}
-        for t, b in reads + writes:
-            by[self.category(t)] += b
-        total = sum(by.values())
-        c.flops += flops
-        c.transcendentals += trans
-        c.bytes += total
-        for k in by:
-            c.by_category[k] += by[k]
-        tag = current_scope()
-        if tag is not None:
-            acc = c.scopes.setdefault(tag, {
-                "flops": 0.0, "bytes": 0.0,
-                **{f"{k}_bytes": 0.0 for k in by}})
-            acc["flops"] += flops
-            acc["bytes"] += total
-            for k in by:
-                acc[f"{k}_bytes"] += by[k]
-
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
@@ -312,45 +400,106 @@ class OpCostMode(TorchDispatchMode):
         outs = _tensors(out)
         if not (outs or name in _WRITE_OPS):
             return out                    # metadata (device, size, item)
-        counts = self.cost.op_counts
-        counts[name] = counts.get(name, 0) + 1
         if func.is_view or name in _VIEW_OPS:
             cats = {self.category(t) for t in ins[:1]}
             for t in outs:
                 for cat in cats:
                     self._mark(t, cat)
+            self.records.append({"op": name, "kind": "view"})
             return out
         if name in _ALLOC_OPS:
+            self.records.append({"op": name, "kind": "alloc"})
             return out
         self._count(func, name, args, kwargs, ins, outs)
         return out
 
     def _count(self, func, name, args, kwargs, ins, outs) -> None:
-        reads = [(t, _nbytes(t)) for t in ins]
-        writes = [(t, _nbytes(t, span=False)) for t in outs]
+        cat = self.category
+        self.records.append({
+            "op": name, "args": encode(list(args), cat),
+            "kwargs": {k: encode(v, cat) for k, v in kwargs.items()
+                       if k != "out"},
+            "outs": encode(outs, cat), "scope": current_scope()})
+
+    def _flops(self, name, args, ins, outs) -> Tuple[float, float]:
+        return _flops(name, args, ins, outs)
+
+
+# -- the price ----------------------------------------------------------------
+
+def price(records: List[Dict[str, Any]],
+          categories: Tuple[str, ...] = CATEGORIES) -> OpCost:
+    """The :class:`OpCost` of a walk's records under the rules of the
+    module docstring (``categories``: the byte split, with ``"state"``
+    when the walk had state rows)."""
+    p = _Pricer(categories)
+    for r in records:
+        p.add(r)
+    return p.cost
+
+
+class _Pricer:
+    def __init__(self, categories: Tuple[str, ...]):
+        self.cost = OpCost(by_category={c: 0.0 for c in categories})
+        self.scope: Optional[str] = None
+
+    def add(self, r: Dict[str, Any]) -> None:
+        name = r["op"]
+        counts = self.cost.op_counts
+        counts[name] = counts.get(name, 0) + 1
+        if "kind" in r:
+            return                        # a view or an allocation
+        args, kwargs, outs = r["args"], r["kwargs"], r["outs"]
+        self.scope = r["scope"]
         if name in _GATHER_OPS:
             self._gather(name, args, kwargs, outs)
             return
         if name in _WRITE_OPS:
             self._write(name, args, kwargs, outs)
             return
+        ins = _tensors((args, kwargs))
+        reads = [(t, _nbytes(t)) for t in ins]
+        writes = [(t, _nbytes(t, span=False)) for t in outs]
         if name in ("copy_",):
             dst, src = args[0], args[1]
             self._charge(0.0, 0.0, [(src, _nbytes(src))],
                          [(dst, _nbytes(dst, span=False))])
             return
-        if name.endswith("_") and outs and ins and outs[0] is ins[0]:
+        if name.endswith("_") and outs and ins and outs[0].tid == ins[0].tid:
             # in place: the result is the first operand, written once
             writes = [(outs[0], _nbytes(outs[0], span=False))]
-        flops, trans = self._flops(name, args, ins, outs)
+        flops, trans = _flops(name, args, ins, outs)
         self._charge(flops, trans, reads, writes)
+
+    def _charge(self, flops: float, trans: float,
+                reads: List[Tuple[Any, float]],
+                writes: List[Tuple[Any, float]]) -> None:
+        c = self.cost
+        by = {k: 0.0 for k in c.by_category}
+        for t, b in reads + writes:
+            by[t.cat] += b
+        total = sum(by.values())
+        c.flops += flops
+        c.transcendentals += trans
+        c.bytes += total
+        for k in by:
+            c.by_category[k] += by[k]
+        tag = self.scope
+        if tag is not None:
+            acc = c.scopes.setdefault(tag, {
+                "flops": 0.0, "bytes": 0.0,
+                **{f"{k}_bytes": 0.0 for k in by}})
+            acc["flops"] += flops
+            acc["bytes"] += total
+            for k in by:
+                acc[f"{k}_bytes"] += by[k]
 
     def _gather(self, name, args, kwargs, outs) -> None:
         table = args[0]
         if name == "embedding":
             table, idx = args[0], [args[1]]
         elif name == "index":
-            idx = [i for i in args[1] if isinstance(i, torch.Tensor)]
+            idx = [i for i in args[1] if isinstance(i, _TENSOR_TYPES)]
         elif name in ("index_select", "gather", "take_along_dim"):
             idx = [args[2]] if name != "take_along_dim" else [args[1]]
         else:
@@ -367,7 +516,7 @@ class OpCostMode(TorchDispatchMode):
             indices, values = args[1], args[2]
             acc = bool(args[3] if len(args) > 3
                        else kwargs.get("accumulate", False))
-            idx = [i for i in indices if isinstance(i, torch.Tensor)]
+            idx = [i for i in indices if isinstance(i, _TENSOR_TYPES)]
             bshape = torch.broadcast_shapes(*[i.shape for i in idx]) \
                 if idx else ()
             rest = [s for d, s in enumerate(dst.shape)
@@ -382,7 +531,7 @@ class OpCostMode(TorchDispatchMode):
             dim, index = args[1], args[2]
             src = args[3] if len(args) > 3 else kwargs.get("src")
             idx, acc = [index], bool(_WRITE_OPS[name])
-            srcs = [src] if isinstance(src, torch.Tensor) else []
+            srcs = [src] if isinstance(src, _TENSOR_TYPES) else []
             region = index.numel() * isize
         else:                             # masked / index fills
             idx = _tensors(args[1:2])
@@ -397,46 +546,49 @@ class OpCostMode(TorchDispatchMode):
         # a scatter is data movement in hlo_cost.py, its add combiner too
         self._charge(0.0, 0.0, reads, [(out, float(region))])
 
-    def _flops(self, name, args, ins, outs) -> Tuple[float, float]:
-        out_elems = float(sum(t.numel() for t in outs))
-        if name in _MATMUL_OPS:
-            a = args[1] if name in ("addmm", "baddbmm", "addmv",
-                                    "addbmm") else args[0]
-            k = a.shape[-1]
-            f = 2.0 * out_elems * k
-            if name in ("addmm", "baddbmm", "addmv", "addbmm"):
-                f += out_elems            # the bias add XLA fuses after
-            return f, 0.0
-        if name in _SDPA_OPS:
-            q, k = args[0], args[1]
-            o = q.shape[:-1] + (args[2].shape[-1],)
-            return 2.0 * _prod(o) * k.shape[-2] + 2.0 * _prod(
-                q.shape[:-1]) * k.shape[-2] * q.shape[-1], 0.0
-        if name in _CONV_OPS:
-            w = args[1]
-            return 2.0 * out_elems * _prod(w.shape[1:]), 0.0
-        if name in _MOVEMENT_OPS:
-            return 0.0, 0.0
-        if name in _COMPARE_REDUCTIONS:
-            return 0.0, 0.0
-        if name in ("_softmax", "softmax", "_log_softmax", "log_softmax"):
-            # max (compare), subtract, exp, sum, divide: XLA's decomposition
-            n = float(ins[0].numel())
-            return 4.0 * n, n
-        if name in _SUM_REDUCTIONS:
-            n = float(ins[0].numel())
-            if name in ("mean", "var", "std"):
-                n += out_elems
-            return n, 0.0
-        if name in _COMPOSITE_ELEMENTWISE:
-            f, tr = _COMPOSITE_ELEMENTWISE[name]
-            return f * out_elems, tr * out_elems
-        if name in TRANSCENDENTAL_OPS:
-            if name.startswith("pow") and len(args) > 1 and isinstance(
-                    args[1], (int, float)) and float(args[1]).is_integer():
-                return out_elems, 0.0
-            return out_elems, out_elems
-        return out_elems, 0.0
+
+def _flops(name, args, ins, outs) -> Tuple[float, float]:
+    """(FLOPs, transcendentals) of one op under the module docstring's
+    conventions (live tensors or :class:`TensorRec` alike)."""
+    out_elems = float(sum(t.numel() for t in outs))
+    if name in _MATMUL_OPS:
+        a = args[1] if name in ("addmm", "baddbmm", "addmv",
+                                "addbmm") else args[0]
+        k = a.shape[-1]
+        f = 2.0 * out_elems * k
+        if name in ("addmm", "baddbmm", "addmv", "addbmm"):
+            f += out_elems            # the bias add XLA fuses after
+        return f, 0.0
+    if name in _SDPA_OPS:
+        q, k = args[0], args[1]
+        o = q.shape[:-1] + (args[2].shape[-1],)
+        return 2.0 * _prod(o) * k.shape[-2] + 2.0 * _prod(
+            q.shape[:-1]) * k.shape[-2] * q.shape[-1], 0.0
+    if name in _CONV_OPS:
+        w = args[1]
+        return 2.0 * out_elems * _prod(w.shape[1:]), 0.0
+    if name in _MOVEMENT_OPS:
+        return 0.0, 0.0
+    if name in _COMPARE_REDUCTIONS:
+        return 0.0, 0.0
+    if name in ("_softmax", "softmax", "_log_softmax", "log_softmax"):
+        # max (compare), subtract, exp, sum, divide: XLA's decomposition
+        n = float(ins[0].numel())
+        return 4.0 * n, n
+    if name in _SUM_REDUCTIONS:
+        n = float(ins[0].numel())
+        if name in ("mean", "var", "std"):
+            n += out_elems
+        return n, 0.0
+    if name in _COMPOSITE_ELEMENTWISE:
+        f, tr = _COMPOSITE_ELEMENTWISE[name]
+        return f * out_elems, tr * out_elems
+    if name in TRANSCENDENTAL_OPS:
+        if name.startswith("pow") and len(args) > 1 and isinstance(
+                args[1], (int, float)) and float(args[1]).is_integer():
+            return out_elems, 0.0
+        return out_elems, out_elems
+    return out_elems, 0.0
 
 
 def walk(fn: Callable, *args, params: Any = None, pools: Any = None,

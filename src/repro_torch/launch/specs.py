@@ -13,14 +13,16 @@ partitions.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from ..models import cache_param_defs, model_param_defs
-from ..models.common import ModelConfig, ShapeCell
-from ..models.params import torch_dtype, tree_map
+from ..models import abstract_params, cache_param_defs, model_param_defs
+from ..models.common import ModelConfig, ShapeCell, model_flops
+from ..models.params import ParamDef, torch_dtype, tree_map
+from ..models.transformer import cross_len
 from ..parallel import sharding as shd
 from ..parallel.mesh import batch_shards, holds_blocks, mesh_axis_sizes
 from ..train.loop import abstract_state
@@ -102,22 +104,57 @@ def train_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
     return args, in_specs, (state_specs, None)
 
 
+def prefill_cache_specs(cfg: ModelConfig, B: int, S: int, mesh):
+    """The spec of every leaf of ``models.prefill``'s states for a global
+    batch of B prompts of S tokens on ``mesh``: the dense cache's
+    (``cache_param_defs``) with its lines at the prefill's own counts (S
+    a prompt, the source's frames or image tokens for cross attention;
+    the reference's cache shapes, without the static engine's rounding
+    to 16 lines).  Where the KV heads do not divide ``model`` the rules
+    put ``kv_seq`` on it (a rank holds its rows of the lines), else the
+    KV heads; MLA's latent lines always take it."""
+    def unrounded(d: ParamDef, lines: int) -> ParamDef:
+        if "kv_seq" not in d.logical:     # a recurrent mixer's state
+            return d
+        i = d.logical.index("kv_seq")
+        return dataclasses.replace(d, shape=d.shape[:i] + (lines,)
+                                   + d.shape[i + 1:])
+
+    segs = []
+    for seg, (unit, _) in zip(cache_param_defs(cfg, B, S), cfg.segments()):
+        segs.append({bk: {k: unrounded(d, cross_len(cfg, unit[int(bk[1:])])
+                                       if k in ("ck", "cv") else S)
+                          for k, d in leaves.items()}
+                     for bk, leaves in seg.items()})
+    return shd.tree_specs(segs, mesh)
+
+
 def prefill_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
                   mode: Optional[FakeTensorMode] = None):
-    """(args, in_specs, None) of ``models.prefill(params, cfg, tokens[,
-    source])``, ``cfg`` left out of both."""
+    """(args, in_specs, out_specs) of ``models.prefill(params, cfg,
+    tokens[, source])``, ``cfg`` left out of all three.  On a mesh of
+    ranks (``parallel.mesh.holds_blocks``, as :func:`train_specs`) the
+    args are one rank's: its global_batch / batch shards rows of the
+    prompts (and of the source) and its parameter blocks; the rank runs
+    ``prefill(..., cache_blocks=True)`` on its
+    ``train.step.train_local_config`` and returns the whole last logits
+    and its blocks of the cache, whose specs are ``out_specs[1]``
+    (:func:`prefill_cache_specs`)."""
     mode = mode or FakeTensorMode()
-    defs = model_param_defs(cfg)
+    ranks = holds_blocks(mesh)
     B, S = cell.global_batch, cell.seq_len
-    bs = batch_specs(cfg, B, S, mode)
+    rows = B // batch_shards(mesh) if ranks else B
+    bs = batch_specs(cfg, rows, S, mode)
     bsh = batch_shardings(cfg, B, S, mesh)
-    args = [_fake_tree(mode, defs), bs["tokens"]]
-    in_specs = [shd.tree_specs(defs, mesh), bsh["tokens"]]
+    params = _fake_like(mode, abstract_params(cfg, mesh if ranks else None))
+    args = [params, bs["tokens"]]
+    in_specs = [shd.tree_specs(model_param_defs(cfg), mesh), bsh["tokens"]]
     for key in ("enc_embeds", "img_embeds"):
         if key in bs:
             args.append(bs[key])
             in_specs.append(bsh[key])
-    return tuple(args), tuple(in_specs), None
+    out_specs = (None, prefill_cache_specs(cfg, B, S, mesh))
+    return tuple(args), tuple(in_specs), out_specs
 
 
 def decode_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
@@ -137,3 +174,9 @@ def decode_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
                 shd.resolve_spec(["batch", None], [B, 1], sizes),
                 shd.resolve_spec(["batch"], [B], sizes))
     return args, in_specs, None
+
+
+def cell_flops(cfg: ModelConfig, cell: ShapeCell) -> float:
+    """MODEL_FLOPS of one cell (``models.common.model_flops``), the
+    reference's ``cell_flops``."""
+    return model_flops(cfg, cell.seq_len, cell.global_batch, cell.kind)

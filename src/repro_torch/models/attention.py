@@ -16,6 +16,7 @@ dim G rides along so GQA never materializes repeated K/V.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -23,8 +24,9 @@ import torch
 from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
-from ..parallel.collectives import row_parallel_matmul, tp_copy
-from .common import KvSlicedConfig, ModelConfig
+from ..parallel.collectives import (row_parallel_matmul, seq_gather,
+                                    seq_slice, tp_copy)
+from .common import ModelConfig, layout_of
 from .layers import apply_rope, rms_head_norm, rope_cos_sin
 from .params import ParamDef, torch_dtype
 
@@ -90,12 +92,12 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig
 def _kv_weight(w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """``wk`` / ``wv`` (D, KV, hd) as this rank reads it.  Where the rules
     replicate the KV heads because they do not divide the tp axis (a
-    ``KvSlicedConfig``, whose ``n_kv_heads`` is then 1), the rank's local
+    ``kv_sliced`` layout, whose ``n_kv_heads`` is then 1), the rank's local
     query heads all read KV head ``coord x KV / tp``: the rank takes that
     slice, through ``tp_copy`` so that the ranks sharing a KV head sum
     their gradients (with one KV head, MQA, the slice is the whole
     weight, and the ``tp_copy`` all the same)."""
-    if not isinstance(cfg, KvSlicedConfig):
+    if not layout_of(cfg).kv_sliced:
         return w
     from ..parallel.mesh import active_mesh
     mesh = active_mesh()
@@ -142,10 +144,87 @@ def _attn_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
         return torch.einsum("bkgqs,bskh->bqkgh", p_attn, v)
 
 
+def _attend(q, k, v, q_pos, k_pos, cfg: ModelConfig, causal: bool
+            ) -> torch.Tensor:
+    """``_attn_core`` over q's rows, in query chunks of ``cfg.attn_chunk``
+    when there are more than two of them (the chunks bound the score
+    matrix to (B, KV, G, chunk, Sk))."""
+    scale = 1.0 / (cfg.hd ** 0.5)
+    S, chunk = q.shape[1], cfg.attn_chunk
+    if S > 2 * chunk and S % chunk == 0:
+        return torch.cat([
+            _attn_core(q[:, i:i + chunk], k, v,
+                       None if q_pos is None else q_pos[:, i:i + chunk],
+                       k_pos, causal=causal, scale=scale,
+                       soft_cap=cfg.attn_logit_soft_cap)
+            for i in range(0, S, chunk)], dim=1)
+    return _attn_core(q, k, v, q_pos, k_pos, causal=causal, scale=scale,
+                      soft_cap=cfg.attn_logit_soft_cap)
+
+
+def _axis_rows(cfg: ModelConfig, S: int) -> Optional[slice]:
+    """This rank's block of S rows over ``cfg.tp_axis``, None when the
+    axis does not divide S."""
+    from ..parallel.mesh import active_mesh
+    mesh = active_mesh()
+    n = mesh.sizes[cfg.tp_axis]
+    if S % n:
+        return None
+    r = mesh.coord(cfg.tp_axis)
+    return slice(r * S // n, (r + 1) * S // n)
+
+
+def context_rows(cfg: ModelConfig, S: int) -> Optional[slice]:
+    """This rank's rows of an S-long sequence under context-parallel
+    attention (a ``context_parallel`` layout: query heads that do not
+    divide ``cfg.tp_axis``), the reference's ``seq_fb`` claim; None when
+    attention runs on every row: no such config, or S does not divide
+    the axis (the legalizer then leaves the rows whole, and every rank
+    attends all of them)."""
+    if cfg.tp_axis is None or not layout_of(cfg).context_parallel:
+        return None
+    return _axis_rows(cfg, S)
+
+
+def line_rows(cfg: ModelConfig, S: int, *, latent: bool = False
+              ) -> Optional[slice]:
+    """This rank's rows of a dense cache's S lines: the rules put
+    ``kv_seq`` on ``model`` where the KV heads do not divide it (a
+    ``kv_sliced`` or ``context_parallel`` layout; MLA's latent lines,
+    ``latent``, always) and S does; None where the rank holds every line
+    of its KV heads."""
+    lay = layout_of(cfg)
+    if cfg.tp_axis is None or not (latent or lay.kv_sliced
+                                   or lay.context_parallel):
+        return None
+    return _axis_rows(cfg, S)
+
+
+def _rope_rows(rope: Rope, rows: slice) -> Rope:
+    """RoPE tables (..., S, hd/2) cut to ``rows`` of S."""
+    if rope is None:
+        return None
+    return rope[0][..., rows, :], rope[1][..., rows, :]
+
+
+def _block_lines(p, src: torch.Tensor, cfg: ModelConfig, rope: Rope,
+                 rows: slice):
+    """The cache lines of ``rows`` of ``src`` for every KV head of the
+    replicated ``wk`` / ``wv`` (a KV-sliced rank's block of the cache:
+    its lines, all heads), k-normed and RoPE'd as attended."""
+    xs = src[:, rows]
+    k, v = _heads(xs, p["wk"]), _heads(xs, p["wv"])
+    if cfg.qk_norm:
+        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+    if rope is not None:
+        k = apply_rope(k, *_rope_rows(rope, rows))
+    return k, v
+
+
 def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                         positions: Optional[torch.Tensor], rope: Rope,
                         kv_src: Optional[torch.Tensor] = None,
-                        causal: Optional[bool] = None
+                        causal: Optional[bool] = None, lines: bool = False
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention (prefill, encoder).  x (B, S, D),
     positions (B, S) or None (``arange``), ``rope`` = rope_tables(cfg,
@@ -153,7 +232,22 @@ def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     no RoPE, not causal, and the output scaled by ``tanh(gate)``; else
     causal as ``cfg.causal`` unless ``causal`` says otherwise.  Returns
     (out (B, S, D), {"k", "v"} (B, Sk, KV, hd)) — the K/V lines a prefill
-    collects (qk-normed and RoPE'd as attended)."""
+    collects (qk-normed and RoPE'd as attended).  With ``lines`` (a
+    prefill collecting them) a tensor-parallel rank returns its block of
+    the dense cache (:func:`line_rows`): its rows of the lines where the
+    rules cut them, a KV-sliced rank's for every KV head.
+
+    On a ``context_parallel`` layout whose sequence divides the axis
+    (:func:`context_rows`) attention runs context parallel: q and o for
+    the rank's rows of the sequence, K / V whole, the causal mask offset
+    to the rows, and the o-projection of the rank's rows gathered along
+    the sequence (``collectives.seq_gather``); under
+    ``cfg.tp_attn_inner`` o is gathered instead and the o-projection
+    splits the flat H x hd dim over the axis (``_out_proj``'s
+    row-parallel product).  The replicated weights a rank reads for its
+    rows only, and the activations entering, go through ``tp_copy``.
+    Where the sequence does not divide, attention runs whole on every
+    rank, without edges."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
@@ -161,9 +255,6 @@ def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     src = kv_src if cross else x
     causal = (cfg.causal and not cross) if causal is None else causal
     rope = None if cross else rope
-    q, k, v = _project_qkv(p, x, src, cfg, rope, rope)
-    q = q.reshape(B, S, KV, G, hd)
-    scale = 1.0 / (hd ** 0.5)
     Sk = src.shape[1]
     q_pos = k_pos = None
     if causal:
@@ -173,22 +264,61 @@ def multihead_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         q_pos = positions
         k_pos = (positions if Sk == S else torch.arange(
             Sk, dtype=torch.int32, device=x.device).expand(B, Sk))
-    chunk = cfg.attn_chunk
-    if S > 2 * chunk and S % chunk == 0:
-        # query chunks bound the score matrix to (B, KV, G, chunk, Sk)
-        o = torch.cat([
-            _attn_core(q[:, i:i + chunk], k, v,
-                       None if q_pos is None else q_pos[:, i:i + chunk],
-                       k_pos, causal=causal, scale=scale,
-                       soft_cap=cfg.attn_logit_soft_cap)
-            for i in range(0, S, chunk)], dim=1)
+    rows = context_rows(cfg, S)
+    if rows is None and layout_of(cfg).context_parallel:
+        cfg = dataclasses.replace(cfg, tp_axis=None)    # whole on every rank
+    if rows is None:
+        q, k, v = _project_qkv(p, x, src, cfg, rope, rope)
+        o = _attend(q.reshape(B, S, KV, G, hd), k, v, q_pos, k_pos, cfg,
+                    causal)
+        out = _out_proj(o, p["wo"], cfg)
     else:
-        o = _attn_core(q, k, v, q_pos, k_pos, causal=causal, scale=scale,
-                       soft_cap=cfg.attn_logit_soft_cap)
-    out = _out_proj(o, p["wo"], cfg)
+        out, k, v = _context_parallel(p, x, src, cfg, rope, rows, q_pos,
+                                      k_pos, causal)
     if cross and "gate" in p:
         out = torch.tanh(p["gate"]).to(out.dtype) * out
+    if lines:
+        lr = line_rows(cfg, Sk)
+        if lr is not None:
+            k, v = ((k[:, lr], v[:, lr]) if rows is not None
+                    else _block_lines(p, src, cfg, rope, lr))
     return out, {"k": k, "v": v}
+
+
+def _context_parallel(p, x: torch.Tensor, src: torch.Tensor,
+                      cfg: ModelConfig, rope: Rope, rows: slice,
+                      q_pos, k_pos, causal: bool):
+    """:func:`multihead_attention`'s context-parallel body: returns (out
+    (B, S, D) gathered, k, v whole)."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    axis = cfg.tp_axis
+    same = src is x
+    x = tp_copy(x, axis)
+    src = x if same else tp_copy(src, axis)
+    w = {k: tp_copy(v, axis) for k, v in p.items()
+         if k in ("wq", "wk", "wv", "wo", "q_norm", "k_norm")}
+    q = _heads(seq_slice(x, 1, axis), w["wq"])
+    k, v = _heads(src, w["wk"]), _heads(src, w["wv"])
+    if cfg.qk_norm:
+        q = rms_head_norm(w["q_norm"], q, cfg.norm_eps)
+        k = rms_head_norm(w["k_norm"], k, cfg.norm_eps)
+    if rope is not None:
+        q = apply_rope(q, *_rope_rows(rope, rows))
+        k = apply_rope(k, *rope)
+    n = rows.stop - rows.start
+    o = _attend(q.reshape(B, n, KV, H // KV, hd), k, v,
+                None if q_pos is None else q_pos[:, rows], k_pos, cfg,
+                causal).reshape(B, n, H * hd)
+    wo = w["wo"].reshape(H * hd, D)
+    cols = _axis_rows(cfg, H * hd)
+    if cfg.tp_attn_inner and cols is not None:
+        # tp_oproj: o gathered along the sequence, then the flat H x hd
+        # dim split over the axis, a row-parallel product
+        o = tp_copy(seq_gather(o, 1, axis), axis)
+        return (row_parallel_matmul(o[..., cols], wo[cols], axis,
+                                    cfg.tp_overlap), k, v)
+    return seq_gather(o @ wo, 1, axis), k, v
 
 
 # --------------------------------------------------------------------------

@@ -152,15 +152,49 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class KvSlicedConfig(ModelConfig):
-    """A tensor-parallel training rank's local config whose KV heads do
-    not divide the tp axis (``parallel.sharding.tp_local_config(...,
-    kv_slice=True)``): the rules replicate ``wk`` / ``wv``, and the rank
-    reads the ``n_kv_heads`` of them that its query heads use, through
-    ``tp_copy`` (models/attention.py).  The type is the fact: the local
-    shapes alone cannot tell a replicated KV head (MQA) from a shard of
-    one head a rank.  No field of its own, so it stays equal field by
-    field to the configs the reference holds."""
+class LocalLayout:
+    """How a tensor-parallel training or prefill rank's layers depart from
+    the head-parallel layout, as the specs the rules resolve say
+    (``parallel.sharding.tp_local_config(..., train=True)``):
+
+    * ``kv_sliced``: the KV heads do not divide the tp axis; the rules
+      replicate ``wk`` / ``wv`` and the rank reads the ``n_kv_heads`` of
+      them that its query heads use, through ``tp_copy``
+      (models/attention.py).  The local shapes alone cannot tell a
+      replicated KV head (MQA) from a shard of one head a rank;
+    * ``context_parallel``: the query heads do not divide the axis; they
+      stay whole and attention runs over the rank's rows of the
+      sequence, the reference's ``seq_fb`` layout: q and o for the rows,
+      K / V whole (models/attention.py);
+    * ``whole_ffn``: a dense d_ff that the axis does not divide; the
+      rules replicate it and every rank runs the FFN whole, without
+      edges (models/layers.py).
+
+    KV slicing and context parallelism exclude each other: whole query
+    heads read whole KV heads."""
+    kv_sliced: bool = False
+    context_parallel: bool = False
+    whole_ffn: bool = False
+
+    def __post_init__(self):
+        if self.kv_sliced and self.context_parallel:
+            raise ValueError("a KV-sliced config has its query heads split")
+
+
+HEAD_PARALLEL = LocalLayout()
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalConfig(ModelConfig):
+    """A rank's local config whose layout is not head parallel: its one
+    field beyond :class:`ModelConfig`'s is ``layout``, so that every
+    other field stays equal to the one the reference holds."""
+    layout: LocalLayout = HEAD_PARALLEL
+
+
+def layout_of(cfg: ModelConfig) -> LocalLayout:
+    """The rank's layout: a :class:`LocalConfig`'s, else head parallel."""
+    return cfg.layout if isinstance(cfg, LocalConfig) else HEAD_PARALLEL
 
 
 @dataclasses.dataclass(frozen=True)

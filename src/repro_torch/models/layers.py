@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from ..core.roofline.op_cost import named_scope
 from ..parallel.collectives import (all_gather_cols, row_parallel_matmul,
                                     tp_copy, tp_reduce)
-from .common import ModelConfig
+from .common import ModelConfig, layout_of
 from .params import ParamDef, torch_dtype
 
 
@@ -120,10 +120,13 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The dense FFN.  Under tensor parallelism (``cfg.tp_axis``) the rank
     holds its slice of d_ff: x enters through ``tp_copy`` (the up and
     gate products are column-sharded), and the down-projection contracts
-    a partial inner dim that the row-parallel edge sums over the axis."""
-    x = tp_copy(x, cfg.tp_axis)
-    return row_parallel_matmul(_mlp_hidden(p, x, cfg), p["w_down"],
-                               cfg.tp_axis, cfg.tp_overlap)
+    a partial inner dim that the row-parallel edge sums over the axis.
+    A ``whole_ffn`` layout (a d_ff the axis does not divide, replicated
+    by the rules) runs the whole FFN on every rank, without edges."""
+    axis = None if layout_of(cfg).whole_ffn else cfg.tp_axis
+    x = tp_copy(x, axis)
+    return row_parallel_matmul(_mlp_hidden(p, x, cfg), p["w_down"], axis,
+                               cfg.tp_overlap)
 
 
 def mlp_partial(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

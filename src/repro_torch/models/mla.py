@@ -38,7 +38,7 @@ from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
 from ..parallel.collectives import tp_copy
 from .attention import (NEG_INF, Rope, _commit_kv, _heads, _out_proj,
-                        dense_lines, gather_pages)
+                        dense_lines, gather_pages, line_rows)
 from .common import ModelConfig
 from .layers import rms_head_norm, rope_cos_sin
 from .params import ParamDef
@@ -118,11 +118,13 @@ def _latent_kv(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
 
 def mla_attention(p, x: torch.Tensor, cfg: ModelConfig,
                   q_positions: Optional[torch.Tensor] = None, *,
-                  rope: Rope = None
+                  rope: Rope = None, lines: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence causal MLA with K, V expanded per head.  x (B, S, D).
     Returns (out (B, S, D), {"c_kv" (B,S,r), "k_rope" (B,S,dr)}) — the
-    latent lines a prefill collects."""
+    latent lines a prefill collects; with ``lines`` a tensor-parallel
+    rank's block of them, its rows of the sequence (the rules put the
+    latent cache's ``kv_seq`` on ``model``: ``attention.line_rows``)."""
     B, S, _ = x.shape
     dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
     if q_positions is None:
@@ -158,6 +160,9 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig,
                        for i in range(0, S, chunk)], dim=1)
     else:
         o = chunk_attn(q_nope, q_rope, q_positions)
+    rows = line_rows(cfg, S, latent=True) if lines else None
+    if rows is not None:
+        c_kv, k_rope = c_kv[:, rows], k_rope[:, rows]
     return _out_proj(o, p["wo"], cfg), {"c_kv": c_kv, "k_rope": k_rope}
 
 

@@ -146,18 +146,24 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             enc_embeds: Optional[torch.Tensor] = None,
-            img_embeds: Optional[torch.Tensor] = None):
+            img_embeds: Optional[torch.Tensor] = None,
+            cache_blocks: bool = False):
     """Full-context forward collecting decode state (``enc_embeds`` /
     ``img_embeds``: the cross-attention source of an encoder-decoder or
     vision model).  Returns (last_logits (B, V), states) — per segment,
     attention lines stacked (reps, B, S, ...), cross lines (reps, B,
     S_src, ...) and recurrent final states (reps, B, ...), ready for
     ``PagedKVCache.write_prefill_states`` or the static engine's dense
-    caches."""
+    caches.  With ``cache_blocks`` a rank of a training mesh (``cfg``
+    its ``train.step.train_local_config``, under the active mesh)
+    returns its blocks of the dense cache as the rules shard it
+    (``shd.tree_specs(cache_param_defs(...))``): its rows of the lines
+    where the KV heads do not divide ``model``, else its KV heads."""
     logits, _, states = tfm.forward_full(params, cfg, tokens,
                                          enc_embeds=enc_embeds,
                                          img_embeds=img_embeds,
-                                         collect_state=True, remat=False)
+                                         collect_state=True, remat=False,
+                                         cache_blocks=cache_blocks)
     return logits[:, -1, :], states
 
 

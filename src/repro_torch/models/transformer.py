@@ -297,43 +297,51 @@ def _cross_kv(p, src: torch.Tensor, cfg: ModelConfig):
     return attn._heads(src, p["wk"]), attn._heads(src, p["wv"])
 
 
-def _cross_attend(p, h: torch.Tensor, src: torch.Tensor, cfg: ModelConfig
+def _cross_attend(p, h: torch.Tensor, src: torch.Tensor, cfg: ModelConfig,
+                  lines: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence gated cross attention of h over ``src`` and the
-    lines a prefill collects for it ({"ck", "cv"}, :func:`_cross_kv`)."""
+    lines a prefill collects for it ({"ck", "cv"}, :func:`_cross_kv`;
+    with ``lines`` a tensor-parallel rank's block of them,
+    ``attention.multihead_attention``'s)."""
     o, kv = attn.multihead_attention(p, h, cfg, positions=None, rope=None,
-                                     kv_src=src, causal=False)
-    ck, cv = (_cross_kv(p, src, cfg) if cfg.qk_norm
-              else (kv["k"], kv["v"]))
-    return o, {"ck": ck, "cv": cv}
+                                     kv_src=src, causal=False, lines=lines)
+    if not cfg.qk_norm:
+        return o, {"ck": kv["k"], "cv": kv["v"]}
+    rows = attn.line_rows(cfg, src.shape[1]) if lines else None
+    return o, dict(zip(("ck", "cv"), _cross_kv(
+        p, src if rows is None else src[:, rows], cfg)))
 
 
 def apply_block_full(p, b: BlockDef, x: torch.Tensor, cfg: ModelConfig,
                      positions: Optional[torch.Tensor],
                      ropes: Dict[str, attn.Rope],
-                     cross_src: Optional[torch.Tensor] = None
+                     cross_src: Optional[torch.Tensor] = None,
+                     lines: bool = False
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                 Dict[str, torch.Tensor]]:
     """Returns (x, aux, state): the MoE aux loss (None without a MoE
     FFN) and the block's cache lines: {"k", "v"} for GQA, {"ck", "cv"}
     over ``cross_src`` (B, S_src, D) for cross attention (both for
     ``attn+cross``), {"c_kv", "k_rope"} for MLA; a recurrent mixer's
-    final state."""
+    final state.  With ``lines`` (a prefill collecting them) a
+    tensor-parallel rank's lines are its block of the dense cache
+    (``attention.line_rows``)."""
     h = apply_norm(p["norm1"], x, cfg)
     if b.mixer in ("attn", "attn+cross"):
         o, state = attn.multihead_attention(p["mixer"], h, cfg,
                                             positions=positions,
-                                            rope=ropes["attn"])
+                                            rope=ropes["attn"], lines=lines)
         if b.mixer == "attn+cross":
             x = x + cfg.residual_scale * o
             h2 = apply_norm(p["norm_x"], x, cfg)
-            o, cross = _cross_attend(p["cross"], h2, cross_src, cfg)
+            o, cross = _cross_attend(p["cross"], h2, cross_src, cfg, lines)
             state = {**state, **cross}
     elif b.mixer == "cross_attn":
-        o, state = _cross_attend(p["mixer"], h, cross_src, cfg)
+        o, state = _cross_attend(p["mixer"], h, cross_src, cfg, lines)
     elif b.mixer == "mla":
         o, state = mla_mod.mla_attention(p["mixer"], h, cfg, positions,
-                                         rope=ropes["mla"])
+                                         rope=ropes["mla"], lines=lines)
     else:
         o, state = _recurrent_mixer(p["mixer"], b, h, cfg, None)
     x = x + cfg.residual_scale * o
@@ -568,7 +576,7 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
                  enc_embeds: Optional[torch.Tensor] = None,
                  img_embeds: Optional[torch.Tensor] = None,
                  collect_state: bool = False,
-                 remat: Optional[bool] = None):
+                 remat: Optional[bool] = None, cache_blocks: bool = False):
     """Full-sequence forward.  tokens (B, S) int; ``enc_embeds`` (B,
     frames, D) for an encoder-decoder model (run through the encoder),
     ``img_embeds`` (B, n_img, D) for a vision model: the cross-attention
@@ -581,7 +589,11 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
     MoE); states (with ``collect_state``) per segment ``{"b<i>": lines}``
     stacked (reps, B, S, ...) for attention blocks ((reps, B, S_src, ...)
     for their cross lines) and a recurrent block's final state (reps, B,
-    ...), else None."""
+    ...), else None.  With ``cache_blocks`` a tensor-parallel rank's
+    states are its blocks of the dense cache under the training rules
+    (``attention.line_rows``: its rows of the lines where they cut
+    them), the prefill a dry run walks; serving's prefill keeps its
+    ranks' whole lines."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
@@ -607,7 +619,8 @@ def forward_full(params, cfg: ModelConfig, tokens: torch.Tensor,
             st = {}
             for i, b in enumerate(unit):
                 y, ab, st[f"b{i}"] = apply_block_full(
-                    layer_p[f"b{i}"], b, y, cfg, positions, ropes, cross_src)
+                    layer_p[f"b{i}"], b, y, cfg, positions, ropes, cross_src,
+                    collect_state and cache_blocks)
                 if ab is not None:
                     a = a + ab
             # a layer's lines leave the body only when they are collected

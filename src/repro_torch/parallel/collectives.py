@@ -26,6 +26,10 @@ unsharded model: the plain product, no collective.
   computes it as :func:`ring_matmul_reduce`, serving only;
 * :func:`all_gather_cols`: the vocab-sharded logits edge, whose backward
   keeps the rank's own column block;
+* :func:`seq_slice` / :func:`seq_gather`: the edges of context-parallel
+  attention (query heads that do not divide the axis: the rank's rows of
+  the sequence), a slice whose backward pads the cotangent with zeros
+  and an all-gather whose backward keeps the rank's rows;
 * :func:`ring_allgather_matmul`, :func:`psum_scatter_matmul`: the
   sequence-parallel entry edge and the reduce-scatter epilogue;
 * data parallelism over the batch axes ``("data", "pod")``
@@ -189,6 +193,87 @@ def all_gather_cols(x: torch.Tensor, axis: str) -> torch.Tensor:
     if _grad_edge(x):
         return _GatherCols.apply(x, group)
     return _gather_cols(x, group)
+
+
+def _rows(n: int, r: int, size: int) -> slice:
+    k = size // n
+    return slice(r * k, (r + 1) * k)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of ``group`` laid side by side along ``dim``, in
+    rank order (one all-gather of the blocks moved to the front)."""
+    n, _ = _size_rank(group)
+    src = x.movedim(dim, 0).contiguous()
+    buf = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    _ALL_GATHER(buf, src, group=group)
+    return buf.movedim(0, dim)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The all-gather of sequence blocks along ``dim``; backward keeps the
+    rank's own block of the cotangent (every rank's consumer of the
+    gathered rows is the same replicated computation, so each rank's
+    cotangent is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.rank, ctx.k = dim, _size_rank(group)[1], x.shape[dim]
+        from ..core.roofline.op_cost import named_scope
+        with named_scope("seq_gather"):
+            return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy.narrow(ctx.dim, ctx.rank * ctx.k, ctx.k), None, None
+
+
+class _SeqSlice(torch.autograd.Function):
+    """The rank's block of a replicated activation along ``dim``;
+    backward puts the cotangent back into zeros of the whole shape."""
+
+    @staticmethod
+    def forward(ctx, x, dim, n, r):
+        ctx.dim, ctx.shape = dim, x.shape
+        ctx.rows = _rows(n, r, x.shape[dim])
+        return x.narrow(dim, ctx.rows.start, ctx.rows.stop - ctx.rows.start)
+
+    @staticmethod
+    def backward(ctx, gy):
+        gx = gy.new_zeros(ctx.shape)
+        gx.narrow(ctx.dim, ctx.rows.start,
+                  ctx.rows.stop - ctx.rows.start).copy_(gy)
+        return gx, None, None, None
+
+
+def seq_slice(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """This rank's rows of ``x`` along ``dim`` (its block of ``size /
+    n``, rank order over ``axis``): the entry of a context-parallel
+    region.  Moves nothing; differentiable while ``x`` carries a
+    gradient (:class:`_SeqSlice`), else a view."""
+    from .mesh import active_mesh
+    mesh = active_mesh()
+    n, r = mesh.sizes[axis], mesh.coord(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"into {n} blocks over {axis!r}")
+    if _grad_edge(x):
+        return _SeqSlice.apply(x, dim, n, r)
+    rows = _rows(n, r, x.shape[dim])
+    return x.narrow(dim, rows.start, rows.stop - rows.start)
+
+
+def seq_gather(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """The ranks' sequence blocks of ``x`` gathered along ``dim`` over
+    ``axis`` (the exit of a context-parallel region), tagged
+    ``seq_gather`` for the walk; differentiable while ``x`` carries a
+    gradient (:class:`_SeqGather`)."""
+    group = axis_group(axis)
+    if _grad_edge(x):
+        return _SeqGather.apply(x, dim, group)
+    from ..core.roofline.op_cost import named_scope
+    with named_scope("seq_gather"):
+        return _gather_dim(x, dim, group)
 
 
 def _ring_shift(t: torch.Tensor, group) -> torch.Tensor:
@@ -423,5 +508,5 @@ __all__ = [
     "gather_shards", "tp_copy", "tp_reduce",
     "psum", "reduce_scatter_dim", "psum_scatter_matmul", "ring_allgather_matmul",
     "ring_matmul_reduce", "row_parallel_matmul", "row_parallel_psum",
-    "staged_p2p",
+    "seq_gather", "seq_slice", "staged_p2p",
 ]

@@ -119,6 +119,33 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
     return Mesh(names, shape, rank, groups, dist.get_backend())
 
 
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """This process as rank ``rank`` of a world of ``world`` ranks that
+    do not exist: PyTorch's ``fake`` process-group backend, under which
+    every collective returns at once and moves nothing, so one process
+    can walk one rank of a 256-rank step (``launch/dryrun.py``) while
+    :func:`make_host_mesh` builds its axis groups over it as over a real
+    world.  The backend lives in ``torch.testing._internal`` (its
+    ``FakeStore`` registers it); this is the one place the port reaches
+    it.  Refuses to start inside an initialized process group; destroys
+    the fake one on the way out."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           f"initialized ({dist.get_backend()}, "
+                           f"{dist.get_world_size()} ranks)")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} not in a world of {world}")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                            world_size=int(world))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def single_device_mesh() -> Mesh:
     return Mesh(("data", "model"), (1, 1))
 
@@ -356,7 +383,7 @@ def spawn(fn: Callable, world: int, *, device: str,
 __all__ = [
     "BATCH_AXES", "DATA_AXIS", "MODEL_AXIS", "POD_AXIS", "Mesh",
     "active_mesh", "axis_group", "batch_shard", "batch_shards",
-    "dp_axes", "dp_backend", "dp_submeshes", "host_devices",
+    "dp_axes", "dp_backend", "dp_submeshes", "fake_world", "host_devices",
     "make_host_mesh", "mesh_axis_sizes", "rank_device",
     "single_device_mesh", "spawn", "use_mesh",
 ]

@@ -28,7 +28,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.common import KvSlicedConfig, ModelConfig
+from ..models.common import (HEAD_PARALLEL, LocalConfig, LocalLayout,
+                             ModelConfig)
 from ..models.params import ParamDef, tree_count, tree_nbytes
 from ..models.params import tree_map
 from .mesh import MODEL_AXIS, mesh_axis_sizes
@@ -122,53 +123,71 @@ DECODE_TP_RULES = DEFAULT.override(
 _KV_MIXERS = ("attn", "attn+cross", "cross_attn")
 
 
-def tp_width_error(cfg: ModelConfig, tp: int, *, kv_slice: bool = False
+def tp_width_error(cfg: ModelConfig, tp: int, *, train: bool = False
                    ) -> Optional[str]:
     """Why the widths of ``cfg`` cannot be split ``tp`` ways (None when
-    they can): the query / o heads, the GQA KV heads, the dense FFN's
-    inner dim.  Serving shards KV heads with their pools, so they must
-    divide; with ``kv_slice`` (training) KV heads that do not divide are
-    replicated by the rules and each rank slices the one its query heads
-    read, which needs ``tp`` to be a multiple of them."""
+    they can).  Serving (the default): the query / o heads, the GQA KV
+    heads (the KV pools shard over them) and the dense FFN's inner dim
+    must divide.  Training and prefill (``train``) take the reference's
+    fallbacks instead: query heads that do not divide stay whole and
+    attention runs context parallel (``seq_fb``); KV heads that do not
+    divide are replicated and each rank slices the one its query heads
+    read, which needs ``tp`` to be a multiple of them; a dense ``d_ff``
+    that does not divide stays whole."""
     if tp <= 1:
         return None
     if cfg.n_heads % tp:
+        if train:
+            return None
         return f"{cfg.name}: n_heads {cfg.n_heads} not divisible by tp={tp}"
     kv_mixers = {b.mixer for b in cfg.block_pattern} & set(
-        _KV_MIXERS if kv_slice else ("attn",))
-    if kv_mixers and cfg.n_kv_heads % tp and (not kv_slice
+        _KV_MIXERS if train else ("attn",))
+    if kv_mixers and cfg.n_kv_heads % tp and (not train
                                               or tp % cfg.n_kv_heads):
         return (f"{cfg.name}: n_kv_heads {cfg.n_kv_heads} not divisible "
-                f"by tp={tp} (KV pools shard over kv_heads)" if not kv_slice
+                f"by tp={tp} (KV pools shard over kv_heads)" if not train
                 else f"{cfg.name}: n_kv_heads {cfg.n_kv_heads} neither "
                 f"divides nor is divided by tp={tp}")
-    if any(b.ffn == "dense" for b in cfg.block_pattern) and cfg.d_ff % tp:
+    if (not train and any(b.ffn == "dense" for b in cfg.block_pattern)
+            and cfg.d_ff % tp):
         return f"{cfg.name}: d_ff {cfg.d_ff} not divisible by tp={tp}"
     return None
 
 
 def tp_local_config(cfg: ModelConfig, tp: int, overlap: str = "none",
-                    *, kv_slice: bool = False) -> ModelConfig:
+                    *, train: bool = False) -> ModelConfig:
     """The config one rank's steps run at tensor-parallel width ``tp``
     (the gates are the caller's: :func:`tp_width_error` and its own):
     local head and FFN counts, an explicit head_dim (it must not
     re-derive from the local head count), ``tp_axis`` naming the axis
     the collective edges reduce over, and ``tp_overlap`` their schedule
-    ("none" | "ring").  KV heads that do not divide stay global, or with
-    ``kv_slice`` become the one KV head a rank's query heads read (a
-    ``models.common.KvSlicedConfig``).  vocab_size, n_experts and
-    moe_d_ff stay global: the logits edge, the embedding and the MoE
-    layer tell a sharded leaf by its shape."""
-    kv = cfg.n_kv_heads
-    if kv % tp == 0:
-        kv //= tp
-    elif kv_slice:
-        kv = 1
-        cfg = KvSlicedConfig(**{f.name: getattr(cfg, f.name)
-                                for f in dataclasses.fields(cfg)})
+    ("none" | "ring").  KV heads that do not divide stay global.  In the
+    training-and-prefill mode (``train``) the rank's layouts follow the
+    specs the rules resolve: query heads that do not divide stay whole
+    (with the KV heads) and attention runs over the rank's rows of the
+    sequence; KV heads that do not divide become the one KV head a
+    rank's query heads read; a dense ``d_ff`` that does not divide stays
+    whole: a ``models.common.LocalConfig`` whose ``layout`` says which.  vocab_size, n_experts and moe_d_ff
+    stay global: the logits edge, the embedding and the MoE layer tell a
+    sharded leaf by its shape (a vocabulary that does not divide is
+    whole)."""
+    heads, kv = cfg.n_heads, cfg.n_kv_heads
+    cp = train and heads % tp != 0
+    sliced = False
+    if not cp:
+        heads //= tp
+        if kv % tp == 0:
+            kv //= tp
+        elif train:
+            kv, sliced = 1, True
+    layout = LocalLayout(sliced, cp, train and cfg.d_ff % tp != 0)
+    if layout != HEAD_PARALLEL:
+        cfg = LocalConfig(**{f.name: getattr(cfg, f.name)
+                             for f in dataclasses.fields(ModelConfig)},
+                          layout=layout)
     return dataclasses.replace(
         cfg,
-        n_heads=cfg.n_heads // tp,
+        n_heads=heads,
         n_kv_heads=kv,
         head_dim=cfg.hd,
         d_ff=cfg.d_ff // tp if cfg.d_ff % tp == 0 else cfg.d_ff,

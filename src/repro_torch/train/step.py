@@ -39,8 +39,12 @@ whose forward crosses ranks only at the differentiable tp edges
 update, up to the order of the row-parallel sums.  The ranks of one
 ``model`` row take the same batch rows; ZeRO-1 cuts each rank's model
 block along ``data`` (optimizer.py), and the clip's norm sums a
-model-sharded leaf's squares over ``model``.  :func:`tp_wire_bytes`
-counts a step's ``model``-axis bytes by edge.
+model-sharded leaf's squares over ``model``.  Where the query heads do
+not divide ``model`` the rank's attention runs context parallel instead
+(the reference's ``seq_fb`` layout, a ``models.common.LocalLayout``
+``context_parallel``): the heads whole, the rank's rows of the
+sequence, the rows gathered after the o-projection.
+:func:`tp_wire_bytes` counts a step's ``model``-axis bytes by edge.
 """
 
 from __future__ import annotations
@@ -179,87 +183,138 @@ def tp_wire_bytes(cfg: ModelConfig, sizes: Dict[str, int], B: int, S: int,
     model dtype):
 
     * ``tp_reduce`` (forward): the vocab-sharded embedding's (T, D); per
-      layer the o-projection's (two for self + cross attention) and the
-      FFN's (a MoE layer's one, routed plus shared); under remat "full" /
-      "dots" the recompute of a checkpointed body (a segment's unit, an
-      encoder layer under "full") runs its reduces again, all but the
-      last: torch stops a recompute at the last tensor the backward
-      needs, and nothing after the last reduce saves one;
-    * ``tp_copy`` (backward): per attention layer the (T, D) input, a
-      cross-attention source that carries a gradient (whisper's encoder
-      output, not an image embedding), the two qk-norm scales (float32),
-      ``wk`` and ``wv`` where the KV heads are replicated and sliced; per
-      MLA layer ``c_q`` (x without a q latent), ``c_kv`` and ``k_rope``;
-      per FFN its input, a MoE layer's float32 gates (T, k) as well; the
-      logits' input;
+      head-sharded attention the o-projection's (two for self + cross
+      attention), per split FFN its own (a MoE layer's one, routed plus
+      shared);
+    * ``seq_gather`` (forward): per context-parallel attention (query
+      heads that do not divide ``model``, over a sequence that does) the
+      o-projection's (T, D) rows gathered, or under ``tp_attn_inner`` o's
+      (T, H x hd) rows, then the flat o-projection's ``tp_reduce``;
+    * under remat "full" / "dots" the recompute of a checkpointed body
+      (a segment's unit, an encoder layer under "full") runs its forward
+      collectives again up to the last compute that saves a tensor for
+      the backward: torch stops a recompute there, so a body ending in
+      a collective (a split FFN's reduce) runs all but that one again,
+      and one ending in a whole FFN all of them;
+    * ``tp_copy`` (backward): per head-sharded attention layer the
+      (T, D) input, a cross-attention source that carries a gradient
+      (whisper's encoder output, not an image embedding), the two
+      qk-norm scales (float32), ``wk`` and ``wv`` where the KV heads are
+      replicated and sliced; per context-parallel one the input, such a
+      source, the qk-norm scales and all four weights (each rank reads
+      them for its rows), and under ``tp_attn_inner`` the gathered o;
+      per MLA layer ``c_q`` (x without a q latent), ``c_kv`` and
+      ``k_rope``; per split FFN its input, a MoE layer's float32 gates
+      (T, k) as well; the logits' input;
     * ``tp_gather`` (forward): the logits' (T, V);
     * ``norm``: the clip's float32 vector of squares, one a leaf, once a
       step.
 
-    A vocabulary the axis does not divide stays whole (no embedding,
-    logits or gather edge).  ``model`` is the sum.  All zeros without a
-    ``model`` axis."""
+    A vocabulary or a dense ``d_ff`` the axis does not divide stays
+    whole (no edges), as does attention over a sequence it does not
+    divide (whisper's 1500 encoder frames at 16).  ``model`` is the sum.
+    All zeros without a ``model`` axis."""
     from ..models.params import torch_dtype
     from ..parallel.mesh import batch_shards
     n = sizes.get(MODEL_AXIS, 1)
-    out = dict.fromkeys(("tp_copy", "tp_reduce", "tp_gather", "norm"), 0.0)
+    out = dict.fromkeys(("tp_copy", "tp_reduce", "tp_gather", "seq_gather",
+                         "norm"), 0.0)
     if n <= 1:
         return {"model": 0.0, **out}
     ring = (n - 1) / n
     isz = torch_dtype(cfg.dtype).itemsize
-    T = B // batch_shards(sizes) // tcfg.grad_accum * S
-    D = cfg.d_model
+    rows = B // batch_shards(sizes) // tcfg.grad_accum
+    T = rows * S
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cp = H % n != 0                       # context-parallel attention
 
     def ar(elems: float, size: int = isz) -> float:
         return 2.0 * elems * size * ring
 
+    def ag(elems: float) -> float:
+        return elems * isz * ring
+
     act = ar(T * D)
-    copy = red = 0.0
+    copy = 0.0
+    fwd = {"tp_reduce": 0.0, "seq_gather": 0.0}
     if cfg.vocab_size % n == 0:
-        red += act                                     # the embedding
+        fwd["tp_reduce"] += act                        # the embedding
         copy += act                                    # the logits' input
         out["tp_gather"] = T * cfg.vocab_size * isz * ring * tcfg.grad_accum
 
-    def attn(cross: bool) -> float:
-        c = act
-        if cross and cfg.is_encoder_decoder:           # the encoder output
-            c += ar(B // batch_shards(sizes) // tcfg.grad_accum
-                    * cfg.n_audio_frames * D)
-        if cfg.qk_norm:
-            c += 2 * ar(cfg.hd, 4)
-        if cfg.n_kv_heads % n:
-            c += 2 * ar(D * cfg.n_kv_heads * cfg.hd)
-        return c
+    SAVE = ("save", 0.0)        # compute that saves tensors for backward
 
-    def block(b) -> Tuple[float, int]:
-        """(tp_copy bytes, forward reduces) of one block."""
-        c, k = 0.0, 1
-        if b.mixer in ("attn", "cross_attn"):
-            c += attn(b.mixer == "cross_attn")
-        elif b.mixer == "attn+cross":
-            c += attn(False) + attn(True)
-            k = 2
-        elif b.mixer == "mla":
+    def attn(cross: bool, q_len: int, src_elems: float):
+        """(tp_copy bytes, forward events in order: SAVE, (edge, bytes))
+        of one attention over q_len rows a batch row; ``src_elems`` the
+        elements of a cross source that carries a gradient."""
+        tq = rows * q_len * D
+        c = ar(tq) + (ar(src_elems) if cross else 0.0)
+        if cfg.qk_norm:
+            c += 2 * ar(hd, 4)
+        if not cp:
+            if KV % n:
+                c += 2 * ar(D * KV * hd)
+            return c, [SAVE, ("tp_reduce", ar(tq))]
+        if q_len % n:
+            return 0.0, [SAVE]                         # whole on every rank
+        c += ar(2 * D * H * hd + 2 * D * KV * hd)
+        if cfg.tp_attn_inner and (H * hd) % n == 0:
+            c += ar(rows * q_len * H * hd)
+            return c, [SAVE, ("seq_gather", ag(rows * q_len * H * hd)),
+                       SAVE, ("tp_reduce", ar(tq))]
+        return c, [SAVE, ("seq_gather", ag(tq))]
+
+    enc_src = rows * cfg.n_audio_frames * D if cfg.is_encoder_decoder else 0
+
+    def ffn(kind: str, tokens: int):
+        if kind == "none":
+            return 0.0, []
+        if kind == "dense" and cfg.d_ff % n:
+            return 0.0, [SAVE]                         # whole on every rank
+        t = ar(tokens * D)
+        c = t + (ar(tokens * cfg.moe_top_k, 4) if kind == "moe" else 0.0)
+        return c, [SAVE, ("tp_reduce", t)]
+
+    def block(b):
+        """(tp_copy bytes, forward events in order) of one block."""
+        parts = []
+        if b.mixer in ("attn", "attn+cross"):
+            parts.append(attn(False, S, 0))
+        if b.mixer in ("cross_attn", "attn+cross"):
+            parts.append(attn(True, S, enc_src))
+        if b.mixer == "mla":
             q = cfg.q_lora_rank or D
-            c += ar(T * (q + cfg.kv_lora_rank + cfg.rope_head_dim))
-        if b.ffn != "none":
-            c += act + (ar(T * cfg.moe_top_k, 4) if b.ffn == "moe" else 0)
-            k += 1
-        return c, k
+            parts.append((ar(T * (q + cfg.kv_lora_rank + cfg.rope_head_dim)),
+                          [SAVE, ("tp_reduce", act)]))
+        parts.append(ffn(b.ffn, T))
+        return (sum(p[0] for p in parts),
+                [e for p in parts for e in p[1]])
+
+    def body(each, reps: int, remat: bool):
+        """Add ``reps`` runs of a body of blocks ``each`` ((copy, events)
+        a block); with ``remat`` its recompute runs the collectives
+        before its last saving compute again."""
+        nonlocal copy
+        events = [e for _, es in each for e in es]
+        last = max((i for i, e in enumerate(events) if e is SAVE),
+                   default=0)
+        again = events[:last] if remat else []
+        copy += reps * sum(c for c, _ in each)
+        for edge, nbytes in events + again:
+            if edge != "save":
+                fwd[edge] += reps * nbytes
 
     mode = remat_mode(cfg)
     for unit, reps in cfg.segments():
-        edges = [block(b) for b in unit]
-        k = sum(e[1] for e in edges)
-        copy += reps * sum(e[0] for e in edges)
-        red += reps * (k + (k - 1 if mode != "none" else 0)) * act
+        body([block(b) for b in unit], reps, mode != "none")
     if cfg.is_encoder_decoder:
-        te = ar(B // batch_shards(sizes) // tcfg.grad_accum
-                * cfg.n_audio_frames * D)
-        copy += cfg.n_encoder_layers * 2 * te
-        red += cfg.n_encoder_layers * (2 + (mode == "full")) * te
+        F = cfg.n_audio_frames
+        body([attn(False, F, 0), ffn("dense", rows * F)],
+             cfg.n_encoder_layers, mode == "full")
     out["tp_copy"] = copy * tcfg.grad_accum
-    out["tp_reduce"] = red * tcfg.grad_accum
+    out["tp_reduce"] = fwd["tp_reduce"] * tcfg.grad_accum
+    out["seq_gather"] = fwd["seq_gather"] * tcfg.grad_accum
     out["norm"] = ar(len(tree_leaves(model_param_defs(cfg))), 4)
     return {"model": sum(out.values()), **out}
 
@@ -271,13 +326,20 @@ def tp_size(mesh: Optional[Mesh]) -> int:
 
 def train_tp_error(cfg: ModelConfig, tp: int) -> Optional[str]:
     """Why a train step of ``cfg`` cannot split its widths ``tp`` ways
-    (None when it can): the shared gates (``parallel.sharding.
-    tp_width_error``, KV heads replicated and sliced where they do not
-    divide), and a MoE layer's: its experts or their ``d_ff``, and the
-    shared experts' ``d_ff``, must divide, or its output would not be
-    one partial sum.  Recurrent mixers: ``check_supported``."""
+    (None when it can): the shared gates in the training mode
+    (``parallel.sharding.tp_width_error(..., train=True)``: query heads
+    that do not divide run context parallel, KV heads replicated and
+    sliced where they do not divide, a dense ``d_ff`` whole), MLA's
+    query heads, which must divide (its latent path has no
+    context-parallel form), and a MoE layer's: its experts or their
+    ``d_ff``, and the shared experts' ``d_ff``, must divide, or its
+    output would not be one partial sum.  Recurrent mixers:
+    ``check_supported``."""
     if tp <= 1:
         return None
+    if cfg.use_mla and cfg.n_heads % tp:
+        return (f"{cfg.name}: MLA n_heads {cfg.n_heads} not divisible by "
+                f"model={tp} (context-parallel MLA is not ported)")
     if any(b.ffn == "moe" for b in cfg.block_pattern):
         if cfg.n_experts % tp and cfg.moe_d_ff % tp:
             return (f"{cfg.name}: neither n_experts {cfg.n_experts} nor "
@@ -286,16 +348,17 @@ def train_tp_error(cfg: ModelConfig, tp: int) -> Optional[str]:
             return (f"{cfg.name}: the shared experts' d_ff "
                     f"{cfg.moe_d_ff * cfg.n_shared_experts} not divisible "
                     f"by model={tp}")
-    return shd.tp_width_error(cfg, tp, kv_slice=True)
+    return shd.tp_width_error(cfg, tp, train=True)
 
 
 def train_local_config(cfg: ModelConfig, mesh: Optional[Mesh]
                        ) -> ModelConfig:
     """The config a rank's train step runs on ``mesh``: ``cfg`` itself
     without a ``model`` axis, else ``parallel.sharding.tp_local_config``
-    (serving's, with the KV heads sliced where the rules replicate them),
-    behind ``check_supported(cfg, train_tp=)`` and
-    :func:`train_tp_error`."""
+    in its training mode (serving's where every width divides; KV heads
+    sliced where the rules replicate them, context-parallel attention
+    where the query heads do not divide), behind
+    ``check_supported(cfg, train_tp=)`` and :func:`train_tp_error`."""
     tp = tp_size(mesh)
     if tp <= 1:
         return cfg
@@ -303,7 +366,7 @@ def train_local_config(cfg: ModelConfig, mesh: Optional[Mesh]
     err = train_tp_error(cfg, tp)
     if err:
         raise NotImplementedError(err)
-    return shd.tp_local_config(cfg, tp, cfg.tp_overlap, kv_slice=True)
+    return shd.tp_local_config(cfg, tp, cfg.tp_overlap, train=True)
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig(),

@@ -59,7 +59,9 @@ def test_port_imports_without_jax_or_reference():
                 "core.roofline.op_collectives", "serve.cluster",
                 "serve.router", "train.step", "train.optimizer",
                 "train.data", "train.checkpoint", "train.loop",
-                "launch.train", "launch.specs", "launch.train_lm"):
+                "launch.train", "launch.specs", "launch.train_lm",
+                "launch.mesh", "launch.dryrun", "launch.reanalyze",
+                "launch.arch_roofline", "launch.perf_table"):
         assert f"repro_torch.{mod}" in walked
 
 

@@ -68,7 +68,8 @@ from repro_torch.core.analysis import analyze_step
 from repro_torch.launch import specs as tspecs
 from repro_torch.models import loss_fn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import KvSlicedConfig, ShapeCell
+from repro_torch.models.common import (LocalLayout, ModelConfig, ShapeCell,
+                                       layout_of)
 from repro_torch.models.layers import embed_tokens, logits_from_hidden
 from repro_torch.models.params import tree_paths
 from repro_torch.parallel import collectives as coll
@@ -607,11 +608,14 @@ def test_serving_and_training_share_one_local_config(arch, tp):
     if cfg.n_kv_heads % tp == 0:   # serving's gates pass: one local config
         assert train == serve_shard.tp_local_config(cfg, tp) == \
             shd.tp_local_config(cfg, tp)
-        assert not isinstance(train, KvSlicedConfig)
+        assert not layout_of(train).kv_sliced
     else:       # KV 2 at tp 4, or MQA: replicated, one KV head a rank
         assert serve_shard.tp_sharding_error(cfg, tp) is not None
-        assert isinstance(train, KvSlicedConfig)
+        assert train.layout == LocalLayout(kv_sliced=True)
         assert (train.n_heads, train.n_kv_heads) == (cfg.n_heads // tp, 1)
-        assert dataclasses.asdict(train) == dataclasses.asdict(
+        # every field but the layout as serving's, KV heads aside
+        plain = ModelConfig(**{f.name: getattr(train, f.name)
+                               for f in dataclasses.fields(ModelConfig)})
+        assert dataclasses.asdict(plain) == dataclasses.asdict(
             dataclasses.replace(shd.tp_local_config(cfg, tp),
                                 n_kv_heads=1))
