@@ -4,10 +4,13 @@
 
 Phases, in order; any failure exits non-zero.  Work that launches none
 of the kernels runs beside other work where the card's memory holds
-both: the training phase (o.) while nvcc builds, the dry run's two walks
-(r., CPU only) from the start, [train-tp]'s (2, 2) ranks beside
+both: the training phase (o.) while nvcc builds, the dry run's three
+walks (r., CPU only) from the start, [train-tp]'s (2, 2) ranks beside
 [train-dp]'s launch/train.py run, and each NCCL world of one beside its
-phase's gloo ranks.
+phase's gloo ranks; the examples' legs, which launch kernels but hold
+no time, run beside [decode-sp]'s gloo ranks (s.), whose times say
+nothing of speed (not beside [dryrun]'s five, which leave the card too
+little memory).
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
@@ -34,7 +37,13 @@ phase's gloo ranks.
    scale branches (int8 and fp8_e4m3 pools with float32 per-line scales)
    on every one of those cases, bf16 and float32 queries, against the
    plain version on the same codes and scales (float32 2e-5, bf16 1e-2),
-   and at T = 1 verify equal to decode bit for bit; the ring kernels'
+   and at T = 1 verify equal to decode bit for bit; ``paged_attention``'s
+   log-sum-exp (``return_lse``, bf16 and float32, on the same cases and
+   on rows that see no line: o = 0, lse = -inf, tables pointing past
+   the pool) against the plain version run in float32 on the same
+   values within LSE_SUM's bar, o the
+   same bits with it as without, and its time beside the call without;
+   the ring kernels'
    scale branches on every one of those quantized cases, equal to the
    quantized off kernel bit for bit (torch.equal) and within the same
    tolerance of the plain version; times (CUDA events) of the kernel, the
@@ -324,13 +333,33 @@ phase's gloo ranks.
    heads over 5, five gloo ranks on this card, bf16, step 1 against one
    rank (loss within tp_loss_bar, grad norm within TP_GNORM_RTOL),
    replicated leaves bit-equal on every rank, the step's walked ``model`` bytes
-   equal to ``train.step.tp_wire_bytes``, no ported kernel launched;
+   equal to ``train.step.tp_wire_bytes``, no ported kernel launched; a
+   third walk, qwen3-14b/decode_32k on 16 x 16 (its dense cache's lines
+   cut over ``model``), its walked ``model`` bytes equal to
+   ``train.step.decode_wire_bytes``;
+   s. decode on a sequence-sharded dense cache (``[decode-sp]`` lines):
+   qwen3-0.6b (its widths at GLOO_LAYERS layers) on three gloo ranks of
+   this card at (data 1, model 3), which divides neither its KV nor its
+   query heads: 4 prompts of 1000 tokens prefilled into a 3072-line
+   cache (1024 lines a rank), 48 greedy steps crossing from rank 0's
+   block into rank 1's (rank 2 empty); every step's logits against one
+   process's unsharded decode_step on the rows fed the same token
+   (dsp_bar, derived beside it), the streams equal or parting only
+   under the margin rule, row 1's launches = layers x steps on every
+   rank, the walked ``model`` bytes equal to ``decode_wire_bytes``;
+   beside it, in a process of their own, the examples' legs
+   (``[examples]`` lines: launch/quickstart.py, launch/roofline_analysis.py
+   on the roofs the primitive study measured, launch/serve_lm.py) on the
+   card, every request finished, with the launches of rows 1 and 4
+   (serve_lm) and 8-10 (roofline_analysis);
 6. one JSON line listing the 14 ported kernels (rows 1-6 with ``int8`` /
    ``fp8_e4m3`` fields: time, max error, bound, plain and library times
    of the scale branch; rows 2 and 6, the rings, at the decode inputs of
    rows 1 and 4; row 1 with ``static_launches``, the graphed static runs'
-   launches; rows 1, 3 and 4 with ``tp_launches``, each rank's launches
-   in the [tp] runs), then the card line, then the device line last.
+   launches, ``lse_ms``, its time with the log-sum-exp, and
+   ``decode_sp_launches``, one rank's in [decode-sp]; rows 1, 3 and 4
+   with ``tp_launches``, each rank's launches in the [tp] runs), then
+   the card line, then the device line last.
    Each phase prints its wall time.
 
 Nothing here imports JAX or the JAX package.
@@ -343,6 +372,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -522,10 +552,85 @@ def bound_of(bytes_ms: float, ops_ms: float):
                                    else "operations")
 
 
+# Row 1's log-sum-exp (return_lse, the flash-decoding merge's weight)
+# against the plain version's, torch.logsumexp of its masked scores, the
+# plain version run in float32 on the same (bf16) values, as ``hold``'s
+# TOL_F32_PLAIN: bf16 products are exact in float32, so the two scores
+# differ only by the order of their hd float32 additions (the tensor
+# cores' accumulation may truncate rather than round: 2^-23 an addition),
+# at most hd 2^-23 of the terms' magnitudes sum_i |q_i k_i| scale; lse is
+# 1-Lipschitz in the scores' max norm (a soft cap's tanh too), so it
+# moves by at most that for the row's largest such sum; both sum up to
+# 512 exponentials in float32 in other orders: 2^-15 more, relative to
+# |lse| and 1.  (Against the bf16 plain version, which rounds each score
+# to bf16 in a library GEMM of unstated reduction order, the difference
+# is printed, not held.)
+LSE_SUM, LSE_EXP = 2.0 ** -23, 2.0 ** -15
+
+
+def lse_hold(torch, pa, label: str, args, kw, dtype) -> float:
+    """paged_attention with return_lse against itself without (o bit for
+    bit) and against the float32 plain version's lse within the bar
+    above; rows with pos < 0 (their tables may point anywhere) must give
+    o = 0 and lse = -inf.  Returns the worst share of the bar."""
+    q, k, v, bt, pos = args
+    o, lse = pa.paged_attention(*args, **kw, return_lse=True)
+    o_off = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    seen = pos >= 0
+    safe_bt = torch.where(seen[:, None], bt, torch.zeros_like(bt))
+    _, lse_p = pa.paged_attention_reference(q, k, v, safe_bt, pos, **kw,
+                                            return_lse=True)
+    _, lse32 = pa.paged_attention_reference(
+        q.float(), k.float(), v.float(), safe_bt, pos, **kw,
+        return_lse=True)
+    B_, KV_, G_, hd = q.shape
+    lines = bt.shape[1] * k.shape[1]
+    kk = k[safe_bt.long()].reshape(B_, lines, KV_, hd).float()
+    terms = torch.einsum("bkgh,bskh->bkgs", q.float().abs(), kk.abs()) \
+        * kw["scale"]
+    vis = torch.arange(lines, device="cuda")[None, :] <= pos.long()[:, None]
+    top = torch.where(vis[:, None, None, :], terms, 0).amax(-1)
+    bar = hd * LSE_SUM * top + LSE_EXP * (1 + lse32.abs())
+    err = (lse - lse32).abs()
+    share = float((err[seen] / bar[seen]).max()) if bool(seen.any()) else 0.0
+    same = bool(torch.equal(o, o_off))
+    empty_ok = bool((o[~seen] == 0).all()) and bool(
+        torch.isneginf(lse[~seen]).all())
+    worst = (lambda e: float(e[seen].max()) if bool(seen.any()) else 0.0)
+    print(f"[kernel] {label} lse: max |lse - plain in f32| "
+          f"{worst(err):.3e}, {share:.3f} of its bar (|lse - plain| "
+          f"{worst((lse - lse_p).abs()):.3e}); o with lse on = off bit "
+          f"for bit: {same}; {int((~seen).sum())} rows with no line: o = "
+          f"0, lse = -inf: {empty_ok}")
+    if not same or share > 1 or not empty_ok or not bool(
+            torch.isfinite(o).all()):
+        fail(f"{label}: the log-sum-exp misses its holds")
+    return share
+
+
+def lse_holds(torch, np, pa, rng) -> None:
+    """Row 1's return_lse at the phase's main shapes and edge cases, bf16
+    and float32, and a table whose rows all lie past pos (pos -1, table
+    entries far past the pool: nothing may be read)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for kind in ("ragged", "full", "trash", "soft_cap", "empty"):
+            c = attention_case(torch, np, rng, dtype,
+                               "ragged" if kind == "empty" else kind)
+            if kind == "empty":
+                c["pos"][1::2] = -1
+                c["bt"][1::2] = 1 << 30
+            lse_hold(torch, pa, f"paged_attention {name:8s} {kind:8s}",
+                     (c["q"], c["k"], c["v"], c["bt"], c["pos"]),
+                     dict(scale=c["scale"], soft_cap=c["soft_cap"]), dtype)
+
+
 def kernel_phase(torch, np, pa):
     """paged_attention (CUDA) vs paged_attention_reference on the card, and
-    the GQA ring kernel at decode (T = 1) against both.  Returns the
-    kernels-line entry and the ring's error and time at the same inputs."""
+    the GQA ring kernel at decode (T = 1) against both, and its
+    log-sum-exp (:func:`lse_holds`).  Returns the kernels-line entry and
+    the ring's error and time at the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import quantize as kvq
     rng = np.random.default_rng(0)
@@ -548,6 +653,7 @@ def kernel_phase(torch, np, pa):
                         pa.paged_attention, pa.paged_attention_reference,
                         args, 1, ("k_scale", "v_scale"), kw, name, qerrs,
                         kind, ring=pa.paged_attention_ring)
+    lse_holds(torch, np, pa, rng)
     # times at the main path's shapes and types: bf16, engine-like ragged
     # contexts; 16 copies (~135 MB) rotate so every call reads cold HBM
     c = attention_case(torch, np, rng, torch.bfloat16, "ragged")
@@ -557,6 +663,8 @@ def kernel_phase(torch, np, pa):
     n = pa.paged_attention.launches
     n_ring = pa.paged_attention_ring.launches
     kernel_ms = device_ms(lambda *a: pa.paged_attention(*a, **kw), copies)
+    lse_ms = device_ms(lambda *a: pa.paged_attention(*a, **kw,
+                                                     return_lse=True), copies)
     ring_ms = device_ms(lambda *a: pa.paged_attention_ring(*a, **kw), copies)
     plain_ms = device_ms(lambda *a: pa.paged_attention_reference(*a, **kw),
                          copies)
@@ -608,12 +716,15 @@ def kernel_phase(torch, np, pa):
           f"{plain_ms:.4f} ms, library (gather + SDPA) {library_ms:.4f} ms, "
           f"bound {bound_ms:.5f} ms ({bound_by}; operations {ops_ms:.5f} ms "
           f"at bf16 peak)")
+    print(f"[kernel] paged_attention bf16 with its log-sum-exp "
+          f"(return_lse, the sequence-sharded decode's call): {lse_ms:.4f} "
+          f"ms beside {kernel_ms:.4f} ms without, same inputs")
     return (dict(name="paged_attention", route="cuda",
                  source="src/repro_torch/csrc/gqa_core.cu",
                  replaces="src/repro/kernels/paged_attention.py:345",
                  max_abs_err=errs[("bfloat16", "ragged")], ms=kernel_ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms, **quant),
+                 library_ms=library_ms, lse_ms=lse_ms, **quant),
             dict(max_abs_err=ring_errs[("bfloat16", "ragged")], ms=ring_ms,
                  **ring_quant))
 
@@ -1656,6 +1767,10 @@ def primitives_phase(torch, np, card):
     from repro_torch.launch import primitives
     t0 = time.perf_counter()
     roof = microbench.run_microbench(cache_path=None, device="cuda")
+    # the card's cache (git-ignored): launch/roofline_analysis.py reads it
+    microbench.DEFAULT_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    microbench.DEFAULT_CACHE.write_text(json.dumps(dataclasses.asdict(roof),
+                                                   indent=2))
     for label, got, sheet in (
             ("fma", roof.fma_flops, DATA_SHEET["fma"]),
             ("matmul float32", roof.matmul_flops["float32"],
@@ -6555,9 +6670,10 @@ def train_tp_phase(torch, np, card, four) -> None:
 # r. the production-mesh dry run ([dryrun] lines)
 # --------------------------------------------------------------------------
 
-# (arch, shape, multi_pod) of the two cells walked at full width
+# (arch, shape, multi_pod) of the cells walked at full width
 DRYRUN_CELLS = (("qwen3-14b", "train_4k", False),
-                ("deepseek-v2-236b", "prefill_32k", True))
+                ("deepseek-v2-236b", "prefill_32k", True),
+                ("qwen3-14b", "decode_32k", False))
 # context parallelism for real: minicpm-2b at CP_LAYERS layers on (data 1,
 # model CP_MODEL), B x S tokens (S / CP_MODEL query rows a rank), one
 # step.  5 is the narrowest axis its 36 heads do not divide; at 8 each
@@ -6578,8 +6694,10 @@ CP_LAYERS, CP_MODEL, CP_B, CP_S = 2, 5, 2, 320
 
 
 def dryrun_walks(card: str) -> None:
-    """Part (a): the two cells walked on fake tensors, one rank of a fake
-    process group each, their JSON and archives written.  CPU work only:
+    """Part (a): the cells walked on fake tensors, one rank of a fake
+    process group each, their JSON and archives written; a train or
+    decode cell's walked ``model`` bytes held equal to the analytic count
+    (``tp_wire_bytes``, ``decode_wire_bytes``).  CPU work only:
     :func:`start_walks` runs it in a process of its own from the script's
     start."""
     from repro_torch.launch import dryrun
@@ -6593,8 +6711,10 @@ def dryrun_walks(card: str) -> None:
                  f"{res.get('error', res.get('reason'))}")
         axes = res["collective_by_axes"]
         wire = res.get("tp_wire_model_bytes")
+        count = ("decode_wire_bytes" if shape.startswith("decode")
+                 else "tp_wire_bytes")
         ratio = "" if wire is None else (
-            f"; walked model bytes / tp_wire_bytes "
+            f"; walked model bytes / {count} "
             f"{axes.get('model', 0.0) / wire:.4f}")
         print(f"[dryrun] {res['label']} (rank 0 of {res['n_chips']}, fake "
               f"tensors, walked on this host's CPU in "
@@ -6611,7 +6731,7 @@ def dryrun_walks(card: str) -> None:
         if wire is not None and abs(axes.get("model", 0.0) / wire - 1) \
                 > 1e-9:
             fail(f"[dryrun] {arch}/{shape}: walked model bytes "
-                 f"{axes.get('model')} vs tp_wire_bytes {wire}")
+                 f"{axes.get('model')} vs {count} {wire}")
         sys.stdout.flush()
 
 
@@ -6744,6 +6864,7 @@ def dryrun_cp_rank(rank: int, world: int) -> dict:
         res["loss"], res["gnorm"] = float(m["loss"]), float(m["grad_norm"])
         res["equal"] = host_replicated_equal(torch, state, cfg, mesh, world)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
     del state, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -6763,7 +6884,7 @@ def dryrun_cp_rank(rank: int, world: int) -> dict:
     res["launches"] = sum(kernel_launch_counts().values())
     return {"res": res, "every": dp_objects(
         {k: res[k] for k in ("loss", "gnorm", "equal", "walked", "step_ms",
-                             "peak_gb", "launches")}, world)}
+                             "peak_gb", "reserved_gb", "launches")}, world)}
 
 
 def dryrun_phase(torch, np, card, roof, walker) -> None:
@@ -6774,11 +6895,22 @@ def dryrun_phase(torch, np, card, roof, walker) -> None:
     before = kernel_launch_counts()
     gc.collect()
     torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    # the ranks' peaks take most of the card: their allocators grow
+    # segments in place, so that blocks freed in the step strand no
+    # reserved memory (this process's allocator is set up already)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         out = spawn(dryrun_cp_rank, CP_MODEL, backend="gloo",
                     device="cuda", timeout=600)
     except RuntimeError as e:
         fail(f"[dryrun] a (1, {CP_MODEL}) rank failed: {e}")
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     t0 = time.perf_counter()
     try:
         walker.wait(timeout=900)
@@ -6817,7 +6949,9 @@ def dryrun_phase(torch, np, card, roof, walker) -> None:
           + ", ".join(f"{k} {v / 1e6:.3f}" for k, v in
                       sorted(r["edges"].items()))
           + f" MB); step 1 {[round(e['step_ms']) for e in every]} ms, peak "
-          f"{[round(e['peak_gb'], 2) for e in every]} GB a rank "
+          f"{[round(e['peak_gb'], 2) for e in every]} GB a rank (reserved "
+          f"{[round(e['reserved_gb'], 2) for e in every]} GB) of "
+          f"{free_gb:.2f} GB free on the card before the ranks "
           f"({CP_MODEL} processes time-slice one card: no speed claim)")
     from repro_torch.models.common import LocalLayout
     cp = LocalLayout(context_parallel=True)
@@ -6831,6 +6965,301 @@ def dryrun_phase(torch, np, card, roof, walker) -> None:
         fail(f"[dryrun] ported kernels launched: {moved}, ranks {in_ranks}")
     print(f"[dryrun] no ported kernel launched ({len(after)} wrappers' "
           "counts unchanged here, 0 in every rank)")
+
+
+# --------------------------------------------------------------------------
+# s. decode on a sequence-sharded dense cache ([decode-sp] lines) and the
+#    examples' legs ([examples] lines)
+# --------------------------------------------------------------------------
+
+# qwen3-0.6b at full width, GLOO_LAYERS deep, at (data 1, model DSP_MODEL)
+# on gloo ranks of this card: 3 divides neither its 8 KV heads nor its 16
+# query heads, so every rank holds its DSP_LINES / DSP_MODEL lines of the
+# dense cache for every KV head, and every query head (a kv_seq and
+# context-parallel LocalLayout).  DSP_B prompts of DSP_PROMPT tokens
+# prefilled into the DSP_LINES-line cache, then DSP_STEPS greedy decode
+# steps: the positions cross from rank 0's block into rank 1's; rank 2's
+# lines stay past every position
+DSP_MODEL, DSP_B, DSP_PROMPT, DSP_LINES, DSP_STEPS = 3, 4, 1000, 3072, 48
+# Logits against one process's unsharded decode_step on the same weights
+# and cache, rows fed the same token, derived as TP_LOGITS_ATOL is.  The
+# run differs from one process at two edges a layer (the query heads,
+# the vocabulary and the attention weights stay whole at model 3): the
+# merge, whose ranks' attention outputs are rounded to bf16 before the
+# float32 sum where one call rounds once (two roundings, sqrt(2) x 2^-8 /
+# sqrt(12) = 0.41 x 2^-8 of the value in rms), and the FFN's
+# row-parallel reduce of three bf16 partials (each rounded, then two
+# bf16 additions: sqrt(1 + 2 / 3 + 1) x 2^-8 / sqrt(12) = 0.47 x 2^-8):
+# DSP_EDGE an edge, a random walk over 2 x GLOO_LAYERS edges, of the
+# final hidden state, so of the step's largest logit (~3.0 at init for
+# qwen3-0.6b, where TP_LOGITS_ATOL took qwen3-14b's 0.90), and
+# TP_LOGITS_ATOL's 2.3x over that: dsp_bar(step), ~0.036 at 4 layers.
+# A greedy stream may part from the unsharded one only where the
+# unsharded top-2 margin is under twice the bar (each of the two logits
+# moves by at most the bar)
+DSP_EDGE, DSP_OVER = 0.47 * 2.0 ** -8, 2.3
+
+
+def dsp_bar(np, ref_step) -> float:
+    """The logits bar of one step (its unsharded logits ``ref_step``)."""
+    return (DSP_OVER * math.sqrt(2 * GLOO_LAYERS) * DSP_EDGE
+            * float(np.abs(ref_step).max()))
+
+
+def dsp_rank(rank: int, world: int) -> dict:
+    """One rank of [decode-sp]: the whole weights from a seed (the same on
+    every rank), the prefill of the prompts into the whole cache, the
+    rank's blocks of both cut by the rules, then DSP_STEPS greedy steps
+    of models.decode_step on its decode_local_config (the second walked
+    by CollectiveWalk).  Rank 0 also runs the unsharded decode_step on the
+    whole cache.  Returns numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.core.roofline.op_collectives import (CollectiveWalk,
+                                                          summarize)
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.specs import exact_cache_defs, prefill_cache_specs
+    from repro_torch.models import (decode_step, drop_cast, init_params,
+                                    param_shardings, prefill,
+                                    prepare_params)
+    from repro_torch.models.params import tree_map, tree_paths
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.mesh import make_host_mesh, use_mesh
+    from repro_torch.train.step import decode_local_config, decode_wire_bytes
+    cfg = gloo_qwen()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (DSP_B, DSP_PROMPT),
+                            generator=g, device="cuda")
+    caches = tree_map(lambda d: torch.zeros(d.shape, dtype=d.torch_dtype,
+                                            device="cuda"),
+                      exact_cache_defs(cfg, DSP_B, DSP_LINES))
+    with torch.no_grad():
+        last, states = prefill(params, cfg, prompts)
+        lines = dict(tree_paths(states))
+        for k, c in tree_paths(caches):
+            c[:, :, :DSP_PROMPT] = lines[k]
+    del states, lines
+    first = last.argmax(-1).int()
+    mesh = make_host_mesh(data=1, model=DSP_MODEL)
+    local = decode_local_config(cfg, mesh)
+    mine = prepare_params(tree_map(
+        lambda t, sp: shd.shard_leaf(t, sp, mesh), drop_cast(params),
+        param_shardings(cfg, mesh)), local)
+    blocks = tree_map(lambda t, sp: shd.shard_leaf(t, sp, mesh), caches,
+                      prefill_cache_specs(cfg, DSP_B, DSP_LINES, mesh))
+    if rank:
+        del params, caches
+    torch.cuda.synchronize()
+
+    def greedy(p, c, step_cfg, walk_at=None):
+        tok, logits, ms, walked = first, [], [], None
+        for i in range(DSP_STEPS):
+            pos = torch.full((DSP_B,), DSP_PROMPT + i, dtype=torch.int32,
+                             device="cuda")
+            t0 = time.perf_counter()
+            if i == walk_at:
+                with CollectiveWalk(mesh=mesh) as w:
+                    lg = decode_step(p, step_cfg, c, tok[:, None], pos)
+                cc = summarize(w.ops)
+                walked = ({k[0]: v for k, v in cc.by_axes.items()},
+                          dict(cc.by_edge))
+            else:
+                lg = decode_step(p, step_cfg, c, tok[:, None], pos)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.float().cpu().numpy())
+            tok = lg.argmax(-1).int()
+        return np.stack(logits), ms, walked
+
+    n0 = pa.paged_attention.launches
+    with use_mesh(mesh, process_wide=True), torch.no_grad():
+        logits, ms, walked = greedy(mine, blocks, local, walk_at=1)
+    out = {"logits": logits, "ms": ms, "walked": walked,
+           "launches": pa.paged_attention.launches - n0,
+           "wire": decode_wire_bytes(cfg, mesh.sizes, DSP_B, DSP_LINES),
+           "layout": str(local.layout), "kv_seq": local.layout.kv_seq,
+           "heads": local.n_heads, "kv": local.n_kv_heads,
+           "block": tuple(tree_paths(blocks)[0][1].shape),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        with torch.no_grad():
+            out["ref"], out["ref_ms"], _ = greedy(params, caches, cfg)
+    return out
+
+
+def dsp_check(np, got, ref) -> tuple:
+    """(max |d logits| over the rows fed the same token, its largest
+    share of its step's bar, rows compared, the partings): a row is
+    compared at step i while the two greedy streams agree on every token
+    fed so far; where they first part, the unsharded top-2 margin must be
+    under twice the step's bar."""
+    worst, share, n, parted = 0.0, 0.0, 0, []
+    bars = [dsp_bar(np, ref[i]) for i in range(DSP_STEPS)]
+    for b in range(DSP_B):
+        for i in range(DSP_STEPS):
+            d = float(np.abs(got[i, b] - ref[i, b]).max())
+            worst, share = max(worst, d), max(share, d / bars[i])
+            n += 1
+            a, r = int(got[i, b].argmax()), int(ref[i, b].argmax())
+            if a != r:
+                top = np.sort(ref[i, b])[-2:]
+                margin = float(top[1] - top[0])
+                if margin >= 2 * bars[i]:
+                    fail(f"[decode-sp] row {b} parts from the unsharded "
+                         f"stream at step {i} where its top-2 margin is "
+                         f"{margin:.4f} >= {2 * bars[i]:.4f}")
+                parted.append(f"row {b} at step {i} (margin {margin:.4f})")
+                break
+    return worst, share, n, parted, min(bars), max(bars)
+
+
+_EXAMPLES = ("import sys; sys.path[:0] = sys.argv[1:3]; "
+             "import chip_smoke as cs; cs.examples_run(sys.argv[3])")
+
+
+def examples_run(card: str) -> None:
+    """The [examples] phase's body, in a process of its own: the three
+    legs on the card, each with the launch counts of the kernels it
+    reaches (rows 1 and 4: serve_lm; rows 8-10: roofline_analysis)."""
+    from repro_torch.launch import quickstart, roofline_analysis, serve_lm
+    t0 = time.perf_counter()
+    before = kernel_launch_counts()
+    q = quickstart.main([])
+    dq = {k: v - before[k] for k, v in kernel_launch_counts().items()
+          if v != before[k]}
+    losses = q["losses"]
+    if not all(math.isfinite(x) for x in losses) or tuple(
+            q["tokens"].shape) != (quickstart.PROMPTS,
+                                   quickstart.PROMPT_LEN + quickstart.NEW):
+        fail(f"[examples] quickstart: losses {losses}, tokens "
+             f"{q['tokens'].shape}")
+    w = q["report"].character.flops_dev
+    print(f"[examples] launch/quickstart.py on the card: the train step "
+          f"characterized before it ran (W {w:.4g} FLOPs), {len(losses)} "
+          f"steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {quickstart.NEW} tokens decoded for "
+          f"{quickstart.PROMPTS} prompts; kernel launches {dq}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    before = kernel_launch_counts()
+    r = roofline_analysis.main([])
+    dr = {k: v - before[k] for k, v in kernel_launch_counts().items()
+          if v != before[k]}
+    want = ("inner_product.inner_product", "gelu.gelu_2d",
+            "layernorm.layernorm")
+    if any(dr.get(k, 0) < 1 + roofline_analysis.REPEATS for k in want):
+        fail(f"[examples] roofline_analysis: rows 8-10 not launched: {dr}")
+    print(f"[examples] launch/roofline_analysis.py on the card ({card}): "
+          + ", ".join(f"{n} AI {ai:.2f} F/B at {perf / 1e9:.1f} GFLOP/s"
+                      for n, ai, perf in r["points"])
+          + " (timed beside other phases' gloo ranks: the method, not "
+          f"the card's speed); rows 8-10 launches "
+          f"{dict((k, dr[k]) for k in want)}; "
+          f"archived cell read back: "
+          f"{'yes' if r['cell'] is not None else 'none in this checkout'}; "
+          f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    before = kernel_launch_counts()
+    res = serve_lm.main([])
+    ds = {k: v - before[k] for k, v in kernel_launch_counts().items()
+          if v != before[k]}
+    bad = [x["arch"] for x in res if not x["finished"]
+           or x["requests"] != 6]
+    rows = ("paged_attention.paged_attention",
+            "paged_attention.mla_paged_attention")
+    if bad or any(ds.get(k, 0) == 0 for k in rows):
+        fail(f"[examples] serve_lm: unfinished {bad}, launches {ds}")
+    import torch
+    print(f"[examples] launch/serve_lm.py on the card: every request "
+          f"finished ({sum(x['requests'] for x in res)}); rows 1 and 4 "
+          f"launches {dict((k, ds[k]) for k in rows)}; "
+          f"{time.perf_counter() - t1:.1f} s; the legs' peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def start_examples(card: str):
+    """The [examples] legs in a process of their own, started with
+    [decode-sp]'s ranks and collected after them (their gloo ranks' times
+    say nothing of speed), output to temporary files, killed at exit if a
+    phase fails first."""
+    import atexit
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _EXAMPLES, str(ROOT), str(SRC), card],
+        stdout=out, stderr=err, text=True)
+    proc.files = (out, err)
+    atexit.register(stop_walks, proc)
+    return proc
+
+
+def decode_sp_phase(torch, np, card) -> int:
+    """[decode-sp] on DSP_MODEL gloo ranks of this card with the
+    [examples] legs (:func:`start_examples`) beside them, then the legs
+    collected; returns row 1's launches in one rank's run."""
+    from repro_torch.parallel.mesh import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the examples' legs (kernels on smoke configs, no time held) run
+    # beside these ranks only: beside [dryrun]'s five ranks, whose peaks
+    # take most of the card, they ran it out of memory
+    examples = start_examples(card)
+    try:
+        out = spawn(dsp_rank, DSP_MODEL, backend="gloo", device="cuda",
+                    timeout=600)
+    except RuntimeError as e:
+        fail(f"[decode-sp] a rank failed: {e}")
+    dt = time.perf_counter() - t0
+    worst, share, n, parted, lo, hi = dsp_check(np, out["logits"],
+                                                out["ref"])
+    axes, edges = out["walked"]
+    wire = out["wire"]
+    ratio = axes.get("model", 0.0) / wire["model"]
+    want = GLOO_LAYERS * DSP_STEPS
+    print(f"[decode-sp] {gloo_qwen().name} full width at {GLOO_LAYERS} "
+          f"layers, bf16, (data 1, model {DSP_MODEL}) on {DSP_MODEL} gloo "
+          f"ranks of this card ({card}): layout {out['layout']}, "
+          f"{out['heads']} query heads and {out['kv']} KV heads a rank, "
+          f"its cache block {out['block']} (layers, rows, lines, KV, hd); "
+          f"{DSP_B} prompts of {DSP_PROMPT} tokens prefilled into "
+          f"{DSP_LINES} lines, {DSP_STEPS} greedy steps from position "
+          f"{DSP_PROMPT} (rank 0's block into rank 1's, rank 2 empty)")
+    print(f"[decode-sp] logits against one process's unsharded decode_step "
+          f"on {n} (row, step)s fed the same token: max |d| {worst:.4f}, "
+          f"{share:.3f} of its step's bar (dsp_bar {lo:.4f}-{hi:.4f}, the "
+          f"largest logit {float(np.abs(out['ref']).max()):.3f}); "
+          + ("streams equal" if not parted else
+             "streams parted under the margin rule: " + ", ".join(parted))
+          + f"; paged_attention launches {out['launches']} a rank (layers x "
+          f"steps = {want}); walked model bytes "
+          f"{axes.get('model', 0.0) / 1e6:.4f} MB = decode_wire_bytes "
+          f"{wire['model'] / 1e6:.4f} MB (ratio {ratio:.4f}; by edge "
+          + ", ".join(f"{k} {v / 1e6:.4f}" for k, v in sorted(edges.items()))
+          + " MB)")
+    med = float(np.median(out["ms"][1:]))
+    print(f"[decode-sp] step {med:.1f} ms sharded (median), "
+          f"{float(np.median(out['ref_ms'][1:])):.1f} ms unsharded on rank "
+          f"0, peak {out['peak_gb']:.2f} GB a rank: {DSP_MODEL} gloo ranks "
+          "time-slice one card, so the step time says nothing of speed; "
+          f"phase {dt:.1f} s")
+    if not out["kv_seq"] or share > 1 or out["launches"] != want or \
+            abs(ratio - 1) > 1e-9:
+        fail("[decode-sp] the sequence-sharded decode misses its holds")
+    try:
+        examples.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("[examples] the legs did not end within 600 s of [decode-sp]")
+    for f in examples.files:
+        f.seek(0)
+    text, err = (f.read() for f in examples.files)
+    print("".join(line + "\n" for line in text.splitlines()
+                  if line.startswith("[examples]")), end="")
+    if examples.returncode:
+        fail(f"[examples] the legs failed: {err[-3000:]}")
+    return out["launches"]
 
 
 def print_build_summary(name: str, log: str) -> None:
@@ -7188,9 +7617,14 @@ def main() -> int:
                          "beside [train-dp]), deepseek-v2 (2 layers) at (1, "
                          "2), pre-flight walks", t_phase)
     dryrun_phase(torch, np, card, roof, walker)
-    phase_time(f"production-mesh dry run: {cp_config().name} ({CP_LAYERS} "
-               f"layers) context parallel at (1, {CP_MODEL}), the two "
-               f"full-width walks collected", t_phase)
+    t_phase = phase_time(f"production-mesh dry run: {cp_config().name} ("
+                         f"{CP_LAYERS} layers) context parallel at (1, "
+                         f"{CP_MODEL}), the three full-width walks "
+                         "collected", t_phase)
+    entry["decode_sp_launches"] = decode_sp_phase(torch, np, card)
+    phase_time(f"sequence-sharded decode: qwen3-0.6b ({GLOO_LAYERS} "
+               f"layers) at (1, {DSP_MODEL}), the examples' legs collected",
+               t_phase)
     kernels = [entry, ring_entry, verify_entry, mla_entry, mla_ring_entry,
                mla_verify_entry, *prim_entries, *npa_entries]
     if len(kernels) != 14:

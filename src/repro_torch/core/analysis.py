@@ -42,6 +42,16 @@ least traffic (q, k, v read and o written once) instead.
 ``Q_bytes`` is what a kernel's bound divides by the card's bandwidth.
 Each function returns the keys of ``kernel_character``: ``W_flops``,
 ``Q_bytes``, ``transcendentals``, ``AI`` (W / Q).
+
+:func:`kernel_character` is the reference's call itself: the W / Q of
+any function's one call, read off the op walk (``core/roofline/
+op_cost.py``) on fake tensors of its arguments' shapes.  A hand-written
+kernel's launch dispatches no aten op, so the walk cannot see inside
+one: it is given the kernel's plain version (``kernels/ref.py``), whose
+W and Q are the work's, and the kernel is timed on the card.  The walk's
+boundary is every aten op where XLA's is every fusion, so an unfused
+plain version (GELU's eight elementwise ops, LayerNorm's passes) is
+charged its intermediates' traffic, as eager PyTorch runs it.
 """
 
 from __future__ import annotations
@@ -311,6 +321,29 @@ def analyze_records(record: Dict[str, Any], mesh_shape: Dict[str, int], *,
     return AnalysisReport(label=label, character=char, terms=terms,
                           walk_seconds=walk_seconds,
                           mesh_shape=dict(mesh_shape), record=record)
+
+
+def kernel_character(fn: Callable, *args) -> Dict[str, float]:
+    """Single-call W / Q / AI of ``fn(*args)`` (the reference's
+    ``kernel_character`` and keys): the op walk of one call on fake CPU
+    tensors of the tensor arguments' shapes and dtypes (nothing is
+    computed; other arguments pass as they are).  Give it a plain
+    version: a CUDA kernel's launch is opaque to the walk (the module
+    docstring)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = FakeTensorMode()
+
+    def fake(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        with mode:
+            return torch.empty(tuple(a.shape), dtype=a.dtype)
+
+    char = character_of(walk_record(fn, *[fake(a) for a in args])[0])
+    w, q = char.flops_dev, char.hbm_bytes_dev
+    return {"W_flops": w, "Q_bytes": q,
+            "transcendentals": char.transcendentals_dev,
+            "AI": w / q if q else 0.0}
 
 
 def analyze_step(fn: Callable, *, args: Sequence[Any], mesh=None,

@@ -24,8 +24,9 @@ operand bytes on this device.
 
 Each op also carries its edge: the innermost of the tensor-parallel
 edges' tags (:data:`EDGE_TAGS`: ``tp_copy``, whose
-all-reduce runs in the backward, ``tp_reduce``, ``tp_gather`` and the
-context-parallel ``seq_gather``) open on
+all-reduce runs in the backward, ``tp_reduce``, ``tp_gather``, the
+context-parallel ``seq_gather`` and decode's ``head_gather`` and
+``kv_merge`` over a sequence-sharded cache) open on
 the dispatching thread, so a step's ``model`` bytes split by edge
 (:func:`summarize`'s ``by_edge``), forward, backward and a checkpointed
 layer's recompute alike.
@@ -44,7 +45,8 @@ from .op_cost import _stack
 
 # the tags parallel/collectives.py's tensor-parallel edges issue their
 # collectives under (``op_cost.named_scope``)
-EDGE_TAGS = ("tp_copy", "tp_reduce", "tp_gather", "seq_gather")
+EDGE_TAGS = ("tp_copy", "tp_reduce", "tp_gather", "seq_gather",
+             "head_gather", "kv_merge")
 
 # c10d operator -> (the reference's collective kind, and the positions of
 # its result tensors, its operand tensors and its process group among the

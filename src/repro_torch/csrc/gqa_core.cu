@@ -19,6 +19,11 @@
 //
 //   s[l]  = (q[r] . k[l]) * scale,  then the optional tanh soft cap
 //   out[r] = softmax_l(s) @ v       (online, float32; / max(l, 1e-30))
+//   lse[r] = log sum_l exp(s[l])    (optional, float32: m + log(l))
+//
+// A row that sees no line (pos[b] + t < 0: a rank of a sequence-sharded
+// cache whose lines all lie past the position) gets out = 0 and lse = -inf;
+// nothing of the slot's table is read then.
 //
 // bf16 queries only (pools in bf16, or int8 / fp8 e4m3 codes with float32
 // scales (P, page, KV)).
@@ -65,6 +70,9 @@
 //   counter back to 0 (the wrapper zeroes the counters once, when it
 //   allocates them).  A row group of one chunk writes O / max(l, 1e-30)
 //   directly: the same bits, since then L = l and O = acc;
+// * the log-sum-exp (`lse` not null, flash-decoding across ranks that hold
+//   a sequence's lines in blocks): M + log(L) where the output is written,
+//   -inf for a row with L = 0; `out` is the same bits with or without it;
 // * determinism: the chunk is a constant, the merge runs in chunk order
 //   whichever block arrives last, so the ring equals the off walk, verify
 //   at T = 1 equals decode, and repeated calls give the same bytes;
@@ -87,12 +95,13 @@
 //
 // C interface (bound with ctypes by repro_torch/kernels/paged_attention.py):
 //   int gqa_core_attention(q, k_pool, v_pool, k_scale, v_scale,
-//                          block_tables, pos, out, work, counters, batch,
+//                          block_tables, pos, out, lse, work, counters, batch,
 //                          n_tokens, kv_heads, groups, head_dim, page_size,
 //                          n_blocks, stages, scale, soft_cap,
 //                          kv_dtype /*0 bf16, 1 int8, 2 fp8*/, stream)
 // q / out are bf16 (batch, n_tokens, kv_heads, groups, head_dim); the scale
-// pointers are null unless kv_dtype quantizes; `work` holds
+// pointers are null unless kv_dtype quantizes; `lse` is null or float32
+// (batch, n_tokens, kv_heads, groups); `work` holds
 // batch kv_heads n_tokens groups ceil(n_blocks / kChunkPages) (head_dim +
 // 2) float32s; `counters` holds batch kv_heads ceil(n_tokens groups / 64)
 // int32 zeros, and holds zeros again when the launch has run.
@@ -102,6 +111,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
@@ -167,6 +177,7 @@ struct Params {
   const int32_t* block_tables;
   const int32_t* pos;
   __nv_bfloat16* out;
+  float* lse;                 // null: no log-sum-exp asked
   float* part_acc;
   float* part_ml;
   int* counters;
@@ -216,6 +227,20 @@ __device__ __forceinline__ size_t row_offset(const Params& p, int b, int h,
   return ((static_cast<size_t>(b) * p.n_tokens + t) * p.kv_heads + h)
              * p.groups * hd
          + static_cast<size_t>(g) * hd;
+}
+
+// Offset of row r's log-sum-exp in lse (batch, n_tokens, kv_heads, groups).
+__device__ __forceinline__ size_t lse_offset(const Params& p, int b, int h,
+                                             int r) {
+  const int t = r / p.groups, g = r % p.groups;
+  return ((static_cast<size_t>(b) * p.n_tokens + t) * p.kv_heads + h)
+             * p.groups
+         + g;
+}
+
+// The log-sum-exp of a row whose scores have max m and sum l of e^(s - m).
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return l > 0.0f ? m + logf(l) : -INFINITY;
 }
 
 // Q of the 64 rows row0 .. of (slot b, KV head h) into its atoms; rows
@@ -357,7 +382,19 @@ __global__ void __launch_bounds__(kThreads)
   const int pos0 = p.pos[b];
   const int n_lines = min(pos0 + p.n_tokens, p.n_blocks * p.page_size);
   const int c0 = chunk * chunk_lines(p.page_size);
-  if (c0 >= n_lines) return;                  // past this slot's walk
+  if (c0 >= n_lines) {                        // past this slot's walk
+    if (chunk == 0) {
+      // no line visible at all: the tile's rows are 0, their lse -inf
+      const int rows_here = min(kRows, n_rows - row0);
+      for (int i = threadIdx.x; i < rows_here * HD; i += kThreads) {
+        const int r = row0 + i / HD;
+        p.out[row_offset(p, b, h, r, HD) + i % HD] = __float2bfloat16(0.0f);
+        if (p.lse != nullptr && i % HD == 0)
+          p.lse[lse_offset(p, b, h, r)] = -INFINITY;
+      }
+    }
+    return;
+  }
   const int c1 = min(c0 + chunk_lines(p.page_size), n_lines);
   const int nc = n_chunks(n_lines, p.page_size);
   const int n_tiles = (c1 - c0 + kTileLines - 1) / kTileLines;
@@ -521,6 +558,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (row[hh] >= n_rows) continue;
+      if (p.lse != nullptr && quad == 0)
+        p.lse[lse_offset(p, b, h, row[hh])] = log_sum_exp(m[hh], l[hh]);
       const float den = fmaxf(l[hh], 1e-30f);
       __nv_bfloat16* dst = p.out + row_offset(p, b, h, row[hh], HD)
                            + 2 * quad;
@@ -621,6 +660,8 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
+    if (p.lse != nullptr && col == 0)
+      p.lse[lse_offset(p, b, h, r)] = log_sum_exp(mxc, den);
     den = fmaxf(den, 1e-30f);
     __nv_bfloat16* dst = p.out + row_offset(p, b, h, r, HD) + col;
     *reinterpret_cast<uint2*>(dst) = make_uint2(
@@ -690,7 +731,8 @@ int dispatch_head_dim(int head_dim, const Args& a) {
 extern "C" int gqa_core_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* pos, void* out, void* work, void* counters, int batch,
+    const void* pos, void* out, void* lse, void* work, void* counters,
+    int batch,
     int n_tokens, int kv_heads, int groups, int head_dim, int page_size,
     int n_blocks, int stages, float scale, float soft_cap, int kv_dtype,
     void* stream) {
@@ -705,7 +747,8 @@ extern "C" int gqa_core_attention(
                  static_cast<const float*>(v_scale),
                  static_cast<const int32_t*>(block_tables),
                  static_cast<const int32_t*>(pos),
-                 static_cast<__nv_bfloat16*>(out), nullptr, nullptr,
+                 static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+                 nullptr, nullptr,
                  static_cast<int*>(counters), n_tokens, kv_heads, groups,
                  page_size, n_blocks, /*max_chunks=*/0, /*row_tiles=*/0,
                  stages, scale, soft_cap};

@@ -5,7 +5,11 @@
 // head h, the G query rows of that head attend to the slot's KV history,
 // which lives in physical pages (P, page, KV, hd) reached through the
 // slot's block-table row.  s = (q . k) * scale, optional tanh soft cap,
-// mask k_pos <= pos, online softmax in float32, out = acc / max(l, 1e-30).
+// mask k_pos <= pos, online softmax in float32, out = acc / max(l, 1e-30),
+// and optionally lse = m + log(l), the log of the softmax denominator (for
+// the flash-decoding merge across ranks that hold a sequence's lines in
+// blocks).  A slot with pos < 0 sees no line: out 0, lse -inf, and its
+// table is not read.
 //
 // Bound on the card: bytes.  One call reads every live KV line once
 // ((pos + 1) lines of 2 * hd elements per slot and KV head) plus q and the
@@ -45,17 +49,19 @@
 //
 // C interface (bound with ctypes by repro_torch/kernels/build.py):
 //   int paged_attention_decode(q, k_pool, v_pool, k_scale, v_scale,
-//                              block_tables, pos, out, batch, kv_heads,
+//                              block_tables, pos, out, lse, batch, kv_heads,
 //                              groups, head_dim, page_size, n_blocks,
 //                              scale, soft_cap, dtype /*0 f32*/,
 //                              kv_dtype /*0 as q, 1 int8, 2 fp8 e4m3*/,
 //                              stream)
-// (the scale pointers are null unless kv_dtype quantizes) returns
+// (the scale pointers are null unless kv_dtype quantizes; lse is null or
+// float32 (batch, kv_heads, groups)) returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // head_dim / groups / dtype the kernel is not built for).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "kv_load.cuh"
@@ -81,7 +87,8 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
                     const float* __restrict__ v_scale,
                     const int32_t* __restrict__ block_tables,
                     const int32_t* __restrict__ pos, T* __restrict__ out,
-                    int kv_heads, int groups, int page_size, int n_blocks,
+                    float* __restrict__ lse, int kv_heads, int groups,
+                    int page_size, int n_blocks,
                     float scale, float soft_cap) {
   constexpr int VEC = VecWidth<T>::N;
   constexpr int LANES = (HD / VEC < 32) ? HD / VEC : 32;  // lanes per line
@@ -206,6 +213,9 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
       o += sm_acc[s][g][d] * w;
     }
     store_val(ob + idx, o / fmaxf(l_all, 1e-30f));
+    if (lse != nullptr && d == 0)
+      lse[((size_t)b * kv_heads + h) * groups + g] =
+          l_all > 0.f ? m_all + logf(l_all) : -INFINITY;
   }
 }
 
@@ -219,6 +229,7 @@ struct Args {
   const void* bt;
   const void* pos;
   void* out;
+  float* lse;
   int batch, kv_heads, groups, page_size, n_blocks;
   float scale, soft_cap;
   cudaStream_t stream;
@@ -231,7 +242,8 @@ void launch(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const S*>(a.k),
       static_cast<const S*>(a.v), a.ks, a.vs,
       static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.pos),
-      static_cast<T*>(a.out), a.kv_heads, a.groups, a.page_size, a.n_blocks,
+      static_cast<T*>(a.out), a.lse, a.kv_heads, a.groups, a.page_size,
+      a.n_blocks,
       a.scale, a.soft_cap);
 }
 
@@ -283,17 +295,17 @@ bool dispatch_store(int kv_dtype, int head_dim, const Args& a) {
 extern "C" int paged_attention_decode(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* pos, void* out, int batch, int kv_heads, int groups,
-    int head_dim, int page_size, int n_blocks, float scale, float soft_cap,
-    int dtype, int kv_dtype, void* stream) {
+    const void* pos, void* out, void* lse, int batch, int kv_heads,
+    int groups, int head_dim, int page_size, int n_blocks, float scale,
+    float soft_cap, int dtype, int kv_dtype, void* stream) {
   if (batch <= 0 || kv_heads <= 0 || page_size <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kv_dtype != kv_load::kSame && (k_scale == nullptr || v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), block_tables, pos, out,
-               batch, kv_heads, groups, page_size, n_blocks, scale, soft_cap,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(lse), batch, kv_heads, groups, page_size,
+               n_blocks, scale, soft_cap, static_cast<cudaStream_t>(stream)};
   const bool ok = dtype == 0 && dispatch_store<float>(kv_dtype, head_dim, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -109,14 +109,22 @@ register_kernel("paged_attention", cuda=_paged.paged_attention,
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos, *, scale,
                     soft_cap: float = 0.0, k_scale=None, v_scale=None,
-                    pipeline: Optional[str] = None):
+                    pipeline: Optional[str] = None, return_lse: bool = False):
     """GQA paged-decode attention (see kernels/paged_attention.py):
     q (B, KV, G, hd); pools (P, page, KV, hd), quantized with float32
     scale pools (P, page, KV); block_tables (B, n_blocks) int32; pos (B,)
-    int32.  Returns (B, KV, G, hd)."""
-    return resolve("paged_attention", q.device, pipeline)(
-        q, k_pool, v_pool, block_tables, pos, scale=scale, soft_cap=soft_cap,
-        k_scale=k_scale, v_scale=v_scale)
+    int32.  Returns (B, KV, G, hd); with ``return_lse`` (the off walk
+    only) also the rows' log-sum-exp (B, KV, G) float32."""
+    fn = resolve("paged_attention", q.device, pipeline)
+    if not return_lse:
+        return fn(q, k_pool, v_pool, block_tables, pos, scale=scale,
+                  soft_cap=soft_cap, k_scale=k_scale, v_scale=v_scale)
+    if fn is _REGISTRY["paged_attention"].get("ring"):
+        raise ValueError("return_lse is a decode walk's output; the ring "
+                         "(pipeline='double') does not give it")
+    return fn(q, k_pool, v_pool, block_tables, pos, scale=scale,
+              soft_cap=soft_cap, k_scale=k_scale, v_scale=v_scale,
+              return_lse=True)
 
 
 register_kernel("mla_paged_attention", cuda=_paged.mla_paged_attention,

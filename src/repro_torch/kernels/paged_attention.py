@@ -60,6 +60,17 @@ kernels bit for bit.  The two tensor-core cores take the codes as bf16
 (exact) and fold the line scales into the scores and into P
 (:func:`gqa_split_model`, :func:`mla_split_model`).
 
+GQA decode also gives, with ``return_lse=True``, each row's log-sum-exp
+lse (B, KV, G) float32: the log of the softmax denominator of the scaled
+(soft-capped) scores over the lines the row sees, the term a
+flash-decoding merge weighs a rank's partial output by when a
+sequence's lines are cut into blocks over ranks
+(``parallel/collectives.py::kv_merge``).  A row that sees no line (pos <
+0: a rank whose lines all lie past the position) then gives o = 0 and
+lse = -inf; the kernels give o = 0 for it either way and read nothing of
+its table.  The output is the same bits with the log-sum-exp or
+without.
+
 The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions.  The kernels keep the scores and ``p``
 in float32, as the Pallas kernels do (the cores' bf16 path takes p into
@@ -124,12 +135,16 @@ def paged_attention_reference(
     block_tables: torch.Tensor, pos: torch.Tensor, *,
     scale: float, soft_cap: float = 0.0,
     k_scale: Optional[torch.Tensor] = None,
-    v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """GQA paged decode, gather-and-attend.  Returns (B, KV, G, hd).
-    ``k_scale`` / ``v_scale`` (P, page, KV) float32 dequantize a quantized
-    pool before attending (the query is then upcast to float32: torch's
-    einsum does not promote, jnp's does)."""
+    v_scale: Optional[torch.Tensor] = None, return_lse: bool = False,
+):
+    """GQA paged decode, gather-and-attend.  Returns (B, KV, G, hd), and
+    with ``return_lse`` also the rows' log-sum-exp (B, KV, G) float32
+    (``torch.logsumexp`` of the masked scores), o = 0 and lse = -inf on a
+    row with pos < 0 (the module docstring; without ``return_lse`` such a
+    row, which no serving path sends, keeps the reference's uniform
+    average).  ``k_scale`` / ``v_scale`` (P, page, KV) float32 dequantize
+    a quantized pool before attending (the query is then upcast to
+    float32: torch's einsum does not promote, jnp's does)."""
     quantized = _pair(k_scale, v_scale, "paged_attention_reference")
     B = q.shape[0]
     KV, hd = k_pool.shape[2], k_pool.shape[3]
@@ -146,7 +161,12 @@ def paged_attention_reference(
     m = pos.long()[:, None] >= k_pos[None, :]                   # (B, S)
     s = torch.where(m[:, None, None, :], s, NEG_INF)
     p_attn = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bkgs,bskh->bkgh", p_attn, v).to(q.dtype)
+    o = torch.einsum("bkgs,bskh->bkgh", p_attn, v).to(q.dtype)
+    if not return_lse:
+        return o
+    seen = (pos >= 0)[:, None, None]
+    lse = torch.where(seen, torch.logsumexp(s, dim=-1), -torch.inf)
+    return torch.where(seen[..., None], o, 0).to(q.dtype), lse
 
 
 def mla_paged_attention_reference(
@@ -524,9 +544,11 @@ def gqa_core_run(q5: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, k_scale: Optional[torch.Tensor],
                  v_scale: Optional[torch.Tensor], block_tables: torch.Tensor,
                  pos: torch.Tensor, out: torch.Tensor, *, stages: int,
-                 scale: float, soft_cap: float, store: int) -> int:
+                 scale: float, soft_cap: float, store: int,
+                 lse: Optional[torch.Tensor] = None) -> int:
     """Launch the tensor-core GQA core (``csrc/gqa_core.cu``) on bf16
-    queries q5 (B, T, KV, G, hd) into ``out``, with ``stages`` tiles in
+    queries q5 (B, T, KV, G, hd) into ``out`` (and the rows' log-sum-exp
+    into ``lse`` (B, T, KV, G) float32 when given), with ``stages`` tiles in
     flight (1: each tile staged synchronously), over a workspace it
     allocates and the stream's counters (a captured step's own, under
     :func:`hold_gqa_counters`); returns the CUDA error code.  The shapes
@@ -542,15 +564,15 @@ def gqa_core_run(q5: torch.Tensor, k_pool: torch.Tensor,
     return lib.gqa_core_attention(
         q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), work.data_ptr(), counters.data_ptr(), B, T, KV, G,
-        hd, k_pool.shape[1], n_blocks, int(stages), float(scale),
+        out.data_ptr(), _ptr(lse), work.data_ptr(), counters.data_ptr(), B,
+        T, KV, G, hd, k_pool.shape[1], n_blocks, int(stages), float(scale),
         float(soft_cap), store, stream)
 
 
 # the C interface of csrc/gqa_core.cu
 GQA_CORE_C_SIGNATURES = {
     "gqa_core_attention": (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
 }
@@ -561,11 +583,13 @@ def paged_attention(
     block_tables: torch.Tensor, pos: torch.Tensor, *,
     scale: float, soft_cap: float = 0.0,
     k_scale: Optional[torch.Tensor] = None,
-    v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    v_scale: Optional[torch.Tensor] = None, return_lse: bool = False,
+):
     """Launch the CUDA decode kernel on the current stream (no sync).
 
-    Same contract as :func:`paged_attention_reference`.  Takes CUDA
+    Same contract as :func:`paged_attention_reference`, ``return_lse``
+    included (the kernels write lse beside the output in the same
+    launch; a row that sees no line gets o = 0, lse = -inf).  Takes CUDA
     tensors only: a bf16 or f32 q, pools in q's dtype or int8 /
     float8_e4m3fn with both float32 scale pools (P, page, KV), head_dim in
     ``KERNEL_HEAD_DIMS``, int32 block tables and positions.  bf16 queries
@@ -585,10 +609,12 @@ def paged_attention(
         q[:, None], k_pool, v_pool, block_tables, pos, k_scale, v_scale)
     dev = q.device
     out = torch.empty_like(q)
+    lse = (torch.empty((B, KV, G), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if q.dtype == torch.bfloat16:
         err = gqa_core_run(q[:, None], k_pool, v_pool, k_scale, v_scale,
-                        block_tables, pos, out, stages=1, scale=scale,
-                        soft_cap=soft_cap, store=store)
+                           block_tables, pos, out, stages=1, scale=scale,
+                           soft_cap=soft_cap, store=store, lse=lse)
     else:
         if not 1 <= G <= KERNEL_MAX_GROUPS:
             raise ValueError(
@@ -599,14 +625,15 @@ def paged_attention(
         err = lib.paged_attention_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, KV, G, hd, page_size,
-            n_blocks, float(scale), float(soft_cap), _DTYPE_CODES[q.dtype],
-            store, torch.cuda.current_stream(dev).cuda_stream)
+            pos.data_ptr(), out.data_ptr(), _ptr(lse), B, KV, G, hd,
+            page_size, n_blocks, float(scale), float(soft_cap),
+            _DTYPE_CODES[q.dtype], store,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
     paged_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention.launches = 0
@@ -614,7 +641,7 @@ paged_attention.launches = 0
 # the C interface of csrc/paged_attention.cu, bound by kernels/build.py
 C_SIGNATURES = {
     "paged_attention_decode": (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p],
         ctypes.c_int),

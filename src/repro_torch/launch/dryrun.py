@@ -9,8 +9,9 @@ Where the reference lowers and compiles each cell on 256 or 512 forced
 host devices and reads the partitioned HLO, the port walks one rank
 (rank 0) of a fake process group of the whole mesh
 (``launch/mesh.py::make_production_mesh``) on fake CPU tensors
-(``launch/specs.py``): the rank's real train step or prefill runs every
-aten op and every collective on shapes without storage, so nothing is
+(``launch/specs.py``): the rank's real train step, prefill or decode
+step (over its block of the dense cache) runs every aten op and every
+collective on shapes without storage, so nothing is
 allocated or computed, and the op walk (``core/analysis.py::
 analyze_step``) records W, Q and the collectives by axis.  Each cell is
 priced on the H100 (``--chip sheet``: ``H100_SXM``; ``--chip
@@ -24,9 +25,11 @@ that ``launch/reanalyze.py`` re-prices it without building a model.
 A cell's status is the reference's ``ok`` / ``skipped`` (``long_500k``
 on quadratic attention) / ``error`` (a failing cell is a bug, recorded
 with its traceback), plus ``not_ported`` for a cell whose path the port
-still lacks, its reason naming the ROADMAP item: decode cells (item 22:
-a ``kv_seq``-sharded dense cache) and the recurrent archs (item 21).
-The summary counts each; the exit code is 1 only on an error.
+still lacks, its reason naming the ROADMAP item: the recurrent archs
+(item 21).  The summary counts each; the exit code is 1 only on an
+error.  A train cell's walked ``model`` bytes are held against
+``train.step.tp_wire_bytes``, a decode cell's against
+``decode_wire_bytes`` (``tp_wire_model_bytes`` in its result).
 """
 
 from __future__ import annotations
@@ -47,11 +50,12 @@ from ..configs import ALL_ARCHS, get_config
 from ..core.analysis import analyze_step
 from ..core.roofline.hardware import H100_SXM, ChipSpec
 from ..core.roofline.op_cost import records_to_json
-from ..models import prefill
+from ..models import decode_step, prefill
 from ..models.common import SHAPES, ModelConfig
 from ..models.transformer import has_recurrent
 from ..parallel.mesh import use_mesh
-from ..train.step import (TrainConfig, make_train_step, tp_wire_bytes,
+from ..train.step import (TrainConfig, decode_local_config,
+                          decode_wire_bytes, make_train_step, tp_wire_bytes,
                           train_local_config)
 from . import specs as specs_mod
 from .mesh import make_production_mesh, mesh_name
@@ -101,25 +105,21 @@ def not_run_reason(cfg: ModelConfig, shape: str
                    ) -> Optional[Tuple[str, str]]:
     """(status, reason) of a cell that is not walked, None for one that
     is: recurrent mixers (ROADMAP item 21), ``long_500k`` on quadratic
-    attention (the reference's skip), decode (ROADMAP item 22)."""
+    attention (the reference's skip)."""
     if has_recurrent(cfg):
         return ("not_ported", "recurrent mixers have no tensor-parallel "
-                "edges in training or prefill at model > 1: ROADMAP "
-                "queue 1 item 21")
+                "edges in training, prefill or decode at model > 1: "
+                "ROADMAP queue 1 item 21")
     if shape == "long_500k" and not cfg.subquadratic:
         return ("skipped", "quadratic full attention; see DESIGN.md §5")
-    if SHAPES[shape].kind == "decode":
-        return ("not_ported", "decode on a kv_seq-sharded dense cache "
-                "(flash-decoding merge across ranks): ROADMAP queue 1 "
-                "item 22")
     return None
 
 
 def _walk(cfg: ModelConfig, tcfg: TrainConfig, shape: str, mesh, *,
           label: str, chip: ChipSpec):
     """The analysis report of rank ``mesh.rank``'s step of one cell, and
-    the ``model`` wire bytes ``tp_wire_bytes`` predicts for a train
-    step (None for prefill)."""
+    the ``model`` wire bytes ``tp_wire_bytes`` (a train step) or
+    ``decode_wire_bytes`` (a decode step) predicts (None for prefill)."""
     cell = SHAPES[shape]
     flops = specs_mod.cell_flops(cfg, cell)
     if cell.kind == "train":
@@ -127,6 +127,15 @@ def _walk(cfg: ModelConfig, tcfg: TrainConfig, shape: str, mesh, *,
         fn = make_train_step(cfg, tcfg, mesh)
         wire = tp_wire_bytes(cfg, mesh.sizes, cell.global_batch,
                              cell.seq_len, tcfg)["model"]
+    elif cell.kind == "decode":
+        args, _, _ = specs_mod.decode_specs(cfg, cell, mesh)
+        local = decode_local_config(cfg, mesh)
+
+        def fn(params, caches, token, pos):
+            with use_mesh(mesh, process_wide=True), torch.no_grad():
+                return decode_step(params, local, caches, token, pos)
+        wire = decode_wire_bytes(cfg, mesh.sizes, cell.global_batch,
+                                 cell.seq_len)["model"]
     else:
         args, _, _ = specs_mod.prefill_specs(cfg, cell, mesh)
         local = train_local_config(cfg, mesh)

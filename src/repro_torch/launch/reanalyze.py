@@ -64,22 +64,32 @@ def load_record(json_path: str) -> Optional[dict]:
     return record
 
 
-def reanalyze_cell(json_path: str, chip: ChipSpec) -> bool:
-    """Re-price one cell on ``chip`` and rewrite its JSON; False for a
-    cell that is not ``ok`` or has no archive."""
+def reprice(json_path: str, chip: ChipSpec) -> Optional[dict]:
+    """One cell's JSON with its archived walk priced again on ``chip``
+    (the file is left as it is); None for a cell that is not ``ok`` or
+    has no archive."""
     with open(json_path) as f:
         d = json.load(f)
     if d.get("status") != "ok":
-        return False
+        return None
     record = load_record(json_path)
     if record is None:
-        return False
+        return None
     report = analyze_records(
         record, d["mesh_shape"], label=d["label"], chip=chip,
         dtype=d.get("dtype", "bfloat16"),
         model_flops=d.get("model_flops_total"),
         walk_seconds=d.get("walk_seconds", 0.0))
     d.update(report.as_dict())
+    return d
+
+
+def reanalyze_cell(json_path: str, chip: ChipSpec) -> bool:
+    """Re-price one cell on ``chip`` and rewrite its JSON; False for a
+    cell that is not ``ok`` or has no archive."""
+    d = reprice(json_path, chip)
+    if d is None:
+        return False
     d["chip"] = chip.name
     with open(json_path, "w") as f:
         json.dump(d, f, indent=2, default=float)

@@ -104,15 +104,11 @@ def train_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
     return args, in_specs, (state_specs, None)
 
 
-def prefill_cache_specs(cfg: ModelConfig, B: int, S: int, mesh):
-    """The spec of every leaf of ``models.prefill``'s states for a global
-    batch of B prompts of S tokens on ``mesh``: the dense cache's
-    (``cache_param_defs``) with its lines at the prefill's own counts (S
-    a prompt, the source's frames or image tokens for cross attention;
-    the reference's cache shapes, without the static engine's rounding
-    to 16 lines).  Where the KV heads do not divide ``model`` the rules
-    put ``kv_seq`` on it (a rank holds its rows of the lines), else the
-    KV heads; MLA's latent lines always take it."""
+def exact_cache_defs(cfg: ModelConfig, B: int, S: int):
+    """The dense cache's defs (``cache_param_defs``) with its lines at
+    their own counts (S, the source's frames or image tokens for cross
+    attention): the reference's cache shapes, without the static
+    engine's rounding to 16 lines."""
     def unrounded(d: ParamDef, lines: int) -> ParamDef:
         if "kv_seq" not in d.logical:     # a recurrent mixer's state
             return d
@@ -126,7 +122,18 @@ def prefill_cache_specs(cfg: ModelConfig, B: int, S: int, mesh):
                                        if k in ("ck", "cv") else S)
                           for k, d in leaves.items()}
                      for bk, leaves in seg.items()})
-    return shd.tree_specs(segs, mesh)
+    return segs
+
+
+def prefill_cache_specs(cfg: ModelConfig, B: int, S: int, mesh):
+    """The spec of every leaf of ``models.prefill``'s states for a global
+    batch of B prompts of S tokens on ``mesh``: the dense cache's at its
+    lines' own counts (:func:`exact_cache_defs`).  Where the KV heads do
+    not divide ``model`` the rules put ``kv_seq`` on it (a rank holds its
+    rows of the lines), else the KV heads; MLA's latent lines always
+    take it.  A decode step's cache blocks are the same
+    (:func:`decode_specs`)."""
+    return shd.tree_specs(exact_cache_defs(cfg, B, S), mesh)
 
 
 def prefill_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
@@ -162,15 +169,36 @@ def decode_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
     """(args, in_specs, None) of ``models.decode_step(params, cfg,
     caches, token, pos)``, ``cfg`` left out: one new token a row against
     a seq_len-deep dense cache (pos (B,) int32, the port's position a
-    row)."""
+    row).  On a mesh of ranks (``parallel.mesh.holds_blocks``, as
+    :func:`prefill_specs`) the args are one rank's: its parameter
+    blocks, its block of the dense cache (:func:`exact_cache_defs` cut by
+    its specs: its rows of the lines where the KV heads do not divide
+    ``model``, MLA's latent lines always, else its KV heads), a
+    (global_batch / batch shards, 1) token and a (global_batch / batch
+    shards,) pos; the rank runs ``decode_step`` on its
+    ``train.step.decode_local_config``.  Otherwise the global arrays at
+    the static engine's cache shapes."""
     mode = mode or FakeTensorMode()
     defs = model_param_defs(cfg)
     B, S = cell.global_batch, cell.seq_len
-    cdefs = cache_param_defs(cfg, B, S)
     sizes = mesh_axis_sizes(mesh)
-    args = (_fake_tree(mode, defs), _fake_tree(mode, cdefs),
-            _fake(mode, (B, 1), "int32"), _fake(mode, (B,), "int32"))
-    in_specs = (shd.tree_specs(defs, mesh), shd.tree_specs(cdefs, mesh),
+    param_specs = shd.tree_specs(defs, mesh)
+    if holds_blocks(mesh):
+        exact = exact_cache_defs(cfg, B, S)
+        cache_specs = shd.tree_specs(exact, mesh)
+        rows = B // batch_shards(mesh)
+        params = _fake_like(mode, abstract_params(cfg, mesh))
+        caches = tree_map(lambda d, sp: _fake(
+            mode, shd.local_shape(d.shape, sp, mesh), d.dtype), exact,
+            cache_specs)
+    else:
+        cdefs = cache_param_defs(cfg, B, S)
+        cache_specs = shd.tree_specs(cdefs, mesh)
+        rows = B
+        params, caches = _fake_tree(mode, defs), _fake_tree(mode, cdefs)
+    args = (params, caches, _fake(mode, (rows, 1), "int32"),
+            _fake(mode, (rows,), "int32"))
+    in_specs = (param_specs, cache_specs,
                 shd.resolve_spec(["batch", None], [B, 1], sizes),
                 shd.resolve_spec(["batch"], [B], sizes))
     return args, in_specs, None

@@ -12,6 +12,15 @@ identity block table (:func:`dense_attention`), so its self and cross
 decode attention run the same kernel as the paged engine (the reference
 attends them with plain jnp).  KV heads stay un-repeated: the query-group
 dim G rides along so GQA never materializes repeated K/V.
+
+Under a mesh whose rules cut a dense cache's lines over ``model`` (KV
+heads that do not divide it: a ``kv_seq`` layout, ``LocalLayout``) a
+decode rank holds every KV head for its block of the lines, writes the
+new line only where it owns the position, attends all query heads over
+its block through the same kernel (which then also gives each row's
+log-sum-exp) and merges the ranks' partial outputs
+(``collectives.kv_merge``, flash-decoding) before the o-projection:
+:func:`decode_attention` and :func:`cross_decode`.
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ import torch
 from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
-from ..parallel.collectives import (row_parallel_matmul, seq_gather,
+from ..parallel.collectives import (head_gather, kv_merge,
+                                    row_parallel_matmul, seq_gather,
                                     seq_slice, tp_copy)
 from .common import ModelConfig, layout_of
 from .layers import apply_rope, rms_head_norm, rope_cos_sin
@@ -190,12 +200,12 @@ def line_rows(cfg: ModelConfig, S: int, *, latent: bool = False
               ) -> Optional[slice]:
     """This rank's rows of a dense cache's S lines: the rules put
     ``kv_seq`` on ``model`` where the KV heads do not divide it (a
-    ``kv_sliced`` or ``context_parallel`` layout; MLA's latent lines,
-    ``latent``, always) and S does; None where the rank holds every line
-    of its KV heads."""
+    ``kv_sliced``, ``context_parallel`` or ``kv_seq`` layout; MLA's latent
+    lines, ``latent``, always) and S does; None where the rank holds
+    every line of its KV heads."""
     lay = layout_of(cfg)
     if cfg.tp_axis is None or not (latent or lay.kv_sliced
-                                   or lay.context_parallel):
+                                   or lay.context_parallel or lay.kv_seq):
         return None
     return _axis_rows(cfg, S)
 
@@ -501,29 +511,150 @@ def init_cache_defs(cfg: ModelConfig, batch: int, max_len: int
             "v": ParamDef(shape, cfg.dtype, init="zeros", logical=axes)}
 
 
+def dense_page(lines: int) -> int:
+    """The page a dense cache of ``lines`` lines is viewed in:
+    ``DENSE_PAGE``, or the whole row where that does not divide it (a
+    rank's block of a cross-attention cache whose source length is no
+    multiple of 16)."""
+    return DENSE_PAGE if lines % DENSE_PAGE == 0 else lines
+
+
 def identity_tables(batch: int, lines: int, device) -> torch.Tensor:
     """The block table of a dense cache (batch, lines, ...) viewed as a
-    pool of pages of ``DENSE_PAGE`` lines: row b's block j is page
-    ``b * lines / DENSE_PAGE + j``.  (batch, n_blocks) int32."""
-    nb = lines // DENSE_PAGE
+    pool of pages of ``dense_page(lines)`` lines: row b's block j is page
+    ``b * n_blocks + j``.  (batch, n_blocks) int32."""
+    nb = lines // dense_page(lines)
     return torch.arange(batch * nb, dtype=torch.int32,
                         device=device).view(batch, nb)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pos: torch.Tensor, *, scale: float,
-                    soft_cap: float = 0.0) -> torch.Tensor:
+                    soft_cap: float = 0.0, return_lse: bool = False):
     """One query token a row against dense caches k/v (B, Smax_r, KV, hd)
     through ``kernels.ops.paged_attention``: the caches viewed, without a
-    copy, as a pool (B * Smax_r / DENSE_PAGE, DENSE_PAGE, KV, hd) under
-    :func:`identity_tables`.  q (B, KV, G, hd); pos (B,) int32, the last
-    line each row sees.  Returns (B, KV, G, hd)."""
+    copy, as a pool (B * Smax_r / page, page, KV, hd) under
+    :func:`identity_tables` (page :func:`dense_page`).  q (B, KV, G, hd);
+    pos (B,) int32, the last line each row sees (< 0: none).  Returns
+    (B, KV, G, hd), and with ``return_lse`` the rows' log-sum-exps (B,
+    KV, G) float32 too."""
     B, S, KV, hd = k.shape
-    shape = (B * S // DENSE_PAGE, DENSE_PAGE, KV, hd)
+    page = dense_page(S)
+    shape = (B * S // page, page, KV, hd)
     return kernel_ops.paged_attention(
         q.contiguous(), k.view(shape), v.view(shape),
         identity_tables(B, S, q.device), pos, scale=scale,
-        soft_cap=soft_cap, pipeline="off")
+        soft_cap=soft_cap, pipeline="off", return_lse=return_lse)
+
+
+def cut_lines(cfg: ModelConfig) -> bool:
+    """Whether a decode rank's dense caches hold its block of the lines
+    (a ``kv_seq`` layout under a tp axis)."""
+    return cfg.tp_axis is not None and layout_of(cfg).kv_seq
+
+
+def block_start(cfg: ModelConfig, lines: int) -> int:
+    """The first line of this rank's block of ``lines`` lines over
+    ``cfg.tp_axis`` (its coordinate times the block)."""
+    from ..parallel.mesh import active_mesh
+    return active_mesh().coord(cfg.tp_axis) * lines
+
+
+def write_owned(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                local: torch.Tensor) -> None:
+    """Write each row's new line ``new[name]`` (B, ...) at its local
+    position ``local`` (B,) of the rank's block ``cache[name]`` (B, L,
+    ...), in place, where the rank owns it (0 <= local < L); elsewhere the
+    line the clipped index points at is written back unchanged, so the
+    shapes never depend on who owns the position."""
+    name0 = next(iter(new))
+    B, L = cache[name0].shape[:2]
+    rows = torch.arange(B, device=local.device)
+    idx = local.clamp(0, L - 1).long()
+    own = (local >= 0) & (local < L)
+    for name, line in new.items():
+        c = cache[name]
+        keep = own.view((B,) + (1,) * (line.dim() - 1))
+        c.index_put_((rows, idx), torch.where(keep, line.to(c.dtype),
+                                              c[rows, idx]))
+
+
+def _merged_out(p, o: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """A kv_seq rank's attention output o (B, 1, H, hd) over every query
+    head, merged over the axis, through the o-projection: the rank's
+    heads of it into its block of ``wo`` (a row-parallel product) where
+    the query heads are split; where they are whole (``wo`` replicated)
+    the whole product, or under ``cfg.tp_attn_inner`` the rank's columns
+    of the flat H x hd dim (row parallel)."""
+    B, _, H, hd = o.shape
+    o = o.to(dtype)
+    if not layout_of(cfg).context_parallel:
+        first = block_start(cfg, cfg.n_heads)
+        return _out_proj(o[:, :, first:first + cfg.n_heads], p["wo"], cfg)
+    wo = p["wo"].reshape(H * hd, -1)
+    flat = o.reshape(B, 1, H * hd)
+    cols = _axis_rows(cfg, H * hd)
+    if cfg.tp_attn_inner and cols is not None:
+        return row_parallel_matmul(flat[..., cols], wo[cols], cfg.tp_axis,
+                                   cfg.tp_overlap)
+    return flat @ wo
+
+
+def _all_heads(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A kv_seq rank's queries (B, 1, heads, hd) of every head: its own
+    gathered over the axis where the query heads are split."""
+    if layout_of(cfg).context_parallel:
+        return q
+    return head_gather(q, 2, cfg.tp_axis)
+
+
+def _decode_cut(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                pos: torch.Tensor, cfg: ModelConfig, rope: Rope
+                ) -> torch.Tensor:
+    """:func:`decode_attention` on a rank's block of the lines."""
+    B = x.shape[0]
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, rope, rope)
+    L = cache["k"].shape[1]
+    local = pos - block_start(cfg, L)
+    write_owned(cache, {"k": k_new[:, 0], "v": v_new[:, 0]}, local)
+    q = _all_heads(q, cfg)
+    H = q.shape[2]
+    with named_scope("paged_attention"):
+        o, lse = dense_attention(
+            q.reshape(B, KV, H // KV, hd), cache["k"], cache["v"],
+            local.clamp(max=L - 1), scale=1.0 / (hd ** 0.5),
+            soft_cap=cfg.attn_logit_soft_cap, return_lse=True)
+    o = kv_merge(o, lse, cfg.tp_axis).reshape(B, 1, H, hd)
+    return _merged_out(p, o, cfg, x.dtype)
+
+
+def cross_decode(p, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 cfg: ModelConfig, src_len: int, dtype) -> torch.Tensor:
+    """A kv_seq rank's cross-attention decode (ungated): q (B, 1, heads,
+    hd) its query heads (q-normed), ck / cv (B, L, KV, hd) its cache of
+    the ``src_len`` source lines: its block of them where the axis
+    divides ``src_len`` (the cut ``line_rows`` makes at prefill), merged
+    over the axis, else every line (the rules leave them whole), attended
+    whole.  Returns (B, 1, D) in ``dtype``."""
+    B, _, _, hd = q.shape
+    KV = cfg.n_kv_heads
+    q = _all_heads(q, cfg)
+    H = q.shape[2]
+    L = ck.shape[1]
+    cut = _axis_rows(cfg, src_len) is not None
+    last = src_len - 1 - (block_start(cfg, L) if cut else 0)
+    lim = torch.full((B,), min(last, L - 1), dtype=torch.int32,
+                     device=q.device)
+    q = q.reshape(B, KV, H // KV, hd)
+    with named_scope("paged_attention"):
+        if cut:
+            o, lse = dense_attention(q, ck, cv, lim, scale=1.0 / (hd ** 0.5),
+                                     return_lse=True)
+            o = kv_merge(o, lse, cfg.tp_axis)
+        else:
+            o = dense_attention(q, ck, cv, lim, scale=1.0 / (hd ** 0.5))
+    return _merged_out(p, o.reshape(B, 1, H, hd), cfg, dtype)
 
 
 def decode_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -532,7 +663,11 @@ def decode_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     """One-token decode against a dense cache (updated in place).
     x (B,1,D); cache k/v (B, Smax_r, KV, hd); pos (B,) int32, the write
     position of each row (the reference's scalar, broadcast); ``rope`` =
-    rope_tables(cfg, pos[:, None])."""
+    rope_tables(cfg, pos[:, None]).  On cut lines (:func:`cut_lines`) the
+    cache is the rank's block of the lines, every KV head, and the
+    attention is merged over the axis (the module docstring)."""
+    if cut_lines(cfg):
+        return _decode_cut(p, x, cache, pos, cfg, rope)
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k_new, v_new = _project_qkv(p, x, x, cfg, rope, rope)

@@ -153,9 +153,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LocalLayout:
-    """How a tensor-parallel training or prefill rank's layers depart from
-    the head-parallel layout, as the specs the rules resolve say
-    (``parallel.sharding.tp_local_config(..., train=True)``):
+    """How a tensor-parallel training, prefill or dense-decode rank's
+    layers depart from the head-parallel layout, as the specs the rules
+    resolve say (``parallel.sharding.tp_local_config(..., train=True)``):
 
     * ``kv_sliced``: the KV heads do not divide the tp axis; the rules
       replicate ``wk`` / ``wv`` and the rank reads the ``n_kv_heads`` of
@@ -168,17 +168,30 @@ class LocalLayout:
       K / V whole (models/attention.py);
     * ``whole_ffn``: a dense d_ff that the axis does not divide; the
       rules replicate it and every rank runs the FFN whole, without
-      edges (models/layers.py).
+      edges (models/layers.py);
+    * ``kv_seq`` (decode, ``parallel.sharding.tp_local_config(...,
+      decode=True)``): the KV heads do not divide the axis, so the rules
+      put the dense cache's lines (``kv_seq``) on it: the rank holds
+      every KV head (``n_kv_heads`` is the global count) for its block of
+      the lines, attends all query heads over them (gathered where they
+      are split) and the ranks' partial softmaxes are merged
+      (``parallel.collectives.kv_merge``, flash-decoding).  With
+      ``context_parallel`` beside it the query heads are whole too.
 
     KV slicing and context parallelism exclude each other: whole query
-    heads read whole KV heads."""
+    heads read whole KV heads; KV slicing and the cut lines too: a
+    decode rank reads every KV head."""
     kv_sliced: bool = False
     context_parallel: bool = False
     whole_ffn: bool = False
+    kv_seq: bool = False
 
     def __post_init__(self):
         if self.kv_sliced and self.context_parallel:
             raise ValueError("a KV-sliced config has its query heads split")
+        if self.kv_sliced and self.kv_seq:
+            raise ValueError("a decode rank on cut lines reads every KV "
+                             "head")
 
 
 HEAD_PARALLEL = LocalLayout()

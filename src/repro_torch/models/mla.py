@@ -18,6 +18,11 @@ only the latent and rope lines: pools (P, page, r) and (P, page, dr).
 * :func:`mla_decode` — one-token decode against the static engine's
   dense latent cache (:func:`mla_cache_defs`), absorbed or expanded as
   ``cfg.mla_absorb`` says, in plain PyTorch as the reference's is jnp.
+  Under a tp axis the rules cut the latent lines over it (latent pools
+  never shard by head): the rank holds its block of the lines, attends
+  every head over them (the queries, and for the expanded form ``wk_b``
+  / ``wv_b``, gathered over the axis) and the ranks' partial softmaxes
+  are merged by their log-sum-exps (``collectives.kv_merge``).
 
 RoPE tables are computed once per forward at ``rope_head_dim``
 (:func:`rope_tables`) and passed in, where the reference recomputes them
@@ -36,9 +41,10 @@ import torch
 from ..core.roofline.op_cost import named_scope
 from ..kernels import ops as kernel_ops
 from ..kernels import quantize as kvq
-from ..parallel.collectives import tp_copy
+from ..parallel.collectives import head_gather, kv_merge, tp_copy
 from .attention import (NEG_INF, Rope, _commit_kv, _heads, _out_proj,
-                        dense_lines, gather_pages, line_rows)
+                        block_start, dense_lines, gather_pages, line_rows,
+                        write_owned)
 from .common import ModelConfig
 from .layers import rms_head_norm, rope_cos_sin
 from .params import ParamDef
@@ -340,13 +346,18 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     place).  x (B,1,D); cache c_kv (B, Smax_r, r) / k_rope (B, Smax_r,
     dr); pos (B,) int32 write positions; ``rope`` = rope_tables(cfg,
     pos[:, None]).  Absorbed or expanded per ``cfg.mla_absorb``, lines
-    past ``pos`` masked: the reference's ``mla_decode``."""
+    past ``pos`` masked: the reference's ``mla_decode``.  Under
+    ``cfg.tp_axis`` the cache is the rank's block of the lines (the
+    module docstring)."""
     B = x.shape[0]
     posb = pos[:, None]
     if rope is None:
         rope = rope_tables(cfg, posb)
     q_nope, q_rope = _queries(p, x, posb, cfg, rope)             # (B,1,H,*)
     c_new, kr_new = _latent_kv(p, x, posb, cfg, rope)            # (B,1,*)
+    if cfg.tp_axis is not None:
+        return _decode_cut(p, q_nope, q_rope, c_new, kr_new, cache, pos,
+                           cfg)
     rows = torch.arange(B, device=x.device)
     cache["c_kv"].index_put_((rows, pos.long()),
                              c_new[:, 0].to(cache["c_kv"].dtype))
@@ -356,3 +367,54 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     valid = (k_pos[None, :] <= pos.long()[:, None])[:, None, :]  # (B,1,S)
     return _mla_attend(p, q_nope, q_rope, cache["c_kv"], cache["k_rope"],
                        valid, cfg)
+
+
+def _decode_cut(p, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                c_new: torch.Tensor, kr_new: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """:func:`mla_decode` on a rank's block of the latent lines: the new
+    line written where the rank owns ``pos``; scores of every head over
+    the block (absorbed: q_lat gathered, then the latent product;
+    expanded: q and the head blocks of ``wk_b`` / ``wv_b`` gathered, K /
+    V expanded over the block), the rank's softmax and its rows'
+    log-sum-exps (-inf where it sees no line), merged over the axis
+    (o_lat absorbed, o expanded); then the rank's heads through ``wv_b``
+    (absorbed) and its block of ``wo``, a row-parallel product."""
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+    axis = cfg.tp_axis
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    L = c_kv.shape[1]
+    local = pos - block_start(cfg, L)
+    write_owned(cache, {"c_kv": c_new[:, 0], "k_rope": kr_new[:, 0]}, local)
+    k_pos = torch.arange(L, device=pos.device)
+    valid = (k_pos[None, :] <= local.long()[:, None])[:, None, None, :]
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    q_rope = head_gather(q_rope, 2, axis)
+    if cfg.mla_absorb:
+        q_lat = head_gather(
+            torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"]), 2, axis)
+        s = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
+             + torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope))
+        s = torch.where(valid, s.float() * scale, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(c_kv.dtype)
+        o = torch.einsum("bhqs,bsr->bqhr", w, c_kv)              # (B,1,H,r)
+    else:
+        q_nope = head_gather(q_nope, 2, axis)
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv,
+                              head_gather(p["wk_b"], 1, axis))
+        v = torch.einsum("bsr,rhk->bshk", c_kv,
+                         head_gather(p["wv_b"], 1, axis))
+        s = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
+             + torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope))
+        s = torch.where(valid, s.float() * scale, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bhqs,bshk->bqhk", w, v)                # (B,1,H,dv)
+    seen = (local >= 0)[:, None, None]
+    lse = torch.where(seen, torch.logsumexp(s, dim=-1), -torch.inf)
+    o = kv_merge(o, lse.transpose(1, 2), axis)
+    first = block_start(cfg, cfg.n_heads)
+    o = o[:, :, first:first + cfg.n_heads]
+    if cfg.mla_absorb:
+        o = torch.einsum("bqhr,rhk->bqhk", o, p["wv_b"])
+    return _out_proj(o, p["wo"], cfg)

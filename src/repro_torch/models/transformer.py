@@ -356,19 +356,23 @@ def _cross_attend_cached(p, x: torch.Tensor, ck: torch.Tensor,
     S_src rounded, KV, hd) of ``src_len`` real lines, unmasked over them
     and gated: the reference's ``_cross_attend_cached`` (q-norm on q only,
     no soft cap) through ``attention.dense_attention`` with every row's
-    last line ``src_len - 1``."""
+    last line ``src_len - 1``; a decode rank on cut lines runs
+    ``attention.cross_decode``."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = attn._heads(x, p["wq"])
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
-    last = torch.full((B,), src_len - 1, dtype=torch.int32,
-                      device=x.device)
-    with named_scope("paged_attention"):
-        o = attn.dense_attention(q.reshape(B, KV, H // KV, hd), ck, cv,
-                                 last, scale=1.0 / (hd ** 0.5)
-                                 ).reshape(B, 1, H, hd)
-    out = attn._out_proj(o.to(x.dtype), p["wo"], cfg)
+    if attn.cut_lines(cfg):
+        out = attn.cross_decode(p, q, ck, cv, cfg, src_len, x.dtype)
+    else:
+        last = torch.full((B,), src_len - 1, dtype=torch.int32,
+                          device=x.device)
+        with named_scope("paged_attention"):
+            o = attn.dense_attention(q.reshape(B, KV, H // KV, hd), ck, cv,
+                                     last, scale=1.0 / (hd ** 0.5)
+                                     ).reshape(B, 1, H, hd)
+        out = attn._out_proj(o.to(x.dtype), p["wo"], cfg)
     if "gate" in p:
         out = torch.tanh(p["gate"]).to(out.dtype) * out
     return out

@@ -30,6 +30,11 @@ unsharded model: the plain product, no collective.
   attention (query heads that do not divide the axis: the rank's rows of
   the sequence), a slice whose backward pads the cotangent with zeros
   and an all-gather whose backward keeps the rank's rows;
+* :func:`head_gather` / :func:`kv_merge`: the edges of decode over a
+  dense cache whose lines are cut over the axis (KV heads that do not
+  divide it): the rank's query heads gathered, so that it attends every
+  head over its lines, and the ranks' partial outputs merged by their
+  log-sum-exps (flash-decoding), one all-gather each, forward only;
 * :func:`ring_allgather_matmul`, :func:`psum_scatter_matmul`: the
   sequence-parallel entry edge and the reduce-scatter epilogue;
 * data parallelism over the batch axes ``("data", "pod")``
@@ -149,10 +154,10 @@ def row_parallel_psum(partial: torch.Tensor, axis: str) -> torch.Tensor:
     of the o-projection, local d_ff of the down-projection).  Two of
     these per transformer block are the whole card-to-card cost of a
     tensor-parallel decode step (scheduler.decode_step_ici_bytes).  Not
-    differentiable: training goes through :func:`tp_reduce`."""
-    out = partial.contiguous()
-    dist.all_reduce(out, group=axis_group(axis))
-    return out
+    differentiable: training goes through :func:`tp_reduce`.  Tagged
+    ``tp_reduce`` for the walk, as that edge's forward is."""
+    return _all_reduce_tagged(partial.contiguous(), axis_group(axis),
+                              "tp_reduce")
 
 
 def _gather_cols(x: torch.Tensor, group) -> torch.Tensor:
@@ -192,7 +197,9 @@ def all_gather_cols(x: torch.Tensor, axis: str) -> torch.Tensor:
     group = axis_group(axis)
     if _grad_edge(x):
         return _GatherCols.apply(x, group)
-    return _gather_cols(x, group)
+    from ..core.roofline.op_cost import named_scope
+    with named_scope("tp_gather"):
+        return _gather_cols(x, group)
 
 
 def _rows(n: int, r: int, size: int) -> slice:
@@ -274,6 +281,53 @@ def seq_gather(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
     from ..core.roofline.op_cost import named_scope
     with named_scope("seq_gather"):
         return _gather_dim(x, dim, group)
+
+
+def head_gather(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """The ranks' head blocks of ``x`` (a decode query, or a head-sharded
+    weight an expanded MLA decode reads whole) laid side by side along
+    ``dim`` in rank order: one all-gather, tagged ``head_gather`` for the
+    walk.  Serving only (no backward)."""
+    from ..core.roofline.op_cost import named_scope
+    with named_scope("head_gather"):
+        return _gather_dim(x, dim, axis_group(axis))
+
+
+def _lse_slots(lse: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The float32 ``lse`` (...) as (..., k) elements of ``dtype`` whose
+    bytes are its bits (k = 4 / itemsize), to travel beside an output of
+    that dtype in one buffer."""
+    return lse.contiguous()[..., None].view(dtype)
+
+
+def kv_merge(o: torch.Tensor, lse: torch.Tensor, axis: str) -> torch.Tensor:
+    """The flash-decoding merge over ``axis`` of every rank's partial
+    attention output ``o`` (..., hd) over its block of a sequence's lines,
+    with its rows' log-sum-exps ``lse`` (...) float32 (-inf for a row
+    that saw no line): lse* = log sum_r e^lse_r and o = sum_r
+    e^(lse_r - lse*) o_r, in float32 and rank order, rounded once to
+    ``o``'s dtype.  A rank at -inf weighs exactly 0; a row that no rank
+    saw gives 0.
+
+    One all-gather of (o, lse) packed in o's dtype (lse's float32 bits as
+    4 / itemsize elements beside hd), tagged ``kv_merge``: (n - 1) rows x
+    (hd itemsize + 4) bytes on the wire a rank.  (The other form, an
+    all-reduce of the max and then one of (l, acc), moves about twice
+    that in two collectives.)  Every rank gets the whole merge, and no
+    backward: decode is not trained."""
+    from ..core.roofline.op_cost import named_scope
+    hd = o.shape[-1]
+    packed = torch.cat([o, _lse_slots(lse, o.dtype)], dim=-1)
+    with named_scope("kv_merge"):
+        every = _gather_dim(packed[None], 0, axis_group(axis))
+    parts = every[..., :hd].float()
+    lses = every[..., hd:].contiguous().view(torch.float32)[..., 0]
+    top = lses.max(dim=0).values
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.exp(lses - top)                        # (n, ...); 0 at -inf
+    den = w.sum(dim=0)
+    out = (w[..., None] * parts).sum(dim=0) / den.clamp_min(1e-30)[..., None]
+    return out.to(o.dtype)
 
 
 def _ring_shift(t: torch.Tensor, group) -> torch.Tensor:
@@ -505,7 +559,7 @@ def all_gather_dim(t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
 
 __all__ = [
     "all_gather_cols", "all_gather_dim", "all_reduce_",
-    "gather_shards", "tp_copy", "tp_reduce",
+    "gather_shards", "head_gather", "kv_merge", "tp_copy", "tp_reduce",
     "psum", "reduce_scatter_dim", "psum_scatter_matmul", "ring_allgather_matmul",
     "ring_matmul_reduce", "row_parallel_matmul", "row_parallel_psum",
     "seq_gather", "seq_slice", "staged_p2p",

@@ -155,7 +155,8 @@ def tp_width_error(cfg: ModelConfig, tp: int, *, train: bool = False
 
 
 def tp_local_config(cfg: ModelConfig, tp: int, overlap: str = "none",
-                    *, train: bool = False) -> ModelConfig:
+                    *, train: bool = False, decode: bool = False
+                    ) -> ModelConfig:
     """The config one rank's steps run at tensor-parallel width ``tp``
     (the gates are the caller's: :func:`tp_width_error` and its own):
     local head and FFN counts, an explicit head_dim (it must not
@@ -167,20 +168,25 @@ def tp_local_config(cfg: ModelConfig, tp: int, overlap: str = "none",
     (with the KV heads) and attention runs over the rank's rows of the
     sequence; KV heads that do not divide become the one KV head a
     rank's query heads read; a dense ``d_ff`` that does not divide stays
-    whole: a ``models.common.LocalConfig`` whose ``layout`` says which.  vocab_size, n_experts and moe_d_ff
-    stay global: the logits edge, the embedding and the MoE layer tell a
-    sharded leaf by its shape (a vocabulary that does not divide is
-    whole)."""
+    whole: a ``models.common.LocalConfig`` whose ``layout`` says which.
+    ``decode`` (a rank of the static decode step over a dense cache, in
+    the training mode's layouts) keeps KV heads that do not divide
+    global instead of slicing them: the rules then cut the cache's lines
+    over the axis (``LocalLayout.kv_seq``).  vocab_size, n_experts and
+    moe_d_ff stay global: the logits edge, the embedding and the MoE
+    layer tell a sharded leaf by its shape (a vocabulary that does not
+    divide is whole)."""
+    train = train or decode
     heads, kv = cfg.n_heads, cfg.n_kv_heads
     cp = train and heads % tp != 0
-    sliced = False
+    sliced, lines = False, decode and kv % tp != 0
     if not cp:
         heads //= tp
         if kv % tp == 0:
             kv //= tp
-        elif train:
+        elif train and not decode:
             kv, sliced = 1, True
-    layout = LocalLayout(sliced, cp, train and cfg.d_ff % tp != 0)
+    layout = LocalLayout(sliced, cp, train and cfg.d_ff % tp != 0, lines)
     if layout != HEAD_PARALLEL:
         cfg = LocalConfig(**{f.name: getattr(cfg, f.name)
                              for f in dataclasses.fields(ModelConfig)},

@@ -359,6 +359,11 @@ def train_local_config(cfg: ModelConfig, mesh: Optional[Mesh]
     sliced where the rules replicate them, context-parallel attention
     where the query heads do not divide), behind
     ``check_supported(cfg, train_tp=)`` and :func:`train_tp_error`."""
+    return _local_config(cfg, mesh, decode=False)
+
+
+def _local_config(cfg: ModelConfig, mesh: Optional[Mesh], *,
+                  decode: bool) -> ModelConfig:
     tp = tp_size(mesh)
     if tp <= 1:
         return cfg
@@ -366,7 +371,117 @@ def train_local_config(cfg: ModelConfig, mesh: Optional[Mesh]
     err = train_tp_error(cfg, tp)
     if err:
         raise NotImplementedError(err)
-    return shd.tp_local_config(cfg, tp, cfg.tp_overlap, train=True)
+    return shd.tp_local_config(cfg, tp, cfg.tp_overlap, train=True,
+                               decode=decode)
+
+
+def decode_local_config(cfg: ModelConfig, mesh: Optional[Mesh]
+                        ) -> ModelConfig:
+    """The config a rank's static decode step (``models.decode_step``
+    over its blocks of the dense cache) runs on ``mesh``: ``cfg`` without
+    a ``model`` axis, else the training mode's layouts
+    (:func:`train_local_config`'s gates) except that KV heads that do not
+    divide ``model`` stay global: the rules cut the cache's lines over it
+    instead (``parallel.sharding.tp_local_config(..., decode=True)``, a
+    ``kv_seq`` layout).  MLA's latent lines are cut whatever the heads."""
+    return _local_config(cfg, mesh, decode=True)
+
+
+def decode_wire_bytes(cfg: ModelConfig, sizes: Dict[str, int], B: int,
+                      S: int) -> Dict[str, float]:
+    """The per-device ``model``-axis wire bytes of one static decode step
+    of ``cfg`` (a global batch of ``B`` rows, one token each, against an
+    ``S``-line dense cache) on a mesh of axis ``sizes``, by edge, under
+    the ring model of :func:`tp_wire_bytes` (a gather's result of p bytes
+    puts p (n-1)/n on the wire).  For a rank's T = B / batch shards rows:
+
+    * ``kv_merge``: per attention over cut lines (self attention where
+      the KV heads do not divide ``model``; its cross attention where
+      the axis also divides the source's lines; MLA always) the
+      all-gather of every head's output with its float32 log-sum-exp:
+      (n - 1) T H (w itemsize + 4), w = hd (GQA), ``kv_lora_rank``
+      (absorbed MLA) or ``v_head_dim`` (expanded);
+    * ``head_gather``: where the query heads are split, each such
+      attention's (T, H, hd) queries (MLA: q_rope, and q_lat absorbed or
+      q_nope expanded, whose ``wk_b`` and ``wv_b`` are gathered whole
+      too);
+    * ``tp_reduce``: the vocab-sharded embedding's (T, D); per attention
+      with split heads (or under ``tp_attn_inner`` where they are whole
+      and H hd divides) the o-projection's (T, D); per split FFN its own
+      (a MoE layer's one; a dense ``d_ff`` that does not divide runs
+      whole);
+    * ``tp_gather``: the logits' (T, V).
+
+    ``model`` is the sum; all zeros without a ``model`` axis.  ``S``
+    only decides whether the lines are cut, which decode needs: an S the
+    axis does not divide is refused."""
+    from ..models.params import torch_dtype
+    from ..models.transformer import cross_len
+    from ..parallel.mesh import batch_shards
+    n = sizes.get(MODEL_AXIS, 1)
+    out = dict.fromkeys(("kv_merge", "head_gather", "tp_reduce",
+                         "tp_gather"), 0.0)
+    if n <= 1:
+        return {"model": 0.0, **out}
+    if S % n:
+        raise NotImplementedError(
+            f"a {S}-line dense cache does not divide model={n}")
+    ring = (n - 1) / n
+    isz = torch_dtype(cfg.dtype).itemsize
+    T = B // batch_shards(sizes)
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    split = H % n == 0                    # query heads split over model
+
+    def ar(elems: float) -> float:
+        return 2.0 * elems * isz * ring
+
+    def ag(elems: float) -> float:
+        return elems * isz * ring
+
+    def merge(width: int) -> float:
+        return (n - 1) * T * H * (width * isz + 4)
+
+    def oproj() -> float:
+        if split or (cfg.tp_attn_inner and (H * hd) % n == 0):
+            return ar(T * D)
+        return 0.0
+
+    def attn(cut: bool):
+        if KV % n == 0:                   # head parallel: every line
+            out["tp_reduce"] += ar(T * D)
+            return
+        if split:
+            out["head_gather"] += ag(T * H * hd)
+        if cut:
+            out["kv_merge"] += merge(hd)
+        out["tp_reduce"] += oproj()
+
+    def mla():
+        r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+        dn, dv = cfg.nope_head_dim, cfg.v_head_dim
+        if cfg.mla_absorb:
+            out["head_gather"] += ag(T * H * (r + dr))
+            out["kv_merge"] += merge(r)
+        else:
+            out["head_gather"] += ag(T * H * (dn + dr) + r * H * (dn + dv))
+            out["kv_merge"] += merge(dv)
+        out["tp_reduce"] += ar(T * D)
+
+    if cfg.vocab_size % n == 0:
+        out["tp_reduce"] += ar(T * D)                  # the embedding
+        out["tp_gather"] += ag(T * cfg.vocab_size)     # the logits
+    for unit, reps in cfg.segments():
+        for _ in range(reps):
+            for b in unit:
+                if b.mixer in ("attn", "attn+cross"):
+                    attn(True)
+                if b.mixer in ("cross_attn", "attn+cross"):
+                    attn(cross_len(cfg, b) % n == 0)
+                if b.mixer == "mla":
+                    mla()
+                if b.ffn == "moe" or (b.ffn == "dense" and cfg.d_ff % n == 0):
+                    out["tp_reduce"] += ar(T * D)
+    return {"model": sum(out.values()), **out}
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig(),

@@ -140,7 +140,7 @@ CELLS = {
     ("qwen3-14b", "train_4k", True, "baseline"): "ok",
     ("qwen3-14b", "prefill_32k", False, "baseline"): "ok",
     ("qwen3-14b", "long_500k", False, "baseline"): "skipped",
-    ("qwen3-14b", "decode_32k", False, "baseline"): "not_ported",
+    ("qwen3-14b", "decode_32k", False, "baseline"): "ok",
     ("xlstm-350m", "train_4k", False, "baseline"): "not_ported",
     ("qwen3-14b", "train_4k", False, "bogus"): "error",
 }
@@ -182,8 +182,7 @@ def test_run_cell_status(cells, key):
     assert res["status"] == CELLS[key], res
     assert res["arch"] == key[0] and res["shape"] == key[1]
     if res["status"] == "not_ported":
-        item = 21 if key[0] == "xlstm-350m" else 22
-        assert f"item {item}" in res["reason"]
+        assert "item 21" in res["reason"]
     if res["status"] == "skipped":
         assert res["reason"] == "quadratic full attention; see DESIGN.md §5"
     if res["status"] == "error":

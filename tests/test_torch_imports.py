@@ -61,7 +61,9 @@ def test_port_imports_without_jax_or_reference():
                 "train.data", "train.checkpoint", "train.loop",
                 "launch.train", "launch.specs", "launch.train_lm",
                 "launch.mesh", "launch.dryrun", "launch.reanalyze",
-                "launch.arch_roofline", "launch.perf_table"):
+                "launch.arch_roofline", "launch.perf_table",
+                "launch.quickstart", "launch.roofline_analysis",
+                "launch.serve_lm"):
         assert f"repro_torch.{mod}" in walked
 
 
